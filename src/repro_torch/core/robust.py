@@ -1,0 +1,204 @@
+"""Robust aggregation over *pytrees* of per-worker stacks (static f).
+
+Counterpart of ``repro.core.robust.robust_aggregate``.  Inputs are pytrees
+whose every leaf carries a leading worker axis n; the output is the
+aggregated pytree without it.
+
+Two execution strategies, as in the reference:
+
+* **gram path** (average / krum / multikrum / gm / autogm / mda, with or
+  without NNM): the (n, n) Gram matrix, coefficients from G alone, one
+  linear combination.
+* **coordinate path** (cwtm / cwmed / meamed): optionally mix with the NNM
+  matrix, then sort / trim along the worker axis.
+
+``AggregatorSpec.backend`` routes through :mod:`repro_torch.kernels.dispatch`:
+"torch" is the leaf-streamed path below (the reference's "xla"); "cuda"
+flattens the stack to one (n, D) buffer and runs the gram (K1), combine
+(K3) and fused mix+trim (K2) kernels, so the NNM-mixed stack never exists
+in device memory; "auto" is "cuda" for a CUDA stack and "torch" otherwise.
+
+Not ported yet, and rejected with an error: ``pre="bucketing"``,
+``hier``, ``sketch_dim`` (ROADMAP queue 1, items 3 and 13).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core import gram as gramlib
+from repro_torch.core.aggregators import _median
+from repro_torch.core.types import AggregatorSpec, COORDINATE_RULES, GRAM_RULES
+from repro_torch.kernels import dispatch as kdispatch
+from repro_torch.kernels.gram import gram_ref
+from repro_torch.tree import tree_leaves, tree_map
+
+PyTree = Any
+Tensor = torch.Tensor
+
+
+def tree_gram(tree: PyTree) -> Tensor:
+    """Accumulate the (n, n) fp32 Gram matrix over all leaves (fp32
+    products of the leaf's own values: a bf16 stack widens exactly; wide
+    leaves contract in column chunks, see ``gram_ref``)."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    g = torch.zeros((n, n), dtype=torch.float32, device=leaves[0].device)
+    for leaf in leaves:
+        g = g + gram_ref(leaf.reshape(n, -1))
+    return g
+
+
+def tree_combine(tree: PyTree, coeff: Tensor) -> PyTree:
+    """R = coeff @ X leaf by leaf; coeff is rounded to the leaf's dtype and
+    the contraction accumulates in fp32."""
+    def comb(leaf):
+        n = leaf.shape[0]
+        c = coeff.to(leaf.dtype).float()
+        return (c @ leaf.reshape(n, -1).float()).reshape(leaf.shape[1:])
+    return tree_map(comb, tree)
+
+
+def tree_mix(tree: PyTree, m: Tensor) -> PyTree:
+    """Y = M @ X leaf by leaf, keeping the worker axis; M is rounded to the
+    leaf's dtype, the result is fp32."""
+    def mix(leaf):
+        n = leaf.shape[0]
+        y = m.to(leaf.dtype).float() @ leaf.reshape(n, -1).float()
+        return y.reshape((m.shape[0],) + tuple(leaf.shape[1:]))
+    return tree_map(mix, tree)
+
+
+def _coordinate_rule(x: Tensor, rule: str, f: int) -> Tensor:
+    """A coordinate-wise rule along axis 0 of one (n, ...) stack, fp32."""
+    n = x.shape[0]
+    x = x.float()
+    if rule == "cwmed":
+        return _median(x)
+    if rule == "cwtm":
+        if f == 0:
+            return x.mean(dim=0)
+        return torch.sort(x, dim=0).values[f: n - f].mean(dim=0)
+    if rule == "meamed":
+        med = _median(x)[None]
+        order = torch.argsort(torch.abs(x - med), dim=0, stable=True)
+        xs = torch.take_along_dim(x, order, dim=0)
+        return xs[: n - f].mean(dim=0)
+    raise ValueError(rule)
+
+
+def _tree_coordinate_rule(tree: PyTree, rule: str, f: int) -> PyTree:
+    """Apply a coordinate-wise rule along the worker axis of every leaf."""
+    return tree_map(lambda leaf: _coordinate_rule(leaf, rule, f), tree)
+
+
+def _validate(spec: AggregatorSpec) -> None:
+    if spec.hier:
+        raise NotImplementedError(
+            "hierarchical aggregation (hier) is not ported yet "
+            "(ROADMAP queue 1, item 13)")
+    if spec.sketch_dim:
+        raise NotImplementedError(
+            "sketch_dim (the sketch gram) is not ported yet "
+            "(ROADMAP queue 1, item 3)")
+    if spec.pre == "bucketing":
+        raise NotImplementedError(
+            "pre='bucketing' is not ported yet (ROADMAP queue 1, item 13)")
+    if spec.pre not in (None, "none", "nnm"):
+        raise ValueError(f"unknown pre-aggregation {spec.pre!r}")
+    if spec.transport_dtype not in (None, "bf16"):
+        raise ValueError(f"unknown transport_dtype {spec.transport_dtype!r}")
+
+
+def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
+                    return_coeff: bool) -> PyTree:
+    """Kernel pipeline: the stack as one (n, D) buffer -> gram (K1) ->
+    NNM / coefficients -> combine (K3) or fused mix+trim (K2) ->
+    aggregated pytree (views of one (D,) fp32 vector)."""
+    backend = "cuda"
+    flat, layout = kdispatch.flatten_worker_stack(work)
+    mix_matrix, g = None, None
+    if spec.rule in GRAM_RULES or spec.pre == "nnm":
+        g = kdispatch.dispatch_gram(flat, backend=backend)
+    if spec.pre == "nnm":
+        mix_matrix = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), f)
+        g = gramlib.mixed_gram(g, mix_matrix)
+
+    if spec.rule in GRAM_RULES:
+        if spec.rule == "autogm":
+            kdispatch.record_decision(
+                "autogm_coeff", backend, "torch",
+                "autogm adaptive-weight solve is gram-space math with no "
+                "kernel form")
+        coeff = gramlib.coeff_for_rule(
+            spec.rule, g, f, gm_iters=spec.gm_iters, gm_eps=spec.gm_eps,
+            autogm_lamb=spec.autogm_lamb, autogm_iters=spec.autogm_iters)
+        if mix_matrix is not None:
+            coeff = coeff @ mix_matrix   # R = c^T (M X) = (c^T M) X
+        vec = kdispatch.dispatch_combine(flat, coeff.contiguous(),
+                                         backend=backend)
+        out = kdispatch.unflatten_aggregate(vec, layout)
+        return (out, coeff) if return_coeff else out
+
+    if spec.rule in COORDINATE_RULES:
+        # With NNM, M is rounded to the stack dtype first — the rounding
+        # tree_mix applies — so bf16-transport runs agree across backends.
+        m = None if mix_matrix is None else mix_matrix.to(flat.dtype)
+        if spec.rule == "meamed":
+            vec = kdispatch.dispatch_meamed(flat, m, f, backend=backend)
+        else:
+            mode = "med" if spec.rule == "cwmed" else "trim"
+            vec = kdispatch.dispatch_mixtrim(flat, m, f, mode=mode,
+                                             backend=backend)
+        out = kdispatch.unflatten_aggregate(vec, layout)
+        return (out, None) if return_coeff else out
+
+    raise ValueError(f"unknown rule {spec.rule!r}")
+
+
+def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
+                     return_coeff: bool = False) -> PyTree:
+    """Pre-aggregation + rule on a worker-stacked pytree; returns the
+    aggregated pytree (worker axis removed).  With ``return_coeff=True``
+    also returns the effective coefficient vector of a gram rule (else
+    None).  Decisions land on ``kdispatch.last_dispatch()``."""
+    _validate(spec)
+    f = spec.f
+    work = tree
+    if spec.transport_dtype == "bf16":
+        work = tree_map(lambda leaf: leaf.to(torch.bfloat16), work)
+
+    device = tree_leaves(work)[0].device
+    backend = kdispatch.resolve_backend(spec.backend, device)
+    kdispatch.open_record(requested=spec.backend, backend=backend,
+                          rule=spec.rule, pre=spec.pre)
+    if backend == "cuda":
+        return _aggregate_flat(work, spec, f, return_coeff=return_coeff)
+    kdispatch.record_decision("pipeline", "torch", "torch",
+                              "leaf-streamed torch path")
+
+    g = tree_gram(work)
+    mix_matrix = None
+    if spec.pre == "nnm":
+        mix_matrix = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), f)
+        g = gramlib.mixed_gram(g, mix_matrix)
+
+    if spec.rule in GRAM_RULES:
+        coeff = gramlib.coeff_for_rule(spec.rule, g, f,
+                                       gm_iters=spec.gm_iters,
+                                       gm_eps=spec.gm_eps,
+                                       autogm_lamb=spec.autogm_lamb,
+                                       autogm_iters=spec.autogm_iters)
+        if mix_matrix is not None:
+            coeff = coeff @ mix_matrix
+        out = tree_combine(work, coeff)
+        return (out, coeff) if return_coeff else out
+
+    if spec.rule in COORDINATE_RULES:
+        if mix_matrix is not None:
+            work = tree_mix(work, mix_matrix)
+        out = _tree_coordinate_rule(work, spec.rule, f)
+        return (out, None) if return_coeff else out
+
+    raise ValueError(f"unknown rule {spec.rule!r}")

@@ -1,0 +1,99 @@
+"""Theoretical quantities from the paper, as executable code.
+
+Counterpart of ``repro.core.theory``: the closed forms ``kappa``,
+``composed_kappa`` and ``breakdown_point`` (without the bucketing stage,
+which is not ported yet) and the per-step ``tree_kappa_hat`` estimator.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.tree import tree_leaves
+
+#: Column chunk of the kappa-hat reduction: bounds its temporaries at
+#: (n, chunk) fp32 however wide a leaf is (the embedding of a full-width
+#: LM is 47M columns per worker).
+KAPPA_CHUNK = 1 << 22
+
+
+def kappa(rule: str, n: int, f: int) -> float:
+    """Exact (f, kappa)-robustness coefficient proved in Appendix 8.1."""
+    if rule == "average" and f == 0:
+        return 0.0
+    if n <= 2 * f:
+        raise ValueError("kappa undefined for n <= 2f")
+    r = f / (n - 2 * f)
+    if rule == "cwtm":
+        return 6.0 * r * (1.0 + r)            # Prop. 2
+    if rule == "krum":
+        return 6.0 * (1.0 + r)                # Prop. 3
+    if rule in ("gm", "cwmed", "autogm"):
+        return 4.0 * (1.0 + r) ** 2           # Prop. 4/5 (AutoGM surrogate)
+    if rule == "average":
+        return 0.0
+    raise ValueError(f"no proved kappa for rule {rule!r}")
+
+
+def nnm_kappa(base_kappa: float, n: int, f: int) -> float:
+    """Lemma 1: F∘NNM is (f, kappa')-robust with kappa' <= 8f/(n-f)(kappa+1)."""
+    return 8.0 * f / (n - f) * (base_kappa + 1.0)
+
+
+def composed_kappa(rule: str, n: int, f: int, pre: str | None = None) -> float:
+    """Kappa of the composed pipeline pre -> rule (Lemma 1 for NNM)."""
+    base = kappa(rule, n, f)
+    if pre in (None, "none"):
+        return base
+    if pre == "nnm":
+        return nnm_kappa(base, n, f)
+    raise ValueError(f"no composed kappa for pre-aggregation {pre!r}")
+
+
+#: Rules with a finite breakdown point under the paper's n > 2f adaptation.
+ROBUST_RULES = frozenset({"krum", "multikrum", "gm", "autogm", "cwmed",
+                          "cwtm", "mda", "meamed"})
+
+
+def max_tolerable_f(rule: str, n: int, *, pre: str | None = None) -> int:
+    """Largest Byzantine count the rule tolerates on n workers."""
+    if pre not in (None, "none", "nnm", "bucketing"):
+        raise ValueError(f"unknown pre-aggregation {pre!r}")
+    if n < 1:
+        raise ValueError(f"need n >= 1, got n={n}")
+    if rule == "average":
+        return 0
+    if rule not in ROBUST_RULES:
+        raise ValueError(f"no breakdown point for rule {rule!r}")
+    return (n - 1) // 2
+
+
+def breakdown_point(rule: str, n: int, f: int = 0, *,
+                    pre: str | None = None) -> float:
+    """Theoretical breakdown point f*/n of ``rule`` on n workers."""
+    fmax = max_tolerable_f(rule, n, pre=pre)
+    if not 0 <= f <= fmax:
+        raise ValueError(
+            f"f={f} outside [0, {fmax}] = tolerable range of {rule!r} "
+            f"(pre={pre!r}) on n={n} workers")
+    return fmax / n
+
+
+def tree_kappa_hat(agg, stack, n_honest: int) -> torch.Tensor:
+    """Paper Eq. (26) over worker-stacked pytrees, in fp32:
+    ||R - mbar||^2 / mean_i ||m_i - mbar||^2 over the first ``n_honest``
+    rows, returned as its square root.  Leaves are reduced in column chunks
+    of :data:`KAPPA_CHUNK`."""
+    leaves = tree_leaves(stack)
+    dev = leaves[0].device
+    num = torch.zeros((), dtype=torch.float32, device=dev)
+    den = torch.zeros((), dtype=torch.float32, device=dev)
+    for a, s in zip(tree_leaves(agg), leaves):
+        n = s.shape[0]
+        s2 = s.reshape(n, -1)
+        a1 = a.reshape(-1)
+        for c0 in range(0, s2.shape[1], KAPPA_CHUNK):
+            h = s2[:n_honest, c0:c0 + KAPPA_CHUNK].float()
+            mbar = h.mean(dim=0)
+            num += torch.sum((a1[c0:c0 + KAPPA_CHUNK].float() - mbar) ** 2)
+            den += torch.mean(torch.sum((h - mbar) ** 2, dim=1))
+    return torch.sqrt(num / (den + 1e-20))

@@ -1,0 +1,60 @@
+"""Shared types for the Byzantine-robust aggregation core.
+
+The canonical input of every aggregation primitive is a 2-D stack
+``x : (n, d)`` holding one vector per worker; pytree-level wrappers live
+in :mod:`repro_torch.core.robust`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+#: Backends of the port.  "torch" is the leaf-streamed plain path (the
+#: reference's "xla"); "cuda" flattens the worker stack to one (n, D)
+#: buffer and runs the hand-written gram / combine / mixtrim kernels (the
+#: reference's "pallas"); "auto" picks "cuda" for a CUDA stack and "torch"
+#: otherwise.
+BACKENDS = ("torch", "cuda", "auto")
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregatorSpec:
+    """Fully describes a robust aggregation pipeline.
+
+    Attributes mirror ``repro.core.types.AggregatorSpec``.  ``hier``,
+    ``sketch_dim``, ``pre="bucketing"`` and the sharded backends are not
+    ported yet; :func:`repro_torch.core.robust.robust_aggregate` rejects
+    them with an error naming the ROADMAP item.
+    """
+
+    rule: str = "cwtm"
+    f: int = 0
+    pre: Optional[str] = "nnm"
+    bucket_size: Optional[int] = None
+    hier: bool = False
+    gm_iters: int = 8
+    gm_eps: float = 1e-8
+    autogm_lamb: float = 1.0
+    autogm_iters: int = 4
+    backend: str = "auto"
+    transport_dtype: Optional[str] = None          # None (=fp32) | "bf16"
+    sketch_dim: int = 0
+
+    def describe(self) -> str:
+        pre = f"{self.pre}+" if self.pre else ""
+        return f"{pre}{self.rule}(f={self.f})"
+
+
+#: Rules whose output is a linear combination coeff @ x with coeff a pure
+#: function of the Gram matrix.
+GRAM_RULES = frozenset({"average", "krum", "multikrum", "gm", "autogm",
+                        "mda"})
+
+#: Rules that operate coordinate-wise on the (optionally mixed) stack.
+COORDINATE_RULES = frozenset({"cwmed", "cwtm", "meamed"})
+
+ALL_RULES = tuple(sorted(GRAM_RULES | COORDINATE_RULES))
+
+#: Attacks the port runs (mimic and the ``_opt`` eta searches are still
+#: to be ported: ROADMAP queue 1, item 3).
+ATTACKS = ("none", "alie", "foe", "sf", "lf", "nan", "inf")

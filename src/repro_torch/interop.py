@@ -1,0 +1,95 @@
+"""The weights bridge between the reference's numpy view and the port.
+
+``params_from_numpy`` turns the JAX package's parameters, given as a tree
+of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), into the
+port's dict of tensors; ``params_to_numpy`` goes back.  The same helpers
+carry the trainer state: the reference's momentum is a list of (n, ...)
+leaves in parameter order, the port's one flat (n, D) fp32 buffer.
+
+bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays (JAX's numpy
+bf16); they are reinterpreted bit for bit.  On the way back bf16 tensors
+become fp32 arrays (exact), so this module needs no ``ml_dtypes``.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map
+
+PyTree = Any
+
+
+def tensor_from_numpy(a, device: Optional[torch.device] = None
+                      ) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t if device is None else t.to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def params_from_numpy(tree: PyTree, device: Optional[torch.device] = None
+                      ) -> PyTree:
+    """A tree of numpy arrays -> the same tree of tensors on ``device``."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
+
+
+def params_to_numpy(tree: PyTree) -> PyTree:
+    """A tree of tensors -> the same tree of numpy arrays."""
+    return tree_map(tensor_to_numpy, tree)
+
+
+def momentum_from_numpy(leaves: list, device: Optional[torch.device] = None
+                        ) -> torch.Tensor:
+    """The reference's momentum list of (n, ...) leaves -> the port's flat
+    (n, D) fp32 buffer (leaves in parameter order)."""
+    n = np.asarray(leaves[0]).shape[0]
+    flat = np.concatenate([np.asarray(l, np.float32).reshape(n, -1)
+                           for l in leaves], axis=1)
+    return tensor_from_numpy(flat, device)
+
+
+def momentum_to_numpy(flat: torch.Tensor, params: PyTree) -> list:
+    """The port's flat (n, D) momentum -> a list of (n, ...) leaves shaped
+    like ``params``' leaves, in the reference's order."""
+    out, off = [], 0
+    arr = tensor_to_numpy(flat)
+    n = arr.shape[0]
+    for p in tree_leaves(params):
+        size = int(np.prod(p.shape))
+        out.append(arr[:, off:off + size].reshape((n,) + tuple(p.shape)))
+        off += size
+    return out
+
+
+def state_from_numpy(state: dict, device: Optional[torch.device] = None
+                     ) -> dict:
+    """The reference's TrainState (as numpy) -> the port's TrainState."""
+    out = dict(params=params_from_numpy(state["params"], device),
+               opt_state=params_from_numpy(state["opt_state"], device),
+               step=int(np.asarray(state["step"])))
+    if "momentum" in state:
+        out["momentum"] = momentum_from_numpy(state["momentum"], device)
+    return out
+
+
+def state_to_numpy(state: dict) -> dict:
+    """The port's TrainState -> the reference's layout, as numpy."""
+    out = dict(params=params_to_numpy(state["params"]),
+               opt_state=params_to_numpy(state["opt_state"]),
+               step=np.int32(state["step"]))
+    if "momentum" in state:
+        out["momentum"] = momentum_to_numpy(state["momentum"], state["params"])
+    return out

@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels of the robust-aggregation hot path.
+
+Each kernel subpackage holds one ``ops.py`` with the wrapper (which
+launches the kernel of ``csrc/*.cu`` for a CUDA stack, or runs the plain
+version for a CPU stack), the plain version, and a launch counter.
+Production code enters through :mod:`repro_torch.kernels.dispatch`.
+Importing this package builds and loads nothing; ``_build.library()``
+compiles on first use.
+"""
+from repro_torch.kernels.combine import combine, combine_ref
+from repro_torch.kernels.gram import gram, gram_ref
+from repro_torch.kernels.mixtrim import mixtrim, mixtrim_ref
+
+__all__ = ["combine", "combine_ref", "gram", "gram_ref", "mixtrim",
+           "mixtrim_ref"]

@@ -1,0 +1,32 @@
+"""Argument checks shared by the kernel wrappers."""
+from __future__ import annotations
+
+import torch
+
+
+def check_stack(x: torch.Tensor, what: str) -> None:
+    """A kernel input stack: 2-D, contiguous, fp32 or bf16, on CUDA."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"{what}: expected a (n, D) stack, got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: expected float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: the stack must be contiguous")
+    if x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"{what}: empty stack {tuple(x.shape)}")
+
+
+def check_small(t: torch.Tensor, shape: tuple, x: torch.Tensor,
+                what: str) -> None:
+    """A small fp32 operand (coefficients, mixing matrix) beside ``x``."""
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what}: expected shape {shape}, got {tuple(t.shape)}")
+    if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
+        raise ValueError(f"{what}: expected a contiguous float32 tensor on "
+                         f"{x.device}, got {t.dtype} on {t.device}")
+
+
+def stream_of(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream

@@ -1,0 +1,167 @@
+// K2 · fused NNM mix + coordinate-wise trimmed mean / median, static f.
+//
+// Replaces the TPU kernel repro/kernels/mixtrim/kernel.py::mixtrim_pallas
+// (body _make_kernel).  Per column c of a (n, D) stack it computes
+// y = M x[:, c] (skipped when M is absent), sorts y along the worker axis
+// and reduces it to the mean of ranks [f, n-f) ("trim"; the plain mean
+// when f == 0) or the median ("med"), writing one fp32 value.
+//
+// One thread owns one column; neighbouring threads take neighbouring
+// columns, so every load of X[j, c] coalesces.  M (n x n, fp32 values of
+// the caller's dtype-rounded matrix) sits in shared memory and is read as
+// a broadcast.  The n mixed values live in registers and go through a
+// bitonic network of height NP = next power of two >= n; the mixed stack
+// never reaches global memory, which is the point of the TPU kernel.
+//
+// Ordering: values are sorted through an order-preserving uint32 key in
+// which every NaN sorts above +inf and the NP - n pad lanes above every
+// NaN.  That is the order torch.sort and jnp.sort give (NaN last), so
+// n = 17 and the nan / inf attack stacks take the same ranks as the plain
+// version; the TPU kernel's fp32-max sentinel would sort below +inf.
+//
+// Bound on this card: bytes (n*D reads, D fp32 writes; ~2n FLOP per read
+// element for the mix plus the network).  Handles n <= 64; the wrapper
+// refuses larger n.
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_N = 64;
+constexpr unsigned NAN_KEY = 0xFFFFFFFEu;
+constexpr unsigned PAD_KEY = 0xFFFFFFFFu;
+
+__device__ __forceinline__ unsigned key_of(float v) {
+  if (isnan(v)) return NAN_KEY;
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// NAN_KEY decodes to a NaN bit pattern (0x7FFFFFFE); PAD_KEY is never read.
+__device__ __forceinline__ float val_of(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+template <int NP>
+__device__ __forceinline__ void bitonic_sort(unsigned (&key)[NP]) {
+#pragma unroll
+  for (int k = 2; k <= NP; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1)
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const int l = i ^ j;
+        if (l > i) {
+          const unsigned a = key[i], b = key[l];
+          const unsigned lo = min(a, b), hi = max(a, b);
+          const bool up = (i & k) == 0;
+          key[i] = up ? lo : hi;
+          key[l] = up ? hi : lo;
+        }
+      }
+}
+
+template <typename T, int NP, bool MIX>
+__global__ void __launch_bounds__(THREADS)
+mixtrim_kernel(const T* __restrict__ x, const float* __restrict__ m, int n,
+               long long d, int f, int med, float* __restrict__ out) {
+  __shared__ float sm[MIX ? NP * NP : 1];
+  if constexpr (MIX) {
+    for (int e = threadIdx.x; e < n * n; e += THREADS) sm[e] = m[e];
+    __syncthreads();
+  }
+  const long long stride = (long long)gridDim.x * THREADS;
+  for (long long c = (long long)blockIdx.x * THREADS + threadIdx.x; c < d;
+       c += stride) {
+    float y[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      y[i] = (i < n) ? to_f32(x[(long long)i * d + c]) : 0.f;
+    if constexpr (MIX) {
+      float z[NP];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        float s = 0.f;
+        if (i < n) {
+#pragma unroll
+          for (int j = 0; j < NP; ++j)
+            if (j < n) s = fmaf(sm[i * n + j], y[j], s);
+        }
+        z[i] = s;
+      }
+#pragma unroll
+      for (int i = 0; i < NP; ++i) y[i] = z[i];
+    }
+
+    float r;
+    if (!med && f == 0) {
+      // Trim with f == 0 is the mean of the (mixed) stack: no sort needed.
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        if (i < n) s += y[i];
+      r = s / (float)n;
+    } else {
+      unsigned key[NP];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) key[i] = (i < n) ? key_of(y[i]) : PAD_KEY;
+      bitonic_sort<NP>(key);
+      if (med) {
+        float lo = 0.f, hi = 0.f;
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          if (i == (n - 1) / 2) lo = val_of(key[i]);
+          if (i == n / 2) hi = val_of(key[i]);
+        }
+        r = (n & 1) ? hi : 0.5f * (lo + hi);
+      } else {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < NP; ++i)
+          if (i >= f && i < n - f) s += val_of(key[i]);
+        r = s / (float)(n - 2 * f);
+      }
+    }
+    out[c] = r;
+  }
+}
+
+template <typename T, int NP>
+void launch_np(const T* x, const float* m, int n, long long d, int f,
+               int med, float* out, int blocks, cudaStream_t s) {
+  if (m)
+    mixtrim_kernel<T, NP, true><<<blocks, THREADS, 0, s>>>(x, m, n, d, f, med, out);
+  else
+    mixtrim_kernel<T, NP, false><<<blocks, THREADS, 0, s>>>(x, m, n, d, f, med, out);
+}
+
+template <typename T>
+int launch(const void* xv, const float* m, int n, long long d, int f,
+           int med, float* out, int blocks, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  if (n <= 1) launch_np<T, 1>(x, m, n, d, f, med, out, blocks, s);
+  else if (n <= 2) launch_np<T, 2>(x, m, n, d, f, med, out, blocks, s);
+  else if (n <= 4) launch_np<T, 4>(x, m, n, d, f, med, out, blocks, s);
+  else if (n <= 8) launch_np<T, 8>(x, m, n, d, f, med, out, blocks, s);
+  else if (n <= 16) launch_np<T, 16>(x, m, n, d, f, med, out, blocks, s);
+  else if (n <= 32) launch_np<T, 32>(x, m, n, d, f, med, out, blocks, s);
+  else launch_np<T, 64>(x, m, n, d, f, med, out, blocks, s);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int repro_mixtrim_max_n() { return MAX_N; }
+
+// m: (n, n) fp32 mixing matrix or NULL (no mix); med: 0 = trim, 1 = median.
+extern "C" int repro_mixtrim(const void* x, int dtype, const float* m, int n,
+                             long long d, int f, int med, float* out,
+                             int blocks, void* stream) {
+  if (n < 1 || n > MAX_N || d < 1 || blocks < 1) return cudaErrorInvalidValue;
+  if (!med && (f < 0 || n - 2 * f < 1)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == REPRO_F32) return launch<float>(x, m, n, d, f, med, out, blocks, s);
+  if (dtype == REPRO_BF16)
+    return launch<__nv_bfloat16>(x, m, n, d, f, med, out, blocks, s);
+  return cudaErrorInvalidValue;
+}

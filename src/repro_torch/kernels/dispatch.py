@@ -1,0 +1,254 @@
+"""Kernel backend layer: route the aggregation hot path to CUDA or torch.
+
+Counterpart of ``repro.kernels.dispatch``.  ``repro_torch.core.robust``
+declares ``AggregatorSpec.backend`` ("torch" | "cuda" | "auto") and this
+module turns it into calls over ONE contiguous ``(n, D)`` view of the
+worker-stacked pytree:
+
+* **flatten** — :func:`flatten_worker_stack` returns the stack as one
+  (n, D) buffer: a zero-copy view when the leaves already are column
+  views of one such buffer (the trainer's momentum layout), else a
+  concatenation;
+* **gram** (K1), **combine** (K3), **mixtrim** (K2) — the hand-written
+  kernels of ``kernels/csrc`` for a CUDA stack.  A CPU stack runs each
+  kernel's plain version, and that is RECORDED as a fallback.
+
+Every decision lands on a :class:`DispatchRecord` in a bounded ring
+(:func:`last_dispatch`), so a requested kernel
+path that quietly ran torch ops is detectable.  PyTorch runs eagerly, so a
+record describes the call that opened it (the reference's records describe
+the most recent jit trace).
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core.types import BACKENDS
+from repro_torch.kernels.combine import combine as _combine_op
+from repro_torch.kernels.combine import combine_ref as _combine_ref
+from repro_torch.kernels.gram import gram as _gram_op
+from repro_torch.kernels.gram import gram_ref as _gram_ref
+from repro_torch.kernels.mixtrim import mixtrim as _mixtrim_op
+from repro_torch.kernels.mixtrim import mixtrim_ref as _mixtrim_ref
+from repro_torch.tree import tree_leaves, tree_structure, tree_unflatten
+
+PyTree = Any
+
+#: The kernel wrappers of the port, by primitive name.
+KERNELS = {"gram": _gram_op, "mixtrim": _mixtrim_op, "combine": _combine_op}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per primitive since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def resolve_backend(requested: str, device: torch.device) -> str:
+    """Resolve "auto": the kernels for a CUDA stack, the torch path
+    otherwise.  Explicit requests are honoured."""
+    if requested not in BACKENDS:
+        raise ValueError(
+            f"backend {requested!r} is not ported; expected one of {BACKENDS}")
+    if requested == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    return requested
+
+
+# ---------------------------------------------------------------------------
+# Decision record.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KernelDecision:
+    """One primitive-level routing decision."""
+    primitive: str          # "gram" | "combine" | "mixtrim" | "pipeline" | ...
+    requested: str          # backend asked for at this call site
+    used: str               # "cuda" | "plain" (a kernel's plain version) | "torch"
+    reason: str = ""        # why `used` differs from the kernel path
+
+    @property
+    def fell_back(self) -> bool:
+        return self.requested == "cuda" and self.used != "cuda"
+
+
+@dataclasses.dataclass
+class DispatchRecord:
+    """The decision trail of one ``robust_aggregate`` call."""
+    requested: str          # AggregatorSpec.backend as given ("auto" kept)
+    backend: str            # resolved backend
+    rule: str
+    pre: Optional[str]
+    decisions: list = dataclasses.field(default_factory=list)
+
+    @property
+    def fallbacks(self) -> list:
+        """Decisions where a requested kernel ran as torch ops."""
+        return [d for d in self.decisions if d.fell_back]
+
+    def describe(self) -> str:
+        parts = [f"{self.requested}->{self.backend} rule={self.rule} "
+                 f"pre={self.pre or 'none'}"]
+        for d in self.decisions:
+            why = f" ({d.reason})" if d.reason else ""
+            parts.append(f"  {d.primitive}: {d.used}{why}")
+        return "\n".join(parts)
+
+
+DISPATCH_HISTORY_LIMIT = 256
+_HISTORY: deque = deque(maxlen=DISPATCH_HISTORY_LIMIT)
+
+
+def last_dispatch() -> Optional[DispatchRecord]:
+    """The most recently opened dispatch record, or None."""
+    return _HISTORY[-1] if _HISTORY else None
+
+
+def open_record(*, requested: str, backend: str, rule: str,
+                pre: Optional[str]) -> DispatchRecord:
+    rec = DispatchRecord(requested=requested, backend=backend, rule=rule,
+                         pre=pre)
+    _HISTORY.append(rec)
+    return rec
+
+
+def record_decision(primitive: str, requested: str, used: str,
+                    reason: str = "") -> None:
+    if _HISTORY:
+        _HISTORY[-1].decisions.append(
+            KernelDecision(primitive, requested, used, reason))
+
+
+# ---------------------------------------------------------------------------
+# Flatten / unflatten: one contiguous (n, D) view of the worker stack.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StackLayout:
+    """Leaf-segment metadata of a flattened worker stack."""
+    structure: PyTree       # the tree with leaves replaced by None
+    segments: tuple         # of (offset, size, trailing_shape)
+    n: int                  # worker count
+    width: int              # total feature width D
+
+
+def stack_layout(tree: PyTree) -> StackLayout:
+    """Layout of a worker-stacked pytree in jax's leaf order."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    segs, off = [], 0
+    for leaf in leaves:
+        size = leaf.numel() // n
+        segs.append((off, size, tuple(leaf.shape[1:])))
+        off += size
+    return StackLayout(tree_structure(tree), tuple(segs), n, off)
+
+
+def _as_flat_view(leaves: list, layout: StackLayout) -> Optional[torch.Tensor]:
+    """The (n, D) buffer the leaves are column views of, or None."""
+    base = leaves[0]
+    n, width = layout.n, layout.width
+    storage = base.untyped_storage().data_ptr()
+    start = base.storage_offset()
+    for leaf, (off, _, shape) in zip(leaves, layout.segments):
+        if (leaf.dtype != base.dtype or leaf.device != base.device
+                or leaf.untyped_storage().data_ptr() != storage
+                or leaf.storage_offset() != start + off
+                or (n > 1 and leaf.stride(0) != width)):
+            return None
+        inner = 1
+        for size, stride in reversed(list(zip(shape, leaf.stride()[1:]))):
+            if size > 1 and stride != inner:
+                return None
+            inner *= size
+    need = (start + n * width) * base.element_size()
+    if need > base.untyped_storage().nbytes():
+        return None
+    return base.as_strided((n, width), (width, 1), start)
+
+
+def flatten_worker_stack(tree: PyTree) -> tuple[torch.Tensor, StackLayout]:
+    """One contiguous (n, D) view of a worker-stacked pytree (leaves in
+    jax's order).  Zero-copy when the leaves are column views of one
+    (n, D) buffer; a concatenation otherwise."""
+    leaves = tree_leaves(tree)
+    layout = stack_layout(tree)
+    flat = _as_flat_view(leaves, layout)
+    if flat is None:
+        flat = torch.cat([leaf.reshape(layout.n, -1) for leaf in leaves],
+                         dim=1)
+    return flat, layout
+
+
+def stack_views(flat: torch.Tensor, layout: StackLayout) -> PyTree:
+    """Per-leaf (n, ...) views of a flat (n, D) stack."""
+    leaves = [flat[:, off:off + size].view((layout.n,) + shape)
+              for off, size, shape in layout.segments]
+    return tree_unflatten(layout.structure, leaves)
+
+
+def unflatten_aggregate(vec: torch.Tensor, layout: StackLayout) -> PyTree:
+    """The aggregated pytree (worker axis removed) as views of a (D,)
+    vector."""
+    leaves = [vec[off:off + size].view(shape)
+              for off, size, shape in layout.segments]
+    return tree_unflatten(layout.structure, leaves)
+
+
+# ---------------------------------------------------------------------------
+# Primitive dispatchers.
+# ---------------------------------------------------------------------------
+
+def _used(x: torch.Tensor) -> tuple[str, str]:
+    if x.device.type == "cuda":
+        return "cuda", ""
+    return "plain", "CPU stack: the kernel's plain version"
+
+
+def dispatch_gram(x: torch.Tensor, *, backend: str) -> torch.Tensor:
+    """(n, D) -> (n, n) fp32 Gram matrix through the chosen backend."""
+    if backend == "cuda":
+        record_decision("gram", backend, *_used(x))
+        return _gram_op(x)
+    record_decision("gram", backend, "torch")
+    return _gram_ref(x)
+
+
+def dispatch_combine(x: torch.Tensor, coeff: torch.Tensor, *,
+                     backend: str) -> torch.Tensor:
+    """(n, D), (n,) -> (D,): streamed linear combination."""
+    if backend == "cuda":
+        record_decision("combine", backend, *_used(x))
+        return _combine_op(x, coeff)
+    record_decision("combine", backend, "torch")
+    return _combine_ref(x, coeff)
+
+
+def dispatch_mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f: int, *,
+                     mode: str, backend: str) -> torch.Tensor:
+    """(n, D) -> (D,): fused mix + coordinate trim/median (``m=None``
+    skips the mix)."""
+    f = 0 if mode == "med" else int(f)
+    if backend == "cuda":
+        record_decision("mixtrim", backend, *_used(x))
+        return _mixtrim_op(x, m, f, mode=mode)
+    record_decision("mixtrim", backend, "torch")
+    return _mixtrim_ref(x, m, f, mode)
+
+
+def dispatch_meamed(x: torch.Tensor, m: Optional[torch.Tensor], f: int, *,
+                    backend: str) -> torch.Tensor:
+    """meamed on the flat buffer.  No kernel exists (as in the reference),
+    so this is always a RECORDED torch-ops decision."""
+    record_decision("mixtrim", backend, "torch", "meamed has no fused kernel")
+    from repro_torch.core.robust import _coordinate_rule
+    mixed = x if m is None else m.float() @ x.float()
+    return _coordinate_rule(mixed, "meamed", f)

@@ -1,0 +1,60 @@
+"""GQA attention, full-sequence (training) form.
+
+Counterpart of ``repro.models.attention.attention``: plain einsum
+attention with a causal mask and the kv heads repeated to the q-head
+count.  Biased projections, sliding windows and cross attention arrive
+with the archs that use them.  The reference computes this outside any
+Pallas kernel, so plain torch ops are its port.  Cached decode arrives
+with serving (ROADMAP queue 1, item 12).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import ParamDesc, apply_rope
+
+Tensor = torch.Tensor
+NEG_INF = -1e30
+
+
+def attn_params(cfg: ModelConfig, layers: int) -> dict:
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    d, hd = cfg.d_model, cfg.head_dim
+    L = (layers,) if layers else ()
+    return {
+        "wq": ParamDesc(L + (d, hq * hd), cfg.dtype),
+        "wk": ParamDesc(L + (d, hkv * hd), cfg.dtype),
+        "wv": ParamDesc(L + (d, hkv * hd), cfg.dtype),
+        "wo": ParamDesc(L + (hq * hd, d), cfg.dtype),
+    }
+
+
+def _repeat_kv(k: Tensor, hq: int) -> Tensor:
+    hkv = k.shape[-2]
+    if hkv == hq:
+        return k
+    return torch.repeat_interleave(k, hq // hkv, dim=-2)
+
+
+def attention(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Causal full-sequence attention.  x: (B, S, d) -> (B, S, d)."""
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q = apply_rope(q.reshape(b, s, hq, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, s, hkv, hd), positions, cfg.rope_theta)
+    v = v.reshape(b, s, hkv, hd)
+    k = _repeat_kv(k, hq)
+    v = _repeat_kv(v, hq)
+
+    # fp32 logits of the exact products (the reference's
+    # preferred_element_type=f32 contraction).
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    qi = torch.arange(s, device=x.device)[:, None]
+    kj = torch.arange(s, device=x.device)[None, :]
+    logits = torch.where((qi >= kj)[None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return out.reshape(b, s, hq * hd) @ p["wo"]

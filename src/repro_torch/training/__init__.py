@@ -1,0 +1,7 @@
+from repro_torch.training.trainer import (
+    ByzantineConfig, TrainerConfig, TrainState, build_train_step, init_state,
+    kappa_hat_masked, train_loop,
+)
+
+__all__ = ["ByzantineConfig", "TrainerConfig", "TrainState",
+           "build_train_step", "init_state", "kappa_hat_masked", "train_loop"]

@@ -11,6 +11,8 @@ import pytest
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running integration tests (subprocess meshes)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips with a reason without one")
 
 
 @pytest.fixture(scope="session")

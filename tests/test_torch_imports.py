@@ -1,0 +1,62 @@
+"""Import hygiene of the port: ``repro_torch`` imports neither ``jax`` nor
+the reference package, and its entry points never fall back to the CPU
+without being asked."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+_PROBE = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+import repro_torch
+from repro_torch.launch import train
+out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
+                  "--byz", "1", "--seq", "8", "--batch", "1"])
+assert out["history"]["loss"], out
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+print("CLEAN")
+"""
+
+
+def test_port_runs_a_cpu_step_without_importing_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "CLEAN" in res.stdout
+
+
+def test_no_source_file_names_jax_or_repro():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+                 if pat.search(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_entry_point_without_cpu_request_raises_without_gpu(monkeypatch):
+    from repro_torch import resolve_device
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no GPU"):
+        train.main(["--steps", "1"])
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_checkpoint_flag_names_its_roadmap_item():
+    from repro_torch.launch import train
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.main(["--device", "cpu", "--steps", "1", "--checkpoint", "x"])

@@ -1,0 +1,163 @@
+"""The port's kernels (K1 gram, K2 mixtrim, K3 combine) against the JAX
+package's.
+
+On the CPU each wrapper runs its plain version, so these tests hold the
+plain versions to ``repro.kernels.*.ref`` on a seeded sweep, and one case
+of each to the Pallas kernel in interpret mode.  Tolerances (the
+reference's exactness contracts, docs/perf.md):
+
+* fp32: <= 1e-5 relative to the largest magnitude of the reference output
+  (fp32-dot tightness: the sums run in another order than XLA's);
+* bf16 inputs widen to fp32 exactly in both packages, so they are held to
+  the same fp32 tolerance.
+
+The reference's own bitwise sub-block gram check fails at the seed and is
+not copied.  The CUDA kernels against their plain versions are in
+tests/test_torch_cuda.py, which imports no JAX so it runs on a GPU host.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.combine import combine as jcombine
+from repro.kernels.combine import combine_ref as jcombine_ref
+from repro.kernels.gram import gram as jgram
+from repro.kernels.gram import gram_ref as jgram_ref
+from repro.kernels.mixtrim import mixtrim as jmixtrim
+from repro.kernels.mixtrim import mixtrim_ref as jmixtrim_ref
+from repro_torch.kernels import combine, gram, mixtrim
+from repro_torch.kernels import dispatch as kdispatch
+
+torch.set_num_threads(2)
+
+FP32_RTOL = 1e-5
+
+
+def _close(got, want, rtol=FP32_RTOL):
+    """Same NaN positions, same infinities, and finite entries within
+    ``rtol`` of the largest finite magnitude of ``want``."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = np.isfinite(want)
+    np.testing.assert_array_equal(got[~fin & ~np.isnan(want)],
+                                  want[~fin & ~np.isnan(want)])
+    scale = max(float(np.abs(want[fin]).max()), 1e-30) if fin.any() else 1.0
+    np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=rtol * scale)
+
+
+def _stack(seed, n, d):
+    return np.random.default_rng(seed).normal(size=(n, d)).astype(np.float32)
+
+
+def _both(x, bf16=False):
+    """The same values as a jnp array and a torch tensor (bf16-rounded in
+    both when ``bf16``)."""
+    jx = jnp.asarray(x, jnp.bfloat16 if bf16 else jnp.float32)
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32)))
+    return jx, (tx.to(torch.bfloat16) if bf16 else tx)
+
+
+def _mix(seed, n):
+    z = np.random.default_rng(seed + 1).normal(size=(n, n))
+    m = np.exp(z) / np.exp(z).sum(1, keepdims=True)
+    return m.astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [8, 17])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_gram_plain_matches_reference(n, bf16):
+    jx, tx = _both(_stack(n, n, 777), bf16)
+    _close(gram(tx).numpy(), jgram_ref(jx))
+
+
+@pytest.mark.parametrize("n", [8, 17])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_combine_plain_matches_reference(n, bf16):
+    jx, tx = _both(_stack(n, n, 777), bf16)
+    c = np.random.default_rng(3).dirichlet(np.ones(n)).astype(np.float32)
+    _close(combine(tx, torch.from_numpy(c)).numpy(),
+           jcombine_ref(jx, jnp.asarray(c)))
+
+
+@pytest.mark.parametrize("n", [8, 17])
+@pytest.mark.parametrize("mode", ["trim", "med"])
+@pytest.mark.parametrize("mix", [False, True])
+def test_mixtrim_plain_matches_reference(n, mode, mix):
+    jx, tx = _both(_stack(n, n, 300))
+    m = _mix(n, n) if mix else None
+    for f in sorted({0, 2, (n - 1) // 2}):
+        got = mixtrim(tx, None if m is None else torch.from_numpy(m), f, mode)
+        want = jmixtrim_ref(jx, None if m is None else jnp.asarray(m), f, mode)
+        _close(got.numpy(), want)
+
+
+def test_mixtrim_plain_bf16_stack():
+    """bf16 stack with M rounded to bf16 first (the robust pipeline's
+    transport contract)."""
+    jx, tx = _both(_stack(5, 17, 200), bf16=True)
+    m = np.array(jnp.asarray(_mix(5, 17), jnp.bfloat16).astype(jnp.float32))
+    got = mixtrim(tx, torch.from_numpy(m).to(torch.bfloat16), 8, "trim")
+    _close(got.numpy(), jmixtrim_ref(jx, jnp.asarray(m, jnp.bfloat16), 8, "trim"))
+
+
+@pytest.mark.parametrize("fill", [np.nan, np.inf, -np.inf])
+@pytest.mark.parametrize("mode", ["trim", "med"])
+def test_mixtrim_plain_nonfinite_rows_match_reference(fill, mode):
+    """nan / inf attack rows: both sort NaN last, so the trim drops the f
+    Byzantine rows and the output stays finite; the kernel is held to this
+    plain version on the card."""
+    n, f = 17, 8
+    x = _stack(7, n, 64)
+    x[n - f:] = fill
+    got = mixtrim(torch.from_numpy(x), None, f, mode).numpy()
+    want = np.asarray(jmixtrim_ref(jnp.asarray(x), None, f, mode))
+    _close(got, want)
+    if mode == "trim":
+        assert np.isfinite(got).all()
+
+
+def test_one_case_each_against_interpret_mode_pallas():
+    n, f = 17, 8
+    jx, tx = _both(_stack(11, n, 300))
+    m = _mix(11, n)
+    c = np.random.default_rng(4).dirichlet(np.ones(n)).astype(np.float32)
+    _close(gram(tx).numpy(), jgram(jx, block_d=128, interpret=True))
+    _close(combine(tx, torch.from_numpy(c)).numpy(),
+           jcombine(jx, jnp.asarray(c), block_d=128, interpret=True))
+    _close(mixtrim(tx, torch.from_numpy(m), f, "trim").numpy(),
+           jmixtrim(jx, jnp.asarray(m), f=f, mode="trim", block_d=128,
+                    interpret=True))
+
+
+def test_wrappers_refuse_non_cuda_accelerator_tensors():
+    """A wrapper runs its plain version only for a CPU tensor; any other
+    device must launch the kernel or raise, never fall back."""
+    x = torch.empty((8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        gram(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        combine(x, torch.empty(8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        mixtrim(x, None, 2, "trim")
+
+
+def test_flatten_matches_reference_order_and_is_zero_copy_on_views():
+    from repro.kernels.dispatch import flatten_worker_stack as jflatten
+    rng = np.random.default_rng(0)
+    tree = {"b": {"z": rng.normal(size=(4, 3, 2)), "a": rng.normal(size=(4, 5))},
+            "a": rng.normal(size=(4,))}
+    tree = jax.tree_util.tree_map(lambda a: a.astype(np.float32), tree)
+    jflat, _ = jflatten(jax.tree_util.tree_map(jnp.asarray, tree))
+    ttree = jax.tree_util.tree_map(torch.from_numpy, tree)
+    flat, layout = kdispatch.flatten_worker_stack(ttree)
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(jflat))
+    views = kdispatch.stack_views(flat, layout)
+    again, _ = kdispatch.flatten_worker_stack(views)
+    assert again.data_ptr() == flat.data_ptr()
+    vec = torch.arange(layout.width, dtype=torch.float32)
+    back = kdispatch.unflatten_aggregate(vec, layout)
+    assert back["b"]["z"].shape == (3, 2)
+    assert float(back["a"]) == 0.0

@@ -1,0 +1,207 @@
+"""The port's D-SHB trainer against the reference's jitted train step.
+
+Both packages start from the same parameters (the reference's init carried
+across with ``repro_torch.interop``) and take the same numpy batches; the
+port is held to ``repro.training.build_train_step`` step by step (not to
+``train_loop``'s scan, whose scan-vs-loop equalities fail at the seed).
+
+Tolerances: per-step loss 1e-5 relative; direction_norm 1e-4 relative;
+kappa_hat 1e-4 relative plus 1e-4 absolute; final parameters and momentum
+1e-5 of the largest magnitude in the whole tree (the aggregate is one
+vector, and its rounding is relative to its global norm, not to each
+leaf's: GM's Weiszfeld weights at near-coincident honest rows magnify
+fp32 noise into the small bias leaves).  Both run fp32 on the CPU, but
+forward/backward reductions and matmuls sum in another order in XLA and
+in torch, and the steps compound it.  kappa_hat's numerator ||R - mbar||
+is a difference of near-equal vectors: once NNM has mixed every honest
+row to the honest mean (ALIE with eta=8 lies far from every honest row),
+R equals mbar up to fp32 rounding and kappa_hat (~1e-4) is rounding noise,
+hence the absolute term.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config as j_reduced
+from repro.core.types import AggregatorSpec as JSpec
+from repro.data import build_heterogeneous as j_hetero
+from repro.data import make_classification as j_make_cls
+from repro.data import make_lm_corpus as j_corpus
+from repro.data import worker_batches as j_batches
+from repro.models import build_model as j_build
+from repro.optim import sgd as j_sgd
+from repro.optim.schedules import constant as j_constant
+from repro.optim.schedules import cosine as j_cosine
+from repro.training import ByzantineConfig as JByz
+from repro.training import TrainerConfig as JCfg
+from repro.training import build_train_step as j_build_step
+from repro.training import init_state as j_init_state
+from repro_torch import data as tdata
+from repro_torch.configs import reduced_config as t_reduced
+from repro_torch.core.types import AggregatorSpec as TSpec
+from repro_torch.interop import params_from_numpy, params_to_numpy, state_to_numpy
+from repro_torch.models import build_model as t_build
+from repro_torch.optim import sgd as t_sgd
+from repro_torch.optim.schedules import constant as t_constant
+from repro_torch.optim.schedules import cosine as t_cosine
+from repro_torch.training import ByzantineConfig as TByz
+from repro_torch.training import TrainerConfig as TCfg
+from repro_torch.training import build_train_step as t_build_step
+from repro_torch.training import init_state as t_init_state
+from repro_torch.training.trainer import to_device
+
+torch.set_num_threads(2)
+CPU = torch.device("cpu")
+
+
+def _run_both(j_loss, t_loss, params_np, batches, *, rule, pre, attack, eta,
+              f, lr_j, lr_t, steps):
+    """Steps both packages on the same batches; returns per-step metric
+    pairs and the final parameters of each."""
+    jcfg = JCfg(algorithm="dshb", beta=0.9,
+                agg=JSpec(rule=rule, f=f, pre=pre, backend="xla"),
+                byz=JByz(f=f, attack=attack, eta=eta))
+    tcfg = TCfg(algorithm="dshb", beta=0.9,
+                agg=TSpec(rule=rule, f=f, pre=pre, backend="auto"),
+                byz=TByz(f=f, attack=attack, eta=eta))
+    n = next(iter(jax.tree_util.tree_leaves(batches[0]))).shape[0]
+    jparams = jax.tree_util.tree_map(jnp.asarray, params_np)
+    jopt, topt = j_sgd(clip=2.0), t_sgd(clip=2.0)
+    jstep = jax.jit(j_build_step(j_loss, jopt, jcfg, lr_j))
+    tstep = t_build_step(t_loss, topt, tcfg, lr_t)
+    jstate = j_init_state(jparams, jopt, n, jcfg)
+    tstate = t_init_state(params_from_numpy(params_np, CPU), topt, n, tcfg)
+    key = jax.random.PRNGKey(0)
+    rows = []
+    for b in batches[:steps]:
+        key, sub = jax.random.split(key)
+        jstate, jm = jstep(jstate, b, sub)
+        tstate, tm = tstep(tstate, to_device(b, CPU))
+        rows.append({k: (float(jm[k]), float(tm[k]))
+                     for k in ("loss", "kappa_hat", "direction_norm", "lr")})
+    return rows, jstate, tstate
+
+
+def _check(rows, jstate, tstate):
+    for t, r in enumerate(rows):
+        assert r["lr"][1] == pytest.approx(r["lr"][0], rel=1e-6), (t, r)
+        assert r["loss"][1] == pytest.approx(r["loss"][0], rel=1e-5), (t, r)
+        assert r["direction_norm"][1] == pytest.approx(
+            r["direction_norm"][0], rel=1e-4), (t, r)
+        assert r["kappa_hat"][1] == pytest.approx(
+            r["kappa_hat"][0], rel=1e-4, abs=1e-4), (t, r)
+    jp = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray,
+                                                          jstate["params"]))
+    tp = jax.tree_util.tree_leaves(params_to_numpy(tstate["params"]))
+    assert len(jp) == len(tp)
+    scale = max(float(np.abs(b).max()) for b in jp)
+    for a, b in zip(tp, jp):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * scale)
+    # The flat momentum unflattens to the reference's per-leaf list.
+    mom = state_to_numpy(tstate)["momentum"]
+    jmom = [np.asarray(b) for b in jstate["momentum"]]
+    scale = max(float(np.abs(b).max()) for b in jmom)
+    for a, b in zip(mom, jmom):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * scale)
+
+
+def _lm_batches(vocab, n_workers, steps, seq=16, batch=2):
+    seqs, topics = j_corpus(n_tokens=30_000, vocab=vocab, seq_len=seq + 1,
+                            seed=0)
+    ds = j_hetero({"seq": seqs, "y": topics}, "y", n_workers, alpha=0.1,
+                  seed=0)
+    it = j_batches(ds, batch, seed=0)
+    out = []
+    for _ in range(steps):
+        s = next(it)["seq"]
+        out.append({"tokens": s[..., :-1], "labels": s[..., 1:]})
+    # The port's own numpy copy of the data modules replays the same calls.
+    tseqs, ttopics = tdata.make_lm_corpus(n_tokens=30_000, vocab=vocab,
+                                          seq_len=seq + 1, seed=0)
+    tds = tdata.build_heterogeneous({"seq": tseqs, "y": ttopics}, "y",
+                                    n_workers, alpha=0.1, seed=0)
+    np.testing.assert_array_equal(next(tdata.worker_batches(tds, batch,
+                                                            seed=0))["seq"],
+                                  next(j_batches(ds, batch, seed=0))["seq"])
+    return out
+
+
+def test_smollm_reduced_dshb_nnm_cwtm_alie_matches_reference():
+    steps, n, f = 3, 8, 2
+    jcfg = j_reduced("smollm-360m")
+    tcfg = t_reduced("smollm-360m")
+    assert (tcfg.num_layers, tcfg.d_model, tcfg.vocab_size) == \
+        (jcfg.num_layers, jcfg.d_model, jcfg.vocab_size)
+    jmodel, tmodel = j_build(jcfg), t_build(tcfg)
+    params_np = jax.tree_util.tree_map(np.asarray,
+                                       jmodel.init(jax.random.PRNGKey(0)))
+    batches = _lm_batches(jcfg.vocab_size, n, steps)
+    rows, jstate, tstate = _run_both(
+        jmodel.loss, tmodel.loss, params_np, batches, rule="cwtm", pre="nnm",
+        attack="alie", eta=None, f=f, lr_j=j_cosine(0.05, steps, warmup=0),
+        lr_t=t_cosine(0.05, steps, warmup=0), steps=steps)
+    _check(rows, jstate, tstate)
+
+
+# --- the quickstart MLP (examples/quickstart.py's loss and init) ---------
+
+def _mlp_setup(n_workers=8, steps=4):
+    x, y = j_make_cls(6000, 10, 32, seed=0)
+    ds = j_hetero({"x": x[:4000], "y": y[:4000]}, "y", n_workers, alpha=0.1)
+    it = j_batches(ds, 32, seed=1)
+    batches = [next(it) for _ in range(steps)]
+    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
+    params = {"w1": jax.random.normal(k1, (32, 64)) * 0.18,
+              "b1": jnp.zeros(64),
+              "w2": jax.random.normal(k2, (64, 10)) * 0.12,
+              "b2": jnp.zeros(10)}
+    return jax.tree_util.tree_map(np.asarray, params), batches
+
+
+def _j_mlp_loss(p, b):
+    h = jax.nn.relu(b["x"] @ p["w1"] + p["b1"])
+    lp = jax.nn.log_softmax(h @ p["w2"] + p["b2"])
+    return -jnp.take_along_axis(lp, b["y"][:, None].astype(jnp.int32),
+                                1).mean(), {}
+
+
+def _t_mlp_loss(p, b):
+    h = torch.relu(b["x"] @ p["w1"] + p["b1"])
+    lp = torch.log_softmax(h @ p["w2"] + p["b2"], dim=-1)
+    return -torch.gather(lp, 1, b["y"][:, None].long()).mean(), {}
+
+
+@pytest.mark.parametrize("rule", ["cwtm", "gm"])
+def test_quickstart_mlp_matches_reference(rule):
+    params_np, batches = _mlp_setup()
+    rows, jstate, tstate = _run_both(
+        _j_mlp_loss, _t_mlp_loss, params_np, batches, rule=rule, pre="nnm",
+        attack="alie", eta=8.0, f=2, lr_j=j_constant(0.3),
+        lr_t=t_constant(0.3), steps=len(batches))
+    _check(rows, jstate, tstate)
+
+
+def test_quickstart_port_reaches_reference_accuracy():
+    """examples/quickstart.py run on the port's own train_loop (per-step
+    loop, CPU): the same `best acc > 0.8` assert the reference passes."""
+    from repro_torch.training import train_loop as t_train_loop
+    x, y = tdata.make_classification(6000, 10, 32, seed=0)
+    ds = tdata.build_heterogeneous({"x": x[:4000], "y": y[:4000]}, "y", 8,
+                                   alpha=0.1)
+    xte, yte = torch.from_numpy(x[4000:]), torch.from_numpy(y[4000:])
+    params_np, _ = _mlp_setup(steps=0)
+
+    def accuracy(p):
+        h = torch.relu(xte @ p["w1"] + p["b1"])
+        return (torch.argmax(h @ p["w2"] + p["b2"], -1) == yte).float().mean()
+
+    cfg = TCfg(algorithm="dshb", beta=0.9,
+               agg=TSpec(rule="cwtm", f=2, pre="nnm"),
+               byz=TByz(f=2, attack="alie", eta=8.0))
+    _, out = t_train_loop(_t_mlp_loss, params_from_numpy(params_np, CPU),
+                          tdata.worker_batches(ds, 32, seed=1),
+                          t_sgd(clip=2.0), cfg, t_constant(0.3), steps=150,
+                          eval_fn=accuracy, eval_every=30)
+    assert out["best"]["acc"] > 0.8, out["history"]["eval"]
