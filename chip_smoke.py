@@ -13,13 +13,28 @@ Phases, each fatal on failure:
      ragged smaller D; times by CUDA events (median of 7, after a warm-up)
      beside the least time the card could take (bound) and, where one
      PyTorch call computes the same function, that call's time;
-  4. the main path: ``repro_torch.launch.train.main`` for 3 D-SHB steps of
+  4. K6 (bucketgram) and K7 (bucketmeans) against their plain versions at
+     the hierarchical trainer's shape (n = 16 workers in 8 buckets,
+     D = 361,821,120, fp32 and bf16, then with inf / NaN rows), and at the
+     reference's scale shapes (n in {256, 1024, 4096, 10240},
+     d = clamp(2^19 / n, 64, 2048), buckets of 16);
+  5. K2 above 64 workers (n in {65, 256, 640, 1024, 10240}, trim and
+     median, with and without the mix, and with NaN / inf rows) against its
+     plain version;
+  6. robust_aggregate(hier, nnm, cwtm) at the n = 10240 scale shape on the
+     kernel backend against the torch backend with the same permutation;
+  7. the main path: ``repro_torch.launch.train.main`` for 3 D-SHB steps of
      full-width smollm-360m, n = 8, f = 2, ALIE, NNM + CWTM; asserts finite
      loss / kappa_hat, one K1 and one K2 launch per step and no recorded
      fallback; then step 1's attacked stack through robust_aggregate on
      the kernel backend against the leaf-streamed torch backend;
-  5. the gram-rule path: 2 steps with NNM + GM, asserting K3 ran;
-  6. summary: the K1-K7 table, the kernels JSON line, the card line, and
+  8. the gram-rule path: 2 steps with NNM + GM, asserting K3 ran;
+  9. the hierarchical trainer at full width, n = 16, f = 3, ALIE, through
+     train_loop: hier + NNM + CWTM (3 steps; K6 = 1, K2 = 1, K1 = 0 per
+     step), hier + CWTM (2 steps; K7 and K2), hier + NNM + GM (2 steps; K6
+     and K3); then --agg bucketing+cwtm through launch.train.main (2 steps;
+     K2 only);
+ 10. summary: the K1-K7 table, the kernels JSON line, the card line, and
      last the {"ok": true, ...} line.
 
 It needs one CUDA card and imports nothing of JAX or of the reference
@@ -41,7 +56,13 @@ sys.path.insert(0, str(ROOT / "src"))
 N_MAIN, F_MAIN = 8, 2
 D_MAIN = 361_821_120            # smollm-360m parameter count (tied, padded vocab)
 N_SENT, F_SENT, D_SENT = 17, 8, (1 << 24) + 3
+N_HIER, F_HIER = 16, 3          # hierarchical runs: s = 2, 8 buckets, f' = 3
+SCALE_NS = (256, 1024, 4096, 10240)   # the reference's scale cases, s = 16
+#: K2 above 64 workers: (n, D); n = 640 is the scale case's bucket count.
+K2_LARGE = ((65, (1 << 20) + 3), (256, 1 << 20), (640, 1 << 20),
+            (1024, 1 << 20), (10240, 64))
 PLAIN_CHUNK = 1 << 25           # plain mixtrim runs in D-chunks (sort indices)
+PLAIN_ELEMS = 1 << 28           # ... of at most this many elements above n = 64
 REPS = 7
 RTOL = 1e-5                     # of the largest finite |plain| (fp32 contract)
 FP32_TFLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -76,20 +97,42 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def max_err(got, want) -> tuple[float, float]:
-    """(max |got - want| over finite entries, tolerance); NaN / inf
-    positions must agree exactly."""
+def _chunks(got, want, step: int = 1 << 26):
+    got, want = got.reshape(-1), want.reshape(-1)
+    for c in range(0, want.numel(), step):
+        yield got[c:c + step].float(), want[c:c + step].float()
+
+
+def max_err(got, want, ulp: bool = False) -> tuple[float, float]:
+    """(max |got - want| over finite entries, tolerance), in chunks so
+    that (n_b, D) outputs need no full-size temporaries; NaN / inf
+    positions must agree exactly.  The tolerance is 1e-5 of the largest
+    finite |want|; with ``ulp`` each entry may also differ by one bf16
+    ulp (2^-7 of its value), and the returned error is the worst excess
+    over that per-entry allowance (0 when every entry is within it)."""
     import torch
-    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
-    if not torch.equal(nan_g, nan_w):
-        raise AssertionError("NaN positions differ")
-    fin = torch.isfinite(want)
-    if not torch.equal(got[~fin & ~nan_w], want[~fin & ~nan_w]):
-        raise AssertionError("infinities differ")
-    if not bool(fin.any()):
+    scale, any_fin = 0.0, False
+    for g, w in _chunks(got, want):
+        nan_w = torch.isnan(w)
+        if not torch.equal(torch.isnan(g), nan_w):
+            raise AssertionError("NaN positions differ")
+        fin = torch.isfinite(w)
+        inf = ~fin & ~nan_w
+        if not torch.equal(g[inf], w[inf]):
+            raise AssertionError("infinities differ")
+        if bool(fin.any()):
+            any_fin = True
+            scale = max(scale, float(torch.where(fin, w.abs(), 0).max()))
+    if not any_fin:
         return 0.0, 0.0
-    err = float((got[fin] - want[fin]).abs().max())
-    return err, RTOL * float(want[fin].abs().max())
+    err = 0.0
+    for g, w in _chunks(got, want):
+        fin = torch.isfinite(w)
+        d = (g - w).abs()
+        if ulp:
+            d = d - 2.0 ** -7 * w.abs()
+        err = max(err, float(torch.where(fin, d, 0).max()))
+    return max(err, 0.0), RTOL * scale
 
 
 def bound(bytes_moved: float, flops: float, rate: float) -> tuple[float, str]:
@@ -109,11 +152,37 @@ def check(name, got, want, ms, plain_ms, bnd, library_ms=None):
     return err
 
 
-def chunked(fn, d: int):
+def agree(name, got, want) -> None:
+    """A correctness-only comparison (no timing)."""
+    err, tol = max_err(got, want)
+    log(f"  {name}: max_abs_err={err:.3e} tol={tol:.3e} "
+        f"{'OK' if err <= tol else 'FAIL'}")
+    if err > tol:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+
+
+def check_ulp(name, got, want, ms, plain_ms, bnd, library_ms=None):
+    """bf16 means: rounded from fp32 sums taken in another order, so an
+    entry at a rounding boundary may land one bf16 step away; each entry
+    is held to one bf16 ulp (2^-7 of its value) on top of the fp32
+    tolerance."""
+    err, tol = max_err(got, want, ulp=True)
+    ok = err <= tol
+    log(f"  {name}: excess over one bf16 ulp={err:.3e} tol={tol:.3e} "
+        f"{'OK' if ok else 'FAIL'} | kernel {ms:.3f} ms, bound {bnd[0]:.3f} ms "
+        f"({bnd[1]}), plain {plain_ms:.3f} ms, library "
+        f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def chunked(fn, d: int, n: int = 0):
     """The plain mixtrim over D-chunks, concatenated."""
     import torch
-    return lambda: torch.cat([fn(slice(c, min(c + PLAIN_CHUNK, d)))
-                              for c in range(0, d, PLAIN_CHUNK)])
+    step = PLAIN_CHUNK if n <= 64 else max(1, PLAIN_ELEMS // n)
+    return lambda: torch.cat([fn(slice(c, min(c + step, d)))
+                              for c in range(0, d, step)])
 
 
 def phase_kernels(dev, rate: float) -> dict:
@@ -194,12 +263,13 @@ def phase_kernels(dev, rate: float) -> dict:
     return rows
 
 
-def run_train(agg: str, steps: int, capture: bool):
+def run_train(agg: str, steps: int, capture: bool, n: int = N_MAIN,
+              f: int = F_MAIN):
     from repro_torch.kernels import dispatch as kdispatch
     from repro_torch.launch import train
     kdispatch.reset_launch_counts()
     out = train.main(["--arch", "smollm-360m", "--full", "--steps", str(steps),
-                      "--workers", str(N_MAIN), "--byz", str(F_MAIN),
+                      "--workers", str(n), "--byz", str(f),
                       "--attack", "alie", "--agg", agg, "--device", "cuda"],
                      capture_first_stack=capture)
     counts = kdispatch.launch_counts()
@@ -237,6 +307,242 @@ def phase_backends(out) -> None:
         f"max_abs_err={worst:.3e} (tol {RTOL} x max|leaf|) OK")
     del got, want, stack
     torch.cuda.empty_cache()
+
+
+def bucket_plan(n: int, s: int, dev, seed: int):
+    """A bucket assignment of n workers into ceil(n/s) buckets from a
+    seeded permutation, and its dense matrix B."""
+    import torch
+    from repro_torch.core import bucketing
+    gen = torch.Generator().manual_seed(seed)
+    assign = bucketing.bucket_assignment(n, s, generator=gen, device=dev)
+    nb = bucketing.num_buckets(n, s)
+    bmat = bucketing.bucket_matrix(n, s, assignment=assign, device=dev)
+    return assign, nb, bmat
+
+
+def bucket_bound(n, nb, d, el, rate, gram: bool):
+    """Bytes: X read once, the means written once in X's dtype (and the
+    Gram); operations: the sparse means (2 per read element) and the
+    Gram's nb(nb+1)/2 multiply-adds per column."""
+    flops = 2.0 * n * d + (nb * (nb + 1) * d if gram else 0)
+    return bound(1.0 * el * n * d + el * nb * d + (4 * nb * nb if gram else 0),
+                 flops, rate)
+
+
+def phase_bucketgram(dev, rate: float) -> dict:
+    import torch
+    from repro_torch.kernels import (bucket_means_gram_ref, bucketgram,
+                                     bucketmeans)
+    rows = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    n, s, d = N_HIER, 2, D_MAIN
+    assign, nb, bmat = bucket_plan(n, s, dev, seed=0)
+    log(f"-- trainer shape: n={n} s={s} n_b={nb} D={d}")
+    x = torch.randn((n, d), generator=gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        xx = x if dtype == torch.float32 else x.to(dtype)
+        el = xx.element_size()
+        tag = str(dtype)[6:]
+        y, g = bucketgram(xx, assign, nb)
+        py, pg = bucket_means_gram_ref(xx, bmat)
+        ms = time_ms(lambda: bucketgram(xx, assign, nb))
+        pms = time_ms(lambda: bucket_means_gram_ref(xx, bmat))
+        bnd = bucket_bound(n, nb, d, el, rate, gram=True)
+        if dtype == torch.float32:
+            e_y = check("K6 bucketgram means fp32", y, py, ms, pms, bnd)
+        else:
+            e_y = check_ulp("K6 bucketgram means bf16", y, py, ms, pms, bnd)
+        e_g = check(f"K6 bucketgram Gram {tag}", g, pg, ms, pms, bnd)
+        del y, g, py, pg
+        r1, r2 = bucketgram(xx, assign, nb), bucketgram(xx, assign, nb)
+        if not torch.equal(r1[1], r2[1]):
+            raise AssertionError("K6 Gram is not bitwise repeatable")
+        del r1, r2
+        log(f"  K6 Gram {tag}: bitwise equal over two runs")
+        if dtype == torch.float32:
+            rows["bucketgram"] = dict(max_abs_err=max(e_y, e_g), ms=ms,
+                                      plain_ms=pms, bound=bnd, library_ms=None)
+        y = bucketmeans(xx, assign, nb)
+        py = bucket_means_gram_ref(xx, bmat, with_gram=False)[0]
+        b_x = bmat.to(dtype)
+        ms = time_ms(lambda: bucketmeans(xx, assign, nb))
+        pms = time_ms(lambda: bucket_means_gram_ref(xx, bmat, with_gram=False))
+        lib = time_ms(lambda: torch.mm(b_x, xx))
+        bnd = bucket_bound(n, nb, d, el, rate, gram=False)
+        if dtype == torch.float32:
+            err = check("K7 bucketmeans fp32", y, py, ms, pms, bnd, lib)
+            rows["bucketmeans"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                       bound=bnd, library_ms=lib)
+        else:
+            check_ulp("K7 bucketmeans bf16", y, py, ms, pms, bnd, lib)
+        del y, py, xx
+        torch.cuda.empty_cache()
+    # Non-finite rows: the dense contraction's 0 * inf = NaN spreads NaN to
+    # every bucket other than the bad row's; the kernels must match it.
+    x[3, 1000:2000] = float("inf")
+    x[9, 1500:4000] = float("nan")
+    x[12, 7:9] = -float("inf")
+    y, g = bucketgram(x, assign, nb)
+    py, pg = bucket_means_gram_ref(x, bmat)
+    nan_cols = int(torch.isnan(py).any(dim=0).sum())
+    agree("K6 means, inf / nan rows", y, py)
+    agree("K6 Gram, inf / nan rows", g, pg)
+    agree("K7 means, inf / nan rows", bucketmeans(x, assign, nb), py)
+    log(f"  (NaN in {nan_cols} columns of the plain means, as in the kernels')")
+    del x, y, g, py, pg
+    torch.cuda.empty_cache()
+
+    for n in SCALE_NS:
+        d = min(2048, max(64, (1 << 19) // n))
+        assign, nb, bmat = bucket_plan(n, 16, dev, seed=n)
+        log(f"-- scale shape: n={n} s=16 n_b={nb} d={d}")
+        x = torch.randn((n, d), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xx = x.to(dtype)
+            el = xx.element_size()
+            tag = str(dtype)[6:]
+            y, g = bucketgram(xx, assign, nb)
+            py, pg = bucket_means_gram_ref(xx, bmat)
+            ms = time_ms(lambda: bucketgram(xx, assign, nb))
+            pms = time_ms(lambda: bucket_means_gram_ref(xx, bmat))
+            bnd = bucket_bound(n, nb, d, el, rate, gram=True)
+            (check if dtype == torch.float32 else check_ulp)(
+                f"K6 bucketgram means {tag}", y, py, ms, pms, bnd)
+            check(f"K6 bucketgram Gram {tag} (K1 on the fp32 means)", g, pg,
+                  ms, pms, bnd)
+            ms = time_ms(lambda: bucketmeans(xx, assign, nb))
+            pms = time_ms(lambda: bucket_means_gram_ref(xx, bmat, with_gram=False))
+            (check if dtype == torch.float32 else check_ulp)(
+                f"K7 bucketmeans {tag}", bucketmeans(xx, assign, nb), py, ms,
+                pms, bucket_bound(n, nb, d, el, rate, gram=False))
+    return rows
+
+
+def phase_mixtrim_large(dev, rate: float) -> None:
+    """K2 above 64 workers: the shared-memory sort."""
+    import torch
+    from repro_torch.kernels import mixtrim, mixtrim_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for n, d in K2_LARGE:
+        f = (n - 1) // 2 if n == 65 else n // 32
+        x = torch.randn((n, d), generator=gen, device=dev)
+        m = torch.softmax(torch.randn((n, n), generator=gen, device=dev), -1)
+        log(f"-- K2 n={n} f={f} D={d}")
+        for mode in ("trim", "med"):
+            for mm in (m, None):
+                k = 0 if mode == "med" else f
+                plain = chunked(lambda s: mixtrim_ref(x[:, s], mm, k, mode), d, n)
+                flops = (2.0 * n * n * d if mm is not None else 0) + n * d
+                bnd = bound(4.0 * n * d + 4 * d + (4 * n * n if mm is not None else 0),
+                            flops, rate)
+                reps = 3 if mode == "trim" else 1
+                ms = time_ms(lambda: mixtrim(x, mm, k, mode), reps)
+                pms = time_ms(plain, 1)
+                check(f"K2 mixtrim {mode} {'mix' if mm is not None else 'no-mix'} "
+                      f"n={n}", mixtrim(x, mm, k, mode), plain(), ms, pms, bnd)
+        # NaN and inf rows (the nan / inf attacks): ranked last, trimmed.
+        xs = x[:, :min(d, 4099)].clone()
+        xs[n - 3:] = float("nan")
+        xs[n - 6:n - 3] = float("inf")
+        xs[0, :7] = -float("inf")
+        for mode, k in (("trim", max(f, 6)), ("med", 0)):
+            for mm in (m, None):
+                agree(f"K2 mixtrim {mode} {'mix' if mm is not None else 'no-mix'} "
+                      f"n={n}, nan / inf rows", mixtrim(xs, mm, k, mode),
+                      mixtrim_ref(xs, mm, k, mode))
+        del x, xs, m
+        torch.cuda.empty_cache()
+
+
+def phase_hier_aggregate(dev) -> None:
+    """robust_aggregate(hier, nnm, cwtm) at the n = 10240 scale shape:
+    kernel backend (K6, K1 on the 640 means, K2) against the torch backend
+    (the gather form), the same permutation."""
+    import torch
+    from repro_torch.core.robust import robust_aggregate
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    n = 10240
+    d, f = 64, n // 32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    tree = {"x": torch.randn((n, d), generator=gen, device=dev)}
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(7))
+    spec = dict(rule="cwtm", f=f, pre="nnm", hier=True, bucket_size=16)
+    kdispatch.reset_launch_counts()
+    got = robust_aggregate(tree, AggregatorSpec(backend="cuda", **spec), perm=perm)
+    counts = kdispatch.launch_counts()
+    rec = kdispatch.last_dispatch()
+    log(rec.describe())
+    if rec.fallbacks or counts["bucketgram"] != 1 or counts["mixtrim"] != 1:
+        raise AssertionError(f"hier aggregate left the kernels: {counts}")
+    want = robust_aggregate(tree, AggregatorSpec(backend="torch", **spec), perm=perm)
+    err, tol = max_err(got["x"], want["x"])
+    if err > tol:
+        raise AssertionError(f"hier aggregate: backends disagree {err} > {tol}")
+    log(f"  n={n} d={d} f={f} s=16 (640 buckets): cuda vs torch "
+        f"max_abs_err={err:.3e} tol={tol:.3e} OK; launches {counts}")
+
+
+def lm_batches(n: int, seed: int = 0):
+    """The launcher's data: Dirichlet-heterogeneous synthetic LM batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import build_heterogeneous, make_lm_corpus, worker_batches
+    cfg = get_config("smollm-360m")
+    seqs, topics = make_lm_corpus(n_tokens=400_000, vocab=cfg.vocab_size,
+                                  seq_len=129, seed=seed)
+    ds = build_heterogeneous({"seq": seqs, "y": topics}, "y", n, alpha=0.1,
+                             seed=seed)
+    for b in worker_batches(ds, 4, seed=seed):
+        yield {"tokens": b["seq"][..., :-1], "labels": b["seq"][..., 1:]}
+
+
+def run_loop(dev, name: str, spec_kw: dict, steps: int, expect: dict) -> dict:
+    """Full-width smollm-360m D-SHB through train_loop with a hierarchical
+    spec, n = 16, f = 3, ALIE; asserts finite metrics, no fallback and the
+    exact launches per step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.training import ByzantineConfig, TrainerConfig, train_loop
+    model = build_model(get_config("smollm-360m"))
+    params = model.init(0, dev)
+    cfg = TrainerConfig(agg=AggregatorSpec(f=F_HIER, hier=True, **spec_kw),
+                        byz=ByzantineConfig(f=F_HIER, attack="alie"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    kdispatch.reset_launch_counts()
+    _, out = train_loop(model.loss, params, lm_batches(N_HIER), sgd(clip=2.0),
+                        cfg, cosine(0.05, steps, warmup=0), steps, seed=0,
+                        track_best=False)
+    counts = kdispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = out["history"]
+    for k in ("loss", "kappa_hat", "direction_norm"):
+        if not all(math.isfinite(v) for v in hist[k]):
+            raise AssertionError(f"{name}: non-finite {k}: {hist[k]}")
+    rec = kdispatch.last_dispatch()
+    if rec is None or rec.backend != "cuda" or rec.fallbacks or not rec.hier:
+        raise AssertionError(f"{name}: dispatch did not stay on the kernels:\n"
+                             f"{rec.describe() if rec else None}")
+    want = {k: v * steps for k, v in expect.items()}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    log(rec.describe())
+    log(f"  {name}: ms/step {[round(v, 1) for v in hist['ms']]}, loss "
+        f"{[round(v, 4) for v in hist['loss']]}, kappa_hat "
+        f"{[round(v, 4) for v in hist['kappa_hat']]}, launches {counts}, "
+        f"peak {peak / 2**30:.2f} GiB")
+    del out, params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -278,7 +584,16 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     rows = phase_kernels(dev, rate)
 
-    log("== 4. main path: nnm+cwtm, 3 steps, full-width smollm-360m")
+    log("== 4. K6 / K7 against their plain versions")
+    rows.update(phase_bucketgram(dev, rate))
+
+    log("== 5. K2 above 64 workers against its plain version")
+    phase_mixtrim_large(dev, rate)
+
+    log("== 6. hierarchical aggregate at n = 10240: cuda vs torch backend")
+    phase_hier_aggregate(dev)
+
+    log("== 7. main path: nnm+cwtm, 3 steps, full-width smollm-360m")
     out, counts_main = run_train("nnm+cwtm", 3, capture=True)
     if counts_main["gram"] != 3 or counts_main["mixtrim"] != 3:
         raise AssertionError(f"expected 3 K1 and 3 K2 launches: {counts_main}")
@@ -289,18 +604,36 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
 
-    log("== 5. gram-rule path: nnm+gm, 2 steps, full depth")
+    log("== 8. gram-rule path: nnm+gm, 2 steps, full depth")
     out, counts_gm = run_train("nnm+gm", 2, capture=False)
     if counts_gm["combine"] != 2 or counts_gm["gram"] != 2:
         raise AssertionError(f"expected 2 K1 and 2 K3 launches: {counts_gm}")
     del out
     torch.cuda.empty_cache()
 
-    log("== 6. summary")
+    log(f"== 9. hierarchical trainer: n={N_HIER} f={F_HIER}, full-width smollm-360m")
+    counts_hier = run_loop(dev, "hier+nnm+cwtm", dict(pre="nnm", rule="cwtm"), 3,
+                           dict(bucketgram=1, mixtrim=1, gram=0,
+                                bucketmeans=0, combine=0))
+    counts_hmean = run_loop(dev, "hier+cwtm", dict(pre=None, rule="cwtm"), 2,
+                            dict(bucketmeans=1, mixtrim=1, gram=0,
+                                 bucketgram=0, combine=0))
+    run_loop(dev, "hier+nnm+gm", dict(pre="nnm", rule="gm"), 2,
+             dict(bucketgram=1, combine=1, gram=0, bucketmeans=0, mixtrim=0))
+    out, counts_bkt = run_train("bucketing+cwtm", 2, capture=False, n=N_HIER,
+                                f=F_HIER)
+    want = dict(mixtrim=2, gram=0, bucketgram=0, bucketmeans=0, combine=0)
+    if {k: counts_bkt[k] for k in want} != want:
+        raise AssertionError(f"bucketing+cwtm: launches {counts_bkt}, "
+                             f"expected {want}")
+    del out
+    torch.cuda.empty_cache()
+
+    log("== 10. summary")
     table = [("K1", "gram", "ported, checked"), ("K2", "mixtrim", "ported, checked"),
              ("K3", "combine", "ported, checked"), ("K4", "mixtrim_dyn", "not ported"),
-             ("K5", "gram_batched", "not ported"), ("K6", "bucketgram", "not ported"),
-             ("K7", "bucketmeans", "not ported")]
+             ("K5", "gram_batched", "not ported"), ("K6", "bucketgram", "ported, checked"),
+             ("K7", "bucketmeans", "ported, checked")]
     log("kernels: " + "; ".join(f"{k} {n}: {s}" for k, n, s in table))
     meta = {
         "gram": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -309,6 +642,12 @@ def main() -> int:
                     "src/repro/kernels/mixtrim/kernel.py:177", counts_main["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",
                     "src/repro/kernels/combine/kernel.py:34", counts_gm["combine"]),
+        "bucketgram": ("src/repro_torch/kernels/csrc/bucketgram.cu",
+                       "src/repro/kernels/bucketgram/kernel.py:75",
+                       counts_hier["bucketgram"]),
+        "bucketmeans": ("src/repro_torch/kernels/csrc/bucketgram.cu",
+                        "src/repro/kernels/bucketgram/kernel.py:75",
+                        counts_hmean["bucketmeans"]),
     }
     kernels = []
     for k, (src, rep, launches) in meta.items():

@@ -18,15 +18,30 @@ flattens the stack to one (n, D) buffer and runs the gram (K1), combine
 (K3) and fused mix+trim (K2) kernels, so the NNM-mixed stack never exists
 in device memory; "auto" is "cuda" for a CUDA stack and "torch" otherwise.
 
-Not ported yet, and rejected with an error: ``pre="bucketing"``,
-``hier``, ``sketch_dim`` (ROADMAP queue 1, items 3 and 13).
+Bucketing stages (both need a permutation: a ``torch.Generator`` or an
+explicit ``perm``, where the reference takes a PRNG ``key``):
+
+* ``pre="bucketing"`` — the paper's randomized baseline: the gather form
+  (:func:`_tree_bucket`, torch ops on every backend, as in the reference)
+  feeds ceil(n/s) bucket means and the adjusted f to the pipeline;
+* ``hier=True`` — hierarchical aggregation: on "cuda" the bucketgram
+  kernel reduces the flat stack to the bucket means AND their Gram in one
+  pass (K6; means only, K7, when no Gram consumer follows), so the K1
+  pass is skipped; on "torch" the gather form runs.  Bucket size 1 is
+  the identity and stays bitwise the dense pipeline (no permutation is
+  drawn).
+
+Not ported yet, and rejected with an error naming the ROADMAP item:
+``sketch_dim`` and the reference's multi-device backends.
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Optional
 
 import torch
 
+from repro_torch.core import bucketing as bucketlib
 from repro_torch.core import gram as gramlib
 from repro_torch.core.aggregators import _median
 from repro_torch.core.types import AggregatorSpec, COORDINATE_RULES, GRAM_RULES
@@ -93,33 +108,120 @@ def _tree_coordinate_rule(tree: PyTree, rule: str, f: int) -> PyTree:
     return tree_map(lambda leaf: _coordinate_rule(leaf, rule, f), tree)
 
 
+def _tree_bucket(tree: PyTree, f: int, perm: Tensor,
+                 bucket_size: Optional[int]) -> tuple[PyTree, int]:
+    """Bucketing on pytrees (the gather form): one shared permutation
+    across all leaves, ragged tail renormalized by its true occupancy,
+    fp32 accumulation cast back to each leaf's dtype.
+
+    When every leaf has one dtype the means land in ONE (n_b, D) buffer
+    and the leaves come back as views of it, so the kernel path flattens
+    them without a copy."""
+    leaves = tree_leaves(tree)
+    n = leaves[0].shape[0]
+    s = bucketlib.clamp_bucket_size(n, bucket_size, f)
+    nb = bucketlib.num_buckets(n, s)
+    pad = nb * s - n
+    counts = bucketlib.bucket_counts(n, s, device=leaves[0].device)
+
+    def bucket(leaf):
+        acc = torch.promote_types(leaf.dtype, torch.float32)
+        x = leaf[perm].to(acc)
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(leaf.shape[1:]))])
+        sums = x.reshape((nb, s) + tuple(leaf.shape[1:])).sum(dim=1)
+        means = sums / counts.to(acc).reshape((nb,) + (1,) * (leaf.dim() - 1))
+        return means.to(leaf.dtype)
+
+    f_adj = bucketlib.adjusted_f(f, nb)
+    if len({leaf.dtype for leaf in leaves}) != 1:
+        return tree_map(bucket, tree), f_adj
+    layout = kdispatch.stack_layout(tree)
+    flat = torch.empty((nb, layout.width), dtype=leaves[0].dtype,
+                       device=leaves[0].device)
+    for leaf, (off, size, _) in zip(leaves, layout.segments):
+        flat[:, off:off + size] = bucket(leaf).reshape(nb, size)
+    return kdispatch.stack_views(flat, dataclasses.replace(layout, n=nb)), f_adj
+
+
+def _stack_perm(tree: PyTree, generator: Optional[torch.Generator],
+                perm: Optional[Tensor]) -> Tensor:
+    leaf = tree_leaves(tree)[0]
+    return bucketlib.draw_perm(leaf.shape[0], generator=generator, perm=perm,
+                               device=leaf.device)
+
+
+def _validate_hier(spec: AggregatorSpec) -> None:
+    if spec.pre == "bucketing":
+        raise ValueError(
+            "hierarchical aggregation IS a bucketing stage; composing it "
+            "with pre='bucketing' would bucket twice — use pre='nnm' or "
+            "pre=None")
+    if spec.sketch_dim:
+        raise ValueError(
+            "hierarchical aggregation is incompatible with sketch_dim: the "
+            "signed-sketch gram has no reduced-population form")
+
+
 def _validate(spec: AggregatorSpec) -> None:
     if spec.hier:
-        raise NotImplementedError(
-            "hierarchical aggregation (hier) is not ported yet "
-            "(ROADMAP queue 1, item 13)")
+        _validate_hier(spec)
     if spec.sketch_dim:
         raise NotImplementedError(
             "sketch_dim (the sketch gram) is not ported yet "
             "(ROADMAP queue 1, item 3)")
-    if spec.pre == "bucketing":
-        raise NotImplementedError(
-            "pre='bucketing' is not ported yet (ROADMAP queue 1, item 13)")
-    if spec.pre not in (None, "none", "nnm"):
+    if spec.pre not in (None, "none", "nnm", "bucketing"):
         raise ValueError(f"unknown pre-aggregation {spec.pre!r}")
     if spec.transport_dtype not in (None, "bf16"):
         raise ValueError(f"unknown transport_dtype {spec.transport_dtype!r}")
 
 
+def _need_perm_source(generator, perm, what: str) -> None:
+    if generator is None and perm is None:
+        raise ValueError(f"{what} requires a torch.Generator or a perm")
+
+
+_HIER_S1_NOTE = "s=1: singleton buckets, identity reduction (skipped)"
+
+
+def _hier_reduce_flat(flat: Tensor, spec: AggregatorSpec, f: int, *,
+                      generator: Optional[torch.Generator],
+                      perm: Optional[Tensor], backend: str
+                      ) -> tuple[Tensor, int, Optional[Tensor]]:
+    """The hierarchical pre-reduction on the flattened (n, D) stack.
+
+    Returns (reduced stack (ceil(n/s), D), adjusted f, reduced fp32 Gram
+    or None).  s = 1 short-circuits to the identity without drawing a
+    permutation, which keeps hier(s=1) bitwise the dense pipeline."""
+    n = flat.shape[0]
+    _need_perm_source(generator, perm, "hierarchical aggregation")
+    s = bucketlib.clamp_bucket_size(n, spec.bucket_size, f)
+    if s == 1:
+        kdispatch.record_decision("bucketgram", backend, "skipped",
+                                  _HIER_S1_NOTE)
+        return flat, f, None
+    nb = bucketlib.num_buckets(n, s)
+    assign = bucketlib.bucket_assignment(n, s, generator=generator, perm=perm,
+                                         device=flat.device)
+    need_gram = spec.rule in GRAM_RULES or spec.pre == "nnm"
+    y, g = kdispatch.dispatch_bucketgram(flat, assign, nb, backend=backend,
+                                         with_gram=need_gram)
+    return y, bucketlib.adjusted_f(f, nb), g
+
+
 def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
-                    return_coeff: bool) -> PyTree:
-    """Kernel pipeline: the stack as one (n, D) buffer -> gram (K1) ->
+                    return_coeff: bool, generator=None, perm=None) -> PyTree:
+    """Kernel pipeline: the stack as one (n, D) buffer -> [bucketgram
+    (K6 / K7) when hier] -> gram (K1, skipped when K6 gave the Gram) ->
     NNM / coefficients -> combine (K3) or fused mix+trim (K2) ->
     aggregated pytree (views of one (D,) fp32 vector)."""
     backend = "cuda"
     flat, layout = kdispatch.flatten_worker_stack(work)
     mix_matrix, g = None, None
-    if spec.rule in GRAM_RULES or spec.pre == "nnm":
+    if spec.hier:
+        flat, f, g = _hier_reduce_flat(flat, spec, f, generator=generator,
+                                       perm=perm, backend=backend)
+    if (spec.rule in GRAM_RULES or spec.pre == "nnm") and g is None:
         g = kdispatch.dispatch_gram(flat, backend=backend)
     if spec.pre == "nnm":
         mix_matrix = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), f)
@@ -158,25 +260,51 @@ def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
 
 
 def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
+                     generator: Optional[torch.Generator] = None,
+                     perm: Optional[Tensor] = None,
                      return_coeff: bool = False) -> PyTree:
     """Pre-aggregation + rule on a worker-stacked pytree; returns the
     aggregated pytree (worker axis removed).  With ``return_coeff=True``
     also returns the effective coefficient vector of a gram rule (else
-    None).  Decisions land on ``kdispatch.last_dispatch()``."""
+    None).  ``generator`` / ``perm`` give the bucket permutation of
+    ``pre="bucketing"`` and ``hier`` (the reference's ``key``).  Decisions
+    land on ``kdispatch.last_dispatch()``."""
     _validate(spec)
     f = spec.f
     work = tree
+    if spec.pre == "bucketing":
+        _need_perm_source(generator, perm, "bucketing")
+        work, f = _tree_bucket(work, f, _stack_perm(work, generator, perm),
+                               spec.bucket_size)
     if spec.transport_dtype == "bf16":
         work = tree_map(lambda leaf: leaf.to(torch.bfloat16), work)
 
     device = tree_leaves(work)[0].device
     backend = kdispatch.resolve_backend(spec.backend, device)
     kdispatch.open_record(requested=spec.backend, backend=backend,
-                          rule=spec.rule, pre=spec.pre)
+                          rule=spec.rule, pre=spec.pre, hier=bool(spec.hier),
+                          bucket_size=spec.bucket_size)
     if backend == "cuda":
-        return _aggregate_flat(work, spec, f, return_coeff=return_coeff)
+        return _aggregate_flat(work, spec, f, return_coeff=return_coeff,
+                               generator=generator, perm=perm)
     kdispatch.record_decision("pipeline", "torch", "torch",
                               "leaf-streamed torch path")
+
+    if spec.hier:
+        # The gather form, with the same permutation — and so the same
+        # bucket grouping — as the kernel path.
+        _need_perm_source(generator, perm, "hierarchical aggregation")
+        n = tree_leaves(work)[0].shape[0]
+        s = bucketlib.clamp_bucket_size(n, spec.bucket_size, f)
+        if s == 1:
+            kdispatch.record_decision("bucketgram", "torch", "skipped",
+                                      _HIER_S1_NOTE)
+        else:
+            kdispatch.record_decision(
+                "bucketgram", "torch", "torch",
+                "dense leaf-streamed bucketing (gather form)")
+            work, f = _tree_bucket(work, f, _stack_perm(work, generator, perm),
+                                   s)
 
     g = tree_gram(work)
     mix_matrix = None

@@ -1,13 +1,15 @@
 """Theoretical quantities from the paper, as executable code.
 
 Counterpart of ``repro.core.theory``: the closed forms ``kappa``,
-``composed_kappa`` and ``breakdown_point`` (without the bucketing stage,
-which is not ported yet) and the per-step ``tree_kappa_hat`` estimator.
+``composed_kappa`` (with the bucketing / hierarchical stage),
+``bucketed_population`` and ``breakdown_point``, and the per-step
+``tree_kappa_hat`` estimator.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.bucketing import clamp_bucket_size, num_buckets
 from repro_torch.tree import tree_leaves
 
 #: Column chunk of the kappa-hat reduction: bounds its temporaries at
@@ -39,8 +41,41 @@ def nnm_kappa(base_kappa: float, n: int, f: int) -> float:
     return 8.0 * f / (n - f) * (base_kappa + 1.0)
 
 
-def composed_kappa(rule: str, n: int, f: int, pre: str | None = None) -> float:
-    """Kappa of the composed pipeline pre -> rule (Lemma 1 for NNM)."""
+def bucketed_population(n: int, f: int, bucket_size: int | None = None
+                        ) -> tuple[int, int]:
+    """(n_buckets, f') after an s-sized bucketing stage.
+
+    The population shrinks to ceil(n/s) while each Byzantine input
+    contaminates at most one bucket, so f' = f.  Raises when the reduced
+    population can no longer tolerate f (n_buckets <= 2f)."""
+    s = clamp_bucket_size(n, bucket_size, f)
+    n_b = num_buckets(n, s)
+    if f > 0 and n_b <= 2 * f:
+        raise ValueError(
+            f"bucket_size={s} reduces n={n} to {n_b} buckets, which cannot "
+            f"tolerate f={f} (need n_buckets > 2f)")
+    return n_b, f
+
+
+def composed_kappa(rule: str, n: int, f: int, pre: str | None = None, *,
+                   hier: bool = False,
+                   bucket_size: int | None = None) -> float:
+    """Kappa of the composed pipeline [bucketing ->] pre -> rule.
+
+    Lemma 1 for ``pre="nnm"``; the bare Table 1 coefficient otherwise.
+    ``pre="bucketing"`` and ``hier=True`` both insert an s-sized
+    bucketing stage, and the downstream coefficients are evaluated at the
+    reduced population (ceil(n/s), f); hier composes with a further
+    ``pre="nnm"`` stage on the reduced stack."""
+    if pre == "bucketing":
+        if hier:
+            raise ValueError(
+                "hier already inserts a bucketing stage; pre='bucketing' "
+                "would bucket twice")
+        n, f = bucketed_population(n, f, bucket_size)
+        pre = None
+    elif hier:
+        n, f = bucketed_population(n, f, bucket_size)
     base = kappa(rule, n, f)
     if pre in (None, "none"):
         return base

@@ -21,10 +21,12 @@ BACKENDS = ("torch", "cuda", "auto")
 class AggregatorSpec:
     """Fully describes a robust aggregation pipeline.
 
-    Attributes mirror ``repro.core.types.AggregatorSpec``.  ``hier``,
-    ``sketch_dim``, ``pre="bucketing"`` and the sharded backends are not
-    ported yet; :func:`repro_torch.core.robust.robust_aggregate` rejects
-    them with an error naming the ROADMAP item.
+    Attributes mirror ``repro.core.types.AggregatorSpec``.  ``hier``
+    inserts the single-device hierarchical bucketing stage (bucket size
+    ``bucket_size``, default floor(n/2f)); ``pre`` is None, "nnm" or
+    "bucketing".  ``sketch_dim`` and the reference's sharded backends are
+    not ported yet; :func:`repro_torch.core.robust.robust_aggregate`
+    rejects them with an error naming the ROADMAP item.
     """
 
     rule: str = "cwtm"

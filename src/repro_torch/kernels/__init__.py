@@ -7,9 +7,13 @@ Production code enters through :mod:`repro_torch.kernels.dispatch`.
 Importing this package builds and loads nothing; ``_build.library()``
 compiles on first use.
 """
+from repro_torch.kernels.bucketgram import (
+    bucket_means_gram, bucket_means_gram_ref, bucketgram, bucketmeans,
+)
 from repro_torch.kernels.combine import combine, combine_ref
 from repro_torch.kernels.gram import gram, gram_ref
 from repro_torch.kernels.mixtrim import mixtrim, mixtrim_ref
 
-__all__ = ["combine", "combine_ref", "gram", "gram_ref", "mixtrim",
+__all__ = ["bucket_means_gram", "bucket_means_gram_ref", "bucketgram",
+           "bucketmeans", "combine", "combine_ref", "gram", "gram_ref", "mixtrim",
            "mixtrim_ref"]

@@ -43,6 +43,10 @@ _SIGNATURES = {
     "repro_mixtrim": ([_P, _I, _P, _I, _LL, _I, _I, _P, _I, _P], _I),
     "repro_mixtrim_max_n": ([], _I),
     "repro_combine": ([_P, _I, _P, _I, _LL, _P, _I, _P], _I),
+    "repro_bucketgram": ([_P, _I, _I, _LL, _P, _P, _P, _I, _P, _P, _P, _P,
+                          _P, _I, _P], _I),
+    "repro_bucketgram_reg_nb": ([], _I),
+    "repro_bucketgram_npair": ([], _I),
     "repro_error_string": ([_I], ctypes.c_char_p),
 }
 

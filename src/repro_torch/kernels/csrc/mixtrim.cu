@@ -20,14 +20,29 @@
 // version; the TPU kernel's fp32-max sentinel would sort below +inf.
 //
 // Bound on this card: bytes (n*D reads, D fp32 writes; ~2n FLOP per read
-// element for the mix plus the network).  Handles n <= 64; the wrapper
-// refuses larger n.
+// element for the mix plus the network) for small n; the mix's 2n^2 FLOP
+// per column take over as n grows.
+//
+// n > 64 (mixtrim_big, up to MAX_N = 16384): n values per column no
+// longer fit in registers.  A block takes a tile of TC columns (TC * NP
+// <= 16384 keys, at most 64 columns), stages it in shared memory — rows
+// read TC consecutive columns at a time, so a warp's loads coalesce — and
+// sorts the same NaN-last keys with a shared-memory bitonic network, all
+// TC columns at once.  With a mix, the X tile is staged as fp32 and one
+// warp per output row reads M's row (coalesced, through L1/L2) against
+// it; Y exists only as the tile's keys, never in global memory.  Both
+// shared arrays use an odd pitch so that column-strided accesses hit
+// distinct banks.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_N = 64;
+constexpr int SMALL_N = 64;            // register-network kernel limit
+constexpr int MAX_N = 16384;           // shared-memory kernel limit
+constexpr int BIG_THREADS = 512;
+constexpr int KEY_BUDGET = 16384;      // keys per block tile
+constexpr int MAX_TC = 64;             // columns per block tile
 constexpr unsigned NAN_KEY = 0xFFFFFFFEu;
 constexpr unsigned PAD_KEY = 0xFFFFFFFFu;
 
@@ -126,6 +141,131 @@ mixtrim_kernel(const T* __restrict__ x, const float* __restrict__ m, int n,
   }
 }
 
+// Columns per tile for a sort of height np (a power of two).
+inline int big_tc(int np) {
+  int tc = KEY_BUDGET / np;
+  if (tc < 1) tc = 1;
+  if (tc > MAX_TC) tc = MAX_TC;
+  return tc;
+}
+
+inline size_t big_smem(int n, int np, int tc, bool mix) {
+  return sizeof(unsigned) * (size_t)tc * (np + 1) +
+         (mix ? sizeof(float) * (size_t)tc * (n | 1) : 0);
+}
+
+template <typename T, bool MIX>
+__global__ void __launch_bounds__(BIG_THREADS)
+mixtrim_big(const T* __restrict__ x, const float* __restrict__ m, int n,
+            int np, int tc, long long d, int f, int med,
+            float* __restrict__ out) {
+  extern __shared__ unsigned smem_keys[];
+  const int kp = np + 1;                 // odd key pitch
+  const int xp = n | 1;                  // odd staging pitch
+  unsigned* keys = smem_keys;            // tc columns x kp
+  float* xs = reinterpret_cast<float*>(keys + (size_t)tc * kp);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int WARPS = BIG_THREADS / 32;
+  const int half = np >> 1;
+  const int lh = 31 - __clz(half);
+  const long long tiles = (d + tc - 1) / tc;
+
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long c0 = t * tc;
+    const int w = (int)min((long long)tc, d - c0);
+    // 1. Stage the tile: consecutive threads on consecutive columns.
+    for (int e = threadIdx.x; e < n * tc; e += BIG_THREADS) {
+      const int i = e / tc, c = e - i * tc;
+      const float v = (c < w) ? to_f32(x[(long long)i * d + c0 + c]) : 0.f;
+      if constexpr (MIX) xs[c * xp + i] = v;
+      else keys[c * kp + i] = key_of(v);
+    }
+    for (int e = threadIdx.x; e < (np - n) * tc; e += BIG_THREADS) {
+      const int c = e / (np - n), i = n + (e - c * (np - n));
+      keys[c * kp + i] = PAD_KEY;
+    }
+    __syncthreads();
+    // 2. Mix: one warp per output row i, lanes over j, four columns at once.
+    if constexpr (MIX) {
+      for (int i = warp; i < n; i += WARPS) {
+        const float* mrow = m + (long long)i * n;
+        for (int cb = 0; cb < tc; cb += 4) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int j = lane; j < n; j += 32) {
+            const float mij = __ldg(mrow + j);
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (cb + k < tc) acc[k] = fmaf(mij, xs[(cb + k) * xp + j], acc[k]);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+              acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+          }
+          if (lane == 0) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (cb + k < tc) keys[(cb + k) * kp + i] = key_of(acc[k]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // 3. Bitonic sort of every column of the tile (the plain mean needs none).
+    if (med || f > 0) {
+      for (int k = 2; k <= np; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          for (int e = threadIdx.x; e < tc * half; e += BIG_THREADS) {
+            const int c = e >> lh, p = e & (half - 1);
+            const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+            unsigned* col = keys + c * kp;
+            const unsigned a = col[i], b = col[i | j];
+            if ((a > b) == ((i & k) == 0)) { col[i] = b; col[i | j] = a; }
+          }
+          __syncthreads();
+        }
+      }
+    }
+    // 4. One warp per column: trimmed mean over ranks [f, n - f) or median.
+    for (int c = warp; c < w; c += WARPS) {
+      const unsigned* col = keys + c * kp;
+      if (med) {
+        if (lane == 0) {
+          const float lo = val_of(col[(n - 1) / 2]), hi = val_of(col[n / 2]);
+          out[c0 + c] = (n & 1) ? hi : 0.5f * (lo + hi);
+        }
+      } else {
+        float s = 0.f;
+        for (int r = f + lane; r < n - f; r += 32) s += val_of(col[r]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) out[c0 + c] = s / (float)(n - 2 * f);
+      }
+    }
+    __syncthreads();                     // the next tile reuses the arrays
+  }
+}
+
+template <typename T, bool MIX>
+int launch_big(const T* x, const float* m, int n, long long d, int f,
+               int med, float* out, int blocks, cudaStream_t s) {
+  int np = 128;
+  while (np < n) np <<= 1;
+  const int tc = big_tc(np);
+  const size_t smem = big_smem(n, np, tc, MIX);
+  cudaError_t err = cudaFuncSetAttribute(
+      mixtrim_big<T, MIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (d + tc - 1) / tc;
+  const int grid = (int)(tiles < blocks ? tiles : blocks);
+  mixtrim_big<T, MIX><<<grid, BIG_THREADS, smem, s>>>(x, m, n, np, tc, d, f,
+                                                      med, out);
+  return cudaGetLastError();
+}
+
 template <typename T, int NP>
 void launch_np(const T* x, const float* m, int n, long long d, int f,
                int med, float* out, int blocks, cudaStream_t s) {
@@ -139,6 +279,10 @@ template <typename T>
 int launch(const void* xv, const float* m, int n, long long d, int f,
            int med, float* out, int blocks, cudaStream_t s) {
   const T* x = static_cast<const T*>(xv);
+  if (n > SMALL_N) {
+    if (m) return launch_big<T, true>(x, m, n, d, f, med, out, blocks, s);
+    return launch_big<T, false>(x, m, n, d, f, med, out, blocks, s);
+  }
   if (n <= 1) launch_np<T, 1>(x, m, n, d, f, med, out, blocks, s);
   else if (n <= 2) launch_np<T, 2>(x, m, n, d, f, med, out, blocks, s);
   else if (n <= 4) launch_np<T, 4>(x, m, n, d, f, med, out, blocks, s);

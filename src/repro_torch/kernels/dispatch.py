@@ -9,9 +9,10 @@ worker-stacked pytree:
   (n, D) buffer: a zero-copy view when the leaves already are column
   views of one such buffer (the trainer's momentum layout), else a
   concatenation;
-* **gram** (K1), **combine** (K3), **mixtrim** (K2) — the hand-written
-  kernels of ``kernels/csrc`` for a CUDA stack.  A CPU stack runs each
-  kernel's plain version, and that is RECORDED as a fallback.
+* **gram** (K1), **combine** (K3), **mixtrim** (K2), **bucketgram** (K6)
+  and **bucketmeans** (K7) — the hand-written kernels of ``kernels/csrc``
+  for a CUDA stack.  A CPU stack runs each kernel's plain version, and
+  that is RECORDED as a fallback.
 
 Every decision lands on a :class:`DispatchRecord` in a bounded ring
 (:func:`last_dispatch`), so a requested kernel
@@ -28,6 +29,11 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.types import BACKENDS
+from repro_torch.kernels.bucketgram import REG_NB as _BUCKETGRAM_REG_NB
+from repro_torch.kernels.bucketgram import assignment_matrix as _assignment_matrix
+from repro_torch.kernels.bucketgram import bucket_means_gram_ref as _bucketgram_ref
+from repro_torch.kernels.bucketgram import bucketgram as _bucketgram_op
+from repro_torch.kernels.bucketgram import bucketmeans as _bucketmeans_op
 from repro_torch.kernels.combine import combine as _combine_op
 from repro_torch.kernels.combine import combine_ref as _combine_ref
 from repro_torch.kernels.gram import gram as _gram_op
@@ -39,7 +45,11 @@ from repro_torch.tree import tree_leaves, tree_structure, tree_unflatten
 PyTree = Any
 
 #: The kernel wrappers of the port, by primitive name.
-KERNELS = {"gram": _gram_op, "mixtrim": _mixtrim_op, "combine": _combine_op}
+KERNELS = {"gram": _gram_op, "mixtrim": _mixtrim_op, "combine": _combine_op,
+           "bucketgram": _bucketgram_op, "bucketmeans": _bucketmeans_op}
+
+#: The reference's backends that the port does not run yet.
+UNPORTED_BACKENDS = ("pallas_sharded", "pallas_hier")
 
 
 def launch_counts() -> dict[str, int]:
@@ -55,6 +65,10 @@ def reset_launch_counts() -> None:
 def resolve_backend(requested: str, device: torch.device) -> str:
     """Resolve "auto": the kernels for a CUDA stack, the torch path
     otherwise.  Explicit requests are honoured."""
+    if requested in UNPORTED_BACKENDS:
+        raise NotImplementedError(
+            f"backend {requested!r} (the multi-device mesh forms) is not "
+            f"ported yet (ROADMAP queue 1, item 13)")
     if requested not in BACKENDS:
         raise ValueError(
             f"backend {requested!r} is not ported; expected one of {BACKENDS}")
@@ -70,14 +84,16 @@ def resolve_backend(requested: str, device: torch.device) -> str:
 @dataclasses.dataclass
 class KernelDecision:
     """One primitive-level routing decision."""
-    primitive: str          # "gram" | "combine" | "mixtrim" | "pipeline" | ...
+    primitive: str          # "gram" | "combine" | "mixtrim" | "bucketgram" | ...
     requested: str          # backend asked for at this call site
-    used: str               # "cuda" | "plain" (a kernel's plain version) | "torch"
+    used: str               # "cuda" | "plain" (a kernel's plain version) |
+                            # "torch" | "skipped" (s = 1 hierarchical stage)
     reason: str = ""        # why `used` differs from the kernel path
 
     @property
     def fell_back(self) -> bool:
-        return self.requested == "cuda" and self.used != "cuda"
+        return self.requested == "cuda" and self.used not in ("cuda",
+                                                              "skipped")
 
 
 @dataclasses.dataclass
@@ -87,6 +103,10 @@ class DispatchRecord:
     backend: str            # resolved backend
     rule: str
     pre: Optional[str]
+    #: Hierarchical stage: whether this call ran a bucketed pre-reduction
+    #: and its requested bucket size (None = the floor(n/2f) default).
+    hier: bool = False
+    bucket_size: Optional[int] = None
     decisions: list = dataclasses.field(default_factory=list)
 
     @property
@@ -95,8 +115,9 @@ class DispatchRecord:
         return [d for d in self.decisions if d.fell_back]
 
     def describe(self) -> str:
+        hier = f" hier(s={self.bucket_size or 'auto'})" if self.hier else ""
         parts = [f"{self.requested}->{self.backend} rule={self.rule} "
-                 f"pre={self.pre or 'none'}"]
+                 f"pre={self.pre or 'none'}{hier}"]
         for d in self.decisions:
             why = f" ({d.reason})" if d.reason else ""
             parts.append(f"  {d.primitive}: {d.used}{why}")
@@ -113,9 +134,10 @@ def last_dispatch() -> Optional[DispatchRecord]:
 
 
 def open_record(*, requested: str, backend: str, rule: str,
-                pre: Optional[str]) -> DispatchRecord:
+                pre: Optional[str], hier: bool = False,
+                bucket_size: Optional[int] = None) -> DispatchRecord:
     rec = DispatchRecord(requested=requested, backend=backend, rule=rule,
-                         pre=pre)
+                         pre=pre, hier=hier, bucket_size=bucket_size)
     _HISTORY.append(rec)
     return rec
 
@@ -220,6 +242,29 @@ def dispatch_gram(x: torch.Tensor, *, backend: str) -> torch.Tensor:
         return _gram_op(x)
     record_decision("gram", backend, "torch")
     return _gram_ref(x)
+
+
+def dispatch_bucketgram(x: torch.Tensor, assignment: torch.Tensor,
+                        n_buckets: int, *, backend: str,
+                        with_gram: bool = True
+                        ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(n, D) stack + (n,) bucket ids -> (bucket means (n_b, D) in the
+    stack dtype, reduced (n_b, n_b) fp32 Gram | None): the hierarchical
+    pre-reduction.  "cuda" launches K6 (``with_gram``) or K7; the torch
+    backend runs the dense plain version."""
+    name = "bucketgram" if with_gram else "bucketmeans"
+    if backend == "cuda":
+        record_decision(name, backend, *_used(x))
+        if with_gram and n_buckets > _BUCKETGRAM_REG_NB:
+            record_decision("gram", backend, _used(x)[0],
+                            f"n_b={n_buckets} > {_BUCKETGRAM_REG_NB}: the "
+                            "Gram of the fp32 means is a K1 launch")
+        if with_gram:
+            return _bucketgram_op(x, assignment, n_buckets)
+        return _bucketmeans_op(x, assignment, n_buckets), None
+    record_decision(name, backend, "torch")
+    bmat = _assignment_matrix(assignment.to(x.device), n_buckets)
+    return _bucketgram_ref(x, bmat, with_gram=with_gram)
 
 
 def dispatch_combine(x: torch.Tensor, coeff: torch.Tensor, *,

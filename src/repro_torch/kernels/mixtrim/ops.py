@@ -6,6 +6,8 @@
 runs :func:`mixtrim_ref`, the plain version, which defines the semantics:
 values sort with every NaN last (``torch.sort`` / ``jnp.sort`` order), so a
 trim over the nan / inf attack stacks keeps the same ranks in both.
+Up to 64 workers a register network sorts each column; above that (to
+:data:`MAX_N`) a shared-memory network sorts tiles of columns.
 ``mixtrim.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -19,9 +21,12 @@ from repro_torch.kernels._common import check_small, check_stack, stream_of
 
 _THREADS = 256
 _BLOCKS_PER_SM = 16
-#: Largest worker count the kernel's register-resident sort takes
-#: (csrc/mixtrim.cu MAX_N); larger n is ROADMAP queue 2, K2.
-MAX_N = 64
+#: Largest worker count the register-network kernel takes
+#: (csrc/mixtrim.cu SMALL_N); above it a shared-memory kernel sorts.
+SMALL_N = 64
+#: Largest worker count the kernels take (csrc/mixtrim.cu MAX_N): the next
+#: power of two above the reference's largest scale n, 10240.
+MAX_N = 16384
 
 
 def mixtrim_ref(x: torch.Tensor, m: Optional[torch.Tensor], f: int,
@@ -59,15 +64,17 @@ def mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f: int,
     check_stack(x, "mixtrim")
     if n > MAX_N:
         raise ValueError(f"mixtrim kernel takes n <= {MAX_N} workers, got "
-                         f"n={n} (ROADMAP queue 2, K2 for larger n)")
+                         f"n={n} (the port's one limit, ROADMAP queue 3)")
     d = x.shape[1]
     mf = None
     if m is not None:
         mf = m.float().contiguous()
         check_small(mf, (n, n), x, "mixtrim m")
     lib = _build.library()
-    blocks = max(1, min(-(-d // _THREADS),
-                        _BLOCKS_PER_SM * _build.sm_count(x.device)))
+    cap = _BLOCKS_PER_SM * _build.sm_count(x.device)
+    # n > SMALL_N: the kernel takes tiles of columns and caps the grid at
+    # its tile count itself.
+    blocks = cap if n > SMALL_N else max(1, min(-(-d // _THREADS), cap))
     out = torch.empty((d,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.repro_mixtrim(x.data_ptr(), _build.dtype_code(x.dtype),

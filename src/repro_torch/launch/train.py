@@ -102,6 +102,8 @@ def main(argv: Optional[list] = None, *, capture_first_stack: bool = False
     schedule = cosine(args.lr, args.steps, warmup=min(20, args.steps // 10))
     step_fn = build_train_step(model.loss, optimizer, tcfg, schedule)
     state = init_state(params, optimizer, args.workers, tcfg)
+    # Draws the bucket permutations of --agg bucketing+<rule>.
+    generator = torch.Generator().manual_seed(args.seed)
 
     history: dict[str, list] = {"loss": [], "direction_norm": [],
                                 "kappa_hat": [], "lr": [], "ms": []}
@@ -112,7 +114,8 @@ def main(argv: Optional[list] = None, *, capture_first_stack: bool = False
                            "labels": b["seq"][..., 1:]}, device)
         internals = {} if capture_first_stack and t == 0 else None
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch, internals)
+        state, metrics = step_fn(state, batch, internals,
+                                 generator=generator)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         ms = 1e3 * (time.perf_counter() - t0)

@@ -109,13 +109,16 @@ def kappa_hat_masked(agg: PyTree, stack: PyTree, n_honest: int) -> Tensor:
 
 def build_train_step(loss_fn: Callable, optimizer: Optimizer,
                      cfg: TrainerConfig, lr_schedule: Callable) -> Callable:
-    """Returns ``step(state, batch, internals=None) -> (state, metrics)``.
+    """Returns ``step(state, batch, internals=None, *, generator=None,
+    perm=None) -> (state, metrics)``.
 
     ``loss_fn(params, worker_batch) -> (scalar, metrics_dict)`` is the
     per-worker loss; ``batch`` carries a leading worker axis on every leaf
     and lies on the parameters' device.  ``internals``: pass a dict and the
     step stores the attacked flat stack (``"attacked"``) and its layout
-    (``"layout"``) into it.
+    (``"layout"``) into it.  ``generator`` (the reference's ``key``) draws
+    the bucket permutation of a ``hier`` / ``pre="bucketing"`` spec, and
+    is not touched otherwise; ``perm`` gives that permutation explicitly.
     """
     if cfg.algorithm not in ("dshb", "dgd"):
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
@@ -126,7 +129,9 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     one_minus_beta = float(np.float32(1.0) - np.float32(cfg.beta))
 
     def step(state: TrainState, batch: PyTree,
-             internals: Optional[dict] = None):
+             internals: Optional[dict] = None, *,
+             generator: Optional[torch.Generator] = None,
+             perm: Optional[Tensor] = None):
         params = state["params"]
         leaves = tree_leaves(params)
         skeleton = tree_structure(params)
@@ -173,7 +178,8 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             internals["attacked"] = attacked
             internals["layout"] = layout
 
-        direction = robust_lib.robust_aggregate(attacked_tree, spec)
+        direction = robust_lib.robust_aggregate(attacked_tree, spec,
+                                                generator=generator, perm=perm)
         lr = lr_schedule(state["step"])
         new_params, new_opt = optimizer.update(direction, state["opt_state"],
                                                params, lr)
@@ -196,10 +202,15 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
 
 
 def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
-               lr_schedule, steps: int, *, eval_fn: Optional[Callable] = None,
+               lr_schedule, steps: int, *, seed: int = 0,
+               eval_fn: Optional[Callable] = None,
                eval_every: int = 0, track_best: bool = True):
     """Runs ``steps`` iterations of the per-step loop; returns
     (final_params, {"history", "best", "state"}).
+
+    A CPU ``torch.Generator`` seeded with ``seed`` draws the bucket
+    permutations of a ``hier`` / ``pre="bucketing"`` spec (the reference
+    seeds its PRNG key the same way; the two draw different numbers).
 
     Implements the paper's model selection: theta_hat is the iterate with
     the smallest aggregate norm (Alg. 1), i.e. the iterate ENTERING the
@@ -212,6 +223,7 @@ def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
     n_workers = tree_leaves(first)[0].shape[0]
     state = init_state(params, optimizer, n_workers, cfg)
     step_fn = build_train_step(loss_fn, optimizer, cfg, lr_schedule)
+    generator = torch.Generator().manual_seed(seed)
 
     hist: dict[str, list] = {"loss": [], "direction_norm": [], "kappa_hat": [],
                              "lr": [], "ms": [], "eval": [], "eval_step": []}
@@ -220,7 +232,8 @@ def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
     for t in range(steps):
         prev_params = state["params"]
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, to_device(batch, device))
+        state, metrics = step_fn(state, to_device(batch, device),
+                                 generator=generator)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         hist["ms"].append(1e3 * (time.perf_counter() - t0))

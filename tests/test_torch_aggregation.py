@@ -197,8 +197,155 @@ def test_theory_matches_reference():
     assert got == pytest.approx(want, rel=1e-5)
 
 
-@pytest.mark.parametrize("kw", [dict(hier=True), dict(sketch_dim=16),
-                                dict(pre="bucketing")])
+@pytest.mark.parametrize("kw", [dict(sketch_dim=16),
+                                dict(backend="pallas_sharded"),
+                                dict(backend="pallas_hier")])
 def test_unported_options_raise(kw):
+    """What the port does not run yet raises naming its ROADMAP item
+    (hier and pre="bucketing" are ported: see the tests below)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_aggregate(_to_torch(_tree(0)), TSpec(rule="cwtm", f=2, **kw))
+
+
+# --- hierarchical aggregation and pre="bucketing" -------------------------
+#
+# The reference draws the bucket permutation from its PRNG key; the port is
+# handed that same permutation as ``perm``, so both group the workers
+# identically.  n = 17, f = 4: s = floor(17/8) = 2 gives 9 buckets, one a
+# singleton (the ragged tail), and f' = 4.  Same tolerance as above.
+
+N_H, F_H = 17, 4
+KEY_H = jax.random.PRNGKey(5)
+
+
+@pytest.fixture(scope="module")
+def alie_stack_h():
+    jt = jax.tree_util.tree_map(jnp.asarray, _tree(7, N_H))
+    return _to_np(j_attack("alie", jt, F_H, eta=1.5))
+
+
+def _perm_h(key=KEY_H, n=N_H):
+    return torch.from_numpy(np.array(jax.random.permutation(key, n)))
+
+
+@pytest.mark.parametrize("rule", ["cwtm", "cwmed", "gm", "krum"])
+@pytest.mark.parametrize("pre", [None, "nnm"])
+@pytest.mark.parametrize("backends", [("pallas", "cuda"), ("xla", "torch")])
+def test_hier_matches_reference(alie_stack_h, rule, pre, backends):
+    """The port's "cuda" backend (on the CPU: K6 / K7, K1-K3's plain
+    versions) against the reference's "pallas" (interpret-mode kernels),
+    and the port's "torch" (gather form) against the reference's "xla"."""
+    jback, tback = backends
+    want = j_aggregate(jax.tree_util.tree_map(jnp.asarray, alie_stack_h),
+                       JSpec(rule=rule, f=F_H, pre=pre, hier=True,
+                             backend=jback), key=KEY_H)
+    got = t_aggregate(_to_torch(alie_stack_h),
+                      TSpec(rule=rule, f=F_H, pre=pre, hier=True,
+                            backend=tback), perm=_perm_h())
+    _assert_close(_to_np(got), _to_np(want))
+    rec = kdispatch.last_dispatch()
+    assert rec.hier and rec.backend == tback
+    stage = [d for d in rec.decisions
+             if d.primitive in ("bucketgram", "bucketmeans")]
+    assert len(stage) == 1
+    if tback == "cuda":
+        # K6 when a Gram consumer follows (its Gram replaces K1's), else K7.
+        need_gram = pre == "nnm" or rule in ("gm", "krum")
+        assert stage[0].primitive == ("bucketgram" if need_gram
+                                      else "bucketmeans")
+        # No K1 pass over the stack; with 9 > 8 buckets K6 takes the Gram
+        # of its fp32 means by a K1 launch, recorded with that reason.
+        assert all("fp32 means" in d.reason for d in rec.decisions
+                   if d.primitive == "gram")
+
+
+@pytest.mark.parametrize("rule", ["cwtm", "gm"])
+@pytest.mark.parametrize("backends", [("pallas", "cuda"), ("xla", "torch")])
+@pytest.mark.parametrize("bucket_size", [None, 3])
+def test_pre_bucketing_matches_reference(alie_stack_h, rule, backends,
+                                         bucket_size):
+    jback, tback = backends
+    want = j_aggregate(jax.tree_util.tree_map(jnp.asarray, alie_stack_h),
+                       JSpec(rule=rule, f=F_H, pre="bucketing",
+                             bucket_size=bucket_size, backend=jback),
+                       key=KEY_H)
+    got = t_aggregate(_to_torch(alie_stack_h),
+                      TSpec(rule=rule, f=F_H, pre="bucketing",
+                            bucket_size=bucket_size, backend=tback),
+                      perm=_perm_h())
+    _assert_close(_to_np(got), _to_np(want))
+
+
+@pytest.mark.parametrize("rule", ["cwtm", "gm"])
+@pytest.mark.parametrize("backends", [("pallas", "cuda"), ("xla", "torch")])
+def test_hier_bf16_transport_matches_reference(alie_stack_h, rule, backends):
+    """Each port backend against its reference counterpart: with a bf16
+    stack the two reference paths differ (the kernel path takes the Gram of
+    the fp32 means, the gather form of the bf16-rounded ones: 4e-4 apart
+    for gm here), and the port keeps each semantics on its own path."""
+    jback, tback = backends
+    want = j_aggregate(jax.tree_util.tree_map(jnp.asarray, alie_stack_h),
+                       JSpec(rule=rule, f=F_H, pre="nnm", hier=True,
+                             backend=jback, transport_dtype="bf16"),
+                       key=KEY_H)
+    got = t_aggregate(_to_torch(alie_stack_h),
+                      TSpec(rule=rule, f=F_H, pre="nnm", hier=True,
+                            backend=tback, transport_dtype="bf16"),
+                      perm=_perm_h())
+    _assert_close(_to_np(got), _to_np(want))
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(hier=True, pre="bucketing"), "bucket twice"),
+    (dict(hier=True, sketch_dim=8), "sketch_dim"),
+])
+def test_hier_validation_errors_match_reference(kw, match):
+    tree = _tree(8, N_H)
+    with pytest.raises(ValueError, match=match):
+        j_aggregate(jax.tree_util.tree_map(jnp.asarray, tree),
+                    JSpec(rule="cwtm", f=F_H, backend="xla", **kw), key=KEY_H)
+    with pytest.raises(ValueError, match=match):
+        t_aggregate(_to_torch(tree), TSpec(rule="cwtm", f=F_H, **kw),
+                    perm=_perm_h())
+
+
+@pytest.mark.parametrize("kw", [dict(hier=True), dict(pre="bucketing"),
+                                dict(hier=True, bucket_size=1)])
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_bucketing_without_a_permutation_source_raises(kw, backend):
+    with pytest.raises(ValueError, match="Generator or a perm"):
+        t_aggregate(_to_torch(_tree(8, N_H)),
+                    TSpec(rule="cwtm", f=F_H, backend=backend, **kw))
+
+
+@pytest.mark.parametrize("rule", ["cwtm", "gm"])
+@pytest.mark.parametrize("pre", [None, "nnm"])
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_hier_bucket_size_one_is_bitwise_the_dense_pipeline(
+        alie_stack_h, rule, pre, backend):
+    """s = 1 skips the stage (recorded) without drawing a permutation."""
+    dense = t_aggregate(_to_torch(alie_stack_h),
+                        TSpec(rule=rule, f=F_H, pre=pre, backend=backend))
+    gen = torch.Generator().manual_seed(3)
+    state = gen.get_state()
+    got = t_aggregate(_to_torch(alie_stack_h),
+                      TSpec(rule=rule, f=F_H, pre=pre, backend=backend,
+                            hier=True, bucket_size=1), generator=gen)
+    for k in dense:
+        assert torch.equal(got[k], dense[k]), k
+    assert torch.equal(gen.get_state(), state)
+    rec = kdispatch.last_dispatch()
+    skipped = [d for d in rec.decisions if d.primitive == "bucketgram"]
+    assert [d.used for d in skipped] == ["skipped"]
+    assert not skipped[0].fell_back
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_generator_draws_the_permutation_it_is_given(alie_stack_h, backend):
+    spec = TSpec(rule="cwtm", f=F_H, pre="nnm", hier=True, backend=backend)
+    got = t_aggregate(_to_torch(alie_stack_h), spec,
+                      generator=torch.Generator().manual_seed(11))
+    perm = torch.randperm(N_H, generator=torch.Generator().manual_seed(11))
+    want = t_aggregate(_to_torch(alie_stack_h), spec, perm=perm)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K3 against their plain versions, on the card.
+"""The CUDA kernels K1-K3, K6 and K7 against their plain versions, on the
+card.
 
 Every test here is marked ``cuda`` and skips with a reason without a GPU
 (the kernels have no CPU mode).  The file imports no JAX, so it runs on a
@@ -7,12 +8,18 @@ GPU host that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: 1e-5 of the largest finite |plain| (fp32 sums in another
-order); NaN positions and infinities must agree exactly.
+order); NaN positions and infinities must agree exactly.  Bucket means of a
+bf16 stack are rounded to bf16 from fp32 sums taken in another order, so
+a value that lies at a rounding boundary may land one bf16 step away:
+each is held to one bf16 ulp (2^-7 of the value) on top of that fp32
+tolerance (a mean near 0 after cancellation has an ulp far below the
+fp32 sums' rounding).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import (
+    bucket_means_gram, bucket_means_gram_ref, bucketgram, bucketmeans,
     combine, combine_ref, gram, gram_ref, mixtrim, mixtrim_ref,
 )
 
@@ -29,6 +36,22 @@ def _close(got, want):
     if fin.any():
         tol = RTOL * float(want[fin].abs().max())
         assert float((got[fin] - want[fin]).abs().max()) <= tol
+
+
+def _close_bf16(got, want):
+    """One bf16 ulp per entry plus the fp32 tolerance (module docstring)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    tol = RTOL * float(want[fin].abs().max())
+    assert bool(((got[fin] - want[fin]).abs()
+                 <= 2.0 ** -7 * want[fin].abs() + tol).all())
+
+
+def _close_means(got, want):
+    (_close_bf16 if want.dtype == torch.bfloat16 else _close)(got, want)
 
 
 @pytest.fixture
@@ -88,7 +111,112 @@ def test_gram_is_deterministic_and_counts_launches(dev):
 
 
 @pytest.mark.cuda
-def test_mixtrim_refuses_more_than_64_workers(dev):
-    x = _stack(dev, 65, 16, torch.float32, False, seed=3)
-    with pytest.raises(ValueError, match="n <= 64"):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [65, 100, 257, 1024])
+@pytest.mark.parametrize("d", [1, 61, 4099])
+def test_mixtrim_above_64_workers_matches_plain(dev, dtype, n, d):
+    """The shared-memory sort (n > 64): every f regime, with and without
+    the mix, ragged column tiles; n = 65 was refused before it existed."""
+    x = _stack(dev, n, d, dtype, False, seed=n + d)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    m = torch.softmax(torch.randn(n, n, generator=gen, device=dev), -1)
+    for mode in ("trim", "med"):
+        for f in sorted({0, 3, (n - 1) // 2}):
+            if mode == "med" and f:
+                continue
+            for mm in (None, m.to(dtype)):
+                _close(mixtrim(x, mm, f, mode), mixtrim_ref(x, mm, f, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [float("nan"), float("inf"), -float("inf")])
+@pytest.mark.parametrize("n,f", [(65, 8), (300, 100)])
+def test_mixtrim_above_64_workers_nonfinite_rows(dev, fill, n, f):
+    x = _stack(dev, n, 2051, torch.float32, False, seed=4).clone()
+    x[n - f:] = fill
+    x[3, 7] = float("nan")
+    m = torch.softmax(torch.randn(n, n, device=dev), -1)
+    for mode in ("trim", "med"):
+        for mm in (None, m):
+            _close(mixtrim(x, mm, f if mode == "trim" else 0, mode),
+                   mixtrim_ref(x, mm, f if mode == "trim" else 0, mode))
+
+
+@pytest.mark.cuda
+def test_mixtrim_refuses_more_than_16384_workers(dev):
+    x = _stack(dev, 16385, 2, torch.float32, False, seed=3)
+    with pytest.raises(ValueError, match="n <= 16384"):
         mixtrim(x, None, 2, "trim")
+
+
+def _assignment(dev, n, s, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    perm = torch.randperm(n, generator=gen, device=dev)
+    nb = -(-n // s)
+    return (torch.argsort(perm) // s).to(torch.int32), nb
+
+
+def _dense_b(assign, nb):
+    n = assign.shape[0]
+    counts = torch.bincount(assign.long(), minlength=nb).float()
+    b = torch.zeros(nb, n, device=assign.device)
+    b[assign.long(), torch.arange(n, device=assign.device)] = 1.0 / counts[assign.long()]
+    return b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,s", [(16, 2), (17, 2), (10, 4), (5, 5), (40, 3),
+                                 (256, 16), (1031, 16)])
+@pytest.mark.parametrize("d", [1, 7, 1000, (1 << 18) + 3])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_bucketgram_matches_plain(dev, dtype, n, s, d, misaligned):
+    """K6 (means + Gram; register fold for n_b <= 8, K1 fold above) and K7
+    (means) against the dense plain version, ragged tail buckets, vector
+    and scalar column paths."""
+    x = _stack(dev, n, d, dtype, misaligned, seed=n * 31 + d)
+    assign, nb = _assignment(dev, n, s, seed=n + s)
+    want_y, want_g = bucket_means_gram_ref(x, _dense_b(assign, nb))
+    y, g = bucketgram(x, assign, nb)
+    assert y.dtype == dtype and g.dtype == torch.float32
+    _close_means(y, want_y)
+    _close(g, want_g)
+    _close_means(bucketmeans(x, assign, nb), want_y)
+    y2, g2 = bucket_means_gram(x, _dense_b(assign, nb), with_gram=True)
+    _close_means(y2, want_y)
+    _close(g2, want_g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [float("nan"), float("inf"), -float("inf")])
+@pytest.mark.parametrize("n,s", [(16, 2), (40, 3)])
+def test_bucketgram_nonfinite_rows_spread_like_the_dense_contraction(
+        dev, fill, n, s):
+    """0 * inf = NaN in the dense B @ X: a non-finite row makes every
+    OTHER bucket NaN in its columns; the kernels must do the same."""
+    x = _stack(dev, n, 4099, torch.float32, False, seed=5).clone()
+    x[2, 100:200] = fill
+    x[7, 150:300] = float("inf")
+    x[n - 1, 5] = float("nan")
+    assign, nb = _assignment(dev, n, s, seed=9)
+    want_y, want_g = bucket_means_gram_ref(x, _dense_b(assign, nb))
+    y, g = bucketgram(x, assign, nb)
+    _close(y, want_y)
+    _close(g, want_g)
+    _close(bucketmeans(x, assign, nb), want_y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s", [(16, 2), (256, 16)])
+def test_bucketgram_gram_is_deterministic_and_counts_launches(dev, n, s):
+    x = _stack(dev, n, (1 << 22) + 4, torch.float32, False, seed=6)
+    assign, nb = _assignment(dev, n, s, seed=1)
+    before, before_m = bucketgram.launches, bucketmeans.launches
+    y1, g1 = bucketgram(x, assign, nb)
+    y2, g2 = bucketgram(x, assign, nb)
+    assert torch.equal(g1, g2) and torch.equal(y1, y2)
+    bucketmeans(x, assign, nb)
+    assert bucketgram.launches == before + 2
+    assert bucketmeans.launches == before_m + 1

@@ -18,9 +18,15 @@ import sys
 import torch
 torch.set_num_threads(1)
 import repro_torch
+import repro_torch.core.bucketing
+import repro_torch.kernels.bucketgram
 from repro_torch.launch import train
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--byz", "1", "--seq", "8", "--batch", "1"])
+assert out["history"]["loss"], out
+out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
+                  "--byz", "1", "--seq", "8", "--batch", "1",
+                  "--agg", "bucketing+cwtm"])
 assert out["history"]["loss"], out
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
@@ -39,8 +45,13 @@ def test_port_runs_a_cpu_step_without_importing_jax_or_repro():
 
 
 def test_no_source_file_names_jax_or_repro():
+    """Every module of the port (the bucketing and bucketgram modules
+    included) and chip_smoke.py."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
-    offenders = [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert PKG / "core" / "bucketing.py" in files
+    assert PKG / "kernels" / "bucketgram" / "ops.py" in files
+    offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert not offenders, offenders
 

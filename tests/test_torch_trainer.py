@@ -57,14 +57,18 @@ CPU = torch.device("cpu")
 
 
 def _run_both(j_loss, t_loss, params_np, batches, *, rule, pre, attack, eta,
-              f, lr_j, lr_t, steps):
+              f, lr_j, lr_t, steps, backends=("xla", "auto"), **spec_kw):
     """Steps both packages on the same batches; returns per-step metric
-    pairs and the final parameters of each."""
+    pairs and the final parameters of each.  ``spec_kw`` (``hier``,
+    ``bucket_size``) goes to both specs; the port is handed the bucket
+    permutation the reference draws inside its step."""
     jcfg = JCfg(algorithm="dshb", beta=0.9,
-                agg=JSpec(rule=rule, f=f, pre=pre, backend="xla"),
+                agg=JSpec(rule=rule, f=f, pre=pre, backend=backends[0],
+                          **spec_kw),
                 byz=JByz(f=f, attack=attack, eta=eta))
     tcfg = TCfg(algorithm="dshb", beta=0.9,
-                agg=TSpec(rule=rule, f=f, pre=pre, backend="auto"),
+                agg=TSpec(rule=rule, f=f, pre=pre, backend=backends[1],
+                          **spec_kw),
                 byz=TByz(f=f, attack=attack, eta=eta))
     n = next(iter(jax.tree_util.tree_leaves(batches[0]))).shape[0]
     jparams = jax.tree_util.tree_map(jnp.asarray, params_np)
@@ -78,7 +82,11 @@ def _run_both(j_loss, t_loss, params_np, batches, *, rule, pre, attack, eta,
     for b in batches[:steps]:
         key, sub = jax.random.split(key)
         jstate, jm = jstep(jstate, b, sub)
-        tstate, tm = tstep(tstate, to_device(b, CPU))
+        # The reference's step splits its key and draws the bucket
+        # permutation from the first half (training/trainer.py).
+        perm = torch.from_numpy(np.array(jax.random.permutation(
+            jax.random.split(sub)[0], n)))
+        tstate, tm = tstep(tstate, to_device(b, CPU), perm=perm)
         rows.append({k: (float(jm[k]), float(tm[k]))
                      for k in ("loss", "kappa_hat", "direction_norm", "lr")})
     return rows, jstate, tstate
@@ -145,6 +153,22 @@ def test_smollm_reduced_dshb_nnm_cwtm_alie_matches_reference():
     _check(rows, jstate, tstate)
 
 
+def test_smollm_reduced_hier_nnm_cwtm_alie_matches_reference():
+    """Hierarchical D-SHB: n = 8, f = 2 gives s = 2, 4 buckets, f' = 1."""
+    steps, n, f = 3, 8, 2
+    jcfg = j_reduced("smollm-360m")
+    tcfg = t_reduced("smollm-360m")
+    jmodel, tmodel = j_build(jcfg), t_build(tcfg)
+    params_np = jax.tree_util.tree_map(np.asarray,
+                                       jmodel.init(jax.random.PRNGKey(0)))
+    batches = _lm_batches(jcfg.vocab_size, n, steps)
+    rows, jstate, tstate = _run_both(
+        jmodel.loss, tmodel.loss, params_np, batches, rule="cwtm", pre="nnm",
+        attack="alie", eta=None, f=f, lr_j=j_cosine(0.05, steps, warmup=0),
+        lr_t=t_cosine(0.05, steps, warmup=0), steps=steps, hier=True)
+    _check(rows, jstate, tstate)
+
+
 # --- the quickstart MLP (examples/quickstart.py's loss and init) ---------
 
 def _mlp_setup(n_workers=8, steps=4):
@@ -181,6 +205,52 @@ def test_quickstart_mlp_matches_reference(rule):
         attack="alie", eta=8.0, f=2, lr_j=j_constant(0.3),
         lr_t=t_constant(0.3), steps=len(batches))
     _check(rows, jstate, tstate)
+
+
+@pytest.mark.parametrize("rule,pre", [("cwtm", "nnm"), ("cwtm", None),
+                                      ("gm", "nnm")])
+@pytest.mark.parametrize("backends", [("pallas", "cuda"), ("xla", "torch")])
+def test_quickstart_mlp_hier_matches_reference(rule, pre, backends):
+    """The hierarchical step on both backend pairs: the port's "cuda"
+    (on the CPU, K6 / K7 and K1-K3's plain versions) against the
+    reference's interpret-mode Pallas kernels, and "torch" against
+    "xla"."""
+    params_np, batches = _mlp_setup(steps=3)
+    rows, jstate, tstate = _run_both(
+        _j_mlp_loss, _t_mlp_loss, params_np, batches, rule=rule, pre=pre,
+        attack="alie", eta=8.0, f=2, lr_j=j_constant(0.3),
+        lr_t=t_constant(0.3), steps=len(batches), backends=backends,
+        hier=True)
+    _check(rows, jstate, tstate)
+
+
+def test_quickstart_mlp_pre_bucketing_matches_reference():
+    params_np, batches = _mlp_setup(steps=3)
+    rows, jstate, tstate = _run_both(
+        _j_mlp_loss, _t_mlp_loss, params_np, batches, rule="cwtm",
+        pre="bucketing", attack="alie", eta=8.0, f=2, lr_j=j_constant(0.3),
+        lr_t=t_constant(0.3), steps=len(batches))
+    _check(rows, jstate, tstate)
+
+
+def test_train_loop_draws_bucket_permutations_from_its_seed():
+    """train_loop seeds a generator from ``seed``: the same seed gives the
+    same run, and a hier step without a permutation source raises."""
+    from repro_torch.training import train_loop as t_train_loop
+    params_np, batches = _mlp_setup(steps=2)
+    cfg = TCfg(algorithm="dshb", beta=0.9,
+               agg=TSpec(rule="cwtm", f=2, pre="nnm", hier=True),
+               byz=TByz(f=2, attack="alie", eta=8.0))
+    runs = [t_train_loop(_t_mlp_loss, params_from_numpy(params_np, CPU),
+                         iter(batches), t_sgd(clip=2.0), cfg, t_constant(0.3),
+                         steps=1, seed=seed)[1]["history"]["loss"]
+            for seed in (4, 4)]
+    assert runs[0] == runs[1]
+    step = t_build_step(_t_mlp_loss, t_sgd(clip=2.0), cfg, t_constant(0.3))
+    state = t_init_state(params_from_numpy(params_np, CPU), t_sgd(clip=2.0),
+                         8, cfg)
+    with pytest.raises(ValueError, match="Generator or a perm"):
+        step(state, to_device(batches[0], CPU))
 
 
 def test_quickstart_port_reaches_reference_accuracy():
