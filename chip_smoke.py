@@ -34,8 +34,23 @@ Phases, each fatal on failure:
      step), hier + CWTM (2 steps; K7 and K2), hier + NNM + GM (2 steps; K6
      and K3); then --agg bucketing+cwtm through launch.train.main (2 steps;
      K2 only);
- 10. summary: the K1-K7 table, the kernels JSON line, the card line, and
+ 10. K5 (gram_batched) against its plain version and torch.bmm at
+     (B = 8, n = 17, D = 2^24) and the reference bench's (8, 16, 8192),
+     bitwise repeatable; K4 (mixtrim_dyn) lane-batched at (8, 17, 2^24)
+     with per-lane f = 0..7 and per-lane M, with and without the mix, and
+     with an inf row and a NaN row; both at the fleet grid's own shape
+     (B = 5, n = 17, D = 2842);
+ 11. the fleet: ``repro_torch.launch.grid --full`` in process (61 jobs,
+     13 buckets, 100 rounds), asserting K4, K5, K2 and K3 launches and no
+     fallback, printing the accuracy table, ms per bucket-round and peak
+     memory; then the cwtm | nnm bucket again on the torch backend, per-
+     round losses within rtol 1e-4 of the kernel run;
+ 12. summary: the K1-K7 table, the kernels JSON line, the card line, and
      last the {"ok": true, ...} line.
+
+Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
+device tensor, with the NNM mix) against its plain version and against K2
+at the same f.
 
 It needs one CUDA card and imports nothing of JAX or of the reference
 package ``repro``.
@@ -63,6 +78,11 @@ K2_LARGE = ((65, (1 << 20) + 3), (256, 1 << 20), (640, 1 << 20),
             (1024, 1 << 20), (10240, 64))
 PLAIN_CHUNK = 1 << 25           # plain mixtrim runs in D-chunks (sort indices)
 PLAIN_ELEMS = 1 << 28           # ... of at most this many elements above n = 64
+#: The fleet's lane-batched kernel shapes: (B, n, D).
+FLEET_BIG = (8, 17, 1 << 24)
+FLEET_BENCH = (8, 16, 8192)     # the reference bench's gram_batched shape
+FLEET_GRID = (5, 17, 2842)      # a grid bucket: 5 lanes, the 48-48-10 MLP
+GRID_ROUNDS = 100
 REPS = 7
 RTOL = 1e-5                     # of the largest finite |plain| (fp32 contract)
 FP32_TFLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -235,6 +255,8 @@ def phase_kernels(dev, rate: float) -> dict:
                 if main and mode == "trim" and mm is not None:
                     rows["mixtrim"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                            bound=bnd, library_ms=None)
+        if main:
+            phase_k4_dense(x, m, f, d, rate)
         del out
         for dtype in (torch.float32, torch.bfloat16):
             xx = x if dtype == torch.float32 else x.to(dtype)
@@ -261,6 +283,177 @@ def phase_kernels(dev, rate: float) -> dict:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_k4_dense(x, m, f: int, d: int, rate: float) -> None:
+    """K4 at the dense trainer's shape: f as a device tensor, the NNM mix;
+    against its plain version and against K2 at the same f (1e-6 of
+    max|out|: the same sort and the same sum over ranks [f, n - f) on
+    finite data, the mask's zeros adding exact zeros)."""
+    import torch
+    from repro_torch.kernels import mixtrim, mixtrim_dyn, mixtrim_dyn_ref
+    n = x.shape[0]
+    ft = torch.tensor(f, dtype=torch.int32, device=x.device)
+    out = mixtrim_dyn(x, m, ft)
+    plain = chunked(lambda s: mixtrim_dyn_ref(x[:, s], m, ft), d)
+    bnd = bound(4.0 * n * d + 4 * d + 4 * n * n, 2 * n * n * d + n * d, rate)
+    ms, pms = time_ms(lambda: mixtrim_dyn(x, m, ft)), time_ms(plain)
+    check("K4 mixtrim_dyn trim mix fp32, f=2 on the device", out, plain(), ms,
+          pms, bnd)
+    k2 = mixtrim(x, m, f, "trim")
+    diff = max(float((a - b).abs().max()) for a, b in _chunks(out, k2))
+    scale = max(float(b.abs().max()) for _, b in _chunks(out, k2))
+    log(f"  K4 vs K2 at f={f}: max_abs_err={diff:.3e} tol={1e-6 * scale:.3e} "
+        f"{'OK' if diff <= 1e-6 * scale else 'FAIL'}")
+    if diff > 1e-6 * scale:
+        raise AssertionError("K4 disagrees with K2 at equal f")
+    del out, k2
+
+
+def lanes_chunked(fn, d: int, step: int = 1 << 22):
+    """A lane-batched plain version over column chunks, concatenated."""
+    import torch
+    return lambda: torch.cat([fn(slice(c, min(c + step, d)))
+                              for c in range(0, d, step)], dim=1)
+
+
+def phase_fleet_kernels(dev, rate: float) -> dict:
+    """K5 and K4 on (B, n, D) lane-batched stacks."""
+    import torch
+    from repro_torch.kernels import (gram, gram_batched, gram_batched_ref,
+                                     mixtrim_dyn, mixtrim_dyn_ref)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    rows = {}
+    for b, n, d in (FLEET_BIG, FLEET_BENCH, FLEET_GRID):
+        big = (b, n, d) == FLEET_BIG
+        log(f"-- K5 gram_batched B={b} n={n} D={d}")
+        x = torch.randn((b, n, d), generator=gen, device=dev)
+        g = gram_batched(x)
+        bnd = bound(4.0 * b * n * d + 4 * b * n * n, b * n * (n + 1) * d, rate)
+        ms = time_ms(lambda: gram_batched(x))
+        pms = time_ms(lambda: gram_batched_ref(x))
+        lib = time_ms(lambda: torch.bmm(x, x.mT))
+        err = check("K5 gram_batched fp32", g, gram_batched_ref(x), ms, pms,
+                    bnd, lib)
+        if not torch.equal(g, gram_batched(x)):
+            raise AssertionError("K5 is not bitwise repeatable")
+        log("  K5: bitwise equal over two runs")
+        # K1 splits one lane's D into more chunks: equal within fp32 sums.
+        agree("K5 lane 1 vs K1 on that lane", g[1], gram(x[1].contiguous()))
+        if big:
+            rows["gram_batched"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                        bound=bnd, library_ms=lib)
+        if (b, n, d) != FLEET_BENCH:
+            fs = torch.arange(b, dtype=torch.int32, device=dev) % (n // 2 + 2)
+            m = torch.softmax(torch.randn((b, n, n), generator=gen,
+                                          device=dev), -1)
+            for mm in (m, None):
+                tag = "mix" if mm is not None else "no-mix"
+                log(f"-- K4 mixtrim_dyn B={b} n={n} D={d} {tag}, f={fs.tolist()}")
+                plain = lanes_chunked(
+                    lambda s: mixtrim_dyn_ref(x[:, :, s].contiguous(), mm, fs), d)
+                flops = (2.0 * b * n * n * d if mm is not None else 0) + b * n * d
+                bnd = bound(4.0 * b * n * d + 4 * b * d
+                            + (4 * b * n * n if mm is not None else 0), flops, rate)
+                ms, pms = time_ms(lambda: mixtrim_dyn(x, mm, fs)), time_ms(plain)
+                err = check(f"K4 mixtrim_dyn trim {tag} fp32",
+                            mixtrim_dyn(x, mm, fs), plain(), ms, pms, bnd)
+                if big and mm is not None:
+                    rows["mixtrim_dyn"] = dict(max_abs_err=err, ms=ms,
+                                               plain_ms=pms, bound=bnd,
+                                               library_ms=None)
+                agree(f"K4 mixtrim_dyn med {tag}", mixtrim_dyn(x, mm, fs, "med"),
+                      plain_med(x, mm, fs, d))
+        if big:
+            # An inf row and a NaN row: the rank mask keeps inf * 0 = NaN.
+            xs = x[:, :, :(1 << 20) + 3].clone()
+            xs[1, n - 1, 100:5000] = float("inf")
+            xs[2, 3, 2000:9000] = float("nan")
+            xs[3, 0, 7:11] = -float("inf")
+            for mm in (m, None):
+                got = mixtrim_dyn(xs, mm, fs)
+                want = mixtrim_dyn_ref(xs, mm, fs)
+                agree(f"K4 inf / nan rows {'mix' if mm is not None else 'no-mix'} "
+                      f"({int(torch.isnan(want).sum())} NaN outputs)", got, want)
+            del xs
+        del x, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def plain_med(x, m, fs, d: int):
+    from repro_torch.kernels import mixtrim_dyn_ref
+    return lanes_chunked(
+        lambda s: mixtrim_dyn_ref(x[:, :, s].contiguous(), m, fs, "med"), d)()
+
+
+def phase_grid(dev, rounds: int) -> dict:
+    """The fleet grid through its entry point; returns the launch counts."""
+    import torch
+    from repro_torch.fleet import FleetRunner
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import grid
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = grid.main(["--full", "--device", dev.type, "--rounds", str(rounds)])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = kdispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    fallbacks = kdispatch.fallback_log()
+    runner = out["runner"]
+    log(f"  grid: {len(out['results'])} jobs, {runner.n_buckets} buckets, "
+        f"{rounds} rounds, {wall:.1f} s, launches {counts}, "
+        f"peak {peak / 2**30:.3f} GiB")
+    if fallbacks:
+        raise AssertionError(f"grid dispatch fell back: {fallbacks[:3]}")
+    for k in ("gram_batched", "mixtrim_dyn", "mixtrim", "combine"):
+        if counts[k] == 0:
+            raise AssertionError(f"grid: kernel {k} was never launched")
+    if runner.n_buckets != 13 or len(out["results"]) != 61:
+        raise AssertionError("grid: expected 61 jobs in 13 buckets")
+    for r in out["results"]:
+        h = r.history
+        if h.rounds != rounds or not all(math.isfinite(v) for v in
+                                         h.direction_norm):
+            raise AssertionError(f"{r.label}: bad history")
+    base = out["table"]["baseline"]
+    if not base > 0.8:
+        raise AssertionError(f"baseline accuracy {base} <= 0.8")
+    per = {}
+    for bi, lanes, nr, sec in runner.segment_log:
+        per.setdefault(bi, []).append(1e3 * sec / nr)
+    meds = {bi: statistics.median(v) for bi, v in per.items()}
+    labels = {bi: b.jobs[0].label.rsplit("|", 1)[0] if len(b.jobs) > 1
+              else b.jobs[0].label for bi, b in enumerate(runner.buckets)}
+    log("  ms per bucket-round (median over segments): " + ", ".join(
+        f"{labels[bi]} {ms:.2f}" for bi, ms in meds.items()))
+    log(f"  median over buckets: {statistics.median(meds.values()):.3f} ms "
+        f"per bucket-round")
+    # The cwtm | nnm bucket again, torch backend, on the card.
+    jobs = [j for j in grid.build_jobs(full=True, alpha=0.1, steps=rounds,
+                                       backend="torch")
+            if j.label.startswith("cwtm|nnm|")]
+    before = kdispatch.launch_counts()
+    again = FleetRunner(jobs, device=dev).run()
+    if kdispatch.launch_counts() != before:
+        raise AssertionError("the torch backend launched a kernel")
+    kern = {r.label: r for r in out["results"]}
+    worst = 0.0
+    for r in again:
+        a = [float(v) for v in kern[r.label].history.loss]
+        b = [float(v) for v in r.history.loss]
+        for x, y in zip(a, b):
+            rel = abs(x - y) / max(abs(y), 1e-30)
+            worst = max(worst, rel)
+            if abs(x - y) > 1e-4 * abs(y):
+                raise AssertionError(f"{r.label}: cuda vs torch loss {x} vs {y}")
+    log(f"  cwtm|nnm bucket, cuda vs torch backend: per-round loss max rel "
+        f"diff {worst:.3e} (tol 1e-4) OK")
+    return counts
 
 
 def run_train(agg: str, steps: int, capture: bool, n: int = N_MAIN,
@@ -629,10 +822,20 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
 
-    log("== 10. summary")
+    log("== 10. K5 / K4 on lane-batched stacks")
+    rows.update(phase_fleet_kernels(dev, rate))
+
+    elapsed = time.perf_counter() - t_start
+    rounds = GRID_ROUNDS if elapsed < 700 else 30
+    if rounds != GRID_ROUNDS:
+        log(f"  (grid cut to {rounds} rounds: {elapsed:.0f} s used so far)")
+    log(f"== 11. fleet grid: --full, {rounds} rounds, n=17 f=4 alpha=0.1")
+    counts_grid = phase_grid(dev, rounds)
+
+    log("== 12. summary")
     table = [("K1", "gram", "ported, checked"), ("K2", "mixtrim", "ported, checked"),
-             ("K3", "combine", "ported, checked"), ("K4", "mixtrim_dyn", "not ported"),
-             ("K5", "gram_batched", "not ported"), ("K6", "bucketgram", "ported, checked"),
+             ("K3", "combine", "ported, checked"), ("K4", "mixtrim_dyn", "ported, checked"),
+             ("K5", "gram_batched", "ported, checked"), ("K6", "bucketgram", "ported, checked"),
              ("K7", "bucketmeans", "ported, checked")]
     log("kernels: " + "; ".join(f"{k} {n}: {s}" for k, n, s in table))
     meta = {
@@ -642,6 +845,12 @@ def main() -> int:
                     "src/repro/kernels/mixtrim/kernel.py:177", counts_main["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",
                     "src/repro/kernels/combine/kernel.py:34", counts_gm["combine"]),
+        "mixtrim_dyn": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cu",
+                        "src/repro/kernels/mixtrim/kernel.py:213",
+                        counts_grid["mixtrim_dyn"]),
+        "gram_batched": ("src/repro_torch/kernels/csrc/gram.cu",
+                         "src/repro/kernels/gram/kernel.py:73",
+                         counts_grid["gram_batched"]),
         "bucketgram": ("src/repro_torch/kernels/csrc/bucketgram.cu",
                        "src/repro/kernels/bucketgram/kernel.py:75",
                        counts_hier["bucketgram"]),

@@ -116,6 +116,13 @@ def adjusted_f(f: int, n_buckets: int) -> int:
     return min(f, max(0, (n_buckets - 1) // 2)) if f else 0
 
 
+def adjusted_f_dyn(f, n_buckets: int) -> Tensor:
+    """:func:`adjusted_f` for an int-tensor f (fleet lanes, any shape):
+    f capped at (n_buckets - 1) // 2, as an int32 tensor."""
+    cap = max(0, (n_buckets - 1) // 2)
+    return torch.clamp_max(torch.as_tensor(f).to(torch.int32), cap)
+
+
 def bucketing(x: Tensor, f: int, *, generator: Optional[torch.Generator] = None,
               perm: Optional[Tensor] = None,
               bucket_size: Optional[int] = None) -> tuple[Tensor, int]:

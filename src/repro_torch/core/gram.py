@@ -4,14 +4,18 @@ Krum, Multi-Krum, GM (Weiszfeld), AutoGM and MDA depend on the worker
 stack ``x : (n, d)`` only through its Gram matrix ``G = x @ x.T``; the
 output is a linear combination ``coeff @ x``.  This module is the small
 (n, n) side of that pipeline: everything that maps G -> coefficients.
-Counterpart of ``repro.core.gram`` (static forms; the ``*_dyn`` rank-mask
-forms are ROADMAP queue 1, item 6).
+Counterpart of ``repro.core.gram``: the static forms, and the ``*_dyn``
+rank-mask forms of the fleet, in which f is an int tensor.  The ``*_dyn``
+forms take any leading lane axes: d2 / g of shape (..., n, n) with f of
+shape (...), so one call serves every lane of a fleet bucket.
 
 Neighbour selection uses a STABLE ascending sort of the distances and
 takes the first k indices.  That reproduces ``jax.lax.top_k(-d2, k)``,
 which breaks ties toward the lower index — and ties are the normal case on
 the main path, where ALIE and sign-flip make the f Byzantine rows
 identical.  ``torch.topk`` promises no order on ties, so it is not used.
+The ``*_dyn`` forms rank with a double STABLE argsort, as ``jnp.argsort``
+(stable by default) does in the reference.
 """
 from __future__ import annotations
 
@@ -31,15 +35,17 @@ def gram(x: Tensor) -> Tensor:
 
 def pdist_sq_from_gram(g: Tensor) -> Tensor:
     """Pairwise squared distances ||x_i - x_j||^2 from the Gram matrix,
-    floored at 0 (rounding can make tiny negatives)."""
-    diag = torch.diagonal(g)
-    d2 = diag[:, None] - 2.0 * g + diag[None, :]
+    floored at 0 (rounding can make tiny negatives); leading lane axes
+    allowed."""
+    diag = torch.diagonal(g, dim1=-2, dim2=-1)
+    d2 = diag[..., :, None] - 2.0 * g + diag[..., None, :]
     return torch.clamp_min(d2, 0.0)
 
 
 def mixed_gram(g: Tensor, m: Tensor) -> Tensor:
-    """Gram matrix of the mixed stack Y = M @ X, i.e. M G M^T."""
-    return m @ g @ m.T
+    """Gram matrix of the mixed stack Y = M @ X, i.e. M G M^T (leading lane
+    axes allowed)."""
+    return m @ g @ m.mT
 
 
 def _smallest_k(d: Tensor, k: int) -> tuple[Tensor, Tensor]:
@@ -197,4 +203,139 @@ def coeff_for_rule(rule: str, g: Tensor, f: int, *, gm_iters: int = 8,
         return multikrum_coeff(d2, f)
     if rule == "mda":
         return mda_coeff(d2, f)
+    raise ValueError(f"{rule!r} is not a gram-space rule")
+
+
+# ---------------------------------------------------------------------------
+# Dynamic-f forms (fleet engine): f is an int tensor, one per lane, so one
+# call serves lanes with different Byzantine budgets.  Selection goes
+# through rank masks instead of top-k slices.  Leading axes of d2 / g are
+# lane axes; f has exactly those axes (a 0-d f for one (n, n) matrix).
+# ---------------------------------------------------------------------------
+
+def _lane_int(f, like: Tensor) -> Tensor:
+    """f as an int64 tensor on ``like``'s device."""
+    return torch.as_tensor(f, device=like.device).to(torch.int64)
+
+
+def _row_ranks(d2: Tensor) -> Tensor:
+    """rank[..., i, j] = position of j in the ascending order of row i
+    (0 = nearest); ties to the lower index (two stable argsorts)."""
+    order = torch.argsort(d2, dim=-1, stable=True)
+    return torch.argsort(order, dim=-1, stable=True)
+
+
+def nnm_matrix_dyn(d2: Tensor, f) -> Tensor:
+    """:func:`nnm_matrix` with an int-tensor f: row i averages the n-f
+    nearest neighbours of x_i, selected by the rank mask rank < n-f."""
+    n = d2.shape[-1]
+    keep = (n - _lane_int(f, d2))[..., None, None]
+    mask = (_row_ranks(d2) < keep).float()
+    return mask / keep.float()
+
+
+def _krum_scores_dyn(d2: Tensor, f) -> Tensor:
+    """Sum of the n-f smallest distances per candidate row."""
+    n = d2.shape[-1]
+    srt = torch.sort(d2, dim=-1).values
+    keep = (torch.arange(n, device=d2.device)
+            < (n - _lane_int(f, d2))[..., None, None]).float()
+    return (srt * keep).sum(dim=-1)
+
+
+def krum_coeff_dyn(d2: Tensor, f) -> Tensor:
+    """:func:`krum_coeff` with an int-tensor f (first index on ties)."""
+    n = d2.shape[-1]
+    best = torch.argmin(_krum_scores_dyn(d2, f), dim=-1)
+    return torch.nn.functional.one_hot(best, n).float()
+
+
+def multikrum_coeff_dyn(d2: Tensor, f) -> Tensor:
+    """:func:`multikrum_coeff` with an int-tensor f: the average of the
+    n-f best-scoring rows."""
+    n = d2.shape[-1]
+    keep = (n - _lane_int(f, d2))[..., None]
+    rank = _row_ranks(_krum_scores_dyn(d2, f))
+    return (rank < keep).float() / keep.float()
+
+
+def _gm_coeff_lanes(g: Tensor, iters: int, eps: float) -> Tensor:
+    """:func:`gm_coeff` over leading lane axes of g (..., n, n)."""
+    n = g.shape[-1]
+    diag = torch.diagonal(g, dim1=-2, dim2=-1)
+    w = torch.full(g.shape[:-1], 1.0 / n, dtype=torch.float32,
+                   device=g.device)
+    for _ in range(iters):
+        gw = (g @ w[..., None])[..., 0]
+        quad = (w * gw).sum(dim=-1, keepdim=True)
+        d2 = torch.clamp_min(diag - 2.0 * gw + quad, 0.0)
+        inv = 1.0 / torch.sqrt(d2 + eps)
+        w = inv / inv.sum(dim=-1, keepdim=True)
+    return w
+
+
+def _project_simplex_lanes(v: Tensor) -> Tensor:
+    """:func:`project_simplex` along the last axis of v (..., n)."""
+    n = v.shape[-1]
+    u = torch.sort(v, dim=-1).values.flip(-1)
+    css = torch.cumsum(u, dim=-1)
+    idx = torch.arange(1, n + 1, dtype=torch.float32, device=v.device)
+    cond = u + (1.0 - css) / idx > 0.0
+    rho = torch.clamp_min(cond.int().sum(dim=-1) - 1, 0).to(torch.int64)
+    theta = (1.0 - css.gather(-1, rho[..., None])) / (rho[..., None] + 1).float()
+    return torch.clamp_min(v + theta, 0.0)
+
+
+def _autogm_coeff_lanes(g: Tensor, *, lamb: float, outer_iters: int,
+                        gm_iters: int, gm_eps: float) -> Tensor:
+    """:func:`autogm_coeff` over leading lane axes of g (..., n, n)."""
+    n = g.shape[-1]
+    diag = torch.diagonal(g, dim1=-2, dim2=-1)
+
+    def dists(c):
+        gc = (g @ c[..., None])[..., 0]
+        quad = (c * gc).sum(dim=-1, keepdim=True)
+        return torch.sqrt(torch.clamp_min(diag - 2.0 * gc + quad, 0.0) + gm_eps)
+
+    def weiszfeld(w, c):
+        for _ in range(gm_iters):
+            inv = w / dists(c)
+            c = inv / torch.clamp_min(inv.sum(dim=-1, keepdim=True), gm_eps)
+        return c
+
+    uniform = torch.full(g.shape[:-1], 1.0 / n, dtype=torch.float32,
+                         device=g.device)
+    c = weiszfeld(uniform, uniform)
+    lamb_eff = torch.clamp_min(lamb * dists(c).mean(dim=-1, keepdim=True),
+                               gm_eps)
+    for _ in range(outer_iters):
+        w = _project_simplex_lanes(-dists(c) / (2.0 * lamb_eff))
+        c = weiszfeld(w, c)
+    return c
+
+
+def coeff_for_rule_dyn(rule: str, g: Tensor, f, *, gm_iters: int = 8,
+                       gm_eps: float = 1e-8, autogm_lamb: float = 1.0,
+                       autogm_iters: int = 4) -> Tensor:
+    """:func:`coeff_for_rule` with an int-tensor f (the rule stays a
+    Python string).  MDA has no dynamic form (its subset enumeration
+    depends on f); GM and AutoGM never read f."""
+    n = g.shape[-1]
+    if rule == "average":
+        return torch.full(g.shape[:-1], 1.0 / n, dtype=torch.float32,
+                          device=g.device)
+    if rule == "gm":
+        return _gm_coeff_lanes(g, gm_iters, gm_eps)
+    if rule == "autogm":
+        return _autogm_coeff_lanes(g, lamb=autogm_lamb,
+                                   outer_iters=autogm_iters,
+                                   gm_iters=gm_iters, gm_eps=gm_eps)
+    d2 = pdist_sq_from_gram(g)
+    if rule == "krum":
+        return krum_coeff_dyn(d2, f)
+    if rule == "multikrum":
+        return multikrum_coeff_dyn(d2, f)
+    if rule == "mda":
+        raise ValueError("mda has no dynamic-f form (subset enumeration "
+                         "depends on f); use the static path or another rule")
     raise ValueError(f"{rule!r} is not a gram-space rule")

@@ -31,8 +31,21 @@ explicit ``perm``, where the reference takes a PRNG ``key``):
   the identity and stays bitwise the dense pipeline (no permutation is
   drawn).
 
+Dynamic-f path (the fleet): :func:`robust_aggregate_dyn` takes f as an
+int tensor and :func:`batched_robust_aggregate` a lane-batched stack
+(every leaf (B, n, ...)) with one f per lane.  Trimming and neighbour
+selection go through rank masks (``*_dyn`` in :mod:`repro_torch.core.gram`).
+The reference gets its lane axis from ``jax.vmap``; the CUDA kernels
+cannot run under ``torch.func.vmap``, so the port writes the lane axis
+out: on "cuda" the stacks flatten to (B, n, D), K5 gives every lane's
+Gram in one launch, the (n, n) math runs batched in torch, K4 trims every
+lane in one launch, and the gram rules apply K3 and cwmed K2 once per lane
+(the reference has no batched combine or static mixtrim kernel).  On
+"torch" the leaf-streamed math runs with the lane axis batched.
+
 Not ported yet, and rejected with an error naming the ROADMAP item:
-``sketch_dim`` and the reference's multi-device backends.
+``sketch_dim``, the reference's multi-device backends and hierarchical
+fleet lanes (``hier`` on the dynamic path).
 """
 from __future__ import annotations
 
@@ -46,7 +59,7 @@ from repro_torch.core import gram as gramlib
 from repro_torch.core.aggregators import _median
 from repro_torch.core.types import AggregatorSpec, COORDINATE_RULES, GRAM_RULES
 from repro_torch.kernels import dispatch as kdispatch
-from repro_torch.kernels.gram import gram_ref
+from repro_torch.kernels.gram import gram_batched_ref, gram_ref
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -330,3 +343,271 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
         return (out, None) if return_coeff else out
 
     raise ValueError(f"unknown rule {spec.rule!r}")
+
+
+# ---------------------------------------------------------------------------
+# Dynamic-f pipeline (fleet engine): f is an int tensor, one per lane.  The
+# rule / pre-aggregation / bucket size stay static; trimming and neighbour
+# selection use rank masks.  Every helper below takes a lane axis: leaves
+# (B, n, ...), f (B,).  The single-lane entry point is B = 1.
+# ---------------------------------------------------------------------------
+
+def _lane_f(f, b: int, device) -> Tensor:
+    return torch.as_tensor(f, device=device).to(torch.int64).reshape(b)
+
+
+def tree_gram_lanes(tree: PyTree) -> Tensor:
+    """Every lane's (n, n) fp32 Gram, accumulated over the leaves."""
+    leaves = tree_leaves(tree)
+    b, n = leaves[0].shape[:2]
+    g = torch.zeros((b, n, n), dtype=torch.float32, device=leaves[0].device)
+    for leaf in leaves:
+        g = g + gram_batched_ref(leaf.reshape(b, n, -1))
+    return g
+
+
+def tree_combine_lanes(tree: PyTree, coeff: Tensor) -> PyTree:
+    """:func:`tree_combine` per lane: coeff (B, n), leaves (B, n, ...)."""
+    def comb(leaf):
+        b, n = leaf.shape[:2]
+        c = coeff.to(leaf.dtype).float()[:, None]
+        return (c @ leaf.reshape(b, n, -1).float()).reshape(
+            (b,) + tuple(leaf.shape[2:]))
+    return tree_map(comb, tree)
+
+
+def tree_mix_lanes(tree: PyTree, m: Tensor) -> PyTree:
+    """:func:`tree_mix` per lane: M (B, n, n), leaves (B, n, ...)."""
+    def mix(leaf):
+        b, n = leaf.shape[:2]
+        y = m.to(leaf.dtype).float() @ leaf.reshape(b, n, -1).float()
+        return y.reshape(leaf.shape)
+    return tree_map(mix, tree)
+
+
+def _coordinate_rule_lanes(x: Tensor, rule: str, f: Tensor) -> Tensor:
+    """A coordinate-wise rule along axis 1 of a (B, n, ...) stack with a
+    (B,) f, fp32: the rank-mask arithmetic of the reference's
+    ``_tree_coordinate_rule_dyn`` (so a non-finite value in a trimmed
+    rank gives NaN, inf * 0)."""
+    b, n = x.shape[:2]
+    x = x.float()
+    if rule == "cwmed":
+        return _median(x.movedim(1, 0))
+    i = torch.arange(n, device=x.device).reshape((1, n) + (1,) * (x.dim() - 2))
+    fl = f.reshape((b, 1) + (1,) * (x.dim() - 2))
+    if rule == "cwtm":
+        xs = torch.sort(x, dim=1).values
+        keep = ((i >= fl) & (i < n - fl)).float()
+        return (xs * keep).sum(dim=1) / torch.clamp_min(
+            (n - 2 * fl[:, 0]).float(), 1.0)
+    if rule == "meamed":
+        med = _median(x.movedim(1, 0))[:, None]
+        order = torch.argsort(torch.abs(x - med), dim=1, stable=True)
+        xs = torch.take_along_dim(x, order, dim=1)
+        keep = (i < n - fl).float()
+        return (xs * keep).sum(dim=1) / torch.clamp_min(
+            (n - fl[:, 0]).float(), 1.0)
+    raise ValueError(rule)
+
+
+def _tree_coordinate_rule_dyn(tree: PyTree, rule: str, f) -> PyTree:
+    """Coordinate-wise rules with an int-tensor trim count (one lane:
+    leaves (n, ...), a 0-d f)."""
+    return tree_map(lambda leaf: _coordinate_rule_lanes(
+        leaf[None], rule, _lane_f(f, 1, leaf.device))[0], tree)
+
+
+def _lane_perms(n: int, b: int, device, generators, perms) -> Tensor:
+    """(B, n) int64 permutations: ``perms`` as given, else one drawn from
+    each lane's generator."""
+    if perms is None:
+        if generators is None or len(generators) != b:
+            raise ValueError("bucketing lanes need one torch.Generator per "
+                             "lane or a (B, n) perms tensor")
+        perms = torch.stack([bucketlib.draw_perm(n, generator=g)
+                             for g in generators])
+    perms = torch.as_tensor(perms).to(device=device, dtype=torch.int64)
+    if perms.shape != (b, n):
+        raise ValueError(f"perms must have shape ({b}, {n}), got "
+                         f"{tuple(perms.shape)}")
+    return perms
+
+
+def _tree_bucket_lanes(tree: PyTree, f: Tensor, perms: Tensor,
+                       bucket_size: int) -> tuple[PyTree, Tensor]:
+    """The gather-form bucketing of every lane with its own permutation;
+    returns (bucket means (B, ceil(n/s), ...), adjusted f (B,))."""
+    leaves = tree_leaves(tree)
+    b, n = leaves[0].shape[:2]
+    s = max(1, min(int(bucket_size), n))
+    nb = bucketlib.num_buckets(n, s)
+    pad = nb * s - n
+    counts = bucketlib.bucket_counts(n, s, device=leaves[0].device)
+    lanes = torch.arange(b, device=leaves[0].device)[:, None]
+
+    def bucket(leaf):
+        acc = torch.promote_types(leaf.dtype, torch.float32)
+        x = leaf[lanes, perms].to(acc)
+        if pad:
+            x = torch.cat([x, x.new_zeros((b, pad) + tuple(leaf.shape[2:]))],
+                          dim=1)
+        sums = x.reshape((b, nb, s) + tuple(leaf.shape[2:])).sum(dim=2)
+        means = sums / counts.to(acc).reshape(
+            (1, nb) + (1,) * (leaf.dim() - 2))
+        return means.to(leaf.dtype)
+
+    return tree_map(bucket, tree), bucketlib.adjusted_f_dyn(f, nb).to(
+        torch.int64)
+
+
+def _tree_bucket_dyn(tree: PyTree, f, bucket_size: int, *,
+                     generator: Optional[torch.Generator] = None,
+                     perm: Optional[Tensor] = None) -> tuple[PyTree, Tensor]:
+    """:func:`_tree_bucket` with an int-tensor f (one lane).  The bucket
+    size must be given: the floor(n/2f) default cannot depend on a tensor
+    f.  The permutation comes from ``generator`` or ``perm``."""
+    leaf = tree_leaves(tree)[0]
+    n = leaf.shape[0]
+    p = bucketlib.draw_perm(n, generator=generator, perm=perm,
+                            device=leaf.device)
+    out, f_adj = _tree_bucket_lanes(tree_map(lambda l: l[None], tree),
+                                    _lane_f(f, 1, leaf.device), p[None],
+                                    bucket_size)
+    return tree_map(lambda l: l[0], out), f_adj[0]
+
+
+def _validate_dyn(spec: AggregatorSpec) -> None:
+    _validate(spec)
+    if spec.hier:
+        raise NotImplementedError(
+            "hierarchical aggregation on the dynamic-f path (hierarchical "
+            "fleet lanes) is not ported yet (ROADMAP queue 1, item 13)")
+    if spec.pre == "bucketing" and spec.bucket_size is None:
+        raise ValueError(
+            "dynamic-f bucketing needs an explicit bucket_size (the "
+            "floor(n/2f) default depends on f); set AggregatorSpec.bucket_size")
+
+
+def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
+                     batched: bool, generators=None, perms=None) -> PyTree:
+    """The dynamic pipeline on a lane-batched stack (leaves (B, n, ...),
+    f (B,)); ``batched=False`` is the single-lane entry point (B = 1),
+    whose kernel path takes K1 for the Gram."""
+    _validate_dyn(spec)
+    leaves = tree_leaves(tree)
+    b, n = leaves[0].shape[:2]
+    dev = leaves[0].device
+    f = _lane_f(f, b, dev)
+    work = tree
+    if spec.pre == "bucketing":
+        work, f = _tree_bucket_lanes(
+            work, f, _lane_perms(n, b, dev, generators, perms),
+            spec.bucket_size)
+    if spec.transport_dtype == "bf16":
+        work = tree_map(lambda leaf: leaf.to(torch.bfloat16), work)
+
+    backend = kdispatch.resolve_backend(spec.backend, dev)
+    kdispatch.open_record(requested=spec.backend, backend=backend,
+                          rule=spec.rule, pre=spec.pre, dyn=True, lanes=b)
+    if backend == "cuda":
+        return _aggregate_flat_lanes(work, spec, f, batched=batched)
+    kdispatch.record_decision("pipeline", "torch", "torch",
+                              "leaf-streamed torch path")
+
+    g = tree_gram_lanes(work)
+    mix_matrix = None
+    if spec.pre == "nnm":
+        mix_matrix = gramlib.nnm_matrix_dyn(gramlib.pdist_sq_from_gram(g), f)
+        g = gramlib.mixed_gram(g, mix_matrix)
+    if spec.rule in GRAM_RULES:
+        coeff = gramlib.coeff_for_rule_dyn(
+            spec.rule, g, f, gm_iters=spec.gm_iters, gm_eps=spec.gm_eps,
+            autogm_lamb=spec.autogm_lamb, autogm_iters=spec.autogm_iters)
+        if mix_matrix is not None:
+            coeff = (coeff[:, None] @ mix_matrix)[:, 0]
+        return tree_combine_lanes(work, coeff)
+    if spec.rule in COORDINATE_RULES:
+        if mix_matrix is not None:
+            work = tree_mix_lanes(work, mix_matrix)
+        return tree_map(lambda leaf: _coordinate_rule_lanes(leaf, spec.rule, f),
+                        work)
+    raise ValueError(f"unknown rule {spec.rule!r}")
+
+
+def _aggregate_flat_lanes(work: PyTree, spec: AggregatorSpec, f: Tensor, *,
+                          batched: bool) -> PyTree:
+    """Kernel pipeline of the dynamic path: the lanes as one (B, n, D)
+    buffer -> Gram (K5; K1 for the single-lane entry point) -> batched NNM
+    / coefficients -> combine (K3 per lane) or mix + trim (K4, all lanes
+    in one launch; cwmed: K2 per lane) -> (B, ...) leaves."""
+    backend = "cuda"
+    flat, layout = kdispatch.flatten_lane_stack(work)
+    mix_matrix, g = None, None
+    if spec.rule in GRAM_RULES or spec.pre == "nnm":
+        if batched:
+            g = kdispatch.dispatch_gram_batched(flat, backend=backend)
+        else:
+            g = kdispatch.dispatch_gram(flat[0], backend=backend)[None]
+    if spec.pre == "nnm":
+        mix_matrix = gramlib.nnm_matrix_dyn(gramlib.pdist_sq_from_gram(g), f)
+        g = gramlib.mixed_gram(g, mix_matrix)
+
+    if spec.rule in GRAM_RULES:
+        if spec.rule == "autogm":
+            kdispatch.record_decision(
+                "autogm_coeff", backend, "torch",
+                "autogm adaptive-weight solve is gram-space math with no "
+                "kernel form")
+        coeff = gramlib.coeff_for_rule_dyn(
+            spec.rule, g, f, gm_iters=spec.gm_iters, gm_eps=spec.gm_eps,
+            autogm_lamb=spec.autogm_lamb, autogm_iters=spec.autogm_iters)
+        if mix_matrix is not None:
+            coeff = (coeff[:, None] @ mix_matrix)[:, 0]
+        vec = torch.stack([
+            kdispatch.dispatch_combine(flat[k], coeff[k].contiguous(),
+                                       backend=backend)
+            for k in range(flat.shape[0])])
+        return kdispatch.unflatten_lane_aggregate(vec, layout)
+
+    if spec.rule in COORDINATE_RULES:
+        m = None if mix_matrix is None else mix_matrix.to(flat.dtype)
+        if spec.rule == "meamed":
+            vec = kdispatch.dispatch_meamed(flat, m, f, backend=backend,
+                                            dyn=True)
+        else:
+            mode = "med" if spec.rule == "cwmed" else "trim"
+            vec = kdispatch.dispatch_mixtrim(flat, m, f, mode=mode,
+                                             backend=backend, dyn=True)
+        return kdispatch.unflatten_lane_aggregate(vec, layout)
+
+    raise ValueError(f"unknown rule {spec.rule!r}")
+
+
+def robust_aggregate_dyn(tree: PyTree, spec: AggregatorSpec, f, *,
+                         generator: Optional[torch.Generator] = None,
+                         perm: Optional[Tensor] = None) -> PyTree:
+    """:func:`robust_aggregate` with an int-tensor Byzantine count.
+
+    ``spec.f`` is ignored; ``f`` (a 0-d int tensor or an int) takes its
+    place and is never read on the host.  ``spec.pre == "bucketing"``
+    needs an explicit ``spec.bucket_size`` and a ``generator`` or
+    ``perm``.  MDA has no dynamic form."""
+    leaf = tree_leaves(tree)[0]
+    out = _aggregate_lanes(
+        tree_map(lambda l: l[None], tree), spec, _lane_f(f, 1, leaf.device),
+        batched=False, generators=None if generator is None else [generator],
+        perms=None if perm is None else torch.as_tensor(perm)[None])
+    return tree_map(lambda l: l[0], out)
+
+
+def batched_robust_aggregate(tree: PyTree, spec: AggregatorSpec, fs, *,
+                             generators: Optional[list] = None,
+                             perms: Optional[Tensor] = None) -> PyTree:
+    """Lane-batched aggregation: every leaf carries a leading lane axis
+    (B, n, ...) and ``fs`` (B,) is the per-lane Byzantine count; returns
+    the (B, ...) aggregates.  Bucketing lanes take one generator per lane
+    or a (B, n) ``perms``."""
+    leaf = tree_leaves(tree)[0]
+    return _aggregate_lanes(tree, spec, _lane_f(fs, leaf.shape[0], leaf.device),
+                            batched=True, generators=generators, perms=perms)

@@ -57,6 +57,6 @@ COORDINATE_RULES = frozenset({"cwmed", "cwtm", "meamed"})
 
 ALL_RULES = tuple(sorted(GRAM_RULES | COORDINATE_RULES))
 
-#: Attacks the port runs (mimic and the ``_opt`` eta searches are still
-#: to be ported: ROADMAP queue 1, item 3).
-ATTACKS = ("none", "alie", "foe", "sf", "lf", "nan", "inf")
+#: Attacks the port runs (the ``_opt`` eta searches are still to be
+#: ported: ROADMAP queue 1, item 3).
+ATTACKS = ("none", "alie", "foe", "sf", "lf", "mimic", "nan", "inf")

@@ -6,6 +6,14 @@ port's dict of tensors; ``params_to_numpy`` goes back.  The same helpers
 carry the trainer state: the reference's momentum is a list of (n, ...)
 leaves in parameter order, the port's one flat (n, D) fp32 buffer.
 
+The fleet's lane state carries across too (:func:`lane_state_from_numpy`
+/ :func:`lane_state_to_numpy`): params, opt_state, the momentum list and
+the step, every leaf stacked over lanes.  The reference's per-lane PRNG
+``key`` has no counterpart (the port's lanes draw from ``torch``
+generators seeded with the job's seed) and is dropped.
+:func:`mlp_params_from_numpy` carries the fleet MLP's init across, e.g.
+``_mlp_init(jax.random.PRNGKey(seed), 48)`` as numpy.
+
 bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays (JAX's numpy
 bf16); they are reinterpreted bit for bit.  On the way back bf16 tensors
 become fp32 arrays (exact), so this module needs no ``ml_dtypes``.
@@ -92,4 +100,49 @@ def state_to_numpy(state: dict) -> dict:
                step=np.int32(state["step"]))
     if "momentum" in state:
         out["momentum"] = momentum_to_numpy(state["momentum"], state["params"])
+    return out
+
+
+#: The fleet MLP's parameter names (``repro_torch.fed.scenarios``).
+MLP_KEYS = ("b1", "b2", "w1", "w2")
+
+
+def mlp_params_from_numpy(tree: dict, device: Optional[torch.device] = None
+                          ) -> dict:
+    """The reference's MLP init (numpy dict w1, b1, w2, b2) -> the port's
+    fp32 params, checked for names and shapes."""
+    if tuple(sorted(tree)) != MLP_KEYS:
+        raise ValueError(f"expected MLP params {MLP_KEYS}, got {sorted(tree)}")
+    w1, w2 = np.asarray(tree["w1"]), np.asarray(tree["w2"])
+    if (np.shape(tree["b1"]) != (w1.shape[1],)
+            or w2.shape[0] != w1.shape[1]
+            or np.shape(tree["b2"]) != (w2.shape[1],)):
+        raise ValueError("MLP params have inconsistent shapes")
+    return {k: tensor_from_numpy(np.asarray(v, np.float32), device)
+            for k, v in tree.items()}
+
+
+def lane_state_from_numpy(state: dict, device: Optional[torch.device] = None
+                          ) -> dict:
+    """A fleet bucket's stacked lane state from the reference (as numpy:
+    params / opt_state leaves (B, ...), momentum a list of (B, n_clients,
+    ...) leaves, step (B,)) -> the port's; the PRNG ``key`` is dropped."""
+    out = dict(params=params_from_numpy(state["params"], device),
+               opt_state=params_from_numpy(state["opt_state"], device),
+               step=tensor_from_numpy(np.asarray(state["step"], np.int32),
+                                      device))
+    if "momentum" in state:
+        out["momentum"] = [tensor_from_numpy(np.asarray(m, np.float32), device)
+                           for m in state["momentum"]]
+    return out
+
+
+def lane_state_to_numpy(state: dict) -> dict:
+    """The port's stacked lane state -> the reference's layout, as numpy
+    (without ``key``)."""
+    out = dict(params=params_to_numpy(state["params"]),
+               opt_state=params_to_numpy(state["opt_state"]),
+               step=tensor_to_numpy(state["step"]).astype(np.int32))
+    if "momentum" in state:
+        out["momentum"] = [tensor_to_numpy(m) for m in state["momentum"]]
     return out

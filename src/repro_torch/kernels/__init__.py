@@ -11,9 +11,14 @@ from repro_torch.kernels.bucketgram import (
     bucket_means_gram, bucket_means_gram_ref, bucketgram, bucketmeans,
 )
 from repro_torch.kernels.combine import combine, combine_ref
-from repro_torch.kernels.gram import gram, gram_ref
-from repro_torch.kernels.mixtrim import mixtrim, mixtrim_ref
+from repro_torch.kernels.gram import (
+    gram, gram_batched, gram_batched_ref, gram_ref,
+)
+from repro_torch.kernels.mixtrim import (
+    mixtrim, mixtrim_dyn, mixtrim_dyn_ref, mixtrim_ref,
+)
 
 __all__ = ["bucket_means_gram", "bucket_means_gram_ref", "bucketgram",
-           "bucketmeans", "combine", "combine_ref", "gram", "gram_ref", "mixtrim",
-           "mixtrim_ref"]
+           "bucketmeans", "combine", "combine_ref", "gram", "gram_batched",
+           "gram_batched_ref", "gram_ref", "mixtrim", "mixtrim_dyn",
+           "mixtrim_dyn_ref", "mixtrim_ref"]

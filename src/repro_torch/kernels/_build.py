@@ -38,9 +38,10 @@ DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "repro_gram": ([_P, _I, _I, _LL, _P, _I, _P, _P], _I),
+    "repro_gram": ([_P, _I, _I, _I, _LL, _P, _I, _P, _P], _I),
     "repro_gram_pairs": ([_I], _I),
     "repro_mixtrim": ([_P, _I, _P, _I, _LL, _I, _I, _P, _I, _P], _I),
+    "repro_mixtrim_dyn": ([_P, _I, _P, _I, _I, _LL, _P, _I, _P, _I, _P], _I),
     "repro_mixtrim_max_n": ([], _I),
     "repro_combine": ([_P, _I, _P, _I, _LL, _P, _I, _P], _I),
     "repro_bucketgram": ([_P, _I, _I, _LL, _P, _P, _P, _I, _P, _P, _P, _P,

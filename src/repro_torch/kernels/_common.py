@@ -18,6 +18,24 @@ def check_stack(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: empty stack {tuple(x.shape)}")
 
 
+#: Largest lane count of a lane-batched launch (the CUDA grid's y / z).
+MAX_LANES = 65535
+
+
+def check_lanes(x: torch.Tensor, what: str) -> None:
+    """A lane-batched kernel input: a (B, n, D) stack, each lane a valid
+    :func:`check_stack` input, B <= :data:`MAX_LANES`."""
+    if x.dim() != 3:
+        raise ValueError(f"{what}: expected a (B, n, D) stack, got "
+                         f"{tuple(x.shape)}")
+    if not 1 <= x.shape[0] <= MAX_LANES:
+        raise ValueError(f"{what}: need 1 <= B <= {MAX_LANES} lanes, got "
+                         f"{x.shape[0]}")
+    check_stack(x[0], what)
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: the stack must be contiguous")
+
+
 def check_small(t: torch.Tensor, shape: tuple, x: torch.Tensor,
                 what: str) -> None:
     """A small fp32 operand (coefficients, mixing matrix) beside ``x``."""

@@ -17,6 +17,15 @@
 // below the H100's ridge; the design keeps every load coalesced and wide
 // and the compute in registers.  For n > 8 rows are re-read once per tile
 // pair they belong to (ceil(n/8) times) — a later PR's work.
+//
+// K5 · the lane-batched Gram, (B, n, D) -> (B, n, n), replaces
+// repro/kernels/gram/kernel.py::gram_batched_pallas (body
+// _gram_batched_kernel), which walks a (lane, D-block) grid in order.  Here
+// the same two launches take a third grid axis, blockIdx.z = lane: every
+// lane gets its own split-K partials and its own fixed-order reduction, so
+// each lane's Gram is exactly K1's on that lane (bitwise repeatable), and
+// one launch pair covers the whole fleet bucket with no host loop.  Bound:
+// bytes, B*n*D elements read once.
 #include "common.cuh"
 
 namespace {
@@ -38,6 +47,8 @@ gram_partial(const T* __restrict__ x, int n, long long d, int tiles,
              int chunks, int pair_base, int pairs_total,
              float* __restrict__ partial) {
   constexpr int W = VEC ? 4 : 1;
+  x += (long long)blockIdx.z * n * d;                       // this lane's stack
+  partial += (long long)blockIdx.z * chunks * pairs_total * TR * TR;
   int ti, tj;
   pair_of(blockIdx.y, tiles, DIAG, &ti, &tj);
   const long long units = VEC ? d / 4 : d;
@@ -119,6 +130,8 @@ gram_partial(const T* __restrict__ x, int n, long long d, int tiles,
 __global__ void gram_reduce(const float* __restrict__ partial, int n,
                             int tiles, int chunks, int pairs_total,
                             float* __restrict__ g) {
+  partial += (long long)blockIdx.y * chunks * pairs_total * TR * TR;
+  g += (long long)blockIdx.y * n * n;                     // blockIdx.y = lane
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n * n) return;
   const int i = e / n, j = e % n;
@@ -139,14 +152,14 @@ __global__ void gram_reduce(const float* __restrict__ partial, int n,
 }
 
 template <typename T>
-int launch(const void* xv, int n, long long d, float* partial, int chunks,
-           float* g, cudaStream_t stream) {
+int launch(const void* xv, int lanes, int n, long long d, float* partial,
+           int chunks, float* g, cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   const int tiles = (n + TR - 1) / TR;
   const int off = tiles * (tiles - 1) / 2;
   const int pairs_total = tiles + off;
   const bool vec = vec4_ok<T>(xv, d);
-  dim3 gd(chunks, tiles), go(chunks, off);
+  dim3 gd(chunks, tiles, lanes), go(chunks, off, lanes);
   if (vec) {
     gram_partial<T, true, true><<<gd, THREADS, 0, stream>>>(
         x, n, d, tiles, chunks, 0, pairs_total, partial);
@@ -162,7 +175,7 @@ int launch(const void* xv, int n, long long d, float* partial, int chunks,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gram_reduce<<<(n * n + 255) / 256, 256, 0, stream>>>(
+  gram_reduce<<<dim3((n * n + 255) / 256, lanes), 256, 0, stream>>>(
       partial, n, tiles, chunks, pairs_total, g);
   return cudaGetLastError();
 }
@@ -174,15 +187,18 @@ extern "C" int repro_gram_pairs(int n) {
   return tiles + tiles * (tiles - 1) / 2;
 }
 
-extern "C" int repro_gram(const void* x, int dtype, int n, long long d,
-                          float* partial, int chunks, float* g,
+// partial: lanes * chunks * repro_gram_pairs(n) * 64 fp32 scratch;
+// g: (lanes, n, n).  lanes = 1 is K1, lanes > 1 is K5.
+extern "C" int repro_gram(const void* x, int dtype, int lanes, int n,
+                          long long d, float* partial, int chunks, float* g,
                           void* stream) {
-  if (n < 1 || d < 1 || chunks < 1)
+  if (lanes < 1 || lanes > 65535 || n < 1 || d < 1 || chunks < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_F32) return launch<float>(x, n, d, partial, chunks, g, s);
+  if (dtype == REPRO_F32)
+    return launch<float>(x, lanes, n, d, partial, chunks, g, s);
   if (dtype == REPRO_BF16)
-    return launch<__nv_bfloat16>(x, n, d, partial, chunks, g, s);
+    return launch<__nv_bfloat16>(x, lanes, n, d, partial, chunks, g, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,299 +1,10 @@
-// K2 · fused NNM mix + coordinate-wise trimmed mean / median, static f.
-//
-// Replaces the TPU kernel repro/kernels/mixtrim/kernel.py::mixtrim_pallas
-// (body _make_kernel).  Per column c of a (n, D) stack it computes
-// y = M x[:, c] (skipped when M is absent), sorts y along the worker axis
-// and reduces it to the mean of ranks [f, n-f) ("trim"; the plain mean
-// when f == 0) or the median ("med"), writing one fp32 value.
-//
-// One thread owns one column; neighbouring threads take neighbouring
-// columns, so every load of X[j, c] coalesces.  M (n x n, fp32 values of
-// the caller's dtype-rounded matrix) sits in shared memory and is read as
-// a broadcast.  The n mixed values live in registers and go through a
-// bitonic network of height NP = next power of two >= n; the mixed stack
-// never reaches global memory, which is the point of the TPU kernel.
-//
-// Ordering: values are sorted through an order-preserving uint32 key in
-// which every NaN sorts above +inf and the NP - n pad lanes above every
-// NaN.  That is the order torch.sort and jnp.sort give (NaN last), so
-// n = 17 and the nan / inf attack stacks take the same ranks as the plain
-// version; the TPU kernel's fp32-max sentinel would sort below +inf.
-//
-// Bound on this card: bytes (n*D reads, D fp32 writes; ~2n FLOP per read
-// element for the mix plus the network) for small n; the mix's 2n^2 FLOP
-// per column take over as n grows.
-//
-// n > 64 (mixtrim_big, up to MAX_N = 16384): n values per column no
-// longer fit in registers.  A block takes a tile of TC columns (TC * NP
-// <= 16384 keys, at most 64 columns), stages it in shared memory — rows
-// read TC consecutive columns at a time, so a warp's loads coalesce — and
-// sorts the same NaN-last keys with a shared-memory bitonic network, all
-// TC columns at once.  With a mix, the X tile is staged as fp32 and one
-// warp per output row reads M's row (coalesced, through L1/L2) against
-// it; Y exists only as the tile's keys, never in global memory.  Both
-// shared arrays use an odd pitch so that column-strided accesses hit
-// distinct banks.
-#include "common.cuh"
+// K2 · fused NNM mix + coordinate-wise trimmed mean / median, static f:
+// the C entry point.  The kernels (shared with K4, csrc/mixtrim_dyn.cu)
+// and their design notes are in mixtrim.cuh; K2 and K4 instantiate them in
+// two translation units so that nvcc builds the two in parallel.
+#include "mixtrim.cuh"
 
-namespace {
-
-constexpr int THREADS = 256;
-constexpr int SMALL_N = 64;            // register-network kernel limit
-constexpr int MAX_N = 16384;           // shared-memory kernel limit
-constexpr int BIG_THREADS = 512;
-constexpr int KEY_BUDGET = 16384;      // keys per block tile
-constexpr int MAX_TC = 64;             // columns per block tile
-constexpr unsigned NAN_KEY = 0xFFFFFFFEu;
-constexpr unsigned PAD_KEY = 0xFFFFFFFFu;
-
-__device__ __forceinline__ unsigned key_of(float v) {
-  if (isnan(v)) return NAN_KEY;
-  const unsigned u = __float_as_uint(v);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// NAN_KEY decodes to a NaN bit pattern (0x7FFFFFFE); PAD_KEY is never read.
-__device__ __forceinline__ float val_of(unsigned k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
-}
-
-template <int NP>
-__device__ __forceinline__ void bitonic_sort(unsigned (&key)[NP]) {
-#pragma unroll
-  for (int k = 2; k <= NP; k <<= 1)
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1)
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        const int l = i ^ j;
-        if (l > i) {
-          const unsigned a = key[i], b = key[l];
-          const unsigned lo = min(a, b), hi = max(a, b);
-          const bool up = (i & k) == 0;
-          key[i] = up ? lo : hi;
-          key[l] = up ? hi : lo;
-        }
-      }
-}
-
-template <typename T, int NP, bool MIX>
-__global__ void __launch_bounds__(THREADS)
-mixtrim_kernel(const T* __restrict__ x, const float* __restrict__ m, int n,
-               long long d, int f, int med, float* __restrict__ out) {
-  __shared__ float sm[MIX ? NP * NP : 1];
-  if constexpr (MIX) {
-    for (int e = threadIdx.x; e < n * n; e += THREADS) sm[e] = m[e];
-    __syncthreads();
-  }
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long c = (long long)blockIdx.x * THREADS + threadIdx.x; c < d;
-       c += stride) {
-    float y[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      y[i] = (i < n) ? to_f32(x[(long long)i * d + c]) : 0.f;
-    if constexpr (MIX) {
-      float z[NP];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        float s = 0.f;
-        if (i < n) {
-#pragma unroll
-          for (int j = 0; j < NP; ++j)
-            if (j < n) s = fmaf(sm[i * n + j], y[j], s);
-        }
-        z[i] = s;
-      }
-#pragma unroll
-      for (int i = 0; i < NP; ++i) y[i] = z[i];
-    }
-
-    float r;
-    if (!med && f == 0) {
-      // Trim with f == 0 is the mean of the (mixed) stack: no sort needed.
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < NP; ++i)
-        if (i < n) s += y[i];
-      r = s / (float)n;
-    } else {
-      unsigned key[NP];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) key[i] = (i < n) ? key_of(y[i]) : PAD_KEY;
-      bitonic_sort<NP>(key);
-      if (med) {
-        float lo = 0.f, hi = 0.f;
-#pragma unroll
-        for (int i = 0; i < NP; ++i) {
-          if (i == (n - 1) / 2) lo = val_of(key[i]);
-          if (i == n / 2) hi = val_of(key[i]);
-        }
-        r = (n & 1) ? hi : 0.5f * (lo + hi);
-      } else {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < NP; ++i)
-          if (i >= f && i < n - f) s += val_of(key[i]);
-        r = s / (float)(n - 2 * f);
-      }
-    }
-    out[c] = r;
-  }
-}
-
-// Columns per tile for a sort of height np (a power of two).
-inline int big_tc(int np) {
-  int tc = KEY_BUDGET / np;
-  if (tc < 1) tc = 1;
-  if (tc > MAX_TC) tc = MAX_TC;
-  return tc;
-}
-
-inline size_t big_smem(int n, int np, int tc, bool mix) {
-  return sizeof(unsigned) * (size_t)tc * (np + 1) +
-         (mix ? sizeof(float) * (size_t)tc * (n | 1) : 0);
-}
-
-template <typename T, bool MIX>
-__global__ void __launch_bounds__(BIG_THREADS)
-mixtrim_big(const T* __restrict__ x, const float* __restrict__ m, int n,
-            int np, int tc, long long d, int f, int med,
-            float* __restrict__ out) {
-  extern __shared__ unsigned smem_keys[];
-  const int kp = np + 1;                 // odd key pitch
-  const int xp = n | 1;                  // odd staging pitch
-  unsigned* keys = smem_keys;            // tc columns x kp
-  float* xs = reinterpret_cast<float*>(keys + (size_t)tc * kp);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int WARPS = BIG_THREADS / 32;
-  const int half = np >> 1;
-  const int lh = 31 - __clz(half);
-  const long long tiles = (d + tc - 1) / tc;
-
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long c0 = t * tc;
-    const int w = (int)min((long long)tc, d - c0);
-    // 1. Stage the tile: consecutive threads on consecutive columns.
-    for (int e = threadIdx.x; e < n * tc; e += BIG_THREADS) {
-      const int i = e / tc, c = e - i * tc;
-      const float v = (c < w) ? to_f32(x[(long long)i * d + c0 + c]) : 0.f;
-      if constexpr (MIX) xs[c * xp + i] = v;
-      else keys[c * kp + i] = key_of(v);
-    }
-    for (int e = threadIdx.x; e < (np - n) * tc; e += BIG_THREADS) {
-      const int c = e / (np - n), i = n + (e - c * (np - n));
-      keys[c * kp + i] = PAD_KEY;
-    }
-    __syncthreads();
-    // 2. Mix: one warp per output row i, lanes over j, four columns at once.
-    if constexpr (MIX) {
-      for (int i = warp; i < n; i += WARPS) {
-        const float* mrow = m + (long long)i * n;
-        for (int cb = 0; cb < tc; cb += 4) {
-          float acc[4] = {0.f, 0.f, 0.f, 0.f};
-          for (int j = lane; j < n; j += 32) {
-            const float mij = __ldg(mrow + j);
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              if (cb + k < tc) acc[k] = fmaf(mij, xs[(cb + k) * xp + j], acc[k]);
-          }
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
-          }
-          if (lane == 0) {
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              if (cb + k < tc) keys[(cb + k) * kp + i] = key_of(acc[k]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-    // 3. Bitonic sort of every column of the tile (the plain mean needs none).
-    if (med || f > 0) {
-      for (int k = 2; k <= np; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-          for (int e = threadIdx.x; e < tc * half; e += BIG_THREADS) {
-            const int c = e >> lh, p = e & (half - 1);
-            const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-            unsigned* col = keys + c * kp;
-            const unsigned a = col[i], b = col[i | j];
-            if ((a > b) == ((i & k) == 0)) { col[i] = b; col[i | j] = a; }
-          }
-          __syncthreads();
-        }
-      }
-    }
-    // 4. One warp per column: trimmed mean over ranks [f, n - f) or median.
-    for (int c = warp; c < w; c += WARPS) {
-      const unsigned* col = keys + c * kp;
-      if (med) {
-        if (lane == 0) {
-          const float lo = val_of(col[(n - 1) / 2]), hi = val_of(col[n / 2]);
-          out[c0 + c] = (n & 1) ? hi : 0.5f * (lo + hi);
-        }
-      } else {
-        float s = 0.f;
-        for (int r = f + lane; r < n - f; r += 32) s += val_of(col[r]);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) out[c0 + c] = s / (float)(n - 2 * f);
-      }
-    }
-    __syncthreads();                     // the next tile reuses the arrays
-  }
-}
-
-template <typename T, bool MIX>
-int launch_big(const T* x, const float* m, int n, long long d, int f,
-               int med, float* out, int blocks, cudaStream_t s) {
-  int np = 128;
-  while (np < n) np <<= 1;
-  const int tc = big_tc(np);
-  const size_t smem = big_smem(n, np, tc, MIX);
-  cudaError_t err = cudaFuncSetAttribute(
-      mixtrim_big<T, MIX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long tiles = (d + tc - 1) / tc;
-  const int grid = (int)(tiles < blocks ? tiles : blocks);
-  mixtrim_big<T, MIX><<<grid, BIG_THREADS, smem, s>>>(x, m, n, np, tc, d, f,
-                                                      med, out);
-  return cudaGetLastError();
-}
-
-template <typename T, int NP>
-void launch_np(const T* x, const float* m, int n, long long d, int f,
-               int med, float* out, int blocks, cudaStream_t s) {
-  if (m)
-    mixtrim_kernel<T, NP, true><<<blocks, THREADS, 0, s>>>(x, m, n, d, f, med, out);
-  else
-    mixtrim_kernel<T, NP, false><<<blocks, THREADS, 0, s>>>(x, m, n, d, f, med, out);
-}
-
-template <typename T>
-int launch(const void* xv, const float* m, int n, long long d, int f,
-           int med, float* out, int blocks, cudaStream_t s) {
-  const T* x = static_cast<const T*>(xv);
-  if (n > SMALL_N) {
-    if (m) return launch_big<T, true>(x, m, n, d, f, med, out, blocks, s);
-    return launch_big<T, false>(x, m, n, d, f, med, out, blocks, s);
-  }
-  if (n <= 1) launch_np<T, 1>(x, m, n, d, f, med, out, blocks, s);
-  else if (n <= 2) launch_np<T, 2>(x, m, n, d, f, med, out, blocks, s);
-  else if (n <= 4) launch_np<T, 4>(x, m, n, d, f, med, out, blocks, s);
-  else if (n <= 8) launch_np<T, 8>(x, m, n, d, f, med, out, blocks, s);
-  else if (n <= 16) launch_np<T, 16>(x, m, n, d, f, med, out, blocks, s);
-  else if (n <= 32) launch_np<T, 32>(x, m, n, d, f, med, out, blocks, s);
-  else launch_np<T, 64>(x, m, n, d, f, med, out, blocks, s);
-  return cudaGetLastError();
-}
-
-}  // namespace
+using namespace mixtrim_detail;
 
 extern "C" int repro_mixtrim_max_n() { return MAX_N; }
 
@@ -303,9 +14,8 @@ extern "C" int repro_mixtrim(const void* x, int dtype, const float* m, int n,
                              int blocks, void* stream) {
   if (n < 1 || n > MAX_N || d < 1 || blocks < 1) return cudaErrorInvalidValue;
   if (!med && (f < 0 || n - 2 * f < 1)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_F32) return launch<float>(x, m, n, d, f, med, out, blocks, s);
-  if (dtype == REPRO_BF16)
-    return launch<__nv_bfloat16>(x, m, n, d, f, med, out, blocks, s);
-  return cudaErrorInvalidValue;
+  const Args a{m, 1, n, d, f, nullptr, med, out, blocks,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(x, dtype, a);
 }
+

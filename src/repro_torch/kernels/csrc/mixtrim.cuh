@@ -1,0 +1,364 @@
+// K2 · fused NNM mix + coordinate-wise trimmed mean / median, static f.
+//
+// Replaces the TPU kernel repro/kernels/mixtrim/kernel.py::mixtrim_pallas
+// (body _make_kernel).  Per column c of a (n, D) stack it computes
+// y = M x[:, c] (skipped when M is absent), sorts y along the worker axis
+// and reduces it to the mean of ranks [f, n-f) ("trim"; the plain mean
+// when f == 0) or the median ("med"), writing one fp32 value.
+//
+// One thread owns one column; neighbouring threads take neighbouring
+// columns, so every load of X[j, c] coalesces.  M (n x n, fp32 values of
+// the caller's dtype-rounded matrix) sits in shared memory and is read as
+// a broadcast.  The n mixed values live in registers and go through a
+// bitonic network of height NP = next power of two >= n; the mixed stack
+// never reaches global memory, which is the point of the TPU kernel.
+//
+// Ordering: values are sorted through an order-preserving uint32 key in
+// which every NaN sorts above +inf and the NP - n pad lanes above every
+// NaN.  That is the order torch.sort and jnp.sort give (NaN last), so
+// n = 17 and the nan / inf attack stacks take the same ranks as the plain
+// version; the TPU kernel's fp32-max sentinel would sort below +inf.
+//
+// Bound on this card: bytes (n*D reads, D fp32 writes; ~2n FLOP per read
+// element for the mix plus the network) for small n; the mix's 2n^2 FLOP
+// per column take over as n grows.
+//
+// n > 64 (mixtrim_big, up to MAX_N = 16384): n values per column no
+// longer fit in registers.  A block takes a tile of TC columns (TC * NP
+// <= 16384 keys, at most 64 columns), stages it in shared memory — rows
+// read TC consecutive columns at a time, so a warp's loads coalesce — and
+// sorts the same NaN-last keys with a shared-memory bitonic network, all
+// TC columns at once.  With a mix, the X tile is staged as fp32 and one
+// warp per output row reads M's row (coalesced, through L1/L2) against
+// it; Y exists only as the tile's keys, never in global memory.  Both
+// shared arrays use an odd pitch so that column-strided accesses hit
+// distinct banks.
+//
+// K4 · the dynamic-f form (DYN = true), replacing
+// repro/kernels/mixtrim/kernel.py::mixtrim_dyn_pallas (body
+// _make_dyn_kernel): f is a runtime int32 read on the device, one per lane
+// of a (B, n, D) stack (grid: column blocks x lanes, blockIdx.y = lane, each
+// lane with its own optional (n, n) M), so one build serves every f and
+// the host never reads f.  The trim is the reference's rank mask: the
+// sum over ALL n real ranks of ys[r] * keep[r], keep = (r >= f) &
+// (r < n - f), divided by max(n - 2f, 1).  A +-inf or NaN in a trimmed
+// rank therefore makes the column NaN (inf * 0), as mixtrim_dyn_ref does,
+// where K2's slice [f, n - f) would skip it; f >= n/2 keeps nothing and
+// gives 0 (or NaN).  The pad keys of the power-of-two sort lie at ranks
+// >= n and are never read.  "med" ignores f.  Bound: bytes, as K2.
+#pragma once
+
+#include "common.cuh"
+
+namespace mixtrim_detail {
+
+constexpr int THREADS = 256;
+constexpr int SMALL_N = 64;            // register-network kernel limit
+constexpr int MAX_N = 16384;           // shared-memory kernel limit
+constexpr int BIG_THREADS = 512;
+constexpr int KEY_BUDGET = 16384;      // keys per block tile
+constexpr int MAX_TC = 64;             // columns per block tile
+constexpr unsigned NAN_KEY = 0xFFFFFFFEu;
+constexpr unsigned PAD_KEY = 0xFFFFFFFFu;
+
+__device__ __forceinline__ unsigned key_of(float v) {
+  if (isnan(v)) return NAN_KEY;
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// NAN_KEY decodes to a NaN bit pattern (0x7FFFFFFE); PAD_KEY is never read.
+__device__ __forceinline__ float val_of(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+template <int NP>
+__device__ __forceinline__ void bitonic_sort(unsigned (&key)[NP]) {
+#pragma unroll
+  for (int k = 2; k <= NP; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1)
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const int l = i ^ j;
+        if (l > i) {
+          const unsigned a = key[i], b = key[l];
+          const unsigned lo = min(a, b), hi = max(a, b);
+          const bool up = (i & k) == 0;
+          key[i] = up ? lo : hi;
+          key[l] = up ? hi : lo;
+        }
+      }
+}
+
+template <typename T, int NP, bool MIX, bool DYN>
+__global__ void __launch_bounds__(THREADS)
+mixtrim_kernel(const T* __restrict__ x, const float* __restrict__ m, int n,
+               long long d, int f, const int* __restrict__ fdev, int med,
+               float* __restrict__ out) {
+  if constexpr (DYN) {                   // this lane's stack, M, f, output
+    x += (long long)blockIdx.y * n * d;
+    if constexpr (MIX) m += (long long)blockIdx.y * n * n;
+    out += (long long)blockIdx.y * d;
+    f = fdev[blockIdx.y];
+  }
+  __shared__ float sm[MIX ? NP * NP : 1];
+  if constexpr (MIX) {
+    for (int e = threadIdx.x; e < n * n; e += THREADS) sm[e] = m[e];
+    __syncthreads();
+  }
+  const long long stride = (long long)gridDim.x * THREADS;
+  for (long long c = (long long)blockIdx.x * THREADS + threadIdx.x; c < d;
+       c += stride) {
+    float y[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      y[i] = (i < n) ? to_f32(x[(long long)i * d + c]) : 0.f;
+    if constexpr (MIX) {
+      float z[NP];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        float s = 0.f;
+        if (i < n) {
+#pragma unroll
+          for (int j = 0; j < NP; ++j)
+            if (j < n) s = fmaf(sm[i * n + j], y[j], s);
+        }
+        z[i] = s;
+      }
+#pragma unroll
+      for (int i = 0; i < NP; ++i) y[i] = z[i];
+    }
+
+    float r;
+    if (!med && f <= 0) {
+      // Trim with f <= 0 keeps every rank: the sum of the (mixed) stack
+      // over max(n - 2f, 1) (the mean for f == 0), no sort needed.
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+        if (i < n) s += y[i];
+      r = s / (float)max(n - 2 * f, 1);
+    } else {
+      unsigned key[NP];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) key[i] = (i < n) ? key_of(y[i]) : PAD_KEY;
+      bitonic_sort<NP>(key);
+      if (med) {
+        float lo = 0.f, hi = 0.f;
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          if (i == (n - 1) / 2) lo = val_of(key[i]);
+          if (i == n / 2) hi = val_of(key[i]);
+        }
+        r = (n & 1) ? hi : 0.5f * (lo + hi);
+      } else if constexpr (DYN) {
+        // The rank mask over every real rank: inf * 0 = NaN is kept.
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < NP; ++i)
+          if (i < n) s += val_of(key[i]) * ((i >= f && i < n - f) ? 1.f : 0.f);
+        r = s / (float)max(n - 2 * f, 1);
+      } else {
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < NP; ++i)
+          if (i >= f && i < n - f) s += val_of(key[i]);
+        r = s / (float)(n - 2 * f);
+      }
+    }
+    out[c] = r;
+  }
+}
+
+// Columns per tile for a sort of height np (a power of two).
+inline int big_tc(int np) {
+  int tc = KEY_BUDGET / np;
+  if (tc < 1) tc = 1;
+  if (tc > MAX_TC) tc = MAX_TC;
+  return tc;
+}
+
+inline size_t big_smem(int n, int np, int tc, bool mix) {
+  return sizeof(unsigned) * (size_t)tc * (np + 1) +
+         (mix ? sizeof(float) * (size_t)tc * (n | 1) : 0);
+}
+
+template <typename T, bool MIX, bool DYN>
+__global__ void __launch_bounds__(BIG_THREADS)
+mixtrim_big(const T* __restrict__ x, const float* __restrict__ m, int n,
+            int np, int tc, long long d, int f, const int* __restrict__ fdev,
+            int med, float* __restrict__ out) {
+  if constexpr (DYN) {                   // this lane's stack, M, f, output
+    x += (long long)blockIdx.y * n * d;
+    if constexpr (MIX) m += (long long)blockIdx.y * n * n;
+    out += (long long)blockIdx.y * d;
+    f = fdev[blockIdx.y];
+  }
+  extern __shared__ unsigned smem_keys[];
+  const int kp = np + 1;                 // odd key pitch
+  const int xp = n | 1;                  // odd staging pitch
+  unsigned* keys = smem_keys;            // tc columns x kp
+  float* xs = reinterpret_cast<float*>(keys + (size_t)tc * kp);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int WARPS = BIG_THREADS / 32;
+  const int half = np >> 1;
+  const int lh = 31 - __clz(half);
+  const long long tiles = (d + tc - 1) / tc;
+
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long c0 = t * tc;
+    const int w = (int)min((long long)tc, d - c0);
+    // 1. Stage the tile: consecutive threads on consecutive columns.
+    for (int e = threadIdx.x; e < n * tc; e += BIG_THREADS) {
+      const int i = e / tc, c = e - i * tc;
+      const float v = (c < w) ? to_f32(x[(long long)i * d + c0 + c]) : 0.f;
+      if constexpr (MIX) xs[c * xp + i] = v;
+      else keys[c * kp + i] = key_of(v);
+    }
+    for (int e = threadIdx.x; e < (np - n) * tc; e += BIG_THREADS) {
+      const int c = e / (np - n), i = n + (e - c * (np - n));
+      keys[c * kp + i] = PAD_KEY;
+    }
+    __syncthreads();
+    // 2. Mix: one warp per output row i, lanes over j, four columns at once.
+    if constexpr (MIX) {
+      for (int i = warp; i < n; i += WARPS) {
+        const float* mrow = m + (long long)i * n;
+        for (int cb = 0; cb < tc; cb += 4) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int j = lane; j < n; j += 32) {
+            const float mij = __ldg(mrow + j);
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (cb + k < tc) acc[k] = fmaf(mij, xs[(cb + k) * xp + j], acc[k]);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+              acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+          }
+          if (lane == 0) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (cb + k < tc) keys[(cb + k) * kp + i] = key_of(acc[k]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // 3. Bitonic sort of every column of the tile (the plain mean needs none).
+    if (med || f > 0) {
+      for (int k = 2; k <= np; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          for (int e = threadIdx.x; e < tc * half; e += BIG_THREADS) {
+            const int c = e >> lh, p = e & (half - 1);
+            const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+            unsigned* col = keys + c * kp;
+            const unsigned a = col[i], b = col[i | j];
+            if ((a > b) == ((i & k) == 0)) { col[i] = b; col[i | j] = a; }
+          }
+          __syncthreads();
+        }
+      }
+    }
+    // 4. One warp per column: trimmed mean over ranks [f, n - f) or median.
+    for (int c = warp; c < w; c += WARPS) {
+      const unsigned* col = keys + c * kp;
+      if (med) {
+        if (lane == 0) {
+          const float lo = val_of(col[(n - 1) / 2]), hi = val_of(col[n / 2]);
+          out[c0 + c] = (n & 1) ? hi : 0.5f * (lo + hi);
+        }
+      } else if constexpr (DYN) {
+        // The rank mask over every real rank (unsorted when f <= 0: the
+        // sum is the same set of values).
+        float s = 0.f;
+        for (int r = lane; r < n; r += 32)
+          s += val_of(col[r]) * ((r >= f && r < n - f) ? 1.f : 0.f);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) out[c0 + c] = s / (float)max(n - 2 * f, 1);
+      } else {
+        float s = 0.f;
+        for (int r = f + lane; r < n - f; r += 32) s += val_of(col[r]);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) out[c0 + c] = s / (float)(n - 2 * f);
+      }
+    }
+    __syncthreads();                     // the next tile reuses the arrays
+  }
+}
+
+// Launch arguments shared by K2 (lanes = 1, f on the host, fdev NULL)
+// and K4 (lanes >= 1, fdev = the (lanes,) int32 f on the device).
+struct Args {
+  const float* m;
+  int lanes, n;
+  long long d;
+  int f;
+  const int* fdev;
+  int med;
+  float* out;
+  int blocks;                            // column blocks per lane
+  cudaStream_t s;
+};
+
+template <typename T, bool MIX, bool DYN>
+int launch_big(const T* x, const Args& a) {
+  int np = 128;
+  while (np < a.n) np <<= 1;
+  const int tc = big_tc(np);
+  const size_t smem = big_smem(a.n, np, tc, MIX);
+  cudaError_t err = cudaFuncSetAttribute(
+      mixtrim_big<T, MIX, DYN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (a.d + tc - 1) / tc;
+  const int grid = (int)(tiles < a.blocks ? tiles : a.blocks);
+  mixtrim_big<T, MIX, DYN><<<dim3(grid, a.lanes), BIG_THREADS, smem, a.s>>>(
+      x, a.m, a.n, np, tc, a.d, a.f, a.fdev, a.med, a.out);
+  return cudaGetLastError();
+}
+
+template <typename T, int NP, bool DYN>
+void launch_np(const T* x, const Args& a) {
+  const dim3 grid(a.blocks, a.lanes);
+  if (a.m)
+    mixtrim_kernel<T, NP, true, DYN><<<grid, THREADS, 0, a.s>>>(
+        x, a.m, a.n, a.d, a.f, a.fdev, a.med, a.out);
+  else
+    mixtrim_kernel<T, NP, false, DYN><<<grid, THREADS, 0, a.s>>>(
+        x, a.m, a.n, a.d, a.f, a.fdev, a.med, a.out);
+}
+
+template <typename T, bool DYN>
+int launch(const void* xv, const Args& a) {
+  const T* x = static_cast<const T*>(xv);
+  const int n = a.n;
+  if (n > SMALL_N) {
+    if (a.m) return launch_big<T, true, DYN>(x, a);
+    return launch_big<T, false, DYN>(x, a);
+  }
+  if (n <= 1) launch_np<T, 1, DYN>(x, a);
+  else if (n <= 2) launch_np<T, 2, DYN>(x, a);
+  else if (n <= 4) launch_np<T, 4, DYN>(x, a);
+  else if (n <= 8) launch_np<T, 8, DYN>(x, a);
+  else if (n <= 16) launch_np<T, 16, DYN>(x, a);
+  else if (n <= 32) launch_np<T, 32, DYN>(x, a);
+  else launch_np<T, 64, DYN>(x, a);
+  return cudaGetLastError();
+}
+
+template <bool DYN>
+int dispatch(const void* x, int dtype, const Args& a) {
+  if (dtype == REPRO_F32) return launch<float, DYN>(x, a);
+  if (dtype == REPRO_BF16) return launch<__nv_bfloat16, DYN>(x, a);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace mixtrim_detail

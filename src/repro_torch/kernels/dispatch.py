@@ -12,7 +12,11 @@ worker-stacked pytree:
 * **gram** (K1), **combine** (K3), **mixtrim** (K2), **bucketgram** (K6)
   and **bucketmeans** (K7) — the hand-written kernels of ``kernels/csrc``
   for a CUDA stack.  A CPU stack runs each kernel's plain version, and
-  that is RECORDED as a fallback.
+  that is RECORDED as a fallback;
+* the fleet's lane-batched forms over a (B, n, D) stack:
+  **gram_batched** (K5) and **mixtrim_dyn** (K4, f an int tensor per
+  lane); cwmed lanes take K2 and the gram rules K3 once per lane, as the
+  reference routes them to its static kernels.
 
 Every decision lands on a :class:`DispatchRecord` in a bounded ring
 (:func:`last_dispatch`), so a requested kernel
@@ -37,15 +41,20 @@ from repro_torch.kernels.bucketgram import bucketmeans as _bucketmeans_op
 from repro_torch.kernels.combine import combine as _combine_op
 from repro_torch.kernels.combine import combine_ref as _combine_ref
 from repro_torch.kernels.gram import gram as _gram_op
+from repro_torch.kernels.gram import gram_batched as _gram_batched_op
+from repro_torch.kernels.gram import gram_batched_ref as _gram_batched_ref
 from repro_torch.kernels.gram import gram_ref as _gram_ref
 from repro_torch.kernels.mixtrim import mixtrim as _mixtrim_op
+from repro_torch.kernels.mixtrim import mixtrim_dyn as _mixtrim_dyn_op
+from repro_torch.kernels.mixtrim import mixtrim_dyn_ref as _mixtrim_dyn_ref
 from repro_torch.kernels.mixtrim import mixtrim_ref as _mixtrim_ref
-from repro_torch.tree import tree_leaves, tree_structure, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_structure, tree_unflatten
 
 PyTree = Any
 
 #: The kernel wrappers of the port, by primitive name.
 KERNELS = {"gram": _gram_op, "mixtrim": _mixtrim_op, "combine": _combine_op,
+           "mixtrim_dyn": _mixtrim_dyn_op, "gram_batched": _gram_batched_op,
            "bucketgram": _bucketgram_op, "bucketmeans": _bucketmeans_op}
 
 #: The reference's backends that the port does not run yet.
@@ -107,6 +116,10 @@ class DispatchRecord:
     #: and its requested bucket size (None = the floor(n/2f) default).
     hier: bool = False
     bucket_size: Optional[int] = None
+    #: Dynamic-f path (f an int tensor) and its lane count (None = the
+    #: static path).
+    dyn: bool = False
+    lanes: Optional[int] = None
     decisions: list = dataclasses.field(default_factory=list)
 
     @property
@@ -116,8 +129,9 @@ class DispatchRecord:
 
     def describe(self) -> str:
         hier = f" hier(s={self.bucket_size or 'auto'})" if self.hier else ""
+        dyn = f" dyn lanes={self.lanes}" if self.dyn else ""
         parts = [f"{self.requested}->{self.backend} rule={self.rule} "
-                 f"pre={self.pre or 'none'}{hier}"]
+                 f"pre={self.pre or 'none'}{hier}{dyn}"]
         for d in self.decisions:
             why = f" ({d.reason})" if d.reason else ""
             parts.append(f"  {d.primitive}: {d.used}{why}")
@@ -126,6 +140,7 @@ class DispatchRecord:
 
 DISPATCH_HISTORY_LIMIT = 256
 _HISTORY: deque = deque(maxlen=DISPATCH_HISTORY_LIMIT)
+_OPENED = 0
 
 
 def last_dispatch() -> Optional[DispatchRecord]:
@@ -133,20 +148,52 @@ def last_dispatch() -> Optional[DispatchRecord]:
     return _HISTORY[-1] if _HISTORY else None
 
 
+def dispatch_history(limit: Optional[int] = None) -> list:
+    """The retained records, oldest first (the newest ``limit``)."""
+    recs = list(_HISTORY)
+    return recs if limit is None else recs[-limit:]
+
+
+def dispatch_count() -> int:
+    """Records opened since import (the ring keeps the newest
+    :data:`DISPATCH_HISTORY_LIMIT`)."""
+    return _OPENED
+
+
 def open_record(*, requested: str, backend: str, rule: str,
                 pre: Optional[str], hier: bool = False,
-                bucket_size: Optional[int] = None) -> DispatchRecord:
+                bucket_size: Optional[int] = None, dyn: bool = False,
+                lanes: Optional[int] = None) -> DispatchRecord:
+    global _OPENED
     rec = DispatchRecord(requested=requested, backend=backend, rule=rule,
-                         pre=pre, hier=hier, bucket_size=bucket_size)
+                         pre=pre, hier=hier, bucket_size=bucket_size,
+                         dyn=dyn, lanes=lanes)
     _HISTORY.append(rec)
+    _OPENED += 1
     return rec
+
+
+#: Every fallback decision since :func:`reset_fallbacks` (kept apart from
+#: the bounded ring, so a long run's fallbacks are all seen).
+_FALLBACKS: list = []
 
 
 def record_decision(primitive: str, requested: str, used: str,
                     reason: str = "") -> None:
     if _HISTORY:
-        _HISTORY[-1].decisions.append(
-            KernelDecision(primitive, requested, used, reason))
+        dec = KernelDecision(primitive, requested, used, reason)
+        _HISTORY[-1].decisions.append(dec)
+        if dec.fell_back:
+            _FALLBACKS.append(dec)
+
+
+def fallback_log() -> list:
+    """The fallback decisions recorded since :func:`reset_fallbacks`."""
+    return list(_FALLBACKS)
+
+
+def reset_fallbacks() -> None:
+    _FALLBACKS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +272,27 @@ def unflatten_aggregate(vec: torch.Tensor, layout: StackLayout) -> PyTree:
     return tree_unflatten(layout.structure, leaves)
 
 
+def flatten_lane_stack(tree: PyTree) -> tuple[torch.Tensor, StackLayout]:
+    """A lane-batched worker stack (every leaf (B, n, ...)) as one
+    contiguous (B, n, D) buffer, and the layout of one lane."""
+    leaves = tree_leaves(tree)
+    b, n = leaves[0].shape[:2]
+    layout = stack_layout(tree_map(lambda leaf: leaf[0], tree))
+    if len(leaves) == 1:
+        flat = leaves[0].reshape(b, n, -1).contiguous()
+    else:
+        flat = torch.cat([leaf.reshape(b, n, -1) for leaf in leaves], dim=2)
+    return flat, layout
+
+
+def unflatten_lane_aggregate(vec: torch.Tensor, layout: StackLayout) -> PyTree:
+    """Per-lane aggregates (B, D) as a pytree of (B, ...) views."""
+    b = vec.shape[0]
+    leaves = [vec[:, off:off + size].view((b,) + shape)
+              for off, size, shape in layout.segments]
+    return tree_unflatten(layout.structure, leaves)
+
+
 # ---------------------------------------------------------------------------
 # Primitive dispatchers.
 # ---------------------------------------------------------------------------
@@ -242,6 +310,16 @@ def dispatch_gram(x: torch.Tensor, *, backend: str) -> torch.Tensor:
         return _gram_op(x)
     record_decision("gram", backend, "torch")
     return _gram_ref(x)
+
+
+def dispatch_gram_batched(x: torch.Tensor, *, backend: str) -> torch.Tensor:
+    """(B, n, D) -> (B, n, n): the lane-batched Gram pass, one launch for a
+    whole fleet bucket (K5)."""
+    if backend == "cuda":
+        record_decision("gram_batched", backend, *_used(x))
+        return _gram_batched_op(x)
+    record_decision("gram_batched", backend, "torch")
+    return _gram_batched_ref(x)
 
 
 def dispatch_bucketgram(x: torch.Tensor, assignment: torch.Tensor,
@@ -277,10 +355,18 @@ def dispatch_combine(x: torch.Tensor, coeff: torch.Tensor, *,
     return _combine_ref(x, coeff)
 
 
-def dispatch_mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f: int, *,
-                     mode: str, backend: str) -> torch.Tensor:
+def dispatch_mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f, *,
+                     mode: str, backend: str, dyn: bool = False
+                     ) -> torch.Tensor:
     """(n, D) -> (D,): fused mix + coordinate trim/median (``m=None``
-    skips the mix)."""
+    skips the mix).
+
+    ``dyn=True`` is the fleet's form: x (B, n, D), m (B, n, n) or None and
+    f a (B,) int tensor -> (B, D).  "trim" runs K4 over every lane in one
+    launch; "med" ignores f, so it runs the static kernel (K2) on each
+    lane, as the reference routes it."""
+    if dyn:
+        return _dispatch_mixtrim_lanes(x, m, f, mode=mode, backend=backend)
     f = 0 if mode == "med" else int(f)
     if backend == "cuda":
         record_decision("mixtrim", backend, *_used(x))
@@ -289,11 +375,35 @@ def dispatch_mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f: int, *,
     return _mixtrim_ref(x, m, f, mode)
 
 
-def dispatch_meamed(x: torch.Tensor, m: Optional[torch.Tensor], f: int, *,
-                    backend: str) -> torch.Tensor:
+def _dispatch_mixtrim_lanes(x: torch.Tensor, m: Optional[torch.Tensor], f,
+                            *, mode: str, backend: str) -> torch.Tensor:
+    if mode == "trim":
+        if backend == "cuda":
+            record_decision("mixtrim_dyn", backend, *_used(x))
+            return _mixtrim_dyn_op(x, m, f, mode=mode)
+        record_decision("mixtrim_dyn", backend, "torch")
+        return _mixtrim_dyn_ref(x, m, f, mode)
+    why = "med ignores f: the static kernel, once per lane"
+    if backend == "cuda":
+        used, note = _used(x)
+        record_decision("mixtrim", backend, used,
+                        f"{note}; {why}" if note else why)
+        op = _mixtrim_op
+    else:
+        record_decision("mixtrim", backend, "torch", why)
+        op = _mixtrim_ref
+    return torch.stack([op(x[k], None if m is None else m[k], 0, mode)
+                        for k in range(x.shape[0])])
+
+
+def dispatch_meamed(x: torch.Tensor, m: Optional[torch.Tensor], f, *,
+                    backend: str, dyn: bool = False) -> torch.Tensor:
     """meamed on the flat buffer.  No kernel exists (as in the reference),
-    so this is always a RECORDED torch-ops decision."""
+    so this is always a RECORDED torch-ops decision.  ``dyn=True``: x (B,
+    n, D), m (B, n, n) or None, f (B,) int tensor -> (B, D)."""
     record_decision("mixtrim", backend, "torch", "meamed has no fused kernel")
-    from repro_torch.core.robust import _coordinate_rule
+    from repro_torch.core.robust import _coordinate_rule, _coordinate_rule_lanes
     mixed = x if m is None else m.float() @ x.float()
+    if dyn:
+        return _coordinate_rule_lanes(mixed, "meamed", f)
     return _coordinate_rule(mixed, "meamed", f)

@@ -1,17 +1,19 @@
-"""K1 · Gram matrix G = X X^T of a (n, D) worker stack.
+"""K1 · Gram matrix G = X X^T of a (n, D) worker stack, and K5 · the
+lane-batched Gram of a (B, n, D) stack.
 
-:func:`gram` is the wrapper: for a CUDA stack it launches the split-K
-kernel of ``csrc/gram.cu`` (the counterpart of the TPU kernel
-``repro/kernels/gram/kernel.py::gram_pallas``); for a CPU stack it runs
-:func:`gram_ref`, the plain version.  ``gram.launches`` counts kernel
-launches.
+:func:`gram` and :func:`gram_batched` are the wrappers: for a CUDA stack
+they launch the split-K kernel of ``csrc/gram.cu`` (the counterparts of the
+TPU kernels ``repro/kernels/gram/kernel.py::gram_pallas`` and
+``gram_batched_pallas``; K5 is K1 with a lane grid axis); for a CPU stack
+they run :func:`gram_ref` / :func:`gram_batched_ref`, the plain versions.
+``gram.launches`` and ``gram_batched.launches`` count kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check_stack, stream_of
+from repro_torch.kernels._common import check_lanes, check_stack, stream_of
 
 #: Threads per block of gram_partial (csrc/gram.cu).
 _THREADS = 256
@@ -43,27 +45,52 @@ def gram_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts).sum(dim=0)
 
 
+def gram_batched_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5: :func:`gram_ref`, K1's plain version, on each
+    lane of a (B, n, D) stack."""
+    return torch.stack([gram_ref(x[k]) for k in range(x.shape[0])])
+
+
+def _launch(x: torch.Tensor, lanes: int, n: int, d: int) -> torch.Tensor:
+    lib = _build.library()
+    pairs = lib.repro_gram_pairs(n)
+    units = d // 4 if d % 4 == 0 else d
+    chunks = max(1, min(-(-units // _THREADS),
+                        _BLOCKS_PER_SM * _build.sm_count(x.device)
+                        // (pairs * lanes)))
+    partial = torch.empty(lanes * chunks * pairs * 64, dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty((lanes, n, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.repro_gram(x.data_ptr(), _build.dtype_code(x.dtype), lanes,
+                            n, d, partial.data_ptr(), chunks, out.data_ptr(),
+                            stream_of(x))
+    _build.check(rc, "gram kernel")
+    return out
+
+
 def gram(x: torch.Tensor) -> torch.Tensor:
     """(n, D) fp32 / bf16 -> (n, n) fp32 Gram matrix."""
     if x.device.type == "cpu":
         return gram_ref(x)
     check_stack(x, "gram")
-    lib = _build.library()
     n, d = x.shape
-    pairs = lib.repro_gram_pairs(n)
-    units = d // 4 if d % 4 == 0 else d
-    chunks = max(1, min(-(-units // _THREADS),
-                        _BLOCKS_PER_SM * _build.sm_count(x.device) // pairs))
-    partial = torch.empty(chunks * pairs * 64, dtype=torch.float32,
-                          device=x.device)
-    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.repro_gram(x.data_ptr(), _build.dtype_code(x.dtype), n, d,
-                            partial.data_ptr(), chunks, out.data_ptr(),
-                            stream_of(x))
-    _build.check(rc, "gram kernel")
+    out = _launch(x, 1, n, d)[0]
     gram.launches += 1
     return out
 
 
+def gram_batched(x: torch.Tensor) -> torch.Tensor:
+    """(B, n, D) fp32 / bf16 -> (B, n, n) fp32: every lane's Gram in one
+    launch pair (K5)."""
+    if x.device.type == "cpu":
+        return gram_batched_ref(x)
+    check_lanes(x, "gram_batched")
+    lanes, n, d = x.shape
+    out = _launch(x, lanes, n, d)
+    gram_batched.launches += 1
+    return out
+
+
 gram.launches = 0
+gram_batched.launches = 0

@@ -1,3 +1,5 @@
-from repro_torch.kernels.mixtrim.ops import MAX_N, mixtrim, mixtrim_ref
+from repro_torch.kernels.mixtrim.ops import (
+    MAX_N, mixtrim, mixtrim_dyn, mixtrim_dyn_ref, mixtrim_ref,
+)
 
-__all__ = ["MAX_N", "mixtrim", "mixtrim_ref"]
+__all__ = ["MAX_N", "mixtrim", "mixtrim_dyn", "mixtrim_dyn_ref", "mixtrim_ref"]

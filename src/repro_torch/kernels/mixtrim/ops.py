@@ -1,4 +1,5 @@
-"""K2 · fused NNM mix + coordinate-wise trimmed mean / median (static f).
+"""K2 · fused NNM mix + coordinate-wise trimmed mean / median (static f),
+and K4 · its dynamic-f, lane-batched form.
 
 :func:`mixtrim` is the wrapper: for a CUDA stack it launches the kernel of
 ``csrc/mixtrim.cu`` (the counterpart of the TPU kernel
@@ -7,8 +8,19 @@ runs :func:`mixtrim_ref`, the plain version, which defines the semantics:
 values sort with every NaN last (``torch.sort`` / ``jnp.sort`` order), so a
 trim over the nan / inf attack stacks keeps the same ranks in both.
 Up to 64 workers a register network sorts each column; above that (to
-:data:`MAX_N`) a shared-memory network sorts tiles of columns.
+:data:`MAX_N`) a shared-memory network sorts tiles of columns (the kernels
+are in ``csrc/mixtrim.cuh``; K2's entry point in ``mixtrim.cu``, K4's in
+``mixtrim_dyn.cu``).
 ``mixtrim.launches`` counts kernel launches.
+
+:func:`mixtrim_dyn` (K4, the counterpart of
+``repro/kernels/mixtrim/kernel.py::mixtrim_dyn_pallas``) takes f as an int32
+tensor on the stack's device, one per lane of a (B, n, D) stack, with an
+optional (B, n, n) mixing matrix per lane; :func:`mixtrim_dyn_ref` is its
+plain version and defines the semantics of ``mixtrim_dyn_ref`` in the
+reference: a rank mask over the sorted stack, so a non-finite value in a
+trimmed rank makes its column NaN (inf * 0), unlike K2's slice.
+``mixtrim_dyn.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -17,14 +29,16 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check_small, check_stack, stream_of
+from repro_torch.kernels._common import (
+    check_lanes, check_small, check_stack, stream_of,
+)
 
 _THREADS = 256
 _BLOCKS_PER_SM = 16
 #: Largest worker count the register-network kernel takes
-#: (csrc/mixtrim.cu SMALL_N); above it a shared-memory kernel sorts.
+#: (csrc/mixtrim.cuh SMALL_N); above it a shared-memory kernel sorts.
 SMALL_N = 64
-#: Largest worker count the kernels take (csrc/mixtrim.cu MAX_N): the next
+#: Largest worker count the kernels take (csrc/mixtrim.cuh MAX_N): the next
 #: power of two above the reference's largest scale n, 10240.
 MAX_N = 16384
 
@@ -87,3 +101,93 @@ def mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f: int,
 
 
 mixtrim.launches = 0
+
+
+def _lane_f(f, lanes: int, device) -> torch.Tensor:
+    """f as a (lanes,) int32 tensor on ``device`` (a Python int or a
+    0-d / (lanes,) tensor)."""
+    t = torch.as_tensor(f, device=device)
+    if t.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"f must be an integer tensor, got {t.dtype}")
+    t = t.to(device=device, dtype=torch.int32).reshape(-1)
+    if t.numel() == 1 and lanes > 1:
+        t = t.expand(lanes)
+    if t.shape != (lanes,):
+        raise ValueError(f"f must hold one value per lane ({lanes}), got "
+                         f"{tuple(t.shape)}")
+    return t.contiguous()
+
+
+def _as_lanes(x, m, f):
+    """(x, m, f, batched): a (n, D) call as one lane of a (1, n, D) call."""
+    if x.dim() == 3:
+        return x, m, f, True
+    return (x[None], None if m is None else m[None],
+            torch.as_tensor(f).reshape(1), False)
+
+
+def mixtrim_dyn_ref(x: torch.Tensor, m: Optional[torch.Tensor], f,
+                    mode: str = "trim") -> torch.Tensor:
+    """Plain version of K4: Y = M @ X per lane in fp32 (X alone when ``m``
+    is None), ``torch.sort`` along the worker axis, then ``"trim"``: the
+    sum of ys[r] * keep[r] over all n ranks, keep = (r >= f) & (r < n - f),
+    over max(n - 2f, 1); ``"med"``: the median (f unused).  x is (B, n, D)
+    with (B, n, n) m and (B,) f, or (n, D) with (n, n) m and a scalar f;
+    returns (B, D) / (D,) fp32."""
+    x, m, f, batched = _as_lanes(x, m, f)
+    n = x.shape[1]
+    y = x.float() if m is None else m.float() @ x.float()
+    ys = torch.sort(y, dim=1).values
+    if mode == "trim":
+        f = _lane_f(f, x.shape[0], x.device).reshape(-1, 1, 1)
+        i = torch.arange(n, device=x.device).reshape(1, n, 1)
+        keep = ((i >= f) & (i < n - f)).float()
+        denom = torch.clamp_min((n - 2 * f).float(), 1.0)[:, 0]
+        out = (ys * keep).sum(dim=1) / denom
+    elif mode == "med":
+        if n % 2 == 1:
+            out = ys[:, n // 2]
+        else:
+            out = 0.5 * (ys[:, n // 2 - 1] + ys[:, n // 2])
+    else:
+        raise ValueError(mode)
+    return out if batched else out[0]
+
+
+def mixtrim_dyn(x: torch.Tensor, m: Optional[torch.Tensor], f,
+                mode: str = "trim") -> torch.Tensor:
+    """(B, n, D) fp32 / bf16, optional (B, n, n) mixing matrices and a (B,)
+    int32 f on the device -> (B, D) fp32, all lanes in one launch; a (n, D)
+    stack with a scalar f is one lane.  f is read by the kernel, never by
+    the host."""
+    if mode not in ("trim", "med"):
+        raise ValueError(f"mode must be 'trim' or 'med', got {mode!r}")
+    if x.device.type == "cpu":
+        return mixtrim_dyn_ref(x, m, f, mode)
+    x, m, f, batched = _as_lanes(x, m, f)
+    check_lanes(x, "mixtrim_dyn")
+    lanes, n, d = x.shape
+    if n > MAX_N:
+        raise ValueError(f"mixtrim_dyn kernel takes n <= {MAX_N} workers, got "
+                         f"n={n} (the port's one limit, ROADMAP queue 3)")
+    fd = _lane_f(f, lanes, x.device)
+    mf = None
+    if m is not None:
+        mf = m.float().contiguous()
+        check_small(mf, (lanes, n, n), x, "mixtrim_dyn m")
+    lib = _build.library()
+    cap = max(1, _BLOCKS_PER_SM * _build.sm_count(x.device) // lanes)
+    blocks = cap if n > SMALL_N else max(1, min(-(-d // _THREADS), cap))
+    out = torch.empty((lanes, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.repro_mixtrim_dyn(x.data_ptr(), _build.dtype_code(x.dtype),
+                                   None if mf is None else mf.data_ptr(),
+                                   lanes, n, d, fd.data_ptr(),
+                                   int(mode == "med"), out.data_ptr(), blocks,
+                                   stream_of(x))
+    _build.check(rc, "mixtrim_dyn kernel")
+    mixtrim_dyn.launches += 1
+    return out if batched else out[0]
+
+
+mixtrim_dyn.launches = 0

@@ -88,23 +88,38 @@ def stack_layout(params: PyTree, n_workers: int) -> kdispatch.StackLayout:
         params))
 
 
-def kappa_hat_masked(agg: PyTree, stack: PyTree, n_honest: int) -> Tensor:
+def kappa_hat_masked(agg: PyTree, stack: PyTree, n_honest) -> Tensor:
     """Eq. (26) with the honest rows selected by mask (row < n_honest), as
-    the reference's fleet form computes it."""
+    the reference's fleet form computes it (a 0/1 mask multiplies the
+    rows, so a non-finite row spreads NaN as there).
+
+    ``n_honest`` an int or a 0-d tensor: one lane (agg leaves (...),
+    stack leaves (n, ...)), returns a 0-d tensor.  A (B,) tensor: a lane
+    axis leads every leaf (agg (B, ...), stack (B, n, ...)), returns (B,);
+    the count stays on the device."""
     leaves = tree_leaves(stack)
     dev = leaves[0].device
-    num = torch.zeros((), dtype=torch.float32, device=dev)
-    den = torch.zeros((), dtype=torch.float32, device=dev)
-    cnt = max(float(n_honest), 1.0)
+    nh = torch.as_tensor(n_honest, device=dev)
+    lanes = nh.dim() == 1
+    if not lanes:
+        agg = tree_map(lambda a: a[None], agg)
+        leaves = [s[None] for s in leaves]
+        nh = nh.reshape(1)
+    b = leaves[0].shape[0]
+    num = torch.zeros((b,), dtype=torch.float32, device=dev)
+    den = torch.zeros((b,), dtype=torch.float32, device=dev)
+    cnt = torch.clamp_min(nh.float(), 1.0)
     for a, s in zip(tree_leaves(agg), leaves):
         x = s.float()
-        n = x.shape[0]
-        w = (torch.arange(n, device=dev) < n_honest).float()
-        mbar = (x * w.reshape((-1,) + (1,) * (x.ndim - 1))).sum(dim=0) / cnt
-        num += torch.sum((a.float() - mbar) ** 2)
-        sq = torch.sum(((x - mbar) ** 2).reshape(n, -1), dim=1)
-        den += (sq * w).sum() / cnt
-    return torch.sqrt(num / (den + 1e-20))
+        n = x.shape[1]
+        w = (torch.arange(n, device=dev)[None] < nh[:, None]).float()
+        wl = w.reshape((b, n) + (1,) * (x.dim() - 2))
+        mbar = (x * wl).sum(dim=1) / cnt.reshape((b,) + (1,) * (x.dim() - 2))
+        num += torch.sum(((a.float() - mbar) ** 2).reshape(b, -1), dim=1)
+        sq = torch.sum(((x - mbar[:, None]) ** 2).reshape(b, n, -1), dim=2)
+        den += (sq * w).sum(dim=1) / cnt
+    out = torch.sqrt(num / (den + 1e-20))
+    return out if lanes else out[0]
 
 
 def build_train_step(loss_fn: Callable, optimizer: Optimizer,

@@ -1,5 +1,4 @@
-"""The CUDA kernels K1-K3, K6 and K7 against their plain versions, on the
-card.
+"""The CUDA kernels K1-K7 against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips with a reason without a GPU
 (the kernels have no CPU mode).  The file imports no JAX, so it runs on a
@@ -20,7 +19,8 @@ import torch
 
 from repro_torch.kernels import (
     bucket_means_gram, bucket_means_gram_ref, bucketgram, bucketmeans,
-    combine, combine_ref, gram, gram_ref, mixtrim, mixtrim_ref,
+    combine, combine_ref, gram, gram_batched, gram_batched_ref, gram_ref,
+    mixtrim, mixtrim_dyn, mixtrim_dyn_ref, mixtrim_ref,
 )
 
 RTOL = 1e-5
@@ -220,3 +220,97 @@ def test_bucketgram_gram_is_deterministic_and_counts_launches(dev, n, s):
     bucketmeans(x, assign, nb)
     assert bucketgram.launches == before + 2
     assert bucketmeans.launches == before_m + 1
+
+
+def _lanes(dev, b, n, d, dtype, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn((b, n, d), generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(1, 8), (5, 17), (8, 16), (3, 40)])
+@pytest.mark.parametrize("d", [1, 7, 2842, (1 << 18) + 3])
+def test_gram_batched_matches_plain_and_k1_per_lane(dev, dtype, b, n, d):
+    """K5: every lane equals its plain Gram, and K1 on that lane."""
+    x = _lanes(dev, b, n, d, dtype, seed=b * 31 + n + d)
+    g = gram_batched(x)
+    _close(g, gram_batched_ref(x))
+    for k in range(b):
+        _close(g[k], gram(x[k].contiguous()))
+
+
+@pytest.mark.cuda
+def test_gram_batched_is_deterministic_and_counts_launches(dev):
+    x = _lanes(dev, 6, 17, (1 << 20) + 4, torch.float32, seed=9)
+    before = gram_batched.launches
+    assert torch.equal(gram_batched(x), gram_batched(x))
+    assert gram_batched.launches == before + 2
+
+
+def _lane_fs(dev, b, n):
+    """Per-lane f: 0, past n/2 (the empty mask), the largest valid f, 1,
+    n/2, then small values."""
+    vals = [0, n // 2 + 1, (n - 1) // 2, 1, n // 2, 2, 3, 4]
+    return torch.tensor([vals[k % len(vals)] for k in range(b)],
+                        dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(1, 8), (8, 17), (6, 16), (4, 3), (3, 100)])
+@pytest.mark.parametrize("d", [1, 61, 2842])
+def test_mixtrim_dyn_matches_plain(dev, dtype, b, n, d):
+    """K4: per-lane f (0 .. past n/2), per-lane M, with and without the
+    mix, trim and median, the register (n <= 64) and shared-memory sorts."""
+    x = _lanes(dev, b, n, d, dtype, seed=b + n + d)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    m = torch.softmax(torch.randn((b, n, n), generator=gen, device=dev), -1)
+    f = _lane_fs(dev, b, n)
+    for mode in ("trim", "med"):
+        for mm in (None, m.to(dtype)):
+            _close(mixtrim_dyn(x, mm, f, mode), mixtrim_dyn_ref(x, mm, f, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 17, 100])
+def test_mixtrim_dyn_agrees_with_k2_at_equal_f(dev, n):
+    x = _lanes(dev, 1, n, 4099, torch.float32, seed=n)[0]
+    m = torch.softmax(torch.randn((n, n), device=dev), -1)
+    for f in range(0, (n - 1) // 2 + 1, max(1, n // 6)):
+        ft = torch.tensor(f, dtype=torch.int32, device=dev)
+        for mm in (None, m):
+            _close(mixtrim_dyn(x, mm, ft), mixtrim(x, mm, f, "trim"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [float("nan"), float("inf"), -float("inf")])
+@pytest.mark.parametrize("n", [17, 16, 100])
+def test_mixtrim_dyn_nonfinite_rows_match_plain(dev, fill, n):
+    """The rank mask keeps inf * 0 = NaN: a non-finite row makes its
+    columns NaN even where its rank is trimmed (as the reference's
+    mixtrim_dyn_ref), and the power-of-two pad contributes nothing."""
+    b = 4
+    x = _lanes(dev, b, n, 1031, torch.float32, seed=n).clone()
+    x[1, n - 1] = fill
+    x[2, 0, 5:9] = fill
+    x[3, :, 7] = fill
+    m = torch.softmax(torch.randn((b, n, n), device=dev), -1)
+    f = torch.tensor([0, 2, n // 2, 3], dtype=torch.int32, device=dev)
+    for mode in ("trim", "med"):
+        for mm in (None, m):
+            _close(mixtrim_dyn(x, mm, f, mode), mixtrim_dyn_ref(x, mm, f, mode))
+
+
+@pytest.mark.cuda
+def test_mixtrim_dyn_filler_lanes_and_launch_count(dev):
+    """A filler lane (f = 0, zero stack, uniform M) gives zeros."""
+    x = torch.zeros((3, 17, 2842), device=dev)
+    m = torch.full((3, 17, 17), 1.0 / 17, device=dev)
+    f = torch.zeros(3, dtype=torch.int32, device=dev)
+    before = mixtrim_dyn.launches
+    assert torch.equal(mixtrim_dyn(x, m, f), torch.zeros((3, 2842), device=dev))
+    assert torch.equal(mixtrim_dyn(x, None, f), torch.zeros((3, 2842), device=dev))
+    assert mixtrim_dyn.launches == before + 2

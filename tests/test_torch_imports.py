@@ -20,7 +20,8 @@ torch.set_num_threads(1)
 import repro_torch
 import repro_torch.core.bucketing
 import repro_torch.kernels.bucketgram
-from repro_torch.launch import train
+import repro_torch.fed, repro_torch.fleet, repro_torch.obs, repro_torch.rounds
+from repro_torch.launch import grid, train
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--byz", "1", "--seq", "8", "--batch", "1"])
 assert out["history"]["loss"], out
@@ -28,6 +29,8 @@ out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--byz", "1", "--seq", "8", "--batch", "1",
                   "--agg", "bucketing+cwtm"])
 assert out["history"]["loss"], out
+out = grid.main(["--device", "cpu", "--rounds", "1"])
+assert out["runner"].n_buckets == 7, out
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -45,12 +48,17 @@ def test_port_runs_a_cpu_step_without_importing_jax_or_repro():
 
 
 def test_no_source_file_names_jax_or_repro():
-    """Every module of the port (the bucketing and bucketgram modules
-    included) and chip_smoke.py."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+    """Every module of the port (the bucketing, bucketgram and fleet
+    modules included) and chip_smoke.py; nor ``benchmarks``."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro|benchmarks)(\.|\s|$)",
+                     re.M)
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert PKG / "core" / "bucketing.py" in files
     assert PKG / "kernels" / "bucketgram" / "ops.py" in files
+    for mod in ("fleet/lanes.py", "fleet/runner.py", "fed/clients.py",
+                "fed/scenarios.py", "rounds/plan.py", "obs/runtime.py",
+                "launch/grid.py"):
+        assert PKG / mod in files, mod
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
     assert not offenders, offenders
@@ -58,12 +66,17 @@ def test_no_source_file_names_jax_or_repro():
 
 def test_entry_point_without_cpu_request_raises_without_gpu(monkeypatch):
     from repro_torch import resolve_device
-    from repro_torch.launch import train
+    from repro_torch.fleet import FleetRunner, ScenarioSpec
+    from repro_torch.launch import grid, train
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     with pytest.raises(RuntimeError, match="no GPU"):
         train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="no GPU"):
+        grid.main(["--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no GPU"):
+        FleetRunner([ScenarioSpec("iid_baseline", rounds=1)])
     assert resolve_device("cpu").type == "cpu"
 
 
