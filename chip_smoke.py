@@ -34,17 +34,19 @@ Phases, each fatal on failure:
      step), hier + CWTM (2 steps; K7 and K2), hier + NNM + GM (2 steps; K6
      and K3); then --agg bucketing+cwtm through launch.train.main (2 steps;
      K2 only);
- 10. K5 (gram_batched) against its plain version and torch.bmm at
-     (B = 8, n = 17, D = 2^24) and the reference bench's (8, 16, 8192),
-     bitwise repeatable; K4 (mixtrim_dyn) lane-batched at (8, 17, 2^24)
-     with per-lane f = 0..7 and per-lane M, with and without the mix, and
-     with an inf row and a NaN row; both at the fleet grid's own shape
-     (B = 5, n = 17, D = 2842);
+ 10. K5 (gram_batched) against its plain version (the batch and each
+     lane) and torch.bmm at (B = 8, n = 17, D = 2^24) and the reference
+     bench's (8, 16, 8192), bitwise repeatable; K4 (mixtrim_dyn)
+     lane-batched at (8, 17, 2^24) with per-lane f = 0..7 and per-lane M,
+     with and without the mix, and with an inf row and a NaN row; both at
+     the fleet grid's own shapes, (B = 5, n = 17, D = 2842) and the
+     bucketing lanes' (5, 9, 2842), f = 4 per lane through adjusted_f_dyn,
+     with K2 (median) and K3 once per lane at those two shapes;
  11. the fleet: ``repro_torch.launch.grid --full`` in process (61 jobs,
      13 buckets, 100 rounds), asserting K4, K5, K2 and K3 launches and no
      fallback, printing the accuracy table, ms per bucket-round and peak
-     memory; then the cwtm | nnm bucket again on the torch backend, per-
-     round losses within rtol 1e-4 of the kernel run;
+     memory; then the cwtm | nnm and cwtm | bucketing buckets again on the
+     torch backend, per-round losses within rtol 1e-4 of the kernel run;
  12. summary: the K1-K7 table, the kernels JSON line, the card line, and
      last the {"ok": true, ...} line.
 
@@ -82,6 +84,8 @@ PLAIN_ELEMS = 1 << 28           # ... of at most this many elements above n = 64
 FLEET_BIG = (8, 17, 1 << 24)
 FLEET_BENCH = (8, 16, 8192)     # the reference bench's gram_batched shape
 FLEET_GRID = (5, 17, 2842)      # a grid bucket: 5 lanes, the 48-48-10 MLP
+FLEET_GRID_BKT = (5, 9, 2842)   # a bucketing bucket: 17 workers, 9 means (s = 2)
+F_GRID = 4                      # the grid's f (n = 17)
 GRID_ROUNDS = 100
 REPS = 7
 RTOL = 1e-5                     # of the largest finite |plain| (fp32 contract)
@@ -318,53 +322,63 @@ def lanes_chunked(fn, d: int, step: int = 1 << 22):
 
 
 def phase_fleet_kernels(dev, rate: float) -> dict:
-    """K5 and K4 on (B, n, D) lane-batched stacks."""
+    """K5 and K4 on (B, n, D) lane-batched stacks; at the grid's shapes also
+    K2 (med) and K3 once per lane, as the grid's cwmed / gm / krum lanes
+    run them."""
     import torch
-    from repro_torch.kernels import (gram, gram_batched, gram_batched_ref,
+    from repro_torch.core.bucketing import adjusted_f_dyn
+    from repro_torch.kernels import (gram_batched, gram_batched_ref,
                                      mixtrim_dyn, mixtrim_dyn_ref)
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     rows = {}
-    for b, n, d in (FLEET_BIG, FLEET_BENCH, FLEET_GRID):
+    for b, n, d in (FLEET_BIG, FLEET_BENCH, FLEET_GRID, FLEET_GRID_BKT):
         big = (b, n, d) == FLEET_BIG
         log(f"-- K5 gram_batched B={b} n={n} D={d}")
         x = torch.randn((b, n, d), generator=gen, device=dev)
         g = gram_batched(x)
+        want = gram_batched_ref(x)
         bnd = bound(4.0 * b * n * d + 4 * b * n * n, b * n * (n + 1) * d, rate)
         ms = time_ms(lambda: gram_batched(x))
         pms = time_ms(lambda: gram_batched_ref(x))
         lib = time_ms(lambda: torch.bmm(x, x.mT))
-        err = check("K5 gram_batched fp32", g, gram_batched_ref(x), ms, pms,
-                    bnd, lib)
+        err = check("K5 gram_batched fp32", g, want, ms, pms, bnd, lib)
+        for k in range(b):      # each lane to its own scale, not the batch's
+            agree(f"K5 lane {k} vs plain", g[k], want[k])
         if not torch.equal(g, gram_batched(x)):
             raise AssertionError("K5 is not bitwise repeatable")
         log("  K5: bitwise equal over two runs")
-        # K1 splits one lane's D into more chunks: equal within fp32 sums.
-        agree("K5 lane 1 vs K1 on that lane", g[1], gram(x[1].contiguous()))
         if big:
             rows["gram_batched"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                         bound=bnd, library_ms=lib)
-        if (b, n, d) != FLEET_BENCH:
+        if (b, n, d) == FLEET_BENCH:
+            del x, g, want
+            continue
+        if d == FLEET_GRID[2]:
+            # The grid's own f, capped per lane as the bucketing lanes cap it.
+            fs = adjusted_f_dyn(torch.full((b,), F_GRID, device=dev), n)
+        else:
             fs = torch.arange(b, dtype=torch.int32, device=dev) % (n // 2 + 2)
-            m = torch.softmax(torch.randn((b, n, n), generator=gen,
-                                          device=dev), -1)
-            for mm in (m, None):
-                tag = "mix" if mm is not None else "no-mix"
-                log(f"-- K4 mixtrim_dyn B={b} n={n} D={d} {tag}, f={fs.tolist()}")
-                plain = lanes_chunked(
-                    lambda s: mixtrim_dyn_ref(x[:, :, s].contiguous(), mm, fs), d)
-                flops = (2.0 * b * n * n * d if mm is not None else 0) + b * n * d
-                bnd = bound(4.0 * b * n * d + 4 * b * d
-                            + (4 * b * n * n if mm is not None else 0), flops, rate)
-                ms, pms = time_ms(lambda: mixtrim_dyn(x, mm, fs)), time_ms(plain)
-                err = check(f"K4 mixtrim_dyn trim {tag} fp32",
-                            mixtrim_dyn(x, mm, fs), plain(), ms, pms, bnd)
-                if big and mm is not None:
-                    rows["mixtrim_dyn"] = dict(max_abs_err=err, ms=ms,
-                                               plain_ms=pms, bound=bnd,
-                                               library_ms=None)
-                agree(f"K4 mixtrim_dyn med {tag}", mixtrim_dyn(x, mm, fs, "med"),
-                      plain_med(x, mm, fs, d))
+        m = torch.softmax(torch.randn((b, n, n), generator=gen, device=dev), -1)
+        for mm in (m, None):
+            tag = "mix" if mm is not None else "no-mix"
+            log(f"-- K4 mixtrim_dyn B={b} n={n} D={d} {tag}, f={fs.tolist()}")
+            plain = lanes_chunked(
+                lambda s: mixtrim_dyn_ref(x[:, :, s].contiguous(), mm, fs), d)
+            flops = (2.0 * b * n * n * d if mm is not None else 0) + b * n * d
+            bnd = bound(4.0 * b * n * d + 4 * b * d
+                        + (4 * b * n * n if mm is not None else 0), flops, rate)
+            ms, pms = time_ms(lambda: mixtrim_dyn(x, mm, fs)), time_ms(plain)
+            err = check(f"K4 mixtrim_dyn trim {tag} fp32",
+                        mixtrim_dyn(x, mm, fs), plain(), ms, pms, bnd)
+            if big and mm is not None:
+                rows["mixtrim_dyn"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=pms, bound=bnd,
+                                           library_ms=None)
+            agree(f"K4 mixtrim_dyn med {tag}", mixtrim_dyn(x, mm, fs, "med"),
+                  plain_med(x, mm, fs, d))
+        if d == FLEET_GRID[2]:
+            phase_grid_lanes(x, m, gen)
         if big:
             # An inf row and a NaN row: the rank mask keeps inf * 0 = NaN.
             xs = x[:, :, :(1 << 20) + 3].clone()
@@ -377,9 +391,26 @@ def phase_fleet_kernels(dev, rate: float) -> dict:
                 agree(f"K4 inf / nan rows {'mix' if mm is not None else 'no-mix'} "
                       f"({int(torch.isnan(want).sum())} NaN outputs)", got, want)
             del xs
-        del x, g
+        del x, g, want
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_grid_lanes(x, m, gen) -> None:
+    """K2 (median, static) and K3 once per lane of a grid-shaped stack, as
+    the grid's cwmed and gm / krum lanes launch them."""
+    import torch
+    from repro_torch.kernels import combine, combine_ref, mixtrim, mixtrim_ref
+    b, n, _ = x.shape
+    c = torch.softmax(torch.randn((b, n), generator=gen, device=x.device), -1)
+    for k in range(b):
+        xk = x[k]
+        for mm in (m[k], None):
+            agree(f"K2 mixtrim med {'mix' if mm is not None else 'no-mix'} "
+                  f"n={n} lane {k}", mixtrim(xk, mm, 0, "med"),
+                  mixtrim_ref(xk, mm, 0, "med"))
+        agree(f"K3 combine n={n} lane {k}", combine(xk, c[k]),
+              combine_ref(xk, c[k]))
 
 
 def plain_med(x, m, fs, d: int):
@@ -433,26 +464,33 @@ def phase_grid(dev, rounds: int) -> dict:
         f"{labels[bi]} {ms:.2f}" for bi, ms in meds.items()))
     log(f"  median over buckets: {statistics.median(meds.values()):.3f} ms "
         f"per bucket-round")
-    # The cwtm | nnm bucket again, torch backend, on the card.
+    # The cwtm | nnm and cwtm | bucketing buckets again, torch backend, on
+    # the card.  Bucketing permutations come from the host plan (a per-lane
+    # generator seeded with the job's seed), so both runs see the same ones.
+    rerun = ("cwtm|nnm|", "cwtm|bucketing|")
     jobs = [j for j in grid.build_jobs(full=True, alpha=0.1, steps=rounds,
                                        backend="torch")
-            if j.label.startswith("cwtm|nnm|")]
+            if j.label.startswith(rerun)]
     before = kdispatch.launch_counts()
     again = FleetRunner(jobs, device=dev).run()
     if kdispatch.launch_counts() != before:
         raise AssertionError("the torch backend launched a kernel")
     kern = {r.label: r for r in out["results"]}
-    worst = 0.0
-    for r in again:
-        a = [float(v) for v in kern[r.label].history.loss]
-        b = [float(v) for v in r.history.loss]
-        for x, y in zip(a, b):
-            rel = abs(x - y) / max(abs(y), 1e-30)
-            worst = max(worst, rel)
-            if abs(x - y) > 1e-4 * abs(y):
-                raise AssertionError(f"{r.label}: cuda vs torch loss {x} vs {y}")
-    log(f"  cwtm|nnm bucket, cuda vs torch backend: per-round loss max rel "
-        f"diff {worst:.3e} (tol 1e-4) OK")
+    for pre in rerun:
+        worst = 0.0
+        for r in (r for r in again if r.label.startswith(pre)):
+            a = [float(v) for v in kern[r.label].history.loss]
+            b = [float(v) for v in r.history.loss]
+            if len(a) != rounds or len(b) != rounds:
+                raise AssertionError(f"{r.label}: missing rounds")
+            for x, y in zip(a, b):
+                rel = abs(x - y) / max(abs(y), 1e-30)
+                worst = max(worst, rel)
+                if abs(x - y) > 1e-4 * abs(y):
+                    raise AssertionError(
+                        f"{r.label}: cuda vs torch loss {x} vs {y}")
+        log(f"  {pre[:-1]} bucket, cuda vs torch backend: per-round loss max "
+            f"rel diff {worst:.3e} (tol 1e-4) OK")
     return counts
 
 

@@ -153,7 +153,7 @@ def job_from_spec(spec: ScenarioSpec, *, dim: int = 48,
 
 
 def apply_job_options(job: FleetJob, options: RoundOptions) -> FleetJob:
-    """``job`` with the options' taps / backend overrides applied; the
+    """``job`` with the options' backend override applied; the
     SAME object when nothing changes."""
     cfg = options.apply_config(job.cfg)
     return job if cfg is job.cfg else dataclasses.replace(job, cfg=cfg)
@@ -306,10 +306,9 @@ class FleetRunner:
                  options: Optional[RoundOptions] = None,
                  device=None):
         opts = resolve_options(options, chunk=chunk)
-        if opts.checkpoint is not None:
-            raise NotImplementedError(
-                "fleet checkpoints are not ported yet (ROADMAP queue 1, "
-                "item 11)")
+        if opts.engine not in (None, "scan"):
+            raise ValueError(f"the fleet runs segments of rounds only "
+                             f"(engine 'scan'), got {opts.engine!r}")
         self.options = opts
         self.device = resolve_device(device)
         self.jobs = [apply_job_options(

@@ -22,10 +22,11 @@
 // repro/kernels/gram/kernel.py::gram_batched_pallas (body
 // _gram_batched_kernel), which walks a (lane, D-block) grid in order.  Here
 // the same two launches take a third grid axis, blockIdx.z = lane: every
-// lane gets its own split-K partials and its own fixed-order reduction, so
-// each lane's Gram is exactly K1's on that lane (bitwise repeatable), and
-// one launch pair covers the whole fleet bucket with no host loop.  Bound:
-// bytes, B*n*D elements read once.
+// lane gets its own split-K partials and its own fixed-order reduction
+// (bitwise repeatable), and one launch pair covers the whole fleet bucket
+// with no host loop.  The chunk count is shared by the lanes, so a lane's
+// sums run in another order than K1's on that lane alone.  Bound: bytes,
+// B*n*D elements read once.
 #include "common.cuh"
 
 namespace {

@@ -140,7 +140,6 @@ class DispatchRecord:
 
 DISPATCH_HISTORY_LIMIT = 256
 _HISTORY: deque = deque(maxlen=DISPATCH_HISTORY_LIMIT)
-_OPENED = 0
 
 
 def last_dispatch() -> Optional[DispatchRecord]:
@@ -148,28 +147,14 @@ def last_dispatch() -> Optional[DispatchRecord]:
     return _HISTORY[-1] if _HISTORY else None
 
 
-def dispatch_history(limit: Optional[int] = None) -> list:
-    """The retained records, oldest first (the newest ``limit``)."""
-    recs = list(_HISTORY)
-    return recs if limit is None else recs[-limit:]
-
-
-def dispatch_count() -> int:
-    """Records opened since import (the ring keeps the newest
-    :data:`DISPATCH_HISTORY_LIMIT`)."""
-    return _OPENED
-
-
 def open_record(*, requested: str, backend: str, rule: str,
                 pre: Optional[str], hier: bool = False,
                 bucket_size: Optional[int] = None, dyn: bool = False,
                 lanes: Optional[int] = None) -> DispatchRecord:
-    global _OPENED
     rec = DispatchRecord(requested=requested, backend=backend, rule=rule,
                          pre=pre, hier=hier, bucket_size=bucket_size,
                          dyn=dyn, lanes=lanes)
     _HISTORY.append(rec)
-    _OPENED += 1
     return rec
 
 

@@ -1,15 +1,11 @@
 """Runtime telemetry (counterpart of ``repro.obs``; the in-round health
 taps are not ported yet: ROADMAP queue 1, item 10)."""
 from repro_torch.obs.runtime import (
-    DispatchRecord, KernelDecision, Runtime, counters, dispatch_count,
-    dispatch_history, event, export_chrome_trace, export_jsonl,
-    get_runtime, history, import_jsonl, inc, last_dispatch, reset, snapshot,
-    span,
+    DispatchRecord, KernelDecision, Runtime, counters, event, history, inc,
+    last_dispatch, reset, span,
 )
 
 __all__ = [
-    "Runtime", "get_runtime", "event", "span", "inc", "history",
-    "counters", "snapshot", "reset", "export_jsonl", "export_chrome_trace",
-    "import_jsonl", "DispatchRecord", "KernelDecision", "dispatch_count",
-    "dispatch_history", "last_dispatch",
+    "Runtime", "event", "span", "inc", "history", "counters", "reset",
+    "DispatchRecord", "KernelDecision", "last_dispatch",
 ]

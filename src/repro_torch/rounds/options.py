@@ -1,16 +1,18 @@
 """RoundOptions: the shared "how do I execute rounds" knob set
-(counterpart of ``repro.rounds.options``).
+(counterpart of ``repro.rounds.options``, without the health-tap and
+checkpoint fields: neither is ported yet, ROADMAP queue 1, items 10 and
+11).
 
 ``None`` everywhere means "inherit": the surface's default for
 ``engine`` / ``chunk`` (whole-run segments), the config's own setting for
-``taps`` / ``backend``, so ``RoundOptions()`` is a no-op and a partly
-filled object overlays any config.  An explicitly passed legacy keyword
-(``chunk=``) wins over the options object.
+``backend``, so ``RoundOptions()`` is a no-op and a partly filled object
+overlays any config.  An explicitly passed legacy keyword (``chunk=``)
+wins over the options object.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 #: Valid ``engine`` values (``None`` = the surface default, "scan").  The
 #: port has no ``lax.scan``: a "scan" segment is a Python loop over its
@@ -24,20 +26,15 @@ class RoundOptions:
 
     ``engine``  "scan" (segments of rounds, metrics fetched once per
                 segment) or "loop"; the fleet runs segments only and
-                ignores it.
+                refuses "loop".
     ``chunk``   segment length in rounds (``None`` = whole run, cut only
                 at eval boundaries).
-    ``taps``    force health taps on / off (``None`` = the config's flag).
     ``backend`` force the aggregation backend ("torch" | "cuda" | "auto";
                 ``None`` = keep ``AggregatorSpec.backend``).
-    ``checkpoint`` snapshot configuration (checkpoints are not ported yet:
-                ROADMAP queue 1, item 11).
     """
     engine: Optional[str] = None
     chunk: Optional[int] = None
-    taps: Optional[bool] = None
     backend: Optional[str] = None
-    checkpoint: Optional[Any] = None
 
     def __post_init__(self):
         if self.engine is not None and self.engine not in ENGINES:
@@ -47,23 +44,17 @@ class RoundOptions:
             raise ValueError(f"chunk must be positive or None, got {self.chunk}")
 
     def merged(self, *, engine: Optional[str] = None,
-               chunk: Optional[int] = None, taps: Optional[bool] = None,
-               backend: Optional[str] = None,
-               checkpoint: Optional[Any] = None) -> "RoundOptions":
+               chunk: Optional[int] = None,
+               backend: Optional[str] = None) -> "RoundOptions":
         """This object overlaid with explicitly passed legacy keywords."""
         return RoundOptions(
             engine=engine if engine is not None else self.engine,
             chunk=chunk if chunk is not None else self.chunk,
-            taps=taps if taps is not None else self.taps,
-            backend=backend if backend is not None else self.backend,
-            checkpoint=checkpoint if checkpoint is not None
-            else self.checkpoint)
+            backend=backend if backend is not None else self.backend)
 
     def apply_config(self, cfg):
-        """``cfg`` (anything with ``.taps`` and ``.agg``) with the taps /
-        backend overrides applied; the SAME object when nothing changes."""
-        if self.taps is not None and self.taps != cfg.taps:
-            cfg = dataclasses.replace(cfg, taps=self.taps)
+        """``cfg`` (anything with ``.agg``) with the backend override
+        applied; the SAME object when nothing changes."""
         if self.backend is not None and self.backend != cfg.agg.backend:
             cfg = dataclasses.replace(
                 cfg, agg=dataclasses.replace(cfg.agg, backend=self.backend))
@@ -73,11 +64,8 @@ class RoundOptions:
 def resolve_options(options: Optional[RoundOptions] = None, *,
                     engine: Optional[str] = None,
                     chunk: Optional[int] = None,
-                    taps: Optional[bool] = None,
-                    backend: Optional[str] = None,
-                    checkpoint: Optional[Any] = None) -> RoundOptions:
+                    backend: Optional[str] = None) -> RoundOptions:
     """Start from ``options`` (or the all-inherit default) and overlay any
     explicitly passed keywords."""
     base = options if options is not None else RoundOptions()
-    return base.merged(engine=engine, chunk=chunk, taps=taps, backend=backend,
-                       checkpoint=checkpoint)
+    return base.merged(engine=engine, chunk=chunk, backend=backend)

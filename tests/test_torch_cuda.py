@@ -228,17 +228,41 @@ def _lanes(dev, b, n, d, dtype, seed):
     return torch.randn((b, n, d), generator=gen, device=dev).to(dtype)
 
 
+def _sum_order_bound(x):
+    """Elementwise bound on |A - B| for two fp32 evaluations A, B of the
+    same Gram X X^T that differ only in summation order: each is within
+    gamma_D * (|X| |X|^T) of the exact value (Higham, Accuracy and
+    Stability of Numerical Algorithms, eq. 3.5: any order of D products),
+    with gamma_D = D u / (1 - D u), u = 2^-24, so together within twice
+    that.  It holds for every chunking, so it does not depend on how K1 and
+    K5 split D; a lane offset or a wrong row is off by O(|X| |X|^T)."""
+    d = x.shape[-1]
+    du = d * 2.0 ** -24
+    ax = x.double().abs()
+    return 2.0 * du / (1.0 - du) * (ax @ ax.mT)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n", [(1, 8), (5, 17), (8, 16), (3, 40)])
+@pytest.mark.parametrize("b,n", [(1, 8), (5, 17), (5, 9), (8, 16), (3, 40)])
 @pytest.mark.parametrize("d", [1, 7, 2842, (1 << 18) + 3])
 def test_gram_batched_matches_plain_and_k1_per_lane(dev, dtype, b, n, d):
-    """K5: every lane equals its plain Gram, and K1 on that lane."""
+    """K5: every lane equals its plain Gram within 1e-5 of that lane's
+    max |G| (the fp32 contract), and sums the same products as K1 on that
+    lane.  K1 and K5 split D into different chunk counts (the chunk count
+    is shared over lanes), so their sums are ordered differently; at
+    D = 2^18 that difference reaches 1e-5 of max |G| by itself, so K5 is
+    held to K1 by the summation-order bound of :func:`_sum_order_bound`,
+    not by the contract's tolerance."""
     x = _lanes(dev, b, n, d, dtype, seed=b * 31 + n + d)
     g = gram_batched(x)
-    _close(g, gram_batched_ref(x))
+    want = gram_batched_ref(x)
+    _close(g, want)
     for k in range(b):
-        _close(g[k], gram(x[k].contiguous()))
+        _close(g[k], want[k])
+        xk = x[k].contiguous()
+        diff = (g[k].double() - gram(xk).double()).abs()
+        assert bool((diff <= _sum_order_bound(xk)).all())
 
 
 @pytest.mark.cuda

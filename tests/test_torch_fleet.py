@@ -169,6 +169,43 @@ def test_kernel_backend_equals_torch_backend_on_the_cpu(runs):
                                        rtol=1e-4, atol=1e-6)
 
 
+def test_max_lanes_chunk_and_options_match_the_unsplit_run(runs):
+    """max_lanes splits a bucket (3 lanes -> 2 + 1), chunk cuts every
+    segment to at most 2 rounds, and options overlays the backend: each
+    lane equals the unsplit run within rtol 1e-5 (fp32 sums in another
+    batch shape, as for a lane run alone).  The runtime ring records one
+    fleet.segment span and one fleet.transfers count per segment, and a
+    fleet.trace event per round program built (one per lane count)."""
+    from repro_torch.obs import runtime as obs_runtime
+    _, _, _, tres = runs
+    want = {r.label: r for r in tres}
+    runner = TRunner(_port_jobs(CELLS[:3], backend="cuda"), max_lanes=2,
+                     chunk=2, options=RoundOptions(backend="torch"),
+                     device="cpu")
+    assert all(j.cfg.agg.backend == "torch" for j in runner.jobs)
+    assert [len(b.jobs) for b in runner.buckets] == [2, 1]
+    assert runner.n_buckets == 1
+    obs_runtime.reset()
+    res = runner.run()
+    for r in res:
+        for col in ("loss", "direction_norm", "kappa_hat"):
+            np.testing.assert_allclose(getattr(r.history, col),
+                                       getattr(want[r.label].history, col),
+                                       rtol=1e-5, atol=1e-7, err_msg=r.label)
+    segs = [(b, lanes, n) for b, lanes, n, _ in runner.segment_log]
+    assert all(n <= 2 for _, _, n in segs)
+    assert sum(n for b, _, n in segs if b == 0) == STEPS
+    spans = obs_runtime.history(name="fleet.segment", kind="span")
+    assert len(spans) == len(segs)
+    assert [(e["args"]["lanes"], e["args"]["end"] - e["args"]["start"])
+            for e in spans] == [(lanes, n) for _, lanes, n in segs]
+    assert all(e["dur"] >= 0 for e in spans)
+    assert obs_runtime.counters()["fleet.transfers"] == len(segs)
+    assert [e["args"]["lanes"] for e in obs_runtime.history(
+        name="fleet.trace")] == [2, 1]
+    assert runner.trace_count == 2
+
+
 def test_bucketing_lanes_keep_the_reference_cohorts():
     cells = [("cwtm", "bucketing", a) for a in ("alie", "sf")]
     jres = JRunner(_ref_jobs(cells, steps=3)).run()
@@ -234,6 +271,8 @@ def test_fleet_refuses_what_it_does_not_run():
     from repro_torch.fed.schedules import constant_attack
     with pytest.raises(ValueError, match="not lane-dynamic"):
         dataclasses.replace(job, schedule=constant_attack("alie_opt"))
+    with pytest.raises(ValueError, match="segments of rounds only"):
+        TRunner([job], options=RoundOptions(engine="loop"), device="cpu")
 
 
 def test_schedules_identities_and_cohorts_equal_reference():
