@@ -34,9 +34,13 @@ Phases, each fatal on failure:
      step), hier + CWTM (2 steps; K7 and K2), hier + NNM + GM (2 steps; K6
      and K3); then --agg bucketing+cwtm through launch.train.main (2 steps;
      K2 only);
- 10. K5 (gram_batched) against its plain version (the batch and each
-     lane) and torch.bmm at (B = 8, n = 17, D = 2^24) and the reference
-     bench's (8, 16, 8192), bitwise repeatable; K4 (mixtrim_dyn)
+ 10. ptxas's registers / stack / spills of K4's and K5's instances (K4's
+     fp32 n <= 32 must keep no stack frame and no spill); K4's sort on
+     every 0-1 column at n = 17 (every f, trim and median) exactly equal to
+     its plain version; K5 (gram_batched) against its plain version (the
+     batch and each lane) and torch.bmm at (B = 8, n = 17, D = 2^24) and
+     the reference bench's (8, 16, 8192), bitwise repeatable, its time at
+     (8, 17, 2^24) beside the previous design's and the bound; K4 (mixtrim_dyn)
      lane-batched at (8, 17, 2^24) with per-lane f = 0..7 and per-lane M,
      with and without the mix, and with an inf row and a NaN row; both at
      the fleet grid's own shapes, (B = 5, n = 17, D = 2842) and the
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -209,6 +214,47 @@ def chunked(fn, d: int, n: int = 0):
                               for c in range(0, d, step)])
 
 
+#: Times of the previous designs at (8, 17, 2^24) on an H100 80GB HBM3 at
+#: 700 W (PERF.md's kernel table), printed beside this run's: K4 on K2's
+#: bitonic body with f on the device, with / without the mix; K5 as K1's
+#: tile-pair kernels with a lane axis.
+PREV_MS = {"K4 mix": 19.512, "K4 no-mix": 10.458, "K5": 9.858}
+_PTXAS_KERNELS = {
+    # K4's n <= 64 body and K5's staged body: (dtype, height, flag).
+    "K4": re.compile(r"mixtrim_dyn_smallI(f|13__nv_bfloat16)Li(\d+)ELb([01])E"),
+    "K5": re.compile(r"gram_stagedI(f|13__nv_bfloat16)Li(\d+)ELb([01])E"),
+}
+
+
+def ptxas_report(log: str) -> dict:
+    """{(kernel, dtype, height, flag): (registers, stack, spill stores,
+    spill loads)} of K4's and K5's instances from ``nvcc -Xptxas -v``
+    output (flag: K4 the mix, K5 cp.async staging; height: K4 the compiled
+    n, K5 row blocks of 4)."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            key = None
+            for k, pat in _PTXAS_KERNELS.items():
+                g = pat.search(m.group(1))
+                if g:
+                    key = (k, "fp32" if g.group(1) == "f" else "bf16",
+                           int(g.group(2)), g.group(3) == "1")
+                    out[key] = [0, 0, 0, 0]
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[key][1:] = [int(v) for v in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def phase_kernels(dev, rate: float) -> dict:
     import torch
     from repro_torch.core import gram as gramlib
@@ -351,6 +397,7 @@ def phase_fleet_kernels(dev, rate: float) -> dict:
         if big:
             rows["gram_batched"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                         bound=bnd, library_ms=lib)
+            beside_previous("K5", ms, bnd)
         if (b, n, d) == FLEET_BENCH:
             del x, g, want
             continue
@@ -375,6 +422,8 @@ def phase_fleet_kernels(dev, rate: float) -> dict:
                 rows["mixtrim_dyn"] = dict(max_abs_err=err, ms=ms,
                                            plain_ms=pms, bound=bnd,
                                            library_ms=None)
+            if big:
+                beside_previous(f"K4 {tag}", ms, bnd)
             agree(f"K4 mixtrim_dyn med {tag}", mixtrim_dyn(x, mm, fs, "med"),
                   plain_med(x, mm, fs, d))
         if d == FLEET_GRID[2]:
@@ -394,6 +443,56 @@ def phase_fleet_kernels(dev, rate: float) -> dict:
         del x, g, want
         torch.cuda.empty_cache()
     return rows
+
+
+def beside_previous(what: str, ms: float, bnd) -> None:
+    log(f"  {what} at {FLEET_BIG}: {ms:.3f} ms, previous design "
+        f"{PREV_MS[what]:.3f} ms, "
+        f"bound {bnd[0]:.3f} ms ({bnd[1]}): {100 * bnd[0] / ms:.0f} % of "
+        f"bound, {PREV_MS[what] / ms:.2f}x the previous design")
+
+
+def phase_ptxas() -> None:
+    """ptxas's registers, stack frame and spills for K4's n <= 64 body and
+    K5's staged body; K4's fp32 instances up to n = 32 must keep no stack
+    frame and no spill."""
+    from repro_torch.kernels import _build
+    rep = ptxas_report(_build.BUILD_LOG)
+    if not rep:
+        raise AssertionError("no ptxas report of K4 / K5 in the build log")
+    for kern, flag in (("K4", "mix"), ("K5", "cp.async")):
+        for dt in ("fp32", "bf16"):
+            for on in (True, False):
+                row = [(h, v) for (k, d, h, f), v in sorted(rep.items())
+                       if k == kern and d == dt and f == on]
+                log(f"  ptxas {kern} {dt} {'' if on else 'no '}{flag} "
+                    "(height: registers/stack/spill stores/spill loads): "
+                    + ", ".join(f"{h}: {'/'.join(map(str, v))}" for h, v in row))
+    bad = {k: v for k, v in rep.items()
+           if k[0] == "K4" and k[1] == "fp32" and k[2] <= 32 and any(v[1:])}
+    if bad:
+        raise AssertionError(f"K4 fp32 n <= 32 instances with a stack frame "
+                             f"or spills: {bad}")
+    log("  K4 fp32 n <= 32: no stack frame, no spill OK")
+
+
+def phase_sort_01(dev, n: int = FLEET_BIG[1]) -> None:
+    """The 0-1 principle at n = 17: K4's trim at every f and its median on
+    a (1, n, 2^n) stack holding every 0-1 column equal the plain version
+    exactly."""
+    import torch
+    from repro_torch.kernels import mixtrim_dyn, mixtrim_dyn_ref
+    cols = torch.arange(1 << n, device=dev)
+    x = ((cols[None, :] >> torch.arange(n, device=dev)[:, None]) & 1).float()
+    x = x[None].contiguous()
+    for f in range(n // 2 + 2):
+        ft = torch.tensor([f], dtype=torch.int32, device=dev)
+        for mode in ("trim", "med"):
+            if not torch.equal(mixtrim_dyn(x, None, ft, mode),
+                               mixtrim_dyn_ref(x, None, ft, mode)):
+                raise AssertionError(f"K4 0-1 check: {mode} at f={f} differs")
+    log(f"  K4 sort on all {1 << n} 0-1 columns at n={n}, f=0..{n // 2 + 1}, "
+        "trim and median: equal to the plain version OK")
 
 
 def phase_grid_lanes(x, m, gen) -> None:
@@ -861,6 +960,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("== 10. K5 / K4 on lane-batched stacks")
+    phase_ptxas()
+    phase_sort_01(dev)
     rows.update(phase_fleet_kernels(dev, rate))
 
     elapsed = time.perf_counter() - t_start

@@ -1,0 +1,204 @@
+#!/usr/bin/env python3
+"""Time variants of the port's K5 (staged gram_batched) and K4 (mixtrim_dyn
+n <= 64 body) at the fleet's scale shape, (B, n, D) = (8, 17, 2^24), on one
+CUDA card.
+
+    python3 scripts/torch_kernel_variants.py
+
+Each variant is a copy of the committed source (src/repro_torch/kernels/
+csrc) with one or two of its compile-time constants replaced, built by nvcc
+into build/variants/ (all builds in parallel) and loaded with ctypes.  K5:
+the tile width TC and the ring depth STAGES; K4 at n = 17: the columns a
+thread owns and the threads a block.  Every variant is held to the plain
+version (1e-5 of the largest |plain|) before it is timed; times are CUDA
+events, the median of 7 after a warm-up, the variants of a kernel taken in
+turns.  Prints one line per variant, the card's name and power limit last.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+OUT = ROOT / "build" / "variants"
+SHAPE = (8, 17, 1 << 24)
+
+#: name -> {regular expression matching a constant's definition in the
+#: committed source: its replacement}; {} is the committed source itself.
+K5_VARIANTS = {
+    f"K5 TC={tc} STAGES={st}": {r"constexpr int TC = \d+;": f"constexpr int TC = {tc};",
+                                r"constexpr int STAGES = \d+;": f"constexpr int STAGES = {st};"}
+    for tc in (128, 256) for st in (3, 4)
+}
+_CPT = r"return n <= 8 \? 4 : \(n <= 20 \? 2 : 1\);"
+K4_VARIANTS = {
+    "K4 C=2 THREADS=128": {},
+    "K4 C=4 THREADS=128": {_CPT: "return n <= 20 ? 4 : 1;"},
+    "K4 C=1 THREADS=128": {_CPT: "return n <= 8 ? 4 : 1;"},
+    "K4 C=2 THREADS=256": {r"constexpr int THREADS = 128;": "constexpr int THREADS = 256;"},
+}
+K4_ENTRY = """
+#include "mixtrim_dyn.cuh"
+using namespace mixtrim_dyn_detail;
+extern "C" int variant_k4(const void* x, int dtype, const float* m, int lanes,
+                          int n, long long d, const int* f, int med,
+                          float* out, int blocks, void* s) {
+  const Args a{x, dtype, m, lanes, n, d, f, med, out, blocks,
+               static_cast<cudaStream_t>(s)};
+  return launch_n<17>(a);
+}
+"""
+
+
+def _copy(name: str, files: dict, subs: dict) -> Path:
+    """build/variants/<name>/ holding the sources with ``subs`` applied
+    (each pattern matches at most once)."""
+    d = OUT / re.sub(r"[^A-Za-z0-9]+", "_", name)
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    for fname, text in files.items():
+        for pat, new in subs.items():
+            hits = len(re.findall(pat, text))
+            if hits > 1:
+                raise RuntimeError(f"{name}: {pat!r} is not unique in {fname}")
+            text = re.sub(pat, new, text)
+        (d / fname).write_text(text)
+    return d
+
+
+def build_all() -> dict:
+    from repro_torch.kernels import _build
+    nvcc = _build.find_nvcc()
+    common = (CSRC / "common.cuh").read_text()
+    jobs = {}
+    for name, subs in K5_VARIANTS.items():
+        d = _copy(name, {"common.cuh": common,
+                         "k.cu": (CSRC / "gram_batched.cu").read_text()}, subs)
+        jobs[name] = d
+    for name, subs in K4_VARIANTS.items():
+        d = _copy(name, {"common.cuh": common,
+                         "sortnet.cuh": (CSRC / "sortnet.cuh").read_text(),
+                         "mixtrim_dyn.cuh": (CSRC / "mixtrim_dyn.cuh").read_text(),
+                         "k.cu": K4_ENTRY}, subs)
+        jobs[name] = d
+    procs = {name: subprocess.Popen(
+        [nvcc, *_build.COMPILE_FLAGS, "-shared", str(d / "k.cu"), "-o",
+         str(d / "k.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name, d in jobs.items()}
+    libs = {}
+    for name, p in procs.items():
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc failed\n{out}")
+        regs = re.findall(r"Used (\d+) registers", out)
+        stack = re.findall(r"(\d+) bytes stack frame", out)
+        print(f"{name}: built; ptxas registers {sorted(set(regs))}, stack "
+              f"{sorted(set(stack))}", flush=True)
+        libs[name] = ctypes.CDLL(str(jobs[name] / "k.so"))
+    return libs
+
+
+def time_ms(fn, reps: int = 7) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e))
+    return statistics.median(out)
+
+
+def close(got, want) -> float:
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    if not err <= tol:
+        raise AssertionError(f"variant off by {err} (tol {tol})")
+    return err
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_variants: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import gram_batched_ref, mixtrim_dyn_ref
+    from repro_torch.kernels._common import stream_of
+    libs = build_all()
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    b, n, d = SHAPE
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    x = torch.randn(SHAPE, generator=gen, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bound = 1e3 * 4.0 * b * n * d / 3.35e12
+
+    runs = {}
+    want = torch.stack([gram_batched_ref(x[k:k + 1])[0] for k in range(b)])
+    for name in K5_VARIANTS:
+        lib = libs[name]
+        lib.repro_gram_batched.argtypes = [P, I, I, I, LL, P, I, P, P]
+        lib.repro_gram_batched_chunks.argtypes = [I, I, LL, I]
+        chunks = lib.repro_gram_batched_chunks(b, n, d, sms)
+        part = torch.empty(b * chunks * lib.repro_gram_batched_slots(n),
+                           device=dev)
+        g = torch.empty((b, n, n), device=dev)
+
+        def run(lib=lib, chunks=chunks, part=part, g=g):
+            rc = lib.repro_gram_batched(x.data_ptr(), 0, b, n, d,
+                                        part.data_ptr(), chunks, g.data_ptr(),
+                                        stream_of(x))
+            assert rc == 0, rc
+            return g
+        close(run(), want)
+        runs[name] = run
+    f = torch.arange(b, dtype=torch.int32, device=dev)
+    m = torch.softmax(torch.randn((b, n, n), generator=gen, device=dev), -1)
+    want4 = {tag: torch.cat([mixtrim_dyn_ref(x[:, :, c:c + (1 << 22)].contiguous(),
+                                             mm, f)
+                             for c in range(0, d, 1 << 22)], dim=1)
+             for tag, mm in (("mix", m), ("no-mix", None))}
+    for name in K4_VARIANTS:
+        lib = libs[name]
+        lib.variant_k4.argtypes = [P, I, P, I, I, LL, P, I, P, I, P]
+        for tag, mm in (("mix", m), ("no-mix", None)):
+            out = torch.empty((b, d), device=dev)
+
+            def run(lib=lib, mm=mm, out=out):
+                rc = lib.variant_k4(x.data_ptr(), 0,
+                                    None if mm is None else mm.data_ptr(), b,
+                                    n, d, f.data_ptr(), 0, out.data_ptr(),
+                                    16 * sms // b, stream_of(x))
+                assert rc == 0, rc
+                return out
+            close(run(), want4[tag])
+            runs[f"{name} {tag}"] = run
+    times = {k: [] for k in runs}
+    for _ in range(2):                   # two turns through every variant
+        for k, fn in runs.items():
+            times[k].append(time_ms(fn))
+    for k, ts in times.items():
+        print(f"{k}: {min(ts):.3f} ms (turns {', '.join(f'{t:.3f}' for t in ts)})"
+              + (f", {100 * bound / min(ts):.0f} % of the {bound:.3f} ms byte "
+                 "bound" if k.startswith("K5") else ""))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -40,6 +40,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "repro_gram": ([_P, _I, _I, _I, _LL, _P, _I, _P, _P], _I),
     "repro_gram_pairs": ([_I], _I),
+    "repro_gram_batched": ([_P, _I, _I, _I, _LL, _P, _I, _P, _P], _I),
+    "repro_gram_batched_slots": ([_I], _I),
+    "repro_gram_batched_chunks": ([_I, _I, _LL, _I], _I),
+    "repro_gram_staged_max_n": ([], _I),
     "repro_mixtrim": ([_P, _I, _P, _I, _LL, _I, _I, _P, _I, _P], _I),
     "repro_mixtrim_dyn": ([_P, _I, _P, _I, _I, _LL, _P, _I, _P, _I, _P], _I),
     "repro_mixtrim_max_n": ([], _I),
@@ -52,8 +56,9 @@ _SIGNATURES = {
 }
 
 _LIB: Optional[ctypes.CDLL] = None
-#: Compiler output of the last build in this process (ptxas register and
-#: spill report included), and its wall time in seconds.
+#: Compiler output of the library in use (ptxas register and spill report
+#: included; kept beside the library, so a cached load has it too), and
+#: the wall time in seconds of a build in this process.
 BUILD_LOG = ""
 BUILD_SECONDS = 0.0
 
@@ -84,7 +89,9 @@ def build() -> Path:
     global BUILD_LOG, BUILD_SECONDS
     sources = sorted(CSRC.glob("*.cu"))
     lib = BUILD_DIR / f"librepro_kernels_{_digest()}.so"
+    log = lib.with_suffix(".log")
     if lib.exists():
+        BUILD_LOG = log.read_text() if log.exists() else ""
         return lib
     nvcc = find_nvcc()
     t0 = time.perf_counter()
@@ -113,6 +120,7 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        log.write_text(BUILD_LOG)
         os.replace(tmp, lib)
     finally:
         shutil.rmtree(work, ignore_errors=True)

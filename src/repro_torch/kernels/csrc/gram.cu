@@ -16,17 +16,17 @@
 // (once in all for n <= 8, the main path) and does ~n/2 FLOP per byte, far
 // below the H100's ridge; the design keeps every load coalesced and wide
 // and the compute in registers.  For n > 8 rows are re-read once per tile
-// pair they belong to (ceil(n/8) times) — a later PR's work.
+// pair they belong to (ceil(n/8) times); the main path's n = 8 reads once.
 //
-// K5 · the lane-batched Gram, (B, n, D) -> (B, n, n), replaces
-// repro/kernels/gram/kernel.py::gram_batched_pallas (body
-// _gram_batched_kernel), which walks a (lane, D-block) grid in order.  Here
-// the same two launches take a third grid axis, blockIdx.z = lane: every
-// lane gets its own split-K partials and its own fixed-order reduction
-// (bitwise repeatable), and one launch pair covers the whole fleet bucket
-// with no host loop.  The chunk count is shared by the lanes, so a lane's
-// sums run in another order than K1's on that lane alone.  Bound: bytes,
-// B*n*D elements read once.
+// K5 above 32 workers · the lane-batched Gram, (B, n, D) -> (B, n, n),
+// replacing repro/kernels/gram/kernel.py::gram_batched_pallas for n > 32
+// (n <= 32, the fleet's shapes, runs the staged kernel of
+// csrc/gram_batched.cu, which reads each lane once).  Here the same two
+// launches take a third grid axis, blockIdx.z = lane: every lane gets its
+// own split-K partials and its own fixed-order reduction (bitwise
+// repeatable), and one launch pair covers the whole fleet bucket with no
+// host loop.  Bound: bytes, B*n*D elements; rows are re-read per tile
+// pair, as K1's.
 #include "common.cuh"
 
 namespace {
@@ -189,7 +189,7 @@ extern "C" int repro_gram_pairs(int n) {
 }
 
 // partial: lanes * chunks * repro_gram_pairs(n) * 64 fp32 scratch;
-// g: (lanes, n, n).  lanes = 1 is K1, lanes > 1 is K5.
+// g: (lanes, n, n).  lanes = 1 is K1; K5 comes here for n > 32.
 extern "C" int repro_gram(const void* x, int dtype, int lanes, int n,
                           long long d, float* partial, int chunks, float* g,
                           void* stream) {

@@ -1,7 +1,6 @@
 // K2 · fused NNM mix + coordinate-wise trimmed mean / median, static f:
-// the C entry point.  The kernels (shared with K4, csrc/mixtrim_dyn.cu)
-// and their design notes are in mixtrim.cuh; K2 and K4 instantiate them in
-// two translation units so that nvcc builds the two in parallel.
+// the C entry point.  The kernels and their design notes are in
+// mixtrim.cuh; K4 (csrc/mixtrim_dyn.cu) shares only its n > 64 kernel.
 #include "mixtrim.cuh"
 
 using namespace mixtrim_detail;
@@ -16,6 +15,6 @@ extern "C" int repro_mixtrim(const void* x, int dtype, const float* m, int n,
   if (!med && (f < 0 || n - 2 * f < 1)) return cudaErrorInvalidValue;
   const Args a{m, 1, n, d, f, nullptr, med, out, blocks,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(x, dtype, a);
+  return dispatch(x, dtype, a);
 }
 

@@ -34,18 +34,19 @@
 // shared arrays use an odd pitch so that column-strided accesses hit
 // distinct banks.
 //
-// K4 · the dynamic-f form (DYN = true), replacing
+// K4 above 64 workers · mixtrim_big with DYN = true, replacing
 // repro/kernels/mixtrim/kernel.py::mixtrim_dyn_pallas (body
-// _make_dyn_kernel): f is a runtime int32 read on the device, one per lane
-// of a (B, n, D) stack (grid: column blocks x lanes, blockIdx.y = lane, each
-// lane with its own optional (n, n) M), so one build serves every f and
-// the host never reads f.  The trim is the reference's rank mask: the
-// sum over ALL n real ranks of ys[r] * keep[r], keep = (r >= f) &
-// (r < n - f), divided by max(n - 2f, 1).  A +-inf or NaN in a trimmed
+// _make_dyn_kernel) for n > 64 (K4's own body for n <= 64 is in
+// csrc/mixtrim_dyn.cuh): f is a runtime int32 read on the device, one per
+// lane of a (B, n, D) stack (grid: column blocks x lanes, blockIdx.y =
+// lane, each lane with its own optional (n, n) M), so one build serves
+// every f and the host never reads f.  The trim is the reference's rank
+// mask: the sum over ALL n real ranks of ys[r] * keep[r], keep = (r >= f)
+// & (r < n - f), divided by max(n - 2f, 1).  A +-inf or NaN in a trimmed
 // rank therefore makes the column NaN (inf * 0), as mixtrim_dyn_ref does,
 // where K2's slice [f, n - f) would skip it; f >= n/2 keeps nothing and
 // gives 0 (or NaN).  The pad keys of the power-of-two sort lie at ranks
-// >= n and are never read.  "med" ignores f.  Bound: bytes, as K2.
+// >= n and are never read.  "med" ignores f.
 #pragma once
 
 #include "common.cuh"
@@ -91,17 +92,10 @@ __device__ __forceinline__ void bitonic_sort(unsigned (&key)[NP]) {
       }
 }
 
-template <typename T, int NP, bool MIX, bool DYN>
+template <typename T, int NP, bool MIX>
 __global__ void __launch_bounds__(THREADS)
 mixtrim_kernel(const T* __restrict__ x, const float* __restrict__ m, int n,
-               long long d, int f, const int* __restrict__ fdev, int med,
-               float* __restrict__ out) {
-  if constexpr (DYN) {                   // this lane's stack, M, f, output
-    x += (long long)blockIdx.y * n * d;
-    if constexpr (MIX) m += (long long)blockIdx.y * n * n;
-    out += (long long)blockIdx.y * d;
-    f = fdev[blockIdx.y];
-  }
+               long long d, int f, int med, float* __restrict__ out) {
   __shared__ float sm[MIX ? NP * NP : 1];
   if constexpr (MIX) {
     for (int e = threadIdx.x; e < n * n; e += THREADS) sm[e] = m[e];
@@ -152,13 +146,6 @@ mixtrim_kernel(const T* __restrict__ x, const float* __restrict__ m, int n,
           if (i == n / 2) hi = val_of(key[i]);
         }
         r = (n & 1) ? hi : 0.5f * (lo + hi);
-      } else if constexpr (DYN) {
-        // The rank mask over every real rank: inf * 0 = NaN is kept.
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < NP; ++i)
-          if (i < n) s += val_of(key[i]) * ((i >= f && i < n - f) ? 1.f : 0.f);
-        r = s / (float)max(n - 2 * f, 1);
       } else {
         float s = 0.f;
 #pragma unroll
@@ -325,39 +312,38 @@ int launch_big(const T* x, const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int NP, bool DYN>
+template <typename T, int NP>
 void launch_np(const T* x, const Args& a) {
-  const dim3 grid(a.blocks, a.lanes);
   if (a.m)
-    mixtrim_kernel<T, NP, true, DYN><<<grid, THREADS, 0, a.s>>>(
-        x, a.m, a.n, a.d, a.f, a.fdev, a.med, a.out);
+    mixtrim_kernel<T, NP, true><<<a.blocks, THREADS, 0, a.s>>>(
+        x, a.m, a.n, a.d, a.f, a.med, a.out);
   else
-    mixtrim_kernel<T, NP, false, DYN><<<grid, THREADS, 0, a.s>>>(
-        x, a.m, a.n, a.d, a.f, a.fdev, a.med, a.out);
+    mixtrim_kernel<T, NP, false><<<a.blocks, THREADS, 0, a.s>>>(
+        x, a.m, a.n, a.d, a.f, a.med, a.out);
 }
 
-template <typename T, bool DYN>
+// K2 (static f, one lane).
+template <typename T>
 int launch(const void* xv, const Args& a) {
   const T* x = static_cast<const T*>(xv);
   const int n = a.n;
   if (n > SMALL_N) {
-    if (a.m) return launch_big<T, true, DYN>(x, a);
-    return launch_big<T, false, DYN>(x, a);
+    if (a.m) return launch_big<T, true, false>(x, a);
+    return launch_big<T, false, false>(x, a);
   }
-  if (n <= 1) launch_np<T, 1, DYN>(x, a);
-  else if (n <= 2) launch_np<T, 2, DYN>(x, a);
-  else if (n <= 4) launch_np<T, 4, DYN>(x, a);
-  else if (n <= 8) launch_np<T, 8, DYN>(x, a);
-  else if (n <= 16) launch_np<T, 16, DYN>(x, a);
-  else if (n <= 32) launch_np<T, 32, DYN>(x, a);
-  else launch_np<T, 64, DYN>(x, a);
+  if (n <= 1) launch_np<T, 1>(x, a);
+  else if (n <= 2) launch_np<T, 2>(x, a);
+  else if (n <= 4) launch_np<T, 4>(x, a);
+  else if (n <= 8) launch_np<T, 8>(x, a);
+  else if (n <= 16) launch_np<T, 16>(x, a);
+  else if (n <= 32) launch_np<T, 32>(x, a);
+  else launch_np<T, 64>(x, a);
   return cudaGetLastError();
 }
 
-template <bool DYN>
-int dispatch(const void* x, int dtype, const Args& a) {
-  if (dtype == REPRO_F32) return launch<float, DYN>(x, a);
-  if (dtype == REPRO_BF16) return launch<__nv_bfloat16, DYN>(x, a);
+inline int dispatch(const void* x, int dtype, const Args& a) {
+  if (dtype == REPRO_F32) return launch<float>(x, a);
+  if (dtype == REPRO_BF16) return launch<__nv_bfloat16>(x, a);
   return cudaErrorInvalidValue;
 }
 

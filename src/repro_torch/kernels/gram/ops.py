@@ -2,10 +2,12 @@
 lane-batched Gram of a (B, n, D) stack.
 
 :func:`gram` and :func:`gram_batched` are the wrappers: for a CUDA stack
-they launch the split-K kernel of ``csrc/gram.cu`` (the counterparts of the
-TPU kernels ``repro/kernels/gram/kernel.py::gram_pallas`` and
-``gram_batched_pallas``; K5 is K1 with a lane grid axis); for a CPU stack
-they run :func:`gram_ref` / :func:`gram_batched_ref`, the plain versions.
+they launch the split-K kernels of ``csrc/gram.cu`` (the counterparts of
+the TPU kernels ``repro/kernels/gram/kernel.py::gram_pallas`` and
+``gram_batched_pallas``); K5 at n <= 32 workers launches the staged kernel
+of ``csrc/gram_batched.cu``, which reads each lane's stack once, and above
+that K1's kernels with a lane grid axis.  For a CPU stack they run
+:func:`gram_ref` / :func:`gram_batched_ref`, the plain versions.
 ``gram.launches`` and ``gram_batched.launches`` count kernel launches.
 """
 from __future__ import annotations
@@ -80,6 +82,22 @@ def gram(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _launch_staged(x: torch.Tensor, lanes: int, n: int, d: int
+                   ) -> torch.Tensor:
+    lib = _build.library()
+    chunks = lib.repro_gram_batched_chunks(lanes, n, d,
+                                           _build.sm_count(x.device))
+    partial = torch.empty(lanes * chunks * lib.repro_gram_batched_slots(n),
+                          dtype=torch.float32, device=x.device)
+    out = torch.empty((lanes, n, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.repro_gram_batched(x.data_ptr(), _build.dtype_code(x.dtype),
+                                    lanes, n, d, partial.data_ptr(), chunks,
+                                    out.data_ptr(), stream_of(x))
+    _build.check(rc, "gram_batched kernel")
+    return out
+
+
 def gram_batched(x: torch.Tensor) -> torch.Tensor:
     """(B, n, D) fp32 / bf16 -> (B, n, n) fp32: every lane's Gram in one
     launch pair (K5)."""
@@ -87,7 +105,10 @@ def gram_batched(x: torch.Tensor) -> torch.Tensor:
         return gram_batched_ref(x)
     check_lanes(x, "gram_batched")
     lanes, n, d = x.shape
-    out = _launch(x, lanes, n, d)
+    if n <= _build.library().repro_gram_staged_max_n():
+        out = _launch_staged(x, lanes, n, d)
+    else:
+        out = _launch(x, lanes, n, d)
     gram_batched.launches += 1
     return out
 

@@ -9,8 +9,9 @@ values sort with every NaN last (``torch.sort`` / ``jnp.sort`` order), so a
 trim over the nan / inf attack stacks keeps the same ranks in both.
 Up to 64 workers a register network sorts each column; above that (to
 :data:`MAX_N`) a shared-memory network sorts tiles of columns (the kernels
-are in ``csrc/mixtrim.cuh``; K2's entry point in ``mixtrim.cu``, K4's in
-``mixtrim_dyn.cu``).
+are in ``csrc/mixtrim.cuh``, K2's entry point in ``mixtrim.cu``).  K4 has
+its own body up to 64 workers (``csrc/mixtrim_dyn.cuh``: several columns
+a thread, a sorting network cut to the real n) and shares K2's above.
 ``mixtrim.launches`` counts kernel launches.
 
 :func:`mixtrim_dyn` (K4, the counterpart of
@@ -176,8 +177,8 @@ def mixtrim_dyn(x: torch.Tensor, m: Optional[torch.Tensor], f,
         mf = m.float().contiguous()
         check_small(mf, (lanes, n, n), x, "mixtrim_dyn m")
     lib = _build.library()
-    cap = max(1, _BLOCKS_PER_SM * _build.sm_count(x.device) // lanes)
-    blocks = cap if n > SMALL_N else max(1, min(-(-d // _THREADS), cap))
+    # The kernels cap the column blocks at what one wave needs themselves.
+    blocks = max(1, _BLOCKS_PER_SM * _build.sm_count(x.device) // lanes)
     out = torch.empty((lanes, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.repro_mixtrim_dyn(x.data_ptr(), _build.dtype_code(x.dtype),

@@ -338,3 +338,78 @@ def test_mixtrim_dyn_filler_lanes_and_launch_count(dev):
     assert torch.equal(mixtrim_dyn(x, m, f), torch.zeros((3, 2842), device=dev))
     assert torch.equal(mixtrim_dyn(x, None, f), torch.zeros((3, 2842), device=dev))
     assert mixtrim_dyn.launches == before + 2
+
+
+def _lanes_at(dev, b, n, d, dtype, seed, misaligned):
+    """A (B, n, D) stack, one element past an aligned address when
+    ``misaligned`` (no vector loads, no cp.async staging)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    off = int(misaligned)
+    base = torch.randn(b * n * d + off, generator=gen, device=dev).to(dtype)
+    return base[off:].view(b, n, d)
+
+
+#: K4's compiled heights: one per n up to 32, then 48 and 64 (n read at
+#: run time above 32).  These n cover both ends of each column-per-thread
+#: class (4 up to n = 8, 2 up to 20, 1 above) and of the shared heights.
+K4_SMALL_NS = [1, 2, 3, 8, 9, 16, 17, 20, 21, 31, 32, 33, 48, 49, 64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", K4_SMALL_NS)
+@pytest.mark.parametrize("d,misaligned", [(4096, False), (4099, False),
+                                          (4098, True), (1, False)])
+def test_mixtrim_dyn_every_small_height_matches_plain(dev, dtype, n, d,
+                                                      misaligned):
+    """K4's n <= 64 body at each kind of height: f from 0 to past n/2 over
+    the lanes, with and without the mix, trim and median, aligned and
+    misaligned stacks, D a multiple of 4 or not."""
+    b = n // 2 + 3
+    x = _lanes_at(dev, b, n, d, dtype, seed=n * 7 + d, misaligned=misaligned)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + 1)
+    m = torch.softmax(torch.randn((b, n, n), generator=gen, device=dev), -1)
+    f = torch.arange(b, dtype=torch.int32, device=dev)
+    for mode in ("trim", "med"):
+        for mm in (None, m.to(dtype)):
+            _close(mixtrim_dyn(x, mm, f, mode), mixtrim_dyn_ref(x, mm, f, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", list(range(1, 21)))
+def test_mixtrim_dyn_sort_is_exact_on_every_0_1_column(dev, n):
+    """The 0-1 principle: a network that sorts every 0-1 vector sorts
+    every input.  The (1, n, 2^n) stack holds each 0-1 column once; K4's
+    trim at every f and its median equal the plain version exactly."""
+    cols = torch.arange(1 << n, device=dev)
+    bits = (cols[None, :] >> torch.arange(n, device=dev)[:, None]) & 1
+    x = bits.float()[None].contiguous()
+    for f in range(0, n // 2 + 2):
+        ft = torch.tensor([f], dtype=torch.int32, device=dev)
+        assert torch.equal(mixtrim_dyn(x, None, ft),
+                           mixtrim_dyn_ref(x, None, ft))
+    f0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    assert torch.equal(mixtrim_dyn(x, None, f0, "med"),
+                       mixtrim_dyn_ref(x, None, f0, "med"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 8, 9, 17, 32, 33, 64, 100])
+@pytest.mark.parametrize("d,misaligned", [(2842, False), (4099, False),
+                                          (4098, True),
+                                          ((1 << 18) + 8, False)])
+def test_gram_batched_every_n_per_lane_and_repeatable(dev, dtype, n, d,
+                                                      misaligned):
+    """K5 on both of its paths (staged for n <= 32, tile pairs above):
+    each lane within 1e-5 of its own max |G| of the plain version, and
+    two runs equal bit for bit."""
+    b = 3
+    x = _lanes_at(dev, b, n, d, dtype, seed=n + d, misaligned=misaligned)
+    g = gram_batched(x)
+    want = gram_batched_ref(x)
+    for k in range(b):
+        _close(g[k], want[k])
+    assert torch.equal(g, gram_batched(x))
