@@ -20,9 +20,16 @@ Phases, each fatal on failure:
      d = clamp(2^19 / n, 64, 2048), buckets of 16);
   5. K2 above 64 workers (n in {65, 256, 640, 1024, 10240}, trim and
      median, with and without the mix, and with NaN / inf rows) against its
-     plain version;
-  6. robust_aggregate(hier, nnm, cwtm) at the n = 10240 scale shape on the
-     kernel backend against the torch backend with the same permutation;
+     plain version; up to n = 1024 the tiled mix and rank selection, whose
+     times at n = 256, 640 and 1024 are printed beside the previous
+     design's;
+  6. the reference's hierarchical scale case, n = 10240 workers in buckets
+     of 16 (640 means): robust_aggregate(hier) with NNM + CWTM (K6, K1 on
+     the means, K2 with the mix) and with CWTM (K7, K2 without it), the
+     kernel backend against the torch backend at D = 64 and D = 2^19, then
+     each twice at D = 2^20 (a 42.9 GB fp32 stack: launches and an empty
+     fallback log asserted, host-clock time, peak memory), and each of
+     their kernels timed at the aggregates' own inputs;
   7. the main path: ``repro_torch.launch.train.main`` for 3 D-SHB steps of
      full-width smollm-360m, n = 8, f = 2, ALIE, NNM + CWTM; asserts finite
      loss / kappa_hat, one K1 and one K2 launch per step and no recorded
@@ -34,8 +41,9 @@ Phases, each fatal on failure:
      step), hier + CWTM (2 steps; K7 and K2), hier + NNM + GM (2 steps; K6
      and K3); then --agg bucketing+cwtm through launch.train.main (2 steps;
      K2 only);
- 10. ptxas's registers / stack / spills of K4's and K5's instances (K4's
-     fp32 n <= 32 must keep no stack frame and no spill); K4's sort on
+ 10. ptxas's registers / stack / spills of K4's, K5's and K2's n <= 1024
+     instances (K4's fp32 n <= 32 and K2's fp32 mix instance for n = 640
+     must keep no stack frame and no spill); K4's sort on
      every 0-1 column at n = 17 (every f, trim and median) exactly equal to
      its plain version; K5 (gram_batched) against its plain version (the
      batch and each lane) and torch.bmm at (B = 8, n = 17, D = 2^24) and
@@ -51,8 +59,9 @@ Phases, each fatal on failure:
      fallback, printing the accuracy table, ms per bucket-round and peak
      memory; then the cwtm | nnm and cwtm | bucketing buckets again on the
      torch backend, per-round losses within rtol 1e-4 of the kernel run;
- 12. summary: the K1-K7 table, the kernels JSON line, the card line, and
-     last the {"ok": true, ...} line.
+ 12. summary: the K1-K7 table (K2 above 64 workers on a row of its own,
+     its launches those of phase 6), the kernels JSON line, the card line,
+     and last the {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -80,6 +89,10 @@ D_MAIN = 361_821_120            # smollm-360m parameter count (tied, padded voca
 N_SENT, F_SENT, D_SENT = 17, 8, (1 << 24) + 3
 N_HIER, F_HIER = 16, 3          # hierarchical runs: s = 2, 8 buckets, f' = 3
 SCALE_NS = (256, 1024, 4096, 10240)   # the reference's scale cases, s = 16
+HIER_N, HIER_S = 10240, 16      # the scale case of the hierarchical variant
+HIER_D = 1 << 20                # ... at a real width: a 42.9 GB fp32 stack
+HIER_D_PARITY = 1 << 19         # widest D where the torch backend's gather fits
+HIER_TIE_ROWS = 20              # most NNM near-tie rows allowed there (of 640)
 #: K2 above 64 workers: (n, D); n = 640 is the scale case's bucket count.
 K2_LARGE = ((65, (1 << 20) + 3), (256, 1 << 20), (640, 1 << 20),
             (1024, 1 << 20), (10240, 64))
@@ -214,23 +227,32 @@ def chunked(fn, d: int, n: int = 0):
                               for c in range(0, d, step)])
 
 
-#: Times of the previous designs at (8, 17, 2^24) on an H100 80GB HBM3 at
-#: 700 W (PERF.md's kernel table), printed beside this run's: K4 on K2's
-#: bitonic body with f on the device, with / without the mix; K5 as K1's
-#: tile-pair kernels with a lane axis.
-PREV_MS = {"K4 mix": 19.512, "K4 no-mix": 10.458, "K5": 9.858}
+#: Times of the previous designs on an H100 80GB HBM3 at 700 W (PERF.md's
+#: kernel table), printed beside this run's: at (8, 17,
+#: 2^24) K4 on K2's bitonic body with f on the device, with / without the
+#: mix, and K5 as K1's tile-pair kernels with a lane axis; K2 above 64
+#: workers (trim, f = n / 32, D = 2^20) on mixtrim_big's shared-memory sort.
+PREV_MS = {"K4 mix": 19.512, "K4 no-mix": 10.458, "K5": 9.858,
+           "K2 n=256 mix": 29.861, "K2 n=256 no-mix": 5.119,
+           "K2 n=640 mix": 116.665, "K2 n=640 no-mix": 27.265,
+           "K2 n=1024 mix": 258.404, "K2 n=1024 no-mix": 28.289}
 _PTXAS_KERNELS = {
     # K4's n <= 64 body and K5's staged body: (dtype, height, flag).
     "K4": re.compile(r"mixtrim_dyn_smallI(f|13__nv_bfloat16)Li(\d+)ELb([01])E"),
     "K5": re.compile(r"gram_stagedI(f|13__nv_bfloat16)Li(\d+)ELb([01])E"),
+    # K2 / K4 for 64 < n <= 1024: the mix kernel by its padded rows
+    # (thread-rows x rows a thread), and the no-mix kernel (height 0).
+    "K2sel": re.compile(r"mix_selectI(f|13__nv_bfloat16)NS_3CfgILi(\d+)ELi(\d+)"
+                        r"ELi(\d+)E"),
+    "K2sel-nomix": re.compile(r"select_nomixI(f|13__nv_bfloat16)E"),
 }
 
 
 def ptxas_report(log: str) -> dict:
     """{(kernel, dtype, height, flag): (registers, stack, spill stores,
-    spill loads)} of K4's and K5's instances from ``nvcc -Xptxas -v``
-    output (flag: K4 the mix, K5 cp.async staging; height: K4 the compiled
-    n, K5 row blocks of 4)."""
+    spill loads)} of K4's, K5's and K2's n <= 1024 instances from ``nvcc
+    -Xptxas -v`` output (flag: K4 and K2 the mix, K5 cp.async staging;
+    height: K4 the compiled n, K5 row blocks of 4, K2 the padded rows)."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -239,8 +261,13 @@ def ptxas_report(log: str) -> dict:
             for k, pat in _PTXAS_KERNELS.items():
                 g = pat.search(m.group(1))
                 if g:
-                    key = (k, "fp32" if g.group(1) == "f" else "bf16",
-                           int(g.group(2)), g.group(3) == "1")
+                    dt = "fp32" if g.group(1) == "f" else "bf16"
+                    if k == "K2sel":      # threads, thread-rows, rows a thread
+                        key = ("K2", dt, int(g.group(3)) * int(g.group(4)), True)
+                    elif k == "K2sel-nomix":
+                        key = ("K2", dt, 0, False)
+                    else:
+                        key = (k, dt, int(g.group(2)), g.group(3) == "1")
                     out[key] = [0, 0, 0, 0]
             continue
         if key is None:
@@ -445,22 +472,23 @@ def phase_fleet_kernels(dev, rate: float) -> dict:
     return rows
 
 
-def beside_previous(what: str, ms: float, bnd) -> None:
-    log(f"  {what} at {FLEET_BIG}: {ms:.3f} ms, previous design "
+def beside_previous(what: str, ms: float, bnd, shape=FLEET_BIG) -> None:
+    log(f"  {what} at {shape}: {ms:.3f} ms, previous design "
         f"{PREV_MS[what]:.3f} ms, "
         f"bound {bnd[0]:.3f} ms ({bnd[1]}): {100 * bnd[0] / ms:.0f} % of "
         f"bound, {PREV_MS[what] / ms:.2f}x the previous design")
 
 
 def phase_ptxas() -> None:
-    """ptxas's registers, stack frame and spills for K4's n <= 64 body and
-    K5's staged body; K4's fp32 instances up to n = 32 must keep no stack
+    """ptxas's registers, stack frame and spills for K4's n <= 64 body,
+    K5's staged body and K2's 64 < n <= 1024 body; K4's fp32 instances up
+    to n = 32 and K2's fp32 mix instance for n = 640 must keep no stack
     frame and no spill."""
     from repro_torch.kernels import _build
     rep = ptxas_report(_build.BUILD_LOG)
     if not rep:
         raise AssertionError("no ptxas report of K4 / K5 in the build log")
-    for kern, flag in (("K4", "mix"), ("K5", "cp.async")):
+    for kern, flag in (("K4", "mix"), ("K5", "cp.async"), ("K2", "mix")):
         for dt in ("fp32", "bf16"):
             for on in (True, False):
                 row = [(h, v) for (k, d, h, f), v in sorted(rep.items())
@@ -474,6 +502,12 @@ def phase_ptxas() -> None:
         raise AssertionError(f"K4 fp32 n <= 32 instances with a stack frame "
                              f"or spills: {bad}")
     log("  K4 fp32 n <= 32: no stack frame, no spill OK")
+    k2 = rep.get(("K2", "fp32", 640, True))
+    if k2 is None or any(k2[1:]):
+        raise AssertionError(f"K2's fp32 mix instance for n = 640: {k2} "
+                             "(registers/stack/spill stores/spill loads)")
+    log(f"  K2 fp32 mix, 640 rows: {k2[0]} registers, no stack frame, no "
+        "spill OK")
 
 
 def phase_sort_01(dev, n: int = FLEET_BIG[1]) -> None:
@@ -751,7 +785,9 @@ def phase_bucketgram(dev, rate: float) -> dict:
 
 
 def phase_mixtrim_large(dev, rate: float) -> None:
-    """K2 above 64 workers: the shared-memory sort."""
+    """K2 above 64 workers: the tiled mix and rank selection up to
+    n = 1024 (times at n = 256, 640 and 1024 printed beside the previous
+    design's), the shared-memory sort above."""
     import torch
     from repro_torch.kernels import mixtrim, mixtrim_ref
     gen = torch.Generator(device=dev)
@@ -771,8 +807,11 @@ def phase_mixtrim_large(dev, rate: float) -> None:
                 reps = 3 if mode == "trim" else 1
                 ms = time_ms(lambda: mixtrim(x, mm, k, mode), reps)
                 pms = time_ms(plain, 1)
-                check(f"K2 mixtrim {mode} {'mix' if mm is not None else 'no-mix'} "
-                      f"n={n}", mixtrim(x, mm, k, mode), plain(), ms, pms, bnd)
+                tag = "mix" if mm is not None else "no-mix"
+                check(f"K2 mixtrim {mode} {tag} n={n}", mixtrim(x, mm, k, mode),
+                      plain(), ms, pms, bnd)
+                if mode == "trim" and f"K2 n={n} {tag}" in PREV_MS:
+                    beside_previous(f"K2 n={n} {tag}", ms, bnd, (n, d))
         # NaN and inf rows (the nan / inf attacks): ranked last, trimmed.
         xs = x[:, :min(d, 4099)].clone()
         xs[n - 3:] = float("nan")
@@ -787,34 +826,225 @@ def phase_mixtrim_large(dev, rate: float) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_hier_aggregate(dev) -> None:
-    """robust_aggregate(hier, nnm, cwtm) at the n = 10240 scale shape:
-    kernel backend (K6, K1 on the 640 means, K2) against the torch backend
-    (the gather form), the same permutation."""
+def _hier_specs(f: int) -> dict:
+    """The two hierarchical aggregates of the scale case (s = 16) and the
+    launches each makes on the kernel backend at n = 10240 (640 means)."""
+    common = dict(rule="cwtm", f=f, hier=True, bucket_size=HIER_S)
+    zero = dict(gram=0, mixtrim=0, combine=0, bucketgram=0, bucketmeans=0)
+    return {
+        "hier+nnm+cwtm": (dict(common, pre="nnm"),
+                          dict(zero, bucketgram=1, gram=1, mixtrim=1)),
+        "hier+cwtm": (dict(common, pre=None),
+                      dict(zero, bucketmeans=1, mixtrim=1)),
+    }
+
+
+def _nnm_near_ties(g_k, g_t, m_k, m_t, keep: int) -> int:
+    """The rows where the kernel path's NNM matrix m_k (from its Gram g_k)
+    differs from the torch backend's m_t (from g_t); returns their count.
+    g_k must agree with g_t within the fp32 contract (RTOL of max|G|), at
+    most HIER_TIE_ROWS rows may differ, and each must be a near-tie: with
+    e = max|g_k - g_t|, every distance d_ij = G_ii + G_jj - 2 G_ij moves by
+    at most 4 e between the Grams, so the kernel's keep nearest, measured
+    by g_t's distances, lie within 8 e of g_t's keep-th smallest distance
+    b (those it keeps at most b + 8 e, those it drops at least b - 8 e).
+    A kernel Gram off by more than rounding picks neighbours outside that
+    band or fails the Gram bound."""
     import torch
-    from repro_torch.core.robust import robust_aggregate
+    from repro_torch.core import gram as gramlib
+    e = float((g_k - g_t).abs().max())
+    gtol = RTOL * float(g_t.abs().max())
+    if e > gtol:
+        raise AssertionError(f"kernel path's Gram of the means off by {e} > "
+                             f"{gtol} from the torch backend's")
+    rows = torch.nonzero((m_k != m_t).any(dim=1)).flatten().tolist()
+    if len(rows) > HIER_TIE_ROWS:
+        raise AssertionError(f"NNM rows that differ between backends: "
+                             f"{len(rows)} > {HIER_TIE_ROWS}")
+    d_t = gramlib.pdist_sq_from_gram(g_t)
+    for i in rows:
+        b = float(torch.sort(d_t[i]).values[keep - 1])
+        kept = m_k[i] != 0
+        if int(kept.sum()) != keep:
+            raise AssertionError(f"NNM row {i} keeps {int(kept.sum())} != {keep}")
+        hi, lo = float(d_t[i][kept].max()), float(d_t[i][~kept].min())
+        if hi > b + 8 * e or lo < b - 8 * e:
+            raise AssertionError(
+                f"NNM row {i}: the kernel path's neighbours are no near-tie "
+                f"of the torch backend's (kept up to {hi}, dropped from {lo}, "
+                f"boundary {b}, band {8 * e})")
+    return len(rows)
+
+
+def _hier_parity(dev, d: int, seed: int, ties: bool) -> None:
+    """Both hierarchical aggregates at n = 10240 and width d: the kernel
+    backend against the torch backend (the gather form), the same
+    permutation, within the fp32 contract.  NNM's choice of neighbours is
+    not continuous in the Gram: where two distances of a row are equal to
+    within the rounding of fp32 Grams summed in other orders, the backends
+    may pick different neighbours.  Without ``ties`` (D = 64) the two NNM
+    matrices (each from its own backend's Gram) must be equal.  With
+    ``ties`` a few rows may differ, each a near-tie (_nnm_near_ties), and
+    then the kernel backend is held to the torch pipeline (gather means,
+    mix, sort) run with the kernel path's M."""
+    import torch
+    from repro_torch.core import bucketing as bucketlib
+    from repro_torch.core import gram as gramlib
+    from repro_torch.core.robust import (_tree_bucket, _tree_coordinate_rule,
+                                         robust_aggregate, tree_gram, tree_mix)
     from repro_torch.core.types import AggregatorSpec
-    from repro_torch.kernels import dispatch as kdispatch
-    n = 10240
-    d, f = 64, n // 32
+    from repro_torch.kernels import bucketgram
+    n, f = HIER_N, HIER_N // 32
     gen = torch.Generator(device=dev)
-    gen.manual_seed(n)
+    gen.manual_seed(seed)
     tree = {"x": torch.randn((n, d), generator=gen, device=dev)}
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(7))
-    spec = dict(rule="cwtm", f=f, pre="nnm", hier=True, bucket_size=16)
-    kdispatch.reset_launch_counts()
-    got = robust_aggregate(tree, AggregatorSpec(backend="cuda", **spec), perm=perm)
-    counts = kdispatch.launch_counts()
-    rec = kdispatch.last_dispatch()
-    log(rec.describe())
-    if rec.fallbacks or counts["bucketgram"] != 1 or counts["mixtrim"] != 1:
-        raise AssertionError(f"hier aggregate left the kernels: {counts}")
-    want = robust_aggregate(tree, AggregatorSpec(backend="torch", **spec), perm=perm)
-    err, tol = max_err(got["x"], want["x"])
-    if err > tol:
-        raise AssertionError(f"hier aggregate: backends disagree {err} > {tol}")
-    log(f"  n={n} d={d} f={f} s=16 (640 buckets): cuda vs torch "
-        f"max_abs_err={err:.3e} tol={tol:.3e} OK; launches {counts}")
+    for name, (spec, _) in _hier_specs(f).items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = robust_aggregate(tree, AggregatorSpec(backend="cuda", **spec),
+                               perm=perm)["x"]
+        want = robust_aggregate(tree, AggregatorSpec(backend="torch", **spec),
+                                perm=perm)["x"]
+        note = ""
+        if spec["pre"] == "nnm":
+            nb = bucketlib.num_buckets(n, HIER_S)
+            fb = bucketlib.adjusted_f(f, nb)
+            assign = bucketlib.bucket_assignment(n, HIER_S, perm=perm, device=dev)
+            g_k = bucketgram(tree["x"], assign, nb)[1]
+            means, _ = _tree_bucket(tree, f, perm.to(dev), HIER_S)
+            g_t = tree_gram(means)
+            m_k = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g_k), fb)
+            m_t = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g_t), fb)
+            if ties:
+                rows = _nnm_near_ties(g_k, g_t, m_k, m_t, nb - fb)
+            else:
+                rows = int((m_k != m_t).any(dim=1).sum())
+                if rows:
+                    raise AssertionError(f"{name} d={d}: NNM rows that differ "
+                                         f"between backends: {rows}")
+            note = f", NNM rows that differ between backends: {rows}"
+            if rows:
+                want = _tree_coordinate_rule(tree_mix(means, m_k), "cwtm", fb)["x"]
+                note += (" (each a near-tie; held to the torch pipeline with "
+                         "the kernel path's M)")
+            del means
+        err, tol = max_err(got, want)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"  {name} n={n} d={d} f={f}: cuda vs torch backend "
+            f"max_abs_err={err:.3e} tol={tol:.3e} "
+            f"{'OK' if err <= tol else 'FAIL'}{note} (peak {peak:.2f} GiB)")
+        if err > tol:
+            raise AssertionError(f"{name}: backends disagree {err} > {tol}")
+        del got, want
+    del tree
+    torch.cuda.empty_cache()
+
+
+def phase_hier_aggregate(dev, rate: float) -> dict:
+    """robust_aggregate(hier, s = 16) at the reference's scale case,
+    n = 10240 workers (640 bucket means): hier + NNM + CWTM (K6 with K1 on
+    the means, then K2 with the mix at n = 640) and hier + CWTM (K7, then
+    K2 without the mix).  The kernel backend against the torch backend at
+    D = 64 (equal NNM choices) and at HIER_D_PARITY; at D = HIER_D (a
+    42.9 GB fp32 stack) each aggregate twice, asserting its launches and
+    an empty fallback log, timed by the host clock around a synchronize,
+    with its peak memory; then each kernel of the two at the aggregate's
+    own inputs, held to its plain version and timed by CUDA events.
+    Returns K2's rows (the n = 640 mix and no mix) and each one's
+    launches in the aggregates."""
+    import torch
+    from repro_torch.core import bucketing as bucketlib
+    from repro_torch.core import gram as gramlib
+    from repro_torch.core.robust import robust_aggregate
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import (bucket_means_gram_ref, bucketgram,
+                                     bucketmeans, gram, gram_ref, mixtrim,
+                                     mixtrim_ref)
+    from repro_torch.kernels import dispatch as kdispatch
+    _hier_parity(dev, 64, HIER_N, ties=False)
+    _hier_parity(dev, HIER_D_PARITY, 2, ties=True)
+
+    n, d, f = HIER_N, HIER_D, HIER_N // 32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    tree = {"x": torch.randn((n, d), generator=gen, device=dev)}
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(7))
+    log(f"-- n={n} D={d} fp32 stack: {4 * n * d / 1e9:.1f} GB")
+    launches = {}
+    for name, (spec, expect) in _hier_specs(f).items():
+        launches[name] = 0
+        for run in range(2):
+            kdispatch.reset_launch_counts()
+            kdispatch.reset_fallbacks()
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = robust_aggregate(tree, AggregatorSpec(backend="cuda", **spec),
+                                   perm=perm)["x"]
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = kdispatch.launch_counts()
+            got = {k: counts[k] for k in expect}
+            rec = kdispatch.last_dispatch()
+            if got != expect or rec.fallbacks or kdispatch.fallback_log():
+                raise AssertionError(f"{name}: launches {counts}, expected "
+                                     f"{expect}:\n{rec.describe()}")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name}: non-finite aggregate")
+            if run == 0:
+                log(rec.describe())
+            launches[name] += counts["mixtrim"]
+            log(f"  {name} run {run}: {ms:.1f} ms (host clock), launches "
+                f"{got}, no fallback, peak "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+            del out
+    # Each kernel at the aggregates' own inputs, against its plain version.
+    x = tree["x"]
+    s = bucketlib.clamp_bucket_size(n, HIER_S, f)
+    nb = bucketlib.num_buckets(n, s)
+    fb = bucketlib.adjusted_f(f, nb)
+    assign = bucketlib.bucket_assignment(n, s, perm=perm, device=dev)
+    bmat = bucketlib.bucket_matrix(n, s, assignment=assign, device=dev)
+    log(f"-- kernels of the aggregates: n={n} -> {nb} means, f'={fb}")
+    y, g = bucketgram(x, assign, nb)
+    py, pg = bucket_means_gram_ref(x, bmat)
+    ms = time_ms(lambda: bucketgram(x, assign, nb), 3)
+    pms = time_ms(lambda: bucket_means_gram_ref(x, bmat), 1)
+    bnd = bucket_bound(n, nb, d, 4, rate, gram=True)
+    check("K6 bucketgram means fp32", y, py, ms, pms, bnd)
+    check("K6 bucketgram Gram fp32 (K1 on the fp32 means)", g, pg, ms, pms, bnd)
+    del pg
+    ym = bucketmeans(x, assign, nb)
+    ms = time_ms(lambda: bucketmeans(x, assign, nb), 3)
+    pms = time_ms(lambda: bucket_means_gram_ref(x, bmat, with_gram=False), 1)
+    lib = time_ms(lambda: torch.mm(bmat, x), 1)
+    check("K7 bucketmeans fp32", ym, py, ms, pms,
+          bucket_bound(n, nb, d, 4, rate, gram=False), lib)
+    del tree, x, ym, py, bmat
+    torch.cuda.empty_cache()
+    bnd = bound(4.0 * nb * d + 4 * nb * nb, nb * (nb + 1) * d, rate)
+    check(f"K1 gram of the {nb} means", gram(y), gram_ref(y),
+          time_ms(lambda: gram(y), 3), time_ms(lambda: gram_ref(y), 1), bnd,
+          time_ms(lambda: torch.mm(y, y.T), 3))
+    m = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), fb)
+    rows = {}
+    for mm in (m, None):
+        tag = "mix" if mm is not None else "no-mix"
+        plain = chunked(lambda s_: mixtrim_ref(y[:, s_], mm, fb, "trim"), d, nb)
+        flops = (2.0 * nb * nb * d if mm is not None else 0) + nb * d
+        bnd = bound(4.0 * nb * d + 4 * d + (4 * nb * nb if mm is not None else 0),
+                    flops, rate)
+        ms, pms = time_ms(lambda: mixtrim(y, mm, fb, "trim"), 3), time_ms(plain, 1)
+        err = check(f"K2 mixtrim trim {tag} n={nb} f={fb}"
+                    f"{' (NNM M)' if mm is not None else ''}", mixtrim(y, mm, fb),
+                    plain(), ms, pms, bnd)
+        key = "mixtrim_select" if mm is not None else "mixtrim_select_nomix"
+        rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound=bnd,
+                         library_ms=None)
+    del y, g, m
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": {"mixtrim_select": launches["hier+nnm+cwtm"],
+                                       "mixtrim_select_nomix": launches["hier+cwtm"]}}
 
 
 def lm_batches(n: int, seed: int = 0):
@@ -920,8 +1150,9 @@ def main() -> int:
     log("== 5. K2 above 64 workers against its plain version")
     phase_mixtrim_large(dev, rate)
 
-    log("== 6. hierarchical aggregate at n = 10240: cuda vs torch backend")
-    phase_hier_aggregate(dev)
+    log("== 6. hierarchical aggregates at n = 10240 (640 means)")
+    hier = phase_hier_aggregate(dev, rate)
+    rows.update(hier["rows"])
 
     log("== 7. main path: nnm+cwtm, 3 steps, full-width smollm-360m")
     out, counts_main = run_train("nnm+cwtm", 3, capture=True)
@@ -973,6 +1204,8 @@ def main() -> int:
 
     log("== 12. summary")
     table = [("K1", "gram", "ported, checked"), ("K2", "mixtrim", "ported, checked"),
+             ("K2 > 64", "mixtrim_select", "ported, redesigned, checked"),
+             ("K2 > 64 no mix", "mixtrim_select_nomix", "ported, redesigned, checked"),
              ("K3", "combine", "ported, checked"), ("K4", "mixtrim_dyn", "ported, checked"),
              ("K5", "gram_batched", "ported, checked"), ("K6", "bucketgram", "ported, checked"),
              ("K7", "bucketmeans", "ported, checked")]
@@ -984,10 +1217,16 @@ def main() -> int:
                     "src/repro/kernels/mixtrim/kernel.py:177", counts_main["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",
                     "src/repro/kernels/combine/kernel.py:34", counts_gm["combine"]),
+        "mixtrim_select": ("src/repro_torch/kernels/csrc/mixtrim_select.cu",
+                           "src/repro/kernels/mixtrim/kernel.py:177",
+                           hier["launches"]["mixtrim_select"]),
+        "mixtrim_select_nomix": ("src/repro_torch/kernels/csrc/mixtrim_select.cu",
+                                 "src/repro/kernels/mixtrim/kernel.py:177",
+                                 hier["launches"]["mixtrim_select_nomix"]),
         "mixtrim_dyn": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cu",
                         "src/repro/kernels/mixtrim/kernel.py:213",
                         counts_grid["mixtrim_dyn"]),
-        "gram_batched": ("src/repro_torch/kernels/csrc/gram.cu",
+        "gram_batched": ("src/repro_torch/kernels/csrc/gram_batched.cu",
                          "src/repro/kernels/gram/kernel.py:73",
                          counts_grid["gram_batched"]),
         "bucketgram": ("src/repro_torch/kernels/csrc/bucketgram.cu",

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of the port's K5 (staged gram_batched) and K4 (mixtrim_dyn
-n <= 64 body) at the fleet's scale shape, (B, n, D) = (8, 17, 2^24), on one
-CUDA card.
+n <= 64 body) at the fleet's scale shape, (B, n, D) = (8, 17, 2^24), and of
+K2's 64 < n <= 1024 body (mixtrim_select) at n = 256, 640 and 1024,
+D = 2^20, on one CUDA card.
 
     python3 scripts/torch_kernel_variants.py
 
@@ -9,10 +10,14 @@ Each variant is a copy of the committed source (src/repro_torch/kernels/
 csrc) with one or two of its compile-time constants replaced, built by nvcc
 into build/variants/ (all builds in parallel) and loaded with ctypes.  K5:
 the tile width TC and the ring depth STAGES; K4 at n = 17: the columns a
-thread owns and the threads a block.  Every variant is held to the plain
-version (1e-5 of the largest |plain|) before it is timed; times are CUDA
-events, the median of 7 after a warm-up, the variants of a kernel taken in
-turns.  Prints one line per variant, the card's name and power limit last.
+thread owns and the threads a block; K2: the committed body and, for
+timing only, the same body with the rank selection replaced by the
+column's mean (its time is the product's and the staging's share; its
+output is not a trim and is not checked).  Every other variant is held to
+the plain version (1e-5 of the largest |plain|) before it is timed; times
+are CUDA events, the median of 7 after a warm-up, the variants of a kernel
+taken in turns.  Prints one line per variant, the card's name and power
+limit last.
 """
 from __future__ import annotations
 
@@ -57,6 +62,24 @@ extern "C" int variant_k4(const void* x, int dtype, const float* m, int lanes,
 """
 
 
+_SEL = r"column_result\({}keys \+ c \* kp, n, f, med, dyn, hist, lane\)"
+K2_VARIANTS = {
+    "K2 committed": {},
+    "K2 mix only": {_SEL.format(p): f"column_result({p}keys + c * kp, n, 0, 0, "
+                                    "false, hist, lane)" for p in ("", "nm_")},
+}
+K2_ENTRY = """
+#include "mixtrim_select.cu"
+#include "mixtrim_select_bf16.cu"
+extern "C" int variant_k2(const void* x, const float* m, float* mt, int n,
+                          long long d, int f, float* out, int blocks, void* s) {
+  return mixtrim_select::launch({x, REPRO_F32, m, mt, 1, n, d, f, nullptr, 0,
+                                 out, blocks, static_cast<cudaStream_t>(s)});
+}
+"""
+K2_SHAPES = ((256, 1 << 20), (640, 1 << 20), (1024, 1 << 20))
+
+
 def _copy(name: str, files: dict, subs: dict) -> Path:
     """build/variants/<name>/ holding the sources with ``subs`` applied
     (each pattern matches at most once)."""
@@ -88,6 +111,12 @@ def build_all() -> dict:
                          "mixtrim_dyn.cuh": (CSRC / "mixtrim_dyn.cuh").read_text(),
                          "k.cu": K4_ENTRY}, subs)
         jobs[name] = d
+    k2_files = {f: (CSRC / f).read_text() for f in (
+        "mixtrim.cuh", "mixtrim_select.cuh", "mixtrim_select.cu",
+        "mixtrim_select_bf16.cu")}
+    for name, subs in K2_VARIANTS.items():
+        jobs[name] = _copy(name, {"common.cuh": common, **k2_files,
+                                  "k.cu": K2_ENTRY}, subs)
     procs = {name: subprocess.Popen(
         [nvcc, *_build.COMPILE_FLAGS, "-shared", str(d / "k.cu"), "-o",
          str(d / "k.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -193,11 +222,58 @@ def main() -> int:
         print(f"{k}: {min(ts):.3f} ms (turns {', '.join(f'{t:.3f}' for t in ts)})"
               + (f", {100 * bound / min(ts):.0f} % of the {bound:.3f} ms byte "
                  "bound" if k.startswith("K5") else ""))
+    del x, want, want4
+    torch.cuda.empty_cache()
+    k2_variants(libs, dev, gen, sms)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
     print(card)
     return 0
+
+
+def k2_variants(libs, dev, gen, sms) -> None:
+    """K2's 64 < n <= 1024 body: committed against mix-only, in turns."""
+    import torch
+    from repro_torch.kernels import mixtrim_ref
+    from repro_torch.kernels._common import stream_of
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in K2_VARIANTS:
+        lib = libs[name]
+        lib.variant_k2.argtypes = [P, P, P, I, LL, I, P, I, P]
+        lib.repro_mixtrim_select_scratch.argtypes = [I]
+        lib.repro_mixtrim_select_scratch.restype = LL
+    for n, d in K2_SHAPES:
+        f = n // 32
+        x = torch.randn((n, d), generator=gen, device=dev)
+        m = torch.softmax(torch.randn((n, n), generator=gen, device=dev), -1)
+        mt = torch.empty(libs["K2 committed"].repro_mixtrim_select_scratch(n),
+                         device=dev)
+        for tag, mm in (("mix", m), ("no-mix", None)):
+            out = torch.empty(d, device=dev)
+            runs = {}
+            for name in K2_VARIANTS:
+                def run(lib=libs[name], mm=mm):
+                    rc = lib.variant_k2(x.data_ptr(),
+                                        None if mm is None else mm.data_ptr(),
+                                        mt.data_ptr(), n, d, f, out.data_ptr(),
+                                        16 * sms, stream_of(x))
+                    assert rc == 0, rc
+                    return out
+                runs[name] = run
+            step = (1 << 28) // n
+            want = torch.cat([mixtrim_ref(x[:, c:c + step], mm, f)
+                              for c in range(0, d, step)])
+            close(runs["K2 committed"](), want)
+            times = {k: [] for k in runs}
+            for _ in range(2):
+                for k, fn in runs.items():
+                    times[k].append(time_ms(fn))
+            for k, ts in times.items():
+                print(f"{k} n={n} D={d} f={f} {tag}: {min(ts):.3f} ms (turns "
+                      f"{', '.join(f'{t:.3f}' for t in ts)})", flush=True)
+        del x, m, mt
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

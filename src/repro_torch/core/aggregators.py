@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core import gram as gramlib
 from repro_torch.core.types import AggregatorSpec
+from repro_torch.kernels._common import sort_nan_last
 
 Tensor = torch.Tensor
 
@@ -39,8 +40,7 @@ def cwtm(x: Tensor, f: int) -> Tensor:
         raise ValueError(f"need 0 <= f < n/2, got f={f}, n={n}")
     if f == 0:
         return x.float().mean(dim=0)
-    xs = torch.sort(x.float(), dim=0).values
-    return xs[f: n - f].mean(dim=0)
+    return sort_nan_last(x.float(), 0)[f: n - f].mean(dim=0)
 
 
 def meamed(x: Tensor, f: int) -> Tensor:

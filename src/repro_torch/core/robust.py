@@ -59,6 +59,7 @@ from repro_torch.core import gram as gramlib
 from repro_torch.core.aggregators import _median
 from repro_torch.core.types import AggregatorSpec, COORDINATE_RULES, GRAM_RULES
 from repro_torch.kernels import dispatch as kdispatch
+from repro_torch.kernels._common import sort_nan_last
 from repro_torch.kernels.gram import gram_batched_ref, gram_ref
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -107,7 +108,7 @@ def _coordinate_rule(x: Tensor, rule: str, f: int) -> Tensor:
     if rule == "cwtm":
         if f == 0:
             return x.mean(dim=0)
-        return torch.sort(x, dim=0).values[f: n - f].mean(dim=0)
+        return sort_nan_last(x, 0)[f: n - f].mean(dim=0)
     if rule == "meamed":
         med = _median(x)[None]
         order = torch.argsort(torch.abs(x - med), dim=0, stable=True)
@@ -397,7 +398,7 @@ def _coordinate_rule_lanes(x: Tensor, rule: str, f: Tensor) -> Tensor:
     i = torch.arange(n, device=x.device).reshape((1, n) + (1,) * (x.dim() - 2))
     fl = f.reshape((b, 1) + (1,) * (x.dim() - 2))
     if rule == "cwtm":
-        xs = torch.sort(x, dim=1).values
+        xs = sort_nan_last(x, 1)
         keep = ((i >= fl) & (i < n - fl)).float()
         return (xs * keep).sum(dim=1) / torch.clamp_min(
             (n - 2 * fl[:, 0]).float(), 1.0)

@@ -44,9 +44,11 @@ _SIGNATURES = {
     "repro_gram_batched_slots": ([_I], _I),
     "repro_gram_batched_chunks": ([_I, _I, _LL, _I], _I),
     "repro_gram_staged_max_n": ([], _I),
-    "repro_mixtrim": ([_P, _I, _P, _I, _LL, _I, _I, _P, _I, _P], _I),
-    "repro_mixtrim_dyn": ([_P, _I, _P, _I, _I, _LL, _P, _I, _P, _I, _P], _I),
+    "repro_mixtrim": ([_P, _I, _P, _P, _I, _LL, _I, _I, _P, _I, _P], _I),
+    "repro_mixtrim_dyn": ([_P, _I, _P, _P, _I, _I, _LL, _P, _I, _P, _I, _P],
+                          _I),
     "repro_mixtrim_max_n": ([], _I),
+    "repro_mixtrim_select_scratch": ([_I], _LL),
     "repro_combine": ([_P, _I, _P, _I, _LL, _P, _I, _P], _I),
     "repro_bucketgram": ([_P, _I, _I, _LL, _P, _P, _P, _I, _P, _P, _P, _P,
                           _P, _I, _P], _I),

@@ -1,4 +1,5 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks shared by the kernel wrappers, and the NaN-last sort of
+the plain versions."""
 from __future__ import annotations
 
 import torch
@@ -48,3 +49,12 @@ def check_small(t: torch.Tensor, shape: tuple, x: torch.Tensor,
 
 def stream_of(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def sort_nan_last(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.sort(x, dim).values`` with every NaN ranked last, the order
+    of ``jnp.sort`` and of the kernels' keys.  ``torch.sort`` gives that
+    order on the CPU, but on the card it ranks a NaN with its sign bit set
+    (a negated NaN row, or NaNs made by x86 arithmetic) first; NaNs are
+    made positive before the sort."""
+    return torch.sort(x.masked_fill(torch.isnan(x), float("nan")), dim=dim).values

@@ -23,7 +23,10 @@
 // element for the mix plus the network) for small n; the mix's 2n^2 FLOP
 // per column take over as n grows.
 //
-// n > 64 (mixtrim_big, up to MAX_N = 16384): n values per column no
+// 64 < n <= 1024 runs csrc/mixtrim_select.cuh (a register-tiled mix and
+// a rank selection; design notes there), for K2 and K4 alike.
+//
+// n > 1024 (mixtrim_big, up to MAX_N = 16384): n values per column no
 // longer fit in registers.  A block takes a tile of TC columns (TC * NP
 // <= 16384 keys, at most 64 columns), stages it in shared memory — rows
 // read TC consecutive columns at a time, so a warp's loads coalesce — and
@@ -34,10 +37,11 @@
 // shared arrays use an odd pitch so that column-strided accesses hit
 // distinct banks.
 //
-// K4 above 64 workers · mixtrim_big with DYN = true, replacing
+// K4 above 1024 workers · mixtrim_big with DYN = true, replacing
 // repro/kernels/mixtrim/kernel.py::mixtrim_dyn_pallas (body
-// _make_dyn_kernel) for n > 64 (K4's own body for n <= 64 is in
-// csrc/mixtrim_dyn.cuh): f is a runtime int32 read on the device, one per
+// _make_dyn_kernel) for n > 1024 (K4's own body for n <= 64 is in
+// csrc/mixtrim_dyn.cuh, 64 < n <= 1024 in csrc/mixtrim_select.cuh):
+// f is a runtime int32 read on the device, one per
 // lane of a (B, n, D) stack (grid: column blocks x lanes, blockIdx.y =
 // lane, each lane with its own optional (n, n) M), so one build serves
 // every f and the host never reads f.  The trim is the reference's rank
@@ -282,16 +286,20 @@ mixtrim_big(const T* __restrict__ x, const float* __restrict__ m, int n,
 }
 
 // Launch arguments shared by K2 (lanes = 1, f on the host, fdev NULL)
-// and K4 (lanes >= 1, fdev = the (lanes,) int32 f on the device).
+// and K4 above 64 workers (lanes >= 1, fdev = the (lanes,) int32 f on the
+// device).
 struct Args {
-  const float* m;
+  const void* x;                         // (lanes, n, d) of dtype
+  int dtype;
+  const float* m;                        // (lanes, n, n) fp32 or NULL
+  float* mt;                             // scratch for M^T (mixtrim_select)
   int lanes, n;
   long long d;
   int f;
   const int* fdev;
   int med;
-  float* out;
-  int blocks;                            // column blocks per lane
+  float* out;                            // (lanes, d) fp32
+  int blocks;                            // column blocks per lane, at most
   cudaStream_t s;
 };
 
@@ -322,7 +330,8 @@ void launch_np(const T* x, const Args& a) {
         x, a.m, a.n, a.d, a.f, a.med, a.out);
 }
 
-// K2 (static f, one lane).
+// K2 (static f, one lane) for n <= 64 and n > 1024 (mixtrim.cu sends
+// 64 < n <= 1024 to csrc/mixtrim_select.cu).
 template <typename T>
 int launch(const void* xv, const Args& a) {
   const T* x = static_cast<const T*>(xv);
@@ -341,10 +350,12 @@ int launch(const void* xv, const Args& a) {
   return cudaGetLastError();
 }
 
-inline int dispatch(const void* x, int dtype, const Args& a) {
-  if (dtype == REPRO_F32) return launch<float>(x, a);
-  if (dtype == REPRO_BF16) return launch<__nv_bfloat16>(x, a);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace mixtrim_detail
+
+// 64 < n <= 1024, for K2 and K4 alike: the register-tiled mix and the
+// rank selection of csrc/mixtrim_select.cuh (entry point in
+// mixtrim_select.cu).
+namespace mixtrim_select {
+constexpr int MAX_N = 1024;
+int launch(const mixtrim_detail::Args& a);
+}  // namespace mixtrim_select

@@ -4,8 +4,9 @@
 // there), compiled at one height per n up to 32 and at 48 and 64 above;
 // the heights are instantiated here (n <= 8) and in mixtrim_dyn_n9.cu,
 // _n17.cu, _n25.cu and _n33.cu, so that nvcc builds them in parallel.
-// 64 < n <= 16384 runs the shared-memory kernel of csrc/mixtrim.cuh
-// (mixtrim_big, DYN = true), whose notes are there.
+// 64 < n <= 1024 runs the register-tiled mix and rank selection of
+// csrc/mixtrim_select.cuh, 1024 < n <= 16384 the shared-memory sort of
+// csrc/mixtrim.cuh (mixtrim_big, DYN = true); their notes are there.
 #include "mixtrim.cuh"
 #include "mixtrim_dyn.cuh"
 
@@ -46,27 +47,27 @@ int launch_small(const Args& a) {
   return launch_n<64>(a);
 }
 
-// n > 64: mixtrim_big with f on the device.
+// n > 1024: mixtrim_big with f on the device.
 template <typename T>
-int launch_large(const Args& a) {
-  const mixtrim_detail::Args b{a.m, a.lanes, a.n, a.d, 0, a.f, a.med, a.out,
-                               a.blocks, a.s};
+int launch_large(const mixtrim_detail::Args& a) {
   const T* x = static_cast<const T*>(a.x);
-  if (a.m) return mixtrim_detail::launch_big<T, true, true>(x, b);
-  return mixtrim_detail::launch_big<T, false, true>(x, b);
+  if (a.m) return mixtrim_detail::launch_big<T, true, true>(x, a);
+  return mixtrim_detail::launch_big<T, false, true>(x, a);
 }
 
 }  // namespace mixtrim_dyn_detail
 
 using namespace mixtrim_dyn_detail;
 
-// K4.  x: (lanes, n, d); m: (lanes, n, n) fp32 or NULL; f: (lanes,) int32
-// on the device; out: (lanes, d) fp32; blocks: column blocks per lane, at
-// most (each body caps it at what one wave of resident blocks needs).
+// K4.  x: (lanes, n, d); m: (lanes, n, n) fp32 or NULL; mt: scratch as m
+// for M^T, needed with m for 64 < n <= 1024 (else unused, may be NULL);
+// f: (lanes,) int32 on the device; out: (lanes, d) fp32; blocks: column
+// blocks per lane, at most (each body caps it at what one wave of
+// resident blocks needs).
 extern "C" int repro_mixtrim_dyn(const void* x, int dtype, const float* m,
-                                 int lanes, int n, long long d, const int* f,
-                                 int med, float* out, int blocks,
-                                 void* stream) {
+                                 float* mt, int lanes, int n, long long d,
+                                 const int* f, int med, float* out,
+                                 int blocks, void* stream) {
   if (lanes < 1 || lanes > 65535 || n < 1 || n > mixtrim_detail::MAX_N ||
       d < 1 || blocks < 1 || f == nullptr)
     return cudaErrorInvalidValue;
@@ -74,6 +75,9 @@ extern "C" int repro_mixtrim_dyn(const void* x, int dtype, const float* m,
   const Args a{x, dtype, m, lanes, n, d, f, med, out, blocks,
                static_cast<cudaStream_t>(stream)};
   if (n <= mixtrim_detail::SMALL_N) return launch_small(a);
-  if (dtype == REPRO_F32) return launch_large<float>(a);
-  return launch_large<__nv_bfloat16>(a);
+  const mixtrim_detail::Args big{x, dtype, m, mt, lanes, n, d, 0, f, med,
+                                 out, blocks, a.s};
+  if (n <= mixtrim_select::MAX_N) return mixtrim_select::launch(big);
+  if (dtype == REPRO_F32) return launch_large<float>(big);
+  return launch_large<__nv_bfloat16>(big);
 }

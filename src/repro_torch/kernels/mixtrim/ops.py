@@ -5,11 +5,15 @@ and K4 · its dynamic-f, lane-batched form.
 ``csrc/mixtrim.cu`` (the counterpart of the TPU kernel
 ``repro/kernels/mixtrim/kernel.py::mixtrim_pallas``); for a CPU stack it
 runs :func:`mixtrim_ref`, the plain version, which defines the semantics:
-values sort with every NaN last (``torch.sort`` / ``jnp.sort`` order), so a
+values sort with every NaN last (``jnp.sort``'s order, whatever the NaN's
+sign: :func:`~repro_torch.kernels._common.sort_nan_last`), so a
 trim over the nan / inf attack stacks keeps the same ranks in both.
-Up to 64 workers a register network sorts each column; above that (to
-:data:`MAX_N`) a shared-memory network sorts tiles of columns (the kernels
-are in ``csrc/mixtrim.cuh``, K2's entry point in ``mixtrim.cu``).  K4 has
+Up to 64 workers a register network sorts each column (``csrc/
+mixtrim.cuh``, K2's entry point in ``mixtrim.cu``); from 65 to 1024
+workers the mix is a register-tiled fp32 tile product and a radix select
+finds the two ranks a trim or a median needs (``csrc/mixtrim_select.cuh``);
+above that (to :data:`MAX_N`) a shared-memory network sorts tiles of
+columns (``mixtrim.cuh``).  K4 has
 its own body up to 64 workers (``csrc/mixtrim_dyn.cuh``: several columns
 a thread, a sorting network cut to the real n) and shares K2's above.
 ``mixtrim.launches`` counts kernel launches.
@@ -31,13 +35,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    check_lanes, check_small, check_stack, stream_of,
+    check_lanes, check_small, check_stack, sort_nan_last, stream_of,
 )
 
 _THREADS = 256
 _BLOCKS_PER_SM = 16
 #: Largest worker count the register-network kernel takes
-#: (csrc/mixtrim.cuh SMALL_N); above it a shared-memory kernel sorts.
+#: (csrc/mixtrim.cuh SMALL_N).
 SMALL_N = 64
 #: Largest worker count the kernels take (csrc/mixtrim.cuh MAX_N): the next
 #: power of two above the reference's largest scale n, 10240.
@@ -54,9 +58,9 @@ def mixtrim_ref(x: torch.Tensor, m: Optional[torch.Tensor], f: int,
     if mode == "trim":
         if f == 0:
             return y.mean(dim=0)
-        return torch.sort(y, dim=0).values[f: n - f].mean(dim=0)
+        return sort_nan_last(y, 0)[f: n - f].mean(dim=0)
     if mode == "med":
-        ys = torch.sort(y, dim=0).values
+        ys = sort_nan_last(y, 0)
         if n % 2 == 1:
             return ys[n // 2]
         return 0.5 * (ys[n // 2 - 1] + ys[n // 2])
@@ -81,10 +85,7 @@ def mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f: int,
         raise ValueError(f"mixtrim kernel takes n <= {MAX_N} workers, got "
                          f"n={n} (the port's one limit, ROADMAP queue 3)")
     d = x.shape[1]
-    mf = None
-    if m is not None:
-        mf = m.float().contiguous()
-        check_small(mf, (n, n), x, "mixtrim m")
+    mf, mt = _mix_operands(m, (n, n), x, "mixtrim m")
     lib = _build.library()
     cap = _BLOCKS_PER_SM * _build.sm_count(x.device)
     # n > SMALL_N: the kernel takes tiles of columns and caps the grid at
@@ -93,15 +94,34 @@ def mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f: int,
     out = torch.empty((d,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.repro_mixtrim(x.data_ptr(), _build.dtype_code(x.dtype),
-                               None if mf is None else mf.data_ptr(), n, d,
-                               int(f), int(mode == "med"), out.data_ptr(),
-                               blocks, stream_of(x))
+                               _ptr(mf), _ptr(mt), n, d, int(f),
+                               int(mode == "med"), out.data_ptr(), blocks,
+                               stream_of(x))
     _build.check(rc, "mixtrim kernel")
     mixtrim.launches += 1
     return out
 
 
 mixtrim.launches = 0
+
+
+def _mix_operands(m, shape: tuple, x: torch.Tensor, what: str):
+    """(fp32 M, scratch for M^T): the scratch only where the tiled mix
+    (64 < n <= 1024) stages M transposed and padded to its tile, sized by
+    the library; None without M."""
+    if m is None:
+        return None, None
+    mf = m.float().contiguous()
+    check_small(mf, shape, x, what)
+    words = _build.library().repro_mixtrim_select_scratch(shape[-1])
+    lanes = shape[0] if len(shape) == 3 else 1
+    mt = torch.empty((lanes * words,), dtype=torch.float32,
+                     device=x.device) if words else None
+    return mf, mt
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _lane_f(f, lanes: int, device) -> torch.Tensor:
@@ -130,7 +150,7 @@ def _as_lanes(x, m, f):
 def mixtrim_dyn_ref(x: torch.Tensor, m: Optional[torch.Tensor], f,
                     mode: str = "trim") -> torch.Tensor:
     """Plain version of K4: Y = M @ X per lane in fp32 (X alone when ``m``
-    is None), ``torch.sort`` along the worker axis, then ``"trim"``: the
+    is None), a NaN-last sort along the worker axis, then ``"trim"``: the
     sum of ys[r] * keep[r] over all n ranks, keep = (r >= f) & (r < n - f),
     over max(n - 2f, 1); ``"med"``: the median (f unused).  x is (B, n, D)
     with (B, n, n) m and (B,) f, or (n, D) with (n, n) m and a scalar f;
@@ -138,7 +158,7 @@ def mixtrim_dyn_ref(x: torch.Tensor, m: Optional[torch.Tensor], f,
     x, m, f, batched = _as_lanes(x, m, f)
     n = x.shape[1]
     y = x.float() if m is None else m.float() @ x.float()
-    ys = torch.sort(y, dim=1).values
+    ys = sort_nan_last(y, 1)
     if mode == "trim":
         f = _lane_f(f, x.shape[0], x.device).reshape(-1, 1, 1)
         i = torch.arange(n, device=x.device).reshape(1, n, 1)
@@ -172,18 +192,15 @@ def mixtrim_dyn(x: torch.Tensor, m: Optional[torch.Tensor], f,
         raise ValueError(f"mixtrim_dyn kernel takes n <= {MAX_N} workers, got "
                          f"n={n} (the port's one limit, ROADMAP queue 3)")
     fd = _lane_f(f, lanes, x.device)
-    mf = None
-    if m is not None:
-        mf = m.float().contiguous()
-        check_small(mf, (lanes, n, n), x, "mixtrim_dyn m")
+    mf, mt = _mix_operands(m, (lanes, n, n), x, "mixtrim_dyn m")
     lib = _build.library()
     # The kernels cap the column blocks at what one wave needs themselves.
     blocks = max(1, _BLOCKS_PER_SM * _build.sm_count(x.device) // lanes)
     out = torch.empty((lanes, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.repro_mixtrim_dyn(x.data_ptr(), _build.dtype_code(x.dtype),
-                                   None if mf is None else mf.data_ptr(),
-                                   lanes, n, d, fd.data_ptr(),
+                                   _ptr(mf), _ptr(mt), lanes, n, d,
+                                   fd.data_ptr(),
                                    int(mode == "med"), out.data_ptr(), blocks,
                                    stream_of(x))
     _build.check(rc, "mixtrim_dyn kernel")

@@ -112,17 +112,19 @@ def test_gram_is_deterministic_and_counts_launches(dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [65, 100, 257, 1024])
+@pytest.mark.parametrize("n", [65, 100, 257, 640, 1024, 1025])
 @pytest.mark.parametrize("d", [1, 61, 4099])
 def test_mixtrim_above_64_workers_matches_plain(dev, dtype, n, d):
-    """The shared-memory sort (n > 64): every f regime, with and without
-    the mix, ragged column tiles; n = 65 was refused before it existed."""
+    """n > 64: the tiled mix and rank selection up to n = 1024 (every
+    tile geometry: rows padded to 256, 640, 1024), the
+    shared-memory sort at 1025; every f regime, with and without the mix,
+    ragged column tiles."""
     x = _stack(dev, n, d, dtype, False, seed=n + d)
     gen = torch.Generator(device=dev)
     gen.manual_seed(n)
     m = torch.softmax(torch.randn(n, n, generator=gen, device=dev), -1)
     for mode in ("trim", "med"):
-        for f in sorted({0, 3, (n - 1) // 2}):
+        for f in sorted({0, 3, n // 32, (n - 1) // 2}):
             if mode == "med" and f:
                 continue
             for mm in (None, m.to(dtype)):
@@ -141,6 +143,122 @@ def test_mixtrim_above_64_workers_nonfinite_rows(dev, fill, n, f):
         for mm in (None, m):
             _close(mixtrim(x, mm, f if mode == "trim" else 0, mode),
                    mixtrim_ref(x, mm, f if mode == "trim" else 0, mode))
+
+
+def _nnm_m(x, f):
+    """The NNM matrix of a (n, D) stack (row i averages its n - f nearest
+    rows): f zeros a row, the shape of M on the main path."""
+    from repro_torch.core import gram as gramlib
+    g = x.float() @ x.float().T
+    return gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [float("nan"), float("inf"), -float("inf")])
+@pytest.mark.parametrize("n,f", [(100, 10), (640, 20)])
+def test_mixtrim_above_64_workers_nonfinite_rows_nnm_mix(dev, fill, n, f):
+    """NaN / inf rows through an NNM-shaped M (zero entries): the mix
+    sums over every j, so 0 * inf = NaN lands where the plain fp32
+    product puts it; K2 (slice) and K4 (rank mask, f per lane, past n/2
+    too).  Row 5 holds -fill, so with fill = NaN a NaN with its sign bit
+    set, which the kernel and the plain versions rank last."""
+    x = _stack(dev, n, 2051, torch.float32, False, seed=n).clone()
+    m = _nnm_m(x, f)
+    assert int((m == 0).sum()) == n * f
+    x[n - f:, ::2] = fill
+    x[3, 7] = float("nan")
+    x[5, 11:40] = -fill
+    for mode in ("trim", "med"):
+        for mm in (None, m):
+            k = f if mode == "trim" else 0
+            _close(mixtrim(x, mm, k, mode), mixtrim_ref(x, mm, k, mode))
+    xl = torch.stack([x, x, x])
+    ml = torch.stack([m, m, m])
+    fl = torch.tensor([f, 0, n // 2 + 1], dtype=torch.int32, device=dev)
+    for mode in ("trim", "med"):
+        for mm in (None, ml):
+            _close(mixtrim_dyn(xl, mm, fl, mode), mixtrim_dyn_ref(xl, mm, fl, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f", [(8, 2), (17, 8), (100, 10), (640, 20)])
+def test_plain_versions_rank_sign_bit_nan_last_on_the_card(dev, n, f):
+    """torch.sort on the card ranks a NaN with its sign bit set first, on
+    the CPU last (jnp.sort's order).  The plain versions of K2 and K4 and
+    the torch backend's cwtm make NaNs positive before they sort, so on
+    the card they equal their CPU runs, and the kernels equal both."""
+    from repro_torch.core import aggregators
+    from repro_torch.core.robust import _coordinate_rule_lanes
+    x = _stack(dev, n, 2051, torch.float32, False, seed=n + 5).clone()
+    neg_nan = torch.tensor([-4194304], dtype=torch.int32).view(torch.float32)
+    x[n - f:, ::2] = float("nan")
+    x[1, 11:300] = neg_nan.to(dev)
+    x[2, 200:220] = float("inf")
+    assert int(x[1, 11:300].view(torch.int32).min()) < 0
+    xc = x.cpu()
+    m = torch.softmax(torch.randn(n, n, device=dev), -1)
+    for mode in ("trim", "med"):
+        k = f if mode == "trim" else 0
+        for mm in (None, m):
+            want = mixtrim_ref(xc, None if mm is None else mm.cpu(), k, mode)
+            _close(mixtrim_ref(x, mm, k, mode), want)
+            _close(mixtrim(x, mm, k, mode), want)
+    _close(aggregators.cwtm(x, f), aggregators.cwtm(xc, f))
+    xl = torch.stack([x, x])
+    fl = torch.tensor([f, n // 2 + 1], dtype=torch.int32)
+    for mode in ("trim", "med"):
+        want = mixtrim_dyn_ref(xl.cpu(), None, fl, mode)
+        _close(mixtrim_dyn_ref(xl, None, fl.to(dev), mode), want)
+        _close(mixtrim_dyn(xl, None, fl.to(dev), mode), want)
+    _close(_coordinate_rule_lanes(xl, "cwtm", fl.to(dev)),
+           _coordinate_rule_lanes(xl.cpu(), "cwtm", fl))
+
+
+def _tie_stack(dev, n, d, kind, seed):
+    """Tie-heavy columns: 0-1 entries at a density drawn per column, or
+    small integers in [-3, 3] (sums exact in fp32)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if kind == "01":
+        p = torch.rand((1, d), generator=gen, device=dev)
+        return (torch.rand((n, d), generator=gen, device=dev) < p).float()
+    return torch.randint(-3, 4, (n, d), generator=gen, device=dev).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["01", "int"])
+@pytest.mark.parametrize("mix", [False, True])
+def test_mixtrim_rank_select_is_exact_on_tie_heavy_columns(dev, kind, mix):
+    """At n = 640, on 0-1 and small-integer columns, with no mix or a
+    permutation matrix as M (every sum exact in fp32), the rank selection
+    equals the plain version exactly: K2's trim and median, K4's trim (f
+    per lane, past n/2 too) and median.  Ties at the two selected ranks
+    are what a selection can miscount and a sort cannot.  The plain
+    versions run on the CPU, whose mean divides the exact sum once, as the
+    kernel does."""
+    n, d = 640, 4099
+    x = _tie_stack(dev, n, d, kind, seed=n + int(mix))
+    m = None
+    if mix:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        perm = torch.randperm(n, generator=gen, device=dev)
+        m = torch.eye(n, device=dev)[perm]
+    xc, mc = x.cpu(), None if m is None else m.cpu()
+    for f in (0, 3, n // 32, 200, (n - 1) // 2):
+        for mode in ("trim", "med"):
+            k = f if mode == "trim" else 0
+            assert torch.equal(mixtrim(x, m, k, mode).cpu(),
+                               mixtrim_ref(xc, mc, k, mode))
+    fl = torch.tensor([0, 3, n // 32, (n - 1) // 2, n // 2, n // 2 + 7],
+                      dtype=torch.int32)
+    xl = x.expand(len(fl), n, d).contiguous()
+    ml = None if m is None else m.expand(len(fl), n, n).contiguous()
+    for mode in ("trim", "med"):
+        got = mixtrim_dyn(xl, ml, fl.to(dev), mode).cpu()
+        want = mixtrim_dyn_ref(xl.cpu(), None if ml is None else ml.cpu(), fl,
+                               mode)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -283,7 +401,8 @@ def _lane_fs(dev, b, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n", [(1, 8), (8, 17), (6, 16), (4, 3), (3, 100)])
+@pytest.mark.parametrize("b,n", [(1, 8), (8, 17), (6, 16), (4, 3), (3, 100),
+                                 (3, 640)])
 @pytest.mark.parametrize("d", [1, 61, 2842])
 def test_mixtrim_dyn_matches_plain(dev, dtype, b, n, d):
     """K4: per-lane f (0 .. past n/2), per-lane M, with and without the
@@ -299,7 +418,7 @@ def test_mixtrim_dyn_matches_plain(dev, dtype, b, n, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [8, 17, 100])
+@pytest.mark.parametrize("n", [8, 17, 100, 640])
 def test_mixtrim_dyn_agrees_with_k2_at_equal_f(dev, n):
     x = _lanes(dev, 1, n, 4099, torch.float32, seed=n)[0]
     m = torch.softmax(torch.randn((n, n), device=dev), -1)
@@ -311,7 +430,7 @@ def test_mixtrim_dyn_agrees_with_k2_at_equal_f(dev, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fill", [float("nan"), float("inf"), -float("inf")])
-@pytest.mark.parametrize("n", [17, 16, 100])
+@pytest.mark.parametrize("n", [17, 16, 100, 640])
 def test_mixtrim_dyn_nonfinite_rows_match_plain(dev, fill, n):
     """The rank mask keeps inf * 0 = NaN: a non-finite row makes its
     columns NaN even where its rank is trimmed (as the reference's

@@ -26,8 +26,9 @@ from repro.kernels.combine import combine_ref as jcombine_ref
 from repro.kernels.gram import gram as jgram
 from repro.kernels.gram import gram_ref as jgram_ref
 from repro.kernels.mixtrim import mixtrim as jmixtrim
+from repro.kernels.mixtrim import mixtrim_dyn_ref as jmixtrim_dyn_ref
 from repro.kernels.mixtrim import mixtrim_ref as jmixtrim_ref
-from repro_torch.kernels import combine, gram, mixtrim
+from repro_torch.kernels import combine, gram, mixtrim, mixtrim_dyn
 from repro_torch.kernels import dispatch as kdispatch
 
 torch.set_num_threads(2)
@@ -117,6 +118,88 @@ def test_mixtrim_plain_nonfinite_rows_match_reference(fill, mode):
     _close(got, want)
     if mode == "trim":
         assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("n", [100, 640])
+@pytest.mark.parametrize("mode", ["trim", "med"])
+@pytest.mark.parametrize("mix", [False, True])
+def test_mixtrim_plain_above_64_workers_matches_reference(n, mode, mix):
+    """The range of the tiled mix and rank selection on the card
+    (64 < n <= 1024): the plain version, which the kernel is held to
+    there, against the reference's oracle in every f regime."""
+    jx, tx = _both(_stack(n, n, 257))
+    m = _mix(n, n) if mix else None
+    for f in sorted({0, 3, n // 32, (n - 1) // 2}) if mode == "trim" else (0,):
+        got = mixtrim(tx, None if m is None else torch.from_numpy(m), f, mode)
+        want = jmixtrim_ref(jx, None if m is None else jnp.asarray(m), f, mode)
+        _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,f", [(17, 4), (100, 10)])
+@pytest.mark.parametrize("mode", ["trim", "med"])
+def test_plain_versions_rank_sign_bit_nan_last(n, f, mode):
+    """A NaN with its sign bit set (a negated NaN row) ranks last, as in
+    jnp.sort: K2's and K4's plain versions and the torch backend's cwtm
+    against the reference, beside +NaN and inf rows."""
+    from repro.core import aggregators as jagg
+    from repro_torch.core import aggregators
+    x = _stack(n + 3, n, 301)
+    x[n - f:, ::2] = np.nan
+    x[1, 11:200] = np.copysign(np.float32(np.nan), np.float32(-1))
+    x[2, 150:170] = np.inf
+    assert np.signbit(x[1, 11]) and np.isnan(x[1, 11])
+    tx, jx = torch.from_numpy(x), jnp.asarray(x)
+    k = f if mode == "trim" else 0
+    _close(mixtrim(tx, None, k, mode).numpy(), jmixtrim_ref(jx, None, k, mode))
+    fl = [k, n // 2 + 1]
+    got = mixtrim_dyn(torch.stack([tx, tx]), None,
+                      torch.tensor(fl, dtype=torch.int32), mode).numpy()
+    for i, fi in enumerate(fl):
+        _close(got[i], jmixtrim_dyn_ref(jx, None, fi, mode))
+    if mode == "trim":
+        _close(aggregators.cwtm(tx, f).numpy(), jagg.cwtm(jx, f))
+
+
+def _tie_stack(kind, n, d, seed):
+    """Tie-heavy columns: 0-1 entries at a density drawn per column, or
+    small integers in [-3, 3] (every sum exact in fp32)."""
+    rng = np.random.default_rng(seed)
+    if kind == "01":
+        return (rng.random((n, d)) < rng.random((1, d))).astype(np.float32)
+    return rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["01", "int"])
+@pytest.mark.parametrize("mode", ["trim", "med"])
+def test_mixtrim_plain_tie_heavy_columns_equal_reference_exactly(kind, mode):
+    """n = 640 on tie-heavy columns, static f and K4's per-lane f (past
+    n/2 too): the plain versions are exact.  The static trim equals the
+    correctly rounded mean of the sorted slice (float64 sums of integers
+    are exact; the reference's jnp mean can differ from it in the last
+    bit, so it is held to the reference within the fp32 tolerance), the
+    median and K4's masked sum over max(n - 2f, 1) equal the reference's
+    oracles exactly.  On the card the rank selection is held to these
+    plain versions exactly (tests/test_torch_cuda.py), which is where a
+    selection that miscounts ties would show."""
+    n, d = 640, 300
+    x = _tie_stack(kind, n, d, seed=11)
+    tx, jx = torch.from_numpy(x), jnp.asarray(x)
+    xs = np.sort(x, axis=0).astype(np.float64)
+    for f in (0, 3, n // 32, 200, (n - 1) // 2) if mode == "trim" else (0,):
+        got = mixtrim(tx, None, f, mode).numpy()
+        want = jmixtrim_ref(jx, None, f, mode)
+        if mode == "med":
+            np.testing.assert_array_equal(got, np.asarray(want))
+            continue
+        exact = (xs[f: n - f].sum(axis=0) / (n - 2 * f)).astype(np.float32)
+        np.testing.assert_array_equal(got, exact)
+        _close(got, want)
+    fl = [0, 3, n // 32, (n - 1) // 2, n // 2, n // 2 + 7]
+    got = mixtrim_dyn(tx.expand(len(fl), n, d).contiguous(), None,
+                      torch.tensor(fl, dtype=torch.int32), mode).numpy()
+    for k, f in enumerate(fl):
+        np.testing.assert_array_equal(
+            got[k], np.asarray(jmixtrim_dyn_ref(jx, None, f, mode)))
 
 
 def test_one_case_each_against_interpret_mode_pallas():
