@@ -12,7 +12,11 @@ Phases, each fatal on failure:
      D = 361,821,120: full-width smollm-360m), and at n = 17, f = 8 on a
      ragged smaller D; times by CUDA events (median of 7, after a warm-up)
      beside the least time the card could take (bound) and, where one
-     PyTorch call computes the same function, that call's time;
+     PyTorch call computes the same function, that call's time; then K1 at
+     n in {17, 40, 64, 256, 640, 1024}, D = 2^20 (the staged kernel to 32
+     workers, the tiled product above, each tile height the wrapper picks
+     beside the other heights) against its plain version and
+     torch.mm(x, x.T);
   4. K6 (bucketgram) and K7 (bucketmeans) against their plain versions at
      the hierarchical trainer's shape (n = 16 workers in 8 buckets,
      D = 361,821,120, fp32 and bf16, then with inf / NaN rows), and at the
@@ -29,7 +33,10 @@ Phases, each fatal on failure:
      kernel backend against the torch backend at D = 64 and D = 2^19, then
      each twice at D = 2^20 (a 42.9 GB fp32 stack: launches and an empty
      fallback log asserted, host-clock time, peak memory), and each of
-     their kernels timed at the aggregates' own inputs;
+     their kernels timed at the aggregates' own inputs: K1 on the 640 means
+     (the tiled product) must be bitwise repeatable, exactly symmetric and
+     faster than torch.mm(y, y.T), its time printed beside the previous
+     design's;
   7. the main path: ``repro_torch.launch.train.main`` for 3 D-SHB steps of
      full-width smollm-360m, n = 8, f = 2, ALIE, NNM + CWTM; asserts finite
      loss / kappa_hat, one K1 and one K2 launch per step and no recorded
@@ -41,14 +48,17 @@ Phases, each fatal on failure:
      step), hier + CWTM (2 steps; K7 and K2), hier + NNM + GM (2 steps; K6
      and K3); then --agg bucketing+cwtm through launch.train.main (2 steps;
      K2 only);
- 10. ptxas's registers / stack / spills of K4's, K5's and K2's n <= 1024
-     instances (K4's fp32 n <= 32 and K2's fp32 mix instance for n = 640
-     must keep no stack frame and no spill); K4's sort on
+ 10. ptxas's registers / stack / spills of K4's, K5's, K2's n <= 1024 and
+     K1's tiled instances (K4's fp32 n <= 32, K2's fp32 mix instance for
+     n = 640 and K1's fp32 cp.async instance for n = 640, TM = 128, must
+     keep no stack frame and no spill); K4's sort on
      every 0-1 column at n = 17 (every f, trim and median) exactly equal to
      its plain version; K5 (gram_batched) against its plain version (the
      batch and each lane) and torch.bmm at (B = 8, n = 17, D = 2^24) and
      the reference bench's (8, 16, 8192), bitwise repeatable, its time at
-     (8, 17, 2^24) beside the previous design's and the bound; K4 (mixtrim_dyn)
+     (8, 17, 2^24) beside the previous design's and the bound, and above
+     32 workers (the tiled product) at (2, 640, 2^20), each lane also held
+     to K1 on that lane; K4 (mixtrim_dyn)
      lane-batched at (8, 17, 2^24) with per-lane f = 0..7 and per-lane M,
      with and without the mix, and with an inf row and a NaN row; both at
      the fleet grid's own shapes, (B = 5, n = 17, D = 2842) and the
@@ -59,9 +69,9 @@ Phases, each fatal on failure:
      fallback, printing the accuracy table, ms per bucket-round and peak
      memory; then the cwtm | nnm and cwtm | bucketing buckets again on the
      torch backend, per-round losses within rtol 1e-4 of the kernel run;
- 12. summary: the K1-K7 table (K2 above 64 workers on a row of its own,
-     its launches those of phase 6), the kernels JSON line, the card line,
-     and last the {"ok": true, ...} line.
+ 12. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+     means on rows of their own, their launches those of phase 6), the
+     kernels JSON line, the card line, and last the {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -98,9 +108,13 @@ K2_LARGE = ((65, (1 << 20) + 3), (256, 1 << 20), (640, 1 << 20),
             (1024, 1 << 20), (10240, 64))
 PLAIN_CHUNK = 1 << 25           # plain mixtrim runs in D-chunks (sort indices)
 PLAIN_ELEMS = 1 << 28           # ... of at most this many elements above n = 64
+#: K1's sweep over worker counts at D = 2^20 (phase 3).
+GRAM_SWEEP = (17, 40, 64, 256, 640, 1024)
+GRAM_SWEEP_D = 1 << 20
 #: The fleet's lane-batched kernel shapes: (B, n, D).
 FLEET_BIG = (8, 17, 1 << 24)
 FLEET_BENCH = (8, 16, 8192)     # the reference bench's gram_batched shape
+FLEET_WIDE = (2, 640, 1 << 20)  # K5 above 32 workers: the tiled product
 FLEET_GRID = (5, 17, 2842)      # a grid bucket: 5 lanes, the 48-48-10 MLP
 FLEET_GRID_BKT = (5, 9, 2842)   # a bucketing bucket: 17 workers, 9 means (s = 2)
 F_GRID = 4                      # the grid's f (n = 17)
@@ -231,11 +245,13 @@ def chunked(fn, d: int, n: int = 0):
 #: kernel table), printed beside this run's: at (8, 17,
 #: 2^24) K4 on K2's bitonic body with f on the device, with / without the
 #: mix, and K5 as K1's tile-pair kernels with a lane axis; K2 above 64
-#: workers (trim, f = n / 32, D = 2^20) on mixtrim_big's shared-memory sort.
+#: workers (trim, f = n / 32, D = 2^20) on mixtrim_big's shared-memory sort;
+#: K1 on the 640 means of phase 6 (D = 2^20) on its 8-row tile pairs.
 PREV_MS = {"K4 mix": 19.512, "K4 no-mix": 10.458, "K5": 9.858,
            "K2 n=256 mix": 29.861, "K2 n=256 no-mix": 5.119,
            "K2 n=640 mix": 116.665, "K2 n=640 no-mix": 27.265,
-           "K2 n=1024 mix": 258.404, "K2 n=1024 no-mix": 28.289}
+           "K2 n=1024 mix": 258.404, "K2 n=1024 no-mix": 28.289,
+           "K1 n=640": 40.639}
 _PTXAS_KERNELS = {
     # K4's n <= 64 body and K5's staged body: (dtype, height, flag).
     "K4": re.compile(r"mixtrim_dyn_smallI(f|13__nv_bfloat16)Li(\d+)ELb([01])E"),
@@ -245,14 +261,17 @@ _PTXAS_KERNELS = {
     "K2sel": re.compile(r"mix_selectI(f|13__nv_bfloat16)NS_3CfgILi(\d+)ELi(\d+)"
                         r"ELi(\d+)E"),
     "K2sel-nomix": re.compile(r"select_nomixI(f|13__nv_bfloat16)E"),
+    # K1 / K5 above 32 workers: the tiled product by its tile height.
+    "K1": re.compile(r"gram_tiledI(f|13__nv_bfloat16)Li(\d+)ELb([01])E"),
 }
 
 
 def ptxas_report(log: str) -> dict:
     """{(kernel, dtype, height, flag): (registers, stack, spill stores,
-    spill loads)} of K4's, K5's and K2's n <= 1024 instances from ``nvcc
-    -Xptxas -v`` output (flag: K4 and K2 the mix, K5 cp.async staging;
-    height: K4 the compiled n, K5 row blocks of 4, K2 the padded rows)."""
+    spill loads)} of K4's, K5's, K2's n <= 1024 and K1's tiled instances
+    from ``nvcc -Xptxas -v`` output (flag: K4 and K2 the mix, K5 and K1
+    cp.async staging; height: K4 the compiled n, K5 row blocks of 4, K2 the
+    padded rows, K1 the tile height TM)."""
     out, key = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -362,6 +381,40 @@ def phase_kernels(dev, rate: float) -> dict:
     return rows
 
 
+def phase_gram_sweep(dev, rate: float) -> None:
+    """K1 at n in GRAM_SWEEP, D = 2^20, fp32: the route the wrapper takes
+    against its plain version and torch.mm(x, x.T); above 32 workers also
+    the tiled product at each tile height (32, 64, 128), each held to the
+    plain version, so the wrapper's choice is seen beside the others."""
+    import torch
+    from repro_torch.kernels import gram, gram_ref
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gram.ops import _launch_tiled
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    d = GRAM_SWEEP_D
+    for n in GRAM_SWEEP:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        want = gram_ref(x)
+        bnd = bound(4.0 * n * d + 4 * n * n, n * (n + 1) * d, rate)
+        lib = time_ms(lambda: torch.mm(x, x.T))
+        check(f"K1 gram fp32 n={n} D={d}", gram(x), want,
+              time_ms(lambda: gram(x)), time_ms(lambda: gram_ref(x)), bnd, lib)
+        if n > _build.library().repro_gram_staged_max_n():
+            pick = _build.library().repro_gram_tiled_tm(n)
+            alt = []
+            for tm in (32, 64, 128):
+                run = lambda: _launch_tiled(x[None], 1, n, d, tm)[0]
+                err, tol = max_err(run(), want)
+                if err > tol:
+                    raise AssertionError(f"K1 tiled TM={tm} n={n}: {err} > {tol}")
+                alt.append(f"TM={tm}{' (picked)' if tm == pick else ''} "
+                           f"{time_ms(run):.3f} ms")
+            log(f"    tile heights at n={n}: " + ", ".join(alt))
+        del x, want
+        torch.cuda.empty_cache()
+
+
 def phase_k4_dense(x, m, f: int, d: int, rate: float) -> None:
     """K4 at the dense trainer's shape: f as a device tensor, the NNM mix;
     against its plain version and against K2 at the same f (1e-6 of
@@ -400,12 +453,12 @@ def phase_fleet_kernels(dev, rate: float) -> dict:
     run them."""
     import torch
     from repro_torch.core.bucketing import adjusted_f_dyn
-    from repro_torch.kernels import (gram_batched, gram_batched_ref,
+    from repro_torch.kernels import (gram, gram_batched, gram_batched_ref,
                                      mixtrim_dyn, mixtrim_dyn_ref)
     gen = torch.Generator(device=dev)
     gen.manual_seed(13)
     rows = {}
-    for b, n, d in (FLEET_BIG, FLEET_BENCH, FLEET_GRID, FLEET_GRID_BKT):
+    for b, n, d in (FLEET_BIG, FLEET_BENCH, FLEET_WIDE, FLEET_GRID, FLEET_GRID_BKT):
         big = (b, n, d) == FLEET_BIG
         log(f"-- K5 gram_batched B={b} n={n} D={d}")
         x = torch.randn((b, n, d), generator=gen, device=dev)
@@ -425,8 +478,12 @@ def phase_fleet_kernels(dev, rate: float) -> dict:
             rows["gram_batched"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                         bound=bnd, library_ms=lib)
             beside_previous("K5", ms, bnd)
-        if (b, n, d) == FLEET_BENCH:
+        if (b, n, d) == FLEET_WIDE:
+            for k in range(b):
+                agree(f"K5 lane {k} vs K1 on that lane", g[k], gram(x[k]))
+        if (b, n, d) in (FLEET_BENCH, FLEET_WIDE):
             del x, g, want
+            torch.cuda.empty_cache()
             continue
         if d == FLEET_GRID[2]:
             # The grid's own f, capped per lane as the bucketing lanes cap it.
@@ -481,14 +538,16 @@ def beside_previous(what: str, ms: float, bnd, shape=FLEET_BIG) -> None:
 
 def phase_ptxas() -> None:
     """ptxas's registers, stack frame and spills for K4's n <= 64 body,
-    K5's staged body and K2's 64 < n <= 1024 body; K4's fp32 instances up
-    to n = 32 and K2's fp32 mix instance for n = 640 must keep no stack
+    K5's staged body, K2's 64 < n <= 1024 body and K1's tiled product; K4's
+    fp32 instances up to n = 32, K2's fp32 mix instance for n = 640 and
+    K1's fp32 cp.async instance for n = 640 (TM = 128) must keep no stack
     frame and no spill."""
     from repro_torch.kernels import _build
     rep = ptxas_report(_build.BUILD_LOG)
     if not rep:
         raise AssertionError("no ptxas report of K4 / K5 in the build log")
-    for kern, flag in (("K4", "mix"), ("K5", "cp.async"), ("K2", "mix")):
+    for kern, flag in (("K4", "mix"), ("K5", "cp.async"), ("K2", "mix"),
+                       ("K1", "cp.async")):
         for dt in ("fp32", "bf16"):
             for on in (True, False):
                 row = [(h, v) for (k, d, h, f), v in sorted(rep.items())
@@ -508,6 +567,13 @@ def phase_ptxas() -> None:
                              "(registers/stack/spill stores/spill loads)")
     log(f"  K2 fp32 mix, 640 rows: {k2[0]} registers, no stack frame, no "
         "spill OK")
+    tm = _build.library().repro_gram_tiled_tm(640)
+    k1 = rep.get(("K1", "fp32", tm, True))
+    if k1 is None or any(k1[1:]):
+        raise AssertionError(f"K1's fp32 tiled instance for n = 640 (TM = {tm}): "
+                             f"{k1} (registers/stack/spill stores/spill loads)")
+    log(f"  K1 fp32 tiled, n = 640 (TM = {tm}): {k1[0]} registers, no stack "
+        "frame, no spill OK")
 
 
 def phase_sort_01(dev, n: int = FLEET_BIG[1]) -> None:
@@ -950,8 +1016,8 @@ def phase_hier_aggregate(dev, rate: float) -> dict:
     an empty fallback log, timed by the host clock around a synchronize,
     with its peak memory; then each kernel of the two at the aggregate's
     own inputs, held to its plain version and timed by CUDA events.
-    Returns K2's rows (the n = 640 mix and no mix) and each one's
-    launches in the aggregates."""
+    Returns K2's rows (the n = 640 mix and no mix) and K1's on the means,
+    and each one's launches in the aggregates."""
     import torch
     from repro_torch.core import bucketing as bucketlib
     from repro_torch.core import gram as gramlib
@@ -970,7 +1036,7 @@ def phase_hier_aggregate(dev, rate: float) -> dict:
     tree = {"x": torch.randn((n, d), generator=gen, device=dev)}
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(7))
     log(f"-- n={n} D={d} fp32 stack: {4 * n * d / 1e9:.1f} GB")
-    launches = {}
+    launches, gram_launches = {}, 0
     for name, (spec, expect) in _hier_specs(f).items():
         launches[name] = 0
         for run in range(2):
@@ -994,6 +1060,8 @@ def phase_hier_aggregate(dev, rate: float) -> dict:
             if run == 0:
                 log(rec.describe())
             launches[name] += counts["mixtrim"]
+            if spec["pre"] == "nnm":
+                gram_launches += counts["gram"]
             log(f"  {name} run {run}: {ms:.1f} ms (host clock), launches "
                 f"{got}, no fallback, peak "
                 f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
@@ -1023,11 +1091,23 @@ def phase_hier_aggregate(dev, rate: float) -> dict:
     del tree, x, ym, py, bmat
     torch.cuda.empty_cache()
     bnd = bound(4.0 * nb * d + 4 * nb * nb, nb * (nb + 1) * d, rate)
-    check(f"K1 gram of the {nb} means", gram(y), gram_ref(y),
-          time_ms(lambda: gram(y), 3), time_ms(lambda: gram_ref(y), 1), bnd,
-          time_ms(lambda: torch.mm(y, y.T), 3))
+    g1 = gram(y)
+    ms, pms = time_ms(lambda: gram(y), 3), time_ms(lambda: gram_ref(y), 1)
+    lib = time_ms(lambda: torch.mm(y, y.T), 3)
+    err = check(f"K1 gram of the {nb} means", g1, gram_ref(y), ms, pms, bnd, lib)
+    rows = {"gram_tiled": dict(max_abs_err=err, ms=ms, plain_ms=pms, bound=bnd,
+                               library_ms=lib)}
+    if not (torch.equal(g1, gram(y)) and torch.equal(g1, g1.T)):
+        raise AssertionError("K1 on the means is not bitwise repeatable and "
+                             "exactly symmetric")
+    log("  K1 on the means: bitwise equal over two runs, exactly symmetric")
+    beside_previous(f"K1 n={nb}", ms, bnd, (nb, d))
+    if not ms < lib:
+        raise AssertionError(f"K1 on the {nb} means ({ms:.3f} ms) is slower "
+                             f"than torch.mm(y, y.T) ({lib:.3f} ms)")
+    log(f"  K1 on the means: {lib / ms:.2f}x faster than torch.mm(y, y.T) OK")
+    del g1
     m = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), fb)
-    rows = {}
     for mm in (m, None):
         tag = "mix" if mm is not None else "no-mix"
         plain = chunked(lambda s_: mixtrim_ref(y[:, s_], mm, fb, "trim"), d, nb)
@@ -1044,7 +1124,8 @@ def phase_hier_aggregate(dev, rate: float) -> dict:
     del y, g, m
     torch.cuda.empty_cache()
     return {"rows": rows, "launches": {"mixtrim_select": launches["hier+nnm+cwtm"],
-                                       "mixtrim_select_nomix": launches["hier+cwtm"]}}
+                                       "mixtrim_select_nomix": launches["hier+cwtm"],
+                                       "gram_tiled": gram_launches}}
 
 
 def lm_batches(n: int, seed: int = 0):
@@ -1143,6 +1224,7 @@ def main() -> int:
 
     log("== 3. kernels against their plain versions")
     rows = phase_kernels(dev, rate)
+    phase_gram_sweep(dev, rate)
 
     log("== 4. K6 / K7 against their plain versions")
     rows.update(phase_bucketgram(dev, rate))
@@ -1203,7 +1285,9 @@ def main() -> int:
     counts_grid = phase_grid(dev, rounds)
 
     log("== 12. summary")
-    table = [("K1", "gram", "ported, checked"), ("K2", "mixtrim", "ported, checked"),
+    table = [("K1", "gram", "ported, checked"),
+             ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
+             ("K2", "mixtrim", "ported, checked"),
              ("K2 > 64", "mixtrim_select", "ported, redesigned, checked"),
              ("K2 > 64 no mix", "mixtrim_select_nomix", "ported, redesigned, checked"),
              ("K3", "combine", "ported, checked"), ("K4", "mixtrim_dyn", "ported, checked"),
@@ -1213,6 +1297,9 @@ def main() -> int:
     meta = {
         "gram": ("src/repro_torch/kernels/csrc/gram.cu",
                  "src/repro/kernels/gram/kernel.py:50", counts_main["gram"]),
+        "gram_tiled": ("src/repro_torch/kernels/csrc/gram.cu",
+                       "src/repro/kernels/gram/kernel.py:50",
+                       hier["launches"]["gram_tiled"]),
         "mixtrim": ("src/repro_torch/kernels/csrc/mixtrim.cu",
                     "src/repro/kernels/mixtrim/kernel.py:177", counts_main["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",

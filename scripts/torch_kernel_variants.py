@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time variants of the port's K5 (staged gram_batched) and K4 (mixtrim_dyn
-n <= 64 body) at the fleet's scale shape, (B, n, D) = (8, 17, 2^24), and of
-K2's 64 < n <= 1024 body (mixtrim_select) at n = 256, 640 and 1024,
-D = 2^20, on one CUDA card.
+n <= 64 body) at the fleet's scale shape, (B, n, D) = (8, 17, 2^24), of
+K2's 64 < n <= 1024 body (mixtrim_select) and of K1's tiled product at
+TM = 128 (gram_tiled) at n = 256, 640 and 1024, D = 2^20, on one CUDA card.
 
-    python3 scripts/torch_kernel_variants.py
+    python3 scripts/torch_kernel_variants.py [K1] [K2] [K4] [K5]
+
+With no argument every kernel's variants run; otherwise those named.
 
 Each variant is a copy of the committed source (src/repro_torch/kernels/
 csrc) with one or two of its compile-time constants replaced, built by nvcc
@@ -13,7 +15,9 @@ the tile width TC and the ring depth STAGES; K4 at n = 17: the columns a
 thread owns and the threads a block; K2: the committed body and, for
 timing only, the same body with the rank selection replaced by the
 column's mean (its time is the product's and the staging's share; its
-output is not a trim and is not checked).  Every other variant is held to
+output is not a trim and is not checked); K1: the committed body, its
+second-level sums in registers in place of shared memory, and other
+stage widths and ring depths.  Every other variant is held to
 the plain version (1e-5 of the largest |plain|) before it is timed; times
 are CUDA events, the median of 7 after a warm-up, the variants of a kernel
 taken in turns.  Prints one line per variant, the card's name and power
@@ -78,6 +82,17 @@ extern "C" int variant_k2(const void* x, const float* m, float* mt, int n,
 }
 """
 K2_SHAPES = ((256, 1 << 20), (640, 1 << 20), (1024, 1 << 20))
+_K1_CFG = r"static constexpr int KT = 32, STAGES = 4, BLOCKS = 1;"
+K1_VARIANTS = {
+    "K1 committed": {},
+    "K1 sums in registers": {r"static constexpr bool SUM_SMEM = true;":
+                             "static constexpr bool SUM_SMEM = false;"},
+    "K1 KT=16 STAGES=6": {_K1_CFG: "static constexpr int KT = 16, STAGES = 6, "
+                                   "BLOCKS = 1;"},
+    "K1 STAGES=3": {_K1_CFG: "static constexpr int KT = 32, STAGES = 3, "
+                             "BLOCKS = 1;"},
+}
+K1_NS = (640, 1024, 256)
 
 
 def _copy(name: str, files: dict, subs: dict) -> Path:
@@ -96,16 +111,19 @@ def _copy(name: str, files: dict, subs: dict) -> Path:
     return d
 
 
-def build_all() -> dict:
+def build_all(which) -> dict:
     from repro_torch.kernels import _build
     nvcc = _build.find_nvcc()
     common = (CSRC / "common.cuh").read_text()
     jobs = {}
-    for name, subs in K5_VARIANTS.items():
+    for name, subs in K1_VARIANTS.items() if "K1" in which else ():
+        jobs[name] = _copy(name, {"common.cuh": common,
+                                  "k.cu": (CSRC / "gram.cu").read_text()}, subs)
+    for name, subs in K5_VARIANTS.items() if "K5" in which else ():
         d = _copy(name, {"common.cuh": common,
                          "k.cu": (CSRC / "gram_batched.cu").read_text()}, subs)
         jobs[name] = d
-    for name, subs in K4_VARIANTS.items():
+    for name, subs in K4_VARIANTS.items() if "K4" in which else ():
         d = _copy(name, {"common.cuh": common,
                          "sortnet.cuh": (CSRC / "sortnet.cuh").read_text(),
                          "mixtrim_dyn.cuh": (CSRC / "mixtrim_dyn.cuh").read_text(),
@@ -114,7 +132,7 @@ def build_all() -> dict:
     k2_files = {f: (CSRC / f).read_text() for f in (
         "mixtrim.cuh", "mixtrim_select.cuh", "mixtrim_select.cu",
         "mixtrim_select_bf16.cu")}
-    for name, subs in K2_VARIANTS.items():
+    for name, subs in K2_VARIANTS.items() if "K2" in which else ():
         jobs[name] = _copy(name, {"common.cuh": common, **k2_files,
                                   "k.cu": K2_ENTRY}, subs)
     procs = {name: subprocess.Popen(
@@ -157,26 +175,47 @@ def close(got, want) -> float:
     return err
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import gram_batched_ref, mixtrim_dyn_ref
-    from repro_torch.kernels._common import stream_of
-    libs = build_all()
-    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    b, n, d = SHAPE
+    which = set(argv) or {"K1", "K2", "K4", "K5"}
+    if not which <= {"K1", "K2", "K4", "K5"}:
+        print(f"torch_kernel_variants: unknown kernels {sorted(which)}",
+              file=sys.stderr)
+        return 2
+    libs = build_all(which)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    x = torch.randn(SHAPE, generator=gen, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if which & {"K4", "K5"}:
+        fleet_variants(libs, dev, gen, sms)
+    if "K2" in which:
+        k2_variants(libs, dev, gen, sms)
+    if "K1" in which:
+        k1_variants(libs, dev, gen, sms)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    print(card)
+    return 0
+
+
+def fleet_variants(libs, dev, gen, sms) -> None:
+    """K5's and K4's variants at SHAPE, in turns (those that were built)."""
+    import torch
+    from repro_torch.kernels import gram_batched_ref, mixtrim_dyn_ref
+    from repro_torch.kernels._common import stream_of
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    b, n, d = SHAPE
+    x = torch.randn(SHAPE, generator=gen, device=dev)
     bound = 1e3 * 4.0 * b * n * d / 3.35e12
 
     runs = {}
     want = torch.stack([gram_batched_ref(x[k:k + 1])[0] for k in range(b)])
-    for name in K5_VARIANTS:
+    for name in (k for k in K5_VARIANTS if k in libs):
         lib = libs[name]
         lib.repro_gram_batched.argtypes = [P, I, I, I, LL, P, I, P, P]
         lib.repro_gram_batched_chunks.argtypes = [I, I, LL, I]
@@ -199,7 +238,7 @@ def main() -> int:
                                              mm, f)
                              for c in range(0, d, 1 << 22)], dim=1)
              for tag, mm in (("mix", m), ("no-mix", None))}
-    for name in K4_VARIANTS:
+    for name in (k for k in K4_VARIANTS if k in libs):
         lib = libs[name]
         lib.variant_k4.argtypes = [P, I, P, I, I, LL, P, I, P, I, P]
         for tag, mm in (("mix", m), ("no-mix", None)):
@@ -224,12 +263,6 @@ def main() -> int:
                  "bound" if k.startswith("K5") else ""))
     del x, want, want4
     torch.cuda.empty_cache()
-    k2_variants(libs, dev, gen, sms)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip().splitlines()[0]
-    print(card)
-    return 0
 
 
 def k2_variants(libs, dev, gen, sms) -> None:
@@ -276,5 +309,49 @@ def k2_variants(libs, dev, gen, sms) -> None:
         torch.cuda.empty_cache()
 
 
+def k1_variants(libs, dev, gen, sms) -> None:
+    """K1's tiled product at TM = 128: committed against its variants, in
+    turns, each held to the plain version first."""
+    import torch
+    from repro_torch.kernels import gram_ref
+    from repro_torch.kernels._common import stream_of
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in K1_VARIANTS:
+        lib = libs[name]
+        lib.repro_gram_tiled.argtypes = [P, I, I, I, LL, I, P, I, P, P]
+        lib.repro_gram_tiled_chunks.argtypes = [I, I, LL, I, I]
+        lib.repro_gram_tiled_scratch.argtypes = [I, I, I, I]
+        lib.repro_gram_tiled_scratch.restype = LL
+    d = 1 << 20
+    for n in K1_NS:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        want = gram_ref(x)
+        runs = {}
+        for name in K1_VARIANTS:
+            lib = libs[name]
+            chunks = lib.repro_gram_tiled_chunks(1, n, d, 128, sms)
+            part = torch.empty(lib.repro_gram_tiled_scratch(1, n, 128, chunks),
+                               device=dev)
+            g = torch.empty((n, n), device=dev)
+
+            def run(lib=lib, chunks=chunks, part=part, g=g):
+                rc = lib.repro_gram_tiled(x.data_ptr(), 0, 1, n, d, 128,
+                                          part.data_ptr(), chunks, g.data_ptr(),
+                                          stream_of(x))
+                assert rc == 0, rc
+                return g
+            close(run(), want)
+            runs[name] = run
+        times = {k: [] for k in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for k in order:
+                times[k].append(time_ms(runs[k]))
+        for k, ts in times.items():
+            print(f"{k} n={n} D={d}: {min(ts):.3f} ms (turns "
+                  f"{', '.join(f'{t:.3f}' for t in ts)})", flush=True)
+        del x, want, runs
+        torch.cuda.empty_cache()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -9,11 +9,12 @@ rank-mask forms of the fleet, in which f is an int tensor.  The ``*_dyn``
 forms take any leading lane axes: d2 / g of shape (..., n, n) with f of
 shape (...), so one call serves every lane of a fleet bucket.
 
-Neighbour selection uses a STABLE ascending sort of the distances and
-takes the first k indices.  That reproduces ``jax.lax.top_k(-d2, k)``,
-which breaks ties toward the lower index — and ties are the normal case on
-the main path, where ALIE and sign-flip make the f Byzantine rows
-identical.  ``torch.topk`` promises no order on ties, so it is not used.
+Neighbour selection uses a STABLE ascending sort of the distances' IEEE
+total-order keys and takes the first k indices.  That reproduces
+``jax.lax.top_k(-d2, k)``, which breaks ties toward the lower index — and
+ties are the normal case on the main path, where ALIE and sign-flip make
+the f Byzantine rows identical — and ranks a NaN distance by its sign bit.
+``torch.topk`` promises no order on ties, so it is not used.
 The ``*_dyn`` forms rank with a double STABLE argsort, as ``jnp.argsort``
 (stable by default) does in the reference.
 """
@@ -48,11 +49,23 @@ def mixed_gram(g: Tensor, m: Tensor) -> Tensor:
     return m @ g @ m.mT
 
 
+def _total_order_key(d: Tensor) -> Tensor:
+    """int32 keys that sort fp32 ``d`` in IEEE total order:
+    -NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN."""
+    b = d.float().contiguous().view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
 def _smallest_k(d: Tensor, k: int) -> tuple[Tensor, Tensor]:
-    """(values, indices) of the k smallest entries along the last axis,
-    ties to the lower index (the ``lax.top_k(-d, k)`` selection)."""
-    vals, idx = torch.sort(d, dim=-1, stable=True)
-    return vals[..., :k], idx[..., :k]
+    """(values, indices) of the k smallest entries along the last axis in
+    IEEE total order, ties to the lower index: the ``lax.top_k(-d, k)``
+    selection, which ranks a NaN with its sign bit set (x86's inf - inf)
+    nearest and one with it clear (the card's) last.  Sorting the bits
+    keeps that order off the device's float sort; each value is gathered
+    with its own bits."""
+    _, idx = torch.sort(_total_order_key(d), dim=-1, stable=True)
+    idx = idx[..., :k]
+    return torch.gather(d, -1, idx), idx
 
 
 def _one_hot_sum(idx: Tensor, n: int) -> Tensor:
@@ -227,7 +240,9 @@ def _row_ranks(d2: Tensor) -> Tensor:
 
 def nnm_matrix_dyn(d2: Tensor, f) -> Tensor:
     """:func:`nnm_matrix` with an int-tensor f: row i averages the n-f
-    nearest neighbours of x_i, selected by the rank mask rank < n-f."""
+    nearest neighbours of x_i, selected by the rank mask rank < n-f.
+    Ranks by the float sort (NaN last), as the reference's dynamic path
+    does, not by the static forms' total order."""
     n = d2.shape[-1]
     keep = (n - _lane_int(f, d2))[..., None, None]
     mask = (_row_ranks(d2) < keep).float()

@@ -38,8 +38,12 @@ DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "repro_gram": ([_P, _I, _I, _I, _LL, _P, _I, _P, _P], _I),
-    "repro_gram_pairs": ([_I], _I),
+    "repro_gram": ([_P, _I, _I, _LL, _P, _I, _P, _P], _I),
+    "repro_gram_rows_max_n": ([], _I),
+    "repro_gram_tiled": ([_P, _I, _I, _I, _LL, _I, _P, _I, _P, _P], _I),
+    "repro_gram_tiled_tm": ([_I], _I),
+    "repro_gram_tiled_chunks": ([_I, _I, _LL, _I, _I], _I),
+    "repro_gram_tiled_scratch": ([_I, _I, _I, _I], _LL),
     "repro_gram_batched": ([_P, _I, _I, _I, _LL, _P, _I, _P, _P], _I),
     "repro_gram_batched_slots": ([_I], _I),
     "repro_gram_batched_chunks": ([_I, _I, _LL, _I], _I),

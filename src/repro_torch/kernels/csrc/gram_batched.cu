@@ -2,9 +2,9 @@
 //
 // Replaces the TPU kernel repro/kernels/gram/kernel.py::gram_batched_pallas
 // (body _gram_batched_kernel), which walks a (lane, D-block) grid in order
-// and accumulates into its output block.  n > 32 stays on the tile-pair
-// kernels of csrc/gram.cu (K1 with a lane grid axis), which read each row
-// once per 8-row tile pair it belongs to (ceil(n / 8) times).
+// and accumulates into its output block.  n > 32 takes the register-tiled
+// product of csrc/gram.cu with a lane grid axis.  K1 at 8 < n <= 32 comes
+// here as one lane.
 //
 // Bound on this card: bytes.  B * n * D elements must be read once; the
 // upper triangle's n (n + 1) / 2 products a column are ~n FLOP per

@@ -2,25 +2,34 @@
 lane-batched Gram of a (B, n, D) stack.
 
 :func:`gram` and :func:`gram_batched` are the wrappers: for a CUDA stack
-they launch the split-K kernels of ``csrc/gram.cu`` (the counterparts of
-the TPU kernels ``repro/kernels/gram/kernel.py::gram_pallas`` and
-``gram_batched_pallas``); K5 at n <= 32 workers launches the staged kernel
-of ``csrc/gram_batched.cu``, which reads each lane's stack once, and above
-that K1's kernels with a lane grid axis.  For a CPU stack they run
-:func:`gram_ref` / :func:`gram_batched_ref`, the plain versions.
-``gram.launches`` and ``gram_batched.launches`` count kernel launches.
+they launch the split-K kernels that replace the TPU kernels
+``repro/kernels/gram/kernel.py::gram_pallas`` and ``gram_batched_pallas``,
+routed by the worker count n (``csrc/gram.cu``'s note says why):
+
+* n <= 8 (K1 only, the main path): ``csrc/gram.cu``'s one-tile kernel;
+* n <= 32: the staged kernel of ``csrc/gram_batched.cu``, which reads each
+  row once (K1 as one lane);
+* n > 32: ``csrc/gram.cu``'s register-tiled product over upper-triangle
+  tile pairs, TM x TM output tiles with TM from
+  ``repro_gram_tiled_tm(n)``; K5 takes it with a lane grid axis.
+
+For a CPU stack they run :func:`gram_ref` / :func:`gram_batched_ref`, the
+plain versions.  ``gram.launches`` and ``gram_batched.launches`` count
+kernel launches.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import check_lanes, check_stack, stream_of
 
-#: Threads per block of gram_partial (csrc/gram.cu).
+#: Threads per block of gram_rows (csrc/gram.cu, n <= 8).
 _THREADS = 256
-#: Partial-Gram blocks per SM and tile pair: enough in flight to cover
-#: memory latency; each block then streams one contiguous D-chunk.
+#: gram_rows blocks per SM: enough in flight to cover memory latency; each
+#: block then streams one contiguous D-chunk.
 _BLOCKS_PER_SM = 8
 
 
@@ -53,21 +62,39 @@ def gram_batched_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([gram_ref(x[k]) for k in range(x.shape[0])])
 
 
-def _launch(x: torch.Tensor, lanes: int, n: int, d: int) -> torch.Tensor:
+def _launch_rows(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
     lib = _build.library()
-    pairs = lib.repro_gram_pairs(n)
     units = d // 4 if d % 4 == 0 else d
     chunks = max(1, min(-(-units // _THREADS),
-                        _BLOCKS_PER_SM * _build.sm_count(x.device)
-                        // (pairs * lanes)))
-    partial = torch.empty(lanes * chunks * pairs * 64, dtype=torch.float32,
-                          device=x.device)
-    out = torch.empty((lanes, n, n), dtype=torch.float32, device=x.device)
+                        _BLOCKS_PER_SM * _build.sm_count(x.device)))
+    partial = torch.empty(chunks * 64, dtype=torch.float32, device=x.device)
+    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.repro_gram(x.data_ptr(), _build.dtype_code(x.dtype), lanes,
-                            n, d, partial.data_ptr(), chunks, out.data_ptr(),
+        rc = lib.repro_gram(x.data_ptr(), _build.dtype_code(x.dtype), n, d,
+                            partial.data_ptr(), chunks, out.data_ptr(),
                             stream_of(x))
     _build.check(rc, "gram kernel")
+    return out
+
+
+def _launch_tiled(x: torch.Tensor, lanes: int, n: int, d: int,
+                  tm: Optional[int] = None) -> torch.Tensor:
+    """The tiled kernel on a (lanes, n, d) stack; ``tm`` overrides the tile
+    height (32, 64 or 128) that ``repro_gram_tiled_tm(n)`` picks, so that
+    the crossover can be measured."""
+    lib = _build.library()
+    if tm is None:
+        tm = lib.repro_gram_tiled_tm(n)
+    chunks = lib.repro_gram_tiled_chunks(lanes, n, d, tm,
+                                         _build.sm_count(x.device))
+    partial = torch.empty(lib.repro_gram_tiled_scratch(lanes, n, tm, chunks),
+                          dtype=torch.float32, device=x.device)
+    out = torch.empty((lanes, n, n), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.repro_gram_tiled(x.data_ptr(), _build.dtype_code(x.dtype),
+                                  lanes, n, d, tm, partial.data_ptr(), chunks,
+                                  out.data_ptr(), stream_of(x))
+    _build.check(rc, "gram kernel (tiled)")
     return out
 
 
@@ -77,7 +104,13 @@ def gram(x: torch.Tensor) -> torch.Tensor:
         return gram_ref(x)
     check_stack(x, "gram")
     n, d = x.shape
-    out = _launch(x, 1, n, d)[0]
+    lib = _build.library()
+    if n <= lib.repro_gram_rows_max_n():
+        out = _launch_rows(x, n, d)
+    elif n <= lib.repro_gram_staged_max_n():
+        out = _launch_staged(x[None], 1, n, d)[0]
+    else:
+        out = _launch_tiled(x[None], 1, n, d)[0]
     gram.launches += 1
     return out
 
@@ -108,7 +141,7 @@ def gram_batched(x: torch.Tensor) -> torch.Tensor:
     if n <= _build.library().repro_gram_staged_max_n():
         out = _launch_staged(x, lanes, n, d)
     else:
-        out = _launch(x, lanes, n, d)
+        out = _launch_tiled(x, lanes, n, d)
     gram_batched.launches += 1
     return out
 

@@ -159,6 +159,93 @@ def test_nonfinite_attacks_are_trimmed_like_the_reference(rule, attack):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6)
 
 
+def _nonfinite_x86_row():
+    """[3, -NaN, 1, +NaN, 0, -0, inf, 1]: -NaN is x86's default NaN
+    (0xffc00000, what inf - inf gives there), +NaN the card's."""
+    row = np.array([3, 0, 1, 0, 0, -0.0, np.inf, 1], np.float32)
+    row.view(np.uint32)[[1, 3]] = [0xFFC00000, 0x7FC00000]
+    return row
+
+
+def test_smallest_k_follows_lax_top_k_total_order():
+    """``lax.top_k(-d2)`` orders d2 in IEEE total order, ties to the lower
+    index: -NaN first, -0 before +0, +NaN last.  The port's neighbour
+    selection must take the same indices and keep each value's bits."""
+    row = _nonfinite_x86_row()
+    want = np.asarray(jax.lax.top_k(-jnp.asarray(row), 8)[1])
+    np.testing.assert_array_equal(want, [1, 5, 4, 2, 7, 0, 6, 3])
+    vals, idx = tgram._smallest_k(torch.from_numpy(row), 8)
+    np.testing.assert_array_equal(idx.numpy(), want)
+    np.testing.assert_array_equal(vals.numpy().view(np.uint32),
+                                  row.view(np.uint32)[want])
+    for k in (1, 3, 6):
+        np.testing.assert_array_equal(
+            tgram._smallest_k(torch.from_numpy(row), k)[1].numpy(), want[:k])
+    # Krum's argmin over NaN scores picks the reference's index (the first
+    # NaN), whatever the NaN's sign.
+    for scores in (row, -row, np.array([2, 1, 1, np.nan], np.float32)):
+        assert int(torch.argmin(torch.from_numpy(scores))) == \
+            int(jnp.argmin(jnp.asarray(scores)))
+
+
+def _assert_nonfinite_close(got, want):
+    """NaN and inf positions equal, values within 1e-6."""
+    for k in want:
+        g = np.asarray(got[k], np.float32)
+        w = np.asarray(want[k], np.float32)
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=k)
+        np.testing.assert_array_equal(g[np.isinf(w)], w[np.isinf(w)],
+                                      err_msg=k)
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+def _j_flat_kernel_oracle(stack, rule, f):
+    """The reference's flat kernel pipeline for a coordinate rule after
+    NNM, with K2's jnp oracle (``mixtrim_ref``) in place of its Pallas
+    body: G, M from ``lax.top_k``, then the mix and the sort."""
+    from repro.kernels.dispatch import flatten_worker_stack, unflatten_aggregate
+    from repro.kernels.mixtrim.ref import mixtrim_ref as j_mixtrim_ref
+    x, layout = flatten_worker_stack(jax.tree_util.tree_map(jnp.asarray, stack))
+    m = jgram.nnm_matrix(jgram.pdist_sq_from_gram(jgram.gram(x)), f)
+    mode = "trim" if rule == "cwtm" else "med"
+    return _to_np(unflatten_aggregate(
+        j_mixtrim_ref(x, m, f if mode == "trim" else 0, mode), layout))
+
+
+NNM_RULES = ["cwtm", "cwmed", "krum", "multikrum", "gm", "mda", "average"]
+
+
+@pytest.mark.parametrize("rule", NNM_RULES)
+@pytest.mark.parametrize("attack", ["nan", "inf"])
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_nnm_nonfinite_attacks_match_reference(rule, attack, backend):
+    """pre="nnm" under the nan / inf attacks, n = 17, f = 4.  Under inf,
+    d2 between an honest row and an inf row is inf - inf, x86's -NaN, which
+    ``lax.top_k(-d2)`` ranks nearest: every row mixes in the inf rows and
+    the reference's aggregate is +inf.
+    The "torch" backend is held to the reference's "xla" path.  The
+    "cuda" backend (on the CPU: the kernels' plain versions) mirrors the
+    reference's kernel path: for the gram rules that is "pallas" itself;
+    for cwtm / cwmed it is that path with K2's jnp oracle, since the
+    reference's Pallas sort disagrees with its own oracle on non-finite
+    input (ROADMAP queue 3, facts: its min / max network spreads NaN) and
+    the port's K2 follows the oracle."""
+    f = 4
+    jt = j_attack(attack, jax.tree_util.tree_map(jnp.asarray, _tree(3)), f)
+    stack = _to_np(jt)
+    if backend == "torch":
+        want = _to_np(j_aggregate(jt, JSpec(rule=rule, f=f, pre="nnm",
+                                            backend="xla")))
+    elif rule in ("cwtm", "cwmed"):
+        want = _j_flat_kernel_oracle(stack, rule, f)
+    else:
+        want = _to_np(j_aggregate(jt, JSpec(rule=rule, f=f, pre="nnm",
+                                            backend="pallas")))
+    got = _to_np(t_aggregate(_to_torch(stack), TSpec(rule=rule, f=f, pre="nnm",
+                                                     backend=backend)))
+    _assert_nonfinite_close(got, want)
+
+
 def test_gram_space_coefficients_match_reference():
     rng = np.random.default_rng(5)
     x = rng.normal(size=(N, 40)).astype(np.float32)

@@ -290,3 +290,44 @@ def test_dispatch_records_the_bucketgram_decision(with_gram):
     y2, g2 = kdispatch.dispatch_bucketgram(x, assign, 8, backend="torch",
                                            with_gram=with_gram)
     _close(y, y2)
+
+
+# ---------------------------------------------------------------------------
+# hier + NNM under the nan / inf attacks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rule", ["cwtm", "cwmed", "krum", "multikrum", "gm",
+                                  "mda", "average"])
+@pytest.mark.parametrize("attack", ["nan", "inf"])
+@pytest.mark.parametrize("backends", [("xla", "torch"), ("pallas", "cuda")])
+def test_hier_nnm_nonfinite_attacks_match_reference(rule, attack, backends):
+    """hier + NNM, n = 32 in buckets of 2 (16 means), f = 3, the
+    reference's permutation.  Each port backend is held to the reference
+    path it mirrors (ROADMAP queue 3, facts: kernel path vs gather path on
+    non-finite rows).  The gather form ("xla" / "torch") keeps the inf rows
+    to their buckets; NNM over the means then meets inf - inf = -NaN
+    distances, which ``lax.top_k(-d2)`` ranks nearest, and the aggregate
+    is +inf.  The dense bucket matrix of the kernel path ("pallas" /
+    "cuda") spreads 0 * inf = NaN to every other bucket, and the aggregate
+    is NaN for every rule."""
+    from repro.core.attacks import apply_attack_tree as j_attack
+    from repro.core.robust import robust_aggregate as j_aggregate
+    from repro.core.types import AggregatorSpec as JSpec
+    from repro_torch.core.robust import robust_aggregate as t_aggregate
+    from repro_torch.core.types import AggregatorSpec as TSpec
+    n, f, key = 32, 3, jax.random.PRNGKey(5)
+    jback, tback = backends
+    rng = np.random.default_rng(3)
+    tree = {"w": rng.normal(size=(n, 6, 5)).astype(np.float32),
+            "b": rng.normal(size=(n, 9)).astype(np.float32) * 0.3}
+    jt = j_attack(attack, jax.tree_util.tree_map(jnp.asarray, tree), f)
+    kw = dict(rule=rule, f=f, pre="nnm", hier=True, bucket_size=2)
+    want = j_aggregate(jt, JSpec(backend=jback, **kw), key=key)
+    got = t_aggregate({k: torch.from_numpy(np.array(v)) for k, v in jt.items()},
+                      TSpec(backend=tback, **kw), perm=_perm(key, n))
+    for k in want:
+        g, w = got[k].float().numpy(), np.asarray(want[k], np.float32)
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=k)
+        np.testing.assert_array_equal(g[np.isinf(w)], w[np.isinf(w)],
+                                      err_msg=k)
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6, err_msg=k)

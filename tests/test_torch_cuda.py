@@ -70,12 +70,16 @@ def _stack(dev, n, d, dtype, misaligned, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 3, 8, 9, 17, 64])
-@pytest.mark.parametrize("d", [1, 7, 1000, (1 << 20) + 3])
+@pytest.mark.parametrize("n", [1, 3, 8, 9, 17, 32, 33, 40, 64, 65, 100, 127,
+                               128, 129, 256, 640, 1024])
+@pytest.mark.parametrize("d", [1, 7, 1000, 4099, (1 << 20) + 3])
 @pytest.mark.parametrize("misaligned", [False, True])
 def test_kernels_match_plain_versions(dev, dtype, n, d, misaligned):
     """Vector and scalar paths (d % 4, misaligned base), every sort height
-    (n = 1 .. 64), diagonal and off-diagonal Gram tiles (n > 8)."""
+    (n = 1 .. 64), and every route of K1: the one-tile kernel (n <= 8), the
+    staged kernel (8 < n <= 32) and the tiled product (n > 32: TM = 32,
+    64 and 128, ragged last row tiles, diagonal and off-diagonal pairs).
+    K2 above 64 workers has its own tests."""
     x = _stack(dev, n, d, dtype, misaligned, seed=n * 7919 + d)
     gen = torch.Generator(device=dev)
     gen.manual_seed(d)
@@ -83,6 +87,8 @@ def test_kernels_match_plain_versions(dev, dtype, n, d, misaligned):
     m = torch.softmax(torch.randn(n, n, generator=gen, device=dev), -1)
     _close(gram(x), gram_ref(x))
     _close(combine(x, c), combine_ref(x, c))
+    if n > 64:
+        return
     for mode in ("trim", "med"):
         for f in sorted({0, min(2, (n - 1) // 2), (n - 1) // 2}):
             for mm in (None, m.to(dtype)):
@@ -103,11 +109,31 @@ def test_mixtrim_nonfinite_rows_match_plain(dev, fill, n, f):
 
 
 @pytest.mark.cuda
-def test_gram_is_deterministic_and_counts_launches(dev):
-    x = _stack(dev, 8, (1 << 22) + 4, torch.float32, False, seed=2)
+@pytest.mark.parametrize("n", [8, 17, 40, 100, 640])
+def test_gram_is_deterministic_and_counts_launches(dev, n):
+    """Every route of K1: bitwise equal over two runs, exactly symmetric
+    (the upper triangle mirrored), one launch counted per call."""
+    x = _stack(dev, n, (1 << 22) + 4 if n <= 100 else (1 << 20) + 4,
+               torch.float32, False, seed=2)
     before = gram.launches
-    assert torch.equal(gram(x), gram(x))
+    g = gram(x)
+    assert torch.equal(g, gram(x))
+    assert torch.equal(g, g.T)
     assert gram.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [float("nan"), float("inf"), -float("inf")])
+@pytest.mark.parametrize("n", [17, 100, 640])
+@pytest.mark.parametrize("d", [4099, 4096])
+def test_gram_nonfinite_rows_match_plain(dev, fill, n, d):
+    """inf / NaN rows (the attacks' rows, and one stray entry): K1 gives the
+    plain contraction's NaN and inf positions, and its infinities' signs."""
+    x = _stack(dev, n, d, torch.float32, False, seed=n + 3).clone()
+    x[n - 3:, 10:1000] = fill
+    x[1, 7] = float("nan")
+    x[2, 2000:2100] = -float("inf")
+    _close(gram(x), gram_ref(x))
 
 
 @pytest.mark.cuda
@@ -287,11 +313,12 @@ def _dense_b(assign, nb):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,s", [(16, 2), (17, 2), (10, 4), (5, 5), (40, 3),
-                                 (256, 16), (1031, 16)])
+                                 (100, 2), (256, 16), (1031, 16), (1280, 2)])
 @pytest.mark.parametrize("d", [1, 7, 1000, (1 << 18) + 3])
 @pytest.mark.parametrize("misaligned", [False, True])
 def test_bucketgram_matches_plain(dev, dtype, n, s, d, misaligned):
-    """K6 (means + Gram; register fold for n_b <= 8, K1 fold above) and K7
+    """K6 (means + Gram; register fold for n_b <= 8, K1 on the means above:
+    staged to 32 buckets, tiled above, 640 buckets at (1280, 2)) and K7
     (means) against the dense plain version, ragged tail buckets, vector
     and scalar column paths."""
     x = _stack(dev, n, d, dtype, misaligned, seed=n * 31 + d)
@@ -362,7 +389,8 @@ def _sum_order_bound(x):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n", [(1, 8), (5, 17), (5, 9), (8, 16), (3, 40)])
+@pytest.mark.parametrize("b,n", [(1, 8), (5, 17), (5, 9), (8, 16), (3, 40),
+                                 (3, 100), (2, 640)])
 @pytest.mark.parametrize("d", [1, 7, 2842, (1 << 18) + 3])
 def test_gram_batched_matches_plain_and_k1_per_lane(dev, dtype, b, n, d):
     """K5: every lane equals its plain Gram within 1e-5 of that lane's
@@ -516,15 +544,17 @@ def test_mixtrim_dyn_sort_is_exact_on_every_0_1_column(dev, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 8, 9, 17, 32, 33, 64, 100])
+@pytest.mark.parametrize("n", [1, 8, 9, 17, 32, 33, 64, 65, 100, 128, 129,
+                               256])
 @pytest.mark.parametrize("d,misaligned", [(2842, False), (4099, False),
                                           (4098, True),
                                           ((1 << 18) + 8, False)])
 def test_gram_batched_every_n_per_lane_and_repeatable(dev, dtype, n, d,
                                                       misaligned):
-    """K5 on both of its paths (staged for n <= 32, tile pairs above):
-    each lane within 1e-5 of its own max |G| of the plain version, and
-    two runs equal bit for bit."""
+    """K5 on both of its paths (staged for n <= 32, the tiled product
+    above, every tile height): each lane within 1e-5 of its own max |G| of
+    the plain version, two runs equal bit for bit, each lane exactly
+    symmetric."""
     b = 3
     x = _lanes_at(dev, b, n, d, dtype, seed=n + d, misaligned=misaligned)
     g = gram_batched(x)
@@ -532,3 +562,4 @@ def test_gram_batched_every_n_per_lane_and_repeatable(dev, dtype, n, d,
     for k in range(b):
         _close(g[k], want[k])
     assert torch.equal(g, gram_batched(x))
+    assert torch.equal(g, g.mT)
