@@ -12,7 +12,10 @@ Phases, each fatal on failure:
      D = 361,821,120: full-width smollm-360m), and at n = 17, f = 8 on a
      ragged smaller D; times by CUDA events (median of 7, after a warm-up)
      beside the least time the card could take (bound) and, where one
-     PyTorch call computes the same function, that call's time; then K1 at
+     PyTorch call computes the same function, that call's time; K2's dense
+     trim with the mix (fp32 and bf16) beside the previous design's time;
+     K2 on the wide heights of its n <= 64 body (n in {33, 48, 64},
+     D = 2^24, fp32 and bf16, trim with the mix); then K1 at
      n in {17, 40, 64, 256, 640, 1024}, D = 2^20 (the staged kernel to 32
      workers, the tiled product above, each tile height the wrapper picks
      beside the other heights) against its plain version and
@@ -48,12 +51,13 @@ Phases, each fatal on failure:
      step), hier + CWTM (2 steps; K7 and K2), hier + NNM + GM (2 steps; K6
      and K3); then --agg bucketing+cwtm through launch.train.main (2 steps;
      K2 only);
- 10. ptxas's registers / stack / spills of K4's, K5's, K2's n <= 1024 and
-     K1's tiled instances (K4's fp32 n <= 32, K2's fp32 mix instance for
-     n = 640 and K1's fp32 cp.async instance for n = 640, TM = 128, must
-     keep no stack frame and no spill); K4's sort on
-     every 0-1 column at n = 17 (every f, trim and median) exactly equal to
-     its plain version; K5 (gram_batched) against its plain version (the
+ 10. ptxas's registers / stack / spills of the n <= 64 body K2 and K4
+     share, of K5's, K2's 64 < n <= 1024 and K1's tiled instances (the
+     shared body's fp32 n <= 32, K2's fp32 mix instance for n = 640 and
+     K1's fp32 cp.async instance for n = 640, TM = 128, must keep no stack
+     frame and no spill); K4's sort on every 0-1 column at n = 17 (every
+     f, trim and median) and K2's at n = 8 and 17 (its slice at every f,
+     and the median) exactly equal to their plain versions; K5 (gram_batched) against its plain version (the
      batch and each lane) and torch.bmm at (B = 8, n = 17, D = 2^24) and
      the reference bench's (8, 16, 8192), bitwise repeatable, its time at
      (8, 17, 2^24) beside the previous design's and the bound, and above
@@ -75,7 +79,7 @@ Phases, each fatal on failure:
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
-at the same f.
+at the same f, which it must equal bit for bit (one body).
 
 It needs one CUDA card and imports nothing of JAX or of the reference
 package ``repro``.
@@ -103,6 +107,8 @@ HIER_N, HIER_S = 10240, 16      # the scale case of the hierarchical variant
 HIER_D = 1 << 20                # ... at a real width: a 42.9 GB fp32 stack
 HIER_D_PARITY = 1 << 19         # widest D where the torch backend's gather fits
 HIER_TIE_ROWS = 20              # most NNM near-tie rows allowed there (of 640)
+#: K2 on the wide heights of its n <= 64 body (48- and 64-high instances).
+K2_WIDE_NS, K2_WIDE_D = (33, 48, 64), 1 << 24
 #: K2 above 64 workers: (n, D); n = 640 is the scale case's bucket count.
 K2_LARGE = ((65, (1 << 20) + 3), (256, 1 << 20), (640, 1 << 20),
             (1024, 1 << 20), (10240, 64))
@@ -244,16 +250,19 @@ def chunked(fn, d: int, n: int = 0):
 #: Times of the previous designs on an H100 80GB HBM3 at 700 W (PERF.md's
 #: kernel table), printed beside this run's: at (8, 17,
 #: 2^24) K4 on K2's bitonic body with f on the device, with / without the
-#: mix, and K5 as K1's tile-pair kernels with a lane axis; K2 above 64
+#: mix, and K5 as K1's tile-pair kernels with a lane axis; K2 at the dense
+#: shape (trim, the NNM mix, f = 2) on its bitonic body; K2 above 64
 #: workers (trim, f = n / 32, D = 2^20) on mixtrim_big's shared-memory sort;
 #: K1 on the 640 means of phase 6 (D = 2^20) on its 8-row tile pairs.
 PREV_MS = {"K4 mix": 19.512, "K4 no-mix": 10.458, "K5": 9.858,
+           "K2 dense mix fp32": 6.233, "K2 dense mix bf16": 6.303,
            "K2 n=256 mix": 29.861, "K2 n=256 no-mix": 5.119,
            "K2 n=640 mix": 116.665, "K2 n=640 no-mix": 27.265,
            "K2 n=1024 mix": 258.404, "K2 n=1024 no-mix": 28.289,
            "K1 n=640": 40.639}
 _PTXAS_KERNELS = {
-    # K4's n <= 64 body and K5's staged body: (dtype, height, flag).
+    # The n <= 64 body K2 and K4 share ("K4" below) and K5's staged body:
+    # (dtype, height, flag).
     "K4": re.compile(r"mixtrim_dyn_smallI(f|13__nv_bfloat16)Li(\d+)ELb([01])E"),
     "K5": re.compile(r"gram_stagedI(f|13__nv_bfloat16)Li(\d+)ELb([01])E"),
     # K2 / K4 for 64 < n <= 1024: the mix kernel by its padded rows
@@ -351,6 +360,7 @@ def phase_kernels(dev, rate: float) -> dict:
                 if main and mode == "trim" and mm is not None:
                     rows["mixtrim"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                            bound=bnd, library_ms=None)
+                    beside_previous("K2 dense mix fp32", ms, bnd, (n, d))
         if main:
             phase_k4_dense(x, m, f, d, rate)
         del out
@@ -372,13 +382,43 @@ def phase_kernels(dev, rate: float) -> dict:
                 mb = m.to(dtype)
                 plain = chunked(lambda s: mixtrim_ref(xx[:, s], mb, f, "trim"), d)
                 bnd = bound(1.0 * el * n * d + 4 * d, 2 * n * n * d, rate)
+                ms = time_ms(lambda: mixtrim(xx, mb, f, "trim"))
                 check("K2 mixtrim trim mix bf16", mixtrim(xx, mb, f, "trim"), plain(),
-                      time_ms(lambda: mixtrim(xx, mb, f, "trim")), time_ms(plain), bnd)
+                      ms, time_ms(plain), bnd)
+                if main:
+                    beside_previous("K2 dense mix bf16", ms, bnd, (n, d))
             del xx
         del x, g, gp
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_k2_wide(dev, rate: float) -> None:
+    """K2 on the 48- and 64-high instances of its n <= 64 body (n read at
+    run time): trim with a softmax mix, f = n // 4, D = 2^24, fp32 and
+    bf16, against the plain version."""
+    import torch
+    from repro_torch.kernels import mixtrim, mixtrim_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    d = K2_WIDE_D
+    for n in K2_WIDE_NS:
+        f = n // 4
+        x32 = torch.randn((n, d), generator=gen, device=dev)
+        m = torch.softmax(torch.randn((n, n), generator=gen, device=dev), -1)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            mm = m.to(dtype)
+            plain = chunked(lambda s: mixtrim_ref(x[:, s], mm, f), d)
+            bnd = bound(1.0 * x.element_size() * n * d + 4 * d + 4 * n * n,
+                        2.0 * n * n * d + n * d, rate)
+            check(f"K2 mixtrim trim mix {str(dtype)[6:]} n={n} D={d} f={f}",
+                  mixtrim(x, mm, f), plain(), time_ms(lambda: mixtrim(x, mm, f)),
+                  time_ms(plain), bnd)
+            del x
+        del x32, m
+        torch.cuda.empty_cache()
 
 
 def phase_gram_sweep(dev, rate: float) -> None:
@@ -417,9 +457,9 @@ def phase_gram_sweep(dev, rate: float) -> None:
 
 def phase_k4_dense(x, m, f: int, d: int, rate: float) -> None:
     """K4 at the dense trainer's shape: f as a device tensor, the NNM mix;
-    against its plain version and against K2 at the same f (1e-6 of
-    max|out|: the same sort and the same sum over ranks [f, n - f) on
-    finite data, the mask's zeros adding exact zeros)."""
+    against its plain version and against K2 at the same f, bit for bit:
+    one body, the same sort and the same sum over ranks [f, n - f) on
+    finite data, the mask's zeros adding exact zeros."""
     import torch
     from repro_torch.kernels import mixtrim, mixtrim_dyn, mixtrim_dyn_ref
     n = x.shape[0]
@@ -431,12 +471,10 @@ def phase_k4_dense(x, m, f: int, d: int, rate: float) -> None:
     check("K4 mixtrim_dyn trim mix fp32, f=2 on the device", out, plain(), ms,
           pms, bnd)
     k2 = mixtrim(x, m, f, "trim")
-    diff = max(float((a - b).abs().max()) for a, b in _chunks(out, k2))
-    scale = max(float(b.abs().max()) for _, b in _chunks(out, k2))
-    log(f"  K4 vs K2 at f={f}: max_abs_err={diff:.3e} tol={1e-6 * scale:.3e} "
-        f"{'OK' if diff <= 1e-6 * scale else 'FAIL'}")
-    if diff > 1e-6 * scale:
-        raise AssertionError("K4 disagrees with K2 at equal f")
+    same = torch.equal(out, k2)
+    log(f"  K4 vs K2 at f={f}: {'equal bit for bit OK' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("K4 differs from K2 at equal f")
     del out, k2
 
 
@@ -537,11 +575,12 @@ def beside_previous(what: str, ms: float, bnd, shape=FLEET_BIG) -> None:
 
 
 def phase_ptxas() -> None:
-    """ptxas's registers, stack frame and spills for K4's n <= 64 body,
-    K5's staged body, K2's 64 < n <= 1024 body and K1's tiled product; K4's
-    fp32 instances up to n = 32, K2's fp32 mix instance for n = 640 and
-    K1's fp32 cp.async instance for n = 640 (TM = 128) must keep no stack
-    frame and no spill."""
+    """ptxas's registers, stack frame and spills for the n <= 64 body K2
+    and K4 share (one set of instances, "K2/K4"), K5's staged body, K2's
+    64 < n <= 1024 body and K1's tiled product; the shared body's fp32
+    instances up to n = 32, K2's fp32 mix instance for n = 640 and K1's
+    fp32 cp.async instance for n = 640 (TM = 128) must keep no stack frame
+    and no spill."""
     from repro_torch.kernels import _build
     rep = ptxas_report(_build.BUILD_LOG)
     if not rep:
@@ -552,15 +591,16 @@ def phase_ptxas() -> None:
             for on in (True, False):
                 row = [(h, v) for (k, d, h, f), v in sorted(rep.items())
                        if k == kern and d == dt and f == on]
-                log(f"  ptxas {kern} {dt} {'' if on else 'no '}{flag} "
+                label = "K2/K4" if kern == "K4" else kern
+                log(f"  ptxas {label} {dt} {'' if on else 'no '}{flag} "
                     "(height: registers/stack/spill stores/spill loads): "
                     + ", ".join(f"{h}: {'/'.join(map(str, v))}" for h, v in row))
     bad = {k: v for k, v in rep.items()
            if k[0] == "K4" and k[1] == "fp32" and k[2] <= 32 and any(v[1:])}
     if bad:
-        raise AssertionError(f"K4 fp32 n <= 32 instances with a stack frame "
-                             f"or spills: {bad}")
-    log("  K4 fp32 n <= 32: no stack frame, no spill OK")
+        raise AssertionError(f"K2/K4 fp32 n <= 32 instances with a stack "
+                             f"frame or spills: {bad}")
+    log("  K2/K4 fp32 n <= 32: no stack frame, no spill OK")
     k2 = rep.get(("K2", "fp32", 640, True))
     if k2 is None or any(k2[1:]):
         raise AssertionError(f"K2's fp32 mix instance for n = 640: {k2} "
@@ -576,15 +616,34 @@ def phase_ptxas() -> None:
         "frame, no spill OK")
 
 
-def phase_sort_01(dev, n: int = FLEET_BIG[1]) -> None:
-    """The 0-1 principle at n = 17: K4's trim at every f and its median on
-    a (1, n, 2^n) stack holding every 0-1 column equal the plain version
-    exactly."""
+def zero_one(n: int, dev):
+    """The (n, 2^n) stack holding every 0-1 column once."""
     import torch
-    from repro_torch.kernels import mixtrim_dyn, mixtrim_dyn_ref
     cols = torch.arange(1 << n, device=dev)
-    x = ((cols[None, :] >> torch.arange(n, device=dev)[:, None]) & 1).float()
-    x = x[None].contiguous()
+    return ((cols[None, :] >> torch.arange(n, device=dev)[:, None]) & 1).float()
+
+
+def phase_sort_01(dev, n: int = FLEET_BIG[1]) -> None:
+    """The 0-1 principle: on a stack holding every 0-1 column, K4's trim at
+    every f and its median (n = 17), and K2's trim (its slice of ranks
+    [f, n - f)) at every f and its median (n = 8 and 17), equal their
+    plain versions exactly.  K2's plain version runs on the CPU, whose
+    mean divides the exact sum once, as the kernel does."""
+    import torch
+    from repro_torch.kernels import mixtrim, mixtrim_dyn, mixtrim_dyn_ref, mixtrim_ref
+    for k in (N_MAIN, n):
+        x = zero_one(k, dev).contiguous()
+        xc = x.cpu()
+        for f in range((k - 1) // 2 + 1):
+            if not torch.equal(mixtrim(x, None, f, "trim").cpu(),
+                               mixtrim_ref(xc, None, f, "trim")):
+                raise AssertionError(f"K2 0-1 check: trim at n={k}, f={f} differs")
+        if not torch.equal(mixtrim(x, None, 0, "med").cpu(),
+                           mixtrim_ref(xc, None, 0, "med")):
+            raise AssertionError(f"K2 0-1 check: median at n={k} differs")
+        log(f"  K2 sort on all {1 << k} 0-1 columns at n={k}, f=0..{(k - 1) // 2}, "
+            "trim (the slice) and median: equal to the plain version OK")
+    x = zero_one(n, dev)[None].contiguous()
     for f in range(n // 2 + 2):
         ft = torch.tensor([f], dtype=torch.int32, device=dev)
         for mode in ("trim", "med"):
@@ -1224,6 +1283,7 @@ def main() -> int:
 
     log("== 3. kernels against their plain versions")
     rows = phase_kernels(dev, rate)
+    phase_k2_wide(dev, rate)
     phase_gram_sweep(dev, rate)
 
     log("== 4. K6 / K7 against their plain versions")
@@ -1287,7 +1347,7 @@ def main() -> int:
     log("== 12. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
-             ("K2", "mixtrim", "ported, checked"),
+             ("K2", "mixtrim", "ported, redesigned, checked"),
              ("K2 > 64", "mixtrim_select", "ported, redesigned, checked"),
              ("K2 > 64 no mix", "mixtrim_select_nomix", "ported, redesigned, checked"),
              ("K3", "combine", "ported, checked"), ("K4", "mixtrim_dyn", "ported, checked"),
@@ -1300,7 +1360,7 @@ def main() -> int:
         "gram_tiled": ("src/repro_torch/kernels/csrc/gram.cu",
                        "src/repro/kernels/gram/kernel.py:50",
                        hier["launches"]["gram_tiled"]),
-        "mixtrim": ("src/repro_torch/kernels/csrc/mixtrim.cu",
+        "mixtrim": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cuh",
                     "src/repro/kernels/mixtrim/kernel.py:177", counts_main["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",
                     "src/repro/kernels/combine/kernel.py:34", counts_gm["combine"]),
@@ -1310,7 +1370,7 @@ def main() -> int:
         "mixtrim_select_nomix": ("src/repro_torch/kernels/csrc/mixtrim_select.cu",
                                  "src/repro/kernels/mixtrim/kernel.py:177",
                                  hier["launches"]["mixtrim_select_nomix"]),
-        "mixtrim_dyn": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cu",
+        "mixtrim_dyn": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cuh",
                         "src/repro/kernels/mixtrim/kernel.py:213",
                         counts_grid["mixtrim_dyn"]),
         "gram_batched": ("src/repro_torch/kernels/csrc/gram_batched.cu",

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Time variants of the port's K5 (staged gram_batched) and K4 (mixtrim_dyn
 n <= 64 body) at the fleet's scale shape, (B, n, D) = (8, 17, 2^24), of
-K2's 64 < n <= 1024 body (mixtrim_select) and of K1's tiled product at
+the same n <= 64 body as K2 runs it (K2small: f from the host, the slice
+of ranks [f, n - f)) at the dense main path's shape (n = 8, D =
+361,821,120, fp32 and bf16) and at n = 17, 33, 48 and 64, of K2's
+64 < n <= 1024 body (mixtrim_select) and of K1's tiled product at
 TM = 128 (gram_tiled) at n = 256, 640 and 1024, D = 2^20, on one CUDA card.
 
-    python3 scripts/torch_kernel_variants.py [K1] [K2] [K4] [K5]
+    python3 scripts/torch_kernel_variants.py [K1] [K2] [K2small] [K4] [K5]
 
 With no argument every kernel's variants run; otherwise those named.
 
@@ -12,7 +15,9 @@ Each variant is a copy of the committed source (src/repro_torch/kernels/
 csrc) with one or two of its compile-time constants replaced, built by nvcc
 into build/variants/ (all builds in parallel) and loaded with ctypes.  K5:
 the tile width TC and the ring depth STAGES; K4 at n = 17: the columns a
-thread owns and the threads a block; K2: the committed body and, for
+thread owns and the threads a block; K2small: eight bf16 columns a thread
+at n <= 8 (16-byte loads), and the mix instances with one column a
+thread (n > 20) without their shared-memory staging of the mixed rows; K2: the committed body and, for
 timing only, the same body with the rank selection replaced by the
 column's mean (its time is the product's and the staging's share; its
 output is not a trim and is not checked); K1: the committed body, its
@@ -46,7 +51,8 @@ K5_VARIANTS = {
                                 r"constexpr int STAGES = \d+;": f"constexpr int STAGES = {st};"}
     for tc in (128, 256) for st in (3, 4)
 }
-_CPT = r"return n <= 8 \? 4 : \(n <= 20 \? 2 : 1\);"
+_CPT = (r"return n <= 8 \? \(bytes == 2 \? SMALL_C_BF16 : 4\) : "
+        r"\(n <= 20 \? 2 : 1\);")
 K4_VARIANTS = {
     "K4 C=2 THREADS=128": {},
     "K4 C=4 THREADS=128": {_CPT: "return n <= 20 ? 4 : 1;"},
@@ -59,11 +65,40 @@ using namespace mixtrim_dyn_detail;
 extern "C" int variant_k4(const void* x, int dtype, const float* m, int lanes,
                           int n, long long d, const int* f, int med,
                           float* out, int blocks, void* s) {
-  const Args a{x, dtype, m, lanes, n, d, f, med, out, blocks,
+  const Args a{x, dtype, m, lanes, n, d, f, 0, med, out, blocks,
                static_cast<cudaStream_t>(s)};
   return launch_n<17>(a);
 }
 """
+K2S_VARIANTS = {
+    "K2small committed": {},
+    "K2small C=8 bf16": {r"constexpr int SMALL_C_BF16 = \d+;":
+                         "constexpr int SMALL_C_BF16 = 8;"},
+    "K2small no staging": {r"constexpr bool STAGE_MIX = \w+;":
+                           "constexpr bool STAGE_MIX = false;"},
+}
+K2S_ENTRY = """
+#include "mixtrim_dyn.cuh"
+namespace mixtrim_dyn_detail {
+int launch_small(const Args& a) {
+  if (a.n == 8) return launch_n<8>(a);
+  if (a.n == 17) return launch_n<17>(a);
+  if (a.n > 32 && a.n <= 48) return launch_n<48>(a);
+  if (a.n > 48 && a.n <= 64) return launch_n<64>(a);
+  return cudaErrorInvalidValue;
+}
+}  // namespace mixtrim_dyn_detail
+extern "C" int variant_k2s(const void* x, int dtype, const float* m, int n,
+                           long long d, int f, float* out, int blocks,
+                           void* s) {
+  return mixtrim_dyn_detail::launch_small(
+      {x, dtype, m, 1, n, d, nullptr, f, 0, out, blocks,
+       static_cast<cudaStream_t>(s)});
+}
+"""
+#: K2small's shapes: (n, D, f); the first is the dense main path's.
+K2S_SHAPES = ((8, 361_821_120, 2), (17, (1 << 24) + 3, 8), (33, 1 << 24, 8),
+              (48, 1 << 24, 12), (64, 1 << 24, 16))
 
 
 _SEL = r"column_result\({}keys \+ c \* kp, n, f, med, dyn, hist, lane\)"
@@ -129,6 +164,11 @@ def build_all(which) -> dict:
                          "mixtrim_dyn.cuh": (CSRC / "mixtrim_dyn.cuh").read_text(),
                          "k.cu": K4_ENTRY}, subs)
         jobs[name] = d
+    for name, subs in K2S_VARIANTS.items() if "K2small" in which else ():
+        jobs[name] = _copy(name, {"common.cuh": common,
+                                  "sortnet.cuh": (CSRC / "sortnet.cuh").read_text(),
+                                  "mixtrim_dyn.cuh": (CSRC / "mixtrim_dyn.cuh").read_text(),
+                                  "k.cu": K2S_ENTRY}, subs)
     k2_files = {f: (CSRC / f).read_text() for f in (
         "mixtrim.cuh", "mixtrim_select.cuh", "mixtrim_select.cu",
         "mixtrim_select_bf16.cu")}
@@ -180,8 +220,9 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
         return 1
-    which = set(argv) or {"K1", "K2", "K4", "K5"}
-    if not which <= {"K1", "K2", "K4", "K5"}:
+    kinds = {"K1", "K2", "K2small", "K4", "K5"}
+    which = set(argv) or kinds
+    if not which <= kinds:
         print(f"torch_kernel_variants: unknown kernels {sorted(which)}",
               file=sys.stderr)
         return 2
@@ -192,6 +233,8 @@ def main(argv) -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if which & {"K4", "K5"}:
         fleet_variants(libs, dev, gen, sms)
+    if "K2small" in which:
+        k2_small_variants(libs, dev, gen, sms)
     if "K2" in which:
         k2_variants(libs, dev, gen, sms)
     if "K1" in which:
@@ -263,6 +306,53 @@ def fleet_variants(libs, dev, gen, sms) -> None:
                  "bound" if k.startswith("K5") else ""))
     del x, want, want4
     torch.cuda.empty_cache()
+
+
+def k2_small_variants(libs, dev, gen, sms) -> None:
+    """The n <= 64 body as K2 runs it (trim, the NNM-shaped softmax mix):
+    every variant held to the plain version, then timed in turns, at each
+    of K2S_SHAPES in fp32 and bf16."""
+    import torch
+    from repro_torch.kernels import mixtrim_ref
+    from repro_torch.kernels._common import stream_of
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in K2S_VARIANTS:
+        libs[name].variant_k2s.argtypes = [P, I, P, I, LL, I, P, I, P]
+    for n, d, f in K2S_SHAPES:
+        x32 = torch.randn((n, d), generator=gen, device=dev)
+        m = torch.softmax(torch.randn((n, n), generator=gen, device=dev), -1)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32 if dtype == torch.float32 else x32.to(dtype)
+            mm = m.to(dtype).float()
+            out = torch.empty(d, device=dev)
+            step = 1 << 25
+            want = torch.cat([mixtrim_ref(x[:, c:c + step], mm, f)
+                              for c in range(0, d, step)])
+            runs = {}
+            for name in K2S_VARIANTS:
+                def run(lib=libs[name]):
+                    rc = lib.variant_k2s(x.data_ptr(), 0 if dtype == torch.float32
+                                         else 1, mm.data_ptr(), n, d, f,
+                                         out.data_ptr(), 16 * sms, stream_of(x))
+                    assert rc == 0, rc
+                    return out
+                close(run(), want)
+                runs[name] = run
+            del want
+            times = {k: [] for k in runs}
+            for order in (list(runs), list(runs)[::-1]):
+                for k in order:
+                    times[k].append(time_ms(runs[k]))
+            el = x.element_size()
+            bound = 1e3 * (el * n * d + 4.0 * d) / 3.35e12
+            for k, ts in times.items():
+                print(f"{k} n={n} D={d} f={f} {str(dtype)[6:]} mix: "
+                      f"{min(ts):.3f} ms (turns {', '.join(f'{t:.3f}' for t in ts)}), "
+                      f"{100 * bound / min(ts):.0f} % of the {bound:.3f} ms byte bound",
+                      flush=True)
+            del x, out
+        del x32, m
+        torch.cuda.empty_cache()
 
 
 def k2_variants(libs, dev, gen, sms) -> None:

@@ -1,64 +1,60 @@
-// K2 · fused NNM mix + coordinate-wise trimmed mean / median, static f.
+// K2 · fused NNM mix + coordinate-wise trimmed mean / median, static f:
+// the kernels above 1024 workers, and the launch arguments and NaN-last
+// keys shared with the bodies for fewer workers.
 //
 // Replaces the TPU kernel repro/kernels/mixtrim/kernel.py::mixtrim_pallas
 // (body _make_kernel).  Per column c of a (n, D) stack it computes
 // y = M x[:, c] (skipped when M is absent), sorts y along the worker axis
 // and reduces it to the mean of ranks [f, n-f) ("trim"; the plain mean
-// when f == 0) or the median ("med"), writing one fp32 value.
-//
-// One thread owns one column; neighbouring threads take neighbouring
-// columns, so every load of X[j, c] coalesces.  M (n x n, fp32 values of
-// the caller's dtype-rounded matrix) sits in shared memory and is read as
-// a broadcast.  The n mixed values live in registers and go through a
-// bitonic network of height NP = next power of two >= n; the mixed stack
-// never reaches global memory, which is the point of the TPU kernel.
-//
-// Ordering: values are sorted through an order-preserving uint32 key in
-// which every NaN sorts above +inf and the NP - n pad lanes above every
-// NaN.  That is the order torch.sort and jnp.sort give (NaN last), so
-// n = 17 and the nan / inf attack stacks take the same ranks as the plain
+// when f == 0) or the median ("med"), writing one fp32 value.  Values sort
+// with every NaN last, the order torch.sort and jnp.sort give, so n = 17
+// and the nan / inf attack stacks take the same ranks as the plain
 // version; the TPU kernel's fp32-max sentinel would sort below +inf.
 //
+// K2 routes by n (mixtrim.cu), sharing each body with K4 (f on the device):
+//   - n <= 64: csrc/mixtrim_dyn.cuh, one body for K2 and K4 (C columns a
+//     thread, M read as float4 shared broadcasts, Batcher's network cut to
+//     the real n, compiled per n to 32 and at 48 and 64; K2 passes f as
+//     an argument and takes the slice of ranks [f, n - f), K4 the rank
+//     mask);
+//   - 64 < n <= 1024: csrc/mixtrim_select.cuh (a register-tiled mix and a
+//     rank selection);
+//   - n > 1024 (mixtrim_big below, up to MAX_N = 16384).
+//
 // Bound on this card: bytes (n*D reads, D fp32 writes; ~2n FLOP per read
-// element for the mix plus the network) for small n; the mix's 2n^2 FLOP
+// element for the mix plus the sort) for small n; the mix's 2n^2 FLOP
 // per column take over as n grows.
 //
-// 64 < n <= 1024 runs csrc/mixtrim_select.cuh (a register-tiled mix and
-// a rank selection; design notes there), for K2 and K4 alike.
+// mixtrim_big: n values per column no longer fit in registers.  A block
+// takes a tile of TC columns (TC * NP <= 16384 keys, NP the next power of
+// two >= n, at most 64 columns), stages it in shared memory — rows read TC
+// consecutive columns at a time, so a warp's loads coalesce — and sorts
+// order-preserving uint32 keys (every NaN above +inf, the NP - n pad keys
+// above every NaN) with a shared-memory bitonic network, all TC columns at
+// once.  With a mix, the X tile is staged as fp32 and one warp per output
+// row reads M's row (coalesced, through L1/L2) against it; Y exists only
+// as the tile's keys, never in global memory.  Both shared arrays use an
+// odd pitch so that column-strided accesses hit distinct banks.
 //
-// n > 1024 (mixtrim_big, up to MAX_N = 16384): n values per column no
-// longer fit in registers.  A block takes a tile of TC columns (TC * NP
-// <= 16384 keys, at most 64 columns), stages it in shared memory — rows
-// read TC consecutive columns at a time, so a warp's loads coalesce — and
-// sorts the same NaN-last keys with a shared-memory bitonic network, all
-// TC columns at once.  With a mix, the X tile is staged as fp32 and one
-// warp per output row reads M's row (coalesced, through L1/L2) against
-// it; Y exists only as the tile's keys, never in global memory.  Both
-// shared arrays use an odd pitch so that column-strided accesses hit
-// distinct banks.
-//
-// K4 above 1024 workers · mixtrim_big with DYN = true, replacing
+// K4 above 1024 workers is mixtrim_big with DYN = true, replacing
 // repro/kernels/mixtrim/kernel.py::mixtrim_dyn_pallas (body
-// _make_dyn_kernel) for n > 1024 (K4's own body for n <= 64 is in
-// csrc/mixtrim_dyn.cuh, 64 < n <= 1024 in csrc/mixtrim_select.cuh):
-// f is a runtime int32 read on the device, one per
-// lane of a (B, n, D) stack (grid: column blocks x lanes, blockIdx.y =
+// _make_dyn_kernel) there: f is a runtime int32 read on the device, one
+// per lane of a (B, n, D) stack (grid: column blocks x lanes, blockIdx.y =
 // lane, each lane with its own optional (n, n) M), so one build serves
 // every f and the host never reads f.  The trim is the reference's rank
 // mask: the sum over ALL n real ranks of ys[r] * keep[r], keep = (r >= f)
 // & (r < n - f), divided by max(n - 2f, 1).  A +-inf or NaN in a trimmed
 // rank therefore makes the column NaN (inf * 0), as mixtrim_dyn_ref does,
 // where K2's slice [f, n - f) would skip it; f >= n/2 keeps nothing and
-// gives 0 (or NaN).  The pad keys of the power-of-two sort lie at ranks
-// >= n and are never read.  "med" ignores f.
+// gives 0 (or NaN).  The pad keys lie at ranks >= n and are never read.
+// "med" ignores f.
 #pragma once
 
 #include "common.cuh"
 
 namespace mixtrim_detail {
 
-constexpr int THREADS = 256;
-constexpr int SMALL_N = 64;            // register-network kernel limit
+constexpr int SMALL_N = 64;            // limit of csrc/mixtrim_dyn.cuh's body
 constexpr int MAX_N = 16384;           // shared-memory kernel limit
 constexpr int BIG_THREADS = 512;
 constexpr int KEY_BUDGET = 16384;      // keys per block tile
@@ -75,91 +71,6 @@ __device__ __forceinline__ unsigned key_of(float v) {
 // NAN_KEY decodes to a NaN bit pattern (0x7FFFFFFE); PAD_KEY is never read.
 __device__ __forceinline__ float val_of(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
-}
-
-template <int NP>
-__device__ __forceinline__ void bitonic_sort(unsigned (&key)[NP]) {
-#pragma unroll
-  for (int k = 2; k <= NP; k <<= 1)
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1)
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        const int l = i ^ j;
-        if (l > i) {
-          const unsigned a = key[i], b = key[l];
-          const unsigned lo = min(a, b), hi = max(a, b);
-          const bool up = (i & k) == 0;
-          key[i] = up ? lo : hi;
-          key[l] = up ? hi : lo;
-        }
-      }
-}
-
-template <typename T, int NP, bool MIX>
-__global__ void __launch_bounds__(THREADS)
-mixtrim_kernel(const T* __restrict__ x, const float* __restrict__ m, int n,
-               long long d, int f, int med, float* __restrict__ out) {
-  __shared__ float sm[MIX ? NP * NP : 1];
-  if constexpr (MIX) {
-    for (int e = threadIdx.x; e < n * n; e += THREADS) sm[e] = m[e];
-    __syncthreads();
-  }
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long c = (long long)blockIdx.x * THREADS + threadIdx.x; c < d;
-       c += stride) {
-    float y[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i)
-      y[i] = (i < n) ? to_f32(x[(long long)i * d + c]) : 0.f;
-    if constexpr (MIX) {
-      float z[NP];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        float s = 0.f;
-        if (i < n) {
-#pragma unroll
-          for (int j = 0; j < NP; ++j)
-            if (j < n) s = fmaf(sm[i * n + j], y[j], s);
-        }
-        z[i] = s;
-      }
-#pragma unroll
-      for (int i = 0; i < NP; ++i) y[i] = z[i];
-    }
-
-    float r;
-    if (!med && f <= 0) {
-      // Trim with f <= 0 keeps every rank: the sum of the (mixed) stack
-      // over max(n - 2f, 1) (the mean for f == 0), no sort needed.
-      float s = 0.f;
-#pragma unroll
-      for (int i = 0; i < NP; ++i)
-        if (i < n) s += y[i];
-      r = s / (float)max(n - 2 * f, 1);
-    } else {
-      unsigned key[NP];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) key[i] = (i < n) ? key_of(y[i]) : PAD_KEY;
-      bitonic_sort<NP>(key);
-      if (med) {
-        float lo = 0.f, hi = 0.f;
-#pragma unroll
-        for (int i = 0; i < NP; ++i) {
-          if (i == (n - 1) / 2) lo = val_of(key[i]);
-          if (i == n / 2) hi = val_of(key[i]);
-        }
-        r = (n & 1) ? hi : 0.5f * (lo + hi);
-      } else {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < NP; ++i)
-          if (i >= f && i < n - f) s += val_of(key[i]);
-        r = s / (float)(n - 2 * f);
-      }
-    }
-    out[c] = r;
-  }
 }
 
 // Columns per tile for a sort of height np (a power of two).
@@ -285,8 +196,8 @@ mixtrim_big(const T* __restrict__ x, const float* __restrict__ m, int n,
   }
 }
 
-// Launch arguments shared by K2 (lanes = 1, f on the host, fdev NULL)
-// and K4 above 64 workers (lanes >= 1, fdev = the (lanes,) int32 f on the
+// Launch arguments of the bodies above 64 workers, shared by K2 (lanes =
+// 1, f on the host, fdev NULL) and K4 (lanes >= 1, fdev = the (lanes,) int32 f on the
 // device).
 struct Args {
   const void* x;                         // (lanes, n, d) of dtype
@@ -320,34 +231,13 @@ int launch_big(const T* x, const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int NP>
-void launch_np(const T* x, const Args& a) {
-  if (a.m)
-    mixtrim_kernel<T, NP, true><<<a.blocks, THREADS, 0, a.s>>>(
-        x, a.m, a.n, a.d, a.f, a.med, a.out);
-  else
-    mixtrim_kernel<T, NP, false><<<a.blocks, THREADS, 0, a.s>>>(
-        x, a.m, a.n, a.d, a.f, a.med, a.out);
-}
-
-// K2 (static f, one lane) for n <= 64 and n > 1024 (mixtrim.cu sends
-// 64 < n <= 1024 to csrc/mixtrim_select.cu).
-template <typename T>
-int launch(const void* xv, const Args& a) {
-  const T* x = static_cast<const T*>(xv);
-  const int n = a.n;
-  if (n > SMALL_N) {
-    if (a.m) return launch_big<T, true, false>(x, a);
-    return launch_big<T, false, false>(x, a);
-  }
-  if (n <= 1) launch_np<T, 1>(x, a);
-  else if (n <= 2) launch_np<T, 2>(x, a);
-  else if (n <= 4) launch_np<T, 4>(x, a);
-  else if (n <= 8) launch_np<T, 8>(x, a);
-  else if (n <= 16) launch_np<T, 16>(x, a);
-  else if (n <= 32) launch_np<T, 32>(x, a);
-  else launch_np<T, 64>(x, a);
-  return cudaGetLastError();
+// n > 1024: mixtrim_big, for K2 (DYN = false, f in a.f) and K4 (DYN =
+// true, f per lane in a.fdev).
+template <typename T, bool DYN>
+int launch_large(const Args& a) {
+  const T* x = static_cast<const T*>(a.x);
+  if (a.m) return launch_big<T, true, DYN>(x, a);
+  return launch_big<T, false, DYN>(x, a);
 }
 
 }  // namespace mixtrim_detail

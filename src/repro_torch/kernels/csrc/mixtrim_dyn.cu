@@ -1,12 +1,13 @@
 // K4 · fused NNM mix + coordinate-wise trim / median with f an int32
 // read on the device, one per lane of a (B, n, D) stack: the C entry
-// point.  n <= 64 runs K4's own body (csrc/mixtrim_dyn.cuh, design notes
-// there), compiled at one height per n up to 32 and at 48 and 64 above;
-// the heights are instantiated here (n <= 8) and in mixtrim_dyn_n9.cu,
-// _n17.cu, _n25.cu and _n33.cu, so that nvcc builds them in parallel.
-// 64 < n <= 1024 runs the register-tiled mix and rank selection of
-// csrc/mixtrim_select.cuh, 1024 < n <= 16384 the shared-memory sort of
-// csrc/mixtrim.cuh (mixtrim_big, DYN = true); their notes are there.
+// point, and the n <= 64 launch K2 shares (launch_small).  n <= 64 runs
+// the body of csrc/mixtrim_dyn.cuh (design notes there), compiled at one
+// height per n up to 32 and at 48 and 64 above; the heights are
+// instantiated here (n <= 8) and in mixtrim_dyn_n9.cu, _n17.cu, _n25.cu
+// and _n33.cu, so that nvcc builds them in parallel.  64 < n <= 1024 runs
+// the register-tiled mix and rank selection of csrc/mixtrim_select.cuh,
+// 1024 < n <= 16384 the shared-memory sort of csrc/mixtrim.cuh
+// (mixtrim_big, DYN = true); their notes are there.
 #include "mixtrim.cuh"
 #include "mixtrim_dyn.cuh"
 
@@ -47,14 +48,6 @@ int launch_small(const Args& a) {
   return launch_n<64>(a);
 }
 
-// n > 1024: mixtrim_big with f on the device.
-template <typename T>
-int launch_large(const mixtrim_detail::Args& a) {
-  const T* x = static_cast<const T*>(a.x);
-  if (a.m) return mixtrim_detail::launch_big<T, true, true>(x, a);
-  return mixtrim_detail::launch_big<T, false, true>(x, a);
-}
-
 }  // namespace mixtrim_dyn_detail
 
 using namespace mixtrim_dyn_detail;
@@ -72,12 +65,12 @@ extern "C" int repro_mixtrim_dyn(const void* x, int dtype, const float* m,
       d < 1 || blocks < 1 || f == nullptr)
     return cudaErrorInvalidValue;
   if (dtype != REPRO_F32 && dtype != REPRO_BF16) return cudaErrorInvalidValue;
-  const Args a{x, dtype, m, lanes, n, d, f, med, out, blocks,
+  const Args a{x, dtype, m, lanes, n, d, f, 0, med, out, blocks,
                static_cast<cudaStream_t>(stream)};
   if (n <= mixtrim_detail::SMALL_N) return launch_small(a);
   const mixtrim_detail::Args big{x, dtype, m, mt, lanes, n, d, 0, f, med,
                                  out, blocks, a.s};
   if (n <= mixtrim_select::MAX_N) return mixtrim_select::launch(big);
-  if (dtype == REPRO_F32) return launch_large<float>(big);
-  return launch_large<__nv_bfloat16>(big);
+  if (dtype == REPRO_F32) return mixtrim_detail::launch_large<float, true>(big);
+  return mixtrim_detail::launch_large<__nv_bfloat16, true>(big);
 }

@@ -1,40 +1,64 @@
-// K4 · fused NNM mix + coordinate-wise trim / median with f read on the
-// device, one per lane of a (B, n, D) stack: the body for n <= 64.
+// K2 and K4 · fused NNM mix + coordinate-wise trim / median: the body for
+// n <= 64 that both kernels share (K2 with f from the host, K4 with f read
+// on the device, one per lane of a (B, n, D) stack).
 //
-// Replaces the TPU kernel repro/kernels/mixtrim/kernel.py::
-// mixtrim_dyn_pallas (body _make_dyn_kernel).  Semantics are those of
-// mixtrim_dyn_ref (kernels/mixtrim/ops.py): per column c of lane b,
-// y = M_b x_b[:, c] (skipped without M), sorted with NaN last; "trim" is
-// the sum over ALL n ranks of ys[r] * keep[r], keep = (r >= f) &
-// (r < n - f), over max(n - 2f, 1), so a +-inf or NaN in a trimmed rank
-// gives NaN (inf * 0); "med" is the median and ignores f.  f is read from
-// device memory, so one build serves every f.
+// Replaces, for n <= 64, the TPU kernels repro/kernels/mixtrim/kernel.py::
+// mixtrim_pallas (body _make_kernel; K2) and ::mixtrim_dyn_pallas (body
+// _make_dyn_kernel; K4).  Per column c of lane b, y = M_b x_b[:, c]
+// (skipped without M), sorted with NaN last; then:
+//   - "trim", K2 (fdev == nullptr: f is an argument, one lane): the sorted
+//     values of ranks [f, n - f) summed in ascending rank, over n - 2f
+//     (mixtrim_ref's slice).  A +-inf in a trimmed rank is skipped, and
+//     the column is NaN only when it holds more than f NaNs: only then
+//     does a NaN reach a kept rank;
+//   - "trim", K4 (f read from fdev, one per lane, so one build serves
+//     every f): the sum over ALL n ranks of ys[r] * keep[r], keep =
+//     (r >= f) & (r < n - f), over max(n - 2f, 1) (mixtrim_dyn_ref's rank
+//     mask), so a +-inf or NaN in a trimmed rank gives NaN (inf * 0), and
+//     a NaN anywhere in the column makes it NaN;
+//   - "med": the median (f unused).
+// f <= 0 keeps every rank: the column's sum in index order, no sort.  Which
+// trim runs is a runtime flag, uniform over the grid, so one set of
+// instances serves both kernels: both sum the kept ranks, and only the
+// test that makes a column NaN differs.  At equal f on finite data the two
+// agree bit for bit (the mask's other terms are exact zeros added to a sum
+// that is never -0).
 //
-// What bounds it on this card.  At (8, 17, 2^24) the bytes (9.7 GB, 2.9 ms
-// at 3.35 TB/s) and the mix's 289 FMAs a column (1.2 ms) are below what
-// the earlier body (K2's with f on the device) issued: one shared load
-// per FMA of the mix, a 32-high bitonic network (240 compare-exchanges on
-// uint32 keys for 17 values) and per-column arrays in local memory.  This
-// body is bound by instruction issue and is designed to issue few:
+// What bounds it on this card.  At the dense main path's shape (n = 8,
+// D = 361,821,120) the bytes (n reads and one fp32 write a column: 3.888 ms
+// in fp32, 2.160 in bf16 at 3.35 TB/s) are above the mix's 64 FMAs a
+// column; at (8, 17, 2^24) the bytes are 2.9 ms and the mix's 289 FMAs a
+// column 1.2 ms.  The first body, which K2 and K4 both ran at first,
+// issued far more than that: one shared load per FMA of the mix, a
+// bitonic network over the next power of two on uint32 keys (240
+// compare-exchanges for 17 values) and per-column arrays in local memory,
+// and took the same time in bf16 as in fp32.  This body is designed to
+// issue few instructions and to keep every row's loads in flight:
 //   - each thread owns C consecutive columns (C = 4 for n <= 8, 2 for
 //     n <= 20, else 1), read with one 8- or 16-byte load per row where D
 //     and the pointer allow (a scalar path otherwise);
 //   - M sits in shared memory with rows padded to a multiple of four and
 //     is read as float4 broadcasts: one shared load feeds 4 * C FMAs.
-//     Each mixed value's FMA chain runs in ascending j from 0 in fp32, as
-//     K2's does, so at equal f K4 and K2 mix to the same bits;
+//     Each mixed value's FMA chain runs in ascending j from 0 in fp32;
 //   - the sort is Batcher's odd-even merge network cut to the real n
 //     (csrc/sortnet.cuh: 85 comparators at n = 17) on fp32 values with
 //     fminf / fmaxf.  A NaN is counted and replaced by +inf first: the
-//     counted NaNs are the top ranks (torch.sort's NaN-last order), a trim
-//     over a column with a NaN is NaN whatever f is, and a median rank
-//     among the top ones is NaN;
+//     counted NaNs are the top ranks (torch.sort's NaN-last order), and a
+//     median rank among them is NaN;
 //   - the instance is compiled per n for n <= 32 (n = 33..48 and 49..64
 //     share the 48- and 64-high instances, with +inf pads above n that
 //     the cut network never moves), so every register array is indexed
-//     by compile-time constants: no local frame.
-// f <= 0 keeps every rank: the column's sum in index order, no sort, as
-// K2 does at f = 0.
+//     by compile-time constants: no local frame.  With one column a
+//     thread (n > 20) the mix keeps the stack in registers and stages the
+//     mixed rows in shared memory (each thread its own slots), so the
+//     stack and the mixed stack are not both live: the 48- and 64-high
+//     instances spilled hundreds of bytes without it and took 1.3-1.8x
+//     as long;
+//   - every row's loads sit in one branch (vector loads, or element by
+//     element for a row's last columns), so they all issue before the
+//     first bf16 widening waits on one; with a branch a row each bf16 row
+//     waited for its load before the next was issued, and bf16 took
+//     longer than fp32.
 #pragma once
 
 #include "common.cuh"
@@ -44,11 +68,17 @@ namespace mixtrim_dyn_detail {
 
 constexpr int THREADS = 128;
 constexpr int EXACT_MAX_N = 32;          // instances compiled per n up to here
+// Columns a thread owns at n <= 8 in bf16 (one 8-byte load per row at 4).
+constexpr int SMALL_C_BF16 = 4;
+// Whether the mix instances with one column a thread (n > 20) stage the
+// mixed rows in shared memory (else the stack and the mixed stack both sit
+// in registers).
+constexpr bool STAGE_MIX = true;
 
 // Columns per thread: enough to amortise M's reads, few enough that the
 // stack and the mixed stack (2 * N * C values) stay in registers.
-__host__ __device__ constexpr int cols_per_thread(int n) {
-  return n <= 8 ? 4 : (n <= 20 ? 2 : 1);
+__host__ __device__ constexpr int cols_per_thread(int n, int bytes) {
+  return n <= 8 ? (bytes == 2 ? SMALL_C_BF16 : 4) : (n <= 20 ? 2 : 1);
 }
 
 struct Args {
@@ -57,45 +87,88 @@ struct Args {
   const float* m;                        // (lanes, n, n) fp32 or NULL
   int lanes, n;
   long long d;
-  const int* f;                          // (lanes,) int32 on the device
+  const int* f;                          // K4: (lanes,) int32 on the device;
+                                         // K2: NULL (f in fh, one lane)
+  int fh;
   int med;
   float* out;                            // (lanes, d) fp32
   int blocks;                            // column blocks per lane, at most
   cudaStream_t s;
 };
 
-// C consecutive elements from p (left = columns remaining in the row),
-// widened to fp32; vec: one 4 * C- (fp32) or 2 * C-byte (bf16) load.
+// A bf16 (its bits in h) or a pair of them (w, low half first) as fp32:
+// a bf16 is the high half of the fp32 of the same value.
+__device__ __forceinline__ float widen1(unsigned short h) {
+  return __uint_as_float((unsigned)h << 16);
+}
+__device__ __forceinline__ void widen2(unsigned w, float& lo, float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+
+// C consecutive elements from p widened to fp32, by vector loads (16
+// bytes at most each; p aligned to C elements).
 template <typename T, int C>
-__device__ __forceinline__ void load_cols(const T* p, long long left,
-                                          bool vec, float (&v)[C]) {
-  if (vec && left >= C) {
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[C]) {
+  if constexpr (sizeof(T) == 4) {
+    const float* q = reinterpret_cast<const float*>(p);
     if constexpr (C == 1) {
-      v[0] = to_f32(__ldg(p));
-    } else if constexpr (sizeof(T) == 4 && C == 4) {
-      load4(reinterpret_cast<const float*>(p), v);
-    } else if constexpr (sizeof(T) == 4 && C == 2) {
-      const float2 q = __ldg(reinterpret_cast<const float2*>(p));
-      v[0] = q.x; v[1] = q.y;
-    } else if constexpr (C == 4) {
-      load4(reinterpret_cast<const __nv_bfloat16*>(p), v);
+      v[0] = __ldg(q);
+    } else if constexpr (C == 2) {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(q));
+      v[0] = t.x; v[1] = t.y;
     } else {
-      const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(p));
-      const float2 q =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
-      v[0] = q.x; v[1] = q.y;
+#pragma unroll
+      for (int k = 0; k < C; k += 4) {
+        const float4 t = __ldg(reinterpret_cast<const float4*>(q + k));
+        v[k] = t.x; v[k + 1] = t.y; v[k + 2] = t.z; v[k + 3] = t.w;
+      }
     }
   } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+    if constexpr (C == 1) {
+      v[0] = widen1(__ldg(h));
+    } else if constexpr (C == 2) {
+      widen2(__ldg(reinterpret_cast<const unsigned*>(h)), v[0], v[1]);
+    } else if constexpr (C == 4) {
+      const uint2 t = __ldg(reinterpret_cast<const uint2*>(h));
+      widen2(t.x, v[0], v[1]);
+      widen2(t.y, v[2], v[3]);
+    } else {
 #pragma unroll
-    for (int k = 0; k < C; ++k) v[k] = (k < left) ? to_f32(p[k]) : 0.f;
+      for (int k = 0; k < C; k += 8) {
+        const uint4 t = __ldg(reinterpret_cast<const uint4*>(h + k));
+        widen2(t.x, v[k], v[k + 1]);
+        widen2(t.y, v[k + 2], v[k + 3]);
+        widen2(t.z, v[k + 4], v[k + 5]);
+        widen2(t.w, v[k + 6], v[k + 7]);
+      }
+    }
+  }
+}
+
+// The first min(left, C) elements from p widened to fp32 one by one (the
+// rest 0): a row's last columns, or a stack the vector loads cannot take.
+template <typename T, int C>
+__device__ __forceinline__ void load_tail(const T* p, long long left,
+                                          float (&v)[C]) {
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    if constexpr (sizeof(T) == 4)
+      v[k] = (k < left) ? reinterpret_cast<const float*>(p)[k] : 0.f;
+    else
+      v[k] = (k < left) ? widen1(reinterpret_cast<const unsigned short*>(p)[k]) : 0.f;
   }
 }
 
 template <int C>
 __device__ __forceinline__ void store_cols(float* p, long long left, bool vec,
                                            const float (&r)[C]) {
-  if (vec && C == 4 && left >= 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  if (vec && C % 4 == 0 && left >= C) {
+#pragma unroll
+    for (int k = 0; k < C; k += 4)
+      *reinterpret_cast<float4*>(p + k) =
+          make_float4(r[k], r[k + 1], r[k + 2], r[k + 3]);
   } else if (vec && C == 2 && left >= 2) {
     *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
   } else {
@@ -117,25 +190,50 @@ __device__ __forceinline__ float4 lds_m4(const float* p) {
   return v;
 }
 
+// Row i of the mix for C columns: sum_j M[i, j] y[j], j ascending from 0.
+template <int N, int C, int N4>
+__device__ __forceinline__ void mix_row(const float* smi,
+                                        const float (&y)[N][C],
+                                        float (&s)[C]) {
+#pragma unroll
+  for (int k = 0; k < C; ++k) s[k] = 0.f;
+#pragma unroll
+  for (int j4 = 0; j4 < N4; j4 += 4) {
+    const float4 q = lds_m4(smi + j4);
+    const float mq[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (j4 + t < N) {
+#pragma unroll
+        for (int k = 0; k < C; ++k) s[k] = fmaf(mq[t], y[j4 + t][k], s[k]);
+      }
+    }
+  }
+}
+
 // Grid: (column blocks, lanes); blockIdx.y = lane.  N: the compiled
 // height (the real n when EXACT).  vec: D and x allow C-wide loads.
+// fdev: K4's per-lane f, or NULL for K2 (f = fh, the slice).
 template <typename T, int N, bool MIX>
 __global__ void __launch_bounds__(THREADS)
 mixtrim_dyn_small(const T* __restrict__ x, const float* __restrict__ m,
                   int n, long long d, bool vec, const int* __restrict__ fdev,
-                  int med, float* __restrict__ out) {
-  constexpr int C = cols_per_thread(N);
+                  int fh, int med, float* __restrict__ out) {
+  constexpr int C = cols_per_thread(N, sizeof(T));
   constexpr int N4 = (N + 3) & ~3;
   constexpr bool EXACT = N <= EXACT_MAX_N;
+  constexpr bool STAGE = MIX && C == 1 && STAGE_MIX;
   const int nr = EXACT ? N : n;
   const int lane = blockIdx.y;
   x += (long long)lane * nr * d;
   out += (long long)lane * d;
-  const int f = fdev[lane];
+  const bool slice = fdev == nullptr;
+  const int f = slice ? fh : fdev[lane];
   const int keep_lo = f, keep_hi = nr - f;
   const float denom = (float)max(nr - 2 * f, 1);
 
   __shared__ __align__(16) float sm[MIX ? N * N4 : 4];
+  __shared__ float sz[STAGE ? N * THREADS * C : 1];
   if constexpr (MIX) {
     m += (long long)lane * nr * nr;
     for (int e = threadIdx.x; e < N * N4; e += THREADS) {
@@ -149,38 +247,46 @@ mixtrim_dyn_small(const T* __restrict__ x, const float* __restrict__ m,
   for (long long c0 = ((long long)blockIdx.x * THREADS + threadIdx.x) * C;
        c0 < d; c0 += stride) {
     const long long left = d - c0;
+    // Every row's loads sit in one branch, so all of them issue before the
+    // first bf16 widening waits on one: behind a branch a row, each row's
+    // widening would hold back the next row's load.  Above 32 workers the
+    // pad rows re-read row n - 1 (a cache hit) and are zeroed after.
     float y[N][C];
+    if (vec && left >= C) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (EXACT || i < nr) {
-        load_cols<T, C>(x + (long long)i * d + c0, left, vec, y[i]);
-      } else {
+      for (int i = 0; i < N; ++i)
+        load_vec<T, C>(x + (long long)(EXACT ? i : min(i, nr - 1)) * d + c0, y[i]);
+    } else {
 #pragma unroll
-        for (int k = 0; k < C; ++k) y[i][k] = 0.f;
-      }
+      for (int i = 0; i < N; ++i)
+        load_tail<T, C>(x + (long long)(EXACT ? i : min(i, nr - 1)) * d + c0,
+                        left, y[i]);
     }
-    if constexpr (MIX) {
-      float z[N][C];
+    if constexpr (!EXACT) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int k = 0; k < C; ++k)
+          if (i >= nr) y[i][k] = 0.f;
+    }
+    if constexpr (STAGE) {
+      // Each mixed row to this thread's own shared slots (no conflicts,
+      // no barrier), then back over the stack once every row is mixed.
 #pragma unroll
       for (int i = 0; i < N; ++i) {
         float s[C];
+        mix_row<N, C, N4>(&sm[i * N4], y, s);
 #pragma unroll
-        for (int k = 0; k < C; ++k) s[k] = 0.f;
-#pragma unroll
-        for (int j4 = 0; j4 < N4; j4 += 4) {
-          const float4 q = lds_m4(&sm[i * N4 + j4]);
-          const float mq[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            if (j4 + t < N) {
-#pragma unroll
-              for (int k = 0; k < C; ++k) s[k] = fmaf(mq[t], y[j4 + t][k], s[k]);
-            }
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < C; ++k) z[i][k] = s[k];
+        for (int k = 0; k < C; ++k) sz[(i * C + k) * THREADS + threadIdx.x] = s[k];
       }
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+#pragma unroll
+        for (int k = 0; k < C; ++k) y[i][k] = sz[(i * C + k) * THREADS + threadIdx.x];
+    } else if constexpr (MIX) {
+      float z[N][C];
+#pragma unroll
+      for (int i = 0; i < N; ++i) mix_row<N, C, N4>(&sm[i * N4], y, z[i]);
 #pragma unroll
       for (int i = 0; i < N; ++i)
 #pragma unroll
@@ -227,14 +333,31 @@ mixtrim_dyn_small(const T* __restrict__ x, const float* __restrict__ m,
           if (rhi >= nr - nans[k]) hi = __int_as_float(0x7fffffff);
           r[k] = (nr & 1) ? hi : 0.5f * (lo + hi);
         } else {
-          // The rank mask over every real rank: inf * 0 = NaN is kept,
-          // and a NaN anywhere in the column makes the sum NaN.
+          // The kept ranks [f, n - f) in ascending order.
           float s = 0.f;
 #pragma unroll
           for (int i = 0; i < N; ++i)
-            if (EXACT || i < nr)
-              s += y[i][k] * ((i >= keep_lo && i < keep_hi) ? 1.f : 0.f);
-          r[k] = nans[k] ? __int_as_float(0x7fffffff) : s / denom;
+            if ((EXACT || i < nr) && i >= keep_lo && i < keep_hi) s += y[i][k];
+          // K2's slice is NaN once a NaN reaches a kept rank: more than f
+          // NaNs.  K4's mask adds ys[r] * 0 for each trimmed rank, NaN for
+          // a NaN or an inf there; f >= 1 trims rank 0 and rank n - 1, so
+          // that is a -inf at rank 0 or a +inf (a NaN counts as one) at
+          // rank n - 1.  Its other terms are exact zeros added to a sum
+          // that is never -0: the same bits as the slice.
+          bool bad;
+          if (slice) {
+            bad = nans[k] > f;
+          } else {
+            float top = y[N - 1][k];
+            if constexpr (!EXACT) {
+#pragma unroll
+              for (int i = 0; i < N; ++i)
+                if (i == nr - 1) top = y[i][k];
+            }
+            bad = y[0][k] == -__int_as_float(0x7f800000) ||
+                  top == __int_as_float(0x7f800000);
+          }
+          r[k] = bad ? __int_as_float(0x7fffffff) : s / denom;
         }
       }
     }
@@ -244,7 +367,7 @@ mixtrim_dyn_small(const T* __restrict__ x, const float* __restrict__ m,
 
 template <typename T, int N, bool MIX>
 int launch_typed(const Args& a) {
-  constexpr int C = cols_per_thread(N);
+  constexpr int C = cols_per_thread(N, sizeof(T));
   auto kernel = mixtrim_dyn_small<T, N, MIX>;
   static int per_sm = 0;                 // resident blocks per SM
   if (per_sm == 0) {
@@ -264,7 +387,7 @@ int launch_typed(const Args& a) {
   kernel<<<dim3((unsigned)grid, a.lanes), THREADS, 0, a.s>>>(
       static_cast<const T*>(a.x), a.m, a.n, a.d,
       a.d % C == 0 && reinterpret_cast<uintptr_t>(a.x) % (C * sizeof(T)) == 0,
-      a.f, a.med, a.out);
+      a.f, a.fh, a.med, a.out);
   return cudaGetLastError();
 }
 
@@ -281,5 +404,9 @@ int launch_n(const Args& a) {
   if (a.dtype == REPRO_BF16) return launch_dtype<__nv_bfloat16, N>(a);
   return cudaErrorInvalidValue;
 }
+
+// n <= 64 for K2 (a.f NULL, one lane) and K4: the launch at the height
+// for a.n (defined in mixtrim_dyn.cu).
+int launch_small(const Args& a);
 
 }  // namespace mixtrim_dyn_detail

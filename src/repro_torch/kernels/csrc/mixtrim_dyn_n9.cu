@@ -1,5 +1,6 @@
-// K4 (csrc/mixtrim_dyn.cuh) compiled at heights 9..16: a translation unit
-// of its own so that nvcc builds it in parallel with the others.
+// K2 / K4's n <= 64 body (csrc/mixtrim_dyn.cuh) compiled at heights
+// 9..16: a translation unit of its own so that nvcc builds it in
+// parallel with the others.
 #include "mixtrim_dyn.cuh"
 
 namespace mixtrim_dyn_detail {

@@ -8,14 +8,15 @@ runs :func:`mixtrim_ref`, the plain version, which defines the semantics:
 values sort with every NaN last (``jnp.sort``'s order, whatever the NaN's
 sign: :func:`~repro_torch.kernels._common.sort_nan_last`), so a
 trim over the nan / inf attack stacks keeps the same ranks in both.
-Up to 64 workers a register network sorts each column (``csrc/
-mixtrim.cuh``, K2's entry point in ``mixtrim.cu``); from 65 to 1024
-workers the mix is a register-tiled fp32 tile product and a radix select
-finds the two ranks a trim or a median needs (``csrc/mixtrim_select.cuh``);
-above that (to :data:`MAX_N`) a shared-memory network sorts tiles of
-columns (``mixtrim.cuh``).  K4 has
-its own body up to 64 workers (``csrc/mixtrim_dyn.cuh``: several columns
-a thread, a sorting network cut to the real n) and shares K2's above.
+Up to 64 workers K2 and K4 share one body (``csrc/mixtrim_dyn.cuh``:
+several columns a thread, M read as shared-memory broadcasts, a sorting
+network cut to the real n; K2 passes f as an argument and sums the slice
+of ranks [f, n-f), K4 reads f on the device and applies the rank mask);
+from 65 to 1024 workers the mix is a register-tiled fp32 tile product and
+a radix select finds the two ranks a trim or a median needs (``csrc/
+mixtrim_select.cuh``); above that (to :data:`MAX_N`) a shared-memory
+network sorts tiles of columns (``csrc/mixtrim.cuh``).  ``mixtrim.cu`` is
+K2's entry point, ``mixtrim_dyn.cu`` K4's.
 ``mixtrim.launches`` counts kernel launches.
 
 :func:`mixtrim_dyn` (K4, the counterpart of
@@ -38,11 +39,7 @@ from repro_torch.kernels._common import (
     check_lanes, check_small, check_stack, sort_nan_last, stream_of,
 )
 
-_THREADS = 256
 _BLOCKS_PER_SM = 16
-#: Largest worker count the register-network kernel takes
-#: (csrc/mixtrim.cuh SMALL_N).
-SMALL_N = 64
 #: Largest worker count the kernels take (csrc/mixtrim.cuh MAX_N): the next
 #: power of two above the reference's largest scale n, 10240.
 MAX_N = 16384
@@ -87,10 +84,8 @@ def mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f: int,
     d = x.shape[1]
     mf, mt = _mix_operands(m, (n, n), x, "mixtrim m")
     lib = _build.library()
-    cap = _BLOCKS_PER_SM * _build.sm_count(x.device)
-    # n > SMALL_N: the kernel takes tiles of columns and caps the grid at
-    # its tile count itself.
-    blocks = cap if n > SMALL_N else max(1, min(-(-d // _THREADS), cap))
+    # The kernels cap the column blocks at what one wave needs themselves.
+    blocks = _BLOCKS_PER_SM * _build.sm_count(x.device)
     out = torch.empty((d,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.repro_mixtrim(x.data_ptr(), _build.dtype_code(x.dtype),

@@ -97,15 +97,21 @@ def test_kernels_match_plain_versions(dev, dtype, n, d, misaligned):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fill", [float("nan"), float("inf"), -float("inf")])
-@pytest.mark.parametrize("n,f", [(8, 2), (17, 8)])
+@pytest.mark.parametrize("n,f", [(8, 2), (17, 8), (33, 16), (64, 31)])
 def test_mixtrim_nonfinite_rows_match_plain(dev, fill, n, f):
-    """nan / inf attack rows: the kernel ranks NaN last, as torch.sort."""
+    """nan / inf attack rows: the kernel ranks NaN last, as torch.sort.
+    f such rows are trimmed (the output stays finite); one more row puts a
+    NaN or an inf into a kept rank in the second stack."""
     x = _stack(dev, n, 4099, torch.float32, False, seed=1).clone()
     x[n - f:] = fill
+    more = x.clone()
+    more[n - f - 1] = fill
     m = torch.softmax(torch.randn(n, n, device=dev), -1)
     for mode in ("trim", "med"):
         for mm in (None, m):
             _close(mixtrim(x, mm, f, mode), mixtrim_ref(x, mm, f, mode))
+            _close(mixtrim(more, mm, f, mode), mixtrim_ref(more, mm, f, mode))
+    assert bool(torch.isfinite(mixtrim(x, None, f, "trim")).all())
 
 
 @pytest.mark.cuda
@@ -446,14 +452,22 @@ def test_mixtrim_dyn_matches_plain(dev, dtype, b, n, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [8, 17, 100, 640])
+@pytest.mark.parametrize("n", [1, 3, 8, 9, 17, 20, 21, 32, 33, 48, 49, 64,
+                               100, 640])
 def test_mixtrim_dyn_agrees_with_k2_at_equal_f(dev, n):
+    """On finite data at equal f: up to 64 workers K2 and K4 run one body
+    and must agree bit for bit (the mask's other terms add exact zeros);
+    above, within the fp32 tolerance."""
     x = _lanes(dev, 1, n, 4099, torch.float32, seed=n)[0]
     m = torch.softmax(torch.randn((n, n), device=dev), -1)
     for f in range(0, (n - 1) // 2 + 1, max(1, n // 6)):
         ft = torch.tensor(f, dtype=torch.int32, device=dev)
         for mm in (None, m):
-            _close(mixtrim_dyn(x, mm, ft), mixtrim(x, mm, f, "trim"))
+            got, want = mixtrim_dyn(x, mm, ft), mixtrim(x, mm, f, "trim")
+            if n <= 64:
+                assert torch.equal(got, want)
+            else:
+                _close(got, want)
 
 
 @pytest.mark.cuda
@@ -525,14 +539,63 @@ def test_mixtrim_dyn_every_small_height_matches_plain(dev, dtype, n, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", list(range(1, 65)))
+@pytest.mark.parametrize("d,misaligned", [(4096, False), (4099, False),
+                                          (4098, True), (61, False)])
+def test_mixtrim_every_small_height_matches_plain(dev, dtype, n, d,
+                                                  misaligned):
+    """K2 on the n <= 64 body it shares with K4, at every n: trim at
+    f = 0, 1, 2 and the largest f, and the median, with and without the
+    mix; D a multiple of the columns a thread owns or not, fewer columns
+    than one block takes, and a stack at a storage offset of one element
+    (the scalar load path).  D = 61 and not 1: the tolerance is 1e-5 of
+    the largest |plain|, and one trimmed mean of mixed rows can cancel to
+    a value far below the rounding of the sums that make it."""
+    x = _stack(dev, n, d, dtype, misaligned, seed=n * 13 + d)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + 2)
+    m = torch.softmax(torch.randn(n, n, generator=gen, device=dev), -1)
+    before = mixtrim.launches
+    calls = 0
+    for mode in ("trim", "med"):
+        for f in sorted({0, min(1, (n - 1) // 2), min(2, (n - 1) // 2),
+                         (n - 1) // 2}) if mode == "trim" else (0,):
+            for mm in (None, m.to(dtype)):
+                _close(mixtrim(x, mm, f, mode), mixtrim_ref(x, mm, f, mode))
+                calls += 1
+    assert mixtrim.launches == before + calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", list(range(1, 21)))
+def test_mixtrim_sort_is_exact_on_every_0_1_column(dev, n):
+    """The 0-1 principle for K2's slice: on every 0-1 column its trim at
+    every f and its median equal the plain version exactly.  The plain
+    version runs on the CPU, whose mean divides the exact sum once, as
+    the kernel does."""
+    x = _zero_one(dev, n)
+    xc = x.cpu()
+    for f in range(0, (n - 1) // 2 + 1):
+        assert torch.equal(mixtrim(x, None, f, "trim").cpu(),
+                           mixtrim_ref(xc, None, f, "trim"))
+    assert torch.equal(mixtrim(x, None, 0, "med").cpu(),
+                       mixtrim_ref(xc, None, 0, "med"))
+
+
+def _zero_one(dev, n):
+    """The (n, 2^n) stack holding each 0-1 column once."""
+    cols = torch.arange(1 << n, device=dev)
+    return ((cols[None, :] >> torch.arange(n, device=dev)[:, None]) & 1).float()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", list(range(1, 21)))
 def test_mixtrim_dyn_sort_is_exact_on_every_0_1_column(dev, n):
     """The 0-1 principle: a network that sorts every 0-1 vector sorts
     every input.  The (1, n, 2^n) stack holds each 0-1 column once; K4's
     trim at every f and its median equal the plain version exactly."""
-    cols = torch.arange(1 << n, device=dev)
-    bits = (cols[None, :] >> torch.arange(n, device=dev)[:, None]) & 1
-    x = bits.float()[None].contiguous()
+    x = _zero_one(dev, n)[None].contiguous()
     for f in range(0, n // 2 + 2):
         ft = torch.tensor([f], dtype=torch.int32, device=dev)
         assert torch.equal(mixtrim_dyn(x, None, ft),

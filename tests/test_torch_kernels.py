@@ -83,13 +83,17 @@ def test_combine_plain_matches_reference(n, bf16):
            jcombine_ref(jx, jnp.asarray(c)))
 
 
-@pytest.mark.parametrize("n", [8, 17])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 9, 17, 31, 33, 48, 64])
 @pytest.mark.parametrize("mode", ["trim", "med"])
 @pytest.mark.parametrize("mix", [False, True])
 def test_mixtrim_plain_matches_reference(n, mode, mix):
+    """One n per height class of the n <= 64 body K2 shares with K4 on the
+    card (four columns a thread to n = 8, two to 20, one above; one
+    instance per n to 32, the 48- and 64-high ones above), in every f
+    regime."""
     jx, tx = _both(_stack(n, n, 300))
     m = _mix(n, n) if mix else None
-    for f in sorted({0, 2, (n - 1) // 2}):
+    for f in sorted({0, min(2, (n - 1) // 2), (n - 1) // 2}):
         got = mixtrim(tx, None if m is None else torch.from_numpy(m), f, mode)
         want = jmixtrim_ref(jx, None if m is None else jnp.asarray(m), f, mode)
         _close(got.numpy(), want)
@@ -118,6 +122,38 @@ def test_mixtrim_plain_nonfinite_rows_match_reference(fill, mode):
     _close(got, want)
     if mode == "trim":
         assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("n", [8, 17, 33, 64])
+@pytest.mark.parametrize("mode", ["trim", "med"])
+def test_mixtrim_slice_and_dyn_mask_on_nonfinite_stacks_match_reference(
+        n, mode):
+    """K2 trims a slice of ranks, K4 multiplies every rank by a 0-1 mask;
+    the body they share on the card keeps that difference.  Columns 0-49
+    hold +inf in the top rank and -inf in the bottom one (both trimmed),
+    50-99 hold f NaNs (the top f ranks, trimmed), 100-149 f + 1 NaNs (one
+    reaches a kept rank), the rest are finite.  Each plain version against
+    the reference's oracle; in the trim, K2 is finite where K4 is NaN
+    (inf * 0, NaN * 0) in the first two groups, and both are NaN in the
+    third."""
+    f = max(1, n // 4)
+    x = _stack(n + 41, n, 200)
+    x[n - 1, :50] = np.inf
+    x[0, :50] = -np.inf
+    x[:f, 50:100] = np.nan
+    x[:f + 1, 100:150] = np.nan
+    tx, jx = torch.from_numpy(x), jnp.asarray(x)
+    k = f if mode == "trim" else 0
+    got2 = mixtrim(tx, None, k, mode).numpy()
+    _close(got2, jmixtrim_ref(jx, None, k, mode))
+    got4 = mixtrim_dyn(tx, None, torch.tensor(k, dtype=torch.int32),
+                       mode).numpy()
+    _close(got4, jmixtrim_dyn_ref(jx, None, k, mode))
+    if mode == "trim":
+        assert np.isfinite(got2[:100]).all() and np.isnan(got4[:100]).all()
+        assert np.isnan(got2[100:150]).all() and np.isnan(got4[100:150]).all()
+        assert np.isfinite(got2[150:]).all()
+        _close(got2[150:], got4[150:])
 
 
 @pytest.mark.parametrize("n", [100, 640])
