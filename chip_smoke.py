@@ -73,9 +73,26 @@ Phases, each fatal on failure:
      fallback, printing the accuracy table, ms per bucket-round and peak
      memory; then the cwtm | nnm and cwtm | bucketing buckets again on the
      torch backend, per-round losses within rtol 1e-4 of the kernel run;
- 12. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 12. the federated engine (``repro_torch.fed``): (a) the registry's
+     iid_baseline, labelskew_alie_partial, mimic_rotating,
+     dirichlet_localsgd, poison_labelflip, poison_feature and
+     faulty_nan_quarantine through ``run_scenario``, 20 rounds each in
+     segments of 5, asserting the launches of every round (cwtm | nnm K1
+     + K2; gm, autogm and average K1 + K3), no kernel fallback, finite
+     metrics and, under the guard, m_byz rows quarantined every round;
+     printing accuracy, ms per round by the host clock around each
+     segment and peak memory; labelskew_alie_partial again on the torch
+     backend (losses within rtol 1e-4) and on the loop engine (1e-6);
+     (b) K1 and K2 at the full-width cohort stack (n = 6) against their
+     plain versions, then ``FedServer`` + ``run_rounds`` with full-width
+     smollm-360m: 8 clients, cohorts of 6, f = 2, ALIE eta 8, NNM + CWTM,
+     D-SHB, 2 rounds in segments of 1 (one K1 and one K2 a round, finite
+     loss and kappa_hat, peak memory below 70 GiB beside the reckoned
+     peak);
+ 13. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6), the
-     kernels JSON line, the card line, and last the {"ok": true, ...} line.
+     fed phase's launches, the kernels JSON line, the card line, and last
+     the {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -206,7 +223,7 @@ def check(name, got, want, ms, plain_ms, bnd, library_ms=None):
     err, tol = max_err(got, want)
     ok = err <= tol
     log(f"  {name}: max_abs_err={err:.3e} tol={tol:.3e} {'OK' if ok else 'FAIL'}"
-        f" | kernel {ms:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}), plain "
+        f" | kernel {ms:.3f} ms, bound {bnd[0]:.4g} ms ({bnd[1]}), plain "
         f"{plain_ms:.3f} ms, library "
         f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'}")
     if not ok:
@@ -1244,6 +1261,304 @@ def run_loop(dev, name: str, spec_kw: dict, steps: int, expect: dict) -> dict:
     torch.cuda.empty_cache()
     return counts
 
+#: Phase 12a: the registry scenarios driven on the card, 20 rounds each in
+#: segments of 5, and the kernel launches ONE round of each must make.
+FED_SCENARIOS = ("iid_baseline", "labelskew_alie_partial", "mimic_rotating",
+                 "dirichlet_localsgd", "poison_labelflip", "poison_feature",
+                 "faulty_nan_quarantine")
+FED_ROUNDS, FED_CHUNK = 20, 5
+#: Phase 12b: the federated server at full width: 8 clients, cohorts of 6,
+#: f = 2 (m_byz = ceil(2 * 6 / 8) = 2, the cohort's breakdown point).
+FED_CLIENTS, FED_COHORT, FED_F, FED_FULL_ROUNDS = 8, 6, 2, 2
+_FED_KERNELS = ("gram", "mixtrim", "combine", "mixtrim_dyn", "gram_batched",
+                "bucketgram", "bucketmeans")
+
+
+def fed_expected(rule: str, pre) -> dict:
+    """Launches of one round by (rule, pre): cwtm | nnm K1 + K2; the gram
+    rules (average too: the reference's kernel path also routes it
+    through the Gram and the combine) K1 + K3; nothing else."""
+    want = dict.fromkeys(_FED_KERNELS, 0)
+    if rule == "cwtm" and pre == "nnm":
+        want.update(gram=1, mixtrim=1)
+    elif rule in ("average", "gm", "autogm"):
+        want.update(gram=1, combine=1)
+    else:
+        raise ValueError(f"no launch plan for {rule} | {pre}")
+    return want
+
+
+def fed_fallbacks(rule: str) -> None:
+    """No kernel of the round fell back.  The one torch op the dispatch
+    record notes for a kernel backend is AutoGM's (m, m) weight solve,
+    which has no kernel form in the reference either (ROADMAP queue 2)."""
+    from repro_torch.kernels import dispatch as kdispatch
+    bad = [d for d in kdispatch.fallback_log()
+           if not (rule == "autogm" and d.primitive == "autogm_coeff")]
+    if bad:
+        raise AssertionError(f"fed round fell back: {bad[:3]}")
+
+
+def seg_ms(report: dict) -> list:
+    return [1e3 * sec / (end - start) for start, end, sec in report["segments"]]
+
+
+def phase_fed_scenarios(dev, rate: float) -> dict:
+    """12a: registry scenarios through run_scenario on the card; returns
+    {scenario: launch counts}."""
+    import torch
+    from repro_torch.core import gram as gramlib
+    from repro_torch.fed import get_scenario, run_scenario
+    from repro_torch.kernels import (combine, combine_ref, gram, gram_ref,
+                                     mixtrim, mixtrim_ref)
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.rounds import RoundOptions
+    # K1, K2 and K3 at the cohort stacks these scenarios give them, each
+    # timed (CUDA events) beside its bound, its plain version and a
+    # scenario's ms per round below.  K1 runs gram.cu's gram_rows at
+    # n <= 8 and gram_batched.cu's staged kernel as one lane above.
+    gen = torch.Generator(device=dev).manual_seed(12)
+    d = 2842
+    for n, f in ((10, 2), (12, 3), (17, 4)):
+        x = torch.randn((n, d), device=dev, generator=gen)
+        g = gram(x)
+        check(f"K1 gram n={n} D={d}", g, gram_ref(x), time_ms(lambda: gram(x)),
+              time_ms(lambda: gram_ref(x)),
+              bound(4.0 * n * d + 4 * n * n, n * (n + 1) * d, rate),
+              time_ms(lambda: torch.mm(x, x.T)))
+        m = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), f)
+        check(f"K2 mixtrim trim mix n={n} f={f}", mixtrim(x, m, f, "trim"),
+              mixtrim_ref(x, m, f, "trim"),
+              time_ms(lambda: mixtrim(x, m, f, "trim")),
+              time_ms(lambda: mixtrim_ref(x, m, f, "trim")),
+              bound(4.0 * n * d + 4 * d + 4 * n * n, 2 * n * n * d + n * d, rate))
+        c = (gramlib.gm_coeff(gramlib.mixed_gram(g, m), f) @ m).contiguous()
+        check(f"K3 combine n={n}", combine(x, c), combine_ref(x, c),
+              time_ms(lambda: combine(x, c)), time_ms(lambda: combine_ref(x, c)),
+              bound(4.0 * n * d + 4 * d + 4 * n, 2 * n * d, rate),
+              time_ms(lambda: c @ x))
+    opts = RoundOptions(chunk=FED_CHUNK)
+    counts_by, runs = {}, {}
+    for name in FED_SCENARIOS:
+        sc = get_scenario(name)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        out = run_scenario(name, rounds=FED_ROUNDS, seed=0, device=dev,
+                           options=opts)
+        counts = kdispatch.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        want = {k: v * FED_ROUNDS for k, v in fed_expected(sc.rule, sc.pre).items()}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        fed_fallbacks(sc.rule)
+        hist, rep = out["history"], out["server"].last_scan_report
+        for k in ("loss", "direction_norm", "kappa_hat"):
+            if not all(math.isfinite(v) for v in getattr(hist, k)):
+                raise AssertionError(f"{name}: non-finite {k}")
+        if sc.guard is not None:
+            m_byz = hist.m_byz[0]
+            if m_byz == 0 or rep["quarantined_count"] != [m_byz] * FED_ROUNDS:
+                raise AssertionError(f"{name}: quarantined "
+                                     f"{rep['quarantined_count']}, expected "
+                                     f"{m_byz} every round")
+        ms = seg_ms(rep)
+        log(f"  {name} ({sc.rule}|{sc.pre}, m={sc.clients_per_round}, "
+            f"m_byz={hist.m_byz[0]}): acc {out['accuracy']:.4f}, final loss "
+            f"{hist.loss[-1]:.4f}, ms/round per segment "
+            f"{[round(v, 3) for v in ms]} (median {statistics.median(ms):.3f}), "
+            f"launches {got}, peak {peak / 2**20:.2f} MiB above the "
+            f"{held / 2**20:.1f} MiB held before the run")
+        counts_by[name] = got
+        runs[name] = out
+    # labelskew_alie_partial again: the torch backend, then the loop engine.
+    name = "labelskew_alie_partial"
+    base = runs[name]["history"].loss
+    before = kdispatch.launch_counts()
+    again = run_scenario(name, rounds=FED_ROUNDS, seed=0, device=dev,
+                         options=RoundOptions(chunk=FED_CHUNK, backend="torch"))
+    if kdispatch.launch_counts() != before:
+        raise AssertionError("the torch backend launched a kernel")
+    loop = run_scenario(name, rounds=FED_ROUNDS, seed=0, device=dev,
+                        options=RoundOptions(engine="loop"))
+    for what, other, rtol in (("torch backend", again, 1e-4),
+                              ("loop engine", loop, 1e-6)):
+        b = other["history"].loss
+        worst = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(b, base))
+        if len(b) != FED_ROUNDS or worst > rtol:
+            raise AssertionError(f"{name}: {what} loss max rel diff {worst} "
+                                 f"> {rtol}")
+        log(f"  {name}, {what} vs the kernel scan run: per-round loss max rel "
+            f"diff {worst:.3e} (tol {rtol:g}) OK")
+    return counts_by
+
+
+def fed_lm_batch_fn(n_clients: int, seed: int = 0):
+    """The launcher's Dirichlet LM data as a fed ``batch_fn``: (m, 1, 4,
+    128) tokens and labels for the cohort."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import build_heterogeneous, make_lm_corpus
+    from repro_torch.fed import cohort_batch_fn
+    cfg = get_config("smollm-360m")
+    seqs, topics = make_lm_corpus(n_tokens=400_000, vocab=cfg.vocab_size,
+                                  seq_len=129, seed=seed)
+    ds = build_heterogeneous({"seq": seqs, "y": topics}, "y", n_clients,
+                             alpha=0.1, seed=seed)
+    base = cohort_batch_fn(ds, 4, 0)
+
+    def batch_fn(cohort, n_flip, rng):
+        seq = base(cohort, n_flip, rng)["seq"]
+        return {"tokens": seq[..., :-1], "labels": seq[..., 1:]}
+    return batch_fn
+
+
+def fed_grad_forms(dev, model, params, rounds: int = 3) -> None:
+    """12b's row-by-row client pass on one cohort (FED_COHORT rows at full
+    width, local_steps = 0) with both gradient forms ``client_send`` takes:
+    plain autograd (the route's) and ``torch.func`` (what
+    ``client_updates`` vmaps).  Row 0's loss and sends are printed beside
+    an fp32 reference (autograd at the params cast to fp32); then each
+    form runs the cohort in turns for a warm-up and ``rounds`` rounds, the
+    order alternating, timed by the host clock with a synchronize at each
+    end (the pass is host-bound), peak above what was held.  Fails on
+    unequal losses or a non-finite send."""
+    import numpy as np
+    import torch
+    from repro_torch.fed.clients import (ClientConfig, autograd_grad_and_value,
+                                         client_send)
+    from repro_torch.tree import tree_map
+    batch = fed_lm_batch_fn(FED_CLIENTS)(np.arange(FED_COHORT, dtype=np.int32),
+                                         0, np.random.default_rng(0))
+    batch = tree_map(lambda a: torch.as_tensor(a).to(dev), batch)
+    ccfg = ClientConfig(local_steps=0)
+    forms = {"autograd": {"grad_and_value": autograd_grad_and_value},
+             "func": {}}
+
+    def send(form, i, p=params):
+        return client_send(model.loss, p, tree_map(lambda b: b[i], batch),
+                           ccfg, **forms[form])
+
+    def rel_l2(xs, ys):
+        num = sum(float(((x.float() - y) ** 2).sum()) for x, y in zip(xs, ys))
+        return (num / sum(float((y ** 2).sum()) for y in ys)) ** 0.5
+
+    l32, g32 = send("autograd", 0, tree_map(lambda p: p.float(), params))
+    (la, a), (lb, b) = send("autograd", 0), send("func", 0)
+    log(f"  row route, row 0: loss fp32 {float(l32):.6f}, autograd "
+        f"{float(la):.6f}, func {float(lb):.6f}; sends' relative L2 error vs "
+        f"fp32: autograd {rel_l2(a, g32):.3e}, func {rel_l2(b, g32):.3e}; "
+        f"autograd vs func {rel_l2(a, [y.float() for y in b]):.3e}")
+    if float(la) != float(lb) or not all(
+            bool(torch.isfinite(x).all()) for x in a + b):
+        raise AssertionError("fed full width: the two gradient forms disagree")
+    del a, b, g32
+    torch.cuda.empty_cache()
+    for r in range(rounds + 1):
+        for form in (("autograd", "func") if r % 2 == 0 else ("func", "autograd")):
+            torch.cuda.synchronize(dev)
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            for i in range(FED_COHORT):
+                loss, sends = send(form, i)
+                del sends
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            extra = (torch.cuda.max_memory_allocated(dev) - held) / 2**30
+            log(f"  row route, {'warm-up' if r == 0 else f'round {r}'} {form}: "
+                f"{FED_COHORT} rows {ms:.1f} ms, peak {extra:.2f} GiB above "
+                f"the {held / 2**30:.2f} GiB held")
+
+
+def phase_fed_full(dev, rate: float) -> dict:
+    """12b: FedServer + run_rounds at full width; returns launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.fed import (ClientConfig, FedConfig, FedServer,
+                                 constant_attack, run_rounds)
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.kernels import gram, gram_ref, mixtrim, mixtrim_ref
+    from repro_torch.core import gram as gramlib
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import constant
+    from repro_torch.tree import tree_leaves
+    # K1 and K2 at the shape this path gives them: the cohort stack.
+    n, d = FED_COHORT, D_MAIN
+    x = torch.randn((n, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    g = gram(x)
+    check(f"K1 gram n={n} D={d}", g, gram_ref(x), time_ms(lambda: gram(x)),
+          time_ms(lambda: gram_ref(x)),
+          bound(4.0 * n * d + 4 * n * n, n * (n + 1) * d, rate),
+          time_ms(lambda: torch.mm(x, x.T)))
+    m = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), FED_F)
+    plain = chunked(lambda s: mixtrim_ref(x[:, s], m, FED_F, "trim"), d)
+    check(f"K2 mixtrim trim mix n={n} f={FED_F}", mixtrim(x, m, FED_F, "trim"),
+          plain(), time_ms(lambda: mixtrim(x, m, FED_F, "trim")),
+          time_ms(plain),
+          bound(4.0 * n * d + 4 * d + 4 * n * n, 2 * n * n * d + n * d, rate))
+    del x, g
+    torch.cuda.empty_cache()
+
+    model = build_model(get_config("smollm-360m"))
+    params = model.init(0, dev)
+    d = sum(p.numel() for p in tree_leaves(params))
+    cfg = FedConfig(n_clients=FED_CLIENTS, clients_per_round=FED_COHORT,
+                    f=FED_F, agg=AggregatorSpec(rule="cwtm", f=FED_F, pre="nnm"),
+                    client=ClientConfig(local_steps=0, algorithm="dshb",
+                                        beta=0.9))
+    # Reckoned peak: the population momentum (n_clients, D) and the cohort
+    # stack (m, D) in fp32, bf16 params / new params / one gradient, the
+    # fp32 aggregate and its clipped copy, ~3 GiB of activations.
+    reckoned = 4 * d * (FED_CLIENTS + FED_COHORT) + 2 * d * 3 + 4 * d * 2 \
+        + 3 * 2**30
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    server = FedServer(model.loss, sgd(clip=2.0), cfg, constant(0.05),
+                       device=dev)
+    state = server.init_state(params)
+    t0 = time.perf_counter()
+    state, hist = run_rounds(server, state, fed_lm_batch_fn(FED_CLIENTS),
+                             FED_FULL_ROUNDS,
+                             schedule=constant_attack("alie", 8.0), seed=0,
+                             chunk=1)
+    wall = time.perf_counter() - t0
+    counts = kdispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {k: v * FED_FULL_ROUNDS for k, v in fed_expected("cwtm", "nnm").items()}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"fed full width: launches {got}, expected {want}")
+    fed_fallbacks("cwtm")
+    rec = kdispatch.last_dispatch()
+    if rec is None or rec.backend != "cuda":
+        raise AssertionError("fed full width: the aggregation left the kernels")
+    for k in ("loss", "kappa_hat", "direction_norm"):
+        if not all(math.isfinite(v) for v in getattr(hist, k)):
+            raise AssertionError(f"fed full width: non-finite {k}")
+    if hist.m_byz != [2] * FED_FULL_ROUNDS:
+        raise AssertionError(f"fed full width: m_byz {hist.m_byz}")
+    if peak >= 70 * 2**30:
+        raise AssertionError(f"fed full width: peak {peak / 2**30:.2f} GiB")
+    log(rec.describe())
+    log(f"  smollm-360m D={d}, {FED_CLIENTS} clients, cohorts of "
+        f"{FED_COHORT}, m_byz {hist.m_byz[0]}: ms/round "
+        f"{[round(v, 1) for v in seg_ms(server.last_scan_report)]} "
+        f"({wall:.1f} s in all), loss {[round(v, 4) for v in hist.loss]}, "
+        f"kappa_hat {[round(v, 4) for v in hist.kappa_hat]}, launches {got}, "
+        f"peak {peak / 2**30:.2f} GiB (reckoned {reckoned / 2**30:.2f} GiB)")
+    fed_grad_forms(dev, model, state["params"])
+    del state, params, server
+    torch.cuda.empty_cache()
+    return got
+
 
 def main() -> int:
     import torch
@@ -1344,7 +1659,14 @@ def main() -> int:
     log(f"== 11. fleet grid: --full, {rounds} rounds, n=17 f=4 alpha=0.1")
     counts_grid = phase_grid(dev, rounds)
 
-    log("== 12. summary")
+    log("== 12. the federated engine")
+    log("-- 12a. registry scenarios, 20 rounds, the 48-48-10 MLP (D = 2842)")
+    counts_fed = phase_fed_scenarios(dev, rate)
+    log("-- 12b. FedServer + run_rounds at full width: smollm-360m, ALIE "
+        "eta 8, NNM + CWTM")
+    counts_fed["fed full width"] = phase_fed_full(dev, rate)
+
+    log("== 13. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -1392,6 +1714,7 @@ def main() -> int:
                         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                         "library_ms": r["library_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"fed_launches": counts_fed}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -8,8 +8,9 @@ direction.  Label flipping acts through the data pipeline; ``lf`` is a
 passthrough here.  The ``_opt`` eta line searches are still to be ported
 (ROADMAP queue 1, item 3).
 
-Two forms: the static one (:func:`apply_attack_tree`, a Python int f), and
-the lane-dynamic one of the fleet (:func:`apply_attack_dyn`,
+Two forms: the static one (:func:`apply_attack_tree`, a Python int f; per
+round of a scheduled run :func:`apply_attack_scan`), and the lane-dynamic
+one of the fleet (:func:`apply_attack_dyn`,
 :func:`apply_attack_batched`): f and eta are tensors, one per lane, and the
 honest statistics are taken under row masks.  The family of each lane is
 known on the host from the round plan, so only the families present run.
@@ -138,6 +139,46 @@ def attack_flat_(name: str, flat: Tensor, f: int, *,
                                 finite=finite)
             flat[nh:, cols] = byz.to(flat.dtype)
     return flat
+
+
+#: Families that read a per-round eta (the fed server's ``use_eta``).
+ETA_ATTACKS = ("alie", "foe")
+
+
+def check_static_families(families) -> None:
+    """Raise for a family the static path does not run: the ``_opt`` eta
+    searches (not ported yet) and unknown names."""
+    for name in families:
+        if name not in STATIC_ATTACKS:
+            if name in ("alie_opt", "foe_opt"):
+                raise NotImplementedError(
+                    f"attack {name!r} is not ported yet (ROADMAP queue 1, "
+                    "item 3)")
+            raise ValueError(f"unknown attack {name!r}; ported: "
+                             f"{STATIC_ATTACKS}")
+
+
+def apply_attack_scan(families: tuple, attack_id: int, tree, f: int, *,
+                      eta: Optional[float] = None,
+                      segments: Optional[list] = None):
+    """The attack of one round of a scheduled run (counterpart of the
+    reference's ``apply_attack_scan``): ``families`` is the run's family
+    tuple and ``attack_id`` this round's index into it, a host int (the
+    reference's traced ``lax.switch`` index; the port picks the branch in
+    Python).  The branch is :func:`apply_attack_tree` verbatim, with
+    ``eta`` passed only to the families that read it (alie / foe).
+
+    ``tree`` is a worker-stacked pytree (new leaves are returned), or,
+    when ``segments`` is given, a flat (n, D) stack attacked in place
+    (:func:`attack_flat_`)."""
+    if f == 0 or not families:
+        return tree
+    check_static_families(families)
+    name = families[int(attack_id)]
+    eta = eta if name in ETA_ATTACKS else None
+    if segments is not None:
+        return attack_flat_(name, tree, f, eta=eta, segments=segments)
+    return apply_attack_tree(name, tree, f, eta=eta)
 
 
 # ---------------------------------------------------------------------------

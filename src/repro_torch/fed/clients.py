@@ -59,18 +59,31 @@ def scatter_rows(momentum: list[Tensor], idx: Tensor,
     return [m.index_copy(0, idx, r) for m, r in zip(momentum, rows)]
 
 
-def client_updates(loss_fn: Callable, params: PyTree,
-                   cohort_momentum: list[Tensor], batch: PyTree,
-                   ccfg: ClientConfig, *, beta=None, local_lr=None
-                   ) -> tuple[Tensor, list[Tensor], list[Tensor]]:
-    """The vmapped cohort pass of one server.
+def autograd_grad_and_value(f: Callable) -> Callable:
+    """``torch.func.grad_and_value(f)`` for leaf lists on plain autograd:
+    ``(gradient leaves, value)``.  Outside ``vmap`` it is the cheaper of
+    the two: at full width (smollm-360m, one client) ``torch.func``'s
+    wrapped tensors cost more host time and a larger peak
+    (``chip_smoke.py`` phase 12b times both)."""
+    def run(leaves, wbatch):
+        req = [leaf.detach().requires_grad_(True) for leaf in leaves]
+        value = f(req, wbatch)
+        return torch.autograd.grad(value, req), value.detach()
+    return run
 
-    ``loss_fn(params, worker_batch) -> (scalar, aux)``; ``params`` are the
-    server parameters; ``cohort_momentum`` the gathered rows (m, ...) per
-    leaf; ``batch`` leaves (m, L, batch, ...).  ``beta`` / ``local_lr``
-    override the config's constants (tensors: the fleet's per-lane
-    values).  Returns ``(losses (m,), transmitted stack, new cohort
-    momentum)``, the stack a list of (m, ...) fp32 leaves."""
+
+def client_send(loss_fn: Callable, params: PyTree, cbatch: PyTree,
+                ccfg: ClientConfig, *, local_lr=None,
+                grad_and_value: Callable = grad_and_value
+                ) -> tuple[Tensor, list[Tensor]]:
+    """One client's ``(loss, send leaves)`` from its (L, batch, ...)
+    batch at the server ``params``, before any momentum blend: the
+    gradient on slice 0 (``local_steps == 0``), else one SGD step a batch
+    slice (L of them, as the reference's scan over the slices) and the
+    pseudo-gradient (theta_0 - theta_L) / (local_steps * local_lr).
+    ``grad_and_value``: ``torch.func``'s (required under
+    :func:`client_updates`' ``vmap``) or :func:`autograd_grad_and_value`
+    (one client at a time, one gradient alive)."""
     skeleton = tree_structure(params)
     robust_p = tree_leaves(params)
 
@@ -79,31 +92,38 @@ def client_updates(loss_fn: Callable, params: PyTree,
         return loss
 
     if ccfg.local_steps == 0:
-        wbatch = tree_map(lambda leaf: leaf[:, 0], batch)
+        g, loss = grad_and_value(loss_of)(
+            robust_p, tree_map(lambda leaf: leaf[0], cbatch))
+        return loss, [gg.float() for gg in g]
+    k = ccfg.local_steps
+    lr = ccfg.local_lr if local_lr is None else local_lr
+    rp, ls = robust_p, []
+    for step in range(tree_leaves(cbatch)[0].shape[0]):
+        wb = tree_map(lambda leaf: leaf[step], cbatch)
+        g, loss = grad_and_value(loss_of)(rp, wb)
+        rp = [(p.float() - lr * gg.float()).to(p.dtype)
+              for p, gg in zip(rp, g)]
+        ls.append(loss)
+    delta = [(a.float() - b.float()) / (k * lr)
+             for a, b in zip(robust_p, rp)]
+    return torch.stack(ls).mean(), delta
 
-        def grad_a(wb):
-            g, loss = grad_and_value(loss_of)(robust_p, wb)
-            return loss, g
 
-        losses, grads = vmap(grad_a)(wbatch)
-        sends = [g.float() for g in grads]
-    else:
-        k = ccfg.local_steps
-        lr = ccfg.local_lr if local_lr is None else local_lr
+def client_updates(loss_fn: Callable, params: PyTree,
+                   cohort_momentum: list[Tensor], batch: PyTree,
+                   ccfg: ClientConfig, *, beta=None, local_lr=None
+                   ) -> tuple[Tensor, list[Tensor], list[Tensor]]:
+    """The vmapped cohort pass of one server (:func:`client_send` over the
+    cohort axis).
 
-        def local_sgd(cbatch):
-            rp, ls = robust_p, []
-            for step in range(k):
-                wb = tree_map(lambda leaf: leaf[step], cbatch)
-                g, loss = grad_and_value(loss_of)(rp, wb)
-                rp = [(p.float() - lr * gg.float()).to(p.dtype)
-                      for p, gg in zip(rp, g)]
-                ls.append(loss)
-            delta = [(a.float() - b.float()) / (k * lr)
-                     for a, b in zip(robust_p, rp)]
-            return torch.stack(ls).mean(), delta
-
-        losses, sends = vmap(local_sgd)(batch)
+    ``loss_fn(params, worker_batch) -> (scalar, aux)``; ``params`` are the
+    server parameters; ``cohort_momentum`` the gathered rows (m, ...) per
+    leaf; ``batch`` leaves (m, L, batch, ...).  ``beta`` / ``local_lr``
+    override the config's constants (tensors: the fleet's per-lane
+    values).  Returns ``(losses (m,), transmitted stack, new cohort
+    momentum)``, the stack a list of (m, ...) fp32 leaves."""
+    losses, sends = vmap(lambda cbatch: client_send(
+        loss_fn, params, cbatch, ccfg, local_lr=local_lr))(batch)
 
     if ccfg.algorithm == "dshb":
         b = torch.as_tensor(ccfg.beta if beta is None else beta,

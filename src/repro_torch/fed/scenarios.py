@@ -1,28 +1,32 @@
-"""The fleet's synthetic task and the declarative scenario registry
-(counterpart of the parts of ``repro.fed.scenarios`` the fleet needs).
+"""The declarative scenario registry and its synthetic task (counterpart
+of ``repro.fed.scenarios``).
+
+A :class:`Scenario` fully determines a federated run: population and
+participation, client computation, aggregation, the adversary (attack
+schedule, identity rotation, data poisoning), the quarantine guard and
+the data.  :func:`build_scenario` materialises one into a
+:class:`~repro_torch.fed.server.FedServer`, its state, batch function and
+eval; :func:`run_scenario` runs it end to end.  The fleet
+(:mod:`repro_torch.fleet`) packs the same scenarios into lanes.
 
 The task: a 10-class classification problem on 48-dimensional synthetic
 features (standing in for MNIST), Dirichlet-heterogeneous shards, and a
 48 -> 48 -> 10 ReLU MLP.  Its init draws from a ``torch.Generator`` seeded
 with the job's seed; the reference draws from a JAX PRNG key, so the two
-give different numbers for the same seed (``repro_torch.interop`` carries
-the reference's init across when both must start alike).
-
-``Scenario`` / ``register`` / ``get_scenario`` mirror the registry and its
-built-ins.  ``build_scenario`` / ``run_scenario`` (the single-scenario fed
-engine) wait for ``FedServer`` (ROADMAP queue 1, item 7); the built-ins
-that poison data or guard the round raise when materialised, naming their
-ROADMAP items.
+give different numbers for the same seed (``run_scenario(params=...)``
+with ``repro_torch.interop.mlp_params_from_numpy`` carries the
+reference's init across when both must start alike).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.types import AggregatorSpec
+from repro_torch.data import build_heterogeneous, make_classification
 from repro_torch.data.pipeline import (
     WorkerDataset, infer_n_classes, sample_worker_batch,
 )
@@ -31,8 +35,12 @@ from repro_torch.fed.schedules import (
     AttackSchedule, FixedByzantine, RotatingByzantine, constant_attack,
     ramp_eta, switch_attack,
 )
-from repro_torch.fed.server import FedConfig
+from repro_torch.fed.poison import PoisonConfig
+from repro_torch.fed.server import FedConfig, FedServer, run_rounds
 from repro_torch.optim import sgd
+from repro_torch.optim.schedules import constant as constant_lr
+from repro_torch.robustness.guard import QuarantineConfig
+from repro_torch.rounds import RoundOptions
 
 Tensor = torch.Tensor
 
@@ -112,8 +120,8 @@ def cohort_batch_fn(ds: WorkerDataset, batch_size: int, local_steps: int,
 @dataclasses.dataclass(frozen=True)
 class Scenario:
     """Everything that determines a federated run, declaratively.
-    ``poison`` / ``guard`` describe the data-poisoning threat model and
-    the in-round quarantine (their ports are ROADMAP items 7 and 10)."""
+    ``poison`` is the data-poisoning threat model (:mod:`repro_torch.fed.poison`),
+    ``guard`` the in-round quarantine (:mod:`repro_torch.robustness.guard`)."""
     name: str
     description: str
     n_clients: int = 17
@@ -127,8 +135,8 @@ class Scenario:
     pre: Optional[str] = "nnm"
     attack: AttackSchedule = constant_attack("none")
     rotate_byz_every: Optional[int] = None
-    poison: Optional[Any] = None
-    guard: Optional[Any] = None
+    poison: Optional[PoisonConfig] = None
+    guard: Optional[QuarantineConfig] = None
     alpha: float = 0.1
     batch_size: int = 16
     server_lr: float = 0.2
@@ -173,9 +181,63 @@ def list_scenarios() -> list[str]:
     return sorted(SCENARIOS)
 
 
+def build_scenario(scenario: Scenario, *, seed: int = 0, dim: int = 48,
+                   n_samples: int = 9000, noise: float = 1.6,
+                   params: Optional[dict] = None, device=None,
+                   options: Optional[RoundOptions] = None):
+    """Materialise a scenario: ``(server, state, batch_fn, eval_fn)``.
+
+    The data are the reference's (the same numpy calls); the MLP starts
+    from ``params`` when given (e.g. the reference's init carried across
+    with ``repro_torch.interop.mlp_params_from_numpy``), else from the
+    port's own init for ``seed``.  Runs on CUDA unless ``device="cpu"``;
+    ``options`` go to the :class:`FedServer`."""
+    x, y = make_classification(n_samples, 10, dim, noise=noise, seed=seed)
+    split = (n_samples * 2) // 3
+    ds = build_heterogeneous({"x": x[:split], "y": y[:split]}, "y",
+                             scenario.n_clients, alpha=scenario.alpha,
+                             seed=seed)
+    xt, yt = x[split:], y[split:]
+
+    server = FedServer(_mlp_loss, SCENARIO_OPTIMIZER, scenario.fed_config(),
+                       constant_lr(scenario.server_lr), options,
+                       device=device)
+    state = server.init_state(params if params is not None
+                              else _mlp_init(seed, dim))
+    batch_fn = cohort_batch_fn(ds, scenario.batch_size, scenario.local_steps)
+    return server, state, batch_fn, _mlp_eval(xt, yt)
+
+
+def run_scenario(name: Union[str, Scenario], *, rounds: Optional[int] = None,
+                 seed: int = 0, verbose: bool = False,
+                 params: Optional[dict] = None, device=None,
+                 options: Optional[RoundOptions] = None) -> dict:
+    """End to end: registry name (or a Scenario) -> trained state and
+    diagnostics ``{"scenario", "server", "state", "history", "accuracy",
+    "summary"}``."""
+    sc = get_scenario(name) if isinstance(name, str) else name
+    server, state, batch_fn, eval_fn = build_scenario(
+        sc, seed=seed, params=params, device=device, options=options)
+    state, hist = run_rounds(server, state, batch_fn,
+                             rounds if rounds is not None else sc.rounds,
+                             schedule=sc.attack,
+                             byz_identity=sc.byz_identity(), seed=seed)
+    out = {"scenario": sc, "server": server, "state": state,
+           "history": hist, "accuracy": float(eval_fn(state["params"])),
+           "summary": hist.summary()}
+    if verbose:
+        print(f"[{sc.name}] acc={out['accuracy']:.3f} {out['summary']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Built-in scenarios (the reference's, field for field).
+# ---------------------------------------------------------------------------
+
 register(Scenario(
     name="iid_baseline",
-    description="No adversary, near-IID shards, plain averaging.",
+    description="No adversary, near-IID shards, plain averaging — the "
+                "accuracy ceiling every robust scenario is judged against.",
     n_clients=17, clients_per_round=17, f=0,
     rule="average", pre=None, attack=constant_attack("none"),
     alpha=10.0, rounds=50))
@@ -183,7 +245,8 @@ register(Scenario(
 register(Scenario(
     name="labelskew_alie_partial",
     description="Extreme label skew (Dirichlet 0.1) + ALIE under partial "
-                "participation: 12 of 20 clients per round.",
+                "participation: 12 of 20 clients per round, f rescaled to "
+                "the cohort.",
     n_clients=20, clients_per_round=12, f=4,
     rule="cwtm", pre="nnm",
     attack=constant_attack("alie", eta=8.0),
@@ -192,7 +255,8 @@ register(Scenario(
 register(Scenario(
     name="mimic_rotating",
     description="Mimic attack with a Byzantine identity set that rotates "
-                "every 5 rounds.",
+                "every 5 rounds — freshly-turned clients carry honest "
+                "momentum, the hard case for server-side filtering.",
     n_clients=17, clients_per_round=17, f=4,
     rule="gm", pre="nnm",
     attack=constant_attack("mimic"), rotate_byz_every=5,
@@ -200,8 +264,9 @@ register(Scenario(
 
 register(Scenario(
     name="dirichlet_localsgd",
-    description="Local SGD (4 client steps/round), 10/20 participation; "
-                "ALIE -> FOE at round 25.",
+    description="Local SGD (4 client steps/round) over Dirichlet-0.3 "
+                "shards with 10/20 participation; the adversary switches "
+                "family ALIE -> FOE at round 25.",
     n_clients=20, clients_per_round=10, f=3,
     local_steps=4, local_lr=0.1,
     rule="cwtm", pre="nnm",
@@ -210,7 +275,8 @@ register(Scenario(
 
 register(Scenario(
     name="foe_ramp",
-    description="FOE whose eta ramps 0.5 -> 20 over 40 rounds, NNM+CWTM.",
+    description="FOE whose eta ramps 0.5 -> 20 over 40 rounds (no "
+                "recompilation: eta is a traced scalar), NNM+CWTM defense.",
     n_clients=17, clients_per_round=17, f=4,
     rule="cwtm", pre="nnm",
     attack=ramp_eta("foe", 0.5, 20.0, 40),
@@ -218,35 +284,46 @@ register(Scenario(
 
 register(Scenario(
     name="poison_labelflip",
-    description="Data poisoning, label-flip flavour (60% rate).",
+    description="Data poisoning, label-flip flavor: Byzantine clients "
+                "train honestly on batches whose labels are flipped at a "
+                "60% rate device-side — corruption enters through the "
+                "data pipeline, the strictly weaker threat model of "
+                "Farhadkhani et al.",
     n_clients=17, clients_per_round=17, f=4,
     rule="cwtm", pre="nnm",
     attack=constant_attack("none"),
-    poison={"kind": "labelflip", "rate": 0.6},
+    poison=PoisonConfig(kind="labelflip", rate=0.6),
     alpha=0.3, rounds=60))
 
 register(Scenario(
     name="poison_feature",
-    description="Feature-perturbation poisoning, NNM+AutoGM.",
+    description="Feature-perturbation poisoning: Gaussian noise at 2x "
+                "data scale on half of each Byzantine client's samples, "
+                "defended by NNM+AutoGM (adaptive weights downweight the "
+                "inflated-gradient clients).",
     n_clients=17, clients_per_round=17, f=4,
     rule="autogm", pre="nnm",
     attack=constant_attack("none"),
-    poison={"kind": "feature", "rate": 0.5, "strength": 2.0},
+    poison=PoisonConfig(kind="feature", rate=0.5, strength=2.0),
     alpha=0.3, rounds=60))
 
 register(Scenario(
     name="faulty_nan_quarantine",
-    description="f workers emit NaN updates; the in-round quarantine guard "
-                "replaces them.",
+    description="Non-adversarial fault model: f workers emit NaN updates "
+                "every round; the in-round quarantine guard replaces them "
+                "with the kept-row median so the run degrades gracefully "
+                "instead of destroying every round.",
     n_clients=17, clients_per_round=17, f=4,
     rule="cwtm", pre="nnm",
     attack=constant_attack("nan"),
-    guard={"kind": "quarantine"},
+    guard=QuarantineConfig(),
     alpha=0.3, rounds=50))
 
 register(Scenario(
     name="labelflip_partial",
-    description="Label-flip adversary under 13/20 participation.",
+    description="Label-flip adversary (honest computation on flipped "
+                "labels, injected through the data pipeline) under 13/20 "
+                "participation.",
     n_clients=20, clients_per_round=13, f=4,
     rule="cwtm", pre="nnm",
     attack=constant_attack("lf"),

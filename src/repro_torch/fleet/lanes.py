@@ -93,7 +93,7 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
     if cfg.poison is not None or cfg.guard is not None or cfg.taps:
         raise NotImplementedError(
             "poisoned, guarded or tapped fleet lanes are not ported yet "
-            "(ROADMAP queue 1, items 7 and 10)")
+            "(ROADMAP queue 1, item 10)")
     ccfg, spec = cfg.client, cfg.agg
 
     def one_lane_clients(params, mom, batch, beta, local_lr):

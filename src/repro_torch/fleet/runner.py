@@ -96,14 +96,12 @@ class FleetJob:
                 "(use the single-scenario engine instead)")
         for phase in self.schedule.phases:
             dyn_attack_id(phase.attack)   # raises for _opt / unknown
-        if self.cfg.poison is not None:
+        if (self.cfg.poison is not None or self.cfg.guard is not None
+                or self.cfg.taps):
             raise NotImplementedError(
-                "data-poisoning fleet lanes are not ported yet (ROADMAP "
-                "queue 1, item 7)")
-        if self.cfg.guard is not None or self.cfg.taps:
-            raise NotImplementedError(
-                "guarded or tapped fleet lanes are not ported yet (ROADMAP "
-                "queue 1, item 10)")
+                "poisoned, guarded or tapped fleet lanes are not ported yet "
+                "(ROADMAP queue 1, item 10); the single-scenario engine "
+                "(repro_torch.fed.run_rounds) runs poisoning and the guard")
         if self.cfg.agg.hier:
             raise NotImplementedError(
                 "hierarchical fleet lanes are not ported yet (ROADMAP "

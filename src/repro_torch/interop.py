@@ -4,7 +4,10 @@
 of numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``), into the
 port's dict of tensors; ``params_to_numpy`` goes back.  The same helpers
 carry the trainer state: the reference's momentum is a list of (n, ...)
-leaves in parameter order, the port's one flat (n, D) fp32 buffer.
+leaves in parameter order, the port's one flat (n, D) fp32 buffer.  The
+fed server's state has the same layout (its population momentum is one
+flat (n_clients, D) buffer), so :func:`state_from_numpy` /
+:func:`state_to_numpy` carry it too.
 
 The fleet's lane state carries across too (:func:`lane_state_from_numpy`
 / :func:`lane_state_to_numpy`): params, opt_state, the momentum list and

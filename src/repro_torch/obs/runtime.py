@@ -1,9 +1,10 @@
 """Process-wide runtime event registry: counters + timestamped spans
 (counterpart of ``repro.obs.runtime``, pure Python).
 
-The fleet runner emits **instant events** (:func:`event`), **spans**
-(:func:`span`, wall-clock begin / duration) and **counters** (:func:`inc`)
-into one bounded ring, queryable as :func:`history` and :func:`counters`.
+The fleet runner, the round engine and the fed server emit **instant
+events** (:func:`event`), **spans** (:func:`span`, wall-clock begin /
+duration) and **counters** (:func:`inc`) into one bounded ring,
+queryable as :func:`history` and :func:`counters`.
 Emission is on the host only; the ring holds the newest ``capacity``
 events.  The kernel dispatch record is re-exported at the bottom, so this
 module is the one place to query.  The reference's exporters (JSONL,

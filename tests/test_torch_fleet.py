@@ -262,7 +262,7 @@ def test_grid_launcher_runs_on_the_cpu(capsys):
 
 def test_fleet_refuses_what_it_does_not_run():
     from repro_torch.fleet import ScenarioSpec, job_from_spec
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         job_from_spec(ScenarioSpec("poison_labelflip"))
     with pytest.raises(NotImplementedError, match="item 10"):
         job_from_spec(ScenarioSpec("faulty_nan_quarantine"))

@@ -21,7 +21,9 @@ import repro_torch
 import repro_torch.core.bucketing
 import repro_torch.kernels.bucketgram
 import repro_torch.fed, repro_torch.fleet, repro_torch.obs, repro_torch.rounds
-from repro_torch.launch import grid, train
+import repro_torch.fed.server, repro_torch.fed.poison, repro_torch.rounds.engine
+import repro_torch.robustness.guard
+from repro_torch.launch import grid, scenarios, train
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--byz", "1", "--seq", "8", "--batch", "1"])
 assert out["history"]["loss"], out
@@ -31,6 +33,9 @@ out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
 assert out["history"]["loss"], out
 out = grid.main(["--device", "cpu", "--rounds", "1"])
 assert out["runner"].n_buckets == 7, out
+outs = scenarios.main(["--device", "cpu", "--rounds", "1",
+                       "--scenario", "faulty_nan_quarantine"])
+assert outs["faulty_nan_quarantine"]["history"].rounds == 1, outs
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -57,7 +62,9 @@ def test_no_source_file_names_jax_or_repro():
     assert PKG / "kernels" / "bucketgram" / "ops.py" in files
     for mod in ("fleet/lanes.py", "fleet/runner.py", "fed/clients.py",
                 "fed/scenarios.py", "rounds/plan.py", "obs/runtime.py",
-                "launch/grid.py"):
+                "launch/grid.py", "fed/server.py", "fed/poison.py",
+                "robustness/guard.py", "rounds/engine.py",
+                "launch/scenarios.py"):
         assert PKG / mod in files, mod
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
@@ -77,6 +84,23 @@ def test_entry_point_without_cpu_request_raises_without_gpu(monkeypatch):
         grid.main(["--rounds", "1"])
     with pytest.raises(RuntimeError, match="no GPU"):
         FleetRunner([ScenarioSpec("iid_baseline", rounds=1)])
+    from repro_torch.fed import (
+        FedConfig, FedServer, build_scenario, get_scenario, run_scenario,
+    )
+    from repro_torch.fed.scenarios import _mlp_loss
+    from repro_torch.launch import scenarios
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import constant
+    with pytest.raises(RuntimeError, match="no GPU"):
+        FedServer(_mlp_loss, sgd(), FedConfig(n_clients=4,
+                                              clients_per_round=4),
+                  constant(0.1))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        build_scenario(get_scenario("iid_baseline"))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        run_scenario("iid_baseline", rounds=1)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        scenarios.main(["--rounds", "1"])
     assert resolve_device("cpu").type == "cpu"
 
 
