@@ -89,10 +89,27 @@ Phases, each fatal on failure:
      D-SHB, 2 rounds in segments of 1 (one K1 and one K2 a round, finite
      loss and kappa_hat, peak memory below 70 GiB beside the reckoned
      peak);
- 13. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 13. resumable runs (``repro_torch.resilience``): (a) full-width
+     smollm-360m, n = 8, f = 2, ALIE 8, NNM + CWTM, 4 D-SHB steps through
+     train_loop's scan engine (segments of 2) and its loop engine: final
+     params, best params, momentum and every metric equal bit for bit, 1
+     host metric transfer against 4, 4 K1 and 4 K2 launches each, ms per
+     step of both; (b) the same run killed after its step-2 snapshot
+     (FaultPlan(kill_at=0), keep=1, a temporary directory; the free disk
+     checked against two reckoned snapshots first) and resumed from it,
+     equal to (a)'s scan run bit for bit; each snapshot's bytes and
+     seconds, the load's seconds, the resumed ms per step and peak
+     memory; (c) labelskew_alie_partial, 20 rounds in segments of 5,
+     killed (kill_at=1) and torn (torn_at=1), each resumed: history
+     (pack() arrays, cohorts) and state equal the uninterrupted run, K1 +
+     K2 once a round; (d) the grid's cwtm | nnm bucket (5 lanes), 16
+     rounds in segments of 2, killed after its first snapshot and
+     resumed: every FleetResult equal, K4 + K5 once a bucket-round;
+ 14. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6), the
-     fed phase's launches, the kernels JSON line, the card line, and last
-     the {"ok": true, ...} line.
+     fed phase's launches, phase 13's launches, the kernels JSON line
+     (K1, K2, K4 and K5 launches include phase 13's), the card line, and
+     last the {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -105,6 +122,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1218,9 +1236,10 @@ def lm_batches(n: int, seed: int = 0):
 
 
 def run_loop(dev, name: str, spec_kw: dict, steps: int, expect: dict) -> dict:
-    """Full-width smollm-360m D-SHB through train_loop with a hierarchical
-    spec, n = 16, f = 3, ALIE; asserts finite metrics, no fallback and the
-    exact launches per step."""
+    """Full-width smollm-360m D-SHB through train_loop (the scan engine,
+    segments of one step, so ms per step is each segment's time) with a
+    hierarchical spec, n = 16, f = 3, ALIE; asserts finite metrics, no
+    fallback and the exact launches per step."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.types import AggregatorSpec
@@ -1237,7 +1256,7 @@ def run_loop(dev, name: str, spec_kw: dict, steps: int, expect: dict) -> dict:
     kdispatch.reset_launch_counts()
     _, out = train_loop(model.loss, params, lm_batches(N_HIER), sgd(clip=2.0),
                         cfg, cosine(0.05, steps, warmup=0), steps, seed=0,
-                        track_best=False)
+                        track_best=False, chunk=1)
     counts = kdispatch.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     hist = out["history"]
@@ -1253,7 +1272,8 @@ def run_loop(dev, name: str, spec_kw: dict, steps: int, expect: dict) -> dict:
     if got != want:
         raise AssertionError(f"{name}: launches {counts}, expected {want}")
     log(rec.describe())
-    log(f"  {name}: ms/step {[round(v, 1) for v in hist['ms']]}, loss "
+    ms = [1e3 * sec for _, _, sec in out["scan_report"]["segments"]]
+    log(f"  {name}: ms/step {[round(v, 1) for v in ms]}, loss "
         f"{[round(v, 4) for v in hist['loss']]}, kappa_hat "
         f"{[round(v, 4) for v in hist['kappa_hat']]}, launches {counts}, "
         f"peak {peak / 2**30:.2f} GiB")
@@ -1560,6 +1580,351 @@ def phase_fed_full(dev, rate: float) -> dict:
     return got
 
 
+#: Phase 13: resumable runs.  13a / 13b: full-width smollm-360m, n = 8,
+#: f = 2, ALIE 8, NNM + CWTM, 4 D-SHB steps in segments of 2; 13c: the
+#: registry's labelskew_alie_partial, 20 rounds in segments of 5; 13d: the
+#: grid's cwtm | nnm bucket (5 lanes, n = 17, f = 4), 16 rounds in segments
+#: of 2 (evals every 2 rounds).
+RESUME_STEPS, RESUME_CHUNK, RESUME_ETA = 4, 2, 8.0
+FLEET_RESUME_ROUNDS, FLEET_RESUME_CHUNK = 16, 2
+
+
+def same_tree(what: str, a, b) -> None:
+    """Bitwise equality of two pytrees (tensors, numbers, arrays)."""
+    import numpy as np
+    import torch
+    from repro_torch.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"{what}: {len(la)} leaves vs {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if isinstance(x, torch.Tensor):
+            ok = x.dtype == y.dtype and torch.equal(x, y)
+        elif isinstance(x, np.ndarray):
+            ok = x.dtype == y.dtype and np.array_equal(x, y)
+        else:
+            ok = type(x) is type(y) and x == y
+        if not ok:
+            raise AssertionError(f"{what}: leaf {i} differs")
+
+
+def same_fed_history(what: str, a, b) -> None:
+    """FedHistory.pack() arrays (cohorts included) and meta, bit for bit."""
+    import numpy as np
+    (x, xm), (y, ym) = a.pack(), b.pack()
+    if sorted(x) != sorted(y) or xm != ym:
+        raise AssertionError(f"{what}: history columns or attacks differ")
+    for k in y:
+        if x[k].dtype != y[k].dtype or not np.array_equal(x[k], y[k],
+                                                          equal_nan=True):
+            raise AssertionError(f"{what}: history column {k} differs")
+
+
+def snapshot_spans(since: int) -> list:
+    """(bytes, seconds) of the snapshots written after event ``since``."""
+    from repro_torch.obs import runtime as obs_runtime
+    return [(e["args"].get("bytes"), e["dur"])
+            for e in obs_runtime.history(name="resilience.snapshot")
+            if e["seq"] > since]
+
+
+def last_seq() -> int:
+    from repro_torch.obs import runtime as obs_runtime
+    evs = obs_runtime.history(limit=1)
+    return evs[-1]["seq"] if evs else 0
+
+
+def phase_resume_trainer(dev) -> dict:
+    """13a / 13b: train_loop's scan engine at full width against its loop
+    engine, then a kill after the step-2 snapshot and a resume from it;
+    returns the launches of the four runs summed."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.models import build_model
+    from repro_torch.obs import runtime as obs_runtime
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.resilience import (CheckpointConfig, FaultPlan,
+                                        SimulatedPreemption)
+    from repro_torch.rounds import RoundOptions
+    from repro_torch.training import ByzantineConfig, TrainerConfig, train_loop
+    from repro_torch.tree import tree_leaves
+    model = build_model(get_config("smollm-360m"))
+    params = model.init(0, dev)
+    d = sum(p.numel() for p in tree_leaves(params))
+    cfg = TrainerConfig(agg=AggregatorSpec(rule="cwtm", f=F_MAIN, pre="nnm"),
+                        byz=ByzantineConfig(f=F_MAIN, attack="alie",
+                                            eta=RESUME_ETA))
+    total: dict = {}
+    last: dict = {}
+
+    def run(engine, checkpoint=None):
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        before = obs_runtime.counters().get("rounds.transfers", 0)
+        try:
+            _, out = train_loop(
+                model.loss, params, lm_batches(N_MAIN), sgd(clip=2.0), cfg,
+                cosine(0.05, RESUME_STEPS, warmup=0), RESUME_STEPS, seed=0,
+                engine=engine, chunk=RESUME_CHUNK,
+                options=RoundOptions(checkpoint=checkpoint))
+        finally:
+            counts = last["counts"] = kdispatch.launch_counts()
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        transfers = int(obs_runtime.counters()["rounds.transfers"] - before)
+        if kdispatch.fallback_log():
+            raise AssertionError(f"13 {engine}: the aggregation fell back")
+        return out, counts, transfers
+
+    def expect_launches(what, counts, steps):
+        got = {k: counts[k] for k in ("gram", "mixtrim")}
+        if got != {"gram": steps, "mixtrim": steps}:
+            raise AssertionError(f"{what}: launches {counts}, expected "
+                                 f"{steps} K1 and {steps} K2")
+
+    def same_run(what, a, b):
+        for k in ("loss", "direction_norm", "kappa_hat", "lr"):
+            if a["history"][k] != b["history"][k]:
+                raise AssertionError(f"{what}: {k} {a['history'][k]} vs "
+                                     f"{b['history'][k]}")
+        if a["best"]["norm"] != b["best"]["norm"]:
+            raise AssertionError(f"{what}: best norm differs")
+        same_tree(f"{what}: final params", a["state"]["params"],
+                  b["state"]["params"])
+        same_tree(f"{what}: best params", a["best"]["params"],
+                  b["best"]["params"])
+        same_tree(f"{what}: momentum", a["state"]["momentum"],
+                  b["state"]["momentum"])
+        if a["state"]["step"] != b["state"]["step"]:
+            raise AssertionError(f"{what}: step differs")
+
+    log(f"-- 13a. train_loop's scan engine (chunk {RESUME_CHUNK}) against "
+        f"its loop engine: {RESUME_STEPS} steps, n={N_MAIN} f={F_MAIN}, "
+        f"ALIE eta {RESUME_ETA:g}, NNM + CWTM, D={d}")
+    scan, c_scan, t_scan = run("scan")
+    loop, c_loop, t_loop = run("loop")
+    for what, hist, counts in (("13a scan", scan["history"], c_scan),
+                               ("13a loop", loop["history"], c_loop)):
+        expect_launches(what, counts, RESUME_STEPS)
+        if not all(math.isfinite(v) for v in hist["loss"]):
+            raise AssertionError(f"{what}: non-finite loss")
+    same_run("13a scan vs loop", scan, loop)
+    if (t_scan, t_loop) != (1, RESUME_STEPS):
+        raise AssertionError(f"13a: host metric transfers {t_scan} / "
+                             f"{t_loop}, expected 1 / {RESUME_STEPS}")
+    scan_ms = [1e3 * sec / (e - s) for s, e, sec in
+               scan["scan_report"]["segments"]]
+    log(f"  scan == loop bit for bit (final params, best params, momentum, "
+        f"loss, direction_norm, kappa_hat, lr); ms/step scan (per segment) "
+        f"{[round(v, 1) for v in scan_ms]}, loop "
+        f"{[round(v, 1) for v in loop['history']['ms']]}; host metric "
+        f"transfers {t_scan} vs {t_loop}; launches per run K1 "
+        f"{c_scan['gram']} / {c_loop['gram']}, K2 {c_scan['mixtrim']} / "
+        f"{c_loop['mixtrim']}; loss {[round(v, 4) for v in scan['history']['loss']]}")
+    del loop
+    torch.cuda.empty_cache()
+
+    # 13b.  Reckon the carry before asking for disk.
+    momentum_b = N_MAIN * d * 4
+    params_b = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    carry_b = momentum_b + 2 * params_b
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        log(f"-- 13b. kill after the step-{RESUME_CHUNK} snapshot, resume: "
+            f"carry momentum {momentum_b / 1e9:.2f} GB + params "
+            f"{params_b / 1e9:.2f} GB + best params {params_b / 1e9:.2f} GB "
+            f"= {carry_b / 1e9:.2f} GB a snapshot, up to "
+            f"{2 * carry_b / 1e9:.2f} GB on disk while one replaces the "
+            f"other; free on the disk of {tmp}: {free / 1e9:.2f} GB")
+        if free < 2 * carry_b + 2**30:
+            raise AssertionError(
+                f"13b needs {(2 * carry_b + 2**30) / 1e9:.1f} GB free under "
+                f"{tmp} for two full-width snapshots; it has "
+                f"{free / 1e9:.1f} GB")
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        seq = last_seq()
+        t0 = time.perf_counter()
+        try:
+            run("scan", CheckpointConfig(dir=tmp, keep=1,
+                                         fault_plan=FaultPlan(kill_at=0)))
+        except SimulatedPreemption as exc:
+            if exc.round != RESUME_CHUNK:
+                raise AssertionError(f"13b: killed at round {exc.round}")
+        else:
+            raise AssertionError("13b: the kill drill did not fire")
+        kill_wall = time.perf_counter() - t0
+        expect_launches("13b kill", last["counts"], RESUME_CHUNK)
+        peak_kill = torch.cuda.max_memory_allocated(dev) - held
+        snaps = snapshot_spans(seq)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        seq = last_seq()
+        t0 = time.perf_counter()
+        resumed, c_res, t_res = run("scan", CheckpointConfig(dir=tmp, keep=1))
+        res_wall = time.perf_counter() - t0
+        peak_res = torch.cuda.max_memory_allocated(dev) - held
+        snaps += snapshot_spans(seq)
+        loads = [e["dur"] for e in
+                 obs_runtime.history(name="resilience.load")
+                 if e["seq"] > seq]
+        on_disk = sorted(os.listdir(tmp))
+    rep = resumed["scan_report"]
+    if rep["resumed_from"] != RESUME_CHUNK or rep["snapshots"] != 1:
+        raise AssertionError(f"13b: resumed from {rep['resumed_from']}, "
+                             f"{rep['snapshots']} snapshots")
+    expect_launches("13b resume", c_res, RESUME_STEPS - RESUME_CHUNK)
+    same_run("13b resumed vs 13a scan", resumed, scan)
+    if on_disk != ["MANIFEST.json", f"snapshot-{RESUME_STEPS:08d}.npz"]:
+        raise AssertionError(f"13b: files left {on_disk}")
+    res_ms = [1e3 * sec / (e - s) for s, e, sec in rep["segments"]]
+    log(f"  killed after the step-{RESUME_CHUNK} snapshot ({kill_wall:.1f} s "
+        f"for the run, {RESUME_CHUNK} K1 + {RESUME_CHUNK} K2); resumed "
+        f"from step {rep['resumed_from']} ({res_wall:.1f} s, snapshot load "
+        f"{[round(v, 2) for v in loads]} s): final params, best params, "
+        f"momentum and every metric column equal 13a's scan run bit for bit")
+    for i, (nbytes, sec) in enumerate(snaps):
+        log(f"  snapshot {i}: {nbytes} B ({nbytes / 1e9:.3f} GB) in "
+            f"{sec:.2f} s (resilience.snapshot span: D2H copy, np.savez, "
+            f"fsync, rename, manifest)")
+    log(f"  ms/step resumed segment {[round(v, 1) for v in res_ms]} beside "
+        f"13a's scan {[round(v, 1) for v in scan_ms]}; peak device memory "
+        f"above the {held / 2**30:.2f} GiB held: kill run "
+        f"{peak_kill / 2**30:.2f} GiB, resumed run {peak_res / 2**30:.2f} GiB")
+    del scan, resumed, params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_resume_fed(dev) -> dict:
+    """13c: labelskew_alie_partial, 20 rounds in segments of 5, killed
+    (kill_at=1) and torn (torn_at=1), each resumed; returns launches."""
+    import tempfile
+    from repro_torch.fed import build_scenario, get_scenario, run_rounds
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.resilience import (CheckpointConfig, FaultPlan,
+                                        SimulatedPreemption)
+    from repro_torch.rounds import RoundOptions
+    sc = get_scenario("labelskew_alie_partial")
+    total: dict = {}
+
+    def run(checkpoint=None):
+        server, state, batch_fn, _ = build_scenario(sc, seed=0, device=dev)
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        try:
+            state, hist = run_rounds(
+                server, state, batch_fn, FED_ROUNDS, schedule=sc.attack,
+                byz_identity=sc.byz_identity(), seed=0, engine="scan",
+                chunk=FED_CHUNK, options=RoundOptions(checkpoint=checkpoint))
+        finally:
+            counts = kdispatch.launch_counts()
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        fed_fallbacks(sc.rule)
+        want = {k: v * (FED_ROUNDS - (server.last_scan_report or {}).get(
+                    "resumed_from", 0))
+                for k, v in fed_expected(sc.rule, sc.pre).items()}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"13c: launches {counts}, expected {want}")
+        return server, state, hist
+
+    _, ref_state, ref_hist = run()
+    for plan, resumed_at in ((FaultPlan(kill_at=1), 2 * FED_CHUNK),
+                             (FaultPlan(torn_at=1), FED_CHUNK)):
+        with tempfile.TemporaryDirectory() as tmp:
+            seq = last_seq()
+            try:
+                run(CheckpointConfig(dir=tmp, fault_plan=plan))
+            except SimulatedPreemption:
+                pass
+            else:
+                raise AssertionError(f"13c: {plan} did not fire")
+            server, state, hist = run(CheckpointConfig(dir=tmp))
+            snaps = snapshot_spans(seq)
+        rep = server.last_scan_report
+        if rep["resumed_from"] != resumed_at:
+            raise AssertionError(f"13c {plan}: resumed from "
+                                 f"{rep['resumed_from']}")
+        same_fed_history(f"13c {plan}", hist, ref_hist)
+        same_tree(f"13c {plan}: state", state, ref_state)
+        log(f"  {sc.name} {plan}: resumed from round {rep['resumed_from']}, "
+            f"history (pack() arrays, cohorts) and state equal the "
+            f"uninterrupted run bit for bit; K1 + K2 once a round; "
+            f"snapshots (B, s) {[(b, round(t, 4)) for b, t in snaps]}")
+    return total
+
+
+def phase_resume_fleet(dev) -> dict:
+    """13d: the grid's cwtm | nnm bucket, killed after its first snapshot
+    and resumed; returns launches."""
+    import tempfile
+    from repro_torch.fleet import FleetRunner
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import grid
+    from repro_torch.resilience import (CheckpointConfig, FaultPlan,
+                                        SimulatedPreemption)
+    from repro_torch.rounds import RoundOptions
+    total: dict = {}
+
+    def run(checkpoint=None):
+        jobs = [j for j in grid.build_jobs(full=True, alpha=0.1,
+                                           steps=FLEET_RESUME_ROUNDS)
+                if j.label.startswith("cwtm|nnm|")]
+        runner = FleetRunner(jobs, device=dev, options=RoundOptions(
+            chunk=FLEET_RESUME_CHUNK, checkpoint=checkpoint))
+        if len(jobs) != 5 or runner.n_buckets != 1:
+            raise AssertionError("13d: expected one bucket of 5 lanes")
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        try:
+            return runner.run()
+        finally:
+            counts = kdispatch.launch_counts()
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            if kdispatch.fallback_log():
+                raise AssertionError("13d: the aggregation fell back")
+
+    ref = run()
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = last_seq()
+        try:
+            run(CheckpointConfig(dir=tmp, fault_plan=FaultPlan(kill_at=0)))
+        except SimulatedPreemption as exc:
+            killed_at = exc.round
+        else:
+            raise AssertionError("13d: the kill drill did not fire")
+        res = run(CheckpointConfig(dir=tmp))
+        snaps = snapshot_spans(seq)
+    for a, b in zip(res, ref):
+        same_fed_history(f"13d {a.label}", a.history, b.history)
+        if a.evals != b.evals or a.best_eval != b.best_eval:
+            raise AssertionError(f"13d {a.label}: evals differ")
+        same_tree(f"13d {a.label}: state", a.state, b.state)
+    want = {"mixtrim_dyn": 2 * FLEET_RESUME_ROUNDS,
+            "gram_batched": 2 * FLEET_RESUME_ROUNDS}
+    got = {k: total[k] for k in want}
+    if got != want:
+        raise AssertionError(f"13d: K4 / K5 launches {got} over the "
+                             f"uninterrupted, killed and resumed runs, "
+                             f"expected {want}")
+    log(f"  cwtm|nnm bucket (5 lanes, n=17, f={F_GRID}), "
+        f"{FLEET_RESUME_ROUNDS} rounds in segments of {FLEET_RESUME_CHUNK}: "
+        f"killed after round {killed_at}, resumed; every FleetResult "
+        f"(history, evals, state) equals the uninterrupted run bit for bit; "
+        f"K4 {got['mixtrim_dyn']} and K5 {got['gram_batched']} launches over "
+        f"the three runs (once a bucket-round); snapshots (B, s) "
+        f"{[(b, round(t, 4)) for b, t in snaps]}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1666,7 +2031,18 @@ def main() -> int:
         "eta 8, NNM + CWTM")
     counts_fed["fed full width"] = phase_fed_full(dev, rate)
 
-    log("== 13. summary")
+    log("== 13. resumable runs: the trainer's scan engine, kill and resume")
+    counts_resume = phase_resume_trainer(dev)
+    log("-- 13c. fed: labelskew_alie_partial, 20 rounds in segments of 5, "
+        "killed and torn, resumed")
+    for k, v in phase_resume_fed(dev).items():
+        counts_resume[k] = counts_resume.get(k, 0) + v
+    log("-- 13d. fleet: the cwtm|nnm grid bucket, killed and resumed")
+    for k, v in phase_resume_fleet(dev).items():
+        counts_resume[k] = counts_resume.get(k, 0) + v
+    log(json.dumps({"resume_launches": counts_resume}))
+
+    log("== 14. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -1678,12 +2054,14 @@ def main() -> int:
     log("kernels: " + "; ".join(f"{k} {n}: {s}" for k, n, s in table))
     meta = {
         "gram": ("src/repro_torch/kernels/csrc/gram.cu",
-                 "src/repro/kernels/gram/kernel.py:50", counts_main["gram"]),
+                 "src/repro/kernels/gram/kernel.py:50",
+                 counts_main["gram"] + counts_resume["gram"]),
         "gram_tiled": ("src/repro_torch/kernels/csrc/gram.cu",
                        "src/repro/kernels/gram/kernel.py:50",
                        hier["launches"]["gram_tiled"]),
         "mixtrim": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cuh",
-                    "src/repro/kernels/mixtrim/kernel.py:177", counts_main["mixtrim"]),
+                    "src/repro/kernels/mixtrim/kernel.py:177",
+                    counts_main["mixtrim"] + counts_resume["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",
                     "src/repro/kernels/combine/kernel.py:34", counts_gm["combine"]),
         "mixtrim_select": ("src/repro_torch/kernels/csrc/mixtrim_select.cu",
@@ -1694,10 +2072,12 @@ def main() -> int:
                                  hier["launches"]["mixtrim_select_nomix"]),
         "mixtrim_dyn": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cuh",
                         "src/repro/kernels/mixtrim/kernel.py:213",
-                        counts_grid["mixtrim_dyn"]),
+                        counts_grid["mixtrim_dyn"]
+                        + counts_resume["mixtrim_dyn"]),
         "gram_batched": ("src/repro_torch/kernels/csrc/gram_batched.cu",
                          "src/repro/kernels/gram/kernel.py:73",
-                         counts_grid["gram_batched"]),
+                         counts_grid["gram_batched"]
+                         + counts_resume["gram_batched"]),
         "bucketgram": ("src/repro_torch/kernels/csrc/bucketgram.cu",
                        "src/repro/kernels/bucketgram/kernel.py:75",
                        counts_hier["bucketgram"]),

@@ -65,10 +65,14 @@ from repro_torch.fed.schedules import AttackSchedule, FixedByzantine
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.obs import runtime as obs_runtime
 from repro_torch.optim import Optimizer, global_norm
+from repro_torch.resilience import (
+    CarryCheckpointer, SnapshotStore, check_signature, concat_metrics,
+    resolve_checkpoint, restore_carry, restored_metrics,
+)
 from repro_torch.robustness.guard import QuarantineConfig, quarantine_stack
 from repro_torch.rounds import (
     RoundEngine, RoundOptions, fetch_metrics, resolve_attack_operands,
-    round_generator, round_seeds, schedule_families,
+    resolve_options, round_generator, round_seeds, schedule_families,
     split_segments, stack_rounds,
 )
 from repro_torch.tree import tree_leaves, tree_map
@@ -370,7 +374,8 @@ def run_rounds(server: FedServer, state: dict, batch_fn: Callable,
                schedule: AttackSchedule = AttackSchedule(),
                byz_identity=None, seed: int = 0,
                engine: Optional[str] = None,
-               chunk: Optional[int] = None
+               chunk: Optional[int] = None,
+               options: Optional[RoundOptions] = None
                ) -> tuple[dict, FedHistory]:
     """Drive ``rounds`` federated rounds; returns (state, history).
 
@@ -387,12 +392,31 @@ def run_rounds(server: FedServer, state: dict, batch_fn: Callable,
     its metrics fetched once (counters in ``server.last_scan_report``);
     "loop" runs the same body round by round, metrics fetched every
     round.  Both draw the same per-round randomness, so they agree bit
-    for bit.  Unset ``engine`` / ``chunk`` come from the server's options.
+    for bit.
+
+    ``options`` (:class:`~repro_torch.rounds.RoundOptions`): explicit
+    ``engine=`` / ``chunk=`` keywords win over it, and it over the
+    server's construction-time options; its ``backend`` must agree with
+    the server's config.  ``options.checkpoint`` makes a scan run
+    resumable: the state and the metrics so far are snapshotted at
+    segment boundaries, and a rerun into the same directory resumes from
+    the latest snapshot (``last_scan_report["resumed_from"]``).
     """
-    opts = server.options.merged(engine=engine, chunk=chunk)
+    opts = resolve_options(options, engine=engine, chunk=chunk)
+    opts = server.options.merged(engine=opts.engine, chunk=opts.chunk,
+                                 backend=opts.backend,
+                                 checkpoint=opts.checkpoint)
+    if opts.apply_config(server.cfg) is not server.cfg:
+        raise ValueError(
+            "run_rounds cannot override the backend per call: it is the "
+            "round body's key material; pass options to FedServer(...)")
     engine, chunk = opts.engine or "scan", opts.chunk
     if engine not in ("scan", "loop"):
         raise ValueError(f"engine must be 'scan' or 'loop', got {engine!r}")
+    if opts.checkpoint is not None and engine != "scan":
+        raise ValueError("options.checkpoint requires engine='scan' "
+                         "(the loop path has no chunk boundaries to "
+                         "snapshot at)")
     cfg = server.cfg
     check_static_families(schedule_families(schedule))
     if byz_identity is None:
@@ -440,9 +464,37 @@ def run_rounds(server: FedServer, state: dict, batch_fn: Callable,
                 "idx": np.stack(cohorts).astype(np.int32),
                 "key": seeds, **attack_ops}
 
+    # Resilience: resume from the last segment-boundary snapshot (if any)
+    # and keep snapshotting carry + metrics so far at every boundary.  The
+    # host plan above is recomputed in full; only the round cursor is
+    # durable.
+    ckpt_cfg = resolve_checkpoint(opts.checkpoint)
+    checkpointer, start_round, saved_cols = None, 0, {}
+    if ckpt_cfg is not None:
+        store = SnapshotStore.from_config(ckpt_cfg)
+        signature = {"surface": "fed", "rounds": rounds, "chunk": chunk,
+                     "seed": seed, "families": list(families),
+                     "m_byz": m_byz}
+        snap = store.load_latest() if ckpt_cfg.resume else None
+        if snap is not None:
+            start_round, arrays, snap_meta = snap
+            check_signature(snap_meta["signature"], signature, store.path)
+            state = restore_carry(arrays, snap_meta, state)
+            saved_cols = restored_metrics(arrays)
+        checkpointer = CarryCheckpointer(
+            store, signature=signature, total=rounds, every=ckpt_cfg.every,
+            base_columns=saved_cols)
+
     eng = server.scan_engine(families, m_byz, chunk=chunk)
     traces_before = eng.trace_count
-    state, cols = eng.run(state, operands)
+    try:
+        state, metrics = eng.run(
+            state, operands,
+            on_segment=checkpointer.on_segment if checkpointer else None,
+            start=start_round)
+    finally:
+        if checkpointer is not None:
+            checkpointer.close()
     server.last_scan_report = {
         "trace_count": eng.trace_count - traces_before,
         "total_trace_count": eng.trace_count,
@@ -450,6 +502,13 @@ def run_rounds(server: FedServer, state: dict, batch_fn: Callable,
                                       in split_segments(rounds, chunk)})),
         "segments": list(eng.segment_log),
     }
+    if ckpt_cfg is not None:
+        server.last_scan_report.update(
+            snapshots=checkpointer.store.snapshots_written,
+            resumed_from=start_round)
+
+    cols = dict(saved_cols) if metrics is None \
+        else concat_metrics(saved_cols, metrics)
     if "quarantined_count" in cols:
         # Per round too: the port's history has no tap columns to hold it.
         server.last_scan_report["quarantined_count"] = \

@@ -42,6 +42,10 @@ from repro_torch.fed.server import FedConfig, rescale_f, sample_cohort
 from repro_torch.fleet.lanes import build_fleet_scan
 from repro_torch.obs import runtime as obs_runtime
 from repro_torch.optim import Optimizer
+from repro_torch.resilience import (
+    CarryCheckpointer, SnapshotStore, check_signature, concat_metrics,
+    resolve_checkpoint, restore_carry, restored_metrics,
+)
 from repro_torch.rounds import (
     RoundOptions, cadence_boundaries, resolve_options, split_segments,
     stack_rounds,
@@ -296,7 +300,12 @@ class FleetRunner:
     lane count), the counterpart of the reference's compile count.
     ``segment_log`` holds (bucket index, lanes, rounds, seconds) per
     segment, the seconds by the host clock around work that ends in the
-    segment's metric transfer (which waits for the device)."""
+    segment's metric transfer (which waits for the device).
+
+    ``options.checkpoint`` makes each bucket resumable: its carry, metric
+    columns and eval points are snapshotted at segment boundaries into
+    ``<dir>/bucket-NNN``, and a rerun resumes each bucket from its latest
+    snapshot."""
 
     def __init__(self, jobs: Sequence[Union[FleetJob, ScenarioSpec]], *,
                  max_lanes: Optional[int] = None,
@@ -424,37 +433,83 @@ class FleetRunner:
                     for k, job in enumerate(jobs)]
         operands, round_meta = self._plan_bucket(bucket)
 
+        # Resilience: a snapshot subdirectory per bucket; the host plan above
+        # is recomputed in full, so only the stacked carry, the metric
+        # columns and the eval points need restoring.
+        ckpt_cfg = resolve_checkpoint(self.options.checkpoint)
+        checkpointer, start_round, saved_cols = None, 0, {}
+        if ckpt_cfg is not None:
+            store = SnapshotStore.from_config(
+                ckpt_cfg, subdir=f"bucket-{bucket_index:03d}")
+            signature = {"surface": "fleet",
+                         "labels": [j.label for j in jobs],
+                         "rounds": [j.rounds for j in jobs],
+                         "seeds": [j.seed for j in jobs],
+                         "chunk": self.chunk}
+            snap = store.load_latest() if ckpt_cfg.resume else None
+            if snap is not None:
+                start_round, arrays, snap_meta = snap
+                check_signature(snap_meta["signature"], signature, store.path)
+                state = restore_carry(arrays, snap_meta, state)
+                saved_cols = restored_metrics(arrays)
+                for k, lane in enumerate(
+                        snap_meta.get("payload", {}).get("evals", [])):
+                    evals[k] = [(int(r), float(v)) for r, v in lane]
+            checkpointer = CarryCheckpointer(
+                store, signature=signature, total=max_rounds,
+                every=ckpt_cfg.every, base_columns=saved_cols,
+                payload_fn=lambda end: {
+                    "evals": [[(int(r), float(torch.as_tensor(v)))
+                               for r, v in lane] for lane in evals]})
+        restored = [len(lane) for lane in evals]
+
         boundaries = cadence_boundaries(
             max_rounds, *(job.eval_every for job in jobs
                           if job.eval_fn is not None and job.eval_every))
         cols: dict = {}
-        for start, end in split_segments(max_rounds, self.chunk, boundaries):
-            t0 = time.perf_counter()
-            with obs_runtime.span("fleet.segment", start=start, end=end,
-                                  lanes=len(jobs)):
-                seg = _to_device(tree_map(lambda a: a[start:end], operands),
-                                 dev)
-                state, metrics = fleet_scan(state, seg)
-                # The segment's one transfer (it waits for the device).
-                obs_runtime.inc("fleet.transfers")
-                for k, v in metrics.items():
-                    cols.setdefault(k, []).append(v.cpu().numpy())
-            self.segment_log.append((bucket_index, len(jobs), end - start,
-                                     time.perf_counter() - t0))
-            for k, job in enumerate(jobs):
-                if (job.eval_fn is not None and job.eval_every
-                        and end <= job.rounds and end % job.eval_every == 0):
-                    lane_params = tree_map(lambda leaf, kk=k: leaf[kk],
-                                           state["params"])
-                    evals[k].append((end, job.eval_fn(lane_params)))
+        try:
+            for start, end in split_segments(max_rounds, self.chunk,
+                                             boundaries):
+                if end <= start_round:   # already run before the resume
+                    continue
+                t0 = time.perf_counter()
+                with obs_runtime.span("fleet.segment", start=start, end=end,
+                                      lanes=len(jobs)):
+                    seg = _to_device(tree_map(lambda a: a[start:end],
+                                              operands), dev)
+                    state, metrics = fleet_scan(state, seg)
+                    # The segment's one transfer (it waits for the device).
+                    obs_runtime.inc("fleet.transfers")
+                    metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
+                    for k, v in metrics.items():
+                        cols.setdefault(k, []).append(v)
+                self.segment_log.append((bucket_index, len(jobs),
+                                         end - start,
+                                         time.perf_counter() - t0))
+                for k, job in enumerate(jobs):
+                    if (job.eval_fn is not None and job.eval_every
+                            and end <= job.rounds
+                            and end % job.eval_every == 0):
+                        lane_params = tree_map(lambda leaf, kk=k: leaf[kk],
+                                               state["params"])
+                        evals[k].append((end, job.eval_fn(lane_params)))
+                if checkpointer is not None:
+                    checkpointer.on_segment(start, end, state, metrics)
+        finally:
+            if checkpointer is not None:
+                checkpointer.close()
 
-        cols = {k: np.concatenate(v, axis=0) for k, v in cols.items()}
-        flat_evals = [v for lane in evals for _, v in lane]
-        if flat_evals:
-            values = torch.stack([torch.as_tensor(v) for v in flat_evals]
-                                 ).cpu().tolist()
-            it = iter(values)
-            evals = [[(r, next(it)) for r, _ in lane] for lane in evals]
+        cols = concat_metrics(saved_cols, {
+            k: np.concatenate(v, axis=0) for k, v in cols.items()}) \
+            if cols else dict(saved_cols)
+        # This run's evals reach the host in one transfer; restored ones
+        # already did.
+        fresh = [v for lane, n in zip(evals, restored) for _, v in lane[n:]]
+        if fresh:
+            it = iter(torch.stack([torch.as_tensor(v) for v in fresh]
+                                  ).cpu().tolist())
+            evals = [lane[:n] + [(r, next(it)) for r, _ in lane[n:]]
+                     for lane, n in zip(evals, restored)]
         for r, (attacks, etas_raw, cohorts) in enumerate(round_meta):
             for k, job in enumerate(jobs):
                 if r >= job.rounds:

@@ -7,7 +7,8 @@ simulation and kappa-hat tracking.  Runs on CUDA unless ``--device cpu``.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --full --steps 3 --workers 8 --byz 2 --attack alie --agg nnm+cwtm
-  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5 \\
+      --checkpoint params.npz    # the final params, for load_checkpoint
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.core.types import AggregatorSpec
 from repro_torch.data import build_heterogeneous, make_lm_corpus, worker_batches
@@ -54,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--alpha", type=float, default=0.1,
                     help="Dirichlet heterogeneity")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--checkpoint", default=None,
+                    help="save the final params to this .npz path")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     return ap
@@ -66,10 +69,6 @@ def main(argv: Optional[list] = None, *, capture_first_stack: bool = False
     "peak_bytes"} and, with ``capture_first_stack``, step 1's attacked flat
     stack and its layout (``"attacked"``, ``"layout"``)."""
     args = build_parser().parse_args(argv)
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint waits for the checkpoint/ port (ROADMAP queue 1, "
-            "item 11)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
     model = build_model(cfg)
@@ -137,6 +136,9 @@ def main(argv: Optional[list] = None, *, capture_first_stack: bool = False
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     if device.type == "cuda":
         print(f"peak device memory: {peak / 2**30:.2f} GiB")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, state["params"], step=state["step"])
+        print(f"checkpoint saved to {args.checkpoint}")
     out.update(state=state, history=history, dispatch=rec, launches=launches,
                peak_bytes=peak)
     return out

@@ -1,18 +1,17 @@
 """RoundOptions: the shared "how do I execute rounds" knob set
-(counterpart of ``repro.rounds.options``, without the health-tap and
-checkpoint fields: neither is ported yet, ROADMAP queue 1, items 10 and
-11).
+(counterpart of ``repro.rounds.options``, without the health-tap field:
+taps are not ported yet, ROADMAP queue 1, item 10).
 
 ``None`` everywhere means "inherit": the surface's default for
 ``engine`` / ``chunk`` (whole-run segments), the config's own setting for
-``backend``, so ``RoundOptions()`` is a no-op and a partly filled object
-overlays any config.  An explicitly passed legacy keyword (``chunk=``)
-wins over the options object.
+``backend``, not resumable for ``checkpoint``, so ``RoundOptions()`` is a
+no-op and a partly filled object overlays any config.  An explicitly
+passed legacy keyword (``chunk=``) wins over the options object.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 #: Valid ``engine`` values (``None`` = the surface default, "scan").  The
 #: port has no ``lax.scan``: a "scan" segment is a Python loop over its
@@ -31,10 +30,16 @@ class RoundOptions:
                 at eval boundaries).
     ``backend`` force the aggregation backend ("torch" | "cuda" | "auto";
                 ``None`` = keep ``AggregatorSpec.backend``).
+    ``checkpoint`` a :class:`~repro_torch.resilience.CheckpointConfig` (or
+                a bare directory path) making the run resumable: carry
+                snapshots at segment boundaries, resume from the latest.
+                ``None`` = not resumable.  Segments ("scan") only.  Typed
+                loosely to keep this module free of import cycles.
     """
     engine: Optional[str] = None
     chunk: Optional[int] = None
     backend: Optional[str] = None
+    checkpoint: Optional[Any] = None
 
     def __post_init__(self):
         if self.engine is not None and self.engine not in ENGINES:
@@ -45,12 +50,15 @@ class RoundOptions:
 
     def merged(self, *, engine: Optional[str] = None,
                chunk: Optional[int] = None,
-               backend: Optional[str] = None) -> "RoundOptions":
+               backend: Optional[str] = None,
+               checkpoint: Optional[Any] = None) -> "RoundOptions":
         """This object overlaid with explicitly passed legacy keywords."""
         return RoundOptions(
             engine=engine if engine is not None else self.engine,
             chunk=chunk if chunk is not None else self.chunk,
-            backend=backend if backend is not None else self.backend)
+            backend=backend if backend is not None else self.backend,
+            checkpoint=checkpoint if checkpoint is not None
+            else self.checkpoint)
 
     def apply_config(self, cfg):
         """``cfg`` (anything with ``.agg``) with the backend override
@@ -64,8 +72,10 @@ class RoundOptions:
 def resolve_options(options: Optional[RoundOptions] = None, *,
                     engine: Optional[str] = None,
                     chunk: Optional[int] = None,
-                    backend: Optional[str] = None) -> RoundOptions:
+                    backend: Optional[str] = None,
+                    checkpoint: Optional[Any] = None) -> RoundOptions:
     """Start from ``options`` (or the all-inherit default) and overlay any
     explicitly passed keywords."""
     base = options if options is not None else RoundOptions()
-    return base.merged(engine=engine, chunk=chunk, backend=backend)
+    return base.merged(engine=engine, chunk=chunk, backend=backend,
+                       checkpoint=checkpoint)

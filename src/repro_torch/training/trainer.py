@@ -1,8 +1,8 @@
 """Robust distributed training: the paper's Alg. 1 (D-GD) and Alg. 3
 (D-SHB) as train steps over arbitrary models.
 
-Counterpart of ``repro.training.trainer`` (per-step loop engine; the scan
-engine belongs to the rounds port, ROADMAP queue 1, item 8).  One step:
+Counterpart of ``repro.training.trainer`` (its health taps wait for
+ROADMAP queue 1, item 10).  One step:
 
   1. per-worker gradients, one worker at a time;
   2. worker momentum (D-SHB): m_i <- beta m_i + (1-beta) g_i;
@@ -36,7 +36,16 @@ from repro_torch.core.attacks import attack_flat_
 from repro_torch.core.theory import tree_kappa_hat
 from repro_torch.core.types import AggregatorSpec
 from repro_torch.kernels import dispatch as kdispatch
+from repro_torch.obs import runtime as obs_runtime
 from repro_torch.optim import Optimizer, global_norm
+from repro_torch.resilience import (
+    CarryCheckpointer, SnapshotStore, check_signature, concat_metrics,
+    resolve_checkpoint, restore_carry, restored_metrics,
+)
+from repro_torch.rounds import (
+    RoundEngine, RoundOptions, cadence_boundaries, fetch_metrics,
+    resolve_options, round_generator, round_seeds, stack_rounds,
+)
 from repro_torch.tree import tree_leaves, tree_map, tree_structure, tree_unflatten
 
 PyTree = Any
@@ -216,48 +225,205 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     return step
 
 
+def _empty_history() -> dict:
+    return {"loss": [], "direction_norm": [], "kappa_hat": [], "lr": [],
+            "eval": [], "eval_step": []}
+
+
 def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
                lr_schedule, steps: int, *, seed: int = 0,
-               eval_fn: Optional[Callable] = None,
-               eval_every: int = 0, track_best: bool = True):
-    """Runs ``steps`` iterations of the per-step loop; returns
-    (final_params, {"history", "best", "state"}).
-
-    A CPU ``torch.Generator`` seeded with ``seed`` draws the bucket
-    permutations of a ``hier`` / ``pre="bucketing"`` spec (the reference
-    seeds its PRNG key the same way; the two draw different numbers).
+               eval_fn: Optional[Callable] = None, eval_every: int = 0,
+               track_best: bool = True, engine: Optional[str] = None,
+               chunk: Optional[int] = None,
+               options: Optional[RoundOptions] = None):
+    """Runs ``steps`` iterations; returns (final_params, {"history",
+    "best", "state"} and, on the scan engine, "scan_report").
 
     Implements the paper's model selection: theta_hat is the iterate with
     the smallest aggregate norm (Alg. 1), i.e. the iterate ENTERING the
     best step.  ``batches`` is an iterator of numpy batches (or one batch
-    reused every step); they are moved to the parameters' device.  The
-    history also records each step's wall time in ``"ms"``.
+    reused every step); they are moved to the parameters' device.
+
+    ``engine="scan"`` (default) stacks the ``steps`` batches up front and
+    runs the steps as segments of a :class:`~repro_torch.rounds.RoundEngine`
+    cut at the eval cadence and at ``chunk`` steps (None = only at evals):
+    the best-iterate selection stays on the device in the carry
+    (``torch.where`` per leaf) and the metrics reach the host once a run.
+    ``"scan_report"`` holds ``trace_count``, ``chunk_shapes``,
+    ``transfers`` and ``segments`` (``(start, end, seconds)``, host clock
+    around work ending in a synchronize) and, when checkpointing,
+    ``snapshots`` and ``resumed_from`` (each snapshot's bytes and
+    seconds are ``obs_runtime``'s ``resilience.snapshot`` spans).
+    ``engine="loop"`` runs the same step one at a time, its metrics fetched every step (the history also
+    records each step's wall time in ``"ms"``).  Both draw step t's bucket
+    permutation (``hier`` / ``pre="bucketing"``) from a generator seeded
+    with ``round_seeds(seed, steps)[t]``, so they agree bit for bit and a
+    resumed run needs no generator state.
+
+    ``options`` is the shared :class:`~repro_torch.rounds.RoundOptions`;
+    the ``engine=`` / ``chunk=`` keywords win when passed.
+    ``options.checkpoint`` makes a scan run resumable: the carry, the
+    metrics so far and the eval points are snapshotted at segment
+    boundaries, and a rerun into the same directory resumes from the
+    latest snapshot.
     """
+    opts = resolve_options(options, engine=engine, chunk=chunk)
+    cfg = opts.apply_config(cfg)
+    engine, chunk = opts.engine or "scan", opts.chunk
+    if opts.checkpoint is not None and engine != "scan":
+        raise ValueError("options.checkpoint requires engine='scan' "
+                         "(the loop path has no chunk boundaries to "
+                         "snapshot at)")
+    if engine == "loop":
+        return _train_loop_loop(loss_fn, params, batches, optimizer, cfg,
+                                lr_schedule, steps, seed=seed,
+                                eval_fn=eval_fn, eval_every=eval_every,
+                                track_best=track_best)
+    if engine != "scan":
+        raise ValueError(f"engine must be 'scan' or 'loop', got {engine!r}")
+
+    device = tree_leaves(params)[0].device
+    hist = _empty_history()
+    best = {"norm": np.inf, "params": params, "acc": -np.inf}
+    if hasattr(batches, "__next__"):
+        per_step = [next(batches) for _ in range(max(steps, 1))]
+        first = per_step[0]
+        stacked = stack_rounds([tree_map(np.asarray, b)
+                                for b in per_step[:steps]]) if steps else None
+    else:
+        first = batches
+        # One batch reused every step: a zero-copy view along the step axis.
+        stacked = tree_map(lambda x: np.broadcast_to(
+            np.asarray(x)[None], (steps,) + np.shape(x)), batches)
+    n_workers = tree_leaves(first)[0].shape[0]
+    state = init_state(params, optimizer, n_workers, cfg)
+    if steps == 0:
+        return params, {"history": hist, "best": best, "state": state,
+                        "scan_report": {"trace_count": 0, "chunk_shapes": (),
+                                        "transfers": 0, "segments": []}}
+
+    step_fn = build_train_step(loss_fn, optimizer, cfg, lr_schedule)
+
+    def body(carry, op):
+        state, best_norm, best_params = carry
+        prev = state["params"]
+        state, metrics = step_fn(state, op["batch"],
+                                 generator=round_generator(op["key"]))
+        if track_best:
+            dn = metrics["direction_norm"]
+            better = dn < best_norm
+            # theta_hat is the iterate ENTERING the best step (Alg. 1's
+            # selection), hence prev, not the stepped params.
+            best_params = tree_map(
+                lambda new, old: torch.where(better, new, old),
+                prev, best_params)
+            best_norm = torch.where(better, dn, best_norm)
+        return (state, best_norm, best_params), metrics
+
+    def prepare(seg):
+        return dict(seg, batch=to_device(tree_map(np.ascontiguousarray,
+                                                  seg["batch"]), device))
+
+    def on_boundary(end: int, carry):
+        if eval_fn and eval_every and end % eval_every == 0:
+            acc = float(eval_fn(carry[0]["params"]))
+            hist["eval"].append(acc)
+            hist["eval_step"].append(end)
+            best["acc"] = max(best["acc"], acc)
+
+    eng = RoundEngine(body, chunk=chunk, prepare=prepare)
+    carry0 = (state, torch.tensor(np.inf, dtype=torch.float32, device=device),
+              params)
+    del state               # the carry owns it (a restore replaces it)
+
+    # Resilience: resume from the last segment-boundary snapshot (if any)
+    # and keep snapshotting carry + metrics so far at every boundary.
+    ckpt_cfg = resolve_checkpoint(opts.checkpoint)
+    checkpointer, start_step, saved_cols = None, 0, {}
+    if ckpt_cfg is not None:
+        store = SnapshotStore.from_config(ckpt_cfg)
+        signature = {"surface": "trainer", "steps": steps, "chunk": chunk,
+                     "seed": seed,
+                     "eval_every": eval_every if eval_fn else 0}
+        snap = store.load_latest() if ckpt_cfg.resume else None
+        if snap is not None:
+            start_step, arrays, meta = snap
+            check_signature(meta["signature"], signature, store.path)
+            carry0 = restore_carry(arrays, meta, carry0)
+            saved_cols = restored_metrics(arrays)
+            del arrays, snap        # the host copy of the carry
+            payload = meta.get("payload", {})
+            hist["eval"] = list(payload.get("eval", []))
+            hist["eval_step"] = [int(s) for s in payload.get("eval_step", [])]
+            best["acc"] = float(payload.get("best_acc", -np.inf))
+        checkpointer = CarryCheckpointer(
+            store, signature=signature, total=steps, every=ckpt_cfg.every,
+            base_columns=saved_cols,
+            payload_fn=lambda end: {"eval": hist["eval"],
+                                    "eval_step": hist["eval_step"],
+                                    "best_acc": best["acc"]})
+
+    try:
+        (state, best_norm, best_params), metrics = eng.run(
+            carry0, {"batch": stacked, "key": round_seeds(seed, steps)},
+            boundaries=cadence_boundaries(steps, eval_every if eval_fn else 0),
+            on_boundary=on_boundary,
+            on_segment=checkpointer.on_segment if checkpointer else None,
+            start=start_step)
+    finally:
+        if checkpointer is not None:
+            checkpointer.close()
+
+    cols = dict(saved_cols) if metrics is None \
+        else concat_metrics(saved_cols, metrics)
+    for k in ("loss", "direction_norm", "kappa_hat", "lr"):
+        if k in cols:
+            hist[k] = [float(x) for x in cols[k]]
+    if track_best:
+        best["norm"] = float(best_norm)
+        best["params"] = best_params
+    report = {"trace_count": eng.trace_count,
+              "chunk_shapes": tuple(sorted(eng.chunk_shapes)),
+              "transfers": eng.transfer_count,
+              "segments": list(eng.segment_log)}
+    if ckpt_cfg is not None:
+        report["snapshots"] = checkpointer.store.snapshots_written
+        report["resumed_from"] = start_step
+    return state["params"], {"history": hist, "best": best, "state": state,
+                             "scan_report": report}
+
+
+def _train_loop_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
+                     lr_schedule, steps: int, *, seed: int = 0,
+                     eval_fn: Optional[Callable] = None, eval_every: int = 0,
+                     track_best: bool = True):
+    """The per-step loop: one step, one metric transfer (counted in
+    ``obs_runtime``'s ``rounds.transfers``) and one host-side best-iterate
+    check at a time.  The scan engine's parity baseline."""
     device = tree_leaves(params)[0].device
     first = next(batches) if hasattr(batches, "__next__") else batches
     n_workers = tree_leaves(first)[0].shape[0]
     state = init_state(params, optimizer, n_workers, cfg)
     step_fn = build_train_step(loss_fn, optimizer, cfg, lr_schedule)
-    generator = torch.Generator().manual_seed(seed)
+    seeds = round_seeds(seed, steps)
 
-    hist: dict[str, list] = {"loss": [], "direction_norm": [], "kappa_hat": [],
-                             "lr": [], "ms": [], "eval": [], "eval_step": []}
+    hist = dict(_empty_history(), ms=[])
     best = {"norm": np.inf, "params": params, "acc": -np.inf}
     batch = first
     for t in range(steps):
         prev_params = state["params"]
         t0 = time.perf_counter()
         state, metrics = step_fn(state, to_device(batch, device),
-                                 generator=generator)
+                                 generator=round_generator(seeds[t]))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         hist["ms"].append(1e3 * (time.perf_counter() - t0))
-        hist["loss"].append(float(metrics["loss"]))
-        dn = float(metrics["direction_norm"])
-        hist["direction_norm"].append(dn)
-        hist["lr"].append(float(metrics["lr"]))
-        if "kappa_hat" in metrics:
-            hist["kappa_hat"].append(float(metrics["kappa_hat"]))
+        host = {k: v[0] for k, v in fetch_metrics([metrics]).items()}
+        obs_runtime.inc("rounds.transfers")
+        for k in ("loss", "direction_norm", "kappa_hat", "lr"):
+            if k in host:
+                hist[k].append(float(host[k]))
+        dn = hist["direction_norm"][-1]
         if track_best and dn < best["norm"]:
             best["norm"], best["params"] = dn, prev_params
         if eval_fn and eval_every and (t + 1) % eval_every == 0:
@@ -265,6 +431,6 @@ def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
             hist["eval"].append(acc)
             hist["eval_step"].append(t + 1)
             best["acc"] = max(best["acc"], acc)
-        if hasattr(batches, "__next__"):
+        if hasattr(batches, "__next__") and t + 1 < steps:
             batch = next(batches)
     return state["params"], {"history": hist, "best": best, "state": state}

@@ -23,6 +23,9 @@ import repro_torch.kernels.bucketgram
 import repro_torch.fed, repro_torch.fleet, repro_torch.obs, repro_torch.rounds
 import repro_torch.fed.server, repro_torch.fed.poison, repro_torch.rounds.engine
 import repro_torch.robustness.guard
+import repro_torch.checkpoint, repro_torch.checkpoint.npz
+import repro_torch.resilience, repro_torch.resilience.store
+import repro_torch.resilience.experiment, repro_torch.resilience.faults
 from repro_torch.launch import grid, scenarios, train
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--byz", "1", "--seq", "8", "--batch", "1"])
@@ -64,7 +67,9 @@ def test_no_source_file_names_jax_or_repro():
                 "fed/scenarios.py", "rounds/plan.py", "obs/runtime.py",
                 "launch/grid.py", "fed/server.py", "fed/poison.py",
                 "robustness/guard.py", "rounds/engine.py",
-                "launch/scenarios.py"):
+                "launch/scenarios.py", "checkpoint/npz.py",
+                "resilience/store.py", "resilience/experiment.py",
+                "resilience/faults.py", "training/trainer.py"):
         assert PKG / mod in files, mod
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
@@ -104,7 +109,20 @@ def test_entry_point_without_cpu_request_raises_without_gpu(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_checkpoint_flag_names_its_roadmap_item():
+def test_checkpoint_flag_names_its_roadmap_item(tmp_path):
+    """``--checkpoint PATH`` (ROADMAP queue 1, item 11, now ported) saves
+    the final params; ``load_checkpoint`` reads them back bit for bit, with
+    the step."""
+    from repro_torch.checkpoint import load_checkpoint
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--device", "cpu", "--steps", "1", "--checkpoint", "x"])
+    from repro_torch.tree import tree_leaves, tree_map
+    path = str(tmp_path / "params.npz")
+    out = train.main(["--device", "cpu", "--steps", "2", "--workers", "4",
+                      "--byz", "1", "--seq", "8", "--batch", "1",
+                      "--checkpoint", path])
+    params = out["state"]["params"]
+    like = tree_map(torch.zeros_like, params)
+    loaded, step = load_checkpoint(path, like)
+    assert step == 2
+    for a, b in zip(tree_leaves(loaded), tree_leaves(params)):
+        assert a.dtype == b.dtype and torch.equal(a, b)

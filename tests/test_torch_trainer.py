@@ -2,8 +2,9 @@
 
 Both packages start from the same parameters (the reference's init carried
 across with ``repro_torch.interop``) and take the same numpy batches; the
-port is held to ``repro.training.build_train_step`` step by step (not to
-``train_loop``'s scan, whose scan-vs-loop equalities fail at the seed).
+port is held to ``repro.training.build_train_step`` step by step, and its
+``train_loop`` scan engine to the reference's ``train_loop(engine="scan")``
+and to its own loop engine (bit for bit).
 
 Tolerances: per-step loss 1e-5 relative; direction_norm 1e-4 relative;
 kappa_hat 1e-4 relative plus 1e-4 absolute; final parameters and momentum
@@ -51,6 +52,7 @@ from repro_torch.training import TrainerConfig as TCfg
 from repro_torch.training import build_train_step as t_build_step
 from repro_torch.training import init_state as t_init_state
 from repro_torch.training.trainer import to_device
+from repro_torch.tree import tree_leaves as t_leaves
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -275,3 +277,133 @@ def test_quickstart_port_reaches_reference_accuracy():
                           t_sgd(clip=2.0), cfg, t_constant(0.3), steps=150,
                           eval_fn=accuracy, eval_every=30)
     assert out["best"]["acc"] > 0.8, out["history"]["eval"]
+
+
+# --- train_loop's scan engine ---------------------------------------------
+
+def _scan_metrics(hist):
+    return {k: np.asarray(hist[k], np.float64)
+            for k in ("loss", "direction_norm", "kappa_hat")}
+
+
+def _best_step(hist):
+    """The step whose entering iterate Alg. 1 selects: the first strict
+    minimum of direction_norm (both engines compare with ``<``)."""
+    return int(np.argmin(hist["direction_norm"]))
+
+
+@pytest.mark.parametrize("model", ["quickstart_mlp", "smollm_reduced"])
+def test_train_loop_scan_matches_reference_scan(model):
+    """The port's scan-engine train_loop against the reference's, from the
+    same numpy params and batches, NNM + CWTM under ALIE: per-step loss,
+    direction_norm and kappa_hat within 1e-5 relative (the reference's
+    kernel-vs-plain contract), the same eval steps and best step.  ALIE
+    at its default eta: at the quickstart's eta = 8, NNM mixes every honest
+    row to the honest mean, kappa_hat is fp32 rounding noise (~5e-8) and
+    no relative tolerance can hold it (the step tests above add an
+    absolute term for that regime)."""
+    from repro.training import train_loop as j_train_loop
+    from repro_torch.training import train_loop as t_train_loop
+    n, f = 8, 2
+    if model == "quickstart_mlp":
+        steps, eval_every = 6, 3
+        params_np, batches = _mlp_setup(steps=steps)
+        j_loss, t_loss, eta = _j_mlp_loss, _t_mlp_loss, None
+        j_lr, t_lr = j_constant(0.3), t_constant(0.3)
+    else:
+        steps, eval_every = 4, 2
+        jmodel = j_build(j_reduced("smollm-360m"))
+        tmodel = t_build(t_reduced("smollm-360m"))
+        params_np = jax.tree_util.tree_map(np.asarray,
+                                           jmodel.init(jax.random.PRNGKey(0)))
+        batches = _lm_batches(j_reduced("smollm-360m").vocab_size, n, steps)
+        j_loss, t_loss, eta = jmodel.loss, tmodel.loss, None
+        j_lr, t_lr = j_cosine(0.05, steps, warmup=0), t_cosine(0.05, steps,
+                                                                warmup=0)
+    jcfg = JCfg(algorithm="dshb", beta=0.9,
+                agg=JSpec(rule="cwtm", f=f, pre="nnm"),
+                byz=JByz(f=f, attack="alie", eta=eta))
+    tcfg = TCfg(algorithm="dshb", beta=0.9,
+                agg=TSpec(rule="cwtm", f=f, pre="nnm"),
+                byz=TByz(f=f, attack="alie", eta=eta))
+
+    def j_eval(p):
+        return sum(jnp.sum(jnp.abs(x)) for x in jax.tree_util.tree_leaves(p))
+
+    def t_eval(p):
+        return sum(float(torch.sum(torch.abs(x))) for x in t_leaves(p))
+
+    _, jout = j_train_loop(j_loss, jax.tree_util.tree_map(jnp.asarray,
+                                                          params_np),
+                           iter(batches), j_sgd(clip=2.0), jcfg, j_lr, steps,
+                           engine="scan", chunk=2, eval_fn=j_eval,
+                           eval_every=eval_every)
+    _, tout = t_train_loop(t_loss, params_from_numpy(params_np, CPU),
+                           iter(batches), t_sgd(clip=2.0), tcfg, t_lr, steps,
+                           engine="scan", chunk=2, eval_fn=t_eval,
+                           eval_every=eval_every)
+    jm, tm = _scan_metrics(jout["history"]), _scan_metrics(tout["history"])
+    for k in jm:
+        np.testing.assert_allclose(tm[k], jm[k], rtol=1e-5, atol=0, err_msg=k)
+    assert tout["history"]["eval_step"] == jout["history"]["eval_step"] \
+        == list(range(eval_every, steps + 1, eval_every))
+    np.testing.assert_allclose(tout["history"]["eval"],
+                               jout["history"]["eval"], rtol=1e-5)
+    assert _best_step(tout["history"]) == _best_step(jout["history"])
+    assert tout["best"]["norm"] == pytest.approx(jout["best"]["norm"],
+                                                 rel=1e-5)
+    assert tout["scan_report"]["transfers"] == 1
+    assert tout["scan_report"]["chunk_shapes"] == \
+        jout["scan_report"]["chunk_shapes"]
+
+
+@pytest.mark.parametrize("spec_kw", [dict(pre="nnm"),
+                                     dict(pre="nnm", hier=True),
+                                     dict(pre="bucketing")],
+                         ids=["nnm", "hier", "bucketing"])
+def test_train_loop_scan_equals_loop_bitwise(spec_kw):
+    """The port's two engines run one step function on the same batches
+    and per-step seeds (the bucket permutations of hier / bucketing
+    included): equal histories, params, best iterate and momentum."""
+    from repro_torch.obs import runtime as obs_runtime
+    from repro_torch.training import train_loop as t_train_loop
+    params_np, batches = _mlp_setup(steps=6)
+    cfg = TCfg(algorithm="dshb", beta=0.9,
+               agg=TSpec(rule="cwtm", f=2, **spec_kw),
+               byz=TByz(f=2, attack="alie", eta=8.0))
+    outs = {}
+    for engine in ("scan", "loop"):
+        before = obs_runtime.counters().get("rounds.transfers", 0)
+        outs[engine] = t_train_loop(
+            _t_mlp_loss, params_from_numpy(params_np, CPU), iter(batches),
+            t_sgd(clip=2.0), cfg, t_constant(0.3), 6, seed=5, engine=engine,
+            chunk=4, eval_fn=lambda p: p["b2"].sum(), eval_every=3)
+        outs[engine][1]["transfers"] = \
+            obs_runtime.counters()["rounds.transfers"] - before
+    (ps, s), (pl, lp) = outs["scan"], outs["loop"]
+    for k in ("loss", "direction_norm", "kappa_hat", "lr", "eval",
+              "eval_step"):
+        assert s["history"][k] == lp["history"][k], k
+    assert s["best"]["norm"] == lp["best"]["norm"]
+    for k in ps:
+        assert torch.equal(ps[k], pl[k]), k
+        assert torch.equal(s["best"]["params"][k], lp["best"]["params"][k]), k
+    assert torch.equal(s["state"]["momentum"], lp["state"]["momentum"])
+    assert s["state"]["step"] == lp["state"]["step"] == 6
+    assert (s["transfers"], lp["transfers"]) == (1, 6)
+    # Segments cut at the eval step 3 and at chunk 4: [0, 3), [3, 6).
+    assert [(a, b) for a, b, _ in s["scan_report"]["segments"]] == \
+        [(0, 3), (3, 6)]
+
+
+def test_train_loop_checkpoint_requires_scan_engine(tmp_path):
+    from repro_torch.rounds import RoundOptions
+    from repro_torch.training import train_loop as t_train_loop
+    params_np, batches = _mlp_setup(steps=1)
+    cfg = TCfg(agg=TSpec(rule="cwtm", f=2, pre="nnm"),
+               byz=TByz(f=2, attack="alie", eta=8.0))
+    with pytest.raises(ValueError, match="requires engine='scan'"):
+        t_train_loop(_t_mlp_loss, params_from_numpy(params_np, CPU),
+                     iter(batches), t_sgd(clip=2.0), cfg, t_constant(0.3), 1,
+                     engine="loop",
+                     options=RoundOptions(checkpoint=str(tmp_path)))
