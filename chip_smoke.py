@@ -105,11 +105,32 @@ Phases, each fatal on failure:
      K2 once a round; (d) the grid's cwtm | nnm bucket (5 lanes), 16
      rounds in segments of 2, killed after its first snapshot and
      resumed: every FleetResult equal, K4 + K5 once a bucket-round;
- 14. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 14. the continuous fleet service (``repro_torch.serving``): (a) the
+     paper's grid (61 jobs, 13 buckets, 30 rounds in segments of at most
+     10, cut at the evals) submitted up front to ``FleetService`` and run
+     by ``FleetRunner``, in turns: every FleetResult equal bit for bit, 13
+     round programs each, the K2-K5 launches equal (K4 / K5 once a
+     bucket-round, K2 / K3 once a lane), no fallback, ms per bucket-round
+     of both; (b) churn on the cwtm | nnm and gm | nnm buckets (3 lanes,
+     segments of 3): late submits, a running and a queued cancel, two
+     deadlines; admission latencies and order asserted, each finished
+     lane equal bit for bit to its job alone in a 3-slot bucket and
+     within rtol 1e-5 of its 1-lane solo run (GM's direction_norm 1e-4;
+     bitwise or not printed), K4 / K5 once a bucket-round, seconds per
+     step boundary, peak memory;
+     (c) ``launch.service --seeds 2 --rounds 12``: every registered
+     scenario as lanes, poisoned and guarded ones included (finite
+     histories, the quarantine event), the poisoned and guarded buckets
+     again on the torch backend (loss within rtol 1e-4); (d) ``launch.
+     service --kill-at 2``: spec-named and raw jobs, a mid-run submit, a
+     cancel, deadlines; every surviving handle bit for bit equal to the
+     uninterrupted run, snapshot bytes / seconds and the restore's
+     seconds;
+ 15. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6), the
-     fed phase's launches, phase 13's launches, the kernels JSON line
-     (K1, K2, K4 and K5 launches include phase 13's), the card line, and
-     last the {"ok": true, ...} line.
+     fed phase's launches, phase 13's and 14's launches, the kernels JSON
+     line (K1, K2, K4 and K5 launches include phase 13's; K2-K5 phase
+     14's), the card line, and last the {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -1308,15 +1329,15 @@ def fed_expected(rule: str, pre) -> dict:
     return want
 
 
-def fed_fallbacks(rule: str) -> None:
-    """No kernel of the round fell back.  The one torch op the dispatch
-    record notes for a kernel backend is AutoGM's (m, m) weight solve,
-    which has no kernel form in the reference either (ROADMAP queue 2)."""
+def no_fallback(what: str, autogm: bool = False) -> None:
+    """No kernel fell back.  The one torch op the dispatch record notes for
+    a kernel backend is AutoGM's (m, m) weight solve, which has no kernel
+    form in the reference either (ROADMAP queue 2)."""
     from repro_torch.kernels import dispatch as kdispatch
     bad = [d for d in kdispatch.fallback_log()
-           if not (rule == "autogm" and d.primitive == "autogm_coeff")]
+           if not (autogm and d.primitive == "autogm_coeff")]
     if bad:
-        raise AssertionError(f"fed round fell back: {bad[:3]}")
+        raise AssertionError(f"{what}: dispatch fell back: {bad[:3]}")
 
 
 def seg_ms(report: dict) -> list:
@@ -1374,7 +1395,7 @@ def phase_fed_scenarios(dev, rate: float) -> dict:
         got = {k: counts[k] for k in want}
         if got != want:
             raise AssertionError(f"{name}: launches {got}, expected {want}")
-        fed_fallbacks(sc.rule)
+        no_fallback(f"fed {sc.name}", autogm=sc.rule == "autogm")
         hist, rep = out["history"], out["server"].last_scan_report
         for k in ("loss", "direction_norm", "kappa_hat"):
             if not all(math.isfinite(v) for v in getattr(hist, k)):
@@ -1556,7 +1577,7 @@ def phase_fed_full(dev, rate: float) -> dict:
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"fed full width: launches {got}, expected {want}")
-    fed_fallbacks("cwtm")
+    no_fallback("fed full width")
     rec = kdispatch.last_dispatch()
     if rec is None or rec.backend != "cuda":
         raise AssertionError("fed full width: the aggregation left the kernels")
@@ -1827,7 +1848,7 @@ def phase_resume_fed(dev) -> dict:
             counts = kdispatch.launch_counts()
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
-        fed_fallbacks(sc.rule)
+        no_fallback(f"fed {sc.name}", autogm=sc.rule == "autogm")
         want = {k: v * (FED_ROUNDS - (server.last_scan_report or {}).get(
                     "resumed_from", 0))
                 for k, v in fed_expected(sc.rule, sc.pre).items()}
@@ -1923,6 +1944,328 @@ def phase_resume_fleet(dev) -> dict:
         f"the three runs (once a bucket-round); snapshots (B, s) "
         f"{[(b, round(t, 4)) for b, t in snaps]}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the continuous fleet service (repro_torch.serving).
+# ---------------------------------------------------------------------------
+
+SERVICE_ROUNDS, SERVICE_CHUNK = 30, 10      # 14a: the grid through both
+CHURN_ROUNDS, CHURN_CHUNK = 12, 3           # 14b
+_LANE_KERNELS = ("gram_batched", "mixtrim_dyn", "mixtrim", "combine")
+_GRAM_RULES = ("average", "gm", "autogm", "krum", "multikrum")
+
+
+def service_launches() -> dict:
+    from repro_torch.kernels import dispatch as kdispatch
+    counts = kdispatch.launch_counts()
+    return {k: counts[k] for k in _LANE_KERNELS}
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def lane_expected(rule: str, pre, rounds: int, lanes: int) -> dict:
+    """A lane bucket's launches over ``rounds`` bucket-rounds of
+    ``lanes`` slots: K5 (the Gram) and K4 (the cwtm trim) once a
+    bucket-round, K2 (cwmed) and K3 (the gram rules' combine) once a lane
+    a round."""
+    gram = pre == "nnm" or rule in _GRAM_RULES
+    return {"gram_batched": rounds if gram else 0,
+            "mixtrim_dyn": rounds if rule == "cwtm" else 0,
+            "mixtrim": rounds * lanes if rule == "cwmed" else 0,
+            "combine": rounds * lanes if rule in _GRAM_RULES else 0}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def ms_per_bucket_round(entries) -> dict:
+    """{bucket: median ms per bucket-round} over (bucket, rounds, s)."""
+    per: dict = {}
+    for key, nr, sec in entries:
+        per.setdefault(key, []).append(1e3 * sec / nr)
+    return {k: statistics.median(v) for k, v in per.items()}
+
+
+def phase_service_grid(dev) -> dict:
+    """14a: the paper's grid (61 jobs, 13 buckets) submitted up front to
+    the service and run by the batch runner: every result equal bit for
+    bit, launches equal; returns the service's launches."""
+    import torch
+    from repro_torch.fleet import FleetRunner
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import grid
+    from repro_torch.serving import FleetService
+    jobs = grid.build_jobs(full=True, alpha=0.1, steps=SERVICE_ROUNDS)
+    runs, walls = {}, {"runner": [], "service": []}
+    # In turns (runner, service, service, runner): the first run of a
+    # process pays its warm-up; the first run of each is checked.
+    for name in ("runner", "service", "service", "runner"):
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if name == "runner":
+            fleet = FleetRunner(jobs, chunk=SERVICE_CHUNK, device=dev)
+            results = fleet.run()
+        else:
+            fleet = FleetService(chunk=SERVICE_CHUNK, device=dev)
+            handles = [fleet.submit(j) for j in jobs]
+            fleet.run_until_idle()
+            results = [h.result() for h in handles]
+        torch.cuda.synchronize(dev)
+        walls[name].append(time.perf_counter() - t0)
+        no_fallback(f"14a {name}")
+        runs.setdefault(name, (fleet, results, service_launches()))
+    runner, ref, counts_r = runs["runner"]
+    svc, got, counts_s = runs["service"]
+    if runner.n_buckets != 13 or len(got) != 61:
+        raise AssertionError("14a: expected 61 jobs in 13 buckets")
+    if svc.trace_count != 13 or runner.trace_count != 13:
+        raise AssertionError(f"14a: round programs {svc.trace_count} "
+                             f"(service) / {runner.trace_count} (runner)")
+    for a, b in zip(got, ref):
+        same_fed_history(f"14a {a.label}", a.history, b.history)
+        if a.evals != b.evals or a.best_eval != b.best_eval:
+            raise AssertionError(f"14a {a.label}: evals differ")
+        same_tree(f"14a {a.label}: state", a.state, b.state)
+    want: dict = {}
+    for b in runner.buckets:
+        spec = b.jobs[0].cfg.agg
+        add_counts(want, lane_expected(spec.rule, spec.pre, SERVICE_ROUNDS,
+                                       len(b.jobs)))
+    check_launches("14a runner", counts_r, want)
+    check_launches("14a service", counts_s, want)
+    ms_r = ms_per_bucket_round((bi, nr, sec) for bi, _, nr, sec
+                               in runner.segment_log)
+    ms_s = ms_per_bucket_round((key, nr, sec) for key, _, nr, sec
+                               in svc.step_log)
+    log(f"  61 jobs, 13 buckets, {SERVICE_ROUNDS} rounds in segments of at "
+        f"most {SERVICE_CHUNK}, cut at the evals (every "
+        f"{jobs[0].eval_every}): every FleetResult (history, evals, state) of the "
+        f"service equals the batch runner's bit for bit; 13 round programs "
+        f"each; launches equal {counts_s} (K4 / K5 once a bucket-round, "
+        f"K2 / K3 once a lane); no fallback")
+    log(f"  ms per bucket-round (median over buckets of each bucket's "
+        f"median): service {statistics.median(ms_s.values()):.3f} "
+        f"[{min(ms_s.values()):.3f}-{max(ms_s.values()):.3f}], runner "
+        f"{statistics.median(ms_r.values()):.3f} "
+        f"[{min(ms_r.values()):.3f}-{max(ms_r.values()):.3f}]; wall in "
+        f"turns (runner, service, service, runner; planning included): "
+        f"{walls['runner'][0]:.2f}, {walls['service'][0]:.2f}, "
+        f"{walls['service'][1]:.2f}, {walls['runner'][1]:.2f} s")
+    return counts_s
+
+
+def phase_service_churn(dev) -> dict:
+    """14b: cwtm | nnm and gm | nnm buckets of 3 lanes under churn: late
+    submits, a running and a queued cancel, deadlines; each finished lane
+    against its solo run within rtol 1e-5; returns launches."""
+    import dataclasses
+    import torch
+    from repro_torch.fleet import FleetRunner
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import grid
+    from repro_torch.serving import FleetService
+    cells = {j.label: j for j in grid.build_jobs(full=True, alpha=0.1,
+                                                 steps=CHURN_ROUNDS)}
+
+    def job(label, rounds):
+        # Evals every 3 rounds: the segments are cut at the chunk.
+        return dataclasses.replace(cells[label], rounds=rounds,
+                                   eval_every=CHURN_CHUNK)
+
+    plan = {"A1": ("cwtm|nnm|alie", 12), "A2": ("cwtm|nnm|foe", 6),
+            "A3": ("cwtm|nnm|sf", 9), "A4": ("cwtm|nnm|mimic", 6),
+            "A5": ("cwtm|nnm|lf", 6), "G1": ("gm|nnm|alie", 12),
+            "G2": ("gm|nnm|sf", 9), "G3": ("gm|nnm|mimic", 6)}
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    svc = FleetService(max_lanes=3, chunk=CHURN_CHUNK, device=dev)
+    h = {n: svc.submit(job(*plan[n])) for n in ("A1", "A2", "G1", "G2")}
+    done_at: dict = {}
+    step_s: list = []
+
+    def step():
+        t0 = time.perf_counter()
+        more = svc.step()
+        step_s.append(time.perf_counter() - t0)
+        for n, hh in h.items():
+            if hh.status() == "done" and n not in done_at:
+                done_at[n] = svc.steps
+        return more
+
+    step()
+    h["A3"] = svc.submit(job(*plan["A3"]))      # the free cwtm slot
+    h["G3"] = svc.submit(job(*plan["G3"]))
+    if not h["G3"].cancel() or h["G3"].status() != "cancelled":
+        raise AssertionError("14b: the queued cancel failed")
+    if not h["G2"].cancel() or h["G2"].partial_result.history.rounds \
+            != CHURN_CHUNK:
+        raise AssertionError("14b: the running cancel failed")
+    step()                                      # A2 finishes here
+    h["A5"] = svc.submit(job(*plan["A5"]), deadline=2.0)    # waits
+    h["A4"] = svc.submit(job(*plan["A4"]), deadline=1.0)    # A2's slot
+    while step():
+        pass
+    torch.cuda.synchronize(dev)
+    counts = service_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    no_fallback("14b")
+    finished = [n for n in plan if h[n].status() == "done"]
+    if sorted(finished) != ["A1", "A2", "A3", "A4", "A5", "G1"]:
+        raise AssertionError(f"14b: finished {finished}")
+    lat = {n: h[n].admit_step - h[n].submit_step for n in ("A3", "A4", "A5")}
+    if lat["A3"] > 1 or lat["A4"] > 1:
+        raise AssertionError(f"14b: admission latencies {lat}")
+    if not h["A4"].admit_ts < h["A5"].admit_ts:
+        raise AssertionError("14b: admission did not follow the deadlines")
+    # A5 takes the first cwtm slot that frees after A4's admission.
+    freed = min(done_at[n] for n in ("A1", "A2", "A3", "A4")
+                if done_at[n] > h["A4"].admit_step)
+    if h["A5"].admit_step != freed:
+        raise AssertionError(f"14b: A5 admitted at {h['A5'].admit_step}, "
+                             f"a slot freed at {freed}")
+    rounds = {}
+    for key, _, nr, _ in svc.step_log:
+        rounds[key] = rounds.get(key, 0) + nr
+    want: dict = {}
+    for key, nr in rounds.items():
+        b = next(hh for hh in h.values() if hh.key == key).job.cfg.agg
+        add_counts(want, lane_expected(b.rule, b.pre, nr, 3))
+    check_launches("14b", counts, want)
+    # Churn is invisible at a fixed bucket shape: each finished lane
+    # equals, bit for bit, its job run alone in a bucket of 3 slots.
+    # Against its 1-lane solo run (another shape: the card's reductions
+    # and products pick other configurations) it is held within rtol
+    # 1e-5, GM's direction_norm within 1e-4 (the reference's fleet
+    # tolerance): Weiszfeld's fp32 iterations amplify the ~1e-8 per-round
+    # difference to ~2e-5 over 12 rounds.
+    worst = {"loss": 0.0, "direction_norm": 0.0}
+    solo_bitwise = True
+    for n in finished:
+        alone = FleetService(max_lanes=3, chunk=CHURN_CHUNK, device=dev)
+        same = alone.submit(job(*plan[n])).result()
+        same_fed_history(f"14b {n} (alone, 3 slots)", h[n].result().history,
+                         same.history)
+        same_tree(f"14b {n} (alone, 3 slots): state", h[n].result().state,
+                  same.state)
+        solo = FleetRunner([job(*plan[n])], chunk=CHURN_CHUNK,
+                           device=dev).run()[0]
+        got = h[n].result()
+        for col in ("loss", "direction_norm"):
+            a = getattr(got.history, col)
+            b = getattr(solo.history, col)
+            if len(a) != len(b):
+                raise AssertionError(f"14b {n}: {len(a)} rounds vs {len(b)}")
+            solo_bitwise &= a == b
+            tol = 1e-4 if col == "direction_norm" \
+                and got.job.cfg.agg.rule == "gm" else 1e-5
+            for x, y in zip(a, b):
+                rel = abs(x - y) / max(abs(y), 1e-30)
+                worst[col] = max(worst[col], rel)
+                if rel > tol:
+                    raise AssertionError(f"14b {n} {col}: {x} vs solo {y} "
+                                         f"(tol {tol})")
+    log(f"  8 jobs through 2 buckets of 3 lanes (segments of "
+        f"{CHURN_CHUNK}): late admissions {lat} boundaries (A5 at the "
+        f"first freed slot after A4, deadline 1.0 before 2.0), one running "
+        f"and one queued cancel; each of the 6 finished lanes equals its "
+        f"job alone in a 3-slot bucket bit for bit; against its 1-lane solo "
+        f"run: max rel diff loss {worst['loss']:.3e} (tol 1e-5), "
+        f"direction_norm {worst['direction_norm']:.3e} (tol 1e-5, gm 1e-4), "
+        f"bitwise {'equal' if solo_bitwise else 'not equal'}; launches "
+        f"{counts} (K4 / K5 once a bucket-round over "
+        f"{sum(rounds.values())} bucket-rounds); s per step boundary "
+        f"(admit, segments, evict, backfill) {min(step_s):.4f}-"
+        f"{max(step_s):.4f}; peak {peak / 2**30:.3f} GiB")
+    return counts
+
+
+def phase_service_registry(dev) -> dict:
+    """14c: every registered scenario x 2 seeds through launch.service
+    (poisoned and guarded lanes included); the poisoned and guarded
+    buckets again on the torch backend; returns launches."""
+    import torch
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import service
+    from repro_torch.obs import runtime as obs_runtime
+    from repro_torch.rounds import RoundOptions
+    from repro_torch.serving import FleetService
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    seq = last_seq()
+    out = service.main(["--seeds", "2", "--rounds", "12",
+                        "--device", dev.type])
+    torch.cuda.synchronize(dev)
+    counts = service_launches()
+    no_fallback("14c", autogm=True)
+    for label, r in out["results"].items():
+        h = r.history
+        if h.rounds != 12 or not all(math.isfinite(v) for v in
+                                     h.loss + h.direction_norm):
+            raise AssertionError(f"14c {label}: bad history")
+    quar = [e["args"] for e in obs_runtime.history(
+        name="robustness.quarantine") if e["seq"] > seq]
+    if not quar or any(e["surface"] != "fleet.service" for e in quar):
+        raise AssertionError(f"14c: quarantine events {quar}")
+    names = ("poison_labelflip", "poison_feature", "faulty_nan_quarantine")
+    again = FleetService(device=dev, options=RoundOptions(backend="torch"))
+    from repro_torch.fleet import ScenarioSpec
+    handles = [again.submit(ScenarioSpec(n, seed=s, rounds=12))
+               for n in names for s in range(2)]
+    before = kdispatch.launch_counts()
+    again.run_until_idle()
+    if kdispatch.launch_counts() != before:
+        raise AssertionError("14c: the torch backend launched a kernel")
+    worst = 0.0
+    for hh in handles:
+        a = out["results"][hh.job.label].history.loss
+        b = hh.result().history.loss
+        for x, y in zip(a, b):
+            rel = abs(x - y) / max(abs(y), 1e-30)
+            worst = max(worst, rel)
+            if rel > 1e-4:
+                raise AssertionError(f"14c {hh.job.label}: cuda vs torch "
+                                     f"loss {x} vs {y}")
+    log(f"  {len(out['results'])} jobs, {out['service'].trace_count} round "
+        f"programs, {out['wall']:.2f} s; histories finite; quarantine "
+        f"events {[(e['total'], e['rounds']) for e in quar]}; launches "
+        f"{counts}; poisoned and guarded buckets cuda vs torch backend: "
+        f"per-round loss max rel diff {worst:.3e} (tol 1e-4) OK")
+    return counts
+
+
+def phase_service_drill(dev) -> dict:
+    """14d: the preemption drill through launch.service: spec-named and
+    raw jobs, a mid-run submit, a cancel, a deadline; returns launches."""
+    import torch
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import service
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    out = service.main(["--kill-at", "2", "--seeds", "2", "--rounds", "12",
+                        "--device", dev.type])
+    torch.cuda.synchronize(dev)
+    counts = service_launches()
+    no_fallback("14d")
+    if not out["survivors"] or not out["snapshots"]:
+        raise AssertionError("14d: nothing survived the kill")
+    sizes = [b for b, _ in out["snapshots"]]
+    secs = [t for _, t in out["snapshots"]]
+    log(f"  {len(out['survivors'])} surviving handles equal the "
+        f"uninterrupted run bit for bit; {len(sizes)} snapshots of "
+        f"{min(sizes)}-{max(sizes)} B in {min(secs):.4f}-{max(secs):.4f} s; "
+        f"restore {out['restore_s']:.4f} s; launches {counts}")
+    return counts
 
 
 def main() -> int:
@@ -2042,7 +2385,19 @@ def main() -> int:
         counts_resume[k] = counts_resume.get(k, 0) + v
     log(json.dumps({"resume_launches": counts_resume}))
 
-    log("== 14. summary")
+    log("== 14. the continuous fleet service (repro_torch.serving)")
+    log(f"-- 14a. the grid up front: FleetService against FleetRunner, "
+        f"{SERVICE_ROUNDS} rounds")
+    counts_service = phase_service_grid(dev)
+    log("-- 14b. churn: cwtm|nnm and gm|nnm, 3 lanes each")
+    add_counts(counts_service, phase_service_churn(dev))
+    log("-- 14c. every registered scenario through launch.service")
+    add_counts(counts_service, phase_service_registry(dev))
+    log("-- 14d. the preemption drill through launch.service --kill-at 2")
+    add_counts(counts_service, phase_service_drill(dev))
+    log(json.dumps({"service_launches": counts_service}))
+
+    log("== 15. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -2061,9 +2416,11 @@ def main() -> int:
                        hier["launches"]["gram_tiled"]),
         "mixtrim": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cuh",
                     "src/repro/kernels/mixtrim/kernel.py:177",
-                    counts_main["mixtrim"] + counts_resume["mixtrim"]),
+                    counts_main["mixtrim"] + counts_resume["mixtrim"]
+                    + counts_service["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",
-                    "src/repro/kernels/combine/kernel.py:34", counts_gm["combine"]),
+                    "src/repro/kernels/combine/kernel.py:34",
+                    counts_gm["combine"] + counts_service["combine"]),
         "mixtrim_select": ("src/repro_torch/kernels/csrc/mixtrim_select.cu",
                            "src/repro/kernels/mixtrim/kernel.py:177",
                            hier["launches"]["mixtrim_select"]),
@@ -2073,11 +2430,13 @@ def main() -> int:
         "mixtrim_dyn": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cuh",
                         "src/repro/kernels/mixtrim/kernel.py:213",
                         counts_grid["mixtrim_dyn"]
-                        + counts_resume["mixtrim_dyn"]),
+                        + counts_resume["mixtrim_dyn"]
+                        + counts_service["mixtrim_dyn"]),
         "gram_batched": ("src/repro_torch/kernels/csrc/gram_batched.cu",
                          "src/repro/kernels/gram/kernel.py:73",
                          counts_grid["gram_batched"]
-                         + counts_resume["gram_batched"]),
+                         + counts_resume["gram_batched"]
+                         + counts_service["gram_batched"]),
         "bucketgram": ("src/repro_torch/kernels/csrc/bucketgram.cu",
                        "src/repro/kernels/bucketgram/kernel.py:75",
                        counts_hier["bucketgram"]),

@@ -7,7 +7,9 @@ from repro_torch.fed.clients import (
     scatter_rows,
 )
 from repro_torch.fed.metrics import FedHistory, kappa_hat
-from repro_torch.fed.poison import POISON_KINDS, PoisonConfig, poison_batch
+from repro_torch.fed.poison import (
+    POISON_KINDS, PoisonConfig, poison_batch, poison_batch_lanes,
+)
 from repro_torch.fed.schedules import (
     AttackPhase, AttackSchedule, FixedByzantine, RotatingByzantine,
     constant_attack, ramp_eta, switch_attack,
@@ -24,7 +26,8 @@ from repro_torch.fed.server import (
 __all__ = [
     "ClientConfig", "client_updates", "gather_rows", "init_client_momentum",
     "scatter_rows", "FedHistory", "kappa_hat",
-    "POISON_KINDS", "PoisonConfig", "poison_batch", "AttackPhase",
+    "POISON_KINDS", "PoisonConfig", "poison_batch", "poison_batch_lanes",
+    "AttackPhase",
     "AttackSchedule", "FixedByzantine", "RotatingByzantine",
     "constant_attack", "ramp_eta", "switch_attack", "SCENARIO_OPTIMIZER",
     "SCENARIOS", "Scenario", "build_scenario", "cohort_batch_fn",

@@ -65,36 +65,70 @@ def poison_batch(batch: dict, cfg: PoisonConfig, m_byz: int, *,
     """Corrupt the last ``m_byz`` cohort rows of a (m, L, B, ...) batch of
     tensors; returns a new dict (``batch`` is left as it is).
 
-    The first floor(rate * B) positions of each slice are poisoned (the
+    :func:`poison_batch_lanes` on one lane.  "feature" noise is standard
+    normal of the features' shape, drawn from ``generator`` (a CPU
+    generator, so a CPU and a CUDA run draw alike) unless ``noise`` gives
+    it (e.g. the reference's draw)."""
+    keys = [cfg.labels_key]
+    if cfg.kind == "feature":
+        keys.append(cfg.features_key)
+        x = batch[cfg.features_key]
+        if noise is None:
+            if generator is None:
+                raise ValueError("feature poisoning needs a torch.Generator "
+                                 "or an explicit noise tensor")
+            noise = torch.randn(tuple(x.shape), generator=generator,
+                                dtype=torch.float32)
+        noise = torch.as_tensor(noise, dtype=torch.float32)[None]
+    dev = batch[cfg.labels_key].device
+    # Filled on the device: no host copy (and no stream sync) per round.
+    lane = poison_batch_lanes(
+        {k: batch[k][None] for k in keys}, cfg,
+        torch.full((1,), m_byz, dtype=torch.int64, device=dev),
+        rate=torch.full((1,), rate, dtype=torch.float32, device=dev),
+        strength=torch.full((1,), strength, dtype=torch.float32, device=dev),
+        noise=noise)
+    out = dict(batch)
+    for k in keys:
+        out[k] = lane[k][0]
+    return out
+
+
+def poison_batch_lanes(batch: dict, cfg: PoisonConfig, m_byz: Tensor, *,
+                       rate: Tensor, strength: Tensor,
+                       noise: Optional[Tensor] = None) -> dict:
+    """Data poisoning on a lane axis: batch leaves (B, m, L, bs, ...) and
+    ``m_byz`` / ``rate`` / ``strength`` (B,) tensors, one value a lane
+    (the fleet's lane operands; the poison KIND is the bucket's).  Lane k
+    poisons its last ``m_byz[k]`` cohort rows; returns a new dict.
+
+    The first floor(rate * bs) positions of each slice are poisoned (the
     threshold formed in fp32, as the reference forms it), which keeps the
-    count exact without consuming randomness.  "feature" noise is
-    standard normal of the features' shape, drawn from ``generator`` (a
-    CPU generator, so a CPU and a CUDA run draw alike) unless ``noise``
-    gives it (e.g. the reference's draw); it is scaled by ``strength`` in
-    fp32."""
+    count exact without consuming randomness; ``rate=0`` leaves a lane
+    clean.  "feature" takes its (B, m, L, bs, ...) standard normal
+    ``noise`` from the caller (the fleet's host plan draws it from each
+    lane's CPU generator), scaled by the lane's ``strength`` in fp32."""
     y = batch[cfg.labels_key]
-    m, _, b = y.shape[:3]
+    nl, m, _, b = y.shape[:4]
     dev = y.device
-    thr = float(np.float32(rate) * np.float32(b))
-    byz_row = torch.arange(m, device=dev) >= m - m_byz
-    sample_sel = torch.arange(b, device=dev).float() < thr
-    mask = byz_row[:, None, None] & sample_sel[None, None, :]
+    thr = rate.to(device=dev, dtype=torch.float32) * np.float32(b)
+    byz_row = torch.arange(m, device=dev)[None] >= \
+        (m - m_byz.to(dev))[:, None]
+    sample_sel = torch.arange(b, device=dev).float()[None] < thr[:, None]
+    mask = byz_row[:, :, None, None] & sample_sel[:, None, None, :]
 
     out = dict(batch)
     if cfg.kind == "labelflip":
         flipped = ((cfg.n_classes - 1) - y).to(y.dtype)
         out[cfg.labels_key] = torch.where(mask, flipped, y)
         return out
-    x = batch[cfg.features_key]
     if noise is None:
-        if generator is None:
-            raise ValueError("feature poisoning needs a torch.Generator or "
-                             "an explicit noise tensor")
-        noise = torch.randn(tuple(x.shape), generator=generator,
-                            dtype=torch.float32)
-    noise = torch.as_tensor(noise, dtype=torch.float32).to(dev) \
-        * float(np.float32(strength))
-    fmask = mask.reshape(tuple(mask.shape) + (1,) * (x.dim() - 3))
+        raise ValueError("feature poisoning on lanes needs the lanes' noise")
+    x = batch[cfg.features_key]
+    scale = strength.to(device=dev, dtype=torch.float32)
+    noise = noise.to(device=dev, dtype=torch.float32) \
+        * scale.reshape((nl,) + (1,) * (x.dim() - 1))
+    fmask = mask.reshape(tuple(mask.shape) + (1,) * (x.dim() - 4))
     xf = x.float()
     out[cfg.features_key] = torch.where(fmask, xf + noise, xf).to(x.dtype)
     return out

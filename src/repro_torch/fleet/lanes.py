@@ -6,10 +6,16 @@ over a leading lane axis.  The port's kernels cannot run inside
 ``torch.func.vmap``, so the round is written lane-batched from the start:
 state, batch, cohort ids and ops all carry a leading B axis.
 
+* poisoned lanes corrupt their batches before the client pass
+  (:func:`repro_torch.fed.poison.poison_batch_lanes`, rate / strength per
+  lane, feature noise drawn in the host plan);
 * the client pass is a ``torch.func.vmap`` over lanes of the vmapped
   cohort pass (plain torch, so vmap is fine there);
 * the attack family of each lane is a host int from the round plan, f /
   eta / beta / local_lr / lr are (B,) device tensors;
+* guarded lanes screen the attacked stack on the lane axis
+  (:func:`repro_torch.robustness.guard.quarantine_stack_lanes`) and
+  return ``quarantined_count``;
 * aggregation is :func:`repro_torch.core.robust.batched_robust_aggregate`
   on the explicit lane axis (K5 and K4 over all lanes in one launch each
   on a CUDA stack);
@@ -30,8 +36,10 @@ from torch.func import vmap
 from repro_torch.core import robust as robust_lib
 from repro_torch.core.attacks import apply_attack_batched
 from repro_torch.fed.clients import client_updates
+from repro_torch.fed.poison import poison_batch_lanes
 from repro_torch.fed.server import FedConfig
 from repro_torch.optim import Optimizer
+from repro_torch.robustness.guard import quarantine_stack_lanes
 from repro_torch.training.trainer import kappa_hat_masked
 from repro_torch.tree import tree_map, tree_structure, tree_unflatten
 
@@ -47,9 +55,9 @@ Tensor = torch.Tensor
 #:   local_lr   float32 — client local-SGD step size
 #:   lr         float32 — server learning rate this round
 #:   active     bool   — False freezes the lane's state this round
-#:   poison_rate / poison_strength float32 — data poisoning (not ported:
-#:                      the fleet refuses poisoned jobs; kept so the plan
-#:                      has the reference's fields)
+#:   poison_rate     float32 — data-poisoning sample rate (0 = clean; the
+#:                             poison KIND is bucket-key material)
+#:   poison_strength float32 — feature-poisoning noise scale
 LANE_OP_FIELDS = ("attack_id", "m_byz", "f_agg", "eta", "beta", "local_lr",
                   "lr", "active", "poison_rate", "poison_strength")
 
@@ -78,8 +86,8 @@ def scatter_lane_rows(momentum: list, idx: Tensor, rows: list) -> list:
 
 def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
                      cfg: FedConfig) -> Callable:
-    """The B-lane round: ``(state, batch, idx, ops, attack_ids, perms) ->
-    (state, metrics)``.
+    """The B-lane round: ``(state, batch, idx, ops, attack_ids, perms,
+    noise) -> (state, metrics)``.
 
     ``state``: params (B, ...) per leaf, ``opt_state``, ``step`` (B,) and,
     for D-SHB, ``momentum`` (a list of (B, n_clients, ...) fp32 leaves in
@@ -87,13 +95,15 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
     ``idx`` (B, m) int64 cohort ids, ``ops`` the LANE_OP_FIELDS as (B,)
     device tensors, ``attack_ids`` the same B attack ids as host ints (the
     round picks the attack branches on the host), ``perms`` (B, m) bucket
-    permutations (pre="bucketing") or None.
-    ``cfg`` contributes only the static skeleton; its f and client beta /
-    local_lr give way to ``ops``.  Metrics are (B,) device tensors."""
-    if cfg.poison is not None or cfg.guard is not None or cfg.taps:
+    permutations (pre="bucketing") or None, ``noise`` the (B, m, L, bs,
+    ...) feature-poisoning draws (poison kind "feature") or None.
+    ``cfg`` contributes only the static skeleton; its f, client beta /
+    local_lr and poison rate / strength give way to ``ops``.  Metrics are
+    (B,) device tensors."""
+    if cfg.taps:
         raise NotImplementedError(
-            "poisoned, guarded or tapped fleet lanes are not ported yet "
-            "(ROADMAP queue 1, item 10)")
+            "tapped fleet lanes are not ported yet (ROADMAP queue 1, "
+            "item 10)")
     ccfg, spec = cfg.client, cfg.agg
 
     def one_lane_clients(params, mom, batch, beta, local_lr):
@@ -104,12 +114,18 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
     lane_update = vmap(optimizer.update)
 
     def lane_round(state: dict, batch, idx: Tensor, ops: dict, attack_ids,
-                   perms: Optional[Tensor] = None):
+                   perms: Optional[Tensor] = None,
+                   noise: Optional[Tensor] = None):
         params = state["params"]
         skeleton = tree_structure(params)
         has_momentum = "momentum" in state
         cohort_mom = gather_lane_rows(state["momentum"], idx) \
             if has_momentum else []
+        if cfg.poison is not None:
+            batch = poison_batch_lanes(batch, cfg.poison, ops["m_byz"],
+                                       rate=ops["poison_rate"],
+                                       strength=ops["poison_strength"],
+                                       noise=noise)
         losses, stack, new_cohort_mom = lane_clients(
             params, cohort_mom, batch, ops["beta"], ops["local_lr"])
         b, m = losses.shape
@@ -118,6 +134,9 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
         attacked = apply_attack_batched(attack_ids, stack, ops["m_byz"],
                                         etas=ops["eta"],
                                         lane_ids=ops.get("attack_id"))
+        qinfo = None
+        if cfg.guard is not None:
+            attacked, qinfo = quarantine_stack_lanes(attacked, cfg.guard)
         robust_dir = robust_lib.batched_robust_aggregate(
             attacked, spec, ops["f_agg"], perms=perms)
         direction = tree_unflatten(skeleton, robust_dir)
@@ -141,6 +160,8 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
                 (leaf.float() ** 2).reshape(b, -1).sum(dim=1)
                 for leaf in robust_dir)),
         }
+        if qinfo is not None:
+            metrics["quarantined_count"] = qinfo["count"]
         if cfg.track_kappa_hat:
             metrics["kappa_hat"] = kappa_hat_masked(robust_dir, attacked,
                                                     m_honest)
@@ -167,17 +188,20 @@ def build_fleet_scan(loss_fn: Callable, optimizer: Optimizer,
     """One segment of K rounds: ``(state, operands) -> (state, metrics)``
     with ``operands = {"batch": (K, B, m, L, ...), "idx": (K, B, m),
     "ops": {field: (K, B)}, "attack_id": (K, B) host ints, "perm": (K, B,
-    m) or absent}`` on the state's device, and metrics stacked (K, B) on
-    the device.  A Python loop replaces the reference's ``lax.scan``; the
-    per-round math is :func:`build_lane_round`'s.  ``on_build`` fires once,
-    here (the reference counts jit traces)."""
+    m) or absent, "noise": (K, B, m, L, bs, ...) or absent}`` on the
+    state's device, and metrics stacked (K, B) on the device.  A Python
+    loop replaces the reference's ``lax.scan``; the per-round math is
+    :func:`build_lane_round`'s.  The returned state is new tensors, never
+    the input's, so an in-place :func:`build_lane_admit` write cannot
+    reach a segment's input.  ``on_build`` fires once, here (the
+    reference counts jit traces)."""
     if on_build is not None:
         on_build()
     lane = build_lane_round(loss_fn, optimizer, cfg)
 
     def fleet_scan(state: dict, operands: dict):
         rounds = operands["idx"].shape[0]
-        perms = operands.get("perm")
+        perms, noise = operands.get("perm"), operands.get("noise")
         cols: dict = {}
         for r in range(rounds):
             state, metrics = lane(
@@ -185,9 +209,27 @@ def build_fleet_scan(loss_fn: Callable, optimizer: Optimizer,
                 operands["idx"][r],
                 {k: v[r] for k, v in operands["ops"].items()},
                 operands["attack_id"][r],
-                None if perms is None else perms[r])
+                None if perms is None else perms[r],
+                None if noise is None else noise[r])
             for k, v in metrics.items():
                 cols.setdefault(k, []).append(v)
         return state, {k: torch.stack(v) for k, v in cols.items()}
 
     return fleet_scan
+
+
+def build_lane_admit() -> Callable:
+    """The continuous service's slot writer: ``admit(state, lane_state,
+    slot) -> state`` overwrites lane ``slot`` of the stacked state with one
+    job's (unstacked) init or restored state, in place (``leaf[slot].copy_
+    (one)`` under ``torch.no_grad()``): no bucket reallocation, the
+    counterpart of the reference's donated ``dynamic_update_index_in_dim``
+    (torch has no buffer donation; the in-place write is its stand-in)."""
+
+    def admit(state: dict, lane_state: dict, slot: int) -> dict:
+        k = int(slot)
+        with torch.no_grad():
+            tree_map(lambda full, one: full[k].copy_(one), state, lane_state)
+        return state
+
+    return admit

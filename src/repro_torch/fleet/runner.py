@@ -1,7 +1,9 @@
 """Fleet runner: pack scenario jobs into shape buckets, step each bucket's
-lanes together, demux per-lane histories (counterpart of
-``repro.fleet.runner``; the continuous service ``ContinuousBucket`` /
-``FleetService`` is not ported yet, ROADMAP queue 1, item 12).
+lanes together, demux per-lane histories; and the continuous service's
+fixed-capacity bucket, :class:`ContinuousBucket` (counterpart of
+``repro.fleet.runner``; :class:`repro_torch.serving.FleetService` drives
+it).  Lanes may be poisoned and guarded; tapped lanes wait for ROADMAP
+queue 1, item 10, hierarchical lanes for item 13.
 
 A :class:`FleetJob` is a fully materialised federated run; a
 :class:`ScenarioSpec` names a registry scenario + seed.  Jobs whose
@@ -10,11 +12,13 @@ states stack along a leading lane axis, and the bucket runs segment by
 segment.  The host plans every round up front, exactly as the reference
 does (cohort sampling then batch building, lane by lane, round by round,
 each lane on its own numpy stream seeded from ``job.seed``), so cohorts
-and batches equal the reference's sample for sample.  Each lane also owns
-a ``torch.Generator`` seeded from ``job.seed`` that draws its bucketing
-permutations in the plan (the reference splits a PRNG key instead, so
-those permutations differ).  The plan goes to the device once per
-segment; the segment's metrics come back once, at its end.
+and batches equal the reference's sample for sample.  A lane of a
+bucketing or feature-poisoning bucket also owns a CPU ``torch.Generator``
+seeded from ``job.seed`` that draws, round by round, its bucketing
+permutation and then its feature noise in the plan
+(:func:`lane_draws`; the reference splits a PRNG key instead, so those
+draws differ).  The plan goes to the device once per segment; the
+segment's metrics come back once, at its end.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed.
 """
@@ -33,6 +37,7 @@ from repro_torch.data import build_heterogeneous, make_classification
 from repro_torch.device import resolve_device
 from repro_torch.fed.clients import init_client_momentum
 from repro_torch.fed.metrics import FedHistory
+from repro_torch.fed.poison import static_signature as poison_signature
 from repro_torch.fed.scenarios import (
     SCENARIO_OPTIMIZER, Scenario, _mlp_eval, _mlp_init, _mlp_loss,
     cohort_batch_fn, get_scenario,
@@ -100,12 +105,10 @@ class FleetJob:
                 "(use the single-scenario engine instead)")
         for phase in self.schedule.phases:
             dyn_attack_id(phase.attack)   # raises for _opt / unknown
-        if (self.cfg.poison is not None or self.cfg.guard is not None
-                or self.cfg.taps):
+        if self.cfg.taps:
             raise NotImplementedError(
-                "poisoned, guarded or tapped fleet lanes are not ported yet "
-                "(ROADMAP queue 1, item 10); the single-scenario engine "
-                "(repro_torch.fed.run_rounds) runs poisoning and the guard")
+                "tapped fleet lanes are not ported yet (ROADMAP queue 1, "
+                "item 10); poisoned and guarded lanes run")
         if self.cfg.agg.hier:
             raise NotImplementedError(
                 "hierarchical fleet lanes are not ported yet (ROADMAP "
@@ -182,8 +185,65 @@ def plan_lane_round(job: FleetJob, r: int, rng: np.random.Generator
            "eta": eta if eta is not None else _ETA_DEFAULTS.get(attack, 0.0),
            "beta": cfg.client.beta, "local_lr": cfg.client.local_lr,
            "lr": float(job.lr_fn(r)), "active": r < job.rounds,
-           "poison_rate": 0.0, "poison_strength": 0.0}
+           # Rate / strength are per-lane data; the poison KIND is the
+           # bucket's (bucket_key): rate 0 in a poisoned bucket is clean.
+           "poison_rate": cfg.poison.rate if cfg.poison else 0.0,
+           "poison_strength": cfg.poison.strength if cfg.poison else 0.0}
     return batch, cohort, ops, (attack, eta, cohort)
+
+
+def _draws_perm(cfg: FedConfig) -> bool:
+    return cfg.agg.pre == "bucketing"
+
+
+def _draws_noise(cfg: FedConfig) -> bool:
+    return cfg.poison is not None and cfg.poison.kind == "feature"
+
+
+def lane_generator(job: FleetJob) -> Optional[torch.Generator]:
+    """The lane's CPU generator (seeded from ``job.seed``) when its bucket
+    draws bucketing permutations or feature noise, else None."""
+    if _draws_perm(job.cfg) or _draws_noise(job.cfg):
+        return torch.Generator().manual_seed(int(job.seed))
+    return None
+
+
+def lane_draws(cfg: FedConfig, gen: Optional[torch.Generator], batch: dict
+               ) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """HOST: one lane-round's random operands from the lane's generator,
+    in this order: the (m,) bucketing permutation (pre="bucketing"), then
+    the feature-poisoning noise, standard normal of the batch's features'
+    shape (poison kind "feature"); None for what the bucket does not
+    draw.  The batch runner and the continuous bucket both draw through
+    here, so a lane's stream is the same in either."""
+    perm = torch.randperm(cfg.clients_per_round, generator=gen) \
+        if _draws_perm(cfg) else None
+    noise = None
+    if _draws_noise(cfg):
+        shape = tuple(np.shape(batch[cfg.poison.features_key]))
+        noise = torch.randn(shape, generator=gen, dtype=torch.float32)
+    return perm, noise
+
+
+def filler_draws(cfg: FedConfig, batch: dict
+                 ) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """:func:`lane_draws`'s operands for an unoccupied slot (``batch`` its
+    filler batch): the identity permutation and zero noise (no
+    generator)."""
+    perm = torch.arange(cfg.clients_per_round) if _draws_perm(cfg) else None
+    noise = torch.zeros(tuple(np.shape(batch[cfg.poison.features_key])),
+                        dtype=torch.float32) if _draws_noise(cfg) else None
+    return perm, noise
+
+
+def _stack_draws(operands: dict, perms: list, noises: list) -> dict:
+    """Add the (R, B, ...) draws of :func:`lane_draws` to a plan; ``perms``
+    / ``noises`` hold one list of B lane tensors (or Nones) a round."""
+    if perms and perms[0][0] is not None:
+        operands["perm"] = torch.stack([torch.stack(r) for r in perms])
+    if noises and noises[0][0] is not None:
+        operands["noise"] = torch.stack([torch.stack(r) for r in noises])
+    return operands
 
 
 def init_lane_state(job: FleetJob, device=None) -> dict:
@@ -238,8 +298,9 @@ def _to_device(operands: dict, device) -> dict:
            "idx": torch.as_tensor(operands["idx"], device=device).long(),
            "ops": ops,
            "attack_id": operands["ops"]["attack_id"].tolist()}
-    if "perm" in operands:
-        out["perm"] = operands["perm"].to(device)
+    for k in ("perm", "noise"):
+        if k in operands:
+            out[k] = operands[k].to(device)
     return out
 
 
@@ -268,6 +329,7 @@ def bucket_key(job: FleetJob, *, chunk: Optional[int] = None) -> tuple:
             c.agg.autogm_lamb, c.agg.autogm_iters,
             c.agg.transport_dtype, c.agg.sketch_dim, c.agg.backend,
             c.track_kappa_hat, c.taps,
+            poison_signature(c.poison), c.guard,
             job.loss_fn, job.optimizer,
             _tree_sig(job.params), _tree_sig(probe), chunk)
 
@@ -386,33 +448,35 @@ class FleetRunner:
     def _plan_bucket(self, bucket: LaneBucket) -> tuple[dict, list]:
         """HOST, once per bucket: every round's per-lane plan stacked into
         (R, B, ...) arrays (in the reference's rng order), plus the
-        bucketing permutations (R, B, m) when the bucket buckets, and the
+        bucketing permutations (R, B, m) and feature noise (R, B, m, L,
+        bs, ...) where the bucket draws them (:func:`lane_draws`), and the
         per-round (attacks, raw etas, cohorts) the histories record."""
         jobs = bucket.jobs
         rngs = [np.random.default_rng(job.seed) for job in jobs]
+        gens = [lane_generator(job) for job in jobs]
         max_rounds = max(job.rounds for job in jobs)
-        per_round, round_meta = [], []
+        per_round, round_meta, perms, noises = [], [], [], []
         for r in range(max_rounds):
             attacks, etas_raw, cohorts, batches = [], [], [], []
             ops: dict = {k: [] for k in _OP_DTYPES}
+            rperm, rnoise = [], []
             for k, job in enumerate(jobs):
                 batch, cohort, lane_ops, (attack, eta, _) = \
                     plan_lane_round(job, r, rngs[k])
+                perm, noise = lane_draws(job.cfg, gens[k], batch)
                 batches.append(batch)
                 attacks.append(attack)
                 etas_raw.append(eta)
                 cohorts.append(cohort)
+                rperm.append(perm)
+                rnoise.append(noise)
                 for f in _OP_DTYPES:
                     ops[f].append(lane_ops[f])
             per_round.append(_pack_round(batches, cohorts, ops))
             round_meta.append((attacks, etas_raw, cohorts))
-        operands = stack_rounds(per_round)
-        if jobs[0].cfg.agg.pre == "bucketing":
-            m = jobs[0].cfg.clients_per_round
-            gens = [torch.Generator().manual_seed(job.seed) for job in jobs]
-            operands["perm"] = torch.stack([
-                torch.stack([torch.randperm(m, generator=g) for g in gens])
-                for _ in range(max_rounds)])
+            perms.append(rperm)
+            noises.append(rnoise)
+        operands = _stack_draws(stack_rounds(per_round), perms, noises)
         return operands, round_meta
 
     def _run_bucket(self, bucket: LaneBucket, *,
@@ -461,7 +525,6 @@ class FleetRunner:
                 payload_fn=lambda end: {
                     "evals": [[(int(r), float(torch.as_tensor(v)))
                                for r, v in lane] for lane in evals]})
-        restored = [len(lane) for lane in evals]
 
         boundaries = cadence_boundaries(
             max_rounds, *(job.eval_every for job in jobs
@@ -502,26 +565,14 @@ class FleetRunner:
         cols = concat_metrics(saved_cols, {
             k: np.concatenate(v, axis=0) for k, v in cols.items()}) \
             if cols else dict(saved_cols)
-        # This run's evals reach the host in one transfer; restored ones
-        # already did.
-        fresh = [v for lane, n in zip(evals, restored) for _, v in lane[n:]]
-        if fresh:
-            it = iter(torch.stack([torch.as_tensor(v) for v in fresh]
-                                  ).cpu().tolist())
-            evals = [lane[:n] + [(r, next(it)) for r, _ in lane[n:]]
-                     for lane, n in zip(evals, restored)]
+        if "quarantined_count" in cols:
+            _quarantine_event("fleet", cols["quarantined_count"], max_rounds)
+        evals = host_evals(evals)
         for r, (attacks, etas_raw, cohorts) in enumerate(round_meta):
             for k, job in enumerate(jobs):
-                if r >= job.rounds:
-                    continue
-                lane_metrics = {"loss": cols["loss"][r][k],
-                                "lr": cols["lr"][r][k],
-                                "direction_norm": cols["direction_norm"][r][k]}
-                if "kappa_hat" in cols:
-                    lane_metrics["kappa_hat"] = cols["kappa_hat"][r][k]
-                hists[k].record(lane_metrics, cohort=cohorts[k],
-                                attack=attacks[k], eta=etas_raw[k],
-                                m_byz=m_byzs[k], f_round=m_byzs[k])
+                if r < job.rounds:
+                    _record_lane_round(hists[k], cols, r, k, attacks[k],
+                                       etas_raw[k], cohorts[k], m_byzs[k])
 
         out = []
         for k, job in enumerate(jobs):
@@ -531,6 +582,274 @@ class FleetRunner:
                                    history=hists[k], evals=evals[k],
                                    best_eval=best))
         return out
+
+
+def _record_lane_round(hist: FedHistory, cols: dict, i: int, k: int,
+                       attack: str, eta: Any, cohort: np.ndarray,
+                       m_byz: int) -> None:
+    """Record lane ``k``'s round from row ``i`` of fetched (R, B) metric
+    columns: the batch runner and the continuous bucket both record
+    through here."""
+    lane_metrics = {name: cols[name][i][k] for name in
+                    ("loss", "lr", "direction_norm", "kappa_hat")
+                    if name in cols}
+    hist.record(lane_metrics, cohort=cohort, attack=attack, eta=eta,
+                m_byz=m_byz, f_round=m_byz)
+
+
+def _quarantine_event(surface: str, counts, rounds: int) -> None:
+    """One ``robustness.quarantine`` event when a lane quarantined a row
+    (the per-round, per-lane counts are metrics)."""
+    total = int(np.asarray(counts).sum())
+    if total:
+        obs_runtime.event("robustness.quarantine", surface=surface,
+                          total=total, rounds=rounds)
+
+
+def host_evals(lanes: list) -> list:
+    """Each lane's eval points with their device values brought to the
+    host as Python floats in ONE transfer (values already on the host
+    pass through)."""
+    fresh = [v for lane in lanes for _, v in lane
+             if isinstance(v, torch.Tensor)]
+    it = iter(torch.stack([v.reshape(()) for v in fresh]).cpu().tolist()
+              if fresh else [])
+    return [[(int(r), next(it) if isinstance(v, torch.Tensor) else float(v))
+             for r, v in lane] for lane in lanes]
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching: a fixed-capacity bucket stepped one segment at a
+# time, with admission / eviction / backfill at segment boundaries.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LaneSlot:
+    """Host record of one OCCUPIED slot of a continuous bucket.
+
+    ``local`` is the lane's own round clock (0 at admission): its plans
+    (schedule, cohorts, eval cadence) run on lane-local rounds, and its
+    numpy ``rng`` and torch ``gen`` (:func:`lane_generator`) are its own
+    streams, so a job admitted mid-run computes what it computes in a
+    fresh bucket.  ``evals`` holds (round, value) with the values left on
+    the device until the lane is finalised or snapshotted."""
+    job: FleetJob
+    token: Any                          # the caller's opaque handle
+    rng: np.random.Generator
+    gen: Optional[torch.Generator] = None
+    local: int = 0
+    hist: FedHistory = dataclasses.field(default_factory=FedHistory)
+    evals: list = dataclasses.field(default_factory=list)
+
+
+class ContinuousBucket:
+    """One shape bucket run as a service: ``capacity`` lane slots stepped
+    one segment at a time, jobs entering and leaving at boundaries.
+
+    The round program is the batch runner's (``build_fleet_scan`` of the
+    same bucket key): occupancy is operand data.  Empty or finished slots
+    take :func:`lane_filler` operands (``active=False`` freezes their
+    state), the identity permutation and zero noise, and consume no
+    generator, so admitting, evicting or backfilling a lane never changes
+    the program or another lane's streams.  Admission writes the lane's
+    state into its slot in place (:func:`repro_torch.fleet.lanes.
+    build_lane_admit`).  Each segment brings its metrics to the host in
+    one transfer; ``last_segment`` is its (lanes, rounds, seconds), the
+    seconds by the host clock around the work that ends in that transfer,
+    as ``FleetRunner.segment_log`` times a segment."""
+
+    def __init__(self, key: tuple, template: FleetJob, capacity: int, *,
+                 chunk: Optional[int], fleet_scan: Callable,
+                 admit_fn: Callable, device=None):
+        if capacity <= 0:
+            raise ValueError(f"capacity must be positive, got {capacity}")
+        self.key = key
+        self.capacity = capacity
+        self.chunk = chunk
+        self.device = resolve_device(device)
+        self._scan = fleet_scan
+        self._admit = admit_fn
+        self._filler = lane_filler(template)
+        self._filler_draws = filler_draws(template.cfg, self._filler[0])
+        filler_state = init_lane_state(template, self.device)
+        self.state = tree_map(lambda x: torch.stack([x] * capacity),
+                              filler_state)
+        self.slots: list = [None] * capacity
+        #: Rounds scanned over every lane generation this bucket hosted.
+        self.rounds_executed = 0
+        self.last_segment: Optional[tuple] = None
+
+    # -- occupancy --------------------------------------------------------
+    @property
+    def occupied(self) -> int:
+        return sum(1 for s in self.slots if s is not None)
+
+    def free_slot(self) -> Optional[int]:
+        for k, s in enumerate(self.slots):
+            if s is None:
+                return k
+        return None
+
+    def slot_of(self, token: Any) -> Optional[int]:
+        for k, s in enumerate(self.slots):
+            if s is not None and s.token is token:
+                return k
+        return None
+
+    # -- admission / eviction ---------------------------------------------
+    def admit(self, job: FleetJob, token: Any = None, *,
+              lane_state: Optional[dict] = None, local: int = 0,
+              rng: Optional[np.random.Generator] = None,
+              gen: Optional[torch.Generator] = None,
+              hist: Optional[FedHistory] = None,
+              evals: Optional[list] = None,
+              slot: Optional[int] = None) -> int:
+        """Occupy a free slot with ``job``, effective at the next segment
+        (call between :meth:`step` calls).  The keywords re-admit a
+        surviving lane from a service snapshot: its state, local clock,
+        numpy rng, torch generator, history and evals."""
+        if slot is not None:
+            if self.slots[slot] is not None:
+                raise RuntimeError(f"slot {slot} is occupied")
+            k = slot
+        else:
+            k = self.free_slot()
+        if k is None:
+            raise RuntimeError("bucket is full")
+        self.state = self._admit(
+            self.state, lane_state if lane_state is not None
+            else init_lane_state(job, self.device), k)
+        self.slots[k] = LaneSlot(
+            job=job, token=token,
+            rng=rng if rng is not None else np.random.default_rng(job.seed),
+            gen=gen if gen is not None else lane_generator(job),
+            local=local, hist=hist if hist is not None else FedHistory(),
+            evals=list(evals) if evals else [])
+        obs_runtime.event("fleet.admit", slot=k, label=job.label,
+                          at=self.rounds_executed)
+        return k
+
+    def cancel(self, k: int) -> FleetResult:
+        """Evict a running lane; returns its PARTIAL result (history and
+        evals up to the last boundary).  The slot is free at once; the
+        lane's stale state stays, frozen by filler operands."""
+        s = self.slots[k]
+        if s is None:
+            raise KeyError(f"slot {k} is empty")
+        s.evals = host_evals([s.evals])[0]
+        return self._finalize(k, s)
+
+    def _finalize(self, k: int, s: LaneSlot) -> FleetResult:
+        """Free slot ``k``; ``s.evals`` must already be on the host."""
+        self.slots[k] = None
+        obs_runtime.event("fleet.evict", slot=k, label=s.job.label,
+                          at=self.rounds_executed, rounds=s.local)
+        best = max((a for _, a in s.evals), default=None)
+        return FleetResult(label=s.job.label, job=s.job,
+                           state=self.lane_state(k), history=s.hist,
+                           evals=list(s.evals), best_eval=best)
+
+    def lane_state(self, k: int) -> dict:
+        """A copy of lane ``k``'s state (a later admission into the slot
+        writes the stacked state in place)."""
+        return tree_map(lambda leaf: leaf[k].clone(), self.state)
+
+    # -- stepping ---------------------------------------------------------
+    def next_seg_len(self, *, hold_for_pending: bool = False) -> int:
+        """Rounds the next segment scans: ``min(max remaining, chunk,
+        every lane's distance to its next eval round)``, which for jobs
+        admitted together is the batch runner's ``split_segments`` cut.
+        ``hold_for_pending`` (a job waits for this bucket) takes ``min
+        remaining`` instead, so a slot frees at the earliest boundary."""
+        remaining = [s.job.rounds - s.local
+                     for s in self.slots if s is not None]
+        if not remaining:
+            return 0
+        length = min(remaining) if hold_for_pending else max(remaining)
+        if self.chunk is not None:
+            length = min(length, self.chunk)
+        for s in self.slots:
+            if (s is not None and s.job.eval_fn is not None
+                    and s.job.eval_every):
+                length = min(length,
+                             s.job.eval_every - s.local % s.job.eval_every)
+        return max(int(length), 1)
+
+    def _plan(self, seg: int) -> tuple[dict, dict]:
+        """HOST: the next ``seg`` rounds of every slot, lane-local."""
+        fill_batch, fill_idx, fill_ops = self._filler
+        fill_perm, fill_noise = self._filler_draws
+        per_round, perms, noises = [], [], []
+        metas: dict = {k: [] for k, s in enumerate(self.slots)
+                       if s is not None}
+        for i in range(seg):
+            batches, cohorts, rperm, rnoise = [], [], [], []
+            ops: dict = {f: [] for f in _OP_DTYPES}
+            for k in range(self.capacity):
+                s = self.slots[k]
+                if s is None or s.local + i >= s.job.rounds:
+                    batch, cohort, lane_ops = fill_batch, fill_idx, fill_ops
+                    perm, noise = fill_perm, fill_noise
+                else:
+                    batch, cohort, lane_ops, meta = plan_lane_round(
+                        s.job, s.local + i, s.rng)
+                    perm, noise = lane_draws(s.job.cfg, s.gen, batch)
+                    metas[k].append((s.local + i,) + meta)
+                batches.append(batch)
+                cohorts.append(cohort)
+                rperm.append(perm)
+                rnoise.append(noise)
+                for f in _OP_DTYPES:
+                    ops[f].append(lane_ops[f])
+            per_round.append(_pack_round(batches, cohorts, ops))
+            perms.append(rperm)
+            noises.append(rnoise)
+        return _stack_draws(stack_rounds(per_round), perms, noises), metas
+
+    def step(self, *, hold_for_pending: bool = False) -> list:
+        """Run ONE segment; returns ``(token, result)`` for every lane that
+        finished at this boundary (their slots are already free)."""
+        lanes = [(k, s) for k, s in enumerate(self.slots) if s is not None]
+        if not lanes:
+            return []
+        seg = self.next_seg_len(hold_for_pending=hold_for_pending)
+        operands, metas = self._plan(seg)
+
+        start = self.rounds_executed
+        t0 = time.perf_counter()
+        with obs_runtime.span("fleet.segment", start=start, end=start + seg,
+                              lanes=len(lanes)):
+            self.state, metrics = self._scan(
+                self.state, _to_device(operands, self.device))
+            # The segment's one transfer (it waits for the device).
+            obs_runtime.inc("fleet.transfers")
+            fetched = {k: v.cpu().numpy() for k, v in metrics.items()}
+        self.last_segment = (len(lanes), seg, time.perf_counter() - t0)
+        self.rounds_executed += seg
+        if "quarantined_count" in fetched:
+            _quarantine_event("fleet.service", fetched["quarantined_count"],
+                              seg)
+
+        done = []
+        for k, s in lanes:
+            for (local_r, attack, eta_raw, cohort) in metas[k]:
+                _record_lane_round(s.hist, fetched, local_r - s.local, k,
+                                   attack, eta_raw, cohort, s.job.m_byz)
+            new_local = min(s.local + seg, s.job.rounds)
+            if (s.job.eval_fn is not None and s.job.eval_every
+                    and new_local != s.local
+                    and new_local % s.job.eval_every == 0):
+                # Left on the device: it reaches the host with the lane.
+                params = tree_map(lambda leaf, kk=k: leaf[kk],
+                                  self.state["params"])
+                s.evals.append((new_local, s.job.eval_fn(params)))
+            s.local = new_local
+            if s.local >= s.job.rounds:
+                done.append((k, s))
+        for (k, s), evals in zip(done, host_evals([s.evals
+                                                    for _, s in done])):
+            s.evals = evals
+        return [(s.token, self._finalize(k, s)) for k, s in done]
 
 
 def run_fleet(jobs: Sequence[Union[FleetJob, ScenarioSpec]], *,

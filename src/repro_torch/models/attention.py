@@ -5,7 +5,7 @@ attention with a causal mask and the kv heads repeated to the q-head
 count.  Biased projections, sliding windows and cross attention arrive
 with the archs that use them.  The reference computes this outside any
 Pallas kernel, so plain torch ops are its port.  Cached decode arrives
-with serving (ROADMAP queue 1, item 12).
+with ``ServeEngine`` (ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 

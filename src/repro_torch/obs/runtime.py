@@ -6,9 +6,12 @@ events** (:func:`event`), **spans** (:func:`span`, wall-clock begin /
 duration) and **counters** (:func:`inc`) into one bounded ring,
 queryable as :func:`history` and :func:`counters`.
 Emission is on the host only; the ring holds the newest ``capacity``
-events.  The kernel dispatch record is re-exported at the bottom, so this
-module is the one place to query.  The reference's exporters (JSONL,
-Chrome trace) wait for a ported caller.
+events.  :func:`now` is the ring's clock and :func:`span_at` records a
+span whose endpoints were taken earlier (the fleet service's submit ->
+done job spans).  The kernel dispatch record is re-exported at the
+bottom, so this module is the one place to query.  The reference's
+exporters (JSONL, Chrome trace) wait for a ported caller (ROADMAP queue
+1, item 10).
 """
 from __future__ import annotations
 
@@ -29,6 +32,12 @@ class Runtime:
 
     def _now(self) -> float:
         return time.perf_counter() - self._epoch
+
+    def now(self) -> float:
+        """Seconds since the registry epoch: the timebase of every event's
+        ``ts``.  Callers keep it to record, later, a span whose endpoints
+        they learn after the fact (:meth:`span_at`)."""
+        return self._now()
 
     def _append(self, ev: dict) -> None:
         self._seq += 1
@@ -55,6 +64,16 @@ class Runtime:
         finally:
             ev["dur"] = self._now() - t0
             self._append(ev)
+
+    def span_at(self, name: str, start: float, end: Optional[float] = None,
+                **args: Any) -> dict:
+        """Record a span with explicit endpoints (values of :meth:`now`);
+        ``end=None`` means now."""
+        t1 = self._now() if end is None else end
+        ev = {"name": name, "kind": "span", "ts": start,
+              "dur": max(t1 - start, 0.0), "args": args}
+        self._append(ev)
+        return ev
 
     def inc(self, name: str, value: float = 1.0) -> float:
         """Bump a monotone counter; returns the new value."""
@@ -103,6 +122,15 @@ def span(name: str, **args: Any):
     return _RUNTIME.span(name, **args)
 
 
+def span_at(name: str, start: float, end: Optional[float] = None,
+            **args: Any) -> dict:
+    return _RUNTIME.span_at(name, start, end, **args)
+
+
+def now() -> float:
+    return _RUNTIME.now()
+
+
 def inc(name: str, value: float = 1.0) -> float:
     return _RUNTIME.inc(name, value)
 
@@ -130,6 +158,7 @@ from repro_torch.kernels.dispatch import (   # noqa: E402  (tail import)
 )
 
 __all__ = [
-    "DEFAULT_CAPACITY", "Runtime", "event", "span", "inc", "history",
-    "counters", "reset", "DispatchRecord", "KernelDecision", "last_dispatch",
+    "DEFAULT_CAPACITY", "Runtime", "event", "span", "span_at", "now", "inc",
+    "history", "counters", "reset", "DispatchRecord", "KernelDecision",
+    "last_dispatch",
 ]

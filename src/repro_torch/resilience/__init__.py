@@ -3,7 +3,8 @@
 Segment-boundary carry snapshots (async, double-buffered, atomic
 manifest), deterministic fault injection, and the restore helpers that
 ``train_loop``, ``fed.run_rounds`` and ``FleetRunner`` share.  The
-continuous fleet service's restore waits for the service's port.
+continuous fleet service snapshots itself through the same store
+(``repro_torch.serving.FleetService.restore``).
 """
 from .experiment import (
     CarryCheckpointer,

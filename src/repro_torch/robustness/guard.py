@@ -48,7 +48,20 @@ class QuarantineConfig:
 def quarantine_stack(tree: PyTree, cfg: QuarantineConfig
                      ) -> tuple[PyTree, dict]:
     """Screen a worker-stacked pytree; returns (screened tree, info) with
-    ``info = {"mask": (n,) float32 (1 = quarantined), "count": int32}``.
+    ``info = {"mask": (n,) float32 (1 = quarantined), "count": int32}``:
+    :func:`quarantine_stack_lanes` on one lane."""
+    leaves = tree_leaves(tree)
+    out, info = quarantine_stack_lanes([leaf[None] for leaf in leaves], cfg)
+    return (tree_unflatten(tree_structure(tree), [o[0] for o in out]),
+            {"mask": info["mask"][0], "count": info["count"][0]})
+
+
+def quarantine_stack_lanes(tree: PyTree, cfg: QuarantineConfig
+                           ) -> tuple[PyTree, dict]:
+    """The guard on a lane axis: leaves (B, n, ...), each lane screened on
+    its own (its median norm, its kept-row median); ``info = {"mask": (B,
+    n) float32, "count": (B,) int32}``.  The fleet runs it on the attacked
+    lane stack, as the reference vmaps the one-stack guard.
 
     The replacement runs on every call and keeps the original rows through
     ``torch.where`` (the reference branches with ``lax.cond``; an
@@ -56,41 +69,43 @@ def quarantine_stack(tree: PyTree, cfg: QuarantineConfig
     clean stack comes back bit for bit).  Its sorts rank NaN last on the
     card too (``sort_nan_last``)."""
     leaves = tree_leaves(tree)
-    n = leaves[0].shape[0]
+    nl, n = leaves[0].shape[:2]
     dev = leaves[0].device
 
-    finite = torch.ones((n,), dtype=torch.bool, device=dev)
-    sq = torch.zeros((n,), dtype=torch.float32, device=dev)
+    finite = torch.ones((nl, n), dtype=torch.bool, device=dev)
+    sq = torch.zeros((nl, n), dtype=torch.float32, device=dev)
     for leaf in leaves:
-        h = leaf.float().reshape(n, -1)
+        h = leaf.float().reshape(nl, n, -1)
         ok = torch.isfinite(h)
-        finite = finite & ok.all(dim=1)
+        finite = finite & ok.all(dim=2)
         # A non-finite row still gets a finite sq, so the median of the
         # finite rows below stays well defined.
-        sq = sq + (torch.where(ok, h, 0.0) ** 2).sum(dim=1)
+        sq = sq + (torch.where(ok, h, 0.0) ** 2).sum(dim=2)
 
     bad = ~finite
     if cfg.norm_factor:
-        srt = sort_nan_last(torch.where(finite, sq, float("inf")), 0)
-        cnt = finite.to(torch.int32).sum()
-        med = srt.index_select(0, torch.clamp_min((cnt - 1) // 2, 0)
-                               .reshape(1).long())[0]
+        srt = sort_nan_last(torch.where(finite, sq, float("inf")), 1)
+        cnt = finite.to(torch.int32).sum(dim=1)
+        med = srt.gather(1, torch.clamp_min((cnt - 1) // 2, 0)
+                         .long()[:, None])
         # med = +inf when no row is finite: the screen is then vacuous.
         bad = bad | (finite & (sq > cfg.norm_factor ** 2 * med))
 
     keep = ~bad
-    kept = keep.to(torch.int32).sum()
-    mid = torch.clamp_min((kept - 1) // 2, 0).reshape(1).long()
+    kept = keep.to(torch.int32).sum(dim=1)
+    mid = torch.clamp_min((kept - 1) // 2, 0).long()
     out = []
     for leaf in leaves:
         x = leaf.float()
-        sel = keep.reshape((-1,) + (1,) * (x.dim() - 1))
+        sel = keep.reshape((nl, n) + (1,) * (x.dim() - 2))
         # Lower median of the kept rows: +inf sentinels push the
         # quarantined rows past the midpoint index.
-        ys = sort_nan_last(torch.where(sel, x, float("inf")), 0)
-        fallback = ys.index_select(0, mid)[0]
+        ys = sort_nan_last(torch.where(sel, x, float("inf")), 1)
+        idx = mid.reshape((nl, 1) + (1,) * (x.dim() - 2)).expand(
+            (nl, 1) + tuple(x.shape[2:]))
+        fallback = ys.gather(1, idx)
         fallback = torch.where(torch.isfinite(fallback), fallback, 0.0)
         out.append(torch.where(sel, x, fallback).to(leaf.dtype))
 
-    info = {"mask": bad.float(), "count": bad.sum(dtype=torch.int32)}
+    info = {"mask": bad.float(), "count": bad.sum(dim=1, dtype=torch.int32)}
     return tree_unflatten(tree_structure(tree), out), info

@@ -23,7 +23,15 @@ where the reference splits a PRNG key, so their trajectories differ; they
 are held here only to identical cohorts and finite metrics (the
 bucketing aggregate itself is held to the reference, with the
 reference's permutation, in tests/test_torch_fleet_aggregation.py).
+
+Poisoned (label flip) and guarded lanes use no randomness: held to the
+reference's lanes within rtol 1e-5.  Feature-poisoned lanes draw their
+noise from the same per-lane generators, so they are held to the port's
+own ``FedServer`` rounds fed the same noise (``noise=``), within rtol
+1e-5.
 """
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -261,13 +269,19 @@ def test_grid_launcher_runs_on_the_cpu(capsys):
 
 
 def test_fleet_refuses_what_it_does_not_run():
+    """Taps alone are refused (item 10); poisoned and guarded registry
+    scenarios materialise as lanes."""
     from repro_torch.fleet import ScenarioSpec, job_from_spec
-    with pytest.raises(NotImplementedError, match="item 10"):
-        job_from_spec(ScenarioSpec("poison_labelflip"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        job_from_spec(ScenarioSpec("faulty_nan_quarantine"))
+    from repro_torch.fleet.lanes import build_lane_round
+    for name in ("poison_labelflip", "poison_feature",
+                 "faulty_nan_quarantine"):
+        assert job_from_spec(ScenarioSpec(name)).cfg is not None
     job = _port_jobs(CELLS[:1])[0]
-    import dataclasses
+    tapped = dataclasses.replace(job.cfg, taps=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        dataclasses.replace(job, cfg=tapped)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        build_lane_round(job.loss_fn, job.optimizer, tapped)
     from repro_torch.fed.schedules import constant_attack
     with pytest.raises(ValueError, match="not lane-dynamic"):
         dataclasses.replace(job, schedule=constant_attack("alie_opt"))
@@ -375,3 +389,117 @@ def test_registry_jobs_plan_like_the_reference_and_run(name):
             np.testing.assert_array_equal(tb[k], jb[k])
     res = TRunner([TSpec_(name, seed=2, rounds=2)], device="cpu").run()[0]
     assert res.history.rounds == 2 and np.all(np.isfinite(res.history.loss))
+
+
+# ---------------------------------------------------------------------------
+# Poisoned and guarded lanes.
+# ---------------------------------------------------------------------------
+
+GUARD_CELLS = [("cwtm", "nnm", a) for a in ("alie", "sf", "none")]
+
+
+def _with(jobs, **cfg_kw):
+    return [dataclasses.replace(j, cfg=dataclasses.replace(j.cfg, **cfg_kw))
+            for j in jobs]
+
+
+def _nan_first(jobs, constant):
+    return [dataclasses.replace(j, schedule=constant("nan")) if i == 0 else j
+            for i, j in enumerate(jobs)]
+
+
+@pytest.mark.parametrize("kind", ["labelflip", "guard"])
+def test_poisoned_and_guarded_lanes_track_reference(kind):
+    """Label-flip poisoning at rate 0.6 and the quarantine guard (lane 0
+    sends NaN rows), 4 rounds, one bucket of three lanes, from the same
+    params and numpy streams: within rtol 1e-5 of the reference's lanes;
+    the guard quarantines lane 0's f rows every round."""
+    from repro.fed import PoisonConfig as JPoison
+    from repro.fed import constant_attack as j_const
+    from repro.robustness import QuarantineConfig as JGuard
+    from repro_torch.fed import PoisonConfig as TPoison
+    from repro_torch.fed import constant_attack as t_const
+    from repro_torch.obs import runtime as obs_runtime
+    from repro_torch.robustness import QuarantineConfig as TGuard
+    jj, tj = _ref_jobs(GUARD_CELLS, steps=4), _port_jobs(GUARD_CELLS, steps=4)
+    if kind == "labelflip":
+        jj = _with(jj, poison=JPoison(kind="labelflip", rate=0.6))
+        tj = _with(tj, poison=TPoison(kind="labelflip", rate=0.6))
+    else:
+        jj = _nan_first(_with(jj, guard=JGuard()), j_const)
+        tj = _nan_first(_with(tj, guard=TGuard()), t_const)
+    jrun = JRunner(jj)
+    jres = jrun.run()
+    obs_runtime.reset()
+    trun = TRunner(tj, device="cpu")
+    tres = trun.run()
+    assert trun.n_buckets == jrun.n_buckets == 1
+    for t, j in zip(tres, jres):
+        for tc, jc in zip(t.history.cohorts, j.history.cohorts):
+            np.testing.assert_array_equal(tc, jc)
+        np.testing.assert_allclose(t.history.loss, j.history.loss, rtol=1e-5)
+        np.testing.assert_allclose(t.history.direction_norm,
+                                   j.history.direction_norm, rtol=1e-5)
+        tp, jp = params_to_numpy(t.state["params"]), \
+            jax.tree_util.tree_map(np.asarray, j.state["params"])
+        for k in jp:
+            np.testing.assert_allclose(tp[k], jp[k], rtol=0,
+                                       atol=1e-5 * np.abs(jp[k]).max())
+    q = obs_runtime.history(name="robustness.quarantine")
+    if kind == "guard":
+        assert [e["args"]["total"] for e in q] == [4 * F]
+        assert q[0]["args"]["surface"] == "fleet"
+    else:
+        assert not q
+
+
+def test_feature_poisoned_lane_equals_fed_server_rounds_fed_its_noise():
+    """A poison_feature lane (NNM + AutoGM, rate 0.5, strength 2) against
+    the port's FedServer round driven with the lane's own plan: the same
+    cohort, batch and feature noise (``noise=``), 3 rounds, within rtol
+    1e-5; the noise comes from the lane's generator in its draw order."""
+    from repro_torch.fed import FedServer
+    from repro_torch.fed.scenarios import get_scenario
+    from repro_torch.fleet import (ScenarioSpec, job_from_spec, lane_draws,
+                                   lane_generator)
+    from repro_torch.optim.schedules import constant
+    job = job_from_spec(ScenarioSpec("poison_feature", seed=3, rounds=3))
+    res = TRunner([job], device="cpu").run()[0]
+    sc = get_scenario("poison_feature")
+    server = FedServer(job.loss_fn, job.optimizer, job.cfg,
+                       constant(sc.server_lr), device="cpu")
+    state = server.init_state(job.params)
+    rng, gen = np.random.default_rng(job.seed), lane_generator(job)
+    losses, norms = [], []
+    for r in range(job.rounds):
+        batch, cohort, _, (attack, eta, _) = t_plan(job, r, rng)
+        perm, noise = lane_draws(job.cfg, gen, batch)
+        assert perm is None and noise.shape == batch["x"].shape
+        state, metrics = server.round_fn(attack, job.m_byz)(
+            state, batch, cohort, 0.0 if eta is None else eta, noise=noise)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["direction_norm"]))
+    np.testing.assert_allclose(res.history.loss, losses, rtol=1e-5)
+    np.testing.assert_allclose(res.history.direction_norm, norms, rtol=1e-5)
+    # The noise entered: a strength-0 run of the same job differs.
+    clean = dataclasses.replace(job, cfg=dataclasses.replace(
+        job.cfg, poison=dataclasses.replace(job.cfg.poison, strength=0.0)))
+    assert TRunner([clean], device="cpu").run()[0].history.loss[1:] \
+        != res.history.loss[1:]
+
+
+def test_service_launcher_runs_on_the_cpu(capsys):
+    from repro_torch.launch import service
+    out = service.main(["--device", "cpu", "--seeds", "1", "--rounds", "2",
+                        "--scenario", "poison_feature", "--scenario",
+                        "faulty_nan_quarantine", "--scenario", "foe_ramp"])
+    assert len(out["results"]) == 3 and out["service"].trace_count == 3
+    assert all(np.all(np.isfinite(r.history.loss))
+               for r in out["results"].values())
+    printed = capsys.readouterr().out
+    assert "submitted 3 jobs" in printed and "poison_feature:s0" in printed
+    drill = service.main(["--device", "cpu", "--seeds", "1", "--rounds", "4",
+                          "--chunk", "2", "--kill-at", "1"])
+    assert len(drill["survivors"]) == 4        # 5 jobs, one cancelled
+    assert drill["snapshots"] and drill["restore_s"] > 0
+    assert "bit-for-bit equal" in capsys.readouterr().out

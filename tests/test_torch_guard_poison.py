@@ -312,3 +312,89 @@ def test_guarded_round_counts_quarantine_and_emits_event():
     assert ev["args"] == {"surface": "fed.scan", "total": 3 * sc.f,
                           "rounds": 3}
     assert np.isfinite(out["history"].loss).all()
+
+
+# ---------------------------------------------------------------------------
+# Lane forms (the fleet's): one value a lane, against the reference's
+# one-lane functions vmapped over the lanes.
+# ---------------------------------------------------------------------------
+
+def _lane_batches(lanes=4, seed=0):
+    parts = [_batch(seed=seed + k) for k in range(lanes)]
+    return {k: np.stack([p[k] for p in parts]) for k in parts[0]}
+
+
+def test_poison_lanes_labelflip_equals_reference_vmapped():
+    from repro_torch.fed import poison_batch_lanes
+    batch = _lane_batches()
+    m_byz = np.array([2, 0, 3, 1], np.int32)
+    rate = np.array([0.6, 1.0, 0.0, 0.3], np.float32)
+    strength = np.ones(4, np.float32)
+    got = poison_batch_lanes({k: torch.as_tensor(v) for k, v in batch.items()},
+                             PoisonConfig(kind="labelflip"),
+                             torch.as_tensor(m_byz), rate=torch.as_tensor(rate),
+                             strength=torch.as_tensor(strength))
+    want = jax.vmap(lambda b, mb, r, s: j_poison(
+        b, JPoison(kind="labelflip"), mb, rate=r, strength=s,
+        key=jax.random.PRNGKey(0)))(
+        {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(m_byz),
+        jnp.asarray(rate), jnp.asarray(strength))
+    np.testing.assert_array_equal(got["y"].numpy(), np.asarray(want["y"]))
+    np.testing.assert_array_equal(got["x"].numpy(), batch["x"])
+    for k in range(4):          # each lane equals the one-lane form
+        one = poison_batch({n: torch.as_tensor(v[k]) for n, v in batch.items()},
+                           PoisonConfig(kind="labelflip"), int(m_byz[k]),
+                           rate=float(rate[k]), strength=1.0)
+        assert torch.equal(one["y"], got["y"][k])
+
+
+def test_poison_lanes_feature_given_reference_noise_equals_reference():
+    from repro_torch.fed import poison_batch_lanes
+    batch = _lane_batches(3)
+    m_byz = np.array([2, 1, 0], np.int32)
+    rate = np.array([0.5, 1.0, 0.7], np.float32)
+    strength = np.array([2.0, 0.7, 1.0], np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(3), 3)
+    noise = np.stack([np.array(jax.random.normal(k, batch["x"].shape[1:],
+                                                 jnp.float32)) for k in keys])
+    got = poison_batch_lanes({k: torch.as_tensor(v) for k, v in batch.items()},
+                             PoisonConfig(kind="feature"),
+                             torch.as_tensor(m_byz), rate=torch.as_tensor(rate),
+                             strength=torch.as_tensor(strength),
+                             noise=torch.as_tensor(noise))
+    want = jax.vmap(lambda b, mb, r, s, k: j_poison(
+        b, JPoison(kind="feature"), mb, rate=r, strength=s, key=k))(
+        {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(m_byz),
+        jnp.asarray(rate), jnp.asarray(strength), keys)
+    _assert_close(got["x"].numpy(), np.asarray(want["x"]))
+    np.testing.assert_array_equal(got["x"][2].numpy(), batch["x"][2])
+    np.testing.assert_array_equal(got["y"].numpy(), batch["y"])
+    with pytest.raises(ValueError, match="noise"):
+        poison_batch_lanes({k: torch.as_tensor(v) for k, v in batch.items()},
+                           PoisonConfig(kind="feature"),
+                           torch.as_tensor(m_byz), rate=torch.as_tensor(rate),
+                           strength=torch.as_tensor(strength))
+
+
+@pytest.mark.parametrize("norm_factor", [10.0, 0.0, 3.0])
+def test_quarantine_lanes_equal_reference_vmapped(norm_factor):
+    from repro_torch.robustness import quarantine_stack_lanes
+    cases = ["nan", "inf", "neginf", "exploded", "mixed", "all", "clean"]
+    trees = [_faulty(c) if c != "clean" else _np_tree(n=8, seed=1)
+             for c in cases]
+    lanes = {k: np.stack([t[k] for t in trees]) for k in trees[0]}
+    out, info = quarantine_stack_lanes(_t(lanes), QuarantineConfig(norm_factor))
+    j_out, j_info = jax.vmap(
+        lambda t: j_quarantine(t, JGuard(norm_factor)))(_j(lanes))
+    np.testing.assert_array_equal(info["mask"].numpy(),
+                                  np.asarray(j_info["mask"]))
+    np.testing.assert_array_equal(info["count"].numpy(),
+                                  np.asarray(j_info["count"]))
+    assert info["count"].dtype == torch.int32
+    for k in lanes:
+        np.testing.assert_array_equal(out[k].numpy(), np.asarray(j_out[k]))
+    for i, tree in enumerate(trees):    # each lane equals the one-stack form
+        one, one_info = quarantine_stack(_t(tree), QuarantineConfig(norm_factor))
+        assert int(one_info["count"]) == int(info["count"][i])
+        for k in tree:
+            assert torch.equal(one[k], out[k][i])

@@ -26,7 +26,8 @@ import repro_torch.robustness.guard
 import repro_torch.checkpoint, repro_torch.checkpoint.npz
 import repro_torch.resilience, repro_torch.resilience.store
 import repro_torch.resilience.experiment, repro_torch.resilience.faults
-from repro_torch.launch import grid, scenarios, train
+import repro_torch.serving, repro_torch.serving.engine
+from repro_torch.launch import grid, scenarios, service, train
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--byz", "1", "--seq", "8", "--batch", "1"])
 assert out["history"]["loss"], out
@@ -39,6 +40,9 @@ assert out["runner"].n_buckets == 7, out
 outs = scenarios.main(["--device", "cpu", "--rounds", "1",
                        "--scenario", "faulty_nan_quarantine"])
 assert outs["faulty_nan_quarantine"]["history"].rounds == 1, outs
+out = service.main(["--device", "cpu", "--seeds", "1", "--rounds", "1",
+                    "--scenario", "poison_labelflip"])
+assert len(out["results"]) == 1, out
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -69,7 +73,9 @@ def test_no_source_file_names_jax_or_repro():
                 "robustness/guard.py", "rounds/engine.py",
                 "launch/scenarios.py", "checkpoint/npz.py",
                 "resilience/store.py", "resilience/experiment.py",
-                "resilience/faults.py", "training/trainer.py"):
+                "resilience/faults.py", "training/trainer.py",
+                "serving/__init__.py", "serving/engine.py",
+                "launch/service.py"):
         assert PKG / mod in files, mod
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
@@ -106,6 +112,12 @@ def test_entry_point_without_cpu_request_raises_without_gpu(monkeypatch):
         run_scenario("iid_baseline", rounds=1)
     with pytest.raises(RuntimeError, match="no GPU"):
         scenarios.main(["--rounds", "1"])
+    from repro_torch.launch import service
+    from repro_torch.serving import FleetService
+    with pytest.raises(RuntimeError, match="no GPU"):
+        FleetService()
+    with pytest.raises(RuntimeError, match="no GPU"):
+        service.main(["--rounds", "1"])
     assert resolve_device("cpu").type == "cpu"
 
 
