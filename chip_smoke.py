@@ -126,11 +126,28 @@ Phases, each fatal on failure:
      cancel, deadlines; every surviving handle bit for bit equal to the
      uninterrupted run, snapshot bytes / seconds and the restore's
      seconds;
- 15. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 15. the rest of the core: (a) ``launch.train`` at full width, n = 8,
+     f = 2: alie_opt with NNM + CWTM (3 steps, 13 K1 + 13 K2 a step, the
+     eta a step, the peak within phase 7's + 4 D fp32) and foe_opt with
+     NNM + GM (2 steps, 13 K1 + 13 K3); step 1's eta search again on the
+     kernel and torch backends (damages within 1e-5 of the largest, the
+     same eta unless a near-tie); one hier + NNM + CWTM alie_opt step at n = 16
+     (13 K6 + 13 K2), its generator then where an alie step leaves it;
+     (b) NNM + CWTM with sketch_dim = 512 (2 steps, K2 once a step, no
+     K1, the record names the sketch), step 1's stack aggregated with its
+     signs on both backends, the sketch fold timed beside K1; (c)
+     FedServer under foe_opt at full width (2 rounds, 13 K1 + 13 K2 a
+     round) and labelskew_alie_partial with alie_opt (20 rounds: scan ==
+     loop bit for bit, torch backend within 1e-4); (d) the breakdown
+     sweep at examples/breakdown_frontier.py's defaults (85 lanes, 20
+     rounds) on both backends: equal frontiers, losses within 1e-4, K3 /
+     K4 / K5 launches asserted, the frontier table printed;
+ 16. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6), the
-     fed phase's launches, phase 13's and 14's launches, the kernels JSON
-     line (K1, K2, K4 and K5 launches include phase 13's; K2-K5 phase
-     14's), the card line, and last the {"ok": true, ...} line.
+     fed phase's launches, phase 13's, 14's and 15's launches, the
+     kernels JSON line (K1, K2, K4 and K5 launches include phase 13's;
+     K2-K5 phase 14's; K1-K6 phase 15's), the card line, and last the
+     {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -809,25 +826,32 @@ def phase_grid(dev, rounds: int) -> dict:
 
 
 def run_train(agg: str, steps: int, capture: bool, n: int = N_MAIN,
-              f: int = F_MAIN):
+              f: int = F_MAIN, attack: str = "alie", extra: tuple = (),
+              allow: tuple = ()):
+    """``launch.train.main`` at full width; fails on a non-finite metric
+    or on any recorded fallback but those named in ``allow`` (the sketch
+    Gram's torch decision, ``"sketch_gram"``)."""
     from repro_torch.kernels import dispatch as kdispatch
     from repro_torch.launch import train
     kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
     out = train.main(["--arch", "smollm-360m", "--full", "--steps", str(steps),
                       "--workers", str(n), "--byz", str(f),
-                      "--attack", "alie", "--agg", agg, "--device", "cuda"],
-                     capture_first_stack=capture)
+                      "--attack", attack, "--agg", agg, "--device", "cuda",
+                      *extra], capture_first_stack=capture)
     counts = kdispatch.launch_counts()
     hist = out["history"]
     for k in ("loss", "kappa_hat", "direction_norm"):
         if not all(math.isfinite(v) for v in hist[k]):
             raise AssertionError(f"{agg}: non-finite {k}: {hist[k]}")
     rec = out["dispatch"]
-    if rec is None or rec.backend != "cuda" or rec.fallbacks:
+    bad = [d for d in kdispatch.fallback_log() if d.primitive not in allow]
+    if rec is None or rec.backend != "cuda" or bad:
         raise AssertionError(f"{agg}: dispatch did not stay on the kernels:\n"
                              f"{rec.describe() if rec else None}")
-    log(f"  {agg}: ms/step {[round(v, 1) for v in hist['ms']]}, launches "
-        f"{counts}, peak {out['peak_bytes'] / 2**30:.2f} GiB")
+    eta = f", eta {hist['eta']}" if hist["eta"] else ""
+    log(f"  {agg} {attack}: ms/step {[round(v, 1) for v in hist['ms']]}{eta}, "
+        f"launches {counts}, peak {out['peak_bytes'] / 2**30:.2f} GiB")
     return out, counts
 
 
@@ -2268,6 +2292,373 @@ def phase_service_drill(dev) -> dict:
     return counts
 
 
+
+#: Phase 15: the optimized attacks (the deployed aggregate and 12
+#: candidates a step or round), the sketch Gram and the breakdown sweep.
+OPT_AGGS = 13
+SKETCH_DIM = 512
+OPT_RTOL = 1e-5                  # the damages, kernel vs torch backend
+K1_DENSE = (3.986, 3.456)        # K1 ms and bound at the dense shape (PERF.md)
+BD_ROUNDS, BD_RTOL = 20, 1e-4    # examples/breakdown_frontier.py's rounds
+
+
+def opt_check(what: str, counts: dict, per_agg: dict, times: int) -> dict:
+    """Exactly ``per_agg`` launches per aggregate, 13 aggregates a step or
+    round, ``times`` steps or rounds; the other kernels none."""
+    want = {k: per_agg.get(k, 0) * OPT_AGGS * times for k in _FED_KERNELS}
+    got = {k: counts[k] for k in _FED_KERNELS}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return got
+
+
+def opt_search_backends(out, spec_kw: dict, attack: str) -> None:
+    """15a: the eta search again on step 1's captured stack, through the
+    kernel backend and the torch backend, in place on that one buffer:
+    each damage within 1e-5 of the largest (the script's fp32 contract,
+    RTOL), and each damage above that within 1e-5 of itself (etas whose
+    aggregate IS the honest mean up to rounding give damages ~1e-14 of the
+    largest, whose relative difference is noise), the same eta unless the top two damages lie within that tolerance (a
+    near-tie, printed)."""
+    import torch
+    from repro_torch.core.attacks import attack_flat_
+    from repro_torch.core.robust import robust_aggregate
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    flat, layout = out["attacked"], out["layout"]
+    segs = [(off, size) for off, size, _ in layout.segments]
+    found = {}
+    for backend in ("cuda", "torch"):
+        spec = AggregatorSpec(f=F_MAIN, backend=backend, **spec_kw)
+        internals = {}
+        t0 = time.perf_counter()
+        attack_flat_(attack, flat, F_MAIN, segments=segs, internals=internals,
+                     agg_closure=lambda fl: robust_aggregate(
+                         kdispatch.stack_views(fl, layout), spec))
+        torch.cuda.synchronize()
+        found[backend] = (float(internals["eta"]),
+                          internals["damages"].double().cpu().tolist(),
+                          time.perf_counter() - t0)
+    (ek, dk, sk), (et, dt, st) = found["cuda"], found["torch"]
+    same_step = dk == out["damages"].double().cpu().tolist()
+    scale = max(abs(v) for v in dt)
+    worst = max(abs(a - b) for a, b in zip(dk, dt)) / scale
+    rel = max(abs(a - b) / abs(b) for a, b in zip(dk, dt)
+              if abs(b) > OPT_RTOL * scale)
+    top = sorted(dt, reverse=True)[:2]
+    tie = top[0] - top[1] <= OPT_RTOL * abs(top[0])
+    log(f"  {attack} search on step 1's stack: kernel eta {ek:g} ({sk:.2f} s, "
+        f"damages bitwise step 1's: {same_step}), torch eta {et:g} "
+        f"({st:.2f} s); damages max diff {worst:.3e} of the largest (tol "
+        f"{OPT_RTOL:g}), max rel diff {rel:.3e} over those above the tol"
+        f"{'; NEAR-TIE of the top two' if tie else ''}")
+    log(f"    damages (kernel): {[f'{v:.6e}' for v in dk]}")
+    if worst > OPT_RTOL or rel > OPT_RTOL or (ek != et and not tie):
+        raise AssertionError(f"{attack}: backends disagree: eta {ek} vs {et}, "
+                             f"damages {worst} of the largest, rel {rel}")
+
+
+def phase_opt_trainer(dev, peak7: int) -> dict:
+    """15a: alie_opt NNM + CWTM (3 steps) and foe_opt NNM + GM (2 steps)
+    through launch.train at full width; the hierarchical alie_opt step."""
+    import torch
+    total = {}
+    out, counts = run_train("nnm+cwtm", 3, capture=True, attack="alie_opt")
+    add_counts(total, opt_check("nnm+cwtm alie_opt", counts,
+                                {"gram": 1, "mixtrim": 1}, 3))
+    extra = out["peak_bytes"] - peak7
+    log(f"  peak {out['peak_bytes'] / 2**30:.2f} GiB against phase 7's "
+        f"{peak7 / 2**30:.2f} GiB: {extra / 2**30:+.2f} GiB (limit +"
+        f"{16 * D_MAIN / 2**30:.2f})")
+    if extra > 16 * D_MAIN:
+        raise AssertionError("alie_opt: the search held a second stack")
+    del out["state"]
+    torch.cuda.empty_cache()
+    opt_search_backends(out, dict(rule="cwtm", pre="nnm"), "alie_opt")
+    del out
+    torch.cuda.empty_cache()
+    out, counts = run_train("nnm+gm", 2, capture=False, attack="foe_opt")
+    add_counts(total, opt_check("nnm+gm foe_opt", counts,
+                                {"gram": 1, "combine": 1}, 2))
+    del out
+    torch.cuda.empty_cache()
+    add_counts(total, phase_opt_hier(dev))
+    return total
+
+
+def phase_opt_hier(dev) -> dict:
+    """15a: one hier + NNM + CWTM step under alie_opt (n = 16, f = 3, 8
+    buckets of 2): 13 K6 + 13 K2; its generator then stands where an
+    alie step leaves it (one permutation draw for all 13 aggregates)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.training import (ByzantineConfig, TrainerConfig,
+                                      build_train_step, init_state)
+    from repro_torch.training.trainer import to_device
+    model = build_model(get_config("smollm-360m"))
+    params = model.init(0, dev)
+    batch = to_device(next(lm_batches(N_HIER)), dev)
+    gens, got = {}, None
+    for attack in ("alie_opt", "alie"):
+        cfg = TrainerConfig(agg=AggregatorSpec(f=F_HIER, hier=True, pre="nnm",
+                                               rule="cwtm"),
+                            byz=ByzantineConfig(f=F_HIER, attack=attack))
+        step = build_train_step(model.loss, sgd(clip=2.0), cfg,
+                                cosine(0.05, 1, warmup=0))
+        state = init_state(params, sgd(clip=2.0), N_HIER, cfg)
+        gens[attack] = torch.Generator().manual_seed(0)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        internals = {}
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, internals, generator=gens[attack])
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = kdispatch.launch_counts()
+        no_fallback(f"hier {attack}")
+        if not all(math.isfinite(float(metrics[k]))
+                   for k in ("loss", "kappa_hat", "direction_norm")):
+            raise AssertionError(f"hier {attack}: non-finite metrics")
+        eta = f", eta {float(internals['eta']):g}" if "eta" in internals else ""
+        log(f"  hier+nnm+cwtm {attack}, n={N_HIER} f={F_HIER}: {ms:.1f} ms"
+            f"{eta}, launches {counts}, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        if attack == "alie_opt":
+            got = opt_check("hier+nnm+cwtm alie_opt", counts,
+                            {"bucketgram": 1, "mixtrim": 1}, 1)
+        del state, internals, metrics
+        torch.cuda.empty_cache()
+    if not torch.equal(gens["alie_opt"].get_state(), gens["alie"].get_state()):
+        raise AssertionError("hier alie_opt drew its permutation more than once")
+    log("  the generator after the alie_opt step equals its state after an "
+        "alie step: one permutation draw a step")
+    del params, batch
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_sketch(dev, rate: float) -> dict:
+    """15b: NNM + CWTM with sketch_dim = 512 through launch.train, 2 steps
+    (K2 once a step, no K1; the record names the sketch); step 1's stack
+    aggregated with its signs on both backends; the sketch fold timed
+    beside K1 on that stack."""
+    import torch
+    from repro_torch.core.robust import robust_aggregate
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.kernels import gram
+    from repro_torch.tree import tree_leaves
+    out, counts = run_train("nnm+cwtm", 2, capture=True,
+                            extra=("--sketch-dim", str(SKETCH_DIM)),
+                            allow=("sketch_gram",))
+    want = dict.fromkeys(_FED_KERNELS, 0)
+    want["mixtrim"] = 2
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"sketch: launches {counts}, expected {want}")
+    prims = [d.primitive for d in out["dispatch"].decisions]
+    if "sketch_gram" not in prims or "gram" in prims:
+        raise AssertionError(f"sketch: the record does not name the sketch: "
+                             f"{prims}")
+    log(out["dispatch"].describe())
+    del out["state"]
+    torch.cuda.empty_cache()
+    flat, layout, signs = out["attacked"], out["layout"], out["signs"]
+    stack = kdispatch.stack_views(flat, layout)
+    got, want = (robust_aggregate(stack, AggregatorSpec(
+        rule="cwtm", f=F_MAIN, pre="nnm", sketch_dim=SKETCH_DIM, backend=b),
+        signs=signs) for b in ("cuda", "torch"))
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        err, tol = max_err(a.reshape(-1), b.reshape(-1))
+        if err > tol:
+            raise AssertionError(f"sketch: backends disagree: {err} > {tol}")
+        worst = max(worst, err)
+    log(f"  sketch robust_aggregate cuda vs torch on step 1's stack, same "
+        f"signs: max_abs_err={worst:.3e} (tol {RTOL} x max|leaf|) OK")
+    del got, want
+    torch.cuda.empty_cache()
+    n, d = flat.shape
+    segs = [(off, size) for off, size, _ in layout.segments]
+    fold_ms = time_ms(lambda: kdispatch.dispatch_sketch_gram(
+        flat, segs, SKETCH_DIM, signs, backend="cuda"))
+    k1_ms = time_ms(lambda: gram(flat))
+    fbnd = bound(4.0 * n * d + 4 * n * SKETCH_DIM + 4 * n * n,
+                 2.0 * n * d + 2 * n * n * SKETCH_DIM, rate)
+    kbnd = bound(4.0 * n * d + 4 * n * n, n * (n + 1) * d, rate)
+    log(f"  sketch fold + Gram (n={n}, D={d}, {len(segs)} segments, "
+        f"s={SKETCH_DIM}): {fold_ms:.3f} ms, bound {fbnd[0]:.3f} ms "
+        f"({fbnd[1]}); K1 on the same stack {k1_ms:.3f} ms, bound "
+        f"{kbnd[0]:.3f} ms (PERF.md's kernel table: {K1_DENSE[0]} / "
+        f"{K1_DENSE[1]})")
+    del out, flat, stack
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in _FED_KERNELS}
+
+
+def phase_opt_fed(dev) -> dict:
+    """15c: full-width FedServer under foe_opt (cohorts of 6 of 8, f = 2,
+    NNM + CWTM, 2 rounds: 13 K1 + 13 K2 a round); then
+    labelskew_alie_partial with its attack made alie_opt, 20 rounds: the
+    scan engine equals the loop engine bit for bit, the torch backend
+    within 1e-4 per round's loss."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.fed import (ClientConfig, FedConfig, FedServer,
+                                 constant_attack, get_scenario, run_rounds,
+                                 run_scenario)
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import constant
+    from repro_torch.rounds import RoundOptions
+    total = {}
+    model = build_model(get_config("smollm-360m"))
+    params = model.init(0, dev)
+    cfg = FedConfig(n_clients=FED_CLIENTS, clients_per_round=FED_COHORT,
+                    f=FED_F, agg=AggregatorSpec(rule="cwtm", f=FED_F, pre="nnm"),
+                    client=ClientConfig(local_steps=0, algorithm="dshb",
+                                        beta=0.9))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    server = FedServer(model.loss, sgd(clip=2.0), cfg, constant(0.05),
+                       device=dev)
+    state = server.init_state(params)
+    state, hist = run_rounds(server, state, fed_lm_batch_fn(FED_CLIENTS),
+                             FED_FULL_ROUNDS,
+                             schedule=constant_attack("foe_opt"), seed=0,
+                             chunk=1)
+    add_counts(total, opt_check("fed full width foe_opt",
+                                kdispatch.launch_counts(),
+                                {"gram": 1, "mixtrim": 1}, FED_FULL_ROUNDS))
+    no_fallback("fed full width foe_opt")
+    for k in ("loss", "kappa_hat", "direction_norm"):
+        if not all(math.isfinite(v) for v in getattr(hist, k)):
+            raise AssertionError(f"fed foe_opt: non-finite {k}")
+    log(f"  FedServer foe_opt, smollm-360m, cohorts of {FED_COHORT}: ms/round "
+        f"{[round(v, 1) for v in seg_ms(server.last_scan_report)]}, loss "
+        f"{[round(v, 4) for v in hist.loss]}, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del state, params, server
+    torch.cuda.empty_cache()
+
+    sc = dataclasses.replace(get_scenario("labelskew_alie_partial"),
+                             attack=constant_attack("alie_opt"))
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    scan = run_scenario(sc, rounds=FED_ROUNDS, seed=0, device=dev,
+                        options=RoundOptions(chunk=FED_CHUNK))
+    per = fed_expected(sc.rule, sc.pre)
+    add_counts(total, opt_check("labelskew alie_opt scan",
+                                kdispatch.launch_counts(),
+                                {k: v for k, v in per.items() if v},
+                                FED_ROUNDS))
+    no_fallback("labelskew alie_opt")
+    loop = run_scenario(sc, rounds=FED_ROUNDS, seed=0, device=dev,
+                        options=RoundOptions(engine="loop"))
+    same_fed_history("alie_opt scan vs loop", scan["history"], loop["history"])
+    same_tree("alie_opt scan vs loop state", scan["state"], loop["state"])
+    before = kdispatch.launch_counts()
+    plain = run_scenario(sc, rounds=FED_ROUNDS, seed=0, device=dev,
+                         options=RoundOptions(chunk=FED_CHUNK,
+                                              backend="torch"))
+    if kdispatch.launch_counts() != before:
+        raise AssertionError("the torch backend launched a kernel")
+    base, other = scan["history"].loss, plain["history"].loss
+    worst = max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(other, base))
+    if len(other) != FED_ROUNDS or worst > BD_RTOL:
+        raise AssertionError(f"alie_opt torch backend: loss rel {worst}")
+    ms = seg_ms(scan["server"].last_scan_report)
+    log(f"  labelskew_alie_partial with alie_opt, {FED_ROUNDS} rounds: acc "
+        f"{scan['accuracy']:.4f}, ms/round per segment "
+        f"{[round(v, 3) for v in ms]}; scan == loop bit for bit; torch "
+        f"backend per-round loss max rel diff {worst:.3e} (tol {BD_RTOL:g})")
+    return total
+
+
+def phase_breakdown(dev) -> dict:
+    """15d: examples/breakdown_frontier.py's sweep (n = 10, 20 rounds, 5
+    rules x 4 attacks x f = 1-4 + clean lanes: 85 lanes) on the kernel and
+    the torch backends: equal frontiers, window losses within 1e-4
+    (a collapse flag may differ only within that of its threshold)."""
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.robustness import (DEFAULT_ATTACKS, DEFAULT_RULES,
+                                        frontier_table, run_breakdown)
+    from repro_torch.rounds import RoundOptions
+    reps = {}
+    for backend in ("cuda", "torch"):
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        t0 = time.perf_counter()
+        rep = run_breakdown(rounds=BD_ROUNDS, device=dev,
+                            options=RoundOptions(backend=backend))
+        secs = time.perf_counter() - t0
+        counts = kdispatch.launch_counts()
+        reps[backend] = rep
+        no_fallback(f"breakdown {backend}", autogm=True)
+        lanes = len(DEFAULT_RULES) * (1 + len(DEFAULT_ATTACKS) * len(rep["fs"]))
+        log(f"  breakdown on the {backend} backend: {lanes} lanes, "
+            f"{rep['n_buckets']} buckets, {rep['trace_count']} round programs, "
+            f"{secs:.2f} s; K3 {counts['combine']}, K4 {counts['mixtrim_dyn']}, "
+            f"K5 {counts['gram_batched']} launches")
+        if backend == "cuda":
+            gram_rows = [r for r, _ in DEFAULT_RULES if r != "cwtm"]
+            per_rule = 1 + len(DEFAULT_ATTACKS) * len(rep["fs"])
+            want = dict.fromkeys(_FED_KERNELS, 0)
+            want.update(gram_batched=rep["n_buckets"] * BD_ROUNDS,
+                        mixtrim_dyn=2 * BD_ROUNDS,
+                        combine=len(gram_rows) * per_rule * BD_ROUNDS)
+            got = {k: counts[k] for k in _FED_KERNELS}
+            if lanes != 85 or rep["n_buckets"] != 10 or got != want:
+                raise AssertionError(f"breakdown: {lanes} lanes, "
+                                     f"{rep['n_buckets']} buckets, launches "
+                                     f"{got}, expected {want}")
+            kernel_counts = got
+        elif any(counts.values()):
+            raise AssertionError(f"breakdown torch backend launched {counts}")
+    k, t = reps["cuda"], reps["torch"]
+    worst, flips = 0.0, []
+    for key, cell in t["cells"].items():
+        threshold = t["collapse_factor"] * t["baseline_loss"][key.split("|")[0]]
+        for f, loss in cell["losses"].items():
+            mine = k["cells"][key]["losses"][f]
+            if math.isfinite(loss) or math.isfinite(mine):
+                rel = abs(mine - loss) / max(abs(loss), 1e-30)
+                worst = max(worst, rel)
+                if rel > BD_RTOL:
+                    raise AssertionError(f"breakdown {key} f={f}: {mine} vs {loss}")
+            if k["cells"][key]["collapsed"][f] != cell["collapsed"][f]:
+                near = abs(loss - threshold) <= BD_RTOL * abs(threshold)
+                flips.append((key, f, near))
+                if not near:
+                    raise AssertionError(f"breakdown {key} f={f}: collapse "
+                                         "flags differ away from the threshold")
+        if k["frontier"][key] != t["frontier"][key] and not any(
+                near for kk, _, near in flips if kk == key):
+            raise AssertionError(f"breakdown {key}: frontier "
+                                 f"{k['frontier'][key]} vs {t['frontier'][key]}")
+    log(f"  kernel vs torch backend: window losses max rel diff {worst:.3e} "
+        f"(tol {BD_RTOL:g}); collapse flags that differ (near the threshold): "
+        f"{flips or 'none'}; frontiers equal: {k['frontier'] == t['frontier']}")
+    for line in frontier_table(k).splitlines():
+        log("    " + line)
+    held = {key: (k["frontier"][key], k["predicted"][key.split("|")[0]])
+            for key in k["frontier"] if key.startswith("nnm-")}
+    log(f"  NNM rows at the theory frontier (the paper's claim, measured): "
+        f"{sum(e == p for e, p in held.values())} of {len(held)} cells")
+    return kernel_counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2323,6 +2714,7 @@ def main() -> int:
     out, counts_main = run_train("nnm+cwtm", 3, capture=True)
     if counts_main["gram"] != 3 or counts_main["mixtrim"] != 3:
         raise AssertionError(f"expected 3 K1 and 3 K2 launches: {counts_main}")
+    peak7 = out["peak_bytes"]
     log(out["dispatch"].describe())
     del out["state"]
     torch.cuda.empty_cache()
@@ -2397,7 +2789,20 @@ def main() -> int:
     add_counts(counts_service, phase_service_drill(dev))
     log(json.dumps({"service_launches": counts_service}))
 
-    log("== 15. summary")
+    t15 = time.perf_counter()
+    log("== 15. the optimized attacks, the sketch Gram, the breakdown sweep")
+    log("-- 15a. alie_opt / foe_opt on the main path, full-width smollm-360m")
+    counts_opt = phase_opt_trainer(dev, peak7)
+    log(f"-- 15b. the sketch Gram (sketch_dim = {SKETCH_DIM}) on the main path")
+    add_counts(counts_opt, phase_sketch(dev, rate))
+    log("-- 15c. the fed server under foe_opt / alie_opt")
+    add_counts(counts_opt, phase_opt_fed(dev))
+    log("-- 15d. the breakdown-frontier sweep, kernel and torch backends")
+    add_counts(counts_opt, phase_breakdown(dev))
+    log(json.dumps({"opt_sketch_breakdown_launches": counts_opt}))
+    log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
+
+    log("== 16. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -2410,17 +2815,19 @@ def main() -> int:
     meta = {
         "gram": ("src/repro_torch/kernels/csrc/gram.cu",
                  "src/repro/kernels/gram/kernel.py:50",
-                 counts_main["gram"] + counts_resume["gram"]),
+                 counts_main["gram"] + counts_resume["gram"]
+                 + counts_opt["gram"]),
         "gram_tiled": ("src/repro_torch/kernels/csrc/gram.cu",
                        "src/repro/kernels/gram/kernel.py:50",
                        hier["launches"]["gram_tiled"]),
         "mixtrim": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cuh",
                     "src/repro/kernels/mixtrim/kernel.py:177",
                     counts_main["mixtrim"] + counts_resume["mixtrim"]
-                    + counts_service["mixtrim"]),
+                    + counts_service["mixtrim"] + counts_opt["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",
                     "src/repro/kernels/combine/kernel.py:34",
-                    counts_gm["combine"] + counts_service["combine"]),
+                    counts_gm["combine"] + counts_service["combine"]
+                    + counts_opt["combine"]),
         "mixtrim_select": ("src/repro_torch/kernels/csrc/mixtrim_select.cu",
                            "src/repro/kernels/mixtrim/kernel.py:177",
                            hier["launches"]["mixtrim_select"]),
@@ -2431,15 +2838,17 @@ def main() -> int:
                         "src/repro/kernels/mixtrim/kernel.py:213",
                         counts_grid["mixtrim_dyn"]
                         + counts_resume["mixtrim_dyn"]
-                        + counts_service["mixtrim_dyn"]),
+                        + counts_service["mixtrim_dyn"]
+                        + counts_opt["mixtrim_dyn"]),
         "gram_batched": ("src/repro_torch/kernels/csrc/gram_batched.cu",
                          "src/repro/kernels/gram/kernel.py:73",
                          counts_grid["gram_batched"]
                          + counts_resume["gram_batched"]
-                         + counts_service["gram_batched"]),
+                         + counts_service["gram_batched"]
+                         + counts_opt["gram_batched"]),
         "bucketgram": ("src/repro_torch/kernels/csrc/bucketgram.cu",
                        "src/repro/kernels/bucketgram/kernel.py:75",
-                       counts_hier["bucketgram"]),
+                       counts_hier["bucketgram"] + counts_opt["bucketgram"]),
         "bucketmeans": ("src/repro_torch/kernels/csrc/bucketgram.cu",
                         "src/repro/kernels/bucketgram/kernel.py:75",
                         counts_hmean["bucketmeans"]),

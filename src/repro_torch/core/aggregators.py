@@ -7,6 +7,8 @@ leaf-streamed sorts.  Internal arithmetic is fp32.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import gram as gramlib
@@ -108,16 +110,25 @@ def get_rule(name: str):
         raise ValueError(f"unknown rule {name!r}; known: {sorted(RULES)}")
 
 
-def aggregate(x: Tensor, spec: AggregatorSpec) -> Tensor:
+def aggregate(x: Tensor, spec: AggregatorSpec, *,
+              generator: Optional[torch.Generator] = None,
+              perm: Optional[Tensor] = None) -> Tensor:
     """Full pipeline on a dense (n, d) stack: pre-aggregation + rule.
-    Bucketing (the randomized pre-aggregation) is not ported yet."""
+    ``generator`` / ``perm`` (the reference's ``key``) give the bucket
+    permutation of ``pre="bucketing"``, the paper's randomized baseline."""
+    from repro_torch.core.bucketing import bucketing as _bucketing
     from repro_torch.core.nnm import nnm as _nnm
 
     f = spec.f
     if spec.pre == "nnm":
         x = _nnm(x, f)
+    elif spec.pre == "bucketing":
+        if generator is None and perm is None:
+            raise ValueError("bucketing requires a torch.Generator or a perm")
+        x, f = _bucketing(x, f, generator=generator, perm=perm,
+                          bucket_size=spec.bucket_size)
     elif spec.pre not in (None, "none"):
-        raise ValueError(f"pre-aggregation {spec.pre!r} is not ported")
+        raise ValueError(f"unknown pre-aggregation {spec.pre!r}")
     rule = spec.rule
     if rule == "gm":
         return geometric_median(x, f, iters=spec.gm_iters, eps=spec.gm_eps)

@@ -43,9 +43,21 @@ lane in one launch, and the gram rules apply K3 and cwmed K2 once per lane
 (the reference has no batched combine or static mixtrim kernel).  On
 "torch" the leaf-streamed math runs with the lane axis batched.
 
-Not ported yet, and rejected with an error naming the ROADMAP item:
-``sketch_dim``, the reference's multi-device backends and hierarchical
-fleet lanes (``hier`` on the dynamic path).
+Sketch Gram (``AggregatorSpec.sketch_dim``): the Gram is taken of a
+signed (n, sketch_dim) sketch of the stack (:func:`tree_sketch_gram`;
+one ±1 sign per ``sketch_dim``-column chunk of each leaf, drawn per leaf
+in leaf order, the reference's ``fold_in(key, i)``); the rule's
+coefficients come from it (Krum, Multi-Krum, GM, AutoGM, MDA and NNM's
+neighbours), and they are applied to the exact stack.  The sketch runs
+only when randomness is given: a ``generator`` (drawn after the bucket
+permutation) or explicit ``signs``; with neither the exact Gram is taken,
+as the reference does with ``key=None``.  On "cuda" it replaces K1.
+:func:`draw_randomness` draws once what an aggregate would draw, so
+that several aggregates (the ``_opt`` eta searches) share one draw.
+
+Not ported yet, and rejected with an error naming the ROADMAP item: the
+reference's multi-device backends and hierarchical fleet lanes
+(``hier`` on the dynamic path).
 """
 from __future__ import annotations
 
@@ -77,6 +89,98 @@ def tree_gram(tree: PyTree) -> Tensor:
     for leaf in leaves:
         g = g + gram_ref(leaf.reshape(n, -1))
     return g
+
+
+def leaf_widths(tree: PyTree) -> list:
+    """Per-leaf flat width of a worker-stacked pytree (leaves (n, ...))."""
+    return [leaf[0].numel() for leaf in tree_leaves(tree)]
+
+
+def draw_signs(widths, sketch_dim: int, generator: torch.Generator,
+               device=None) -> list:
+    """The sketch's signs: for each leaf of flat width d, in leaf order,
+    ceil(d / sketch_dim) fp32 ±1 values drawn from ``generator`` (the
+    reference draws ``rademacher(fold_in(key, i), ...)`` for leaf i)."""
+    out = []
+    for d in widths:
+        bits = torch.randint(0, 2, (-(-int(d) // sketch_dim),),
+                             generator=generator, device=generator.device)
+        out.append((bits.float() * 2.0 - 1.0).to(device))
+    return out
+
+
+def tree_sketch_gram(tree: PyTree, sketch_dim: int, signs: list) -> Tensor:
+    """(n, n) fp32 Gram of the signed sketch of a worker-stacked pytree:
+    each leaf's rows, cut into ``sketch_dim``-column chunks (the last one
+    zero-padded) and summed with the leaf's per-chunk ``signs``, added up
+    over the leaves into one (n, sketch_dim) sketch.  Distance ranks are
+    preserved with high probability; coefficients still apply to the
+    exact stack.  Leaves (B, n, ...) with (B, C_i) signs give (B, n, n)
+    (see :func:`tree_sketch_gram_lanes`)."""
+    return tree_sketch_gram_lanes(tree_map(lambda leaf: leaf[None], tree),
+                                  sketch_dim,
+                                  [torch.as_tensor(sg)[None] for sg in signs])[0]
+
+
+def tree_sketch_gram_lanes(tree: PyTree, sketch_dim: int, signs: list
+                           ) -> Tensor:
+    """:func:`tree_sketch_gram` per lane: leaves (B, n, ...), signs one
+    (B, C_i) tensor per leaf; returns (B, n, n).  Each leaf is padded to
+    whole chunks and contracted with its signs, as the reference does;
+    the kernel backend's ``kdispatch.sketch_fold`` folds the flat stack
+    without the padded copy and is held against this form."""
+    leaves = tree_leaves(tree)
+    b, n = leaves[0].shape[:2]
+    sk = torch.zeros((b, n, sketch_dim), dtype=torch.float32,
+                     device=leaves[0].device)
+    for leaf, sg in zip(leaves, signs):
+        x = leaf.reshape(b, n, -1)
+        x = torch.nn.functional.pad(x, (0, (-x.shape[2]) % sketch_dim))
+        sg = torch.as_tensor(sg).to(device=x.device, dtype=torch.float32)
+        sk = sk + torch.einsum("bncs,bc->bns",
+                               x.reshape(b, n, -1, sketch_dim).float(),
+                               sg.reshape(b, -1))
+    return sk @ sk.mT
+
+
+def _sketch_signs(tree: PyTree, spec: AggregatorSpec,
+                  generator: Optional[torch.Generator],
+                  signs: Optional[list]) -> Optional[list]:
+    """The sketch's per-leaf signs: ``signs`` as given, else drawn from
+    ``generator``; None (the exact Gram) without ``sketch_dim`` or
+    randomness."""
+    if not spec.sketch_dim:
+        return None
+    dev = tree_leaves(tree)[0].device
+    if signs is not None:
+        return [torch.as_tensor(sg).to(device=dev, dtype=torch.float32)
+                for sg in signs]
+    if generator is None:
+        return None
+    return draw_signs(leaf_widths(tree), spec.sketch_dim, generator, dev)
+
+
+def draw_randomness(tree: PyTree, spec: AggregatorSpec, *,
+                    generator: Optional[torch.Generator] = None,
+                    perm: Optional[Tensor] = None,
+                    signs: Optional[list] = None
+                    ) -> tuple[Optional[Tensor], Optional[list]]:
+    """(perm, signs): the randomness of one aggregate of ``tree`` under
+    ``spec``, in its draw order from ``generator``: the bucket permutation
+    (``pre="bucketing"``, or ``hier`` with buckets of more than one), then
+    the sketch's signs (``sketch_dim``); given values pass through.
+    :func:`robust_aggregate` draws through here, so a caller that runs
+    several aggregates on one draw (the ``_opt`` eta searches) calls it
+    once and passes ``perm=`` / ``signs=``: ``generator`` then ends where
+    one aggregate leaves it."""
+    leaf = tree_leaves(tree)[0]
+    n = leaf.shape[0]
+    if perm is None and generator is not None and (
+            spec.pre == "bucketing"
+            or (spec.hier and bucketlib.clamp_bucket_size(
+                n, spec.bucket_size, spec.f) > 1)):
+        perm = bucketlib.draw_perm(n, generator=generator, device=leaf.device)
+    return perm, _sketch_signs(tree, spec, generator, signs)
 
 
 def tree_combine(tree: PyTree, coeff: Tensor) -> PyTree:
@@ -158,11 +262,9 @@ def _tree_bucket(tree: PyTree, f: int, perm: Tensor,
     return kdispatch.stack_views(flat, dataclasses.replace(layout, n=nb)), f_adj
 
 
-def _stack_perm(tree: PyTree, generator: Optional[torch.Generator],
-                perm: Optional[Tensor]) -> Tensor:
+def _stack_perm(tree: PyTree, perm: Tensor) -> Tensor:
     leaf = tree_leaves(tree)[0]
-    return bucketlib.draw_perm(leaf.shape[0], generator=generator, perm=perm,
-                               device=leaf.device)
+    return bucketlib.draw_perm(leaf.shape[0], perm=perm, device=leaf.device)
 
 
 def _validate_hier(spec: AggregatorSpec) -> None:
@@ -180,10 +282,6 @@ def _validate_hier(spec: AggregatorSpec) -> None:
 def _validate(spec: AggregatorSpec) -> None:
     if spec.hier:
         _validate_hier(spec)
-    if spec.sketch_dim:
-        raise NotImplementedError(
-            "sketch_dim (the sketch gram) is not ported yet "
-            "(ROADMAP queue 1, item 3)")
     if spec.pre not in (None, "none", "nnm", "bucketing"):
         raise ValueError(f"unknown pre-aggregation {spec.pre!r}")
     if spec.transport_dtype not in (None, "bf16"):
@@ -199,24 +297,21 @@ _HIER_S1_NOTE = "s=1: singleton buckets, identity reduction (skipped)"
 
 
 def _hier_reduce_flat(flat: Tensor, spec: AggregatorSpec, f: int, *,
-                      generator: Optional[torch.Generator],
                       perm: Optional[Tensor], backend: str
                       ) -> tuple[Tensor, int, Optional[Tensor]]:
     """The hierarchical pre-reduction on the flattened (n, D) stack.
 
     Returns (reduced stack (ceil(n/s), D), adjusted f, reduced fp32 Gram
-    or None).  s = 1 short-circuits to the identity without drawing a
-    permutation, which keeps hier(s=1) bitwise the dense pipeline."""
+    or None).  s = 1 short-circuits to the identity (no permutation is
+    drawn for it), which keeps hier(s=1) bitwise the dense pipeline."""
     n = flat.shape[0]
-    _need_perm_source(generator, perm, "hierarchical aggregation")
     s = bucketlib.clamp_bucket_size(n, spec.bucket_size, f)
     if s == 1:
         kdispatch.record_decision("bucketgram", backend, "skipped",
                                   _HIER_S1_NOTE)
         return flat, f, None
     nb = bucketlib.num_buckets(n, s)
-    assign = bucketlib.bucket_assignment(n, s, generator=generator, perm=perm,
-                                         device=flat.device)
+    assign = bucketlib.bucket_assignment(n, s, perm=perm, device=flat.device)
     need_gram = spec.rule in GRAM_RULES or spec.pre == "nnm"
     y, g = kdispatch.dispatch_bucketgram(flat, assign, nb, backend=backend,
                                          with_gram=need_gram)
@@ -224,19 +319,25 @@ def _hier_reduce_flat(flat: Tensor, spec: AggregatorSpec, f: int, *,
 
 
 def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
-                    return_coeff: bool, generator=None, perm=None) -> PyTree:
+                    return_coeff: bool, perm=None, signs=None) -> PyTree:
     """Kernel pipeline: the stack as one (n, D) buffer -> [bucketgram
-    (K6 / K7) when hier] -> gram (K1, skipped when K6 gave the Gram) ->
-    NNM / coefficients -> combine (K3) or fused mix+trim (K2) ->
-    aggregated pytree (views of one (D,) fp32 vector)."""
+    (K6 / K7) when hier] -> gram (K1, skipped when K6 gave the Gram; the
+    sketch Gram instead when ``signs``) -> NNM / coefficients -> combine
+    (K3) or fused mix+trim (K2) -> aggregated pytree (views of one (D,)
+    fp32 vector)."""
     backend = "cuda"
     flat, layout = kdispatch.flatten_worker_stack(work)
     mix_matrix, g = None, None
     if spec.hier:
-        flat, f, g = _hier_reduce_flat(flat, spec, f, generator=generator,
-                                       perm=perm, backend=backend)
+        flat, f, g = _hier_reduce_flat(flat, spec, f, perm=perm,
+                                       backend=backend)
     if (spec.rule in GRAM_RULES or spec.pre == "nnm") and g is None:
-        g = kdispatch.dispatch_gram(flat, backend=backend)
+        if signs is not None:
+            g = kdispatch.dispatch_sketch_gram(
+                flat, [(off, size) for off, size, _ in layout.segments],
+                spec.sketch_dim, signs, backend=backend)
+        else:
+            g = kdispatch.dispatch_gram(flat, backend=backend)
     if spec.pre == "nnm":
         mix_matrix = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), f)
         g = gramlib.mixed_gram(g, mix_matrix)
@@ -276,19 +377,27 @@ def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
 def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
                      generator: Optional[torch.Generator] = None,
                      perm: Optional[Tensor] = None,
+                     signs: Optional[list] = None,
                      return_coeff: bool = False) -> PyTree:
     """Pre-aggregation + rule on a worker-stacked pytree; returns the
     aggregated pytree (worker axis removed).  With ``return_coeff=True``
     also returns the effective coefficient vector of a gram rule (else
-    None).  ``generator`` / ``perm`` give the bucket permutation of
-    ``pre="bucketing"`` and ``hier`` (the reference's ``key``).  Decisions
-    land on ``kdispatch.last_dispatch()``."""
+    None).  ``generator`` (the reference's ``key``) draws the bucket
+    permutation of ``pre="bucketing"`` and ``hier``, then the sketch's
+    signs of ``sketch_dim``; ``perm`` / ``signs`` give them explicitly
+    (one (C_i,) tensor per leaf, :func:`draw_signs`).  Decisions land on
+    ``kdispatch.last_dispatch()``."""
     _validate(spec)
+    if spec.pre == "bucketing":
+        _need_perm_source(generator, perm, "bucketing")
+    if spec.hier:
+        _need_perm_source(generator, perm, "hierarchical aggregation")
+    perm, signs = draw_randomness(tree, spec, generator=generator, perm=perm,
+                                  signs=signs)
     f = spec.f
     work = tree
     if spec.pre == "bucketing":
-        _need_perm_source(generator, perm, "bucketing")
-        work, f = _tree_bucket(work, f, _stack_perm(work, generator, perm),
+        work, f = _tree_bucket(work, f, _stack_perm(work, perm),
                                spec.bucket_size)
     if spec.transport_dtype == "bf16":
         work = tree_map(lambda leaf: leaf.to(torch.bfloat16), work)
@@ -300,14 +409,13 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
                           bucket_size=spec.bucket_size)
     if backend == "cuda":
         return _aggregate_flat(work, spec, f, return_coeff=return_coeff,
-                               generator=generator, perm=perm)
+                               perm=perm, signs=signs)
     kdispatch.record_decision("pipeline", "torch", "torch",
                               "leaf-streamed torch path")
 
     if spec.hier:
         # The gather form, with the same permutation — and so the same
         # bucket grouping — as the kernel path.
-        _need_perm_source(generator, perm, "hierarchical aggregation")
         n = tree_leaves(work)[0].shape[0]
         s = bucketlib.clamp_bucket_size(n, spec.bucket_size, f)
         if s == 1:
@@ -317,10 +425,14 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
             kdispatch.record_decision(
                 "bucketgram", "torch", "torch",
                 "dense leaf-streamed bucketing (gather form)")
-            work, f = _tree_bucket(work, f, _stack_perm(work, generator, perm),
-                                   s)
+            work, f = _tree_bucket(work, f, _stack_perm(work, perm), s)
 
-    g = tree_gram(work)
+    if signs is not None:
+        kdispatch.record_decision("sketch_gram", "torch", "torch",
+                                  "sketch_dim: the leaf-streamed signed sketch")
+        g = tree_sketch_gram(work, spec.sketch_dim, signs)
+    else:
+        g = tree_gram(work)
     mix_matrix = None
     if spec.pre == "nnm":
         mix_matrix = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), f)
@@ -490,11 +602,33 @@ def _validate_dyn(spec: AggregatorSpec) -> None:
             "floor(n/2f) default depends on f); set AggregatorSpec.bucket_size")
 
 
+def _lane_signs(tree: PyTree, spec: AggregatorSpec, generators, signs
+                ) -> Optional[list]:
+    """The lanes' sketch signs, one (B, C_i) tensor per leaf: ``signs``
+    as given, else drawn from each lane's generator (after its bucket
+    permutation); None without ``sketch_dim`` or randomness."""
+    if not spec.sketch_dim:
+        return None
+    leaves = tree_leaves(tree)
+    b, dev = leaves[0].shape[0], leaves[0].device
+    if signs is not None:
+        return [torch.as_tensor(sg).to(device=dev, dtype=torch.float32)
+                .reshape(b, -1) for sg in signs]
+    if generators is None:
+        return None
+    widths = [leaf[0, 0].numel() for leaf in leaves]
+    per_lane = [draw_signs(widths, spec.sketch_dim, g, dev)
+                for g in generators]
+    return [torch.stack(col) for col in zip(*per_lane)]
+
+
 def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
-                     batched: bool, generators=None, perms=None) -> PyTree:
+                     batched: bool, generators=None, perms=None,
+                     signs=None) -> PyTree:
     """The dynamic pipeline on a lane-batched stack (leaves (B, n, ...),
     f (B,)); ``batched=False`` is the single-lane entry point (B = 1),
-    whose kernel path takes K1 for the Gram."""
+    whose kernel path takes K1 for the Gram (the sketch Gram when the
+    lanes have ``signs``)."""
     _validate_dyn(spec)
     leaves = tree_leaves(tree)
     b, n = leaves[0].shape[:2]
@@ -505,6 +639,7 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
         work, f = _tree_bucket_lanes(
             work, f, _lane_perms(n, b, dev, generators, perms),
             spec.bucket_size)
+    signs = _lane_signs(work, spec, generators, signs)
     if spec.transport_dtype == "bf16":
         work = tree_map(lambda leaf: leaf.to(torch.bfloat16), work)
 
@@ -512,11 +647,17 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
     kdispatch.open_record(requested=spec.backend, backend=backend,
                           rule=spec.rule, pre=spec.pre, dyn=True, lanes=b)
     if backend == "cuda":
-        return _aggregate_flat_lanes(work, spec, f, batched=batched)
+        return _aggregate_flat_lanes(work, spec, f, batched=batched,
+                                     signs=signs)
     kdispatch.record_decision("pipeline", "torch", "torch",
                               "leaf-streamed torch path")
 
-    g = tree_gram_lanes(work)
+    if signs is not None:
+        kdispatch.record_decision("sketch_gram", "torch", "torch",
+                                  "sketch_dim: the leaf-streamed signed sketch")
+        g = tree_sketch_gram_lanes(work, spec.sketch_dim, signs)
+    else:
+        g = tree_gram_lanes(work)
     mix_matrix = None
     if spec.pre == "nnm":
         mix_matrix = gramlib.nnm_matrix_dyn(gramlib.pdist_sq_from_gram(g), f)
@@ -537,15 +678,20 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
 
 
 def _aggregate_flat_lanes(work: PyTree, spec: AggregatorSpec, f: Tensor, *,
-                          batched: bool) -> PyTree:
+                          batched: bool, signs=None) -> PyTree:
     """Kernel pipeline of the dynamic path: the lanes as one (B, n, D)
-    buffer -> Gram (K5; K1 for the single-lane entry point) -> batched NNM
-    / coefficients -> combine (K3 per lane) or mix + trim (K4, all lanes
-    in one launch; cwmed: K2 per lane) -> (B, ...) leaves."""
+    buffer -> Gram (K5; K1 for the single-lane entry point; the sketch
+    Gram when ``signs``) -> batched NNM / coefficients -> combine (K3 per
+    lane) or mix + trim (K4, all lanes in one launch; cwmed: K2 per lane)
+    -> (B, ...) leaves."""
     backend = "cuda"
     flat, layout = kdispatch.flatten_lane_stack(work)
     mix_matrix, g = None, None
-    if spec.rule in GRAM_RULES or spec.pre == "nnm":
+    if (spec.rule in GRAM_RULES or spec.pre == "nnm") and signs is not None:
+        g = kdispatch.dispatch_sketch_gram(
+            flat, [(off, size) for off, size, _ in layout.segments],
+            spec.sketch_dim, signs, backend=backend)
+    elif spec.rule in GRAM_RULES or spec.pre == "nnm":
         if batched:
             g = kdispatch.dispatch_gram_batched(flat, backend=backend)
         else:
@@ -587,28 +733,37 @@ def _aggregate_flat_lanes(work: PyTree, spec: AggregatorSpec, f: Tensor, *,
 
 def robust_aggregate_dyn(tree: PyTree, spec: AggregatorSpec, f, *,
                          generator: Optional[torch.Generator] = None,
-                         perm: Optional[Tensor] = None) -> PyTree:
+                         perm: Optional[Tensor] = None,
+                         signs: Optional[list] = None) -> PyTree:
     """:func:`robust_aggregate` with an int-tensor Byzantine count.
 
     ``spec.f`` is ignored; ``f`` (a 0-d int tensor or an int) takes its
     place and is never read on the host.  ``spec.pre == "bucketing"``
     needs an explicit ``spec.bucket_size`` and a ``generator`` or
-    ``perm``.  MDA has no dynamic form."""
+    ``perm``; ``sketch_dim`` draws its signs from ``generator`` (after the
+    permutation) or takes ``signs`` (one (C_i,) tensor per leaf).  MDA
+    has no dynamic form."""
     leaf = tree_leaves(tree)[0]
     out = _aggregate_lanes(
         tree_map(lambda l: l[None], tree), spec, _lane_f(f, 1, leaf.device),
         batched=False, generators=None if generator is None else [generator],
-        perms=None if perm is None else torch.as_tensor(perm)[None])
+        perms=None if perm is None else torch.as_tensor(perm)[None],
+        signs=None if signs is None else [torch.as_tensor(sg)[None]
+                                          for sg in signs])
     return tree_map(lambda l: l[0], out)
 
 
 def batched_robust_aggregate(tree: PyTree, spec: AggregatorSpec, fs, *,
                              generators: Optional[list] = None,
-                             perms: Optional[Tensor] = None) -> PyTree:
+                             perms: Optional[Tensor] = None,
+                             signs: Optional[list] = None) -> PyTree:
     """Lane-batched aggregation: every leaf carries a leading lane axis
     (B, n, ...) and ``fs`` (B,) is the per-lane Byzantine count; returns
     the (B, ...) aggregates.  Bucketing lanes take one generator per lane
-    or a (B, n) ``perms``."""
+    or a (B, n) ``perms``; sketch lanes draw their signs from the same
+    generators (after the permutation) or take ``signs``, one (B, C_i)
+    tensor per leaf."""
     leaf = tree_leaves(tree)[0]
     return _aggregate_lanes(tree, spec, _lane_f(fs, leaf.shape[0], leaf.device),
-                            batched=True, generators=generators, perms=perms)
+                            batched=True, generators=generators, perms=perms,
+                            signs=signs)

@@ -1,11 +1,17 @@
 """Theoretical quantities from the paper, as executable code.
 
-Counterpart of ``repro.core.theory``: the closed forms ``kappa``,
-``composed_kappa`` (with the bucketing / hierarchical stage),
-``bucketed_population`` and ``breakdown_point``, and the per-step
-``tree_kappa_hat`` estimator.
+Counterpart of ``repro.core.theory``: the Table 1 coefficients and their
+compositions (``kappa``, ``kappa_lower_bound``, ``nnm_kappa``,
+``nnm_variance_factor``, ``composed_kappa`` with the bucketing /
+hierarchical stage, ``bucketed_population``), the breakdown points, the
+convergence bounds of Theorems 1-2 and Prop. 1 (plain Python floats, the
+reference's formulas in its order), and the kappa-hat estimators of
+Eq. (26): per step over a pytree (``tree_kappa_hat``) and over one
+(n, d) stack (``empirical_kappa_hat``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -36,9 +42,19 @@ def kappa(rule: str, n: int, f: int) -> float:
     raise ValueError(f"no proved kappa for rule {rule!r}")
 
 
+def kappa_lower_bound(n: int, f: int) -> float:
+    """Universal lower bound (Prop. 6): kappa >= f/(n-2f)."""
+    return f / (n - 2 * f)
+
+
 def nnm_kappa(base_kappa: float, n: int, f: int) -> float:
     """Lemma 1: F∘NNM is (f, kappa')-robust with kappa' <= 8f/(n-f)(kappa+1)."""
     return 8.0 * f / (n - f) * (base_kappa + 1.0)
+
+
+def nnm_variance_factor(n: int, f: int) -> float:
+    """Lemma 5: var(Y_S) + bias^2 <= [8f/(n-f)] var(X_S)."""
+    return 8.0 * f / (n - f)
 
 
 def bucketed_population(n: int, f: int, bucket_size: int | None = None
@@ -113,6 +129,49 @@ def breakdown_point(rule: str, n: int, f: int = 0, *,
     return fmax / n
 
 
+def dgd_bound(kappa_: float, g_sq: float, smooth_l: float, loss_gap: float,
+              steps: int) -> float:
+    """Theorem 1: ||grad L_H(theta_hat)||^2 <= 4 kappa G^2 + 4 L Delta / T."""
+    return 4.0 * kappa_ * g_sq + 4.0 * smooth_l * loss_gap / steps
+
+
+def dshb_bound(kappa_: float, g_sq: float, sigma_sq: float, smooth_l: float,
+               loss_gap: float, n: int, f: int, steps: int) -> float:
+    """Theorem 2 expected-error bound with the paper's explicit constants."""
+    a1 = 36.0
+    a2 = 6.0 * math.sqrt(max(loss_gap, 0.0))
+    a3 = 1728.0 * smooth_l
+    a4 = 288.0 * smooth_l
+    a5 = 6.0 * smooth_l * a2 ** 2
+    a_k = math.sqrt(a3 * kappa_ + a4 / (n - f))
+    sigma = math.sqrt(sigma_sq)
+    t = float(steps)
+    bound = a1 * kappa_ * g_sq + a2 * a_k * sigma / math.sqrt(t) + a5 / t
+    if a_k > 0:
+        bound += a2 * a4 * sigma / (n * a_k * t ** 1.5)
+    return bound
+
+
+def dshb_hyperparams(smooth_l: float, loss_gap: float, kappa_: float,
+                     sigma_sq: float, n: int, f: int, steps: int
+                     ) -> tuple[float, float]:
+    """Theorem 2's (learning rate, momentum beta) prescription."""
+    a2 = 6.0 * math.sqrt(max(loss_gap, 1e-12))
+    a3 = 1728.0 * smooth_l
+    a4 = 288.0 * smooth_l
+    a_k = math.sqrt(a3 * kappa_ + a4 / (n - f))
+    sigma = math.sqrt(max(sigma_sq, 1e-12))
+    gamma = min(1.0 / (24.0 * smooth_l),
+                a2 / (2.0 * a_k * sigma * math.sqrt(steps)))
+    beta = math.sqrt(max(0.0, 1.0 - 24.0 * gamma * smooth_l))
+    return gamma, beta
+
+
+def resilience_lower_bound(n: int, f: int, g_sq: float) -> float:
+    """Prop. 1 / Appendix 12 explicit constant: eps >= f/(4(n-2f)) G^2."""
+    return f / (4.0 * (n - 2 * f)) * g_sq
+
+
 def tree_kappa_hat(agg, stack, n_honest: int) -> torch.Tensor:
     """Paper Eq. (26) over worker-stacked pytrees, in fp32:
     ||R - mbar||^2 / mean_i ||m_i - mbar||^2 over the first ``n_honest``
@@ -132,3 +191,16 @@ def tree_kappa_hat(agg, stack, n_honest: int) -> torch.Tensor:
             num += torch.sum((a1[c0:c0 + KAPPA_CHUNK].float() - mbar) ** 2)
             den += torch.mean(torch.sum((h - mbar) ** 2, dim=1))
     return torch.sqrt(num / (den + 1e-20))
+
+
+def empirical_kappa_hat(agg_out: torch.Tensor, stack: torch.Tensor,
+                        honest_idx=None) -> torch.Tensor:
+    """kappa_hat_t of Eq. (26) for one (n, d) stack: sqrt(||R - mbar||^2 /
+    mean_i ||m_i - mbar||^2), with mbar the plain mean of the honest rows
+    (``stack`` itself, or its rows ``honest_idx``)."""
+    h = stack if honest_idx is None else stack[torch.as_tensor(honest_idx)]
+    h = h.float()
+    mbar = h.mean(dim=0)
+    num = torch.sum((agg_out.float() - mbar) ** 2)
+    den = torch.mean(torch.sum((h - mbar) ** 2, dim=-1)) + 1e-20
+    return torch.sqrt(num / den)

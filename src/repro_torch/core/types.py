@@ -24,9 +24,11 @@ class AggregatorSpec:
     Attributes mirror ``repro.core.types.AggregatorSpec``.  ``hier``
     inserts the single-device hierarchical bucketing stage (bucket size
     ``bucket_size``, default floor(n/2f)); ``pre`` is None, "nnm" or
-    "bucketing".  ``sketch_dim`` and the reference's sharded backends are
-    not ported yet; :func:`repro_torch.core.robust.robust_aggregate`
-    rejects them with an error naming the ROADMAP item.
+    "bucketing".  ``sketch_dim`` > 0 takes the Gram of a signed
+    (n, sketch_dim) sketch when randomness is given.  The reference's
+    sharded backends are not ported yet;
+    :func:`repro_torch.core.robust.robust_aggregate` rejects them with an
+    error naming the ROADMAP item.
     """
 
     rule: str = "cwtm"
@@ -57,6 +59,7 @@ COORDINATE_RULES = frozenset({"cwmed", "cwtm", "meamed"})
 
 ALL_RULES = tuple(sorted(GRAM_RULES | COORDINATE_RULES))
 
-#: Attacks the port runs (the ``_opt`` eta searches are still to be
-#: ported: ROADMAP queue 1, item 3).
-ATTACKS = ("none", "alie", "foe", "sf", "lf", "mimic", "nan", "inf")
+#: Attack names, the reference's: the ``_opt`` eta searches run on the
+#: static paths (the trainer, the fed server), not on fleet lanes.
+ATTACKS = ("none", "alie", "foe", "sf", "lf", "mimic", "alie_opt", "foe_opt",
+           "nan", "inf")

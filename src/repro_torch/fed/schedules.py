@@ -16,12 +16,6 @@ import numpy as np
 
 from repro_torch.core.types import ATTACKS
 
-#: Names a schedule accepts: the ported attacks and the reference's
-#: ``_opt`` eta searches, which the lane-dynamic fleet rejects as the
-#: reference does (``dyn_attack_id``).
-SCHEDULE_ATTACKS = ATTACKS + ("alie_opt", "foe_opt")
-
-
 @dataclasses.dataclass(frozen=True)
 class AttackPhase:
     """One contiguous segment of the adversary's timeline; ``eta_end`` /
@@ -33,9 +27,9 @@ class AttackPhase:
     ramp_rounds: int = 0
 
     def __post_init__(self):
-        if self.attack not in SCHEDULE_ATTACKS:
+        if self.attack not in ATTACKS:
             raise ValueError(
-                f"unknown attack {self.attack!r}; known: {SCHEDULE_ATTACKS}")
+                f"unknown attack {self.attack!r}; known: {ATTACKS}")
         if self.eta_end is not None and self.ramp_rounds <= 0:
             raise ValueError("eta_end requires ramp_rounds > 0")
         if self.eta_end is not None and self.eta is None:

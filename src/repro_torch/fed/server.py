@@ -33,11 +33,16 @@ updated in place and shared with the returned state (clone it to keep
 the old one).  The Byzantine rows keep their honest momentum, as in the
 reference: their transmitted values are attacked, not their local state.
 
-Per-round randomness (the bucket permutation of ``pre="bucketing"`` /
-``hier``, the feature-poisoning noise) is drawn from a CPU
-``torch.Generator`` per round, seeded from :func:`round_seeds` (the
-reference splits PRNG keys); ``round_fn`` also takes ``perm=`` /
-``noise=`` explicitly (the reference's draws, in the parity tests).
+Per-round randomness (the feature-poisoning noise, then the bucket
+permutation of ``pre="bucketing"`` / ``hier`` and the signs of
+``sketch_dim``) is drawn from a CPU ``torch.Generator`` per round, seeded
+from :func:`round_seeds` (the reference splits PRNG keys); ``round_fn``
+also takes ``perm=`` / ``noise=`` / ``signs=`` explicitly (the
+reference's draws, in the parity tests).  The permutation and the signs
+are drawn once a round: under ``alie_opt`` / ``foe_opt`` the 12 candidate
+aggregates of the eta search (the round's spec, no guard: the guard
+screens the attacked stack after it) and the deployed one share them, as
+the reference's closure shares its ``agg_key``.
 Entry points run on CUDA unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
@@ -256,7 +261,7 @@ class FedServer:
         spec = dataclasses.replace(cfg.agg, f=f_round)
 
         def body(state, batch, idx, families, attack_id, eta, generator,
-                 perm=None, noise=None):
+                 perm=None, noise=None, signs=None):
             params = state["params"]
             dev = tree_leaves(params)[0].device
             idx = _on(dev, idx).long()
@@ -283,9 +288,22 @@ class FedServer:
                 # the round's own from here on.
                 state["momentum"].index_copy_(0, idx, stack)
 
+            # One draw for every aggregate of the round (after the noise).
+            perm, signs = robust_lib.draw_randomness(
+                kdispatch.stack_views(stack, layout), spec,
+                generator=generator, perm=perm, signs=signs)
+
+            def aggregate(flat):
+                return robust_lib.robust_aggregate(
+                    kdispatch.stack_views(flat, layout), spec, perm=perm,
+                    signs=signs)
+
             apply_attack_scan(families, attack_id, stack, m_byz, eta=eta,
                               segments=[(off, size) for off, size, _
-                                        in layout.segments])
+                                        in layout.segments],
+                              agg_closure=aggregate if any(
+                                  a.endswith("_opt") for a in families)
+                              else None)
             attacked = kdispatch.stack_views(stack, layout)
             qinfo = None
             if cfg.guard is not None:
@@ -295,8 +313,7 @@ class FedServer:
                     view.copy_(new)
                 del screened
 
-            direction = robust_lib.robust_aggregate(
-                attacked, spec, generator=generator, perm=perm)
+            direction = aggregate(stack)
             lr = self.lr_schedule(state["step"])
             new_params, new_opt = self.optimizer.update(
                 direction, state["opt_state"], params, lr)
@@ -319,8 +336,8 @@ class FedServer:
     def round_fn(self, attack: str, m_byz: int,
                  f_round: Optional[int] = None) -> Callable:
         """One round of one attack family (cached): ``step(state, batch,
-        idx, eta=0.0, generator=None, *, perm=None, noise=None) ->
-        (state, metrics)``.  ``eta`` reaches alie / foe only."""
+        idx, eta=0.0, generator=None, *, perm=None, noise=None, signs=None)
+        -> (state, metrics)``.  ``eta`` reaches alie / foe only."""
         if f_round is None:
             f_round = self._f_round()
         check_static_families((attack,))
@@ -331,9 +348,10 @@ class FedServer:
             families = (attack,)
 
             def step(state, batch, idx, eta=0.0, generator=None, *,
-                     perm=None, noise=None):
+                     perm=None, noise=None, signs=None):
                 return body(state, batch, idx, families, 0,
-                            float(np.float32(eta)), generator, perm, noise)
+                            float(np.float32(eta)), generator, perm, noise,
+                            signs)
 
             self._round_cache[cache_key] = step
         return self._round_cache[cache_key]

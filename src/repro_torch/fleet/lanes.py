@@ -87,7 +87,7 @@ def scatter_lane_rows(momentum: list, idx: Tensor, rows: list) -> list:
 def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
                      cfg: FedConfig) -> Callable:
     """The B-lane round: ``(state, batch, idx, ops, attack_ids, perms,
-    noise) -> (state, metrics)``.
+    noise, signs) -> (state, metrics)``.
 
     ``state``: params (B, ...) per leaf, ``opt_state``, ``step`` (B,) and,
     for D-SHB, ``momentum`` (a list of (B, n_clients, ...) fp32 leaves in
@@ -96,7 +96,9 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
     device tensors, ``attack_ids`` the same B attack ids as host ints (the
     round picks the attack branches on the host), ``perms`` (B, m) bucket
     permutations (pre="bucketing") or None, ``noise`` the (B, m, L, bs,
-    ...) feature-poisoning draws (poison kind "feature") or None.
+    ...) feature-poisoning draws (poison kind "feature") or None,
+    ``signs`` one (B, C_i) sketch-sign tensor per leaf (``sketch_dim``)
+    or None.
     ``cfg`` contributes only the static skeleton; its f, client beta /
     local_lr and poison rate / strength give way to ``ops``.  Metrics are
     (B,) device tensors."""
@@ -115,7 +117,8 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
 
     def lane_round(state: dict, batch, idx: Tensor, ops: dict, attack_ids,
                    perms: Optional[Tensor] = None,
-                   noise: Optional[Tensor] = None):
+                   noise: Optional[Tensor] = None,
+                   signs: Optional[list] = None):
         params = state["params"]
         skeleton = tree_structure(params)
         has_momentum = "momentum" in state
@@ -138,7 +141,7 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
         if cfg.guard is not None:
             attacked, qinfo = quarantine_stack_lanes(attacked, cfg.guard)
         robust_dir = robust_lib.batched_robust_aggregate(
-            attacked, spec, ops["f_agg"], perms=perms)
+            attacked, spec, ops["f_agg"], perms=perms, signs=signs)
         direction = tree_unflatten(skeleton, robust_dir)
 
         lr = ops["lr"]
@@ -188,7 +191,8 @@ def build_fleet_scan(loss_fn: Callable, optimizer: Optimizer,
     """One segment of K rounds: ``(state, operands) -> (state, metrics)``
     with ``operands = {"batch": (K, B, m, L, ...), "idx": (K, B, m),
     "ops": {field: (K, B)}, "attack_id": (K, B) host ints, "perm": (K, B,
-    m) or absent, "noise": (K, B, m, L, bs, ...) or absent}`` on the
+    m) or absent, "noise": (K, B, m, L, bs, ...) or absent, "signs": a
+    list of (K, B, C_i) or absent}`` on the
     state's device, and metrics stacked (K, B) on the device.  A Python
     loop replaces the reference's ``lax.scan``; the per-round math is
     :func:`build_lane_round`'s.  The returned state is new tensors, never
@@ -202,6 +206,7 @@ def build_fleet_scan(loss_fn: Callable, optimizer: Optimizer,
     def fleet_scan(state: dict, operands: dict):
         rounds = operands["idx"].shape[0]
         perms, noise = operands.get("perm"), operands.get("noise")
+        signs = operands.get("signs")
         cols: dict = {}
         for r in range(rounds):
             state, metrics = lane(
@@ -210,7 +215,8 @@ def build_fleet_scan(loss_fn: Callable, optimizer: Optimizer,
                 {k: v[r] for k, v in operands["ops"].items()},
                 operands["attack_id"][r],
                 None if perms is None else perms[r],
-                None if noise is None else noise[r])
+                None if noise is None else noise[r],
+                None if signs is None else [sg[r] for sg in signs])
             for k, v in metrics.items():
                 cols.setdefault(k, []).append(v)
         return state, {k: torch.stack(v) for k, v in cols.items()}

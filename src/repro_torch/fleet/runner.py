@@ -13,12 +13,12 @@ segment.  The host plans every round up front, exactly as the reference
 does (cohort sampling then batch building, lane by lane, round by round,
 each lane on its own numpy stream seeded from ``job.seed``), so cohorts
 and batches equal the reference's sample for sample.  A lane of a
-bucketing or feature-poisoning bucket also owns a CPU ``torch.Generator``
-seeded from ``job.seed`` that draws, round by round, its bucketing
-permutation and then its feature noise in the plan
-(:func:`lane_draws`; the reference splits a PRNG key instead, so those
-draws differ).  The plan goes to the device once per segment; the
-segment's metrics come back once, at its end.
+bucketing, feature-poisoning or sketch bucket also owns a CPU
+``torch.Generator`` seeded from ``job.seed`` that draws, round by round,
+its bucketing permutation, then its feature noise, then its sketch signs
+in the plan (:func:`lane_draws`; the reference splits a PRNG key
+instead, so those draws differ).  The plan goes to the device once per
+segment; the segment's metrics come back once, at its end.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed.
 """
@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core.attacks import dyn_attack_id
 from repro_torch.core.bucketing import default_bucket_size
+from repro_torch.core.robust import draw_signs
 from repro_torch.data import build_heterogeneous, make_classification
 from repro_torch.device import resolve_device
 from repro_torch.fed.clients import init_client_momentum
@@ -202,47 +203,65 @@ def _draws_noise(cfg: FedConfig) -> bool:
 
 def lane_generator(job: FleetJob) -> Optional[torch.Generator]:
     """The lane's CPU generator (seeded from ``job.seed``) when its bucket
-    draws bucketing permutations or feature noise, else None."""
-    if _draws_perm(job.cfg) or _draws_noise(job.cfg):
+    draws bucketing permutations, feature noise or sketch signs, else
+    None."""
+    if _draws_perm(job.cfg) or _draws_noise(job.cfg) or job.cfg.agg.sketch_dim:
         return torch.Generator().manual_seed(int(job.seed))
     return None
 
 
-def lane_draws(cfg: FedConfig, gen: Optional[torch.Generator], batch: dict
-               ) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+def lane_widths(job: FleetJob) -> list:
+    """Per-leaf flat widths of the job's parameters (the sketch signs'
+    chunk counts follow them)."""
+    return [p.numel() for p in tree_leaves(job.params)]
+
+
+def lane_draws(cfg: FedConfig, gen: Optional[torch.Generator], batch: dict,
+               widths: Sequence[int] = ()) -> tuple:
     """HOST: one lane-round's random operands from the lane's generator,
     in this order: the (m,) bucketing permutation (pre="bucketing"), then
     the feature-poisoning noise, standard normal of the batch's features'
-    shape (poison kind "feature"); None for what the bucket does not
-    draw.  The batch runner and the continuous bucket both draw through
-    here, so a lane's stream is the same in either."""
+    shape (poison kind "feature"), then the sketch's signs, one (C_i,)
+    tensor per leaf of flat width ``widths[i]`` (``sketch_dim``); None
+    for what the bucket does not draw.  The batch runner and the
+    continuous bucket both draw through here, so a lane's stream is the
+    same in either."""
     perm = torch.randperm(cfg.clients_per_round, generator=gen) \
         if _draws_perm(cfg) else None
     noise = None
     if _draws_noise(cfg):
         shape = tuple(np.shape(batch[cfg.poison.features_key]))
         noise = torch.randn(shape, generator=gen, dtype=torch.float32)
-    return perm, noise
+    signs = draw_signs(widths, cfg.agg.sketch_dim, gen) \
+        if cfg.agg.sketch_dim else None
+    return perm, noise, signs
 
 
-def filler_draws(cfg: FedConfig, batch: dict
-                 ) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+def filler_draws(cfg: FedConfig, batch: dict, widths: Sequence[int] = ()
+                 ) -> tuple:
     """:func:`lane_draws`'s operands for an unoccupied slot (``batch`` its
-    filler batch): the identity permutation and zero noise (no
-    generator)."""
+    filler batch): the identity permutation, zero noise and all-plus
+    signs (no generator)."""
     perm = torch.arange(cfg.clients_per_round) if _draws_perm(cfg) else None
     noise = torch.zeros(tuple(np.shape(batch[cfg.poison.features_key])),
                         dtype=torch.float32) if _draws_noise(cfg) else None
-    return perm, noise
+    signs = [torch.ones(-(-int(w) // cfg.agg.sketch_dim)) for w in widths] \
+        if cfg.agg.sketch_dim else None
+    return perm, noise, signs
 
 
-def _stack_draws(operands: dict, perms: list, noises: list) -> dict:
-    """Add the (R, B, ...) draws of :func:`lane_draws` to a plan; ``perms``
-    / ``noises`` hold one list of B lane tensors (or Nones) a round."""
-    if perms and perms[0][0] is not None:
-        operands["perm"] = torch.stack([torch.stack(r) for r in perms])
-    if noises and noises[0][0] is not None:
-        operands["noise"] = torch.stack([torch.stack(r) for r in noises])
+def _stack_draws(operands: dict, draws: list) -> dict:
+    """Add the (R, B, ...) draws of :func:`lane_draws` to a plan: ``draws``
+    holds one list of B (perm, noise, signs) triples a round; the signs
+    become one (R, B, C_i) tensor per leaf."""
+    for k, key in enumerate(("perm", "noise")):
+        if draws and draws[0][0][k] is not None:
+            operands[key] = torch.stack([torch.stack([d[k] for d in r])
+                                         for r in draws])
+    if draws and draws[0][0][2] is not None:
+        operands["signs"] = [
+            torch.stack([torch.stack([d[2][i] for d in r]) for r in draws])
+            for i in range(len(draws[0][0][2]))]
     return operands
 
 
@@ -301,6 +320,8 @@ def _to_device(operands: dict, device) -> dict:
     for k in ("perm", "noise"):
         if k in operands:
             out[k] = operands[k].to(device)
+    if "signs" in operands:
+        out["signs"] = [sg.to(device) for sg in operands["signs"]]
     return out
 
 
@@ -448,35 +469,33 @@ class FleetRunner:
     def _plan_bucket(self, bucket: LaneBucket) -> tuple[dict, list]:
         """HOST, once per bucket: every round's per-lane plan stacked into
         (R, B, ...) arrays (in the reference's rng order), plus the
-        bucketing permutations (R, B, m) and feature noise (R, B, m, L,
-        bs, ...) where the bucket draws them (:func:`lane_draws`), and the
-        per-round (attacks, raw etas, cohorts) the histories record."""
+        bucketing permutations (R, B, m), feature noise (R, B, m, L, bs,
+        ...) and sketch signs ((R, B, C_i) per leaf) where the bucket
+        draws them (:func:`lane_draws`), and the per-round (attacks, raw
+        etas, cohorts) the histories record."""
         jobs = bucket.jobs
         rngs = [np.random.default_rng(job.seed) for job in jobs]
         gens = [lane_generator(job) for job in jobs]
+        widths = lane_widths(jobs[0])
         max_rounds = max(job.rounds for job in jobs)
-        per_round, round_meta, perms, noises = [], [], [], []
+        per_round, round_meta, draws = [], [], []
         for r in range(max_rounds):
-            attacks, etas_raw, cohorts, batches = [], [], [], []
+            attacks, etas_raw, cohorts, batches, rdraws = [], [], [], [], []
             ops: dict = {k: [] for k in _OP_DTYPES}
-            rperm, rnoise = [], []
             for k, job in enumerate(jobs):
                 batch, cohort, lane_ops, (attack, eta, _) = \
                     plan_lane_round(job, r, rngs[k])
-                perm, noise = lane_draws(job.cfg, gens[k], batch)
+                rdraws.append(lane_draws(job.cfg, gens[k], batch, widths))
                 batches.append(batch)
                 attacks.append(attack)
                 etas_raw.append(eta)
                 cohorts.append(cohort)
-                rperm.append(perm)
-                rnoise.append(noise)
                 for f in _OP_DTYPES:
                     ops[f].append(lane_ops[f])
             per_round.append(_pack_round(batches, cohorts, ops))
             round_meta.append((attacks, etas_raw, cohorts))
-            perms.append(rperm)
-            noises.append(rnoise)
-        operands = _stack_draws(stack_rounds(per_round), perms, noises)
+            draws.append(rdraws)
+        operands = _stack_draws(stack_rounds(per_round), draws)
         return operands, round_meta
 
     def _run_bucket(self, bucket: LaneBucket, *,
@@ -670,7 +689,9 @@ class ContinuousBucket:
         self._scan = fleet_scan
         self._admit = admit_fn
         self._filler = lane_filler(template)
-        self._filler_draws = filler_draws(template.cfg, self._filler[0])
+        self._widths = lane_widths(template)
+        self._filler_draws = filler_draws(template.cfg, self._filler[0],
+                                          self._widths)
         filler_state = init_lane_state(template, self.device)
         self.state = tree_map(lambda x: torch.stack([x] * capacity),
                               filler_state)
@@ -778,33 +799,30 @@ class ContinuousBucket:
     def _plan(self, seg: int) -> tuple[dict, dict]:
         """HOST: the next ``seg`` rounds of every slot, lane-local."""
         fill_batch, fill_idx, fill_ops = self._filler
-        fill_perm, fill_noise = self._filler_draws
-        per_round, perms, noises = [], [], []
+        per_round, draws = [], []
         metas: dict = {k: [] for k, s in enumerate(self.slots)
                        if s is not None}
         for i in range(seg):
-            batches, cohorts, rperm, rnoise = [], [], [], []
+            batches, cohorts, rdraws = [], [], []
             ops: dict = {f: [] for f in _OP_DTYPES}
             for k in range(self.capacity):
                 s = self.slots[k]
                 if s is None or s.local + i >= s.job.rounds:
                     batch, cohort, lane_ops = fill_batch, fill_idx, fill_ops
-                    perm, noise = fill_perm, fill_noise
+                    rdraws.append(self._filler_draws)
                 else:
                     batch, cohort, lane_ops, meta = plan_lane_round(
                         s.job, s.local + i, s.rng)
-                    perm, noise = lane_draws(s.job.cfg, s.gen, batch)
+                    rdraws.append(lane_draws(s.job.cfg, s.gen, batch,
+                                             self._widths))
                     metas[k].append((s.local + i,) + meta)
                 batches.append(batch)
                 cohorts.append(cohort)
-                rperm.append(perm)
-                rnoise.append(noise)
                 for f in _OP_DTYPES:
                     ops[f].append(lane_ops[f])
             per_round.append(_pack_round(batches, cohorts, ops))
-            perms.append(rperm)
-            noises.append(rnoise)
-        return _stack_draws(stack_rounds(per_round), perms, noises), metas
+            draws.append(rdraws)
+        return _stack_draws(stack_rounds(per_round), draws), metas
 
     def step(self, *, hold_for_pending: bool = False) -> list:
         """Run ONE segment; returns ``(token, result)`` for every lane that

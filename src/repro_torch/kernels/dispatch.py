@@ -16,7 +16,12 @@ worker-stacked pytree:
 * the fleet's lane-batched forms over a (B, n, D) stack:
   **gram_batched** (K5) and **mixtrim_dyn** (K4, f an int tensor per
   lane); cwmed lanes take K2 and the gram rules K3 once per lane, as the
-  reference routes them to its static kernels.
+  reference routes them to its static kernels;
+* the **sketch Gram** of ``AggregatorSpec.sketch_dim``
+  (:func:`dispatch_sketch_gram`): a signed fold of each leaf's segment
+  into (n, sketch_dim), then its (n, n) Gram.  The reference computes it
+  with an einsum outside any Pallas kernel, so the port runs torch
+  contractions and records them by name (``"sketch_gram"``).
 
 Every decision lands on a :class:`DispatchRecord` in a bounded ring
 (:func:`last_dispatch`), so a requested kernel
@@ -295,6 +300,59 @@ def dispatch_gram(x: torch.Tensor, *, backend: str) -> torch.Tensor:
         return _gram_op(x)
     record_decision("gram", backend, "torch")
     return _gram_ref(x)
+
+
+#: Columns of one row folded per step of :func:`sketch_fold` (bounds its
+#: temporaries; a bf16 stack widens to fp32 one such step at a time).
+SKETCH_CHUNK = 1 << 24
+
+
+def sketch_fold(x: torch.Tensor, segments, sketch_dim: int, signs: list,
+                *, chunk: int = SKETCH_CHUNK,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The signed sketch (L, n, sketch_dim) fp32 of an (L, n, D) stack.
+
+    Every ``(offset, size)`` of ``segments`` is one leaf: cut from its own
+    offset into chunks of ``sketch_dim`` columns, the last one padded with
+    zeros, and chunk c of lane l added with sign ``signs[i][l, c]`` (leaf
+    i's (L, ceil(size / sketch_dim)) ±1 tensor; a (C,) tensor when L = 1).
+    A segment's full chunks are folded as (n, k, sketch_dim) views, its
+    tail on its own, so no padded copy of the stack is made.  ``out``: an
+    (L, n, sketch_dim) fp32 sketch to add into (and return)."""
+    lanes, n = x.shape[:2]
+    s = sketch_dim
+    sk = out if out is not None else torch.zeros(
+        (lanes, n, s), dtype=torch.float32, device=x.device)
+    step = max(1, chunk // s)
+    for (off, size), sg in zip(segments, signs):
+        sg = torch.as_tensor(sg).to(device=x.device,
+                                    dtype=torch.float32).reshape(lanes, -1)
+        full = size // s
+        for c0 in range(0, full, step):
+            c1 = min(c0 + step, full)
+            v = x[:, :, off + c0 * s: off + c1 * s].reshape(
+                lanes, n, c1 - c0, s).float()
+            sk += torch.matmul(sg[:, None, None, c0:c1], v)[:, :, 0]
+        tail = size - full * s
+        if tail:
+            v = x[:, :, off + full * s: off + size].float()
+            sk[:, :, :tail] += sg[:, full, None, None] * v
+    return sk
+
+
+def dispatch_sketch_gram(x: torch.Tensor, segments, sketch_dim: int,
+                         signs: list, *, backend: str) -> torch.Tensor:
+    """The sketch Gram of an (n, D) stack ((B, n, D) with (B, C_i) signs
+    per leaf gives (B, n, n)): :func:`sketch_fold`, then sk sk^T, both
+    torch ops on every backend, recorded as the ``"sketch_gram"``
+    decision (no kernel: K1 is skipped)."""
+    record_decision("sketch_gram", backend, "torch",
+                    "sketch_dim: the signed sketch fold and its Gram are "
+                    "torch contractions (no kernel in the reference either)")
+    lanes = x.dim() == 3
+    sk = sketch_fold(x if lanes else x[None], segments, sketch_dim, signs)
+    g = sk @ sk.mT
+    return g if lanes else g[0]
 
 
 def dispatch_gram_batched(x: torch.Tensor, *, backend: str) -> torch.Tensor:

@@ -9,6 +9,13 @@ Usage:
       --full --steps 3 --workers 8 --byz 2 --attack alie --agg nnm+cwtm
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 5 \\
       --checkpoint params.npz    # the final params, for load_checkpoint
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3 \\
+      --attack alie_opt --sketch-dim 512   # eta search; sketch Gram
+
+``--attack`` takes every name of ``repro_torch.core.types.ATTACKS``
+(``alie_opt`` / ``foe_opt`` run 13 aggregates a step); ``--sketch-dim``
+sets ``AggregatorSpec.sketch_dim``, its signs drawn from the run's
+generator.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import torch
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
-from repro_torch.core.types import AggregatorSpec
+from repro_torch.core.types import ATTACKS, AggregatorSpec
 from repro_torch.data import build_heterogeneous, make_lm_corpus, worker_batches
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch as kdispatch
@@ -46,8 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--workers", type=int, default=8)
     ap.add_argument("--byz", type=int, default=2)
-    ap.add_argument("--attack", default="alie")
+    ap.add_argument("--attack", default="alie", choices=ATTACKS)
     ap.add_argument("--agg", default="nnm+cwtm")
+    ap.add_argument("--sketch-dim", type=int, default=0,
+                    help="the sketch Gram's width (0: the exact Gram)")
     ap.add_argument("--algorithm", default="dshb", choices=["dshb", "dgd"])
     ap.add_argument("--beta", type=float, default=0.9)
     ap.add_argument("--lr", type=float, default=0.05)
@@ -67,7 +76,10 @@ def main(argv: Optional[list] = None, *, capture_first_stack: bool = False
          ) -> dict:
     """Run the training loop; returns {"state", "history", "dispatch", "launches",
     "peak_bytes"} and, with ``capture_first_stack``, step 1's attacked flat
-    stack and its layout (``"attacked"``, ``"layout"``)."""
+    stack and its layout (``"attacked"``, ``"layout"``), with its sketch
+    signs and its eta search's ``"eta"`` / ``"damages"`` when it drew or
+    ran them.  Under ``alie_opt`` / ``foe_opt`` the history's ``"eta"``
+    holds each step's chosen eta."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
@@ -75,7 +87,8 @@ def main(argv: Optional[list] = None, *, capture_first_stack: bool = False
     agg = parse_agg(args.agg)
     tcfg = TrainerConfig(
         algorithm=args.algorithm, beta=args.beta,
-        agg=AggregatorSpec(rule=agg.rule, f=args.byz, pre=agg.pre),
+        agg=AggregatorSpec(rule=agg.rule, f=args.byz, pre=agg.pre,
+                           sketch_dim=args.sketch_dim),
         byz=ByzantineConfig(f=args.byz, attack=args.attack))
 
     if device.type == "cuda":
@@ -101,33 +114,40 @@ def main(argv: Optional[list] = None, *, capture_first_stack: bool = False
     schedule = cosine(args.lr, args.steps, warmup=min(20, args.steps // 10))
     step_fn = build_train_step(model.loss, optimizer, tcfg, schedule)
     state = init_state(params, optimizer, args.workers, tcfg)
-    # Draws the bucket permutations of --agg bucketing+<rule>.
+    # Draws the bucket permutations of --agg bucketing+<rule> and the
+    # signs of --sketch-dim.
     generator = torch.Generator().manual_seed(args.seed)
 
     history: dict[str, list] = {"loss": [], "direction_norm": [],
-                                "kappa_hat": [], "lr": [], "ms": []}
+                                "kappa_hat": [], "lr": [], "ms": [], "eta": []}
     out: dict = {}
+    searches = args.attack.endswith("_opt")
     for t in range(args.steps):
         b = next(raw)
         batch = to_device({"tokens": b["seq"][..., :-1],
                            "labels": b["seq"][..., 1:]}, device)
-        internals = {} if capture_first_stack and t == 0 else None
+        capture = capture_first_stack and t == 0
+        internals = {} if capture or searches else None
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch, internals,
                                  generator=generator)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         ms = 1e3 * (time.perf_counter() - t0)
-        if internals is not None:
+        if capture:
             out.update(internals)
         for k in ("loss", "direction_norm", "kappa_hat", "lr"):
             history[k].append(float(metrics[k]))
+        if searches:
+            history["eta"].append(float(internals["eta"]))
         history["ms"].append(ms)
+        del internals
         if (t + 1) % args.log_every == 0 or t == 0:
+            eta = f" eta={history['eta'][-1]:g}" if searches else ""
             print(f"step {t + 1:5d} loss={history['loss'][-1]:.4f} "
                   f"|R|={history['direction_norm'][-1]:.3f} "
                   f"kappa_hat={history['kappa_hat'][-1]:.3f} "
-                  f"lr={history['lr'][-1]:.4f} ({ms:.1f} ms/step)")
+                  f"lr={history['lr'][-1]:.4f}{eta} ({ms:.1f} ms/step)")
 
     rec = kdispatch.last_dispatch()
     launches = kdispatch.launch_counts()

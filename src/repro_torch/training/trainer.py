@@ -56,7 +56,7 @@ Tensor = torch.Tensor
 class ByzantineConfig:
     """Simulation of f Byzantine workers executing ``attack``."""
     f: int = 0
-    attack: str = "none"           # none|alie|foe|sf|lf|nan|inf
+    attack: str = "none"           # a name of core.types.ATTACKS
     eta: Optional[float] = None
 
 
@@ -134,15 +134,23 @@ def kappa_hat_masked(agg: PyTree, stack: PyTree, n_honest) -> Tensor:
 def build_train_step(loss_fn: Callable, optimizer: Optimizer,
                      cfg: TrainerConfig, lr_schedule: Callable) -> Callable:
     """Returns ``step(state, batch, internals=None, *, generator=None,
-    perm=None) -> (state, metrics)``.
+    perm=None, signs=None) -> (state, metrics)``.
 
     ``loss_fn(params, worker_batch) -> (scalar, metrics_dict)`` is the
     per-worker loss; ``batch`` carries a leading worker axis on every leaf
     and lies on the parameters' device.  ``internals``: pass a dict and the
     step stores the attacked flat stack (``"attacked"``) and its layout
-    (``"layout"``) into it.  ``generator`` (the reference's ``key``) draws
-    the bucket permutation of a ``hier`` / ``pre="bucketing"`` spec, and
-    is not touched otherwise; ``perm`` gives that permutation explicitly.
+    (``"layout"``) into it, the sketch's ``"signs"`` when drawn, and
+    under ``alie_opt`` / ``foe_opt`` the chosen ``"eta"`` and the grid's
+    ``"damages"`` (device tensors).
+    ``generator`` (the reference's ``key``) draws the bucket permutation
+    of a ``hier`` / ``pre="bucketing"`` spec and then the signs of a
+    ``sketch_dim`` one, ONCE a step (``robust_lib.draw_randomness``), and
+    is not touched otherwise; ``perm`` / ``signs`` give them explicitly.
+    The optimized attacks' 12 candidate aggregates and the deployed one
+    all see that one draw, as the reference's closure shares its
+    ``agg_key``; the search overwrites the f rows of the one attacked
+    copy in place.
     """
     if cfg.algorithm not in ("dshb", "dgd"):
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
@@ -155,7 +163,8 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     def step(state: TrainState, batch: PyTree,
              internals: Optional[dict] = None, *,
              generator: Optional[torch.Generator] = None,
-             perm: Optional[Tensor] = None):
+             perm: Optional[Tensor] = None,
+             signs: Optional[list] = None):
         params = state["params"]
         leaves = tree_leaves(params)
         skeleton = tree_structure(params)
@@ -188,6 +197,16 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             losses.append(loss.detach().float())
             del grads, req, loss
 
+        # One randomness draw for every aggregate of the step.
+        perm, signs = robust_lib.draw_randomness(
+            kdispatch.stack_views(stack, layout), spec, generator=generator,
+            perm=perm, signs=signs)
+
+        def aggregate(flat):
+            return robust_lib.robust_aggregate(
+                kdispatch.stack_views(flat, layout), spec, perm=perm,
+                signs=signs)
+
         # Byzantine simulation: a copy of the stack with the last f rows
         # overwritten (the honest state itself is not touched).
         attack = cfg.byz.attack
@@ -196,14 +215,17 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         else:
             attacked = attack_flat_(
                 attack, stack.clone(), f, eta=cfg.byz.eta,
-                segments=[(off, size) for off, size, _ in layout.segments])
+                segments=[(off, size) for off, size, _ in layout.segments],
+                agg_closure=aggregate if attack.endswith("_opt") else None,
+                internals=internals)
         attacked_tree = kdispatch.stack_views(attacked, layout)
         if internals is not None:
             internals["attacked"] = attacked
             internals["layout"] = layout
+            if signs is not None:
+                internals["signs"] = signs
 
-        direction = robust_lib.robust_aggregate(attacked_tree, spec,
-                                                generator=generator, perm=perm)
+        direction = aggregate(attacked)
         lr = lr_schedule(state["step"])
         new_params, new_opt = optimizer.update(direction, state["opt_state"],
                                                params, lr)

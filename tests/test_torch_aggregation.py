@@ -289,9 +289,19 @@ def test_theory_matches_reference():
                                 dict(backend="pallas_hier")])
 def test_unported_options_raise(kw):
     """What the port does not run yet raises naming its ROADMAP item
-    (hier and pre="bucketing" are ported: see the tests below)."""
+    (hier and pre="bucketing" are ported: see the tests below).
+    ``sketch_dim`` is ported: with no randomness it takes the exact Gram,
+    as the reference does with ``key=None`` (tests/test_torch_sketch.py
+    holds the sketch itself)."""
+    tree = _to_torch(_tree(0))
+    if "sketch_dim" in kw:
+        got = t_aggregate(tree, TSpec(rule="cwtm", f=2, **kw))
+        want = t_aggregate(tree, TSpec(rule="cwtm", f=2))
+        for k in want:
+            assert torch.equal(got[k], want[k])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_aggregate(_to_torch(_tree(0)), TSpec(rule="cwtm", f=2, **kw))
+        t_aggregate(tree, TSpec(rule="cwtm", f=2, **kw))
 
 
 # --- hierarchical aggregation and pre="bucketing" -------------------------

@@ -473,8 +473,9 @@ def test_feature_poisoned_lane_equals_fed_server_rounds_fed_its_noise():
     losses, norms = [], []
     for r in range(job.rounds):
         batch, cohort, _, (attack, eta, _) = t_plan(job, r, rng)
-        perm, noise = lane_draws(job.cfg, gen, batch)
-        assert perm is None and noise.shape == batch["x"].shape
+        perm, noise, signs = lane_draws(job.cfg, gen, batch)
+        assert perm is None and signs is None
+        assert noise.shape == batch["x"].shape
         state, metrics = server.round_fn(attack, job.m_byz)(
             state, batch, cohort, 0.0 if eta is None else eta, noise=noise)
         losses.append(float(metrics["loss"]))

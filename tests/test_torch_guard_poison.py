@@ -98,8 +98,10 @@ def test_apply_attack_scan_equals_tree_and_reference(attack_id):
 
 
 def test_apply_attack_scan_refuses_unported_families():
+    """An ``_opt`` family (ported) without its ``agg_closure`` raises as in
+    the reference, whichever branch the round takes; unknown names raise."""
     tree = _t(_np_tree())
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(ValueError, match="requires agg_closure"):
         apply_attack_scan(("none", "alie_opt"), 0, tree, 2)
     with pytest.raises(ValueError, match="unknown attack"):
         apply_attack_scan(("none", "wat"), 0, tree, 2)

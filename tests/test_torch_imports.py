@@ -27,10 +27,19 @@ import repro_torch.checkpoint, repro_torch.checkpoint.npz
 import repro_torch.resilience, repro_torch.resilience.store
 import repro_torch.resilience.experiment, repro_torch.resilience.faults
 import repro_torch.serving, repro_torch.serving.engine
-from repro_torch.launch import grid, scenarios, service, train
+import repro_torch.robustness.breakdown
+from repro_torch.core import apply_attack, nnm_direct, theory
+from repro_torch.launch import breakdown, grid, scenarios, service, train
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--byz", "1", "--seq", "8", "--batch", "1"])
 assert out["history"]["loss"], out
+out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
+                  "--byz", "1", "--seq", "8", "--batch", "1",
+                  "--attack", "foe_opt", "--sketch-dim", "64"])
+assert out["history"]["loss"], out
+assert "sketch_gram" in [d.primitive for d in out["dispatch"].decisions]
+out = breakdown.main(["--device", "cpu", "--n", "4", "--rounds", "1"])
+assert out["n_buckets"] == 10, out
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--byz", "1", "--seq", "8", "--batch", "1",
                   "--agg", "bucketing+cwtm"])
@@ -75,7 +84,8 @@ def test_no_source_file_names_jax_or_repro():
                 "resilience/store.py", "resilience/experiment.py",
                 "resilience/faults.py", "training/trainer.py",
                 "serving/__init__.py", "serving/engine.py",
-                "launch/service.py"):
+                "launch/service.py", "robustness/breakdown.py",
+                "launch/breakdown.py", "core/theory.py", "core/nnm.py"):
         assert PKG / mod in files, mod
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
@@ -118,6 +128,12 @@ def test_entry_point_without_cpu_request_raises_without_gpu(monkeypatch):
         FleetService()
     with pytest.raises(RuntimeError, match="no GPU"):
         service.main(["--rounds", "1"])
+    from repro_torch.launch import breakdown
+    from repro_torch.robustness import run_breakdown
+    with pytest.raises(RuntimeError, match="no GPU"):
+        breakdown.main(["--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no GPU"):
+        run_breakdown(n_clients=4, rounds=1)
     assert resolve_device("cpu").type == "cpu"
 
 

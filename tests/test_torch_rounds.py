@@ -292,15 +292,19 @@ def test_run_rounds_scan_and_loop_against_reference_loop(name):
 
 
 def test_run_rounds_refuses_unported_attack_and_taps():
+    """Taps are still refused (item 10).  The ``_opt`` attacks, refused
+    before they were ported, now run on both engines, equal bit for bit
+    (tests/test_torch_attacks_opt.py holds them to the reference)."""
     centers = _centers(0, _N, _D)
-    server = _t_server(2, centers=centers)
-    state = server.init_state({"theta": torch.zeros(_D)})
+    out = []
     for engine in ("scan", "loop"):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            run_rounds(server, state, _idx_batch_fn, 2,
-                       schedule=constant_attack("alie_opt"), engine=engine)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        server.round_fn("foe_opt", 2)
+        server = _t_server(2, centers=centers)
+        state = server.init_state({"theta": torch.zeros(_D)})
+        out.append(run_rounds(server, state, _idx_batch_fn, 2,
+                              schedule=constant_attack("alie_opt"),
+                              engine=engine)[0]["params"]["theta"])
+    assert torch.equal(out[0], out[1]) and bool(torch.isfinite(out[0]).all())
+    assert callable(server.round_fn("foe_opt", 2))
     with pytest.raises(NotImplementedError, match="item 10"):
         _t_server(2, centers=centers, taps=True)
 
