@@ -142,12 +142,28 @@ Phases, each fatal on failure:
      sweep at examples/breakdown_frontier.py's defaults (85 lanes, 20
      rounds) on both backends: equal frontiers, losses within 1e-4, K3 /
      K4 / K5 launches asserted, the frontier table printed;
- 16. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 16. the in-round health taps and the runtime's exporters: (a)
+     train_loop at full width, n = 8, f = 2, ALIE, NNM + CWTM, 3 steps
+     tapped and untapped (params, loss, kappa_hat, direction_norm bit for
+     bit, 1 K1 + 1 K2 a step, one metric transfer each, the tap columns'
+     semantics, ms/step and peaks), step 1's stack through the kernel
+     and torch backends' taps (neighbor_count and mix_mass equal,
+     trim_frac within 1e-6, dist / cos within 1e-5), NNM + GM tapped (2
+     steps, K1 + K3, no trim taps); (b) FedServer at 12b's width tapped
+     against untapped (2 rounds, bitwise) and faulty_nan_quarantine
+     tapped (20 rounds, the quarantine taps on the Byzantine mask); (c)
+     the grid's cwtm|nnm and gm|nnm buckets, 30 rounds tapped against
+     untapped (bitwise, equal K3 / K4 / K5 launches) and against the
+     torch backend's taps (1e-4); (d) two tapped lanes through
+     FleetService, restored from a mid-run snapshot, bit for bit; (e)
+     ``launch.health`` on the card: both exports, the JSONL round trip,
+     a monotone Chrome trace, the switch round visible in the taps;
+ 17. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6), the
-     fed phase's launches, phase 13's, 14's and 15's launches, the
-     kernels JSON line (K1, K2, K4 and K5 launches include phase 13's;
-     K2-K5 phase 14's; K1-K6 phase 15's), the card line, and last the
-     {"ok": true, ...} line.
+     fed phase's launches, phase 13's to 16's launches, the kernels JSON
+     line (K1, K2, K4 and K5 launches include phase 13's; K2-K5 phase
+     14's; K1-K6 phase 15's; K1-K5 phase 16's), the card line, and last
+     the {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -2659,6 +2675,467 @@ def phase_breakdown(dev) -> dict:
     return kernel_counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the in-round health taps and the runtime's exporters.
+# ---------------------------------------------------------------------------
+
+TAPS_STEPS, TAPS_GM_STEPS = 3, 2            # 16a
+TAPS_FED_ROUNDS, TAPS_NAN_ROUNDS = 2, 20    # 16b
+TAPS_FLEET_ROUNDS, TAPS_FLEET_CHUNK = 30, 10    # 16c
+TAPS_SVC_ROUNDS, TAPS_SVC_CHUNK = 12, 3     # 16d
+TAPS_REL = 1e-5         # dist / cos, kernel vs torch backend taps
+TAPS_TRIM_ABS = 1e-6    # trim_frac, kernel vs torch backend taps
+TAPS_FLEET_RTOL = 1e-4  # the fleet's kernel vs torch backend tolerance
+
+
+def fleet_taps_close(what: str, got, want, worst: dict) -> None:
+    """A lane's tap columns on the kernel backend (``got``) against the
+    torch backend's (``want``, FedHistory each): equal fields and NaN
+    positions, and each difference within TAPS_FLEET_RTOL of the field's
+    scale.  The scale of ``dist_honest`` = ||R - mbar|| is ||R|| + ||mbar||
+    <= 2 ||R|| + dist (the round's direction_norm and its dist): the
+    fleet's tolerance holds R and mbar, and their difference carries
+    their error, not its own size's.  The cosine and the shares lie in
+    [-1, 1]: scale 1.  Neighbour counts must be equal.  ``worst`` keeps
+    each field's largest difference over its scale."""
+    import numpy as np
+    g, w = got.tap_columns(), want.tap_columns()
+    if sorted(g) != sorted(w):
+        raise AssertionError(f"{what}: tap fields {sorted(g)} vs {sorted(w)}")
+    dn = np.asarray(want.direction_norm, np.float64)
+    for k in w:
+        a = np.asarray(g[k], np.float64)
+        b = np.asarray(w[k], np.float64)
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"{what}: {k} NaN positions differ")
+        scale = 2 * dn + np.abs(b) if k == "dist_honest" else np.ones_like(b)
+        ok = ~np.isnan(b)
+        ratio = np.abs(a - b)[ok] / scale[ok]
+        worst[k] = max(worst.get(k, 0.0), float(ratio.max(initial=0.0)))
+        limit = 0.0 if k == "neighbor_count" else TAPS_FLEET_RTOL
+        if (ratio > limit).any():
+            raise AssertionError(f"{what}: {k} differs by {ratio.max():.3e} "
+                                 f"of its scale (limit {limit:g})")
+
+
+def taps_train(dev, model, params, spec_kw: dict, steps: int, taps: bool):
+    """train_loop (scan engine, segments of one step) at full width, n = 8,
+    f = 2, ALIE; returns (params, out, launches, peak bytes)."""
+    import torch
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.training import ByzantineConfig, TrainerConfig, train_loop
+    cfg = TrainerConfig(agg=AggregatorSpec(f=F_MAIN, **spec_kw),
+                        byz=ByzantineConfig(f=F_MAIN, attack="alie"),
+                        taps=taps)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    p, out = train_loop(model.loss, params, lm_batches(N_MAIN), sgd(clip=2.0),
+                        cfg, cosine(0.05, steps, warmup=0), steps, seed=0,
+                        track_best=False, chunk=1)
+    torch.cuda.synchronize(dev)
+    counts = kdispatch.launch_counts()
+    no_fallback(f"16a taps={taps}")
+    for k in ("loss", "kappa_hat", "direction_norm"):
+        if not all(math.isfinite(v) for v in out["history"][k]):
+            raise AssertionError(f"16a: non-finite {k}")
+    del out["state"]
+    return p, out, counts, torch.cuda.max_memory_allocated(dev)
+
+
+def taps_backends(dev, model, params) -> None:
+    """16a: step 1's attacked stack through the kernel backend's taps
+    (the NNM matrix stashed, the trim taps' mix and sort redone in
+    chunks) and the torch backend's (the mixed and sorted stacks
+    stashed); the kernel backend's taps call timed alone."""
+    import torch
+    from repro_torch.core.robust import robust_aggregate
+    from repro_torch.core.theory import tree_kappa_hat
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.obs.taps import health_taps
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.rounds import round_generator, round_seeds
+    from repro_torch.training import (ByzantineConfig, TrainerConfig,
+                                      build_train_step, init_state)
+    from repro_torch.training.trainer import to_device
+    cfg = TrainerConfig(agg=AggregatorSpec(rule="cwtm", f=F_MAIN, pre="nnm"),
+                        byz=ByzantineConfig(f=F_MAIN, attack="alie"))
+    opt = sgd(clip=2.0)
+    step = build_train_step(model.loss, opt, cfg, cosine(0.05, 1, warmup=0))
+    state = init_state(params, opt, N_MAIN, cfg)
+    internals: dict = {}
+    step(state, to_device(next(lm_batches(N_MAIN)), dev), internals,
+         generator=round_generator(round_seeds(0, 1)[0]))
+    del state
+    torch.cuda.empty_cache()
+    stack = kdispatch.stack_views(internals["attacked"], internals["layout"])
+    got, secs = {}, {}
+    for backend in ("cuda", "torch"):
+        spec = AggregatorSpec(rule="cwtm", f=F_MAIN, pre="nnm", backend=backend)
+        stash: dict = {}
+        agg = robust_aggregate(stack, spec, internals=stash)
+        tree_kappa_hat(agg, stack, N_MAIN - F_MAIN, stash)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        taps = health_taps(stack, agg, n_honest=N_MAIN - F_MAIN, f=F_MAIN,
+                           rule="cwtm", pre="nnm", internals=stash)
+        torch.cuda.synchronize(dev)
+        secs[backend] = time.perf_counter() - t0
+        got[backend] = {k: v.double().cpu().numpy()
+                        for k, v in taps.to_dict().items()}
+        del agg, stash, taps
+        torch.cuda.empty_cache()
+    k, t = got["cuda"], got["torch"]
+    import numpy as np
+    for f in ("neighbor_count", "mix_mass", "byz_mix_mass", "honest_mix_mass"):
+        if not np.array_equal(k[f], t[f]):
+            raise AssertionError(f"16a: {f} differs between the backends")
+    trim = float(np.abs(k["trim_frac"] - t["trim_frac"]).max())
+    rel = {f: float(abs(k[f] - t[f]) / abs(t[f]))
+           for f in ("dist_honest", "cos_honest")}
+    if trim > TAPS_TRIM_ABS or max(rel.values()) > TAPS_REL:
+        raise AssertionError(f"16a: backends' taps: trim {trim}, {rel}")
+    log(f"  step 1's stack, kernel vs torch backend taps: neighbor_count, "
+        f"mix_mass equal; trim_frac max abs diff {trim:.3e} (tol "
+        f"{TAPS_TRIM_ABS:g}); dist_honest / cos_honest rel diff "
+        f"{rel['dist_honest']:.3e} / {rel['cos_honest']:.3e} (tol "
+        f"{TAPS_REL:g}); health_taps alone: kernel backend (trim recomputed "
+        f"in chunks) {1e3 * secs['cuda']:.1f} ms, torch backend (stashed) "
+        f"{1e3 * secs['torch']:.1f} ms")
+    log(f"    neighbor_count {k['neighbor_count'].tolist()}, byz_mix_mass "
+        f"{float(k['byz_mix_mass']):.4f}, trim_frac "
+        f"{[round(v, 4) for v in k['trim_frac'].tolist()]}")
+
+
+def phase_taps_trainer(dev, model, params, peak7: int) -> dict:
+    """16a: the main path tapped against untapped, then the backends'
+    taps on step 1's stack, then NNM + GM tapped; returns launches."""
+    import numpy as np
+    import torch
+    total: dict = {}
+    runs = {}
+    for taps in (False, True):
+        p, out, counts, peak = taps_train(dev, model, params,
+                                          dict(rule="cwtm", pre="nnm"),
+                                          TAPS_STEPS, taps)
+        check_launches(f"16a taps={taps}",
+                       {k: counts[k] for k in ("gram", "mixtrim")},
+                       {"gram": TAPS_STEPS, "mixtrim": TAPS_STEPS})
+        add_counts(total, counts)
+        runs[taps] = (p, out, peak)
+    (p0, off, peak0), (p1, on, peak1) = runs[False], runs[True]
+    same_tree("16a tapped vs untapped params", p1, p0)
+    for k in ("loss", "kappa_hat", "direction_norm", "lr"):
+        if on["history"][k] != off["history"][k]:
+            raise AssertionError(f"16a: {k} differs tapped vs untapped")
+    transfers = (off["scan_report"]["transfers"], on["scan_report"]["transfers"])
+    if transfers != (1, 1):
+        raise AssertionError(f"16a: metric transfers {transfers}")
+    cols = on["history"]["taps"]
+    mass = cols["byz_mix_mass"].astype(np.float64) + cols["honest_mix_mass"]
+    tf = cols["trim_frac"]
+    if (np.abs(mass - 1.0).max() > 1e-6 or (tf < 0).any() or (tf > 1).any()
+            or (tf.sum(axis=1) > 2 * F_MAIN + 1e-5).any()):
+        raise AssertionError(f"16a: tap semantics: mass {mass}, trim {tf}")
+    ms = {t: [round(1e3 * s, 1) for _, _, s in runs[t][1]["scan_report"]
+              ["segments"]] for t in (False, True)}
+    log(f"  nnm+cwtm, {TAPS_STEPS} steps: tapped == untapped bit for bit "
+        f"(params, loss, kappa_hat, direction_norm), 1 K1 + 1 K2 a step, "
+        f"1 metric transfer each; ms/step untapped {ms[False]}, tapped "
+        f"{ms[True]}; peak untapped {peak0 / 2**30:.2f} GiB, tapped "
+        f"{peak1 / 2**30:.2f} GiB (phase 7: {peak7 / 2**30:.2f} GiB)")
+    log(f"    dist_honest {[round(float(v), 5) for v in cols['dist_honest']]}, "
+        f"cos_honest {[round(float(v), 5) for v in cols['cos_honest']]}, "
+        f"byz_mix_mass {[round(float(v), 4) for v in cols['byz_mix_mass']]}, "
+        f"trim_frac rows sum {[round(float(v), 4) for v in tf.sum(axis=1)]}")
+    del runs, p0, p1, off, on
+    torch.cuda.empty_cache()
+    taps_backends(dev, model, params)
+    p, out, counts, peak = taps_train(dev, model, params,
+                                      dict(rule="gm", pre="nnm"),
+                                      TAPS_GM_STEPS, True)
+    check_launches("16a nnm+gm", {k: counts[k] for k in ("gram", "combine",
+                                                          "mixtrim")},
+                   {"gram": TAPS_GM_STEPS, "combine": TAPS_GM_STEPS,
+                    "mixtrim": 0})
+    if "trim_frac" in out["history"]["taps"]:
+        raise AssertionError("16a: GM has no trim taps")
+    add_counts(total, counts)
+    log(f"  nnm+gm tapped, {TAPS_GM_STEPS} steps: 1 K1 + 1 K3 a step, taps "
+        f"{sorted(out['history']['taps'])}; ms/step "
+        f"{[round(1e3 * s, 1) for _, _, s in out['scan_report']['segments']]}, "
+        f"peak {peak / 2**30:.2f} GiB")
+    del p, out
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_taps_fed(dev, model, params) -> dict:
+    """16b: FedServer at 12b's full width, tapped against untapped, then
+    faulty_nan_quarantine tapped against untapped; returns launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.fed import (ClientConfig, FedConfig, FedServer,
+                                 constant_attack, run_rounds, run_scenario)
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import constant
+    from repro_torch.rounds import RoundOptions
+    total: dict = {}
+    runs = {}
+    for taps in (False, True):
+        cfg = FedConfig(n_clients=FED_CLIENTS, clients_per_round=FED_COHORT,
+                        f=FED_F, agg=AggregatorSpec(rule="cwtm", f=FED_F,
+                                                    pre="nnm"),
+                        client=ClientConfig(local_steps=0, algorithm="dshb",
+                                            beta=0.9), taps=taps)
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        server = FedServer(model.loss, sgd(clip=2.0), cfg, constant(0.05),
+                           device=dev)
+        state, hist = run_rounds(server, server.init_state(params),
+                                 fed_lm_batch_fn(FED_CLIENTS), TAPS_FED_ROUNDS,
+                                 schedule=constant_attack("alie", 8.0), seed=0,
+                                 chunk=1)
+        counts = kdispatch.launch_counts()
+        no_fallback(f"16b taps={taps}")
+        add_counts(total, counts)
+        runs[taps] = (state["params"], hist, counts,
+                      seg_ms(server.last_scan_report))
+        del state, server
+        torch.cuda.empty_cache()
+    (p0, h0, c0, ms0), (p1, h1, c1, ms1) = runs[False], runs[True]
+    same_tree("16b tapped vs untapped params", p1, p0)
+    if (h0.loss, h0.kappa_hat, h0.direction_norm) != \
+            (h1.loss, h1.kappa_hat, h1.direction_norm) or c0 != c1:
+        raise AssertionError("16b: the tapped fed run differs")
+    cols = h1.tap_columns()
+    log(f"  FedServer full width, {TAPS_FED_ROUNDS} rounds: tapped == "
+        f"untapped bit for bit, launches {({k: c1[k] for k in ('gram', 'mixtrim')})} "
+        f"each; ms/round untapped {[round(v, 1) for v in ms0]}, tapped "
+        f"{[round(v, 1) for v in ms1]}; taps {sorted(cols)}")
+    del runs, p0, p1
+    torch.cuda.empty_cache()
+    name = "faulty_nan_quarantine"
+    outs = {}
+    for taps in (False, True):
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        outs[taps] = run_scenario(name, rounds=TAPS_NAN_ROUNDS, seed=0,
+                                  device=dev, options=RoundOptions(
+                                      chunk=FED_CHUNK, taps=taps))
+        no_fallback(f"16b {name}")
+        add_counts(total, kdispatch.launch_counts())
+    h0, h1 = outs[False]["history"], outs[True]["history"]
+    q = outs[False]["server"].last_scan_report["quarantined_count"]
+    cols = h1.tap_columns()
+    m_byz = h1.m_byz[0]
+    if h0.loss != h1.loss or h0.kappa_hat != h1.kappa_hat:
+        raise AssertionError(f"16b {name}: tapped vs untapped differ")
+    if (cols["quarantined_count"].tolist() != [float(v) for v in q]
+            or q != [m_byz] * TAPS_NAN_ROUNDS
+            or not np.array_equal(cols["quarantine_mask_byz"].sum(axis=1),
+                                  cols["quarantined_count"])
+            or cols["quarantine_mask_honest"].any()):
+        raise AssertionError(f"16b {name}: quarantine taps {cols} vs {q}")
+    log(f"  {name}, {TAPS_NAN_ROUNDS} rounds tapped == untapped bit for "
+        f"bit; quarantined_count tap {int(cols['quarantined_count'][0])} "
+        f"every round (the untapped run's metric too), all on the Byzantine "
+        f"rows' mask; ms/round tapped "
+        f"{statistics.median(seg_ms(outs[True]['server'].last_scan_report)):.2f}"
+        f", untapped "
+        f"{statistics.median(seg_ms(outs[False]['server'].last_scan_report)):.2f}"
+        f" (medians)")
+    return total
+
+
+def phase_taps_fleet(dev) -> dict:
+    """16c: the grid's cwtm|nnm and gm|nnm buckets on FleetRunner, tapped
+    against untapped (bitwise, equal launches) and the kernel backend's
+    tap columns against the torch backend's; returns launches."""
+    from repro_torch.fleet import FleetRunner
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import grid
+    from repro_torch.rounds import RoundOptions
+    jobs = [j for j in grid.build_jobs(full=True, alpha=0.1,
+                                       steps=TAPS_FLEET_ROUNDS)
+            if j.label.startswith(("cwtm|nnm|", "gm|nnm|"))]
+    total: dict = {}
+    res, counts, ms = {}, {}, {}
+    for name, opts in (("untapped", RoundOptions(chunk=TAPS_FLEET_CHUNK)),
+                       ("tapped", RoundOptions(chunk=TAPS_FLEET_CHUNK,
+                                               taps=True)),
+                       ("torch", RoundOptions(chunk=TAPS_FLEET_CHUNK,
+                                              taps=True, backend="torch"))):
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        runner = FleetRunner(jobs, device=dev, options=opts)
+        if runner.n_buckets != 2:
+            raise AssertionError(f"16c: {runner.n_buckets} buckets")
+        res[name] = runner.run()
+        counts[name] = service_launches()
+        if name != "torch":
+            no_fallback(f"16c {name}")
+            add_counts(total, counts[name])
+        ms[name] = ms_per_bucket_round((b, n, s) for b, _, n, s
+                                       in runner.segment_log)
+    want = add_counts(lane_expected("cwtm", "nnm", TAPS_FLEET_ROUNDS, 5),
+                      lane_expected("gm", "nnm", TAPS_FLEET_ROUNDS, 5))
+    check_launches("16c untapped", counts["untapped"], want)
+    check_launches("16c tapped", counts["tapped"], want)
+    if any(counts["torch"].values()):
+        raise AssertionError("16c: the torch backend launched a kernel")
+    worst: dict = {}
+    for a, b, t in zip(res["tapped"], res["untapped"], res["torch"]):
+        for col in ("loss", "direction_norm", "kappa_hat"):
+            if getattr(a.history, col) != getattr(b.history, col):
+                raise AssertionError(f"16c {a.label}: {col} differs")
+        same_tree(f"16c {a.label}: state", a.state, b.state)
+        if b.history.tap_columns():
+            raise AssertionError(f"16c {b.label}: untapped run has taps")
+        fleet_taps_close(f"16c {a.label}", a.history, t.history, worst)
+    log(f"  cwtm|nnm and gm|nnm (5 lanes each, n=17, f={F_GRID}), "
+        f"{TAPS_FLEET_ROUNDS} rounds: tapped == untapped bit for bit, "
+        f"launches {counts['tapped']} each; ms per bucket-round untapped "
+        f"{ {k: round(v, 3) for k, v in ms['untapped'].items()} }, tapped "
+        f"{ {k: round(v, 3) for k, v in ms['tapped'].items()} }; kernel vs "
+        f"torch backend tap columns, largest difference over each field's "
+        f"scale (limit {TAPS_FLEET_RTOL:g}, neighbor_count 0): "
+        f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }")
+    return total
+
+
+def phase_taps_service(dev) -> dict:
+    """16d: two tapped jobs through FleetService, a snapshot mid-run, a
+    restore; the tap columns equal the uninterrupted run's bit for bit;
+    returns launches."""
+    import dataclasses
+    import tempfile
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import grid
+    from repro_torch.resilience import CheckpointConfig
+    from repro_torch.rounds import RoundOptions
+    from repro_torch.serving import FleetService
+    cells = {j.label: j for j in grid.build_jobs(full=True, alpha=0.1,
+                                                 steps=TAPS_SVC_ROUNDS)}
+
+    def jobs():
+        return [dataclasses.replace(cells[label], eval_every=TAPS_SVC_CHUNK)
+                for label in ("cwtm|nnm|alie", "cwtm|nnm|sf")]
+
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    ref = FleetService(chunk=TAPS_SVC_CHUNK, options=RoundOptions(taps=True),
+                       device=dev)
+    handles = [ref.submit(j) for j in jobs()]
+    want = [h.result() for h in handles]
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = RoundOptions(taps=True, checkpoint=CheckpointConfig(
+            dir=tmp, sync=True))
+        svc = FleetService(chunk=TAPS_SVC_CHUNK, options=opts, device=dev)
+        ids = [svc.submit(j).job_id for j in jobs()]
+        svc.step()
+        svc.step()
+        del svc
+        restored = FleetService.restore(opts.checkpoint,
+                                        jobs=dict(zip(ids, jobs())),
+                                        device=dev)
+        got = [restored.handle_of(i).result() for i in ids]
+    no_fallback("16d")
+    for a, b in zip(got, want):
+        cols = b.history.tap_columns()
+        if not cols or "trim_frac" not in cols:
+            raise AssertionError(f"16d {b.label}: no tap columns")
+        same_fed_history(f"16d {b.label}", a.history, b.history)
+        same_tree(f"16d {b.label}: state", a.state, b.state)
+    counts = service_launches()
+    log(f"  2 tapped lanes (cwtm|nnm), {TAPS_SVC_ROUNDS} rounds in segments "
+        f"of {TAPS_SVC_CHUNK}: restored after the step-2 snapshot, every "
+        f"history (tap columns included) and state equals the uninterrupted "
+        f"run bit for bit; launches {counts}")
+    return counts
+
+
+def phase_health(dev) -> dict:
+    """16e: python -m repro_torch.launch.health on the card: both files,
+    the JSONL round trip equal to snapshot(), a monotone Chrome trace, and
+    the attack switch visible in the taps; returns launches."""
+    import json as _json
+    import tempfile
+    import numpy as np
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import health
+    from repro_torch.obs import runtime as obs_runtime
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = health.main(["--device", dev.type, "--export-dir", tmp])
+        wall = time.perf_counter() - t0
+        sizes = [os.path.getsize(out[k]) for k in ("jsonl", "chrome")]
+        lines = obs_runtime.import_jsonl(out["jsonl"])
+        with open(out["chrome"]) as fh:
+            rows = _json.load(fh)["traceEvents"]
+    counts = kdispatch.launch_counts()
+    no_fallback("16e")
+    events = [line for line in lines if line["kind"] != "counter"]
+    names = {e["name"] for e in events}
+    ts = [r["ts"] for r in rows]
+    if (min(sizes) == 0 or events != obs_runtime.snapshot()
+            or ts != sorted(ts) or not {"rounds.segment",
+                                        "kernels.dispatch"} <= names):
+        raise AssertionError(f"16e: export sizes {sizes}, names {names}")
+    cols, sw = out["columns"], out["switch"]
+    moved = {k: (float(np.mean(cols[k][:sw])), float(np.mean(cols[k][sw:])))
+             for k in ("byz_mix_mass", "dist_honest")}
+    if any(a == b for a, b in moved.values()):
+        raise AssertionError(f"16e: the switch does not show: {moved}")
+    log(f"  launch.health: {len(cols['dist_honest'])} rounds in {wall:.2f} s, "
+        f"switch at round {sw}: byz_mix_mass {moved['byz_mix_mass'][0]:.4f} "
+        f"-> {moved['byz_mix_mass'][1]:.4f}, dist_honest "
+        f"{moved['dist_honest'][0]:.4f} -> {moved['dist_honest'][1]:.4f}; "
+        f"JSONL {sizes[0]} B ({len(lines)} lines, round trip == snapshot()), "
+        f"Chrome trace {sizes[1]} B ({len(rows)} rows, ts nondecreasing); "
+        f"launches K1 {counts['gram']}, K2 {counts['mixtrim']}")
+    return {k: counts[k] for k in ("gram", "mixtrim")}
+
+
+def phase_taps(dev, peak7: int) -> dict:
+    """Phase 16; returns its launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    model = build_model(get_config("smollm-360m"))
+    params = model.init(0, dev)
+    log("-- 16a. the main path tapped, full-width smollm-360m, n=8 f=2 ALIE")
+    total = phase_taps_trainer(dev, model, params, peak7)
+    secs = {"16a": time.perf_counter() - t0}
+    log("-- 16b. FedServer tapped at full width; faulty_nan_quarantine")
+    add_counts(total, phase_taps_fed(dev, model, params))
+    del params
+    torch.cuda.empty_cache()
+    secs["16b"] = time.perf_counter() - t0 - sum(secs.values())
+    log("-- 16c. tapped fleet lanes: the grid's cwtm|nnm and gm|nnm buckets")
+    add_counts(total, phase_taps_fleet(dev))
+    secs["16c"] = time.perf_counter() - t0 - sum(secs.values())
+    log("-- 16d. tapped lanes through FleetService, snapshot and restore")
+    add_counts(total, phase_taps_service(dev))
+    secs["16d"] = time.perf_counter() - t0 - sum(secs.values())
+    log("-- 16e. python -m repro_torch.launch.health on the card")
+    add_counts(total, phase_health(dev))
+    secs["16e"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"  seconds: { {k: round(v, 1) for k, v in secs.items()} }")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2802,7 +3279,13 @@ def main() -> int:
     log(json.dumps({"opt_sketch_breakdown_launches": counts_opt}))
     log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
 
-    log("== 16. summary")
+    t16 = time.perf_counter()
+    log("== 16. the in-round health taps and the runtime's exporters")
+    counts_taps = phase_taps(dev, peak7)
+    log(json.dumps({"taps_launches": counts_taps}))
+    log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
+
+    log("== 17. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -2816,18 +3299,19 @@ def main() -> int:
         "gram": ("src/repro_torch/kernels/csrc/gram.cu",
                  "src/repro/kernels/gram/kernel.py:50",
                  counts_main["gram"] + counts_resume["gram"]
-                 + counts_opt["gram"]),
+                 + counts_opt["gram"] + counts_taps["gram"]),
         "gram_tiled": ("src/repro_torch/kernels/csrc/gram.cu",
                        "src/repro/kernels/gram/kernel.py:50",
                        hier["launches"]["gram_tiled"]),
         "mixtrim": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cuh",
                     "src/repro/kernels/mixtrim/kernel.py:177",
                     counts_main["mixtrim"] + counts_resume["mixtrim"]
-                    + counts_service["mixtrim"] + counts_opt["mixtrim"]),
+                    + counts_service["mixtrim"] + counts_opt["mixtrim"]
+                    + counts_taps["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",
                     "src/repro/kernels/combine/kernel.py:34",
                     counts_gm["combine"] + counts_service["combine"]
-                    + counts_opt["combine"]),
+                    + counts_opt["combine"] + counts_taps["combine"]),
         "mixtrim_select": ("src/repro_torch/kernels/csrc/mixtrim_select.cu",
                            "src/repro/kernels/mixtrim/kernel.py:177",
                            hier["launches"]["mixtrim_select"]),
@@ -2839,13 +3323,15 @@ def main() -> int:
                         counts_grid["mixtrim_dyn"]
                         + counts_resume["mixtrim_dyn"]
                         + counts_service["mixtrim_dyn"]
-                        + counts_opt["mixtrim_dyn"]),
+                        + counts_opt["mixtrim_dyn"]
+                        + counts_taps["mixtrim_dyn"]),
         "gram_batched": ("src/repro_torch/kernels/csrc/gram_batched.cu",
                          "src/repro/kernels/gram/kernel.py:73",
                          counts_grid["gram_batched"]
                          + counts_resume["gram_batched"]
                          + counts_service["gram_batched"]
-                         + counts_opt["gram_batched"]),
+                         + counts_opt["gram_batched"]
+                         + counts_taps["gram_batched"]),
         "bucketgram": ("src/repro_torch/kernels/csrc/bucketgram.cu",
                        "src/repro/kernels/bucketgram/kernel.py:75",
                        counts_hier["bucketgram"] + counts_opt["bucketgram"]),

@@ -73,7 +73,9 @@ from repro_torch.core.types import AggregatorSpec, COORDINATE_RULES, GRAM_RULES
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.kernels._common import sort_nan_last
 from repro_torch.kernels.gram import gram_batched_ref, gram_ref
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (
+    tree_leaves, tree_map, tree_structure, tree_unflatten,
+)
 
 PyTree = Any
 Tensor = torch.Tensor
@@ -203,8 +205,10 @@ def tree_mix(tree: PyTree, m: Tensor) -> PyTree:
     return tree_map(mix, tree)
 
 
-def _coordinate_rule(x: Tensor, rule: str, f: int) -> Tensor:
-    """A coordinate-wise rule along axis 0 of one (n, ...) stack, fp32."""
+def _coordinate_rule(x: Tensor, rule: str, f: int,
+                     internals: Optional[dict] = None) -> Tensor:
+    """A coordinate-wise rule along axis 0 of one (n, ...) stack, fp32;
+    cwtm appends its sorted stack to ``internals["sorted_leaves"]``."""
     n = x.shape[0]
     x = x.float()
     if rule == "cwmed":
@@ -212,7 +216,10 @@ def _coordinate_rule(x: Tensor, rule: str, f: int) -> Tensor:
     if rule == "cwtm":
         if f == 0:
             return x.mean(dim=0)
-        return sort_nan_last(x, 0)[f: n - f].mean(dim=0)
+        xs = sort_nan_last(x, 0)
+        if internals is not None:
+            internals.setdefault("sorted_leaves", []).append(xs)
+        return xs[f: n - f].mean(dim=0)
     if rule == "meamed":
         med = _median(x)[None]
         order = torch.argsort(torch.abs(x - med), dim=0, stable=True)
@@ -221,9 +228,13 @@ def _coordinate_rule(x: Tensor, rule: str, f: int) -> Tensor:
     raise ValueError(rule)
 
 
-def _tree_coordinate_rule(tree: PyTree, rule: str, f: int) -> PyTree:
-    """Apply a coordinate-wise rule along the worker axis of every leaf."""
-    return tree_map(lambda leaf: _coordinate_rule(leaf, rule, f), tree)
+def _tree_coordinate_rule(tree: PyTree, rule: str, f: int,
+                          internals: Optional[dict] = None) -> PyTree:
+    """Apply a coordinate-wise rule along the worker axis of every leaf,
+    in leaf order (``internals``: see :func:`_coordinate_rule`)."""
+    return tree_unflatten(tree_structure(tree), [
+        _coordinate_rule(leaf, rule, f, internals)
+        for leaf in tree_leaves(tree)])
 
 
 def _tree_bucket(tree: PyTree, f: int, perm: Tensor,
@@ -279,6 +290,22 @@ def _validate_hier(spec: AggregatorSpec) -> None:
             "signed-sketch gram has no reduced-population form")
 
 
+def validate_taps(spec: AggregatorSpec) -> None:
+    """Health taps are refused with the hierarchical stage: it aggregates
+    ceil(n/s) bucket means, so the NNM matrix and the trim act on those
+    rows and not on the n workers' (the reference's taps fail there with
+    a broadcasting TypeError, (n_b,) against (n,), or count the raw rows'
+    trim the rule never made)."""
+    if spec.hier:
+        raise ValueError(
+            "health taps are not defined with hier=True: the hierarchical "
+            "stage aggregates ceil(n/s) bucket means, so the NNM matrix and "
+            "the trim act on n_b rows, not on the n workers' rows (the "
+            "reference's taps fail there with a broadcasting TypeError, "
+            "shapes (n_b,) and (n,)); run the taps with pre='nnm' or "
+            "pre=None")
+
+
 def _validate(spec: AggregatorSpec) -> None:
     if spec.hier:
         _validate_hier(spec)
@@ -319,12 +346,14 @@ def _hier_reduce_flat(flat: Tensor, spec: AggregatorSpec, f: int, *,
 
 
 def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
-                    return_coeff: bool, perm=None, signs=None) -> PyTree:
+                    return_coeff: bool, perm=None, signs=None,
+                    internals: Optional[dict] = None) -> PyTree:
     """Kernel pipeline: the stack as one (n, D) buffer -> [bucketgram
     (K6 / K7) when hier] -> gram (K1, skipped when K6 gave the Gram; the
     sketch Gram instead when ``signs``) -> NNM / coefficients -> combine
     (K3) or fused mix+trim (K2) -> aggregated pytree (views of one (D,)
-    fp32 vector)."""
+    fp32 vector).  ``internals`` gets the NNM matrix only: K2 writes no
+    mixed or sorted stack."""
     backend = "cuda"
     flat, layout = kdispatch.flatten_worker_stack(work)
     mix_matrix, g = None, None
@@ -340,6 +369,8 @@ def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
             g = kdispatch.dispatch_gram(flat, backend=backend)
     if spec.pre == "nnm":
         mix_matrix = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), f)
+        if internals is not None:
+            internals["mix_matrix"] = mix_matrix
         g = gramlib.mixed_gram(g, mix_matrix)
 
     if spec.rule in GRAM_RULES:
@@ -378,7 +409,8 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
                      generator: Optional[torch.Generator] = None,
                      perm: Optional[Tensor] = None,
                      signs: Optional[list] = None,
-                     return_coeff: bool = False) -> PyTree:
+                     return_coeff: bool = False,
+                     internals: Optional[dict] = None) -> PyTree:
     """Pre-aggregation + rule on a worker-stacked pytree; returns the
     aggregated pytree (worker axis removed).  With ``return_coeff=True``
     also returns the effective coefficient vector of a gram rule (else
@@ -386,8 +418,16 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
     permutation of ``pre="bucketing"`` and ``hier``, then the sketch's
     signs of ``sketch_dim``; ``perm`` / ``signs`` give them explicitly
     (one (C_i,) tensor per leaf, :func:`draw_signs`).  Decisions land on
-    ``kdispatch.last_dispatch()``."""
+    ``kdispatch.last_dispatch()``.
+
+    ``internals`` (the health taps' input, :mod:`repro_torch.obs.taps`):
+    pass a dict and every backend stores the fp32 NNM matrix in it
+    (``"mix_matrix"``); the torch backend also the mixed stack's leaves
+    (``"mixed"``) and cwtm's sorted leaves (``"sorted_leaves"``).  It is
+    refused with ``hier`` (:func:`validate_taps`)."""
     _validate(spec)
+    if internals is not None:
+        validate_taps(spec)
     if spec.pre == "bucketing":
         _need_perm_source(generator, perm, "bucketing")
     if spec.hier:
@@ -409,7 +449,7 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
                           bucket_size=spec.bucket_size)
     if backend == "cuda":
         return _aggregate_flat(work, spec, f, return_coeff=return_coeff,
-                               perm=perm, signs=signs)
+                               perm=perm, signs=signs, internals=internals)
     kdispatch.record_decision("pipeline", "torch", "torch",
                               "leaf-streamed torch path")
 
@@ -436,6 +476,8 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
     mix_matrix = None
     if spec.pre == "nnm":
         mix_matrix = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), f)
+        if internals is not None:
+            internals["mix_matrix"] = mix_matrix
         g = gramlib.mixed_gram(g, mix_matrix)
 
     if spec.rule in GRAM_RULES:
@@ -452,7 +494,9 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
     if spec.rule in COORDINATE_RULES:
         if mix_matrix is not None:
             work = tree_mix(work, mix_matrix)
-        out = _tree_coordinate_rule(work, spec.rule, f)
+            if internals is not None:
+                internals["mixed"] = tree_leaves(work)
+        out = _tree_coordinate_rule(work, spec.rule, f, internals)
         return (out, None) if return_coeff else out
 
     raise ValueError(f"unknown rule {spec.rule!r}")
@@ -498,11 +542,13 @@ def tree_mix_lanes(tree: PyTree, m: Tensor) -> PyTree:
     return tree_map(mix, tree)
 
 
-def _coordinate_rule_lanes(x: Tensor, rule: str, f: Tensor) -> Tensor:
+def _coordinate_rule_lanes(x: Tensor, rule: str, f: Tensor,
+                           internals: Optional[dict] = None) -> Tensor:
     """A coordinate-wise rule along axis 1 of a (B, n, ...) stack with a
     (B,) f, fp32: the rank-mask arithmetic of the reference's
     ``_tree_coordinate_rule_dyn`` (so a non-finite value in a trimmed
-    rank gives NaN, inf * 0)."""
+    rank gives NaN, inf * 0); cwtm appends its sorted stack to
+    ``internals["sorted_leaves"]``."""
     b, n = x.shape[:2]
     x = x.float()
     if rule == "cwmed":
@@ -511,6 +557,8 @@ def _coordinate_rule_lanes(x: Tensor, rule: str, f: Tensor) -> Tensor:
     fl = f.reshape((b, 1) + (1,) * (x.dim() - 2))
     if rule == "cwtm":
         xs = sort_nan_last(x, 1)
+        if internals is not None:
+            internals.setdefault("sorted_leaves", []).append(xs)
         keep = ((i >= fl) & (i < n - fl)).float()
         return (xs * keep).sum(dim=1) / torch.clamp_min(
             (n - 2 * fl[:, 0]).float(), 1.0)
@@ -624,11 +672,12 @@ def _lane_signs(tree: PyTree, spec: AggregatorSpec, generators, signs
 
 def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
                      batched: bool, generators=None, perms=None,
-                     signs=None) -> PyTree:
+                     signs=None, internals: Optional[dict] = None) -> PyTree:
     """The dynamic pipeline on a lane-batched stack (leaves (B, n, ...),
     f (B,)); ``batched=False`` is the single-lane entry point (B = 1),
     whose kernel path takes K1 for the Gram (the sketch Gram when the
-    lanes have ``signs``)."""
+    lanes have ``signs``).  ``internals`` as in :func:`robust_aggregate`,
+    every entry lane-stacked."""
     _validate_dyn(spec)
     leaves = tree_leaves(tree)
     b, n = leaves[0].shape[:2]
@@ -648,7 +697,7 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
                           rule=spec.rule, pre=spec.pre, dyn=True, lanes=b)
     if backend == "cuda":
         return _aggregate_flat_lanes(work, spec, f, batched=batched,
-                                     signs=signs)
+                                     signs=signs, internals=internals)
     kdispatch.record_decision("pipeline", "torch", "torch",
                               "leaf-streamed torch path")
 
@@ -661,6 +710,8 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
     mix_matrix = None
     if spec.pre == "nnm":
         mix_matrix = gramlib.nnm_matrix_dyn(gramlib.pdist_sq_from_gram(g), f)
+        if internals is not None:
+            internals["mix_matrix"] = mix_matrix
         g = gramlib.mixed_gram(g, mix_matrix)
     if spec.rule in GRAM_RULES:
         coeff = gramlib.coeff_for_rule_dyn(
@@ -672,18 +723,22 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
     if spec.rule in COORDINATE_RULES:
         if mix_matrix is not None:
             work = tree_mix_lanes(work, mix_matrix)
-        return tree_map(lambda leaf: _coordinate_rule_lanes(leaf, spec.rule, f),
-                        work)
+            if internals is not None:
+                internals["mixed"] = tree_leaves(work)
+        return tree_unflatten(tree_structure(work), [
+            _coordinate_rule_lanes(leaf, spec.rule, f, internals)
+            for leaf in tree_leaves(work)])
     raise ValueError(f"unknown rule {spec.rule!r}")
 
 
 def _aggregate_flat_lanes(work: PyTree, spec: AggregatorSpec, f: Tensor, *,
-                          batched: bool, signs=None) -> PyTree:
+                          batched: bool, signs=None,
+                          internals: Optional[dict] = None) -> PyTree:
     """Kernel pipeline of the dynamic path: the lanes as one (B, n, D)
     buffer -> Gram (K5; K1 for the single-lane entry point; the sketch
     Gram when ``signs``) -> batched NNM / coefficients -> combine (K3 per
     lane) or mix + trim (K4, all lanes in one launch; cwmed: K2 per lane)
-    -> (B, ...) leaves."""
+    -> (B, ...) leaves.  ``internals`` gets the NNM matrices only."""
     backend = "cuda"
     flat, layout = kdispatch.flatten_lane_stack(work)
     mix_matrix, g = None, None
@@ -698,6 +753,8 @@ def _aggregate_flat_lanes(work: PyTree, spec: AggregatorSpec, f: Tensor, *,
             g = kdispatch.dispatch_gram(flat[0], backend=backend)[None]
     if spec.pre == "nnm":
         mix_matrix = gramlib.nnm_matrix_dyn(gramlib.pdist_sq_from_gram(g), f)
+        if internals is not None:
+            internals["mix_matrix"] = mix_matrix
         g = gramlib.mixed_gram(g, mix_matrix)
 
     if spec.rule in GRAM_RULES:
@@ -734,7 +791,8 @@ def _aggregate_flat_lanes(work: PyTree, spec: AggregatorSpec, f: Tensor, *,
 def robust_aggregate_dyn(tree: PyTree, spec: AggregatorSpec, f, *,
                          generator: Optional[torch.Generator] = None,
                          perm: Optional[Tensor] = None,
-                         signs: Optional[list] = None) -> PyTree:
+                         signs: Optional[list] = None,
+                         internals: Optional[dict] = None) -> PyTree:
     """:func:`robust_aggregate` with an int-tensor Byzantine count.
 
     ``spec.f`` is ignored; ``f`` (a 0-d int tensor or an int) takes its
@@ -742,28 +800,35 @@ def robust_aggregate_dyn(tree: PyTree, spec: AggregatorSpec, f, *,
     needs an explicit ``spec.bucket_size`` and a ``generator`` or
     ``perm``; ``sketch_dim`` draws its signs from ``generator`` (after the
     permutation) or takes ``signs`` (one (C_i,) tensor per leaf).  MDA
-    has no dynamic form."""
+    has no dynamic form.  ``internals`` as in :func:`robust_aggregate`."""
     leaf = tree_leaves(tree)[0]
+    lane_internals = None if internals is None else {}
     out = _aggregate_lanes(
         tree_map(lambda l: l[None], tree), spec, _lane_f(f, 1, leaf.device),
         batched=False, generators=None if generator is None else [generator],
         perms=None if perm is None else torch.as_tensor(perm)[None],
         signs=None if signs is None else [torch.as_tensor(sg)[None]
-                                          for sg in signs])
+                                          for sg in signs],
+        internals=lane_internals)
+    for k, v in (lane_internals or {}).items():
+        internals[k] = [t[0] for t in v] if isinstance(v, list) else v[0]
     return tree_map(lambda l: l[0], out)
 
 
 def batched_robust_aggregate(tree: PyTree, spec: AggregatorSpec, fs, *,
                              generators: Optional[list] = None,
                              perms: Optional[Tensor] = None,
-                             signs: Optional[list] = None) -> PyTree:
+                             signs: Optional[list] = None,
+                             internals: Optional[dict] = None) -> PyTree:
     """Lane-batched aggregation: every leaf carries a leading lane axis
     (B, n, ...) and ``fs`` (B,) is the per-lane Byzantine count; returns
     the (B, ...) aggregates.  Bucketing lanes take one generator per lane
     or a (B, n) ``perms``; sketch lanes draw their signs from the same
     generators (after the permutation) or take ``signs``, one (B, C_i)
-    tensor per leaf."""
+    tensor per leaf.  ``internals`` as in :func:`robust_aggregate`, every
+    entry lane-stacked: the (B, n, n) NNM matrices, and on the torch
+    backend the mixed and sorted (B, n, ...) leaves."""
     leaf = tree_leaves(tree)[0]
     return _aggregate_lanes(tree, spec, _lane_f(fs, leaf.shape[0], leaf.device),
                             batched=True, generators=generators, perms=perms,
-                            signs=signs)
+                            signs=signs, internals=internals)

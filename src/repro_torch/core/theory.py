@@ -12,6 +12,7 @@ Eq. (26): per step over a pytree (``tree_kappa_hat``) and over one
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -172,15 +173,24 @@ def resilience_lower_bound(n: int, f: int, g_sq: float) -> float:
     return f / (4.0 * (n - 2 * f)) * g_sq
 
 
-def tree_kappa_hat(agg, stack, n_honest: int) -> torch.Tensor:
+def tree_kappa_hat(agg, stack, n_honest: int,
+                   internals: Optional[dict] = None) -> torch.Tensor:
     """Paper Eq. (26) over worker-stacked pytrees, in fp32:
     ||R - mbar||^2 / mean_i ||m_i - mbar||^2 over the first ``n_honest``
     rows, returned as its square root.  Leaves are reduced in column chunks
-    of :data:`KAPPA_CHUNK`."""
+    of :data:`KAPPA_CHUNK`.
+
+    ``internals`` (the health taps' input, :mod:`repro_torch.obs.taps`):
+    pass a dict and the same chunk loop also sums R . mbar and ||mbar||^2;
+    they are stored with ||R - mbar||^2 as ``"honest_dot"``,
+    ``"honest_mean_sq"`` and ``"honest_sq_dist"`` (0-d fp32), so the taps
+    need no D-sized honest mean and no second pass over the stack."""
     leaves = tree_leaves(stack)
     dev = leaves[0].device
     num = torch.zeros((), dtype=torch.float32, device=dev)
     den = torch.zeros((), dtype=torch.float32, device=dev)
+    dot = torch.zeros((), dtype=torch.float32, device=dev)
+    msq = torch.zeros((), dtype=torch.float32, device=dev)
     for a, s in zip(tree_leaves(agg), leaves):
         n = s.shape[0]
         s2 = s.reshape(n, -1)
@@ -188,8 +198,15 @@ def tree_kappa_hat(agg, stack, n_honest: int) -> torch.Tensor:
         for c0 in range(0, s2.shape[1], KAPPA_CHUNK):
             h = s2[:n_honest, c0:c0 + KAPPA_CHUNK].float()
             mbar = h.mean(dim=0)
-            num += torch.sum((a1[c0:c0 + KAPPA_CHUNK].float() - mbar) ** 2)
+            ac = a1[c0:c0 + KAPPA_CHUNK].float()
+            num += torch.sum((ac - mbar) ** 2)
             den += torch.mean(torch.sum((h - mbar) ** 2, dim=1))
+            if internals is not None:
+                dot += torch.sum(ac * mbar)
+                msq += torch.sum(mbar * mbar)
+    if internals is not None:
+        internals.update(honest_sq_dist=num, honest_dot=dot,
+                         honest_mean_sq=msq)
     return torch.sqrt(num / (den + 1e-20))
 
 

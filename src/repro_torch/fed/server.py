@@ -11,7 +11,10 @@ One round:
      momentum back, overwrite the last ``m_byz`` rows with the scheduled
      attack, screen the stack (quarantine guard, when configured),
      robustly aggregate with ``f`` rescaled to the cohort
-     (:func:`rescale_f`) and apply the server optimizer.
+     (:func:`rescale_f`), apply the server optimizer and, with
+     ``FedConfig.taps``, compute the health taps on the screened stack
+     (:mod:`repro_torch.obs.taps`, ``taps.<field>`` metrics; the
+     history's ``taps``).
 
 Both engines of :func:`run_rounds` run ONE round body: "loop" calls it
 round by round (:meth:`FedServer.round_fn`, metrics fetched every round),
@@ -69,6 +72,7 @@ from repro_torch.fed.poison import PoisonConfig, poison_batch
 from repro_torch.fed.schedules import AttackSchedule, FixedByzantine
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.obs import runtime as obs_runtime
+from repro_torch.obs.taps import health_taps, tap_columns, tap_metrics
 from repro_torch.optim import Optimizer, global_norm
 from repro_torch.resilience import (
     CarryCheckpointer, SnapshotStore, check_signature, concat_metrics,
@@ -93,9 +97,8 @@ VMAP_ELEMS = 1 << 24
 
 @dataclasses.dataclass(frozen=True)
 class FedConfig:
-    """Static description of the federated system.  ``taps`` (in-round
-    health taps) is accepted for parity with the reference's config and
-    refused until its port lands (ROADMAP queue 1, item 10)."""
+    """Static description of the federated system.  ``taps``: the
+    in-round health taps (refused with ``agg.hier``)."""
     n_clients: int
     clients_per_round: int          # m <= n_clients
     f: int = 0                      # Byzantine clients in the POPULATION
@@ -179,9 +182,7 @@ class FedServer:
         self.options = options if options is not None else RoundOptions()
         self.cfg = self.options.apply_config(cfg)
         if self.cfg.taps:
-            raise NotImplementedError(
-                "in-round health taps (FedConfig.taps) are not ported yet "
-                "(ROADMAP queue 1, item 10)")
+            robust_lib.validate_taps(self.cfg.agg)
         if self.cfg.client.algorithm not in ("dshb", "dgd"):
             raise ValueError(f"unknown algorithm {self.cfg.client.algorithm!r}")
         self.lr_schedule = lr_schedule
@@ -293,10 +294,10 @@ class FedServer:
                 kdispatch.stack_views(stack, layout), spec,
                 generator=generator, perm=perm, signs=signs)
 
-            def aggregate(flat):
+            def aggregate(flat, tap_internals=None):
                 return robust_lib.robust_aggregate(
                     kdispatch.stack_views(flat, layout), spec, perm=perm,
-                    signs=signs)
+                    signs=signs, internals=tap_internals)
 
             apply_attack_scan(families, attack_id, stack, m_byz, eta=eta,
                               segments=[(off, size) for off, size, _
@@ -313,7 +314,8 @@ class FedServer:
                     view.copy_(new)
                 del screened
 
-            direction = aggregate(stack)
+            tap_internals = {} if cfg.taps else None
+            direction = aggregate(stack, tap_internals)
             lr = self.lr_schedule(state["step"])
             new_params, new_opt = self.optimizer.update(
                 direction, state["opt_state"], params, lr)
@@ -328,7 +330,12 @@ class FedServer:
                 metrics["quarantined_count"] = qinfo["count"]
             if cfg.track_kappa_hat:
                 metrics["kappa_hat"] = tree_kappa_hat(direction, attacked,
-                                                      m_honest)
+                                                      m_honest, tap_internals)
+            if cfg.taps:
+                metrics.update(tap_metrics(health_taps(
+                    attacked, direction, n_honest=m_honest, f=f_round,
+                    rule=spec.rule, pre=spec.pre, internals=tap_internals,
+                    quarantine=qinfo)))
             return new_state, metrics
 
         return body
@@ -414,20 +421,20 @@ def run_rounds(server: FedServer, state: dict, batch_fn: Callable,
 
     ``options`` (:class:`~repro_torch.rounds.RoundOptions`): explicit
     ``engine=`` / ``chunk=`` keywords win over it, and it over the
-    server's construction-time options; its ``backend`` must agree with
-    the server's config.  ``options.checkpoint`` makes a scan run
+    server's construction-time options; its ``taps`` and ``backend`` must
+    agree with the server's config.  ``options.checkpoint`` makes a scan run
     resumable: the state and the metrics so far are snapshotted at
     segment boundaries, and a rerun into the same directory resumes from
     the latest snapshot (``last_scan_report["resumed_from"]``).
     """
     opts = resolve_options(options, engine=engine, chunk=chunk)
     opts = server.options.merged(engine=opts.engine, chunk=opts.chunk,
-                                 backend=opts.backend,
+                                 taps=opts.taps, backend=opts.backend,
                                  checkpoint=opts.checkpoint)
     if opts.apply_config(server.cfg) is not server.cfg:
         raise ValueError(
-            "run_rounds cannot override the backend per call: it is the "
-            "round body's key material; pass options to FedServer(...)")
+            "run_rounds cannot override taps/backend per call: they are "
+            "the round body's key material; pass options to FedServer(...)")
     engine, chunk = opts.engine or "scan", opts.chunk
     if engine not in ("scan", "loop"):
         raise ValueError(f"engine must be 'scan' or 'loop', got {engine!r}")
@@ -463,7 +470,8 @@ def run_rounds(server: FedServer, state: dict, batch_fn: Callable,
             if "quarantined_count" in host:
                 q_total += int(host["quarantined_count"])
             hist.record(host, cohort=cohort, attack=attack, eta=eta,
-                        m_byz=m_byz, f_round=m_byz)
+                        m_byz=m_byz, f_round=m_byz,
+                        taps=tap_columns(host) if cfg.taps else None)
         _emit_quarantine_event("fed.loop", q_total, rounds)
         return state, hist
 
@@ -492,7 +500,7 @@ def run_rounds(server: FedServer, state: dict, batch_fn: Callable,
         store = SnapshotStore.from_config(ckpt_cfg)
         signature = {"surface": "fed", "rounds": rounds, "chunk": chunk,
                      "seed": seed, "families": list(families),
-                     "m_byz": m_byz}
+                     "m_byz": m_byz, **({"taps": True} if cfg.taps else {})}
         snap = store.load_latest() if ckpt_cfg.resume else None
         if snap is not None:
             start_round, arrays, snap_meta = snap
@@ -528,13 +536,16 @@ def run_rounds(server: FedServer, state: dict, batch_fn: Callable,
     cols = dict(saved_cols) if metrics is None \
         else concat_metrics(saved_cols, metrics)
     if "quarantined_count" in cols:
-        # Per round too: the port's history has no tap columns to hold it.
+        # Per round too: the history holds it only as a tapped run's
+        # quarantined_count tap.
         server.last_scan_report["quarantined_count"] = \
             cols["quarantined_count"].tolist()
         _emit_quarantine_event("fed.scan",
                                int(cols["quarantined_count"].sum()), rounds)
     for r in range(rounds):
         attack, eta = meta[r]
-        hist.record({k: v[r] for k, v in cols.items()}, cohort=cohorts[r],
-                    attack=attack, eta=eta, m_byz=m_byz, f_round=m_byz)
+        row = {k: v[r] for k, v in cols.items()}
+        hist.record(row, cohort=cohorts[r], attack=attack, eta=eta,
+                    m_byz=m_byz, f_round=m_byz,
+                    taps=tap_columns(row) if cfg.taps else None)
     return state, hist

@@ -19,6 +19,9 @@ state, batch, cohort ids and ops all carry a leading B axis.
 * aggregation is :func:`repro_torch.core.robust.batched_robust_aggregate`
   on the explicit lane axis (K5 and K4 over all lanes in one launch each
   on a CUDA stack);
+* tapped lanes compute the health taps with each lane's ``f_agg``,
+  honest count and guard mask (:func:`repro_torch.obs.health_taps_lanes`)
+  as ``taps.<field>`` metrics, (B,) or (B, m) each;
 * lanes whose job has finished are frozen by ``torch.where(active, new,
   old)``; ``active`` is never read on the host.
 
@@ -38,6 +41,7 @@ from repro_torch.core.attacks import apply_attack_batched
 from repro_torch.fed.clients import client_updates
 from repro_torch.fed.poison import poison_batch_lanes
 from repro_torch.fed.server import FedConfig
+from repro_torch.obs.taps import health_taps_lanes, tap_metrics
 from repro_torch.optim import Optimizer
 from repro_torch.robustness.guard import quarantine_stack_lanes
 from repro_torch.training.trainer import kappa_hat_masked
@@ -101,11 +105,7 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
     or None.
     ``cfg`` contributes only the static skeleton; its f, client beta /
     local_lr and poison rate / strength give way to ``ops``.  Metrics are
-    (B,) device tensors."""
-    if cfg.taps:
-        raise NotImplementedError(
-            "tapped fleet lanes are not ported yet (ROADMAP queue 1, "
-            "item 10)")
+    (B,) device tensors (the per-worker taps (B, m))."""
     ccfg, spec = cfg.client, cfg.agg
 
     def one_lane_clients(params, mom, batch, beta, local_lr):
@@ -140,8 +140,10 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
         qinfo = None
         if cfg.guard is not None:
             attacked, qinfo = quarantine_stack_lanes(attacked, cfg.guard)
+        tap_internals = {} if cfg.taps else None
         robust_dir = robust_lib.batched_robust_aggregate(
-            attacked, spec, ops["f_agg"], perms=perms, signs=signs)
+            attacked, spec, ops["f_agg"], perms=perms, signs=signs,
+            internals=tap_internals)
         direction = tree_unflatten(skeleton, robust_dir)
 
         lr = ops["lr"]
@@ -167,7 +169,12 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
             metrics["quarantined_count"] = qinfo["count"]
         if cfg.track_kappa_hat:
             metrics["kappa_hat"] = kappa_hat_masked(robust_dir, attacked,
-                                                    m_honest)
+                                                    m_honest, tap_internals)
+        if cfg.taps:
+            metrics.update(tap_metrics(health_taps_lanes(
+                attacked, robust_dir, n_honest=m_honest, f=ops["f_agg"],
+                rule=spec.rule, pre=spec.pre, internals=tap_internals,
+                quarantine=qinfo)))
 
         # Finished lanes ride along frozen (never read on the host).
         active = ops["active"]

@@ -2,8 +2,9 @@
 lanes together, demux per-lane histories; and the continuous service's
 fixed-capacity bucket, :class:`ContinuousBucket` (counterpart of
 ``repro.fleet.runner``; :class:`repro_torch.serving.FleetService` drives
-it).  Lanes may be poisoned and guarded; tapped lanes wait for ROADMAP
-queue 1, item 10, hierarchical lanes for item 13.
+it).  Lanes may be poisoned, guarded and tapped (each lane's health-tap
+columns demuxed into its own history); hierarchical lanes wait for
+ROADMAP queue 1, item 13.
 
 A :class:`FleetJob` is a fully materialised federated run; a
 :class:`ScenarioSpec` names a registry scenario + seed.  Jobs whose
@@ -47,14 +48,15 @@ from repro_torch.fed.schedules import AttackSchedule, FixedByzantine
 from repro_torch.fed.server import FedConfig, rescale_f, sample_cohort
 from repro_torch.fleet.lanes import build_fleet_scan
 from repro_torch.obs import runtime as obs_runtime
+from repro_torch.obs.taps import tap_columns
 from repro_torch.optim import Optimizer
 from repro_torch.resilience import (
     CarryCheckpointer, SnapshotStore, check_signature, concat_metrics,
     resolve_checkpoint, restore_carry, restored_metrics,
 )
 from repro_torch.rounds import (
-    RoundOptions, cadence_boundaries, resolve_options, split_segments,
-    stack_rounds,
+    RoundOptions, cadence_boundaries, fetch_columns, resolve_options,
+    split_segments, stack_rounds,
 )
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -106,10 +108,6 @@ class FleetJob:
                 "(use the single-scenario engine instead)")
         for phase in self.schedule.phases:
             dyn_attack_id(phase.attack)   # raises for _opt / unknown
-        if self.cfg.taps:
-            raise NotImplementedError(
-                "tapped fleet lanes are not ported yet (ROADMAP queue 1, "
-                "item 10); poisoned and guarded lanes run")
         if self.cfg.agg.hier:
             raise NotImplementedError(
                 "hierarchical fleet lanes are not ported yet (ROADMAP "
@@ -159,7 +157,7 @@ def job_from_spec(spec: ScenarioSpec, *, dim: int = 48,
 
 
 def apply_job_options(job: FleetJob, options: RoundOptions) -> FleetJob:
-    """``job`` with the options' backend override applied; the
+    """``job`` with the options' taps / backend overrides applied; the
     SAME object when nothing changes."""
     cfg = options.apply_config(job.cfg)
     return job if cfg is job.cfg else dataclasses.replace(job, cfg=cfg)
@@ -528,7 +526,8 @@ class FleetRunner:
                          "labels": [j.label for j in jobs],
                          "rounds": [j.rounds for j in jobs],
                          "seeds": [j.seed for j in jobs],
-                         "chunk": self.chunk}
+                         "chunk": self.chunk,
+                         **({"taps": True} if jobs[0].cfg.taps else {})}
             snap = store.load_latest() if ckpt_cfg.resume else None
             if snap is not None:
                 start_round, arrays, snap_meta = snap
@@ -562,7 +561,7 @@ class FleetRunner:
                     state, metrics = fleet_scan(state, seg)
                     # The segment's one transfer (it waits for the device).
                     obs_runtime.inc("fleet.transfers")
-                    metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
+                    metrics = fetch_columns(metrics)
                     for k, v in metrics.items():
                         cols.setdefault(k, []).append(v)
                 self.segment_log.append((bucket_index, len(jobs),
@@ -606,14 +605,15 @@ class FleetRunner:
 def _record_lane_round(hist: FedHistory, cols: dict, i: int, k: int,
                        attack: str, eta: Any, cohort: np.ndarray,
                        m_byz: int) -> None:
-    """Record lane ``k``'s round from row ``i`` of fetched (R, B) metric
-    columns: the batch runner and the continuous bucket both record
-    through here."""
+    """Record lane ``k``'s round from row ``i`` of fetched (R, B, ...)
+    metric columns, its health taps among them: the batch runner and the
+    continuous bucket both record through here."""
     lane_metrics = {name: cols[name][i][k] for name in
                     ("loss", "lr", "direction_norm", "kappa_hat")
                     if name in cols}
+    taps = {f: v[i][k] for f, v in tap_columns(cols).items()}
     hist.record(lane_metrics, cohort=cohort, attack=attack, eta=eta,
-                m_byz=m_byz, f_round=m_byz)
+                m_byz=m_byz, f_round=m_byz, taps=taps or None)
 
 
 def _quarantine_event(surface: str, counts, rounds: int) -> None:
@@ -841,7 +841,7 @@ class ContinuousBucket:
                 self.state, _to_device(operands, self.device))
             # The segment's one transfer (it waits for the device).
             obs_runtime.inc("fleet.transfers")
-            fetched = {k: v.cpu().numpy() for k, v in metrics.items()}
+            fetched = fetch_columns(metrics)
         self.last_segment = (len(lanes), seg, time.perf_counter() - t0)
         self.rounds_executed += seg
         if "quarantined_count" in fetched:

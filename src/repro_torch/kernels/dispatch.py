@@ -25,9 +25,11 @@ worker-stacked pytree:
 
 Every decision lands on a :class:`DispatchRecord` in a bounded ring
 (:func:`last_dispatch`), so a requested kernel
-path that quietly ran torch ops is detectable.  PyTorch runs eagerly, so a
-record describes the call that opened it (the reference's records describe
-the most recent jit trace).
+path that quietly ran torch ops is detectable; each record is also a
+``kernels.dispatch`` event of ``repro_torch.obs.runtime``, so a trace
+export carries it.  PyTorch runs eagerly, so a record describes the call
+that opened it (the reference's records describe the most recent jit
+trace).
 """
 from __future__ import annotations
 
@@ -152,6 +154,13 @@ def last_dispatch() -> Optional[DispatchRecord]:
     return _HISTORY[-1] if _HISTORY else None
 
 
+def dispatch_history(limit: Optional[int] = None) -> list:
+    """The most recent dispatch records, oldest first (bounded by
+    :data:`DISPATCH_HISTORY_LIMIT`); ``limit`` keeps only the newest N."""
+    records = list(_HISTORY)
+    return records if limit is None else records[-limit:]
+
+
 def open_record(*, requested: str, backend: str, rule: str,
                 pre: Optional[str], hier: bool = False,
                 bucket_size: Optional[int] = None, dyn: bool = False,
@@ -160,6 +169,10 @@ def open_record(*, requested: str, backend: str, rule: str,
                          pre=pre, hier=hier, bucket_size=bucket_size,
                          dyn=dyn, lanes=lanes)
     _HISTORY.append(rec)
+    # The runtime ring holds the live record: the decisions appended below
+    # reach its exports.  Imported here: obs.runtime re-exports this module.
+    from repro_torch.obs import runtime as obs_runtime
+    obs_runtime.event("kernels.dispatch", record=rec)
     return rec
 
 

@@ -55,7 +55,15 @@ def normalize_signature(sig: dict) -> dict:
     return json.loads(json.dumps(sig, sort_keys=True, default=str))
 
 
+#: The refusal's hint when the tap columns differ from the snapshot's.
+_TAPS_HINT = ("taps/metrics configuration changed between runs; use a "
+              "fresh checkpoint dir")
+
+
 def check_signature(saved: dict, current: dict, path: str) -> None:
+    """Refuse a snapshot written by another plan; a tapped run's
+    signature carries ``"taps": True``, so a run with other tap columns
+    than the snapshot's is refused here, before any round runs."""
     saved_n, cur_n = normalize_signature(saved), normalize_signature(current)
     if saved_n != cur_n:
         diff = {k: (saved_n.get(k), cur_n.get(k))
@@ -64,18 +72,34 @@ def check_signature(saved: dict, current: dict, path: str) -> None:
         raise CheckpointError(
             f"snapshot in {path!r} belongs to a different experiment plan; "
             f"mismatched fields (saved, current): {diff}",
-            hint="point checkpoint.dir at a fresh directory, or pass a "
-                 "config matching the saved plan",
+            hint=_TAPS_HINT if "taps" in diff else
+            "point checkpoint.dir at a fresh directory, or pass a config "
+            "matching the saved plan",
         )
+
+
+def _expand(metrics: dict) -> dict[str, Any]:
+    """A metrics dict with every ``to_dict``-able value (a
+    :class:`~repro_torch.obs.HealthTaps`) expanded to ``<key>.<field>``."""
+    out: dict[str, Any] = {}
+    for key, value in metrics.items():
+        if hasattr(value, "to_dict"):
+            for field, arr in value.to_dict().items():
+                out[f"{key}.{field}"] = arr
+        else:
+            out[key] = value
+    return out
 
 
 def metric_columns(metrics: Any) -> dict[str, Any]:
     """Named metric columns with the rounds on axis 0, with no device
     sync: a dict of columns passes through; a list of per-round dicts
     (what :class:`~repro_torch.rounds.RoundEngine` hands ``on_segment``)
-    is stacked, tensors on their device, Python numbers into numpy."""
+    is stacked, tensors on their device, Python numbers into numpy.
+    ``to_dict``-able values expand to ``<key>.<field>`` columns."""
     if isinstance(metrics, dict):
-        return dict(metrics)
+        return _expand(metrics)
+    metrics = [_expand(m) for m in metrics]
     out: dict[str, Any] = {}
     for key in metrics[0]:
         vals = [m[key] for m in metrics]
@@ -125,8 +149,7 @@ def concat_metrics(saved: dict[str, np.ndarray],
         if key not in saved:
             raise CheckpointError(
                 f"restored metrics are missing column {key!r}",
-                hint="the metrics configuration changed between runs; "
-                     "use a fresh checkpoint dir")
+                hint=_TAPS_HINT)
         out[key] = np.concatenate([saved[key], np.asarray(new[key])], axis=0)
     return out
 

@@ -14,7 +14,7 @@
 The fed server and the fleet own their round bodies and plans.
 """
 from repro_torch.rounds.engine import (
-    WHOLE_RUN, RoundEngine, fetch_metrics, split_segments,
+    WHOLE_RUN, RoundEngine, fetch_columns, fetch_metrics, split_segments,
 )
 from repro_torch.rounds.options import ENGINES, RoundOptions, resolve_options
 from repro_torch.rounds.plan import (
@@ -22,7 +22,8 @@ from repro_torch.rounds.plan import (
     round_seeds, schedule_families, stack_rounds,
 )
 
-__all__ = ["WHOLE_RUN", "RoundEngine", "fetch_metrics", "split_segments",
+__all__ = ["WHOLE_RUN", "RoundEngine", "fetch_columns", "fetch_metrics",
+           "split_segments",
            "ENGINES", "RoundOptions", "resolve_options",
            "cadence_boundaries", "resolve_attack_operands",
            "round_generator", "round_seeds", "schedule_families",

@@ -72,21 +72,23 @@ def _sync(state: PyTree) -> None:
 
 
 def fetch_metrics(per_round: list) -> dict:
-    """Per-round metric dicts -> ``{name: (R, ...) numpy array}``.
-
-    Tensor metrics are stacked on their device and copied to the host in
-    ONE transfer (widened to float64, exact for fp32 and int32, and cast
-    back); Python numbers (a host-side learning rate) are stacked as
-    they are."""
-    keys = list(per_round[0])
-    on_dev: dict = {}
-    out: dict = {}
-    for k in keys:
+    """Per-round metric dicts -> ``{name: (R, ...) numpy array}``: tensor
+    metrics are stacked on their device, Python numbers (a host-side
+    learning rate) as they are, then :func:`fetch_columns`."""
+    cols: dict = {}
+    for k in per_round[0]:
         vals = [m[k] for m in per_round]
-        if isinstance(vals[0], torch.Tensor):
-            on_dev[k] = torch.stack(vals)
-        else:
-            out[k] = np.asarray(vals)
+        cols[k] = torch.stack(vals) if isinstance(vals[0], torch.Tensor) \
+            else np.asarray(vals)
+    return fetch_columns(cols)
+
+
+def fetch_columns(cols: dict) -> dict:
+    """Metric columns -> numpy: the device tensors are copied to the host
+    in ONE transfer (widened to float64, exact for fp32, int32 and bool,
+    and cast back); anything else passes through."""
+    on_dev = {k: c for k, c in cols.items() if isinstance(c, torch.Tensor)}
+    out = dict(cols)
     if on_dev:
         flat = torch.cat([c.double().reshape(-1) for c in on_dev.values()]
                          ).cpu().numpy()
@@ -96,7 +98,7 @@ def fetch_metrics(per_round: list) -> dict:
             out[k] = flat[off:off + c.numel()].reshape(tuple(c.shape)
                                                        ).astype(dtype)
             off += c.numel()
-    return {k: out[k] for k in keys}
+    return out
 
 
 class RoundEngine:

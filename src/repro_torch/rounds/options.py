@@ -1,11 +1,11 @@
 """RoundOptions: the shared "how do I execute rounds" knob set
-(counterpart of ``repro.rounds.options``, without the health-tap field:
-taps are not ported yet, ROADMAP queue 1, item 10).
+(counterpart of ``repro.rounds.options``).
 
 ``None`` everywhere means "inherit": the surface's default for
 ``engine`` / ``chunk`` (whole-run segments), the config's own setting for
-``backend``, not resumable for ``checkpoint``, so ``RoundOptions()`` is a
-no-op and a partly filled object overlays any config.  An explicitly
+``taps`` and ``backend``, not resumable for ``checkpoint``, so
+``RoundOptions()`` is a no-op and a partly filled object overlays any
+config.  An explicitly
 passed legacy keyword (``chunk=``) wins over the options object.
 """
 from __future__ import annotations
@@ -28,6 +28,8 @@ class RoundOptions:
                 refuses "loop".
     ``chunk``   segment length in rounds (``None`` = whole run, cut only
                 at eval boundaries).
+    ``taps``    force the in-round health taps on or off (``None`` = keep
+                the config's ``taps``); bucket-key material in the fleet.
     ``backend`` force the aggregation backend ("torch" | "cuda" | "auto";
                 ``None`` = keep ``AggregatorSpec.backend``).
     ``checkpoint`` a :class:`~repro_torch.resilience.CheckpointConfig` (or
@@ -38,6 +40,7 @@ class RoundOptions:
     """
     engine: Optional[str] = None
     chunk: Optional[int] = None
+    taps: Optional[bool] = None
     backend: Optional[str] = None
     checkpoint: Optional[Any] = None
 
@@ -49,20 +52,24 @@ class RoundOptions:
             raise ValueError(f"chunk must be positive or None, got {self.chunk}")
 
     def merged(self, *, engine: Optional[str] = None,
-               chunk: Optional[int] = None,
+               chunk: Optional[int] = None, taps: Optional[bool] = None,
                backend: Optional[str] = None,
                checkpoint: Optional[Any] = None) -> "RoundOptions":
         """This object overlaid with explicitly passed legacy keywords."""
         return RoundOptions(
             engine=engine if engine is not None else self.engine,
             chunk=chunk if chunk is not None else self.chunk,
+            taps=taps if taps is not None else self.taps,
             backend=backend if backend is not None else self.backend,
             checkpoint=checkpoint if checkpoint is not None
             else self.checkpoint)
 
     def apply_config(self, cfg):
-        """``cfg`` (anything with ``.agg``) with the backend override
-        applied; the SAME object when nothing changes."""
+        """``cfg`` (a TrainerConfig or FedConfig: anything with ``.taps``
+        and ``.agg``) with the taps / backend overrides applied; the SAME
+        object when nothing changes."""
+        if self.taps is not None and self.taps != cfg.taps:
+            cfg = dataclasses.replace(cfg, taps=self.taps)
         if self.backend is not None and self.backend != cfg.agg.backend:
             cfg = dataclasses.replace(
                 cfg, agg=dataclasses.replace(cfg.agg, backend=self.backend))
@@ -72,10 +79,11 @@ class RoundOptions:
 def resolve_options(options: Optional[RoundOptions] = None, *,
                     engine: Optional[str] = None,
                     chunk: Optional[int] = None,
+                    taps: Optional[bool] = None,
                     backend: Optional[str] = None,
                     checkpoint: Optional[Any] = None) -> RoundOptions:
     """Start from ``options`` (or the all-inherit default) and overlay any
     explicitly passed keywords."""
     base = options if options is not None else RoundOptions()
-    return base.merged(engine=engine, chunk=chunk, backend=backend,
-                       checkpoint=checkpoint)
+    return base.merged(engine=engine, chunk=chunk, taps=taps,
+                       backend=backend, checkpoint=checkpoint)

@@ -7,7 +7,8 @@ queue 1, item 14).
 runs every occupied shape bucket (:class:`repro_torch.fleet.
 ContinuousBucket`) forward by one segment, and at the boundaries jobs
 are admitted into free lane slots (deadline order), finished or cancelled
-lanes are evicted and their slots backfilled.  With
+lanes are evicted and their slots backfilled.  ``options.taps`` and
+``options.backend`` apply to every submitted job's config.  With
 ``options.checkpoint`` every boundary is snapshotted and
 :meth:`FleetService.restore` rebuilds the service after a kill.
 
@@ -373,6 +374,7 @@ class FleetService:
                             "next_id": self._next_id,
                             "max_lanes": self.max_lanes,
                             "chunk": self.chunk,
+                            "taps": self.options.taps,
                             "backend": self.options.backend},
                 "buckets": buckets_meta,
                 "handles": handles_meta,
@@ -407,6 +409,7 @@ class FleetService:
         svc_meta = payload["service"]
         kinds = meta.get("dtypes", {})
         options = RoundOptions(chunk=svc_meta["chunk"],
+                               taps=svc_meta.get("taps"),
                                backend=svc_meta["backend"], checkpoint=cfg)
         svc = cls(max_lanes=svc_meta["max_lanes"], options=options,
                   device=device)

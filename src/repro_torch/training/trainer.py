@@ -1,15 +1,15 @@
 """Robust distributed training: the paper's Alg. 1 (D-GD) and Alg. 3
 (D-SHB) as train steps over arbitrary models.
 
-Counterpart of ``repro.training.trainer`` (its health taps wait for
-ROADMAP queue 1, item 10).  One step:
+Counterpart of ``repro.training.trainer``.  One step:
 
   1. per-worker gradients, one worker at a time;
   2. worker momentum (D-SHB): m_i <- beta m_i + (1-beta) g_i;
   3. Byzantine injection: the last f rows of a copy of the stack are
      overwritten by the configured attack;
   4. robust aggregation over the worker axis -> direction R_t, plus the
-     kappa-hat diagnostic of paper Eq. (26);
+     kappa-hat diagnostic of paper Eq. (26) and, with
+     ``TrainerConfig.taps``, the health taps (:mod:`repro_torch.obs.taps`);
   5. the server optimizer applies R_t.
 
 Memory layout (differs from the reference, same arithmetic): the momentum
@@ -37,6 +37,7 @@ from repro_torch.core.theory import tree_kappa_hat
 from repro_torch.core.types import AggregatorSpec
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.obs import runtime as obs_runtime
+from repro_torch.obs.taps import health_taps, tap_columns, tap_metrics
 from repro_torch.optim import Optimizer, global_norm
 from repro_torch.resilience import (
     CarryCheckpointer, SnapshotStore, check_signature, concat_metrics,
@@ -67,6 +68,10 @@ class TrainerConfig:
     agg: AggregatorSpec = AggregatorSpec()
     byz: ByzantineConfig = ByzantineConfig()
     track_kappa_hat: bool = True
+    #: In-round health taps (repro_torch.obs.taps): side outputs of the
+    #: step, riding its metrics as ``taps.<field>``; a tapped run equals
+    #: an untapped one bit for bit.  Refused with ``agg.hier``.
+    taps: bool = False
 
 
 #: TrainState is a plain dict: params / opt_state / step, plus the flat
@@ -97,7 +102,8 @@ def stack_layout(params: PyTree, n_workers: int) -> kdispatch.StackLayout:
         params))
 
 
-def kappa_hat_masked(agg: PyTree, stack: PyTree, n_honest) -> Tensor:
+def kappa_hat_masked(agg: PyTree, stack: PyTree, n_honest,
+                     internals: Optional[dict] = None) -> Tensor:
     """Eq. (26) with the honest rows selected by mask (row < n_honest), as
     the reference's fleet form computes it (a 0/1 mask multiplies the
     rows, so a non-finite row spreads NaN as there).
@@ -105,7 +111,8 @@ def kappa_hat_masked(agg: PyTree, stack: PyTree, n_honest) -> Tensor:
     ``n_honest`` an int or a 0-d tensor: one lane (agg leaves (...),
     stack leaves (n, ...)), returns a 0-d tensor.  A (B,) tensor: a lane
     axis leads every leaf (agg (B, ...), stack (B, n, ...)), returns (B,);
-    the count stays on the device."""
+    the count stays on the device.  ``internals``: as
+    :func:`repro_torch.core.theory.tree_kappa_hat` fills it, per lane."""
     leaves = tree_leaves(stack)
     dev = leaves[0].device
     nh = torch.as_tensor(n_honest, device=dev)
@@ -118,6 +125,8 @@ def kappa_hat_masked(agg: PyTree, stack: PyTree, n_honest) -> Tensor:
     num = torch.zeros((b,), dtype=torch.float32, device=dev)
     den = torch.zeros((b,), dtype=torch.float32, device=dev)
     cnt = torch.clamp_min(nh.float(), 1.0)
+    dot = torch.zeros((b,), dtype=torch.float32, device=dev)
+    msq = torch.zeros((b,), dtype=torch.float32, device=dev)
     for a, s in zip(tree_leaves(agg), leaves):
         x = s.float()
         n = x.shape[1]
@@ -127,6 +136,13 @@ def kappa_hat_masked(agg: PyTree, stack: PyTree, n_honest) -> Tensor:
         num += torch.sum(((a.float() - mbar) ** 2).reshape(b, -1), dim=1)
         sq = torch.sum(((x - mbar[:, None]) ** 2).reshape(b, n, -1), dim=2)
         den += (sq * w).sum(dim=1) / cnt
+        if internals is not None:
+            dot += torch.sum((a.float() * mbar).reshape(b, -1), dim=1)
+            msq += torch.sum((mbar * mbar).reshape(b, -1), dim=1)
+    if internals is not None:
+        internals.update((k, v if lanes else v[0]) for k, v in
+                         (("honest_sq_dist", num), ("honest_dot", dot),
+                          ("honest_mean_sq", msq)))
     out = torch.sqrt(num / (den + 1e-20))
     return out if lanes else out[0]
 
@@ -142,7 +158,9 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     step stores the attacked flat stack (``"attacked"``) and its layout
     (``"layout"``) into it, the sketch's ``"signs"`` when drawn, and
     under ``alie_opt`` / ``foe_opt`` the chosen ``"eta"`` and the grid's
-    ``"damages"`` (device tensors).
+    ``"damages"`` (device tensors).  With ``cfg.taps`` the metrics carry
+    the health taps as ``taps.<field>`` (the deployed aggregate's only,
+    never the eta search's candidates).
     ``generator`` (the reference's ``key``) draws the bucket permutation
     of a ``hier`` / ``pre="bucketing"`` spec and then the signs of a
     ``sketch_dim`` one, ONCE a step (``robust_lib.draw_randomness``), and
@@ -156,6 +174,8 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
     spec = dataclasses.replace(cfg.agg, f=cfg.byz.f) \
         if cfg.agg.f != cfg.byz.f else cfg.agg
+    if cfg.taps:
+        robust_lib.validate_taps(spec)
     # fp32 constants as the reference's jnp arithmetic forms them.
     beta = float(np.float32(cfg.beta))
     one_minus_beta = float(np.float32(1.0) - np.float32(cfg.beta))
@@ -202,10 +222,10 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             kdispatch.stack_views(stack, layout), spec, generator=generator,
             perm=perm, signs=signs)
 
-        def aggregate(flat):
+        def aggregate(flat, tap_internals=None):
             return robust_lib.robust_aggregate(
                 kdispatch.stack_views(flat, layout), spec, perm=perm,
-                signs=signs)
+                signs=signs, internals=tap_internals)
 
         # Byzantine simulation: a copy of the stack with the last f rows
         # overwritten (the honest state itself is not touched).
@@ -225,7 +245,8 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             if signs is not None:
                 internals["signs"] = signs
 
-        direction = aggregate(attacked)
+        tap_internals = {} if cfg.taps else None
+        direction = aggregate(attacked, tap_internals)
         lr = lr_schedule(state["step"])
         new_params, new_opt = optimizer.update(direction, state["opt_state"],
                                                params, lr)
@@ -241,7 +262,11 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         }
         if cfg.track_kappa_hat:
             metrics["kappa_hat"] = tree_kappa_hat(direction, attacked_tree,
-                                                  n_honest)
+                                                  n_honest, tap_internals)
+        if cfg.taps:
+            metrics.update(tap_metrics(health_taps(
+                attacked_tree, direction, n_honest=n_honest, f=spec.f,
+                rule=spec.rule, pre=spec.pre, internals=tap_internals)))
         return new_state, metrics
 
     return step
@@ -276,8 +301,10 @@ def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
     around work ending in a synchronize) and, when checkpointing,
     ``snapshots`` and ``resumed_from`` (each snapshot's bytes and
     seconds are ``obs_runtime``'s ``resilience.snapshot`` spans).
-    ``engine="loop"`` runs the same step one at a time, its metrics fetched every step (the history also
-    records each step's wall time in ``"ms"``).  Both draw step t's bucket
+    ``engine="loop"`` runs the same step one at a time, its metrics
+    fetched every step (the history also records each step's wall time in
+    ``"ms"``).  With ``cfg.taps`` (or ``options.taps``) the history's
+    ``"taps"`` holds ``{field: (steps, ...) array}`` on both engines.  Both draw step t's bucket
     permutation (``hier`` / ``pre="bucketing"``) from a generator seeded
     with ``round_seeds(seed, steps)[t]``, so they agree bit for bit and a
     resumed run needs no generator state.
@@ -366,7 +393,8 @@ def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
         store = SnapshotStore.from_config(ckpt_cfg)
         signature = {"surface": "trainer", "steps": steps, "chunk": chunk,
                      "seed": seed,
-                     "eval_every": eval_every if eval_fn else 0}
+                     "eval_every": eval_every if eval_fn else 0,
+                     **({"taps": True} if cfg.taps else {})}
         snap = store.load_latest() if ckpt_cfg.resume else None
         if snap is not None:
             start_step, arrays, meta = snap
@@ -401,6 +429,8 @@ def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
     for k in ("loss", "direction_norm", "kappa_hat", "lr"):
         if k in cols:
             hist[k] = [float(x) for x in cols[k]]
+    if tap_columns(cols):
+        hist["taps"] = tap_columns(cols)
     if track_best:
         best["norm"] = float(best_norm)
         best["params"] = best_params
@@ -431,6 +461,7 @@ def _train_loop_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
 
     hist = dict(_empty_history(), ms=[])
     best = {"norm": np.inf, "params": params, "acc": -np.inf}
+    tap_rows: list = []
     batch = first
     for t in range(steps):
         prev_params = state["params"]
@@ -445,6 +476,8 @@ def _train_loop_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
         for k in ("loss", "direction_norm", "kappa_hat", "lr"):
             if k in host:
                 hist[k].append(float(host[k]))
+        if cfg.taps:
+            tap_rows.append(tap_columns(host))
         dn = hist["direction_norm"][-1]
         if track_best and dn < best["norm"]:
             best["norm"], best["params"] = dn, prev_params
@@ -455,4 +488,7 @@ def _train_loop_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
             best["acc"] = max(best["acc"], acc)
         if hasattr(batches, "__next__") and t + 1 < steps:
             batch = next(batches)
+    if tap_rows:
+        hist["taps"] = {k: np.stack([row[k] for row in tap_rows])
+                        for k in tap_rows[0]}
     return state["params"], {"history": hist, "best": best, "state": state}

@@ -269,8 +269,10 @@ def test_grid_launcher_runs_on_the_cpu(capsys):
 
 
 def test_fleet_refuses_what_it_does_not_run():
-    """Taps alone are refused (item 10); poisoned and guarded registry
-    scenarios materialise as lanes."""
+    """Poisoned, guarded and tapped lanes build (tapped lanes were refused
+    before the taps were ported: tests/test_torch_taps.py holds them to
+    the reference); lane-static attacks and the loop engine are
+    refused."""
     from repro_torch.fleet import ScenarioSpec, job_from_spec
     from repro_torch.fleet.lanes import build_lane_round
     for name in ("poison_labelflip", "poison_feature",
@@ -278,10 +280,8 @@ def test_fleet_refuses_what_it_does_not_run():
         assert job_from_spec(ScenarioSpec(name)).cfg is not None
     job = _port_jobs(CELLS[:1])[0]
     tapped = dataclasses.replace(job.cfg, taps=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        dataclasses.replace(job, cfg=tapped)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_lane_round(job.loss_fn, job.optimizer, tapped)
+    assert dataclasses.replace(job, cfg=tapped).cfg.taps
+    assert callable(build_lane_round(job.loss_fn, job.optimizer, tapped))
     from repro_torch.fed.schedules import constant_attack
     with pytest.raises(ValueError, match="not lane-dynamic"):
         dataclasses.replace(job, schedule=constant_attack("alie_opt"))

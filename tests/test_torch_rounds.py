@@ -292,9 +292,11 @@ def test_run_rounds_scan_and_loop_against_reference_loop(name):
 
 
 def test_run_rounds_refuses_unported_attack_and_taps():
-    """Taps are still refused (item 10).  The ``_opt`` attacks, refused
-    before they were ported, now run on both engines, equal bit for bit
-    (tests/test_torch_attacks_opt.py holds them to the reference)."""
+    """Taps and the ``_opt`` attacks, refused before they were ported,
+    now run: a tapped server builds (tests/test_torch_taps.py holds its
+    taps to the reference), and the ``_opt`` attacks run on both engines,
+    equal bit for bit (tests/test_torch_attacks_opt.py holds them to the
+    reference)."""
     centers = _centers(0, _N, _D)
     out = []
     for engine in ("scan", "loop"):
@@ -305,8 +307,8 @@ def test_run_rounds_refuses_unported_attack_and_taps():
                               engine=engine)[0]["params"]["theta"])
     assert torch.equal(out[0], out[1]) and bool(torch.isfinite(out[0]).all())
     assert callable(server.round_fn("foe_opt", 2))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _t_server(2, centers=centers, taps=True)
+    tapped = _t_server(2, centers=centers, taps=True)
+    assert tapped.cfg.taps and callable(tapped.round_fn("alie", 2))
 
 
 def test_fed_scan_engine_cached_across_runs():
