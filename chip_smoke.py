@@ -158,12 +158,27 @@ Phases, each fatal on failure:
      FleetService, restored from a mid-run snapshot, bit for bit; (e)
      ``launch.health`` on the card: both exports, the JSONL round trip,
      a monotone Chrome trace, the switch round visible in the taps;
- 17. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 17. the attention-family zoo at full width (depth and n cut), each
+     through build_train_step from seeded weights with ALIE, NNM + CWTM,
+     D-SHB on the kernel backend: (a) mixtral-8x22b, 1 layer, n = 8, f =
+     2, batch 4 x 128, 3 steps, fsdp_keys from the FULL config
+     (fsdp_keys_for: the experts take the mean gradient); (b) qwen2-7b,
+     1 layer, n = 4, f = 1, 2 steps (QKV bias, untied 152064 vocab: a
+     1.32e9-wide stack); (c) internvl2-2b, 4 layers, n = 8, f = 2, seq
+     384 (256 seeded normal patches + 128 text), 2 steps.  Each asserts finite
+     loss / kappa_hat / direction_norm, exactly one K1 and one K2 a step
+     and no other launch, no recorded fallback, every leaf but the norm
+     gains (robust and expert) moved by step 1, and step 1's attacked stack through
+     robust_aggregate on the kernel backend against the torch backend
+     (leaf-streamed over column chunks of 2^25) within 1e-5 of the
+     largest magnitude; prints ms per step, peak memory, D, the expert
+     parameter count and the card line;
+ 18. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6), the
-     fed phase's launches, phase 13's to 16's launches, the kernels JSON
+     fed phase's launches, phase 13's to 17's launches, the kernels JSON
      line (K1, K2, K4 and K5 launches include phase 13's; K2-K5 phase
-     14's; K1-K6 phase 15's; K1-K5 phase 16's), the card line, and last
-     the {"ok": true, ...} line.
+     14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and K2 phase 17's),
+     the card line, and last the {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -3136,6 +3151,179 @@ def phase_taps(dev, peak7: int) -> dict:
     return total
 
 
+#: Phase 17: the attention-family zoo at its published widths, depth and
+#: worker count cut: (label, arch, layers, n, f, per-worker batch, seq,
+#: steps).  seq counts a VLM's patches.
+ZOO_RUNS = (("17a", "mixtral-8x22b", 1, 8, 2, 4, 128, 3),
+            ("17b", "qwen2-7b", 1, 4, 1, 4, 128, 2),
+            ("17c", "internvl2-2b", 4, 8, 2, 4, 384, 2))
+ZOO_CHUNK = 1 << 25             # torch-backend columns per leaf chunk (17)
+
+
+def zoo_backends(label: str, attacked, n: int, f: int) -> None:
+    """Step 1's attacked (n, D) stack through robust_aggregate on the
+    kernel and torch backends, both over one layout of column chunks of
+    at most ZOO_CHUNK (the kernel path still sees one flat stack; the
+    torch path's per-leaf sort then fits beside two stacks)."""
+    import torch
+    from repro_torch.core.robust import robust_aggregate
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    n_rows, d = attacked.shape
+    segs = tuple((c0, min(ZOO_CHUNK, d - c0), (min(ZOO_CHUNK, d - c0),))
+                 for c0 in range(0, d, ZOO_CHUNK))
+    layout = kdispatch.StackLayout([None] * len(segs), segs, n_rows, d)
+    stack = kdispatch.stack_views(attacked, layout)
+    got, want = (robust_aggregate(stack, AggregatorSpec(rule="cwtm", f=f,
+                                                        pre="nnm", backend=b))
+                 for b in ("cuda", "torch"))
+    worst, tol = 0.0, 0.0
+    for a, b in zip(got, want):
+        err, t = max_err(a, b)
+        worst, tol = max(worst, err), max(tol, t)
+    if worst > tol:
+        raise AssertionError(f"{label}: backends disagree: {worst} > {tol}")
+    log(f"  {label} robust_aggregate cuda vs torch on step 1's attacked "
+        f"stack ({len(segs)} chunks): max_abs_err={worst:.3e} (tol {tol:.3e} "
+        f"= {RTOL} x max|torch|) OK")
+    del got, want, stack
+    torch.cuda.empty_cache()
+
+
+def phase_zoo_run(dev, card: str, label: str, arch: str, layers: int, n: int,
+                  f: int, batch: int, seq: int, steps: int) -> dict:
+    """One phase-17 run; returns its launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.data import build_heterogeneous, make_lm_corpus, worker_batches
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch.launch_config import fsdp_keys_for
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.training import (
+        ByzantineConfig, TrainerConfig, build_train_step, init_state,
+        split_params,
+    )
+    from repro_torch.training.trainer import to_device
+    from repro_torch.tree import tree_leaves, tree_paths
+    t_run = time.perf_counter()
+    full = get_config(arch)
+    fsdp_keys = fsdp_keys_for(full)       # of the FULL config, then the cut
+    cfg = full.replace(num_layers=layers)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(0, dev)
+    robust, fsdp = split_params(params, fsdp_keys)
+    width = sum(p.numel() for p in robust)
+    experts = sum(p.numel() for p in fsdp)
+    seqs, topics = make_lm_corpus(n_tokens=400_000, vocab=cfg.vocab_size,
+                                  seq_len=seq + 1, seed=0)
+    ds = build_heterogeneous({"seq": seqs, "y": topics}, "y", n, alpha=0.1,
+                             seed=0)
+    raw = worker_batches(ds, batch, seed=0)
+    tcfg = TrainerConfig(agg=AggregatorSpec(rule="cwtm", f=f, pre="nnm"),
+                         byz=ByzantineConfig(f=f, attack="alie"),
+                         fsdp_keys=fsdp_keys)
+    optimizer = sgd(clip=2.0)
+    step_fn = build_train_step(model.loss, optimizer, tcfg,
+                               cosine(0.05, steps, warmup=0))
+    state = init_state(params, optimizer, n, tcfg)
+    del params, robust, fsdp
+    generator = torch.Generator().manual_seed(0)
+    log(f"  {label} {arch}: {layers} layer(s) of {full.num_layers}, d "
+        f"{cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, n={n} f={f}, batch "
+        f"{batch} x {seq}; fsdp_keys {fsdp_keys}; robust D = {width:,}, "
+        f"expert params (mean gradient) {experts:,}")
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    counts: dict = {}
+    hist = {"loss": [], "kappa_hat": [], "direction_norm": [], "ms": []}
+    peak = 0
+    for t in range(steps):
+        host = lm_batch(next(raw)["seq"], cfg, seq)
+        if cfg.family == "vlm":
+            # Seeded patches: the CLI's zeros would give the projector no
+            # gradient, and it would not move.
+            host["patches"] = np.random.default_rng(t).standard_normal(
+                host["patches"].shape, dtype=np.float32)
+        wb = to_device(host, dev)
+        internals = {} if t == 0 else None
+        before = state["params"] if t == 0 else None
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, wb, internals, generator=generator)
+        torch.cuda.synchronize(dev)
+        hist["ms"].append(1e3 * (time.perf_counter() - t0))
+        for k in ("loss", "kappa_hat", "direction_norm"):
+            hist[k].append(float(metrics[k]))
+        if t > 0:
+            continue
+        # Step 1: every leaf but the norm gains moved (robust and FSDP
+        # alike; a bf16 gain of 1.0 keeps its bits under an update below
+        # half its ulp, 2^-9), the path's launches and fallbacks, then the
+        # backends on its stack (their launches and memory are not the
+        # path's).
+        paths = tree_paths(before)
+        gains = {p for p, d in zip(paths, tree_leaves(model.param_descs()))
+                 if d.init == "ones"}
+        still = [p for p, a, b in zip(paths, tree_leaves(before),
+                                      tree_leaves(state["params"]))
+                 if torch.equal(a, b)]
+        if set(still) - gains:
+            raise AssertionError(f"{label}: leaves {still} did not move")
+        log(f"  {label} step 1 moved {len(paths) - len(still)} of "
+            f"{len(paths)} leaves (unchanged, norm gains: {still})")
+        del before
+        counts = dict(kdispatch.launch_counts())
+        no_fallback(label)
+        peak = torch.cuda.max_memory_allocated(dev)
+        zoo_backends(label, internals["attacked"], n, f)
+        del internals
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+    counts = add_counts(counts, kdispatch.launch_counts())
+    no_fallback(label)
+    peak = max(peak, torch.cuda.max_memory_allocated(dev))
+    for k in ("loss", "kappa_hat", "direction_norm"):
+        if not all(math.isfinite(v) for v in hist[k]):
+            raise AssertionError(f"{label}: non-finite {k}: {hist[k]}")
+    rec = kdispatch.last_dispatch()
+    if rec is None or rec.backend != "cuda" or rec.fallbacks:
+        raise AssertionError(f"{label}: dispatch did not stay on the kernels:\n"
+                             f"{rec.describe() if rec else None}")
+    want = {k: steps if k in ("gram", "mixtrim") else 0
+            for k in kdispatch.KERNELS}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    log(f"  {label} {arch}: ms/step {[round(v, 1) for v in hist['ms']]}, loss "
+        f"{[round(v, 4) for v in hist['loss']]}, kappa_hat "
+        f"{[round(v, 4) for v in hist['kappa_hat']]}, |R| "
+        f"{[round(v, 4) for v in hist['direction_norm']]}, launches K1 "
+        f"{counts['gram']} K2 {counts['mixtrim']}, peak {peak / 2**30:.2f} "
+        f"GiB, D = {width:,}, experts {experts:,}, "
+        f"{time.perf_counter() - t_run:.1f} s; card {card}")
+    del state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_zoo(dev, card: str) -> dict:
+    """Phase 17; returns its launches."""
+    total: dict = {}
+    for run in ZOO_RUNS:
+        log(f"-- {run[0]}. {run[1]} at full width, {run[2]} layer(s), "
+            f"n={run[3]} f={run[4]}")
+        add_counts(total, phase_zoo_run(dev, card, *run))
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3285,7 +3473,14 @@ def main() -> int:
     log(json.dumps({"taps_launches": counts_taps}))
     log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
 
-    log("== 17. summary")
+    t17 = time.perf_counter()
+    log("== 17. the attention-family zoo at full width: mixtral-8x22b "
+        "(FSDP experts), qwen2-7b, internvl2-2b")
+    counts_zoo = phase_zoo(dev, card)
+    log(json.dumps({"zoo_launches": counts_zoo}))
+    log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
+
+    log("== 18. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -3299,7 +3494,8 @@ def main() -> int:
         "gram": ("src/repro_torch/kernels/csrc/gram.cu",
                  "src/repro/kernels/gram/kernel.py:50",
                  counts_main["gram"] + counts_resume["gram"]
-                 + counts_opt["gram"] + counts_taps["gram"]),
+                 + counts_opt["gram"] + counts_taps["gram"]
+                 + counts_zoo["gram"]),
         "gram_tiled": ("src/repro_torch/kernels/csrc/gram.cu",
                        "src/repro/kernels/gram/kernel.py:50",
                        hier["launches"]["gram_tiled"]),
@@ -3307,7 +3503,7 @@ def main() -> int:
                     "src/repro/kernels/mixtrim/kernel.py:177",
                     counts_main["mixtrim"] + counts_resume["mixtrim"]
                     + counts_service["mixtrim"] + counts_opt["mixtrim"]
-                    + counts_taps["mixtrim"]),
+                    + counts_taps["mixtrim"] + counts_zoo["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",
                     "src/repro/kernels/combine/kernel.py:34",
                     counts_gm["combine"] + counts_service["combine"]

@@ -1,7 +1,8 @@
 """Architecture registry: public --arch ids -> ModelConfig.
 
-Only the archs whose family the port runs are registered; the others
-arrive with their families (ROADMAP queue 1, item 14).
+Only the archs whose family the port runs are registered (the attention
+family: dense, MoE, VLM); rwkv6-3b, zamba2-2.7b and whisper-base arrive
+with their families (ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -9,10 +10,16 @@ import importlib
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, InputShape, ModelConfig
 
 _ARCH_MODULES = {
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
+    "codeqwen1.5-7b": "repro_torch.configs.codeqwen15_7b",
+    "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -26,7 +33,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def reduced_config(arch: str) -> ModelConfig:
     """CPU-smoke variant of the same family: 2 layers, d_model<=128,
-    tiny vocab, fp32 (the reference's ``reduced_config`` widths)."""
+    <=4 experts, tiny vocab, fp32 (the reference's ``reduced_config``)."""
     cfg = get_config(arch)
     kw = dict(
         num_layers=2,
@@ -37,8 +44,15 @@ def reduced_config(arch: str) -> ModelConfig:
         num_heads=4,
         num_kv_heads=min(cfg.num_kv_heads, 2) if cfg.num_kv_heads < cfg.num_heads else 4,
     )
+    if cfg.num_experts:
+        kw.update(num_experts=4, moe_dense_ff=64 if cfg.moe_dense_ff else 0)
+    if cfg.sliding_window:
+        kw.update(sliding_window=32)
+    if cfg.family == "vlm":
+        kw.update(num_patches=8, vision_dim=64)
     kw.update(dtype=torch.float32, name=cfg.name + "-reduced")
     return cfg.replace(**kw)
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "reduced_config"]
+__all__ = ["ARCH_IDS", "InputShape", "ModelConfig", "SHAPES", "get_config",
+           "reduced_config"]

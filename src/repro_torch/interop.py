@@ -7,7 +7,12 @@ carry the trainer state: the reference's momentum is a list of (n, ...)
 leaves in parameter order, the port's one flat (n, D) fp32 buffer.  The
 fed server's state has the same layout (its population momentum is one
 flat (n_clients, D) buffer), so :func:`state_from_numpy` /
-:func:`state_to_numpy` carry it too.
+:func:`state_to_numpy` carry it too.  Under selective robustness
+(``TrainerConfig.fsdp_keys``) the reference's momentum lists the robust
+leaves only, and so does the port's flat buffer: pass the same
+``fsdp_keys`` to both helpers.  A MoE tree needs nothing more: its fp32
+router inside a bf16 model and its (L, E, d, ff) expert stacks carry
+across leaf by leaf, each in its own dtype.
 
 The fleet's lane state carries across too (:func:`lane_state_from_numpy`
 / :func:`lane_state_to_numpy`): params, opt_state, the momentum list and
@@ -28,6 +33,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.training.trainer import split_params
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -72,9 +78,10 @@ def momentum_from_numpy(leaves: list, device: Optional[torch.device] = None
     return tensor_from_numpy(flat, device)
 
 
-def momentum_to_numpy(flat: torch.Tensor, params: PyTree) -> list:
+def momentum_to_numpy(flat: torch.Tensor, params) -> list:
     """The port's flat (n, D) momentum -> a list of (n, ...) leaves shaped
-    like ``params``' leaves, in the reference's order."""
+    like ``params``' leaves (a tree, or the list of robust leaves), in the
+    reference's order."""
     out, off = [], 0
     arr = tensor_to_numpy(flat)
     n = arr.shape[0]
@@ -85,24 +92,32 @@ def momentum_to_numpy(flat: torch.Tensor, params: PyTree) -> list:
     return out
 
 
-def state_from_numpy(state: dict, device: Optional[torch.device] = None
-                     ) -> dict:
-    """The reference's TrainState (as numpy) -> the port's TrainState."""
+def state_from_numpy(state: dict, device: Optional[torch.device] = None,
+                     fsdp_keys: tuple = ()) -> dict:
+    """The reference's TrainState (as numpy) -> the port's TrainState;
+    ``fsdp_keys`` as the state's ``TrainerConfig`` has them."""
     out = dict(params=params_from_numpy(state["params"], device),
                opt_state=params_from_numpy(state["opt_state"], device),
                step=int(np.asarray(state["step"])))
     if "momentum" in state:
+        want = [tuple(np.shape(p)) for p in
+                split_params(state["params"], fsdp_keys)[0]]
+        got = [tuple(np.shape(m)[1:]) for m in state["momentum"]]
+        if got != want:
+            raise ValueError("the momentum's leaves do not match the robust "
+                             f"leaves for fsdp_keys={fsdp_keys!r}")
         out["momentum"] = momentum_from_numpy(state["momentum"], device)
     return out
 
 
-def state_to_numpy(state: dict) -> dict:
+def state_to_numpy(state: dict, fsdp_keys: tuple = ()) -> dict:
     """The port's TrainState -> the reference's layout, as numpy."""
     out = dict(params=params_to_numpy(state["params"]),
                opt_state=params_to_numpy(state["opt_state"]),
                step=np.int32(state["step"]))
     if "momentum" in state:
-        out["momentum"] = momentum_to_numpy(state["momentum"], state["params"])
+        out["momentum"] = momentum_to_numpy(
+            state["momentum"], split_params(state["params"], fsdp_keys)[0])
     return out
 
 

@@ -12,6 +12,11 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3 \\
       --attack alie_opt --sketch-dim 512   # eta search; sketch Gram
 
+``--arch`` takes every registered arch (the attention family: dense, MoE,
+VLM); a VLM's batch carries zero patches and ``seq - num_patches`` text
+tokens, as the reference's.  The CLI, like the reference's, builds no
+selective-robustness step: ``TrainerConfig.fsdp_keys`` is a library
+option (``repro_torch.launch.launch_config.fsdp_keys_for``).
 ``--attack`` takes every name of ``repro_torch.core.types.ATTACKS``
 (``alie_opt`` / ``foe_opt`` run 13 aggregates a step); ``--sketch-dim``
 sets ``AggregatorSpec.sketch_dim``, its signs drawn from the run's
@@ -24,6 +29,7 @@ import sys
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
@@ -43,6 +49,22 @@ from repro_torch.tree import tree_leaves
 def parse_agg(s: str) -> AggregatorSpec:
     pre, _, rule = s.rpartition("+")
     return AggregatorSpec(rule=rule or "cwtm", pre=pre or None)
+
+
+def lm_batch(seq: np.ndarray, cfg, seq_len: int) -> dict:
+    """Worker-stacked (n, b, seq_len + 1) token rows -> the model's batch:
+    next-token tokens / labels; a VLM's adds zero patches (n, b,
+    num_patches, vision_dim) and keeps ``seq_len - num_patches`` text
+    positions."""
+    batch = {"tokens": seq[..., :-1], "labels": seq[..., 1:]}
+    if cfg.family == "vlm":
+        w, pb = seq.shape[:2]
+        batch["patches"] = np.zeros((w, pb, cfg.num_patches, cfg.vision_dim),
+                                    np.float32)
+        text = seq_len - cfg.num_patches
+        batch["tokens"] = batch["tokens"][..., :text]
+        batch["labels"] = batch["labels"][..., :text]
+    return batch
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -123,9 +145,7 @@ def main(argv: Optional[list] = None, *, capture_first_stack: bool = False
     out: dict = {}
     searches = args.attack.endswith("_opt")
     for t in range(args.steps):
-        b = next(raw)
-        batch = to_device({"tokens": b["seq"][..., :-1],
-                           "labels": b["seq"][..., 1:]}, device)
+        batch = to_device(lm_batch(next(raw)["seq"], cfg, args.seq), device)
         capture = capture_first_stack and t == 0
         internals = {} if capture or searches else None
         t0 = time.perf_counter()

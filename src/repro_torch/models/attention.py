@@ -1,11 +1,12 @@
 """GQA attention, full-sequence (training) form.
 
 Counterpart of ``repro.models.attention.attention``: plain einsum
-attention with a causal mask and the kv heads repeated to the q-head
-count.  Biased projections, sliding windows and cross attention arrive
-with the archs that use them.  The reference computes this outside any
-Pallas kernel, so plain torch ops are its port.  Cached decode arrives
-with ``ServeEngine`` (ROADMAP queue 1, item 14).
+attention with a causal mask, optional QKV biases (qwen2 / codeqwen), an
+optional sliding window under the causal mask (mixtral), and the kv heads
+repeated to the q-head count.  The reference computes this outside any
+Pallas kernel, so plain torch ops are its port.  Cross attention
+(``kv_override``), ``use_rope=False`` and cached decode arrive with
+whisper and ``ServeEngine`` (ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -22,12 +23,17 @@ def attn_params(cfg: ModelConfig, layers: int) -> dict:
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     d, hd = cfg.d_model, cfg.head_dim
     L = (layers,) if layers else ()
-    return {
+    p = {
         "wq": ParamDesc(L + (d, hq * hd), cfg.dtype),
         "wk": ParamDesc(L + (d, hkv * hd), cfg.dtype),
         "wv": ParamDesc(L + (d, hkv * hd), cfg.dtype),
         "wo": ParamDesc(L + (hq * hd, d), cfg.dtype),
     }
+    if cfg.qkv_bias:
+        p["bq"] = ParamDesc(L + (hq * hd,), cfg.dtype, "zeros")
+        p["bk"] = ParamDesc(L + (hkv * hd,), cfg.dtype, "zeros")
+        p["bv"] = ParamDesc(L + (hkv * hd,), cfg.dtype, "zeros")
+    return p
 
 
 def _repeat_kv(k: Tensor, hq: int) -> Tensor:
@@ -43,6 +49,8 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = apply_rope(q.reshape(b, s, hq, hd), positions, cfg.rope_theta)
     k = apply_rope(k.reshape(b, s, hkv, hd), positions, cfg.rope_theta)
     v = v.reshape(b, s, hkv, hd)
@@ -54,7 +62,10 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
     qi = torch.arange(s, device=x.device)[:, None]
     kj = torch.arange(s, device=x.device)[None, :]
-    logits = torch.where((qi >= kj)[None, None], logits, NEG_INF)
+    mask = qi >= kj
+    if cfg.sliding_window:
+        mask = mask & (qi - kj < cfg.sliding_window)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     return out.reshape(b, s, hq * hd) @ p["wo"]

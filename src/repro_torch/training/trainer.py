@@ -12,10 +12,25 @@ Counterpart of ``repro.training.trainer``.  One step:
      ``TrainerConfig.taps``, the health taps (:mod:`repro_torch.obs.taps`);
   5. the server optimizer applies R_t.
 
+Selective robustness (``TrainerConfig.fsdp_keys``, the reference's giant-MoE
+deployment): leaves whose key path contains one of the keys (jax's
+``keystr`` spelling, e.g. ``"['moe']['wi']"``) take no part in steps 2-4.
+Their direction is the gradient of the mean over workers of the
+per-worker losses, merged beside the robust aggregate before the
+optimizer; the momentum, the attack, the aggregate, kappa-hat and the
+taps see the robust leaves only.  The reference takes that gradient in a
+second pass (``jax.grad`` of the vmapped mean loss); here it rides on the
+per-worker backward the robust gradients need anyway: each worker's
+gradient of an FSDP leaf is added to an fp32 sum at once (no per-worker
+copy outlives its worker), and the sum over n, cast once to the leaf's
+dtype, is the mean loss's gradient (what n backward passes summed in fp32
+would give, bit for bit, at half the forward / backward passes).
+
 Memory layout (differs from the reference, same arithmetic): the momentum
 is ONE preallocated flat (n, D) fp32 buffer whose per-leaf views follow
-jax's leaf order.  Each worker's gradient is folded into its row in place
-as soon as it is computed, so the reference's separate (n, D) gradient
+jax's leaf order over the robust leaves (every leaf without ``fsdp_keys``).
+Each worker's gradient is folded into its row in place as soon as it is
+computed, so the reference's separate (n, D) gradient
 stack and its concatenation into a flat buffer never exist; the attacked
 stack is one flat copy of the momentum with its last f rows overwritten,
 and the kernel path aggregates it through a zero-copy (n, D) view.  The
@@ -47,7 +62,9 @@ from repro_torch.rounds import (
     RoundEngine, RoundOptions, cadence_boundaries, fetch_metrics,
     resolve_options, round_generator, round_seeds, stack_rounds,
 )
-from repro_torch.tree import tree_leaves, tree_map, tree_structure, tree_unflatten
+from repro_torch.tree import (
+    tree_leaves, tree_map, tree_paths, tree_structure, tree_unflatten,
+)
 
 PyTree = Any
 Tensor = torch.Tensor
@@ -72,6 +89,10 @@ class TrainerConfig:
     #: step, riding its metrics as ``taps.<field>``; a tapped run equals
     #: an untapped one bit for bit.  Refused with ``agg.hier``.
     taps: bool = False
+    #: Selective robustness (giant MoE): parameters whose key path
+    #: contains one of these substrings get the mean gradient over workers
+    #: (no per-worker copy, no momentum) instead of the robust path.
+    fsdp_keys: tuple[str, ...] = ()
 
 
 #: TrainState is a plain dict: params / opt_state / step, plus the flat
@@ -84,11 +105,36 @@ def to_device(batch: PyTree, device: torch.device) -> PyTree:
     return tree_map(lambda b: torch.as_tensor(np.asarray(b)).to(device), batch)
 
 
+def _split_info(params: PyTree, fsdp_keys: tuple[str, ...]):
+    """(skeleton, key paths, is_fsdp per leaf) of ``params``, in jax's
+    leaf order."""
+    paths = tree_paths(params)
+    is_fsdp = [any(k in path for k in fsdp_keys) for path in paths]
+    return tree_structure(params), paths, is_fsdp
+
+
+def split_params(params: PyTree, fsdp_keys: tuple[str, ...]):
+    """(robust leaves, fsdp leaves), each a list in leaf order."""
+    _, _, is_fsdp = _split_info(params, fsdp_keys)
+    leaves = tree_leaves(params)
+    robust = [leaf for leaf, f in zip(leaves, is_fsdp) if not f]
+    fsdp = [leaf for leaf, f in zip(leaves, is_fsdp) if f]
+    return robust, fsdp
+
+
+def merge_params(robust: list, fsdp: list, skeleton: PyTree,
+                 is_fsdp: list) -> PyTree:
+    """Inverse of :func:`split_params` for a skeleton of ``params``."""
+    it_r, it_f = iter(robust), iter(fsdp)
+    return tree_unflatten(skeleton,
+                          [next(it_f) if f else next(it_r) for f in is_fsdp])
+
+
 def init_state(params: PyTree, optimizer: Optimizer, n_workers: int,
                cfg: TrainerConfig) -> TrainState:
     state = dict(params=params, opt_state=optimizer.init(params), step=0)
     if cfg.algorithm == "dshb":
-        leaves = tree_leaves(params)
+        leaves, _ = split_params(params, cfg.fsdp_keys)
         width = sum(leaf.numel() for leaf in leaves)
         state["momentum"] = torch.zeros((n_workers, width), dtype=torch.float32,
                                         device=leaves[0].device)
@@ -156,9 +202,9 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     per-worker loss; ``batch`` carries a leading worker axis on every leaf
     and lies on the parameters' device.  ``internals``: pass a dict and the
     step stores the attacked flat stack (``"attacked"``) and its layout
-    (``"layout"``) into it, the sketch's ``"signs"`` when drawn, and
-    under ``alie_opt`` / ``foe_opt`` the chosen ``"eta"`` and the grid's
-    ``"damages"`` (device tensors).  With ``cfg.taps`` the metrics carry
+    (``"layout"``, over the list of robust leaves) into it, the sketch's
+    ``"signs"`` when drawn, and under ``alie_opt`` / ``foe_opt`` the chosen
+    ``"eta"`` and the grid's ``"damages"`` (device tensors).  With ``cfg.taps`` the metrics carry
     the health taps as ``taps.<field>`` (the deployed aggregate's only,
     never the eta search's candidates).
     ``generator`` (the reference's ``key``) draws the bucket permutation
@@ -187,11 +233,15 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
              signs: Optional[list] = None):
         params = state["params"]
         leaves = tree_leaves(params)
-        skeleton = tree_structure(params)
+        skeleton, _, is_fsdp = _split_info(params, cfg.fsdp_keys)
         n = tree_leaves(batch)[0].shape[0]
         f = cfg.byz.f
         n_honest = n - f
-        layout = stack_layout(params, n)
+        robust_p, fsdp_p = split_params(params, cfg.fsdp_keys)
+        layout = stack_layout(robust_p, n)
+        # Pass B's fp32 sums of the per-worker FSDP gradients.
+        fsdp_sum = [torch.zeros(leaf.shape, dtype=torch.float32,
+                                device=leaf.device) for leaf in fsdp_p]
 
         if cfg.algorithm == "dshb":
             stack = state["momentum"]          # updated in place
@@ -199,7 +249,8 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             stack = torch.empty((n, layout.width), dtype=torch.float32,
                                 device=leaves[0].device)
 
-        # Pass A: per-worker gradients, each folded into its row at once.
+        # Pass A: per-worker gradients, each folded into its row at once;
+        # Pass B's FSDP gradients summed from the same backward.
         losses = []
         for i in range(n):
             wbatch = tree_map(lambda b: b[i], batch)
@@ -207,6 +258,10 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             loss, _ = loss_fn(tree_unflatten(skeleton, req), wbatch)
             grads = torch.autograd.grad(loss, req)
             row = stack[i]
+            for acc, g in zip(fsdp_sum, [g for g, fl in zip(grads, is_fsdp)
+                                         if fl]):
+                acc.add_(g)                     # fp32 += the leaf's dtype
+            grads = [g for g, fl in zip(grads, is_fsdp) if not fl]
             for (off, size, _), g in zip(layout.segments, grads):
                 seg = row[off:off + size]
                 g = g.reshape(-1).float()
@@ -246,7 +301,15 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
                 internals["signs"] = signs
 
         tap_internals = {} if cfg.taps else None
-        direction = aggregate(attacked, tap_internals)
+        robust_dir = aggregate(attacked, tap_internals)
+        # The FSDP leaves' direction is the mean loss's gradient, in each
+        # leaf's dtype (bf16 beside the fp32 robust direction, as the
+        # reference's).
+        fsdp_dir = [acc.div_(n).to(leaf.dtype)
+                    for acc, leaf in zip(fsdp_sum, fsdp_p)]
+        del fsdp_sum
+        direction = merge_params(tree_leaves(robust_dir), fsdp_dir, skeleton,
+                                 is_fsdp)
         lr = lr_schedule(state["step"])
         new_params, new_opt = optimizer.update(direction, state["opt_state"],
                                                params, lr)
@@ -261,11 +324,11 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             "direction_norm": global_norm(direction),
         }
         if cfg.track_kappa_hat:
-            metrics["kappa_hat"] = tree_kappa_hat(direction, attacked_tree,
+            metrics["kappa_hat"] = tree_kappa_hat(robust_dir, attacked_tree,
                                                   n_honest, tap_internals)
         if cfg.taps:
             metrics.update(tap_metrics(health_taps(
-                attacked_tree, direction, n_honest=n_honest, f=spec.f,
+                attacked_tree, robust_dir, n_honest=n_honest, f=spec.f,
                 rule=spec.rule, pre=spec.pre, internals=tap_internals)))
         return new_state, metrics
 

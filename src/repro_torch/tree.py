@@ -20,6 +20,19 @@ def tree_leaves(tree: PyTree) -> list:
     return [tree]
 
 
+def tree_paths(tree: PyTree) -> list:
+    """Each leaf's key path as ``jax.tree_util.keystr`` spells it
+    (``"['blocks']['moe']['wi']"``, ``"[0]"``), in :func:`tree_leaves`'
+    order."""
+    if isinstance(tree, dict):
+        return [f"[{k!r}]{rest}" for k in sorted(tree)
+                for rest in tree_paths(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [f"[{i}]{rest}" for i, v in enumerate(tree)
+                for rest in tree_paths(v)]
+    return [""]
+
+
 def tree_structure(tree: PyTree) -> PyTree:
     """A skeleton of ``tree`` with every leaf replaced by None."""
     return tree_map(lambda _: None, tree)

@@ -28,6 +28,7 @@ import repro_torch.resilience, repro_torch.resilience.store
 import repro_torch.resilience.experiment, repro_torch.resilience.faults
 import repro_torch.serving, repro_torch.serving.engine
 import repro_torch.robustness.breakdown
+import repro_torch.models.moe, repro_torch.launch.launch_config
 from repro_torch.core import apply_attack, nnm_direct, theory
 from repro_torch.launch import breakdown, grid, scenarios, service, train
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
@@ -38,6 +39,11 @@ out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--attack", "foe_opt", "--sketch-dim", "64"])
 assert out["history"]["loss"], out
 assert "sketch_gram" in [d.primitive for d in out["dispatch"].decisions]
+for arch in ("mixtral-8x22b", "internvl2-2b"):
+    out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
+                      "--byz", "1", "--seq", "16", "--batch", "1",
+                      "--arch", arch])
+    assert out["history"]["loss"], out
 out = breakdown.main(["--device", "cpu", "--n", "4", "--rounds", "1"])
 assert out["n_buckets"] == 10, out
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
@@ -85,7 +91,8 @@ def test_no_source_file_names_jax_or_repro():
                 "resilience/faults.py", "training/trainer.py",
                 "serving/__init__.py", "serving/engine.py",
                 "launch/service.py", "robustness/breakdown.py",
-                "launch/breakdown.py", "core/theory.py", "core/nnm.py"):
+                "launch/breakdown.py", "core/theory.py", "core/nnm.py",
+                "models/moe.py", "launch/launch_config.py"):
         assert PKG / mod in files, mod
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
