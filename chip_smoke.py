@@ -66,11 +66,11 @@ Phases, each fatal on failure:
      lane-batched at (8, 17, 2^24) with per-lane f = 0..7 and per-lane M,
      with and without the mix, and with an inf row and a NaN row; both at
      the fleet grid's own shapes, (B = 5, n = 17, D = 2842) and the
-     bucketing lanes' (5, 9, 2842), f = 4 per lane through adjusted_f_dyn,
-     with K2 (median) and K3 once per lane at those two shapes;
+     bucketing lanes' (5, 9, 2842), f = 4 per lane through adjusted_f_dyn
+     (the lane forms of K2's median and K3 at the grid's shape: phase 18);
  11. the fleet: ``repro_torch.launch.grid --full`` in process (61 jobs,
-     13 buckets, 100 rounds), asserting K4, K5, K2 and K3 launches and no
-     fallback, printing the accuracy table, ms per bucket-round and peak
+     13 buckets, 100 rounds), asserting K4, K5 and the lane forms of K2's
+     median and K3 launched, no single-lane K2 / K3 and no fallback, printing the accuracy table, ms per bucket-round and peak
      memory; then the cwtm | nnm and cwtm | bucketing buckets again on the
      torch backend, per-round losses within rtol 1e-4 of the kernel run;
  12. the federated engine (``repro_torch.fed``): (a) the registry's
@@ -109,8 +109,9 @@ Phases, each fatal on failure:
      paper's grid (61 jobs, 13 buckets, 30 rounds in segments of at most
      10, cut at the evals) submitted up front to ``FleetService`` and run
      by ``FleetRunner``, in turns: every FleetResult equal bit for bit, 13
-     round programs each, the K2-K5 launches equal (K4 / K5 once a
-     bucket-round, K2 / K3 once a lane), no fallback, ms per bucket-round
+     round programs each, the K2-K5 launches equal (K4 / K5 and the
+     lane forms of K2's median / K3 once a bucket-round, none once a
+     lane), no fallback, ms per bucket-round
      of both; (b) churn on the cwtm | nnm and gm | nnm buckets (3 lanes,
      segments of 3): late submits, a running and a queued cancel, two
      deadlines; admission latencies and order asserted, each finished
@@ -173,12 +174,36 @@ Phases, each fatal on failure:
      (leaf-streamed over column chunks of 2^25) within 1e-5 of the
      largest magnitude; prints ms per step, peak memory, D, the expert
      parameter count and the card line;
- 18. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
-     means on rows of their own, their launches those of phase 6), the
-     fed phase's launches, phase 13's to 17's launches, the kernels JSON
+ 18. hierarchical fleet lanes and the lane forms of K2's median, K3, K6
+     and K7: (a) at the fleet's kernel shape (B = 8, n = 17, D = 2^24):
+     K6 lanes at s = 3 (6 means, the register Gram) and K7 lanes at s = 2
+     (9 means, ragged tail; with the Gram, K7 + K5), fp32 and bf16, K3
+     lanes and K2's median lanes with and without the mix, each against
+     its plain version (RTOL; bf16 means one ulp), each lane against the
+     single-lane kernel on that lane bit for bit (at 9 means the Gram,
+     which K5 folds and the single-lane K6 folds with K1, each within
+     RTOL of the plain version), a rerun bit for bit,
+     timed beside the bound and torch.bmm(B, X) (K7), torch.bmm(c, x)
+     (K3), torch.median (the median without the mix); inf / NaN rows at a
+     ragged D (the NaN spread stays in its lane) and the grid's shapes;
+     (b) FleetRunner at the grid's widths, NNM + CWTM / cwmed / GM x 5
+     attacks, hierarchical with buckets of 2 and 3, and CWTM x 5 without
+     NNM with buckets of 2 (7 buckets of 5 lanes, 20 rounds): launches exact per bucket-round (one K6 lane form, K5
+     again at 9 means, one K4, median or K3 lane launch, none per lane),
+     each lane within rtol 1e-5 of its 1-lane solo run (GM's
+     direction_norm 1e-4), the torch backend within 1e-4; one bucket of 8
+     lanes of a quadratic job at D = 2^24 (17 clients, f = 4, hier s = 3,
+     NNM + CWTM, 3 rounds): launches, solo runs, two lanes on the torch
+     backend, peak memory; (c) four hierarchical lanes through
+     FleetService, restored after a mid-run snapshot, bit for bit;
+ 19. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+     means on rows of their own, their launches those of phase 6; the
+     lane forms of K2's median, K3, K6 and K7 on rows of their own), the
+     fed phase's launches, phase 13's to 18's launches, the kernels JSON
      line (K1, K2, K4 and K5 launches include phase 13's; K2-K5 phase
-     14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and K2 phase 17's),
-     the card line, and last the {"ok": true, ...} line.
+     14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and K2 phase 17's; the
+     lane forms and K4 / K5 phase 18's), the card line, and last the
+     {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -198,6 +223,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -590,9 +616,7 @@ def lanes_chunked(fn, d: int, step: int = 1 << 22):
 
 
 def phase_fleet_kernels(dev, rate: float) -> dict:
-    """K5 and K4 on (B, n, D) lane-batched stacks; at the grid's shapes also
-    K2 (med) and K3 once per lane, as the grid's cwmed / gm / krum lanes
-    run them."""
+    """K5 and K4 on (B, n, D) lane-batched stacks."""
     import torch
     from repro_torch.core.bucketing import adjusted_f_dyn
     from repro_torch.kernels import (gram, gram_batched, gram_batched_ref,
@@ -652,8 +676,6 @@ def phase_fleet_kernels(dev, rate: float) -> dict:
                 beside_previous(f"K4 {tag}", ms, bnd)
             agree(f"K4 mixtrim_dyn med {tag}", mixtrim_dyn(x, mm, fs, "med"),
                   plain_med(x, mm, fs, d))
-        if d == FLEET_GRID[2]:
-            phase_grid_lanes(x, m, gen)
         if big:
             # An inf row and a NaN row: the rank mask keeps inf * 0 = NaN.
             xs = x[:, :, :(1 << 20) + 3].clone()
@@ -758,23 +780,6 @@ def phase_sort_01(dev, n: int = FLEET_BIG[1]) -> None:
         "trim and median: equal to the plain version OK")
 
 
-def phase_grid_lanes(x, m, gen) -> None:
-    """K2 (median, static) and K3 once per lane of a grid-shaped stack, as
-    the grid's cwmed and gm / krum lanes launch them."""
-    import torch
-    from repro_torch.kernels import combine, combine_ref, mixtrim, mixtrim_ref
-    b, n, _ = x.shape
-    c = torch.softmax(torch.randn((b, n), generator=gen, device=x.device), -1)
-    for k in range(b):
-        xk = x[k]
-        for mm in (m[k], None):
-            agree(f"K2 mixtrim med {'mix' if mm is not None else 'no-mix'} "
-                  f"n={n} lane {k}", mixtrim(xk, mm, 0, "med"),
-                  mixtrim_ref(xk, mm, 0, "med"))
-        agree(f"K3 combine n={n} lane {k}", combine(xk, c[k]),
-              combine_ref(xk, c[k]))
-
-
 def plain_med(x, m, fs, d: int):
     from repro_torch.kernels import mixtrim_dyn_ref
     return lanes_chunked(
@@ -803,9 +808,12 @@ def phase_grid(dev, rounds: int) -> dict:
         f"peak {peak / 2**30:.3f} GiB")
     if fallbacks:
         raise AssertionError(f"grid dispatch fell back: {fallbacks[:3]}")
-    for k in ("gram_batched", "mixtrim_dyn", "mixtrim", "combine"):
+    for k in ("gram_batched", "mixtrim_dyn", "mixtrim_lanes",
+              "combine_lanes"):
         if counts[k] == 0:
             raise AssertionError(f"grid: kernel {k} was never launched")
+    if counts["mixtrim"] or counts["combine"]:
+        raise AssertionError(f"grid: a kernel launched once a lane: {counts}")
     if runner.n_buckets != 13 or len(out["results"]) != 61:
         raise AssertionError("grid: expected 61 jobs in 13 buckets")
     for r in out["results"]:
@@ -1367,7 +1375,8 @@ FED_ROUNDS, FED_CHUNK = 20, 5
 #: f = 2 (m_byz = ceil(2 * 6 / 8) = 2, the cohort's breakdown point).
 FED_CLIENTS, FED_COHORT, FED_F, FED_FULL_ROUNDS = 8, 6, 2, 2
 _FED_KERNELS = ("gram", "mixtrim", "combine", "mixtrim_dyn", "gram_batched",
-                "bucketgram", "bucketmeans")
+                "bucketgram", "bucketmeans", "bucketgram_lanes",
+                "bucketmeans_lanes", "combine_lanes", "mixtrim_lanes")
 
 
 def fed_expected(rule: str, pre) -> dict:
@@ -2007,14 +2016,17 @@ def phase_resume_fleet(dev) -> dict:
 
 SERVICE_ROUNDS, SERVICE_CHUNK = 30, 10      # 14a: the grid through both
 CHURN_ROUNDS, CHURN_CHUNK = 12, 3           # 14b
-_LANE_KERNELS = ("gram_batched", "mixtrim_dyn", "mixtrim", "combine")
+#: The lane buckets' kernels: K5, K4, K2's median and K3's lane forms, and
+#: the single-lane K2 / K3, which a lane bucket no longer launches.
+_LANE_KERNELS = ("gram_batched", "mixtrim_dyn", "mixtrim_lanes",
+                 "combine_lanes", "mixtrim", "combine")
 _GRAM_RULES = ("average", "gm", "autogm", "krum", "multikrum")
 
 
-def service_launches() -> dict:
+def service_launches(keys: tuple = _LANE_KERNELS) -> dict:
     from repro_torch.kernels import dispatch as kdispatch
     counts = kdispatch.launch_counts()
-    return {k: counts[k] for k in _LANE_KERNELS}
+    return {k: counts[k] for k in keys}
 
 
 def check_launches(what: str, got: dict, want: dict) -> None:
@@ -2023,15 +2035,16 @@ def check_launches(what: str, got: dict, want: dict) -> None:
 
 
 def lane_expected(rule: str, pre, rounds: int, lanes: int) -> dict:
-    """A lane bucket's launches over ``rounds`` bucket-rounds of
-    ``lanes`` slots: K5 (the Gram) and K4 (the cwtm trim) once a
-    bucket-round, K2 (cwmed) and K3 (the gram rules' combine) once a lane
-    a round."""
+    """A lane bucket's launches over ``rounds`` bucket-rounds, whatever
+    its ``lanes``: K5 (the Gram), and K4 (the cwtm trim), K2's median lane
+    form (cwmed) or K3's (the gram rules' combine), once a bucket-round
+    each; nothing once a lane."""
     gram = pre == "nnm" or rule in _GRAM_RULES
     return {"gram_batched": rounds if gram else 0,
             "mixtrim_dyn": rounds if rule == "cwtm" else 0,
-            "mixtrim": rounds * lanes if rule == "cwmed" else 0,
-            "combine": rounds * lanes if rule in _GRAM_RULES else 0}
+            "mixtrim_lanes": rounds if rule == "cwmed" else 0,
+            "combine_lanes": rounds if rule in _GRAM_RULES else 0,
+            "mixtrim": 0, "combine": 0}
 
 
 def add_counts(total: dict, more: dict) -> dict:
@@ -2105,8 +2118,8 @@ def phase_service_grid(dev) -> dict:
         f"most {SERVICE_CHUNK}, cut at the evals (every "
         f"{jobs[0].eval_every}): every FleetResult (history, evals, state) of the "
         f"service equals the batch runner's bit for bit; 13 round programs "
-        f"each; launches equal {counts_s} (K4 / K5 once a bucket-round, "
-        f"K2 / K3 once a lane); no fallback")
+        f"each; launches equal {counts_s} (K4 / K5 and K2's median / K3's "
+        f"lane forms once a bucket-round, none once a lane); no fallback")
     log(f"  ms per bucket-round (median over buckets of each bucket's "
         f"median): service {statistics.median(ms_s.values()):.3f} "
         f"[{min(ms_s.values()):.3f}-{max(ms_s.values()):.3f}], runner "
@@ -2640,15 +2653,16 @@ def phase_breakdown(dev) -> dict:
         lanes = len(DEFAULT_RULES) * (1 + len(DEFAULT_ATTACKS) * len(rep["fs"]))
         log(f"  breakdown on the {backend} backend: {lanes} lanes, "
             f"{rep['n_buckets']} buckets, {rep['trace_count']} round programs, "
-            f"{secs:.2f} s; K3 {counts['combine']}, K4 {counts['mixtrim_dyn']}, "
+            f"{secs:.2f} s; K3 lanes {counts['combine_lanes']}, K4 "
+            f"{counts['mixtrim_dyn']}, "
             f"K5 {counts['gram_batched']} launches")
         if backend == "cuda":
-            gram_rows = [r for r, _ in DEFAULT_RULES if r != "cwtm"]
-            per_rule = 1 + len(DEFAULT_ATTACKS) * len(rep["fs"])
+            # Every bucket takes K5; cwtm's two buckets K4, the gram
+            # rules' buckets K3's lane form, once a bucket-round each.
             want = dict.fromkeys(_FED_KERNELS, 0)
             want.update(gram_batched=rep["n_buckets"] * BD_ROUNDS,
                         mixtrim_dyn=2 * BD_ROUNDS,
-                        combine=len(gram_rows) * per_rule * BD_ROUNDS)
+                        combine_lanes=(rep["n_buckets"] - 2) * BD_ROUNDS)
             got = {k: counts[k] for k in _FED_KERNELS}
             if lanes != 85 or rep["n_buckets"] != 10 or got != want:
                 raise AssertionError(f"breakdown: {lanes} lanes, "
@@ -3324,6 +3338,571 @@ def phase_zoo(dev, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: hierarchical fleet lanes and the lane forms of K2's median, K3,
+# K6 and K7.
+# ---------------------------------------------------------------------------
+
+HIER_FLEET_ROUNDS = 20          # 18b: the grid's buckets, hierarchical
+HIER_FLEET_SIZES = (2, 3)       # bucket sizes: 9 means (K5), 6 (K6's fold)
+HIER_BIG_ROUNDS, HIER_BIG_S = 3, 3   # 18b: the (8, 17, 2^24) bucket
+HIER_SVC_ROUNDS, HIER_SVC_CHUNK = 8, 2   # 18c
+#: The lane forms and the single-lane kernels they must not fall back to.
+_HIER_KERNELS = ("bucketgram_lanes", "bucketmeans_lanes", "gram_batched",
+                 "mixtrim_dyn", "mixtrim_lanes", "combine_lanes", "gram",
+                 "mixtrim", "combine", "bucketgram", "bucketmeans")
+
+
+def same_bits(a, b) -> bool:
+    """Bit for bit, NaN payloads included (the raw words compared)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    word = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(a.contiguous().view(word), b.contiguous().view(word))
+
+
+def lane_assign(perms, s: int):
+    """(B, n) bucket ids of each lane's permutation, buckets of s."""
+    import torch
+    return torch.div(torch.argsort(perms, dim=1), s, rounding_mode="floor")
+
+
+def lanes_vs_single(what: str, got, single) -> None:
+    """Each lane of a lane-form output equals the single-lane kernel on
+    that lane bit for bit (``single(k)``)."""
+    for k in range(got.shape[0]):
+        if not same_bits(got[k], single(k)):
+            raise AssertionError(f"{what}: lane {k} differs from the "
+                                 "single-lane kernel")
+
+
+def phase_lane_kernels(dev, rate: float) -> dict:
+    """18a: K6 / K7, K3 and K2's median lane forms at the fleet's kernel
+    shape (8, 17, 2^24), each against its plain version, each lane against
+    the single-lane kernel on that lane (bit for bit), a rerun (bit for
+    bit), timed beside the bound and a library call; then inf / NaN rows
+    at a ragged D and the grid's shapes; returns the kernels-line rows."""
+    import torch
+    from repro_torch.kernels import (
+        bucket_means_gram_lanes_ref, bucketgram, bucketgram_lanes,
+        bucketmeans, bucketmeans_lanes, combine, combine_lanes,
+        combine_lanes_ref, combine_ref, gram_batched, mixtrim, mixtrim_lanes,
+        mixtrim_lanes_ref, mixtrim_ref,
+    )
+    from repro_torch.kernels.bucketgram import assignment_matrix
+    b, n, d = FLEET_BIG
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    x = torch.randn((b, n, d), generator=gen, device=dev)
+    perms = torch.stack([torch.randperm(n, generator=torch.Generator()
+                                        .manual_seed(k)) for k in range(b)])
+    perms = perms.to(dev)
+    rows = {}
+
+    def bmats(assign, nb):
+        return torch.stack([assignment_matrix(assign[k], nb)
+                            for k in range(b)])
+
+    # K6 lanes, s = 3: 6 means, the register Gram.
+    a3, nb3 = lane_assign(perms, 3), -(-n // 3)
+    a2, nb2 = lane_assign(perms, 2), -(-n // 2)
+    for xx, tag in ((x, "fp32"), (x.bfloat16(), "bf16")):
+        el = xx.element_size()
+        log(f"-- K6 bucketgram_lanes {tag} B={b} n={n} D={d}, s=3 "
+            f"({nb3} means)")
+        y, g = bucketgram_lanes(xx, a3, nb3)
+        wy, wg = bucket_means_gram_lanes_ref(xx, a3, nb3)
+        bnd = bound(1.0 * el * b * n * d + el * b * nb3 * d
+                    + 4 * b * nb3 * nb3,
+                    2.0 * b * n * d + b * nb3 * (nb3 + 1) * d, rate)
+        ms = time_ms(lambda: bucketgram_lanes(xx, a3, nb3))
+        pms = time_ms(lambda: bucket_means_gram_lanes_ref(xx, a3, nb3))
+        fn = check if tag == "fp32" else check_ulp
+        err = fn(f"K6 lanes means {tag}", y, wy, ms, pms, bnd)
+        for k in range(b):
+            agree(f"K6 lanes Gram {tag} lane {k}", g[k], wg[k])
+        lanes_vs_single(f"K6 lanes means {tag}", y,
+                        lambda k: bucketgram(xx[k], a3[k], nb3)[0])
+        lanes_vs_single(f"K6 lanes Gram {tag}", g,
+                        lambda k: bucketgram(xx[k], a3[k], nb3)[1])
+        y2, g2 = bucketgram_lanes(xx, a3, nb3)
+        if not (same_bits(y, y2) and same_bits(g, g2)):
+            raise AssertionError(f"K6 lanes {tag} is not bitwise repeatable")
+        log(f"  K6 lanes {tag}: every lane equals the single-lane K6 bit for "
+            f"bit (means and Gram); bitwise equal over two runs; "
+            f"{100 * bnd[0] / ms:.0f} % of the bound")
+        if tag == "fp32":
+            rows["bucketgram_lanes"] = dict(max_abs_err=err, ms=ms,
+                                            plain_ms=pms, bound=bnd,
+                                            library_ms=None)
+        del y, g, wy, wg, y2, g2
+
+        log(f"-- K7 bucketmeans_lanes {tag}, s=2 ({nb2} means, ragged "
+            f"tail), and K7 + K5")
+        y = bucketmeans_lanes(xx, a2, nb2)
+        wy, _ = bucket_means_gram_lanes_ref(xx, a2, nb2, with_gram=False)
+        bnd = bound(1.0 * el * b * n * d + el * b * nb2 * d,
+                    2.0 * b * n * d, rate)
+        ms = time_ms(lambda: bucketmeans_lanes(xx, a2, nb2))
+        pms = time_ms(lambda: bucket_means_gram_lanes_ref(xx, a2, nb2,
+                                                          with_gram=False))
+        lib = None
+        if tag == "fp32":
+            bm = bmats(a2, nb2)
+            lib = time_ms(lambda: torch.bmm(bm, xx))
+        err = fn(f"K7 lanes {tag}", y, wy, ms, pms, bnd, lib)
+        lanes_vs_single(f"K7 lanes {tag}", y,
+                        lambda k: bucketmeans(xx[k], a2[k], nb2))
+        if not same_bits(y, bucketmeans_lanes(xx, a2, nb2)):
+            raise AssertionError(f"K7 lanes {tag} is not bitwise repeatable")
+        if tag == "fp32":
+            rows["bucketmeans_lanes"] = dict(max_abs_err=err, ms=ms,
+                                             plain_ms=pms, bound=bnd,
+                                             library_ms=lib)
+        del y, wy
+        # With the Gram above 8 means: K7 writes the fp32 means, K5 their
+        # Gram.  The single-lane form folds it with K1, which splits D
+        # otherwise: both Grams are held to the plain version, not to each
+        # other bit for bit.
+        y, g = bucketgram_lanes(xx, a2, nb2)
+        _, wg = bucket_means_gram_lanes_ref(xx, a2, nb2)
+        ms = time_ms(lambda: bucketgram_lanes(xx, a2, nb2))
+        for k in range(b):
+            agree(f"K7 + K5 lanes Gram {tag} lane {k}", g[k], wg[k])
+            y1, g1 = bucketgram(xx[k], a2[k], nb2)
+            if not same_bits(y[k], y1):
+                raise AssertionError(f"K7 + K5 lanes {tag}: lane {k} means "
+                                     "differ from the single-lane K6")
+            agree(f"single-lane K6 (K7 + K1) Gram {tag} lane {k}", g1,
+                  wg[k])
+        if tag == "fp32" and not same_bits(g, gram_batched(y)):
+            raise AssertionError("K7 + K5 lanes: the Gram is not K5's on "
+                                 "the means")
+        log(f"  K7 lanes {tag}: every lane equals the single-lane K7 bit for "
+            f"bit, bitwise repeatable; K7 + K5 with the Gram {ms:.3f} ms")
+        del y, g, wg
+        torch.cuda.empty_cache()
+
+    log(f"-- K3 combine_lanes B={b} n={n} D={d}")
+    c = torch.softmax(torch.randn((b, n), generator=gen, device=dev), -1)
+    r = combine_lanes(x, c)
+    bnd = bound(4.0 * b * n * d + 4 * b * d + 4 * b * n, 2.0 * b * n * d,
+                rate)
+    ms = time_ms(lambda: combine_lanes(x, c))
+    pms = time_ms(lambda: combine_lanes_ref(x, c))
+    lib = time_ms(lambda: torch.bmm(c[:, None], x))
+    err = check("K3 lanes fp32", r, combine_lanes_ref(x, c), ms, pms, bnd,
+                lib)
+    lanes_vs_single("K3 lanes", r, lambda k: combine(x[k], c[k]))
+    if not same_bits(r, combine_lanes(x, c)):
+        raise AssertionError("K3 lanes is not bitwise repeatable")
+    log(f"  K3 lanes: every lane equals the single-lane K3 bit for bit, "
+        f"bitwise repeatable; {100 * bnd[0] / ms:.0f} % of the bound")
+    rows["combine_lanes"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                 bound=bnd, library_ms=lib)
+    del r
+
+    m = torch.softmax(torch.randn((b, n, n), generator=gen, device=dev), -1)
+    for mm in (m, None):
+        tag = "mix" if mm is not None else "no-mix"
+        log(f"-- K2 median lanes (mixtrim_lanes) B={b} n={n} D={d} {tag}")
+        got = mixtrim_lanes(x, mm)
+        bnd = bound(4.0 * b * n * d + 4 * b * d
+                    + (4 * b * n * n if mm is not None else 0),
+                    2.0 * b * n * n * d if mm is not None else 0.0, rate)
+        ms = time_ms(lambda: mixtrim_lanes(x, mm))
+        pms = time_ms(lambda: mixtrim_lanes_ref(x, mm))
+        # n = 17 is odd: torch.median's lower median is the median.
+        lib = None if mm is not None else \
+            time_ms(lambda: torch.median(x, dim=1).values)
+        err = check(f"K2 median lanes {tag}", got, mixtrim_lanes_ref(x, mm),
+                    ms, pms, bnd, lib)
+        lanes_vs_single(f"K2 median lanes {tag}", got,
+                        lambda k: mixtrim(x[k], None if mm is None else mm[k],
+                                          0, "med"))
+        if not same_bits(got, mixtrim_lanes(x, mm)):
+            raise AssertionError(f"K2 median lanes {tag} is not bitwise "
+                                 "repeatable")
+        log(f"  K2 median lanes {tag}: every lane equals the single-lane K2 "
+            f"bit for bit, bitwise repeatable; {100 * bnd[0] / ms:.0f} % of "
+            f"the bound")
+        if mm is not None:
+            rows["mixtrim_lanes"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                         bound=bnd, library_ms=None)
+        del got
+
+    # Non-finite rows at a ragged D (the element-wise paths): lane 1 holds
+    # +-inf rows, lane 2 a NaN row; lane 0 must stay finite.
+    xs = x[:, :, :(1 << 20) + 3].clone()
+    xs[1, 4, 100:5000] = float("inf")
+    xs[1, 9, 3000:7000] = -float("inf")
+    xs[2, 7, 2000:9000] = float("nan")
+    outs = {"K6 lanes": (bucketgram_lanes(xs, a3, nb3)[0],
+                         bucket_means_gram_lanes_ref(xs, a3, nb3)[0]),
+            "K7 lanes": (bucketmeans_lanes(xs, a2, nb2),
+                         bucket_means_gram_lanes_ref(xs, a2, nb2)[0]),
+            "K3 lanes": (combine_lanes(xs, c), combine_lanes_ref(xs, c)),
+            "K2 median lanes": (mixtrim_lanes(xs, m),
+                                mixtrim_lanes_ref(xs, m))}
+    for what, (got, want) in outs.items():
+        agree(f"{what} inf / nan rows ({int(torch.isnan(want).sum())} NaN "
+              "outputs)", got, want)
+        if bool(torch.isnan(got[0]).any()):
+            raise AssertionError(f"{what}: a NaN reached lane 0")
+    y6, g6 = bucketgram_lanes(xs, a3, nb3)
+    for k in range(b):
+        y1, g1 = bucketgram(xs[k], a3[k], nb3)
+        if not (same_bits(y6[k], y1) and same_bits(g6[k], g1)):
+            raise AssertionError(f"K6 lanes inf / nan: lane {k} differs "
+                                 "from the single-lane K6")
+    log("  inf / NaN rows: the 0 * inf spread stays in its lane; K6 lanes "
+        "equal the single-lane K6 bit for bit there")
+    del xs, outs, y6, g6, x
+    torch.cuda.empty_cache()
+
+    # The grid's shapes: the lane forms against their plain versions.
+    gb, gn, gd = FLEET_GRID
+    xg = torch.randn((gb, gn, gd), generator=gen, device=dev)
+    pg = torch.stack([torch.randperm(gn, generator=torch.Generator()
+                                     .manual_seed(k)) for k in range(gb)])
+    pg = pg.to(dev)
+    cg = torch.softmax(torch.randn((gb, gn), generator=gen, device=dev), -1)
+    mg = torch.softmax(torch.randn((gb, gn, gn), generator=gen, device=dev),
+                       -1)
+    for s in HIER_FLEET_SIZES:
+        ag, nbg = lane_assign(pg, s), -(-gn // s)
+        y, g = bucketgram_lanes(xg, ag, nbg)
+        wy, wg = bucket_means_gram_lanes_ref(xg, ag, nbg)
+        agree(f"K6 lanes grid shape s={s} means", y, wy)
+        for k in range(gb):
+            agree(f"K6 lanes grid shape s={s} Gram lane {k}", g[k], wg[k])
+    # K3 and K2's median, lane forms and single-lane kernels, each lane
+    # against the plain version and the two forms bit for bit.
+    r = combine_lanes(xg, cg)
+    agree("K3 lanes grid shape", r, combine_lanes_ref(xg, cg))
+    for k in range(gb):
+        agree(f"K3 grid shape lane {k}", combine(xg[k], cg[k]),
+              combine_ref(xg[k], cg[k]))
+    lanes_vs_single("K3 lanes grid shape", r,
+                    lambda k: combine(xg[k], cg[k]))
+    for mm in (mg, None):
+        tag = "mix" if mm is not None else "no-mix"
+        med = mixtrim_lanes(xg, mm)
+        agree(f"K2 median lanes grid shape {tag}", med,
+              mixtrim_lanes_ref(xg, mm))
+        single = [mixtrim(xg[k], None if mm is None else mm[k], 0, "med")
+                  for k in range(gb)]
+        for k in range(gb):
+            agree(f"K2 median grid shape {tag} lane {k}", single[k],
+                  mixtrim_ref(xg[k], None if mm is None else mm[k], 0,
+                              "med"))
+        lanes_vs_single(f"K2 median lanes grid shape {tag}", med,
+                        lambda k: single[k])
+    return rows
+
+
+def hier_grid_jobs(rounds: int, backend: str = "auto") -> list:
+    """The grid's NNM + CWTM, NNM + cwmed and NNM + GM cells (5 attacks
+    each), hierarchical at each of HIER_FLEET_SIZES, and its CWTM cells
+    without NNM at the first (the means alone, K7): 7 buckets of 5."""
+    import dataclasses
+    from repro_torch.launch import grid
+    out = []
+    for s in HIER_FLEET_SIZES:
+        cells = ("cwtm|nnm|", "cwmed|nnm|", "gm|nnm|") + (
+            ("cwtm|None|",) if s == HIER_FLEET_SIZES[0] else ())
+        for j in grid.build_jobs(full=True, alpha=0.1, steps=rounds,
+                                 backend=backend):
+            if not j.label.startswith(cells):
+                continue
+            agg = dataclasses.replace(j.cfg.agg, hier=True, bucket_size=s)
+            out.append(dataclasses.replace(
+                j, label=f"{j.label}|s{s}",
+                cfg=dataclasses.replace(j.cfg, agg=agg)))
+    return out
+
+
+def hier_round_expected(rule: str, pre, nb: int, rounds: int) -> dict:
+    """One hierarchical bucket's launches over ``rounds``: K6's lane form
+    once a bucket-round (K7's without a Gram consumer: CWTM or cwmed
+    without NNM), K5 once more where a Gram is needed above 8 means, and
+    one launch of the rule's lane kernel; nothing per lane."""
+    want = dict.fromkeys(_HIER_KERNELS, 0)
+    gram = pre == "nnm" or rule in _GRAM_RULES
+    want["bucketgram_lanes" if gram else "bucketmeans_lanes"] = rounds
+    want["gram_batched"] = rounds if gram and nb > 8 else 0
+    key = {"cwtm": "mixtrim_dyn", "cwmed": "mixtrim_lanes"}.get(
+        rule, "combine_lanes")
+    want[key] = rounds
+    return want
+
+
+def close_histories(what: str, got, want, rtol: float, worst: dict,
+                    norm_rtol: Optional[float] = None) -> None:
+    """Per-round loss within ``rtol`` and direction_norm within
+    ``norm_rtol`` (default ``rtol``) of ``want``'s; the worst relative
+    differences go to ``worst``."""
+    for col in ("loss", "direction_norm"):
+        tol = rtol if col == "loss" or norm_rtol is None else norm_rtol
+        a, b = getattr(got.history, col), getattr(want.history, col)
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: {len(a)} rounds vs {len(b)}")
+        for u, v in zip(a, b):
+            rel = abs(u - v) / max(abs(v), 1e-30)
+            worst[col] = max(worst.get(col, 0.0), rel)
+            if not rel <= tol:
+                raise AssertionError(f"{what} {col}: {u} vs {v} (rtol {tol})")
+
+
+def _quad_loss(p, batch):
+    """0.5 |theta|^2 - c_i sum(theta) for client i, c_i = sin(1.3 i + 0.5)
+    (gradient theta - c_i in fp32).  The c_i are distinct in every pair,
+    so no two pairs of honest rows lie at tied distances.  The sums over
+    the 2^24 coordinates accumulate in fp64 (no fp64 copy): as an fp32
+    ``theta @ theta`` the 8-lane and the 1-lane products reduced them in
+    other orders, 1.6e-4 apart on the card, which hid the aggregate's own
+    agreement with the solo run."""
+    import torch
+    c = torch.sin(1.3 * batch["idx"].double().reshape(-1)[0] + 0.5)
+    th = p["theta"]
+    sq = (th * th).sum(dtype=torch.float64)
+    return (0.5 * sq - c * th.sum(dtype=torch.float64)).float(), {}
+
+
+def _idx_batch(cohort, n_flip, rng):
+    import numpy as np
+    return {"idx": np.asarray(cohort)[:, None, None]}
+
+
+def _quad_big_job(label: str, seed: int, dev, opt, backend: str = "auto"):
+    """tests/test_hier.py's quadratic job widened to the fleet's kernel
+    shape: 17 clients, all of them each round, f = 4, D = 2^24 seeded
+    parameters; client i is pulled towards c_i (:func:`_quad_loss`, so the
+    worker rows differ), ALIE, NNM + CWTM, hier with
+    buckets of HIER_BIG_S.  The loss, batch function and ``opt`` are
+    shared objects: they are bucket-key material."""
+    import torch
+    from repro_torch.core import AggregatorSpec
+    from repro_torch.fed import ClientConfig, FedConfig, constant_attack
+    from repro_torch.fleet import FleetJob
+    n, d = FLEET_BIG[1], FLEET_BIG[2]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(100 + seed)
+    cfg = FedConfig(n_clients=n, clients_per_round=n, f=4,
+                    agg=AggregatorSpec(rule="cwtm", f=4, pre="nnm",
+                                       hier=True, bucket_size=HIER_BIG_S,
+                                       backend=backend),
+                    client=ClientConfig(local_steps=0, algorithm="dshb",
+                                        beta=0.9))
+    return FleetJob(
+        label=label, cfg=cfg, loss_fn=_quad_loss, optimizer=opt,
+        params={"theta": torch.randn((d,), generator=gen, device=dev)},
+        batch_fn=_idx_batch,
+        rounds=HIER_BIG_ROUNDS, seed=seed,
+        schedule=constant_attack("alie", 2.0), lr_fn=lambda r: 0.1)
+
+
+def phase_hier_fleet(dev) -> dict:
+    """18b: hierarchical FleetRunner buckets at the grid's widths and one
+    8-lane bucket at the kernel shape; exact launches per bucket-round,
+    each lane against its 1-lane solo run, the kernel backend against the
+    torch backend; returns launches."""
+    import torch
+    from repro_torch.fleet import FleetRunner
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.optim import sgd
+    total: dict = {}
+    jobs = hier_grid_jobs(HIER_FLEET_ROUNDS)
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    runner = FleetRunner(jobs, device=dev)
+    if runner.n_buckets != 7 or len(jobs) != 35:
+        raise AssertionError(f"18b: {runner.n_buckets} buckets, "
+                             f"{len(jobs)} jobs")
+    t0 = time.perf_counter()
+    res = runner.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = service_launches(_HIER_KERNELS)
+    no_fallback("18b grid")
+    want: dict = {}
+    for bkt in runner.buckets:
+        agg = bkt.jobs[0].cfg.agg
+        add_counts(want, hier_round_expected(
+            agg.rule, agg.pre, -(-FLEET_GRID[1] // agg.bucket_size),
+            HIER_FLEET_ROUNDS))
+    check_launches("18b grid buckets", counts, want)
+    add_counts(total, counts)
+    worst_solo: dict = {}
+    for job, r in zip(jobs, res):
+        if not all(math.isfinite(v) for v in r.history.loss
+                   + r.history.direction_norm):
+            raise AssertionError(f"18b {r.label}: non-finite history")
+        kdispatch.reset_launch_counts()
+        solo = FleetRunner([job], device=dev).run()[0]
+        agg = job.cfg.agg
+        check_launches(f"18b solo {r.label}", service_launches(_HIER_KERNELS),
+                       hier_round_expected(agg.rule, agg.pre,
+                                           -(-FLEET_GRID[1]
+                                             // agg.bucket_size),
+                                           HIER_FLEET_ROUNDS))
+        add_counts(total, service_launches(_HIER_KERNELS))
+        # As 14b: GM's direction_norm within 1e-4 (Weiszfeld's fp32
+        # iterations amplify another batch shape's rounding).
+        close_histories(f"18b {r.label} vs solo", r, solo, 1e-5, worst_solo,
+                        1e-4 if agg.rule == "gm" else None)
+    kdispatch.reset_launch_counts()
+    again = FleetRunner(hier_grid_jobs(HIER_FLEET_ROUNDS, backend="torch"),
+                        device=dev).run()
+    if any(kdispatch.launch_counts().values()):
+        raise AssertionError("18b: the torch backend launched a kernel")
+    worst_torch: dict = {}
+    for a, b in zip(res, again):
+        close_histories(f"18b {a.label} cuda vs torch", a, b, 1e-4,
+                        worst_torch)
+    per: dict = {}
+    for bi, _, nr, sec in runner.segment_log:
+        per.setdefault(bi, []).append(1e3 * sec / nr)
+    meds = {"|".join(runner.buckets[bi].jobs[0].label.split("|")[:2]) + "|s"
+            + str(runner.buckets[bi].jobs[0].cfg.agg.bucket_size):
+            round(statistics.median(v), 3) for bi, v in per.items()}
+    log(f"  35 jobs (cwtm / cwmed / gm | nnm x 5 attacks x s in "
+        f"{HIER_FLEET_SIZES}, cwtm | None x 5 at s = "
+        f"{HIER_FLEET_SIZES[0]}), 7 buckets of 5 lanes, {HIER_FLEET_ROUNDS} "
+        f"rounds, {wall:.2f} s; launches {counts} (one lane-form launch a "
+        f"bucket-round, K5 again at 9 means, none per lane); against the "
+        f"1-lane solo runs max rel diff "
+        f"{ {k: float(f'{v:.3e}') for k, v in worst_solo.items()} } (tol "
+        f"1e-5, gm's direction_norm 1e-4); cuda vs torch backend "
+        f"{ {k: float(f'{v:.3e}') for k, v in worst_torch.items()} } (tol "
+        f"1e-4); ms per bucket-round {meds}")
+
+    # One bucket of 8 lanes at the kernel shape (one optimizer object: it
+    # is bucket-key material).
+    opt = sgd(clip=1.0)
+    big = [_quad_big_job(f"quad{k}", k, dev, opt)
+           for k in range(FLEET_BIG[0])]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kdispatch.reset_launch_counts()
+    runner = FleetRunner(big, device=dev)
+    if runner.n_buckets != 1:
+        raise AssertionError(f"18b big: {runner.n_buckets} buckets")
+    t0 = time.perf_counter()
+    res = runner.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = service_launches(_HIER_KERNELS)
+    no_fallback("18b big")
+    check_launches("18b big bucket", counts, hier_round_expected(
+        "cwtm", "nnm", -(-FLEET_BIG[1] // HIER_BIG_S), HIER_BIG_ROUNDS))
+    add_counts(total, counts)
+    worst_big: dict = {}
+    for job, r in zip(big, res):
+        if not all(math.isfinite(v) for v in r.history.loss
+                   + r.history.direction_norm):
+            raise AssertionError(f"18b {r.label}: non-finite history")
+        kdispatch.reset_launch_counts()
+        solo = FleetRunner([job], device=dev).run()[0]
+        check_launches(f"18b solo {r.label}", service_launches(_HIER_KERNELS),
+                       hier_round_expected("cwtm", "nnm", -(-FLEET_BIG[1]
+                                                            // HIER_BIG_S),
+                                           HIER_BIG_ROUNDS))
+        add_counts(total, service_launches(_HIER_KERNELS))
+        close_histories(f"18b {r.label} vs solo", r, solo, 1e-5, worst_big)
+    torch_jobs = [_quad_big_job(f"quad{k}", k, dev, opt, backend="torch")
+                  for k in range(2)]
+    before = kdispatch.launch_counts()
+    tres = FleetRunner(torch_jobs, device=dev).run()
+    if kdispatch.launch_counts() != before:
+        raise AssertionError("18b big: the torch backend launched a kernel")
+    worst_bt: dict = {}
+    for a, b in zip(res[:2], tres):
+        close_histories(f"18b {a.label} cuda vs torch", a, b, 1e-4, worst_bt)
+    seg = [1e3 * sec / nr for _, _, nr, sec in runner.segment_log]
+    log(f"  8 lanes x 17 workers x D = 2^24 (hier s={HIER_BIG_S}, NNM + "
+        f"CWTM, ALIE), {HIER_BIG_ROUNDS} rounds, {wall:.2f} s ("
+        f"{min(seg):.1f}-{max(seg):.1f} ms a round), peak "
+        f"{peak / 2**30:.2f} GiB; launches {counts}; against the solo runs "
+        f"{ {k: float(f'{v:.3e}') for k, v in worst_big.items()} } (tol "
+        f"1e-5); two lanes cuda vs torch "
+        f"{ {k: float(f'{v:.3e}') for k, v in worst_bt.items()} } (tol 1e-4)")
+    del big, res, runner
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_hier_service(dev) -> dict:
+    """18c: hierarchical jobs through FleetService, a snapshot mid-run, a
+    restore; every history and state equals the uninterrupted service's
+    bit for bit; returns launches."""
+    import dataclasses
+    import tempfile
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.resilience import CheckpointConfig
+    from repro_torch.rounds import RoundOptions
+    from repro_torch.serving import FleetService
+    cells = {j.label: j for j in hier_grid_jobs(HIER_SVC_ROUNDS)}
+
+    def jobs():
+        return [dataclasses.replace(cells[label], eval_every=HIER_SVC_CHUNK)
+                for label in ("cwtm|nnm|alie|s2", "cwtm|nnm|sf|s2",
+                              "cwmed|nnm|mimic|s3", "gm|nnm|foe|s3")]
+
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    ref = FleetService(chunk=HIER_SVC_CHUNK, device=dev)
+    want = [h.result() for h in [ref.submit(j) for j in jobs()]]
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = RoundOptions(checkpoint=CheckpointConfig(dir=tmp, sync=True))
+        svc = FleetService(chunk=HIER_SVC_CHUNK, options=opts, device=dev)
+        ids = [svc.submit(j).job_id for j in jobs()]
+        svc.step()
+        svc.step()
+        del svc
+        restored = FleetService.restore(opts.checkpoint,
+                                        jobs=dict(zip(ids, jobs())),
+                                        device=dev)
+        got = [restored.handle_of(i).result() for i in ids]
+    no_fallback("18c")
+    for a, b in zip(got, want):
+        same_fed_history(f"18c {b.label}", a.history, b.history)
+        same_tree(f"18c {b.label}: state", a.state, b.state)
+    counts = service_launches(_HIER_KERNELS)
+    log(f"  4 hierarchical lanes in 3 buckets (cwtm|nnm s=2, cwmed|nnm s=3, "
+        f"gm|nnm s=3), {HIER_SVC_ROUNDS} rounds in segments of "
+        f"{HIER_SVC_CHUNK}: restored after the step-2 snapshot, every "
+        f"history and state equals the uninterrupted service bit for bit; "
+        f"launches {counts}")
+    return counts
+
+
+def phase_hier(dev, rate: float) -> tuple[dict, dict]:
+    """Phase 18; returns (kernels-line rows, launches of 18b-c)."""
+    t0 = time.perf_counter()
+    log("-- 18a. the lane forms at the fleet's kernel shape "
+        f"{FLEET_BIG}")
+    rows = phase_lane_kernels(dev, rate)
+    secs = {"18a": time.perf_counter() - t0}
+    log("-- 18b. hierarchical fleet lanes: the grid's buckets and an 8-lane "
+        "bucket at D = 2^24")
+    total = phase_hier_fleet(dev)
+    secs["18b"] = time.perf_counter() - t0 - sum(secs.values())
+    log("-- 18c. hierarchical lanes through FleetService, snapshot and "
+        "restore")
+    add_counts(total, phase_hier_service(dev))
+    secs["18c"] = time.perf_counter() - t0 - sum(secs.values())
+    log(f"  seconds: { {k: round(v, 1) for k, v in secs.items()} }")
+    idle = [k for k in ("bucketgram_lanes", "bucketmeans_lanes",
+                        "mixtrim_lanes", "combine_lanes") if not total.get(k)]
+    if idle:
+        raise AssertionError(f"phase 18: lane forms never launched on the "
+                             f"fleet's path: {idle}")
+    return rows, total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3480,7 +4059,15 @@ def main() -> int:
     log(json.dumps({"zoo_launches": counts_zoo}))
     log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
 
-    log("== 18. summary")
+    t18 = time.perf_counter()
+    log("== 18. hierarchical fleet lanes; the lane forms of K2's median, K3, "
+        "K6 and K7")
+    hier_rows, counts_hfleet = phase_hier(dev, rate)
+    rows.update(hier_rows)
+    log(json.dumps({"hier_fleet_launches": counts_hfleet}))
+    log(f"  phase 18: {time.perf_counter() - t18:.1f} s")
+
+    log("== 19. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -3488,8 +4075,18 @@ def main() -> int:
              ("K2 > 64 no mix", "mixtrim_select_nomix", "ported, redesigned, checked"),
              ("K3", "combine", "ported, checked"), ("K4", "mixtrim_dyn", "ported, checked"),
              ("K5", "gram_batched", "ported, checked"), ("K6", "bucketgram", "ported, checked"),
-             ("K7", "bucketmeans", "ported, checked")]
+             ("K7", "bucketmeans", "ported, checked"),
+             ("K2 median lanes", "mixtrim_lanes", "ported, checked"),
+             ("K3 lanes", "combine_lanes", "ported, checked"),
+             ("K6 lanes", "bucketgram_lanes", "ported, checked"),
+             ("K7 lanes", "bucketmeans_lanes", "ported, checked")]
     log("kernels: " + "; ".join(f"{k} {n}: {s}" for k, n, s in table))
+
+    def lane_total(name: str) -> int:
+        return sum(c.get(name, 0) for c in (counts_grid, counts_resume,
+                                             counts_service, counts_opt,
+                                             counts_taps, counts_hfleet))
+
     meta = {
         "gram": ("src/repro_torch/kernels/csrc/gram.cu",
                  "src/repro/kernels/gram/kernel.py:50",
@@ -3520,20 +4117,34 @@ def main() -> int:
                         + counts_resume["mixtrim_dyn"]
                         + counts_service["mixtrim_dyn"]
                         + counts_opt["mixtrim_dyn"]
-                        + counts_taps["mixtrim_dyn"]),
+                        + counts_taps["mixtrim_dyn"]
+                        + counts_hfleet["mixtrim_dyn"]),
         "gram_batched": ("src/repro_torch/kernels/csrc/gram_batched.cu",
                          "src/repro/kernels/gram/kernel.py:73",
                          counts_grid["gram_batched"]
                          + counts_resume["gram_batched"]
                          + counts_service["gram_batched"]
                          + counts_opt["gram_batched"]
-                         + counts_taps["gram_batched"]),
+                         + counts_taps["gram_batched"]
+                         + counts_hfleet["gram_batched"]),
         "bucketgram": ("src/repro_torch/kernels/csrc/bucketgram.cu",
                        "src/repro/kernels/bucketgram/kernel.py:75",
                        counts_hier["bucketgram"] + counts_opt["bucketgram"]),
         "bucketmeans": ("src/repro_torch/kernels/csrc/bucketgram.cu",
                         "src/repro/kernels/bucketgram/kernel.py:75",
                         counts_hmean["bucketmeans"]),
+        "mixtrim_lanes": ("src/repro_torch/kernels/csrc/mixtrim_dyn.cuh",
+                          "src/repro/kernels/mixtrim/kernel.py:177",
+                          lane_total("mixtrim_lanes")),
+        "combine_lanes": ("src/repro_torch/kernels/csrc/combine.cu",
+                          "src/repro/kernels/combine/kernel.py:34",
+                          lane_total("combine_lanes")),
+        "bucketgram_lanes": ("src/repro_torch/kernels/csrc/bucketgram.cu",
+                             "src/repro/kernels/bucketgram/kernel.py:75",
+                             lane_total("bucketgram_lanes")),
+        "bucketmeans_lanes": ("src/repro_torch/kernels/csrc/bucketgram.cu",
+                              "src/repro/kernels/bucketgram/kernel.py:75",
+                              lane_total("bucketmeans_lanes")),
     }
     kernels = []
     for k, (src, rep, launches) in meta.items():

@@ -37,11 +37,15 @@ int tensor and :func:`batched_robust_aggregate` a lane-batched stack
 selection go through rank masks (``*_dyn`` in :mod:`repro_torch.core.gram`).
 The reference gets its lane axis from ``jax.vmap``; the CUDA kernels
 cannot run under ``torch.func.vmap``, so the port writes the lane axis
-out: on "cuda" the stacks flatten to (B, n, D), K5 gives every lane's
-Gram in one launch, the (n, n) math runs batched in torch, K4 trims every
-lane in one launch, and the gram rules apply K3 and cwmed K2 once per lane
-(the reference has no batched combine or static mixtrim kernel).  On
-"torch" the leaf-streamed math runs with the lane axis batched.
+out: on "cuda" the stacks flatten to (B, n, D), hierarchical lanes reduce
+to their bucket means in one launch (K6 / K7's lane form, each lane with
+its own permutation), K5 gives every lane's Gram in one launch (skipped
+when K6 gave it), the (n, n) math runs batched in torch, and one launch
+applies every lane's rule: K4 trims, K2's median lane form takes cwmed,
+K3's lane form the gram rules.  On "torch" the leaf-streamed math runs
+with the lane axis batched (hier: the gather form).  Hierarchical lanes
+need an explicit ``bucket_size``, clamped to ``max(1, min(s, n))`` (the
+dynamic form; the floor(n/2f) default depends on f).
 
 Sketch Gram (``AggregatorSpec.sketch_dim``): the Gram is taken of a
 signed (n, sketch_dim) sketch of the stack (:func:`tree_sketch_gram`;
@@ -56,8 +60,7 @@ as the reference does with ``key=None``.  On "cuda" it replaces K1.
 that several aggregates (the ``_opt`` eta searches) share one draw.
 
 Not ported yet, and rejected with an error naming the ROADMAP item: the
-reference's multi-device backends and hierarchical fleet lanes
-(``hier`` on the dynamic path).
+reference's multi-device backends (``pallas_sharded`` / ``pallas_hier``).
 """
 from __future__ import annotations
 
@@ -584,8 +587,9 @@ def _lane_perms(n: int, b: int, device, generators, perms) -> Tensor:
     each lane's generator."""
     if perms is None:
         if generators is None or len(generators) != b:
-            raise ValueError("bucketing lanes need one torch.Generator per "
-                             "lane or a (B, n) perms tensor")
+            raise ValueError("bucketing and hierarchical lanes need one "
+                             "torch.Generator per lane or a (B, n) perms "
+                             "tensor")
         perms = torch.stack([bucketlib.draw_perm(n, generator=g)
                              for g in generators])
     perms = torch.as_tensor(perms).to(device=device, dtype=torch.int64)
@@ -595,13 +599,20 @@ def _lane_perms(n: int, b: int, device, generators, perms) -> Tensor:
     return perms
 
 
+def _bucket_size_dyn(bucket_size: int, n: int) -> int:
+    """The dynamic path's bucket size: ``max(1, min(s, n))`` (not
+    :func:`~repro_torch.core.bucketing.clamp_bucket_size`'s static clamp,
+    whose floor(n/2f) default depends on f)."""
+    return max(1, min(int(bucket_size), n))
+
+
 def _tree_bucket_lanes(tree: PyTree, f: Tensor, perms: Tensor,
                        bucket_size: int) -> tuple[PyTree, Tensor]:
     """The gather-form bucketing of every lane with its own permutation;
     returns (bucket means (B, ceil(n/s), ...), adjusted f (B,))."""
     leaves = tree_leaves(tree)
     b, n = leaves[0].shape[:2]
-    s = max(1, min(int(bucket_size), n))
+    s = _bucket_size_dyn(bucket_size, n)
     nb = bucketlib.num_buckets(n, s)
     pad = nb * s - n
     counts = bucketlib.bucket_counts(n, s, device=leaves[0].device)
@@ -640,10 +651,11 @@ def _tree_bucket_dyn(tree: PyTree, f, bucket_size: int, *,
 
 def _validate_dyn(spec: AggregatorSpec) -> None:
     _validate(spec)
-    if spec.hier:
-        raise NotImplementedError(
-            "hierarchical aggregation on the dynamic-f path (hierarchical "
-            "fleet lanes) is not ported yet (ROADMAP queue 1, item 13)")
+    if spec.hier and spec.bucket_size is None:
+        raise ValueError(
+            "dynamic-f hierarchical aggregation needs an explicit "
+            "bucket_size (the floor(n/2f) default is shape-level); set "
+            "AggregatorSpec.bucket_size")
     if spec.pre == "bucketing" and spec.bucket_size is None:
         raise ValueError(
             "dynamic-f bucketing needs an explicit bucket_size (the "
@@ -679,6 +691,8 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
     lanes have ``signs``).  ``internals`` as in :func:`robust_aggregate`,
     every entry lane-stacked."""
     _validate_dyn(spec)
+    if internals is not None:
+        validate_taps(spec)
     leaves = tree_leaves(tree)
     b, n = leaves[0].shape[:2]
     dev = leaves[0].device
@@ -688,18 +702,36 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
         work, f = _tree_bucket_lanes(
             work, f, _lane_perms(n, b, dev, generators, perms),
             spec.bucket_size)
+    hier_perms = None
+    if spec.hier and _bucket_size_dyn(spec.bucket_size, n) > 1:
+        hier_perms = _lane_perms(n, b, dev, generators, perms)
     signs = _lane_signs(work, spec, generators, signs)
     if spec.transport_dtype == "bf16":
         work = tree_map(lambda leaf: leaf.to(torch.bfloat16), work)
 
     backend = kdispatch.resolve_backend(spec.backend, dev)
     kdispatch.open_record(requested=spec.backend, backend=backend,
-                          rule=spec.rule, pre=spec.pre, dyn=True, lanes=b)
+                          rule=spec.rule, pre=spec.pre, hier=bool(spec.hier),
+                          bucket_size=spec.bucket_size, dyn=True, lanes=b)
     if backend == "cuda":
         return _aggregate_flat_lanes(work, spec, f, batched=batched,
-                                     signs=signs, internals=internals)
+                                     perms=hier_perms, signs=signs,
+                                     internals=internals)
     kdispatch.record_decision("pipeline", "torch", "torch",
                               "leaf-streamed torch path")
+
+    if spec.hier:
+        # The gather form, with each lane's permutation (the kernel path's
+        # bucket grouping).
+        if hier_perms is None:
+            kdispatch.record_decision("bucketgram", "torch", "skipped",
+                                      _HIER_S1_NOTE)
+        else:
+            kdispatch.record_decision(
+                "bucketgram", "torch", "torch",
+                "dense leaf-streamed bucketing (gather form)")
+            work, f = _tree_bucket_lanes(work, f, hier_perms,
+                                         spec.bucket_size)
 
     if signs is not None:
         kdispatch.record_decision("sketch_gram", "torch", "torch",
@@ -731,22 +763,57 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
     raise ValueError(f"unknown rule {spec.rule!r}")
 
 
+def _hier_reduce_lanes(flat: Tensor, spec: AggregatorSpec, f: Tensor, *,
+                       perms: Optional[Tensor], batched: bool
+                       ) -> tuple[Tensor, Tensor, Optional[Tensor]]:
+    """The hierarchical pre-reduction of a (B, n, D) lane stack: (bucket
+    means (B, n_b, D), adjusted f (B,), their (B, n_b, n_b) fp32 Gram or
+    None).  ``perms`` None is s = 1: the identity, recorded as skipped
+    (bitwise the dense pipeline).  The lanes take K6 / K7's lane form; the
+    single-lane entry point (``batched=False``) the single-lane K6 / K7."""
+    if perms is None:
+        kdispatch.record_decision("bucketgram", "cuda", "skipped",
+                                  _HIER_S1_NOTE)
+        return flat, f, None
+    n = flat.shape[1]
+    s = _bucket_size_dyn(spec.bucket_size, n)
+    nb = bucketlib.num_buckets(n, s)
+    # Worker i of lane b goes to bucket argsort(perms[b])[i] // s, as
+    # bucketlib.bucket_assignment groups one lane.
+    assign = torch.div(torch.argsort(perms, dim=1), s, rounding_mode="floor")
+    need_gram = spec.rule in GRAM_RULES or spec.pre == "nnm"
+    if batched:
+        y, g = kdispatch.dispatch_bucketgram(flat, assign, nb, backend="cuda",
+                                             with_gram=need_gram)
+    else:
+        y, g = kdispatch.dispatch_bucketgram(flat[0], assign[0], nb,
+                                             backend="cuda",
+                                             with_gram=need_gram)
+        y, g = y[None], None if g is None else g[None]
+    return y, bucketlib.adjusted_f_dyn(f, nb).to(torch.int64), g
+
+
 def _aggregate_flat_lanes(work: PyTree, spec: AggregatorSpec, f: Tensor, *,
-                          batched: bool, signs=None,
+                          batched: bool, perms=None, signs=None,
                           internals: Optional[dict] = None) -> PyTree:
     """Kernel pipeline of the dynamic path: the lanes as one (B, n, D)
-    buffer -> Gram (K5; K1 for the single-lane entry point; the sketch
-    Gram when ``signs``) -> batched NNM / coefficients -> combine (K3 per
-    lane) or mix + trim (K4, all lanes in one launch; cwmed: K2 per lane)
+    buffer -> [bucket means (K6 / K7, each lane's ``perms``) when hier] ->
+    Gram (K5, skipped when K6 gave it; K1 for the single-lane entry point;
+    the sketch Gram when ``signs``) -> batched NNM / coefficients -> one
+    launch for every lane: combine (K3), mix + trim (K4) or median (K2)
     -> (B, ...) leaves.  ``internals`` gets the NNM matrices only."""
     backend = "cuda"
     flat, layout = kdispatch.flatten_lane_stack(work)
     mix_matrix, g = None, None
-    if (spec.rule in GRAM_RULES or spec.pre == "nnm") and signs is not None:
+    if spec.hier:
+        flat, f, g = _hier_reduce_lanes(flat, spec, f, perms=perms,
+                                        batched=batched)
+    need_gram = (spec.rule in GRAM_RULES or spec.pre == "nnm") and g is None
+    if need_gram and signs is not None:
         g = kdispatch.dispatch_sketch_gram(
             flat, [(off, size) for off, size, _ in layout.segments],
             spec.sketch_dim, signs, backend=backend)
-    elif spec.rule in GRAM_RULES or spec.pre == "nnm":
+    elif need_gram:
         if batched:
             g = kdispatch.dispatch_gram_batched(flat, backend=backend)
         else:
@@ -768,10 +835,8 @@ def _aggregate_flat_lanes(work: PyTree, spec: AggregatorSpec, f: Tensor, *,
             autogm_lamb=spec.autogm_lamb, autogm_iters=spec.autogm_iters)
         if mix_matrix is not None:
             coeff = (coeff[:, None] @ mix_matrix)[:, 0]
-        vec = torch.stack([
-            kdispatch.dispatch_combine(flat[k], coeff[k].contiguous(),
-                                       backend=backend)
-            for k in range(flat.shape[0])])
+        vec = kdispatch.dispatch_combine(flat, coeff.contiguous(),
+                                         backend=backend)
         return kdispatch.unflatten_lane_aggregate(vec, layout)
 
     if spec.rule in COORDINATE_RULES:
@@ -796,11 +861,14 @@ def robust_aggregate_dyn(tree: PyTree, spec: AggregatorSpec, f, *,
     """:func:`robust_aggregate` with an int-tensor Byzantine count.
 
     ``spec.f`` is ignored; ``f`` (a 0-d int tensor or an int) takes its
-    place and is never read on the host.  ``spec.pre == "bucketing"``
-    needs an explicit ``spec.bucket_size`` and a ``generator`` or
-    ``perm``; ``sketch_dim`` draws its signs from ``generator`` (after the
-    permutation) or takes ``signs`` (one (C_i,) tensor per leaf).  MDA
-    has no dynamic form.  ``internals`` as in :func:`robust_aggregate`."""
+    place and is never read on the host.  ``spec.pre == "bucketing"`` and
+    ``spec.hier`` need an explicit ``spec.bucket_size`` and a
+    ``generator`` or ``perm`` (hier with ``max(1, min(bucket_size, n))``
+    = 1 draws none and is the dense pipeline bit for bit); ``sketch_dim``
+    draws its signs from ``generator`` (after the permutation) or takes
+    ``signs`` (one (C_i,) tensor per leaf).  MDA has no dynamic form.
+    ``internals`` as in :func:`robust_aggregate` (refused with hier:
+    :func:`validate_taps`)."""
     leaf = tree_leaves(tree)[0]
     lane_internals = None if internals is None else {}
     out = _aggregate_lanes(
@@ -822,8 +890,8 @@ def batched_robust_aggregate(tree: PyTree, spec: AggregatorSpec, fs, *,
                              internals: Optional[dict] = None) -> PyTree:
     """Lane-batched aggregation: every leaf carries a leading lane axis
     (B, n, ...) and ``fs`` (B,) is the per-lane Byzantine count; returns
-    the (B, ...) aggregates.  Bucketing lanes take one generator per lane
-    or a (B, n) ``perms``; sketch lanes draw their signs from the same
+    the (B, ...) aggregates.  Bucketing and hierarchical lanes take one
+    generator per lane or a (B, n) ``perms``; sketch lanes draw their signs from the same
     generators (after the permutation) or take ``signs``, one (B, C_i)
     tensor per leaf.  ``internals`` as in :func:`robust_aggregate`, every
     entry lane-stacked: the (B, n, n) NNM matrices, and on the torch

@@ -2,8 +2,8 @@
 shape bucket, run to completion (``FleetRunner``) or continuously, with
 jobs admitted and evicted at segment boundaries (``ContinuousBucket``,
 which :class:`repro_torch.serving.FleetService` drives).  Counterpart of
-``repro.fleet``; lanes may be poisoned, guarded and tapped.
-Hierarchical lanes wait for ROADMAP queue 1, item 13."""
+``repro.fleet``; lanes may be poisoned, guarded, tapped or hierarchical
+(``agg.hier`` with an explicit ``bucket_size``)."""
 from repro_torch.fleet.lanes import (
     LANE_OP_FIELDS, build_fleet_round, build_fleet_scan, build_lane_admit,
     build_lane_round,

@@ -17,8 +17,9 @@ state, batch, cohort ids and ops all carry a leading B axis.
   (:func:`repro_torch.robustness.guard.quarantine_stack_lanes`) and
   return ``quarantined_count``;
 * aggregation is :func:`repro_torch.core.robust.batched_robust_aggregate`
-  on the explicit lane axis (K5 and K4 over all lanes in one launch each
-  on a CUDA stack);
+  on the explicit lane axis, each hierarchical or bucketing lane with its
+  own permutation from the plan (on a CUDA stack every kernel takes all
+  lanes in one launch: K6 / K7, K5, and K4, K2's median or K3);
 * tapped lanes compute the health taps with each lane's ``f_agg``,
   honest count and guard mask (:func:`repro_torch.obs.health_taps_lanes`)
   as ``taps.<field>`` metrics, (B,) or (B, m) each;
@@ -99,7 +100,8 @@ def build_lane_round(loss_fn: Callable, optimizer: Optimizer,
     ``idx`` (B, m) int64 cohort ids, ``ops`` the LANE_OP_FIELDS as (B,)
     device tensors, ``attack_ids`` the same B attack ids as host ints (the
     round picks the attack branches on the host), ``perms`` (B, m) bucket
-    permutations (pre="bucketing") or None, ``noise`` the (B, m, L, bs,
+    permutations (pre="bucketing", or hier with buckets of more than one)
+    or None, ``noise`` the (B, m, L, bs,
     ...) feature-poisoning draws (poison kind "feature") or None,
     ``signs`` one (B, C_i) sketch-sign tensor per leaf (``sketch_dim``)
     or None.

@@ -2,9 +2,9 @@
 lanes together, demux per-lane histories; and the continuous service's
 fixed-capacity bucket, :class:`ContinuousBucket` (counterpart of
 ``repro.fleet.runner``; :class:`repro_torch.serving.FleetService` drives
-it).  Lanes may be poisoned, guarded and tapped (each lane's health-tap
-columns demuxed into its own history); hierarchical lanes wait for
-ROADMAP queue 1, item 13.
+it).  Lanes may be poisoned, guarded, tapped (each lane's health-tap
+columns demuxed into its own history) or hierarchical (``agg.hier`` with
+an explicit ``bucket_size``; taps are refused with hier).
 
 A :class:`FleetJob` is a fully materialised federated run; a
 :class:`ScenarioSpec` names a registry scenario + seed.  Jobs whose
@@ -14,9 +14,10 @@ segment.  The host plans every round up front, exactly as the reference
 does (cohort sampling then batch building, lane by lane, round by round,
 each lane on its own numpy stream seeded from ``job.seed``), so cohorts
 and batches equal the reference's sample for sample.  A lane of a
-bucketing, feature-poisoning or sketch bucket also owns a CPU
-``torch.Generator`` seeded from ``job.seed`` that draws, round by round,
-its bucketing permutation, then its feature noise, then its sketch signs
+bucketing, hierarchical (bucket size above 1), feature-poisoning or
+sketch bucket also owns a CPU ``torch.Generator`` seeded from
+``job.seed`` that draws, round by round, its bucket permutation, then
+its feature noise, then its sketch signs
 in the plan (:func:`lane_draws`; the reference splits a PRNG key
 instead, so those draws differ).  The plan goes to the device once per
 segment; the segment's metrics come back once, at its end.
@@ -34,7 +35,7 @@ import torch
 
 from repro_torch.core.attacks import dyn_attack_id
 from repro_torch.core.bucketing import default_bucket_size
-from repro_torch.core.robust import draw_signs
+from repro_torch.core.robust import draw_signs, validate_taps
 from repro_torch.data import build_heterogeneous, make_classification
 from repro_torch.device import resolve_device
 from repro_torch.fed.clients import init_client_momentum
@@ -108,16 +109,20 @@ class FleetJob:
                 "(use the single-scenario engine instead)")
         for phase in self.schedule.phases:
             dyn_attack_id(phase.attack)   # raises for _opt / unknown
-        if self.cfg.agg.hier:
-            raise NotImplementedError(
-                "hierarchical fleet lanes are not ported yet (ROADMAP "
-                "queue 1, item 13)")
         if (self.cfg.agg.pre == "bucketing"
                 and self.cfg.agg.bucket_size is None):
             raise ValueError(
                 "fleet lanes with pre='bucketing' need an explicit "
                 "bucket_size (resolve it on the host, e.g. "
                 "default_bucket_size(m, f_round))")
+        if self.cfg.agg.hier and self.cfg.agg.bucket_size is None:
+            raise ValueError(
+                "hierarchical fleet lanes need an explicit bucket_size "
+                "(lanes run the dynamic-f path, whose floor(n/2f) default "
+                "is shape-level); resolve it on the host, e.g. "
+                "default_bucket_size(m, f_round)")
+        if self.cfg.taps:
+            validate_taps(self.cfg.agg)
 
     @property
     def m_byz(self) -> int:
@@ -192,7 +197,11 @@ def plan_lane_round(job: FleetJob, r: int, rng: np.random.Generator
 
 
 def _draws_perm(cfg: FedConfig) -> bool:
-    return cfg.agg.pre == "bucketing"
+    """Whether a lane draws a bucket permutation a round: bucketing, or
+    hierarchical buckets of more than one (s = 1 is the identity)."""
+    agg = cfg.agg
+    return agg.pre == "bucketing" or (
+        agg.hier and min(int(agg.bucket_size), cfg.clients_per_round) > 1)
 
 
 def _draws_noise(cfg: FedConfig) -> bool:
@@ -201,7 +210,7 @@ def _draws_noise(cfg: FedConfig) -> bool:
 
 def lane_generator(job: FleetJob) -> Optional[torch.Generator]:
     """The lane's CPU generator (seeded from ``job.seed``) when its bucket
-    draws bucketing permutations, feature noise or sketch signs, else
+    draws bucket permutations, feature noise or sketch signs, else
     None."""
     if _draws_perm(job.cfg) or _draws_noise(job.cfg) or job.cfg.agg.sketch_dim:
         return torch.Generator().manual_seed(int(job.seed))
@@ -217,7 +226,8 @@ def lane_widths(job: FleetJob) -> list:
 def lane_draws(cfg: FedConfig, gen: Optional[torch.Generator], batch: dict,
                widths: Sequence[int] = ()) -> tuple:
     """HOST: one lane-round's random operands from the lane's generator,
-    in this order: the (m,) bucketing permutation (pre="bucketing"), then
+    in this order: the (m,) bucket permutation (pre="bucketing", or hier
+    with a bucket size above 1), then
     the feature-poisoning noise, standard normal of the batch's features'
     shape (poison kind "feature"), then the sketch's signs, one (C_i,)
     tensor per leaf of flat width ``widths[i]`` (``sketch_dim``); None
@@ -467,7 +477,7 @@ class FleetRunner:
     def _plan_bucket(self, bucket: LaneBucket) -> tuple[dict, list]:
         """HOST, once per bucket: every round's per-lane plan stacked into
         (R, B, ...) arrays (in the reference's rng order), plus the
-        bucketing permutations (R, B, m), feature noise (R, B, m, L, bs,
+        bucket permutations (R, B, m), feature noise (R, B, m, L, bs,
         ...) and sketch signs ((R, B, C_i) per leaf) where the bucket
         draws them (:func:`lane_draws`), and the per-round (attacks, raw
         etas, cohorts) the histories record."""

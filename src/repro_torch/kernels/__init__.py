@@ -8,17 +8,24 @@ Importing this package builds and loads nothing; ``_build.library()``
 compiles on first use.
 """
 from repro_torch.kernels.bucketgram import (
-    bucket_means_gram, bucket_means_gram_ref, bucketgram, bucketmeans,
+    bucket_means_gram, bucket_means_gram_lanes_ref, bucket_means_gram_ref,
+    bucketgram, bucketgram_lanes, bucketmeans, bucketmeans_lanes,
 )
-from repro_torch.kernels.combine import combine, combine_ref
+from repro_torch.kernels.combine import (
+    combine, combine_lanes, combine_lanes_ref, combine_ref,
+)
 from repro_torch.kernels.gram import (
     gram, gram_batched, gram_batched_ref, gram_ref,
 )
 from repro_torch.kernels.mixtrim import (
-    mixtrim, mixtrim_dyn, mixtrim_dyn_ref, mixtrim_ref,
+    mixtrim, mixtrim_dyn, mixtrim_dyn_ref, mixtrim_lanes, mixtrim_lanes_ref,
+    mixtrim_ref,
 )
 
-__all__ = ["bucket_means_gram", "bucket_means_gram_ref", "bucketgram",
-           "bucketmeans", "combine", "combine_ref", "gram", "gram_batched",
+__all__ = ["bucket_means_gram", "bucket_means_gram_lanes_ref",
+           "bucket_means_gram_ref", "bucketgram", "bucketgram_lanes",
+           "bucketmeans", "bucketmeans_lanes", "combine", "combine_lanes",
+           "combine_lanes_ref", "combine_ref", "gram", "gram_batched",
            "gram_batched_ref", "gram_ref", "mixtrim", "mixtrim_dyn",
-           "mixtrim_dyn_ref", "mixtrim_ref"]
+           "mixtrim_dyn_ref", "mixtrim_lanes", "mixtrim_lanes_ref",
+           "mixtrim_ref"]

@@ -53,9 +53,9 @@ _SIGNATURES = {
                           _I),
     "repro_mixtrim_max_n": ([], _I),
     "repro_mixtrim_select_scratch": ([_I], _LL),
-    "repro_combine": ([_P, _I, _P, _I, _LL, _P, _I, _P], _I),
-    "repro_bucketgram": ([_P, _I, _I, _LL, _P, _P, _P, _I, _P, _P, _P, _P,
-                          _P, _I, _P], _I),
+    "repro_combine": ([_P, _I, _P, _I, _I, _LL, _P, _I, _P], _I),
+    "repro_bucketgram": ([_P, _I, _I, _I, _LL, _P, _P, _P, _I, _P, _P, _P,
+                          _P, _P, _I, _P], _I),
     "repro_bucketgram_reg_nb": ([], _I),
     "repro_bucketgram_npair": ([], _I),
     "repro_error_string": ([_I], ctypes.c_char_p),

@@ -32,6 +32,17 @@
 //     writes the fp32 means and the wrapper folds G from them with the K1
 //     gram kernel (a second launch, counted by K1's own counter).
 //
+// Lane axis (the fleet's form: bucketgram_pallas under jax.vmap, one call
+// per bucket-round): a (B, n, D) stack with each lane's own order / weight
+// (B, n) and start (B, n_b + 1); blockIdx.y carries the lane, and every
+// kernel below offsets its pointers by it, so a single stack is lane 0 of
+// a one-lane launch.  The column grid (blockIdx.x) is the single-lane
+// launch's, which depends on D and n_b only: lane b's means, its partials
+// and so its register Gram equal the single-lane kernel's on lane b bit
+// for bit.  The non-finite spread reads and writes lane b only, so a NaN
+// in one lane never reaches another.  Above 8 buckets the wrapper takes
+// the lanes' Gram with K5 (gram_batched), as the single-lane form takes K1.
+//
 // Bound on this card: bytes.  n*D reads, n_b*D writes of the stack dtype
 // (~2 FLOP per read element for the means, n_b + 1 more per column for
 // the Gram).  Simple and coalesced; a later PR may make it faster.
@@ -91,11 +102,18 @@ __device__ __forceinline__ void bucket_sum(
 // n_b <= 8: means in registers, optional register Gram fold.
 template <typename T, bool VEC, bool GRAM>
 __global__ void __launch_bounds__(THREADS)
-bucket_reg(const T* __restrict__ x, long long d,
+bucket_reg(const T* __restrict__ x, int n, long long d,
            const int* __restrict__ order, const int* __restrict__ start,
            const float* __restrict__ weight, int nb, T* __restrict__ y,
            float* __restrict__ partial) {
   constexpr int W = VEC ? 4 : 1;
+  const long long lane = blockIdx.y;
+  x += lane * n * d;
+  order += lane * n;
+  weight += lane * n;
+  start += lane * (nb + 1);
+  y += lane * nb * d;
+  if constexpr (GRAM) partial += lane * gridDim.x * NPAIR;
   const long long units = d / W;
   const long long stride = (long long)gridDim.x * THREADS;
   float g[NPAIR];
@@ -161,10 +179,13 @@ bucket_reg(const T* __restrict__ x, long long d,
   }
 }
 
-// Sums the per-block partials in block order into the (nb, nb) Gram.
+// Sums the per-block partials in block order into the (nb, nb) Gram; one
+// block per lane (blockIdx.x).
 __global__ void bucketgram_reduce(const float* __restrict__ partial,
                                   int blocks, int nb, float* __restrict__ g) {
   const int e = threadIdx.x;
+  partial += (long long)blockIdx.x * blocks * NPAIR;
+  g += (long long)blockIdx.x * nb * nb;
   if (e >= NPAIR) return;
   int a = 0, r = e;
   while (r >= NB - a) { r -= NB - a; ++a; }
@@ -189,11 +210,19 @@ __device__ __forceinline__ void note_bad(int* bad, int b) {
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-bucket_any(const T* __restrict__ x, long long d,
+bucket_any(const T* __restrict__ x, int n, long long d,
            const int* __restrict__ order, const int* __restrict__ start,
            const float* __restrict__ weight, int nb, T* __restrict__ y,
            float* __restrict__ yf, int* __restrict__ bad) {
   constexpr int W = VEC ? 4 : 1;
+  const long long lane = blockIdx.y;
+  x += lane * n * d;
+  order += lane * n;
+  weight += lane * n;
+  start += lane * (nb + 1);
+  y += lane * nb * d;
+  if (yf) yf += lane * nb * d;
+  bad += lane * d;
   const long long units = d / W;
   const long long total = units * nb;
   const long long stride = (long long)gridDim.x * THREADS;
@@ -218,6 +247,11 @@ bucket_any(const T* __restrict__ x, long long d,
 __global__ void bucket_nan_spread(const int* __restrict__ bad, long long d,
                                   int nb, void* __restrict__ yv, int bf16,
                                   float* __restrict__ yf) {
+  const long long lane = blockIdx.y;
+  bad += lane * d;
+  if (yf) yf += lane * nb * d;
+  yv = bf16 ? static_cast<void*>(static_cast<__nv_bfloat16*>(yv) + lane * nb * d)
+            : static_cast<void*>(static_cast<float*>(yv) + lane * nb * d);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < d;
        c += stride) {
@@ -234,47 +268,50 @@ __global__ void bucket_nan_spread(const int* __restrict__ bad, long long d,
 }
 
 template <typename T>
-int launch(const void* xv, long long d, const int* order, const int* start,
-           const float* weight, int nb, void* yv, float* yf, float* partial,
-           float* g, int* bad, int blocks, cudaStream_t s) {
+int launch(const void* xv, int lanes, int n, long long d, const int* order,
+           const int* start, const float* weight, int nb, void* yv,
+           float* yf, float* partial, float* g, int* bad, int blocks,
+           cudaStream_t s) {
   const T* x = static_cast<const T*>(xv);
   T* y = static_cast<T*>(yv);
   const bool vec = vec4_ok<T>(xv, d) && vec4_ok<T>(yv, d) &&
                    (!yf || vec4_ok<float>(yf, d));
+  const dim3 grid(blocks, lanes);
   if (nb <= NB && !yf) {
     if (g) {
       if (vec)
-        bucket_reg<T, true, true><<<blocks, THREADS, 0, s>>>(
-            x, d, order, start, weight, nb, y, partial);
+        bucket_reg<T, true, true><<<grid, THREADS, 0, s>>>(
+            x, n, d, order, start, weight, nb, y, partial);
       else
-        bucket_reg<T, false, true><<<blocks, THREADS, 0, s>>>(
-            x, d, order, start, weight, nb, y, partial);
+        bucket_reg<T, false, true><<<grid, THREADS, 0, s>>>(
+            x, n, d, order, start, weight, nb, y, partial);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return err;
-      bucketgram_reduce<<<1, 64, 0, s>>>(partial, blocks, nb, g);
+      bucketgram_reduce<<<lanes, 64, 0, s>>>(partial, blocks, nb, g);
     } else if (vec) {
-      bucket_reg<T, true, false><<<blocks, THREADS, 0, s>>>(
-          x, d, order, start, weight, nb, y, nullptr);
+      bucket_reg<T, true, false><<<grid, THREADS, 0, s>>>(
+          x, n, d, order, start, weight, nb, y, nullptr);
     } else {
-      bucket_reg<T, false, false><<<blocks, THREADS, 0, s>>>(
-          x, d, order, start, weight, nb, y, nullptr);
+      bucket_reg<T, false, false><<<grid, THREADS, 0, s>>>(
+          x, n, d, order, start, weight, nb, y, nullptr);
     }
     return cudaGetLastError();
   }
-  if (g || !bad) return cudaErrorInvalidValue;   // n_b > 8: G comes from K1
-  cudaError_t err = cudaMemsetAsync(bad, 0xFF, sizeof(int) * d, s);  // -1
+  if (g || !bad) return cudaErrorInvalidValue;   // n_b > 8: G from K1 / K5
+  cudaError_t err =
+      cudaMemsetAsync(bad, 0xFF, sizeof(int) * d * lanes, s);  // -1
   if (err != cudaSuccess) return err;
   if (vec)
-    bucket_any<T, true><<<blocks, THREADS, 0, s>>>(x, d, order, start,
-                                                   weight, nb, y, yf, bad);
+    bucket_any<T, true><<<grid, THREADS, 0, s>>>(x, n, d, order, start,
+                                                 weight, nb, y, yf, bad);
   else
-    bucket_any<T, false><<<blocks, THREADS, 0, s>>>(x, d, order, start,
-                                                    weight, nb, y, yf, bad);
+    bucket_any<T, false><<<grid, THREADS, 0, s>>>(x, n, d, order, start,
+                                                  weight, nb, y, yf, bad);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long spread = (d + THREADS - 1) / THREADS;
-  bucket_nan_spread<<<(int)(spread < blocks ? spread : blocks), THREADS, 0,
-                      s>>>(bad, d, nb, y, sizeof(T) == 2, yf);
+  bucket_nan_spread<<<dim3((unsigned)(spread < blocks ? spread : blocks), lanes),
+                      THREADS, 0, s>>>(bad, d, nb, y, sizeof(T) == 2, yf);
   return cudaGetLastError();
 }
 
@@ -283,26 +320,30 @@ int launch(const void* xv, long long d, const int* order, const int* start,
 extern "C" int repro_bucketgram_reg_nb() { return NB; }
 extern "C" int repro_bucketgram_npair() { return NPAIR; }
 
-// x: (n, d) stack; order / weight: (n,) workers sorted by bucket and their
-// B weights; start: (nb + 1,) bucket offsets into order; y: (nb, d) means
-// in x's dtype; yf: optional fp32 copy of the means; partial: blocks*NPAIR
-// fp32 scratch and g: (nb, nb) fp32 Gram, both NULL for means only (K7);
-// a Gram needs nb <= 8 and no yf; bad: (d,) int32 scratch, needed for
-// nb > 8.  Launches bucket_reg (+ bucketgram_reduce) for nb <= 8, else
-// bucket_any + bucket_nan_spread.
-extern "C" int repro_bucketgram(const void* x, int dtype, int n, long long d,
-                                const int* order, const int* start,
-                                const float* weight, int nb, void* y,
-                                float* yf, float* partial, float* g, int* bad,
-                                int blocks, void* stream) {
-  if (n < 1 || d < 1 || nb < 1 || blocks < 1) return cudaErrorInvalidValue;
+// x: (lanes, n, d) stacks (a single stack is one lane); order / weight:
+// (lanes, n) each lane's workers sorted by bucket and their B weights;
+// start: (lanes, nb + 1) bucket offsets into order; y: (lanes, nb, d)
+// means in x's dtype; yf: optional fp32 copy of the means; partial:
+// lanes*blocks*NPAIR fp32 scratch and g: (lanes, nb, nb) fp32 Grams, both
+// NULL for means only (K7); a Gram needs nb <= 8 and no yf; bad: (lanes,
+// d) int32 scratch, needed for nb > 8; blocks: column blocks per lane (the
+// same count for any lane count, so that each lane equals a one-lane
+// launch bit for bit).  Launches bucket_reg (+ bucketgram_reduce) for
+// nb <= 8, else bucket_any + bucket_nan_spread.
+extern "C" int repro_bucketgram(const void* x, int dtype, int lanes, int n,
+                                long long d, const int* order,
+                                const int* start, const float* weight, int nb,
+                                void* y, float* yf, float* partial, float* g,
+                                int* bad, int blocks, void* stream) {
+  if (lanes < 1 || lanes > 65535 || n < 1 || d < 1 || nb < 1 || blocks < 1)
+    return cudaErrorInvalidValue;
   if (g && (!partial || nb > NB || yf)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_F32)
-    return launch<float>(x, d, order, start, weight, nb, y, yf, partial, g,
-                         bad, blocks, s);
+    return launch<float>(x, lanes, n, d, order, start, weight, nb, y, yf,
+                         partial, g, bad, blocks, s);
   if (dtype == REPRO_BF16)
-    return launch<__nv_bfloat16>(x, d, order, start, weight, nb, y, yf,
-                                 partial, g, bad, blocks, s);
+    return launch<__nv_bfloat16>(x, lanes, n, d, order, start, weight, nb, y,
+                                 yf, partial, g, bad, blocks, s);
   return cudaErrorInvalidValue;
 }

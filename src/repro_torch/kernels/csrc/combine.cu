@@ -11,6 +11,12 @@
 // loads, neighbouring threads on neighbouring columns) and walks the n
 // rows with fp32 accumulators; c sits in shared memory.  Bound on this
 // card: bytes (n*D reads, D fp32 writes, 2 FLOP per read element).
+//
+// Lane axis (the fleet's gram-rule lanes: combine_pallas under jax.vmap,
+// one call per bucket-round): x (B, n, D), c (B, n), r (B, D), blockIdx.y
+// the lane.  Each column's sum runs over the rows in order whatever the
+// grid, so lane b equals the single-lane kernel on lane b bit for bit; a
+// single stack is lane 0 of a one-lane launch.
 #include "common.cuh"
 
 namespace {
@@ -31,6 +37,10 @@ __global__ void __launch_bounds__(THREADS)
 combine_kernel(const T* __restrict__ x, const float* __restrict__ coeff,
                int n, long long d, float* __restrict__ out) {
   extern __shared__ float c[];
+  const long long lane = blockIdx.y;
+  x += lane * n * d;
+  coeff += lane * n;
+  out += lane * d;
   for (int i = threadIdx.x; i < n; i += THREADS) c[i] = round_to<T>(coeff[i]);
   __syncthreads();
   constexpr int W = VEC ? 4 : 1;
@@ -58,26 +68,32 @@ combine_kernel(const T* __restrict__ x, const float* __restrict__ coeff,
 }
 
 template <typename T>
-int launch(const void* xv, const float* coeff, int n, long long d,
+int launch(const void* xv, const float* coeff, int lanes, int n, long long d,
            float* out, int blocks, cudaStream_t s) {
   const T* x = static_cast<const T*>(xv);
   const size_t smem = sizeof(float) * n;
+  const dim3 grid(blocks, lanes);
   if (vec4_ok<T>(xv, d) && reinterpret_cast<uintptr_t>(out) % 16 == 0)
-    combine_kernel<T, true><<<blocks, THREADS, smem, s>>>(x, coeff, n, d, out);
+    combine_kernel<T, true><<<grid, THREADS, smem, s>>>(x, coeff, n, d, out);
   else
-    combine_kernel<T, false><<<blocks, THREADS, smem, s>>>(x, coeff, n, d, out);
+    combine_kernel<T, false><<<grid, THREADS, smem, s>>>(x, coeff, n, d, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// x: (lanes, n, d) stacks (a single stack is one lane), coeff: (lanes, n)
+// fp32, out: (lanes, d) fp32; blocks: column blocks per lane.
 extern "C" int repro_combine(const void* x, int dtype, const float* coeff,
-                             int n, long long d, float* out, int blocks,
-                             void* stream) {
-  if (n < 1 || n > 12000 || d < 1 || blocks < 1) return cudaErrorInvalidValue;
+                             int lanes, int n, long long d, float* out,
+                             int blocks, void* stream) {
+  if (lanes < 1 || lanes > 65535 || n < 1 || n > 12000 || d < 1 ||
+      blocks < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_F32) return launch<float>(x, coeff, n, d, out, blocks, s);
+  if (dtype == REPRO_F32)
+    return launch<float>(x, coeff, lanes, n, d, out, blocks, s);
   if (dtype == REPRO_BF16)
-    return launch<__nv_bfloat16>(x, coeff, n, d, out, blocks, s);
+    return launch<__nv_bfloat16>(x, coeff, lanes, n, d, out, blocks, s);
   return cudaErrorInvalidValue;
 }

@@ -13,10 +13,12 @@ worker-stacked pytree:
   and **bucketmeans** (K7) — the hand-written kernels of ``kernels/csrc``
   for a CUDA stack.  A CPU stack runs each kernel's plain version, and
   that is RECORDED as a fallback;
-* the fleet's lane-batched forms over a (B, n, D) stack:
-  **gram_batched** (K5) and **mixtrim_dyn** (K4, f an int tensor per
-  lane); cwmed lanes take K2 and the gram rules K3 once per lane, as the
-  reference routes them to its static kernels;
+* the fleet's lane-batched forms over a (B, n, D) stack, one launch for
+  all lanes: **gram_batched** (K5), **mixtrim_dyn** (K4, f an int tensor
+  per lane), and the forms the reference's ``jax.vmap`` gives its static
+  kernels: **bucketgram_lanes** / **bucketmeans_lanes** (K6 / K7, each
+  lane its own bucket ids), **combine_lanes** (K3, the gram rules) and
+  **mixtrim_lanes** (K2's median, the cwmed lanes);
 * the **sketch Gram** of ``AggregatorSpec.sketch_dim``
   (:func:`dispatch_sketch_gram`): a signed fold of each leaf's segment
   into (n, sketch_dim), then its (n, n) Gram.  The reference computes it
@@ -43,9 +45,14 @@ from repro_torch.core.types import BACKENDS
 from repro_torch.kernels.bucketgram import REG_NB as _BUCKETGRAM_REG_NB
 from repro_torch.kernels.bucketgram import assignment_matrix as _assignment_matrix
 from repro_torch.kernels.bucketgram import bucket_means_gram_ref as _bucketgram_ref
+from repro_torch.kernels.bucketgram import bucket_means_gram_lanes_ref as _bucketgram_lanes_ref
 from repro_torch.kernels.bucketgram import bucketgram as _bucketgram_op
+from repro_torch.kernels.bucketgram import bucketgram_lanes as _bucketgram_lanes_op
 from repro_torch.kernels.bucketgram import bucketmeans as _bucketmeans_op
+from repro_torch.kernels.bucketgram import bucketmeans_lanes as _bucketmeans_lanes_op
 from repro_torch.kernels.combine import combine as _combine_op
+from repro_torch.kernels.combine import combine_lanes as _combine_lanes_op
+from repro_torch.kernels.combine import combine_lanes_ref as _combine_lanes_ref
 from repro_torch.kernels.combine import combine_ref as _combine_ref
 from repro_torch.kernels.gram import gram as _gram_op
 from repro_torch.kernels.gram import gram_batched as _gram_batched_op
@@ -54,15 +61,22 @@ from repro_torch.kernels.gram import gram_ref as _gram_ref
 from repro_torch.kernels.mixtrim import mixtrim as _mixtrim_op
 from repro_torch.kernels.mixtrim import mixtrim_dyn as _mixtrim_dyn_op
 from repro_torch.kernels.mixtrim import mixtrim_dyn_ref as _mixtrim_dyn_ref
+from repro_torch.kernels.mixtrim import mixtrim_lanes as _mixtrim_lanes_op
+from repro_torch.kernels.mixtrim import mixtrim_lanes_ref as _mixtrim_lanes_ref
 from repro_torch.kernels.mixtrim import mixtrim_ref as _mixtrim_ref
 from repro_torch.tree import tree_leaves, tree_map, tree_structure, tree_unflatten
 
 PyTree = Any
 
-#: The kernel wrappers of the port, by primitive name.
+#: The kernel wrappers of the port, by primitive name (the ``_lanes``
+#: entries are the lane forms of K2's median, K3, K6 and K7).
 KERNELS = {"gram": _gram_op, "mixtrim": _mixtrim_op, "combine": _combine_op,
            "mixtrim_dyn": _mixtrim_dyn_op, "gram_batched": _gram_batched_op,
-           "bucketgram": _bucketgram_op, "bucketmeans": _bucketmeans_op}
+           "bucketgram": _bucketgram_op, "bucketmeans": _bucketmeans_op,
+           "bucketgram_lanes": _bucketgram_lanes_op,
+           "bucketmeans_lanes": _bucketmeans_lanes_op,
+           "combine_lanes": _combine_lanes_op,
+           "mixtrim_lanes": _mixtrim_lanes_op}
 
 #: The reference's backends that the port does not run yet.
 UNPORTED_BACKENDS = ("pallas_sharded", "pallas_hier")
@@ -385,30 +399,48 @@ def dispatch_bucketgram(x: torch.Tensor, assignment: torch.Tensor,
     """(n, D) stack + (n,) bucket ids -> (bucket means (n_b, D) in the
     stack dtype, reduced (n_b, n_b) fp32 Gram | None): the hierarchical
     pre-reduction.  "cuda" launches K6 (``with_gram``) or K7; the torch
-    backend runs the dense plain version."""
-    name = "bucketgram" if with_gram else "bucketmeans"
+    backend runs the dense plain version.
+
+    The lane form: x (B, n, D) and (B, n) bucket ids, one row a lane ->
+    ((B, n_b, D), (B, n_b, n_b) | None), every lane in one launch of K6 /
+    K7's lane form (K5 on the means above 8 buckets)."""
+    lanes = x.dim() == 3
+    name = ("bucketgram" if with_gram else "bucketmeans") + (
+        "_lanes" if lanes else "")
     if backend == "cuda":
         record_decision(name, backend, *_used(x))
         if with_gram and n_buckets > _BUCKETGRAM_REG_NB:
-            record_decision("gram", backend, _used(x)[0],
+            record_decision("gram_batched" if lanes else "gram", backend,
+                            _used(x)[0],
                             f"n_b={n_buckets} > {_BUCKETGRAM_REG_NB}: the "
-                            "Gram of the fp32 means is a K1 launch")
+                            f"Gram of the fp32 means is a "
+                            f"{'K5' if lanes else 'K1'} launch")
+        if lanes:
+            if with_gram:
+                return _bucketgram_lanes_op(x, assignment, n_buckets)
+            return _bucketmeans_lanes_op(x, assignment, n_buckets), None
         if with_gram:
             return _bucketgram_op(x, assignment, n_buckets)
         return _bucketmeans_op(x, assignment, n_buckets), None
     record_decision(name, backend, "torch")
+    if lanes:
+        return _bucketgram_lanes_ref(x, assignment, n_buckets,
+                                     with_gram=with_gram)
     bmat = _assignment_matrix(assignment.to(x.device), n_buckets)
     return _bucketgram_ref(x, bmat, with_gram=with_gram)
 
 
 def dispatch_combine(x: torch.Tensor, coeff: torch.Tensor, *,
                      backend: str) -> torch.Tensor:
-    """(n, D), (n,) -> (D,): streamed linear combination."""
+    """(n, D), (n,) -> (D,): streamed linear combination; (B, n, D), (B,
+    n) -> (B, D): every lane in one launch of K3's lane form."""
+    lanes = x.dim() == 3
+    name = "combine_lanes" if lanes else "combine"
     if backend == "cuda":
-        record_decision("combine", backend, *_used(x))
-        return _combine_op(x, coeff)
-    record_decision("combine", backend, "torch")
-    return _combine_ref(x, coeff)
+        record_decision(name, backend, *_used(x))
+        return (_combine_lanes_op if lanes else _combine_op)(x, coeff)
+    record_decision(name, backend, "torch")
+    return (_combine_lanes_ref if lanes else _combine_ref)(x, coeff)
 
 
 def dispatch_mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f, *,
@@ -418,9 +450,9 @@ def dispatch_mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f, *,
     skips the mix).
 
     ``dyn=True`` is the fleet's form: x (B, n, D), m (B, n, n) or None and
-    f a (B,) int tensor -> (B, D).  "trim" runs K4 over every lane in one
-    launch; "med" ignores f, so it runs the static kernel (K2) on each
-    lane, as the reference routes it."""
+    f a (B,) int tensor -> (B, D), every lane in one launch: "trim" runs
+    K4; "med" ignores f and runs K2's median lane form (the reference
+    vmaps its static kernel there)."""
     if dyn:
         return _dispatch_mixtrim_lanes(x, m, f, mode=mode, backend=backend)
     f = 0 if mode == "med" else int(f)
@@ -433,23 +465,15 @@ def dispatch_mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f, *,
 
 def _dispatch_mixtrim_lanes(x: torch.Tensor, m: Optional[torch.Tensor], f,
                             *, mode: str, backend: str) -> torch.Tensor:
-    if mode == "trim":
-        if backend == "cuda":
-            record_decision("mixtrim_dyn", backend, *_used(x))
-            return _mixtrim_dyn_op(x, m, f, mode=mode)
-        record_decision("mixtrim_dyn", backend, "torch")
-        return _mixtrim_dyn_ref(x, m, f, mode)
-    why = "med ignores f: the static kernel, once per lane"
+    trim = mode == "trim"
+    name = "mixtrim_dyn" if trim else "mixtrim_lanes"
     if backend == "cuda":
-        used, note = _used(x)
-        record_decision("mixtrim", backend, used,
-                        f"{note}; {why}" if note else why)
-        op = _mixtrim_op
-    else:
-        record_decision("mixtrim", backend, "torch", why)
-        op = _mixtrim_ref
-    return torch.stack([op(x[k], None if m is None else m[k], 0, mode)
-                        for k in range(x.shape[0])])
+        record_decision(name, backend, *_used(x))
+        return _mixtrim_dyn_op(x, m, f, mode=mode) if trim \
+            else _mixtrim_lanes_op(x, m)
+    record_decision(name, backend, "torch")
+    return _mixtrim_dyn_ref(x, m, f, mode) if trim \
+        else _mixtrim_lanes_ref(x, m)
 
 
 def dispatch_meamed(x: torch.Tensor, m: Optional[torch.Tensor], f, *,

@@ -27,6 +27,15 @@ plain version and defines the semantics of ``mixtrim_dyn_ref`` in the
 reference: a rank mask over the sorted stack, so a non-finite value in a
 trimmed rank makes its column NaN (inf * 0), unlike K2's slice.
 ``mixtrim_dyn.launches`` counts kernel launches.
+
+:func:`mixtrim_lanes` is K2's median under the reference's ``jax.vmap``
+(the fleet's cwmed lanes, one launch a bucket-round): every lane of a
+(B, n, D) stack, with an optional (B, n, n) mix, through K4's entry point
+with the median flag (the median reads no f, so K2's and K4's bodies
+agree on it), lane b equal to :func:`mixtrim` ``(mode="med")`` on lane b
+bit for bit; :func:`mixtrim_lanes_ref` is its plain version,
+:func:`mixtrim_ref` on each lane.  ``mixtrim_lanes.launches`` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -182,12 +191,21 @@ def mixtrim_dyn(x: torch.Tensor, m: Optional[torch.Tensor], f,
         return mixtrim_dyn_ref(x, m, f, mode)
     x, m, f, batched = _as_lanes(x, m, f)
     check_lanes(x, "mixtrim_dyn")
+    out = _launch_lanes(x, m, _lane_f(f, x.shape[0], x.device),
+                        mode == "med", "mixtrim_dyn")
+    mixtrim_dyn.launches += 1
+    return out if batched else out[0]
+
+
+def _launch_lanes(x: torch.Tensor, m: Optional[torch.Tensor],
+                  fd: torch.Tensor, med: bool, what: str) -> torch.Tensor:
+    """K4's entry point on a (B, n, D) stack: (B,) int32 f on the device,
+    optional (B, n, n) M, the median flag -> (B, D) fp32."""
     lanes, n, d = x.shape
     if n > MAX_N:
-        raise ValueError(f"mixtrim_dyn kernel takes n <= {MAX_N} workers, got "
+        raise ValueError(f"{what} kernel takes n <= {MAX_N} workers, got "
                          f"n={n} (the port's one limit, ROADMAP queue 3)")
-    fd = _lane_f(f, lanes, x.device)
-    mf, mt = _mix_operands(m, (lanes, n, n), x, "mixtrim_dyn m")
+    mf, mt = _mix_operands(m, (lanes, n, n), x, f"{what} m")
     lib = _build.library()
     # The kernels cap the column blocks at what one wave needs themselves.
     blocks = max(1, _BLOCKS_PER_SM * _build.sm_count(x.device) // lanes)
@@ -195,12 +213,35 @@ def mixtrim_dyn(x: torch.Tensor, m: Optional[torch.Tensor], f,
     with torch.cuda.device(x.device):
         rc = lib.repro_mixtrim_dyn(x.data_ptr(), _build.dtype_code(x.dtype),
                                    _ptr(mf), _ptr(mt), lanes, n, d,
-                                   fd.data_ptr(),
-                                   int(mode == "med"), out.data_ptr(), blocks,
-                                   stream_of(x))
-    _build.check(rc, "mixtrim_dyn kernel")
-    mixtrim_dyn.launches += 1
-    return out if batched else out[0]
+                                   fd.data_ptr(), int(med), out.data_ptr(),
+                                   blocks, stream_of(x))
+    _build.check(rc, f"{what} kernel")
+    return out
 
 
 mixtrim_dyn.launches = 0
+
+
+def mixtrim_lanes_ref(x: torch.Tensor, m: Optional[torch.Tensor]
+                      ) -> torch.Tensor:
+    """Plain version of the median lanes: :func:`mixtrim_ref`'s median on
+    each lane of a (B, n, D) stack (with lane k's M when given)."""
+    return torch.stack([mixtrim_ref(x[k], None if m is None else m[k], 0,
+                                    "med") for k in range(x.shape[0])])
+
+
+def mixtrim_lanes(x: torch.Tensor, m: Optional[torch.Tensor]) -> torch.Tensor:
+    """(B, n, D) fp32 / bf16, optional (B, n, n) mixing matrices -> (B, D)
+    fp32: every lane's coordinate-wise median in one launch (K4's entry
+    point with ``med = 1``; its f operand is zeros and unread)."""
+    if x.device.type == "cpu":
+        return mixtrim_lanes_ref(x, m)
+    check_lanes(x, "mixtrim_lanes")
+    out = _launch_lanes(x, m, torch.zeros((x.shape[0],), dtype=torch.int32,
+                                          device=x.device),
+                        True, "mixtrim_lanes")
+    mixtrim_lanes.launches += 1
+    return out
+
+
+mixtrim_lanes.launches = 0

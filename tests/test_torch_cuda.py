@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K7 against their plain versions, on the card.
+"""The CUDA kernels K1-K7 and the lane forms of K2's median, K3, K6 and K7
+against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips with a reason without a GPU
 (the kernels have no CPU mode).  The file imports no JAX, so it runs on a
@@ -18,9 +19,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import (
-    bucket_means_gram, bucket_means_gram_ref, bucketgram, bucketmeans,
-    combine, combine_ref, gram, gram_batched, gram_batched_ref, gram_ref,
-    mixtrim, mixtrim_dyn, mixtrim_dyn_ref, mixtrim_ref,
+    bucket_means_gram, bucket_means_gram_lanes_ref, bucket_means_gram_ref,
+    bucketgram, bucketgram_lanes, bucketmeans, bucketmeans_lanes, combine,
+    combine_lanes, combine_lanes_ref, combine_ref, gram, gram_batched,
+    gram_batched_ref, gram_ref, mixtrim, mixtrim_dyn, mixtrim_dyn_ref,
+    mixtrim_lanes, mixtrim_lanes_ref, mixtrim_ref,
 )
 
 RTOL = 1e-5
@@ -626,3 +629,68 @@ def test_gram_batched_every_n_per_lane_and_repeatable(dev, dtype, n, d,
         _close(g[k], want[k])
     assert torch.equal(g, gram_batched(x))
     assert torch.equal(g, g.mT)
+
+
+# --- the lane forms: each lane bit for bit the single-lane kernel ----------
+
+def _bits(t):
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def _lane_stack(dev, dtype, b, n, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, n, d), generator=g, device=dev)
+    x[1 % b, n - 1, 3:40] = float("inf")
+    x[2 % b, 0, 50:90] = float("nan")
+    perms = torch.stack([torch.randperm(n, generator=torch.Generator()
+                                        .manual_seed(seed + k))
+                         for k in range(b)]).to(dev)
+    return x.to(dtype), perms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,s", [(17, 3), (17, 2), (16, 2), (40, 4),
+                                 (9, 9)])
+@pytest.mark.parametrize("d", [4096, 4099])
+def test_bucketgram_lanes_equal_single_lane_per_lane(dev, dtype, n, s, d):
+    b = 3
+    x, perms = _lane_stack(dev, dtype, b, n, d, n + s)
+    assign = torch.div(torch.argsort(perms, dim=1), s, rounding_mode="floor")
+    nb = -(-n // s)
+    y, g = bucketgram_lanes(x, assign, nb)
+    ym = bucketmeans_lanes(x, assign, nb)
+    wy, wg = bucket_means_gram_lanes_ref(x, assign, nb)
+    _close_means(y, wy)
+    assert torch.equal(_bits(ym), _bits(y))
+    for k in range(b):
+        y1, g1 = bucketgram(x[k], assign[k], nb)
+        assert torch.equal(_bits(y[k]), _bits(y1))
+        if nb <= 8:
+            assert torch.equal(_bits(g[k]), _bits(g1))
+        _close(g[k], wg[k])
+    assert not bool(torch.isnan(y[0, :, :3]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 5, 17, 33, 64, 65, 200])
+@pytest.mark.parametrize("d", [2842, 4099])
+def test_combine_and_median_lanes_equal_single_lane_per_lane(dev, dtype, n,
+                                                             d):
+    b = 4
+    x, _ = _lane_stack(dev, dtype, b, n, d, n)
+    g = torch.Generator(device=dev).manual_seed(n)
+    c = torch.softmax(torch.randn((b, n), generator=g, device=dev), -1)
+    m = torch.softmax(torch.randn((b, n, n), generator=g, device=dev), -1)
+    r = combine_lanes(x, c)
+    _close(r, combine_lanes_ref(x, c))
+    for mm in (m, None):
+        med = mixtrim_lanes(x, mm)
+        _close(med, mixtrim_lanes_ref(x, mm))
+        for k in range(b):
+            want = mixtrim(x[k], None if mm is None else mm[k], 0, "med")
+            assert torch.equal(_bits(med[k]), _bits(want))
+    for k in range(b):
+        assert torch.equal(_bits(r[k]), _bits(combine(x[k], c[k])))

@@ -278,20 +278,24 @@ def test_tree_bucket_dyn_matches_reference(s):
 
 
 def test_dyn_path_records_the_kernels_it_would_launch():
-    """The cuda backend's record on the CPU: K5, K4 and K3 per lane,
-    each as its plain version (recorded), no other decision."""
+    """The cuda backend's record on the CPU: K5, then K4, K3's lane form
+    or K2's median lane form, one decision each for all the lanes, each
+    as its plain version (recorded), no other decision."""
     ttree = {k: torch.from_numpy(v.copy()) for k, v in _lane_stack(1).items()}
     fs = torch.from_numpy(LANE_F)
     t_batched(ttree, TSpec(rule="cwtm", pre="nnm", backend="cuda"), fs)
     prims = [d.primitive for d in kdispatch.last_dispatch().decisions]
     assert prims == ["gram_batched", "mixtrim_dyn"]
     t_batched(ttree, TSpec(rule="gm", pre="nnm", backend="cuda"), fs)
-    prims = [d.primitive for d in kdispatch.last_dispatch().decisions]
-    assert prims == ["gram_batched"] + ["combine"] * len(LANE_F)
+    rec = kdispatch.last_dispatch()
+    assert [d.primitive for d in rec.decisions] == ["gram_batched",
+                                                     "combine_lanes"]
+    assert rec.lanes == len(LANE_F)
     t_batched(ttree, TSpec(rule="cwmed", pre=None, backend="cuda"), fs)
     rec = kdispatch.last_dispatch()
-    assert [(d.primitive, d.used) for d in rec.decisions] == [("mixtrim", "plain")]
-    assert "once per lane" in rec.decisions[0].reason
+    assert [(d.primitive, d.used) for d in rec.decisions] == [
+        ("mixtrim_lanes", "plain")]
+    assert rec.lanes == len(LANE_F)
     one = {k: v[0] for k, v in ttree.items()}
     t_dyn(one, TSpec(rule="cwtm", pre="nnm", backend="cuda"), fs[0])
     prims = [d.primitive for d in kdispatch.last_dispatch().decisions]
@@ -299,13 +303,22 @@ def test_dyn_path_records_the_kernels_it_would_launch():
 
 
 def test_dyn_path_rejects_what_it_does_not_run():
+    """Hier on the dynamic path needs an explicit bucket_size (the
+    reference's ValueError); with one it runs (its bucket means: 3 of
+    5 rows, the f budget capped to 1)."""
     one = {"w": torch.zeros(5, 3)}
     with pytest.raises(ValueError, match="bucket_size"):
         t_dyn(one, TSpec(rule="cwtm", pre="bucketing"), 1,
               generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_dyn(one, TSpec(rule="cwtm", hier=True, bucket_size=2), 1,
+    with pytest.raises(ValueError, match="bucket_size"):
+        t_dyn(one, TSpec(rule="cwtm", hier=True), 1,
               generator=torch.Generator())
+    got = t_dyn(one, TSpec(rule="cwtm", hier=True, bucket_size=2), 1,
+                generator=torch.Generator())
+    assert got["w"].shape == (3,) and bool(torch.all(got["w"] == 0))
+    rec = kdispatch.last_dispatch()
+    assert rec.hier and rec.bucket_size == 2 and rec.dyn
+    assert rec.decisions[1].primitive == "bucketgram"
 
 
 # --- the plain versions of K4 and K5 ---------------------------------------
