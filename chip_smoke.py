@@ -196,14 +196,28 @@ Phases, each fatal on failure:
      NNM + CWTM, 3 rounds): launches, solo runs, two lanes on the torch
      backend, peak memory; (c) four hierarchical lanes through
      FleetService, restored after a mid-run snapshot, bit for bit;
- 19. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 19. the attention-free and encoder-decoder families at their published
+     widths, as phase 17 (ALIE, NNM + CWTM, D-SHB, batch 4, seeded
+     weights, each step exactly one K1 and one K2 and no fallback, finite
+     losses, step 1's attacked stack on the kernel and torch backends
+     within 1e-5 of the largest magnitude, ms per step and peak memory):
+     (a) rwkv6-3b, 4 of 32 layers, n = 8, f = 2, seq 256 (four chunks of
+     64), 3 steps; (b) zamba2-2.7b, 12 of 54 layers (two groups of six,
+     the shared block twice), n = 6 (at 8 the torch backend's mix does
+     not fit beside the step's stacks), f = 2, seq 256, 2 steps; (c)
+     whisper-base at full depth (6 + 6 layers), n = 8, f = 2, 1500 zero
+     frames and 128 tokens, 3 steps; (d) gla_chunked against gla_naive
+     (plain torch, fp32, within 1e-5 of max |naive|) at rwkv6-3b's (H 40,
+     K = V = 64, with u) and zamba2-2.7b's (H 80, K = V = 64, a per-head
+     decay) widths, batch 4 x seq 256, each timed;
+ 20. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6; the
      lane forms of K2's median, K3, K6 and K7 on rows of their own), the
-     fed phase's launches, phase 13's to 18's launches, the kernels JSON
+     fed phase's launches, phase 13's to 19's launches, the kernels JSON
      line (K1, K2, K4 and K5 launches include phase 13's; K2-K5 phase
-     14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and K2 phase 17's; the
-     lane forms and K4 / K5 phase 18's), the card line, and last the
-     {"ok": true, ...} line.
+     14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and K2 phase 17's and
+     19's; the lane forms and K4 / K5 phase 18's), the card line, and
+     last the {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -3206,7 +3220,7 @@ def zoo_backends(label: str, attacked, n: int, f: int) -> None:
 
 def phase_zoo_run(dev, card: str, label: str, arch: str, layers: int, n: int,
                   f: int, batch: int, seq: int, steps: int) -> dict:
-    """One phase-17 run; returns its launches."""
+    """One phase-17 or phase-19 run; returns its launches."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3248,9 +3262,15 @@ def phase_zoo_run(dev, card: str, label: str, arch: str, layers: int, n: int,
     state = init_state(params, optimizer, n, tcfg)
     del params, robust, fsdp
     generator = torch.Generator().manual_seed(0)
+    extra = {"ssm": f", {cfg.ssm_heads} rwkv heads of {cfg.ssm_head_dim}",
+             "hybrid": f", {cfg.ssm_heads} mamba2 heads of {cfg.ssm_head_dim}"
+                       f" (state {cfg.ssm_state}), shared block every "
+                       f"{cfg.attn_every}",
+             "encdec": f", {cfg.encoder_layers} encoder layers over "
+                       f"{cfg.encoder_seq} frames"}.get(cfg.family, "")
     log(f"  {label} {arch}: {layers} layer(s) of {full.num_layers}, d "
         f"{cfg.d_model}, {cfg.num_heads} q / {cfg.num_kv_heads} kv heads, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, n={n} f={f}, batch "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}{extra}, n={n} f={f}, batch "
         f"{batch} x {seq}; fsdp_keys {fsdp_keys}; robust D = {width:,}, "
         f"expert params (mean gradient) {experts:,}")
     kdispatch.reset_launch_counts()
@@ -3903,6 +3923,73 @@ def phase_hier(dev, rate: float) -> tuple[dict, dict]:
     return rows, total
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the attention-free and encoder-decoder families.
+# ---------------------------------------------------------------------------
+
+#: Phase 19: rwkv6-3b, zamba2-2.7b (depth cut; two groups of six, so the
+#: shared block runs twice) and whisper-base (full depth; 1500 zero
+#: frames as launch.train's lm_batch makes them, 128 tokens) at their
+#: published widths; fields as ZOO_RUNS.  zamba2 runs n = 6: at n = 8 the
+#: torch backend's NNM mix, a third (8, 747,364,160) fp32 stack beside the
+#: two of the step, does not fit the card.
+FAMILY_RUNS = (("19a", "rwkv6-3b", 4, 8, 2, 4, 256, 3),
+               ("19b", "zamba2-2.7b", 12, 6, 2, 4, 256, 2),
+               ("19c", "whisper-base", 6, 8, 2, 4, 128, 3))
+#: 19d: gla_chunked against gla_naive at the families' scan widths, batch
+#: 4 x seq 256, chunk 64: (arch, heads, K, V, RWKV's bonus u, a per-head
+#: scalar decay as Mamba2's).
+SCAN_WIDTHS = (("rwkv6-3b", 40, 64, 64, True, False),
+               ("zamba2-2.7b", 80, 64, 64, False, True))
+
+
+def phase_scan(dev, card: str) -> None:
+    """19d: the chunked scan against its token-by-token oracle on the card,
+    both plain torch in fp32 (RTOL: the two sum in other orders), decays
+    drawn in [-MAX_STEP_DECAY, 0); each timed (no kernel: the reference's
+    scan has no pallas_call)."""
+    import torch
+    from repro_torch.models import linear_scan as ls
+    b, s, chunk = 4, 256, 64
+    for arch, h, k, v, bonus, scalar in SCAN_WIDTHS:
+        gen = torch.Generator(device=dev).manual_seed(19)
+        q, kk = (torch.randn((b, s, h, k), generator=gen, device=dev)
+                 for _ in range(2))
+        vv = torch.randn((b, s, h, v), generator=gen, device=dev)
+        w = -ls.MAX_STEP_DECAY * torch.rand(
+            (b, s, h, 1 if scalar else k), generator=gen, device=dev)
+        w = w.expand(b, s, h, k)
+        u = torch.randn((h, k), generator=gen, device=dev) if bonus else None
+        y, st = ls.gla_chunked(q, kk, vv, w, chunk=chunk, u=u)
+        ny, ns = ls.gla_naive(q, kk, vv, w, u=u)
+        for what, got, want in (("y", y, ny), ("state", st, ns)):
+            if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+                raise AssertionError(f"19d {arch}: non-finite {what}")
+            err, tol = max_err(got, want)
+            if err > tol:
+                raise AssertionError(f"19d {arch}: {what} chunked vs naive "
+                                     f"{err} > {tol}")
+            log(f"  19d {arch} (H {h}, K {k}, V {v}, u {bonus}): {what} "
+                f"chunked vs naive max_abs_err={err:.3e} (tol {tol:.3e} = "
+                f"{RTOL} x max|naive|) OK")
+        ms = time_ms(lambda: ls.gla_chunked(q, kk, vv, w, chunk=chunk, u=u))
+        naive_ms = time_ms(lambda: ls.gla_naive(q, kk, vv, w, u=u), reps=3)
+        log(f"  19d {arch}: gla_chunked {ms:.3f} ms, gla_naive {naive_ms:.3f} "
+            f"ms at ({b}, {s}, {h}, {k} / {v}), chunk {chunk}; card {card}")
+
+
+def phase_families(dev, card: str) -> dict:
+    """Phase 19; returns its launches."""
+    total: dict = {}
+    for run in FAMILY_RUNS:
+        log(f"-- {run[0]}. {run[1]} at full width, {run[2]} layer(s), "
+            f"n={run[3]} f={run[4]}")
+        add_counts(total, phase_zoo_run(dev, card, *run))
+    log("-- 19d. gla_chunked against gla_naive at the families' widths")
+    phase_scan(dev, card)
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4067,7 +4154,14 @@ def main() -> int:
     log(json.dumps({"hier_fleet_launches": counts_hfleet}))
     log(f"  phase 18: {time.perf_counter() - t18:.1f} s")
 
-    log("== 19. summary")
+    t19 = time.perf_counter()
+    log("== 19. the attention-free and encoder-decoder families at full "
+        "width: rwkv6-3b, zamba2-2.7b, whisper-base")
+    counts_fam = phase_families(dev, card)
+    log(json.dumps({"family_launches": counts_fam}))
+    log(f"  phase 19: {time.perf_counter() - t19:.1f} s")
+
+    log("== 20. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -4092,7 +4186,7 @@ def main() -> int:
                  "src/repro/kernels/gram/kernel.py:50",
                  counts_main["gram"] + counts_resume["gram"]
                  + counts_opt["gram"] + counts_taps["gram"]
-                 + counts_zoo["gram"]),
+                 + counts_zoo["gram"] + counts_fam["gram"]),
         "gram_tiled": ("src/repro_torch/kernels/csrc/gram.cu",
                        "src/repro/kernels/gram/kernel.py:50",
                        hier["launches"]["gram_tiled"]),
@@ -4100,7 +4194,8 @@ def main() -> int:
                     "src/repro/kernels/mixtrim/kernel.py:177",
                     counts_main["mixtrim"] + counts_resume["mixtrim"]
                     + counts_service["mixtrim"] + counts_opt["mixtrim"]
-                    + counts_taps["mixtrim"] + counts_zoo["mixtrim"]),
+                    + counts_taps["mixtrim"] + counts_zoo["mixtrim"]
+                    + counts_fam["mixtrim"]),
         "combine": ("src/repro_torch/kernels/csrc/combine.cu",
                     "src/repro/kernels/combine/kernel.py:34",
                     counts_gm["combine"] + counts_service["combine"]

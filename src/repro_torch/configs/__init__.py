@@ -1,8 +1,7 @@
 """Architecture registry: public --arch ids -> ModelConfig.
 
-Only the archs whose family the port runs are registered (the attention
-family: dense, MoE, VLM); rwkv6-3b, zamba2-2.7b and whisper-base arrive
-with their families (ROADMAP queue 1, item 14).
+The reference's ten archs: the attention family (dense, MoE, VLM),
+rwkv6-3b (SSM), zamba2-2.7b (hybrid) and whisper-base (encoder-decoder).
 """
 from __future__ import annotations
 
@@ -20,6 +19,9 @@ _ARCH_MODULES = {
     "qwen2-7b": "repro_torch.configs.qwen2_7b",
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "minitron-8b": "repro_torch.configs.minitron_8b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
+    "whisper-base": "repro_torch.configs.whisper_base",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)
@@ -33,7 +35,8 @@ def get_config(arch: str) -> ModelConfig:
 
 def reduced_config(arch: str) -> ModelConfig:
     """CPU-smoke variant of the same family: 2 layers, d_model<=128,
-    <=4 experts, tiny vocab, fp32 (the reference's ``reduced_config``)."""
+    <=4 experts, small SSM heads, tiny vocab, fp32 (the reference's
+    ``reduced_config``)."""
     cfg = get_config(arch)
     kw = dict(
         num_layers=2,
@@ -48,6 +51,12 @@ def reduced_config(arch: str) -> ModelConfig:
         kw.update(num_experts=4, moe_dense_ff=64 if cfg.moe_dense_ff else 0)
     if cfg.sliding_window:
         kw.update(sliding_window=32)
+    if cfg.family in ("ssm", "hybrid"):
+        kw.update(ssm_heads=4, ssm_head_dim=16, ssm_state=16, ssm_chunk=16)
+    if cfg.family == "hybrid":
+        kw.update(attn_every=1)
+    if cfg.family == "encdec":
+        kw.update(encoder_layers=2, encoder_seq=32)
     if cfg.family == "vlm":
         kw.update(num_patches=8, vision_dim=64)
     kw.update(dtype=torch.float32, name=cfg.name + "-reduced")

@@ -1,8 +1,7 @@
 """Architecture configuration schema + input-shape registry (torch dtypes).
 
-Counterpart of ``repro.configs.base`` for the families the port runs so
-far: the attention family (dense, MoE, VLM).  The SSM / hybrid / encdec
-fields arrive with their families (ROADMAP queue 1, item 14).  The
+Counterpart of ``repro.configs.base`` for every family: dense, MoE,
+VLM, SSM (rwkv6), hybrid (zamba2) and encoder-decoder (whisper).  The
 reference's ``scan_unroll`` (a ``lax.scan`` knob) and ``gqa_einsum`` (a
 decode option) have no meaning here and are not carried over.
 """
@@ -17,7 +16,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | vlm (the others: item 14)
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -34,6 +33,17 @@ class ModelConfig:
     moe_dense_ff: int = 0            # parallel dense residual FFN (arctic)
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # --- SSM (mamba2 / rwkv6) ---
+    ssm_state: int = 0               # N (mamba2 state) or unused for rwkv
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 64
+    # --- hybrid (zamba2) ---
+    attn_every: int = 0              # shared attn block cadence; 0 = never
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0
+    encoder_seq: int = 0             # frames after the (stubbed) conv frontend
     # --- VLM (internvl2) ---
     num_patches: int = 0
     vision_dim: int = 0

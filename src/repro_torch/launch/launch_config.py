@@ -35,7 +35,7 @@ def skip_reason(arch: str, shape_name: str) -> str | None:
     cfg = get_config(arch)
     if shape_name == "long_500k" and not cfg.supports_long_decode():
         return ("whisper enc-dec: <=448-token decode grammar; 524k-token "
-                "decode is not a meaningful configuration")
+                "decode is not a meaningful configuration (DESIGN.md)")
     return None
 
 

@@ -11,10 +11,14 @@ Usage:
       --checkpoint params.npz    # the final params, for load_checkpoint
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3 \\
       --attack alie_opt --sketch-dim 512   # eta search; sketch Gram
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+      --device cpu --steps 2   # or zamba2-2.7b, whisper-base
 
-``--arch`` takes every registered arch (the attention family: dense, MoE,
-VLM); a VLM's batch carries zero patches and ``seq - num_patches`` text
-tokens, as the reference's.  The CLI, like the reference's, builds no
+``--arch`` takes every registered arch (dense, MoE, VLM, rwkv6-3b,
+zamba2-2.7b, whisper-base); a VLM's batch carries zero patches and ``seq
+- num_patches`` text tokens, an encoder-decoder's zero frames of
+``encoder_seq``, as the reference's.  The SSM and hybrid families need
+``--seq`` a multiple of ``ssm_chunk`` (16 reduced, 64 full).  The CLI, like the reference's, builds no
 selective-robustness step: ``TrainerConfig.fsdp_keys`` is a library
 option (``repro_torch.launch.launch_config.fsdp_keys_for``).
 ``--attack`` takes every name of ``repro_torch.core.types.ATTACKS``
@@ -55,15 +59,19 @@ def lm_batch(seq: np.ndarray, cfg, seq_len: int) -> dict:
     """Worker-stacked (n, b, seq_len + 1) token rows -> the model's batch:
     next-token tokens / labels; a VLM's adds zero patches (n, b,
     num_patches, vision_dim) and keeps ``seq_len - num_patches`` text
-    positions."""
+    positions; an encoder-decoder's adds zero frames (n, b, encoder_seq,
+    d_model), the stubbed audio frontend's output."""
     batch = {"tokens": seq[..., :-1], "labels": seq[..., 1:]}
+    w, pb = seq.shape[:2]
     if cfg.family == "vlm":
-        w, pb = seq.shape[:2]
         batch["patches"] = np.zeros((w, pb, cfg.num_patches, cfg.vision_dim),
                                     np.float32)
         text = seq_len - cfg.num_patches
         batch["tokens"] = batch["tokens"][..., :text]
         batch["labels"] = batch["labels"][..., :text]
+    if cfg.family == "encdec":
+        batch["frames"] = np.zeros((w, pb, cfg.encoder_seq, cfg.d_model),
+                                   np.float32)
     return batch
 
 

@@ -1,0 +1,149 @@
+"""Whisper-style encoder-decoder (counterpart of ``repro.models.encdec``).
+
+The mel-spectrogram + conv feature extractor is a stub, as in the
+reference: the batch carries precomputed frame embeddings ``frames`` of
+shape (B, encoder_seq, d_model).  Downstream is real: a non-causal
+encoder, a causal decoder with cross attention over per-layer k / v
+computed from the encoder output, layer norms with biases, GELU MLPs,
+sinusoidal positions on both frames and tokens (no rope), and an untied
+head over the padded vocab.  Parameters are layer-stacked (L, ...) dicts
+keyed like the reference's tree.  ``cfg.remat`` is not read (the
+reference does not remat this family).  Cached decode comes later
+(ROADMAP queue 1, item 14).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, pad_to
+from repro_torch.models import attention, mlp
+from repro_torch.models.common import (
+    ParamDesc, layer_norm, layer_views, masked_ce, materialize,
+    sinusoidal_positions,
+)
+
+PyTree = Any
+Tensor = torch.Tensor
+
+
+def _ln_desc(cfg: ModelConfig, layers: int, n: int) -> dict:
+    L = (layers,) if layers else ()
+    out = {}
+    for i in range(n):
+        out[f"ln{i}_g"] = ParamDesc(L + (cfg.d_model,), cfg.dtype, "ones")
+        out[f"ln{i}_b"] = ParamDesc(L + (cfg.d_model,), cfg.dtype, "zeros")
+    return out
+
+
+def _decode_not_ported(*_args, **_kwargs):
+    raise NotImplementedError("whisper's cached decode is not ported yet "
+                              "(ROADMAP queue 1, item 14)")
+
+
+class EncDecLM:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.family != "encdec":
+            raise ValueError(f"EncDecLM runs the encdec family, not "
+                             f"{cfg.family!r}")
+        self.cfg = cfg
+
+    cache_descs = init_cache = prefill_cache = decode_step = \
+        staticmethod(_decode_not_ported)
+
+    def param_descs(self) -> PyTree:
+        cfg = self.cfg
+        d = cfg.d_model
+        pv = pad_to(cfg.vocab_size, 128)
+        enc_blocks = {"attn": attention.attn_params(cfg, cfg.encoder_layers),
+                      "mlp": mlp.gelu_mlp_params(cfg, cfg.encoder_layers),
+                      **_ln_desc(cfg, cfg.encoder_layers, 2)}
+        dec_blocks = {"self_attn": attention.attn_params(cfg, cfg.num_layers),
+                      "cross_attn": attention.attn_params(cfg, cfg.num_layers),
+                      "mlp": mlp.gelu_mlp_params(cfg, cfg.num_layers),
+                      **_ln_desc(cfg, cfg.num_layers, 3)}
+        return {
+            "embed": ParamDesc((pv, d), cfg.dtype, "embed"),
+            "encoder": enc_blocks,
+            "enc_norm": _ln_desc(cfg, 0, 1),
+            "decoder": dec_blocks,
+            "dec_norm": _ln_desc(cfg, 0, 1),
+            "lm_head": ParamDesc((d, pv), cfg.dtype),
+        }
+
+    def init(self, seed: int, device: torch.device) -> PyTree:
+        return materialize(self.param_descs(), seed, device)
+
+    # -- encoder ------------------------------------------------------------
+
+    def encode(self, params, frames: Tensor) -> Tensor:
+        cfg = self.cfg
+        x = frames.to(cfg.dtype)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(x.dtype)
+        for p in layer_views(params["encoder"]):
+            x = x + attention.attention(
+                p["attn"], layer_norm(x, p["ln0_g"], p["ln0_b"], cfg.norm_eps),
+                cfg, causal=False, use_rope=False)
+            x = x + mlp.gelu_mlp(
+                p["mlp"], layer_norm(x, p["ln1_g"], p["ln1_b"], cfg.norm_eps))
+        en = params["enc_norm"]
+        return layer_norm(x, en["ln0_g"], en["ln0_b"], cfg.norm_eps)
+
+    def _cross_kv(self, params, enc: Tensor) -> tuple[Tensor, Tensor]:
+        """Per-layer cross k / v from the encoder output: (L, B, S, hkv, hd)."""
+        cfg = self.cfg
+        b, s = enc.shape[:2]
+        shape = (b, s, cfg.num_kv_heads, cfg.head_dim)
+        ks, vs = [], []
+        for p in layer_views(params["decoder"]["cross_attn"]):
+            k, v = enc @ p["wk"], enc @ p["wv"]
+            if cfg.qkv_bias:
+                k, v = k + p["bk"], v + p["bv"]
+            ks.append(k.reshape(shape))
+            vs.append(v.reshape(shape))
+        return torch.stack(ks), torch.stack(vs)
+
+    # -- decoder ------------------------------------------------------------
+
+    def _decode_blocks(self, params, x: Tensor, ck: Tensor, cv: Tensor
+                       ) -> Tensor:
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        for p, k_l, v_l in zip(layer_views(params["decoder"]), ck, cv):
+            x = x + attention.attention(
+                p["self_attn"], layer_norm(x, p["ln0_g"], p["ln0_b"], eps),
+                cfg, causal=True, use_rope=False)
+            x = x + attention.attention(
+                p["cross_attn"], layer_norm(x, p["ln1_g"], p["ln1_b"], eps),
+                cfg, kv_override=(k_l, v_l))
+            x = x + mlp.gelu_mlp(
+                p["mlp"], layer_norm(x, p["ln2_g"], p["ln2_b"], eps))
+        return x
+
+    def _embed_tokens(self, params, tokens: Tensor) -> Tensor:
+        return params["embed"][tokens.long()]
+
+    def _logits(self, params, x: Tensor) -> Tensor:
+        dn = params["dec_norm"]
+        x = layer_norm(x, dn["ln0_g"], dn["ln0_b"], self.cfg.norm_eps)
+        return (x @ params["lm_head"]).float()
+
+    def forward(self, params, batch: dict) -> Tensor:
+        """Full-sequence logits (B, S, padded vocab) in fp32."""
+        cfg = self.cfg
+        enc = self.encode(params, batch["frames"])
+        ck, cv = self._cross_kv(params, enc)
+        x = self._embed_tokens(params, batch["tokens"])
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(x.dtype)
+        x = self._decode_blocks(params, x, ck, cv)
+        return self._logits(params, x)
+
+    def loss(self, params, batch: dict) -> tuple[Tensor, dict]:
+        """Next-token cross-entropy over labels >= 0; returns (ce, {"ce",
+        "aux"}) with a zero aux."""
+        ce = masked_ce(self.forward(params, batch), batch["labels"])
+        return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
+                                                  device=ce.device)}

@@ -1,5 +1,5 @@
-"""Decoder language model, attention family (counterpart of
-``repro.models.lm.DecoderLM``'s ``dense | moe | vlm`` branch).
+"""Decoder language model: dense / MoE / VLM / RWKV6 / Zamba2-hybrid
+(counterpart of ``repro.models.lm.DecoderLM``).
 
 Parameters are a plain dict keyed like the reference's tree, with
 layer-stacked (L, ...) block leaves, so carrying weights across packages
@@ -10,7 +10,13 @@ block in ``torch.utils.checkpoint`` (non-reentrant), the reference's
 ``jax.checkpoint``.  MoE blocks add the router's load-balance aux to the
 loss.  The VLM prepends projected patch embeddings (a stub vision
 frontend, as in the reference) and reads the loss on text positions only.
-SSM / hybrid / encdec and decode come later (ROADMAP queue 1, item 14).
+The SSM family (rwkv6) runs time mix and channel mix per layer; the
+hybrid (zamba2) runs its Mamba2 layers in groups of ``attn_every``, each
+group followed by the one shared attention + SwiGLU block (one set of
+leaves, its gradient summed over the groups); ``remat`` wraps the Mamba2
+block and the shared block separately.  The encoder-decoder family is
+:class:`repro_torch.models.encdec.EncDecLM`; cached decode comes later
+(ROADMAP queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -20,15 +26,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, pad_to
-from repro_torch.models import attention, mlp, moe
-from repro_torch.models.common import ParamDesc, materialize, rms_norm
-from repro_torch.tree import tree_leaves, tree_structure, tree_unflatten
+from repro_torch.models import attention, mlp, moe, rwkv, ssm
+from repro_torch.models.common import (
+    ParamDesc, layer_views, masked_ce, materialize, rms_norm,
+)
 
 PyTree = Any
 Tensor = torch.Tensor
 
-#: The families the port's DecoderLM runs.
-FAMILIES = ("dense", "moe", "vlm")
+#: The families DecoderLM runs (encdec is EncDecLM's).
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def _padded_vocab(cfg: ModelConfig) -> int:
@@ -42,13 +49,15 @@ def _norm_desc(cfg: ModelConfig, layers: int, n: int) -> dict:
 
 
 class DecoderLM:
-    """Decoder-only LM; the port runs the dense, moe and vlm families."""
+    """Decoder-only LM for the families dense, moe, vlm, ssm and hybrid."""
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-                "item 14)")
+            raise ValueError(f"DecoderLM runs no family {cfg.family!r}")
+        if cfg.family == "hybrid" and cfg.num_layers % cfg.attn_every:
+            raise ValueError(
+                f"hybrid depth {cfg.num_layers} is not a multiple of "
+                f"attn_every={cfg.attn_every}")
         self.cfg = cfg
 
     def param_descs(self) -> PyTree:
@@ -61,12 +70,23 @@ class DecoderLM:
         }
         if not cfg.tie_embeddings:
             tree["lm_head"] = ParamDesc((d, pv), cfg.dtype)
-        blocks = {"attn": attention.attn_params(cfg, L), **_norm_desc(cfg, L, 2)}
-        if cfg.family == "moe":
-            blocks["moe"] = moe.moe_params(cfg, L)
+        if cfg.family == "ssm":            # rwkv6
+            tree["blocks"] = {"rwkv": rwkv.rwkv_params(cfg, L),
+                              **_norm_desc(cfg, L, 2)}
+        elif cfg.family == "hybrid":       # zamba2
+            tree["blocks"] = {"ssm": ssm.ssm_params(cfg, L),
+                              **_norm_desc(cfg, L, 1)}
+            tree["shared"] = {"attn": attention.attn_params(cfg, 0),
+                              "mlp": mlp.swiglu_params(cfg, 0),
+                              **_norm_desc(cfg, 0, 2)}
         else:
-            blocks["mlp"] = mlp.swiglu_params(cfg, L)
-        tree["blocks"] = blocks
+            blocks = {"attn": attention.attn_params(cfg, L),
+                      **_norm_desc(cfg, L, 2)}
+            if cfg.family == "moe":
+                blocks["moe"] = moe.moe_params(cfg, L)
+            else:
+                blocks["mlp"] = mlp.swiglu_params(cfg, L)
+            tree["blocks"] = blocks
         if cfg.family == "vlm":
             tree["projector"] = {
                 "w1": ParamDesc((cfg.vision_dim, d), cfg.dtype),
@@ -77,12 +97,6 @@ class DecoderLM:
 
     def init(self, seed: int, device: torch.device) -> PyTree:
         return materialize(self.param_descs(), seed, device)
-
-    def _layers(self, blocks: dict) -> list[dict]:
-        """Per-layer parameter dicts: ``unbind`` views of the stacked leaves."""
-        skeleton = tree_structure(blocks)
-        cols = [leaf.unbind(0) for leaf in tree_leaves(blocks)]
-        return [tree_unflatten(skeleton, list(per)) for per in zip(*cols)]
 
     def _embed(self, params, batch: dict) -> Tensor:
         cfg = self.cfg
@@ -97,6 +111,12 @@ class DecoderLM:
 
     def _block(self, h: Tensor, p: dict) -> tuple[Tensor, Tensor]:
         cfg = self.cfg
+        if cfg.family == "ssm":
+            h = h + rwkv.time_mix(p["rwkv"], rms_norm(h, p["ln0"], cfg.norm_eps),
+                                  cfg)
+            h = h + rwkv.channel_mix(p["rwkv"],
+                                     rms_norm(h, p["ln1"], cfg.norm_eps), cfg)
+            return h, torch.zeros((), dtype=torch.float32, device=h.device)
         h = h + attention.attention(p["attn"], rms_norm(h, p["ln0"], cfg.norm_eps),
                                     cfg)
         if cfg.family == "moe":
@@ -107,13 +127,33 @@ class DecoderLM:
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return h + f, aux
 
+    def _mamba_block(self, h: Tensor, p: dict) -> Tensor:
+        return h + ssm.ssm_block(p["ssm"], rms_norm(h, p["ln0"],
+                                                    self.cfg.norm_eps), self.cfg)
+
+    def _shared_block(self, h: Tensor, shared: dict) -> Tensor:
+        cfg = self.cfg
+        h = h + attention.attention(shared["attn"],
+                                    rms_norm(h, shared["ln0"], cfg.norm_eps), cfg)
+        return h + mlp.swiglu(shared["mlp"],
+                              rms_norm(h, shared["ln1"], cfg.norm_eps))
+
+    def _remat(self, fn, *args):
+        if self.cfg.remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def _run_blocks(self, params, x: Tensor) -> tuple[Tensor, Tensor]:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for p in self._layers(params["blocks"]):
-            if self.cfg.remat:
-                x, aux_l = checkpoint(self._block, x, p, use_reentrant=False)
-            else:
-                x, aux_l = self._block(x, p)
+        if self.cfg.family == "hybrid":
+            every = self.cfg.attn_every
+            for i, p in enumerate(layer_views(params["blocks"])):
+                x = self._remat(self._mamba_block, x, p)
+                if (i + 1) % every == 0:
+                    x = self._remat(self._shared_block, x, params["shared"])
+            return x, aux
+        for p in layer_views(params["blocks"]):
+            x, aux_l = self._remat(self._block, x, p)
             aux = aux + aux_l
         return x, aux
 
@@ -136,10 +176,5 @@ class DecoderLM:
         x, aux = self._run_blocks(params, self._embed(params, batch))
         if cfg.family == "vlm":
             x = x[:, cfg.num_patches:]          # text positions only
-        logits = self._logits(params, x)
-        labels = batch["labels"].long()
-        logp = torch.log_softmax(logits, dim=-1)
-        ll = torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
-        mask = (labels >= 0).float()
-        ce = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        ce = masked_ce(self._logits(params, x), batch["labels"])
         return ce + aux, {"ce": ce, "aux": aux}

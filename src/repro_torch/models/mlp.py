@@ -1,4 +1,5 @@
-"""SwiGLU feed-forward block (counterpart of ``repro.models.mlp.swiglu``)."""
+"""Feed-forward blocks: SwiGLU (llama family) and GELU (whisper); the
+counterpart of ``repro.models.mlp``."""
 from __future__ import annotations
 
 import torch
@@ -20,3 +21,20 @@ def swiglu_params(cfg: ModelConfig, layers: int, d_ff: int | None = None) -> dic
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wi"])
     return h @ p["wo"]
+
+
+def gelu_mlp_params(cfg: ModelConfig, layers: int) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    L = (layers,) if layers else ()
+    return {
+        "wi": ParamDesc(L + (d, ff), cfg.dtype),
+        "bi": ParamDesc(L + (ff,), cfg.dtype, "zeros"),
+        "wo": ParamDesc(L + (ff, d), cfg.dtype),
+        "bo": ParamDesc(L + (d,), cfg.dtype, "zeros"),
+    }
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation.
+    h = torch.nn.functional.gelu(x @ p["wi"] + p["bi"], approximate="tanh")
+    return h @ p["wo"] + p["bo"]

@@ -2,11 +2,13 @@
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import FAMILIES, DecoderLM
 
 
 def build_model(cfg: ModelConfig):
+    if cfg.family == "encdec":
+        return EncDecLM(cfg)
     if cfg.family in FAMILIES:
         return DecoderLM(cfg)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, item 14)")
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,0 +1,96 @@
+"""RWKV6 ("Finch") block: attention-free time mix with data-dependent
+per-channel decay, plus the RWKV channel mix.
+
+Counterpart of ``repro.models.rwkv``'s training path (arXiv:2404.05892,
+with the reference's simplifications: static per-channel lerp
+coefficients and one low-rank data-dependent decay projection).  The
+recurrence, diag(w_t) state decay with the u-bonus on the current token,
+is :func:`repro_torch.models.linear_scan.gla_chunked`.  Mesh head padding
+waits for the multi-device port (ROADMAP queue 1, item 13); the cached
+decode (``rwkv_cache_desc``, ``*_decode``) for ROADMAP queue 1, item 14.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import linear_scan
+from repro_torch.models.common import ParamDesc, rms_norm
+
+Tensor = torch.Tensor
+DECAY_LORA = 64
+
+
+def _dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    h, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    return h, hd, h * hd
+
+
+def rwkv_params(cfg: ModelConfig, layers: int) -> dict:
+    d = cfg.d_model
+    h, hd, inner = _dims(cfg)
+    L = (layers,) if layers else ()
+    lora = min(DECAY_LORA, d)
+    return {
+        # time-mix lerp coefficients for the r / k / v / w / g streams
+        "mix": ParamDesc(L + (5, d), cfg.dtype, "ones", 0.5),
+        "wr": ParamDesc(L + (d, inner), cfg.dtype),
+        "wk": ParamDesc(L + (d, inner), cfg.dtype),
+        "wv": ParamDesc(L + (d, inner), cfg.dtype),
+        "wg": ParamDesc(L + (d, inner), cfg.dtype),
+        # data-dependent decay: low-rank projection + bias
+        "wd1": ParamDesc(L + (d, lora), cfg.dtype),
+        "wd2": ParamDesc(L + (lora, inner), cfg.dtype),
+        "decay_bias": ParamDesc(L + (inner,), torch.float32, "ones", -1.0),
+        "u": ParamDesc(L + (h, hd), torch.float32, "ones", 0.5),
+        "ln_g": ParamDesc(L + (inner,), cfg.dtype, "ones"),
+        "wo": ParamDesc(L + (inner, d), cfg.dtype),
+        # channel mix
+        "cmix": ParamDesc(L + (2, d), cfg.dtype, "ones", 0.5),
+        "ck": ParamDesc(L + (d, cfg.d_ff), cfg.dtype),
+        "cv": ParamDesc(L + (cfg.d_ff, d), cfg.dtype),
+        "cr": ParamDesc(L + (d, d), cfg.dtype),
+    }
+
+
+def _token_shift(x: Tensor) -> Tensor:
+    """The x_{t-1} stream (zeros before the first token)."""
+    return F.pad(x, (0, 0, 1, 0))[:, : x.shape[1]]
+
+
+def _streams(p: dict, x: Tensor, shifted: Tensor):
+    mix = p["mix"]
+    return tuple(x + (shifted - x) * mix[i] for i in range(5))  # r k v w g
+
+
+def _log_decay(p: dict, xw: Tensor) -> Tensor:
+    dd = torch.tanh(xw @ p["wd1"]) @ p["wd2"]
+    raw = p["decay_bias"] + dd.float()
+    # w_t = exp(-exp(raw)); the per-step log decay clamped for the scan.
+    return -torch.clamp(torch.exp(raw), 1e-6, linear_scan.MAX_STEP_DECAY)
+
+
+def time_mix(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    b, s, _ = x.shape
+    h, hd, inner = _dims(cfg)
+    xr, xk, xv, xw, xg = _streams(p, x, _token_shift(x))
+    r = (xr @ p["wr"]).reshape(b, s, h, hd)
+    k = (xk @ p["wk"]).reshape(b, s, h, hd)
+    v = (xv @ p["wv"]).reshape(b, s, h, hd)
+    g = F.silu(xg @ p["wg"])
+    w = _log_decay(p, xw).reshape(b, s, h, hd)
+
+    y, _ = linear_scan.gla_chunked(r, k, v, w, chunk=cfg.ssm_chunk, u=p["u"])
+    y = y.reshape(b, s, inner).to(x.dtype)
+    y = rms_norm(y, p["ln_g"], cfg.norm_eps) * g
+    return y @ p["wo"]
+
+
+def channel_mix(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    shifted = _token_shift(x)
+    cm = p["cmix"]
+    xk = x + (shifted - x) * cm[0]
+    xr = x + (shifted - x) * cm[1]
+    k = torch.square(F.relu(xk @ p["ck"]))
+    return (k @ p["cv"]) * torch.sigmoid(xr @ p["cr"])

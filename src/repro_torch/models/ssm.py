@@ -1,0 +1,95 @@
+"""Mamba2 (SSD) block, the recurrent backbone of zamba2.
+
+Counterpart of ``repro.models.ssm``'s training path, with the reference's
+simplifications: one B / C group, a causal depthwise short conv (kernel
+CONV_K = 4) over the concatenated (x, B, C) stream written as shifted
+adds in the reference's order, and the chunked scan of
+:mod:`repro_torch.models.linear_scan` with a per-head scalar decay.
+d_inner = expand * d_model = H * P, state size N.  Mesh head padding
+waits for the multi-device port (ROADMAP queue 1, item 13); the cached
+decode (``ssm_cache_desc``, ``ssm_decode_step``) for ROADMAP queue 1,
+item 14.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import linear_scan
+from repro_torch.models.common import ParamDesc, rms_norm
+
+Tensor = torch.Tensor
+CONV_K = 4
+
+
+def _dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    return h, p, n, h * p
+
+
+def ssm_params(cfg: ModelConfig, layers: int) -> dict:
+    d = cfg.d_model
+    h, p, n, d_inner = _dims(cfg)
+    L = (layers,) if layers else ()
+    conv_dim = d_inner + 2 * n
+    return {
+        # projections: z (gate), x, B, C, dt
+        "in_proj": ParamDesc(L + (d, 2 * d_inner + 2 * n + h), cfg.dtype),
+        "conv_w": ParamDesc(L + (CONV_K, conv_dim), cfg.dtype, "normal", 0.5),
+        "conv_b": ParamDesc(L + (conv_dim,), cfg.dtype, "zeros"),
+        "a_log": ParamDesc(L + (h,), torch.float32, "zeros"),
+        "dt_bias": ParamDesc(L + (h,), torch.float32, "zeros"),
+        "d_skip": ParamDesc(L + (h,), torch.float32, "ones"),
+        "norm_g": ParamDesc(L + (d_inner,), cfg.dtype, "ones"),
+        "out_proj": ParamDesc(L + (d_inner, d), cfg.dtype),
+    }
+
+
+def _short_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """Causal depthwise conv, kernel CONV_K, via shifted adds.  x: (B, S, C)."""
+    out = x * w[CONV_K - 1]
+    for i in range(1, CONV_K):
+        shifted = F.pad(x, (0, 0, i, 0))[:, : x.shape[1]]
+        out = out + shifted * w[CONV_K - 1 - i]
+    return out + b
+
+
+def _project(p: dict, x: Tensor, cfg: ModelConfig):
+    """z, x, B, C, dt from one input projection (split by sizes)."""
+    h, _, n, d_inner = _dims(cfg)
+    return torch.split(x @ p["in_proj"], [d_inner, d_inner, n, n, h], dim=-1)
+
+
+def _decays(p: dict, dt: Tensor) -> tuple[Tensor, Tensor]:
+    """Returns (per-head log decay <= 0, per-head dt > 0)."""
+    z = dt.float() + p["dt_bias"]
+    dtv = torch.logaddexp(z, torch.zeros((), dtype=z.dtype, device=z.device))
+    a = torch.exp(p["a_log"])                    # > 0
+    # Clamp so chunk * max-step-decay stays inside linear_scan.CLIP.
+    log_decay = -torch.clamp(dtv * a, 0.0, linear_scan.MAX_STEP_DECAY)
+    return log_decay, dtv
+
+
+def ssm_block(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Full-sequence Mamba2 mixer.  x: (B, S, d) -> (B, S, d)."""
+    b, s, _ = x.shape
+    h, pp, n, d_inner = _dims(cfg)
+    z, xin, bmat, cmat, dt = _project(p, x, cfg)
+
+    conv_in = torch.cat([xin, bmat, cmat], dim=-1)
+    conv_out = F.silu(_short_conv(conv_in, p["conv_w"], p["conv_b"]))
+    xin, bmat, cmat = torch.split(conv_out, [d_inner, n, n], dim=-1)
+
+    log_decay, dtv = _decays(p, dt)              # (B, S, H), (B, S, H)
+    v = (xin.reshape(b, s, h, pp) * dtv[..., None]).float()
+    # B and C broadcast across heads (their gradient sums over heads).
+    k = bmat[:, :, None, :].expand(b, s, h, n)
+    q = cmat[:, :, None, :].expand(b, s, h, n)
+    w = log_decay[..., None].expand(b, s, h, n)
+
+    y, _ = linear_scan.gla_chunked(q, k, v, w, chunk=cfg.ssm_chunk)
+    y = y + p["d_skip"][None, None, :, None] * xin.reshape(b, s, h, pp)
+    y = y.reshape(b, s, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
+    return y @ p["out_proj"]

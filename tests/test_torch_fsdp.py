@@ -320,3 +320,5 @@ def test_fsdp_keys_come_from_the_full_config():
     assert t_lc.fsdp_keys_for(full.replace(num_layers=1)) == ()
     assert t_lc.fsdp_keys_for(t_get("arctic-480b")) == FSDP_KEYS
     assert t_lc.fsdp_keys_for(t_get("qwen2-7b")) == ()
+    for arch in ("rwkv6-3b", "zamba2-2.7b", "whisper-base"):
+        assert t_lc.fsdp_keys_for(t_get(arch)) == ()

@@ -29,6 +29,8 @@ import repro_torch.resilience.experiment, repro_torch.resilience.faults
 import repro_torch.serving, repro_torch.serving.engine
 import repro_torch.robustness.breakdown
 import repro_torch.models.moe, repro_torch.launch.launch_config
+import repro_torch.models.encdec, repro_torch.models.linear_scan
+import repro_torch.models.rwkv, repro_torch.models.ssm
 from repro_torch.core import apply_attack, nnm_direct, theory
 from repro_torch.launch import breakdown, grid, scenarios, service, train
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
@@ -39,7 +41,8 @@ out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--attack", "foe_opt", "--sketch-dim", "64"])
 assert out["history"]["loss"], out
 assert "sketch_gram" in [d.primitive for d in out["dispatch"].decisions]
-for arch in ("mixtral-8x22b", "internvl2-2b"):
+for arch in ("mixtral-8x22b", "internvl2-2b", "rwkv6-3b", "zamba2-2.7b",
+             "whisper-base"):
     out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                       "--byz", "1", "--seq", "16", "--batch", "1",
                       "--arch", arch])

@@ -1,5 +1,7 @@
-"""The port's model zoo (the attention family: dense, MoE, VLM) against
-the reference's, on the CPU.
+"""The port's model zoo against the reference's, on the CPU: the
+attention family (dense, MoE, VLM) here; every arch's config, full-size
+tree and remat; the SSM, hybrid and encoder-decoder families' numerics
+are tests/test_torch_families.py's.
 
 Both packages run the reduced configs (fp32) from the same parameters:
 the reference's init carried across with ``repro_torch.interop``, with
@@ -38,6 +40,8 @@ TOL = 1e-5
 NEW_ARCHS = ("qwen2-7b", "codeqwen1.5-7b", "minitron-8b", "mixtral-8x22b",
              "arctic-480b", "internvl2-2b")
 ATTENTION_ARCHS = ("smollm-360m",) + NEW_ARCHS
+#: Every arch the reference registers.
+ALL_ARCHS = ATTENTION_ARCHS + ("rwkv6-3b", "zamba2-2.7b", "whisper-base")
 B, S = 2, 64
 
 
@@ -58,17 +62,19 @@ def _same_config(t: ModelConfig, j) -> None:
 
 
 def test_registry_holds_the_attention_family():
-    assert set(ARCH_IDS) == set(ATTENTION_ARCHS)
-    left = [a for a in J_ARCH_IDS if a not in ARCH_IDS]
-    assert sorted(j_get(a).family for a in left) == ["encdec", "hybrid", "ssm"]
-    for fam in ("ssm", "hybrid", "encdec"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            t_build(t_get("smollm-360m").replace(family=fam))
+    """The registry holds the reference's ten archs, in its order, the
+    attention family among them; build_model builds each one's family."""
+    assert ARCH_IDS == J_ARCH_IDS
+    assert set(ATTENTION_ARCHS) < set(ALL_ARCHS) == set(ARCH_IDS)
     for arch in ARCH_IDS:
-        assert t_build(t_get(arch)).cfg.family in ("dense", "moe", "vlm")
+        model = t_build(t_get(arch))
+        assert model.cfg.family == j_get(arch).family
+        assert type(model).__name__ == type(j_build(j_get(arch))).__name__
+    with pytest.raises(ValueError, match="unknown family"):
+        t_build(t_get("smollm-360m").replace(family="cnn"))
 
 
-@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_config_equals_reference(arch):
     """Every field the port has, full and reduced (dtype by name)."""
     _same_config(t_get(arch), j_get(arch))
@@ -85,7 +91,7 @@ def test_input_shapes_equal_reference():
              J_SHAPES[k].kind)
 
 
-@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_param_descs_match_reference_at_full_size(arch):
     """Leaf order (jax's keystr paths), shapes and dtypes of the FULL
     config's tree; nothing is allocated on either side."""
@@ -125,6 +131,9 @@ def _batch(cfg, seed: int = 0, lead=(B,)) -> dict:
     if cfg.family == "vlm":
         batch["patches"] = rng.standard_normal(
             lead + (cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            lead + (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -234,10 +243,11 @@ def test_top_k_breaks_ties_to_the_lower_index():
     np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "mixtral-8x22b", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_remat_equals_no_remat_bit_for_bit(arch):
     """Activation checkpointing recomputes the same ops: loss and every
-    gradient equal to the last bit."""
+    gradient equal to the last bit (the hybrid's Mamba2 and shared blocks
+    each wrapped; whisper does not read remat, as the reference)."""
     cfg = t_reduced(arch)
     batch = _t_batch(_batch(cfg))
     out = []
