@@ -210,7 +210,27 @@ Phases, each fatal on failure:
      (plain torch, fp32, within 1e-5 of max |naive|) at rwkv6-3b's (H 40,
      K = V = 64, with u) and zamba2-2.7b's (H 80, K = V = 64, a per-head
      decay) widths, batch 4 x seq 256, each timed;
- 20. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 20. cached decode and greedy serving (``repro_torch.serving.
+     ServeEngine``) at published widths from seeded bf16 weights:
+     smollm-360m, qwen2-7b (batch 8, prompt 256, 64 new), minitron-8b,
+     internvl2-2b (text decode), rwkv6-3b, zamba2-2.7b and whisper-base
+     (1500 seeded frames through ``prefill_cache``) at full depth,
+     mixtral-8x22b at 4 of 56 layers and arctic-480b at 1 of 35; batch 4,
+     prompt 64, 32 new (rwkv6 / zamba2 64) unless named.  Each run generates greedily through
+     ``launch.serve.clocked_generate`` (prefill ms, ms per decoded token as
+     the median step after the first, tokens per second, peak memory, the
+     bound per decoded token from ``launch.roofline``, MoE reading the
+     experts its batch picked); each step's logits are held to the port's
+     forward of the same tokens (SERVE_REL; rwkv6 and zamba2
+     SERVE_REL_RECURRENT;
+     MoE forward at a capacity factor where no token drops (8, arctic's
+     E / k), replaying decode's expert picks
+     (a bf16 rounding tips router near-ties; the flips are counted); the
+     VLM's as a dense config); no kernel launch and no
+     fallback; then in fp32 (TF32 off) smollm-360m, rwkv6-3b and
+     zamba2-2.7b at full depth and mixtral-8x22b at 1 layer, within 1e-4
+     of max |forward|;
+ 21. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6; the
      lane forms of K2's median, K3, K6 and K7 on rows of their own), the
      fed phase's launches, phase 13's to 19's launches, the kernels JSON
@@ -228,6 +248,7 @@ package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3990,6 +4011,286 @@ def phase_families(dev, card: str) -> dict:
     return total
 
 
+#: Phase 20: cached decode and greedy serving at published widths, seeded
+#: bf16 weights: (label, arch, layers, batch, prompt, new); max_seq =
+#: prompt + new.  arctic-480b runs 1 of 35 layers: ``materialize`` draws
+#: each expert leaf in fp32 before its cast, (1, 128, 7168, 4864) = 17.8
+#: GB beside 28.1 GB of bf16 weights; two layers would not fit.  mixtral
+#: runs 4 of 56 layers (20.8 GB).  Every other arch runs at full depth.
+#: ``new`` is cut to keep the phase near a minute (the steps are
+#: launch-bound, 10-50 ms each): 32 (qwen2-7b 64) where nothing else
+#: bounds it; rwkv6 / zamba2 keep 64, since their forward check runs
+#: prompt + new tokens, a whole number of 64-token scan chunks.
+SERVE_RUNS = (("20a", "smollm-360m", 32, 4, 64, 32),
+              ("20b", "qwen2-7b", 28, 8, 256, 64),
+              ("20c", "minitron-8b", 32, 4, 64, 32),
+              ("20d", "mixtral-8x22b", 4, 4, 64, 32),
+              ("20e", "arctic-480b", 1, 4, 64, 32),
+              ("20f", "internvl2-2b", 24, 4, 64, 32),
+              ("20g", "rwkv6-3b", 32, 4, 64, 64),
+              ("20h", "zamba2-2.7b", 54, 4, 64, 64),
+              ("20i", "whisper-base", 6, 4, 64, 32))
+#: bf16 decode against the bf16 forward of the same tokens: max |dec -
+#: fwd| over every step's logits, as a share of max |fwd|.  The two run
+#: the same math on other shapes ((B, 1, d) products against (B, S, d),
+#: a masked softmax over the cache against one over the sequence), so
+#: cuBLAS sums in other orders and a bf16 rounding of an activation
+#: (relative 2^-9) may land one ulp apart; such flips are rare and carry
+#: through the residual stream and the final norm into logits that are a
+#: bf16 product themselves, of magnitude ~4 (ulp 2^-5, 1/128 of it).
+#: 1/16 is 8 such ulps at the largest logit.  The recurrent families
+#: amplify bf16 rounding through depth: on the CPU at 32 layers (d 512 /
+#: 1024) rwkv6's bf16 forward and bf16 decode both land 22-24 % of max
+#: |logits| from the fp32 forward of the same weights, and 8.6-10.8 % from
+#: each other; zamba2's forward also rounds each Mamba2 conv output to
+#: bf16 where decode keeps it fp32 (the reference's arithmetic; on the CPU
+#: at d = 256: 3.6 % at 6 layers, 16.7 % at 54).  They are held at 1/4 in
+#: bf16, and in fp32 at full depth below.
+SERVE_REL = 1.0 / 16
+SERVE_REL_RECURRENT = 1.0 / 4
+#: fp32 decode against the fp32 forward (TF32 off): 1e-4 of max |fwd|.
+SERVE_FP32_REL = 1e-4
+#: fp32 runs: (label, arch, layers, batch, prompt, new).
+SERVE_FP32_RUNS = (("20a fp32", "smollm-360m", 32, 4, 64, 32),
+                   ("20d fp32", "mixtral-8x22b", 1, 4, 64, 32),
+                   ("20g fp32", "rwkv6-3b", 32, 4, 64, 64),
+                   ("20h fp32", "zamba2-2.7b", 54, 4, 64, 64))
+
+
+def serve_forward(model, params, tokens, frames):
+    """The port's full forward over ``tokens`` (B, S), as decode sees it:
+    a MoE at a capacity factor where no token drops (one decoded token
+    never does; a forward over S may): 8, or E / k where that is larger,
+    so that an expert holds a whole row (greedy rows repeat tokens, and
+    repeated tokens pick the same experts: arctic's 128 experts at 8 hold
+    17 a row, and the forward dropped tokens); a VLM as the same weights
+    in a dense config without the projector (decode embeds text only); an
+    encoder-decoder over ``frames``."""
+    import torch
+    from repro_torch.models import build_model
+    cfg = model.cfg
+    if cfg.num_experts:
+        cf = max(8.0, cfg.num_experts / cfg.experts_per_token)
+        model = build_model(cfg.replace(capacity_factor=cf))
+    if cfg.family == "vlm":
+        model = build_model(cfg.replace(family="dense"))
+        params = {k: v for k, v in params.items() if k != "projector"}
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = frames
+    with torch.inference_mode():
+        return model.forward(params, batch)
+
+
+class RouterPicks:
+    """Keeps the top-k expert ids of every MoE dispatch inside a ``with``
+    block (``moe.top_k`` wrapped: a list append, no device work and no
+    host sync), each (B, t, k)."""
+
+    def __init__(self):
+        self.picks: list = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = orig = moe.top_k
+
+        def top_k(probs, k):
+            vals, idx = orig(probs, k)
+            self.picks.append(idx)
+            return vals, idx
+
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.top_k = self._orig
+
+
+class RouterReplay:
+    """Inside a ``with`` block, each MoE dispatch of a forward over S
+    positions routes as decode did: ``moe.top_k`` returns decode's expert
+    ids (``dec_picks``: one (B, 1, k) a step and layer, step-major) for the
+    first T positions and its own beyond, the gates read from the
+    forward's own probabilities at those ids.  A bf16 rounding can tip a
+    near-tie of the router between decode and the forward, after which a
+    row follows other experts; replayed, the two differ by rounding only.
+    ``flips()`` counts the (position, layer) decisions where the forward's
+    own top-k set differed from decode's."""
+
+    def __init__(self, dec_picks: list, layers: int):
+        import torch
+        self.dec = [torch.cat(dec_picks[l::layers], 1) for l in range(layers)]
+        self.own: list = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = orig = moe.top_k
+
+        def top_k(probs, k):
+            _, own = orig(probs, k)
+            dec = self.dec[len(self.own) % len(self.dec)]
+            self.own.append(own)
+            import torch
+            idx = torch.cat([dec, own[:, dec.shape[1]:]], 1)
+            return torch.gather(probs, -1, idx), idx
+
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.top_k = self._orig
+
+    def flips(self) -> int:
+        return sum(int((own[:, :dec.shape[1]].sort(-1).values
+                        != dec.sort(-1).values).any(-1).sum())
+                   for own, dec in zip(self.own, self.dec))
+
+
+def phase_serve_run(dev, card: str, label: str, arch: str, layers: int,
+                    batch: int, prompt: int, new: int,
+                    dtype=None) -> dict:
+    """One phase-20 run: greedy ServeEngine.generate through
+    launch.serve.clocked_generate (prefill ms, each step's ms, each step's
+    logits), held to the port's forward of the same tokens (a MoE's
+    forward replaying decode's routing: RouterReplay); no kernel launch.
+    Returns its numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import roofline
+    from repro_torch.launch.serve import clocked_generate
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import tree_leaves
+    t_run = time.perf_counter()
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers)
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(0, dev)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    prompts = np.random.default_rng(20).integers(0, cfg.vocab_size,
+                                                 (batch, prompt))
+    max_seq = prompt + new
+    eng = ServeEngine(model, params, batch_size=batch, max_seq=max_seq)
+    frames = cache = None
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=dev).manual_seed(20)
+        frames = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                             generator=gen, device=dev)
+        cache = model.prefill_cache(params, frames, batch, max_seq)
+
+    kdispatch.reset_launch_counts()
+    kdispatch.reset_fallbacks()
+    with RouterPicks() as dec_route:
+        run = clocked_generate(eng, prompts, new, cache, keep_logits=True)
+    torch.cuda.synchronize(dev)
+    launches = {k: v for k, v in kdispatch.launch_counts().items() if v}
+    if launches:
+        raise AssertionError(f"{label}: serving launched kernels: {launches}")
+    no_fallback(label)
+    tokens, dec = run["tokens"], run.pop("logits")
+    if tokens.shape != (batch, new) or tokens.dtype != np.int32:
+        raise AssertionError(f"{label}: tokens {tokens.shape} {tokens.dtype}")
+    if not np.array_equal(dec.argmax(-1).cpu().numpy(), tokens):
+        raise AssertionError(f"{label}: tokens are not the logits' argmax")
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"{label}: non-finite decode logits")
+
+    # The forward of prompt + generated (prompt + new positions: a whole
+    # number of the scan's chunks for rwkv6 / zamba2; the last token, never
+    # fed to decode, gives the one position not compared).
+    seq = torch.cat([torch.as_tensor(prompts, device=dev),
+                     torch.as_tensor(tokens, device=dev).long()], 1)
+    replay = RouterReplay(dec_route.picks, cfg.num_layers) \
+        if cfg.num_experts else contextlib.nullcontext()
+    with replay:
+        fwd = serve_forward(model, params, seq, frames)[:, prompt - 1:-1]
+    flips = replay.flips() if cfg.num_experts else None
+    err = float((dec - fwd).abs().max())
+    scale = float(fwd.abs().max())
+    rel = SERVE_FP32_REL if cfg.dtype == torch.float32 else \
+        SERVE_REL_RECURRENT if cfg.family in ("ssm", "hybrid") else SERVE_REL
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    if err > rel * scale:
+        raise AssertionError(f"{label}: decode vs forward {err:.4g} > "
+                             f"{rel:.4g} x {scale:.4g}")
+    del fwd, dec
+
+    # Bound per decoded token: the median step's bytes (roofline), MoE
+    # reading the experts its batch's top-k picked at each step.
+    step_ms = run["step_ms"][1:]
+    ms = statistics.median(step_ms)
+    reads = [None] * (new - 1)
+    if cfg.num_experts:
+        picks = dec_route.picks[-(new - 1) * cfg.num_layers:]
+        reads = [float(sum(int(torch.unique(x).numel()) for x in
+                           picks[i * cfg.num_layers:(i + 1) * cfg.num_layers]))
+                 for i in range(new - 1)]
+    bnd = statistics.median(
+        [1e3 * max(t.memory_s, t.compute_s) for t in
+         (roofline.decode_step_terms(cfg, batch, max_seq, prompt + i,
+                                     experts_read=reads[i])
+          for i in range(1, new - 1))])
+    all_read = statistics.median(
+        [1e3 * roofline.decode_step_terms(cfg, batch, max_seq,
+                                          prompt + i).memory_s
+         for i in range(1, new - 1)])
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = {"label": label, "arch": arch, "layers": layers, "batch": batch,
+           "prompt": prompt, "new": new, "dtype": str(cfg.dtype),
+           "prefill_ms": run["prefill_ms"], "ms": ms,
+           "tok_s": batch / ms * 1e3, "peak": peak, "bound_ms": bnd,
+           "share": bnd / ms, "err": err, "scale": scale, "rel": rel,
+           "routing_flips": flips, "agree": agree,
+           "weights": weights, "step_ms_range": [min(step_ms), max(step_ms)],
+           "experts_read": (statistics.mean(reads[1:])
+                            if cfg.num_experts else None),
+           "all_experts_bound_ms": all_read}
+    extra = ""
+    if cfg.num_experts:
+        extra = (f"; experts read a step {res['experts_read']:.1f} of "
+                 f"{cfg.num_layers * cfg.num_experts} (bound with every "
+                 f"expert {all_read:.3f} ms: the capacity dispatch reads "
+                 f"them all); the forward replays decode's routing, its own "
+                 f"top-k differed in {flips} of {cfg.num_layers * batch * (prompt + new - 1)} "
+                 f"(layer, row, position) decisions")
+    log(f"  {label} {arch} {res['dtype'][6:]}: {layers} of {full.num_layers} "
+        f"layers, batch {batch}, prompt {prompt}, new {new}, weights "
+        f"{weights / 1e9:.2f} GB; prefill {run['prefill_ms']:.1f} ms; "
+        f"{ms:.3f} ms per decoded token (steps {min(step_ms):.3f}-"
+        f"{max(step_ms):.3f}), {res['tok_s']:.1f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB; bound {bnd:.3f} ms ({100 * bnd / ms:.1f} "
+        f"%){extra}; decode vs forward max_abs_err={err:.4g} (tol "
+        f"{rel:.4g} x {scale:.4g}), argmax agree {100 * agree:.1f} %; "
+        f"first row "
+        f"{tokens[0, :8].tolist()}; no kernel launch; "
+        f"{time.perf_counter() - t_run:.1f} s; card {card}")
+    del params, eng, model, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve(dev, card: str) -> list:
+    """Phase 20; returns each run's numbers."""
+    import torch
+    out = []
+    for run in SERVE_RUNS:
+        log(f"-- {run[0]}. {run[1]} served at full width, {run[2]} layer(s), "
+            f"batch {run[3]}, prompt {run[4]}, {run[5]} new")
+        out.append(phase_serve_run(dev, card, *run))
+    for run in SERVE_FP32_RUNS:
+        log(f"-- {run[0]}. {run[1]} in fp32, {run[2]} layer(s)")
+        out.append(phase_serve_run(dev, card, *run, dtype=torch.float32))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4161,7 +4462,14 @@ def main() -> int:
     log(json.dumps({"family_launches": counts_fam}))
     log(f"  phase 19: {time.perf_counter() - t19:.1f} s")
 
-    log("== 20. summary")
+    t20 = time.perf_counter()
+    log("== 20. cached decode and greedy serving at full width: nine archs "
+        "through ServeEngine")
+    serve_runs = phase_serve(dev, card)
+    log(json.dumps({"serve": serve_runs}))
+    log(f"  phase 20: {time.perf_counter() - t20:.1f} s")
+
+    log("== 21. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),

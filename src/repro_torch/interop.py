@@ -22,6 +22,11 @@ generators seeded with the job's seed) and is dropped.
 :func:`mlp_params_from_numpy` carries the fleet MLP's init across, e.g.
 ``_mlp_init(jax.random.PRNGKey(seed), 48)`` as numpy.
 
+A decode cache carries across too (:func:`cache_from_numpy` /
+:func:`cache_to_numpy`): the reference's ``init_cache`` / ``decode_step``
+tree, one of the layouts in :data:`CACHE_KEYS`, leaf for leaf in jax's
+sorted-key order.
+
 bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays (JAX's numpy
 bf16); they are reinterpreted bit for bit.  On the way back bf16 tensors
 become fp32 arrays (exact), so this module needs no ``ml_dtypes``.
@@ -164,3 +169,42 @@ def lane_state_to_numpy(state: dict) -> dict:
     if "momentum" in state:
         out["momentum"] = [tensor_to_numpy(m) for m in state["momentum"]]
     return out
+
+
+#: The decode caches' layouts, as sorted key paths: the encoder-decoder's,
+#: the KV cache (dense / moe / vlm), rwkv's, and the hybrid's.
+CACHE_KEYS = (
+    ("cross_k", "cross_v", "k", "v"),
+    ("k", "v"),
+    ("cshift", "state", "tshift"),
+    ("attn/k", "attn/v", "ssm/conv", "ssm/state"),
+)
+
+
+def _cache_keys(tree: dict) -> tuple:
+    keys = []
+    for k, v in tree.items():
+        keys += [f"{k}/{j}" for j in v] if isinstance(v, dict) else [k]
+    return tuple(sorted(keys))
+
+
+def _check_cache(tree: dict) -> None:
+    if not isinstance(tree, dict) or _cache_keys(tree) not in CACHE_KEYS:
+        got = _cache_keys(tree) if isinstance(tree, dict) else type(tree)
+        raise ValueError(f"not a decode cache: {got}; expected one of "
+                         f"{CACHE_KEYS}")
+
+
+def cache_from_numpy(tree: dict, device: Optional[torch.device] = None
+                     ) -> dict:
+    """The reference's decode cache (as numpy) -> the port's, each leaf in
+    its own dtype (bf16 bit for bit)."""
+    _check_cache(tree)
+    return params_from_numpy(tree, device)
+
+
+def cache_to_numpy(tree: dict) -> dict:
+    """The port's decode cache -> the reference's layout, as numpy (bf16
+    as fp32, exact)."""
+    _check_cache(tree)
+    return params_to_numpy(tree)

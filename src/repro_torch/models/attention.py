@@ -1,13 +1,18 @@
-"""GQA attention, full-sequence (training) form.
+"""GQA attention: the full-sequence (training) form and cached
+single-token decode.
 
-Counterpart of ``repro.models.attention.attention``: plain einsum
-attention with a causal mask (or none: whisper's encoder), optional QKV
-biases (qwen2 / codeqwen), an optional sliding window under the causal
-mask (mixtral), rope unless ``use_rope=False`` (whisper), cross attention
-over external k / v (``kv_override``: no mask, no rope), and the kv heads
-repeated to the q-head count.  The reference computes this outside any
-Pallas kernel, so plain torch ops are its port.  Cached decode arrives
-with ``ServeEngine`` (ROADMAP queue 1, item 14).
+Counterpart of ``repro.models.attention``: plain einsum attention with a
+causal mask (or none: whisper's encoder), optional QKV biases (qwen2 /
+codeqwen), an optional sliding window under the causal mask (mixtral),
+rope unless ``use_rope=False`` (whisper), cross attention over external k
+/ v (``kv_override``: no mask, no rope), and the kv heads repeated to the
+q-head count.  :func:`decode_attention` reads a (B, span, hkv, hd) KV
+cache (a ring of the window for a windowed arch) and contracts the
+q-head groups against the shared kv heads, the reference's default
+grouped form.  The reference computes all of it outside any Pallas
+kernel, so plain torch ops are its port.  On one device the head counts
+are the config's, unpadded; the mesh padding waits for the multi-device
+port (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -22,8 +27,18 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 
 
+def resolved_heads(cfg: ModelConfig) -> tuple[int, int]:
+    """(q heads, kv heads): the config's on one device (the reference pads
+    them to a model-parallel mesh; ROADMAP queue 1, item 13)."""
+    return cfg.num_heads, cfg.num_kv_heads
+
+
+def hkv_of(cfg: ModelConfig) -> int:
+    return resolved_heads(cfg)[1]
+
+
 def attn_params(cfg: ModelConfig, layers: int) -> dict:
-    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    hq, hkv = resolved_heads(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     L = (layers,) if layers else ()
     p = {
@@ -88,3 +103,89 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     return out.reshape(b, s, hq * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode.
+# ---------------------------------------------------------------------------
+
+def cache_span(cfg: ModelConfig, max_seq: int) -> int:
+    """Cached positions: the window for a windowed arch (a ring), else
+    ``max_seq``."""
+    return min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+
+
+def cache_desc(cfg: ModelConfig, layers: int, batch: int, max_seq: int) -> dict:
+    """The KV cache: ``k`` and ``v``, each (layers, batch, span, hkv, hd)
+    zeros in the model dtype.  The reference's sharding axes have no
+    meaning on one device and are dropped."""
+    shape = (layers, batch, cache_span(cfg, max_seq), hkv_of(cfg),
+             cfg.head_dim)
+    return {"k": ParamDesc(shape, cfg.dtype, "zeros"),
+            "v": ParamDesc(shape, cfg.dtype, "zeros")}
+
+
+def decode_attention(p: dict, x: Tensor, cache_k: Tensor, cache_v: Tensor,
+                     pos: int, cfg: ModelConfig, *, use_rope: bool = True,
+                     kv_override: Optional[tuple[Tensor, Tensor]] = None):
+    """Single-token decode.  x: (B, 1, d); cache_{k,v}: (B, span, hkv,
+    hd); pos: the current position, a host int.  Returns (out (B, 1, d),
+    cache_k, cache_v).
+
+    Self attention applies rope at ``pos`` to q and k and writes the new
+    k / v IN PLACE at ``pos % span`` for a windowed arch (a ring: once it
+    is full every slot is live, and rope went on before the write, so the
+    ring's order does not matter), else at ``pos``; it attends over the
+    slots up to the one written.  A position past a full cache raises
+    ``ValueError`` (the reference's scatter drops that write and attends
+    over the stale cache).  Cross attention (``kv_override``: (B, S_kv,
+    hkv, hd) k / v) reads the override, leaves the cache untouched and
+    masks nothing; it returns (out, None, None), as the reference does.
+
+    The q-head groups contract against the shared kv heads (q as (B, 1,
+    hkv, g, hd)): the repeated kv copy never forms; with hkv == hq this
+    is the plain form.  The logits are fp32 products of the model-dtype
+    operands, as in :func:`attention`.
+    """
+    b = x.shape[0]
+    hq, hkv = resolved_heads(cfg)
+    hd = cfg.head_dim
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(b, 1, hq, hd)
+    slot = None
+    if kv_override is not None:
+        ck, cv = kv_override
+    else:
+        span = cache_k.shape[1]
+        if not cfg.sliding_window and pos >= span:
+            raise ValueError(f"decode position {pos} is past the cache's "
+                             f"span {span}")
+        k, v = x @ p["wk"], x @ p["wv"]
+        if cfg.qkv_bias:
+            k, v = k + p["bk"], v + p["bv"]
+        k, v = k.reshape(b, 1, hkv, hd), v.reshape(b, 1, hkv, hd)
+        if use_rope:
+            positions = torch.full((1, 1), pos, device=x.device)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        slot = pos % span if cfg.sliding_window else pos
+        cache_k[:, slot].copy_(k[:, 0])
+        cache_v[:, slot].copy_(v[:, 0])
+        ck, cv = cache_k, cache_v
+        if pos >= span:              # a full ring: every slot is live
+            slot = None
+
+    g = hq // ck.shape[-2]
+    qg = q.reshape(b, 1, ck.shape[-2], g, hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          ck.float()) * hd ** -0.5
+    if slot is not None:
+        logits[..., slot + 1:] = NEG_INF
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv)
+    out = out.reshape(b, 1, hq * hd) @ p["wo"]
+    if kv_override is not None:
+        return out, None, None
+    return out, cache_k, cache_v

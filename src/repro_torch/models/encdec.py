@@ -8,8 +8,10 @@ computed from the encoder output, layer norms with biases, GELU MLPs,
 sinusoidal positions on both frames and tokens (no rope), and an untied
 head over the padded vocab.  Parameters are layer-stacked (L, ...) dicts
 keyed like the reference's tree.  ``cfg.remat`` is not read (the
-reference does not remat this family).  Cached decode comes later
-(ROADMAP queue 1, item 14).
+reference does not remat this family).  Cached decode keeps per-layer
+cross k / v of the encoder output beside the self-attention KV cache
+(:meth:`EncDecLM.prefill_cache`) and steps one token at a time
+(:meth:`EncDecLM.decode_step`), its position from :func:`_sinusoid_at`.
 """
 from __future__ import annotations
 
@@ -37,20 +39,12 @@ def _ln_desc(cfg: ModelConfig, layers: int, n: int) -> dict:
     return out
 
 
-def _decode_not_ported(*_args, **_kwargs):
-    raise NotImplementedError("whisper's cached decode is not ported yet "
-                              "(ROADMAP queue 1, item 14)")
-
-
 class EncDecLM:
     def __init__(self, cfg: ModelConfig):
         if cfg.family != "encdec":
             raise ValueError(f"EncDecLM runs the encdec family, not "
                              f"{cfg.family!r}")
         self.cfg = cfg
-
-    cache_descs = init_cache = prefill_cache = decode_step = \
-        staticmethod(_decode_not_ported)
 
     def param_descs(self) -> PyTree:
         cfg = self.cfg
@@ -147,3 +141,74 @@ class EncDecLM:
         ce = masked_ce(self.forward(params, batch), batch["labels"])
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                                   device=ce.device)}
+
+    # -- cached decode ------------------------------------------------------
+
+    def cache_descs(self, batch: int, max_seq: int) -> PyTree:
+        """The self-attention ``k`` / ``v`` (L, B, max_seq, hkv, hd) and the
+        cross ``cross_k`` / ``cross_v`` (L, B, encoder_seq, hkv, hd), all
+        zeros in the model dtype."""
+        cfg = self.cfg
+        cross = ParamDesc((cfg.num_layers, batch, cfg.encoder_seq,
+                           attention.hkv_of(cfg), cfg.head_dim), cfg.dtype,
+                          "zeros")
+        return {**attention.cache_desc(cfg, cfg.num_layers, batch, max_seq),
+                "cross_k": cross, "cross_v": cross}
+
+    def init_cache(self, batch: int, max_seq: int,
+                   device: torch.device) -> PyTree:
+        """A zero cache, the cross k / v zeros too (what a serving engine
+        that never sees frames starts from); :meth:`prefill_cache` fills
+        them from the frames."""
+        return materialize(self.cache_descs(batch, max_seq), 0, device)
+
+    def prefill_cache(self, params, frames: Tensor, batch: int,
+                      max_seq: int) -> PyTree:
+        """Encode ``frames`` (B, encoder_seq, d) once; the cache's cross k /
+        v are the per-layer projections of the encoder output, its self
+        k / v zeros."""
+        cfg = self.cfg
+        with torch.inference_mode():
+            enc = self.encode(params, frames)
+            ck, cv = self._cross_kv(params, enc)
+            self_kv = materialize(
+                attention.cache_desc(cfg, cfg.num_layers, batch, max_seq), 0,
+                enc.device)
+        return {**self_kv, "cross_k": ck, "cross_v": cv}
+
+    def decode_step(self, params, cache: PyTree, tokens: Tensor, pos: int
+                    ) -> tuple[Tensor, PyTree]:
+        """One decode step.  tokens: (B, 1) ints; pos: a host int.  Returns
+        (logits (B, 1, padded vocab) fp32, cache), the self k / v written
+        IN PLACE (the cross pair is only read); runs under
+        ``torch.inference_mode()``."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        with torch.inference_mode():
+            x = self._embed_tokens(params, tokens)
+            x = x + _sinusoid_at(pos, cfg.d_model, x.device).to(x.dtype)
+            for p, ck, cv, xk, xv in zip(
+                    layer_views(params["decoder"]), cache["k"].unbind(0),
+                    cache["v"].unbind(0), cache["cross_k"].unbind(0),
+                    cache["cross_v"].unbind(0)):
+                a, _, _ = attention.decode_attention(
+                    p["self_attn"], layer_norm(x, p["ln0_g"], p["ln0_b"], eps),
+                    ck, cv, pos, cfg, use_rope=False)
+                x = x + a
+                c, _, _ = attention.decode_attention(
+                    p["cross_attn"], layer_norm(x, p["ln1_g"], p["ln1_b"], eps),
+                    ck, cv, pos, cfg, kv_override=(xk, xv))
+                x = x + c
+                x = x + mlp.gelu_mlp(
+                    p["mlp"], layer_norm(x, p["ln2_g"], p["ln2_b"], eps))
+            return self._logits(params, x), cache
+
+
+def _sinusoid_at(pos: int, dim: int, device: torch.device) -> Tensor:
+    """The (1, 1, dim) sin | cos position at ``pos``, computed in fp32
+    (``pos / 10000^(2i / dim)``), as the reference's decode computes it
+    (its forward's table is float64 numpy: :func:`sinusoidal_positions`)."""
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)
+    angle = torch.full((), float(pos), dtype=torch.float32, device=device) / \
+        torch.pow(10000.0, 2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)])[None, None, :]

@@ -15,8 +15,13 @@ hybrid (zamba2) runs its Mamba2 layers in groups of ``attn_every``, each
 group followed by the one shared attention + SwiGLU block (one set of
 leaves, its gradient summed over the groups); ``remat`` wraps the Mamba2
 block and the shared block separately.  The encoder-decoder family is
-:class:`repro_torch.models.encdec.EncDecLM`; cached decode comes later
-(ROADMAP queue 1, item 14).
+:class:`repro_torch.models.encdec.EncDecLM`.
+
+Cached decode (:meth:`DecoderLM.decode_step`) steps one token through
+every layer against a stacked cache (:meth:`DecoderLM.init_cache`): the
+KV cache for dense / moe / vlm, the RWKV state and token shifts for ssm,
+the Mamba2 state and conv window plus one KV slot per shared-block group
+for hybrid.  The cache is updated in place.
 """
 from __future__ import annotations
 
@@ -178,3 +183,83 @@ class DecoderLM:
             x = x[:, cfg.num_patches:]          # text positions only
         ce = masked_ce(self._logits(params, x), batch["labels"])
         return ce + aux, {"ce": ce, "aux": aux}
+
+    # -- decode -------------------------------------------------------------
+
+    def cache_descs(self, batch: int, max_seq: int) -> PyTree:
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return rwkv.rwkv_cache_desc(cfg, cfg.num_layers, batch)
+        if cfg.family == "hybrid":
+            groups = cfg.num_layers // cfg.attn_every
+            return {"ssm": ssm.ssm_cache_desc(cfg, cfg.num_layers, batch),
+                    "attn": attention.cache_desc(cfg, groups, batch, max_seq)}
+        return attention.cache_desc(cfg, cfg.num_layers, batch, max_seq)
+
+    def init_cache(self, batch: int, max_seq: int,
+                   device: torch.device) -> PyTree:
+        """A zero cache for ``batch`` rows of up to ``max_seq`` positions."""
+        return materialize(self.cache_descs(batch, max_seq), 0, device)
+
+    def decode_step(self, params, cache: PyTree, tokens: Tensor, pos: int
+                    ) -> tuple[Tensor, PyTree]:
+        """One decode step.  tokens: (B, 1) ints; pos: the position, a host
+        int.  Returns (logits (B, 1, padded vocab) fp32, cache).
+
+        The cache is written IN PLACE and returned as the same dict (the
+        reference returns a new cache): a caller that needs the old one
+        clones it first.  Runs under ``torch.inference_mode()``.  A VLM
+        embeds tokens only, as the reference's decode does.  MoE runs
+        :func:`repro_torch.models.moe.moe_block` on the (B, 1, d) slice:
+        capacity ``int(cf * k / e) + 1`` per batch row, which one token
+        never overflows."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        with torch.inference_mode():
+            x = params["embed"][tokens.long()]
+            layers = layer_views(params["blocks"])
+            if cfg.family == "ssm":
+                for p, st, tsh, csh in zip(layers, cache["state"].unbind(0),
+                                           cache["tshift"].unbind(0),
+                                           cache["cshift"].unbind(0)):
+                    y, st2, tsh2 = rwkv.time_mix_decode(
+                        p["rwkv"], rms_norm(x, p["ln0"], eps), st, tsh, cfg)
+                    x = x + y
+                    y, csh2 = rwkv.channel_mix_decode(
+                        p["rwkv"], rms_norm(x, p["ln1"], eps), csh, cfg)
+                    x = x + y
+                    st.copy_(st2)
+                    tsh.copy_(tsh2)
+                    csh.copy_(csh2)
+            elif cfg.family == "hybrid":
+                shared, every = params["shared"], cfg.attn_every
+                sc, ac = cache["ssm"], cache["attn"]
+                ks, vs = ac["k"].unbind(0), ac["v"].unbind(0)
+                for i, (p, st, cv) in enumerate(zip(
+                        layers, sc["state"].unbind(0), sc["conv"].unbind(0))):
+                    y, st2, cv2 = ssm.ssm_decode_step(
+                        p["ssm"], rms_norm(x, p["ln0"], eps), st, cv, cfg)
+                    x = x + y
+                    st.copy_(st2)
+                    cv.copy_(cv2)
+                    if (i + 1) % every == 0:
+                        grp = i // every
+                        a, _, _ = attention.decode_attention(
+                            shared["attn"], rms_norm(x, shared["ln0"], eps),
+                            ks[grp], vs[grp], pos, cfg)
+                        x = x + a
+                        x = x + mlp.swiglu(shared["mlp"],
+                                           rms_norm(x, shared["ln1"], eps))
+            else:
+                for p, ck, cv in zip(layers, cache["k"].unbind(0),
+                                     cache["v"].unbind(0)):
+                    a, _, _ = attention.decode_attention(
+                        p["attn"], rms_norm(x, p["ln0"], eps), ck, cv, pos, cfg)
+                    x = x + a
+                    h = rms_norm(x, p["ln1"], eps)
+                    if cfg.family == "moe":
+                        f, _ = moe.moe_block(p["moe"], h, cfg)
+                    else:
+                        f = mlp.swiglu(p["mlp"], h)
+                    x = x + f
+            return self._logits(params, x), cache

@@ -5,11 +5,16 @@ Counterpart of ``repro.models.rwkv``'s training path (arXiv:2404.05892,
 with the reference's simplifications: static per-channel lerp
 coefficients and one low-rank data-dependent decay projection).  The
 recurrence, diag(w_t) state decay with the u-bonus on the current token,
-is :func:`repro_torch.models.linear_scan.gla_chunked`.  Mesh head padding
-waits for the multi-device port (ROADMAP queue 1, item 13); the cached
-decode (``rwkv_cache_desc``, ``*_decode``) for ROADMAP queue 1, item 14.
+is :func:`repro_torch.models.linear_scan.gla_chunked`; the cached decode
+(:func:`time_mix_decode`, :func:`channel_mix_decode`) steps it one token
+at a time with :func:`repro_torch.models.linear_scan.gla_decode_step`,
+carrying the fp32 state and the two token shifts
+(:func:`rwkv_cache_desc`).  Mesh head padding waits for the multi-device
+port (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -54,9 +59,12 @@ def rwkv_params(cfg: ModelConfig, layers: int) -> dict:
     }
 
 
-def _token_shift(x: Tensor) -> Tensor:
-    """The x_{t-1} stream (zeros before the first token)."""
-    return F.pad(x, (0, 0, 1, 0))[:, : x.shape[1]]
+def _token_shift(x: Tensor, prev: Optional[Tensor] = None) -> Tensor:
+    """The x_{t-1} stream (zeros before the first token); ``prev`` (B, d)
+    supplies decode's carry."""
+    if prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, : x.shape[1]]
+    return prev[:, None]
 
 
 def _streams(p: dict, x: Tensor, shifted: Tensor):
@@ -94,3 +102,50 @@ def channel_mix(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     xr = x + (shifted - x) * cm[1]
     k = torch.square(F.relu(xk @ p["ck"]))
     return (k @ p["cv"]) * torch.sigmoid(xr @ p["cr"])
+
+
+# ---------------------------------------------------------------------------
+# Decode.
+# ---------------------------------------------------------------------------
+
+def rwkv_cache_desc(cfg: ModelConfig, layers: int, batch: int) -> dict:
+    """``state`` (L, B, H, hd, hd), ``tshift`` and ``cshift`` (L, B, d),
+    all fp32 zeros."""
+    h, hd, _ = _dims(cfg)
+    d = cfg.d_model
+    return {
+        "state": ParamDesc((layers, batch, h, hd, hd), torch.float32, "zeros"),
+        "tshift": ParamDesc((layers, batch, d), torch.float32, "zeros"),
+        "cshift": ParamDesc((layers, batch, d), torch.float32, "zeros"),
+    }
+
+
+def time_mix_decode(p: dict, x: Tensor, state: Tensor, tshift: Tensor,
+                    cfg: ModelConfig):
+    """x: (B, 1, d); state: (B, H, hd, hd); tshift: (B, d).  Returns
+    (out (B, 1, d), new state, the new shift ``x[:, 0]`` in fp32)."""
+    b = x.shape[0]
+    h, hd, inner = _dims(cfg)
+    xr, xk, xv, xw, xg = _streams(p, x, _token_shift(x, tshift.to(x.dtype)))
+    r = (xr @ p["wr"]).reshape(b, h, hd)
+    k = (xk @ p["wk"]).reshape(b, h, hd)
+    v = (xv @ p["wv"]).reshape(b, h, hd)
+    g = F.silu(xg @ p["wg"])[:, 0]
+    w = _log_decay(p, xw).reshape(b, h, hd)
+
+    y, new_state = linear_scan.gla_decode_step(state, r, k, v, w, u=p["u"])
+    y = y.reshape(b, inner).to(x.dtype)
+    y = rms_norm(y, p["ln_g"], cfg.norm_eps) * g
+    return (y @ p["wo"])[:, None], new_state, x[:, 0].float()
+
+
+def channel_mix_decode(p: dict, x: Tensor, cshift: Tensor, cfg: ModelConfig):
+    """x: (B, 1, d); cshift: (B, d).  Returns (out (B, 1, d), the new
+    shift ``x[:, 0]`` in fp32)."""
+    shifted = _token_shift(x, cshift.to(x.dtype))
+    cm = p["cmix"]
+    xk = x + (shifted - x) * cm[0]
+    xr = x + (shifted - x) * cm[1]
+    k = torch.square(F.relu(xk @ p["ck"]))
+    out = (k @ p["cv"]) * torch.sigmoid(xr @ p["cr"])
+    return out, x[:, 0].float()

@@ -5,10 +5,11 @@ simplifications: one B / C group, a causal depthwise short conv (kernel
 CONV_K = 4) over the concatenated (x, B, C) stream written as shifted
 adds in the reference's order, and the chunked scan of
 :mod:`repro_torch.models.linear_scan` with a per-head scalar decay.
-d_inner = expand * d_model = H * P, state size N.  Mesh head padding
-waits for the multi-device port (ROADMAP queue 1, item 13); the cached
-decode (``ssm_cache_desc``, ``ssm_decode_step``) for ROADMAP queue 1,
-item 14.
+d_inner = expand * d_model = H * P, state size N.  The cached decode
+(:func:`ssm_decode_step`) carries the fp32 (H, N, P) state and the conv's
+last CONV_K - 1 inputs (:func:`ssm_cache_desc`), and steps the scan with
+:func:`repro_torch.models.linear_scan.gla_decode_step`.  Mesh head
+padding waits for the multi-device port (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -93,3 +94,49 @@ def ssm_block(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     y = y.reshape(b, s, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
     return y @ p["out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# Decode (stateful single token).
+# ---------------------------------------------------------------------------
+
+def ssm_cache_desc(cfg: ModelConfig, layers: int, batch: int) -> dict:
+    """``state`` (L, B, H, N, P) and ``conv`` (L, B, CONV_K - 1,
+    conv_dim), both fp32 zeros."""
+    h, pp, n, d_inner = _dims(cfg)
+    return {
+        "state": ParamDesc((layers, batch, h, n, pp), torch.float32, "zeros"),
+        "conv": ParamDesc((layers, batch, CONV_K - 1, d_inner + 2 * n),
+                          torch.float32, "zeros"),
+    }
+
+
+def ssm_decode_step(p: dict, x: Tensor, state: Tensor, conv_state: Tensor,
+                    cfg: ModelConfig):
+    """x: (B, 1, d); state: (B, H, N, P); conv_state: (B, CONV_K - 1,
+    conv_dim).  Returns (out (B, 1, d), new state, new conv state).
+
+    The conv window is the fp32 carry joined with this token's input
+    (``torch.cat`` promotes to fp32, as the reference's concatenate
+    does), reduced as ``(window * conv_w).sum(1) + conv_b``."""
+    b = x.shape[0]
+    h, pp, n, d_inner = _dims(cfg)
+    z, xin, bmat, cmat, dt = _project(p, x, cfg)
+
+    conv_in = torch.cat([xin, bmat, cmat], dim=-1)[:, 0]        # (B, C)
+    window = torch.cat([conv_state, conv_in[:, None]], dim=1)
+    conv_out = F.silu((window * p["conv_w"][None]).sum(dim=1) + p["conv_b"])
+    new_conv_state = window[:, 1:]
+    xin_c, bmat_c, cmat_c = torch.split(conv_out, [d_inner, n, n], dim=-1)
+
+    log_decay, dtv = _decays(p, dt[:, 0])        # (B, H)
+    v = (xin_c.reshape(b, h, pp) * dtv[..., None]).float()
+    k = bmat_c[:, None, :].expand(b, h, n)
+    q = cmat_c[:, None, :].expand(b, h, n)
+    w = log_decay[..., None].expand(b, h, n)
+
+    y, new_state = linear_scan.gla_decode_step(state, q, k, v, w)
+    y = y + p["d_skip"][None, :, None] * xin_c.reshape(b, h, pp)
+    y = y.reshape(b, 1, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
+    return y @ p["out_proj"], new_state, new_conv_state

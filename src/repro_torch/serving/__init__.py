@@ -1,6 +1,8 @@
-"""Serving (counterpart of ``repro.serving``): the continuous fleet
-service.  ``ServeEngine`` / ``greedy_decode`` wait for ROADMAP queue 1,
-item 14."""
-from repro_torch.serving.engine import FleetService, JobHandle
+"""Serving (counterpart of ``repro.serving``): the static-batch decode
+engine (``ServeEngine``, ``greedy_decode``) and the continuous fleet
+service."""
+from repro_torch.serving.engine import (
+    FleetService, JobHandle, ServeEngine, greedy_decode,
+)
 
-__all__ = ["FleetService", "JobHandle"]
+__all__ = ["FleetService", "JobHandle", "ServeEngine", "greedy_decode"]

@@ -1,13 +1,22 @@
-"""The continuous fleet service: a stream of federated scenario jobs over
-the lane-batched fleet (counterpart of ``repro.serving.engine``'s
-``FleetService``; ``ServeEngine`` / ``greedy_decode`` wait for ROADMAP
-queue 1, item 14).
+"""Batched serving (counterpart of ``repro.serving.engine``): the decode
+engine and the continuous fleet service.
 
-``submit()`` returns a :class:`JobHandle`; each :meth:`FleetService.step`
-runs every occupied shape bucket (:class:`repro_torch.fleet.
-ContinuousBucket`) forward by one segment, and at the boundaries jobs
-are admitted into free lane slots (deadline order), finished or cancelled
-lanes are evicted and their slots backfilled.  ``options.taps`` and
+:class:`ServeEngine` is static-batch prefill + greedy decode over the
+model zoo's cache API (``init_cache`` / ``decode_step``, every family).
+Its prefill is the per-token ``decode_step`` loop the reference scans:
+torch has no scan to compile, so :meth:`ServeEngine.prefill` and the
+oracle :meth:`ServeEngine.prefill_loop` run the same steps, and
+``prefill`` adds the reference's ``serve.prefill`` span.  The reference's
+``serve.prefill_trace`` event marks a JAX trace and has no torch meaning,
+so it is not emitted.  Decode writes the cache in place.
+
+:class:`FleetService` streams federated scenario jobs over the
+lane-batched fleet.  ``submit()`` returns a :class:`JobHandle`; each
+:meth:`FleetService.step` runs every occupied shape bucket
+(:class:`repro_torch.fleet.ContinuousBucket`) forward by one segment,
+and at the boundaries jobs are admitted into free lane slots (deadline
+order), finished or cancelled lanes are evicted and their slots
+backfilled.  ``options.taps`` and
 ``options.backend`` apply to every submitted job's config.  With
 ``options.checkpoint`` every boundary is snapshotted and
 :meth:`FleetService.restore` rebuilds the service after a kill.
@@ -16,6 +25,7 @@ Entry points run on CUDA unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional, Union
 
 import numpy as np
@@ -36,6 +46,85 @@ from repro_torch.resilience import (
 )
 from repro_torch.rounds import RoundOptions, resolve_options
 from repro_torch.tree import tree_leaves, tree_structure, tree_unflatten
+
+PyTree = Any
+
+
+@dataclasses.dataclass
+class ServeEngine:
+    """Static-batch greedy serving of one model's params: ``batch_size``
+    rows of up to ``max_seq`` positions.  Runs where the params live."""
+    model: Any
+    params: PyTree
+    batch_size: int
+    max_seq: int
+
+    @property
+    def device(self) -> torch.device:
+        return tree_leaves(self.params)[0].device
+
+    def init_cache(self) -> PyTree:
+        """A zero cache (an encoder-decoder's cross k / v zeros too: the
+        engine never sees frames; serve those from the model's
+        ``prefill_cache`` through ``generate(cache=...)``)."""
+        return self.model.init_cache(self.batch_size, self.max_seq,
+                                     self.device)
+
+    def prefill_loop(self, cache: PyTree, prompts
+                     ) -> tuple[PyTree, Optional[torch.Tensor], int]:
+        """Teacher-forced prefill, one ``decode_step`` per prompt token.
+        prompts: (B, P).  Returns (cache, the last step's (B, 1, V)
+        logits, P); the cache is updated in place."""
+        toks = torch.as_tensor(prompts, device=self.device).long()
+        logits = None
+        for t in range(toks.shape[1]):
+            logits, cache = self.model.decode_step(self.params, cache,
+                                                   toks[:, t:t + 1], t)
+        return cache, logits, toks.shape[1]
+
+    def prefill(self, cache: PyTree, prompts
+                ) -> tuple[PyTree, Optional[torch.Tensor], int]:
+        """:meth:`prefill_loop` inside the ``serve.prefill`` span (a host
+        span: it ends when the steps are queued, not run)."""
+        p = int(prompts.shape[1])
+        if p == 0:
+            return cache, None, 0
+        with obs_runtime.span("serve.prefill", batch=int(prompts.shape[0]),
+                              prompt=p):
+            return self.prefill_loop(cache, prompts)
+
+    def generate(self, prompts, max_new: int = 32,
+                 cache: Optional[PyTree] = None) -> np.ndarray:
+        """Greedy decode: the argmax of the prefill's last logits, then
+        ``max_new - 1`` more steps, each feeding its argmax back (the first
+        maximum, as ``jnp.argmax``; ids from the padded vocab's columns are
+        kept, as the reference keeps them).  ``cache`` defaults to
+        :meth:`init_cache`.  Returns the tokens as an int32 (B, max_new)
+        array, moved to the host once at the end.  Always greedy: the
+        reference's ``greedy``, ``key`` and ``eos_id`` are unused there and
+        not taken here."""
+        with torch.inference_mode():
+            cache = self.init_cache() if cache is None else cache
+            cache, logits, p = self.prefill(cache, prompts)
+            cur = torch.argmax(logits[:, -1:], dim=-1)
+            toks = [cur]
+            for i in range(max_new - 1):
+                logits, cache = self.model.decode_step(self.params, cache,
+                                                       cur, p + i)
+                cur = torch.argmax(logits[:, -1:], dim=-1)
+                toks.append(cur)
+            return torch.cat(toks, dim=1).to(torch.int32).cpu().numpy()
+
+
+def greedy_decode(model, params, prompts, max_new: int = 32,
+                  max_seq: Optional[int] = None) -> np.ndarray:
+    """One-shot greedy decode of (B, P) prompts; ``max_seq`` defaults to
+    P + max_new."""
+    b, p = int(prompts.shape[0]), int(prompts.shape[1])
+    eng = ServeEngine(model, params, batch_size=b,
+                      max_seq=max_seq or (p + max_new))
+    return eng.generate(prompts, max_new=max_new)
+
 
 #: What a service snapshot is checked against on restore.  ``package``
 #: keeps the reference's snapshots (another state layout) out.

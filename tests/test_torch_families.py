@@ -406,8 +406,25 @@ def test_lm_batch_adds_zero_frames_for_encdec():
     assert "frames" not in lm_batch(seq, t_reduced("rwkv6-3b"), 16)
 
 
-def test_encdec_decode_waits_for_item_14():
-    model = EncDecLM(t_reduced("whisper-base"))
-    for name in ("cache_descs", "init_cache", "prefill_cache", "decode_step"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            getattr(model, name)(None, None)
+def test_encdec_decode_matches_reference():
+    """Whisper's cached decode from ``prefill_cache`` on seeded frames: 12
+    steps, the logits and the self k / v at every step, and the cross k /
+    v (read, never written) against the reference's."""
+    cfg, jmodel, tmodel, params = _setup("whisper-base")
+    assert isinstance(tmodel, EncDecLM)
+    tparams = params_from_numpy(params, CPU)
+    frames = _batch(cfg)["frames"]
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, 12)).astype(np.int32)
+    jc = jmodel.prefill_cache(params, jnp.asarray(frames), B, 12)
+    tc = tmodel.prefill_cache(tparams, torch.from_numpy(frames), B, 12)
+    cross = tc["cross_k"].clone()
+    step = jax.jit(jmodel.decode_step)
+    for t in range(12):
+        jl, jc = step(params, jc, jnp.asarray(tokens[:, t:t + 1]), jnp.int32(t))
+        tl, tc = tmodel.decode_step(tparams, tc,
+                                    torch.from_numpy(tokens[:, t:t + 1]), t)
+        _close(tl, jl, f"step {t} logits")
+        for key in ("cross_k", "cross_v", "k", "v"):
+            _close(tc[key], jc[key], f"step {t} {key}")
+    assert torch.equal(tc["cross_k"], cross)

@@ -31,8 +31,10 @@ import repro_torch.robustness.breakdown
 import repro_torch.models.moe, repro_torch.launch.launch_config
 import repro_torch.models.encdec, repro_torch.models.linear_scan
 import repro_torch.models.rwkv, repro_torch.models.ssm
+import repro_torch.models.attention, repro_torch.models.lm
+import repro_torch.launch.roofline, repro_torch.launch.serve
 from repro_torch.core import apply_attack, nnm_direct, theory
-from repro_torch.launch import breakdown, grid, scenarios, service, train
+from repro_torch.launch import breakdown, grid, scenarios, serve, service, train
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
                   "--byz", "1", "--seq", "8", "--batch", "1"])
 assert out["history"]["loss"], out
@@ -47,6 +49,10 @@ for arch in ("mixtral-8x22b", "internvl2-2b", "rwkv6-3b", "zamba2-2.7b",
                       "--byz", "1", "--seq", "16", "--batch", "1",
                       "--arch", arch])
     assert out["history"]["loss"], out
+for arch in ("qwen2-7b", "rwkv6-3b", "zamba2-2.7b", "whisper-base"):
+    out = serve.main(["--device", "cpu", "--arch", arch, "--batch", "2",
+                      "--prompt", "3", "--max-new", "3"])
+    assert out["tokens"].shape == (2, 3), out
 out = breakdown.main(["--device", "cpu", "--n", "4", "--rounds", "1"])
 assert out["n_buckets"] == 10, out
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
@@ -95,7 +101,10 @@ def test_no_source_file_names_jax_or_repro():
                 "serving/__init__.py", "serving/engine.py",
                 "launch/service.py", "robustness/breakdown.py",
                 "launch/breakdown.py", "core/theory.py", "core/nnm.py",
-                "models/moe.py", "launch/launch_config.py"):
+                "models/moe.py", "launch/launch_config.py",
+                "models/attention.py", "models/lm.py", "models/rwkv.py",
+                "models/ssm.py", "models/encdec.py", "launch/serve.py",
+                "launch/roofline.py"):
         assert PKG / mod in files, mod
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]
@@ -138,6 +147,9 @@ def test_entry_point_without_cpu_request_raises_without_gpu(monkeypatch):
         FleetService()
     with pytest.raises(RuntimeError, match="no GPU"):
         service.main(["--rounds", "1"])
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no GPU"):
+        serve.main(["--max-new", "2"])
     from repro_torch.launch import breakdown
     from repro_torch.robustness import run_breakdown
     with pytest.raises(RuntimeError, match="no GPU"):
