@@ -195,7 +195,10 @@ Phases, each fatal on failure:
      lanes of a quadratic job at D = 2^24 (17 clients, f = 4, hier s = 3,
      NNM + CWTM, 3 rounds): launches, solo runs, two lanes on the torch
      backend, peak memory; (c) four hierarchical lanes through
-     FleetService, restored after a mid-run snapshot, bit for bit;
+     FleetService, restored after a mid-run snapshot, bit for bit; (d)
+     K3 lanes against torch.bmm(c[:, None], x) at (8, 17, 2^24) and the
+     grid's (5, 17 / 9, 2842), in turns, the median of 7 with the
+     min-max;
  19. the attention-free and encoder-decoder families at their published
      widths, as phase 17 (ALIE, NNM + CWTM, D-SHB, batch 4, seeded
      weights, each step exactly one K1 and one K2 and no fallback, finite
@@ -230,14 +233,45 @@ Phases, each fatal on failure:
      fallback; then in fp32 (TF32 off) smollm-360m, rwkv6-3b and
      zamba2-2.7b at full depth and mixtral-8x22b at 1 layer, within 1e-4
      of max |forward|;
- 21. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 21. the multi-device aggregation backends (``launch.mesh``,
+     ``kernels/shard.py``) in worlds of processes that share the card over
+     gloo (``launch.mesh.spawn_world``; NCCL refuses two ranks on one
+     GPU), each world under a time limit that kills it, any rank's
+     failure failing the phase, every rank's fallback log empty: (a)
+     "cuda_sharded" at the dense shape (n = 8, f = 2, D = 361,821,120
+     fp32) over 2 ranks, each regenerating its column block from a seed
+     per chunk (``seeded_block``) and aggregating it through
+     ``robust_aggregate_block``: NNM + CWTM, CWTM and NNM + GM against the
+     single-device kernel path run first (its outputs on the disk, the
+     card freed) — the coordinate rules bit for bit where the NNM matrix
+     is equal, NNM + GM within 1e-5, the all-reduced Gram within 1e-5 of
+     max |G| (the summation-order bound of tests/test_torch_cuda.py is
+     vacuous at this D: D u = 21.6 > 1) — each rank's K1 /
+     K2 / K3 launches asserted, its peak below the 11.58 GB of the whole
+     stack, each collective timed; then the lane forms at (8, 17, 2^24)
+     through ``batched_robust_aggregate`` (K5 + K4, K5 + K3 lanes); (b)
+     "cuda_hier" on a 2 x 2 ("workers", "model") mesh at phase 6's scale
+     case (n = 10240, s = 16, f = 320, D = 2^20; phase 6's stack is
+     ``seeded_block``'s, so each rank regenerates its (5120, 2^19) tile):
+     K7 per tile, the partial means all-reduced over "workers", K1 on the
+     means, K2; hier + NNM + CWTM held to phase 6's aggregate under its
+     near-tie rule, hier + CWTM within 1e-5; (c) the trainer: full-width
+     smollm-360m D-SHB, ALIE, through ``train_loop`` with ``worker_axes``
+     on 2 ranks, NNM + CWTM on "cuda_sharded" (n = 8, f = 2, 3 steps) and
+     hier + NNM + CWTM on 1-D "cuda_hier" (n = 16, f = 3, 8 buckets of 2,
+     16 of 32 layers, 2 steps), each against the single-device run from
+     the same seeded weights, run first: parameters within 1e-5 of the
+     tree's largest magnitude, the loss within 1e-5, both ranks' copies
+     equal bit for bit; ms per step and each rank's peak;
+ 22. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6; the
      lane forms of K2's median, K3, K6 and K7 on rows of their own), the
-     fed phase's launches, phase 13's to 19's launches, the kernels JSON
-     line (K1, K2, K4 and K5 launches include phase 13's; K2-K5 phase
-     14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and K2 phase 17's and
-     19's; the lane forms and K4 / K5 phase 18's), the card line, and
-     last the {"ok": true, ...} line.
+     fed phase's launches, phase 13's to 19's and 21's launches, the
+     kernels JSON line (K1, K2, K4 and K5 launches include phase 13's;
+     K2-K5 phase 14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and K2
+     phase 17's and 19's; the lane forms and K4 / K5 phase 18's; K1-K7
+     phase 21's, summed over its ranks), the card line, and last the
+     {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -256,6 +290,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -1219,7 +1254,7 @@ def _hier_parity(dev, d: int, seed: int, ties: bool) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_hier_aggregate(dev, rate: float) -> dict:
+def phase_hier_aggregate(dev, rate: float, ref_dir: str) -> dict:
     """robust_aggregate(hier, s = 16) at the reference's scale case,
     n = 10240 workers (640 bucket means): hier + NNM + CWTM (K6 with K1 on
     the means, then K2 with the mix at n = 640) and hier + CWTM (K7, then
@@ -1230,7 +1265,10 @@ def phase_hier_aggregate(dev, rate: float) -> dict:
     with its peak memory; then each kernel of the two at the aggregate's
     own inputs, held to its plain version and timed by CUDA events.
     Returns K2's rows (the n = 640 mix and no mix) and K1's on the means,
-    and each one's launches in the aggregates."""
+    and each one's launches in the aggregates.  The D = HIER_D stack is
+    ``seeded_block``'s (seed 3), so phase 21b's ranks regenerate their
+    tiles of it; its aggregates, the permutation, the Gram of the means
+    and the NNM matrix go to ``ref_dir`` for 21b."""
     import torch
     from repro_torch.core import bucketing as bucketlib
     from repro_torch.core import gram as gramlib
@@ -1244,10 +1282,9 @@ def phase_hier_aggregate(dev, rate: float) -> dict:
     _hier_parity(dev, HIER_D_PARITY, 2, ties=True)
 
     n, d, f = HIER_N, HIER_D, HIER_N // 32
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(3)
-    tree = {"x": torch.randn((n, d), generator=gen, device=dev)}
+    tree = {"x": seeded_block(3, (0, n), (0, d), dev, HIER_SEED_ROWS)}
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(7))
+    _save(ref_dir, "perm", perm)
     log(f"-- n={n} D={d} fp32 stack: {4 * n * d / 1e9:.1f} GB")
     launches, gram_launches = {}, 0
     for name, (spec, expect) in _hier_specs(f).items():
@@ -1272,6 +1309,7 @@ def phase_hier_aggregate(dev, rate: float) -> dict:
                 raise AssertionError(f"{name}: non-finite aggregate")
             if run == 0:
                 log(rec.describe())
+                _save(ref_dir, name, out)
             launches[name] += counts["mixtrim"]
             if spec["pre"] == "nnm":
                 gram_launches += counts["gram"]
@@ -1321,6 +1359,8 @@ def phase_hier_aggregate(dev, rate: float) -> dict:
     log(f"  K1 on the means: {lib / ms:.2f}x faster than torch.mm(y, y.T) OK")
     del g1
     m = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), fb)
+    _save(ref_dir, "gram", g)
+    _save(ref_dir, "m", m)
     for mm in (m, None):
         tag = "mix" if mm is not None else "no-mix"
         plain = chunked(lambda s_: mixtrim_ref(y[:, s_], mm, fb, "trim"), d, nb)
@@ -3920,6 +3960,60 @@ def phase_hier_service(dev) -> dict:
     return counts
 
 
+def time_samples(fn, calls: int, reps: int = REPS) -> list:
+    """``reps`` samples of ms per call, each CUDA events around ``calls``
+    launches, after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(calls):
+            fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / calls)
+    return out
+
+
+#: 18d's shapes of K3 lanes: the fleet's kernel shape and the grid's.
+K3_SPREAD_SHAPES = (FLEET_BIG, FLEET_GRID, FLEET_GRID_BKT)
+
+
+def phase_k3_lanes_spread(dev) -> None:
+    """K3 lanes against ``torch.bmm(c[:, None], x)`` at each of
+    K3_SPREAD_SHAPES, in turns (K3 then bmm, then bmm then K3, ...): the
+    median of 7 samples with the min-max; K3 lanes "loses beyond the
+    spread" where its fastest sample is slower than bmm's slowest."""
+    import torch
+    from repro_torch.kernels import combine_lanes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    for b, n, d in K3_SPREAD_SHAPES:
+        x = torch.randn((b, n, d), generator=gen, device=dev)
+        c = torch.softmax(torch.randn((b, n), generator=gen, device=dev), -1)
+        agree(f"K3 lanes vs torch.bmm ({b}, {n}, {d})", combine_lanes(x, c),
+              torch.bmm(c[:, None], x)[:, 0])
+        calls = 1 if d > 1 << 20 else 200
+        k3, mm = [], []
+        fns = ((k3, lambda: combine_lanes(x, c)),
+               (mm, lambda: torch.bmm(c[:, None], x)))
+        for i in range(REPS):
+            for out, fn in (fns if i % 2 == 0 else fns[::-1]):
+                out += time_samples(fn, calls, 1)
+        verdict = ("K3 lanes loses beyond the spread" if min(k3) > max(mm)
+                   else "K3 lanes wins beyond the spread" if max(k3) < min(mm)
+                   else "the spreads overlap")
+        log(f"  18d K3 lanes ({b}, {n}, {d}): median {statistics.median(k3):.4f}"
+            f" ms (min {min(k3):.4f}, max {max(k3):.4f}); torch.bmm median "
+            f"{statistics.median(mm):.4f} ms (min {min(mm):.4f}, max "
+            f"{max(mm):.4f}); {verdict}")
+        del x, c
+    torch.cuda.empty_cache()
+
+
 def phase_hier(dev, rate: float) -> tuple[dict, dict]:
     """Phase 18; returns (kernels-line rows, launches of 18b-c)."""
     t0 = time.perf_counter()
@@ -3935,6 +4029,10 @@ def phase_hier(dev, rate: float) -> tuple[dict, dict]:
         "restore")
     add_counts(total, phase_hier_service(dev))
     secs["18c"] = time.perf_counter() - t0 - sum(secs.values())
+    log("-- 18d. K3 lanes against torch.bmm(c[:, None], x): median of 7 "
+        "with the min-max")
+    phase_k3_lanes_spread(dev)
+    secs["18d"] = time.perf_counter() - t0 - sum(secs.values())
     log(f"  seconds: { {k: round(v, 1) for k, v in secs.items()} }")
     idle = [k for k in ("bucketgram_lanes", "bucketmeans_lanes",
                         "mixtrim_lanes", "combine_lanes") if not total.get(k)]
@@ -4291,6 +4389,604 @@ def phase_serve(dev, card: str) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the multi-device aggregation backends ("cuda_sharded" /
+# "cuda_hier", kernels/shard.py) in worlds of processes that share the card
+# over gloo (launch.mesh.spawn_world).
+# ---------------------------------------------------------------------------
+
+MESH_LIMIT = 600                # seconds a world may take in all
+MESH_SEED = 21                  # 21a's dense stack
+SEED_COLS = 1 << 18             # columns of one seeded chunk (seeded_block)
+HIER_SEED_ROWS = 1024           # ... and its rows at n = 10240 (phase 6, 21b)
+STACK_GB = 4.0 * N_MAIN * D_MAIN / 1e9   # 21a's whole stack: 11.58 GB
+#: 21a's dense cases at (N_MAIN, D_MAIN), F_MAIN, and each one's launches.
+MESH_DENSE = (("nnm+cwtm", dict(pre="nnm", rule="cwtm"),
+               dict(gram=1, mixtrim=1, combine=0)),
+              ("cwtm", dict(pre=None, rule="cwtm"),
+               dict(gram=0, mixtrim=1, combine=0)),
+              ("nnm+gm", dict(pre="nnm", rule="gm"),
+               dict(gram=1, mixtrim=0, combine=1)))
+#: 21a's lane cases at FLEET_BIG (f = 0..7 per lane): K5 + K4 / K3 lanes.
+MESH_LANES = (("lanes nnm+cwtm", dict(pre="nnm", rule="cwtm"),
+               dict(gram_batched=1, mixtrim_dyn=1, combine_lanes=0)),
+              ("lanes nnm+gm", dict(pre="nnm", rule="gm"),
+               dict(gram_batched=1, mixtrim_dyn=0, combine_lanes=1)))
+#: 21c: (name, layers, n, f, spec, steps, launches a step).
+MESH_TRAIN = (("nnm+cwtm", 32, N_MAIN, F_MAIN,
+               dict(pre="nnm", rule="cwtm"), 3,
+               dict(gram=1, mixtrim=1, bucketgram=0, bucketmeans=0)),
+              ("hier+nnm+cwtm", 16, N_HIER, F_HIER,
+               dict(pre="nnm", rule="cwtm", hier=True, bucket_size=2), 2,
+               dict(gram=0, mixtrim=1, bucketgram=1, bucketmeans=0)))
+MESH_KERNELS = ("gram", "mixtrim", "combine", "gram_batched", "mixtrim_dyn",
+                "combine_lanes", "bucketgram", "bucketmeans")
+
+
+def seeded_block(seed: int, rows: tuple, cols: tuple, dev, rb: int,
+                 cb: int = SEED_COLS):
+    """Rows [r0, r1) x columns [c0, c1) of a stack whose (rb, cb) chunk
+    (i, j) is ``torch.randn`` from a generator seeded with (seed, i, j):
+    any block regenerates alone, on any rank, equal to that block of the
+    whole."""
+    import torch
+    (r0, r1), (c0, c1) = rows, cols
+    out = torch.empty((r1 - r0, c1 - c0), dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    for i in range(r0 // rb, -(-r1 // rb)):
+        for j in range(c0 // cb, -(-c1 // cb)):
+            gen.manual_seed(seed * 1_000_003 + i * 100_003 + j)
+            chunk = torch.randn((rb, cb), generator=gen, device=dev)
+            a, b = max(r0, i * rb), min(r1, (i + 1) * rb)
+            c, e = max(c0, j * cb), min(c1, (j + 1) * cb)
+            out[a - r0:b - r0, c - c0:e - c0] = \
+                chunk[a - i * rb:b - i * rb, c - j * cb:e - j * cb]
+            del chunk
+    return out
+
+
+def collective_summary() -> dict:
+    """Each collective's count, bytes, transport and seconds since the
+    last reset (``launch.mesh.collective_log``)."""
+    from repro_torch.launch.mesh import collective_log
+    out: dict = {}
+    for c in collective_log():
+        key = f"{c['op']}/{c['axis']}/{c['transport']}"
+        row = out.setdefault(key, {"calls": 0, "bytes": 0, "s": 0.0})
+        row["calls"] += 1
+        row["bytes"] += c["bytes"]
+        row["s"] = round(row["s"] + c["seconds"], 4)
+    return out
+
+
+def _rank_setup(rank: int):
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    from repro_torch.kernels import _build
+    _build.library()
+    return dev
+
+
+def _counts(keys=MESH_KERNELS) -> dict:
+    from repro_torch.kernels import dispatch as kdispatch
+    c = kdispatch.launch_counts()
+    return {k: c[k] for k in keys}
+
+
+def _mesh_dense_rank(rank: int, world: int, tmp: str) -> dict:
+    """21a on one rank: its (n, D/k) block of the dense stack from the
+    seeds, each case through ``robust_aggregate_block`` ("cuda_sharded"),
+    held to the single-device run's outputs in ``tmp``; then the lane
+    cases through ``batched_robust_aggregate``."""
+    import numpy as np
+    import torch
+    dev = _rank_setup(rank)
+    from repro_torch.core import gram as gramlib
+    from repro_torch.core.robust import (batched_robust_aggregate,
+                                         robust_aggregate_block)
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import combine_lanes, mixtrim_dyn
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.kernels import shard as shardlib
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_mesh((world,), ("shard",))
+    sh = shardlib.ShardCtx(mesh, "shard")
+    c0, c1 = sh.cols(D_MAIN)
+    out = {"rank": rank, "cols": (c0, c1), "cases": {}}
+    kdispatch.reset_fallbacks()
+    with tmesh.use_mesh(mesh):
+        torch.cuda.reset_peak_memory_stats(dev)
+        block = seeded_block(MESH_SEED, (0, N_MAIN), (c0, c1), dev, N_MAIN)
+        # The all-reduced Gram against K1 on the whole stack, the diagonal
+        # and the off-diagonal entries each within 1e-5 of their own
+        # largest magnitude (the summation-order bound of
+        # tests/test_torch_cuda.py, 2 gamma_D |X| |X|^T, is vacuous at this
+        # D: D u = 21.6 > 1; and the off-diagonal entries, ~sqrt(D), are
+        # ~1e-4 of the diagonal's ~D, so one tolerance would not hold them).
+        g = shardlib.sharded_gram(block, mesh=mesh, axis="shard")
+        g1 = torch.from_numpy(np.load(f"{tmp}/gram.npy")).to(dev)
+        eye = torch.eye(N_MAIN, dtype=torch.bool, device=dev)
+        err = (g.double() - g1.double()).abs()
+        for part, sel in (("diag", eye), ("off", ~eye)):
+            out[f"gram_{part}_err"] = float(err[sel].max())
+            out[f"gram_{part}_tol"] = RTOL * float(g1[sel].abs().max())
+        out["gram_ok"] = all(out[f"gram_{p}_err"] <= out[f"gram_{p}_tol"]
+                             for p in ("diag", "off"))
+        for name, kw, expect in MESH_DENSE:
+            spec = AggregatorSpec(backend="cuda_sharded", f=F_MAIN, **kw)
+            robust_aggregate_block(block, spec, d=D_MAIN)      # warm-up
+            kdispatch.reset_launch_counts()
+            tmesh.reset_collective_log()
+            internals = {}
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            local = robust_aggregate_block(block, spec, d=D_MAIN,
+                                           internals=internals)
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = _counts(("gram", "mixtrim", "combine"))
+            full = sh.gather(local, D_MAIN).cpu()
+            want = torch.from_numpy(np.load(f"{tmp}/{name}.npy"))
+            row = {"ms": ms, "counts": counts, "expect": expect,
+                   "collectives": collective_summary(),
+                   "record": kdispatch.last_dispatch().describe()}
+            m = internals.get("mix_matrix")
+            if m is not None:
+                row["m_equal"] = bool(torch.equal(
+                    m.cpu(), torch.from_numpy(np.load(f"{tmp}/{name}_m.npy"))))
+            else:
+                row["m_equal"] = True
+            # The gather is exact; the slice against the single device's.
+            row["gathered"] = bool(torch.equal(full[c0:c1], local.cpu()))
+            row["bitwise"] = bool(torch.equal(full, want))
+            row["err"], row["tol"] = max_err(local, want[c0:c1].to(dev))
+            out["cases"][name] = row
+            del local, full, want
+        del block
+        torch.cuda.empty_cache()
+        out["peak_dense"] = torch.cuda.max_memory_allocated(dev)
+        # The lane forms on the mesh: every rank holds the whole (replicated)
+        # lane stack, as a fleet bucket does; the API takes its block.
+        b, n, d = FLEET_BIG
+        x = seeded_block(MESH_SEED + 1, (0, b * n), (0, d), dev,
+                         b * n).view(b, n, d)
+        fs = torch.arange(b, device=dev) % (n // 2)
+        for name, kw, expect in MESH_LANES:
+            spec = AggregatorSpec(backend="cuda_sharded", **kw)
+            batched_robust_aggregate({"x": x}, spec, fs)       # warm-up
+            kdispatch.reset_launch_counts()
+            tmesh.reset_collective_log()
+            internals = {}
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            got = batched_robust_aggregate({"x": x}, spec, fs,
+                                           internals=internals)["x"]
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            want = torch.from_numpy(np.load(f"{tmp}/{name}.npy")).to(dev)
+            m_s = internals["mix_matrix"]
+            m1 = torch.from_numpy(np.load(f"{tmp}/{name}_m.npy")).to(dev)
+            row = {"ms": ms, "counts": _counts(tuple(expect)),
+                   "expect": expect, "collectives": collective_summary(),
+                   "record": kdispatch.last_dispatch().describe(),
+                   "m_equal": bool(torch.equal(m_s, m1)), "gathered": True,
+                   "rows": 0}
+            if not row["m_equal"]:
+                # NNM near-ties (phase 6's rule, lane by lane): the sharded
+                # Gram against K5 on the whole stack, each differing row a
+                # near-tie; the output then held to the single-device
+                # kernel run with the sharded path's M.
+                g_s = shardlib.sharded_gram(sh.take(x), mesh=mesh,
+                                            axis="shard")
+                g1 = torch.from_numpy(np.load(f"{tmp}/lanes_gram.npy")).to(dev)
+                for k in range(b):
+                    row["rows"] += _nnm_near_ties(g_s[k], g1[k], m_s[k],
+                                                  m1[k], n - int(fs[k]))
+                if kw["rule"] == "cwtm":
+                    want = mixtrim_dyn(x, m_s, fs)
+                else:
+                    c = gramlib.coeff_for_rule_dyn(
+                        "gm", gramlib.mixed_gram(g_s, m_s), fs)
+                    want = combine_lanes(x, (c[:, None] @ m_s)[:, 0]
+                                         .contiguous())
+            row["bitwise"] = bool(torch.equal(got, want))
+            row["err"], row["tol"] = max_err(got, want)
+            out["cases"][name] = row
+            del got, want
+        del x
+        torch.cuda.empty_cache()
+    out["fallbacks"] = [f"{d.primitive}: {d.used} ({d.reason})"
+                        for d in kdispatch.fallback_log()]
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def _train_run(dev, name: str, layers: int, n: int, f: int, spec_kw: dict,
+               steps: int, backend: str, worker_axes=None):
+    """Full-width smollm-360m (``layers`` deep) D-SHB through train_loop,
+    ALIE, seeded weights, one step a segment; returns (final params,
+    history, ms per step, peak bytes, launches)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.training import ByzantineConfig, TrainerConfig, train_loop
+    model = build_model(get_config("smollm-360m").replace(num_layers=layers))
+    params = model.init(0, dev)
+    cfg = TrainerConfig(agg=AggregatorSpec(f=f, backend=backend, **spec_kw),
+                        byz=ByzantineConfig(f=f, attack="alie"),
+                        worker_axes=worker_axes)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kdispatch.reset_launch_counts()
+    final, out = train_loop(model.loss, params, lm_batches(n), sgd(clip=2.0),
+                            cfg, cosine(0.05, steps, warmup=0), steps, seed=0,
+                            track_best=False, chunk=1)
+    ms = [1e3 * sec for _, _, sec in out["scan_report"]["segments"]]
+    return (final, out["history"], ms, torch.cuda.max_memory_allocated(dev),
+            _counts(("gram", "mixtrim", "bucketgram", "bucketmeans")))
+
+
+def _param_digest(params) -> str:
+    import hashlib
+    import torch
+    from repro_torch.tree import tree_leaves
+    h = hashlib.sha256()
+    for leaf in tree_leaves(params):
+        h.update(leaf.detach().contiguous().view(-1).view(
+            torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_train_rank(rank: int, world: int, tmp: str) -> dict:
+    """21c on one rank: each MESH_TRAIN run through train_loop with
+    ``worker_axes`` under a 1-D mesh, held to the single-device run's
+    parameters and losses in ``tmp``."""
+    import torch
+    dev = _rank_setup(rank)
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.tree import tree_leaves
+    mesh = tmesh.make_mesh((world,), ("shard",))
+    out = {"rank": rank, "runs": {}}
+    kdispatch.reset_fallbacks()
+    with tmesh.use_mesh(mesh):
+        for name, layers, n, f, spec_kw, steps, expect in MESH_TRAIN:
+            backend = "cuda_hier" if spec_kw.get("hier") else "cuda_sharded"
+            tmesh.reset_collective_log()
+            final, hist, ms, peak, counts = _train_run(
+                dev, name, layers, n, f, spec_kw, steps, backend,
+                worker_axes=("shard",))
+            ref = torch.load(f"{tmp}/{name}.pt", map_location=dev)
+            scale = max(float(r.float().abs().max()) for r in ref["params"])
+            err, diff = 0.0, 0
+            for a, b in zip(tree_leaves(final), ref["params"]):
+                err = max(err, float((a.float() - b.float()).abs().max()))
+                diff += int((a != b).sum())
+            out["runs"][name] = {
+                "ms": ms, "peak": peak, "counts": counts,
+                "expect": {k: v * steps for k, v in expect.items()},
+                "loss": hist["loss"], "ref_loss": ref["loss"],
+                "kappa_hat": hist["kappa_hat"], "err": err, "scale": scale,
+                "diff": diff, "digest": _param_digest(final),
+                "record": kdispatch.last_dispatch().describe(),
+                "collectives": collective_summary()}
+            del final, ref
+            torch.cuda.empty_cache()
+    out["fallbacks"] = [f"{d.primitive}: {d.used} ({d.reason})"
+                        for d in kdispatch.fallback_log()]
+    return out
+
+
+def _mesh_hier_rank(rank: int, world: int, tmp: str) -> dict:
+    """21b on one rank of the 2 x 2 ("workers", "model") mesh: its
+    (n/2, D/2) tile of phase 6's stack from the seeds, both hierarchical
+    aggregates through ``robust_aggregate_block`` ("cuda_hier": K7 on the
+    tile, the partial means summed over "workers", K1 on the means, the
+    Gram summed over "model", K2), held to phase 6's aggregates under its
+    near-tie rule."""
+    import numpy as np
+    import torch
+    dev = _rank_setup(rank)
+    from repro_torch.core import bucketing as bucketlib
+    from repro_torch.core import gram as gramlib
+    from repro_torch.core.robust import robust_aggregate_block
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.kernels import mixtrim_ref
+    from repro_torch.kernels import shard as shardlib
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_hier_mesh(2, world // 2)
+    sh = shardlib.ShardCtx(mesh, "model", "workers")
+    n, d, f = HIER_N, HIER_D, HIER_N // 32
+    (r0, r1), (c0, c1) = sh.rows(n), sh.cols(d)
+    perm = torch.from_numpy(np.load(f"{tmp}/perm.npy"))
+    out = {"rank": rank, "tile": ((r0, r1), (c0, c1)), "cases": {}}
+    kdispatch.reset_fallbacks()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tile = seeded_block(3, (r0, r1), (c0, c1), dev, HIER_SEED_ROWS)
+    with tmesh.use_mesh(mesh):
+        for name, (spec_kw, _) in _hier_specs(f).items():
+            spec = AggregatorSpec(backend="cuda_hier", **spec_kw)
+            robust_aggregate_block(tile, spec, d=d, n=n, perm=perm)  # warm-up
+            kdispatch.reset_launch_counts()
+            tmesh.reset_collective_log()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            local = robust_aggregate_block(tile, spec, d=d, n=n, perm=perm)
+            torch.cuda.synchronize(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            counts = _counts(("bucketmeans", "bucketgram", "gram", "mixtrim"))
+            colls = collective_summary()
+            want = torch.from_numpy(np.load(f"{tmp}/{name}.npy"))[c0:c1].to(dev)
+            row = {"ms": ms, "counts": counts, "collectives": colls,
+                   "record": kdispatch.last_dispatch().describe(), "rows": 0}
+            if spec_kw["pre"] == "nnm":
+                nb = bucketlib.num_buckets(n, HIER_S)
+                fb = bucketlib.adjusted_f(f, nb)
+                assign = bucketlib.bucket_assignment(n, HIER_S, perm=perm)
+                y, g_s = shardlib.sharded_bucketgram(
+                    tile, assign, nb, mesh=mesh, worker_axis="workers",
+                    model_axis="model")
+                g6 = torch.from_numpy(np.load(f"{tmp}/gram.npy")).to(dev)
+                m6 = torch.from_numpy(np.load(f"{tmp}/m.npy")).to(dev)
+                # The pipeline's M: the same NNM of the same (repeatable)
+                # sharded Gram of the means.
+                m_s = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g_s), fb)
+                row["rows"] = _nnm_near_ties(g_s, g6, m_s, m6, nb - fb)
+                if row["rows"]:
+                    want = mixtrim_ref(y, m_s, fb)
+                del y
+            row["err"], row["tol"] = max_err(local, want)
+            out["cases"][name] = row
+            del local, want
+    del tile
+    out["fallbacks"] = [f"{d.primitive}: {d.used} ({d.reason})"
+                        for d in kdispatch.fallback_log()]
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def _save(tmp: str, name: str, t) -> None:
+    import numpy as np
+    np.save(f"{tmp}/{name}.npy", t.detach().cpu().numpy())
+
+
+def _mesh_check(what: str, ranks: list) -> None:
+    for r in ranks:
+        if r["fallbacks"]:
+            raise AssertionError(f"{what}: rank {r['rank']} recorded "
+                                 f"fallbacks: {r['fallbacks']}")
+
+
+def phase_mesh_dense(dev, tmp: str) -> dict:
+    """21a: the single-device kernel path first (its outputs to ``tmp``,
+    the card freed), then a world of 2 ranks."""
+    import torch
+    from repro_torch.core.robust import batched_robust_aggregate, robust_aggregate
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.kernels import gram, gram_batched
+    from repro_torch.launch.mesh import spawn_world
+    x = seeded_block(MESH_SEED, (0, N_MAIN), (0, D_MAIN), dev, N_MAIN)
+    _save(tmp, "gram", gram(x))
+    for name, kw, _ in MESH_DENSE:
+        internals = {}
+        vec = robust_aggregate({"x": x}, AggregatorSpec(
+            backend="cuda", f=F_MAIN, **kw), internals=internals)["x"]
+        _save(tmp, name, vec)
+        if "mix_matrix" in internals:
+            _save(tmp, f"{name}_m", internals["mix_matrix"])
+        del vec
+    del x
+    torch.cuda.empty_cache()
+    b, n, d = FLEET_BIG
+    x = seeded_block(MESH_SEED + 1, (0, b * n), (0, d), dev, b * n).view(b, n, d)
+    fs = torch.arange(b, device=dev) % (n // 2)
+    _save(tmp, "lanes_gram", gram_batched(x))
+    for name, kw, _ in MESH_LANES:
+        internals = {}
+        got = batched_robust_aggregate({"x": x}, AggregatorSpec(
+            backend="cuda", **kw), fs, internals=internals)["x"]
+        _save(tmp, name, got)
+        _save(tmp, f"{name}_m", internals["mix_matrix"])
+        del got
+    del x
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_world(_mesh_dense_rank, 2, (tmp,), limit=MESH_LIMIT)
+    log(f"  world of 2 ranks (gloo, sharing the card): {time.perf_counter() - t0:.1f} s")
+    _mesh_check("21a", ranks)
+    total = {}
+    for r in ranks:
+        c0, c1 = r["cols"]
+        log(f"  rank {r['rank']}: columns [{c0}, {c1}) of D = {D_MAIN}; "
+            f"Gram vs single device max |diff| diagonal "
+            f"{r['gram_diag_err']:.3e} (tol {r['gram_diag_tol']:.3e}), off "
+            f"the diagonal {r['gram_off_err']:.3e} (tol "
+            f"{r['gram_off_tol']:.3e}; each 1e-5 of its largest |G|) "
+            f"{'OK' if r['gram_ok'] else 'FAIL'}; peak {r['peak_dense'] / 1e9:.2f} GB at the dense shape "
+            f"(whole stack {STACK_GB:.2f} GB), {r['peak'] / 1e9:.2f} GB with "
+            f"the lanes")
+        if not r["gram_ok"]:
+            raise AssertionError("21a: the all-reduced Gram disagrees "
+                                 "with K1 on the whole stack")
+        if not r["peak_dense"] < STACK_GB * 1e9:
+            raise AssertionError(f"21a: rank {r['rank']} peak "
+                                 f"{r['peak_dense']} >= the whole stack")
+        for name, row in r["cases"].items():
+            coord = "gm" not in name
+            if not row["gathered"]:
+                raise AssertionError(f"21a {name}: the gathered aggregate "
+                                     f"differs from the rank's slice")
+            if not row["m_equal"] and "lanes" not in name:
+                raise AssertionError(f"21a {name}: the NNM matrix differs "
+                                     f"from the single device's")
+            if row["counts"] != {k: v for k, v in row["expect"].items()}:
+                raise AssertionError(f"21a {name} rank {r['rank']}: launches "
+                                     f"{row['counts']}, expected "
+                                     f"{row['expect']}")
+            if coord and row["m_equal"] and not row["bitwise"]:
+                raise AssertionError(f"21a {name}: a coordinate rule with the "
+                                     f"single device's NNM matrix differs in "
+                                     f"bits")
+            if not row["m_equal"] or not coord:
+                if row["err"] > row["tol"]:
+                    raise AssertionError(f"21a {name}: {row['err']} > "
+                                         f"{row['tol']}")
+            for k, v in row["counts"].items():
+                total[k] = total.get(k, 0) + v
+            ties = "" if row["m_equal"] else (
+                f" ({row.get('rows', 0)} rows, each a checked near-tie; held "
+                f"to the single-device kernels with the sharded M)")
+            log(f"  21a {name} rank {r['rank']}: {row['ms']:.1f} ms (host "
+                f"clock after a warm-up, the gather not included), launches "
+                f"{row['counts']},"
+                f" NNM matrix {'equal' if row['m_equal'] else 'differs'}{ties}, "
+                f"{'bit for bit' if row['bitwise'] else 'max_abs_err ' + format(row['err'], '.3e') + ' tol ' + format(row['tol'], '.3e')}"
+                f" the single device; collectives {row['collectives']}")
+        if r["rank"] == 0:
+            log(r["cases"]["nnm+cwtm"]["record"])
+    return total
+
+
+def phase_mesh_hier(tmp: str) -> dict:
+    """21b: a world of 4 ranks on the 2 x 2 mesh against phase 6's
+    aggregates (saved to ``tmp`` by phase 6)."""
+    from repro_torch.launch.mesh import spawn_world
+    t0 = time.perf_counter()
+    ranks = spawn_world(_mesh_hier_rank, 4, (tmp,), limit=MESH_LIMIT)
+    log(f"  world of 4 ranks (2 x 2, gloo, sharing the card): "
+        f"{time.perf_counter() - t0:.1f} s")
+    _mesh_check("21b", ranks)
+    total = {}
+    for r in ranks:
+        (r0, r1), (c0, c1) = r["tile"]
+        for name, row in r["cases"].items():
+            spec_kw, expect = _hier_specs(HIER_N // 32)[name]
+            want = {"bucketmeans": 1, "bucketgram": 0,
+                    "gram": expect["gram"], "mixtrim": 1}
+            if row["counts"] != want:
+                raise AssertionError(f"21b {name} rank {r['rank']}: launches "
+                                     f"{row['counts']}, expected {want}")
+            if row["err"] > row["tol"]:
+                raise AssertionError(f"21b {name} rank {r['rank']}: "
+                                     f"{row['err']} > {row['tol']}")
+            # K1 on the 640 means is the tiled product, K2 at 640 workers
+            # mixtrim_select: their own rows of the kernels line.
+            key = "mixtrim_select" + ("" if spec_kw["pre"] else "_nomix")
+            for k, v in (("bucketmeans", row["counts"]["bucketmeans"]),
+                         ("gram_tiled", row["counts"]["gram"]),
+                         (key, row["counts"]["mixtrim"])):
+                total[k] = total.get(k, 0) + v
+            log(f"  21b {name} rank {r['rank']} tile rows [{r0}, {r1}) x "
+                f"cols [{c0}, {c1}): {row['ms']:.1f} ms (host clock after a "
+                f"warm-up), "
+                f"launches {row['counts']}, NNM rows that differ from phase "
+                f"6: {row['rows']}, max_abs_err {row['err']:.3e} tol "
+                f"{row['tol']:.3e}; collectives {row['collectives']}")
+        log(f"  21b rank {r['rank']}: peak {r['peak'] / 1e9:.2f} GB")
+        if r["rank"] == 0:
+            log(r["cases"]["hier+nnm+cwtm"]["record"])
+    return total
+
+
+def phase_mesh_train(dev, tmp: str) -> dict:
+    """21c: each run on the single device first (parameters and losses to
+    ``tmp``, the card freed), then a world of 2 ranks."""
+    import torch
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.configs import get_config
+    from repro_torch.tree import tree_leaves
+    for name, layers, n, f, spec_kw, steps, _ in MESH_TRAIN:
+        cfg = get_config("smollm-360m").replace(num_layers=layers)
+        final, hist, ms, peak, counts = _train_run(
+            dev, name, layers, n, f, spec_kw, steps, "cuda")
+        width = sum(leaf.numel() for leaf in tree_leaves(final))
+        log(f"  21c {name} single device: {layers} of 32 layers, d "
+            f"{cfg.d_model}, D = {width:,} (an ({n}, D) fp32 stack of "
+            f"{4 * n * width / 1e9:.2f} GB), ms/step "
+            f"{[round(v, 1) for v in ms]}, loss "
+            f"{[round(v, 5) for v in hist['loss']]}, peak {peak / 1e9:.2f} GB")
+        torch.save({"params": [p.detach() for p in tree_leaves(final)],
+                    "loss": hist["loss"]}, f"{tmp}/{name}.pt")
+        del final
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_world(_mesh_train_rank, 2, (tmp,), limit=MESH_LIMIT)
+    log(f"  world of 2 ranks (gloo, sharing the card): {time.perf_counter() - t0:.1f} s")
+    _mesh_check("21c", ranks)
+    total = {}
+    for name, *_ in MESH_TRAIN:
+        rows = [r["runs"][name] for r in ranks]
+        if len({row["digest"] for row in rows}) != 1:
+            raise AssertionError(f"21c {name}: the ranks' parameter copies "
+                                 f"differ")
+        for r, row in zip(ranks, rows):
+            if row["counts"] != row["expect"]:
+                raise AssertionError(f"21c {name} rank {r['rank']}: launches "
+                                     f"{row['counts']}, expected "
+                                     f"{row['expect']}")
+            if row["err"] > 1e-5 * row["scale"]:
+                raise AssertionError(f"21c {name}: parameters off the single "
+                                     f"device by {row['err']} > 1e-5 x "
+                                     f"{row['scale']}")
+            for a, b in zip(row["loss"], row["ref_loss"]):
+                if abs(a - b) > 1e-5 * abs(b):
+                    raise AssertionError(f"21c {name}: loss {row['loss']} vs "
+                                         f"{row['ref_loss']}")
+            for k, v in row["counts"].items():
+                total[k] = total.get(k, 0) + v
+            log(f"  21c {name} rank {r['rank']}: ms/step "
+                f"{[round(v, 1) for v in row['ms']]}, peak "
+                f"{row['peak'] / 1e9:.2f} GB, launches {row['counts']}, loss "
+                f"{[round(v, 5) for v in row['loss']]} (single device "
+                f"{[round(v, 5) for v in row['ref_loss']]}), parameters: max "
+                f"|diff| {row['err']:.3e} (tol {1e-5 * row['scale']:.3e}), "
+                f"{row['diff']} entries differ; collectives "
+                f"{row['collectives']}")
+        log(f"  21c {name}: both ranks' parameters equal bit for bit "
+            f"(sha256 {rows[0]['digest'][:16]})")
+        log(rows[0]["record"])
+    return total
+
+
+def phase_mesh(dev, hier_ref_dir: str) -> dict:
+    """Phase 21; returns the launches summed over every rank."""
+    import tempfile
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        log(f"-- 21a. cuda_sharded at the dense shape: n={N_MAIN} f={F_MAIN} "
+            f"D={D_MAIN} fp32 over 2 ranks; the lane forms at {FLEET_BIG}")
+        add_counts(total, phase_mesh_dense(dev, tmp))
+        log(f"  21a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log(f"-- 21b. cuda_hier on a 2 x 2 mesh: n={HIER_N} s={HIER_S} "
+        f"f={HIER_N // 32} D={HIER_D} fp32, tiles ({HIER_N // 2}, "
+        f"{HIER_D // 2})")
+    add_counts(total, phase_mesh_hier(hier_ref_dir))
+    log(f"  21b: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        log("-- 21c. the trainer: full-width smollm-360m, D-SHB, ALIE, "
+            "worker_axes over 2 ranks")
+        add_counts(total, phase_mesh_train(dev, tmp))
+        log(f"  21c: {time.perf_counter() - t0:.1f} s")
+    idle = [k for k in ("gram", "mixtrim", "combine", "gram_batched",
+                        "mixtrim_dyn", "combine_lanes", "bucketgram",
+                        "bucketmeans", "gram_tiled", "mixtrim_select",
+                        "mixtrim_select_nomix") if not total.get(k)]
+    if idle:
+        raise AssertionError(f"phase 21: kernels never launched on the mesh "
+                             f"paths: {idle}")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4339,7 +5035,8 @@ def main() -> int:
     phase_mixtrim_large(dev, rate)
 
     log("== 6. hierarchical aggregates at n = 10240 (640 means)")
-    hier = phase_hier_aggregate(dev, rate)
+    hier_refs = tempfile.TemporaryDirectory()       # phase 21b reads it
+    hier = phase_hier_aggregate(dev, rate, hier_refs.name)
     rows.update(hier["rows"])
 
     log("== 7. main path: nnm+cwtm, 3 steps, full-width smollm-360m")
@@ -4469,7 +5166,15 @@ def main() -> int:
     log(json.dumps({"serve": serve_runs}))
     log(f"  phase 20: {time.perf_counter() - t20:.1f} s")
 
-    log("== 21. summary")
+    t21 = time.perf_counter()
+    log(f"== 21. the multi-device aggregation backends: ranks sharing the "
+        f"card over gloo; card: {card}")
+    counts_mesh = phase_mesh(dev, hier_refs.name)
+    hier_refs.cleanup()
+    log(json.dumps({"mesh_launches": counts_mesh}))
+    log(f"  phase 21: {time.perf_counter() - t21:.1f} s")
+
+    log("== 22. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -4551,6 +5256,7 @@ def main() -> int:
     }
     kernels = []
     for k, (src, rep, launches) in meta.items():
+        launches += counts_mesh.get(k, 0)          # phase 21's, every rank
         r = rows[k]
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": r["max_abs_err"],

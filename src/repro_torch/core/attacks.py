@@ -351,7 +351,8 @@ def attack_flat_(name: str, flat: Tensor, f: int, *, eta=None,
                  segments: Optional[list] = None,
                  agg_closure: Optional[Callable] = None,
                  internals: Optional[dict] = None,
-                 chunk: int = ATTACK_CHUNK) -> Tensor:
+                 chunk: int = ATTACK_CHUNK,
+                 reduce: Optional[Callable] = None) -> Tensor:
     """In-place form of :func:`apply_attack_tree` on a flat (n, D) stack
     whose leaves occupy the column ``segments`` [(offset, size), ...]
     (one leaf spanning D when None).
@@ -366,20 +367,33 @@ def attack_flat_(name: str, flat: Tensor, f: int, *, eta=None,
     exists.  The honest moments are taken once for the search
     (:func:`_honest_moments`).  ``internals`` (a dict) receives the
     chosen ``"eta"`` and the ``"damages"`` of the grid, as device
-    tensors."""
+    tensors.
+
+    ``reduce`` (the sharded trainer): ``flat`` is one column block of a
+    wider stack, ``segments`` hold every leaf's part of it (size 0 for a
+    leaf outside it, so that every block lists the same leaves), and
+    ``reduce(t, op)`` all-reduces ``t`` ("sum" / "min") over the blocks:
+    the finite-row masks (whole leaves), mimic's honest Gram and the
+    search's damages, the sums over D; everything else is per column."""
     if f == 0 or name in ("none", "lf"):
         return flat
     _check_name(name)
     nh = flat.shape[0] - f
     segments = segments or [(0, flat.shape[1])]
     if name == "mimic":
-        g = sum(gram_ref(flat[:nh, off:off + size]) for off, size in segments)
+        g = torch.zeros((nh, nh), dtype=torch.float32, device=flat.device)
+        for off, size in segments:
+            if size:
+                g = g + gram_ref(flat[:nh, off:off + size])
+        if reduce is not None:
+            g = reduce(g, "sum")
         flat[nh:] = flat[_mimic_target(g)]
         return flat
-    finite = []
-    for off, size in segments:
-        mask = torch.isfinite(flat[:nh, off:off + size]).all(dim=1)
-        finite.append((mask, bool(mask.all())))
+    masks = torch.stack([torch.isfinite(flat[:nh, off:off + size]).all(dim=1)
+                         for off, size in segments])
+    if reduce is not None:
+        masks = reduce(masks.to(torch.int32), "min").bool()
+    finite = [(mask, bool(mask.all())) for mask in masks]
     if name.endswith("_opt"):
         _require_agg_closure(name, agg_closure)
         name = name.removesuffix("_opt")
@@ -393,6 +407,8 @@ def attack_flat_(name: str, flat: Tensor, f: int, *, eta=None,
             damages.append(_damage(tree_leaves(agg_closure(flat)), plain,
                                    segments))
         damages = torch.stack(damages)
+        if reduce is not None:
+            damages = reduce(damages, "sum")
         eta = _pick(etas, damages)
         if internals is not None:
             internals.update(eta=eta, damages=damages)

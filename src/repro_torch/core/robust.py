@@ -59,8 +59,20 @@ as the reference does with ``key=None``.  On "cuda" it replaces K1.
 :func:`draw_randomness` draws once what an aggregate would draw, so
 that several aggregates (the ``_opt`` eta searches) share one draw.
 
-Not ported yet, and rejected with an error naming the ROADMAP item: the
-reference's multi-device backends (``pallas_sharded`` / ``pallas_hier``).
+Multi-rank backends (the reference's ``pallas_sharded`` / ``pallas_hier``):
+under a mesh of a ``torch.distributed`` world (:mod:`repro_torch.launch.
+mesh`), "cuda_sharded" runs the kernel pipeline on each rank's column
+block of the flat stack (:mod:`repro_torch.kernels.shard`: the Grams
+all-reduced, combine / mix+trim shard-local) and gathers the aggregate;
+"cuda_hier" implies the hierarchical stage (:func:`_hier_active`) and, on
+a 2-D (workers x model) mesh, splits the stack along worker rows too.
+:func:`robust_aggregate` and the dynamic / lane forms take the whole
+(replicated) stack on every rank and return the whole aggregate;
+:func:`robust_aggregate_block` takes one rank's block and returns its
+slice (the trainer's ``worker_axes`` path).  Without a multi-rank mesh
+"cuda_sharded" runs the torch path and "cuda_hier" the dense bucketing
+path, each with a recorded ``pipeline`` fallback naming why, as the
+reference degrades.
 """
 from __future__ import annotations
 
@@ -74,6 +86,7 @@ from repro_torch.core import gram as gramlib
 from repro_torch.core.aggregators import _median
 from repro_torch.core.types import AggregatorSpec, COORDINATE_RULES, GRAM_RULES
 from repro_torch.kernels import dispatch as kdispatch
+from repro_torch.kernels import shard as shardlib
 from repro_torch.kernels._common import sort_nan_last
 from repro_torch.kernels.gram import gram_batched_ref, gram_ref
 from repro_torch.tree import (
@@ -182,7 +195,7 @@ def draw_randomness(tree: PyTree, spec: AggregatorSpec, *,
     n = leaf.shape[0]
     if perm is None and generator is not None and (
             spec.pre == "bucketing"
-            or (spec.hier and bucketlib.clamp_bucket_size(
+            or (_hier_active(spec) and bucketlib.clamp_bucket_size(
                 n, spec.bucket_size, spec.f) > 1)):
         perm = bucketlib.draw_perm(n, generator=generator, device=leaf.device)
     return perm, _sketch_signs(tree, spec, generator, signs)
@@ -281,6 +294,12 @@ def _stack_perm(tree: PyTree, perm: Tensor) -> Tensor:
     return bucketlib.draw_perm(leaf.shape[0], perm=perm, device=leaf.device)
 
 
+def _hier_active(spec: AggregatorSpec) -> bool:
+    """A hierarchical bucketing stage runs when the spec opts in OR the
+    hierarchical backend is requested (the backend implies the stage)."""
+    return bool(spec.hier) or spec.backend == "cuda_hier"
+
+
 def _validate_hier(spec: AggregatorSpec) -> None:
     if spec.pre == "bucketing":
         raise ValueError(
@@ -299,7 +318,7 @@ def validate_taps(spec: AggregatorSpec) -> None:
     rows and not on the n workers' (the reference's taps fail there with
     a broadcasting TypeError, (n_b,) against (n,), or count the raw rows'
     trim the rule never made)."""
-    if spec.hier:
+    if _hier_active(spec):
         raise ValueError(
             "health taps are not defined with hier=True: the hierarchical "
             "stage aggregates ceil(n/s) bucket means, so the NNM matrix and "
@@ -310,7 +329,7 @@ def validate_taps(spec: AggregatorSpec) -> None:
 
 
 def _validate(spec: AggregatorSpec) -> None:
-    if spec.hier:
+    if _hier_active(spec):
         _validate_hier(spec)
     if spec.pre not in (None, "none", "nnm", "bucketing"):
         raise ValueError(f"unknown pre-aggregation {spec.pre!r}")
@@ -327,14 +346,18 @@ _HIER_S1_NOTE = "s=1: singleton buckets, identity reduction (skipped)"
 
 
 def _hier_reduce_flat(flat: Tensor, spec: AggregatorSpec, f: int, *,
-                      perm: Optional[Tensor], backend: str
+                      perm: Optional[Tensor], backend: str,
+                      sh: Optional[shardlib.ShardCtx] = None,
+                      n: Optional[int] = None
                       ) -> tuple[Tensor, int, Optional[Tensor]]:
-    """The hierarchical pre-reduction on the flattened (n, D) stack.
+    """The hierarchical pre-reduction on the flattened (n, D) stack (with
+    ``sh``: this rank's block or, on the 2-D form, its worker tile of the
+    ``n`` workers).
 
     Returns (reduced stack (ceil(n/s), D), adjusted f, reduced fp32 Gram
     or None).  s = 1 short-circuits to the identity (no permutation is
     drawn for it), which keeps hier(s=1) bitwise the dense pipeline."""
-    n = flat.shape[0]
+    n = flat.shape[0] if n is None else n
     s = bucketlib.clamp_bucket_size(n, spec.bucket_size, f)
     if s == 1:
         kdispatch.record_decision("bucketgram", backend, "skipped",
@@ -344,32 +367,43 @@ def _hier_reduce_flat(flat: Tensor, spec: AggregatorSpec, f: int, *,
     assign = bucketlib.bucket_assignment(n, s, perm=perm, device=flat.device)
     need_gram = spec.rule in GRAM_RULES or spec.pre == "nnm"
     y, g = kdispatch.dispatch_bucketgram(flat, assign, nb, backend=backend,
-                                         with_gram=need_gram)
+                                         with_gram=need_gram, sh=sh)
     return y, bucketlib.adjusted_f(f, nb), g
 
 
-def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
-                    return_coeff: bool, perm=None, signs=None,
-                    internals: Optional[dict] = None) -> PyTree:
-    """Kernel pipeline: the stack as one (n, D) buffer -> [bucketgram
-    (K6 / K7) when hier] -> gram (K1, skipped when K6 gave the Gram; the
-    sketch Gram instead when ``signs``) -> NNM / coefficients -> combine
-    (K3) or fused mix+trim (K2) -> aggregated pytree (views of one (D,)
-    fp32 vector).  ``internals`` gets the NNM matrix only: K2 writes no
-    mixed or sorted stack."""
-    backend = "cuda"
-    flat, layout = kdispatch.flatten_worker_stack(work)
+def _hier_tiles(spec: AggregatorSpec, sh: Optional[shardlib.ShardCtx],
+                n: int, s: int) -> bool:
+    """Whether this rank holds a worker tile (the 2-D hierarchical form
+    with buckets of more than one) rather than all n rows."""
+    return sh is not None and sh.worker_axis is not None \
+        and _hier_active(spec) and s > 1
+
+
+def _flat_pipeline(x: Tensor, segments: list, spec: AggregatorSpec, f: int,
+                   *, perm=None, signs=None, internals: Optional[dict] = None,
+                   backend: str = "cuda",
+                   sh: Optional[shardlib.ShardCtx] = None,
+                   n: Optional[int] = None, d: Optional[int] = None
+                   ) -> tuple[Tensor, Optional[Tensor]]:
+    """The kernel pipeline on one (n, D) buffer (with ``sh``: this rank's
+    block of an n x D stack): [bucketgram (K6 / K7) when hier] -> gram
+    (K1, skipped when K6 gave the Gram; the sketch Gram instead when
+    ``signs``, over the leaf ``segments``) -> NNM / coefficients ->
+    combine (K3) or fused mix+trim (K2).  Returns (the (D,) fp32 vector,
+    or this rank's slice of it; the coefficients of a gram rule or None).
+    ``internals`` gets the NNM matrix only: K2 writes no mixed or sorted
+    stack."""
     mix_matrix, g = None, None
-    if spec.hier:
-        flat, f, g = _hier_reduce_flat(flat, spec, f, perm=perm,
-                                       backend=backend)
+    if _hier_active(spec):
+        x, f, g = _hier_reduce_flat(x, spec, f, perm=perm, backend=backend,
+                                    sh=sh, n=n)
     if (spec.rule in GRAM_RULES or spec.pre == "nnm") and g is None:
         if signs is not None:
             g = kdispatch.dispatch_sketch_gram(
-                flat, [(off, size) for off, size, _ in layout.segments],
-                spec.sketch_dim, signs, backend=backend)
+                x, segments, spec.sketch_dim, signs, backend=backend, sh=sh,
+                d=d)
         else:
-            g = kdispatch.dispatch_gram(flat, backend=backend)
+            g = kdispatch.dispatch_gram(x, backend=backend, sh=sh)
     if spec.pre == "nnm":
         mix_matrix = gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g), f)
         if internals is not None:
@@ -387,25 +421,90 @@ def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
             autogm_lamb=spec.autogm_lamb, autogm_iters=spec.autogm_iters)
         if mix_matrix is not None:
             coeff = coeff @ mix_matrix   # R = c^T (M X) = (c^T M) X
-        vec = kdispatch.dispatch_combine(flat, coeff.contiguous(),
-                                         backend=backend)
-        out = kdispatch.unflatten_aggregate(vec, layout)
-        return (out, coeff) if return_coeff else out
+        vec = kdispatch.dispatch_combine(x, coeff.contiguous(),
+                                         backend=backend, sh=sh)
+        return vec, coeff
 
     if spec.rule in COORDINATE_RULES:
         # With NNM, M is rounded to the stack dtype first — the rounding
         # tree_mix applies — so bf16-transport runs agree across backends.
-        m = None if mix_matrix is None else mix_matrix.to(flat.dtype)
+        m = None if mix_matrix is None else mix_matrix.to(x.dtype)
         if spec.rule == "meamed":
-            vec = kdispatch.dispatch_meamed(flat, m, f, backend=backend)
+            vec = kdispatch.dispatch_meamed(x, m, f, backend=backend, sh=sh)
         else:
             mode = "med" if spec.rule == "cwmed" else "trim"
-            vec = kdispatch.dispatch_mixtrim(flat, m, f, mode=mode,
-                                             backend=backend)
-        out = kdispatch.unflatten_aggregate(vec, layout)
-        return (out, None) if return_coeff else out
+            vec = kdispatch.dispatch_mixtrim(x, m, f, mode=mode,
+                                             backend=backend, sh=sh)
+        return vec, None
 
     raise ValueError(f"unknown rule {spec.rule!r}")
+
+
+def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
+                    return_coeff: bool, perm=None, signs=None,
+                    internals: Optional[dict] = None, backend: str = "cuda",
+                    sh: Optional[shardlib.ShardCtx] = None) -> PyTree:
+    """Kernel pipeline (:func:`_flat_pipeline`) on the stack as one
+    (n, D) buffer -> aggregated pytree (views of one (D,) fp32 vector).
+    With ``sh`` every rank takes its block of the (replicated) stack, runs
+    the pipeline on it and the slices are gathered."""
+    flat, layout = kdispatch.flatten_worker_stack(work)
+    segments = [(off, size) for off, size, _ in layout.segments]
+    if sh is None:
+        vec, coeff = _flat_pipeline(flat, segments, spec, f, perm=perm,
+                                    signs=signs, internals=internals,
+                                    backend=backend)
+    else:
+        n = layout.n
+        s = bucketlib.clamp_bucket_size(n, spec.bucket_size, f)
+        block = sh.take(flat, tile=_hier_tiles(spec, sh, n, s))
+        local, coeff = _flat_pipeline(block, segments, spec, f, perm=perm,
+                                      signs=signs, internals=internals,
+                                      backend=backend, sh=sh, n=n,
+                                      d=layout.width)
+        vec = sh.gather(local, layout.width)
+    out = kdispatch.unflatten_aggregate(vec, layout)
+    return (out, coeff) if return_coeff else out
+
+
+def _open_routed_record(spec: AggregatorSpec, device: torch.device, *,
+                        dyn: bool = False, lanes: Optional[int] = None
+                        ) -> tuple[str, Optional[shardlib.ShardCtx]]:
+    """Resolve the backend (and the mesh of the sharded ones), open the
+    dispatch record, and record the degrade of "cuda_sharded" /
+    "cuda_hier" without a multi-rank mesh (to the torch path, the hier
+    stage kept: the dense bucketing path).  Returns (effective backend,
+    this rank's shard context or None)."""
+    hier = _hier_active(spec)
+    backend = kdispatch.resolve_backend(spec.backend, device, hier=hier)
+    sh, degraded = None, None
+    if backend == "cuda_hier":
+        ctx = kdispatch.resolve_hier_mesh()
+        if ctx is None:
+            backend = "torch"
+            degraded = ("cuda_hier",
+                        "no multi-rank mesh: dense bucketing path")
+        else:
+            mesh, worker_axis, axis = ctx
+            sh = shardlib.ShardCtx(mesh, axis, worker_axis)
+    elif backend == "cuda_sharded":
+        ctx = kdispatch.resolve_shard_mesh()
+        if ctx is None:
+            backend = "torch"
+            degraded = ("cuda_sharded",
+                        "no multi-rank mesh: leaf-streamed torch path")
+        else:
+            sh = shardlib.ShardCtx(*ctx)
+    kdispatch.open_record(
+        requested=spec.backend, backend=backend, rule=spec.rule, pre=spec.pre,
+        hier=hier, bucket_size=spec.bucket_size, dyn=dyn, lanes=lanes,
+        mesh_devices=1 if sh is None else sh.devices,
+        mesh_axis=None if sh is None else sh.axis,
+        mesh_worker_axis=None if sh is None else sh.worker_axis)
+    if degraded is not None:
+        kdispatch.record_decision("pipeline", degraded[0], "torch",
+                                  degraded[1])
+    return backend, sh
 
 
 def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
@@ -433,7 +532,7 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
         validate_taps(spec)
     if spec.pre == "bucketing":
         _need_perm_source(generator, perm, "bucketing")
-    if spec.hier:
+    if _hier_active(spec):
         _need_perm_source(generator, perm, "hierarchical aggregation")
     perm, signs = draw_randomness(tree, spec, generator=generator, perm=perm,
                                   signs=signs)
@@ -445,18 +544,15 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
     if spec.transport_dtype == "bf16":
         work = tree_map(lambda leaf: leaf.to(torch.bfloat16), work)
 
-    device = tree_leaves(work)[0].device
-    backend = kdispatch.resolve_backend(spec.backend, device)
-    kdispatch.open_record(requested=spec.backend, backend=backend,
-                          rule=spec.rule, pre=spec.pre, hier=bool(spec.hier),
-                          bucket_size=spec.bucket_size)
-    if backend == "cuda":
+    backend, sh = _open_routed_record(spec, tree_leaves(work)[0].device)
+    if backend in kdispatch.KERNEL_BACKENDS:
         return _aggregate_flat(work, spec, f, return_coeff=return_coeff,
-                               perm=perm, signs=signs, internals=internals)
+                               perm=perm, signs=signs, internals=internals,
+                               backend=backend, sh=sh)
     kdispatch.record_decision("pipeline", "torch", "torch",
                               "leaf-streamed torch path")
 
-    if spec.hier:
+    if _hier_active(spec):
         # The gather form, with the same permutation — and so the same
         # bucket grouping — as the kernel path.
         n = tree_leaves(work)[0].shape[0]
@@ -503,6 +599,67 @@ def robust_aggregate(tree: PyTree, spec: AggregatorSpec, *,
         return (out, None) if return_coeff else out
 
     raise ValueError(f"unknown rule {spec.rule!r}")
+
+
+def robust_aggregate_block(block: Tensor, spec: AggregatorSpec, *, d: int,
+                           n: Optional[int] = None,
+                           perm: Optional[Tensor] = None,
+                           signs: Optional[list] = None,
+                           segments: Optional[list] = None,
+                           internals: Optional[dict] = None,
+                           return_coeff: bool = False):
+    """One rank's part of :func:`robust_aggregate` under a multi-rank mesh:
+    ``block`` is this rank's columns (``ShardCtx.cols(d)``) of the global
+    (n, D) flat worker stack, and on the 2-D hierarchical form (buckets of
+    more than one) only its worker rows (``ShardCtx.rows(n)``); returns its
+    fp32 slice of the aggregate (``ShardCtx.gather`` rebuilds the whole)
+    and, with ``return_coeff``, the replicated coefficients of a gram rule
+    (else None).  ``perm`` is the bucket permutation of ``pre=
+    "bucketing"`` / hier over all n workers; ``signs`` the sketch's, one
+    per leaf of ``segments`` ((offset, size) columns of the global stack,
+    one leaf spanning D when None).  The backend must resolve to
+    "cuda_sharded" / "cuda_hier" under a multi-rank mesh: a block cannot
+    degrade to the single-device path."""
+    _validate(spec)
+    if internals is not None:
+        validate_taps(spec)
+    n = block.shape[0] if n is None else n
+    f = spec.f
+    if (spec.pre == "bucketing" or _hier_active(spec)) and perm is None \
+            and bucketlib.clamp_bucket_size(n, spec.bucket_size, f) > 1:
+        raise ValueError("bucketing / hierarchical aggregation of a block "
+                         "needs the permutation (perm=)")
+    if spec.sketch_dim and signs is not None and segments is None:
+        segments = [(0, d)]
+    if not spec.sketch_dim:
+        signs = None
+    backend, sh = _open_routed_record(spec, block.device)
+    if sh is None:
+        raise ValueError(
+            f"robust_aggregate_block needs backend 'cuda_sharded' or "
+            f"'cuda_hier' under a multi-rank mesh; {spec.backend!r} resolved "
+            f"to {backend!r}")
+    work = block
+    if spec.pre == "bucketing":
+        means, f = _tree_bucket({"x": block}, f, perm.to(block.device),
+                                spec.bucket_size)
+        work = means["x"]
+        n = work.shape[0]
+    if spec.transport_dtype == "bf16":
+        work = work.to(torch.bfloat16)
+    s = bucketlib.clamp_bucket_size(n, spec.bucket_size, f)
+    if sh.worker_axis is not None and _hier_active(spec) and s == 1 \
+            and work.shape[0] != n:
+        # The identity reduction needs every worker row: gather the tiles.
+        rows = -(-n // sh.kw)
+        pad = work.new_zeros((rows,) + tuple(work.shape[1:]))
+        pad[:work.shape[0]] = work
+        work = sh.mesh.all_gather(pad, sh.worker_axis)[:n]
+    vec, coeff = _flat_pipeline(work.contiguous(), segments or [(0, d)], spec,
+                                f, perm=perm, signs=signs,
+                                internals=internals, backend=backend, sh=sh,
+                                n=n, d=d)
+    return (vec, coeff) if return_coeff else vec
 
 
 # ---------------------------------------------------------------------------
@@ -651,7 +808,7 @@ def _tree_bucket_dyn(tree: PyTree, f, bucket_size: int, *,
 
 def _validate_dyn(spec: AggregatorSpec) -> None:
     _validate(spec)
-    if spec.hier and spec.bucket_size is None:
+    if _hier_active(spec) and spec.bucket_size is None:
         raise ValueError(
             "dynamic-f hierarchical aggregation needs an explicit "
             "bucket_size (the floor(n/2f) default is shape-level); set "
@@ -703,24 +860,22 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
             work, f, _lane_perms(n, b, dev, generators, perms),
             spec.bucket_size)
     hier_perms = None
-    if spec.hier and _bucket_size_dyn(spec.bucket_size, n) > 1:
+    if _hier_active(spec) and _bucket_size_dyn(spec.bucket_size, n) > 1:
         hier_perms = _lane_perms(n, b, dev, generators, perms)
     signs = _lane_signs(work, spec, generators, signs)
     if spec.transport_dtype == "bf16":
         work = tree_map(lambda leaf: leaf.to(torch.bfloat16), work)
 
-    backend = kdispatch.resolve_backend(spec.backend, dev)
-    kdispatch.open_record(requested=spec.backend, backend=backend,
-                          rule=spec.rule, pre=spec.pre, hier=bool(spec.hier),
-                          bucket_size=spec.bucket_size, dyn=True, lanes=b)
-    if backend == "cuda":
+    backend, sh = _open_routed_record(spec, dev, dyn=True, lanes=b)
+    if backend in kdispatch.KERNEL_BACKENDS:
         return _aggregate_flat_lanes(work, spec, f, batched=batched,
                                      perms=hier_perms, signs=signs,
-                                     internals=internals)
+                                     internals=internals, backend=backend,
+                                     sh=sh)
     kdispatch.record_decision("pipeline", "torch", "torch",
                               "leaf-streamed torch path")
 
-    if spec.hier:
+    if _hier_active(spec):
         # The gather form, with each lane's permutation (the kernel path's
         # bucket grouping).
         if hier_perms is None:
@@ -764,30 +919,42 @@ def _aggregate_lanes(tree: PyTree, spec: AggregatorSpec, f: Tensor, *,
 
 
 def _hier_reduce_lanes(flat: Tensor, spec: AggregatorSpec, f: Tensor, *,
-                       perms: Optional[Tensor], batched: bool
+                       perms: Optional[Tensor], batched: bool,
+                       backend: str = "cuda",
+                       sh: Optional[shardlib.ShardCtx] = None,
+                       n: Optional[int] = None
                        ) -> tuple[Tensor, Tensor, Optional[Tensor]]:
     """The hierarchical pre-reduction of a (B, n, D) lane stack: (bucket
     means (B, n_b, D), adjusted f (B,), their (B, n_b, n_b) fp32 Gram or
     None).  ``perms`` None is s = 1: the identity, recorded as skipped
     (bitwise the dense pipeline).  The lanes take K6 / K7's lane form; the
-    single-lane entry point (``batched=False``) the single-lane K6 / K7."""
+    single-lane entry point (``batched=False``) the single-lane K6 / K7.
+    With ``sh`` (this rank's block, or its worker tile of the ``n``
+    workers) each lane takes the sharded single-lane form in turn: the
+    lane forms on a mesh wait for the sharded fleet."""
     if perms is None:
-        kdispatch.record_decision("bucketgram", "cuda", "skipped",
+        kdispatch.record_decision("bucketgram", backend, "skipped",
                                   _HIER_S1_NOTE)
         return flat, f, None
-    n = flat.shape[1]
+    n = flat.shape[1] if n is None else n
     s = _bucket_size_dyn(spec.bucket_size, n)
     nb = bucketlib.num_buckets(n, s)
     # Worker i of lane b goes to bucket argsort(perms[b])[i] // s, as
     # bucketlib.bucket_assignment groups one lane.
     assign = torch.div(torch.argsort(perms, dim=1), s, rounding_mode="floor")
     need_gram = spec.rule in GRAM_RULES or spec.pre == "nnm"
-    if batched:
-        y, g = kdispatch.dispatch_bucketgram(flat, assign, nb, backend="cuda",
+    if sh is not None:
+        outs = [kdispatch.dispatch_bucketgram(
+            flat[k], assign[k], nb, backend=backend, with_gram=need_gram,
+            sh=sh) for k in range(flat.shape[0])]
+        y = torch.stack([o[0] for o in outs])
+        g = torch.stack([o[1] for o in outs]) if need_gram else None
+    elif batched:
+        y, g = kdispatch.dispatch_bucketgram(flat, assign, nb, backend=backend,
                                              with_gram=need_gram)
     else:
         y, g = kdispatch.dispatch_bucketgram(flat[0], assign[0], nb,
-                                             backend="cuda",
+                                             backend=backend,
                                              with_gram=need_gram)
         y, g = y[None], None if g is None else g[None]
     return y, bucketlib.adjusted_f_dyn(f, nb).to(torch.int64), g
@@ -795,29 +962,39 @@ def _hier_reduce_lanes(flat: Tensor, spec: AggregatorSpec, f: Tensor, *,
 
 def _aggregate_flat_lanes(work: PyTree, spec: AggregatorSpec, f: Tensor, *,
                           batched: bool, perms=None, signs=None,
-                          internals: Optional[dict] = None) -> PyTree:
+                          internals: Optional[dict] = None,
+                          backend: str = "cuda",
+                          sh: Optional[shardlib.ShardCtx] = None) -> PyTree:
     """Kernel pipeline of the dynamic path: the lanes as one (B, n, D)
     buffer -> [bucket means (K6 / K7, each lane's ``perms``) when hier] ->
     Gram (K5, skipped when K6 gave it; K1 for the single-lane entry point;
     the sketch Gram when ``signs``) -> batched NNM / coefficients -> one
     launch for every lane: combine (K3), mix + trim (K4) or median (K2)
-    -> (B, ...) leaves.  ``internals`` gets the NNM matrices only."""
-    backend = "cuda"
+    -> (B, ...) leaves.  ``internals`` gets the NNM matrices only.  With
+    ``sh`` every rank runs it on its block of the (replicated) lanes and
+    the (B, D/k) slices are gathered."""
     flat, layout = kdispatch.flatten_lane_stack(work)
+    segments = [(off, size) for off, size, _ in layout.segments]
+    n = layout.n
+    x = flat
+    if sh is not None:
+        tile = perms is not None and _hier_tiles(
+            spec, sh, n, _bucket_size_dyn(spec.bucket_size, n))
+        x = sh.take(flat, tile=tile)
     mix_matrix, g = None, None
-    if spec.hier:
-        flat, f, g = _hier_reduce_lanes(flat, spec, f, perms=perms,
-                                        batched=batched)
+    if _hier_active(spec):
+        x, f, g = _hier_reduce_lanes(x, spec, f, perms=perms, batched=batched,
+                                     backend=backend, sh=sh, n=n)
     need_gram = (spec.rule in GRAM_RULES or spec.pre == "nnm") and g is None
     if need_gram and signs is not None:
         g = kdispatch.dispatch_sketch_gram(
-            flat, [(off, size) for off, size, _ in layout.segments],
-            spec.sketch_dim, signs, backend=backend)
+            x, segments, spec.sketch_dim, signs, backend=backend, sh=sh,
+            d=layout.width)
     elif need_gram:
         if batched:
-            g = kdispatch.dispatch_gram_batched(flat, backend=backend)
+            g = kdispatch.dispatch_gram_batched(x, backend=backend, sh=sh)
         else:
-            g = kdispatch.dispatch_gram(flat[0], backend=backend)[None]
+            g = kdispatch.dispatch_gram(x[0], backend=backend, sh=sh)[None]
     if spec.pre == "nnm":
         mix_matrix = gramlib.nnm_matrix_dyn(gramlib.pdist_sq_from_gram(g), f)
         if internals is not None:
@@ -835,22 +1012,22 @@ def _aggregate_flat_lanes(work: PyTree, spec: AggregatorSpec, f: Tensor, *,
             autogm_lamb=spec.autogm_lamb, autogm_iters=spec.autogm_iters)
         if mix_matrix is not None:
             coeff = (coeff[:, None] @ mix_matrix)[:, 0]
-        vec = kdispatch.dispatch_combine(flat, coeff.contiguous(),
-                                         backend=backend)
-        return kdispatch.unflatten_lane_aggregate(vec, layout)
-
-    if spec.rule in COORDINATE_RULES:
-        m = None if mix_matrix is None else mix_matrix.to(flat.dtype)
+        vec = kdispatch.dispatch_combine(x, coeff.contiguous(),
+                                         backend=backend, sh=sh)
+    elif spec.rule in COORDINATE_RULES:
+        m = None if mix_matrix is None else mix_matrix.to(x.dtype)
         if spec.rule == "meamed":
-            vec = kdispatch.dispatch_meamed(flat, m, f, backend=backend,
-                                            dyn=True)
+            vec = kdispatch.dispatch_meamed(x, m, f, backend=backend,
+                                            dyn=True, sh=sh)
         else:
             mode = "med" if spec.rule == "cwmed" else "trim"
-            vec = kdispatch.dispatch_mixtrim(flat, m, f, mode=mode,
-                                             backend=backend, dyn=True)
-        return kdispatch.unflatten_lane_aggregate(vec, layout)
-
-    raise ValueError(f"unknown rule {spec.rule!r}")
+            vec = kdispatch.dispatch_mixtrim(x, m, f, mode=mode,
+                                             backend=backend, dyn=True, sh=sh)
+    else:
+        raise ValueError(f"unknown rule {spec.rule!r}")
+    if sh is not None:
+        vec = sh.gather(vec, layout.width)
+    return kdispatch.unflatten_lane_aggregate(vec, layout)
 
 
 def robust_aggregate_dyn(tree: PyTree, spec: AggregatorSpec, f, *,

@@ -173,18 +173,15 @@ def resilience_lower_bound(n: int, f: int, g_sq: float) -> float:
     return f / (4.0 * (n - 2 * f)) * g_sq
 
 
-def tree_kappa_hat(agg, stack, n_honest: int,
-                   internals: Optional[dict] = None) -> torch.Tensor:
-    """Paper Eq. (26) over worker-stacked pytrees, in fp32:
-    ||R - mbar||^2 / mean_i ||m_i - mbar||^2 over the first ``n_honest``
-    rows, returned as its square root.  Leaves are reduced in column chunks
-    of :data:`KAPPA_CHUNK`.
-
-    ``internals`` (the health taps' input, :mod:`repro_torch.obs.taps`):
-    pass a dict and the same chunk loop also sums R . mbar and ||mbar||^2;
-    they are stored with ||R - mbar||^2 as ``"honest_dot"``,
-    ``"honest_mean_sq"`` and ``"honest_sq_dist"`` (0-d fp32), so the taps
-    need no D-sized honest mean and no second pass over the stack."""
+def kappa_hat_sums(agg, stack, n_honest: int, *,
+                   moments: bool = False) -> torch.Tensor:
+    """The fp32 sums of :func:`tree_kappa_hat` over worker-stacked pytrees:
+    ||R - mbar||^2 and mean_i ||m_i - mbar||^2 over the first
+    ``n_honest`` rows, and with ``moments`` also R . mbar and ||mbar||^2
+    (a (4,) tensor, else (2,)), each summed over the leaves' column chunks
+    of :data:`KAPPA_CHUNK`.  Every term is a sum over columns, so a column
+    block's sums add up across blocks (the sharded trainer all-reduces
+    them)."""
     leaves = tree_leaves(stack)
     dev = leaves[0].device
     num = torch.zeros((), dtype=torch.float32, device=dev)
@@ -201,13 +198,39 @@ def tree_kappa_hat(agg, stack, n_honest: int,
             ac = a1[c0:c0 + KAPPA_CHUNK].float()
             num += torch.sum((ac - mbar) ** 2)
             den += torch.mean(torch.sum((h - mbar) ** 2, dim=1))
-            if internals is not None:
+            if moments:
                 dot += torch.sum(ac * mbar)
                 msq += torch.sum(mbar * mbar)
+    return torch.stack([num, den, dot, msq] if moments else [num, den])
+
+
+def kappa_hat_from_sums(sums: torch.Tensor,
+                        internals: Optional[dict] = None) -> torch.Tensor:
+    """sqrt(||R - mbar||^2 / (mean_i ||m_i - mbar||^2 + 1e-20)) from
+    :func:`kappa_hat_sums`; ``internals`` (the sums taken with
+    ``moments``) as :func:`tree_kappa_hat` fills it."""
+    num, den = sums[0], sums[1]
     if internals is not None:
-        internals.update(honest_sq_dist=num, honest_dot=dot,
-                         honest_mean_sq=msq)
+        internals.update(honest_sq_dist=num, honest_dot=sums[2],
+                         honest_mean_sq=sums[3])
     return torch.sqrt(num / (den + 1e-20))
+
+
+def tree_kappa_hat(agg, stack, n_honest: int,
+                   internals: Optional[dict] = None) -> torch.Tensor:
+    """Paper Eq. (26) over worker-stacked pytrees, in fp32:
+    ||R - mbar||^2 / mean_i ||m_i - mbar||^2 over the first ``n_honest``
+    rows, returned as its square root.  Leaves are reduced in column chunks
+    of :data:`KAPPA_CHUNK` (:func:`kappa_hat_sums`).
+
+    ``internals`` (the health taps' input, :mod:`repro_torch.obs.taps`):
+    pass a dict and the same chunk loop also sums R . mbar and ||mbar||^2;
+    they are stored with ||R - mbar||^2 as ``"honest_dot"``,
+    ``"honest_mean_sq"`` and ``"honest_sq_dist"`` (0-d fp32), so the taps
+    need no D-sized honest mean and no second pass over the stack."""
+    return kappa_hat_from_sums(
+        kappa_hat_sums(agg, stack, n_honest, moments=internals is not None),
+        internals)
 
 
 def empirical_kappa_hat(agg_out: torch.Tensor, stack: torch.Tensor,

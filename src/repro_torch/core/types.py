@@ -12,9 +12,13 @@ from typing import Optional
 #: Backends of the port.  "torch" is the leaf-streamed plain path (the
 #: reference's "xla"); "cuda" flattens the worker stack to one (n, D)
 #: buffer and runs the hand-written gram / combine / mixtrim kernels (the
-#: reference's "pallas"); "auto" picks "cuda" for a CUDA stack and "torch"
-#: otherwise.
-BACKENDS = ("torch", "cuda", "auto")
+#: reference's "pallas"); "cuda_sharded" runs them on each rank's column
+#: block of a multi-rank mesh (the reference's "pallas_sharded"), and
+#: "cuda_hier" adds the hierarchical stage, its stack split along workers
+#: and columns on a 2-D mesh (the reference's "pallas_hier"); "auto" picks
+#: the sharded form on CUDA under a multi-rank mesh, "cuda" for a CUDA
+#: stack and "torch" otherwise.
+BACKENDS = ("torch", "cuda", "cuda_sharded", "cuda_hier", "auto")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,10 +29,8 @@ class AggregatorSpec:
     inserts the single-device hierarchical bucketing stage (bucket size
     ``bucket_size``, default floor(n/2f)); ``pre`` is None, "nnm" or
     "bucketing".  ``sketch_dim`` > 0 takes the Gram of a signed
-    (n, sketch_dim) sketch when randomness is given.  The reference's
-    sharded backends are not ported yet;
-    :func:`repro_torch.core.robust.robust_aggregate` rejects them with an
-    error naming the ROADMAP item.
+    (n, sketch_dim) sketch when randomness is given.  ``backend`` is one
+    of :data:`BACKENDS`; "cuda_hier" implies the hierarchical stage.
     """
 
     rule: str = "cwtm"

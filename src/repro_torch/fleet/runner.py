@@ -343,6 +343,15 @@ def _tree_sig(tree: PyTree) -> tuple:
                  for leaf in tree_leaves(tree))
 
 
+def _mesh_sig() -> tuple:
+    """Hashable fingerprint of the mesh the aggregation would shard over
+    (``launch.mesh.mesh_signature``): a bucket's round routes its
+    aggregation by it, so two meshes (or world sizes) never share a
+    bucket."""
+    from repro_torch.launch.mesh import mesh_signature
+    return mesh_signature()
+
+
 def bucket_key(job: FleetJob, *, chunk: Optional[int] = None) -> tuple:
     """The static skeleton a lane-batched round is built for; everything
     else (f, attack family, eta, beta, local_lr, lr, seed, rounds) is a
@@ -357,7 +366,7 @@ def bucket_key(job: FleetJob, *, chunk: Optional[int] = None) -> tuple:
             c.agg.gm_iters, c.agg.gm_eps,
             c.agg.autogm_lamb, c.agg.autogm_iters,
             c.agg.transport_dtype, c.agg.sketch_dim, c.agg.backend,
-            c.track_kappa_hat, c.taps,
+            _mesh_sig(), c.track_kappa_hat, c.taps,
             poison_signature(c.poison), c.guard,
             job.loss_fn, job.optimizer,
             _tree_sig(job.params), _tree_sig(probe), chunk)

@@ -25,6 +25,17 @@ worker-stacked pytree:
   with an einsum outside any Pallas kernel, so the port runs torch
   contractions and records them by name (``"sketch_gram"``).
 
+Under a multi-rank mesh (:mod:`repro_torch.launch.mesh`), "cuda_sharded"
+and "cuda_hier" run the same primitives on each rank's block
+(:mod:`repro_torch.kernels.shard`, passed as ``sh``): the Grams (K1, K5,
+K6's) all-reduce their (n, n) partials, combine / mixtrim / meamed stay
+shard-local, and the hierarchical stage's 2-D form all-reduces the
+partial bucket means of K7 over the worker axis.  Each collective is a
+``collective:<op>`` decision with its transport (``nccl`` or
+``gloo``).  :func:`resolve_shard_mesh` / :func:`resolve_hier_mesh`
+find the mesh; without one the pipeline degrades, and the degrade is a
+recorded ``pipeline`` fallback (``core.robust``).
+
 Every decision lands on a :class:`DispatchRecord` in a bounded ring
 (:func:`last_dispatch`), so a requested kernel
 path that quietly ran torch ops is detectable; each record is also a
@@ -42,6 +53,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.types import BACKENDS
+from repro_torch.kernels import shard as shardlib
 from repro_torch.kernels.bucketgram import REG_NB as _BUCKETGRAM_REG_NB
 from repro_torch.kernels.bucketgram import assignment_matrix as _assignment_matrix
 from repro_torch.kernels.bucketgram import bucket_means_gram_ref as _bucketgram_ref
@@ -78,8 +90,11 @@ KERNELS = {"gram": _gram_op, "mixtrim": _mixtrim_op, "combine": _combine_op,
            "combine_lanes": _combine_lanes_op,
            "mixtrim_lanes": _mixtrim_lanes_op}
 
-#: The reference's backends that the port does not run yet.
-UNPORTED_BACKENDS = ("pallas_sharded", "pallas_hier")
+#: Backends that run the kernels (the remaining ones run torch ops).
+KERNEL_BACKENDS = ("cuda", "cuda_sharded", "cuda_hier")
+
+#: Backends whose primitives run on each rank's block of a mesh.
+SHARDED_BACKENDS = ("cuda_sharded", "cuda_hier")
 
 
 def launch_counts() -> dict[str, int]:
@@ -92,19 +107,39 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def resolve_backend(requested: str, device: torch.device) -> str:
-    """Resolve "auto": the kernels for a CUDA stack, the torch path
-    otherwise.  Explicit requests are honoured."""
-    if requested in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend {requested!r} (the multi-device mesh forms) is not "
-            f"ported yet (ROADMAP queue 1, item 13)")
+def resolve_backend(requested: str, device: torch.device, *,
+                    hier: bool = False) -> str:
+    """Resolve "auto": on a CUDA stack "cuda_hier" (``hier``) or
+    "cuda_sharded" when a mesh with more than one rank along its
+    aggregation axis is active (:func:`resolve_shard_mesh`), else "cuda";
+    the torch path for a CPU stack.  Explicit requests are honoured:
+    "cuda_sharded" / "cuda_hier" without a mesh degrade at dispatch time,
+    recorded."""
     if requested not in BACKENDS:
         raise ValueError(
-            f"backend {requested!r} is not ported; expected one of {BACKENDS}")
+            f"unknown backend {requested!r}; expected one of {BACKENDS}")
     if requested == "auto":
-        return "cuda" if device.type == "cuda" else "torch"
+        if device.type != "cuda":
+            return "torch"
+        if resolve_shard_mesh() is None:
+            return "cuda"
+        return "cuda_hier" if hier else "cuda_sharded"
     return requested
+
+
+def resolve_shard_mesh():
+    """(mesh, axis) for the sharded backend, or None without a multi-rank
+    mesh (``launch.mesh.aggregation_mesh``)."""
+    from repro_torch.launch.mesh import aggregation_mesh
+    return aggregation_mesh()
+
+
+def resolve_hier_mesh():
+    """(mesh, worker_axis | None, model_axis) for the hierarchical
+    backend, or None without a multi-rank mesh (worker_axis None: the
+    1-D form, D split only)."""
+    from repro_torch.launch.mesh import hier_aggregation_mesh
+    return hier_aggregation_mesh()
 
 
 # ---------------------------------------------------------------------------
@@ -114,16 +149,18 @@ def resolve_backend(requested: str, device: torch.device) -> str:
 @dataclasses.dataclass
 class KernelDecision:
     """One primitive-level routing decision."""
-    primitive: str          # "gram" | "combine" | "mixtrim" | "bucketgram" | ...
+    primitive: str          # "gram" | "combine" | "mixtrim" | "bucketgram" |
+                            # ... | "collective:<op>" (requested "mesh")
     requested: str          # backend asked for at this call site
     used: str               # "cuda" | "plain" (a kernel's plain version) |
                             # "torch" | "skipped" (s = 1 hierarchical stage)
+                            # | a collective's transport
     reason: str = ""        # why `used` differs from the kernel path
 
     @property
     def fell_back(self) -> bool:
-        return self.requested == "cuda" and self.used not in ("cuda",
-                                                              "skipped")
+        return self.requested in KERNEL_BACKENDS and self.used not in (
+            "cuda", "skipped")
 
 
 @dataclasses.dataclass
@@ -141,6 +178,14 @@ class DispatchRecord:
     #: static path).
     dyn: bool = False
     lanes: Optional[int] = None
+    #: The mesh the sharded backends ran over: ranks the stack was split
+    #: across (1: unsharded; a "cuda_sharded" / "cuda_hier" record with 1
+    #: is a DEGRADED request, paired with a recorded "pipeline" fallback),
+    #: the axis D was split along, and on the 2-D hierarchical form the
+    #: axis the worker rows were split along.
+    mesh_devices: int = 1
+    mesh_axis: Optional[str] = None
+    mesh_worker_axis: Optional[str] = None
     decisions: list = dataclasses.field(default_factory=list)
 
     @property
@@ -151,8 +196,12 @@ class DispatchRecord:
     def describe(self) -> str:
         hier = f" hier(s={self.bucket_size or 'auto'})" if self.hier else ""
         dyn = f" dyn lanes={self.lanes}" if self.dyn else ""
+        mesh = f" mesh={self.mesh_devices}x{self.mesh_axis}" \
+            if self.mesh_axis else ""
+        if self.mesh_worker_axis:
+            mesh += f" workers={self.mesh_worker_axis}"
         parts = [f"{self.requested}->{self.backend} rule={self.rule} "
-                 f"pre={self.pre or 'none'}{hier}{dyn}"]
+                 f"pre={self.pre or 'none'}{hier}{dyn}{mesh}"]
         for d in self.decisions:
             why = f" ({d.reason})" if d.reason else ""
             parts.append(f"  {d.primitive}: {d.used}{why}")
@@ -161,6 +210,7 @@ class DispatchRecord:
 
 DISPATCH_HISTORY_LIMIT = 256
 _HISTORY: deque = deque(maxlen=DISPATCH_HISTORY_LIMIT)
+_OPENED = 0                 # lifetime records opened (the ring may drop)
 
 
 def last_dispatch() -> Optional[DispatchRecord]:
@@ -175,14 +225,25 @@ def dispatch_history(limit: Optional[int] = None) -> list:
     return records if limit is None else records[-limit:]
 
 
+def dispatch_count() -> int:
+    """Records ever opened in this process (monotone, unlike the ring)."""
+    return _OPENED
+
+
 def open_record(*, requested: str, backend: str, rule: str,
                 pre: Optional[str], hier: bool = False,
                 bucket_size: Optional[int] = None, dyn: bool = False,
-                lanes: Optional[int] = None) -> DispatchRecord:
+                lanes: Optional[int] = None, mesh_devices: int = 1,
+                mesh_axis: Optional[str] = None,
+                mesh_worker_axis: Optional[str] = None) -> DispatchRecord:
+    global _OPENED
     rec = DispatchRecord(requested=requested, backend=backend, rule=rule,
                          pre=pre, hier=hier, bucket_size=bucket_size,
-                         dyn=dyn, lanes=lanes)
+                         dyn=dyn, lanes=lanes, mesh_devices=mesh_devices,
+                         mesh_axis=mesh_axis,
+                         mesh_worker_axis=mesh_worker_axis)
     _HISTORY.append(rec)
+    _OPENED += 1
     # The runtime ring holds the live record: the decisions appended below
     # reach its exports.  Imported here: obs.runtime re-exports this module.
     from repro_torch.obs import runtime as obs_runtime
@@ -320,8 +381,13 @@ def _used(x: torch.Tensor) -> tuple[str, str]:
     return "plain", "CPU stack: the kernel's plain version"
 
 
-def dispatch_gram(x: torch.Tensor, *, backend: str) -> torch.Tensor:
-    """(n, D) -> (n, n) fp32 Gram matrix through the chosen backend."""
+def dispatch_gram(x: torch.Tensor, *, backend: str,
+                  sh: Optional[shardlib.ShardCtx] = None) -> torch.Tensor:
+    """(n, D) -> (n, n) fp32 Gram matrix through the chosen backend; with
+    ``sh`` ``x`` is this rank's block and the partials are all-reduced."""
+    if sh is not None:
+        record_decision("gram", backend, *_used(x))
+        return shardlib.sharded_gram(x, mesh=sh.mesh, axis=sh.axis)
     if backend == "cuda":
         record_decision("gram", backend, *_used(x))
         return _gram_op(x)
@@ -336,55 +402,85 @@ SKETCH_CHUNK = 1 << 24
 
 def sketch_fold(x: torch.Tensor, segments, sketch_dim: int, signs: list,
                 *, chunk: int = SKETCH_CHUNK,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None,
+                c0: int = 0) -> torch.Tensor:
     """The signed sketch (L, n, sketch_dim) fp32 of an (L, n, D) stack.
 
     Every ``(offset, size)`` of ``segments`` is one leaf: cut from its own
     offset into chunks of ``sketch_dim`` columns, the last one padded with
     zeros, and chunk c of lane l added with sign ``signs[i][l, c]`` (leaf
     i's (L, ceil(size / sketch_dim)) ±1 tensor; a (C,) tensor when L = 1).
-    A segment's full chunks are folded as (n, k, sketch_dim) views, its
-    tail on its own, so no padded copy of the stack is made.  ``out``: an
-    (L, n, sketch_dim) fp32 sketch to add into (and return)."""
-    lanes, n = x.shape[:2]
+    A segment's full chunks are folded as (n, k, sketch_dim) views, a
+    partial chunk at either end on its own, so no padded copy of the stack
+    is made.  ``out``: an (L, n, sketch_dim) fp32 sketch to add into (and
+    return).  ``c0``: ``x`` holds the global columns [c0, c0 + w) of a
+    wider stack (one rank's block; ``segments`` stay global): its part of
+    the sketch, which summed over the blocks is the whole stack's."""
+    lanes, n, w = x.shape
     s = sketch_dim
     sk = out if out is not None else torch.zeros(
         (lanes, n, s), dtype=torch.float32, device=x.device)
     step = max(1, chunk // s)
     for (off, size), sg in zip(segments, signs):
+        # The leaf's columns [lo, hi) that lie in the block.
+        lo, hi = max(off, c0) - off, min(off + size, c0 + w) - off
+        if lo >= hi:
+            continue
         sg = torch.as_tensor(sg).to(device=x.device,
                                     dtype=torch.float32).reshape(lanes, -1)
-        full = size // s
-        for c0 in range(0, full, step):
-            c1 = min(c0 + step, full)
-            v = x[:, :, off + c0 * s: off + c1 * s].reshape(
-                lanes, n, c1 - c0, s).float()
-            sk += torch.matmul(sg[:, None, None, c0:c1], v)[:, :, 0]
-        tail = size - full * s
-        if tail:
-            v = x[:, :, off + full * s: off + size].float()
-            sk[:, :, :tail] += sg[:, full, None, None] * v
+        base = off - c0                     # x's column of the leaf's 0
+        head = min(hi, -(-lo // s) * s)     # lo's chunk, when lo is inside it
+        if head > lo:
+            v = x[:, :, base + lo:base + head].float()
+            sk[:, :, lo % s:lo % s + head - lo] += \
+                sg[:, lo // s, None, None] * v
+        first, full = head // s, hi // s
+        for k0 in range(first, full, step):
+            k1 = min(k0 + step, full)
+            v = x[:, :, base + k0 * s:base + k1 * s].reshape(
+                lanes, n, k1 - k0, s).float()
+            sk += torch.matmul(sg[:, None, None, k0:k1], v)[:, :, 0]
+        t = max(head, full * s)
+        if hi > t:
+            v = x[:, :, base + t:base + hi].float()
+            sk[:, :, :hi - t] += sg[:, full, None, None] * v
     return sk
 
 
 def dispatch_sketch_gram(x: torch.Tensor, segments, sketch_dim: int,
-                         signs: list, *, backend: str) -> torch.Tensor:
+                         signs: list, *, backend: str,
+                         sh: Optional[shardlib.ShardCtx] = None,
+                         d: Optional[int] = None) -> torch.Tensor:
     """The sketch Gram of an (n, D) stack ((B, n, D) with (B, C_i) signs
     per leaf gives (B, n, n)): :func:`sketch_fold`, then sk sk^T, both
     torch ops on every backend, recorded as the ``"sketch_gram"``
-    decision (no kernel: K1 is skipped)."""
+    decision (no kernel: K1 is skipped).  With ``sh``, ``x`` is this
+    rank's column block of a D-wide stack: its part of the sketch
+    (:func:`sketch_fold` from its first column) is all-reduced before
+    the product."""
     record_decision("sketch_gram", backend, "torch",
                     "sketch_dim: the signed sketch fold and its Gram are "
                     "torch contractions (no kernel in the reference either)")
     lanes = x.dim() == 3
-    sk = sketch_fold(x if lanes else x[None], segments, sketch_dim, signs)
+    x3 = x if lanes else x[None]
+    if sh is not None:
+        sk = sketch_fold(x3, segments, sketch_dim, signs, c0=sh.cols(d)[0])
+        sk = sh.mesh.all_reduce(sk, sh.axis)
+    else:
+        sk = sketch_fold(x3, segments, sketch_dim, signs)
     g = sk @ sk.mT
     return g if lanes else g[0]
 
 
-def dispatch_gram_batched(x: torch.Tensor, *, backend: str) -> torch.Tensor:
+def dispatch_gram_batched(x: torch.Tensor, *, backend: str,
+                          sh: Optional[shardlib.ShardCtx] = None
+                          ) -> torch.Tensor:
     """(B, n, D) -> (B, n, n): the lane-batched Gram pass, one launch for a
-    whole fleet bucket (K5)."""
+    whole fleet bucket (K5); with ``sh`` K5 on this rank's block and an
+    all-reduce of the partials."""
+    if sh is not None:
+        record_decision("gram_batched", backend, *_used(x))
+        return shardlib.sharded_gram(x, mesh=sh.mesh, axis=sh.axis)
     if backend == "cuda":
         record_decision("gram_batched", backend, *_used(x))
         return _gram_batched_op(x)
@@ -394,7 +490,8 @@ def dispatch_gram_batched(x: torch.Tensor, *, backend: str) -> torch.Tensor:
 
 def dispatch_bucketgram(x: torch.Tensor, assignment: torch.Tensor,
                         n_buckets: int, *, backend: str,
-                        with_gram: bool = True
+                        with_gram: bool = True,
+                        sh: Optional[shardlib.ShardCtx] = None
                         ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(n, D) stack + (n,) bucket ids -> (bucket means (n_b, D) in the
     stack dtype, reduced (n_b, n_b) fp32 Gram | None): the hierarchical
@@ -403,7 +500,27 @@ def dispatch_bucketgram(x: torch.Tensor, assignment: torch.Tensor,
 
     The lane form: x (B, n, D) and (B, n) bucket ids, one row a lane ->
     ((B, n_b, D), (B, n_b, n_b) | None), every lane in one launch of K6 /
-    K7's lane form (K5 on the means above 8 buckets)."""
+    K7's lane form (K5 on the means above 8 buckets).
+
+    With ``sh`` (one lane): ``x`` is this rank's block ((n, D/k), or its
+    worker tile on the 2-D form) and ``shard.sharded_bucketgram`` runs K6
+    / K7 on it with its collectives."""
+    if sh is not None:
+        two_d = sh.worker_axis is not None
+        name = "bucketmeans" if two_d or not with_gram else "bucketgram"
+        record_decision(name, backend, *_used(x))
+        if two_d and with_gram:
+            record_decision("gram", backend, _used(x)[0],
+                            "2-D hierarchical form: the Gram of the summed "
+                            "means is a K1 launch")
+        elif with_gram and n_buckets > _BUCKETGRAM_REG_NB:
+            record_decision("gram", backend, _used(x)[0],
+                            f"n_b={n_buckets} > {_BUCKETGRAM_REG_NB}: the "
+                            f"Gram of the fp32 means is a K1 launch")
+        return shardlib.sharded_bucketgram(
+            x, assignment, n_buckets, mesh=sh.mesh,
+            worker_axis=sh.worker_axis, model_axis=sh.axis,
+            with_gram=with_gram)
     lanes = x.dim() == 3
     name = ("bucketgram" if with_gram else "bucketmeans") + (
         "_lanes" if lanes else "")
@@ -431,11 +548,16 @@ def dispatch_bucketgram(x: torch.Tensor, assignment: torch.Tensor,
 
 
 def dispatch_combine(x: torch.Tensor, coeff: torch.Tensor, *,
-                     backend: str) -> torch.Tensor:
+                     backend: str, sh: Optional[shardlib.ShardCtx] = None
+                     ) -> torch.Tensor:
     """(n, D), (n,) -> (D,): streamed linear combination; (B, n, D), (B,
-    n) -> (B, D): every lane in one launch of K3's lane form."""
+    n) -> (B, D): every lane in one launch of K3's lane form.  With
+    ``sh``: this rank's slice, shard-local."""
     lanes = x.dim() == 3
     name = "combine_lanes" if lanes else "combine"
+    if sh is not None:
+        record_decision(name, backend, *_used(x))
+        return shardlib.sharded_combine(x, coeff, mesh=sh.mesh, axis=sh.axis)
     if backend == "cuda":
         record_decision(name, backend, *_used(x))
         return (_combine_lanes_op if lanes else _combine_op)(x, coeff)
@@ -444,7 +566,8 @@ def dispatch_combine(x: torch.Tensor, coeff: torch.Tensor, *,
 
 
 def dispatch_mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f, *,
-                     mode: str, backend: str, dyn: bool = False
+                     mode: str, backend: str, dyn: bool = False,
+                     sh: Optional[shardlib.ShardCtx] = None
                      ) -> torch.Tensor:
     """(n, D) -> (D,): fused mix + coordinate trim/median (``m=None``
     skips the mix).
@@ -452,7 +575,14 @@ def dispatch_mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f, *,
     ``dyn=True`` is the fleet's form: x (B, n, D), m (B, n, n) or None and
     f a (B,) int tensor -> (B, D), every lane in one launch: "trim" runs
     K4; "med" ignores f and runs K2's median lane form (the reference
-    vmaps its static kernel there)."""
+    vmaps its static kernel there).  With ``sh``: this rank's slice,
+    shard-local."""
+    if sh is not None:
+        name = "mixtrim" if not dyn else (
+            "mixtrim_dyn" if mode == "trim" else "mixtrim_lanes")
+        record_decision(name, backend, *_used(x))
+        return shardlib.sharded_mixtrim(x, m, f, mode=mode, mesh=sh.mesh,
+                                        axis=sh.axis, dyn=dyn)
     if dyn:
         return _dispatch_mixtrim_lanes(x, m, f, mode=mode, backend=backend)
     f = 0 if mode == "med" else int(f)
@@ -477,10 +607,17 @@ def _dispatch_mixtrim_lanes(x: torch.Tensor, m: Optional[torch.Tensor], f,
 
 
 def dispatch_meamed(x: torch.Tensor, m: Optional[torch.Tensor], f, *,
-                    backend: str, dyn: bool = False) -> torch.Tensor:
+                    backend: str, dyn: bool = False,
+                    sh: Optional[shardlib.ShardCtx] = None) -> torch.Tensor:
     """meamed on the flat buffer.  No kernel exists (as in the reference),
     so this is always a RECORDED torch-ops decision.  ``dyn=True``: x (B,
-    n, D), m (B, n, n) or None, f (B,) int tensor -> (B, D)."""
+    n, D), m (B, n, n) or None, f (B,) int tensor -> (B, D).  With
+    ``sh`` the torch form runs on this rank's block (shard-local)."""
+    if sh is not None:
+        record_decision("mixtrim", backend, "torch",
+                        "meamed has no fused kernel (shard-local torch form)")
+        return shardlib.sharded_meamed(x, m, f, mesh=sh.mesh, axis=sh.axis,
+                                       dyn=dyn)
     record_decision("mixtrim", backend, "torch", "meamed has no fused kernel")
     from repro_torch.core.robust import _coordinate_rule, _coordinate_rule_lanes
     mixed = x if m is None else m.float() @ x.float()

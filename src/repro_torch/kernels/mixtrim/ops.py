@@ -54,17 +54,31 @@ _BLOCKS_PER_SM = 16
 MAX_N = 16384
 
 
+def sum_rows(y: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum along ``dim`` by pairwise elementwise adds (``dim`` removed).
+    Each column's sum depends on that column alone, whereas a reduction
+    kernel's order can change with the row's width: a column block of a
+    stack (the sharded backends' shard) sums bit for bit as the whole."""
+    while y.shape[dim] > 1:
+        k = y.shape[dim]
+        h = k // 2
+        pairs = y.narrow(dim, 0, h) + y.narrow(dim, h, h)
+        y = pairs if k % 2 == 0 else torch.cat(
+            [pairs, y.narrow(dim, 2 * h, 1)], dim)
+    return y.squeeze(dim)
+
+
 def mixtrim_ref(x: torch.Tensor, m: Optional[torch.Tensor], f: int,
                 mode: str = "trim") -> torch.Tensor:
     """Plain version: Y = M @ X in fp32 (X alone when ``m`` is None), then
-    the mean of sorted ranks [f, n-f) (the mean of Y when f == 0) or the
-    median; (D,) fp32."""
+    the mean of sorted ranks [f, n-f) (the mean of Y when f == 0; sums by
+    :func:`sum_rows`) or the median; (D,) fp32."""
     n = x.shape[0]
     y = x.float() if m is None else m.float() @ x.float()
     if mode == "trim":
         if f == 0:
-            return y.mean(dim=0)
-        return sort_nan_last(y, 0)[f: n - f].mean(dim=0)
+            return sum_rows(y, 0) / n
+        return sum_rows(sort_nan_last(y, 0)[f: n - f], 0) / (n - 2 * f)
     if mode == "med":
         ys = sort_nan_last(y, 0)
         if n % 2 == 1:
@@ -155,8 +169,9 @@ def mixtrim_dyn_ref(x: torch.Tensor, m: Optional[torch.Tensor], f,
                     mode: str = "trim") -> torch.Tensor:
     """Plain version of K4: Y = M @ X per lane in fp32 (X alone when ``m``
     is None), a NaN-last sort along the worker axis, then ``"trim"``: the
-    sum of ys[r] * keep[r] over all n ranks, keep = (r >= f) & (r < n - f),
-    over max(n - 2f, 1); ``"med"``: the median (f unused).  x is (B, n, D)
+    sum of ys[r] * keep[r] over all n ranks (:func:`sum_rows`), keep =
+    (r >= f) & (r < n - f), over max(n - 2f, 1); ``"med"``: the median (f
+    unused).  x is (B, n, D)
     with (B, n, n) m and (B,) f, or (n, D) with (n, n) m and a scalar f;
     returns (B, D) / (D,) fp32."""
     x, m, f, batched = _as_lanes(x, m, f)
@@ -168,7 +183,7 @@ def mixtrim_dyn_ref(x: torch.Tensor, m: Optional[torch.Tensor], f,
         i = torch.arange(n, device=x.device).reshape(1, n, 1)
         keep = ((i >= f) & (i < n - f)).float()
         denom = torch.clamp_min((n - 2 * f).float(), 1.0)[:, 0]
-        out = (ys * keep).sum(dim=1) / denom
+        out = sum_rows(ys * keep, 1) / denom
     elif mode == "med":
         if n % 2 == 1:
             out = ys[:, n // 2]

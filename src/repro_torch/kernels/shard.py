@@ -1,0 +1,244 @@
+"""Multi-rank forms of the aggregation kernels (counterpart of
+``repro.kernels.shard``: ``backend="cuda_sharded"`` / ``"cuda_hier"``).
+
+The reference shard_maps each single-device Pallas kernel over a mesh
+axis, with the global (n, D) array split by ``PartitionSpec``.  Here every
+rank of a ``torch.distributed`` world holds its own block, so the API
+changes shape: a rank passes ITS block of the global flat stack, the
+columns :func:`column_block` gives it along the D axis ((n, D/k); on the
+2-D hierarchical mesh the (n/w, D/k) tile of the worker rows
+:func:`row_block` gives it), and gets back its (D/k,) slice of the
+aggregate; :func:`gather_columns` rebuilds the whole vector.  The
+columns split as the reference's: ceil(D/k) per rank, the last rank
+short (the reference's zero padding, which adds nothing to a Gram and
+whose outputs are cut off).
+
+* :func:`sharded_gram` — K1 (K5 for a (B, n, D/k) lane block) on the
+  block, then an all-reduce of the (n, n) partial Grams: the pipeline's
+  only collective;
+* :func:`sharded_combine` (K3 / its lane form), :func:`sharded_mixtrim`
+  (K2 static f; K4 and K2's median lane form on the dynamic path) and
+  :func:`sharded_meamed` (torch ops: meamed has no kernel) — shard-local,
+  per column;
+* :func:`sharded_bucketgram` — the hierarchical pre-reduction.  1-D: K6
+  (K7 without a Gram) on the (n, D/k) block, then an all-reduce of the
+  partial Gram.  2-D (workers x model): K7 on the (n/w, D/k) tile with
+  the GLOBAL 1/|bucket| weights and bucket count (a tile may miss a
+  bucket; its workers' weights are not its own count's), an all-reduce of
+  the (n_b, D/k) partial means over the worker axis, K1 on the means and
+  an all-reduce of their Gram over the model axis.  A NaN row on one
+  tile makes every bucket of its columns NaN (0 * NaN in K7's dense
+  semantics) and the sum keeps it.
+
+On CPU blocks the wrappers run their plain versions (the tests' gloo
+worlds).  Routing and decision records stay in
+:mod:`repro_torch.kernels.dispatch`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.bucketgram import bucketgram as _bucketgram_op
+from repro_torch.kernels.bucketgram import bucketmeans as _bucketmeans_op
+from repro_torch.kernels.combine import combine as _combine_op
+from repro_torch.kernels.combine import combine_lanes as _combine_lanes_op
+from repro_torch.kernels.gram import gram as _gram_op
+from repro_torch.kernels.gram import gram_batched as _gram_batched_op
+from repro_torch.kernels.mixtrim import mixtrim as _mixtrim_op
+from repro_torch.kernels.mixtrim import mixtrim_dyn as _mixtrim_dyn_op
+from repro_torch.kernels.mixtrim import mixtrim_lanes as _mixtrim_lanes_op
+
+Tensor = torch.Tensor
+
+
+def axis_size(mesh, axis: str) -> int:
+    """Rank count along one named mesh axis."""
+    return mesh.size(axis)
+
+
+def column_block(d: int, k: int, j: int) -> tuple[int, int]:
+    """Columns [c0, c1) of block j of a D-wide stack split over k ranks:
+    ceil(D/k) each, the last block short."""
+    w = -(-d // k)
+    c0 = min(j * w, d)
+    return c0, min(c0 + w, d)
+
+
+def row_block(n: int, w: int, j: int) -> tuple[int, int]:
+    """Worker rows [r0, r1) of tile j of n workers split over w ranks:
+    ceil(n/w) each, the last tile short (the reference's phantom rows)."""
+    return column_block(n, w, j)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """One rank's place in a sharded aggregation: the mesh, the axis D is
+    split over, and (2-D hierarchical form) the axis the worker rows are
+    split over."""
+    mesh: object
+    axis: str
+    worker_axis: Optional[str] = None
+
+    @property
+    def k(self) -> int:
+        return self.mesh.size(self.axis)
+
+    @property
+    def kw(self) -> int:
+        return 1 if self.worker_axis is None else self.mesh.size(
+            self.worker_axis)
+
+    @property
+    def devices(self) -> int:
+        return self.k * self.kw
+
+    def cols(self, d: int) -> tuple[int, int]:
+        return column_block(d, self.k, self.mesh.index(self.axis))
+
+    def rows(self, n: int) -> tuple[int, int]:
+        if self.worker_axis is None:
+            return 0, n
+        return row_block(n, self.kw, self.mesh.index(self.worker_axis))
+
+    def take(self, flat: Tensor, *, tile: bool = False) -> Tensor:
+        """This rank's contiguous block of a replicated (n, D) or (B, n,
+        D) stack; ``tile`` also cuts its worker rows (2-D form)."""
+        c0, c1 = self.cols(flat.shape[-1])
+        x = flat[..., c0:c1]
+        if tile and self.worker_axis is not None:
+            r0, r1 = self.rows(flat.shape[-2])
+            x = x[..., r0:r1, :]
+        return x.contiguous()
+
+    def gather(self, local: Tensor, d: int) -> Tensor:
+        """The whole (D,) (or (B, D)) vector from every rank's slice along
+        :attr:`axis`: padded to ceil(D/k), all-gathered, cut to D."""
+        return gather_columns(local, d, mesh=self.mesh, axis=self.axis)
+
+
+def gather_columns(local: Tensor, d: int, *, mesh, axis: str) -> Tensor:
+    """(..., D) from each rank's (..., c1 - c0) column slice along ``axis``
+    (:func:`column_block`), in rank order."""
+    k = mesh.size(axis)
+    w = -(-d // k)
+    lead = tuple(local.shape[:-1])
+    buf = local.new_zeros(lead + (w,))
+    buf[..., :local.shape[-1]] = local
+    rows = buf.reshape(-1, w).mT.contiguous()          # (w, L)
+    full = mesh.all_gather(rows, axis)                  # (k w, L)
+    return full.mT.reshape(lead + (k * w,))[..., :d].contiguous()
+
+
+def sharded_gram(block: Tensor, *, mesh, axis: str) -> Tensor:
+    """(n, D/k) -> replicated (n, n) fp32 Gram: K1 on the block, then an
+    all-reduce of the partials ((B, n, D/k) -> (B, n, n): K5)."""
+    lanes = block.dim() == 3
+    if block.shape[-1] == 0:
+        n = block.shape[-2]
+        g = torch.zeros(block.shape[:-2] + (n, n), dtype=torch.float32,
+                        device=block.device)
+    else:
+        g = (_gram_batched_op if lanes else _gram_op)(block)
+    return mesh.all_reduce(g.contiguous(), axis)
+
+
+def sharded_combine(block: Tensor, coeff: Tensor, *, mesh, axis: str
+                    ) -> Tensor:
+    """(n, D/k), replicated (n,) -> this rank's (D/k,) slice of c X (the
+    lane form for (B, n, D/k) and (B, n)).  Shard-local."""
+    del mesh, axis
+    if block.shape[-1] == 0:
+        return block.new_zeros(block.shape[:-2] + (0,), dtype=torch.float32)
+    return (_combine_lanes_op if block.dim() == 3 else _combine_op)(
+        block, coeff)
+
+
+def sharded_mixtrim(block: Tensor, m: Optional[Tensor], f, *, mode: str,
+                    mesh, axis: str, dyn: bool = False) -> Tensor:
+    """(n, D/k) -> this rank's (D/k,) slice of the fused mix + trim /
+    median (K2).  ``dyn``: a (B, n, D/k) lane block with (B, n, n) or no
+    mix and (B,) f -> (B, D/k): K4 trims, K2's median lane form takes the
+    median.  Shard-local."""
+    del mesh, axis
+    if block.shape[-1] == 0:
+        return block.new_zeros(block.shape[:-2] + (0,), dtype=torch.float32)
+    if dyn:
+        if mode == "trim":
+            return _mixtrim_dyn_op(block, m, f, mode=mode)
+        return _mixtrim_lanes_op(block, m)
+    return _mixtrim_op(block, m, 0 if mode == "med" else int(f), mode=mode)
+
+
+def sharded_meamed(block: Tensor, m: Optional[Tensor], f, *, mesh, axis: str,
+                   dyn: bool = False) -> Tensor:
+    """(n, D/k) -> (D/k,): mean around the median, torch ops on the block
+    (no kernel exists; it is coordinate-wise, so it stays shard-local)."""
+    del mesh, axis
+    from repro_torch.core.robust import _coordinate_rule, _coordinate_rule_lanes
+    mixed = block if m is None else m.float() @ block.float()
+    if dyn:
+        return _coordinate_rule_lanes(mixed, "meamed", f)
+    return _coordinate_rule(mixed, "meamed", f)
+
+
+def bucket_weights(assignment: Tensor, n_buckets: int) -> Tensor:
+    """Each worker's GLOBAL B weight, 1/|bucket| over all n workers."""
+    assign = assignment.long()
+    counts = torch.bincount(assign, minlength=n_buckets)
+    return (1.0 / counts.float())[assign]
+
+
+def sharded_bucketgram(block: Tensor, assignment: Tensor, n_buckets: int, *,
+                       mesh, worker_axis: Optional[str], model_axis: str,
+                       with_gram: bool = True
+                       ) -> tuple[Tensor, Optional[Tensor]]:
+    """The hierarchical pre-reduction of one rank's block: (bucket means
+    (n_b, D/k) in the stack dtype, replicated (n_b, n_b) fp32 Gram |
+    None).  ``assignment`` holds all n workers' bucket ids.
+
+    ``worker_axis=None`` (1-D): ``block`` is (n, D/k); K6 gives the means
+    and the partial Gram in one pass (K7 without a Gram), and the Gram is
+    all-reduced over ``model_axis``.  Otherwise ``block`` is the tile of
+    the worker rows :func:`row_block` gives this rank's ``worker_axis``
+    coordinate (zero rows past them are phantom workers of weight 0); K7
+    with the global weights and bucket count gives partial means, summed
+    over ``worker_axis``; K1 on the means and an all-reduce over
+    ``model_axis`` give the Gram."""
+    n = assignment.shape[0]
+    assign = assignment.to(device=block.device, dtype=torch.int64)
+    if worker_axis is None:
+        if block.shape[-1] == 0:
+            y = block.new_zeros((n_buckets, 0))
+            g = torch.zeros((n_buckets, n_buckets), dtype=torch.float32,
+                            device=block.device) if with_gram else None
+        elif with_gram:
+            y, g = _bucketgram_op(block, assign, n_buckets)
+        else:
+            y, g = _bucketmeans_op(block, assign, n_buckets), None
+        if g is not None:
+            g = mesh.all_reduce(g.contiguous(), model_axis)
+        return y, g
+    kw = mesh.size(worker_axis)
+    r0, r1 = row_block(n, kw, mesh.index(worker_axis))
+    rows = block.shape[0]
+    if rows < r1 - r0:
+        raise ValueError(f"tile holds {rows} rows; workers [{r0}, {r1}) "
+                         f"need {r1 - r0}")
+    weight = bucket_weights(assign, n_buckets)
+    ids = torch.zeros(rows, dtype=torch.int64, device=block.device)
+    w = torch.zeros(rows, dtype=torch.float32, device=block.device)
+    ids[:r1 - r0] = assign[r0:r1]
+    w[:r1 - r0] = weight[r0:r1]
+    if rows == 0 or block.shape[-1] == 0:
+        y = block.new_zeros((n_buckets, block.shape[-1]))
+    else:
+        y = _bucketmeans_op(block, ids, n_buckets, weight=w)
+    y = mesh.all_reduce(y.contiguous(), worker_axis)
+    if not with_gram:
+        return y, None
+    g = _gram_op(y) if y.shape[-1] else torch.zeros(
+        (n_buckets, n_buckets), dtype=torch.float32, device=y.device)
+    return y, mesh.all_reduce(g.contiguous(), model_axis)

@@ -131,16 +131,23 @@ def _trim_counts(leaves: list, m: Optional[Tensor], f: Tensor,
 
 
 def _honest_moments(leaves: list, r_leaves: list, n_honest: Tensor,
-                    internals: dict) -> tuple[Tensor, Tensor, Tensor]:
+                    internals: dict, reduce) -> tuple[Tensor, Tensor, Tensor]:
     """(B,) ||R - mbar||^2, R . mbar and ||mbar||^2: the kappa-hat pass's,
     when it stashed them, else one masked pass of its own (the reference's
-    standalone form: a non-finite Byzantine row spreads NaN)."""
+    standalone form: a non-finite Byzantine row spreads NaN), summed over
+    the column blocks by ``reduce``."""
     if "honest_sq_dist" not in internals:
         from repro_torch.training.trainer import kappa_hat_masked
         internals = {}
         kappa_hat_masked(r_leaves, leaves, n_honest, internals=internals)
+        return tuple(reduce(internals[k]) for k in
+                     ("honest_sq_dist", "honest_dot", "honest_mean_sq"))
     return (internals["honest_sq_dist"], internals["honest_dot"],
             internals["honest_mean_sq"])
+
+
+def _no_reduce(t: Tensor) -> Tensor:
+    return t
 
 
 def _lane_internals(internals: Optional[dict]) -> dict:
@@ -155,7 +162,8 @@ def health_taps_lanes(stack: PyTree, aggregate: PyTree, *, n_honest, f,
                       rule: str, pre: Optional[str],
                       internals: Optional[dict] = None,
                       quarantine: Optional[dict] = None,
-                      static_f: Optional[int] = None) -> HealthTaps:
+                      static_f: Optional[int] = None,
+                      reduce=None) -> HealthTaps:
     """The taps of every lane: ``stack`` leaves (B, n, ...), ``aggregate``
     leaves (B, ...), ``n_honest`` and ``f`` (B,) int tensors (never read
     on the host).  ``internals`` is what
@@ -167,8 +175,13 @@ def health_taps_lanes(stack: PyTree, aggregate: PyTree, *, n_honest, f,
     skips the trim taps' work when it is 0.
 
     NNM taps need ``pre == "nnm"``; trim taps ``rule == "cwtm"`` with pre
-    None or "nnm" (under bucketing the trim acts on bucket means)."""
+    None or "nnm" (under bucketing the trim acts on bucket means).
+
+    ``reduce`` (the sharded trainer): the leaves are one column block of
+    the stack and the aggregate, and ``reduce(t)`` sums ``t`` over the
+    blocks (the kappa-hat sums in ``internals`` are summed already)."""
     internals = internals if internals is not None else {}
+    reduce = reduce or _no_reduce
     leaves = tree_leaves(stack)
     r_leaves = tree_leaves(aggregate)
     b, n = leaves[0].shape[:2]
@@ -177,9 +190,9 @@ def health_taps_lanes(stack: PyTree, aggregate: PyTree, *, n_honest, f,
     fl = torch.as_tensor(f, device=dev).to(torch.int64).reshape(b)
     w = (torch.arange(n, device=dev)[None] < nh[:, None]).float()
 
-    d2, dot, hsq = _honest_moments(leaves, r_leaves, nh, internals)
-    nr = sum(torch.sum((r.float() ** 2).reshape(b, -1), dim=1)
-             for r in r_leaves)
+    d2, dot, hsq = _honest_moments(leaves, r_leaves, nh, internals, reduce)
+    nr = reduce(sum(torch.sum((r.float() ** 2).reshape(b, -1), dim=1)
+                    for r in r_leaves))
     taps: dict[str, Any] = {
         "dist_honest": torch.sqrt(d2),
         "cos_honest": dot / (torch.sqrt(nr) * torch.sqrt(hsq) + _EPS)}
@@ -215,6 +228,9 @@ def health_taps_lanes(stack: PyTree, aggregate: PyTree, *, n_honest, f,
         else:
             cnt, total = _trim_counts(leaves, m, fl, internals.get("mixed"),
                                       internals.get("sorted_leaves"))
+            if reduce is not _no_reduce:
+                cnt = reduce(cnt)
+                total = int(reduce(torch.tensor(total, device=dev)))
             taps["trim_frac"] = cnt.float() / float(total)
     return HealthTaps(**taps)
 
@@ -222,7 +238,8 @@ def health_taps_lanes(stack: PyTree, aggregate: PyTree, *, n_honest, f,
 def health_taps(stack: PyTree, aggregate: PyTree, *, n_honest: int, f: int,
                 rule: str, pre: Optional[str],
                 internals: Optional[dict] = None,
-                quarantine: Optional[dict] = None) -> HealthTaps:
+                quarantine: Optional[dict] = None,
+                reduce=None) -> HealthTaps:
     """The taps of one round: ``stack`` the post-attack (and post-guard)
     worker-stacked pytree the aggregator consumed (honest rows first),
     ``aggregate`` its output; ``n_honest`` and ``f`` ints.
@@ -240,5 +257,5 @@ def health_taps(stack: PyTree, aggregate: PyTree, *, n_honest: int, f: int,
         [r[None] for r in tree_leaves(aggregate)],
         n_honest=torch.tensor([n_honest]), f=torch.tensor([f]), rule=rule,
         pre=pre, internals=_lane_internals(internals), quarantine=lane_q,
-        static_f=int(f))
+        static_f=int(f), reduce=reduce)
     return HealthTaps(**{k: v[0] for k, v in out.to_dict().items()})

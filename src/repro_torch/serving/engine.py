@@ -40,6 +40,7 @@ from repro_torch.fleet import (
     job_from_spec,
 )
 from repro_torch.fleet.runner import host_evals
+from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.obs import runtime as obs_runtime
 from repro_torch.resilience import (
     CheckpointError, SnapshotStore, check_signature, resolve_checkpoint,
@@ -263,6 +264,12 @@ class FleetService:
         #: capacity).
         self.trace_count = 0
         self.step_log: list = []
+        #: The dispatch record of the latest step's aggregation (None when
+        #: that step opened none): a tenant's "cuda_sharded" /
+        #: "cuda_hier" request that degraded without a multi-rank mesh
+        #: shows here as a recorded pipeline fallback with mesh_devices 1
+        #: (the reference's ``FleetService.last_dispatch``).
+        self.last_dispatch = None
         self._ckpt_cfg = resolve_checkpoint(self.options.checkpoint)
         self._store = None
         if self._ckpt_cfg is not None:
@@ -362,6 +369,7 @@ class FleetService:
         the freed slots, snapshot (with a checkpoint).  Returns True while
         work remains."""
         self._admit_pending()
+        before_disp = kdispatch.dispatch_count()
         for key, bucket in list(self._buckets.items()):
             if bucket.occupied == 0:
                 continue
@@ -381,6 +389,8 @@ class FleetService:
                         and slot.token.first_ts is None):
                     slot.token.first_ts = now
         self.steps += 1
+        self.last_dispatch = kdispatch.last_dispatch() \
+            if kdispatch.dispatch_count() > before_disp else None
         # Backfill now: an evicted lane's slot is reusable at this
         # boundary.
         self._admit_pending()

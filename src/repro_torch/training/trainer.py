@@ -36,6 +36,23 @@ stack is one flat copy of the momentum with its last f rows overwritten,
 and the kernel path aggregates it through a zero-copy (n, D) view.  The
 Byzantine rows keep honest momentum, as in the reference: their
 transmitted values are attacked, not their local state.
+
+Under a mesh (``TrainerConfig.worker_axes`` inside ``launch.mesh.
+use_mesh``; the reference's ``vmap(spmd_axis_name=worker_axes)``) the
+per-worker passes are dealt over the world's ranks, worker ``j W + r`` to
+rank r in round j, so no worker's gradient is computed twice (without
+model parallelism, which waits for the model-parallel mesh, every rank
+of the mesh takes workers, not only those along ``worker_axes``).  Each
+round's gradient rows are resharded at once, by one all-to-all, from
+worker rows to the column blocks of the aggregation axis
+(``kernels.shard.column_block``): the momentum, its fold and the attacked
+copy exist only as this rank's (n, D/k) block.  The attack runs on the
+block (ALIE / FOE / SF / NaN / inf per column; the finite-row masks,
+mimic's honest Gram and an ``_opt`` search's damages all-reduced), the
+aggregate through ``robust_lib.robust_aggregate_block`` ("cuda_sharded" /
+"cuda_hier"), kappa-hat and the taps from all-reduced sums.  The
+aggregate's slices are gathered and every rank applies the same update to
+its own copy of the parameters, so the copies stay equal bit for bit.
 """
 from __future__ import annotations
 
@@ -48,9 +65,12 @@ import torch
 
 from repro_torch.core import robust as robust_lib
 from repro_torch.core.attacks import attack_flat_
-from repro_torch.core.theory import tree_kappa_hat
+from repro_torch.core.theory import (
+    kappa_hat_from_sums, kappa_hat_sums,
+)
 from repro_torch.core.types import AggregatorSpec
 from repro_torch.kernels import dispatch as kdispatch
+from repro_torch.kernels import shard as shardlib
 from repro_torch.obs import runtime as obs_runtime
 from repro_torch.obs.taps import health_taps, tap_columns, tap_metrics
 from repro_torch.optim import Optimizer, global_norm
@@ -93,6 +113,11 @@ class TrainerConfig:
     #: contains one of these substrings get the mean gradient over workers
     #: (no per-worker copy, no momentum) instead of the robust path.
     fsdp_keys: tuple[str, ...] = ()
+    #: Mesh axes the per-worker passes are split over (the reference's
+    #: ``spmd_axis_name``): inside ``launch.mesh.use_mesh`` the step deals
+    #: the workers over the mesh's ranks and aggregates the stack's column
+    #: blocks (module docstring); the axes must name axes of that mesh.
+    worker_axes: Optional[tuple[str, ...]] = None
 
 
 #: TrainState is a plain dict: params / opt_state / step, plus the flat
@@ -130,12 +155,58 @@ def merge_params(robust: list, fsdp: list, skeleton: PyTree,
                           [next(it_f) if f else next(it_r) for f in is_fsdp])
 
 
+def _spec(cfg: TrainerConfig) -> AggregatorSpec:
+    return dataclasses.replace(cfg.agg, f=cfg.byz.f) \
+        if cfg.agg.f != cfg.byz.f else cfg.agg
+
+
+def trainer_shard(cfg: TrainerConfig, device: torch.device
+                  ) -> Optional[shardlib.ShardCtx]:
+    """This rank's shard of the worker stack under ``cfg.worker_axes``
+    (None without them): the active mesh and its aggregation axes, as the
+    aggregation backend resolves them.  Raises without an active
+    multi-rank mesh, for axes the mesh lacks, for a backend that is not a
+    sharded one, and for ``fsdp_keys``."""
+    if not cfg.worker_axes:
+        return None
+    from repro_torch.launch.mesh import current_mesh
+    mesh = current_mesh()
+    if mesh is None or mesh.devices < 2:
+        raise ValueError("worker_axes needs an active multi-rank mesh "
+                         "(launch.mesh.use_mesh)")
+    missing = [a for a in cfg.worker_axes if a not in mesh.axis_names]
+    if missing:
+        raise ValueError(f"worker_axes {missing} are not axes of the mesh "
+                         f"{mesh.axis_names}")
+    spec = _spec(cfg)
+    backend = kdispatch.resolve_backend(spec.backend, device,
+                                        hier=robust_lib._hier_active(spec))
+    if backend not in kdispatch.SHARDED_BACKENDS:
+        raise ValueError(
+            f"worker_axes shards the stack's columns over the mesh: the "
+            f"aggregation backend must be 'cuda_sharded' or 'cuda_hier' "
+            f"('auto' on CUDA), got {spec.backend!r} -> {backend!r}")
+    if cfg.fsdp_keys:
+        raise ValueError("fsdp_keys under worker_axes waits for the "
+                         "model-parallel mesh (ROADMAP queue 1, item 13)")
+    if backend == "cuda_hier":
+        _, worker_axis, axis = kdispatch.resolve_hier_mesh()
+        return shardlib.ShardCtx(mesh, axis, worker_axis)
+    return shardlib.ShardCtx(*kdispatch.resolve_shard_mesh())
+
+
 def init_state(params: PyTree, optimizer: Optimizer, n_workers: int,
                cfg: TrainerConfig) -> TrainState:
+    """The step-0 state; with ``worker_axes`` under a mesh the momentum is
+    this rank's (n, D/k) column block."""
     state = dict(params=params, opt_state=optimizer.init(params), step=0)
     if cfg.algorithm == "dshb":
         leaves, _ = split_params(params, cfg.fsdp_keys)
         width = sum(leaf.numel() for leaf in leaves)
+        sh = trainer_shard(cfg, leaves[0].device)
+        if sh is not None:
+            c0, c1 = sh.cols(width)
+            width = c1 - c0
         state["momentum"] = torch.zeros((n_workers, width), dtype=torch.float32,
                                         device=leaves[0].device)
     return state
@@ -193,6 +264,140 @@ def kappa_hat_masked(agg: PyTree, stack: PyTree, n_honest,
     return out if lanes else out[0]
 
 
+class _Solo:
+    """The step's view of the worker stack on one device: every column of
+    the (n, D) stack, the aggregate as a tree of leaves, identity
+    collectives (``reduce`` None)."""
+    reduce = None
+
+    def __init__(self, spec: AggregatorSpec, layout: kdispatch.StackLayout):
+        self.spec, self.layout = spec, layout
+        self.cols = (0, layout.width)
+        self.segments = [(off, size) for off, size, _ in layout.segments]
+
+    def views(self, flat: Tensor) -> PyTree:
+        return kdispatch.stack_views(flat, self.layout)
+
+    def aggregate(self, flat: Tensor, perm, signs, internals=None):
+        return robust_lib.robust_aggregate(self.views(flat), self.spec,
+                                           perm=perm, signs=signs,
+                                           internals=internals)
+
+    def parts(self, agg) -> PyTree:
+        return agg
+
+    def robust_leaves(self, agg) -> list:
+        return tree_leaves(agg)
+
+
+class _Block:
+    """The step's view under ``worker_axes``: this rank's column block
+    [c0, c1) of the (n, D) stack (on the 2-D hierarchical form its
+    aggregate takes the block's worker tile), each leaf's part of it as a
+    column segment (size 0 outside the block), the aggregate as this
+    rank's slice, and sums over D all-reduced along the aggregation axis
+    by ``reduce``."""
+
+    def __init__(self, sh: shardlib.ShardCtx, spec: AggregatorSpec,
+                 layout: kdispatch.StackLayout, n: int):
+        self.sh, self.spec, self.layout, self.n = sh, spec, layout, n
+        self.cols = c0, c1 = sh.cols(layout.width)
+        self.global_segments = [(off, size)
+                                for off, size, _ in layout.segments]
+        self.segments = []
+        for off, size in self.global_segments:
+            a, b = max(off, c0), min(off + size, c1)
+            self.segments.append((a - c0, b - a) if a < b else (0, 0))
+        s = robust_lib.bucketlib.clamp_bucket_size(n, spec.bucket_size,
+                                                   spec.f)
+        self.tiles = robust_lib._hier_tiles(spec, sh, n, s)
+
+    def reduce(self, t: Tensor, op: str = "sum") -> Tensor:
+        return self.sh.mesh.all_reduce(t.contiguous(), self.sh.axis, op,
+                                       record=False)
+
+    def views(self, flat: Tensor) -> list:
+        return [flat[:, a:a + size] for a, size in self.segments]
+
+    def aggregate(self, flat: Tensor, perm, signs, internals=None) -> Tensor:
+        if self.tiles:
+            r0, r1 = self.sh.rows(self.n)
+            flat = flat[r0:r1].contiguous()
+        return robust_lib.robust_aggregate_block(
+            flat, self.spec, d=self.layout.width, n=self.n, perm=perm,
+            signs=signs, segments=self.global_segments, internals=internals)
+
+    def parts(self, vec: Tensor) -> list:
+        return [vec[a:a + size] for a, size in self.segments]
+
+    def robust_leaves(self, vec: Tensor) -> list:
+        return tree_leaves(kdispatch.unflatten_aggregate(
+            self.sh.gather(vec, self.layout.width), self.layout))
+
+
+def _pass_a(loss_fn, leaves: list, skeleton, is_fsdp: list, batch: PyTree,
+            n: int, layout, stack: Tensor, fsdp_sum: list, fold) -> Tensor:
+    """Per-worker gradients on one device, each folded into its row of
+    ``stack`` at once; the FSDP leaves' gradients summed into
+    ``fsdp_sum`` from the same backward.  Returns the (n,) fp32 losses."""
+    losses = torch.empty((n,), dtype=torch.float32, device=stack.device)
+    for i in range(n):
+        wbatch = tree_map(lambda b: b[i], batch)
+        req = [leaf.detach().requires_grad_(True) for leaf in leaves]
+        loss, _ = loss_fn(tree_unflatten(skeleton, req), wbatch)
+        grads = torch.autograd.grad(loss, req)
+        row = stack[i]
+        for acc, g in zip(fsdp_sum, [g for g, fl in zip(grads, is_fsdp)
+                                     if fl]):
+            acc.add_(g)                     # fp32 += the leaf's dtype
+        grads = [g for g, fl in zip(grads, is_fsdp) if not fl]
+        for (off, size, _), g in zip(layout.segments, grads):
+            fold(row[off:off + size], g.reshape(-1).float())
+        losses[i] = loss.detach().float()
+        del grads, req, loss
+    return losses
+
+
+def _pass_a_dealt(loss_fn, leaves: list, skeleton, batch: PyTree, n: int,
+                  layout, stack: Tensor, sh: shardlib.ShardCtx,
+                  fold) -> Tensor:
+    """Pass A under ``worker_axes``: round j computes worker j W + rank's
+    gradient, and one all-to-all hands every rank its columns of the
+    round's rows, folded into its block ``stack`` at once.  Returns the
+    (n,) fp32 losses, summed over the world."""
+    mesh, dev = sh.mesh, stack.device
+    world, rank = mesh.devices, mesh.rank
+    d = layout.width
+    c0, c1 = sh.cols(d)
+    wmax = -(-d // sh.k)
+    # Every rank's column block along the aggregation axis.
+    dest_cols = [shardlib.column_block(d, sh.k, mesh.index_of(q, sh.axis))
+                 for q in range(world)]
+    losses = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for j in range(-(-n // world)):
+        send = torch.zeros((world, wmax), dtype=torch.float32, device=dev)
+        i = j * world + rank
+        if i < n:
+            wbatch = tree_map(lambda b: b[i], batch)
+            req = [leaf.detach().requires_grad_(True) for leaf in leaves]
+            loss, _ = loss_fn(tree_unflatten(skeleton, req), wbatch)
+            grads = torch.autograd.grad(loss, req)
+            for (off, size, _), g in zip(layout.segments, grads):
+                g = g.reshape(-1)
+                for q, (a, b) in enumerate(dest_cols):
+                    lo, hi = max(a, off), min(b, off + size)
+                    if lo < hi:
+                        send[q, lo - a:hi - a] = g[lo - off:hi - off]
+            losses[i] = loss.detach().float()
+            del grads, req, loss
+        recv = mesh.all_to_all_world(send, world)
+        del send
+        for r in range(min(world, n - j * world)):
+            fold(stack[j * world + r], recv[r, :c1 - c0])
+        del recv
+    return mesh.all_reduce_world(losses)
+
+
 def build_train_step(loss_fn: Callable, optimizer: Optimizer,
                      cfg: TrainerConfig, lr_schedule: Callable) -> Callable:
     """Returns ``step(state, batch, internals=None, *, generator=None,
@@ -201,12 +406,14 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     ``loss_fn(params, worker_batch) -> (scalar, metrics_dict)`` is the
     per-worker loss; ``batch`` carries a leading worker axis on every leaf
     and lies on the parameters' device.  ``internals``: pass a dict and the
-    step stores the attacked flat stack (``"attacked"``) and its layout
-    (``"layout"``, over the list of robust leaves) into it, the sketch's
-    ``"signs"`` when drawn, and under ``alie_opt`` / ``foe_opt`` the chosen
-    ``"eta"`` and the grid's ``"damages"`` (device tensors).  With ``cfg.taps`` the metrics carry
-    the health taps as ``taps.<field>`` (the deployed aggregate's only,
-    never the eta search's candidates).
+    step stores the attacked flat stack (``"attacked"``; under
+    ``worker_axes`` this rank's block), its layout (``"layout"``, over the
+    list of robust leaves, always the whole stack's), the block's columns
+    (``"cols"``, [c0, c1); [0, D) on one device), the sketch's ``"signs"``
+    when drawn, and under ``alie_opt`` / ``foe_opt`` the chosen ``"eta"``
+    and the grid's ``"damages"`` (device tensors).  With ``cfg.taps`` the
+    metrics carry the health taps as ``taps.<field>`` (the deployed
+    aggregate's only, never the eta search's candidates).
     ``generator`` (the reference's ``key``) draws the bucket permutation
     of a ``hier`` / ``pre="bucketing"`` spec and then the signs of a
     ``sketch_dim`` one, ONCE a step (``robust_lib.draw_randomness``), and
@@ -214,17 +421,24 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     The optimized attacks' 12 candidate aggregates and the deployed one
     all see that one draw, as the reference's closure shares its
     ``agg_key``; the search overwrites the f rows of the one attacked
-    copy in place.
+    copy in place.  Under ``worker_axes`` only pass A differs
+    (:func:`_pass_a_dealt`); the rest runs on :class:`_Block` what it runs
+    on :class:`_Solo` on one device.
     """
     if cfg.algorithm not in ("dshb", "dgd"):
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
-    spec = dataclasses.replace(cfg.agg, f=cfg.byz.f) \
-        if cfg.agg.f != cfg.byz.f else cfg.agg
+    spec = _spec(cfg)
     if cfg.taps:
         robust_lib.validate_taps(spec)
     # fp32 constants as the reference's jnp arithmetic forms them.
     beta = float(np.float32(cfg.beta))
     one_minus_beta = float(np.float32(1.0) - np.float32(cfg.beta))
+
+    def fold(dst: Tensor, g: Tensor) -> None:
+        if cfg.algorithm == "dshb":
+            dst.mul_(beta).add_(g, alpha=one_minus_beta)
+        else:
+            dst.copy_(g)
 
     def step(state: TrainState, batch: PyTree,
              internals: Optional[dict] = None, *,
@@ -233,12 +447,17 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
              signs: Optional[list] = None):
         params = state["params"]
         leaves = tree_leaves(params)
+        dev = leaves[0].device
         skeleton, _, is_fsdp = _split_info(params, cfg.fsdp_keys)
         n = tree_leaves(batch)[0].shape[0]
         f = cfg.byz.f
         n_honest = n - f
         robust_p, fsdp_p = split_params(params, cfg.fsdp_keys)
         layout = stack_layout(robust_p, n)
+        sh = trainer_shard(cfg, dev)
+        part = _Solo(spec, layout) if sh is None \
+            else _Block(sh, spec, layout, n)
+        c0, c1 = part.cols
         # Pass B's fp32 sums of the per-worker FSDP gradients.
         fsdp_sum = [torch.zeros(leaf.shape, dtype=torch.float32,
                                 device=leaf.device) for leaf in fsdp_p]
@@ -246,41 +465,25 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         if cfg.algorithm == "dshb":
             stack = state["momentum"]          # updated in place
         else:
-            stack = torch.empty((n, layout.width), dtype=torch.float32,
-                                device=leaves[0].device)
+            stack = torch.empty((n, c1 - c0), dtype=torch.float32, device=dev)
 
-        # Pass A: per-worker gradients, each folded into its row at once;
-        # Pass B's FSDP gradients summed from the same backward.
-        losses = []
-        for i in range(n):
-            wbatch = tree_map(lambda b: b[i], batch)
-            req = [leaf.detach().requires_grad_(True) for leaf in leaves]
-            loss, _ = loss_fn(tree_unflatten(skeleton, req), wbatch)
-            grads = torch.autograd.grad(loss, req)
-            row = stack[i]
-            for acc, g in zip(fsdp_sum, [g for g, fl in zip(grads, is_fsdp)
-                                         if fl]):
-                acc.add_(g)                     # fp32 += the leaf's dtype
-            grads = [g for g, fl in zip(grads, is_fsdp) if not fl]
-            for (off, size, _), g in zip(layout.segments, grads):
-                seg = row[off:off + size]
-                g = g.reshape(-1).float()
-                if cfg.algorithm == "dshb":
-                    seg.mul_(beta).add_(g, alpha=one_minus_beta)
-                else:
-                    seg.copy_(g)
-            losses.append(loss.detach().float())
-            del grads, req, loss
+        # Pass A: per-worker gradients, each folded into its row at once.
+        if sh is None:
+            losses = _pass_a(loss_fn, leaves, skeleton, is_fsdp, batch, n,
+                             layout, stack, fsdp_sum, fold)
+        else:
+            losses = _pass_a_dealt(loss_fn, leaves, skeleton, batch, n,
+                                   layout, stack, sh, fold)
 
-        # One randomness draw for every aggregate of the step.
+        # One randomness draw for every aggregate of the step (the bucket
+        # permutation of the n workers, then the sketch's signs per leaf).
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
         perm, signs = robust_lib.draw_randomness(
-            kdispatch.stack_views(stack, layout), spec, generator=generator,
-            perm=perm, signs=signs)
+            [zero.expand((n,) + tuple(leaf.shape)) for leaf in robust_p],
+            spec, generator=generator, perm=perm, signs=signs)
 
-        def aggregate(flat, tap_internals=None):
-            return robust_lib.robust_aggregate(
-                kdispatch.stack_views(flat, layout), spec, perm=perm,
-                signs=signs, internals=tap_internals)
+        def closure(flat):
+            return part.parts(part.aggregate(flat, perm, signs))
 
         # Byzantine simulation: a copy of the stack with the last f rows
         # overwritten (the honest state itself is not touched).
@@ -290,25 +493,24 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         else:
             attacked = attack_flat_(
                 attack, stack.clone(), f, eta=cfg.byz.eta,
-                segments=[(off, size) for off, size, _ in layout.segments],
-                agg_closure=aggregate if attack.endswith("_opt") else None,
-                internals=internals)
-        attacked_tree = kdispatch.stack_views(attacked, layout)
+                segments=part.segments,
+                agg_closure=closure if attack.endswith("_opt") else None,
+                internals=internals, reduce=part.reduce)
+        attacked_tree = part.views(attacked)
         if internals is not None:
-            internals["attacked"] = attacked
-            internals["layout"] = layout
+            internals.update(attacked=attacked, layout=layout, cols=(c0, c1))
             if signs is not None:
                 internals["signs"] = signs
 
         tap_internals = {} if cfg.taps else None
-        robust_dir = aggregate(attacked, tap_internals)
+        agg = part.aggregate(attacked, perm, signs, tap_internals)
         # The FSDP leaves' direction is the mean loss's gradient, in each
         # leaf's dtype (bf16 beside the fp32 robust direction, as the
         # reference's).
         fsdp_dir = [acc.div_(n).to(leaf.dtype)
                     for acc, leaf in zip(fsdp_sum, fsdp_p)]
         del fsdp_sum
-        direction = merge_params(tree_leaves(robust_dir), fsdp_dir, skeleton,
+        direction = merge_params(part.robust_leaves(agg), fsdp_dir, skeleton,
                                  is_fsdp)
         lr = lr_schedule(state["step"])
         new_params, new_opt = optimizer.update(direction, state["opt_state"],
@@ -319,17 +521,22 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             new_state["momentum"] = stack
 
         metrics = {
-            "loss": torch.stack(losses[:n_honest]).mean(),
+            "loss": losses[:n_honest].mean(),
             "lr": lr,
             "direction_norm": global_norm(direction),
         }
+        agg_tree = part.parts(agg)
         if cfg.track_kappa_hat:
-            metrics["kappa_hat"] = tree_kappa_hat(robust_dir, attacked_tree,
-                                                  n_honest, tap_internals)
+            sums = kappa_hat_sums(agg_tree, attacked_tree, n_honest,
+                                  moments=tap_internals is not None)
+            if part.reduce is not None:
+                sums = part.reduce(sums)
+            metrics["kappa_hat"] = kappa_hat_from_sums(sums, tap_internals)
         if cfg.taps:
             metrics.update(tap_metrics(health_taps(
-                attacked_tree, robust_dir, n_honest=n_honest, f=spec.f,
-                rule=spec.rule, pre=spec.pre, internals=tap_internals)))
+                attacked_tree, agg_tree, n_honest=n_honest, f=spec.f,
+                rule=spec.rule, pre=spec.pre, internals=tap_internals,
+                reduce=part.reduce)))
         return new_state, metrics
 
     return step
@@ -382,6 +589,10 @@ def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
     opts = resolve_options(options, engine=engine, chunk=chunk)
     cfg = opts.apply_config(cfg)
     engine, chunk = opts.engine or "scan", opts.chunk
+    if cfg.worker_axes and opts.checkpoint is not None:
+        raise ValueError("options.checkpoint under worker_axes (every rank "
+                         "holding its block of the momentum) waits for the "
+                         "model-parallel mesh (ROADMAP queue 1, item 13)")
     if opts.checkpoint is not None and engine != "scan":
         raise ValueError("options.checkpoint requires engine='scan' "
                          "(the loop path has no chunk boundaries to "

@@ -285,14 +285,18 @@ def test_theory_matches_reference():
 
 
 @pytest.mark.parametrize("kw", [dict(sketch_dim=16),
-                                dict(backend="pallas_sharded"),
-                                dict(backend="pallas_hier")])
+                                dict(backend="cuda_sharded"),
+                                dict(backend="cuda_hier")])
 def test_unported_options_raise(kw):
-    """What the port does not run yet raises naming its ROADMAP item
-    (hier and pre="bucketing" are ported: see the tests below).
-    ``sketch_dim`` is ported: with no randomness it takes the exact Gram,
-    as the reference does with ``key=None`` (tests/test_torch_sketch.py
-    holds the sketch itself)."""
+    """Options the port once refused now run.  ``sketch_dim`` with no
+    randomness takes the exact Gram, as the reference does with
+    ``key=None`` (tests/test_torch_sketch.py holds the sketch itself).
+    The multi-rank backends (the reference's ``pallas_sharded`` /
+    ``pallas_hier``) without a mesh degrade as the reference's do, and the
+    degrade is recorded: "cuda_sharded" runs the leaf-streamed torch path,
+    "cuda_hier" the dense bucketing path (its stage kept), each with a
+    ``pipeline`` fallback decision and ``mesh_devices`` 1; the result is
+    that path's bit for bit (tests/test_torch_shard.py holds the meshes)."""
     tree = _to_torch(_tree(0))
     if "sketch_dim" in kw:
         got = t_aggregate(tree, TSpec(rule="cwtm", f=2, **kw))
@@ -300,8 +304,19 @@ def test_unported_options_raise(kw):
         for k in want:
             assert torch.equal(got[k], want[k])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_aggregate(tree, TSpec(rule="cwtm", f=2, **kw))
+    hier = kw["backend"] == "cuda_hier"
+    perm = torch.randperm(N, generator=torch.Generator().manual_seed(3))
+    extra = dict(bucket_size=2) if hier else {}
+    got = t_aggregate(tree, TSpec(rule="cwtm", f=2, **kw, **extra), perm=perm)
+    rec = kdispatch.last_dispatch()
+    assert rec.requested == kw["backend"] and rec.backend == "torch"
+    assert rec.hier == hier and rec.mesh_devices == 1 and rec.mesh_axis is None
+    assert [d.primitive for d in rec.fallbacks] == ["pipeline"], rec.describe()
+    assert "no multi-rank mesh" in rec.fallbacks[0].reason
+    want = t_aggregate(tree, TSpec(rule="cwtm", f=2, backend="torch",
+                                   hier=hier, **extra), perm=perm)
+    for k in want:
+        assert torch.equal(got[k], want[k])
 
 
 # --- hierarchical aggregation and pre="bucketing" -------------------------

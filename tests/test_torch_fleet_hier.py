@@ -446,13 +446,24 @@ def test_hier_lanes_refuse_taps_and_the_mesh_backends():
                   TSpec(rule="cwtm", pre="nnm", hier=True, bucket_size=2),
                   torch.tensor([1, 1]), perms=torch.stack(
                       [torch.arange(N)] * 2), internals={})
-    for backend in ("pallas_sharded", "pallas_hier"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            t_batched({"w": torch.zeros(2, N, 3)},
-                      TSpec(rule="cwtm", hier=True, bucket_size=2,
-                            backend=backend),
-                      torch.tensor([1, 1]),
-                      perms=torch.stack([torch.arange(N)] * 2))
+    # Without a mesh the multi-rank backends degrade, recorded, to the
+    # dense bucketing lanes of the torch backend, bit for bit.
+    x = torch.arange(2 * N * 3, dtype=torch.float32).reshape(2, N, 3)
+    perms = torch.stack([torch.arange(N), torch.arange(N).flip(0)])
+    want = t_batched({"w": x}, TSpec(rule="cwtm", hier=True, bucket_size=2,
+                                     backend="torch"),
+                     torch.tensor([1, 1]), perms=perms)
+    for backend in ("cuda_sharded", "cuda_hier"):
+        got = t_batched({"w": x},
+                        TSpec(rule="cwtm", hier=True, bucket_size=2,
+                              backend=backend),
+                        torch.tensor([1, 1]), perms=perms)
+        rec = kdispatch.last_dispatch()
+        assert rec.requested == backend and rec.backend == "torch"
+        assert rec.hier and rec.mesh_devices == 1
+        assert [d.primitive for d in rec.fallbacks] == ["pipeline"], \
+            rec.describe()
+        assert torch.equal(got["w"], want["w"])
 
 
 def test_lane_draws_give_hier_lanes_a_permutation_and_fillers_the_identity():

@@ -33,6 +33,7 @@ import repro_torch.models.encdec, repro_torch.models.linear_scan
 import repro_torch.models.rwkv, repro_torch.models.ssm
 import repro_torch.models.attention, repro_torch.models.lm
 import repro_torch.launch.roofline, repro_torch.launch.serve
+import repro_torch.launch.mesh, repro_torch.kernels.shard
 from repro_torch.core import apply_attack, nnm_direct, theory
 from repro_torch.launch import breakdown, grid, scenarios, serve, service, train
 out = train.main(["--device", "cpu", "--steps", "1", "--workers", "4",
@@ -104,7 +105,7 @@ def test_no_source_file_names_jax_or_repro():
                 "models/moe.py", "launch/launch_config.py",
                 "models/attention.py", "models/lm.py", "models/rwkv.py",
                 "models/ssm.py", "models/encdec.py", "launch/serve.py",
-                "launch/roofline.py"):
+                "launch/roofline.py", "launch/mesh.py", "kernels/shard.py"):
         assert PKG / mod in files, mod
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if pat.search(p.read_text())]

@@ -110,6 +110,26 @@ def test_tree_sketch_gram_equals_reference(dtype):
     _close((sk @ sk.mT)[0].numpy(), got.numpy(), 1e-6)
 
 
+@pytest.mark.parametrize("k", [2, 3, 7])
+def test_sketch_fold_of_column_blocks_sums_to_the_whole(k):
+    """``sketch_fold(c0=)`` on k column blocks (a rank's block of a mesh),
+    block edges inside leaves and inside sketch chunks: the blocks'
+    sketches sum to the whole stack's within fp32 rounding."""
+    tree = _t(_tree(0))
+    signs = trobust.draw_signs(trobust.leaf_widths(tree), S,
+                               torch.Generator().manual_seed(1))
+    flat, layout = kdispatch.flatten_worker_stack(tree)
+    segs = [(off, size) for off, size, _ in layout.segments]
+    d = flat.shape[1]
+    whole = kdispatch.sketch_fold(flat[None], segs, S, signs)
+    w = -(-d // k)
+    assert any((j * w) % S for j in range(1, k))
+    parts = sum(kdispatch.sketch_fold(flat[None, :, j * w:(j + 1) * w],
+                                      segs, S, signs, c0=j * w)
+                for j in range(k))
+    _close(parts[0].numpy(), whole[0].numpy(), 1e-6)
+
+
 def test_draw_signs_shapes_and_values():
     widths = trobust.leaf_widths(_t(_tree(0)))
     assert widths == [37, 15, 1, 32]
