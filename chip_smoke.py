@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port (src/repro_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py --18d    # the build and phase 18d alone
 
 Phases, each fatal on failure:
   1. environment: torch / CUDA / nvcc versions, the card, TF32 off;
@@ -196,9 +197,18 @@ Phases, each fatal on failure:
      NNM + CWTM, 3 rounds): launches, solo runs, two lanes on the torch
      backend, peak memory; (c) four hierarchical lanes through
      FleetService, restored after a mid-run snapshot, bit for bit; (d)
-     K3 lanes against torch.bmm(c[:, None], x) at (8, 17, 2^24) and the
-     grid's (5, 17 / 9, 2842), in turns, the median of 7 with the
-     min-max;
+     every kernel the grid and the fed rounds launch, at their shapes,
+     each first held to its plain version: K3 lanes at the grid's (5, 17
+     / 9, 2842) and at (8, 17, 2^24) against torch.bmm(c[:, None], x),
+     K3 and K1 at the fed cohorts (10 / 12 / 17, 2842) against c @ x and
+     torch.mm(x, x.T), K5 at the grid's shapes against
+     torch.bmm(x, x.mT), K4 (f = 4, with and without the mix), the
+     median lanes with and without the mix against torch.median; in
+     turns, the median of 7 with the min-max of three numbers per call:
+     the turn (CUDA events around 200 back-to-back calls: the larger of
+     the host's and the device's cost), the host's (its clock around 200
+     enqueues queued behind a busy launch) and the device's (CUDA events
+     around those 200 launches, run back to back);
  19. the attention-free and encoder-decoder families at their published
      widths, as phase 17 (ALIE, NNM + CWTM, D-SHB, batch 4, seeded
      weights, each step exactly one K1 and one K2 and no fallback, finite
@@ -3978,40 +3988,157 @@ def time_samples(fn, calls: int, reps: int = REPS) -> list:
     return out
 
 
-#: 18d's shapes of K3 lanes: the fleet's kernel shape and the grid's.
-K3_SPREAD_SHAPES = (FLEET_BIG, FLEET_GRID, FLEET_GRID_BKT)
+#: 18d: calls a sample queues at a launch-sized shape (at (8, 17, 2^24),
+#: 5), and the busy launch ahead of a split sample (torch.cuda._sleep
+#: cycles, ~34 ms at 1.98 GHz; quadrupled while it does not outlast the
+#: host's enqueues).
+LAUNCH_CALLS = 200
+BUSY_CYCLES = 1 << 26
 
 
-def phase_k3_lanes_spread(dev) -> None:
-    """K3 lanes against ``torch.bmm(c[:, None], x)`` at each of
-    K3_SPREAD_SHAPES, in turns (K3 then bmm, then bmm then K3, ...): the
-    median of 7 samples with the min-max; K3 lanes "loses beyond the
-    spread" where its fastest sample is slower than bmm's slowest."""
+def split_sample(fn, calls: int) -> tuple[float, float]:
+    """One sample of (host us, device us) per call of ``fn``: ``calls``
+    calls queued behind a busy launch, the host clock around the enqueues
+    (the host never waits on the device) and CUDA events around the
+    launches (they run back to back, so the host's cost is hidden).  The
+    busy launch must still run when the host has enqueued the last call."""
     import torch
-    from repro_torch.kernels import combine_lanes
+    fn()
+    torch.cuda.synchronize()
+    cycles = BUSY_CYCLES
+    for _ in range(4):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        s.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host = time.perf_counter() - t0
+        covered = not s.query()
+        e.record()
+        e.synchronize()
+        if covered:
+            return 1e6 * host / calls, 1e3 * s.elapsed_time(e) / calls
+        cycles *= 4
+    raise AssertionError("18d: the busy launch never outlasted the enqueues")
+
+
+def _spread(v: list, fmt: str = ".4f") -> str:
+    return f"{statistics.median(v):{fmt}} ({min(v):{fmt}}-{max(v):{fmt}})"
+
+
+def launch_pair(label: str, kernel, library, lib_name: Optional[str],
+                calls: int, bnd: tuple) -> dict:
+    """``kernel`` against ``library`` (None: the kernel alone) in turns,
+    REPS rounds (kernel first in even rounds, library first in odd ones):
+    each round takes one turn sample (CUDA events around ``calls``
+    back-to-back calls: max(host, device) per call) and one split sample
+    (:func:`split_sample`) of each.  Logs medians with the min-max and
+    whether the kernel wins or loses beyond the turns' spread, beside the
+    bound ``bnd`` (ms, what bounds it)."""
+    fns = [("kernel", kernel)] + ([("library", library)] if library else [])
+    got = {k: {"turn_ms": [], "host_us": [], "device_us": []} for k, _ in fns}
+    for i in range(REPS):
+        for key, fn in (fns if i % 2 == 0 else fns[::-1]):
+            got[key]["turn_ms"] += time_samples(fn, calls, 1)
+            host, device = split_sample(fn, calls)
+            got[key]["host_us"].append(host)
+            got[key]["device_us"].append(device)
+    k = got["kernel"]
+    line = (f"  18d {label}: turns {_spread(k['turn_ms'])} ms, host "
+            f"{_spread(k['host_us'], fmt='.1f')} us, device "
+            f"{_spread(k['device_us'], fmt='.1f')} us, bound "
+            f"{1e3 * bnd[0]:.3f} us ({bnd[1]})")
+    if library:
+        lb = got["library"]
+        kt, lt = k["turn_ms"], lb["turn_ms"]
+        verdict = ("loses beyond the spread" if min(kt) > max(lt)
+                   else "wins beyond the spread" if max(kt) < min(lt)
+                   else "the spreads overlap")
+        line += (f" | {lib_name}: turns {_spread(lt)} ms, host "
+                 f"{_spread(lb['host_us'], fmt='.1f')} us, device "
+                 f"{_spread(lb['device_us'], fmt='.1f')} us | median "
+                 f"{'<=' if statistics.median(kt) <= statistics.median(lt) else '>'}"
+                 f" the library's; {verdict}")
+    log(line)
+    return {"label": label, "library": lib_name, "bound_us": 1e3 * bnd[0],
+            "bound_by": bnd[1],
+            **{f"{key}_{m}": statistics.median(v) for key, d in got.items()
+               for m, v in d.items()}}
+
+
+def phase_launch_sizes(dev, rate: float) -> list:
+    """18d: every kernel the grid and the fed rounds launch, at their own
+    shapes, against the PyTorch call that computes the same function where
+    there is one (:func:`launch_pair`): K3 lanes at the grid's (5, 17 / 9,
+    2842) and at (8, 17, 2^24) against torch.bmm(c[:, None], x); K3, K1 at
+    the fed cohorts (10 / 12 / 17, 2842) against c @ x and
+    torch.mm(x, x.T); K5 at the grid's shapes against torch.bmm(x, x.mT);
+    K4 (f = 4, with and without the mix) alone; the median lanes with and
+    without the mix against torch.median.  Each kernel is first held to
+    its plain version on the same inputs, and printed beside its bound (each
+    fp32 input read once, each output written once).  Returns the logged
+    medians."""
+    import torch
+    from repro_torch.core.bucketing import adjusted_f_dyn
+    from repro_torch.kernels import (
+        combine, combine_lanes, combine_lanes_ref, combine_ref, gram,
+        gram_batched, gram_batched_ref, gram_ref, mixtrim_dyn,
+        mixtrim_dyn_ref, mixtrim_lanes, mixtrim_lanes_ref,
+    )
     gen = torch.Generator(device=dev)
     gen.manual_seed(18)
-    for b, n, d in K3_SPREAD_SHAPES:
+    out = []
+
+    def pair(label, kernel, plain, bytes_in, flops, library=None,
+             lib_name=None, calls=LAUNCH_CALLS):
+        got = kernel()
+        agree(f"18d {label} vs its plain version", got, plain())
+        bnd = bound(bytes_in + 4.0 * got.numel(), flops, rate)
+        out.append(launch_pair(label, kernel, library, lib_name, calls, bnd))
+
+    for b, n, d in (FLEET_GRID, FLEET_GRID_BKT, FLEET_BIG):
         x = torch.randn((b, n, d), generator=gen, device=dev)
         c = torch.softmax(torch.randn((b, n), generator=gen, device=dev), -1)
-        agree(f"K3 lanes vs torch.bmm ({b}, {n}, {d})", combine_lanes(x, c),
-              torch.bmm(c[:, None], x)[:, 0])
-        calls = 1 if d > 1 << 20 else 200
-        k3, mm = [], []
-        fns = ((k3, lambda: combine_lanes(x, c)),
-               (mm, lambda: torch.bmm(c[:, None], x)))
-        for i in range(REPS):
-            for out, fn in (fns if i % 2 == 0 else fns[::-1]):
-                out += time_samples(fn, calls, 1)
-        verdict = ("K3 lanes loses beyond the spread" if min(k3) > max(mm)
-                   else "K3 lanes wins beyond the spread" if max(k3) < min(mm)
-                   else "the spreads overlap")
-        log(f"  18d K3 lanes ({b}, {n}, {d}): median {statistics.median(k3):.4f}"
-            f" ms (min {min(k3):.4f}, max {max(k3):.4f}); torch.bmm median "
-            f"{statistics.median(mm):.4f} ms (min {min(mm):.4f}, max "
-            f"{max(mm):.4f}); {verdict}")
-        del x, c
+        calls = 5 if d > 1 << 20 else LAUNCH_CALLS
+        pair(f"K3 lanes {(b, n, d)}", lambda: combine_lanes(x, c),
+             lambda: combine_lanes_ref(x, c), 4.0 * b * n * (d + 1),
+             2.0 * b * n * d, lambda: torch.bmm(c[:, None], x),
+             "torch.bmm(c[:, None], x)", calls)
+        if d > 1 << 20:
+            del x, c
+            continue
+        pair(f"K5 {(b, n, d)}", lambda: gram_batched(x),
+             lambda: gram_batched_ref(x), 4.0 * b * n * d,
+             1.0 * b * n * (n + 1) * d, lambda: torch.bmm(x, x.mT),
+             "torch.bmm(x, x.mT)")
+        if n != FLEET_GRID[1]:
+            continue
+        fs = adjusted_f_dyn(torch.full((b,), F_GRID, device=dev), n)
+        m = torch.softmax(torch.randn((b, n, n), generator=gen, device=dev), -1)
+        for mm, tag in ((m, "mix"), (None, "no mix")):
+            mix_in = 4.0 * b * n * n if mm is not None else 0.0
+            mix_ops = 2.0 * b * n * n * d if mm is not None else 0.0
+            pair(f"K4 {tag} {(b, n, d)}", lambda: mixtrim_dyn(x, mm, fs),
+                 lambda: mixtrim_dyn_ref(x, mm, fs),
+                 4.0 * b * n * d + 4 * b + mix_in, mix_ops + b * n * d)
+            pair(f"median lanes {tag} {(b, n, d)}",
+                 lambda: mixtrim_lanes(x, mm), lambda: mixtrim_lanes_ref(x, mm),
+                 4.0 * b * n * d + mix_in, mix_ops,
+                 *((lambda: torch.median(x, dim=1), "torch.median(x, dim=1)")
+                   if mm is None else ()))
     torch.cuda.empty_cache()
+    d = FLEET_GRID[2]
+    for n in (10, 12, 17):
+        x = torch.randn((n, d), generator=gen, device=dev)
+        c = torch.softmax(torch.randn((n,), generator=gen, device=dev), -1)
+        pair(f"K3 ({n}, {d})", lambda: combine(x, c), lambda: combine_ref(x, c),
+             4.0 * n * (d + 1), 2.0 * n * d, lambda: c @ x, "c @ x")
+        pair(f"K1 ({n}, {d})", lambda: gram(x), lambda: gram_ref(x),
+             4.0 * n * d, 1.0 * n * (n + 1) * d, lambda: torch.mm(x, x.T),
+             "torch.mm(x, x.T)")
+    log(json.dumps({"launch_sizes": out}))
+    return out
 
 
 def phase_hier(dev, rate: float) -> tuple[dict, dict]:
@@ -4029,9 +4156,9 @@ def phase_hier(dev, rate: float) -> tuple[dict, dict]:
         "restore")
     add_counts(total, phase_hier_service(dev))
     secs["18c"] = time.perf_counter() - t0 - sum(secs.values())
-    log("-- 18d. K3 lanes against torch.bmm(c[:, None], x): median of 7 "
-        "with the min-max")
-    phase_k3_lanes_spread(dev)
+    log("-- 18d. every kernel of the grid and the fed rounds at its own "
+        "shapes, host and device per call, against the library call")
+    phase_launch_sizes(dev, rate)
     secs["18d"] = time.perf_counter() - t0 - sum(secs.values())
     log(f"  seconds: { {k: round(v, 1) for k, v in secs.items()} }")
     idle = [k for k in ("bucketgram_lanes", "bucketmeans_lanes",
@@ -5023,6 +5150,12 @@ def main() -> int:
         if "registers" in line or "spill" in line.lower() or line.startswith("=="):
             log("  " + line.strip())
 
+    if sys.argv[1:] == ["--18d"]:
+        log("== 18d alone: the launch-sized shapes, host and device per call")
+        phase_launch_sizes(dev, rate)
+        log(card)
+        return 0
+
     log("== 3. kernels against their plain versions")
     rows = phase_kernels(dev, rate)
     phase_k2_wide(dev, rate)
@@ -5180,11 +5313,12 @@ def main() -> int:
              ("K2", "mixtrim", "ported, redesigned, checked"),
              ("K2 > 64", "mixtrim_select", "ported, redesigned, checked"),
              ("K2 > 64 no mix", "mixtrim_select_nomix", "ported, redesigned, checked"),
-             ("K3", "combine", "ported, checked"), ("K4", "mixtrim_dyn", "ported, checked"),
+             ("K3", "combine", "ported, redesigned, checked"),
+             ("K4", "mixtrim_dyn", "ported, checked"),
              ("K5", "gram_batched", "ported, checked"), ("K6", "bucketgram", "ported, checked"),
              ("K7", "bucketmeans", "ported, checked"),
              ("K2 median lanes", "mixtrim_lanes", "ported, checked"),
-             ("K3 lanes", "combine_lanes", "ported, checked"),
+             ("K3 lanes", "combine_lanes", "ported, redesigned, checked"),
              ("K6 lanes", "bucketgram_lanes", "ported, checked"),
              ("K7 lanes", "bucketmeans_lanes", "ported, checked")]
     log("kernels: " + "; ".join(f"{k} {n}: {s}" for k, n, s in table))

@@ -34,7 +34,7 @@ COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v")
 
 #: dtype codes of csrc/common.cuh.
-DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -53,7 +53,7 @@ _SIGNATURES = {
                           _I),
     "repro_mixtrim_max_n": ([], _I),
     "repro_mixtrim_select_scratch": ([_I], _LL),
-    "repro_combine": ([_P, _I, _P, _I, _I, _LL, _P, _I, _P], _I),
+    "repro_combine": ([_P, _P, _P, _P, _P], _I),
     "repro_bucketgram": ([_P, _I, _I, _I, _LL, _P, _P, _P, _I, _P, _P, _P,
                           _P, _P, _I, _P], _I),
     "repro_bucketgram_reg_nb": ([], _I),
@@ -148,7 +148,7 @@ def library() -> ctypes.CDLL:
 
 def dtype_code(dtype) -> int:
     try:
-        return DTYPE_CODES[str(dtype)]
+        return DTYPE_CODES[dtype]
     except KeyError:
         raise TypeError(f"kernels take float32 or bfloat16 stacks, got {dtype}")
 
@@ -160,5 +160,18 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+_SM_COUNT: dict = {}
+
+
 def sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """Streaming multiprocessors of a CUDA device (a ``torch.device`` or
+    an index; no index: the current device), cached per device index: a
+    card's count does not change while the process runs."""
+    index = device if isinstance(device, int) else device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    count = _SM_COUNT.get(index)
+    if count is None:
+        count = _SM_COUNT[index] = (
+            torch.cuda.get_device_properties(index).multi_processor_count)
+    return count

@@ -1,13 +1,20 @@
-"""Argument checks shared by the kernel wrappers, and the NaN-last sort of
-the plain versions."""
+"""Argument checks and the launch helpers shared by the kernel wrappers,
+and the NaN-last sort of the plain versions.
+
+A wrapper's host path runs once per launch, and the fleet's launches are
+launch-sized (a (5, 17, 2842) stack is read in a few microseconds), so
+these helpers build no tensor view, no ``torch.cuda.Stream`` and no device
+context that a launch does not need."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 
 def check_stack(x: torch.Tensor, what: str) -> None:
     """A kernel input stack: 2-D, contiguous, fp32 or bf16, on CUDA."""
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
     if x.dim() != 2:
         raise ValueError(f"{what}: expected a (n, D) stack, got {tuple(x.shape)}")
@@ -25,30 +32,64 @@ MAX_LANES = 65535
 
 def check_lanes(x: torch.Tensor, what: str) -> None:
     """A lane-batched kernel input: a (B, n, D) stack, each lane a valid
-    :func:`check_stack` input, B <= :data:`MAX_LANES`."""
-    if x.dim() != 3:
+    :func:`check_stack` input, B <= :data:`MAX_LANES`.  The checks and
+    messages are :func:`check_stack`'s on lane 0, read off ``x`` itself
+    (a contiguous stack has contiguous lanes)."""
+    shape = x.shape
+    if len(shape) != 3:
         raise ValueError(f"{what}: expected a (B, n, D) stack, got "
-                         f"{tuple(x.shape)}")
-    if not 1 <= x.shape[0] <= MAX_LANES:
+                         f"{tuple(shape)}")
+    if not 1 <= shape[0] <= MAX_LANES:
         raise ValueError(f"{what}: need 1 <= B <= {MAX_LANES} lanes, got "
-                         f"{x.shape[0]}")
-    check_stack(x[0], what)
+                         f"{shape[0]}")
+    if not x.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: expected float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: the stack must be contiguous")
+    if shape[1] < 1 or shape[2] < 1:
+        raise ValueError(f"{what}: empty stack {tuple(shape[1:])}")
 
 
 def check_small(t: torch.Tensor, shape: tuple, x: torch.Tensor,
                 what: str) -> None:
-    """A small fp32 operand (coefficients, mixing matrix) beside ``x``."""
-    if tuple(t.shape) != shape:
+    """A small fp32 operand (coefficients, mixing matrix) beside ``x``, a
+    CUDA tensor (so ``get_device`` tells the devices apart)."""
+    if t.shape != shape:
         raise ValueError(f"{what}: expected shape {shape}, got {tuple(t.shape)}")
-    if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous():
+    if t.dtype != torch.float32 or t.get_device() != x.get_device() \
+            or not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous float32 tensor on "
                          f"{x.device}, got {t.dtype} on {t.device}")
 
 
 def stream_of(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of the current CUDA stream on ``x``'s card: the
+    ``cuda_stream`` of ``torch.cuda.current_stream(x.device)``, read
+    without building the ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
+_NO_GUARD = contextlib.nullcontext()
+
+
+def device_guard(x: torch.Tensor):
+    """The context a launch on ``x`` runs in: ``torch.cuda.device(x's
+    card)`` when that card is not the current device, else nothing.
+
+    The CUDA runtime refuses a launch into a stream of another card than
+    the current one, and :func:`stream_of` hands the C entry the current
+    stream of ``x``'s card.  When ``x`` lies on the current card (one
+    card: always), entering ``torch.cuda.device`` would set the device it
+    already has and set it back, so the launch goes without it.  When
+    ``x`` lies on a second card, the guard makes that card current for
+    the launch and restores the caller's device after it.  Which card is
+    current is read from the runtime at each launch, so a caller's
+    ``torch.cuda.set_device`` or guard of its own is seen."""
+    if x.get_device() == torch._C._cuda_getDevice():
+        return _NO_GUARD
+    return torch.cuda.device(x.device)
 
 
 def sort_nan_last(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -47,7 +47,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check_lanes, check_stack, stream_of
+from repro_torch.kernels._common import (
+    check_lanes, check_stack, device_guard, stream_of,
+)
 from repro_torch.kernels.gram import gram as _gram_op
 from repro_torch.kernels.gram import gram_batched as _gram_batched_op
 from repro_torch.kernels.gram import gram_ref
@@ -261,7 +263,7 @@ def _launch(x: Tensor, assign: Tensor, weight: Tensor, n_buckets: int,
         elif x.dtype != torch.float32:
             yf = torch.empty((lanes, n_buckets, d), dtype=torch.float32,
                              device=x.device)
-    with torch.cuda.device(x.device):
+    with device_guard(x):
         rc = lib.repro_bucketgram(
             x.data_ptr(), _build.dtype_code(x.dtype), lanes, n, d,
             order.data_ptr(), start.data_ptr(), w.data_ptr(), n_buckets,

@@ -12,18 +12,82 @@ bucket-round): (B, n, D) and (B, n) coefficients -> (B, D), lane b equal
 to :func:`combine` on lane b bit for bit; :func:`combine_lanes_ref` is its
 plain version, :func:`combine_ref` on each lane.  It counts its launches
 in ``combine_lanes.launches``.
+
+The fleet and the fed rounds launch K3 on stacks of a few thousand
+columns, where a call costs its host path and the latency of its loads,
+not bandwidth: the wrapper builds no view and no stream object, and
+:func:`launch_geometry` spreads such a lane over the card one column unit
+a thread.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    check_lanes, check_small, check_stack, stream_of,
+    check_lanes, check_small, check_stack, device_guard, stream_of,
 )
 
-_THREADS = 256
+_MAX_THREADS = 256
+_MIN_THREADS = 32
 _BLOCKS_PER_SM = 16
+
+
+def load_width(x_ptr: int, out_ptr: int, d: int, itemsize: int) -> int:
+    """Elements a thread of K3 loads from a row at once: 4, else 2, else 1,
+    the widest that divides D and to which the stack's and the output's
+    base addresses are aligned (then every row and lane start is too)."""
+    for vec in (4, 2):
+        if d % vec == 0 and x_ptr % (vec * itemsize) == 0 \
+                and out_ptr % (vec * 4) == 0:
+            return vec
+    return 1
+
+
+def launch_geometry(d: int, vec: int, sms: int) -> tuple[int, int]:
+    """(threads per block, column blocks per lane) of K3 on lanes of D
+    columns read ``vec`` at a time, on a card of ``sms`` SMs.
+
+    A lane has D / vec units (a thread's ``vec`` columns).  The block is
+    the largest of 256, 128, 64 and 32 threads that still gives a lane
+    at least one block per SM, and 32 below that; the blocks cover the
+    units once, capped at 16 per SM, the grid striding over the rest.  So
+    the grid's (5, 17, 2842) fp32 lanes (vec = 2) run 45 blocks of 32
+    threads a lane, one unit a thread, and a large D keeps 256 threads and
+    16 blocks an SM a lane.  Neither the lane count nor n enters: a lane's
+    geometry is the same whatever B, and each column's sum is one
+    thread's chain over the rows in order whatever the geometry."""
+    units = d // vec
+    threads = _MAX_THREADS
+    while threads > _MIN_THREADS and -(-units // threads) < sms:
+        threads //= 2
+    blocks = max(1, min(-(-units // threads), _BLOCKS_PER_SM * sms))
+    return threads, blocks
+
+
+class Plan(ctypes.Structure):
+    """``ReproCombinePlan`` of csrc/combine.cu: what a launch at one shape
+    passes besides its pointers and stream."""
+    _fields_ = [("d", ctypes.c_longlong), ("dtype", ctypes.c_int),
+                ("lanes", ctypes.c_int), ("n", ctypes.c_int),
+                ("vec", ctypes.c_int), ("threads", ctypes.c_int),
+                ("blocks", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(d: int, x_align: int, out_align: int, dtype: torch.dtype,
+          lanes: int, n: int, device: int) -> tuple[Plan, int]:
+    """The plan of a launch and its address, from the shape, the dtype and
+    the base addresses' offsets within 16 bytes: the same for every call
+    at one shape, so filled once (the cache holds the structure alive; the
+    C entry reads it before it returns)."""
+    vec = load_width(x_align, out_align, d, dtype.itemsize)
+    plan = Plan(d, _build.dtype_code(dtype), lanes, n, vec,
+                *launch_geometry(d, vec, _build.sm_count(device)))
+    return plan, ctypes.addressof(plan)
 
 
 def combine_ref(x: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
@@ -32,31 +96,37 @@ def combine_ref(x: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
     return coeff.to(x.dtype).float() @ x.float()
 
 
-def _launch(x: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
-    """K3 on a (L, n, D) stack with (L, n) coefficients -> (L, D) fp32; a
-    single stack is lane 0 of L = 1.  One thread per four columns, at most
-    ``_BLOCKS_PER_SM`` blocks an SM for each lane."""
-    lanes, n, d = x.shape
-    check_small(coeff, (lanes, n), x, "combine coeff")
+def _launch(x: torch.Tensor, coeff: torch.Tensor, coeff_shape: tuple,
+            lanes: int, n: int, d: int, out_shape: tuple) -> torch.Tensor:
+    """K3 on ``lanes`` (n, d) stacks with ``lanes`` x n coefficients of
+    ``coeff_shape`` -> fp32 of ``out_shape`` ((lanes, d), or (d,) for a
+    single stack, lane 0 of a one-lane launch)."""
+    check_small(coeff, coeff_shape, x, "combine coeff")
     lib = _build.library()
-    units = -(-d // 4)
-    blocks = max(1, min(-(-units // _THREADS),
-                        _BLOCKS_PER_SM * _build.sm_count(x.device)))
-    out = torch.empty((lanes, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = lib.repro_combine(x.data_ptr(), _build.dtype_code(x.dtype),
-                               coeff.data_ptr(), lanes, n, d, out.data_ptr(),
-                               blocks, stream_of(x))
-    _build.check(rc, "combine kernel")
+    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
+    x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
+    _, plan = _plan(d, x_ptr & 15, out_ptr & 15, x.dtype, lanes, n,
+                    x.get_device())
+    with device_guard(x):
+        rc = lib.repro_combine(x_ptr, coeff.data_ptr(), out_ptr, plan,
+                               stream_of(x))
+    if rc:
+        _build.check(rc, "combine kernel")
     return out
 
 
 def combine(x: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
     """(n, D) fp32 / bf16 and (n,) fp32 -> (D,) fp32."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return combine_ref(x, coeff)
     check_stack(x, "combine")
-    out = _launch(x[None], coeff.reshape(1, -1))[0]
+    n, d = x.shape
+    # The coefficients are checked as coeff.reshape(1, -1): a (n,) vector
+    # is checked as it is (the same outcome, without building the view).
+    if coeff.shape == (n,):
+        out = _launch(x, coeff, (n,), 1, n, d, (d,))
+    else:
+        out = _launch(x, coeff.reshape(1, -1), (1, n), 1, n, d, (d,))
     combine.launches += 1
     return out
 
@@ -72,11 +142,12 @@ def combine_lanes_ref(x: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
 
 def combine_lanes(x: torch.Tensor, coeff: torch.Tensor) -> torch.Tensor:
     """(B, n, D) fp32 / bf16 and (B, n) fp32 -> (B, D) fp32, every lane in
-    one launch."""
-    if x.device.type == "cpu":
+    one launch (B <= 65535, the grid's y)."""
+    if x.is_cpu:
         return combine_lanes_ref(x, coeff)
     check_lanes(x, "combine_lanes")
-    out = _launch(x, coeff)
+    lanes, n, d = x.shape
+    out = _launch(x, coeff, (lanes, n), lanes, n, d, (lanes, d))
     combine_lanes.launches += 1
     return out
 

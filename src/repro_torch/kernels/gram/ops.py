@@ -24,7 +24,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._common import check_lanes, check_stack, stream_of
+from repro_torch.kernels._common import (
+    check_lanes, check_stack, device_guard, stream_of,
+)
 
 #: Threads per block of gram_rows (csrc/gram.cu, n <= 8).
 _THREADS = 256
@@ -69,7 +71,7 @@ def _launch_rows(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
                         _BLOCKS_PER_SM * _build.sm_count(x.device)))
     partial = torch.empty(chunks * 64, dtype=torch.float32, device=x.device)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with device_guard(x):
         rc = lib.repro_gram(x.data_ptr(), _build.dtype_code(x.dtype), n, d,
                             partial.data_ptr(), chunks, out.data_ptr(),
                             stream_of(x))
@@ -90,7 +92,7 @@ def _launch_tiled(x: torch.Tensor, lanes: int, n: int, d: int,
     partial = torch.empty(lib.repro_gram_tiled_scratch(lanes, n, tm, chunks),
                           dtype=torch.float32, device=x.device)
     out = torch.empty((lanes, n, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with device_guard(x):
         rc = lib.repro_gram_tiled(x.data_ptr(), _build.dtype_code(x.dtype),
                                   lanes, n, d, tm, partial.data_ptr(), chunks,
                                   out.data_ptr(), stream_of(x))
@@ -123,7 +125,7 @@ def _launch_staged(x: torch.Tensor, lanes: int, n: int, d: int
     partial = torch.empty(lanes * chunks * lib.repro_gram_batched_slots(n),
                           dtype=torch.float32, device=x.device)
     out = torch.empty((lanes, n, n), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with device_guard(x):
         rc = lib.repro_gram_batched(x.data_ptr(), _build.dtype_code(x.dtype),
                                     lanes, n, d, partial.data_ptr(), chunks,
                                     out.data_ptr(), stream_of(x))

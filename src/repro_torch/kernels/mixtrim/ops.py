@@ -45,7 +45,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    check_lanes, check_small, check_stack, sort_nan_last, stream_of,
+    check_lanes, check_small, check_stack, device_guard, sort_nan_last,
+    stream_of,
 )
 
 _BLOCKS_PER_SM = 16
@@ -110,7 +111,7 @@ def mixtrim(x: torch.Tensor, m: Optional[torch.Tensor], f: int,
     # The kernels cap the column blocks at what one wave needs themselves.
     blocks = _BLOCKS_PER_SM * _build.sm_count(x.device)
     out = torch.empty((d,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with device_guard(x):
         rc = lib.repro_mixtrim(x.data_ptr(), _build.dtype_code(x.dtype),
                                _ptr(mf), _ptr(mt), n, d, int(f),
                                int(mode == "med"), out.data_ptr(), blocks,
@@ -225,7 +226,7 @@ def _launch_lanes(x: torch.Tensor, m: Optional[torch.Tensor],
     # The kernels cap the column blocks at what one wave needs themselves.
     blocks = max(1, _BLOCKS_PER_SM * _build.sm_count(x.device) // lanes)
     out = torch.empty((lanes, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with device_guard(x):
         rc = lib.repro_mixtrim_dyn(x.data_ptr(), _build.dtype_code(x.dtype),
                                    _ptr(mf), _ptr(mt), lanes, n, d,
                                    fd.data_ptr(), int(med), out.data_ptr(),

@@ -675,12 +675,23 @@ def test_bucketgram_lanes_equal_single_lane_per_lane(dev, dtype, n, s, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [1, 5, 17, 33, 64, 65, 200])
-@pytest.mark.parametrize("d", [2842, 4099])
+@pytest.mark.parametrize("n", [1, 5, 9, 17, 33, 64, 65, 200])
+@pytest.mark.parametrize("d", [2841, 2842, 2844, 4099])
+@pytest.mark.parametrize("b", [1, 4, 5, 13])
+@pytest.mark.parametrize("misaligned", [False, True])
 def test_combine_and_median_lanes_equal_single_lane_per_lane(dev, dtype, n,
-                                                             d):
-    b = 4
+                                                             d, b, misaligned):
+    """The launch-sized stacks the fleet gives K3 (the grid's 5 lanes of
+    17 or 9 workers at D = 2842): D a multiple of 4, of 2 or of neither
+    (each of K3's load widths), a base one element past an aligned address
+    (1-element loads), inf and NaN rows; the lane forms within 1e-5 of
+    their plain versions with the non-finite positions exact, and each
+    lane bit for bit the single-lane kernel on that lane."""
     x, _ = _lane_stack(dev, dtype, b, n, d, n)
+    if misaligned:
+        base = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        base[1:].copy_(x.reshape(-1))
+        x = base[1:].view(b, n, d)
     g = torch.Generator(device=dev).manual_seed(n)
     c = torch.softmax(torch.randn((b, n), generator=g, device=dev), -1)
     m = torch.softmax(torch.randn((b, n, n), generator=g, device=dev), -1)
@@ -694,3 +705,39 @@ def test_combine_and_median_lanes_equal_single_lane_per_lane(dev, dtype, n,
             assert torch.equal(_bits(med[k]), _bits(want))
     for k in range(b):
         assert torch.equal(_bits(r[k]), _bits(combine(x[k], c[k])))
+
+
+@pytest.mark.cuda
+def test_combine_argument_checks_keep_their_errors(dev):
+    """The lean host path refuses what the kernel does not take with the
+    errors the wrappers always raised, and counts no launch for it."""
+    x = torch.randn((5, 17, 2842), device=dev)
+    c = torch.softmax(torch.randn((5, 17), device=dev), -1)
+    before = (combine.launches, combine_lanes.launches)
+    cases = [
+        (lambda: combine_lanes(x.transpose(1, 2).contiguous().transpose(1, 2),
+                               c), ValueError, "must be contiguous"),
+        (lambda: combine_lanes(torch.randn((5, 17, 5684), device=dev)[..., ::2],
+                               c), ValueError, "must be contiguous"),
+        (lambda: combine_lanes(x.half(), c), TypeError, "float32 or bfloat16"),
+        (lambda: combine_lanes(x.double(), c), TypeError, "float32 or bfloat16"),
+        (lambda: combine_lanes(x[:, :0], c[:, :0]), ValueError, "empty stack"),
+        (lambda: combine_lanes(x[0], c), ValueError, r"\(B, n, D\) stack"),
+        (lambda: combine_lanes(x[:0], c[:0]), ValueError, "1 <= B <= 65535"),
+        (lambda: combine_lanes(x, c[:, :16].contiguous()), ValueError,
+         r"combine coeff: expected shape \(5, 17\), got \(5, 16\)"),
+        (lambda: combine_lanes(x, c.double()), ValueError,
+         "contiguous float32 tensor"),
+        (lambda: combine_lanes(x, c.cpu()), ValueError,
+         "contiguous float32 tensor"),
+        (lambda: combine_lanes(x, c.T.contiguous().T), ValueError,
+         "contiguous float32 tensor"),
+        (lambda: combine(x[0], c[0, :16].contiguous()), ValueError,
+         r"combine coeff: expected shape \(1, 17\), got \(1, 16\)"),
+        (lambda: combine(x[0].half(), c[0]), TypeError, "float32 or bfloat16"),
+        (lambda: combine(x[0, :, ::2], c[0]), ValueError, "must be contiguous"),
+    ]
+    for call, err, match in cases:
+        with pytest.raises(err, match=match):
+            call()
+    assert (combine.launches, combine_lanes.launches) == before

@@ -280,3 +280,176 @@ def test_flatten_matches_reference_order_and_is_zero_copy_on_views():
     back = kdispatch.unflatten_aggregate(vec, layout)
     assert back["b"]["z"].shape == (3, 2)
     assert float(back["a"]) == 0.0
+
+
+# --- K3's launch geometry and the wrappers' launch helpers (no card) --------
+
+from repro_torch.kernels import _build, _common  # noqa: E402
+from repro_torch.kernels.combine import ops as combine_ops  # noqa: E402
+
+GEOMETRY_DS = sorted({1, 2, 3, 4, 5, 7, 8, 31, 32, 33, 127, 128, 129, 1000,
+                      2841, 2842, 2844, 4096, 4099, 8191, 8192, 16384,
+                      (1 << 18) + 3, 1 << 20, (1 << 20) + 2, (1 << 24) + 3,
+                      1 << 24, 361_821_120, 1 << 26, (1 << 26) + 2,
+                      (1 << 26) + 3})
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("d", GEOMETRY_DS)
+def test_k3_launch_geometry_covers_every_column(d, sms):
+    """For every load width that divides D: threads a multiple of 32 (32 to
+    256), blocks within the grid's x limit and 16 an SM, and the
+    grid-stride loop of csrc/combine.cu visiting each of the D / vec units
+    (so each column) exactly once.  The visit counts are computed up to
+    2^20 columns; above that every unit u is visited by thread u mod
+    (blocks * threads) alone, which needs only blocks * threads >= 1."""
+    for vec in (4, 2, 1):
+        if d % vec:
+            continue
+        threads, blocks = combine_ops.launch_geometry(d, vec, sms)
+        assert threads % 32 == 0 and 32 <= threads <= 256
+        assert 1 <= blocks <= min(16 * sms, 2 ** 31 - 1)
+        units = d // vec
+        assert units * vec == d
+        stride = threads * blocks
+        if units <= 1 << 20:
+            starts = np.arange(min(stride, units))
+            trips = -(-(units - starts) // stride)
+            visits = np.zeros(units, np.int64)
+            for k in range(int(trips.max())):
+                u = starts[trips > k] + k * stride
+                visits[u] += 1
+            assert (visits == 1).all()
+            cols = (np.arange(units)[:, None] * vec + np.arange(vec)).ravel()
+            np.testing.assert_array_equal(cols, np.arange(d))
+        if units >= 256 * sms:      # a large lane keeps 256 threads
+            assert threads == 256
+        if units <= 32 * 16 * sms:  # a small lane: one unit a thread
+            assert stride >= units
+
+
+def test_k3_load_width_is_the_widest_every_row_allows():
+    lw = combine_ops.load_width
+    assert lw(0, 0, 2842, 4) == 2          # the grid's D, fp32: 8-byte loads
+    assert lw(0, 0, 2844, 4) == 4
+    assert lw(0, 0, 2841, 4) == 1
+    assert lw(4, 0, 2844, 4) == 1          # fp32 base one element past 16 B
+    assert lw(8, 0, 2844, 4) == 2
+    assert lw(2, 0, 2844, 2) == 1          # bf16 base one element past 8 B
+    assert lw(4, 0, 2844, 2) == 2
+    assert lw(8, 0, 2844, 2) == 4
+    assert lw(0, 8, 2844, 4) == 2          # the output row bounds it too
+    for d in GEOMETRY_DS:
+        for item in (2, 4):
+            for x_off in range(0, 16, item):
+                vec = lw(x_off, 0, d, item)
+                assert d % vec == 0 and x_off % (vec * item) == 0
+
+
+class _FakeLib:
+    """Records the arguments of repro_combine instead of launching: the
+    pointers, the stream and the plan's fields."""
+
+    def __init__(self):
+        self.calls = []
+
+    def repro_combine(self, x, coeff, out, plan, stream):
+        p = combine_ops.Plan.from_address(plan)
+        self.calls.append((x, coeff, out, stream, p.dtype, p.lanes, p.n,
+                           p.d, p.vec, p.threads, p.blocks))
+        return 0
+
+
+@pytest.mark.parametrize("d,misaligned,vec", [(2842, False, 2),
+                                              (2844, False, 4),
+                                              (2841, False, 1),
+                                              (2844, True, 1)])
+def test_k3_host_path_geometry_is_the_same_whatever_b(monkeypatch, d,
+                                                      misaligned, vec):
+    """K3's host path, driven on CPU tensors with the C entry recorded: the
+    load width, block size and column blocks a lane gets are the same for
+    B = 1, 5, 13 and 65535, the lane count goes to the grid's y, and the
+    pointers, the stream and the dtype code are passed as they are."""
+    fake = _FakeLib()
+    combine_ops._plan.cache_clear()
+    monkeypatch.setattr(_build, "_LIB", fake)
+    monkeypatch.setitem(_build._SM_COUNT, -1, 132)
+    monkeypatch.setattr(combine_ops, "device_guard",
+                        lambda x: _common._NO_GUARD)
+    monkeypatch.setattr(combine_ops, "stream_of", lambda x: 4242)
+    geoms = set()
+    for b in (1, 5, 13, 65535):
+        n = 3 if b > 13 else 17
+        base = torch.zeros(b * n * d + int(misaligned))
+        x = base[int(misaligned):].view(b, n, d)
+        c = torch.zeros((b, n))
+        out = combine_ops._launch(x, c, (b, n), b, n, d, (b, d))
+        assert out.shape == (b, d) and out.dtype == torch.float32
+        args = fake.calls[-1]
+        assert args[:4] == (x.data_ptr(), c.data_ptr(), out.data_ptr(), 4242)
+        assert args[4:8] == (0, b, n, d)
+        assert args[8:] == (vec, *combine_ops.launch_geometry(d, vec, 132))
+        geoms.add(args[8:])
+    assert len(geoms) == 1
+    x1 = torch.zeros(17 * d + int(misaligned))[int(misaligned):].view(17, d)
+    combine_ops._launch(x1.bfloat16(), torch.zeros(17), (17,), 1, 17, d, (d,))
+    assert fake.calls[-1][4:8] == (1, 1, 17, d)
+    combine_ops._plan.cache_clear()
+
+
+def test_check_lanes_messages_and_lane_limit():
+    """check_lanes reads the (B, n, D) tensor itself, with the messages of
+    check_stack on a lane; at most 65535 lanes (the grid's y)."""
+    meta = lambda *shape: torch.empty(shape, device="meta")
+    with pytest.raises(ValueError, match=r"expected a \(B, n, D\) stack"):
+        _common.check_lanes(meta(17, 8), "k")
+    with pytest.raises(ValueError, match="need 1 <= B <= 65535 lanes, got 0"):
+        _common.check_lanes(meta(0, 17, 8), "k")
+    with pytest.raises(ValueError, match="need 1 <= B <= 65535 lanes, got 65536"):
+        _common.check_lanes(meta(65536, 1, 1), "k")
+    with pytest.raises(ValueError, match="k: expected a CUDA tensor, got meta"):
+        _common.check_lanes(meta(65535, 1, 1), "k")
+    with pytest.raises(ValueError, match="expected a CUDA tensor, got cpu"):
+        _common.check_lanes(torch.zeros((2, 3, 4)), "k")
+
+
+def test_sm_count_is_cached_per_device_index(monkeypatch):
+    asked = []
+
+    def props(index):
+        asked.append(index)
+        return type("P", (), {"multi_processor_count": 100 + index})()
+
+    monkeypatch.setattr(_build, "_SM_COUNT", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert _build.sm_count(torch.device("cuda", 0)) == 100
+    assert _build.sm_count(0) == 100
+    assert _build.sm_count(torch.device("cuda", 1)) == 101
+    assert _build.sm_count(torch.device("cuda")) == 101   # the current card
+    assert _build.sm_count(torch.device("cuda", 0)) == 100
+    assert asked == [0, 1]
+
+
+def test_stream_and_guard_helpers_build_no_stream_or_context(monkeypatch):
+    """stream_of reads the raw handle of x's card's current stream without
+    a torch.cuda.Stream; device_guard enters torch.cuda.device only when x
+    lies on another card than the current one."""
+    asked = []
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: asked.append(index) or 1000 + index,
+                        raising=False)
+
+    def no_stream(*a, **k):
+        raise AssertionError("built a torch.cuda.Stream")
+
+    monkeypatch.setattr(torch.cuda, "Stream", no_stream)
+    monkeypatch.setattr(torch.cuda, "current_stream", no_stream)
+    on = lambda k: type("T", (), {"get_device": lambda self: k,
+                                  "device": torch.device("cuda", k)})()
+    assert _common.stream_of(on(1)) == 1001 and asked == [1]
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    assert _common.device_guard(on(0)) is _common._NO_GUARD
+    guard = _common.device_guard(on(1))
+    assert isinstance(guard, torch.cuda.device) and guard.idx == 1
