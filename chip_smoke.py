@@ -178,13 +178,16 @@ Phases, each fatal on failure:
  18. hierarchical fleet lanes and the lane forms of K2's median, K3, K6
      and K7: (a) at the fleet's kernel shape (B = 8, n = 17, D = 2^24):
      K6 lanes at s = 3 (6 means, the register Gram) and K7 lanes at s = 2
-     (9 means, ragged tail; with the Gram, K7 + K5), fp32 and bf16, K3
+     (9 means, ragged tail; with the Gram, K7 + K5), fp32 and bf16, on
+     the fleet's route (each lane's permutation; the kernel builds the
+     buckets) and bit for bit the id route (bucket ids), K3
      lanes and K2's median lanes with and without the mix, each against
      its plain version (RTOL; bf16 means one ulp), each lane against the
      single-lane kernel on that lane bit for bit (at 9 means the Gram,
      which K5 folds and the single-lane K6 folds with K1, each within
      RTOL of the plain version), a rerun bit for bit,
-     timed beside the bound and torch.bmm(B, X) (K7), torch.bmm(c, x)
+     timed beside the bound and torch.bmm(B, X) (K7; in bf16 with the
+     weights rounded to bf16), torch.bmm(c, x)
      (K3), torch.median (the median without the mix); inf / NaN rows at a
      ragged D (the NaN spread stays in its lane) and the grid's shapes;
      (b) FleetRunner at the grid's widths, NNM + CWTM / cwmed / GM x 5
@@ -203,7 +206,12 @@ Phases, each fatal on failure:
      K3 and K1 at the fed cohorts (10 / 12 / 17, 2842) against c @ x and
      torch.mm(x, x.T), K5 at the grid's shapes against
      torch.bmm(x, x.mT), K4 (f = 4, with and without the mix), the
-     median lanes with and without the mix against torch.median; in
+     median lanes with and without the mix against torch.median, K6 /
+     K7 / K7 + K5 lanes on the fleet's route at (5, 17, 2842), fp32 and
+     bf16 (K7 against torch.bmm(bm, x)), and every fleet-route call of
+     the median lanes, K4 and K6 / K7 there once under
+     torch.cuda.set_sync_debug_mode("error") (none may wait for the
+     card); in
      turns, the median of 7 with the min-max of three numbers per call:
      the turn (CUDA events around 200 back-to-back calls: the larger of
      the host's and the device's cost), the host's (its clock around 200
@@ -3477,9 +3485,10 @@ def phase_lane_kernels(dev, rate: float) -> dict:
     import torch
     from repro_torch.kernels import (
         bucket_means_gram_lanes_ref, bucketgram, bucketgram_lanes,
-        bucketmeans, bucketmeans_lanes, combine, combine_lanes,
-        combine_lanes_ref, combine_ref, gram_batched, mixtrim, mixtrim_lanes,
-        mixtrim_lanes_ref, mixtrim_ref,
+        bucketgram_lanes_perms, bucketmeans, bucketmeans_lanes,
+        bucketmeans_lanes_perms, combine, combine_lanes, combine_lanes_ref,
+        combine_ref, gram_batched, mixtrim, mixtrim_lanes, mixtrim_lanes_ref,
+        mixtrim_ref,
     )
     from repro_torch.kernels.bucketgram import assignment_matrix
     b, n, d = FLEET_BIG
@@ -3495,19 +3504,26 @@ def phase_lane_kernels(dev, rate: float) -> dict:
         return torch.stack([assignment_matrix(assign[k], nb)
                             for k in range(b)])
 
-    # K6 lanes, s = 3: 6 means, the register Gram.
+    # K6 lanes, s = 3: 6 means, the register Gram.  Timed on the fleet's
+    # route (each lane's permutation; the kernel builds the buckets), held
+    # bit for bit to the id route (bucket ids; the plan built on the host).
     a3, nb3 = lane_assign(perms, 3), -(-n // 3)
     a2, nb2 = lane_assign(perms, 2), -(-n // 2)
     for xx, tag in ((x, "fp32"), (x.bfloat16(), "bf16")):
         el = xx.element_size()
         log(f"-- K6 bucketgram_lanes {tag} B={b} n={n} D={d}, s=3 "
             f"({nb3} means)")
-        y, g = bucketgram_lanes(xx, a3, nb3)
+        y, g = bucketgram_lanes_perms(xx, perms, 3)
+        yi, gi = bucketgram_lanes(xx, a3, nb3)
+        if not (same_bits(y, yi) and same_bits(g, gi)):
+            raise AssertionError(f"K6 lanes {tag}: the permutation route "
+                                 "differs from the id route")
+        del yi, gi
         wy, wg = bucket_means_gram_lanes_ref(xx, a3, nb3)
         bnd = bound(1.0 * el * b * n * d + el * b * nb3 * d
-                    + 4 * b * nb3 * nb3,
+                    + 4 * b * nb3 * nb3 + 8 * b * n,
                     2.0 * b * n * d + b * nb3 * (nb3 + 1) * d, rate)
-        ms = time_ms(lambda: bucketgram_lanes(xx, a3, nb3))
+        ms = time_ms(lambda: bucketgram_lanes_perms(xx, perms, 3))
         pms = time_ms(lambda: bucket_means_gram_lanes_ref(xx, a3, nb3))
         fn = check if tag == "fp32" else check_ulp
         err = fn(f"K6 lanes means {tag}", y, wy, ms, pms, bnd)
@@ -3517,12 +3533,13 @@ def phase_lane_kernels(dev, rate: float) -> dict:
                         lambda k: bucketgram(xx[k], a3[k], nb3)[0])
         lanes_vs_single(f"K6 lanes Gram {tag}", g,
                         lambda k: bucketgram(xx[k], a3[k], nb3)[1])
-        y2, g2 = bucketgram_lanes(xx, a3, nb3)
+        y2, g2 = bucketgram_lanes_perms(xx, perms, 3)
         if not (same_bits(y, y2) and same_bits(g, g2)):
             raise AssertionError(f"K6 lanes {tag} is not bitwise repeatable")
-        log(f"  K6 lanes {tag}: every lane equals the single-lane K6 bit for "
-            f"bit (means and Gram); bitwise equal over two runs; "
-            f"{100 * bnd[0] / ms:.0f} % of the bound")
+        log(f"  K6 lanes {tag}: the permutation and id routes and every "
+            f"lane's single-lane K6 agree bit for bit (means and Gram); "
+            f"bitwise equal over two runs; {100 * bnd[0] / ms:.0f} % of the "
+            f"bound")
         if tag == "fp32":
             rows["bucketgram_lanes"] = dict(max_abs_err=err, ms=ms,
                                             plain_ms=pms, bound=bnd,
@@ -3531,21 +3548,25 @@ def phase_lane_kernels(dev, rate: float) -> dict:
 
         log(f"-- K7 bucketmeans_lanes {tag}, s=2 ({nb2} means, ragged "
             f"tail), and K7 + K5")
-        y = bucketmeans_lanes(xx, a2, nb2)
+        y = bucketmeans_lanes_perms(xx, perms, 2)
+        if not same_bits(y, bucketmeans_lanes(xx, a2, nb2)):
+            raise AssertionError(f"K7 lanes {tag}: the permutation route "
+                                 "differs from the id route")
         wy, _ = bucket_means_gram_lanes_ref(xx, a2, nb2, with_gram=False)
-        bnd = bound(1.0 * el * b * n * d + el * b * nb2 * d,
+        bnd = bound(1.0 * el * b * n * d + el * b * nb2 * d + 8 * b * n,
                     2.0 * b * n * d, rate)
-        ms = time_ms(lambda: bucketmeans_lanes(xx, a2, nb2))
+        ms = time_ms(lambda: bucketmeans_lanes_perms(xx, perms, 2))
         pms = time_ms(lambda: bucket_means_gram_lanes_ref(xx, a2, nb2,
                                                           with_gram=False))
-        lib = None
-        if tag == "fp32":
-            bm = bmats(a2, nb2)
-            lib = time_ms(lambda: torch.bmm(bm, xx))
+        # In bf16 the library's product rounds the 1/|bucket| weights to
+        # bf16 too (bmm takes one dtype): the same work, another result.
+        bm = bmats(a2, nb2).to(xx.dtype)
+        lib = time_ms(lambda: torch.bmm(bm, xx))
+        del bm
         err = fn(f"K7 lanes {tag}", y, wy, ms, pms, bnd, lib)
         lanes_vs_single(f"K7 lanes {tag}", y,
                         lambda k: bucketmeans(xx[k], a2[k], nb2))
-        if not same_bits(y, bucketmeans_lanes(xx, a2, nb2)):
+        if not same_bits(y, bucketmeans_lanes_perms(xx, perms, 2)):
             raise AssertionError(f"K7 lanes {tag} is not bitwise repeatable")
         if tag == "fp32":
             rows["bucketmeans_lanes"] = dict(max_abs_err=err, ms=ms,
@@ -3556,9 +3577,10 @@ def phase_lane_kernels(dev, rate: float) -> dict:
         # Gram.  The single-lane form folds it with K1, which splits D
         # otherwise: both Grams are held to the plain version, not to each
         # other bit for bit.
-        y, g = bucketgram_lanes(xx, a2, nb2)
+        ms7 = ms
+        y, g = bucketgram_lanes_perms(xx, perms, 2)
         _, wg = bucket_means_gram_lanes_ref(xx, a2, nb2)
-        ms = time_ms(lambda: bucketgram_lanes(xx, a2, nb2))
+        ms = time_ms(lambda: bucketgram_lanes_perms(xx, perms, 2))
         for k in range(b):
             agree(f"K7 + K5 lanes Gram {tag} lane {k}", g[k], wg[k])
             y1, g1 = bucketgram(xx[k], a2[k], nb2)
@@ -3570,8 +3592,10 @@ def phase_lane_kernels(dev, rate: float) -> dict:
         if tag == "fp32" and not same_bits(g, gram_batched(y)):
             raise AssertionError("K7 + K5 lanes: the Gram is not K5's on "
                                  "the means")
-        log(f"  K7 lanes {tag}: every lane equals the single-lane K7 bit for "
-            f"bit, bitwise repeatable; K7 + K5 with the Gram {ms:.3f} ms")
+        log(f"  K7 lanes {tag}: the permutation and id routes and every "
+            f"lane's single-lane K7 agree bit for bit, bitwise repeatable, "
+            f"{100 * bnd[0] / ms7:.0f} % of the bound; K7 + K5 with the Gram "
+            f"{ms:.3f} ms")
         del y, g, wg
         torch.cuda.empty_cache()
 
@@ -3641,15 +3665,20 @@ def phase_lane_kernels(dev, rate: float) -> dict:
               "outputs)", got, want)
         if bool(torch.isnan(got[0]).any()):
             raise AssertionError(f"{what}: a NaN reached lane 0")
-    y6, g6 = bucketgram_lanes(xs, a3, nb3)
+    y6, g6 = bucketgram_lanes_perms(xs, perms, 3)
+    y7 = bucketmeans_lanes_perms(xs, perms, 2)
+    if not (same_bits(y6, outs["K6 lanes"][0])
+            and same_bits(y7, outs["K7 lanes"][0])):
+        raise AssertionError("K6 / K7 lanes inf / nan: the permutation route "
+                             "differs from the id route")
     for k in range(b):
         y1, g1 = bucketgram(xs[k], a3[k], nb3)
         if not (same_bits(y6[k], y1) and same_bits(g6[k], g1)):
             raise AssertionError(f"K6 lanes inf / nan: lane {k} differs "
                                  "from the single-lane K6")
     log("  inf / NaN rows: the 0 * inf spread stays in its lane; K6 lanes "
-        "equal the single-lane K6 bit for bit there")
-    del xs, outs, y6, g6, x
+        "equal the single-lane K6 bit for bit there, both routes")
+    del xs, outs, y6, g6, y7, x
     torch.cuda.empty_cache()
 
     # The grid's shapes: the lane forms against their plain versions.
@@ -3663,7 +3692,11 @@ def phase_lane_kernels(dev, rate: float) -> dict:
                        -1)
     for s in HIER_FLEET_SIZES:
         ag, nbg = lane_assign(pg, s), -(-gn // s)
-        y, g = bucketgram_lanes(xg, ag, nbg)
+        y, g = bucketgram_lanes_perms(xg, pg, s)
+        yi, gi = bucketgram_lanes(xg, ag, nbg)
+        if not (same_bits(y, yi) and same_bits(g, gi)):
+            raise AssertionError(f"K6 lanes grid shape s={s}: the permutation "
+                                 "route differs from the id route")
         wy, wg = bucket_means_gram_lanes_ref(xg, ag, nbg)
         agree(f"K6 lanes grid shape s={s} means", y, wy)
         for k in range(gb):
@@ -4067,6 +4100,97 @@ def launch_pair(label: str, kernel, library, lib_name: Optional[str],
                for m, v in d.items()}}
 
 
+def launch_bucket_rows(x, perms, rate: float, out: list) -> None:
+    """18d's K6 / K7 lanes at a grid shape on the fleet's route (each
+    lane's permutation): K6 at s = 3 (6 means, the register Gram), K7 at
+    s = 2 (9 means, ragged tail) against torch.bmm(bm, x) (in bf16 bmm
+    rounds the 1/|bucket| weights to bf16 too), and K7 + K5 (the Gram of
+    the 9 means), fp32 and bf16; each held to its plain version (bf16
+    means within one ulp), printed beside its bound (the stack, the
+    permutations and the outputs each moved once)."""
+    import torch
+    from repro_torch.kernels import (
+        bucket_means_gram_lanes_ref, bucketgram_lanes_perms,
+        bucketmeans_lanes_perms,
+    )
+    from repro_torch.kernels.bucketgram import assignment_matrix
+    b, n, d = x.shape
+    for xx, tag in ((x, "fp32"), (x.bfloat16(), "bf16")):
+        el = xx.element_size()
+        for s, gram in ((3, True), (2, False), (2, True)):
+            a, nb = lane_assign(perms, s), -(-n // s)
+            kind = ("K6" if nb <= 8 else "K7 + K5") if gram else "K7"
+            label = f"{kind} lanes s={s} {tag} {(b, n, d)}"
+            if gram:
+                kernel = (lambda xx=xx, s=s:
+                          bucketgram_lanes_perms(xx, perms, s))
+                y, g = kernel()
+            else:
+                kernel = (lambda xx=xx, s=s:
+                          bucketmeans_lanes_perms(xx, perms, s))
+                y, g = kernel(), None
+            wy, wg = bucket_means_gram_lanes_ref(xx, a, nb, with_gram=gram)
+            err, tol = max_err(y, wy, ulp=tag == "bf16")
+            if err > tol:
+                raise AssertionError(f"18d {label}: means disagree with the "
+                                     f"plain version ({err:.3e} > {tol:.3e})")
+            if gram:
+                for k in range(b):
+                    agree(f"18d {label} Gram lane {k}", g[k], wg[k])
+            library, lib_name = None, None
+            if not gram:
+                bm = torch.stack([assignment_matrix(a[k], nb)
+                                  for k in range(b)]).to(xx.dtype)
+                library = lambda bm=bm, xx=xx: torch.bmm(bm, xx)
+                lib_name = "torch.bmm(bm, x)" + (
+                    " (bf16 weights)" if tag == "bf16" else "")
+            bnd = bound(1.0 * el * b * (n + nb) * d + 8.0 * b * n
+                        + (4.0 * b * nb * nb if gram else 0.0),
+                        2.0 * b * n * d
+                        + (1.0 * b * nb * (nb + 1) * d if gram else 0.0), rate)
+            log(f"  18d {label}: means within {'one bf16 ulp and ' if tag == 'bf16' else ''}"
+                f"the fp32 tolerance of the plain version ({err:.3e} <= "
+                f"{tol:.3e})")
+            out.append(launch_pair(label, kernel, library, lib_name,
+                                   LAUNCH_CALLS, bnd))
+
+
+def no_sync_routes(x, perms, m, fs) -> None:
+    """Each fleet-route call of the median lanes, K4 and K6 / K7's lanes
+    (fp32 and bf16, with and without the mix, K7 + K5) once under
+    torch.cuda.set_sync_debug_mode("error"): a call that waits for the
+    card raises."""
+    import torch
+    from repro_torch.kernels import (
+        bucketgram_lanes_perms, bucketmeans_lanes_perms, mixtrim_dyn,
+        mixtrim_lanes,
+    )
+    calls = {}
+    for xx, tag in ((x, "fp32"), (x.bfloat16(), "bf16")):
+        calls.update({
+            f"median lanes mix {tag}": lambda xx=xx: mixtrim_lanes(xx, m),
+            f"median lanes {tag}": lambda xx=xx: mixtrim_lanes(xx, None),
+            f"K4 mix {tag}": lambda xx=xx: mixtrim_dyn(xx, m, fs),
+            f"K6 lanes s=3 {tag}":
+                lambda xx=xx: bucketgram_lanes_perms(xx, perms, 3),
+            f"K7 lanes s=2 {tag}":
+                lambda xx=xx: bucketmeans_lanes_perms(xx, perms, 2),
+            f"K7 + K5 lanes s=2 {tag}":
+                lambda xx=xx: bucketgram_lanes_perms(xx, perms, 2)})
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls.values():
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"  18d no synchronizing call (sync-debug mode \"error\") in "
+        f"{len(calls)} fleet-route calls: {', '.join(calls)}")
+
+
 def phase_launch_sizes(dev, rate: float) -> list:
     """18d: every kernel the grid and the fed rounds launch, at their own
     shapes, against the PyTorch call that computes the same function where
@@ -4075,7 +4199,11 @@ def phase_launch_sizes(dev, rate: float) -> list:
     the fed cohorts (10 / 12 / 17, 2842) against c @ x and
     torch.mm(x, x.T); K5 at the grid's shapes against torch.bmm(x, x.mT);
     K4 (f = 4, with and without the mix) alone; the median lanes with and
-    without the mix against torch.median.  Each kernel is first held to
+    without the mix against torch.median; K6 / K7's lanes on the fleet's
+    permutation route at the grid's (5, 17, 2842), fp32 and bf16
+    (:func:`launch_bucket_rows`), and every fleet-route call there once
+    under sync-debug mode "error" (:func:`no_sync_routes`).  Each kernel
+    is first held to
     its plain version on the same inputs, and printed beside its bound (each
     fp32 input read once, each output written once).  Returns the logged
     medians."""
@@ -4127,6 +4255,11 @@ def phase_launch_sizes(dev, rate: float) -> list:
                  4.0 * b * n * d + mix_in, mix_ops,
                  *((lambda: torch.median(x, dim=1), "torch.median(x, dim=1)")
                    if mm is None else ()))
+        perms = torch.stack([torch.randperm(n, generator=torch.Generator()
+                                            .manual_seed(k))
+                             for k in range(b)]).to(dev)
+        launch_bucket_rows(x, perms, rate, out)
+        no_sync_routes(x, perms, m, fs)
     torch.cuda.empty_cache()
     d = FLEET_GRID[2]
     for n in (10, 12, 17):
@@ -5317,10 +5450,10 @@ def main() -> int:
              ("K4", "mixtrim_dyn", "ported, checked"),
              ("K5", "gram_batched", "ported, checked"), ("K6", "bucketgram", "ported, checked"),
              ("K7", "bucketmeans", "ported, checked"),
-             ("K2 median lanes", "mixtrim_lanes", "ported, checked"),
+             ("K2 median lanes", "mixtrim_lanes", "ported, redesigned, checked"),
              ("K3 lanes", "combine_lanes", "ported, redesigned, checked"),
-             ("K6 lanes", "bucketgram_lanes", "ported, checked"),
-             ("K7 lanes", "bucketmeans_lanes", "ported, checked")]
+             ("K6 lanes", "bucketgram_lanes", "ported, redesigned, checked"),
+             ("K7 lanes", "bucketmeans_lanes", "ported, redesigned, checked")]
     log("kernels: " + "; ".join(f"{k} {n}: {s}" for k, n, s in table))
 
     def lane_total(name: str) -> int:

@@ -939,19 +939,22 @@ def _hier_reduce_lanes(flat: Tensor, spec: AggregatorSpec, f: Tensor, *,
     n = flat.shape[1] if n is None else n
     s = _bucket_size_dyn(spec.bucket_size, n)
     nb = bucketlib.num_buckets(n, s)
+    need_gram = spec.rule in GRAM_RULES or spec.pre == "nnm"
+    if batched and sh is None:
+        # The permutations as they are: K6 / K7's lane form builds each
+        # lane's buckets on the device, so nothing waits for the card.
+        y, g = kdispatch.dispatch_bucketgram_perms(
+            flat, perms, s, backend=backend, with_gram=need_gram)
+        return y, bucketlib.adjusted_f_dyn(f, nb).to(torch.int64), g
     # Worker i of lane b goes to bucket argsort(perms[b])[i] // s, as
     # bucketlib.bucket_assignment groups one lane.
     assign = torch.div(torch.argsort(perms, dim=1), s, rounding_mode="floor")
-    need_gram = spec.rule in GRAM_RULES or spec.pre == "nnm"
     if sh is not None:
         outs = [kdispatch.dispatch_bucketgram(
             flat[k], assign[k], nb, backend=backend, with_gram=need_gram,
             sh=sh) for k in range(flat.shape[0])]
         y = torch.stack([o[0] for o in outs])
         g = torch.stack([o[1] for o in outs]) if need_gram else None
-    elif batched:
-        y, g = kdispatch.dispatch_bucketgram(flat, assign, nb, backend=backend,
-                                             with_gram=need_gram)
     else:
         y, g = kdispatch.dispatch_bucketgram(flat[0], assign[0], nb,
                                              backend=backend,

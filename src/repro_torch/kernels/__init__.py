@@ -9,7 +9,8 @@ compiles on first use.
 """
 from repro_torch.kernels.bucketgram import (
     bucket_means_gram, bucket_means_gram_lanes_ref, bucket_means_gram_ref,
-    bucketgram, bucketgram_lanes, bucketmeans, bucketmeans_lanes,
+    bucketgram, bucketgram_lanes, bucketgram_lanes_perms, bucketmeans,
+    bucketmeans_lanes, bucketmeans_lanes_perms,
 )
 from repro_torch.kernels.combine import (
     combine, combine_lanes, combine_lanes_ref, combine_ref,
@@ -24,7 +25,8 @@ from repro_torch.kernels.mixtrim import (
 
 __all__ = ["bucket_means_gram", "bucket_means_gram_lanes_ref",
            "bucket_means_gram_ref", "bucketgram", "bucketgram_lanes",
-           "bucketmeans", "bucketmeans_lanes", "combine", "combine_lanes",
+           "bucketgram_lanes_perms", "bucketmeans", "bucketmeans_lanes",
+           "bucketmeans_lanes_perms", "combine", "combine_lanes",
            "combine_lanes_ref", "combine_ref", "gram", "gram_batched",
            "gram_batched_ref", "gram_ref", "mixtrim", "mixtrim_dyn",
            "mixtrim_dyn_ref", "mixtrim_lanes", "mixtrim_lanes_ref",

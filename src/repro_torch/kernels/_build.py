@@ -49,15 +49,15 @@ _SIGNATURES = {
     "repro_gram_batched_chunks": ([_I, _I, _LL, _I], _I),
     "repro_gram_staged_max_n": ([], _I),
     "repro_mixtrim": ([_P, _I, _P, _P, _I, _LL, _I, _I, _P, _I, _P], _I),
-    "repro_mixtrim_dyn": ([_P, _I, _P, _P, _I, _I, _LL, _P, _I, _P, _I, _P],
-                          _I),
+    "repro_mixtrim_dyn": ([_P, _P, _P, _P, _P, _P, _P], _I),
     "repro_mixtrim_max_n": ([], _I),
     "repro_mixtrim_select_scratch": ([_I], _LL),
     "repro_combine": ([_P, _P, _P, _P, _P], _I),
-    "repro_bucketgram": ([_P, _I, _I, _I, _LL, _P, _P, _P, _I, _P, _P, _P,
-                          _P, _P, _I, _P], _I),
+    "repro_bucketgram": ([_P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "repro_bucketgram_scratch": ([_P], _LL),
     "repro_bucketgram_reg_nb": ([], _I),
-    "repro_bucketgram_npair": ([], _I),
+    "repro_bucketgram_means_nb": ([], _I),
+    "repro_bucketgram_reg_max_n": ([], _I),
     "repro_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -71,6 +71,34 @@ def stream_of(x: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
+_MAX_THREADS = 256
+_MIN_THREADS = 32
+_BLOCKS_PER_SM = 16
+
+
+def launch_geometry(d: int, vec: int, sms: int,
+                    max_threads: int = _MAX_THREADS) -> tuple[int, int]:
+    """(threads per block, column blocks per lane) on lanes of D columns,
+    ``vec`` a thread, on a card of ``sms`` SMs: K3's, K6 / K7's register
+    path's (``max_threads`` 256) and the n <= 64 mixtrim body's (128).
+
+    A lane has ceil(D / vec) units (a thread's ``vec`` columns).  The
+    block is the largest of ``max_threads``, its halves and 32 threads that
+    still gives a lane at least one block per SM, and 32 below that; the
+    blocks cover the units once, capped at 16 per SM, the grid striding
+    over the rest.  So the grid's (5, 17, 2842) fp32 lanes (vec = 2) run 45
+    blocks of 32 threads a lane, one unit a thread, and a large D keeps the
+    largest block and 16 blocks an SM a lane.  Neither the lane count nor
+    n enters: a lane's geometry is the same whatever B, and in each of
+    these kernels a column is one thread's work whatever the geometry."""
+    units = -(-d // vec)
+    threads = max_threads
+    while threads > _MIN_THREADS and -(-units // threads) < sms:
+        threads //= 2
+    blocks = max(1, min(-(-units // threads), _BLOCKS_PER_SM * sms))
+    return threads, blocks
+
+
 _NO_GUARD = contextlib.nullcontext()
 
 

@@ -1,10 +1,12 @@
 from repro_torch.kernels.bucketgram.ops import (
-    REG_NB, assignment_matrix, bucket_means_gram, bucket_means_gram_lanes_ref,
-    bucket_means_gram_ref, bucketgram, bucketgram_lanes, bucketmeans,
-    bucketmeans_lanes,
+    MEANS_NB, REG_NB, assignment_matrix, bucket_means_gram,
+    bucket_means_gram_lanes_ref, bucket_means_gram_ref, bucketgram,
+    bucketgram_lanes, bucketgram_lanes_perms, bucketmeans, bucketmeans_lanes,
+    bucketmeans_lanes_perms, perm_assignment, perm_plan_ref, plan_arrays,
 )
 
-__all__ = ["REG_NB", "assignment_matrix", "bucket_means_gram",
+__all__ = ["MEANS_NB", "REG_NB", "assignment_matrix", "bucket_means_gram",
            "bucket_means_gram_lanes_ref", "bucket_means_gram_ref",
-           "bucketgram", "bucketgram_lanes", "bucketmeans",
-           "bucketmeans_lanes"]
+           "bucketgram", "bucketgram_lanes", "bucketgram_lanes_perms",
+           "bucketmeans", "bucketmeans_lanes", "bucketmeans_lanes_perms",
+           "perm_assignment", "perm_plan_ref", "plan_arrays"]

@@ -36,19 +36,36 @@ B is the (n_b, n) row-normalized bucket-assignment matrix
   :func:`bucket_means_gram_lanes_ref` is their plain version,
   :func:`bucket_means_gram_ref` on each lane.  They count their launches
   in ``.launches``.
+* :func:`bucketgram_lanes_perms` / :func:`bucketmeans_lanes_perms` are the
+  fleet's route to the same lane forms (and counters): each lane's
+  permutation and the bucket size s, as the hierarchical lanes hold them
+  (bucket k: the workers at permutation positions [k s, k s + s)).  The
+  register path builds each lane's plan in each block (``stage_plan``,
+  whose plain version is :func:`perm_plan_ref`), so the call reads
+  nothing back from the card and makes no torch op but its outputs'
+  allocations; above PERM_MAX_S, or off the register path, the route runs
+  :func:`perm_plan_ref` itself (torch ops on the card, nothing read
+  back).  The ids of the public forms take :func:`plan_arrays`, after
+  their checks.
+
+A launch's shape-dependent arguments go in a :class:`Plan`, filled once
+per shape (cached) and passed by address; its scratch (the plan arrays,
+the Gram partials) is one allocation.
 
 The TPU layout padding (n_b to 8, n to ``block_n``, D to ``block_d``) is
 not carried over: the kernels mask nothing and pad nothing.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    check_lanes, check_stack, device_guard, stream_of,
+    check_lanes, check_stack, device_guard, launch_geometry, stream_of,
 )
 from repro_torch.kernels.gram import gram as _gram_op
 from repro_torch.kernels.gram import gram_batched as _gram_batched_op
@@ -59,6 +76,17 @@ _BLOCKS_PER_SM = 16
 #: Largest bucket count whose Gram K6 folds in registers
 #: (csrc/bucketgram.cu NB).
 REG_NB = 8
+#: Largest bucket count whose means alone take the register path
+#: (csrc/bucketgram.cu MEANS_NB); above it, a thread per (bucket, columns).
+MEANS_NB = 16
+#: Largest worker count of the register path (csrc/bucketgram.cu
+#: REG_MAX_N: its plan sits in shared memory).
+REG_MAX_N = 4096
+#: Largest bucket size whose permutation route the kernel plans itself (a
+#: worker's rank in its bucket costs s reads); above it, or off the
+#: register path, the plan is :func:`perm_plan_ref` on the device, handed
+#: over as the id route's.
+PERM_MAX_S = 64
 #: Column chunk of the plain version's dense contraction (bounds the fp32
 #: copy of a bf16 stack).
 PLAIN_CHUNK = 1 << 24
@@ -131,14 +159,68 @@ def _resolve(x: Tensor, assignment: Tensor, n_buckets: Optional[int],
     return assign, weight.to(device=x.device, dtype=torch.float32), n_buckets
 
 
-def _blocks(x: Tensor, d: int, n_buckets: int) -> int:
-    """Column blocks per lane.  Threads: one per four columns; above
-    REG_NB buckets one per (bucket, four columns), with a (D,) scratch
-    noting non-finite columns.  The lane form takes the same count, so
-    that its register Gram folds the same partials."""
-    units = -(-d // 4) * (1 if n_buckets <= REG_NB else n_buckets)
-    return max(1, min(-(-units // _THREADS),
-                      _BLOCKS_PER_SM * _build.sm_count(x.device)))
+def load_width(x_off: int, y_off: int, yf_off: Optional[int], d: int,
+               itemsize: int) -> int:
+    """Elements a thread of the register path loads from a row at once:
+    the widest of 8 (bf16 only: 16 bytes), 4, 2 and 1 that divides D and
+    to which the stack's, the means' and the fp32 means' base offsets
+    (within 16 bytes) are aligned, so every row and lane start is too."""
+    for vec in ((8, 4, 2) if itemsize == 2 else (4, 2)):
+        if d % vec == 0 and x_off % (vec * itemsize) == 0 \
+                and y_off % (vec * itemsize) == 0 \
+                and (yf_off is None or yf_off % min(vec * 4, 16) == 0):
+            return vec
+    return 1
+
+
+class Plan(ctypes.Structure):
+    """``ReproBucketPlan`` of csrc/bucketgram.cu: what a launch at one
+    shape passes besides its pointers and stream."""
+    _fields_ = [("d", ctypes.c_longlong), ("dtype", ctypes.c_int),
+                ("lanes", ctypes.c_int), ("n", ctypes.c_int),
+                ("nb", ctypes.c_int), ("s", ctypes.c_int),
+                ("reg", ctypes.c_int), ("gram", ctypes.c_int),
+                ("vec", ctypes.c_int), ("threads", ctypes.c_int),
+                ("blocks", ctypes.c_int)]
+
+
+def register_path(n: int, nb: int, gram: bool) -> bool:
+    """Whether a launch takes the register path: its plan fits shared
+    memory (n <= REG_MAX_N) and every bucket's means fit its registers
+    (n_b <= REG_NB with the register Gram, <= MEANS_NB without)."""
+    return n <= REG_MAX_N and nb <= (REG_NB if gram else MEANS_NB)
+
+
+def plan_geometry(d: int, n: int, nb: int, gram: bool, vec: int, sms: int
+                  ) -> tuple[bool, int, int]:
+    """(register path, threads, column blocks per lane).  The register path
+    (:func:`register_path`) takes
+    :func:`~repro_torch.kernels._common.launch_geometry`, with blocks of up
+    to 128 threads with the Gram (its registers hold every bucket's means);
+    else a thread per (bucket, four columns), 256 a block, at most 16
+    blocks an SM.  The lane count does not enter, so the register Gram of
+    a lane folds the partials of its single-lane launch."""
+    if register_path(n, nb, gram):
+        return (True, *launch_geometry(d, vec, sms, 128 if gram else 256))
+    units = -(-d // 4) * nb
+    return False, _THREADS, max(1, min(-(-units // _THREADS),
+                                       _BLOCKS_PER_SM * sms))
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(d: int, x_off: int, y_off: int, yf_off: Optional[int],
+          dtype: torch.dtype, lanes: int, n: int, nb: int, s: int, gram: bool,
+          device: int) -> tuple[Plan, int, int]:
+    """(plan, its address, scratch words) of a launch at one shape, with
+    the register Gram (``gram``) or not and ``s`` > 0 for the permutation
+    route; the cache holds the structure alive."""
+    vec = load_width(x_off, y_off, yf_off, d, dtype.itemsize)
+    reg, threads, blocks = plan_geometry(d, n, nb, gram, vec,
+                                         _build.sm_count(device))
+    plan = Plan(d, _build.dtype_code(dtype), lanes, n, nb, s, int(reg),
+                int(gram), vec, threads, blocks)
+    addr = ctypes.addressof(plan)
+    return plan, addr, _build.library().repro_bucketgram_scratch(addr)
 
 
 def _ptr(t: Optional[Tensor]):
@@ -154,8 +236,8 @@ def bucketgram(x: Tensor, assignment: Tensor, n_buckets: Optional[int] = None,
     if x.device.type == "cpu":
         return bucket_means_gram_ref(x, assignment_matrix(assign, nb, weight))
     check_stack(x, "bucketgram")
-    y, g = _launch(x[None], assign[None], weight[None], nb, with_gram=True,
-                   fold=lambda ym: _gram_op(ym[0])[None])
+    y, g = _launch_ids(x[None], assign[None], weight[None], nb,
+                       with_gram=True, fold=lambda ym: _gram_op(ym[0])[None])
     bucketgram.launches += 1
     return y[0], g[0]
 
@@ -168,7 +250,8 @@ def bucketmeans(x: Tensor, assignment: Tensor, n_buckets: Optional[int] = None,
         return bucket_means_gram_ref(x, assignment_matrix(assign, nb, weight),
                                      with_gram=False)[0]
     check_stack(x, "bucketgram")
-    y, _ = _launch(x[None], assign[None], weight[None], nb, with_gram=False)
+    y, _ = _launch_ids(x[None], assign[None], weight[None], nb,
+                       with_gram=False)
     bucketmeans.launches += 1
     return y[0]
 
@@ -231,48 +314,114 @@ def bucket_means_gram_lanes_ref(x: Tensor, assignments: Tensor,
     return y, (torch.stack([o[1] for o in outs]) if with_gram else None)
 
 
-def _launch(x: Tensor, assign: Tensor, weight: Tensor, n_buckets: int,
-            with_gram: bool, fold=_gram_batched_op
-            ) -> tuple[Tensor, Optional[Tensor]]:
-    """K6 / K7 on a (L, n, D) stack, each lane with its (L, n) bucket ids
-    and weights; a single stack is lane 0 of L = 1.  Above REG_NB buckets
-    the Gram is ``fold`` of the (L, n_b, D) fp32 means (K5, or K1 on one
-    lane)."""
-    lanes, n, d = x.shape
-    # Each lane's workers sorted by bucket (stable), its bucket offsets and
-    # each position's weight, as the single-lane launch forms them.
+def plan_arrays(assign: Tensor, weight: Tensor, n_buckets: int
+                ) -> tuple[Tensor, Tensor, Tensor]:
+    """The kernel's plan of (L, n) bucket ids and weights: each lane's
+    workers sorted by bucket (stable: each bucket's members in worker
+    order) as int32, its (L, n_b + 1) int32 bucket offsets and each
+    position's fp32 weight."""
+    lanes = assign.shape[0]
     order = torch.argsort(assign, dim=1, stable=True)
     start = torch.searchsorted(
         assign.gather(1, order),
-        torch.arange(n_buckets + 1, device=x.device).expand(lanes, -1)
+        torch.arange(n_buckets + 1, device=assign.device).expand(lanes, -1)
         .contiguous()).to(torch.int32)
     w = weight.gather(1, order).contiguous()
-    order = order.to(torch.int32).contiguous()
-    lib = _build.library()
-    blocks = _blocks(x, d, n_buckets)
+    return order.to(torch.int32).contiguous(), start, w
+
+
+def perm_plan_ref(perms: Tensor, s: int) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain version of ``stage_plan``: the plan of (L, n) permutations in
+    buckets of s (bucket k: the workers at positions [k s, k s + s) of a
+    lane's permutation, in worker order, weight 1 / their count, the
+    ragged tail's included), as :func:`plan_arrays` gives it for the ids
+    :func:`perm_assignment` makes."""
+    lanes, n = perms.shape
+    nb = -(-n // s)
+    p = perms.long()
+    if nb * s > n:                      # pads sort after every worker
+        p = torch.cat([p, p.new_full((lanes, nb * s - n), n)], 1)
+    order = torch.sort(p.reshape(lanes, nb, s), dim=2).values
+    order = order.reshape(lanes, nb * s)[:, :n].to(torch.int32).contiguous()
+    sizes = torch.clamp(n - torch.arange(nb, device=perms.device) * s, max=s)
+    weight = (1.0 / sizes.float())[
+        torch.div(torch.arange(n, device=perms.device), s,
+                  rounding_mode="floor")]
+    start = torch.clamp(torch.arange(nb + 1, device=perms.device) * s, max=n)
+    return (order, start.to(torch.int32).expand(lanes, -1).contiguous(),
+            weight.expand(lanes, -1).contiguous())
+
+
+def perm_assignment(perms: Tensor, s: int) -> Tensor:
+    """(L, n) int64 bucket ids of each lane's permutation in buckets of s:
+    worker i goes to bucket argsort(perms[b])[i] // s
+    (``bucketing.bucket_assignment`` on each lane)."""
+    return torch.div(torch.argsort(perms, dim=1), s, rounding_mode="floor")
+
+
+def _run(x: Tensor, n_buckets: int, s: int, perms: Optional[Tensor],
+         fill: Optional[Callable[[Tensor], None]], with_gram: bool,
+         fold) -> tuple[Tensor, Optional[Tensor]]:
+    """K6 / K7 on a (L, n, D) stack; a single stack is lane 0 of L = 1.
+    The plan comes from ``perms`` (L, n) int64 in buckets of ``s`` (built
+    by the register path up to PERM_MAX_S), or ``fill`` writes it at the
+    head of the scratch.  Up to REG_NB buckets (and REG_MAX_N workers) K6 folds
+    the Gram itself; above, the Gram is ``fold`` of the (L, n_b, D) fp32
+    means (K5, or K1 on one lane)."""
+    lanes, n, d = x.shape
+    gram = with_gram and n_buckets <= REG_NB and n <= REG_MAX_N
+    if perms is not None and (s > PERM_MAX_S
+                              or not register_path(n, n_buckets, gram)):
+        perms, s, fill = None, 0, _writer(*perm_plan_ref(perms, s))
     y = torch.empty((lanes, n_buckets, d), dtype=x.dtype, device=x.device)
-    bad = None if n_buckets <= REG_NB else torch.empty(
-        (lanes, d), dtype=torch.int32, device=x.device)
-    yf = partial = g = None
-    if with_gram:
-        if n_buckets <= REG_NB:
-            partial = torch.empty(lanes * blocks * lib.repro_bucketgram_npair(),
-                                  dtype=torch.float32, device=x.device)
-            g = torch.empty((lanes, n_buckets, n_buckets),
-                            dtype=torch.float32, device=x.device)
-        elif x.dtype != torch.float32:
-            yf = torch.empty((lanes, n_buckets, d), dtype=torch.float32,
-                             device=x.device)
+    yf = g = None
+    if gram:
+        g = torch.empty((lanes, n_buckets, n_buckets), dtype=torch.float32,
+                        device=x.device)
+    elif with_gram and x.dtype != torch.float32:
+        yf = torch.empty((lanes, n_buckets, d), dtype=torch.float32,
+                         device=x.device)
+    x_ptr, y_ptr = x.data_ptr(), y.data_ptr()
+    yf_ptr = _ptr(yf)
+    _, plan, words = _plan(d, x_ptr & 15, y_ptr & 15,
+                           None if yf_ptr is None else yf_ptr & 15, x.dtype,
+                           lanes, n, n_buckets, s, gram, x.get_device())
+    scratch = None
+    if words:
+        scratch = torch.empty((words,), dtype=torch.int32, device=x.device)
+        if fill is not None:
+            fill(scratch)
+    lib = _build.library()
     with device_guard(x):
-        rc = lib.repro_bucketgram(
-            x.data_ptr(), _build.dtype_code(x.dtype), lanes, n, d,
-            order.data_ptr(), start.data_ptr(), w.data_ptr(), n_buckets,
-            y.data_ptr(), _ptr(yf), _ptr(partial), _ptr(g), _ptr(bad),
-            blocks, stream_of(x))
-    _build.check(rc, "bucketgram kernel")
+        rc = lib.repro_bucketgram(x_ptr, _ptr(perms), _ptr(scratch), y_ptr,
+                                  yf_ptr, _ptr(g), plan, stream_of(x))
+    if rc:
+        _build.check(rc, "bucketgram kernel")
     if with_gram and g is None:
         g = fold(y if yf is None else yf)
     return y, g
+
+
+def _launch_ids(x: Tensor, assign: Tensor, weight: Tensor, n_buckets: int,
+                with_gram: bool, fold=_gram_batched_op
+                ) -> tuple[Tensor, Optional[Tensor]]:
+    """K6 / K7 on a (L, n, D) stack, each lane with its (L, n) bucket ids
+    and weights: the plan built by :func:`plan_arrays` and written into
+    the scratch."""
+    fill = _writer(*plan_arrays(assign, weight, n_buckets))
+    return _run(x, n_buckets, 0, None, fill, with_gram, fold)
+
+
+def _writer(order: Tensor, start: Tensor, weight: Tensor
+            ) -> Callable[[Tensor], None]:
+    """Writes a plan's arrays at the head of a launch's int32 scratch, where
+    the kernel reads them: order, start, then the weights' fp32 words."""
+    def fill(scratch: Tensor) -> None:
+        o, st = order.numel(), start.numel()
+        scratch[:o].copy_(order.reshape(-1))
+        scratch[o:o + st].copy_(start.reshape(-1))
+        scratch[o + st:2 * o + st].copy_(weight.reshape(-1).view(torch.int32))
+    return fill
 
 
 def bucketgram_lanes(x: Tensor, assignments: Tensor, n_buckets: int
@@ -284,7 +433,7 @@ def bucketgram_lanes(x: Tensor, assignments: Tensor, n_buckets: int
     if x.device.type == "cpu":
         return bucket_means_gram_lanes_ref(x, assign, n_buckets)
     check_lanes(x, "bucketgram_lanes")
-    out = _launch(x, assign, weight, n_buckets, with_gram=True)
+    out = _launch_ids(x, assign, weight, n_buckets, with_gram=True)
     bucketgram_lanes.launches += 1
     return out
 
@@ -297,10 +446,68 @@ def bucketmeans_lanes(x: Tensor, assignments: Tensor, n_buckets: int
         return bucket_means_gram_lanes_ref(x, assign, n_buckets,
                                            with_gram=False)[0]
     check_lanes(x, "bucketgram_lanes")
-    y, _ = _launch(x, assign, weight, n_buckets, with_gram=False)
+    y, _ = _launch_ids(x, assign, weight, n_buckets, with_gram=False)
     bucketmeans_lanes.launches += 1
     return y
 
 
 bucketgram_lanes.launches = 0
 bucketmeans_lanes.launches = 0
+
+
+def _check_perms(x: Tensor, perms: Tensor, bucket_size: int,
+                 what: str) -> int:
+    """The permutation route's operands (no value read: a check of the
+    values would wait for the card), in one test on the fleet's path and
+    with a message for what fails.  Returns the bucket count."""
+    check_lanes(x, what)
+    shape = x.shape
+    n = shape[1]
+    if perms.shape != shape[:2] or perms.dtype != torch.int64 \
+            or perms.get_device() != x.get_device() \
+            or not perms.is_contiguous() or not 1 <= bucket_size <= n:
+        if perms.shape != shape[:2]:
+            raise ValueError(f"{what}: perms must have shape "
+                             f"{tuple(shape[:2])}, got {tuple(perms.shape)}")
+        if not 1 <= bucket_size <= n:
+            raise ValueError(f"{what}: need 1 <= bucket_size <= {n}, got "
+                             f"{bucket_size}")
+        raise ValueError(f"{what}: perms must be a contiguous int64 tensor "
+                         f"on {x.device}, got {perms.dtype} on "
+                         f"{perms.device}")
+    return -(-n // bucket_size)
+
+
+def bucketgram_lanes_perms(x: Tensor, perms: Tensor, bucket_size: int
+                           ) -> tuple[Tensor, Tensor]:
+    """K6 lanes from each lane's permutation: (B, n, D) fp32 / bf16 stack
+    and (B, n) int64 permutations of range(n) on its card, buckets of
+    ``bucket_size`` in permutation order -> (means (B, n_b, D) in X's
+    dtype, fp32 (B, n_b, n_b) Gram), equal bit for bit to
+    :func:`bucketgram_lanes` on :func:`perm_assignment`'s ids.  The
+    permutations are not checked (that would read them back): a value
+    outside range(n) is clamped to a row.  Counted in
+    ``bucketgram_lanes.launches``."""
+    if x.is_cpu:
+        nb = -(-x.shape[1] // bucket_size)
+        return bucket_means_gram_lanes_ref(
+            x, perm_assignment(perms, bucket_size), nb)
+    nb = _check_perms(x, perms, bucket_size, "bucketgram_lanes")
+    out = _run(x, nb, bucket_size, perms, None, True, _gram_batched_op)
+    bucketgram_lanes.launches += 1
+    return out
+
+
+def bucketmeans_lanes_perms(x: Tensor, perms: Tensor, bucket_size: int
+                            ) -> Tensor:
+    """K7 lanes from each lane's permutation: the means of
+    :func:`bucketgram_lanes_perms` without the Gram.  Counted in
+    ``bucketmeans_lanes.launches``."""
+    if x.is_cpu:
+        nb = -(-x.shape[1] // bucket_size)
+        return bucket_means_gram_lanes_ref(
+            x, perm_assignment(perms, bucket_size), nb, with_gram=False)[0]
+    nb = _check_perms(x, perms, bucket_size, "bucketgram_lanes")
+    y, _ = _run(x, nb, bucket_size, perms, None, False, None)
+    bucketmeans_lanes.launches += 1
+    return y

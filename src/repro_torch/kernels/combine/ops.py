@@ -28,12 +28,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    check_lanes, check_small, check_stack, device_guard, stream_of,
+    check_lanes, check_small, check_stack, device_guard, launch_geometry,
+    stream_of,
 )
-
-_MAX_THREADS = 256
-_MIN_THREADS = 32
-_BLOCKS_PER_SM = 16
 
 
 def load_width(x_ptr: int, out_ptr: int, d: int, itemsize: int) -> int:
@@ -45,27 +42,6 @@ def load_width(x_ptr: int, out_ptr: int, d: int, itemsize: int) -> int:
                 and out_ptr % (vec * 4) == 0:
             return vec
     return 1
-
-
-def launch_geometry(d: int, vec: int, sms: int) -> tuple[int, int]:
-    """(threads per block, column blocks per lane) of K3 on lanes of D
-    columns read ``vec`` at a time, on a card of ``sms`` SMs.
-
-    A lane has D / vec units (a thread's ``vec`` columns).  The block is
-    the largest of 256, 128, 64 and 32 threads that still gives a lane
-    at least one block per SM, and 32 below that; the blocks cover the
-    units once, capped at 16 per SM, the grid striding over the rest.  So
-    the grid's (5, 17, 2842) fp32 lanes (vec = 2) run 45 blocks of 32
-    threads a lane, one unit a thread, and a large D keeps 256 threads and
-    16 blocks an SM a lane.  Neither the lane count nor n enters: a lane's
-    geometry is the same whatever B, and each column's sum is one
-    thread's chain over the rows in order whatever the geometry."""
-    units = d // vec
-    threads = _MAX_THREADS
-    while threads > _MIN_THREADS and -(-units // threads) < sms:
-        threads //= 2
-    blocks = max(1, min(-(-units // threads), _BLOCKS_PER_SM * sms))
-    return threads, blocks
 
 
 class Plan(ctypes.Structure):

@@ -52,25 +52,53 @@ int launch_small(const Args& a) {
 
 using namespace mixtrim_dyn_detail;
 
-// K4.  x: (lanes, n, d); m: (lanes, n, n) fp32 or NULL; mt: scratch as m
-// for M^T, needed with m for 64 < n <= 1024 (else unused, may be NULL);
-// f: (lanes,) int32 on the device; out: (lanes, d) fp32; blocks: column
-// blocks per lane, at most (each body caps it at what one wave of
-// resident blocks needs).
-extern "C" int repro_mixtrim_dyn(const void* x, int dtype, const float* m,
-                                 float* mt, int lanes, int n, long long d,
-                                 const int* f, int med, float* out,
-                                 int blocks, void* stream) {
-  if (lanes < 1 || lanes > 65535 || n < 1 || n > mixtrim_detail::MAX_N ||
-      d < 1 || blocks < 1 || f == nullptr)
+// The f the bodies above 64 workers read for the median lanes, which pass
+// none: zeros (unread by the median), one a lane.  Those bodies take a
+// per-lane f as their sign that the launch has lanes.
+__device__ int lane_zeros[65535];
+
+// What a K4 launch at one shape passes besides its pointers and stream;
+// the wrapper fills one per shape once (kernels/mixtrim/ops.py::DynPlan)
+// and passes its address.  d: columns; dtype: REPRO_F32 / REPRO_BF16;
+// med: 1 = the median (f unread, may be NULL), 0 = trim; threads: block
+// size of the n <= 64 body (a multiple of 32 up to 128); blocks: column
+// blocks per lane, at most (each body caps it at one wave of resident
+// blocks); sms: the card's SM count.
+struct ReproMixtrimDynPlan {
+  long long d;
+  int dtype, lanes, n, med, threads, blocks, sms;
+};
+
+// K4 and the median lanes.  x: (lanes, n, d); m: (lanes, n, n) fp32 or
+// NULL; mt: scratch as m for M^T, needed with m for 64 < n <= 1024 (else
+// unused, may be NULL); f: (lanes,) int32 on the device, NULL with the
+// median flag; out: (lanes, d) fp32.
+extern "C" int repro_mixtrim_dyn(const void* x, const float* m, float* mt,
+                                 const int* f, float* out,
+                                 const ReproMixtrimDynPlan* plan,
+                                 void* stream) {
+  const ReproMixtrimDynPlan p = *plan;
+  if (p.lanes < 1 || p.lanes > 65535 || p.n < 1 ||
+      p.n > mixtrim_detail::MAX_N || p.d < 1 || p.blocks < 1 || p.sms < 1 ||
+      (f == nullptr && !p.med))
     return cudaErrorInvalidValue;
-  if (dtype != REPRO_F32 && dtype != REPRO_BF16) return cudaErrorInvalidValue;
-  const Args a{x, dtype, m, lanes, n, d, f, 0, med, out, blocks,
-               static_cast<cudaStream_t>(stream)};
-  if (n <= mixtrim_detail::SMALL_N) return launch_small(a);
-  const mixtrim_detail::Args big{x, dtype, m, mt, lanes, n, d, 0, f, med,
-                                 out, blocks, a.s};
-  if (n <= mixtrim_select::MAX_N) return mixtrim_select::launch(big);
-  if (dtype == REPRO_F32) return mixtrim_detail::launch_large<float, true>(big);
+  if (p.dtype != REPRO_F32 && p.dtype != REPRO_BF16) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.n <= mixtrim_detail::SMALL_N) {
+    if (p.threads < 32 || p.threads > THREADS || p.threads % 32)
+      return cudaErrorInvalidValue;
+    return launch_small({x, p.dtype, m, p.lanes, p.n, p.d, f, 0, p.med, out,
+                         p.blocks, s, p.threads, p.sms});
+  }
+  if (f == nullptr) {                   // the address on the current card
+    void* zeros = nullptr;
+    cudaError_t err = cudaGetSymbolAddress(&zeros, lane_zeros);
+    if (err != cudaSuccess) return err;
+    f = static_cast<const int*>(zeros);
+  }
+  const mixtrim_detail::Args big{x, p.dtype, m, mt, p.lanes, p.n, p.d, 0, f,
+                                 p.med, out, p.blocks, s};
+  if (p.n <= mixtrim_select::MAX_N) return mixtrim_select::launch(big);
+  if (p.dtype == REPRO_F32) return mixtrim_detail::launch_large<float, true>(big);
   return mixtrim_detail::launch_large<__nv_bfloat16, true>(big);
 }

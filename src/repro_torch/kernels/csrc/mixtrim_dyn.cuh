@@ -56,9 +56,18 @@
 //     as long;
 //   - every row's loads sit in one branch (vector loads, or element by
 //     element for a row's last columns), so they all issue before the
-//     first bf16 widening waits on one; with a branch a row each bf16 row
-//     waited for its load before the next was issued, and bf16 took
-//     longer than fp32.
+//     first bf16 widening waits on one, and before the mix and the
+//     sorting network start; with a branch a row each bf16 row waited for
+//     its load before the next was issued, and bf16 took longer than fp32;
+//   - the block size comes from the caller (32 to 128 threads): the
+//     fleet's launch-sized lanes ((5, 17, 2842): 1421 two-column units a
+//     lane) took 12 blocks of 128 a lane, 60 blocks on 132 SMs, and now
+//     take 45 of 32 (kernels/_common.py::launch_geometry), one unit a
+//     thread; a large D keeps 128 threads and one wave of resident
+//     blocks.  The SM count comes with the launch, and each block size's
+//     occupancy is asked once, so a launch asks the runtime nothing.
+//     Each column is one thread's work whatever the geometry: its bits
+//     do not depend on it.
 #pragma once
 
 #include "common.cuh"
@@ -74,6 +83,8 @@ constexpr int SMALL_C_BF16 = 4;
 // mixed rows in shared memory (else the stack and the mixed stack both sit
 // in registers).
 constexpr bool STAGE_MIX = true;
+// Entries of M a thread loads before storing them to shared memory.
+constexpr int M_CHUNK = 16;
 
 // Columns per thread: enough to amortise M's reads, few enough that the
 // stack and the mixed stack (2 * N * C values) stay in registers.
@@ -94,6 +105,8 @@ struct Args {
   float* out;                            // (lanes, d) fp32
   int blocks;                            // column blocks per lane, at most
   cudaStream_t s;
+  int threads;                           // per block, 32..THREADS; 0: THREADS
+  int sms;                               // the card's SMs; 0: asked at launch
 };
 
 // A bf16 (its bits in h) or a pair of them (w, low half first) as fp32:
@@ -235,16 +248,30 @@ mixtrim_dyn_small(const T* __restrict__ x, const float* __restrict__ m,
   __shared__ __align__(16) float sm[MIX ? N * N4 : 4];
   __shared__ float sz[STAGE ? N * THREADS * C : 1];
   if constexpr (MIX) {
+    // M to shared memory, a thread's M_CHUNK loads all issued before its
+    // first store: a small block's threads stage many entries each (11 a
+    // thread at n = 17 in blocks of 32), and one at a time they cost as
+    // much as the column's work.
     m += (long long)lane * nr * nr;
-    for (int e = threadIdx.x; e < N * N4; e += THREADS) {
-      const int i = e / N4, j = e - i * N4;
-      sm[e] = (i < nr && j < nr) ? m[i * nr + j] : 0.f;
+    for (int e0 = 0; e0 < N * N4; e0 += M_CHUNK * (int)blockDim.x) {
+      float mv[M_CHUNK];
+#pragma unroll
+      for (int q = 0; q < M_CHUNK; ++q) {
+        const int e = e0 + q * (int)blockDim.x + threadIdx.x;
+        const int i = e / N4, j = e - i * N4;
+        mv[q] = (e < N * N4 && i < nr && j < nr) ? __ldg(m + i * nr + j) : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < M_CHUNK; ++q) {
+        const int e = e0 + q * (int)blockDim.x + threadIdx.x;
+        if (e < N * N4) sm[e] = mv[q];
+      }
     }
     __syncthreads();
   }
 
-  const long long stride = (long long)gridDim.x * THREADS * C;
-  for (long long c0 = ((long long)blockIdx.x * THREADS + threadIdx.x) * C;
+  const long long stride = (long long)gridDim.x * blockDim.x * C;
+  for (long long c0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * C;
        c0 < d; c0 += stride) {
     const long long left = d - c0;
     // Every row's loads sit in one branch, so all of them issue before the
@@ -369,22 +396,31 @@ template <typename T, int N, bool MIX>
 int launch_typed(const Args& a) {
   constexpr int C = cols_per_thread(N, sizeof(T));
   auto kernel = mixtrim_dyn_small<T, N, MIX>;
-  static int per_sm = 0;                 // resident blocks per SM
-  if (per_sm == 0) {
+  const int threads = a.threads > 0 ? a.threads : THREADS;
+  if (threads % 32 || threads > THREADS) return cudaErrorInvalidValue;
+  // Resident blocks per SM at 32, 64 and 128 threads, asked once each.
+  static int per_sm[THREADS / 32 + 1] = {};
+  int& occ = per_sm[threads / 32];
+  if (occ == 0) {
     cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, 0);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads, 0);
     if (err != cudaSuccess) return err;
   }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  // One wave of resident blocks, each walking an equal share of columns.
-  const long long need = (a.d + (long long)THREADS * C - 1) / ((long long)THREADS * C);
-  const long long wave = per_sm * sms / a.lanes > 0 ? per_sm * sms / a.lanes : 1;
+  int sms = a.sms;
+  if (sms <= 0) {                        // K2's entry: asked here
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  // At most one wave of resident blocks, each walking an equal share of
+  // columns; a launch-sized lane gets what the caller's geometry gives it
+  // (kernels/_common.py::launch_geometry: small blocks, one unit a thread).
+  const long long need = (a.d + (long long)threads * C - 1) / ((long long)threads * C);
+  const long long wave = (long long)occ * sms / a.lanes > 0 ? (long long)occ * sms / a.lanes : 1;
   long long grid = need < a.blocks ? need : a.blocks;
   if (grid > wave) grid = wave;
-  kernel<<<dim3((unsigned)grid, a.lanes), THREADS, 0, a.s>>>(
+  kernel<<<dim3((unsigned)grid, a.lanes), threads, 0, a.s>>>(
       static_cast<const T*>(a.x), a.m, a.n, a.d,
       a.d % C == 0 && reinterpret_cast<uintptr_t>(a.x) % (C * sizeof(T)) == 0,
       a.f, a.fh, a.med, a.out);

@@ -60,8 +60,11 @@ from repro_torch.kernels.bucketgram import bucket_means_gram_ref as _bucketgram_
 from repro_torch.kernels.bucketgram import bucket_means_gram_lanes_ref as _bucketgram_lanes_ref
 from repro_torch.kernels.bucketgram import bucketgram as _bucketgram_op
 from repro_torch.kernels.bucketgram import bucketgram_lanes as _bucketgram_lanes_op
+from repro_torch.kernels.bucketgram import bucketgram_lanes_perms as _bucketgram_perms_op
 from repro_torch.kernels.bucketgram import bucketmeans as _bucketmeans_op
 from repro_torch.kernels.bucketgram import bucketmeans_lanes as _bucketmeans_lanes_op
+from repro_torch.kernels.bucketgram import bucketmeans_lanes_perms as _bucketmeans_perms_op
+from repro_torch.kernels.bucketgram import perm_assignment as _perm_assignment
 from repro_torch.kernels.combine import combine as _combine_op
 from repro_torch.kernels.combine import combine_lanes as _combine_lanes_op
 from repro_torch.kernels.combine import combine_lanes_ref as _combine_lanes_ref
@@ -545,6 +548,35 @@ def dispatch_bucketgram(x: torch.Tensor, assignment: torch.Tensor,
                                      with_gram=with_gram)
     bmat = _assignment_matrix(assignment.to(x.device), n_buckets)
     return _bucketgram_ref(x, bmat, with_gram=with_gram)
+
+
+def dispatch_bucketgram_perms(x: torch.Tensor, perms: torch.Tensor,
+                              bucket_size: int, *, backend: str,
+                              with_gram: bool = True
+                              ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The lane form of :func:`dispatch_bucketgram` from what the
+    hierarchical lanes hold: (B, n, D) and each lane's (B, n) int64
+    permutation, buckets of ``bucket_size`` in permutation order (worker i
+    in bucket argsort(perms[b])[i] // s) -> ((B, n_b, D), (B, n_b, n_b) |
+    None).  "cuda" launches K6 / K7's lane form, which builds each lane's
+    plan on the device: no value is read back and no torch op runs before
+    the launch; the torch backend runs the dense plain version on those
+    ids."""
+    n_buckets = -(-x.shape[1] // bucket_size)
+    name = ("bucketgram" if with_gram else "bucketmeans") + "_lanes"
+    perms = perms.contiguous()
+    if backend == "cuda":
+        record_decision(name, backend, *_used(x))
+        if with_gram and n_buckets > _BUCKETGRAM_REG_NB:
+            record_decision("gram_batched", backend, _used(x)[0],
+                            f"n_b={n_buckets} > {_BUCKETGRAM_REG_NB}: the "
+                            f"Gram of the fp32 means is a K5 launch")
+        if with_gram:
+            return _bucketgram_perms_op(x, perms, bucket_size)
+        return _bucketmeans_perms_op(x, perms, bucket_size), None
+    record_decision(name, backend, "torch")
+    return _bucketgram_lanes_ref(x, _perm_assignment(perms, bucket_size),
+                                 n_buckets, with_gram=with_gram)
 
 
 def dispatch_combine(x: torch.Tensor, coeff: torch.Tensor, *,

@@ -36,20 +36,34 @@ agree on it), lane b equal to :func:`mixtrim` ``(mode="med")`` on lane b
 bit for bit; :func:`mixtrim_lanes_ref` is its plain version,
 :func:`mixtrim_ref` on each lane.  ``mixtrim_lanes.launches`` counts its
 launches.
+
+K4 and the median lanes launch at the fleet's launch-sized stacks ((5, 17,
+2842): read in a fraction of a microsecond), where a call costs its host
+path: both take a lean one, a :class:`DynPlan` per shape (cached: the
+geometry, the SM count) whose address the seven-argument ``ctypes`` call
+passes; the median passes no f; a fp32 contiguous M goes as it is.
+``_common.launch_geometry`` spreads a launch-sized lane of the n <= 64
+body over the card.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (
-    check_lanes, check_small, check_stack, device_guard, sort_nan_last,
-    stream_of,
+    check_lanes, check_small, check_stack, device_guard, launch_geometry,
+    sort_nan_last, stream_of,
 )
 
 _BLOCKS_PER_SM = 16
+#: Largest n of the body K2 and K4 share (csrc/mixtrim.cuh SMALL_N), and
+#: its largest block (csrc/mixtrim_dyn.cuh THREADS).
+SMALL_N = 64
+_SMALL_THREADS = 128
 #: Largest worker count the kernels take (csrc/mixtrim.cuh MAX_N): the next
 #: power of two above the reference's largest scale n, 10240.
 MAX_N = 16384
@@ -130,13 +144,55 @@ def _mix_operands(m, shape: tuple, x: torch.Tensor, what: str):
     the library; None without M."""
     if m is None:
         return None, None
-    mf = m.float().contiguous()
+    mf = m if m.dtype == torch.float32 and m.is_contiguous() \
+        else m.float().contiguous()
     check_small(mf, shape, x, what)
-    words = _build.library().repro_mixtrim_select_scratch(shape[-1])
+    words = _scratch_words(shape[-1])
     lanes = shape[0] if len(shape) == 3 else 1
     mt = torch.empty((lanes * words,), dtype=torch.float32,
                      device=x.device) if words else None
     return mf, mt
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_words(n: int) -> int:
+    """fp32 words of M^T scratch a lane takes at n (0 outside the tiled
+    mix's 64 < n <= 1024), asked of the library once per n."""
+    return _build.library().repro_mixtrim_select_scratch(n)
+
+
+def cols_per_thread(n: int) -> int:
+    """Columns a thread of the n <= 64 body owns (csrc/mixtrim_dyn.cuh
+    ``cols_per_thread``, the same in fp32 and bf16): 4 to 8 workers, 2 to
+    20, else 1."""
+    return 4 if n <= 8 else 2 if n <= 20 else 1
+
+
+class DynPlan(ctypes.Structure):
+    """``ReproMixtrimDynPlan`` of csrc/mixtrim_dyn.cu: what a K4 / median
+    lanes launch at one shape passes besides its pointers and stream."""
+    _fields_ = [("d", ctypes.c_longlong), ("dtype", ctypes.c_int),
+                ("lanes", ctypes.c_int), ("n", ctypes.c_int),
+                ("med", ctypes.c_int), ("threads", ctypes.c_int),
+                ("blocks", ctypes.c_int), ("sms", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=256)
+def _dyn_plan(d: int, dtype: torch.dtype, lanes: int, n: int, med: bool,
+              device: int) -> tuple[DynPlan, int]:
+    """The plan of a launch and its address (the cache holds the structure
+    alive; the C entry reads it before it returns).  Above 64 workers the
+    bodies take their own geometry: ``blocks`` caps their column blocks
+    per lane, as before."""
+    sms = _build.sm_count(device)
+    if n <= SMALL_N:
+        threads, blocks = launch_geometry(d, cols_per_thread(n), sms,
+                                          _SMALL_THREADS)
+    else:
+        threads, blocks = _SMALL_THREADS, max(1, _BLOCKS_PER_SM * sms // lanes)
+    plan = DynPlan(d, _build.dtype_code(dtype), lanes, n, int(med), threads,
+                   blocks, sms)
+    return plan, ctypes.addressof(plan)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -145,7 +201,12 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _lane_f(f, lanes: int, device) -> torch.Tensor:
     """f as a (lanes,) int32 tensor on ``device`` (a Python int or a
-    0-d / (lanes,) tensor)."""
+    0-d / (lanes,) tensor); the fleet's (lanes,) contiguous int32 f on the
+    stack's card is taken as it is."""
+    if isinstance(f, torch.Tensor) and f.dtype == torch.int32 \
+            and f.shape == (lanes,) and f.is_contiguous() \
+            and f.device == device:
+        return f
     t = torch.as_tensor(f, device=device)
     if t.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"f must be an integer tensor, got {t.dtype}")
@@ -203,7 +264,7 @@ def mixtrim_dyn(x: torch.Tensor, m: Optional[torch.Tensor], f,
     the host."""
     if mode not in ("trim", "med"):
         raise ValueError(f"mode must be 'trim' or 'med', got {mode!r}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return mixtrim_dyn_ref(x, m, f, mode)
     x, m, f, batched = _as_lanes(x, m, f)
     check_lanes(x, "mixtrim_dyn")
@@ -214,24 +275,24 @@ def mixtrim_dyn(x: torch.Tensor, m: Optional[torch.Tensor], f,
 
 
 def _launch_lanes(x: torch.Tensor, m: Optional[torch.Tensor],
-                  fd: torch.Tensor, med: bool, what: str) -> torch.Tensor:
-    """K4's entry point on a (B, n, D) stack: (B,) int32 f on the device,
-    optional (B, n, n) M, the median flag -> (B, D) fp32."""
+                  fd: Optional[torch.Tensor], med: bool,
+                  what: str) -> torch.Tensor:
+    """K4's entry point on a (B, n, D) stack: (B,) int32 f on the device
+    (None: the median lanes, which make none), optional (B, n, n) M, the
+    median flag -> (B, D) fp32."""
     lanes, n, d = x.shape
     if n > MAX_N:
         raise ValueError(f"{what} kernel takes n <= {MAX_N} workers, got "
                          f"n={n} (the port's one limit, ROADMAP queue 3)")
     mf, mt = _mix_operands(m, (lanes, n, n), x, f"{what} m")
     lib = _build.library()
-    # The kernels cap the column blocks at what one wave needs themselves.
-    blocks = max(1, _BLOCKS_PER_SM * _build.sm_count(x.device) // lanes)
+    _, plan = _dyn_plan(d, x.dtype, lanes, n, med, x.get_device())
     out = torch.empty((lanes, d), dtype=torch.float32, device=x.device)
     with device_guard(x):
-        rc = lib.repro_mixtrim_dyn(x.data_ptr(), _build.dtype_code(x.dtype),
-                                   _ptr(mf), _ptr(mt), lanes, n, d,
-                                   fd.data_ptr(), int(med), out.data_ptr(),
-                                   blocks, stream_of(x))
-    _build.check(rc, f"{what} kernel")
+        rc = lib.repro_mixtrim_dyn(x.data_ptr(), _ptr(mf), _ptr(mt), _ptr(fd),
+                                   out.data_ptr(), plan, stream_of(x))
+    if rc:
+        _build.check(rc, f"{what} kernel")
     return out
 
 
@@ -249,13 +310,11 @@ def mixtrim_lanes_ref(x: torch.Tensor, m: Optional[torch.Tensor]
 def mixtrim_lanes(x: torch.Tensor, m: Optional[torch.Tensor]) -> torch.Tensor:
     """(B, n, D) fp32 / bf16, optional (B, n, n) mixing matrices -> (B, D)
     fp32: every lane's coordinate-wise median in one launch (K4's entry
-    point with ``med = 1``; its f operand is zeros and unread)."""
-    if x.device.type == "cpu":
+    point with ``med = 1`` and no f)."""
+    if x.is_cpu:
         return mixtrim_lanes_ref(x, m)
     check_lanes(x, "mixtrim_lanes")
-    out = _launch_lanes(x, m, torch.zeros((x.shape[0],), dtype=torch.int32,
-                                          device=x.device),
-                        True, "mixtrim_lanes")
+    out = _launch_lanes(x, m, None, True, "mixtrim_lanes")
     mixtrim_lanes.launches += 1
     return out
 

@@ -20,11 +20,15 @@ import torch
 
 from repro_torch.kernels import (
     bucket_means_gram, bucket_means_gram_lanes_ref, bucket_means_gram_ref,
-    bucketgram, bucketgram_lanes, bucketmeans, bucketmeans_lanes, combine,
-    combine_lanes, combine_lanes_ref, combine_ref, gram, gram_batched,
-    gram_batched_ref, gram_ref, mixtrim, mixtrim_dyn, mixtrim_dyn_ref,
-    mixtrim_lanes, mixtrim_lanes_ref, mixtrim_ref,
+    bucketgram, bucketgram_lanes, bucketgram_lanes_perms, bucketmeans,
+    bucketmeans_lanes, bucketmeans_lanes_perms, combine, combine_lanes,
+    combine_lanes_ref, combine_ref, gram, gram_batched, gram_batched_ref,
+    gram_ref, mixtrim, mixtrim_dyn, mixtrim_dyn_ref, mixtrim_lanes,
+    mixtrim_lanes_ref, mixtrim_ref,
 )
+from repro_torch.kernels import _build
+from repro_torch.kernels.bucketgram import ops as bucketgram_ops
+from repro_torch.kernels.bucketgram import perm_assignment
 
 RTOL = 1e-5
 
@@ -741,3 +745,128 @@ def test_combine_argument_checks_keep_their_errors(dev):
         with pytest.raises(err, match=match):
             call()
     assert (combine.launches, combine_lanes.launches) == before
+
+
+# --- the fleet's routes: the permutation route, no synchronizing call -----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,s", [(17, 3), (17, 2), (16, 2), (17, 1),
+                                 (17, 17), (40, 4), (9, 9), (33, 5), (5, 2),
+                                 (40, 2)])
+@pytest.mark.parametrize("d,misaligned", [(2842, False), (2844, False),
+                                          (4096, False), (4099, False),
+                                          (4096, True), ((1 << 18) + 8, False)])
+def test_bucketgram_perm_route_equals_id_route_and_single_lane(
+        dev, dtype, n, s, d, misaligned):
+    """K6 / K7's lane form from each lane's permutation (the plan built by
+    the kernel) against the id route (the plan built on the host) and the
+    single-lane kernel: means bit for bit (bf16 within one ulp of the
+    plain version), the register Gram bit for bit up to 8 buckets, K5's on
+    the means above; inf / NaN rows spread in their lane; every load width
+    (D a multiple of 8, 4, 2 or neither, a base one element off); two runs
+    bit for bit."""
+    b = 5
+    x, perms = _lane_stack(dev, dtype, b, n, d, 7 * n + s)
+    if misaligned:
+        base = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        base[1:].copy_(x.reshape(-1))
+        x = base[1:].view(b, n, d)
+    assign, nb = perm_assignment(perms, s), -(-n // s)
+    before = (bucketgram_lanes.launches, bucketmeans_lanes.launches)
+    y, g = bucketgram_lanes_perms(x, perms, s)
+    ym = bucketmeans_lanes_perms(x, perms, s)
+    assert (bucketgram_lanes.launches, bucketmeans_lanes.launches) == (
+        before[0] + 1, before[1] + 1)
+    yi, gi = bucketgram_lanes(x, assign, nb)
+    assert torch.equal(_bits(y), _bits(yi)) and torch.equal(_bits(ym), _bits(y))
+    assert torch.equal(_bits(g), _bits(gi))
+    wy, wg = bucket_means_gram_lanes_ref(x, assign, nb)
+    _close_means(y, wy)
+    for k in range(b):
+        _close(g[k], wg[k])
+        y1, g1 = bucketgram(x[k], assign[k], nb)
+        assert torch.equal(_bits(y[k]), _bits(y1))
+        if nb <= 8:
+            assert torch.equal(_bits(g[k]), _bits(g1))
+    y2, g2 = bucketgram_lanes_perms(x, perms, s)
+    assert torch.equal(_bits(y2), _bits(y)) and torch.equal(_bits(g2), _bits(g))
+    assert not bool(torch.isnan(y[0, :, :3]).any())
+
+
+@pytest.mark.cuda
+def test_bucketgram_perm_route_argument_checks(dev):
+    x = torch.randn((5, 17, 2842), device=dev)
+    perms = torch.stack([torch.randperm(17) for _ in range(5)]).to(dev)
+    cases = [
+        (lambda: bucketgram_lanes_perms(x, perms.cpu(), 3),
+         "contiguous int64 tensor on cuda"),
+        (lambda: bucketgram_lanes_perms(x, perms.int(), 3),
+         "contiguous int64 tensor"),
+        (lambda: bucketmeans_lanes_perms(x, perms[:4], 2),
+         r"perms must have shape \(5, 17\), got \(4, 17\)"),
+        (lambda: bucketmeans_lanes_perms(x, perms, 0),
+         "1 <= bucket_size <= 17"),
+        (lambda: bucketmeans_lanes_perms(x.half(), perms, 2),
+         "float32 or bfloat16"),
+    ]
+    before = (bucketgram_lanes.launches, bucketmeans_lanes.launches)
+    for call, match in cases:
+        with pytest.raises((ValueError, TypeError), match=match):
+            call()
+    assert (bucketgram_lanes.launches, bucketmeans_lanes.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fleet_routes_make_no_synchronizing_call(dev, dtype):
+    """The median lanes, K4 and K6 / K7's permutation route at the grid's
+    (5, 17, 2842), with and without the mix and K5 above 8 means, under
+    torch.cuda.set_sync_debug_mode("error"): none waits for the card."""
+    x = torch.randn((5, 17, 2842), device=dev).to(dtype)
+    perms = torch.stack([torch.randperm(17) for _ in range(5)]).to(dev)
+    m = torch.softmax(torch.randn((5, 17, 17), device=dev), -1)
+    f = torch.full((5,), 4, dtype=torch.int32, device=dev)
+    calls = [lambda: mixtrim_lanes(x, m), lambda: mixtrim_lanes(x, None),
+             lambda: mixtrim_dyn(x, m, f), lambda: mixtrim_dyn(x, None, f),
+             lambda: bucketgram_lanes_perms(x, perms, 3),
+             lambda: bucketmeans_lanes_perms(x, perms, 2),
+             lambda: bucketgram_lanes_perms(x, perms, 2)]
+    for call in calls:                  # the build and the plans first
+        call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for call in calls:
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100, 1100])
+def test_median_lanes_above_64_workers_pass_no_f(dev, n):
+    """Above 64 workers the median lanes reach the tiled-mix select and the
+    shared-memory sort with no f: each lane equals K2's median on it bit
+    for bit, with and without the mix."""
+    b, d = 3, 61
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn((b, n, d), generator=g, device=dev)
+    m = torch.softmax(torch.randn((b, n, n), generator=g, device=dev), -1)
+    for mm in (m, None):
+        med = mixtrim_lanes(x, mm)
+        _close(med, mixtrim_lanes_ref(x, mm))
+        for k in range(b):
+            want = mixtrim(x[k], None if mm is None else mm[k], 0, "med")
+            assert torch.equal(_bits(med[k]), _bits(want))
+
+
+@pytest.mark.cuda
+def test_bucketgram_limits_agree_with_the_library(dev):
+    """The wrapper picks K6 / K7's path by limits the kernel also checks:
+    the register Gram's buckets, the register path's means and workers."""
+    lib = _build.library()
+    assert lib.repro_bucketgram_reg_nb() == bucketgram_ops.REG_NB
+    assert lib.repro_bucketgram_means_nb() == bucketgram_ops.MEANS_NB
+    assert lib.repro_bucketgram_reg_max_n() == bucketgram_ops.REG_MAX_N
