@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --18d    # the build and phase 18d alone
+    python3 chip_smoke.py --22     # the build and phase 22 alone
 
 Phases, each fatal on failure:
   1. environment: torch / CUDA / nvcc versions, the card, TF32 off;
@@ -281,15 +282,37 @@ Phases, each fatal on failure:
      the same seeded weights, run first: parameters within 1e-5 of the
      tree's largest magnitude, the loss within 1e-5, both ranks' copies
      equal bit for bit; ms per step and each rank's peak;
- 22. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 22. the model-parallel mesh (``models.common``'s ``MeshAxes`` and
+     padded heads; ranks of a ("data", "model") world sharing the card
+     over gloo, each holding its shard of the heads, the ff, the
+     vocabulary or the experts, the layers' all-reduces on the model
+     axis, D-SHB aggregating each rank's model-shard columns with K1 / K2,
+     K6 / K7 on the hierarchical form); every case first on one device
+     (the padded model whole under ``mesh_axes_scope``), then over the
+     world: (a) full-width smollm-360m at 32 of 32 layers, bf16, heads
+     15 -> 16 and kv 5 -> 8, n = 8, f = 2, ALIE, NNM + CWTM, 2 steps on
+     (data 2, model 2), the loss within 1e-3 and the parameters within
+     5e-3 (the reference's own sharded-vs-single bounds); (b) fp32 at 4
+     of 32 layers on (1, 2) and (2, 2), NNM + CWTM and hier + NNM + CWTM
+     (s = 2): the loss within 1e-5 relative, the parameters within 1e-5 x
+     their largest magnitude, each step's stack Gram within 1e-5 of max
+     |G|; (c) mixtral-8x22b at 1 of 56 layers, bf16, the experts split 4
+     a rank and under ``fsdp_keys``, n = 4, f = 1 on (1, 2), bounds as
+     (a), the ranks' summed peak under 72 GB; (d) (b)'s run through
+     ``train_loop`` under ``options.checkpoint`` on (2, 2), killed after
+     step 1's snapshot and resumed: every rank's shards and momentum bit
+     for bit.  ms per step on one device and over the world, each rank's
+     peak, launches, collectives and model-axis all-reduces a step;
+     asserts K1 and K2 on every rank and empty fallback logs;
+ 23. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6; the
      lane forms of K2's median, K3, K6 and K7 on rows of their own), the
-     fed phase's launches, phase 13's to 19's and 21's launches, the
-     kernels JSON line (K1, K2, K4 and K5 launches include phase 13's;
-     K2-K5 phase 14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and K2
-     phase 17's and 19's; the lane forms and K4 / K5 phase 18's; K1-K7
-     phase 21's, summed over its ranks), the card line, and last the
-     {"ok": true, ...} line.
+     fed phase's launches, phase 13's to 19's, 21's and 22's launches,
+     the kernels JSON line (K1, K2, K4 and K5 launches include phase
+     13's; K2-K5 phase 14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and
+     K2 phase 17's and 19's; the lane forms and K4 / K5 phase 18's; K1-K7
+     phase 21's and K1 / K2 / K6 / K7 phase 22's, summed over their
+     ranks), the card line, and last the {"ok": true, ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
@@ -5247,6 +5270,376 @@ def phase_mesh(dev, hier_ref_dir: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the model-parallel mesh.  Each rank of a ("data", "model") world
+# holds its shard of the padded model (heads, ff, vocabulary, experts), runs
+# its data index's workers split over the model ranks (the layers'
+# all-reduces on the model axis) and aggregates its model shard's columns of
+# the worker stack with K1 / K2 (K6 / K7 on the hierarchical form).  Every
+# case runs first on one device (the padded model whole under
+# mesh_axes_scope), then over the world.
+# ---------------------------------------------------------------------------
+
+#: (name, arch, layers, dtype, n, f, spec, steps, mesh shapes, tight, fsdp)
+MODEL_RUNS = (
+    ("22a", "smollm-360m", 32, "bf16", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), False, False),
+    ("22b nnm+cwtm", "smollm-360m", 4, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((1, 2), (2, 2)), True, False),
+    ("22b hier+nnm+cwtm", "smollm-360m", 4, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm", hier=True, bucket_size=2), 2,
+     ((1, 2), (2, 2)), True, False),
+    ("22c", "mixtral-8x22b", 1, "bf16", 4, 1,
+     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), False, True),
+)
+MODEL_PAR = 2
+MODEL_SEQ, MODEL_BATCH = 128, 4          # each worker's batch: 4 x 128 tokens
+MODEL_PEAK_GB = 72.0                      # 22c: the world's summed peak
+MODEL_RESUME_STEPS = 2                    # 22d: killed after step 1's snapshot
+
+
+def model_batches(vocab: int, n: int, steps: int) -> list:
+    """Dirichlet-heterogeneous synthetic LM batches over ``vocab``."""
+    from repro_torch.data import build_heterogeneous, make_lm_corpus, worker_batches
+    seqs, topics = make_lm_corpus(n_tokens=400_000, vocab=vocab,
+                                  seq_len=MODEL_SEQ + 1, seed=0)
+    ds = build_heterogeneous({"seq": seqs, "y": topics}, "y", n, alpha=0.1,
+                             seed=0)
+    it = worker_batches(ds, MODEL_BATCH, seed=0)
+    out = []
+    for _ in range(steps):
+        b = next(it)
+        out.append({"tokens": b["seq"][..., :-1], "labels": b["seq"][..., 1:]})
+    return out
+
+
+def _model_setup(run, dev, mesh):
+    """(model, its config, MeshAxes, TrainerConfig) of one MODEL_RUNS entry,
+    on one device (mesh None) or over ``mesh``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import AggregatorSpec
+    from repro_torch.launch.launch_config import fsdp_keys_for
+    from repro_torch.launch.mesh import mesh_axes_for
+    from repro_torch.models import build_model
+    from repro_torch.models import common
+    from repro_torch.training import ByzantineConfig, TrainerConfig
+    name, arch, layers, dtype, n, f, spec_kw, steps, _, _, fsdp = run
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers, dtype=torch.bfloat16
+                       if dtype == "bf16" else torch.float32)
+    axes = mesh_axes_for(cfg, model_par=MODEL_PAR)
+    model = build_model(cfg)
+    with common.mesh_axes_scope(axes):
+        specs = common.leaf_specs(model.param_descs())
+    if mesh is None:
+        backend = "cuda"
+    else:
+        backend = "cuda_hier" if spec_kw.get("hier") else "cuda_sharded"
+    tcfg = TrainerConfig(
+        agg=AggregatorSpec(f=f, backend=backend, **spec_kw),
+        byz=ByzantineConfig(f=f, attack="alie"),
+        fsdp_keys=fsdp_keys_for(full) if fsdp else (),
+        worker_axes=None if mesh is None else ("data",),
+        param_specs=None if mesh is None else specs)
+    return model, cfg, axes, tcfg
+
+
+def _stack_gram(a, mesh, hier: bool):
+    """The attacked stack's (n, n) Gram in fp64 (column chunks), summed
+    over the blocks of a world: over both axes, or the model axis where
+    the hierarchical form keeps the columns whole on every data rank."""
+    import torch
+    g = torch.zeros((a.shape[0], a.shape[0]), dtype=torch.float64,
+                    device=a.device)
+    for c in range(0, a.shape[1], 1 << 23):
+        x = a[:, c:c + (1 << 23)].double()
+        g += x @ x.T
+    if mesh is not None:
+        mesh.all_reduce(g, "model" if hier else ("model", "data"),
+                        record=False)
+    return g
+
+
+def _model_train(run, dev, mesh=None, gram: bool = False) -> dict:
+    """One MODEL_RUNS entry's steps; returns its metrics, ms per step,
+    peak, launches, collectives, the final parameters (this rank's
+    shards) and, with ``gram``, each step's stack Gram."""
+    import torch
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import common
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.training import build_train_step, init_state
+    from repro_torch.training.trainer import split_params, to_device
+    from repro_torch.tree import tree_leaves
+    name, arch, layers, dtype, n, f, spec_kw, steps, *_ = run
+    model, cfg, axes, tcfg = _model_setup(run, dev, mesh)
+    batches = model_batches(cfg.vocab_size, n, steps)
+    scope = tmesh.use_mesh(mesh) if mesh is not None \
+        else contextlib.nullcontext()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with scope, common.mesh_axes_scope(axes):
+        params = model.init(0, dev)
+        robust, _ = split_params(params, tcfg.fsdp_keys)
+        width = sum(p.numel() for p in robust)
+        total = sum(p.numel() for p in tree_leaves(params))
+        del robust
+        opt = sgd(clip=2.0)
+        step = build_train_step(model.loss, opt, tcfg,
+                                cosine(0.05, steps, warmup=0))
+        state = init_state(params, opt, n, tcfg)
+        del params
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        tmesh.reset_collective_log()
+        hist = {"loss": [], "kappa_hat": [], "direction_norm": [], "ms": [],
+                "grams": []}
+        for t in range(steps):
+            perm = torch.randperm(n, generator=torch.Generator()
+                                  .manual_seed(t)).to(dev)
+            batch = to_device(batches[t], dev)
+            internals: dict = {}
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch, internals, perm=perm)
+            torch.cuda.synchronize(dev)
+            hist["ms"].append(1e3 * (time.perf_counter() - t0))
+            for k in ("loss", "kappa_hat", "direction_norm"):
+                hist[k].append(float(m[k]))
+            if gram:
+                hist["grams"].append(_stack_gram(
+                    internals["attacked"], mesh,
+                    bool(spec_kw.get("hier"))).cpu())
+            del internals, batch
+        counts = _counts(("gram", "mixtrim", "bucketgram", "bucketmeans",
+                          "combine"))
+        colls = collective_summary()
+        model_ar = sum(c["calls"] for k, c in colls.items()
+                       if k.startswith("all_reduce/model/"))
+    return {"params": [p.detach() for p in tree_leaves(state["params"])],
+            "momentum_width": state["momentum"].shape[1], "hist": hist,
+            "peak": torch.cuda.max_memory_allocated(dev), "counts": counts,
+            "collectives": colls, "model_all_reduces": model_ar / steps,
+            "width": width, "params_total": total,
+            "fallbacks": [f"{d.primitive}: {d.used} ({d.reason})"
+                          for d in kdispatch.fallback_log()],
+            "record": kdispatch.last_dispatch().describe()}
+
+
+def _model_compare(run, got: dict, ref_path: str, mesh) -> dict:
+    """This rank's shards against the single device's whole parameters
+    (sliced to the shard), and the metrics against its history."""
+    import torch
+    from repro_torch.models import common
+    from repro_torch.tree import tree_leaves
+    ref = torch.load(ref_path, map_location=got["params"][0].device)
+    model, _, axes, _ = _model_setup(run, None, mesh)
+    with common.mesh_axes_scope(axes):
+        descs = tree_leaves(model.param_descs())
+    err, scale = 0.0, 0.0
+    for a, b, d in zip(got["params"], ref["params"], descs):
+        b = b[common.shard_slice(d, axes, mesh)]
+        err = max(err, float((a.float() - b.float()).abs().max()))
+        scale = max(scale, float(b.float().abs().max()))
+    out = {"err": err, "scale": scale, "loss": got["hist"]["loss"],
+           "ref_loss": ref["loss"], "kappa_hat": got["hist"]["kappa_hat"],
+           "ms": got["hist"]["ms"], "ref_ms": ref["ms"], "peak": got["peak"],
+           "counts": got["counts"], "collectives": got["collectives"],
+           "model_all_reduces": got["model_all_reduces"],
+           "fallbacks": got["fallbacks"], "record": got["record"],
+           "momentum_width": got["momentum_width"]}
+    if got["hist"]["grams"]:
+        out["gram_err"] = max(float((a - b.cpu()).abs().max())
+                              for a, b in zip(got["hist"]["grams"],
+                                              ref["grams"]))
+        out["gram_scale"] = max(float(b.abs().max()) for b in ref["grams"])
+    return out
+
+
+def _model_resume(dev, mesh, tmp: str) -> dict:
+    """22d on one rank: 22b's nnm+cwtm run through train_loop in segments
+    of one step, uninterrupted, then killed after the first snapshot and
+    resumed from it; this rank's shards and momentum block, bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import common
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.resilience import CheckpointConfig, FaultPlan
+    from repro_torch.resilience.faults import SimulatedPreemption
+    from repro_torch.rounds import RoundOptions
+    from repro_torch.training import train_loop
+    from repro_torch.tree import tree_leaves
+    run = MODEL_RUNS[1]
+    steps = MODEL_RESUME_STEPS
+    model, cfg, axes, tcfg = _model_setup(run, dev, mesh)
+    batches = model_batches(cfg.vocab_size, run[4], steps)
+    ck = CheckpointConfig(dir=f"{tmp}/22d", fault_plan=FaultPlan(kill_at=0))
+    with tmesh.use_mesh(mesh), common.mesh_axes_scope(axes):
+        init = model.init(0, dev)
+
+        def go(options):
+            final, info = train_loop(model.loss, init, iter(batches),
+                                     sgd(clip=2.0), tcfg,
+                                     cosine(0.05, steps, warmup=0), steps,
+                                     seed=0, chunk=1, options=options)
+            return [t.detach() for t in tree_leaves(final)] + \
+                [info["state"]["momentum"]], info
+
+        t0 = time.perf_counter()
+        full, _ = go(None)
+        try:
+            go(RoundOptions(checkpoint=ck))
+            killed = False
+        except SimulatedPreemption:
+            killed = True
+        resumed, info = go(RoundOptions(checkpoint=dataclasses.replace(
+            ck, fault_plan=None)))
+        seconds = time.perf_counter() - t0
+    equal = all(torch.equal(a, b) for a, b in zip(full, resumed))
+    return {"killed": killed, "resumed_from":
+            info["scan_report"]["resumed_from"], "equal": equal,
+            "seconds": seconds}
+
+
+def _model_rank(rank: int, world: int, tmp: str) -> dict:
+    """Phase 22 on one rank of a (world / 2, 2) ("data", "model") mesh:
+    every MODEL_RUNS entry for this mesh shape, then (4 ranks) 22d."""
+    import torch
+    dev = _rank_setup(rank)
+    from repro_torch.launch import mesh as tmesh
+    shape = (world // MODEL_PAR, MODEL_PAR)
+    mesh = tmesh.make_debug_mesh(*shape)
+    out = {"rank": rank, "runs": {}, "counts": {}}
+    for run in MODEL_RUNS:
+        if shape not in run[8]:
+            continue
+        got = _model_train(run, dev, mesh, gram=run[9])
+        row = _model_compare(run, got, f"{tmp}/{run[0]}.pt", mesh)
+        add_counts(out["counts"], row["counts"])
+        out["runs"][run[0]] = row
+        del got
+        torch.cuda.empty_cache()
+    if world == 4:
+        out["resume"] = _model_resume(dev, mesh, tmp)
+    return out
+
+
+def phase_model_mesh(dev, card: str) -> dict:
+    """Phase 22; returns the launches summed over every rank."""
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import spawn_world
+    total: dict = {}
+    single: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in MODEL_RUNS:
+            t0 = time.perf_counter()
+            got = _model_train(run, dev, None, gram=run[9])
+            add_counts(single, got["counts"])
+            model, cfg, axes, tcfg = _model_setup(run, dev, None)
+            log(f"-- {run[0]}: {run[1]} {run[2]} of "
+                f"{get_full_layers(run[1])} layers, {run[3]}, d "
+                f"{cfg.d_model}, heads {cfg.num_heads} -> "
+                f"{padded_heads(cfg, axes)} (model axis {MODEL_PAR}), n="
+                f"{run[4]} f={run[5]}, {run[6]}, ALIE, {run[7]} steps; "
+                f"fsdp_keys {tcfg.fsdp_keys}; D = {got['params_total']:,} "
+                f"(robust {got['width']:,})")
+            log(f"  single device: ms/step "
+                f"{[round(v, 1) for v in got['hist']['ms']]}, loss "
+                f"{got['hist']['loss']}, peak {got['peak'] / 1e9:.2f} GB, "
+                f"launches {got['counts']} ({time.perf_counter() - t0:.1f} s)")
+            if got["fallbacks"]:
+                raise AssertionError(f"{run[0]}: fallbacks {got['fallbacks']}")
+            torch.save({"params": got["params"], "loss": got["hist"]["loss"],
+                        "ms": got["hist"]["ms"], "grams": got["hist"]["grams"]},
+                       f"{tmp}/{run[0]}.pt")
+            del got
+            torch.cuda.empty_cache()
+        for world in (2, 4):
+            t0 = time.perf_counter()
+            ranks = spawn_world(_model_rank, world, (tmp,), limit=MESH_LIMIT)
+            log(f"  world of {world} ranks, mesh (data {world // MODEL_PAR}, "
+                f"model {MODEL_PAR}) over gloo on one card ({card}): "
+                f"{time.perf_counter() - t0:.1f} s")
+            _check_model_world(world, ranks)
+            for r in ranks:
+                add_counts(total, r["counts"])
+    return add_counts(total, single)
+
+
+def get_full_layers(arch: str) -> int:
+    from repro_torch.configs import get_config
+    return get_config(arch).num_layers
+
+
+def padded_heads(cfg, axes) -> str:
+    from repro_torch.models import attention, common
+    with common.mesh_axes_scope(axes):
+        hq, hkv = attention.resolved_heads(cfg)
+    return f"{hq} q / {hkv} kv (from {cfg.num_heads} / {cfg.num_kv_heads})"
+
+
+def _check_model_world(world: int, ranks: list) -> None:
+    """Phase 22's contracts on one world's results, each rank's line
+    logged."""
+    for r in ranks:
+        if not (r["counts"].get("gram") and r["counts"].get("mixtrim")):
+            raise AssertionError(f"22 rank {r['rank']}: K1 / K2 not launched "
+                                 f"({r['counts']})")
+        peaks = {}
+        for name, row in r["runs"].items():
+            if row["fallbacks"]:
+                raise AssertionError(f"{name} rank {r['rank']}: fallbacks "
+                                     f"{row['fallbacks']}")
+            tight = name.startswith("22b")
+            ptol = (1e-5 * row["scale"]) if tight else 5e-3
+            if row["err"] > ptol:
+                raise AssertionError(f"{name} rank {r['rank']}: parameters "
+                                     f"off by {row['err']} > {ptol}")
+            for a, b in zip(row["loss"], row["ref_loss"]):
+                if abs(a - b) > (1e-5 * abs(b) if tight else 1e-3):
+                    raise AssertionError(f"{name}: loss {row['loss']} vs one "
+                                         f"device {row['ref_loss']}")
+            if tight and row["gram_err"] > 1e-5 * row["gram_scale"]:
+                raise AssertionError(f"{name} rank {r['rank']}: Gram off by "
+                                     f"{row['gram_err']} > 1e-5 x "
+                                     f"{row['gram_scale']}")
+            peaks[name] = row["peak"]
+            gram = (f", Gram max |diff| {row['gram_err']:.3e} (tol "
+                    f"{1e-5 * row['gram_scale']:.3e})") if tight else ""
+            log(f"  {name} rank {r['rank']}: ms/step "
+                f"{[round(v, 1) for v in row['ms']]} (one device "
+                f"{[round(v, 1) for v in row['ref_ms']]}), loss "
+                f"{row['loss']} (one device {row['ref_loss']}), parameters "
+                f"max |diff| {row['err']:.3e} (tol {ptol:.3e}){gram}, peak "
+                f"{row['peak'] / 1e9:.2f} GB, block width "
+                f"{row['momentum_width']:,}, launches {row['counts']}, "
+                f"model-axis all-reduces / step {row['model_all_reduces']:.0f}"
+                f"; collectives {row['collectives']}")
+        if r["rank"] == 0:
+            for name, row in r["runs"].items():
+                log(f"  {name}: {row['record']}")
+        if "resume" in r:
+            res = r["resume"]
+            if not (res["killed"] and res["resumed_from"] == 1
+                    and res["equal"]):
+                raise AssertionError(f"22d rank {r['rank']}: {res}")
+            log(f"  22d rank {r['rank']}: killed after step 1's snapshot, "
+                f"resumed from {res['resumed_from']}, shards and momentum "
+                f"equal bit for bit ({res['seconds']:.1f} s)")
+    if world == 2 and "22c" in ranks[0]["runs"]:
+        peak = sum(r["runs"]["22c"]["peak"] for r in ranks)
+        log(f"  22c: peaks {[round(r['runs']['22c']['peak'] / 1e9, 2) for r in ranks]} "
+            f"GB, the world's sum {peak / 1e9:.2f} GB")
+        if peak / 1e9 > MODEL_PEAK_GB:
+            raise AssertionError(f"22c: summed peak {peak / 1e9:.2f} GB > "
+                                 f"{MODEL_PEAK_GB}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5286,6 +5679,11 @@ def main() -> int:
     if sys.argv[1:] == ["--18d"]:
         log("== 18d alone: the launch-sized shapes, host and device per call")
         phase_launch_sizes(dev, rate)
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--22"]:
+        log("== 22 alone: the model-parallel mesh")
+        log(json.dumps({"model_mesh_launches": phase_model_mesh(dev, card)}))
         log(card)
         return 0
 
@@ -5440,7 +5838,15 @@ def main() -> int:
     log(json.dumps({"mesh_launches": counts_mesh}))
     log(f"  phase 21: {time.perf_counter() - t21:.1f} s")
 
-    log("== 22. summary")
+    t22 = time.perf_counter()
+    log(f"== 22. the model-parallel mesh: shards of the padded model over a "
+        f"(data, model) world of ranks sharing the card over gloo; card: "
+        f"{card}")
+    counts_model = phase_model_mesh(dev, card)
+    log(json.dumps({"model_mesh_launches": counts_model}))
+    log(f"  phase 22: {time.perf_counter() - t22:.1f} s")
+
+    log("== 23. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -5524,6 +5930,7 @@ def main() -> int:
     kernels = []
     for k, (src, rep, launches) in meta.items():
         launches += counts_mesh.get(k, 0)          # phase 21's, every rank
+        launches += counts_model.get(k, 0)         # phase 22's, every rank
         r = rows[k]
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": r["max_abs_err"],

@@ -468,17 +468,23 @@ def _aggregate_flat(work: PyTree, spec: AggregatorSpec, f: int, *,
 
 
 def _open_routed_record(spec: AggregatorSpec, device: torch.device, *,
-                        dyn: bool = False, lanes: Optional[int] = None
+                        dyn: bool = False, lanes: Optional[int] = None,
+                        sh: Optional[shardlib.ShardCtx] = None
                         ) -> tuple[str, Optional[shardlib.ShardCtx]]:
     """Resolve the backend (and the mesh of the sharded ones), open the
     dispatch record, and record the degrade of "cuda_sharded" /
     "cuda_hier" without a multi-rank mesh (to the torch path, the hier
     stage kept: the dense bucketing path).  Returns (effective backend,
-    this rank's shard context or None)."""
+    this rank's shard context or None).  A given ``sh`` (the trainer's
+    model shard) is used as it is under a sharded backend."""
     hier = _hier_active(spec)
     backend = kdispatch.resolve_backend(spec.backend, device, hier=hier)
-    sh, degraded = None, None
-    if backend == "cuda_hier":
+    degraded = None
+    if backend not in kdispatch.SHARDED_BACKENDS:
+        sh = None
+    if sh is not None:
+        pass                            # the caller's shard, as it is
+    elif backend == "cuda_hier":
         ctx = kdispatch.resolve_hier_mesh()
         if ctx is None:
             backend = "torch"
@@ -607,7 +613,8 @@ def robust_aggregate_block(block: Tensor, spec: AggregatorSpec, *, d: int,
                            signs: Optional[list] = None,
                            segments: Optional[list] = None,
                            internals: Optional[dict] = None,
-                           return_coeff: bool = False):
+                           return_coeff: bool = False,
+                           sh: Optional[shardlib.ShardCtx] = None):
     """One rank's part of :func:`robust_aggregate` under a multi-rank mesh:
     ``block`` is this rank's columns (``ShardCtx.cols(d)``) of the global
     (n, D) flat worker stack, and on the 2-D hierarchical form (buckets of
@@ -619,7 +626,9 @@ def robust_aggregate_block(block: Tensor, spec: AggregatorSpec, *, d: int,
     per leaf of ``segments`` ((offset, size) columns of the global stack,
     one leaf spanning D when None).  The backend must resolve to
     "cuda_sharded" / "cuda_hier" under a multi-rank mesh: a block cannot
-    degrade to the single-device path."""
+    degrade to the single-device path.  ``sh``: this rank's shard context
+    as the caller holds it (the model-sharded trainer's explicit columns),
+    else the active mesh's."""
     _validate(spec)
     if internals is not None:
         validate_taps(spec)
@@ -633,7 +642,7 @@ def robust_aggregate_block(block: Tensor, spec: AggregatorSpec, *, d: int,
         segments = [(0, d)]
     if not spec.sketch_dim:
         signs = None
-    backend, sh = _open_routed_record(spec, block.device)
+    backend, sh = _open_routed_record(spec, block.device, sh=sh)
     if sh is None:
         raise ValueError(
             f"robust_aggregate_block needs backend 'cuda_sharded' or "

@@ -22,6 +22,14 @@ generators seeded with the job's seed) and is dropped.
 :func:`mlp_params_from_numpy` carries the fleet MLP's init across, e.g.
 ``_mlp_init(jax.random.PRNGKey(seed), 48)`` as numpy.
 
+On a model mesh (``models.common.model_mesh``) :func:`params_to_shards`
+cuts the reference's padded parameters, as numpy, into this rank's shards
+(``models.common.shard_slice`` of each leaf's desc) and
+:func:`params_from_shards` gathers them back over the model axis (a
+collective: every rank calls it).  The sharded trainer's momentum is a
+block of its model shard's columns, not the reference's layout; the
+state forms below carry single-device states (``fsdp_keys=`` as there).
+
 A decode cache carries across too (:func:`cache_from_numpy` /
 :func:`cache_to_numpy`): the reference's ``init_cache`` / ``decode_step``
 tree, one of the layouts in :data:`CACHE_KEYS`, leaf for leaf in jax's
@@ -71,6 +79,31 @@ def params_from_numpy(tree: PyTree, device: Optional[torch.device] = None
 def params_to_numpy(tree: PyTree) -> PyTree:
     """A tree of tensors -> the same tree of numpy arrays."""
     return tree_map(tensor_to_numpy, tree)
+
+
+def params_to_shards(tree: PyTree, descs: PyTree, axes, mesh,
+                     device: Optional[torch.device] = None) -> PyTree:
+    """The reference's (padded) parameters as numpy -> this rank's shard of
+    each leaf, on ``device``."""
+    from repro_torch.models.common import shard_slice
+    return tree_map(lambda a, d: tensor_from_numpy(
+        np.asarray(a)[shard_slice(d, axes, mesh)], device), tree, descs)
+
+
+def params_from_shards(tree: PyTree, descs: PyTree, axes, mesh) -> PyTree:
+    """Every rank's shards -> the whole parameters as numpy (bf16 as fp32),
+    all-gathered over the model axis leaf by leaf (a collective)."""
+    from repro_torch.models.common import leaf_spec
+
+    def whole(t, d):
+        spec = leaf_spec(d, axes)
+        if axes.model not in spec or mesh.size(axes.model) == 1:
+            return tensor_to_numpy(t)
+        dim = spec.index(axes.model)
+        rows = t.detach().float().movedim(dim, 0).contiguous()
+        full = mesh.all_gather(rows, axes.model)
+        return tensor_to_numpy(full.movedim(0, dim))
+    return tree_map(whole, tree, descs)
 
 
 def momentum_from_numpy(leaves: list, device: Optional[torch.device] = None

@@ -30,6 +30,19 @@ whose outputs are cut off).
   tile makes every bucket of its columns NaN (0 * NaN in K7's dense
   semantics) and the sum keeps it.
 
+Model shards (the trainer on a ``(data, model)`` mesh): a rank's block
+is not an even :func:`column_block` but the columns its model shard
+holds (:class:`ModelColumns`): every leaf split over the model axis
+contributes this rank's shard, flattened, and every leaf replicated over
+it (norms, replicated kv heads) contributes the :func:`column_block` of
+its flattened whole that this rank's model index gives, so each column of
+the robust stack is held by exactly one model rank.  The model ranks'
+columns lie side by side in a global order (rank 0's first), and
+:class:`ShardCtx` takes the block as an explicit ``span`` of it; with
+``axis`` a tuple of mesh axes the Gram's all-reduce spans them all.  The
+column order differs from the reference's leaf order; the Gram, the
+per-column rules and the combine do not depend on it.
+
 On CPU blocks the wrappers run their plain versions (the tests' gloo
 worlds).  Routing and decision records stay in
 :mod:`repro_torch.kernels.dispatch`.
@@ -76,11 +89,15 @@ def row_block(n: int, w: int, j: int) -> tuple[int, int]:
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
     """One rank's place in a sharded aggregation: the mesh, the axis D is
-    split over, and (2-D hierarchical form) the axis the worker rows are
-    split over."""
+    split over (a tuple of axes: all of them, the Gram all-reduced over
+    each), (2-D hierarchical form) the axis the worker rows are split
+    over, and ``span``: this rank's columns [c0, c1) of the stack when
+    they are given explicitly (a model shard's, :class:`ModelColumns`)
+    rather than by :func:`column_block`."""
     mesh: object
-    axis: str
+    axis: object
     worker_axis: Optional[str] = None
+    span: Optional[tuple] = None
 
     @property
     def k(self) -> int:
@@ -96,6 +113,8 @@ class ShardCtx:
         return self.k * self.kw
 
     def cols(self, d: int) -> tuple[int, int]:
+        if self.span is not None:
+            return self.span
         return column_block(d, self.k, self.mesh.index(self.axis))
 
     def rows(self, n: int) -> tuple[int, int]:
@@ -117,6 +136,86 @@ class ShardCtx:
         """The whole (D,) (or (B, D)) vector from every rank's slice along
         :attr:`axis`: padded to ceil(D/k), all-gathered, cut to D."""
         return gather_columns(local, d, mesh=self.mesh, axis=self.axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelColumns:
+    """One model rank's columns of the (n, D) worker stack, leaf by leaf
+    (module docstring).  ``pieces[i]`` is the [lo, hi) of robust leaf i's
+    flattened LOCAL tensor this rank holds (the whole shard of a split
+    leaf, its :func:`column_block` of a replicated one), ``split[i]``
+    whether the leaf is split over the model axis, ``widths`` every model
+    rank's column count, ``index`` this rank's model coordinate."""
+    pieces: tuple
+    split: tuple
+    widths: tuple
+    index: int
+
+    @classmethod
+    def build(cls, numels: list, split: list, k: int, j: int
+              ) -> "ModelColumns":
+        """From the robust leaves' LOCAL element counts and split flags,
+        on a model axis of ``k`` ranks, for model index ``j``."""
+        def pieces_of(m):
+            return tuple((0, size) if sp else column_block(size, k, m)
+                         for size, sp in zip(numels, split))
+        widths = tuple(sum(b - a for a, b in pieces_of(m)) for m in range(k))
+        return cls(pieces_of(j), tuple(bool(x) for x in split), widths, j)
+
+    @property
+    def width(self) -> int:
+        return self.widths[self.index]
+
+    @property
+    def offset(self) -> int:
+        return sum(self.widths[:self.index])
+
+    @property
+    def total(self) -> int:
+        """D: every model rank's columns together."""
+        return sum(self.widths)
+
+    def segments(self) -> list:
+        """(offset, size) of each leaf's piece in this rank's columns."""
+        out, off = [], 0
+        for a, b in self.pieces:
+            out.append((off, b - a))
+            off += b - a
+        return out
+
+    def unflatten(self, vec: Tensor, like: list, *, mesh, axis: str) -> list:
+        """Leaves shaped like ``like`` from this rank's (W,) ``vec``: a split
+        leaf's shard is its piece; a replicated leaf is rebuilt from every
+        model rank's piece, all-gathered over ``axis`` in one collective."""
+        segs = self.segments()
+        rep = [i for i, sp in enumerate(self.split) if not sp]
+        out: list = [None] * len(like)
+        for i, sp in enumerate(self.split):
+            if sp:
+                off, size = segs[i]
+                out[i] = vec[off:off + size].reshape(like[i].shape)
+        if not rep:
+            return out
+        k = len(self.widths)
+        sizes = [[column_block(like[i].numel(), k, m) for i in rep]
+                 for m in range(k)]
+        rmax = max(sum(b - a for a, b in row) for row in sizes)
+        buf = vec.new_zeros((1, rmax))
+        pos = 0
+        for i in rep:
+            off, size = segs[i]
+            buf[0, pos:pos + size] = vec[off:off + size]
+            pos += size
+        full = mesh.all_gather(buf, axis) if k > 1 else buf     # (k, rmax)
+        parts: dict = {i: [] for i in rep}
+        for m in range(k):
+            pos = 0
+            for i, (a, b) in zip(rep, sizes[m]):
+                parts[i].append(full[m, pos:pos + b - a])
+                pos += b - a
+        for i in rep:
+            out[i] = torch.cat(parts[i]).reshape(like[i].shape)
+        return out
 
 
 def gather_columns(local: Tensor, d: int, *, mesh, axis: str) -> Tensor:

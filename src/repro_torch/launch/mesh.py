@@ -1,6 +1,8 @@
 """Named meshes over a ``torch.distributed`` world: the aggregation meshes
-of the multi-device backends (counterpart of ``repro.launch.mesh``'s
-``use_mesh`` / ``aggregation_mesh`` / ``hier_aggregation_mesh``).
+of the multi-device backends and the model-parallel mesh (counterpart of
+``repro.launch.mesh``: ``use_mesh`` / ``aggregation_mesh`` /
+``hier_aggregation_mesh``, ``make_production_mesh`` / ``mesh_axes_for`` /
+``n_workers``).
 
 A :class:`Mesh` lays the world's ranks out on a grid with named axes
 (``make_mesh((2, 2), ("workers", "model"))``: rank ``r`` at
@@ -16,6 +18,10 @@ GPU).  Both take every collective of the mesh on the tensors as they
 are: gloo stages CUDA tensors through the host itself
 (``scripts/torch_gloo_probe.py`` checks which collectives gloo runs on
 CUDA tensors and times them against explicit host copies).
+
+The model-parallel layers (``repro_torch.models.common``: column- and
+row-parallel products, the split vocabulary) run their all-reduces and
+all-gathers on the ``"model"`` axis's group of the active mesh.
 
 Every collective is counted and timed (host clock around the call, after
 a synchronize of a CUDA operand) in :func:`collective_log`, emitted as a
@@ -45,6 +51,12 @@ import torch.distributed as dist
 
 #: Seconds a collective may wait for its peers before it raises.
 GROUP_TIMEOUT = 120.0
+
+#: The reference's production geometry (a TPU pod's): the defaults of
+#: :func:`make_production_mesh` and :func:`mesh_axes_for`, nothing more.
+MODEL_PAR = 16
+DATA_PAR = 16
+PODS = 2
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +163,20 @@ class Mesh:
     groups: dict
     transport: Transport
 
-    def size(self, axis: str) -> int:
+    def size(self, axis) -> int:
+        """Ranks along ``axis`` (a name, or a tuple of names: the product)."""
+        if isinstance(axis, tuple):
+            return math.prod(self.size(a) for a in axis)
         return dict(zip(self.axis_names, self.shape))[axis]
 
-    def index_of(self, rank: int, axis: str) -> int:
-        """``rank``'s coordinate along ``axis``."""
+    def index_of(self, rank: int, axis) -> int:
+        """``rank``'s coordinate along ``axis`` (a tuple of names: the
+        row-major coordinate over them, the first the slowest)."""
+        if isinstance(axis, tuple):
+            idx = 0
+            for a in axis:
+                idx = idx * self.size(a) + self.index_of(rank, a)
+            return idx
         a = self.axis_names.index(axis)
         return (rank // math.prod(self.shape[a + 1:])) % self.shape[a]
 
@@ -170,12 +191,27 @@ class Mesh:
     def signature(self) -> tuple:
         return (world_size(), tuple(self.axis_names), tuple(self.shape))
 
-    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum",
+    def all_reduce(self, t: torch.Tensor, axis, op: str = "sum",
                    record: bool = True) -> torch.Tensor:
+        """In-place all-reduce along ``axis`` (a tuple of names: along
+        each in turn)."""
+        if isinstance(axis, tuple):
+            for a in axis:
+                self.all_reduce(t, a, op, record)
+            return t
         if self.size(axis) == 1:
             return t
         return self.transport.all_reduce(t, self.groups[axis], axis, op,
                                          record)
+
+    def all_to_all(self, t: torch.Tensor, axis: str, out_rows: int
+                   ) -> torch.Tensor:
+        """:meth:`Transport.all_to_all` along ``axis`` (chunk j of ``t``
+        to the axis's j-th rank), recorded in the log only."""
+        if self.size(axis) == 1:
+            return t[:out_rows].clone()
+        return self.transport.all_to_all(t, self.groups[axis], axis,
+                                         out_rows, record=False)
 
     def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         if self.size(axis) == 1:
@@ -354,6 +390,41 @@ def make_hier_mesh(workers: int, model: int) -> Mesh:
 def make_debug_mesh(data: int = 2, model: int = 2) -> Mesh:
     """A small ("data", "model") mesh for tests."""
     return make_mesh((data, model), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh: ("data", "model") of DATA_PAR x
+    MODEL_PAR ranks (("pod", "data", "model") with PODS pods).  Raises,
+    naming the size, when the world holds another rank count."""
+    shape = (PODS, DATA_PAR, MODEL_PAR) if multi_pod \
+        else (DATA_PAR, MODEL_PAR)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if world_size() != math.prod(shape):
+        raise ValueError(f"the production mesh {dict(zip(names, shape))} "
+                         f"needs {math.prod(shape)} ranks; the world has "
+                         f"{world_size()}")
+    return make_mesh(shape, names)
+
+
+def mesh_axes_for(cfg, *, multi_pod: bool = False, model_par: int = MODEL_PAR,
+                  data_axes: Optional[tuple] = None, pad_kv: bool = False):
+    """The per-arch sharding switches for a mesh geometry (the reference's
+    resolution): ``shard_kv`` from ``models.common.pad_heads``,
+    ``shard_expert`` when the experts divide over ``model_par``."""
+    from repro_torch.models.common import MeshAxes, pad_heads
+    if data_axes is None:
+        data_axes = ("pod", "data") if multi_pod else ("data",)
+    _, _, _, shard_kv = pad_heads(cfg.num_heads, cfg.num_kv_heads, model_par,
+                                  pad_kv=pad_kv)
+    shard_expert = cfg.num_experts > 0 and cfg.num_experts % model_par == 0
+    return MeshAxes(data=tuple(data_axes), model="model", model_par=model_par,
+                    shard_kv=shard_kv, shard_expert=shard_expert,
+                    pad_kv_to_mesh=pad_kv)
+
+
+def n_workers(*, multi_pod: bool = False) -> int:
+    """Workers of the production mesh: one per data rank."""
+    return DATA_PAR * (PODS if multi_pod else 1)
 
 
 # ---------------------------------------------------------------------------

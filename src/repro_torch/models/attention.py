@@ -10,9 +10,17 @@ q-head count.  :func:`decode_attention` reads a (B, span, hkv, hd) KV
 cache (a ring of the window for a windowed arch) and contracts the
 q-head groups against the shared kv heads, the reference's default
 grouped form.  The reference computes all of it outside any Pallas
-kernel, so plain torch ops are its port.  On one device the head counts
-are the config's, unpadded; the mesh padding waits for the multi-device
-port (ROADMAP queue 1, item 13).
+kernel, so plain torch ops are its port.
+
+Under a :class:`~repro_torch.models.common.MeshAxes` scope the heads are
+padded to the mesh (:func:`resolved_heads`, the reference's policy).  On
+a model mesh (``common.model_mesh``) each rank holds its block of the q
+heads; the kv heads split with them when ``shard_kv``, else they are
+computed whole on every rank and repeated to the q-head count before the
+rank takes its q heads' share, so no group crosses a shard (reference
+``attention.py:1-7``).  q / k / v are column-parallel, ``wo``
+row-parallel (``common.row_parallel``).  Decode and cross attention on a
+model mesh wait (ROADMAP queue 1, item 20).
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 from typing import Optional
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common
 from repro_torch.models.common import ParamDesc, apply_rope
 
 Tensor = torch.Tensor
@@ -28,9 +37,14 @@ NEG_INF = -1e30
 
 
 def resolved_heads(cfg: ModelConfig) -> tuple[int, int]:
-    """(q heads, kv heads): the config's on one device (the reference pads
-    them to a model-parallel mesh; ROADMAP queue 1, item 13)."""
-    return cfg.num_heads, cfg.num_kv_heads
+    """(q heads, kv heads), padded to the active scope's model axis
+    (``common.pad_heads``; the config's counts without a scope)."""
+    ctx = common.get_mesh_axes()
+    par = ctx.model_par if ctx else 1
+    pad_kv = bool(ctx and ctx.pad_kv_to_mesh)
+    hq, hkv, _, _ = common.pad_heads(cfg.num_heads, cfg.num_kv_heads, par,
+                                     pad_kv=pad_kv)
+    return hq, hkv
 
 
 def hkv_of(cfg: ModelConfig) -> int:
@@ -41,16 +55,17 @@ def attn_params(cfg: ModelConfig, layers: int) -> dict:
     hq, hkv = resolved_heads(cfg)
     d, hd = cfg.d_model, cfg.head_dim
     L = (layers,) if layers else ()
+    lax = ("layers",) if layers else ()
     p = {
-        "wq": ParamDesc(L + (d, hq * hd), cfg.dtype),
-        "wk": ParamDesc(L + (d, hkv * hd), cfg.dtype),
-        "wv": ParamDesc(L + (d, hkv * hd), cfg.dtype),
-        "wo": ParamDesc(L + (hq * hd, d), cfg.dtype),
+        "wq": ParamDesc(L + (d, hq * hd), cfg.dtype, axes=lax + ("embed", "heads")),
+        "wk": ParamDesc(L + (d, hkv * hd), cfg.dtype, axes=lax + ("embed", "kv")),
+        "wv": ParamDesc(L + (d, hkv * hd), cfg.dtype, axes=lax + ("embed", "kv")),
+        "wo": ParamDesc(L + (hq * hd, d), cfg.dtype, axes=lax + ("heads", "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = ParamDesc(L + (hq * hd,), cfg.dtype, "zeros")
-        p["bk"] = ParamDesc(L + (hkv * hd,), cfg.dtype, "zeros")
-        p["bv"] = ParamDesc(L + (hkv * hd,), cfg.dtype, "zeros")
+        p["bq"] = ParamDesc(L + (hq * hd,), cfg.dtype, "zeros", axes=lax + ("heads",))
+        p["bk"] = ParamDesc(L + (hkv * hd,), cfg.dtype, "zeros", axes=lax + ("kv",))
+        p["bv"] = ParamDesc(L + (hkv * hd,), cfg.dtype, "zeros", axes=lax + ("kv",))
     return p
 
 
@@ -68,27 +83,46 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
 
     ``kv_override`` supplies external (k, v) head tensors (B, S_kv, hkv,
     hd) for cross attention (whisper's decoder); no mask and no rope then
-    apply, and the layer's own ``wk`` / ``wv`` are not read."""
+    apply, and the layer's own ``wk`` / ``wv`` are not read.  On a model
+    mesh x is replicated and the output is the all-reduced whole."""
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hq, hkv = resolved_heads(cfg)
+    hd = cfg.head_dim
     cross = kv_override is not None
-    q = x @ p["wq"]
+    mesh = common.model_mesh()
+    if mesh is not None and cross:
+        raise ValueError("cross attention on a model mesh waits (ROADMAP "
+                         "queue 1, item 20)")
+    split_kv = mesh is not None and common.get_mesh_axes().shard_kv
+    q0, q1 = common.model_block(hq)
+    q = common.column_parallel(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(b, s, hq, hd)
+    q = q.reshape(b, s, q1 - q0, hd)
     if cross:
         k, v = kv_override
+    elif split_kv:
+        k = common.column_parallel(x, p["wk"])
+        v = common.column_parallel(x, p["wv"])
     else:
         k, v = x @ p["wk"], x @ p["wv"]
+    if not cross:
         if cfg.qkv_bias:
             k, v = k + p["bk"], v + p["bv"]
-        k, v = k.reshape(b, s, hkv, hd), v.reshape(b, s, hkv, hd)
+        k = k.reshape(b, s, k.shape[-1] // hd, hd)
+        v = v.reshape(b, s, v.shape[-1] // hd, hd)
         if use_rope:
             positions = torch.arange(s, device=x.device)[None, :]
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-    k = _repeat_kv(k, hq)
-    v = _repeat_kv(v, hq)
+    if mesh is None or split_kv:
+        k = _repeat_kv(k, q1 - q0)
+        v = _repeat_kv(v, q1 - q0)
+    else:
+        # Replicated kv: repeat to every q head, then this rank's share.
+        k = _repeat_kv(common.copy_to_model(k), hq)[:, :, q0:q1]
+        v = _repeat_kv(common.copy_to_model(v), hq)[:, :, q0:q1]
+    q = common.constrain(q, "batch", None, "heads", None, full=(b, s, hq, hd))
 
     # fp32 logits of the exact products (the reference's
     # preferred_element_type=f32 contraction).
@@ -102,7 +136,8 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
         logits = torch.where(mask[None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-    return out.reshape(b, s, hq * hd) @ p["wo"]
+    return common.row_parallel(out.reshape(b, s, (q1 - q0) * hd), p["wo"],
+                               x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -117,12 +152,27 @@ def cache_span(cfg: ModelConfig, max_seq: int) -> int:
 
 def cache_desc(cfg: ModelConfig, layers: int, batch: int, max_seq: int) -> dict:
     """The KV cache: ``k`` and ``v``, each (layers, batch, span, hkv, hd)
-    zeros in the model dtype.  The reference's sharding axes have no
-    meaning on one device and are dropped."""
-    shape = (layers, batch, cache_span(cfg, max_seq), hkv_of(cfg),
-             cfg.head_dim)
-    return {"k": ParamDesc(shape, cfg.dtype, "zeros"),
-            "v": ParamDesc(shape, cfg.dtype, "zeros")}
+    zeros in the model dtype, with the reference's axes: batch over the
+    data axes when batch > 1; kv heads over the model axis when they
+    divide, else the sequence (long spans only, flash-decode style);
+    batch-1 long-context caches also spread the sequence over the data
+    axes; spans up to 8192 keep the sequence whole.  Descs only: decode on
+    a model mesh waits (ROADMAP queue 1, item 20)."""
+    ctx = common.get_mesh_axes()
+    kv_sharded = bool(ctx and ctx.shard_kv and ctx.model_par > 1)
+    span = cache_span(cfg, max_seq)
+    if batch == 1:
+        b_axis = None
+        seq_axis = "seq_shard" if kv_sharded else "seq_both"
+    else:
+        b_axis = "batch"
+        seq_axis = None if kv_sharded else "seq_model"
+    if span <= 8192:
+        seq_axis = None
+    shape = (layers, batch, span, hkv_of(cfg), cfg.head_dim)
+    axes = ("layers", b_axis, seq_axis, "kv" if kv_sharded else None, None)
+    return {"k": ParamDesc(shape, cfg.dtype, "zeros", axes=axes),
+            "v": ParamDesc(shape, cfg.dtype, "zeros", axes=axes)}
 
 
 def decode_attention(p: dict, x: Tensor, cache_k: Tensor, cache_v: Tensor,
@@ -147,6 +197,9 @@ def decode_attention(p: dict, x: Tensor, cache_k: Tensor, cache_v: Tensor,
     is the plain form.  The logits are fp32 products of the model-dtype
     operands, as in :func:`attention`.
     """
+    if common.model_mesh() is not None:
+        raise ValueError("decode on a model mesh waits (ROADMAP queue 1, "
+                         "item 20)")
     b = x.shape[0]
     hq, hkv = resolved_heads(cfg)
     hd = cfg.head_dim

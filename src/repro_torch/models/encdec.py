@@ -12,6 +12,10 @@ reference does not remat this family).  Cached decode keeps per-layer
 cross k / v of the encoder output beside the self-attention KV cache
 (:meth:`EncDecLM.prefill_cache`) and steps one token at a time
 (:meth:`EncDecLM.decode_step`), its position from :func:`_sinusoid_at`.
+The descs carry the reference's axes and pad their heads under a
+``MeshAxes`` scope, where the padded model runs whole on one device; the
+family's forward split over a model mesh waits (ROADMAP queue 1, item
+20) and raises.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig, pad_to
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, common, mlp
 from repro_torch.models.common import (
     ParamDesc, layer_norm, layer_views, masked_ce, materialize,
     sinusoidal_positions,
@@ -32,10 +36,13 @@ Tensor = torch.Tensor
 
 def _ln_desc(cfg: ModelConfig, layers: int, n: int) -> dict:
     L = (layers,) if layers else ()
+    axes = (("layers",) if layers else ()) + ("embed",)
     out = {}
     for i in range(n):
-        out[f"ln{i}_g"] = ParamDesc(L + (cfg.d_model,), cfg.dtype, "ones")
-        out[f"ln{i}_b"] = ParamDesc(L + (cfg.d_model,), cfg.dtype, "zeros")
+        out[f"ln{i}_g"] = ParamDesc(L + (cfg.d_model,), cfg.dtype, "ones",
+                                    axes=axes)
+        out[f"ln{i}_b"] = ParamDesc(L + (cfg.d_model,), cfg.dtype, "zeros",
+                                    axes=axes)
     return out
 
 
@@ -58,12 +65,13 @@ class EncDecLM:
                       "mlp": mlp.gelu_mlp_params(cfg, cfg.num_layers),
                       **_ln_desc(cfg, cfg.num_layers, 3)}
         return {
-            "embed": ParamDesc((pv, d), cfg.dtype, "embed"),
+            "embed": ParamDesc((pv, d), cfg.dtype, "embed",
+                               axes=("vocab", "embed")),
             "encoder": enc_blocks,
             "enc_norm": _ln_desc(cfg, 0, 1),
             "decoder": dec_blocks,
             "dec_norm": _ln_desc(cfg, 0, 1),
-            "lm_head": ParamDesc((d, pv), cfg.dtype),
+            "lm_head": ParamDesc((d, pv), cfg.dtype, axes=("embed", "vocab")),
         }
 
     def init(self, seed: int, device: torch.device) -> PyTree:
@@ -71,7 +79,13 @@ class EncDecLM:
 
     # -- encoder ------------------------------------------------------------
 
+    def _check_model_mesh(self) -> None:
+        if common.model_mesh() is not None:
+            raise ValueError("the encdec family on a model mesh waits "
+                             "(ROADMAP queue 1, item 20)")
+
     def encode(self, params, frames: Tensor) -> Tensor:
+        self._check_model_mesh()
         cfg = self.cfg
         x = frames.to(cfg.dtype)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
@@ -89,7 +103,7 @@ class EncDecLM:
         """Per-layer cross k / v from the encoder output: (L, B, S, hkv, hd)."""
         cfg = self.cfg
         b, s = enc.shape[:2]
-        shape = (b, s, cfg.num_kv_heads, cfg.head_dim)
+        shape = (b, s, attention.hkv_of(cfg), cfg.head_dim)
         ks, vs = [], []
         for p in layer_views(params["decoder"]["cross_attn"]):
             k, v = enc @ p["wk"], enc @ p["wv"]
@@ -149,9 +163,13 @@ class EncDecLM:
         cross ``cross_k`` / ``cross_v`` (L, B, encoder_seq, hkv, hd), all
         zeros in the model dtype."""
         cfg = self.cfg
+        ctx = common.get_mesh_axes()
+        kv_sharded = bool(ctx and ctx.shard_kv and ctx.model_par > 1)
         cross = ParamDesc((cfg.num_layers, batch, cfg.encoder_seq,
                            attention.hkv_of(cfg), cfg.head_dim), cfg.dtype,
-                          "zeros")
+                          "zeros",
+                          axes=("layers", "batch" if batch > 1 else None, None,
+                                "kv" if kv_sharded else None, None))
         return {**attention.cache_desc(cfg, cfg.num_layers, batch, max_seq),
                 "cross_k": cross, "cross_v": cross}
 
@@ -182,6 +200,7 @@ class EncDecLM:
         (logits (B, 1, padded vocab) fp32, cache), the self k / v written
         IN PLACE (the cross pair is only read); runs under
         ``torch.inference_mode()``."""
+        self._check_model_mesh()
         cfg = self.cfg
         eps = cfg.norm_eps
         with torch.inference_mode():

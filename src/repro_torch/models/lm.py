@@ -17,6 +17,17 @@ leaves, its gradient summed over the groups); ``remat`` wraps the Mamba2
 block and the shared block separately.  The encoder-decoder family is
 :class:`repro_torch.models.encdec.EncDecLM`.
 
+On a model mesh (``common.model_mesh``: a :class:`~repro_torch.models.
+common.MeshAxes` scope whose model axis the active mesh holds) the dense
+and moe families run split: each rank holds its shard of every leaf
+(``common.shard_slice``), the vocabulary is split over the embedding (a
+masked lookup, then an all-reduce) and the head (``common.masked_ce``
+all-reduces the max, the sum of exponentials and the label's logit;
+:meth:`DecoderLM.forward` gathers the logits), tied embeddings included.
+The other families, ``seq_par`` and ``expert_fsdp`` raise a
+``ValueError`` naming their ROADMAP entry; nothing is replicated
+silently.
+
 Cached decode (:meth:`DecoderLM.decode_step`) steps one token through
 every layer against a stacked cache (:meth:`DecoderLM.init_cache`): the
 KV cache for dense / moe / vlm, the RWKV state and token shifts for ssm,
@@ -31,7 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, pad_to
-from repro_torch.models import attention, mlp, moe, rwkv, ssm
+from repro_torch.models import attention, common, mlp, moe, rwkv, ssm
 from repro_torch.models.common import (
     ParamDesc, layer_views, masked_ce, materialize, rms_norm,
 )
@@ -41,6 +52,23 @@ Tensor = torch.Tensor
 
 #: The families DecoderLM runs (encdec is EncDecLM's).
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+#: The families that run split over a model mesh.
+MESH_FAMILIES = ("dense", "moe")
+
+
+def check_model_mesh(cfg: ModelConfig) -> None:
+    """Raise for what waits on a model mesh: another family than dense /
+    moe (ROADMAP queue 1, item 20), ``seq_par`` or ``expert_fsdp`` (item
+    19)."""
+    if common.model_mesh() is None:
+        return
+    if cfg.family not in MESH_FAMILIES:
+        raise ValueError(f"the {cfg.family} family on a model mesh waits "
+                         "(ROADMAP queue 1, item 20)")
+    axes = common.get_mesh_axes()
+    if axes.seq_par or axes.expert_fsdp:
+        raise ValueError("seq_par / expert_fsdp on a model mesh wait "
+                         "(ROADMAP queue 1, item 19)")
 
 
 def _padded_vocab(cfg: ModelConfig) -> int:
@@ -49,8 +77,9 @@ def _padded_vocab(cfg: ModelConfig) -> int:
 
 def _norm_desc(cfg: ModelConfig, layers: int, n: int) -> dict:
     L = (layers,) if layers else ()
-    return {f"ln{i}": ParamDesc(L + (cfg.d_model,), cfg.dtype, "ones")
-            for i in range(n)}
+    lax = ("layers",) if layers else ()
+    return {f"ln{i}": ParamDesc(L + (cfg.d_model,), cfg.dtype, "ones",
+                                axes=lax + ("embed",)) for i in range(n)}
 
 
 class DecoderLM:
@@ -70,11 +99,13 @@ class DecoderLM:
         d, L = cfg.d_model, cfg.num_layers
         pv = _padded_vocab(cfg)
         tree: dict = {
-            "embed": ParamDesc((pv, d), cfg.dtype, "embed"),
-            "final_norm": ParamDesc((d,), cfg.dtype, "ones"),
+            "embed": ParamDesc((pv, d), cfg.dtype, "embed",
+                               axes=("vocab", "embed")),
+            "final_norm": ParamDesc((d,), cfg.dtype, "ones", axes=("embed",)),
         }
         if not cfg.tie_embeddings:
-            tree["lm_head"] = ParamDesc((d, pv), cfg.dtype)
+            tree["lm_head"] = ParamDesc((d, pv), cfg.dtype,
+                                        axes=("embed", "vocab"))
         if cfg.family == "ssm":            # rwkv6
             tree["blocks"] = {"rwkv": rwkv.rwkv_params(cfg, L),
                               **_norm_desc(cfg, L, 2)}
@@ -94,18 +125,36 @@ class DecoderLM:
             tree["blocks"] = blocks
         if cfg.family == "vlm":
             tree["projector"] = {
-                "w1": ParamDesc((cfg.vision_dim, d), cfg.dtype),
-                "w2": ParamDesc((d, d), cfg.dtype),
-                "ln": ParamDesc((cfg.vision_dim,), cfg.dtype, "ones"),
+                "w1": ParamDesc((cfg.vision_dim, d), cfg.dtype,
+                                axes=(None, "embed")),
+                "w2": ParamDesc((d, d), cfg.dtype, axes=("embed", "embed")),
+                "ln": ParamDesc((cfg.vision_dim,), cfg.dtype, "ones",
+                                axes=(None,)),
             }
         return tree
 
     def init(self, seed: int, device: torch.device) -> PyTree:
         return materialize(self.param_descs(), seed, device)
 
+    def _embed_tokens(self, params, tokens: Tensor) -> Tensor:
+        """The token embeddings; on a model mesh a lookup into this rank's
+        vocabulary rows (zero outside them) summed over the model axis."""
+        table = params["embed"]
+        tokens = tokens.long()
+        if common.model_mesh() is None:
+            return table[tokens]
+        lo, hi = common.model_block(table.shape[0] * common.get_mesh_axes()
+                                    .model_par)
+        local = tokens - lo
+        inside = (local >= 0) & (local < hi - lo)
+        rows = table[local.clamp(0, hi - lo - 1)] * inside[..., None].to(
+            table.dtype)
+        return common.reduce_from_model(rows)
+
     def _embed(self, params, batch: dict) -> Tensor:
         cfg = self.cfg
-        x = params["embed"][batch["tokens"].long()]
+        check_model_mesh(cfg)
+        x = self._embed_tokens(params, batch["tokens"])
         if cfg.family == "vlm":
             pr = params["projector"]
             p = rms_norm(batch["patches"].to(cfg.dtype), pr["ln"], cfg.norm_eps)
@@ -166,13 +215,14 @@ class DecoderLM:
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        return (x @ head).float()
+        return common.column_parallel(x, head).float()
 
     def forward(self, params, batch: dict) -> Tensor:
         """Full-sequence logits (B, S, padded vocab) in fp32 (a VLM's S
-        counts its patches)."""
+        counts its patches); on a model mesh the ranks' vocabulary blocks
+        gathered."""
         x, _ = self._run_blocks(params, self._embed(params, batch))
-        return self._logits(params, x)
+        return common.gather_from_model(self._logits(params, x))
 
     def loss(self, params, batch: dict) -> tuple[Tensor, dict]:
         """Next-token cross-entropy over text positions with labels >= 0,
@@ -215,6 +265,9 @@ class DecoderLM:
         never overflows."""
         cfg = self.cfg
         eps = cfg.norm_eps
+        if common.model_mesh() is not None:
+            raise ValueError("decode on a model mesh waits (ROADMAP queue "
+                             "1, item 20)")
         with torch.inference_mode():
             x = params["embed"][tokens.long()]
             layers = layer_views(params["blocks"])

@@ -9,8 +9,11 @@ is :func:`repro_torch.models.linear_scan.gla_chunked`; the cached decode
 (:func:`time_mix_decode`, :func:`channel_mix_decode`) steps it one token
 at a time with :func:`repro_torch.models.linear_scan.gla_decode_step`,
 carrying the fp32 state and the two token shifts
-(:func:`rwkv_cache_desc`).  Mesh head padding waits for the multi-device
-port (ROADMAP queue 1, item 13).
+(:func:`rwkv_cache_desc`).  Under a ``MeshAxes`` scope the heads pad to
+the model axis (:func:`_dims`, the reference's) and the descs carry the
+reference's axes; the padded model runs whole on one device.  Its forward
+split over a model mesh waits (ROADMAP queue 1, item 20;
+``lm.check_model_mesh`` raises).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import linear_scan
+from repro_torch.models import common, linear_scan
 from repro_torch.models.common import ParamDesc, rms_norm
 
 Tensor = torch.Tensor
@@ -28,7 +31,13 @@ DECAY_LORA = 64
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(heads, head dim, inner): the heads padded to a multiple of the
+    active scope's model_par."""
+    ctx = common.get_mesh_axes()
+    par = ctx.model_par if ctx else 1
     h, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    if par > 1 and h % par:
+        h = -(-h // par) * par
     return h, hd, h * hd
 
 
@@ -37,25 +46,30 @@ def rwkv_params(cfg: ModelConfig, layers: int) -> dict:
     h, hd, inner = _dims(cfg)
     L = (layers,) if layers else ()
     lora = min(DECAY_LORA, d)
+    lax = ("layers",) if layers else ()
+
+    def desc(shape, axes, dtype=cfg.dtype, init="normal", scale=1.0):
+        return ParamDesc(L + shape, dtype, init, scale, axes=lax + axes)
+
     return {
         # time-mix lerp coefficients for the r / k / v / w / g streams
-        "mix": ParamDesc(L + (5, d), cfg.dtype, "ones", 0.5),
-        "wr": ParamDesc(L + (d, inner), cfg.dtype),
-        "wk": ParamDesc(L + (d, inner), cfg.dtype),
-        "wv": ParamDesc(L + (d, inner), cfg.dtype),
-        "wg": ParamDesc(L + (d, inner), cfg.dtype),
+        "mix": desc((5, d), (None, "embed"), init="ones", scale=0.5),
+        "wr": desc((d, inner), ("embed", "heads")),
+        "wk": desc((d, inner), ("embed", "heads")),
+        "wv": desc((d, inner), ("embed", "heads")),
+        "wg": desc((d, inner), ("embed", "heads")),
         # data-dependent decay: low-rank projection + bias
-        "wd1": ParamDesc(L + (d, lora), cfg.dtype),
-        "wd2": ParamDesc(L + (lora, inner), cfg.dtype),
-        "decay_bias": ParamDesc(L + (inner,), torch.float32, "ones", -1.0),
-        "u": ParamDesc(L + (h, hd), torch.float32, "ones", 0.5),
-        "ln_g": ParamDesc(L + (inner,), cfg.dtype, "ones"),
-        "wo": ParamDesc(L + (inner, d), cfg.dtype),
+        "wd1": desc((d, lora), ("embed", None)),
+        "wd2": desc((lora, inner), (None, "heads")),
+        "decay_bias": desc((inner,), ("heads",), torch.float32, "ones", -1.0),
+        "u": desc((h, hd), (None, None), torch.float32, "ones", 0.5),
+        "ln_g": desc((inner,), ("heads",), init="ones"),
+        "wo": desc((inner, d), ("heads", "embed")),
         # channel mix
-        "cmix": ParamDesc(L + (2, d), cfg.dtype, "ones", 0.5),
-        "ck": ParamDesc(L + (d, cfg.d_ff), cfg.dtype),
-        "cv": ParamDesc(L + (cfg.d_ff, d), cfg.dtype),
-        "cr": ParamDesc(L + (d, d), cfg.dtype),
+        "cmix": desc((2, d), (None, "embed"), init="ones", scale=0.5),
+        "ck": desc((d, cfg.d_ff), ("embed", "ff")),
+        "cv": desc((cfg.d_ff, d), ("ff", "embed")),
+        "cr": desc((d, d), ("embed", "embed")),
     }
 
 
@@ -113,10 +127,14 @@ def rwkv_cache_desc(cfg: ModelConfig, layers: int, batch: int) -> dict:
     all fp32 zeros."""
     h, hd, _ = _dims(cfg)
     d = cfg.d_model
+    baxis = "batch" if batch > 1 else None
     return {
-        "state": ParamDesc((layers, batch, h, hd, hd), torch.float32, "zeros"),
-        "tshift": ParamDesc((layers, batch, d), torch.float32, "zeros"),
-        "cshift": ParamDesc((layers, batch, d), torch.float32, "zeros"),
+        "state": ParamDesc((layers, batch, h, hd, hd), torch.float32, "zeros",
+                           axes=("layers", baxis, "heads", None, None)),
+        "tshift": ParamDesc((layers, batch, d), torch.float32, "zeros",
+                            axes=("layers", baxis, "embed")),
+        "cshift": ParamDesc((layers, batch, d), torch.float32, "zeros",
+                            axes=("layers", baxis, "embed")),
     }
 
 

@@ -8,8 +8,11 @@ adds in the reference's order, and the chunked scan of
 d_inner = expand * d_model = H * P, state size N.  The cached decode
 (:func:`ssm_decode_step`) carries the fp32 (H, N, P) state and the conv's
 last CONV_K - 1 inputs (:func:`ssm_cache_desc`), and steps the scan with
-:func:`repro_torch.models.linear_scan.gla_decode_step`.  Mesh head
-padding waits for the multi-device port (ROADMAP queue 1, item 13).
+:func:`repro_torch.models.linear_scan.gla_decode_step`.  Under a
+``MeshAxes`` scope the heads pad to the model axis (:func:`_dims`, the
+reference's) and the descs carry the reference's axes; the padded model
+runs whole on one device.  Its forward split over a model mesh waits
+(ROADMAP queue 1, item 20; ``lm.check_model_mesh`` raises).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import linear_scan
+from repro_torch.models import common, linear_scan
 from repro_torch.models.common import ParamDesc, rms_norm
 
 Tensor = torch.Tensor
@@ -25,7 +28,13 @@ CONV_K = 4
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
+    """(heads, head dim, state, d_inner): the heads padded to a multiple
+    of the active scope's model_par."""
+    ctx = common.get_mesh_axes()
+    par = ctx.model_par if ctx else 1
     h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    if par > 1 and h % par:
+        h = -(-h // par) * par
     return h, p, n, h * p
 
 
@@ -34,16 +43,21 @@ def ssm_params(cfg: ModelConfig, layers: int) -> dict:
     h, p, n, d_inner = _dims(cfg)
     L = (layers,) if layers else ()
     conv_dim = d_inner + 2 * n
+    lax = ("layers",) if layers else ()
+
+    def desc(shape, axes, dtype=cfg.dtype, init="normal", scale=1.0):
+        return ParamDesc(L + shape, dtype, init, scale, axes=lax + axes)
+
     return {
         # projections: z (gate), x, B, C, dt
-        "in_proj": ParamDesc(L + (d, 2 * d_inner + 2 * n + h), cfg.dtype),
-        "conv_w": ParamDesc(L + (CONV_K, conv_dim), cfg.dtype, "normal", 0.5),
-        "conv_b": ParamDesc(L + (conv_dim,), cfg.dtype, "zeros"),
-        "a_log": ParamDesc(L + (h,), torch.float32, "zeros"),
-        "dt_bias": ParamDesc(L + (h,), torch.float32, "zeros"),
-        "d_skip": ParamDesc(L + (h,), torch.float32, "ones"),
-        "norm_g": ParamDesc(L + (d_inner,), cfg.dtype, "ones"),
-        "out_proj": ParamDesc(L + (d_inner, d), cfg.dtype),
+        "in_proj": desc((d, 2 * d_inner + 2 * n + h), ("embed", "ff")),
+        "conv_w": desc((CONV_K, conv_dim), (None, "ff"), scale=0.5),
+        "conv_b": desc((conv_dim,), ("ff",), init="zeros"),
+        "a_log": desc((h,), (None,), torch.float32, "zeros"),
+        "dt_bias": desc((h,), (None,), torch.float32, "zeros"),
+        "d_skip": desc((h,), (None,), torch.float32, "ones"),
+        "norm_g": desc((d_inner,), ("ff",), init="ones"),
+        "out_proj": desc((d_inner, d), ("ff", "embed")),
     }
 
 
@@ -104,10 +118,13 @@ def ssm_cache_desc(cfg: ModelConfig, layers: int, batch: int) -> dict:
     """``state`` (L, B, H, N, P) and ``conv`` (L, B, CONV_K - 1,
     conv_dim), both fp32 zeros."""
     h, pp, n, d_inner = _dims(cfg)
+    baxis = "batch" if batch > 1 else None
     return {
-        "state": ParamDesc((layers, batch, h, n, pp), torch.float32, "zeros"),
+        "state": ParamDesc((layers, batch, h, n, pp), torch.float32, "zeros",
+                           axes=("layers", baxis, "ff", None, None)),
         "conv": ParamDesc((layers, batch, CONV_K - 1, d_inner + 2 * n),
-                          torch.float32, "zeros"),
+                          torch.float32, "zeros",
+                          axes=("layers", baxis, None, "ff")),
     }
 
 

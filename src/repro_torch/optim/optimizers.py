@@ -7,7 +7,8 @@ aggregated direction R_t; worker momentum (D-SHB) lives in the trainer.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+import contextlib
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -26,9 +27,27 @@ class Optimizer(NamedTuple):
 OptState = PyTree
 
 
+_SQ_SUM: list = [None]
+
+
+@contextlib.contextmanager
+def sharded_norm(sq_sum: Optional[Callable[[list], torch.Tensor]]):
+    """Inside the scope :func:`global_norm` hands the per-leaf sums of
+    squares to ``sq_sum`` (the model-sharded trainer: its split leaves'
+    sums all-reduced over the model axis, its replicated ones once)."""
+    prev = _SQ_SUM[0]
+    _SQ_SUM[0] = sq_sum
+    try:
+        yield
+    finally:
+        _SQ_SUM[0] = prev
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(leaf.float() ** 2)
-                          for leaf in tree_leaves(tree)))
+    sq = [torch.sum(leaf.float() ** 2) for leaf in tree_leaves(tree)]
+    if _SQ_SUM[0] is not None:
+        return torch.sqrt(_SQ_SUM[0](sq))
+    return torch.sqrt(sum(sq))
 
 
 def clip_by_global_norm(tree: PyTree, max_norm: float) -> PyTree:

@@ -41,8 +41,8 @@ Under a mesh (``TrainerConfig.worker_axes`` inside ``launch.mesh.
 use_mesh``; the reference's ``vmap(spmd_axis_name=worker_axes)``) the
 per-worker passes are dealt over the world's ranks, worker ``j W + r`` to
 rank r in round j, so no worker's gradient is computed twice (without
-model parallelism, which waits for the model-parallel mesh, every rank
-of the mesh takes workers, not only those along ``worker_axes``).  Each
+model parallelism every rank of the mesh takes workers, not only those
+along ``worker_axes``).  Each
 round's gradient rows are resharded at once, by one all-to-all, from
 worker rows to the column blocks of the aggregation axis
 (``kernels.shard.column_block``): the momentum, its fold and the attacked
@@ -53,6 +53,25 @@ aggregate through ``robust_lib.robust_aggregate_block`` ("cuda_sharded" /
 "cuda_hier"), kappa-hat and the taps from all-reduced sums.  The
 aggregate's slices are gathered and every rank applies the same update to
 its own copy of the parameters, so the copies stay equal bit for bit.
+Under ``fsdp_keys`` the FSDP leaves' fp32 gradient sums are all-reduced
+over the ranks that dealt the workers.
+
+On a model mesh (``models.common.model_mesh``: a ``MeshAxes`` scope whose
+model axis the active ``(data, model)`` mesh holds; ``worker_axes`` names
+the data axis, ``TrainerConfig.param_specs`` the leaves' specs) each rank
+holds its shard of the parameters and the workers are dealt over the data
+axis: worker ``j K + d`` runs in round j on every model rank of data
+index d, its forward and backward split over them.  A rank's gradient is
+its model shard's columns of the worker's row (``kernels.shard.
+ModelColumns``), handed over the data axis by one all-to-all per round:
+"cuda_sharded" splits those columns further over the data axis and
+all-reduces the Gram over both axes; "cuda_hier" keeps them whole on
+every data rank and tiles the worker rows over the data axis.  No rank
+gathers the (n, D) stack.  The aggregate's block is gathered over the
+data axis, its replicated leaves over the model axis, and updates the
+rank's shard; norms (``direction_norm``, the optimizer's clip) sum the
+split leaves over the model axis (``optim.sharded_norm``).  The sketch
+Gram (per-leaf signs over the reference's columns) is refused there.
 """
 from __future__ import annotations
 
@@ -71,9 +90,11 @@ from repro_torch.core.theory import (
 from repro_torch.core.types import AggregatorSpec
 from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.kernels import shard as shardlib
+from repro_torch.models import common as model_common
 from repro_torch.obs import runtime as obs_runtime
 from repro_torch.obs.taps import health_taps, tap_columns, tap_metrics
 from repro_torch.optim import Optimizer, global_norm
+from repro_torch.optim.optimizers import sharded_norm
 from repro_torch.resilience import (
     CarryCheckpointer, SnapshotStore, check_signature, concat_metrics,
     resolve_checkpoint, restore_carry, restored_metrics,
@@ -118,6 +139,10 @@ class TrainerConfig:
     #: the workers over the mesh's ranks and aggregates the stack's column
     #: blocks (module docstring); the axes must name axes of that mesh.
     worker_axes: Optional[tuple[str, ...]] = None
+    #: On a model mesh: every parameter leaf's spec, in leaf order
+    #: (``models.common.leaf_specs(model.param_descs())`` inside the
+    #: ``MeshAxes`` scope); which leaves the model axis splits.
+    param_specs: Optional[tuple] = None
 
 
 #: TrainState is a plain dict: params / opt_state / step, plus the flat
@@ -160,13 +185,35 @@ def _spec(cfg: TrainerConfig) -> AggregatorSpec:
         if cfg.agg.f != cfg.byz.f else cfg.agg
 
 
-def trainer_shard(cfg: TrainerConfig, device: torch.device
+def model_columns(cfg: TrainerConfig, params: PyTree
+                  ) -> Optional[shardlib.ModelColumns]:
+    """This rank's columns of the worker stack on a model mesh under
+    ``worker_axes`` (module docstring), else None."""
+    if not cfg.worker_axes or model_common.model_mesh() is None:
+        return None
+    axes = model_common.get_mesh_axes()
+    leaves = tree_leaves(params)
+    if cfg.param_specs is None or len(cfg.param_specs) != len(leaves):
+        raise ValueError("worker_axes on a model mesh needs TrainerConfig."
+                         "param_specs: models.common.leaf_specs("
+                         "model.param_descs()), one spec per leaf")
+    _, _, is_fsdp = _split_info(params, cfg.fsdp_keys)
+    robust = [(leaf, spec) for leaf, spec, f
+              in zip(leaves, cfg.param_specs, is_fsdp) if not f]
+    return shardlib.ModelColumns.build(
+        [leaf.numel() for leaf, _ in robust],
+        [axes.model in spec for _, spec in robust], axes.model_par,
+        model_common.model_mesh().index(axes.model))
+
+
+def trainer_shard(cfg: TrainerConfig, device: torch.device,
+                  mc: Optional[shardlib.ModelColumns] = None
                   ) -> Optional[shardlib.ShardCtx]:
     """This rank's shard of the worker stack under ``cfg.worker_axes``
     (None without them): the active mesh and its aggregation axes, as the
-    aggregation backend resolves them.  Raises without an active
-    multi-rank mesh, for axes the mesh lacks, for a backend that is not a
-    sharded one, and for ``fsdp_keys``."""
+    aggregation backend resolves them, or with ``mc`` (a model mesh) the
+    model shard's columns.  Raises without an active multi-rank mesh, for
+    axes the mesh lacks and for a backend that is not a sharded one."""
     if not cfg.worker_axes:
         return None
     from repro_torch.launch.mesh import current_mesh
@@ -186,26 +233,44 @@ def trainer_shard(cfg: TrainerConfig, device: torch.device
             f"worker_axes shards the stack's columns over the mesh: the "
             f"aggregation backend must be 'cuda_sharded' or 'cuda_hier' "
             f"('auto' on CUDA), got {spec.backend!r} -> {backend!r}")
-    if cfg.fsdp_keys:
-        raise ValueError("fsdp_keys under worker_axes waits for the "
-                         "model-parallel mesh (ROADMAP queue 1, item 13)")
+    if mc is not None:
+        return _model_shard_ctx(cfg, mesh, backend, mc)
     if backend == "cuda_hier":
         _, worker_axis, axis = kdispatch.resolve_hier_mesh()
         return shardlib.ShardCtx(mesh, axis, worker_axis)
     return shardlib.ShardCtx(*kdispatch.resolve_shard_mesh())
 
 
+def _model_shard_ctx(cfg: TrainerConfig, mesh, backend: str,
+                     mc: shardlib.ModelColumns) -> shardlib.ShardCtx:
+    model = model_common.get_mesh_axes().model
+    if len(cfg.worker_axes) != 1 or model in cfg.worker_axes:
+        raise ValueError(f"worker_axes on a model mesh is the one data axis "
+                         f"the workers are dealt over, got {cfg.worker_axes}")
+    if _spec(cfg).sketch_dim:
+        raise ValueError("sketch_dim on a model mesh: the sketch's per-leaf "
+                         "signs follow the reference's columns; not ported")
+    data = cfg.worker_axes[0]
+    off, width = mc.offset, mc.width
+    if backend == "cuda_hier":
+        worker = data if mesh.size(data) > 1 else None
+        return shardlib.ShardCtx(mesh, model, worker, span=(off, off + width))
+    b0, b1 = shardlib.column_block(width, mesh.size(data), mesh.index(data))
+    return shardlib.ShardCtx(mesh, (model, data), span=(off + b0, off + b1))
+
+
 def init_state(params: PyTree, optimizer: Optimizer, n_workers: int,
                cfg: TrainerConfig) -> TrainState:
     """The step-0 state; with ``worker_axes`` under a mesh the momentum is
-    this rank's (n, D/k) column block."""
+    this rank's (n, c1 - c0) column block."""
     state = dict(params=params, opt_state=optimizer.init(params), step=0)
     if cfg.algorithm == "dshb":
         leaves, _ = split_params(params, cfg.fsdp_keys)
         width = sum(leaf.numel() for leaf in leaves)
-        sh = trainer_shard(cfg, leaves[0].device)
+        mc = model_columns(cfg, params)
+        sh = trainer_shard(cfg, leaves[0].device, mc)
         if sh is not None:
-            c0, c1 = sh.cols(width)
+            c0, c1 = sh.cols(width if mc is None else mc.total)
             width = c1 - c0
         state["momentum"] = torch.zeros((n_workers, width), dtype=torch.float32,
                                         device=leaves[0].device)
@@ -334,6 +399,74 @@ class _Block:
         return tree_leaves(kdispatch.unflatten_aggregate(
             self.sh.gather(vec, self.layout.width), self.layout))
 
+    def deal(self) -> "_Deal":
+        """Every rank of the world deals workers; rank q keeps its column
+        block along the aggregation axis."""
+        mesh, d = self.sh.mesh, self.layout.width
+        world = mesh.devices
+        return _Deal(
+            world, mesh.rank,
+            [shardlib.column_block(d, self.sh.k, mesh.index_of(q, self.sh.axis))
+             for q in range(world)],
+            [(off, size, 0) for off, size in self.global_segments],
+            lambda t: mesh.all_to_all_world(t, world), mesh.all_reduce_world)
+
+
+class _ModelBlock(_Block):
+    """The step's view on a model mesh: this rank's block of its model
+    shard's columns (``mc``; :meth:`_Block.reduce` sums over the axes the
+    block splits D over), each robust leaf's piece of it as a segment, and
+    the aggregate rebuilt as this rank's shard of every leaf."""
+
+    def __init__(self, sh: shardlib.ShardCtx, spec: AggregatorSpec,
+                 mc: shardlib.ModelColumns, like: list, n: int, data: str):
+        self.sh, self.spec, self.n, self.mc, self.like = sh, spec, n, mc, like
+        self.data = data
+        self.model = model_common.get_mesh_axes().model
+        self.cols = c0, c1 = sh.cols(mc.total)
+        self.local = (c0 - mc.offset, c1 - mc.offset)   # of the shard's columns
+        self.global_segments = None
+        self.segments = []
+        for off, size in mc.segments():
+            a = max(off, self.local[0])
+            b = min(off + size, self.local[1])
+            self.segments.append((a - self.local[0], b - a) if a < b
+                                 else (0, 0))
+        s = robust_lib.bucketlib.clamp_bucket_size(n, spec.bucket_size,
+                                                   spec.f)
+        self.tiles = robust_lib._hier_tiles(spec, sh, n, s)
+
+    def deal(self) -> "_Deal":
+        """The data axis deals workers; data rank q keeps its columns of
+        this model shard (all of them on the hierarchical form)."""
+        mesh, data, width = self.sh.mesh, self.data, self.mc.width
+        k = mesh.size(data)
+        if self.sh.worker_axis is not None or self.sh.axis == self.model:
+            dest = [(0, width)] * k
+        else:
+            dest = [shardlib.column_block(width, k, q) for q in range(k)]
+        return _Deal(
+            k, mesh.index(data), dest,
+            [(off, size, a) for (off, size), (a, _)
+             in zip(self.mc.segments(), self.mc.pieces)],
+            lambda t: mesh.all_to_all(t, data, k),
+            lambda t: mesh.all_reduce(t, data, record=False))
+
+    def aggregate(self, flat: Tensor, perm, signs, internals=None) -> Tensor:
+        if self.tiles:
+            r0, r1 = self.sh.rows(self.n)
+            flat = flat[r0:r1].contiguous()
+        return robust_lib.robust_aggregate_block(
+            flat, self.spec, d=self.mc.total, n=self.n, perm=perm,
+            internals=internals, sh=self.sh)
+
+    def robust_leaves(self, vec: Tensor) -> list:
+        if self.local != (0, self.mc.width):
+            vec = shardlib.gather_columns(vec, self.mc.width,
+                                          mesh=self.sh.mesh, axis=self.data)
+        return self.mc.unflatten(vec, self.like, mesh=self.sh.mesh,
+                                 axis=self.model)
+
 
 def _pass_a(loss_fn, leaves: list, skeleton, is_fsdp: list, batch: PyTree,
             n: int, layout, stack: Tensor, fsdp_sum: list, fold) -> Tensor:
@@ -342,60 +475,95 @@ def _pass_a(loss_fn, leaves: list, skeleton, is_fsdp: list, batch: PyTree,
     ``fsdp_sum`` from the same backward.  Returns the (n,) fp32 losses."""
     losses = torch.empty((n,), dtype=torch.float32, device=stack.device)
     for i in range(n):
-        wbatch = tree_map(lambda b: b[i], batch)
-        req = [leaf.detach().requires_grad_(True) for leaf in leaves]
-        loss, _ = loss_fn(tree_unflatten(skeleton, req), wbatch)
-        grads = torch.autograd.grad(loss, req)
+        losses[i], grads = _worker_grads(loss_fn, leaves, skeleton, is_fsdp,
+                                         tree_map(lambda b: b[i], batch),
+                                         fsdp_sum)
         row = stack[i]
-        for acc, g in zip(fsdp_sum, [g for g, fl in zip(grads, is_fsdp)
-                                     if fl]):
-            acc.add_(g)                     # fp32 += the leaf's dtype
-        grads = [g for g, fl in zip(grads, is_fsdp) if not fl]
         for (off, size, _), g in zip(layout.segments, grads):
             fold(row[off:off + size], g.reshape(-1).float())
-        losses[i] = loss.detach().float()
-        del grads, req, loss
+        del grads
     return losses
 
 
-def _pass_a_dealt(loss_fn, leaves: list, skeleton, batch: PyTree, n: int,
-                  layout, stack: Tensor, sh: shardlib.ShardCtx,
-                  fold) -> Tensor:
-    """Pass A under ``worker_axes``: round j computes worker j W + rank's
-    gradient, and one all-to-all hands every rank its columns of the
-    round's rows, folded into its block ``stack`` at once.  Returns the
-    (n,) fp32 losses, summed over the world."""
-    mesh, dev = sh.mesh, stack.device
-    world, rank = mesh.devices, mesh.rank
-    d = layout.width
-    c0, c1 = sh.cols(d)
-    wmax = -(-d // sh.k)
-    # Every rank's column block along the aggregation axis.
-    dest_cols = [shardlib.column_block(d, sh.k, mesh.index_of(q, sh.axis))
-                 for q in range(world)]
+def _worker_grads(loss_fn, leaves: list, skeleton, is_fsdp: list,
+                  wbatch: PyTree, fsdp_sum: list):
+    """One worker's loss and robust-leaf gradients; its FSDP leaves'
+    gradients are added to ``fsdp_sum`` at once."""
+    req = [leaf.detach().requires_grad_(True) for leaf in leaves]
+    loss, _ = loss_fn(tree_unflatten(skeleton, req), wbatch)
+    grads = torch.autograd.grad(loss, req)
+    for acc, g in zip(fsdp_sum, [g for g, fl in zip(grads, is_fsdp) if fl]):
+        acc.add_(g)                         # fp32 += the leaf's dtype
+    return loss.detach().float(), [g for g, fl in zip(grads, is_fsdp)
+                                   if not fl]
+
+
+@dataclasses.dataclass
+class _Deal:
+    """How pass A deals the workers over ranks: ``k`` dealing ranks (this
+    one ``idx``), ``dest[q]`` the columns of a gradient row that rank q
+    keeps, ``segs`` each robust leaf's (row offset, size, offset in the
+    flattened leaf), ``exchange`` the all-to-all of a round's (k, w)
+    rows and ``reduce`` the sum over the dealing ranks."""
+    k: int
+    idx: int
+    dest: list
+    segs: list
+    exchange: Callable
+    reduce: Callable
+
+
+def _pass_a_dealt(loss_fn, leaves: list, skeleton, is_fsdp: list,
+                  batch: PyTree, n: int, stack: Tensor, fsdp_sum: list,
+                  fold, deal: _Deal) -> Tensor:
+    """Pass A under ``worker_axes``: round j computes worker j k + idx's
+    gradient, and one all-to-all hands every dealing rank its columns of
+    the round's rows, folded into its block ``stack`` at once; the FSDP
+    sums are summed over the dealing ranks.  Returns the (n,) fp32
+    losses, summed over them."""
+    dev = stack.device
+    k, idx = deal.k, deal.idx
+    wmax = max(b - a for a, b in deal.dest)
+    own = deal.dest[idx][1] - deal.dest[idx][0]
     losses = torch.zeros((n,), dtype=torch.float32, device=dev)
-    for j in range(-(-n // world)):
-        send = torch.zeros((world, wmax), dtype=torch.float32, device=dev)
-        i = j * world + rank
+    for j in range(-(-n // k)):
+        send = torch.zeros((k, wmax), dtype=torch.float32, device=dev)
+        i = j * k + idx
         if i < n:
-            wbatch = tree_map(lambda b: b[i], batch)
-            req = [leaf.detach().requires_grad_(True) for leaf in leaves]
-            loss, _ = loss_fn(tree_unflatten(skeleton, req), wbatch)
-            grads = torch.autograd.grad(loss, req)
-            for (off, size, _), g in zip(layout.segments, grads):
+            losses[i], grads = _worker_grads(
+                loss_fn, leaves, skeleton, is_fsdp,
+                tree_map(lambda b: b[i], batch), fsdp_sum)
+            for (off, size, src), g in zip(deal.segs, grads):
                 g = g.reshape(-1)
-                for q, (a, b) in enumerate(dest_cols):
+                for q, (a, b) in enumerate(deal.dest):
                     lo, hi = max(a, off), min(b, off + size)
                     if lo < hi:
-                        send[q, lo - a:hi - a] = g[lo - off:hi - off]
-            losses[i] = loss.detach().float()
-            del grads, req, loss
-        recv = mesh.all_to_all_world(send, world)
+                        send[q, lo - a:hi - a] = \
+                            g[src + lo - off:src + hi - off]
+            del grads
+        recv = deal.exchange(send)
         del send
-        for r in range(min(world, n - j * world)):
-            fold(stack[j * world + r], recv[r, :c1 - c0])
+        for r in range(min(k, n - j * k)):
+            fold(stack[j * k + r], recv[r, :own])
         del recv
-    return mesh.all_reduce_world(losses)
+    for acc in fsdp_sum:
+        deal.reduce(acc)
+    return deal.reduce(losses)
+
+
+def _split_sq_sum(param_specs: tuple) -> Callable:
+    """The model-sharded sum of per-leaf squares: the leaves split over the
+    model axis all-reduced over it, the replicated ones counted once."""
+    model = model_common.get_mesh_axes().model
+    split = [model in spec for spec in param_specs]
+
+    def sq_sum(sq: list) -> Tensor:
+        zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
+        part = sum((t for t, sp in zip(sq, split) if sp), zero)
+        part = model_common.model_mesh().all_reduce(
+            part.clone(), model, record=False)
+        return part + sum((t for t, sp in zip(sq, split) if not sp), zero)
+    return sq_sum
 
 
 def build_train_step(loss_fn: Callable, optimizer: Optimizer,
@@ -422,8 +590,9 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     all see that one draw, as the reference's closure shares its
     ``agg_key``; the search overwrites the f rows of the one attacked
     copy in place.  Under ``worker_axes`` only pass A differs
-    (:func:`_pass_a_dealt`); the rest runs on :class:`_Block` what it runs
-    on :class:`_Solo` on one device.
+    (:func:`_pass_a_dealt`); the rest runs on :class:`_Block` (on a model
+    mesh :class:`_ModelBlock`) what it runs on :class:`_Solo` on one
+    device.
     """
     if cfg.algorithm not in ("dshb", "dgd"):
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
@@ -454,9 +623,14 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         n_honest = n - f
         robust_p, fsdp_p = split_params(params, cfg.fsdp_keys)
         layout = stack_layout(robust_p, n)
-        sh = trainer_shard(cfg, dev)
-        part = _Solo(spec, layout) if sh is None \
-            else _Block(sh, spec, layout, n)
+        mc = model_columns(cfg, params)
+        sh = trainer_shard(cfg, dev, mc)
+        if sh is None:
+            part = _Solo(spec, layout)
+        elif mc is None:
+            part = _Block(sh, spec, layout, n)
+        else:
+            part = _ModelBlock(sh, spec, mc, robust_p, n, cfg.worker_axes[0])
         c0, c1 = part.cols
         # Pass B's fp32 sums of the per-worker FSDP gradients.
         fsdp_sum = [torch.zeros(leaf.shape, dtype=torch.float32,
@@ -472,8 +646,8 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             losses = _pass_a(loss_fn, leaves, skeleton, is_fsdp, batch, n,
                              layout, stack, fsdp_sum, fold)
         else:
-            losses = _pass_a_dealt(loss_fn, leaves, skeleton, batch, n,
-                                   layout, stack, sh, fold)
+            losses = _pass_a_dealt(loss_fn, leaves, skeleton, is_fsdp, batch,
+                                   n, stack, fsdp_sum, fold, part.deal())
 
         # One randomness draw for every aggregate of the step (the bucket
         # permutation of the n workers, then the sketch's signs per leaf).
@@ -513,8 +687,11 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         direction = merge_params(part.robust_leaves(agg), fsdp_dir, skeleton,
                                  is_fsdp)
         lr = lr_schedule(state["step"])
-        new_params, new_opt = optimizer.update(direction, state["opt_state"],
-                                               params, lr)
+        with sharded_norm(None if mc is None
+                          else _split_sq_sum(cfg.param_specs)):
+            new_params, new_opt = optimizer.update(
+                direction, state["opt_state"], params, lr)
+            direction_norm = global_norm(direction)
         new_state = dict(params=new_params, opt_state=new_opt,
                          step=state["step"] + 1)
         if cfg.algorithm == "dshb":
@@ -523,7 +700,7 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         metrics = {
             "loss": losses[:n_honest].mean(),
             "lr": lr,
-            "direction_norm": global_norm(direction),
+            "direction_norm": direction_norm,
         }
         agg_tree = part.parts(agg)
         if cfg.track_kappa_hat:
@@ -540,6 +717,18 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         return new_state, metrics
 
     return step
+
+
+def _check_same_start(mesh, start: int, path: str) -> None:
+    """Every rank of a sharded run resumes from the same step."""
+    t = torch.tensor([start, -start], dtype=torch.float64)
+    mesh.all_reduce_world(t, "max")
+    if int(t[0]) != -int(t[1]):
+        from repro_torch.resilience.faults import CheckpointError
+        raise CheckpointError(
+            f"the ranks' latest snapshots disagree (steps {-int(t[1])} .. "
+            f"{int(t[0])}) under {path}",
+            hint="resume every rank from one directory written by one run")
 
 
 def _empty_history() -> dict:
@@ -584,15 +773,14 @@ def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
     ``options.checkpoint`` makes a scan run resumable: the carry, the
     metrics so far and the eval points are snapshotted at segment
     boundaries, and a rerun into the same directory resumes from the
-    latest snapshot.
+    latest snapshot.  Under ``worker_axes`` every rank snapshots its own
+    carry (its parameter shard, its momentum block) into ``rank<r>/``,
+    the signature holds ``launch.mesh.mesh_signature()`` (a resume on
+    another mesh raises), and the ranks must resume from one step.
     """
     opts = resolve_options(options, engine=engine, chunk=chunk)
     cfg = opts.apply_config(cfg)
     engine, chunk = opts.engine or "scan", opts.chunk
-    if cfg.worker_axes and opts.checkpoint is not None:
-        raise ValueError("options.checkpoint under worker_axes (every rank "
-                         "holding its block of the momentum) waits for the "
-                         "model-parallel mesh (ROADMAP queue 1, item 13)")
     if opts.checkpoint is not None and engine != "scan":
         raise ValueError("options.checkpoint requires engine='scan' "
                          "(the loop path has no chunk boundaries to "
@@ -664,12 +852,22 @@ def train_loop(loss_fn, params, batches, optimizer, cfg: TrainerConfig,
     ckpt_cfg = resolve_checkpoint(opts.checkpoint)
     checkpointer, start_step, saved_cols = None, 0, {}
     if ckpt_cfg is not None:
-        store = SnapshotStore.from_config(ckpt_cfg)
         signature = {"surface": "trainer", "steps": steps, "chunk": chunk,
                      "seed": seed,
                      "eval_every": eval_every if eval_fn else 0,
                      **({"taps": True} if cfg.taps else {})}
+        mesh = None
+        if cfg.worker_axes:
+            # Every rank snapshots its own shards and momentum block.
+            from repro_torch.launch.mesh import current_mesh, mesh_signature
+            mesh = current_mesh()
+            signature["mesh"] = list(mesh_signature())
+        store = SnapshotStore.from_config(
+            ckpt_cfg, subdir=None if mesh is None else f"rank{mesh.rank}")
         snap = store.load_latest() if ckpt_cfg.resume else None
+        if mesh is not None:
+            _check_same_start(mesh, 0 if snap is None else snap[0],
+                              store.path)
         if snap is not None:
             start_step, arrays, meta = snap
             check_signature(meta["signature"], signature, store.path)

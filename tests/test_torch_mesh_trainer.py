@@ -17,7 +17,8 @@ returns each rank's metrics and parameters:
   tree's largest magnitude);
 * the quickstart MLP under the families whose sums cross the column
   blocks (mimic's honest Gram, ALIE's finite-row masks with a NaN worker,
-  foe_opt / alie_opt's damages), D-GD, the sketch Gram and the taps,
+  foe_opt / alie_opt's damages), D-GD, the sketch Gram, the taps and
+  ``fsdp_keys`` (the FSDP leaf's gradient sums all-reduced over the world),
   against the port's own single-process step at the same tolerances, the
   taps at 1e-5 (trim_frac exactly);
 * the two ranks' parameters equal bit for bit after every case.
@@ -82,6 +83,8 @@ CASES = (
      dict(rule="cwtm", pre="nnm", sketch_dim=16, backend="cuda_sharded"),
      False),
     ("mlp/taps+nnm+cwtm", "mlp", dict(taps=True),
+     dict(rule="cwtm", pre="nnm", backend="cuda_sharded"), False),
+    ("mlp/fsdp+nnm+cwtm", "mlp", dict(fsdp_keys=("['w1']",)),
      dict(rule="cwtm", pre="nnm", backend="cuda_sharded"), False),
 )
 
@@ -324,7 +327,9 @@ def _refusals(rank: int, world: int) -> list:
 
 
 def test_worker_axes_refusals_in_a_world():
+    """The axes and the backend are refused; fsdp_keys under worker_axes
+    runs (its parity is the mlp/fsdp case above)."""
     got = tmesh.spawn_world(_refusals, 2, limit=120)[0]
     assert "not axes of the mesh" in got[0]
     assert "'cuda_sharded' or 'cuda_hier'" in got[1]
-    assert "fsdp_keys" in got[2]
+    assert got[2] == "ran"
