@@ -5272,15 +5272,23 @@ def phase_mesh(dev, hier_ref_dir: str) -> dict:
 
 # ---------------------------------------------------------------------------
 # Phase 22: the model-parallel mesh.  Each rank of a ("data", "model") world
-# holds its shard of the padded model (heads, ff, vocabulary, experts), runs
-# its data index's workers split over the model ranks (the layers'
-# all-reduces on the model axis) and aggregates its model shard's columns of
-# the worker stack with K1 / K2 (K6 / K7 on the hierarchical form).  Every
-# case runs first on one device (the padded model whole under
-# mesh_axes_scope), then over the world.
+# holds its shard of the padded model (heads, ff, vocabulary, experts; the
+# rwkv6 / Mamba2 heads, whisper's encoder and cross attention), runs its
+# data index's workers split over the model ranks (the layers' collectives
+# on the model axis) and aggregates its model shard's columns of the worker
+# stack with K1 / K2 (K6 / K7 on the hierarchical form; the sketch Gram and
+# K2 with sketch_dim).  Every case runs first on one device (the padded
+# model whole under mesh_axes_scope), then over the world.
 # ---------------------------------------------------------------------------
 
 #: (name, arch, layers, dtype, n, f, spec, steps, mesh shapes, tight, fsdp)
+#: ``tight``: fp32, held at 1e-5 with the stack's Gram.  22e-22j: every
+#: other family at its published widths (bf16, depth cut; 22f two groups
+#: of six, so the shared block runs twice), each family again in fp32
+#: with the Gram (22i: a bf16 run's 5e-3 bound on the parameters lies
+#: above most elements of an update clipped to a norm of 0.1, so it checks
+#: the forward pass more than the split gradients), and the sketch route
+#: (sketch_dim 512, phase 15b's).
 MODEL_RUNS = (
     ("22a", "smollm-360m", 32, "bf16", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), False, False),
@@ -5291,25 +5299,58 @@ MODEL_RUNS = (
      ((1, 2), (2, 2)), True, False),
     ("22c", "mixtral-8x22b", 1, "bf16", 4, 1,
      dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), False, True),
+    ("22e", "rwkv6-3b", 2, "bf16", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), False, False),
+    ("22f", "zamba2-2.7b", 12, "bf16", 6, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), False, False),
+    ("22g", "internvl2-2b", 2, "bf16", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), False, False),
+    ("22h", "whisper-base", 6, "bf16", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), False, False),
+    ("22i rwkv6", "rwkv6-3b", 2, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
+    ("22i zamba2", "zamba2-2.7b", 6, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
+    ("22i internvl2", "internvl2-2b", 2, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
+    ("22i whisper", "whisper-base", 6, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
+    ("22j", "smollm-360m", 4, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm", sketch_dim=SKETCH_DIM), 2,
+     ((1, 2), (2, 2)), True, False),
 )
 MODEL_PAR = 2
 MODEL_SEQ, MODEL_BATCH = 128, 4          # each worker's batch: 4 x 128 tokens
-MODEL_PEAK_GB = 72.0                      # 22c: the world's summed peak
+MODEL_PEAK_GB = 72.0                      # each world's summed peak
 MODEL_RESUME_STEPS = 2                    # 22d: killed after step 1's snapshot
 
 
-def model_batches(vocab: int, n: int, steps: int) -> list:
-    """Dirichlet-heterogeneous synthetic LM batches over ``vocab``."""
+def model_batches(cfg, n: int, steps: int) -> list:
+    """Dirichlet-heterogeneous synthetic LM batches over the config's
+    vocabulary; a VLM's seeded normal patches before its MODEL_SEQ text
+    tokens, an encoder-decoder's seeded normal frames (zeros would give
+    the projector / the encoder no signal)."""
+    import numpy as np
     from repro_torch.data import build_heterogeneous, make_lm_corpus, worker_batches
-    seqs, topics = make_lm_corpus(n_tokens=400_000, vocab=vocab,
+    seqs, topics = make_lm_corpus(n_tokens=400_000, vocab=cfg.vocab_size,
                                   seq_len=MODEL_SEQ + 1, seed=0)
     ds = build_heterogeneous({"seq": seqs, "y": topics}, "y", n, alpha=0.1,
                              seed=0)
     it = worker_batches(ds, MODEL_BATCH, seed=0)
     out = []
-    for _ in range(steps):
+    for t in range(steps):
         b = next(it)
-        out.append({"tokens": b["seq"][..., :-1], "labels": b["seq"][..., 1:]})
+        batch = {"tokens": b["seq"][..., :-1], "labels": b["seq"][..., 1:]}
+        rng = np.random.default_rng(22 + t)
+        if cfg.family == "vlm":
+            batch["patches"] = rng.standard_normal(
+                (n, MODEL_BATCH, cfg.num_patches, cfg.vision_dim),
+                dtype=np.float32)
+        if cfg.family == "encdec":
+            batch["frames"] = rng.standard_normal(
+                (n, MODEL_BATCH, cfg.encoder_seq, cfg.d_model),
+                dtype=np.float32)
+        out.append(batch)
     return out
 
 
@@ -5361,11 +5402,36 @@ def _stack_gram(a, mesh, hier: bool):
     return g
 
 
+def _sketch_gram(internals: dict, tcfg, params, signs: list, mesh, dev):
+    """The attacked stack's sketch Gram (fp64 on the host): the whole
+    stack's fold on one device; on a world this rank's block folded where
+    the whole leaves hold it (``kernels.dispatch.sketch_fold_model``, as
+    the trainer folds it), the partial sketches summed over both axes."""
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.training import trainer
+    a = internals["attacked"][None]
+    s = tcfg.agg.sketch_dim
+    if mesh is None:
+        segs = [(off, size) for off, size, _ in internals["layout"].segments]
+        sk = kdispatch.sketch_fold(a, segs, s, signs)
+    else:
+        mc = trainer.model_columns(tcfg, params)
+        sh = trainer.trainer_shard(tcfg, dev, mc)
+        sk = kdispatch.sketch_fold_model(
+            a, s, signs, mc=mc,
+            local=(sh.span[0] - mc.offset, sh.span[1] - mc.offset))
+        sk = mesh.all_reduce(sk, sh.axis, record=False)
+    return (sk @ sk.mT)[0].double().cpu()
+
+
 def _model_train(run, dev, mesh=None, gram: bool = False) -> dict:
     """One MODEL_RUNS entry's steps; returns its metrics, ms per step,
     peak, launches, collectives, the final parameters (this rank's
-    shards) and, with ``gram``, each step's stack Gram."""
+    shards) and, with ``gram``, each step's stack Gram (and sketch Gram
+    under ``sketch_dim``, its signs drawn on the whole padded leaves from
+    a generator seeded by the step, the same on every rank)."""
     import torch
+    from repro_torch.core.robust import draw_signs
     from repro_torch.kernels import dispatch as kdispatch
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models import common
@@ -5376,7 +5442,12 @@ def _model_train(run, dev, mesh=None, gram: bool = False) -> dict:
     from repro_torch.tree import tree_leaves
     name, arch, layers, dtype, n, f, spec_kw, steps, *_ = run
     model, cfg, axes, tcfg = _model_setup(run, dev, mesh)
-    batches = model_batches(cfg.vocab_size, n, steps)
+    batches = model_batches(cfg, n, steps)
+    sketch = spec_kw.get("sketch_dim")
+    with common.mesh_axes_scope(axes):
+        widths = [math.prod(d.shape)
+                  for d in tree_leaves(model.param_descs())]
+    t_run = time.perf_counter()
     scope = tmesh.use_mesh(mesh) if mesh is not None \
         else contextlib.nullcontext()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -5395,15 +5466,18 @@ def _model_train(run, dev, mesh=None, gram: bool = False) -> dict:
         kdispatch.reset_fallbacks()
         tmesh.reset_collective_log()
         hist = {"loss": [], "kappa_hat": [], "direction_norm": [], "ms": [],
-                "grams": []}
+                "grams": [], "sketch_grams": []}
         for t in range(steps):
             perm = torch.randperm(n, generator=torch.Generator()
                                   .manual_seed(t)).to(dev)
+            signs = draw_signs(widths, sketch, torch.Generator()
+                               .manual_seed(1000 + t), dev) \
+                if sketch else None
             batch = to_device(batches[t], dev)
             internals: dict = {}
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            state, m = step(state, batch, internals, perm=perm)
+            state, m = step(state, batch, internals, perm=perm, signs=signs)
             torch.cuda.synchronize(dev)
             hist["ms"].append(1e3 * (time.perf_counter() - t0))
             for k in ("loss", "kappa_hat", "direction_norm"):
@@ -5412,6 +5486,9 @@ def _model_train(run, dev, mesh=None, gram: bool = False) -> dict:
                 hist["grams"].append(_stack_gram(
                     internals["attacked"], mesh,
                     bool(spec_kw.get("hier"))).cpu())
+            if sketch:
+                hist["sketch_grams"].append(_sketch_gram(
+                    internals, tcfg, state["params"], signs, mesh, dev))
             del internals, batch
         counts = _counts(("gram", "mixtrim", "bucketgram", "bucketmeans",
                           "combine"))
@@ -5423,9 +5500,13 @@ def _model_train(run, dev, mesh=None, gram: bool = False) -> dict:
             "peak": torch.cuda.max_memory_allocated(dev), "counts": counts,
             "collectives": colls, "model_all_reduces": model_ar / steps,
             "width": width, "params_total": total,
+            # The sketch Gram's torch decision is the route, not a
+            # fallback (phase 15b's allowance).
             "fallbacks": [f"{d.primitive}: {d.used} ({d.reason})"
-                          for d in kdispatch.fallback_log()],
-            "record": kdispatch.last_dispatch().describe()}
+                          for d in kdispatch.fallback_log()
+                          if d.primitive != "sketch_gram"],
+            "record": kdispatch.last_dispatch().describe(),
+            "seconds": time.perf_counter() - t_run}
 
 
 def _model_compare(run, got: dict, ref_path: str, mesh) -> dict:
@@ -5449,12 +5530,14 @@ def _model_compare(run, got: dict, ref_path: str, mesh) -> dict:
            "counts": got["counts"], "collectives": got["collectives"],
            "model_all_reduces": got["model_all_reduces"],
            "fallbacks": got["fallbacks"], "record": got["record"],
-           "momentum_width": got["momentum_width"]}
-    if got["hist"]["grams"]:
-        out["gram_err"] = max(float((a - b.cpu()).abs().max())
-                              for a, b in zip(got["hist"]["grams"],
-                                              ref["grams"]))
-        out["gram_scale"] = max(float(b.abs().max()) for b in ref["grams"])
+           "momentum_width": got["momentum_width"], "tight": run[9],
+           "seconds": got["seconds"]}
+    for key, tag in (("grams", "gram"), ("sketch_grams", "sketch")):
+        if got["hist"][key]:
+            out[f"{tag}_err"] = max(float((a - b.cpu()).abs().max())
+                                    for a, b in zip(got["hist"][key],
+                                                    ref[key]))
+            out[f"{tag}_scale"] = max(float(b.abs().max()) for b in ref[key])
     return out
 
 
@@ -5476,7 +5559,7 @@ def _model_resume(dev, mesh, tmp: str) -> dict:
     run = MODEL_RUNS[1]
     steps = MODEL_RESUME_STEPS
     model, cfg, axes, tcfg = _model_setup(run, dev, mesh)
-    batches = model_batches(cfg.vocab_size, run[4], steps)
+    batches = model_batches(cfg, run[4], steps)
     ck = CheckpointConfig(dir=f"{tmp}/22d", fault_plan=FaultPlan(kill_at=0))
     with tmesh.use_mesh(mesh), common.mesh_axes_scope(axes):
         init = model.init(0, dev)
@@ -5541,6 +5624,7 @@ def phase_model_mesh(dev, card: str) -> dict:
             got = _model_train(run, dev, None, gram=run[9])
             add_counts(single, got["counts"])
             model, cfg, axes, tcfg = _model_setup(run, dev, None)
+            update = _largest_update(model, axes, got["params"], dev)
             log(f"-- {run[0]}: {run[1]} {run[2]} of "
                 f"{get_full_layers(run[1])} layers, {run[3]}, d "
                 f"{cfg.d_model}, heads {cfg.num_heads} -> "
@@ -5550,12 +5634,15 @@ def phase_model_mesh(dev, card: str) -> dict:
                 f"(robust {got['width']:,})")
             log(f"  single device: ms/step "
                 f"{[round(v, 1) for v in got['hist']['ms']]}, loss "
-                f"{got['hist']['loss']}, peak {got['peak'] / 1e9:.2f} GB, "
-                f"launches {got['counts']} ({time.perf_counter() - t0:.1f} s)")
+                f"{got['hist']['loss']}, largest |update| {update:.3e}, peak "
+                f"{got['peak'] / 1e9:.2f} GB, launches {got['counts']} "
+                f"({time.perf_counter() - t0:.1f} s)")
             if got["fallbacks"]:
                 raise AssertionError(f"{run[0]}: fallbacks {got['fallbacks']}")
+            _check_run_launches(run[0], got["counts"], run[6])
             torch.save({"params": got["params"], "loss": got["hist"]["loss"],
-                        "ms": got["hist"]["ms"], "grams": got["hist"]["grams"]},
+                        "ms": got["hist"]["ms"], "grams": got["hist"]["grams"],
+                        "sketch_grams": got["hist"]["sketch_grams"]},
                        f"{tmp}/{run[0]}.pt")
             del got
             torch.cuda.empty_cache()
@@ -5571,31 +5658,61 @@ def phase_model_mesh(dev, card: str) -> dict:
     return add_counts(total, single)
 
 
+def _largest_update(model, axes, params: list, dev) -> float:
+    """The largest |final - initial| element over the run's parameters:
+    what a bound on the parameters has to lie below to catch a wrong or
+    missing gradient."""
+    from repro_torch.models import common
+    from repro_torch.tree import tree_leaves
+    with common.mesh_axes_scope(axes):
+        init = tree_leaves(model.init(0, dev))
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(params, init))
+
+
 def get_full_layers(arch: str) -> int:
     from repro_torch.configs import get_config
     return get_config(arch).num_layers
 
 
 def padded_heads(cfg, axes) -> str:
-    from repro_torch.models import attention, common
+    from repro_torch.models import attention, common, rwkv, ssm
+    mixer = {"ssm": ("rwkv6", rwkv), "hybrid": ("Mamba2", ssm)}
     with common.mesh_axes_scope(axes):
         hq, hkv = attention.resolved_heads(cfg)
-    return f"{hq} q / {hkv} kv (from {cfg.num_heads} / {cfg.num_kv_heads})"
+        out = f"{hq} q / {hkv} kv (from {cfg.num_heads} / {cfg.num_kv_heads})"
+        if cfg.family in mixer:
+            kind, mod = mixer[cfg.family]
+            out += f", {mod._dims(cfg)[0]} {kind} heads (from {cfg.ssm_heads})"
+    return out
+
+
+def _check_run_launches(name: str, counts: dict, spec: dict) -> None:
+    """A run's launches: K1 and K2 (K6 / K7 and K2 on the hierarchical
+    form; K2 and no K1 on the sketch route)."""
+    if spec.get("sketch_dim"):
+        ok = counts["gram"] == 0 and counts["mixtrim"] > 0
+    elif spec.get("hier"):
+        ok = counts["mixtrim"] > 0 and (counts["bucketgram"]
+                                        or counts["bucketmeans"])
+    else:
+        ok = counts["gram"] > 0 and counts["mixtrim"] > 0
+    if not ok:
+        raise AssertionError(f"{name}: launches {counts} ({spec})")
 
 
 def _check_model_world(world: int, ranks: list) -> None:
     """Phase 22's contracts on one world's results, each rank's line
-    logged."""
+    logged, then each run's summed peak and time."""
+    specs = {run[0]: run[6] for run in MODEL_RUNS}
     for r in ranks:
-        if not (r["counts"].get("gram") and r["counts"].get("mixtrim")):
-            raise AssertionError(f"22 rank {r['rank']}: K1 / K2 not launched "
-                                 f"({r['counts']})")
-        peaks = {}
         for name, row in r["runs"].items():
+            _check_run_launches(f"{name} rank {r['rank']}", row["counts"],
+                                specs[name])
             if row["fallbacks"]:
                 raise AssertionError(f"{name} rank {r['rank']}: fallbacks "
                                      f"{row['fallbacks']}")
-            tight = name.startswith("22b")
+            tight = row["tight"]
             ptol = (1e-5 * row["scale"]) if tight else 5e-3
             if row["err"] > ptol:
                 raise AssertionError(f"{name} rank {r['rank']}: parameters "
@@ -5604,18 +5721,22 @@ def _check_model_world(world: int, ranks: list) -> None:
                 if abs(a - b) > (1e-5 * abs(b) if tight else 1e-3):
                     raise AssertionError(f"{name}: loss {row['loss']} vs one "
                                          f"device {row['ref_loss']}")
-            if tight and row["gram_err"] > 1e-5 * row["gram_scale"]:
-                raise AssertionError(f"{name} rank {r['rank']}: Gram off by "
-                                     f"{row['gram_err']} > 1e-5 x "
-                                     f"{row['gram_scale']}")
-            peaks[name] = row["peak"]
-            gram = (f", Gram max |diff| {row['gram_err']:.3e} (tol "
-                    f"{1e-5 * row['gram_scale']:.3e})") if tight else ""
+            grams = ""
+            for tag in ("gram", "sketch") if tight else ():
+                if f"{tag}_err" not in row:
+                    continue
+                tol = 1e-5 * row[f"{tag}_scale"]
+                if row[f"{tag}_err"] > tol:
+                    raise AssertionError(f"{name} rank {r['rank']}: {tag} "
+                                         f"Gram off by {row[f'{tag}_err']} "
+                                         f"> {tol}")
+                grams += (f", {tag} Gram max |diff| {row[f'{tag}_err']:.3e} "
+                          f"(tol {tol:.3e})")
             log(f"  {name} rank {r['rank']}: ms/step "
                 f"{[round(v, 1) for v in row['ms']]} (one device "
                 f"{[round(v, 1) for v in row['ref_ms']]}), loss "
                 f"{row['loss']} (one device {row['ref_loss']}), parameters "
-                f"max |diff| {row['err']:.3e} (tol {ptol:.3e}){gram}, peak "
+                f"max |diff| {row['err']:.3e} (tol {ptol:.3e}){grams}, peak "
                 f"{row['peak'] / 1e9:.2f} GB, block width "
                 f"{row['momentum_width']:,}, launches {row['counts']}, "
                 f"model-axis all-reduces / step {row['model_all_reduces']:.0f}"
@@ -5631,12 +5752,15 @@ def _check_model_world(world: int, ranks: list) -> None:
             log(f"  22d rank {r['rank']}: killed after step 1's snapshot, "
                 f"resumed from {res['resumed_from']}, shards and momentum "
                 f"equal bit for bit ({res['seconds']:.1f} s)")
-    if world == 2 and "22c" in ranks[0]["runs"]:
-        peak = sum(r["runs"]["22c"]["peak"] for r in ranks)
-        log(f"  22c: peaks {[round(r['runs']['22c']['peak'] / 1e9, 2) for r in ranks]} "
-            f"GB, the world's sum {peak / 1e9:.2f} GB")
+    for name in ranks[0]["runs"]:
+        rows = [r["runs"][name] for r in ranks]
+        peak = sum(row["peak"] for row in rows)
+        log(f"  {name} on {world} ranks: peaks "
+            f"{[round(row['peak'] / 1e9, 2) for row in rows]} GB, the "
+            f"world's sum {peak / 1e9:.2f} GB; "
+            f"{max(row['seconds'] for row in rows):.1f} s")
         if peak / 1e9 > MODEL_PEAK_GB:
-            raise AssertionError(f"22c: summed peak {peak / 1e9:.2f} GB > "
+            raise AssertionError(f"{name}: summed peak {peak / 1e9:.2f} GB > "
                                  f"{MODEL_PEAK_GB}")
 
 

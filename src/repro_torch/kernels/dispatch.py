@@ -450,6 +450,57 @@ def sketch_fold(x: torch.Tensor, segments, sketch_dim: int, signs: list,
     return sk
 
 
+def sketch_fold_model(x: torch.Tensor, sketch_dim: int, signs: list, *,
+                      mc: shardlib.ModelColumns, local: tuple,
+                      chunk: int = SKETCH_CHUNK) -> torch.Tensor:
+    """A model shard's part of the whole leaves' sketch: ``x`` (L, n, w)
+    holds the columns [local[0], local[1]) of the shard's ``mc`` columns;
+    each of its elements is folded at ``g % sketch_dim`` with the sign of
+    chunk ``g // sketch_dim``, ``g`` its flat index in the WHOLE leaf
+    (``signs[i]`` leaf i's, drawn on the whole widths ``mc.whole``).  A
+    replicated leaf's piece is contiguous in its whole leaf; a split
+    leaf's shard is runs of ``mc.runs[i]`` elements, one in every k, and
+    a group of runs is folded from a buffer that holds them at their
+    whole-leaf places (zeros between), at most ``chunk`` runs' elements
+    at a time.  Summed over the model shards and their blocks, this is
+    :func:`sketch_fold` of the whole stack."""
+    lanes, n, _ = x.shape
+    l0, l1 = local
+    k, j = mc.k, mc.index
+    sk = torch.zeros((lanes, n, sketch_dim), dtype=torch.float32,
+                     device=x.device)
+    for i, ((off, size), (a, _)) in enumerate(zip(mc.segments(), mc.pieces)):
+        c0, c1 = max(off, l0), min(off + size, l1)
+        if c0 >= c1:
+            continue
+        e0, e1 = a + c0 - off, a + c1 - off     # the leaf's local elements
+        seg, sg = [(0, mc.whole[i])], [signs[i]]
+
+        def cols(lo, hi):
+            return x[:, :, c0 - l0 + lo - e0:c0 - l0 + hi - e0]
+        if not mc.split[i]:
+            sketch_fold(cols(e0, e1), seg, sketch_dim, sg, out=sk, c0=e0)
+            continue
+        run = mc.runs[i]
+        step = max(1, chunk // (k * run))
+        for ra in range(e0 // run, -(-e1 // run), step):
+            rb = min(ra + step, -(-e1 // run))
+            lo, hi = max(e0, ra * run), min(e1, rb * run)
+            if rb - ra == 1:                    # one run: contiguous
+                sketch_fold(cols(lo, hi), seg, sketch_dim, sg, out=sk,
+                            c0=(ra * k + j) * run + lo - ra * run)
+                continue
+            part = x.new_zeros((lanes, n, (rb - ra) * run))
+            part[:, :, lo - ra * run:hi - ra * run] = cols(lo, hi)
+            buf = x.new_zeros((lanes, n, rb - ra, k, run))
+            buf[:, :, :, j] = part.view(lanes, n, rb - ra, run)
+            del part
+            sketch_fold(buf.view(lanes, n, -1), seg, sketch_dim, sg, out=sk,
+                        c0=ra * k * run)
+            del buf
+    return sk
+
+
 def dispatch_sketch_gram(x: torch.Tensor, segments, sketch_dim: int,
                          signs: list, *, backend: str,
                          sh: Optional[shardlib.ShardCtx] = None,
@@ -460,14 +511,23 @@ def dispatch_sketch_gram(x: torch.Tensor, segments, sketch_dim: int,
     decision (no kernel: K1 is skipped).  With ``sh``, ``x`` is this
     rank's column block of a D-wide stack: its part of the sketch
     (:func:`sketch_fold` from its first column) is all-reduced before
-    the product."""
+    the product; a block of a model shard's columns (``sh.columns``) is
+    folded where its whole leaves hold its elements
+    (:func:`sketch_fold_model`)."""
     record_decision("sketch_gram", backend, "torch",
                     "sketch_dim: the signed sketch fold and its Gram are "
                     "torch contractions (no kernel in the reference either)")
     lanes = x.dim() == 3
     x3 = x if lanes else x[None]
     if sh is not None:
-        sk = sketch_fold(x3, segments, sketch_dim, signs, c0=sh.cols(d)[0])
+        mc = sh.columns
+        if mc is not None:
+            sk = sketch_fold_model(x3, sketch_dim, signs, mc=mc,
+                                   local=(sh.span[0] - mc.offset,
+                                          sh.span[1] - mc.offset))
+        else:
+            sk = sketch_fold(x3, segments, sketch_dim, signs,
+                             c0=sh.cols(d)[0])
         sk = sh.mesh.all_reduce(sk, sh.axis)
     else:
         sk = sketch_fold(x3, segments, sketch_dim, signs)

@@ -41,7 +41,12 @@ columns lie side by side in a global order (rank 0's first), and
 :class:`ShardCtx` takes the block as an explicit ``span`` of it; with
 ``axis`` a tuple of mesh axes the Gram's all-reduce spans them all.  The
 column order differs from the reference's leaf order; the Gram, the
-per-column rules and the combine do not depend on it.
+per-column rules and the combine do not depend on it.  The sketch Gram
+does (its chunks and signs follow each whole leaf's flat order): a split
+leaf's shard lies in its whole leaf as runs of :attr:`ModelColumns.runs`
+elements, one in every ``k`` of them, and ``kernels.dispatch.
+sketch_fold_model`` folds a block of ``ShardCtx.columns`` where the whole
+leaf holds its elements.
 
 On CPU blocks the wrappers run their plain versions (the tests' gloo
 worlds).  Routing and decision records stay in
@@ -92,12 +97,15 @@ class ShardCtx:
     split over (a tuple of axes: all of them, the Gram all-reduced over
     each), (2-D hierarchical form) the axis the worker rows are split
     over, and ``span``: this rank's columns [c0, c1) of the stack when
-    they are given explicitly (a model shard's, :class:`ModelColumns`)
-    rather than by :func:`column_block`."""
+    they are given explicitly (a model shard's) rather than by
+    :func:`column_block`, and ``columns``: the model shard's
+    :class:`ModelColumns` that ``span`` is a block of (the sketch folds
+    by it)."""
     mesh: object
     axis: object
     worker_axis: Optional[str] = None
     span: Optional[tuple] = None
+    columns: Optional[ModelColumns] = None
 
     @property
     def k(self) -> int:
@@ -145,22 +153,38 @@ class ModelColumns:
     flattened LOCAL tensor this rank holds (the whole shard of a split
     leaf, its :func:`column_block` of a replicated one), ``split[i]``
     whether the leaf is split over the model axis, ``widths`` every model
-    rank's column count, ``index`` this rank's model coordinate."""
+    rank's column count, ``index`` this rank's model coordinate.
+    ``runs[i]``: a split leaf's shard, flattened, is runs of this many
+    elements, run r at ``(r k + index) runs[i]`` in the whole leaf's flat
+    order (its split dimension's block times every later dimension); 0
+    for a replicated leaf.  ``whole[i]``: the whole leaf's element count.
+    Only the sketch reads these two."""
     pieces: tuple
     split: tuple
     widths: tuple
     index: int
+    runs: tuple
+    whole: tuple
 
     @classmethod
-    def build(cls, numels: list, split: list, k: int, j: int
-              ) -> "ModelColumns":
+    def build(cls, numels: list, split: list, k: int, j: int,
+              runs: list) -> "ModelColumns":
         """From the robust leaves' LOCAL element counts and split flags,
-        on a model axis of ``k`` ranks, for model index ``j``."""
+        on a model axis of ``k`` ranks, for model index ``j``; ``runs`` as
+        the field."""
         def pieces_of(m):
             return tuple((0, size) if sp else column_block(size, k, m)
                          for size, sp in zip(numels, split))
         widths = tuple(sum(b - a for a, b in pieces_of(m)) for m in range(k))
-        return cls(pieces_of(j), tuple(bool(x) for x in split), widths, j)
+        return cls(pieces_of(j), tuple(bool(x) for x in split), widths, j,
+                   tuple(runs),
+                   tuple(size * k if sp else size
+                         for size, sp in zip(numels, split)))
+
+    @property
+    def k(self) -> int:
+        """The model axis's rank count."""
+        return len(self.widths)
 
     @property
     def width(self) -> int:

@@ -119,11 +119,11 @@ class Transport:
             dist.all_reduce(t, op=red, group=group)
         return t
 
-    def all_gather(self, t: torch.Tensor, group, axis: str, size: int
-                   ) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, group, axis: str, size: int,
+                   record: bool = True) -> torch.Tensor:
         """(size * t.shape[0], ...) concatenation of every rank's equally
         shaped ``t`` along dim 0, in the group's rank order."""
-        with self._timed("all_gather", axis, t):
+        with self._timed("all_gather", axis, t, record):
             src = t.contiguous()
             out = src.new_empty((size * src.shape[0],) + tuple(src.shape[1:]))
             dist.all_gather_into_tensor(out, src, group=group)
@@ -213,11 +213,12 @@ class Mesh:
         return self.transport.all_to_all(t, self.groups[axis], axis,
                                          out_rows, record=False)
 
-    def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, axis: str,
+                   record: bool = True) -> torch.Tensor:
         if self.size(axis) == 1:
             return t
         return self.transport.all_gather(t, self.groups[axis], axis,
-                                         self.size(axis))
+                                         self.size(axis), record)
 
     def all_to_all_world(self, t: torch.Tensor, out_rows: int
                          ) -> torch.Tensor:

@@ -19,8 +19,11 @@ heads; the kv heads split with them when ``shard_kv``, else they are
 computed whole on every rank and repeated to the q-head count before the
 rank takes its q heads' share, so no group crosses a shard (reference
 ``attention.py:1-7``).  q / k / v are column-parallel, ``wo``
-row-parallel (``common.row_parallel``).  Decode and cross attention on a
-model mesh wait (ROADMAP queue 1, item 20).
+row-parallel (``common.row_parallel``).  Cross attention splits the same
+way: its k / v (``kv_override``) are this rank's kv heads when
+``shard_kv`` (whisper's ``EncDecLM._cross_kv`` makes them column-
+parallel from the encoder output), else whole and repeated.  Decode on a
+model mesh waits (ROADMAP queue 1, item 20 (b)).
 """
 from __future__ import annotations
 
@@ -84,15 +87,14 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
     ``kv_override`` supplies external (k, v) head tensors (B, S_kv, hkv,
     hd) for cross attention (whisper's decoder); no mask and no rope then
     apply, and the layer's own ``wk`` / ``wv`` are not read.  On a model
-    mesh x is replicated and the output is the all-reduced whole."""
+    mesh x is replicated and the output is the all-reduced whole; the
+    override holds this rank's kv heads when they split (``shard_kv``),
+    else all of them."""
     b, s, _ = x.shape
     hq, hkv = resolved_heads(cfg)
     hd = cfg.head_dim
     cross = kv_override is not None
     mesh = common.model_mesh()
-    if mesh is not None and cross:
-        raise ValueError("cross attention on a model mesh waits (ROADMAP "
-                         "queue 1, item 20)")
     split_kv = mesh is not None and common.get_mesh_axes().shard_kv
     q0, q1 = common.model_block(hq)
     q = common.column_parallel(x, p["wq"])
@@ -157,7 +159,7 @@ def cache_desc(cfg: ModelConfig, layers: int, batch: int, max_seq: int) -> dict:
     divide, else the sequence (long spans only, flash-decode style);
     batch-1 long-context caches also spread the sequence over the data
     axes; spans up to 8192 keep the sequence whole.  Descs only: decode on
-    a model mesh waits (ROADMAP queue 1, item 20)."""
+    a model mesh waits (ROADMAP queue 1, item 20 (b))."""
     ctx = common.get_mesh_axes()
     kv_sharded = bool(ctx and ctx.shard_kv and ctx.model_par > 1)
     span = cache_span(cfg, max_seq)
@@ -198,8 +200,7 @@ def decode_attention(p: dict, x: Tensor, cache_k: Tensor, cache_v: Tensor,
     operands, as in :func:`attention`.
     """
     if common.model_mesh() is not None:
-        raise ValueError("decode on a model mesh waits (ROADMAP queue 1, "
-                         "item 20)")
+        raise ValueError(common.DECODE_WAITS)
     b = x.shape[0]
     hq, hkv = resolved_heads(cfg)
     hd = cfg.head_dim

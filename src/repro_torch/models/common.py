@@ -108,6 +108,10 @@ class MeshAxes:
 
 _CTX: list = [None]
 
+#: The refusal of decode on a model mesh (its caches split by the heads).
+DECODE_WAITS = ("decode on a model mesh waits (ROADMAP queue 1, item 20 "
+                "(b))")
+
 
 def set_mesh_axes(axes: Optional[MeshAxes]) -> None:
     _CTX[0] = axes
@@ -213,12 +217,42 @@ class _GatherFromModel(torch.autograd.Function):
         mesh, axes = model_mesh(), get_mesh_axes()
         ctx.k, ctx.j, ctx.w = axes.model_par, mesh.index(axes.model), x.shape[-1]
         rows = x.detach().reshape(-1, ctx.w).mT.float().contiguous()
-        full = mesh.all_gather(rows, axes.model)             # (k w, L)
+        full = mesh.all_gather(rows, axes.model, record=False)  # (k w, L)
         return full.mT.reshape(x.shape[:-1] + (ctx.k * ctx.w,)).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         return g[..., ctx.j * ctx.w:(ctx.j + 1) * ctx.w].contiguous()
+
+
+class _AllGatherModel(torch.autograd.Function):
+    """(..., w) blocks -> (..., k w) in model-rank order, for consumers
+    that differ by rank: the whole gradient is summed over the model axis
+    (fp32, cast once) and this rank's block kept, a reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return _GatherFromModel.forward(ctx, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        full = _model_all_reduce(g.float())
+        return full[..., ctx.j * ctx.w:(ctx.j + 1) * ctx.w].to(
+            ctx.dtype).contiguous()
+
+
+class _SumOverModel(torch.autograd.Function):
+    """fp32 sum over the model axis of a partial that every rank then
+    reads for its own block: the gradient is summed too."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _model_all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_all_reduce(g)
 
 
 class _ColumnParallel(torch.autograd.Function):
@@ -265,6 +299,22 @@ def gather_from_model(x: Tensor) -> Tensor:
     """Concatenate the ranks' last-dimension blocks (router logits, a
     forward's logits)."""
     return _GatherFromModel.apply(x) if model_mesh() is not None else x
+
+
+def all_gather_model(x: Tensor) -> Tensor:
+    """The whole last dimension from the ranks' blocks, for a region whose
+    ranks each read another part of it (the Mamba2 projection, its conv
+    weights): the gradient is summed over the model axis and cut back to
+    this rank's block.  ``x`` itself on one device."""
+    return _AllGatherModel.apply(x) if model_mesh() is not None else x
+
+
+def replicated_rows(leaf: Tensor, lo: int, hi: int) -> Tensor:
+    """Rows [lo, hi) of a leaf that every rank holds whole but reads only
+    in part (rwkv6's ``u``, Mamba2's ``a_log`` / ``dt_bias`` / ``d_skip``,
+    per head): entered through :func:`copy_to_model`, so each rank's
+    gradient of the leaf is the whole leaf's, every rank's rows summed."""
+    return copy_to_model(leaf)[lo:hi]
 
 
 def row_parallel(h: Tensor, w: Tensor, dtype: torch.dtype) -> Tensor:
@@ -418,6 +468,21 @@ def pad_heads(hq: int, hkv: int, par: int, *, pad_kv: bool = False
     return hq_p, hkv_p, True, hkv_p % par == 0
 
 
+def embed_lookup(table: Tensor, tokens: Tensor) -> Tensor:
+    """Token embeddings; on a model mesh ``table`` is this rank's block of
+    the vocabulary rows: a lookup into it (zero outside it) summed over
+    the model axis."""
+    tokens = tokens.long()
+    if model_mesh() is None:
+        return table[tokens]
+    lo, hi = model_block(table.shape[0] * get_mesh_axes().model_par)
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    rows = table[local.clamp(0, hi - lo - 1)] * inside[..., None].to(
+        table.dtype)
+    return reduce_from_model(rows)
+
+
 def masked_ce(logits: Tensor, labels: Tensor) -> Tensor:
     """Mean next-token cross-entropy over the positions with labels >= 0.
     On a model mesh ``logits`` is this rank's block of the padded
@@ -452,6 +517,21 @@ def layer_views(blocks: dict) -> list[dict]:
 def rms_norm(x: Tensor, gamma: Tensor, eps: float = 1e-5) -> Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * gamma.float()).to(x.dtype)
+
+
+def split_rms_norm(x: Tensor, gamma: Tensor, eps: float = 1e-5) -> Tensor:
+    """:func:`rms_norm` over a last dimension split over the model axis
+    (rwkv6's ``ln_g`` over the heads, Mamba2's ``norm_g``): each rank's
+    fp32 sum of squares is summed over the axis (and so is its gradient)
+    and divided by the whole padded width, as the reference's padded
+    model divides.  :func:`rms_norm` on one device."""
+    if model_mesh() is None:
+        return rms_norm(x, gamma, eps)
+    xf = x.float()
+    sq = _SumOverModel.apply((xf * xf).sum(dim=-1, keepdim=True))
+    var = sq / (xf.shape[-1] * get_mesh_axes().model_par)
     out = xf * torch.rsqrt(var + eps)
     return (out * gamma.float()).to(x.dtype)
 

@@ -13,9 +13,18 @@ cross k / v of the encoder output beside the self-attention KV cache
 (:meth:`EncDecLM.prefill_cache`) and steps one token at a time
 (:meth:`EncDecLM.decode_step`), its position from :func:`_sinusoid_at`.
 The descs carry the reference's axes and pad their heads under a
-``MeshAxes`` scope, where the padded model runs whole on one device; the
-family's forward split over a model mesh waits (ROADMAP queue 1, item
-20) and raises.
+``MeshAxes`` scope, where the padded model runs whole on one device.
+
+On a model mesh (``common.model_mesh``) the family trains split: the
+encoder's non-causal attention and both stacks' GELU MLPs are column- /
+row-parallel, the decoder's cross attention takes q column-parallel from
+its input and k / v from the encoder output (column-parallel when the kv
+heads split, so the encoder output's gradient is all-reduced; whole and
+repeated otherwise), and the vocabulary splits over the embedding
+(``common.embed_lookup``) and the head (:meth:`EncDecLM.loss` takes the
+split ``common.masked_ce`` of this rank's logits; :meth:`EncDecLM.
+forward` gathers them).  Cached decode on a model mesh waits (ROADMAP
+queue 1, item 20 (b)) and raises.
 """
 from __future__ import annotations
 
@@ -79,13 +88,7 @@ class EncDecLM:
 
     # -- encoder ------------------------------------------------------------
 
-    def _check_model_mesh(self) -> None:
-        if common.model_mesh() is not None:
-            raise ValueError("the encdec family on a model mesh waits "
-                             "(ROADMAP queue 1, item 20)")
-
     def encode(self, params, frames: Tensor) -> Tensor:
-        self._check_model_mesh()
         cfg = self.cfg
         x = frames.to(cfg.dtype)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
@@ -100,17 +103,21 @@ class EncDecLM:
         return layer_norm(x, en["ln0_g"], en["ln0_b"], cfg.norm_eps)
 
     def _cross_kv(self, params, enc: Tensor) -> tuple[Tensor, Tensor]:
-        """Per-layer cross k / v from the encoder output: (L, B, S, hkv, hd)."""
+        """Per-layer cross k / v from the encoder output: (L, B, S, hkv,
+        hd); on a model mesh with split kv heads this rank's, from
+        column-parallel products."""
         cfg = self.cfg
         b, s = enc.shape[:2]
-        shape = (b, s, attention.hkv_of(cfg), cfg.head_dim)
+        split_kv = common.model_mesh() is not None and \
+            common.get_mesh_axes().shard_kv
+        proj = common.column_parallel if split_kv else torch.matmul
         ks, vs = [], []
         for p in layer_views(params["decoder"]["cross_attn"]):
-            k, v = enc @ p["wk"], enc @ p["wv"]
+            k, v = proj(enc, p["wk"]), proj(enc, p["wv"])
             if cfg.qkv_bias:
                 k, v = k + p["bk"], v + p["bv"]
-            ks.append(k.reshape(shape))
-            vs.append(v.reshape(shape))
+            ks.append(k.reshape(b, s, -1, cfg.head_dim))
+            vs.append(v.reshape(b, s, -1, cfg.head_dim))
         return torch.stack(ks), torch.stack(vs)
 
     # -- decoder ------------------------------------------------------------
@@ -130,29 +137,33 @@ class EncDecLM:
                 p["mlp"], layer_norm(x, p["ln2_g"], p["ln2_b"], eps))
         return x
 
-    def _embed_tokens(self, params, tokens: Tensor) -> Tensor:
-        return params["embed"][tokens.long()]
-
     def _logits(self, params, x: Tensor) -> Tensor:
+        """fp32 logits; on a model mesh this rank's vocabulary block."""
         dn = params["dec_norm"]
         x = layer_norm(x, dn["ln0_g"], dn["ln0_b"], self.cfg.norm_eps)
-        return (x @ params["lm_head"]).float()
+        return common.column_parallel(x, params["lm_head"]).float()
 
-    def forward(self, params, batch: dict) -> Tensor:
-        """Full-sequence logits (B, S, padded vocab) in fp32."""
+    def _hidden(self, params, batch: dict) -> Tensor:
+        """The decoder's last hidden states over the batch's tokens."""
         cfg = self.cfg
         enc = self.encode(params, batch["frames"])
         ck, cv = self._cross_kv(params, enc)
-        x = self._embed_tokens(params, batch["tokens"])
+        x = common.embed_lookup(params["embed"], batch["tokens"])
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(x.dtype)
-        x = self._decode_blocks(params, x, ck, cv)
-        return self._logits(params, x)
+        return self._decode_blocks(params, x, ck, cv)
+
+    def forward(self, params, batch: dict) -> Tensor:
+        """Full-sequence logits (B, S, padded vocab) in fp32; on a model
+        mesh the ranks' vocabulary blocks gathered."""
+        return common.gather_from_model(
+            self._logits(params, self._hidden(params, batch)))
 
     def loss(self, params, batch: dict) -> tuple[Tensor, dict]:
         """Next-token cross-entropy over labels >= 0; returns (ce, {"ce",
         "aux"}) with a zero aux."""
-        ce = masked_ce(self.forward(params, batch), batch["labels"])
+        ce = masked_ce(self._logits(params, self._hidden(params, batch)),
+                       batch["labels"])
         return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                                   device=ce.device)}
 
@@ -186,6 +197,8 @@ class EncDecLM:
         v are the per-layer projections of the encoder output, its self
         k / v zeros."""
         cfg = self.cfg
+        if common.model_mesh() is not None:
+            raise ValueError(common.DECODE_WAITS)
         with torch.inference_mode():
             enc = self.encode(params, frames)
             ck, cv = self._cross_kv(params, enc)
@@ -200,11 +213,12 @@ class EncDecLM:
         (logits (B, 1, padded vocab) fp32, cache), the self k / v written
         IN PLACE (the cross pair is only read); runs under
         ``torch.inference_mode()``."""
-        self._check_model_mesh()
+        if common.model_mesh() is not None:
+            raise ValueError(common.DECODE_WAITS)
         cfg = self.cfg
         eps = cfg.norm_eps
         with torch.inference_mode():
-            x = self._embed_tokens(params, tokens)
+            x = common.embed_lookup(params["embed"], tokens)
             x = x + _sinusoid_at(pos, cfg.d_model, x.device).to(x.dtype)
             for p, ck, cv, xk, xv in zip(
                     layer_views(params["decoder"]), cache["k"].unbind(0),

@@ -18,15 +18,21 @@ block and the shared block separately.  The encoder-decoder family is
 :class:`repro_torch.models.encdec.EncDecLM`.
 
 On a model mesh (``common.model_mesh``: a :class:`~repro_torch.models.
-common.MeshAxes` scope whose model axis the active mesh holds) the dense
-and moe families run split: each rank holds its shard of every leaf
-(``common.shard_slice``), the vocabulary is split over the embedding (a
-masked lookup, then an all-reduce) and the head (``common.masked_ce``
-all-reduces the max, the sum of exponentials and the label's logit;
-:meth:`DecoderLM.forward` gathers the logits), tied embeddings included.
-The other families, ``seq_par`` and ``expert_fsdp`` raise a
-``ValueError`` naming their ROADMAP entry; nothing is replicated
-silently.
+common.MeshAxes` scope whose model axis the active mesh holds) every
+family trains split: each rank holds its shard of every leaf
+(``common.shard_slice``), the vocabulary is split over the embedding
+(``common.embed_lookup``: a masked lookup, then an all-reduce) and the
+head (``common.masked_ce`` all-reduces the max, the sum of exponentials
+and the label's logit; :meth:`DecoderLM.forward` gathers the logits),
+tied embeddings included.  The blocks split by heads / ff / experts
+(``attention``, ``mlp``, ``moe``), rwkv6's time and channel mix and the
+Mamba2 mixer by their heads (``rwkv``, ``ssm``); zamba2's shared block
+runs split once per group, its gradient summed over the groups as on one
+device.  The VLM's projector is replicated: its input gradient arrives
+whole, the blocks' column-parallel products having all-reduced it.
+Decode (ROADMAP queue 1, item 20 (b)), ``seq_par`` and ``expert_fsdp``
+(item 19) raise a ``ValueError`` naming their entry; nothing is
+replicated silently.
 
 Cached decode (:meth:`DecoderLM.decode_step`) steps one token through
 every layer against a stacked cache (:meth:`DecoderLM.init_cache`): the
@@ -52,19 +58,11 @@ Tensor = torch.Tensor
 
 #: The families DecoderLM runs (encdec is EncDecLM's).
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
-#: The families that run split over a model mesh.
-MESH_FAMILIES = ("dense", "moe")
-
-
 def check_model_mesh(cfg: ModelConfig) -> None:
-    """Raise for what waits on a model mesh: another family than dense /
-    moe (ROADMAP queue 1, item 20), ``seq_par`` or ``expert_fsdp`` (item
-    19)."""
+    """Raise for what waits on a model mesh: ``seq_par`` or
+    ``expert_fsdp`` (ROADMAP queue 1, item 19)."""
     if common.model_mesh() is None:
         return
-    if cfg.family not in MESH_FAMILIES:
-        raise ValueError(f"the {cfg.family} family on a model mesh waits "
-                         "(ROADMAP queue 1, item 20)")
     axes = common.get_mesh_axes()
     if axes.seq_par or axes.expert_fsdp:
         raise ValueError("seq_par / expert_fsdp on a model mesh wait "
@@ -136,25 +134,10 @@ class DecoderLM:
     def init(self, seed: int, device: torch.device) -> PyTree:
         return materialize(self.param_descs(), seed, device)
 
-    def _embed_tokens(self, params, tokens: Tensor) -> Tensor:
-        """The token embeddings; on a model mesh a lookup into this rank's
-        vocabulary rows (zero outside them) summed over the model axis."""
-        table = params["embed"]
-        tokens = tokens.long()
-        if common.model_mesh() is None:
-            return table[tokens]
-        lo, hi = common.model_block(table.shape[0] * common.get_mesh_axes()
-                                    .model_par)
-        local = tokens - lo
-        inside = (local >= 0) & (local < hi - lo)
-        rows = table[local.clamp(0, hi - lo - 1)] * inside[..., None].to(
-            table.dtype)
-        return common.reduce_from_model(rows)
-
     def _embed(self, params, batch: dict) -> Tensor:
         cfg = self.cfg
         check_model_mesh(cfg)
-        x = self._embed_tokens(params, batch["tokens"])
+        x = common.embed_lookup(params["embed"], batch["tokens"])
         if cfg.family == "vlm":
             pr = params["projector"]
             p = rms_norm(batch["patches"].to(cfg.dtype), pr["ln"], cfg.norm_eps)
@@ -266,8 +249,7 @@ class DecoderLM:
         cfg = self.cfg
         eps = cfg.norm_eps
         if common.model_mesh() is not None:
-            raise ValueError("decode on a model mesh waits (ROADMAP queue "
-                             "1, item 20)")
+            raise ValueError(common.DECODE_WAITS)
         with torch.inference_mode():
             x = params["embed"][tokens.long()]
             layers = layer_views(params["blocks"])

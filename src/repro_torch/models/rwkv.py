@@ -11,9 +11,19 @@ at a time with :func:`repro_torch.models.linear_scan.gla_decode_step`,
 carrying the fp32 state and the two token shifts
 (:func:`rwkv_cache_desc`).  Under a ``MeshAxes`` scope the heads pad to
 the model axis (:func:`_dims`, the reference's) and the descs carry the
-reference's axes; the padded model runs whole on one device.  Its forward
-split over a model mesh waits (ROADMAP queue 1, item 20;
-``lm.check_model_mesh`` raises).
+reference's axes; the padded model runs whole on one device.
+
+On a model mesh (``common.model_mesh``) the time mix splits by heads:
+``wr`` / ``wk`` / ``wv`` / ``wg`` and the decay's ``wd2`` are
+column-parallel (``xw @ wd1`` is replicated and enters ``wd2`` through
+the column-parallel product, which all-reduces its input gradient),
+``decay_bias`` and ``ln_g`` are the rank's block, the replicated ``u``
+gives its heads' rows (``common.replicated_rows``), the scan runs on the
+local heads, ``ln_g``'s norm is taken over the whole padded width
+(``common.split_rms_norm``) and ``wo`` is row-parallel.  The channel mix
+splits ``ck`` (column-parallel) and ``cv`` (row-parallel, summed before
+the replicated ``sigmoid(xr @ cr)`` gate multiplies it).  Decode on a
+model mesh waits (ROADMAP queue 1, item 20 (b)).
 """
 from __future__ import annotations
 
@@ -87,26 +97,31 @@ def _streams(p: dict, x: Tensor, shifted: Tensor):
 
 
 def _log_decay(p: dict, xw: Tensor) -> Tensor:
-    dd = torch.tanh(xw @ p["wd1"]) @ p["wd2"]
+    dd = common.column_parallel(torch.tanh(xw @ p["wd1"]), p["wd2"])
     raw = p["decay_bias"] + dd.float()
     # w_t = exp(-exp(raw)); the per-step log decay clamped for the scan.
     return -torch.clamp(torch.exp(raw), 1e-6, linear_scan.MAX_STEP_DECAY)
 
 
 def time_mix(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """x: (B, S, d) -> (B, S, d); on a model mesh the rank's heads."""
     b, s, _ = x.shape
     h, hd, inner = _dims(cfg)
+    h0, h1 = common.model_block(h)
+    hl = h1 - h0
     xr, xk, xv, xw, xg = _streams(p, x, _token_shift(x))
-    r = (xr @ p["wr"]).reshape(b, s, h, hd)
-    k = (xk @ p["wk"]).reshape(b, s, h, hd)
-    v = (xv @ p["wv"]).reshape(b, s, h, hd)
-    g = F.silu(xg @ p["wg"])
-    w = _log_decay(p, xw).reshape(b, s, h, hd)
+    r = common.column_parallel(xr, p["wr"]).reshape(b, s, hl, hd)
+    k = common.column_parallel(xk, p["wk"]).reshape(b, s, hl, hd)
+    v = common.column_parallel(xv, p["wv"]).reshape(b, s, hl, hd)
+    g = F.silu(common.column_parallel(xg, p["wg"]))
+    w = _log_decay(p, xw).reshape(b, s, hl, hd)
 
-    y, _ = linear_scan.gla_chunked(r, k, v, w, chunk=cfg.ssm_chunk, u=p["u"])
-    y = y.reshape(b, s, inner).to(x.dtype)
-    y = rms_norm(y, p["ln_g"], cfg.norm_eps) * g
-    return y @ p["wo"]
+    u = common.replicated_rows(p["u"], h0, h1)
+    y, _ = linear_scan.gla_chunked(r, k, v, w, chunk=cfg.ssm_chunk, u=u)
+    y = y.reshape(b, s, hl * hd).to(x.dtype)
+    y = common.constrain(y, "batch", None, "heads", full=(b, s, inner))
+    y = common.split_rms_norm(y, p["ln_g"], cfg.norm_eps) * g
+    return common.row_parallel(y, p["wo"], x.dtype)
 
 
 def channel_mix(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -114,8 +129,9 @@ def channel_mix(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     cm = p["cmix"]
     xk = x + (shifted - x) * cm[0]
     xr = x + (shifted - x) * cm[1]
-    k = torch.square(F.relu(xk @ p["ck"]))
-    return (k @ p["cv"]) * torch.sigmoid(xr @ p["cr"])
+    k = torch.square(F.relu(common.column_parallel(xk, p["ck"])))
+    out = common.row_parallel(k, p["cv"], x.dtype)
+    return out * torch.sigmoid(xr @ p["cr"])
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,26 @@ last CONV_K - 1 inputs (:func:`ssm_cache_desc`), and steps the scan with
 :func:`repro_torch.models.linear_scan.gla_decode_step`.  Under a
 ``MeshAxes`` scope the heads pad to the model axis (:func:`_dims`, the
 reference's) and the descs carry the reference's axes; the padded model
-runs whole on one device.  Its forward split over a model mesh waits
-(ROADMAP queue 1, item 20; ``lm.check_model_mesh`` raises).
+runs whole on one device.
+
+On a model mesh (``common.model_mesh``) the mixer splits by heads, its
+storage as the reference's specs lay it out: ``in_proj``'s columns (z, x,
+B, C, dt side by side) and the conv's channels (x, B, C) are split as
+contiguous blocks that cut across those boundaries, so a rank's block
+does not hold its heads' streams.  Each rank takes the projection of its
+block (column-parallel), all-gathers the blocks over the model axis and
+reads its heads' z, x and dt and all of B and C (``common.
+all_gather_model``: the gradient is summed over the axis and cut back to
+the rank's block), and gathers the small conv weights likewise; the conv
+runs on its channels, the scan on its heads.  ``norm_g`` (aligned with
+the heads) takes the norm over the whole padded width (``common.
+split_rms_norm``), ``out_proj`` is row-parallel, and the replicated
+``a_log`` / ``dt_bias`` / ``d_skip`` give their heads' rows
+(``common.replicated_rows``).  Gathering the projection's output moves
+(B, S, 2 d_inner + 2N + H) activations a layer, about 10.7 MB in bf16 at
+zamba2-2.7b's widths over 4 x 128 tokens, where gathering ``in_proj``
+would move its 53 MB.  Decode on a model mesh waits (ROADMAP queue 1,
+item 20 (b)).
 """
 from __future__ import annotations
 
@@ -71,43 +89,74 @@ def _short_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
 
 
 def _project(p: dict, x: Tensor, cfg: ModelConfig):
-    """z, x, B, C, dt from one input projection (split by sizes)."""
-    h, _, n, d_inner = _dims(cfg)
-    return torch.split(x @ p["in_proj"], [d_inner, d_inner, n, n, h], dim=-1)
+    """z, x, B, C, dt from one input projection: this rank's heads' z, x
+    and dt and all of B and C, from the projection's blocks all-gathered
+    (on one device the projection itself, cut by sizes)."""
+    h, pp, n, d_inner = _dims(cfg)
+    h0, h1 = common.model_block(h)
+    proj = common.all_gather_model(common.column_parallel(x, p["in_proj"]))
+    bc = 2 * d_inner + 2 * n
+    return (proj[..., h0 * pp:h1 * pp],
+            proj[..., d_inner + h0 * pp:d_inner + h1 * pp],
+            proj[..., 2 * d_inner:2 * d_inner + n],
+            proj[..., 2 * d_inner + n:bc],
+            proj[..., bc + h0:bc + h1])
 
 
-def _decays(p: dict, dt: Tensor) -> tuple[Tensor, Tensor]:
-    """Returns (per-head log decay <= 0, per-head dt > 0)."""
-    z = dt.float() + p["dt_bias"]
+def _conv_params(p: dict, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
+    """The conv's (w, b) over this rank's channels: its heads' x, then all
+    of B and C (all of them on one device)."""
+    h, pp, _, d_inner = _dims(cfg)
+    h0, h1 = common.model_block(h)
+    w = common.all_gather_model(p["conv_w"])
+    b = common.all_gather_model(p["conv_b"])
+    return (torch.cat([w[:, h0 * pp:h1 * pp], w[:, d_inner:]], dim=-1),
+            torch.cat([b[h0 * pp:h1 * pp], b[d_inner:]], dim=-1))
+
+
+def _head_rows(p: dict, key: str, cfg: ModelConfig) -> Tensor:
+    """A replicated per-head leaf's rows of this rank's heads."""
+    return common.replicated_rows(p[key], *common.model_block(_dims(cfg)[0]))
+
+
+def _decays(p: dict, dt: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
+    """Returns (per-head log decay <= 0, per-head dt > 0) of this rank's
+    heads."""
+    z = dt.float() + _head_rows(p, "dt_bias", cfg)
     dtv = torch.logaddexp(z, torch.zeros((), dtype=z.dtype, device=z.device))
-    a = torch.exp(p["a_log"])                    # > 0
+    a = torch.exp(_head_rows(p, "a_log", cfg))   # > 0
     # Clamp so chunk * max-step-decay stays inside linear_scan.CLIP.
     log_decay = -torch.clamp(dtv * a, 0.0, linear_scan.MAX_STEP_DECAY)
     return log_decay, dtv
 
 
 def ssm_block(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """Full-sequence Mamba2 mixer.  x: (B, S, d) -> (B, S, d)."""
+    """Full-sequence Mamba2 mixer.  x: (B, S, d) -> (B, S, d); on a model
+    mesh the rank's heads (module docstring)."""
     b, s, _ = x.shape
     h, pp, n, d_inner = _dims(cfg)
+    h0, h1 = common.model_block(h)
+    hl = h1 - h0
     z, xin, bmat, cmat, dt = _project(p, x, cfg)
 
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
-    conv_out = F.silu(_short_conv(conv_in, p["conv_w"], p["conv_b"]))
-    xin, bmat, cmat = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    conv_out = F.silu(_short_conv(conv_in, *_conv_params(p, cfg)))
+    xin, bmat, cmat = torch.split(conv_out, [hl * pp, n, n], dim=-1)
 
-    log_decay, dtv = _decays(p, dt)              # (B, S, H), (B, S, H)
-    v = (xin.reshape(b, s, h, pp) * dtv[..., None]).float()
+    log_decay, dtv = _decays(p, dt, cfg)         # (B, S, H), (B, S, H)
+    v = (xin.reshape(b, s, hl, pp) * dtv[..., None]).float()
     # B and C broadcast across heads (their gradient sums over heads).
-    k = bmat[:, :, None, :].expand(b, s, h, n)
-    q = cmat[:, :, None, :].expand(b, s, h, n)
-    w = log_decay[..., None].expand(b, s, h, n)
+    k = bmat[:, :, None, :].expand(b, s, hl, n)
+    q = cmat[:, :, None, :].expand(b, s, hl, n)
+    w = log_decay[..., None].expand(b, s, hl, n)
 
     y, _ = linear_scan.gla_chunked(q, k, v, w, chunk=cfg.ssm_chunk)
-    y = y + p["d_skip"][None, None, :, None] * xin.reshape(b, s, h, pp)
-    y = y.reshape(b, s, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    y = y + _head_rows(p, "d_skip", cfg)[None, None, :, None] * \
+        xin.reshape(b, s, hl, pp)
+    y = y.reshape(b, s, hl * pp).to(x.dtype)
+    y = common.constrain(y, "batch", None, "ff", full=(b, s, d_inner))
+    y = common.split_rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
+    return common.row_parallel(y, p["out_proj"], x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +195,7 @@ def ssm_decode_step(p: dict, x: Tensor, state: Tensor, conv_state: Tensor,
     new_conv_state = window[:, 1:]
     xin_c, bmat_c, cmat_c = torch.split(conv_out, [d_inner, n, n], dim=-1)
 
-    log_decay, dtv = _decays(p, dt[:, 0])        # (B, H)
+    log_decay, dtv = _decays(p, dt[:, 0], cfg)   # (B, H)
     v = (xin_c.reshape(b, h, pp) * dtv[..., None]).float()
     k = bmat_c[:, None, :].expand(b, h, n)
     q = cmat_c[:, None, :].expand(b, h, n)

@@ -71,11 +71,15 @@ gathers the (n, D) stack.  The aggregate's block is gathered over the
 data axis, its replicated leaves over the model axis, and updates the
 rank's shard; norms (``direction_norm``, the optimizer's clip) sum the
 split leaves over the model axis (``optim.sharded_norm``).  The sketch
-Gram (per-leaf signs over the reference's columns) is refused there.
+Gram's signs are drawn on the whole leaves' widths, and each rank folds
+its block where the whole leaves hold its elements (``kernels.dispatch.
+sketch_fold_model``); the partial sketches are all-reduced over both
+axes before their Gram.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Optional
 
@@ -200,10 +204,14 @@ def model_columns(cfg: TrainerConfig, params: PyTree
     _, _, is_fsdp = _split_info(params, cfg.fsdp_keys)
     robust = [(leaf, spec) for leaf, spec, f
               in zip(leaves, cfg.param_specs, is_fsdp) if not f]
+    # A split leaf's shard lies in its whole leaf in runs of its split
+    # dimension's block times every later dimension.
+    runs = [math.prod(leaf.shape[spec.index(axes.model):])
+            if axes.model in spec else 0 for leaf, spec in robust]
     return shardlib.ModelColumns.build(
         [leaf.numel() for leaf, _ in robust],
         [axes.model in spec for _, spec in robust], axes.model_par,
-        model_common.model_mesh().index(axes.model))
+        model_common.model_mesh().index(axes.model), runs)
 
 
 def trainer_shard(cfg: TrainerConfig, device: torch.device,
@@ -247,16 +255,15 @@ def _model_shard_ctx(cfg: TrainerConfig, mesh, backend: str,
     if len(cfg.worker_axes) != 1 or model in cfg.worker_axes:
         raise ValueError(f"worker_axes on a model mesh is the one data axis "
                          f"the workers are dealt over, got {cfg.worker_axes}")
-    if _spec(cfg).sketch_dim:
-        raise ValueError("sketch_dim on a model mesh: the sketch's per-leaf "
-                         "signs follow the reference's columns; not ported")
     data = cfg.worker_axes[0]
     off, width = mc.offset, mc.width
     if backend == "cuda_hier":
         worker = data if mesh.size(data) > 1 else None
-        return shardlib.ShardCtx(mesh, model, worker, span=(off, off + width))
+        return shardlib.ShardCtx(mesh, model, worker, span=(off, off + width),
+                                 columns=mc)
     b0, b1 = shardlib.column_block(width, mesh.size(data), mesh.index(data))
-    return shardlib.ShardCtx(mesh, (model, data), span=(off + b0, off + b1))
+    return shardlib.ShardCtx(mesh, (model, data), span=(off + b0, off + b1),
+                             columns=mc)
 
 
 def init_state(params: PyTree, optimizer: Optimizer, n_workers: int,
@@ -458,7 +465,7 @@ class _ModelBlock(_Block):
             flat = flat[r0:r1].contiguous()
         return robust_lib.robust_aggregate_block(
             flat, self.spec, d=self.mc.total, n=self.n, perm=perm,
-            internals=internals, sh=self.sh)
+            signs=signs, internals=internals, sh=self.sh)
 
     def robust_leaves(self, vec: Tensor) -> list:
         if self.local != (0, self.mc.width):
@@ -650,10 +657,13 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
                                    n, stack, fsdp_sum, fold, part.deal())
 
         # One randomness draw for every aggregate of the step (the bucket
-        # permutation of the n workers, then the sketch's signs per leaf).
+        # permutation of the n workers, then the sketch's signs per leaf,
+        # on the whole leaves' widths on a model mesh).
         zero = torch.zeros((), dtype=torch.float32, device=dev)
+        shapes = [tuple(leaf.shape) for leaf in robust_p] if mc is None \
+            else [(w,) for w in mc.whole]
         perm, signs = robust_lib.draw_randomness(
-            [zero.expand((n,) + tuple(leaf.shape)) for leaf in robust_p],
+            [zero.expand((n,) + shape) for shape in shapes],
             spec, generator=generator, perm=perm, signs=signs)
 
         def closure(flat):

@@ -19,9 +19,13 @@ worker rows tiled over the data axis) and updates the rank's shard.
   attacked momentum: a column counted twice (a replicated leaf on both
   model ranks) would show there, where CWTM would not show it;
 * arctic's expert tables under ``fsdp_keys`` and ``options.checkpoint``
-  are tests/test_torch_model_mesh_resume.py's.
+  are tests/test_torch_model_mesh_resume.py's; rwkv6, zamba2, internvl2
+  and whisper run this module's helpers in
+  tests/test_torch_model_mesh_families_dshb.py, the sketch Gram in
+  tests/test_torch_model_mesh_sketch.py.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -55,6 +59,8 @@ from repro_torch.training import init_state as t_init_state
 from repro_torch.training.trainer import to_device
 from repro_torch.tree import tree_leaves
 
+import test_torch_model_mesh_world as world_cases
+
 CPU = torch.device("cpu")
 N, F, STEPS, LR = 8, 2, 2, 0.05
 WORLD_LIMIT = 300
@@ -70,6 +76,10 @@ CASES = {
                       False),
 }
 ARCHS = {"smollm": ("smollm-360m", dict(num_heads=3, num_kv_heads=1))}
+#: The other families' cases (tests/test_torch_model_mesh_world.py's),
+#: their constant leaves moved off their constants.
+FAMILY_ARCHS = ("rwkv6", "zamba2", "internvl2", "whisper")
+ARCHS.update({tag: world_cases.CASES[tag][:2] for tag in FAMILY_ARCHS})
 
 
 def j_mesh():
@@ -77,12 +87,22 @@ def j_mesh():
                              ("data", "model"))
 
 
-def _batches(vocab: int) -> list:
+def _batches(cfg) -> list:
+    """Three steps' worker batches of 2 x 16 tokens (a VLM's 8 text
+    positions, after its patches); seeded patches and frames."""
     rng = np.random.default_rng(0)
     out = []
     for _ in range(3):
-        s = rng.integers(0, vocab, (N, 2, 17)).astype(np.int32)
-        out.append({"tokens": s[..., :-1], "labels": s[..., 1:]})
+        s = rng.integers(0, cfg.vocab_size, (N, 2, 17)).astype(np.int32)
+        b = {"tokens": s[..., :-1], "labels": s[..., 1:]}
+        if cfg.family == "vlm":
+            b = {k: v[..., :8] for k, v in b.items()}
+            b["patches"] = rng.standard_normal(
+                (N, 2, cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+        if cfg.family == "encdec":
+            b["frames"] = rng.standard_normal(
+                (N, 2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        out.append(b)
     return out
 
 
@@ -94,6 +114,14 @@ def _perms() -> list:
         out.append(np.array(jax.random.permutation(jax.random.split(sub)[0],
                                                    N)))
     return out
+
+
+def ref_signs(key, leaves: list, s: int) -> list:
+    """The reference's sketch signs under ``key`` (its aggregate's key):
+    leaf i's ceil(d_i / s) Rademacher values, d_i the whole leaf's size."""
+    return [np.array(jax.random.rademacher(
+        jax.random.fold_in(key, i), (-(-int(np.prod(np.shape(leaf))) // s),),
+        jnp.float32)) for i, leaf in enumerate(leaves)]
 
 
 def _gram(leaves: list) -> np.ndarray:
@@ -111,16 +139,22 @@ def _reference(arch_tag: str, spec_kw: dict, fsdp: bool) -> dict:
                byz=JByz(f=F, attack="alie", eta=8.0),
                fsdp_keys=FSDP_KEYS if fsdp else ())
     opt = j_sgd(clip=2.0)
-    batches = _batches(jcfg.vocab_size)
+    batches = _batches(jcfg)
     with jmesh.use_mesh(j_mesh()), jcommon.mesh_axes_scope(
             jmesh.mesh_axes_for(jcfg, model_par=2)):
         model = j_build(jcfg)
         params = model.init(jax.random.PRNGKey(0))
+        if arch_tag in world_cases.UNCONSTANT:
+            params = world_cases._unconstant(params)
         step = jax.jit(j_build_step(model.loss, opt, cfg, j_constant(LR)))
         state = j_init_state(params, opt, N, cfg)
-        key, rows, grams = jax.random.PRNGKey(0), [], []
+        key, rows, grams, signs = jax.random.PRNGKey(0), [], [], []
         for b in batches[:STEPS]:
             key, sub = jax.random.split(key)
+            if spec_kw.get("sketch_dim"):       # the step's aggregate key
+                signs.append(ref_signs(jax.random.split(sub)[0],
+                                       jax.tree_util.tree_leaves(params),
+                                       spec_kw["sketch_dim"]))
             state, m = step(state, b, sub)
             rows.append({k: float(m[k]) for k in ("loss", "kappa_hat",
                                                   "direction_norm")})
@@ -128,7 +162,8 @@ def _reference(arch_tag: str, spec_kw: dict, fsdp: bool) -> dict:
                 "alie", state["momentum"], F, eta=8.0))))
     as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     return {"init": as_np(params), "params": as_np(state["params"]),
-            "rows": rows, "grams": grams, "batches": batches}
+            "rows": rows, "grams": grams, "batches": batches,
+            "signs": signs}
 
 
 def _tcfg(arch_tag, spec_kw, fsdp, specs):
@@ -144,8 +179,8 @@ def _setup(arch_tag: str, mesh):
     return cfg, axes
 
 
-def _rank_case(tag: str, ref: dict, perms: list, mesh) -> dict:
-    arch_tag, spec_kw, fsdp = CASES[tag]
+def _rank_case(tag: str, ref: dict, perms: list, mesh, cases: dict) -> dict:
+    arch_tag, spec_kw, fsdp = cases[tag]
     cfg, axes = _setup(arch_tag, mesh)
     with tmesh.use_mesh(mesh), tcommon.mesh_axes_scope(axes):
         model = t_build(cfg)
@@ -158,8 +193,10 @@ def _rank_case(tag: str, ref: dict, perms: list, mesh) -> dict:
         rows, grams = [], []
         for t, b in enumerate(ref["batches"][:STEPS]):
             internals: dict = {}
+            signs = [torch.from_numpy(x) for x in ref["signs"][t]] \
+                if ref["signs"] else None
             state, m = step(state, to_device(b, CPU), internals,
-                            perm=torch.from_numpy(perms[t]))
+                            perm=torch.from_numpy(perms[t]), signs=signs)
             rows.append({k: float(v) for k, v in m.items()})
             a = internals["attacked"].double()
             g = a @ a.T
@@ -171,33 +208,54 @@ def _rank_case(tag: str, ref: dict, perms: list, mesh) -> dict:
     return {"rows": rows, "grams": grams, "params": tree_leaves(whole),
             "shards": [t.numpy() for t in tree_leaves(state["params"])],
             "momentum": state["momentum"].numpy(),
-            "backend": rec.backend, "mesh_devices": rec.mesh_devices}
+            "backend": rec.backend, "mesh_devices": rec.mesh_devices,
+            "decisions": [d.primitive for d in rec.decisions]}
 
 
-def _world(rank: int, world: int, refs: dict, perms: list) -> dict:
+def _world(rank: int, world: int, refs: dict, perms: list,
+           cases: dict) -> dict:
     torch.set_num_threads(1)
     mesh = tmesh.make_debug_mesh(world // 2, 2)
-    return {tag: _rank_case(tag, refs[tag], perms, mesh) for tag in refs}
+    return {tag: _rank_case(tag, refs[tag], perms, mesh, cases)
+            for tag in refs}
 
 
-@pytest.fixture(scope="module")
-def refs():
-    return {tag: _reference(*case) for tag, case in CASES.items()}
-
-
-@pytest.fixture(scope="module")
-def worlds(refs):
-    return {(world // 2, 2): tmesh.spawn_world(
-        _world, world, (refs, _perms()), limit=WORLD_LIMIT)
+def run_cases(cases: dict) -> tuple:
+    """The reference's steps for ``cases`` and each world's ranks'."""
+    refs = {tag: _reference(*case) for tag, case in cases.items()}
+    return refs, {(world // 2, 2): tmesh.spawn_world(
+        _world, world, (refs, _perms(), cases), limit=WORLD_LIMIT)
         for world in (2, 4)}
+
+
+@pytest.fixture(scope="module")
+def run():
+    return run_cases(CASES)
+
+
+@pytest.fixture(scope="module")
+def refs(run):
+    return run[0]
+
+
+@pytest.fixture(scope="module")
+def worlds(run):
+    return run[1]
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=str)
 @pytest.mark.parametrize("tag", list(CASES))
 def test_dshb_step_matches_reference(worlds, refs, tag, shape):
+    check_step(worlds, refs, CASES, tag, shape)
+
+
+def check_step(worlds: dict, refs: dict, cases: dict, tag: str,
+               shape: tuple) -> None:
+    """One case's metrics, stack Gram and parameters on every rank of a
+    world against the reference's steps."""
     ref, tol = refs[tag], 1e-4 if "gm" in tag.split("+") else 1e-5
     for got in worlds[shape]:
-        assert got[tag]["backend"] == CASES[tag][1]["backend"]
+        assert got[tag]["backend"] == cases[tag][1]["backend"]
         assert got[tag]["mesh_devices"] == shape[0] * shape[1]
         for g, w in zip(got[tag]["rows"], ref["rows"]):
             assert g["loss"] == pytest.approx(w["loss"], rel=1e-5)

@@ -1,5 +1,6 @@
 """The model-split dense and moe models on gloo worlds of CPU processes,
-held to the reference's padded model on one device.
+held to the reference's padded model on one device (the other families
+run through this module's helpers in tests/test_torch_model_mesh_families.py).
 
 Each case's parameters are the reference's padded init (a one-device
 mesh of ``Auto`` axes, under ``mesh_axes_scope``; see
@@ -14,7 +15,9 @@ split experts) and gathers every gradient back with
 * qwen2 (QKV biases, random; kv heads split);
 * minitron with 1 kv head and ``pad_kv`` (kv padded to 2, split);
 * the moe family (mixtral, arctic) in tests/test_torch_model_mesh_moe.py,
-  which runs this module's helpers on its own worlds.
+  and rwkv6, zamba2, internvl2 and whisper in
+  tests/test_torch_model_mesh_families.py, which run this module's
+  helpers on their own worlds.
 
 Tolerances: logits within 1e-5 of the largest, the loss within 1e-5
 relative, each gradient leaf within 1e-5 of its largest magnitude (fp32
@@ -50,6 +53,13 @@ CASES = {
     "mixtral": ("mixtral-8x22b", {}, False, 64),
     "arctic": ("arctic-480b", {}, False, 32),
     "arctic-ff": ("arctic-480b", dict(num_experts=3), False, 32),
+    # 3 SSM (and attention) heads padded to 4 on the model axis of 2.
+    "rwkv6": ("rwkv6-3b", dict(ssm_heads=3), False, 32),
+    "zamba2": ("zamba2-2.7b", dict(ssm_heads=3, num_heads=3, num_kv_heads=3),
+               False, 32),
+    "internvl2": ("internvl2-2b", dict(num_kv_heads=1), False, 24),
+    "whisper": ("whisper-base", dict(num_heads=3, num_kv_heads=3), False,
+                24),
 }
 
 
@@ -64,11 +74,39 @@ def _cfgs(tag):
 
 
 def _batch(cfg, s: int) -> dict:
+    """Seeded tokens and labels; a VLM's seeded patches, an
+    encoder-decoder's seeded frames (zeros would hide their paths)."""
     rng = np.random.default_rng(1)
     tokens = rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)
     labels[:, :3] = -1
-    return {"tokens": tokens, "labels": labels}
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (2, cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+#: Cases whose constant-initialised leaves (norm gains, biases, rwkv6's
+#: u and decay bias, Mamba2's a_log / dt_bias / d_skip) are moved off
+#: their constants first: equal rows would hide a head read from the
+#: wrong rank's rows.
+UNCONSTANT = ("rwkv6", "zamba2", "internvl2", "whisper")
+
+
+def _unconstant(params):
+    rng = np.random.default_rng(3)
+
+    def move(a):
+        v = np.asarray(a)
+        if v.size < 2 or not np.all(v == v.reshape(-1)[0]):
+            return a
+        noise = 0.1 * rng.standard_normal(v.shape)
+        return jnp.asarray(v.astype(np.float32) + noise, a.dtype)
+    return jax.tree_util.tree_map(move, params)
 
 
 def _reference(tag: str) -> dict:
@@ -86,6 +124,8 @@ def _reference(tag: str) -> dict:
                 attn[k] = jnp.asarray(0.1 * rng.standard_normal(
                     attn[k].shape), attn[k].dtype)
             params = dict(params, blocks=dict(params["blocks"], attn=attn))
+        if tag in UNCONSTANT:
+            params = _unconstant(params)
         jb = {k: jnp.asarray(v) for k, v in batch.items()}
         loss, grads = jax.value_and_grad(
             lambda p: model.loss(p, jb)[0])(params)
@@ -197,11 +237,9 @@ def _refusals(rank: int, world: int) -> list:
         with tmesh.use_mesh(mesh), tcommon.mesh_axes_scope(
                 tmesh.mesh_axes_for(cfg, model_par=2)):
             model = t_build(cfg)
-            tokens = torch.zeros((1, 16), dtype=torch.long)
-            attempt(lambda: model.loss(model.init(0, torch.device("cpu")),
-                                       {"tokens": tokens, "labels": tokens,
-                                        "patches": torch.zeros((1, 8, 64)),
-                                        "frames": torch.zeros((1, 32, 128))}))
+            params = model.init(0, torch.device("cpu"))
+            attempt(lambda: model.decode_step(
+                params, None, torch.zeros((1, 1), dtype=torch.long), 0))
     cfg = t_reduced("mixtral-8x22b")
     for flag in ("seq_par", "expert_fsdp"):
         axes = tcommon.MeshAxes(model_par=2, **{flag: True})
@@ -228,9 +266,9 @@ def _refusals(rank: int, world: int) -> list:
 
 def test_what_waits_on_a_model_mesh_raises():
     got = tmesh.spawn_world(_refusals, 2, limit=120)[0]
-    assert all("item 20" in m for m in got[:4]), got[:4]
+    assert all("decode" in m and "item 20 (b)" in m for m in got[:4]), got[:4]
     assert all("item 19" in m for m in got[4:6]), got[4:6]
-    assert "decode" in got[6] and "item 20" in got[6]
+    assert "decode" in got[6] and "item 20 (b)" in got[6]
     assert "expected (2, 4)" in got[7]
     assert "model_par=4" in got[8]
     assert "256 ranks" in got[9]
