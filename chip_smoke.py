@@ -48,8 +48,8 @@ Phases, each fatal on failure:
      fallback; then step 1's attacked stack through robust_aggregate on
      the kernel backend against the leaf-streamed torch backend;
   8. the gram-rule path: 2 steps with NNM + GM, asserting K3 ran;
-  9. the hierarchical trainer at full width, n = 16, f = 3, ALIE, through
-     train_loop: hier + NNM + CWTM (3 steps; K6 = 1, K2 = 1, K1 = 0 per
+  9. the hierarchical trainer at full width (8 of 32 layers), n = 16, f
+     = 3, ALIE, through train_loop: hier + NNM + CWTM (3 steps; K6 = 1, K2 = 1, K1 = 0 per
      step), hier + CWTM (2 steps; K7 and K2), hier + NNM + GM (2 steps; K6
      and K3); then --agg bucketing+cwtm through launch.train.main (2 steps;
      K2 only);
@@ -71,7 +71,7 @@ Phases, each fatal on failure:
      bucketing lanes' (5, 9, 2842), f = 4 per lane through adjusted_f_dyn
      (the lane forms of K2's median and K3 at the grid's shape: phase 18);
  11. the fleet: ``repro_torch.launch.grid --full`` in process (61 jobs,
-     13 buckets, 100 rounds), asserting K4, K5 and the lane forms of K2's
+     13 buckets, GRID_ROUNDS = 50 rounds), asserting K4, K5 and the lane forms of K2's
      median and K3 launched, no single-lane K2 / K3 and no fallback, printing the accuracy table, ms per bucket-round and peak
      memory; then the cwtm | nnm and cwtm | bucketing buckets again on the
      torch backend, per-round losses within rtol 1e-4 of the kernel run;
@@ -92,7 +92,8 @@ Phases, each fatal on failure:
      loss and kappa_hat, peak memory below 70 GiB beside the reckoned
      peak);
  13. resumable runs (``repro_torch.resilience``): (a) full-width
-     smollm-360m, n = 8, f = 2, ALIE 8, NNM + CWTM, 4 D-SHB steps through
+     smollm-360m at 4 of 32 layers, n = 8, f = 2, ALIE 8, NNM + CWTM, 4
+     D-SHB steps through
      train_loop's scan engine (segments of 2) and its loop engine: final
      params, best params, momentum and every metric equal bit for bit, 1
      host metric transfer against 4, 4 K1 and 4 K2 launches each, ms per
@@ -146,7 +147,8 @@ Phases, each fatal on failure:
      rounds) on both backends: equal frontiers, losses within 1e-4, K3 /
      K4 / K5 launches asserted, the frontier table printed;
  16. the in-round health taps and the runtime's exporters: (a)
-     train_loop at full width, n = 8, f = 2, ALIE, NNM + CWTM, 3 steps
+     train_loop at full width (8 of 32 layers), n = 8, f = 2, ALIE, NNM +
+     CWTM, 3 steps
      tapped and untapped (params, loss, kappa_hat, direction_norm bit for
      bit, 1 K1 + 1 K2 a step, one metric transfer each, the tap columns'
      semantics, ms/step and peaks), step 1's stack through the kernel
@@ -234,10 +236,11 @@ Phases, each fatal on failure:
      decay) widths, batch 4 x seq 256, each timed;
  20. cached decode and greedy serving (``repro_torch.serving.
      ServeEngine``) at published widths from seeded bf16 weights:
-     smollm-360m, qwen2-7b (batch 8, prompt 256, 64 new), minitron-8b,
-     internvl2-2b (text decode), rwkv6-3b, zamba2-2.7b and whisper-base
-     (1500 seeded frames through ``prefill_cache``) at full depth,
-     mixtral-8x22b at 4 of 56 layers and arctic-480b at 1 of 35; batch 4,
+     qwen2-7b (batch 8, prompt 256, 64 new) and whisper-base (1500 seeded
+     frames through ``prefill_cache``) at full depth; smollm-360m 16 of 32
+     layers, minitron-8b 16 of 32, internvl2-2b (text decode) 12 of 24,
+     rwkv6-3b 16 of 32, zamba2-2.7b 24 of 54, mixtral-8x22b 4 of 56 and
+     arctic-480b 1 of 35; batch 4,
      prompt 64, 32 new (rwkv6 / zamba2 64) unless named.  Each run generates greedily through
      ``launch.serve.clocked_generate`` (prefill ms, ms per decoded token as
      the median step after the first, tokens per second, peak memory, the
@@ -249,9 +252,9 @@ Phases, each fatal on failure:
      E / k), replaying decode's expert picks
      (a bf16 rounding tips router near-ties; the flips are counted); the
      VLM's as a dense config); no kernel launch and no
-     fallback; then in fp32 (TF32 off) smollm-360m, rwkv6-3b and
-     zamba2-2.7b at full depth and mixtral-8x22b at 1 layer, within 1e-4
-     of max |forward|;
+     fallback; then in fp32 (TF32 off) smollm-360m and rwkv6-3b at 16 of
+     32 layers, zamba2-2.7b at 24 of 54 and mixtral-8x22b at 1 layer,
+     within 1e-4 of max |forward|;
  21. the multi-device aggregation backends (``launch.mesh``,
      ``kernels/shard.py``) in worlds of processes that share the card over
      gloo (``launch.mesh.spawn_world``; NCCL refuses two ranks on one
@@ -276,9 +279,10 @@ Phases, each fatal on failure:
      means, K2; hier + NNM + CWTM held to phase 6's aggregate under its
      near-tie rule, hier + CWTM within 1e-5; (c) the trainer: full-width
      smollm-360m D-SHB, ALIE, through ``train_loop`` with ``worker_axes``
-     on 2 ranks, NNM + CWTM on "cuda_sharded" (n = 8, f = 2, 3 steps) and
-     hier + NNM + CWTM on 1-D "cuda_hier" (n = 16, f = 3, 8 buckets of 2,
-     16 of 32 layers, 2 steps), each against the single-device run from
+     on 2 ranks, NNM + CWTM on "cuda_sharded" (n = 8, f = 2, 4 of 32
+     layers, 3 steps) and hier + NNM + CWTM on 1-D "cuda_hier" (n = 16, f
+     = 3, 8 buckets of 2, 2 of 32 layers, 2 steps), each against the
+     single-device run from
      the same seeded weights, run first: parameters within 1e-5 of the
      tree's largest magnitude, the loss within 1e-5, both ranks' copies
      equal bit for bit; ms per step and each rank's peak;
@@ -289,10 +293,10 @@ Phases, each fatal on failure:
      axis, D-SHB aggregating each rank's model-shard columns with K1 / K2,
      K6 / K7 on the hierarchical form); every case first on one device
      (the padded model whole under ``mesh_axes_scope``), then over the
-     world: (a) full-width smollm-360m at 32 of 32 layers, bf16, heads
+     world: (a) full-width smollm-360m at 4 of 32 layers, bf16, heads
      15 -> 16 and kv 5 -> 8, n = 8, f = 2, ALIE, NNM + CWTM, 2 steps on
      (data 2, model 2), the loss within 1e-3 and the parameters within
-     5e-3 (the reference's own sharded-vs-single bounds); (b) fp32 at 4
+     5e-3 (the reference's own sharded-vs-single bounds); (b) fp32 at 2
      of 32 layers on (1, 2) and (2, 2), NNM + CWTM and hier + NNM + CWTM
      (s = 2): the loss within 1e-5 relative, the parameters within 1e-5 x
      their largest magnitude, each step's stack Gram within 1e-5 of max
@@ -301,9 +305,38 @@ Phases, each fatal on failure:
      (a), the ranks' summed peak under 72 GB; (d) (b)'s run through
      ``train_loop`` under ``options.checkpoint`` on (2, 2), killed after
      step 1's snapshot and resumed: every rank's shards and momentum bit
-     for bit.  ms per step on one device and over the world, each rank's
-     peak, launches, collectives and model-axis all-reduces a step;
-     asserts K1 and K2 on every rank and empty fallback logs;
+     for bit; (e-j) every other family at its published widths, depth
+     cut, in bf16 and in fp32 with the Gram, and smollm's sketch route
+     (``MODEL_RUNS``).  ms per step on one device and over the world, each
+     rank's peak, launches, collectives and model-axis all-reduces a step;
+     asserts K1 and K2 on every rank and empty fallback logs.  Then
+     cached decode and ``ServeEngine`` on the same worlds
+     (``MODEL_DECODE_RUNS``), each case first on one device, seeded
+     weights and prompts: (k) qwen2-7b, 28 of 28 layers, bf16, batch 8
+     on (2, 2) (kv 4 -> 2 a rank, QKV biases); (l) mixtral-8x22b, 4 of 56,
+     the experts 4 a rank and the ring cache, on (1, 2); (m) internvl2-2b,
+     24 of 24, text decode, (1, 2); (n) rwkv6-3b, 32 of 32, (2, 2); (o)
+     zamba2-2.7b, 12 of 54 (two groups), (1, 2); (p) whisper-base, 6 + 6,
+     1500 seeded frames through ``prefill_cache``, (2, 2); batch 4,
+     prompt 64, 32 new unless named; (q) the tight set in fp32 (TF32
+     off) on (1, 2): smollm-360m (4 layers), mixtral-8x22b (1),
+     rwkv6-3b (2), zamba2-2.7b (6), whisper-base (6 + 6), prompt 16, 16
+     new.  The world is fed the one device's tokens (teacher-forced: each
+     step's logits within SERVE_REL of max |logits|, rwkv6 / zamba2
+     SERVE_REL_RECURRENT, (q) 1e-5 and every cache leaf 1e-5 of its
+     max), then its own greedy run through ``launch.serve.
+     clocked_generate`` must give the one device's tokens until the
+     row's first difference, which must lie at a near-tie (the one
+     device's top two logits within the case's bound) or after a routing
+     flip; MoE routing flips only at router near-ties.  (r)
+     the KV cache's sequence split: qwen2-7b at 2 layers, fp32, kv heads
+     unsplit, max_seq 16384, batch 2 on (1, 2) ("seq_model") and batch 1
+     on (2, 2) ("seq_both"), 8 seeded steps from position 12000 of a
+     seeded cache and 4 from position 100 (every rank but the first
+     masked), logits and cache within 1e-5 of one device.  Prefill ms
+     and ms per decoded token on one device and over the world, the
+     bound per token (``launch.roofline``), collectives a token a rank,
+     peaks; no kernel launch and empty fallback logs on every rank;
  23. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6; the
      lane forms of K2's median, K3, K6 and K7 on rows of their own), the
@@ -317,6 +350,18 @@ Phases, each fatal on failure:
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
 at the same f, which it must equal bit for bit (one body).
+
+Cuts for time (the script must end within its 1200 s limit on a slow
+chip host too, whose speed varies 1.5-2x between calls; phase 22's
+decode cases were paid for here; PERF.md says which comparison each
+gives up): 13a / 13b at 4 of 32 layers (13b's full-depth snapshot of 13
+GB took ~90 s of disk); phase 9 at 8 of 32; 16a / 16b at 8 of 32; phase
+20's smollm, minitron, internvl2 and rwkv6 runs at half their depth and
+zamba2 at 24 of 54 (bf16 and fp32); 21c's trainer at 4 and 2 of 32
+layers (32 and 16 before); 22a at 4 of 32, 22h / 22i whisper at 2 + 2
+of 6 + 6, 22b / 22j (and so 22d) at 2 layers (4 before); the grid at 50
+rounds (100 before).  22f keeps 12 layers: two shared-block groups, so
+the shared block's gradient is summed over groups on the model mesh.
 
 It needs one CUDA card and imports nothing of JAX or of the reference
 package ``repro``.
@@ -343,6 +388,7 @@ N_MAIN, F_MAIN = 8, 2
 D_MAIN = 361_821_120            # smollm-360m parameter count (tied, padded vocab)
 N_SENT, F_SENT, D_SENT = 17, 8, (1 << 24) + 3
 N_HIER, F_HIER = 16, 3          # hierarchical runs: s = 2, 8 buckets, f' = 3
+HIER_TRAIN_LAYERS = 8           # phase 9's depth, cut for time (of 32)
 SCALE_NS = (256, 1024, 4096, 10240)   # the reference's scale cases, s = 16
 HIER_N, HIER_S = 10240, 16      # the scale case of the hierarchical variant
 HIER_D = 1 << 20                # ... at a real width: a 42.9 GB fp32 stack
@@ -365,7 +411,7 @@ FLEET_WIDE = (2, 640, 1 << 20)  # K5 above 32 workers: the tiled product
 FLEET_GRID = (5, 17, 2842)      # a grid bucket: 5 lanes, the 48-48-10 MLP
 FLEET_GRID_BKT = (5, 9, 2842)   # a bucketing bucket: 17 workers, 9 means (s = 2)
 F_GRID = 4                      # the grid's f (n = 17)
-GRID_ROUNDS = 100
+GRID_ROUNDS = 50                # phase 11's rounds (100 before), cut for time
 REPS = 7
 RTOL = 1e-5                     # of the largest finite |plain| (fp32 contract)
 FP32_TFLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -1436,10 +1482,11 @@ def lm_batches(n: int, seed: int = 0):
 
 
 def run_loop(dev, name: str, spec_kw: dict, steps: int, expect: dict) -> dict:
-    """Full-width smollm-360m D-SHB through train_loop (the scan engine,
-    segments of one step, so ms per step is each segment's time) with a
-    hierarchical spec, n = 16, f = 3, ALIE; asserts finite metrics, no
-    fallback and the exact launches per step."""
+    """Full-width smollm-360m (HIER_TRAIN_LAYERS deep) D-SHB through
+    train_loop (the scan engine, segments of one step, so ms per step is
+    each segment's time) with a hierarchical spec, n = 16, f = 3, ALIE;
+    asserts finite metrics, no fallback and the exact launches per
+    step."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.types import AggregatorSpec
@@ -1448,7 +1495,8 @@ def run_loop(dev, name: str, spec_kw: dict, steps: int, expect: dict) -> dict:
     from repro_torch.optim import sgd
     from repro_torch.optim.schedules import cosine
     from repro_torch.training import ByzantineConfig, TrainerConfig, train_loop
-    model = build_model(get_config("smollm-360m"))
+    model = build_model(get_config("smollm-360m").replace(
+        num_layers=HIER_TRAIN_LAYERS))
     params = model.init(0, dev)
     cfg = TrainerConfig(agg=AggregatorSpec(f=F_HIER, hier=True, **spec_kw),
                         byz=ByzantineConfig(f=F_HIER, attack="alie"))
@@ -1781,12 +1829,16 @@ def phase_fed_full(dev, rate: float) -> dict:
     return got
 
 
-#: Phase 13: resumable runs.  13a / 13b: full-width smollm-360m, n = 8,
-#: f = 2, ALIE 8, NNM + CWTM, 4 D-SHB steps in segments of 2; 13c: the
+#: Phase 13: resumable runs.  13a / 13b: full-width smollm-360m at
+#: RESUME_LAYERS of its 32 layers, n = 8, f = 2, ALIE 8, NNM + CWTM, 4
+#: D-SHB steps in segments of 2; 13c: the
 #: registry's labelskew_alie_partial, 20 rounds in segments of 5; 13d: the
 #: grid's cwtm | nnm bucket (5 lanes, n = 17, f = 4), 16 rounds in segments
 #: of 2 (evals every 2 rounds).
 RESUME_STEPS, RESUME_CHUNK, RESUME_ETA = 4, 2, 8.0
+#: The depth of 13a / 13b, cut for time: a 3.1 GB snapshot, where the full
+#: depth's 13 GB took ~90 s of disk.
+RESUME_LAYERS = 4
 FLEET_RESUME_ROUNDS, FLEET_RESUME_CHUNK = 16, 2
 
 
@@ -1836,9 +1888,9 @@ def last_seq() -> int:
 
 
 def phase_resume_trainer(dev) -> dict:
-    """13a / 13b: train_loop's scan engine at full width against its loop
-    engine, then a kill after the step-2 snapshot and a resume from it;
-    returns the launches of the four runs summed."""
+    """13a / 13b: train_loop's scan engine at full width (RESUME_LAYERS
+    deep) against its loop engine, then a kill after the step-2 snapshot
+    and a resume from it; returns the launches of the four runs summed."""
     import shutil
     import tempfile
     import torch
@@ -1854,7 +1906,8 @@ def phase_resume_trainer(dev) -> dict:
     from repro_torch.rounds import RoundOptions
     from repro_torch.training import ByzantineConfig, TrainerConfig, train_loop
     from repro_torch.tree import tree_leaves
-    model = build_model(get_config("smollm-360m"))
+    model = build_model(get_config("smollm-360m").replace(
+        num_layers=RESUME_LAYERS))
     params = model.init(0, dev)
     d = sum(p.numel() for p in tree_leaves(params))
     cfg = TrainerConfig(agg=AggregatorSpec(rule="cwtm", f=F_MAIN, pre="nnm"),
@@ -2828,6 +2881,7 @@ TAPS_STEPS, TAPS_GM_STEPS = 3, 2            # 16a
 TAPS_FED_ROUNDS, TAPS_NAN_ROUNDS = 2, 20    # 16b
 TAPS_FLEET_ROUNDS, TAPS_FLEET_CHUNK = 30, 10    # 16c
 TAPS_SVC_ROUNDS, TAPS_SVC_CHUNK = 12, 3     # 16d
+TAPS_LAYERS = 8         # 16a / 16b's depth, cut for time (of 32)
 TAPS_REL = 1e-5         # dist / cos, kernel vs torch backend taps
 TAPS_TRIM_ABS = 1e-6    # trim_frac, kernel vs torch backend taps
 TAPS_FLEET_RTOL = 1e-4  # the fleet's kernel vs torch backend tolerance
@@ -3258,9 +3312,11 @@ def phase_taps(dev, peak7: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     t0 = time.perf_counter()
-    model = build_model(get_config("smollm-360m"))
+    model = build_model(get_config("smollm-360m").replace(
+        num_layers=TAPS_LAYERS))
     params = model.init(0, dev)
-    log("-- 16a. the main path tapped, full-width smollm-360m, n=8 f=2 ALIE")
+    log(f"-- 16a. the main path tapped, full-width smollm-360m at "
+        f"{TAPS_LAYERS} of 32 layers, n=8 f=2 ALIE")
     total = phase_taps_trainer(dev, model, params, peak7)
     secs = {"16a": time.perf_counter() - t0}
     log("-- 16b. FedServer tapped at full width; faulty_nan_quarantine")
@@ -4397,19 +4453,22 @@ def phase_families(dev, card: str) -> dict:
 #: prompt + new.  arctic-480b runs 1 of 35 layers: ``materialize`` draws
 #: each expert leaf in fp32 before its cast, (1, 128, 7168, 4864) = 17.8
 #: GB beside 28.1 GB of bf16 weights; two layers would not fit.  mixtral
-#: runs 4 of 56 layers (20.8 GB).  Every other arch runs at full depth.
+#: runs 4 of 56 layers (20.8 GB).  Cut for time, smollm,
+#: minitron, internvl2, rwkv6 run half their depth and zamba2 24 of 54
+#: (four groups); qwen2-7b (20b, the serving cell's shape) and whisper
+#: run at full depth.
 #: ``new`` is cut to keep the phase near a minute (the steps are
 #: launch-bound, 10-50 ms each): 32 (qwen2-7b 64) where nothing else
 #: bounds it; rwkv6 / zamba2 keep 64, since their forward check runs
 #: prompt + new tokens, a whole number of 64-token scan chunks.
-SERVE_RUNS = (("20a", "smollm-360m", 32, 4, 64, 32),
+SERVE_RUNS = (("20a", "smollm-360m", 16, 4, 64, 32),
               ("20b", "qwen2-7b", 28, 8, 256, 64),
-              ("20c", "minitron-8b", 32, 4, 64, 32),
+              ("20c", "minitron-8b", 16, 4, 64, 32),
               ("20d", "mixtral-8x22b", 4, 4, 64, 32),
               ("20e", "arctic-480b", 1, 4, 64, 32),
-              ("20f", "internvl2-2b", 24, 4, 64, 32),
-              ("20g", "rwkv6-3b", 32, 4, 64, 64),
-              ("20h", "zamba2-2.7b", 54, 4, 64, 64),
+              ("20f", "internvl2-2b", 12, 4, 64, 32),
+              ("20g", "rwkv6-3b", 16, 4, 64, 64),
+              ("20h", "zamba2-2.7b", 24, 4, 64, 64),
               ("20i", "whisper-base", 6, 4, 64, 32))
 #: bf16 decode against the bf16 forward of the same tokens: max |dec -
 #: fwd| over every step's logits, as a share of max |fwd|.  The two run
@@ -4432,10 +4491,10 @@ SERVE_REL_RECURRENT = 1.0 / 4
 #: fp32 decode against the fp32 forward (TF32 off): 1e-4 of max |fwd|.
 SERVE_FP32_REL = 1e-4
 #: fp32 runs: (label, arch, layers, batch, prompt, new).
-SERVE_FP32_RUNS = (("20a fp32", "smollm-360m", 32, 4, 64, 32),
+SERVE_FP32_RUNS = (("20a fp32", "smollm-360m", 16, 4, 64, 32),
                    ("20d fp32", "mixtral-8x22b", 1, 4, 64, 32),
-                   ("20g fp32", "rwkv6-3b", 32, 4, 64, 64),
-                   ("20h fp32", "zamba2-2.7b", 54, 4, 64, 64))
+                   ("20g fp32", "rwkv6-3b", 16, 4, 64, 64),
+                   ("20h fp32", "zamba2-2.7b", 24, 4, 64, 64))
 
 
 def serve_forward(model, params, tokens, frames):
@@ -4695,11 +4754,13 @@ MESH_LANES = (("lanes nnm+cwtm", dict(pre="nnm", rule="cwtm"),
                dict(gram_batched=1, mixtrim_dyn=1, combine_lanes=0)),
               ("lanes nnm+gm", dict(pre="nnm", rule="gm"),
                dict(gram_batched=1, mixtrim_dyn=0, combine_lanes=1)))
-#: 21c: (name, layers, n, f, spec, steps, launches a step).
-MESH_TRAIN = (("nnm+cwtm", 32, N_MAIN, F_MAIN,
+#: 21c: (name, layers, n, f, spec, steps, launches a step); full width,
+#: the depth cut to 4 and 2 of 32 layers to pay for phase 22's decode
+#: cases (32 and 16 before).
+MESH_TRAIN = (("nnm+cwtm", 4, N_MAIN, F_MAIN,
                dict(pre="nnm", rule="cwtm"), 3,
                dict(gram=1, mixtrim=1, bucketgram=0, bucketmeans=0)),
-              ("hier+nnm+cwtm", 16, N_HIER, F_HIER,
+              ("hier+nnm+cwtm", 2, N_HIER, F_HIER,
                dict(pre="nnm", rule="cwtm", hier=True, bucket_size=2), 2,
                dict(gram=0, mixtrim=1, bucketgram=1, bucketmeans=0)))
 MESH_KERNELS = ("gram", "mixtrim", "combine", "gram_batched", "mixtrim_dyn",
@@ -5283,18 +5344,18 @@ def phase_mesh(dev, hier_ref_dir: str) -> dict:
 
 #: (name, arch, layers, dtype, n, f, spec, steps, mesh shapes, tight, fsdp)
 #: ``tight``: fp32, held at 1e-5 with the stack's Gram.  22e-22j: every
-#: other family at its published widths (bf16, depth cut; 22f two groups
-#: of six, so the shared block runs twice), each family again in fp32
+#: other family at its published widths (bf16, depth cut; whisper's
+#: encoder cut with its decoder), each family again in fp32
 #: with the Gram (22i: a bf16 run's 5e-3 bound on the parameters lies
 #: above most elements of an update clipped to a norm of 0.1, so it checks
 #: the forward pass more than the split gradients), and the sketch route
 #: (sketch_dim 512, phase 15b's).
 MODEL_RUNS = (
-    ("22a", "smollm-360m", 32, "bf16", N_MAIN, F_MAIN,
+    ("22a", "smollm-360m", 4, "bf16", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), False, False),
-    ("22b nnm+cwtm", "smollm-360m", 4, "fp32", N_MAIN, F_MAIN,
+    ("22b nnm+cwtm", "smollm-360m", 2, "fp32", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm"), 2, ((1, 2), (2, 2)), True, False),
-    ("22b hier+nnm+cwtm", "smollm-360m", 4, "fp32", N_MAIN, F_MAIN,
+    ("22b hier+nnm+cwtm", "smollm-360m", 2, "fp32", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm", hier=True, bucket_size=2), 2,
      ((1, 2), (2, 2)), True, False),
     ("22c", "mixtral-8x22b", 1, "bf16", 4, 1,
@@ -5305,7 +5366,7 @@ MODEL_RUNS = (
      dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), False, False),
     ("22g", "internvl2-2b", 2, "bf16", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), False, False),
-    ("22h", "whisper-base", 6, "bf16", N_MAIN, F_MAIN,
+    ("22h", "whisper-base", 2, "bf16", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), False, False),
     ("22i rwkv6", "rwkv6-3b", 2, "fp32", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
@@ -5313,9 +5374,9 @@ MODEL_RUNS = (
      dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
     ("22i internvl2", "internvl2-2b", 2, "fp32", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
-    ("22i whisper", "whisper-base", 6, "fp32", N_MAIN, F_MAIN,
+    ("22i whisper", "whisper-base", 2, "fp32", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
-    ("22j", "smollm-360m", 4, "fp32", N_MAIN, F_MAIN,
+    ("22j", "smollm-360m", 2, "fp32", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm", sketch_dim=SKETCH_DIM), 2,
      ((1, 2), (2, 2)), True, False),
 )
@@ -5369,6 +5430,8 @@ def _model_setup(run, dev, mesh):
     full = get_config(arch)
     cfg = full.replace(num_layers=layers, dtype=torch.bfloat16
                        if dtype == "bf16" else torch.float32)
+    if full.encoder_layers:
+        cfg = cfg.replace(encoder_layers=min(layers, full.encoder_layers))
     axes = mesh_axes_for(cfg, model_par=MODEL_PAR)
     model = build_model(cfg)
     with common.mesh_axes_scope(axes):
@@ -5525,8 +5588,8 @@ def _model_compare(run, got: dict, ref_path: str, mesh) -> dict:
         err = max(err, float((a.float() - b.float()).abs().max()))
         scale = max(scale, float(b.float().abs().max()))
     out = {"err": err, "scale": scale, "loss": got["hist"]["loss"],
-           "ref_loss": ref["loss"], "kappa_hat": got["hist"]["kappa_hat"],
-           "ms": got["hist"]["ms"], "ref_ms": ref["ms"], "peak": got["peak"],
+           "ref_loss": ref["loss"], "ms": got["hist"]["ms"],
+           "ref_ms": ref["ms"], "peak": got["peak"],
            "counts": got["counts"], "collectives": got["collectives"],
            "model_all_reduces": got["model_all_reduces"],
            "fallbacks": got["fallbacks"], "record": got["record"],
@@ -5588,15 +5651,511 @@ def _model_resume(dev, mesh, tmp: str) -> dict:
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22k-22r: cached decode and ServeEngine on the model mesh.
+# ---------------------------------------------------------------------------
+
+#: (label, arch, layers, dtype, batch, prompt, new, mesh shape): greedy
+#: serving through ServeEngine at published widths from seeded weights,
+#: each first on one device (the padded model whole), then over its mesh
+#: (phase 22's world of that size): 22k-22p bf16, 22q the tight set in
+#: fp32 (TF32 off).
+MODEL_DECODE_RUNS = (
+    ("22k", "qwen2-7b", 28, "bf16", 8, 64, 32, (2, 2)),
+    ("22l", "mixtral-8x22b", 4, "bf16", 4, 64, 32, (1, 2)),
+    ("22m", "internvl2-2b", 24, "bf16", 4, 64, 32, (1, 2)),
+    ("22n", "rwkv6-3b", 32, "bf16", 4, 64, 32, (2, 2)),
+    ("22o", "zamba2-2.7b", 12, "bf16", 4, 64, 32, (1, 2)),
+    ("22p", "whisper-base", 6, "bf16", 4, 64, 32, (2, 2)),
+    ("22q smollm", "smollm-360m", 4, "fp32", 4, 16, 16, (1, 2)),
+    ("22q mixtral", "mixtral-8x22b", 1, "fp32", 4, 16, 16, (1, 2)),
+    ("22q rwkv6", "rwkv6-3b", 2, "fp32", 4, 16, 16, (1, 2)),
+    ("22q zamba2", "zamba2-2.7b", 6, "fp32", 4, 16, 16, (1, 2)),
+    ("22q whisper", "whisper-base", 6, "fp32", 4, 16, 16, (1, 2)),
+)
+#: 22r, the KV cache's sequence split: qwen2-7b at 2 of 28 layers, fp32,
+#: its kv heads unsplit (``MeshAxes(shard_kv=False)``: what the
+#: reference's model axis of 16 gives qwen2's 4 kv heads; no published
+#: arch at par 2 gives it) and max_seq 16384, a span above 8192.
+#: (label, batch, mesh shape): batch 2 on (1, 2) puts the sequence over
+#: the model axis ("seq_model"), batch 1 on (2, 2) over both ("seq_both").
+MODEL_SEQ_RUNS = (("22r seq_model", 2, (1, 2)), ("22r seq_both", 1, (2, 2)))
+SEQ_LAYERS, SEQ_SPAN = 2, 16384
+#: (first position, steps, cache seed): the cache's first positions filled
+#: from the seed, then seeded tokens stepped from there: from 12000 the
+#: live slots span the ranks; from 100 every rank but the first holds only
+#: masked slots.
+SEQ_PARTS = ((12000, 8, 31), (100, 4, 32))
+DECODE_FP32_REL = 1e-5               # 22q / 22r: of max |logits|, each leaf
+
+
+def _decode_setup(run):
+    """(model, config, MeshAxes) of one MODEL_DECODE_RUNS entry."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import mesh_axes_for
+    from repro_torch.models import build_model
+    _, arch, layers, dtype, *_ = run
+    cfg = get_config(arch).replace(num_layers=layers, dtype=torch.bfloat16
+                                   if dtype == "bf16" else torch.float32)
+    return build_model(cfg), cfg, mesh_axes_for(cfg, model_par=MODEL_PAR)
+
+
+def _decode_rel(cfg) -> float:
+    import torch
+    if cfg.dtype == torch.float32:
+        return DECODE_FP32_REL
+    return SERVE_REL_RECURRENT if cfg.family in ("ssm", "hybrid") \
+        else SERVE_REL
+
+
+class RouterGaps(RouterPicks):
+    """:class:`RouterPicks` that also keeps, per dispatch, the gap between
+    the k-th and the (k+1)-th router probability of every (row, token)
+    and the largest: what says whether a pick is a near-tie."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = orig = moe.top_k
+        self.gaps: list = []
+
+        def top_k(probs, k):
+            vals, idx = orig(probs, min(k + 1, probs.shape[-1]))
+            self.picks.append(idx[..., :k])
+            self.gaps.append((vals[..., k - 1] - vals[..., -1],
+                              vals[..., 0]))
+            return vals[..., :k], idx[..., :k]
+
+        moe.top_k = top_k
+        return self
+
+
+class RouterFollow(RouterPicks):
+    """Inside a ``with`` block each MoE dispatch routes as another run did
+    at the same dispatch (``want``: its (B, t, k) picks in order, this
+    rank's rows ``lo:hi``), the gates read from this run's own
+    probabilities at those experts (as :class:`RouterReplay`); this run's
+    own picks are kept in ``picks``, to count where they differ."""
+
+    def __init__(self, want: list, lo: int, hi: int):
+        super().__init__()
+        self.want, self.lo, self.hi = want, lo, hi
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._orig = orig = moe.top_k
+
+        def top_k(probs, k):
+            _, own = orig(probs, k)
+            idx = self.want[len(self.picks)][self.lo:self.hi].to(
+                probs.device)
+            self.picks.append(own)
+            return torch.gather(probs, -1, idx), idx
+
+        moe.top_k = top_k
+        return self
+
+
+def _decode_start(model, cfg, params, eng, batch: int, max_seq: int, dev):
+    """A fresh cache: whisper's from prefill_cache over seeded frames
+    (the whole batch's; on a mesh each data rank encodes its rows)."""
+    import torch
+    if cfg.family != "encdec":
+        return eng.init_cache()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    frames = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                         generator=gen, device=dev)
+    return model.prefill_cache(params, frames, batch, max_seq)
+
+
+def _decode_one(run, dev, tmp: str) -> dict:
+    """A MODEL_DECODE_RUNS entry on one device: greedy through
+    clocked_generate, every step's logits, the final cache and the
+    router's picks to ``tmp``; returns its numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import roofline
+    from repro_torch.launch.serve import clocked_generate
+    from repro_torch.models import common
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import tree_leaves
+    label, _, _, _, batch, prompt, new, _ = run
+    model, cfg, axes = _decode_setup(run)
+    max_seq = prompt + new
+    prompts = np.random.default_rng(22).integers(0, cfg.vocab_size,
+                                                 (batch, prompt))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with common.mesh_axes_scope(axes):
+        params = model.init(0, dev)
+        eng = ServeEngine(model, params, batch_size=batch, max_seq=max_seq)
+        cache = _decode_start(model, cfg, params, eng, batch, max_seq, dev)
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        with RouterGaps() as route:
+            out = clocked_generate(eng, prompts, new, cache, keep_logits=True)
+        torch.cuda.synchronize(dev)
+    launches = {k: v for k, v in kdispatch.launch_counts().items() if v}
+    if launches:
+        raise AssertionError(f"{label}: decode launched kernels: {launches}")
+    no_fallback(label)
+    logits = out["logits"]
+    top2 = logits.topk(2, dim=-1).values
+    torch.save({"logits": logits.cpu(),
+                "tokens": torch.from_numpy(out["tokens"]),
+                "cache": [t.cpu() for t in tree_leaves(cache)],
+                "picks": [p.cpu() for p in route.picks]},
+               f"{tmp}/{label}.decode.pt")
+    bnd = statistics.median(
+        [1e3 * max(t.memory_s, t.compute_s) for t in
+         (roofline.decode_step_terms(cfg, batch, max_seq, prompt + i)
+          for i in range(1, new - 1))])
+    res = {"tokens": out["tokens"], "gap": (top2[..., 0] - top2[..., 1]
+                                            ).cpu().numpy(),
+           "scale": float(logits.abs().max()), "prefill_ms": out["prefill_ms"],
+           "ms": statistics.median(out["step_ms"][1:]), "bound_ms": bnd,
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "picks": [p.cpu().numpy() for p in route.picks],
+           "router": [(g.cpu().numpy(), m.cpu().numpy())
+                      for g, m in route.gaps]}
+    del params, eng, cache, out, logits, route
+    torch.cuda.empty_cache()
+    return res
+
+
+def _decode_rank(run, dev, mesh, tmp: str) -> dict:
+    """A MODEL_DECODE_RUNS entry on one rank: the rank's own greedy run
+    through clocked_generate (its tokens, prefill ms, ms per token,
+    collectives a token), then a teacher-forced pass fed the one
+    device's tokens: each step's logits of this rank's rows and the final
+    cache's shard against the one device's.  The teacher-forced pass
+    starts from a clone of the greedy run's prefill (the same prompts);
+    a MoE's prefills its own cache, routing as the one device routed
+    (:class:`RouterFollow`; its own picks kept)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import dispatch as kdispatch
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.serve import clocked_generate
+    from repro_torch.models import common
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import tree_leaves, tree_map
+    label, _, _, _, batch, prompt, new, _ = run
+    model, cfg, axes = _decode_setup(run)
+    max_seq = prompt + new
+    prompts = np.random.default_rng(22).integers(0, cfg.vocab_size,
+                                                 (batch, prompt))
+    ref = torch.load(f"{tmp}/{label}.decode.pt")
+    t_run = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tmesh.use_mesh(mesh), common.mesh_axes_scope(axes):
+        params = model.init(0, dev)
+        eng = ServeEngine(model, params, batch_size=batch, max_seq=max_seq)
+        lo, hi = common.batch_block(batch)
+        kdispatch.reset_launch_counts()
+        kdispatch.reset_fallbacks()
+        kept: dict = {}
+
+        def keep(c, p):
+            c, lg, n = ServeEngine.prefill(eng, c, p)
+            kept["cache"], kept["logits"] = tree_map(torch.clone, c), lg
+            return c, lg, n
+
+        start = _decode_start(model, cfg, params, eng, batch, max_seq, dev)
+        eng.prefill = keep          # clocked_generate times it, then drops it
+        tmesh.reset_collective_log()
+        greedy = clocked_generate(eng, prompts, new, start)
+        eng.__dict__.pop("prefill", None)
+        colls = collective_summary()
+        del start
+        forced = torch.as_tensor(ref["tokens"], device=dev).long()[lo:hi]
+        with torch.inference_mode(), RouterFollow(ref["picks"], lo,
+                                                  hi) as route:
+            cache, lg = kept.pop("cache"), kept.pop("logits")
+            if cfg.num_experts:
+                cache = _decode_start(model, cfg, params, eng, batch,
+                                      max_seq, dev)
+                cache, lg, _ = eng.prefill(cache, prompts)
+            steps = [lg[:, -1]]
+            for i in range(new - 1):
+                lg, cache = model.decode_step(
+                    params, cache, forced[:, i:i + 1], prompt + i,
+                    batch=batch, max_seq=max_seq)
+                steps.append(lg[:, -1])
+        want = ref["logits"][lo:hi].to(dev)
+        err = float((torch.stack(steps, 1) - want).abs().max())
+        cdescs = model.cache_descs(batch, max_seq)
+        cache_err = 0.0
+        for got, whole, d in zip(tree_leaves(cache), ref["cache"],
+                                 tree_leaves(cdescs)):
+            w = whole[common.shard_slice(d, axes, mesh)].to(dev).float()
+            cache_err = max(cache_err, float((got.float() - w).abs().max())
+                            / max(float(w.abs().max()), 1e-30))
+        launches = {k: v for k, v in kdispatch.launch_counts().items() if v}
+        fallbacks = [f"{d.primitive}: {d.used} ({d.reason})"
+                     for d in kdispatch.fallback_log()]
+    calls = prompt + new - 1
+    out = {"err": err, "cache_err": cache_err, "tokens": greedy["tokens"],
+           "prefill_ms": greedy["prefill_ms"],
+           "ms": statistics.median(greedy["step_ms"][1:]),
+           "per_token": {k: c["calls"] / calls for k, c in colls.items()},
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "launches": launches, "fallbacks": fallbacks,
+           "picks": [p.cpu().numpy() for p in route.picks]
+           if cfg.num_experts else None, "rows": (lo, hi),
+           "seconds": time.perf_counter() - t_run}
+    del params, eng, greedy, cache, steps, want, forced
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seq_cache(model, batch: int, fill: int, seed: int, dev):
+    """The whole 22r cache: its first ``fill`` positions seeded normal
+    values (the same on every rank and on one device), zeros after."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_map
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cache = tree_map(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                           device=dev),
+                     model.cache_descs(batch, SEQ_SPAN))
+    for t in tree_leaves(cache):
+        t[:, :, :fill] = torch.randn(t[:, :, :fill].shape, generator=gen,
+                                     device=dev, dtype=t.dtype)
+    return cache
+
+
+def _seq_setup():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import MeshAxes
+    cfg = get_config("qwen2-7b").replace(num_layers=SEQ_LAYERS,
+                                         dtype=torch.float32)
+    return build_model(cfg), cfg, MeshAxes(model_par=MODEL_PAR,
+                                           shard_kv=False)
+
+
+def _seq_steps(model, params, cache, batch: int, pos0: int, steps: int,
+               dev, lo: int, hi: int) -> tuple[list, list]:
+    """Seeded tokens stepped from ``pos0``: each step's logits (this
+    rank's rows) and ms."""
+    import numpy as np
+    import torch
+    tokens = torch.as_tensor(np.random.default_rng(pos0).integers(
+        0, model.cfg.vocab_size, (batch, steps)), device=dev)[lo:hi]
+    logits, ms = [], []
+    for i in range(steps):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, tokens[:, i:i + 1],
+                                      pos0 + i, batch=batch,
+                                      max_seq=SEQ_SPAN)
+        torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        logits.append(lg)
+    return logits, ms
+
+
+def _seq_one(run, dev, tmp: str) -> dict:
+    """22r on one device: every part's logits and final cache to
+    ``tmp``."""
+    import torch
+    from repro_torch.models import common
+    from repro_torch.tree import tree_leaves
+    label, batch, _ = run
+    model, cfg, axes = _seq_setup()
+    saved, ms = {}, []
+    with common.mesh_axes_scope(axes):
+        params = model.init(0, dev)
+        for pos0, steps, seed in SEQ_PARTS:
+            cache = _seq_cache(model, batch, pos0, seed, dev)
+            lg, part_ms = _seq_steps(model, params, cache, batch, pos0,
+                                     steps, dev, 0, batch)
+            ms += part_ms[1:]
+            saved[pos0] = {"logits": [t.cpu() for t in lg],
+                           "cache": [t.cpu() for t in tree_leaves(cache)]}
+            del cache
+    torch.save(saved, f"{tmp}/{label}.seq.pt")
+    del params
+    torch.cuda.empty_cache()
+    return {"ms": statistics.median(ms)}
+
+
+def _seq_rank(run, dev, mesh, tmp: str) -> dict:
+    """22r on one rank: every part against the one device's logits (this
+    rank's rows) and cache (this rank's shard)."""
+    import torch
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.models import attention, common
+    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_map
+    label, batch, _ = run
+    model, cfg, axes = _seq_setup()
+    ref = torch.load(f"{tmp}/{label}.seq.pt")
+    err, cache_err, ms = 0.0, 0.0, []
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tmesh.use_mesh(mesh), common.mesh_axes_scope(axes):
+        seq_axes = attention.cache_seq_axes(cfg, batch, SEQ_SPAN)
+        params = model.init(0, dev)
+        descs = tree_leaves(model.cache_descs(batch, SEQ_SPAN))
+        lo, hi = common.batch_block(batch)
+        tmesh.reset_collective_log()
+        for pos0, steps, seed in SEQ_PARTS:
+            whole = _seq_cache(model, batch, pos0, seed, dev)
+            cache = tree_map(lambda t, d: t[common.shard_slice(
+                d, axes, mesh)].clone(), whole,
+                model.cache_descs(batch, SEQ_SPAN))
+            del whole
+            lg, part_ms = _seq_steps(model, params, cache, batch, pos0, steps,
+                                     dev, lo, hi)
+            ms += part_ms[1:]
+            want = ref[pos0]
+            for a, b in zip(lg, want["logits"]):
+                b = b[lo:hi].to(dev)
+                err = max(err, float((a - b).abs().max())
+                          / float(b.abs().max()))
+            for a, b, d in zip(tree_leaves(cache), want["cache"], descs):
+                scale = float(b.abs().max())
+                b = b[common.shard_slice(d, axes, mesh)].to(dev)
+                cache_err = max(cache_err,
+                                float((a - b).abs().max()) / scale)
+            del cache
+        colls = collective_summary()
+    calls = sum(steps for _, steps, _ in SEQ_PARTS)
+    return {"err": err, "cache_err": cache_err, "ms": statistics.median(ms),
+            "seq_axes": seq_axes, "span": descs[0].shape[2] // mesh.size(
+                seq_axes),
+            "per_token": {k: c["calls"] / calls for k, c in colls.items()},
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def _check_decode(run, one: dict, ranks: list, card: str) -> None:
+    """A MODEL_DECODE_RUNS entry's contracts on every rank, its line
+    logged: the teacher-forced logits within the bound of max |logits|
+    (fp32: every cache leaf too), the greedy tokens equal on every rank
+    and equal the one device's until the row's first difference, which
+    must lie at a near-tie (the one device's top two logits within the
+    bound, whatever this run's own gap) or at or after the first output
+    step a routing flip reaches; MoE routing
+    flips only at near-ties of the router (its k-th and (k+1)-th
+    probabilities within SERVE_REL of the largest), no launch, no
+    fallback, the summed peak under MODEL_PEAK_GB."""
+    import numpy as np
+    label, arch, layers, dtype, batch, prompt, new, shape = run
+    _, cfg, axes = _decode_setup(run)
+    rel = _decode_rel(cfg)
+    tol = rel * one["scale"]
+    worst = max(r["err"] for r in ranks)
+    for i, r in enumerate(ranks):
+        if r["launches"] or r["fallbacks"]:
+            raise AssertionError(f"{label} rank {i}: launches "
+                                 f"{r['launches']}, fallbacks "
+                                 f"{r['fallbacks']}")
+        if r["err"] > tol:
+            raise AssertionError(f"{label} rank {i}: teacher-forced logits "
+                                 f"off by {r['err']:.4g} > {tol:.4g}")
+        if dtype == "fp32" and r["cache_err"] > DECODE_FP32_REL:
+            raise AssertionError(f"{label} rank {i}: cache off by "
+                                 f"{r['cache_err']:.3g} of its max")
+        if not np.array_equal(r["tokens"], ranks[0]["tokens"]):
+            raise AssertionError(f"{label}: the ranks' tokens differ")
+    # A routing flip (the world's own top-k against the one device's, at
+    # the same dispatch) must be a near-tie of the router; the greedy run
+    # follows its own routing, so a row is compared only up to the first
+    # output step a flip reaches.
+    first = np.full(batch, new)
+    flips = 0
+    blocks = {r["rows"]: r for r in ranks} if cfg.num_experts else {}
+    for (lo, hi), r in blocks.items():
+        for c, (got, want, (gap, top)) in enumerate(zip(
+                r["picks"], one["picks"], one["router"])):
+            diff = (np.sort(got, -1) != np.sort(want[lo:hi], -1)).any(-1)
+            flips += int(diff.sum())
+            if (diff & (gap[lo:hi] > SERVE_REL * top[lo:hi])).any():
+                raise AssertionError(f"{label}: a routing flip away from a "
+                                     f"near-tie")
+            rows = lo + np.nonzero(diff.any(-1))[0]
+            first[rows] = np.minimum(
+                first[rows], max(0, c // cfg.num_layers - prompt + 1))
+    cut = []
+    for b in range(batch):
+        differ = ranks[0]["tokens"][b] != one["tokens"][b]
+        if not differ.any():
+            continue
+        t0 = int(np.argmax(differ))
+        if t0 < first[b] and one["gap"][b, t0] > tol:
+            raise AssertionError(f"{label} row {b}: greedy tokens "
+                                 f"{ranks[0]['tokens'][b].tolist()} vs one "
+                                 f"device {one['tokens'][b].tolist()} differ "
+                                 f"at step {t0}, whose top two lie "
+                                 f"{one['gap'][b, t0]:.4g} apart (> {tol:.4g})")
+        cut.append(t0)
+    peaks = [r["peak"] / 1e9 for r in ranks]
+    if sum(peaks) > MODEL_PEAK_GB:
+        raise AssertionError(f"{label}: summed peak {sum(peaks):.2f} GB > "
+                             f"{MODEL_PEAK_GB}")
+    per = ranks[0]["per_token"]
+    colls = ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items()))
+    extra = (f"; routing replayed from one device, its own top-k differed "
+             f"in {flips} (dispatch, row) decisions, each a router near-tie"
+             if cfg.num_experts else "")
+    log(f"  {label} {arch} {dtype}: {layers} of {get_full_layers(arch)} "
+        f"layers, {padded_heads(cfg, axes)}, batch {batch}, prompt {prompt}, "
+        f"new {new}, mesh (data {shape[0]}, model {shape[1]}): prefill "
+        f"{one['prefill_ms']:.1f} ms one device / {ranks[0]['prefill_ms']:.1f}"
+        f" world; {one['ms']:.3f} ms per decoded token one device (bound "
+        f"{one['bound_ms']:.3f}) / {ranks[0]['ms']:.3f} world (rank 0, "
+        f"median step after the first); teacher-forced logits max |diff| "
+        f"{worst:.4g} (tol {rel:g} x {one['scale']:.4g} = {tol:.4g}), cache "
+        f"max |diff| {max(r['cache_err'] for r in ranks):.3g} of its max; "
+        f"greedy tokens equal the one device's"
+        + (f" except from a near-tie on in {len(cut)} of {batch} rows "
+           f"(steps {cut}; {batch * new - sum(new - t for t in cut)} of "
+           f"{batch * new} tokens equal)" if cut else f" (all {batch * new})") + f"{extra}; collectives a token a rank: "
+        f"{colls}; peaks {[round(p, 2) for p in peaks]} GB (sum "
+        f"{sum(peaks):.2f}); no kernel launch, no fallback; "
+        f"{max(r['seconds'] for r in ranks):.1f} s; card {card}")
+
+
+def _check_seq(run, one: dict, ranks: list, card: str) -> None:
+    """22r's contracts on every rank, its line logged."""
+    label, batch, shape = run
+    want = ("model",) if batch > 1 else ("data", "model")
+    for i, r in enumerate(ranks):
+        if r["seq_axes"] != want:
+            raise AssertionError(f"{label} rank {i}: sequence over "
+                                 f"{r['seq_axes']}, expected {want}")
+        if max(r["err"], r["cache_err"]) > DECODE_FP32_REL:
+            raise AssertionError(f"{label} rank {i}: logits off by "
+                                 f"{r['err']:.3g}, cache {r['cache_err']:.3g}"
+                                 f" of their max")
+    per = ranks[0]["per_token"]
+    colls = ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items()))
+    log(f"  {label}: qwen2-7b {SEQ_LAYERS} of 28 layers, fp32, kv heads "
+        f"unsplit, batch {batch}, span {SEQ_SPAN} over {want} "
+        f"({ranks[0]['span']} slots a rank), mesh (data {shape[0]}, model "
+        f"{shape[1]}); steps from {[p for p, _, _ in SEQ_PARTS]}: logits max "
+        f"|diff| {max(r['err'] for r in ranks):.3g}, cache "
+        f"{max(r['cache_err'] for r in ranks):.3g} of their max (tol "
+        f"{DECODE_FP32_REL:g}); {one['ms']:.3f} ms a step one device / "
+        f"{ranks[0]['ms']:.3f} world (rank 0); collectives a step a rank: "
+        f"{colls}; peaks {[round(r['peak'] / 1e9, 2) for r in ranks]} GB; "
+        f"card {card}")
+
+
 def _model_rank(rank: int, world: int, tmp: str) -> dict:
     """Phase 22 on one rank of a (world / 2, 2) ("data", "model") mesh:
-    every MODEL_RUNS entry for this mesh shape, then (4 ranks) 22d."""
+    every MODEL_RUNS entry for this mesh shape, then (4 ranks) 22d, then
+    the decode runs (MODEL_DECODE_RUNS, MODEL_SEQ_RUNS) of this shape."""
     import torch
     dev = _rank_setup(rank)
     from repro_torch.launch import mesh as tmesh
     shape = (world // MODEL_PAR, MODEL_PAR)
     mesh = tmesh.make_debug_mesh(*shape)
-    out = {"rank": rank, "runs": {}, "counts": {}}
+    out = {"rank": rank, "runs": {}, "counts": {}, "decode": {}, "seq": {}}
     for run in MODEL_RUNS:
         if shape not in run[8]:
             continue
@@ -5608,6 +6167,12 @@ def _model_rank(rank: int, world: int, tmp: str) -> dict:
         torch.cuda.empty_cache()
     if world == 4:
         out["resume"] = _model_resume(dev, mesh, tmp)
+    for run in MODEL_DECODE_RUNS:
+        if run[7] == shape:
+            out["decode"][run[0]] = _decode_rank(run, dev, mesh, tmp)
+    for run in MODEL_SEQ_RUNS:
+        if run[2] == shape:
+            out["seq"][run[0]] = _seq_rank(run, dev, mesh, tmp)
     return out
 
 
@@ -5646,6 +6211,10 @@ def phase_model_mesh(dev, card: str) -> dict:
                        f"{tmp}/{run[0]}.pt")
             del got
             torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        one = {run[0]: _decode_one(run, dev, tmp) for run in MODEL_DECODE_RUNS}
+        seq_one = {run[0]: _seq_one(run, dev, tmp) for run in MODEL_SEQ_RUNS}
+        log(f"  22k-22r on one device: {time.perf_counter() - t0:.1f} s")
         for world in (2, 4):
             t0 = time.perf_counter()
             ranks = spawn_world(_model_rank, world, (tmp,), limit=MESH_LIMIT)
@@ -5653,6 +6222,14 @@ def phase_model_mesh(dev, card: str) -> dict:
                 f"model {MODEL_PAR}) over gloo on one card ({card}): "
                 f"{time.perf_counter() - t0:.1f} s")
             _check_model_world(world, ranks)
+            for run in MODEL_DECODE_RUNS:
+                if run[0] in ranks[0]["decode"]:
+                    _check_decode(run, one[run[0]],
+                                  [r["decode"][run[0]] for r in ranks], card)
+            for run in MODEL_SEQ_RUNS:
+                if run[0] in ranks[0]["seq"]:
+                    _check_seq(run, seq_one[run[0]],
+                               [r["seq"][run[0]] for r in ranks], card)
             for r in ranks:
                 add_counts(total, r["counts"])
     return add_counts(total, single)
@@ -5770,9 +6347,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+
+    def head(title: str) -> None:
+        log(f"== {title} [{time.perf_counter() - t_start:.0f} s]")
+
     from repro_torch.kernels import _build
 
-    log("== 1. environment")
+    head("1. environment")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
@@ -5791,7 +6372,7 @@ def main() -> int:
     log(f"memory rate for bounds: {rate / 1e12:.2f} TB/s; fp32 peak "
         f"{FP32_TFLOPS / 1e12:.0f} TFLOP/s (data sheet)")
 
-    log("== 2. build")
+    head("2. build")
     t0 = time.perf_counter()
     _build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
@@ -5801,33 +6382,33 @@ def main() -> int:
             log("  " + line.strip())
 
     if sys.argv[1:] == ["--18d"]:
-        log("== 18d alone: the launch-sized shapes, host and device per call")
+        head("18d alone: the launch-sized shapes, host and device per call")
         phase_launch_sizes(dev, rate)
         log(card)
         return 0
     if sys.argv[1:] == ["--22"]:
-        log("== 22 alone: the model-parallel mesh")
+        head("22 alone: the model-parallel mesh")
         log(json.dumps({"model_mesh_launches": phase_model_mesh(dev, card)}))
         log(card)
         return 0
 
-    log("== 3. kernels against their plain versions")
+    head("3. kernels against their plain versions")
     rows = phase_kernels(dev, rate)
     phase_k2_wide(dev, rate)
     phase_gram_sweep(dev, rate)
 
-    log("== 4. K6 / K7 against their plain versions")
+    head("4. K6 / K7 against their plain versions")
     rows.update(phase_bucketgram(dev, rate))
 
-    log("== 5. K2 above 64 workers against its plain version")
+    head("5. K2 above 64 workers against its plain version")
     phase_mixtrim_large(dev, rate)
 
-    log("== 6. hierarchical aggregates at n = 10240 (640 means)")
+    head("6. hierarchical aggregates at n = 10240 (640 means)")
     hier_refs = tempfile.TemporaryDirectory()       # phase 21b reads it
     hier = phase_hier_aggregate(dev, rate, hier_refs.name)
     rows.update(hier["rows"])
 
-    log("== 7. main path: nnm+cwtm, 3 steps, full-width smollm-360m")
+    head("7. main path: nnm+cwtm, 3 steps, full-width smollm-360m")
     out, counts_main = run_train("nnm+cwtm", 3, capture=True)
     if counts_main["gram"] != 3 or counts_main["mixtrim"] != 3:
         raise AssertionError(f"expected 3 K1 and 3 K2 launches: {counts_main}")
@@ -5839,14 +6420,15 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
 
-    log("== 8. gram-rule path: nnm+gm, 2 steps, full depth")
+    head("8. gram-rule path: nnm+gm, 2 steps, full depth")
     out, counts_gm = run_train("nnm+gm", 2, capture=False)
     if counts_gm["combine"] != 2 or counts_gm["gram"] != 2:
         raise AssertionError(f"expected 2 K1 and 2 K3 launches: {counts_gm}")
     del out
     torch.cuda.empty_cache()
 
-    log(f"== 9. hierarchical trainer: n={N_HIER} f={F_HIER}, full-width smollm-360m")
+    head(f"9. hierarchical trainer: n={N_HIER} f={F_HIER}, full-width "
+         f"smollm-360m at {HIER_TRAIN_LAYERS} of 32 layers")
     counts_hier = run_loop(dev, "hier+nnm+cwtm", dict(pre="nnm", rule="cwtm"), 3,
                            dict(bucketgram=1, mixtrim=1, gram=0,
                                 bucketmeans=0, combine=0))
@@ -5864,26 +6446,22 @@ def main() -> int:
     del out
     torch.cuda.empty_cache()
 
-    log("== 10. K5 / K4 on lane-batched stacks")
+    head("10. K5 / K4 on lane-batched stacks")
     phase_ptxas()
     phase_sort_01(dev)
     rows.update(phase_fleet_kernels(dev, rate))
 
-    elapsed = time.perf_counter() - t_start
-    rounds = GRID_ROUNDS if elapsed < 700 else 30
-    if rounds != GRID_ROUNDS:
-        log(f"  (grid cut to {rounds} rounds: {elapsed:.0f} s used so far)")
-    log(f"== 11. fleet grid: --full, {rounds} rounds, n=17 f=4 alpha=0.1")
-    counts_grid = phase_grid(dev, rounds)
+    head(f"11. fleet grid: --full, {GRID_ROUNDS} rounds, n=17 f=4 alpha=0.1")
+    counts_grid = phase_grid(dev, GRID_ROUNDS)
 
-    log("== 12. the federated engine")
+    head("12. the federated engine")
     log("-- 12a. registry scenarios, 20 rounds, the 48-48-10 MLP (D = 2842)")
     counts_fed = phase_fed_scenarios(dev, rate)
     log("-- 12b. FedServer + run_rounds at full width: smollm-360m, ALIE "
         "eta 8, NNM + CWTM")
     counts_fed["fed full width"] = phase_fed_full(dev, rate)
 
-    log("== 13. resumable runs: the trainer's scan engine, kill and resume")
+    head("13. resumable runs: the trainer's scan engine, kill and resume")
     counts_resume = phase_resume_trainer(dev)
     log("-- 13c. fed: labelskew_alie_partial, 20 rounds in segments of 5, "
         "killed and torn, resumed")
@@ -5894,7 +6472,7 @@ def main() -> int:
         counts_resume[k] = counts_resume.get(k, 0) + v
     log(json.dumps({"resume_launches": counts_resume}))
 
-    log("== 14. the continuous fleet service (repro_torch.serving)")
+    head("14. the continuous fleet service (repro_torch.serving)")
     log(f"-- 14a. the grid up front: FleetService against FleetRunner, "
         f"{SERVICE_ROUNDS} rounds")
     counts_service = phase_service_grid(dev)
@@ -5907,7 +6485,7 @@ def main() -> int:
     log(json.dumps({"service_launches": counts_service}))
 
     t15 = time.perf_counter()
-    log("== 15. the optimized attacks, the sketch Gram, the breakdown sweep")
+    head("15. the optimized attacks, the sketch Gram, the breakdown sweep")
     log("-- 15a. alie_opt / foe_opt on the main path, full-width smollm-360m")
     counts_opt = phase_opt_trainer(dev, peak7)
     log(f"-- 15b. the sketch Gram (sketch_dim = {SKETCH_DIM}) on the main path")
@@ -5920,20 +6498,20 @@ def main() -> int:
     log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
 
     t16 = time.perf_counter()
-    log("== 16. the in-round health taps and the runtime's exporters")
+    head("16. the in-round health taps and the runtime's exporters")
     counts_taps = phase_taps(dev, peak7)
     log(json.dumps({"taps_launches": counts_taps}))
     log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
 
     t17 = time.perf_counter()
-    log("== 17. the attention-family zoo at full width: mixtral-8x22b "
+    head("17. the attention-family zoo at full width: mixtral-8x22b "
         "(FSDP experts), qwen2-7b, internvl2-2b")
     counts_zoo = phase_zoo(dev, card)
     log(json.dumps({"zoo_launches": counts_zoo}))
     log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
 
     t18 = time.perf_counter()
-    log("== 18. hierarchical fleet lanes; the lane forms of K2's median, K3, "
+    head("18. hierarchical fleet lanes; the lane forms of K2's median, K3, "
         "K6 and K7")
     hier_rows, counts_hfleet = phase_hier(dev, rate)
     rows.update(hier_rows)
@@ -5941,21 +6519,21 @@ def main() -> int:
     log(f"  phase 18: {time.perf_counter() - t18:.1f} s")
 
     t19 = time.perf_counter()
-    log("== 19. the attention-free and encoder-decoder families at full "
+    head("19. the attention-free and encoder-decoder families at full "
         "width: rwkv6-3b, zamba2-2.7b, whisper-base")
     counts_fam = phase_families(dev, card)
     log(json.dumps({"family_launches": counts_fam}))
     log(f"  phase 19: {time.perf_counter() - t19:.1f} s")
 
     t20 = time.perf_counter()
-    log("== 20. cached decode and greedy serving at full width: nine archs "
+    head("20. cached decode and greedy serving at full width: nine archs "
         "through ServeEngine")
     serve_runs = phase_serve(dev, card)
     log(json.dumps({"serve": serve_runs}))
     log(f"  phase 20: {time.perf_counter() - t20:.1f} s")
 
     t21 = time.perf_counter()
-    log(f"== 21. the multi-device aggregation backends: ranks sharing the "
+    head(f"21. the multi-device aggregation backends: ranks sharing the "
         f"card over gloo; card: {card}")
     counts_mesh = phase_mesh(dev, hier_refs.name)
     hier_refs.cleanup()
@@ -5963,14 +6541,14 @@ def main() -> int:
     log(f"  phase 21: {time.perf_counter() - t21:.1f} s")
 
     t22 = time.perf_counter()
-    log(f"== 22. the model-parallel mesh: shards of the padded model over a "
+    head(f"22. the model-parallel mesh: shards of the padded model over a "
         f"(data, model) world of ranks sharing the card over gloo; card: "
         f"{card}")
     counts_model = phase_model_mesh(dev, card)
     log(json.dumps({"model_mesh_launches": counts_model}))
     log(f"  phase 22: {time.perf_counter() - t22:.1f} s")
 
-    log("== 23. summary")
+    head("23. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),

@@ -33,7 +33,11 @@ state forms below carry single-device states (``fsdp_keys=`` as there).
 A decode cache carries across too (:func:`cache_from_numpy` /
 :func:`cache_to_numpy`): the reference's ``init_cache`` / ``decode_step``
 tree, one of the layouts in :data:`CACHE_KEYS`, leaf for leaf in jax's
-sorted-key order.
+sorted-key order.  On a model mesh :func:`cache_to_shards` cuts it into
+this rank's shards by the model's ``cache_descs`` (the batch over the
+data axes, heads over the model axis, a long span's sequence over either
+or both) and :func:`cache_from_shards` gathers them back over every axis
+of each leaf's spec (a collective).
 
 bf16 arrays arrive as ``ml_dtypes.bfloat16`` numpy arrays (JAX's numpy
 bf16); they are reinterpreted bit for bit.  On the way back bf16 tensors
@@ -241,3 +245,26 @@ def cache_to_numpy(tree: dict) -> dict:
     as fp32, exact)."""
     _check_cache(tree)
     return params_to_numpy(tree)
+
+
+def cache_to_shards(tree: dict, descs: dict, axes, mesh,
+                    device: Optional[torch.device] = None) -> dict:
+    """The reference's decode cache (as numpy) -> this rank's shard of
+    each leaf (``models.common.shard_slice`` of its cache desc), on
+    ``device``."""
+    _check_cache(tree)
+    return params_to_shards(tree, descs, axes, mesh, device)
+
+
+def cache_from_shards(tree: dict, descs: dict, axes, mesh) -> dict:
+    """Every rank's cache shards -> the whole cache as numpy (bf16 as
+    fp32), each leaf all-gathered over every mesh axis its spec names,
+    the data axes included (a collective)."""
+    from repro_torch.models.common import gather_dim, leaf_spec
+    _check_cache(tree)
+
+    def whole(t, d):
+        for dim, part in enumerate(leaf_spec(d, axes)):
+            t = gather_dim(t.detach(), dim, part, mesh)
+        return tensor_to_numpy(t)
+    return tree_map(whole, tree, descs)

@@ -49,7 +49,10 @@ def clocked_generate(eng: ServeEngine, prompts, max_new: int, cache=None,
     for the call).  Returns {"tokens": generate's (B, max_new) int32,
     "prefill_ms", "step_ms" (max_new - 1 of them)} and, with
     ``keep_logits``, "logits": the prefill's last logits and each step's,
-    (B, max_new, V) fp32."""
+    (B, max_new, V) fp32.  On a model mesh it runs on each rank as it
+    stands: the synchronize is the rank's device's, the logits are this
+    data rank's rows (the vocabulary whole), the tokens the whole
+    batch's."""
     dev, model = eng.device, eng.model
     out: dict = {"step_ms": []}
     kept: list = []
@@ -65,9 +68,9 @@ def clocked_generate(eng: ServeEngine, prompts, max_new: int, cache=None,
         model.decode_step = timed_step
         return c, logits, n
 
-    def timed_step(params, c, tokens, pos):
+    def timed_step(params, c, tokens, pos, **kw):
         t0 = time.perf_counter()
-        logits, c = decode(params, c, tokens, pos)
+        logits, c = decode(params, c, tokens, pos, **kw)
         _sync(dev)
         out["step_ms"].append(1e3 * (time.perf_counter() - t0))
         kept.append(logits)

@@ -22,8 +22,17 @@ rank takes its q heads' share, so no group crosses a shard (reference
 row-parallel (``common.row_parallel``).  Cross attention splits the same
 way: its k / v (``kv_override``) are this rank's kv heads when
 ``shard_kv`` (whisper's ``EncDecLM._cross_kv`` makes them column-
-parallel from the encoder output), else whole and repeated.  Decode on a
-model mesh waits (ROADMAP queue 1, item 20 (b)).
+parallel from the encoder output), else whole and repeated.
+
+Decode on a model mesh reads this rank's shard of the KV cache
+(:func:`cache_desc`'s axes): its batch rows, its kv heads when they split
+with the q heads, else all of them (the rank's q heads read the groups
+they use), and, for spans above 8192 whose kv heads do not split, its
+block of the sequence.  Each rank then attends over its own slots and the
+ranks that split the sequence combine flash-decode style
+(:func:`decode_attention`); where the model axis splits the sequence,
+every rank forms all the q heads (all-gathered) and keeps its own after
+the combine, for the row-parallel ``wo``.
 """
 from __future__ import annotations
 
@@ -158,8 +167,8 @@ def cache_desc(cfg: ModelConfig, layers: int, batch: int, max_seq: int) -> dict:
     data axes when batch > 1; kv heads over the model axis when they
     divide, else the sequence (long spans only, flash-decode style);
     batch-1 long-context caches also spread the sequence over the data
-    axes; spans up to 8192 keep the sequence whole.  Descs only: decode on
-    a model mesh waits (ROADMAP queue 1, item 20 (b))."""
+    axes; spans up to 8192 keep the sequence whole.  On a model mesh
+    ``init_cache`` materializes this rank's shard of it."""
     ctx = common.get_mesh_axes()
     kv_sharded = bool(ctx and ctx.shard_kv and ctx.model_par > 1)
     span = cache_span(cfg, max_seq)
@@ -177,9 +186,48 @@ def cache_desc(cfg: ModelConfig, layers: int, batch: int, max_seq: int) -> dict:
             "v": ParamDesc(shape, cfg.dtype, "zeros", axes=axes)}
 
 
+def cache_seq_axes(cfg: ModelConfig, batch: Optional[int],
+                   max_seq: Optional[int]) -> tuple:
+    """The mesh axes a KV cache's sequence lies over (:func:`cache_desc`'s
+    spec for the whole ``batch`` and ``max_seq``), () when it is whole on
+    every rank.  Off a model mesh always ().  On one the cache's shard
+    alone cannot tell (a 16384-slot span split in two looks like an
+    8192-slot one), so the whole geometry is required."""
+    mesh = common.model_mesh()
+    if mesh is None:
+        return ()
+    if batch is None or max_seq is None:
+        raise ValueError("decode on a model mesh takes the cache's whole "
+                         "batch= and max_seq= (a shard cannot tell how its "
+                         "sequence splits)")
+    spec = common.leaf_spec(cache_desc(cfg, 1, batch, max_seq)["k"])
+    names = common.spec_axes(spec[2] if len(spec) > 2 else None)
+    return names if mesh.size(names) > 1 else ()
+
+
+def _group_kv(ck: Tensor, cv: Tensor, h0: int, h1: int, hq: int,
+              split_kv: bool) -> tuple[Tensor, Tensor, int]:
+    """The kv heads that q heads [h0, h1) read and the group size of the
+    grouped contraction.  Split kv heads are already the rank's (its q
+    heads' groups); whole ones are sliced to the rank's groups, or to the
+    one group its q heads are part of (4 q heads over 1 kv head at par 2:
+    2 a rank, the shared head), else picked head by head."""
+    if split_kv:
+        return ck, cv, (h1 - h0) // ck.shape[-2]
+    g = hq // ck.shape[-2]
+    if h0 % g == 0 and h1 % g == 0:
+        return ck[:, :, h0 // g:h1 // g], cv[:, :, h0 // g:h1 // g], g
+    if h0 // g == (h1 - 1) // g:
+        k0 = h0 // g
+        return ck[:, :, k0:k0 + 1], cv[:, :, k0:k0 + 1], h1 - h0
+    idx = torch.arange(h0, h1, device=ck.device) // g
+    return ck.index_select(2, idx), cv.index_select(2, idx), 1
+
+
 def decode_attention(p: dict, x: Tensor, cache_k: Tensor, cache_v: Tensor,
                      pos: int, cfg: ModelConfig, *, use_rope: bool = True,
-                     kv_override: Optional[tuple[Tensor, Tensor]] = None):
+                     kv_override: Optional[tuple[Tensor, Tensor]] = None,
+                     seq_axes: tuple = ()):
     """Single-token decode.  x: (B, 1, d); cache_{k,v}: (B, span, hkv,
     hd); pos: the current position, a host int.  Returns (out (B, 1, d),
     cache_k, cache_v).
@@ -198,48 +246,89 @@ def decode_attention(p: dict, x: Tensor, cache_k: Tensor, cache_v: Tensor,
     hkv, g, hd)): the repeated kv copy never forms; with hkv == hq this
     is the plain form.  The logits are fp32 products of the model-dtype
     operands, as in :func:`attention`.
+
+    On a model mesh x and the cache are this rank's rows and shard (the
+    module docstring).  ``seq_axes`` (:func:`cache_seq_axes`) are the mesh
+    axes the cache's sequence lies over: the rank holds slots [j s, (j +
+    1) s) of the span, j its index over them; only the rank that holds
+    slot ``pos`` writes it; each rank attends over its slots, the fp32 max
+    of the logits is all-reduced over ``seq_axes``, then the sum of the
+    exponentials under it, and the probabilities (cast to the model dtype,
+    as one device casts them) weight v into fp32 partials that are
+    all-reduced and cast once.  A rank whose slots all lie past ``pos``
+    has only ``NEG_INF`` logits and adds exact zeros.
     """
-    if common.model_mesh() is not None:
-        raise ValueError(common.DECODE_WAITS)
     b = x.shape[0]
-    hq, hkv = resolved_heads(cfg)
+    hq, _ = resolved_heads(cfg)
     hd = cfg.head_dim
-    q = x @ p["wq"]
+    mesh = common.model_mesh()
+    axes = common.get_mesh_axes()
+    split_kv = mesh is not None and axes.shard_kv
+    seq_axes = tuple(seq_axes) if mesh is not None else ()
+    q0, q1 = common.model_block(hq)
+    q = common.column_parallel(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(b, 1, hq, hd)
-    slot = None
+    q = q.reshape(b, 1, q1 - q0, hd)
+    live = None                      # the last live local slot, None: all
     if kv_override is not None:
         ck, cv = kv_override
     else:
-        span = cache_k.shape[1]
+        s_loc = cache_k.shape[1]
+        j = mesh.index(seq_axes) if seq_axes else 0
+        span = s_loc * (mesh.size(seq_axes) if seq_axes else 1)
         if not cfg.sliding_window and pos >= span:
             raise ValueError(f"decode position {pos} is past the cache's "
                              f"span {span}")
-        k, v = x @ p["wk"], x @ p["wv"]
+        proj = common.column_parallel if split_kv else torch.matmul
+        k, v = proj(x, p["wk"]), proj(x, p["wv"])
         if cfg.qkv_bias:
             k, v = k + p["bk"], v + p["bv"]
-        k, v = k.reshape(b, 1, hkv, hd), v.reshape(b, 1, hkv, hd)
+        k = k.reshape(b, 1, k.shape[-1] // hd, hd)
+        v = v.reshape(b, 1, v.shape[-1] // hd, hd)
         if use_rope:
             positions = torch.full((1, 1), pos, device=x.device)
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-        slot = pos % span if cfg.sliding_window else pos
-        cache_k[:, slot].copy_(k[:, 0])
-        cache_v[:, slot].copy_(v[:, 0])
+        slot = (pos % span if cfg.sliding_window else pos) - j * s_loc
+        if 0 <= slot < s_loc:        # this rank holds the slot
+            cache_k[:, slot].copy_(k[:, 0])
+            cache_v[:, slot].copy_(v[:, 0])
         ck, cv = cache_k, cache_v
-        if pos >= span:              # a full ring: every slot is live
-            slot = None
+        if pos < span:               # else a full ring: every slot is live
+            live = slot
 
-    g = hq // ck.shape[-2]
+    # Where the model axis splits the sequence, every q head meets this
+    # rank's slots: all of them, this rank's kept after the combine.
+    gather_q = mesh is not None and axes.model in seq_axes
+    h0, h1 = (0, hq) if gather_q else (q0, q1)
+    if gather_q:
+        q = common.all_gather_model(q.reshape(b, 1, (q1 - q0) * hd)
+                                    ).reshape(b, 1, hq, hd)
+    ck, cv, g = _group_kv(ck, cv, h0, h1, hq, split_kv)
     qg = q.reshape(b, 1, ck.shape[-2], g, hd)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                           ck.float()) * hd ** -0.5
-    if slot is not None:
-        logits[..., slot + 1:] = NEG_INF
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv)
-    out = out.reshape(b, 1, hq * hd) @ p["wo"]
+    if live is not None:
+        logits[..., max(live + 1, 0):] = NEG_INF
+    if not seq_axes:
+        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cv)
+    else:
+        top = logits.amax(dim=-1, keepdim=True)
+        mesh.all_reduce(top, seq_axes, "max", record=False)
+        e = torch.exp(logits - top)
+        tot = e.sum(dim=-1, keepdim=True)
+        mesh.all_reduce(tot, seq_axes, record=False)
+        probs = (e / tot).to(x.dtype)
+        part = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), cv.float())
+        out = mesh.all_reduce(part.contiguous(), seq_axes,
+                              record=False).to(x.dtype)
+    out = out.reshape(b, 1, h1 - h0, hd)
+    if gather_q:
+        out = out[:, :, q0:q1]
+    out = common.row_parallel(out.reshape(b, 1, (q1 - q0) * hd), p["wo"],
+                              x.dtype)
     if kv_override is not None:
         return out, None, None
     return out, cache_k, cache_v

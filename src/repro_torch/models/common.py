@@ -36,6 +36,12 @@ Logical axis names (the reference's):
   "expert"  MoE experts        -> "model" when E % par == 0
   "ff_inner" expert ff         -> "model" when the experts cannot split
   "layers"  stacked layers     (never split)
+  "batch"   a cache's rows     -> the data axes (batch > 1)
+  "seq_*"   a long cache span  -> the data axes, the model axis or both
+
+A decode cache's descs carry the last two (:data:`CACHE_DATA_AXES`), so
+:func:`materialize` gives this rank's shard of a cache too, and
+:func:`batch_block` / :func:`gather_batch` cut and join its rows.
 """
 from __future__ import annotations
 
@@ -107,10 +113,6 @@ class MeshAxes:
 
 
 _CTX: list = [None]
-
-#: The refusal of decode on a model mesh (its caches split by the heads).
-DECODE_WAITS = ("decode on a model mesh waits (ROADMAP queue 1, item 20 "
-                "(b))")
 
 
 def set_mesh_axes(axes: Optional[MeshAxes]) -> None:
@@ -389,29 +391,95 @@ def leaf_specs(tree) -> tuple:
     return tuple(leaf_spec(d, axes) for d in tree_leaves(tree))
 
 
+#: Logical axes that lie over the data axes of a mesh: a decode cache's
+#: batch rows and, for long spans, its sequence.  A weight's data-axis
+#: entry (expert FSDP) is refused.
+CACHE_DATA_AXES = ("batch", "seq_shard", "seq_both")
+
+
+def spec_axes(part) -> tuple:
+    """A spec entry as a tuple of mesh axis names (() for None)."""
+    if part is None:
+        return ()
+    return tuple(part) if isinstance(part, tuple) else (part,)
+
+
 def shard_slice(d: ParamDesc, axes: Optional[MeshAxes], mesh) -> tuple:
     """The index (a tuple of slices) of this rank's block of leaf ``d``:
-    every dimension whose spec names the model axis is cut to this rank's
-    1/model_par of it (it must divide).  Data-axis entries (expert FSDP)
-    are refused: the workers, not the weights, lie on the data axis."""
+    every dimension whose spec names mesh axes is cut to this rank's block
+    of it (it must divide).  A dimension over several axes (a cache's
+    ``"seq_both"``: the data axes, then the model axis) is cut row-major
+    over them, the first the slowest, as a ``PartitionSpec`` lays it out.
+    Data-axis entries are taken for a cache's batch and sequence
+    (:data:`CACHE_DATA_AXES`) and refused for a weight (expert FSDP): the
+    workers, not the weights, lie on the data axis."""
     idx = [slice(None)] * len(d.shape)
-    if axes is None or mesh is None or axes.model_par <= 1             or axes.model not in mesh.axis_names:
+    if axes is None or mesh is None or axes.model_par <= 1 \
+            or axes.model not in mesh.axis_names:
         return tuple(idx)
-    k, j = axes.model_par, mesh.index(axes.model)
     for i, part in enumerate(leaf_spec(d, axes)):
-        if part is None:
+        names = spec_axes(part)
+        if not names:
             continue
-        if part != axes.model:
+        if names != (axes.model,) and d.axes[i] not in CACHE_DATA_AXES:
             raise ValueError(f"leaf {d.shape} {d.axes}: dimension {i} splits "
                              f"over {part!r}; only the model axis splits "
                              "weights here (expert_fsdp waits, ROADMAP "
                              "queue 1, item 19)")
+        k, j = mesh.size(names), mesh.index(names)
         if d.shape[i] % k:
             raise ValueError(f"leaf {d.shape} {d.axes}: dimension {i} "
                              f"({d.shape[i]}) does not split over {k} ranks")
         w = d.shape[i] // k
         idx[i] = slice(j * w, (j + 1) * w)
     return tuple(idx)
+
+
+def gather_dim(t: Tensor, dim: int, part, mesh) -> Tensor:
+    """The whole of dimension ``dim`` of ``t`` from every rank's block of
+    it, split over the spec entry ``part`` (:func:`shard_slice`'s layout):
+    all-gathered over each of its axes, the fastest first, in fp32
+    (integers as they are)."""
+    for name in reversed(spec_axes(part)):
+        if mesh.size(name) == 1:
+            continue
+        rows = t.movedim(dim, 0)
+        if rows.is_floating_point():
+            rows = rows.float()
+        t = mesh.all_gather(rows.contiguous(), name,
+                            record=False).movedim(0, dim)
+    return t
+
+
+def _batch_part():
+    """The spec entry of a cache's ``"batch"`` dimension."""
+    spec = get_mesh_axes().logical_to_spec(("batch",))
+    return spec[0] if spec else None
+
+
+def batch_block(n: int) -> tuple[int, int]:
+    """[lo, hi) of this rank's rows of an ``n``-row decode batch: a
+    cache's ``"batch"`` dimension lies over the data axes when n > 1
+    (:func:`shard_slice`); (0, n) off a model mesh and for one row."""
+    mesh = model_mesh()
+    if mesh is None or n == 1:
+        return 0, n
+    names = spec_axes(_batch_part())
+    k, j = mesh.size(names), mesh.index(names)
+    if n % k:
+        raise ValueError(f"a batch of {n} rows does not split over {k} "
+                         "data ranks")
+    return j * (n // k), (j + 1) * (n // k)
+
+
+def gather_batch(t: Tensor, n: int) -> Tensor:
+    """The whole ``n``-row batch from every data rank's rows (dimension 0
+    of ``t``, :func:`batch_block`'s layout); ``t`` itself where the batch
+    does not split."""
+    mesh = model_mesh()
+    if mesh is None or n == 1:
+        return t
+    return gather_dim(t, 0, _batch_part(), mesh)
 
 
 def materialize(tree, seed: int, device: torch.device):
@@ -421,30 +489,34 @@ def materialize(tree, seed: int, device: torch.device):
     shape[-1]) and constants (a "ones" leaf holds ``scale``).  The numbers
     differ from the reference's threefry draws; tests carry the
     reference's parameters across with ``interop``.  On a model mesh
-    (:func:`model_mesh`) each leaf is drawn whole, so every rank draws the
-    same numbers, and this rank's block (:func:`shard_slice`) is kept."""
+    (:func:`model_mesh`) each drawn leaf is drawn whole, so every rank
+    draws the same numbers, and this rank's block (:func:`shard_slice`) is
+    kept; a constant leaf (a decode cache's zeros) is made at its block's
+    shape."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     mesh, axes = model_mesh(), get_mesh_axes()
 
     def init_one(d: ParamDesc) -> Tensor:
-        if d.init == "zeros":
-            w = torch.zeros(d.shape, dtype=d.dtype, device=device)
-        elif d.init == "ones":
-            w = torch.full(d.shape, d.scale or 1.0, dtype=d.dtype,
-                           device=device)
-        elif d.init in ("normal", "embed"):
+        if d.init in ("zeros", "ones"):
+            shape = d.shape if mesh is None else tuple(
+                len(range(*s.indices(n)))
+                for s, n in zip(shard_slice(d, axes, mesh), d.shape))
+            return torch.full(shape, 0.0 if d.init == "zeros"
+                              else d.scale or 1.0, dtype=d.dtype,
+                              device=device)
+        if d.init in ("normal", "embed"):
             fan_in = d.shape[-2] if len(d.shape) >= 2 and d.init == "normal" \
                 else d.shape[-1]
             std = d.scale / math.sqrt(max(1, fan_in))
             w = torch.randn(d.shape, generator=gen, dtype=torch.float32,
-                            device=device)
-            w = (w.mul_(std)).to(d.dtype)
+                            device=device).mul_(std)
         else:
             raise ValueError(d.init)
         if mesh is None:
-            return w
-        return w[shard_slice(d, axes, mesh)].clone()
+            return w.to(d.dtype)
+        # The block cast alone: the whole leaf is held in fp32 only.
+        return w[shard_slice(d, axes, mesh)].to(d.dtype, copy=True)
 
     leaves = [init_one(d) for d in tree_leaves(tree)]
     return tree_unflatten(tree_structure(tree), leaves)

@@ -23,12 +23,15 @@ heads split, so the encoder output's gradient is all-reduced; whole and
 repeated otherwise), and the vocabulary splits over the embedding
 (``common.embed_lookup``) and the head (:meth:`EncDecLM.loss` takes the
 split ``common.masked_ce`` of this rank's logits; :meth:`EncDecLM.
-forward` gathers them).  Cached decode on a model mesh waits (ROADMAP
-queue 1, item 20 (b)) and raises.
+forward` gathers them).  Cached decode on a model mesh runs on this
+rank's shard of the cache: :meth:`EncDecLM.prefill_cache` encodes this
+data rank's rows of the frames split, the cross k / v are the rank's kv
+heads when they split, and :meth:`EncDecLM.decode_step` gathers the
+logits over the model axis, as ``DecoderLM.decode_step`` does.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -172,7 +175,8 @@ class EncDecLM:
     def cache_descs(self, batch: int, max_seq: int) -> PyTree:
         """The self-attention ``k`` / ``v`` (L, B, max_seq, hkv, hd) and the
         cross ``cross_k`` / ``cross_v`` (L, B, encoder_seq, hkv, hd), all
-        zeros in the model dtype."""
+        zeros in the model dtype; the cross pair's batch over the data
+        axes and its kv heads over the model axis when they split."""
         cfg = self.cfg
         ctx = common.get_mesh_axes()
         kv_sharded = bool(ctx and ctx.shard_kv and ctx.model_par > 1)
@@ -195,28 +199,32 @@ class EncDecLM:
                       max_seq: int) -> PyTree:
         """Encode ``frames`` (B, encoder_seq, d) once; the cache's cross k /
         v are the per-layer projections of the encoder output, its self
-        k / v zeros."""
+        k / v zeros.  On a model mesh ``frames`` are the whole batch's:
+        this data rank encodes its rows (``common.batch_block``) and keeps
+        its shard of the cache (the cross pair's kv heads when they
+        split)."""
         cfg = self.cfg
-        if common.model_mesh() is not None:
-            raise ValueError(common.DECODE_WAITS)
+        lo, hi = common.batch_block(batch)
         with torch.inference_mode():
-            enc = self.encode(params, frames)
+            enc = self.encode(params, frames[lo:hi])
             ck, cv = self._cross_kv(params, enc)
             self_kv = materialize(
                 attention.cache_desc(cfg, cfg.num_layers, batch, max_seq), 0,
                 enc.device)
         return {**self_kv, "cross_k": ck, "cross_v": cv}
 
-    def decode_step(self, params, cache: PyTree, tokens: Tensor, pos: int
-                    ) -> tuple[Tensor, PyTree]:
+    def decode_step(self, params, cache: PyTree, tokens: Tensor, pos: int,
+                    *, batch: Optional[int] = None,
+                    max_seq: Optional[int] = None) -> tuple[Tensor, PyTree]:
         """One decode step.  tokens: (B, 1) ints; pos: a host int.  Returns
         (logits (B, 1, padded vocab) fp32, cache), the self k / v written
         IN PLACE (the cross pair is only read); runs under
-        ``torch.inference_mode()``."""
-        if common.model_mesh() is not None:
-            raise ValueError(common.DECODE_WAITS)
+        ``torch.inference_mode()``.  On a model mesh as
+        ``DecoderLM.decode_step``: this rank's shard and rows, the whole
+        cache's ``batch`` / ``max_seq``."""
         cfg = self.cfg
         eps = cfg.norm_eps
+        seq_axes = attention.cache_seq_axes(cfg, batch, max_seq)
         with torch.inference_mode():
             x = common.embed_lookup(params["embed"], tokens)
             x = x + _sinusoid_at(pos, cfg.d_model, x.device).to(x.dtype)
@@ -226,7 +234,7 @@ class EncDecLM:
                     cache["cross_v"].unbind(0)):
                 a, _, _ = attention.decode_attention(
                     p["self_attn"], layer_norm(x, p["ln0_g"], p["ln0_b"], eps),
-                    ck, cv, pos, cfg, use_rope=False)
+                    ck, cv, pos, cfg, use_rope=False, seq_axes=seq_axes)
                 x = x + a
                 c, _, _ = attention.decode_attention(
                     p["cross_attn"], layer_norm(x, p["ln1_g"], p["ln1_b"], eps),
@@ -234,7 +242,7 @@ class EncDecLM:
                 x = x + c
                 x = x + mlp.gelu_mlp(
                     p["mlp"], layer_norm(x, p["ln2_g"], p["ln2_b"], eps))
-            return self._logits(params, x), cache
+            return common.gather_from_model(self._logits(params, x)), cache
 
 
 def _sinusoid_at(pos: int, dim: int, device: torch.device) -> Tensor:

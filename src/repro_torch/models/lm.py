@@ -30,19 +30,24 @@ Mamba2 mixer by their heads (``rwkv``, ``ssm``); zamba2's shared block
 runs split once per group, its gradient summed over the groups as on one
 device.  The VLM's projector is replicated: its input gradient arrives
 whole, the blocks' column-parallel products having all-reduced it.
-Decode (ROADMAP queue 1, item 20 (b)), ``seq_par`` and ``expert_fsdp``
-(item 19) raise a ``ValueError`` naming their entry; nothing is
-replicated silently.
+``seq_par`` and ``expert_fsdp`` (ROADMAP queue 1, item 19) raise a
+``ValueError`` naming their entry; nothing is replicated silently.
 
 Cached decode (:meth:`DecoderLM.decode_step`) steps one token through
 every layer against a stacked cache (:meth:`DecoderLM.init_cache`): the
 KV cache for dense / moe / vlm, the RWKV state and token shifts for ssm,
 the Mamba2 state and conv window plus one KV slot per shared-block group
-for hybrid.  The cache is updated in place.
+for hybrid.  The cache is updated in place.  On a model mesh the cache
+is this rank's shard as the descs lay it out (the batch over the data
+axes; the KV cache's kv heads, or a long span's sequence, the RWKV
+state's heads and the Mamba2 state's heads and conv channels over the
+model axis), the tokens are this data rank's rows, and the logits are
+gathered over the model axis into the whole padded vocabulary, as the
+reference returns them.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -234,8 +239,9 @@ class DecoderLM:
         """A zero cache for ``batch`` rows of up to ``max_seq`` positions."""
         return materialize(self.cache_descs(batch, max_seq), 0, device)
 
-    def decode_step(self, params, cache: PyTree, tokens: Tensor, pos: int
-                    ) -> tuple[Tensor, PyTree]:
+    def decode_step(self, params, cache: PyTree, tokens: Tensor, pos: int,
+                    *, batch: Optional[int] = None,
+                    max_seq: Optional[int] = None) -> tuple[Tensor, PyTree]:
         """One decode step.  tokens: (B, 1) ints; pos: the position, a host
         int.  Returns (logits (B, 1, padded vocab) fp32, cache).
 
@@ -245,13 +251,20 @@ class DecoderLM:
         embeds tokens only, as the reference's decode does.  MoE runs
         :func:`repro_torch.models.moe.moe_block` on the (B, 1, d) slice:
         capacity ``int(cf * k / e) + 1`` per batch row, which one token
-        never overflows."""
+        never overflows (with the experts split too: every rank routes
+        the whole row).
+
+        On a model mesh ``cache`` is this rank's shard, ``tokens`` this
+        data rank's rows, and ``batch`` / ``max_seq`` the whole cache's,
+        as :meth:`init_cache` took them (a KV cache's shard cannot tell
+        whether its sequence splits: ``attention.cache_seq_axes``)."""
         cfg = self.cfg
         eps = cfg.norm_eps
-        if common.model_mesh() is not None:
-            raise ValueError(common.DECODE_WAITS)
+        check_model_mesh(cfg)
+        seq_axes = () if cfg.family == "ssm" else \
+            attention.cache_seq_axes(cfg, batch, max_seq)
         with torch.inference_mode():
-            x = params["embed"][tokens.long()]
+            x = common.embed_lookup(params["embed"], tokens)
             layers = layer_views(params["blocks"])
             if cfg.family == "ssm":
                 for p, st, tsh, csh in zip(layers, cache["state"].unbind(0),
@@ -270,10 +283,13 @@ class DecoderLM:
                 shared, every = params["shared"], cfg.attn_every
                 sc, ac = cache["ssm"], cache["attn"]
                 ks, vs = ac["k"].unbind(0), ac["v"].unbind(0)
-                for i, (p, st, cv) in enumerate(zip(
-                        layers, sc["state"].unbind(0), sc["conv"].unbind(0))):
+                cw, cb = ssm.conv_weights(params["blocks"]["ssm"])
+                for i, (p, st, cv, w, b) in enumerate(zip(
+                        layers, sc["state"].unbind(0), sc["conv"].unbind(0),
+                        cw.unbind(0), cb.unbind(0))):
                     y, st2, cv2 = ssm.ssm_decode_step(
-                        p["ssm"], rms_norm(x, p["ln0"], eps), st, cv, cfg)
+                        p["ssm"], rms_norm(x, p["ln0"], eps), st, cv, (w, b),
+                        cfg)
                     x = x + y
                     st.copy_(st2)
                     cv.copy_(cv2)
@@ -281,7 +297,7 @@ class DecoderLM:
                         grp = i // every
                         a, _, _ = attention.decode_attention(
                             shared["attn"], rms_norm(x, shared["ln0"], eps),
-                            ks[grp], vs[grp], pos, cfg)
+                            ks[grp], vs[grp], pos, cfg, seq_axes=seq_axes)
                         x = x + a
                         x = x + mlp.swiglu(shared["mlp"],
                                            rms_norm(x, shared["ln1"], eps))
@@ -289,7 +305,8 @@ class DecoderLM:
                 for p, ck, cv in zip(layers, cache["k"].unbind(0),
                                      cache["v"].unbind(0)):
                     a, _, _ = attention.decode_attention(
-                        p["attn"], rms_norm(x, p["ln0"], eps), ck, cv, pos, cfg)
+                        p["attn"], rms_norm(x, p["ln0"], eps), ck, cv, pos,
+                        cfg, seq_axes=seq_axes)
                     x = x + a
                     h = rms_norm(x, p["ln1"], eps)
                     if cfg.family == "moe":
@@ -297,4 +314,4 @@ class DecoderLM:
                     else:
                         f = mlp.swiglu(p["mlp"], h)
                     x = x + f
-            return self._logits(params, x), cache
+            return common.gather_from_model(self._logits(params, x)), cache

@@ -23,7 +23,9 @@ local heads, ``ln_g``'s norm is taken over the whole padded width
 (``common.split_rms_norm``) and ``wo`` is row-parallel.  The channel mix
 splits ``ck`` (column-parallel) and ``cv`` (row-parallel, summed before
 the replicated ``sigmoid(xr @ cr)`` gate multiplies it).  Decode on a
-model mesh waits (ROADMAP queue 1, item 20 (b)).
+model mesh splits the same way, step by step: the fp32 state holds the
+rank's heads (:func:`rwkv_cache_desc`), the token shifts are replicated
+and every rank writes the same values.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, linear_scan
-from repro_torch.models.common import ParamDesc, rms_norm
+from repro_torch.models.common import ParamDesc
 
 Tensor = torch.Tensor
 DECAY_LORA = 64
@@ -140,7 +142,8 @@ def channel_mix(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 def rwkv_cache_desc(cfg: ModelConfig, layers: int, batch: int) -> dict:
     """``state`` (L, B, H, hd, hd), ``tshift`` and ``cshift`` (L, B, d),
-    all fp32 zeros."""
+    all fp32 zeros: the batch over the data axes, the state's heads over
+    the model axis, the shifts replicated."""
     h, hd, _ = _dims(cfg)
     d = cfg.d_model
     baxis = "batch" if batch > 1 else None
@@ -156,21 +159,26 @@ def rwkv_cache_desc(cfg: ModelConfig, layers: int, batch: int) -> dict:
 
 def time_mix_decode(p: dict, x: Tensor, state: Tensor, tshift: Tensor,
                     cfg: ModelConfig):
-    """x: (B, 1, d); state: (B, H, hd, hd); tshift: (B, d).  Returns
-    (out (B, 1, d), new state, the new shift ``x[:, 0]`` in fp32)."""
+    """x: (B, 1, d); state: (B, H, hd, hd), on a model mesh the rank's
+    heads; tshift: (B, d).  Returns (out (B, 1, d), new state, the new
+    shift ``x[:, 0]`` in fp32)."""
     b = x.shape[0]
-    h, hd, inner = _dims(cfg)
+    h, hd, _ = _dims(cfg)
+    h0, h1 = common.model_block(h)
+    hl = h1 - h0
     xr, xk, xv, xw, xg = _streams(p, x, _token_shift(x, tshift.to(x.dtype)))
-    r = (xr @ p["wr"]).reshape(b, h, hd)
-    k = (xk @ p["wk"]).reshape(b, h, hd)
-    v = (xv @ p["wv"]).reshape(b, h, hd)
-    g = F.silu(xg @ p["wg"])[:, 0]
-    w = _log_decay(p, xw).reshape(b, h, hd)
+    r = common.column_parallel(xr, p["wr"]).reshape(b, hl, hd)
+    k = common.column_parallel(xk, p["wk"]).reshape(b, hl, hd)
+    v = common.column_parallel(xv, p["wv"]).reshape(b, hl, hd)
+    g = F.silu(common.column_parallel(xg, p["wg"]))[:, 0]
+    w = _log_decay(p, xw).reshape(b, hl, hd)
 
-    y, new_state = linear_scan.gla_decode_step(state, r, k, v, w, u=p["u"])
-    y = y.reshape(b, inner).to(x.dtype)
-    y = rms_norm(y, p["ln_g"], cfg.norm_eps) * g
-    return (y @ p["wo"])[:, None], new_state, x[:, 0].float()
+    u = common.replicated_rows(p["u"], h0, h1)
+    y, new_state = linear_scan.gla_decode_step(state, r, k, v, w, u=u)
+    y = y.reshape(b, hl * hd).to(x.dtype)
+    y = common.split_rms_norm(y, p["ln_g"], cfg.norm_eps) * g
+    return (common.row_parallel(y, p["wo"], x.dtype)[:, None], new_state,
+            x[:, 0].float())
 
 
 def channel_mix_decode(p: dict, x: Tensor, cshift: Tensor, cfg: ModelConfig):
@@ -180,6 +188,6 @@ def channel_mix_decode(p: dict, x: Tensor, cshift: Tensor, cfg: ModelConfig):
     cm = p["cmix"]
     xk = x + (shifted - x) * cm[0]
     xr = x + (shifted - x) * cm[1]
-    k = torch.square(F.relu(xk @ p["ck"]))
-    out = (k @ p["cv"]) * torch.sigmoid(xr @ p["cr"])
-    return out, x[:, 0].float()
+    k = torch.square(F.relu(common.column_parallel(xk, p["ck"])))
+    out = common.row_parallel(k, p["cv"], x.dtype)
+    return out * torch.sigmoid(xr @ p["cr"]), x[:, 0].float()

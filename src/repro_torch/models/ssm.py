@@ -29,8 +29,19 @@ split_rms_norm``), ``out_proj`` is row-parallel, and the replicated
 (``common.replicated_rows``).  Gathering the projection's output moves
 (B, S, 2 d_inner + 2N + H) activations a layer, about 10.7 MB in bf16 at
 zamba2-2.7b's widths over 4 x 128 tokens, where gathering ``in_proj``
-would move its 53 MB.  Decode on a model mesh waits (ROADMAP queue 1,
-item 20 (b)).
+would move its 53 MB.
+
+Decode on a model mesh (:func:`ssm_decode_step`) reuses the projection's
+gather; the fp32 state holds the rank's heads; the conv window is stored
+as :func:`ssm_cache_desc` lays it out, one contiguous block of its
+``d_inner + 2N`` channels a rank (across the x / B / C boundaries, as
+``conv_w``), so each step all-gathers the window's blocks over the model
+axis (3 x 5248 fp32 a row a layer at zamba2-2.7b's widths), joins the
+whole window with the gathered projection's x, B and C, runs the conv on
+every channel (the conv weights gathered once a step for all layers,
+:func:`conv_weights`), reads the rank's x channels and all of B and C,
+and keeps the rank's block of the shifted window.  On one device the
+gathers are the tensors themselves and the step is the reference's.
 """
 from __future__ import annotations
 
@@ -39,7 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, linear_scan
-from repro_torch.models.common import ParamDesc, rms_norm
+from repro_torch.models.common import ParamDesc
 
 Tensor = torch.Tensor
 CONV_K = 4
@@ -88,13 +99,11 @@ def _short_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return out + b
 
 
-def _project(p: dict, x: Tensor, cfg: ModelConfig):
-    """z, x, B, C, dt from one input projection: this rank's heads' z, x
-    and dt and all of B and C, from the projection's blocks all-gathered
-    (on one device the projection itself, cut by sizes)."""
+def _cut(proj: Tensor, cfg: ModelConfig):
+    """z, x, B, C, dt of the whole projection: this rank's heads' z, x and
+    dt and all of B and C."""
     h, pp, n, d_inner = _dims(cfg)
     h0, h1 = common.model_block(h)
-    proj = common.all_gather_model(common.column_parallel(x, p["in_proj"]))
     bc = 2 * d_inner + 2 * n
     return (proj[..., h0 * pp:h1 * pp],
             proj[..., d_inner + h0 * pp:d_inner + h1 * pp],
@@ -103,15 +112,25 @@ def _project(p: dict, x: Tensor, cfg: ModelConfig):
             proj[..., bc + h0:bc + h1])
 
 
+def _projection(p: dict, x: Tensor) -> Tensor:
+    """The whole input projection, from its blocks all-gathered (on one
+    device the projection itself)."""
+    return common.all_gather_model(common.column_parallel(x, p["in_proj"]))
+
+
+def _project(p: dict, x: Tensor, cfg: ModelConfig):
+    """z, x, B, C, dt of the input projection (:func:`_cut`)."""
+    return _cut(_projection(p, x), cfg)
+
+
 def _conv_params(p: dict, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
     """The conv's (w, b) over this rank's channels: its heads' x, then all
-    of B and C (all of them on one device)."""
+    of B and C (all of them on one device); w and b gathered as one."""
     h, pp, _, d_inner = _dims(cfg)
     h0, h1 = common.model_block(h)
-    w = common.all_gather_model(p["conv_w"])
-    b = common.all_gather_model(p["conv_b"])
-    return (torch.cat([w[:, h0 * pp:h1 * pp], w[:, d_inner:]], dim=-1),
-            torch.cat([b[h0 * pp:h1 * pp], b[d_inner:]], dim=-1))
+    wb = common.all_gather_model(torch.cat([p["conv_w"], p["conv_b"][None]]))
+    wb = torch.cat([wb[:, h0 * pp:h1 * pp], wb[:, d_inner:]], dim=-1)
+    return wb[:-1], wb[-1]
 
 
 def _head_rows(p: dict, key: str, cfg: ModelConfig) -> Tensor:
@@ -165,7 +184,8 @@ def ssm_block(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 def ssm_cache_desc(cfg: ModelConfig, layers: int, batch: int) -> dict:
     """``state`` (L, B, H, N, P) and ``conv`` (L, B, CONV_K - 1,
-    conv_dim), both fp32 zeros."""
+    conv_dim), both fp32 zeros: the batch over the data axes, the state's
+    heads and the window's channels over ``"ff"`` (the model axis)."""
     h, pp, n, d_inner = _dims(cfg)
     baxis = "batch" if batch > 1 else None
     return {
@@ -177,32 +197,51 @@ def ssm_cache_desc(cfg: ModelConfig, layers: int, batch: int) -> dict:
     }
 
 
+def conv_weights(p: dict) -> tuple[Tensor, Tensor]:
+    """The conv's whole (w, b) of every layer of a layer-stacked ``ssm``
+    params dict, (L, CONV_K, conv_dim) and (L, conv_dim), from the ranks'
+    blocks: what :func:`ssm_decode_step` takes, gathered once a step."""
+    return (common.all_gather_model(p["conv_w"]),
+            common.all_gather_model(p["conv_b"]))
+
+
 def ssm_decode_step(p: dict, x: Tensor, state: Tensor, conv_state: Tensor,
-                    cfg: ModelConfig):
+                    conv: tuple[Tensor, Tensor], cfg: ModelConfig):
     """x: (B, 1, d); state: (B, H, N, P); conv_state: (B, CONV_K - 1,
-    conv_dim).  Returns (out (B, 1, d), new state, new conv state).
+    conv_dim); conv: this layer's whole (w, b) (:func:`conv_weights`).
+    Returns (out (B, 1, d), new state, new conv state); on a model mesh
+    the state is the rank's heads and the conv state its block of the
+    window's channels (module docstring).
 
     The conv window is the fp32 carry joined with this token's input
     (``torch.cat`` promotes to fp32, as the reference's concatenate
     does), reduced as ``(window * conv_w).sum(1) + conv_b``."""
     b = x.shape[0]
     h, pp, n, d_inner = _dims(cfg)
-    z, xin, bmat, cmat, dt = _project(p, x, cfg)
+    h0, h1 = common.model_block(h)
+    hl = h1 - h0
+    c0, c1 = common.model_block(d_inner + 2 * n)
+    proj = _projection(p, x)
+    z, _, _, _, dt = _cut(proj, cfg)
 
-    conv_in = torch.cat([xin, bmat, cmat], dim=-1)[:, 0]        # (B, C)
-    window = torch.cat([conv_state, conv_in[:, None]], dim=1)
-    conv_out = F.silu((window * p["conv_w"][None]).sum(dim=1) + p["conv_b"])
-    new_conv_state = window[:, 1:]
-    xin_c, bmat_c, cmat_c = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    window = torch.cat([common.all_gather_model(conv_state),
+                        proj[:, :, d_inner:2 * d_inner + 2 * n]], dim=1)
+    conv_out = F.silu((window * conv[0][None]).sum(dim=1) + conv[1])
+    new_conv_state = window[:, 1:, c0:c1]
+    xin_c = conv_out[:, h0 * pp:h1 * pp]
+    bmat_c = conv_out[:, d_inner:d_inner + n]
+    cmat_c = conv_out[:, d_inner + n:]
 
     log_decay, dtv = _decays(p, dt[:, 0], cfg)   # (B, H)
-    v = (xin_c.reshape(b, h, pp) * dtv[..., None]).float()
-    k = bmat_c[:, None, :].expand(b, h, n)
-    q = cmat_c[:, None, :].expand(b, h, n)
-    w = log_decay[..., None].expand(b, h, n)
+    v = (xin_c.reshape(b, hl, pp) * dtv[..., None]).float()
+    k = bmat_c[:, None, :].expand(b, hl, n)
+    q = cmat_c[:, None, :].expand(b, hl, n)
+    w = log_decay[..., None].expand(b, hl, n)
 
     y, new_state = linear_scan.gla_decode_step(state, q, k, v, w)
-    y = y + p["d_skip"][None, :, None] * xin_c.reshape(b, h, pp)
-    y = y.reshape(b, 1, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
-    return y @ p["out_proj"], new_state, new_conv_state
+    y = y + _head_rows(p, "d_skip", cfg)[None, :, None] * \
+        xin_c.reshape(b, hl, pp)
+    y = y.reshape(b, 1, hl * pp).to(x.dtype)
+    y = common.split_rms_norm(y * F.silu(z), p["norm_g"], cfg.norm_eps)
+    return (common.row_parallel(y, p["out_proj"], x.dtype), new_state,
+            new_conv_state)

@@ -8,7 +8,13 @@ torch has no scan to compile, so :meth:`ServeEngine.prefill` and the
 oracle :meth:`ServeEngine.prefill_loop` run the same steps, and
 ``prefill`` adds the reference's ``serve.prefill`` span.  The reference's
 ``serve.prefill_trace`` event marks a JAX trace and has no torch meaning,
-so it is not emitted.  Decode writes the cache in place.
+so it is not emitted.  Decode writes the cache in place.  On a model
+mesh (a ``MeshAxes`` scope whose model axis the active mesh holds) the
+engine holds this rank's shards: its cache is the rank's shard, each
+data rank decodes its rows of the whole prompts, the greedy argmax reads
+the logits gathered over the model axis, and the tokens are all-gathered
+over the data axes once at the end, so every rank returns the same
+array.
 
 :class:`FleetService` streams federated scenario jobs over the
 lane-batched fleet.  ``submit()`` returns a :class:`JobHandle`; each
@@ -41,6 +47,7 @@ from repro_torch.fleet import (
 )
 from repro_torch.fleet.runner import host_evals
 from repro_torch.kernels import dispatch as kdispatch
+from repro_torch.models import common
 from repro_torch.obs import runtime as obs_runtime
 from repro_torch.resilience import (
     CheckpointError, SnapshotStore, check_signature, resolve_checkpoint,
@@ -54,7 +61,8 @@ PyTree = Any
 @dataclasses.dataclass
 class ServeEngine:
     """Static-batch greedy serving of one model's params: ``batch_size``
-    rows of up to ``max_seq`` positions.  Runs where the params live."""
+    rows of up to ``max_seq`` positions.  Runs where the params live; on
+    a model mesh with this rank's shards (the module docstring)."""
     model: Any
     params: PyTree
     batch_size: int
@@ -67,20 +75,28 @@ class ServeEngine:
     def init_cache(self) -> PyTree:
         """A zero cache (an encoder-decoder's cross k / v zeros too: the
         engine never sees frames; serve those from the model's
-        ``prefill_cache`` through ``generate(cache=...)``)."""
+        ``prefill_cache`` through ``generate(cache=...)``); on a model
+        mesh this rank's shard."""
         return self.model.init_cache(self.batch_size, self.max_seq,
                                      self.device)
+
+    def _step(self, cache: PyTree, tokens: torch.Tensor, pos: int):
+        return self.model.decode_step(self.params, cache, tokens, pos,
+                                      batch=self.batch_size,
+                                      max_seq=self.max_seq)
 
     def prefill_loop(self, cache: PyTree, prompts
                      ) -> tuple[PyTree, Optional[torch.Tensor], int]:
         """Teacher-forced prefill, one ``decode_step`` per prompt token.
-        prompts: (B, P).  Returns (cache, the last step's (B, 1, V)
-        logits, P); the cache is updated in place."""
-        toks = torch.as_tensor(prompts, device=self.device).long()
+        prompts: (B, P), the whole batch (on a model mesh this data rank
+        feeds its rows).  Returns (cache, the last step's (B, 1, V)
+        logits, P), the logits of this rank's rows; the cache is updated
+        in place."""
+        lo, hi = common.batch_block(self.batch_size)
+        toks = torch.as_tensor(prompts, device=self.device).long()[lo:hi]
         logits = None
         for t in range(toks.shape[1]):
-            logits, cache = self.model.decode_step(self.params, cache,
-                                                   toks[:, t:t + 1], t)
+            logits, cache = self._step(cache, toks[:, t:t + 1], t)
         return cache, logits, toks.shape[1]
 
     def prefill(self, cache: PyTree, prompts
@@ -101,7 +117,8 @@ class ServeEngine:
         maximum, as ``jnp.argmax``; ids from the padded vocab's columns are
         kept, as the reference keeps them).  ``cache`` defaults to
         :meth:`init_cache`.  Returns the tokens as an int32 (B, max_new)
-        array, moved to the host once at the end.  Always greedy: the
+        array, moved to the host once at the end (on a model mesh
+        all-gathered over the data axes first).  Always greedy: the
         reference's ``greedy``, ``key`` and ``eos_id`` are unused there and
         not taken here."""
         with torch.inference_mode():
@@ -110,17 +127,18 @@ class ServeEngine:
             cur = torch.argmax(logits[:, -1:], dim=-1)
             toks = [cur]
             for i in range(max_new - 1):
-                logits, cache = self.model.decode_step(self.params, cache,
-                                                       cur, p + i)
+                logits, cache = self._step(cache, cur, p + i)
                 cur = torch.argmax(logits[:, -1:], dim=-1)
                 toks.append(cur)
-            return torch.cat(toks, dim=1).to(torch.int32).cpu().numpy()
+            out = common.gather_batch(torch.cat(toks, dim=1), self.batch_size)
+            return out.to(torch.int32).cpu().numpy()
 
 
 def greedy_decode(model, params, prompts, max_new: int = 32,
                   max_seq: Optional[int] = None) -> np.ndarray:
     """One-shot greedy decode of (B, P) prompts; ``max_seq`` defaults to
-    P + max_new."""
+    P + max_new.  On a model mesh with this rank's shards, as
+    :class:`ServeEngine`."""
     b, p = int(prompts.shape[0]), int(prompts.shape[1])
     eng = ServeEngine(model, params, batch_size=b,
                       max_seq=max_seq or (p + max_new))

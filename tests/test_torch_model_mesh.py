@@ -142,8 +142,9 @@ def test_full_size_descs_equal_reference(arch, par):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_cache_descs_equal_reference(arch):
-    """The decode caches' shapes and axes at par 16, batch 1 and 4 (descs
-    only: decode on a model mesh waits)."""
+    """The decode caches' shapes and axes at par 16, batch 1 and 4 (the
+    layouts decode reads on a model mesh: tests/test_torch_model_mesh_
+    decode.py and _serve.py run them)."""
     tcfg, jcfg = t_get(arch), j_get(arch)
     for batch, max_seq in ((1, 32768), (4, 32768), (4, 1024)):
         with tcommon.mesh_axes_scope(tmesh.mesh_axes_for(tcfg, model_par=16)):
