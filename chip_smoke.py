@@ -4,6 +4,7 @@
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --18d    # the build and phase 18d alone
     python3 chip_smoke.py --22     # the build and phase 22 alone
+    python3 chip_smoke.py --23     # the build and phase 23 alone
 
 Phases, each fatal on failure:
   1. environment: torch / CUDA / nvcc versions, the card, TF32 off;
@@ -48,7 +49,7 @@ Phases, each fatal on failure:
      fallback; then step 1's attacked stack through robust_aggregate on
      the kernel backend against the leaf-streamed torch backend;
   8. the gram-rule path: 2 steps with NNM + GM, asserting K3 ran;
-  9. the hierarchical trainer at full width (8 of 32 layers), n = 16, f
+  9. the hierarchical trainer at full width (4 of 32 layers), n = 16, f
      = 3, ALIE, through train_loop: hier + NNM + CWTM (3 steps; K6 = 1, K2 = 1, K1 = 0 per
      step), hier + CWTM (2 steps; K7 and K2), hier + NNM + GM (2 steps; K6
      and K3); then --agg bucketing+cwtm through launch.train.main (2 steps;
@@ -71,7 +72,7 @@ Phases, each fatal on failure:
      bucketing lanes' (5, 9, 2842), f = 4 per lane through adjusted_f_dyn
      (the lane forms of K2's median and K3 at the grid's shape: phase 18);
  11. the fleet: ``repro_torch.launch.grid --full`` in process (61 jobs,
-     13 buckets, GRID_ROUNDS = 50 rounds), asserting K4, K5 and the lane forms of K2's
+     13 buckets, GRID_ROUNDS = 30 rounds), asserting K4, K5 and the lane forms of K2's
      median and K3 launched, no single-lane K2 / K3 and no fallback, printing the accuracy table, ms per bucket-round and peak
      memory; then the cwtm | nnm and cwtm | bucketing buckets again on the
      torch backend, per-round losses within rtol 1e-4 of the kernel run;
@@ -109,7 +110,7 @@ Phases, each fatal on failure:
      rounds in segments of 2, killed after its first snapshot and
      resumed: every FleetResult equal, K4 + K5 once a bucket-round;
  14. the continuous fleet service (``repro_torch.serving``): (a) the
-     paper's grid (61 jobs, 13 buckets, 30 rounds in segments of at most
+     paper's grid (61 jobs, 13 buckets, 18 rounds in segments of at most
      10, cut at the evals) submitted up front to ``FleetService`` and run
      by ``FleetRunner``, in turns: every FleetResult equal bit for bit, 13
      round programs each, the K2-K5 launches equal (K4 / K5 and the
@@ -147,7 +148,7 @@ Phases, each fatal on failure:
      rounds) on both backends: equal frontiers, losses within 1e-4, K3 /
      K4 / K5 launches asserted, the frontier table printed;
  16. the in-round health taps and the runtime's exporters: (a)
-     train_loop at full width (8 of 32 layers), n = 8, f = 2, ALIE, NNM +
+     train_loop at full width (4 of 32 layers), n = 8, f = 2, ALIE, NNM +
      CWTM, 3 steps
      tapped and untapped (params, loss, kappa_hat, direction_norm bit for
      bit, 1 K1 + 1 K2 a step, one metric transfer each, the tap columns'
@@ -195,7 +196,7 @@ Phases, each fatal on failure:
      ragged D (the NaN spread stays in its lane) and the grid's shapes;
      (b) FleetRunner at the grid's widths, NNM + CWTM / cwmed / GM x 5
      attacks, hierarchical with buckets of 2 and 3, and CWTM x 5 without
-     NNM with buckets of 2 (7 buckets of 5 lanes, 20 rounds): launches exact per bucket-round (one K6 lane form, K5
+     NNM with buckets of 2 (7 buckets of 5 lanes, 10 rounds): launches exact per bucket-round (one K6 lane form, K5
      again at 9 means, one K4, median or K3 lane launch, none per lane),
      each lane within rtol 1e-5 of its 1-lane solo run (GM's
      direction_norm 1e-4), the torch backend within 1e-4; one bucket of 8
@@ -237,9 +238,9 @@ Phases, each fatal on failure:
  20. cached decode and greedy serving (``repro_torch.serving.
      ServeEngine``) at published widths from seeded bf16 weights:
      qwen2-7b (batch 8, prompt 256, 64 new) and whisper-base (1500 seeded
-     frames through ``prefill_cache``) at full depth; smollm-360m 16 of 32
-     layers, minitron-8b 16 of 32, internvl2-2b (text decode) 12 of 24,
-     rwkv6-3b 16 of 32, zamba2-2.7b 24 of 54, mixtral-8x22b 4 of 56 and
+     frames through ``prefill_cache``) at full depth; smollm-360m 8 of 32
+     layers, minitron-8b 8 of 32, internvl2-2b (text decode) 6 of 24,
+     rwkv6-3b 8 of 32, zamba2-2.7b 12 of 54, mixtral-8x22b 2 of 56 and
      arctic-480b 1 of 35; batch 4,
      prompt 64, 32 new (rwkv6 / zamba2 64) unless named.  Each run generates greedily through
      ``launch.serve.clocked_generate`` (prefill ms, ms per decoded token as
@@ -252,13 +253,14 @@ Phases, each fatal on failure:
      E / k), replaying decode's expert picks
      (a bf16 rounding tips router near-ties; the flips are counted); the
      VLM's as a dense config); no kernel launch and no
-     fallback; then in fp32 (TF32 off) smollm-360m and rwkv6-3b at 16 of
-     32 layers, zamba2-2.7b at 24 of 54 and mixtral-8x22b at 1 layer,
+     fallback; then in fp32 (TF32 off) smollm-360m and rwkv6-3b at 8 of
+     32 layers, zamba2-2.7b at 12 of 54 and mixtral-8x22b at 1 layer,
      within 1e-4 of max |forward|;
  21. the multi-device aggregation backends (``launch.mesh``,
      ``kernels/shard.py``) in worlds of processes that share the card over
-     gloo (``launch.mesh.spawn_world``; NCCL refuses two ranks on one
-     GPU), each world under a time limit that kills it, any rank's
+     gloo (``world_run``: kept worlds of 2 and of 4 ranks, one alive at a
+     time, shared by phases 21-23; (b) runs first; NCCL refuses two ranks
+     on one GPU), each case under a time limit that kills its world, any rank's
      failure failing the phase, every rank's fallback log empty: (a)
      "cuda_sharded" at the dense shape (n = 8, f = 2, D = 361,821,120
      fp32) over 2 ranks, each regenerating its column block from a seed
@@ -279,8 +281,8 @@ Phases, each fatal on failure:
      means, K2; hier + NNM + CWTM held to phase 6's aggregate under its
      near-tie rule, hier + CWTM within 1e-5; (c) the trainer: full-width
      smollm-360m D-SHB, ALIE, through ``train_loop`` with ``worker_axes``
-     on 2 ranks, NNM + CWTM on "cuda_sharded" (n = 8, f = 2, 4 of 32
-     layers, 3 steps) and hier + NNM + CWTM on 1-D "cuda_hier" (n = 16, f
+     on 2 ranks, NNM + CWTM on "cuda_sharded" (n = 8, f = 2, 2 of 32
+     layers, 2 steps) and hier + NNM + CWTM on 1-D "cuda_hier" (n = 16, f
      = 3, 8 buckets of 2, 2 of 32 layers, 2 steps), each against the
      single-device run from
      the same seeded weights, run first: parameters within 1e-5 of the
@@ -306,17 +308,18 @@ Phases, each fatal on failure:
      ``train_loop`` under ``options.checkpoint`` on (2, 2), killed after
      step 1's snapshot and resumed: every rank's shards and momentum bit
      for bit; (e-j) every other family at its published widths, depth
-     cut, in bf16 and in fp32 with the Gram, and smollm's sketch route
+     cut, in bf16 (one step: the reference's sharded-vs-single contract)
+     and in fp32 with the Gram (2 steps), and smollm's sketch route
      (``MODEL_RUNS``).  ms per step on one device and over the world, each
      rank's peak, launches, collectives and model-axis all-reduces a step;
      asserts K1 and K2 on every rank and empty fallback logs.  Then
      cached decode and ``ServeEngine`` on the same worlds
      (``MODEL_DECODE_RUNS``), each case first on one device, seeded
-     weights and prompts: (k) qwen2-7b, 28 of 28 layers, bf16, batch 8
-     on (2, 2) (kv 4 -> 2 a rank, QKV biases); (l) mixtral-8x22b, 4 of 56,
+     weights and prompts: (k) qwen2-7b, 4 of 28 layers, bf16, batch 8
+     on (2, 2) (kv 4 -> 2 a rank, QKV biases); (l) mixtral-8x22b, 2 of 56,
      the experts 4 a rank and the ring cache, on (1, 2); (m) internvl2-2b,
-     24 of 24, text decode, (1, 2); (n) rwkv6-3b, 32 of 32, (2, 2); (o)
-     zamba2-2.7b, 12 of 54 (two groups), (1, 2); (p) whisper-base, 6 + 6,
+     6 of 24, text decode, (1, 2); (n) rwkv6-3b, 8 of 32, (2, 2); (o)
+     zamba2-2.7b, 12 of 54 (two groups), (1, 2); (p) whisper-base, 2 + 2,
      1500 seeded frames through ``prefill_cache``, (2, 2); batch 4,
      prompt 64, 32 new unless named; (q) the tight set in fp32 (TF32
      off) on (1, 2): smollm-360m (4 layers), mixtral-8x22b (1),
@@ -337,31 +340,60 @@ Phases, each fatal on failure:
      and ms per decoded token on one device and over the world, the
      bound per token (``launch.roofline``), collectives a token a rank,
      peaks; no kernel launch and empty fallback logs on every rank;
- 23. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 23. sequence parallelism and expert FSDP on the model mesh
+     (``MeshAxes.seq_par``: the residual stream as each rank's sequence
+     block, every split sub-block entered by an all-gather and left by a
+     reduce-scatter; ``expert_fsdp``: the expert tables over the data
+     axis too, all-gathered for each use and their gradients
+     reduce-scattered), a (data 2, model 2) world sharing the card over
+     gloo, each case first on one device: (a) 22a's smollm-360m (4 of 32
+     layers, bf16, n = 8, f = 2, ALIE, NNM + CWTM, 2 steps) with
+     ``seq_par``, the loss within 1e-3 and the parameters within 5e-3;
+     (b) the same at 2 layers in fp32, 1e-5 of the largest magnitude and
+     the stack Gram; (c) mixtral-8x22b at 1 of 56 layers, bf16, under
+     ``seq_par`` + ``expert_fsdp`` and ``fsdp_keys``, n = 4, f = 1: a rank
+     holds half of ``ff_inner`` of 4 of the 8 experts (0.60 B of the
+     layer's 2.42 B expert parameters); one step (the reference's
+     sharded-vs-single contract: the step's loss and the parameters
+     after it), bounds as (a); (d) ``launch.dryrun`` of (a) and (c) on a
+     fake (2, 2) world in a CPU subprocess: its rank-0 collectives (op,
+     axis, calls, bytes) a step must equal (a)'s / (c)'s measured ones,
+     its FLOPs printed beside the measured step.  Per rank: ms per step,
+     peak and collectives a step (beside 22a's without ``seq_par`` when
+     phase 22 ran); asserts K1 and K2 on every rank and empty fallback
+     logs;
+ 24. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6; the
      lane forms of K2's median, K3, K6 and K7 on rows of their own), the
-     fed phase's launches, phase 13's to 19's, 21's and 22's launches,
+     fed phase's launches, phase 13's to 19's and 21's to 23's launches,
      the kernels JSON line (K1, K2, K4 and K5 launches include phase
      13's; K2-K5 phase 14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and
      K2 phase 17's and 19's; the lane forms and K4 / K5 phase 18's; K1-K7
-     phase 21's and K1 / K2 / K6 / K7 phase 22's, summed over their
-     ranks), the card line, and last the {"ok": true, ...} line.
+     phase 21's and K1 / K2 / K6 / K7 phase 22's and K1 / K2 phase 23's,
+     summed over their ranks), the card line, and last the {"ok": true,
+     ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
 device tensor, with the NNM mix) against its plain version and against K2
 at the same f, which it must equal bit for bit (one body).
 
 Cuts for time (the script must end within its 1200 s limit on a slow
-chip host too, whose speed varies 1.5-2x between calls; phase 22's
-decode cases were paid for here; PERF.md says which comparison each
-gives up): 13a / 13b at 4 of 32 layers (13b's full-depth snapshot of 13
-GB took ~90 s of disk); phase 9 at 8 of 32; 16a / 16b at 8 of 32; phase
-20's smollm, minitron, internvl2 and rwkv6 runs at half their depth and
-zamba2 at 24 of 54 (bf16 and fp32); 21c's trainer at 4 and 2 of 32
-layers (32 and 16 before); 22a at 4 of 32, 22h / 22i whisper at 2 + 2
-of 6 + 6, 22b / 22j (and so 22d) at 2 layers (4 before); the grid at 50
-rounds (100 before).  22f keeps 12 layers: two shared-block groups, so
-the shared block's gradient is summed over groups on the model mesh.
+chip host too, whose speed varies 1.5-2x between calls: it aims at half
+the limit; PERF.md says which comparison each cut gives up): 13a / 13b
+at 4 of 32 layers (13b's full-depth snapshot of 13 GB took ~90 s of
+disk); phase 9 and 16a / 16b at 4 of 32 (8 before); phase 20's smollm,
+minitron, internvl2 and rwkv6 runs at a quarter of their depth, zamba2
+at 12 of 54 and mixtral at 2 of 56 (bf16 and fp32); 21c's trainer at 2
+and 2 of 32 layers, 2 steps each (32 and 16, then 4 and 2 before); 22a
+at 4 of 32, 22h / 22i whisper at 2 + 2 of 6 + 6, 22b / 22j (and so 22d)
+at 2 layers (4 before); 22e-22h's bf16 runs one step (2 before; their
+fp32 runs 22i keep 2) and 22e at 1 layer; 22k at 4 of 28 layers, 22l at
+2 of 56, 22m at 6 of 24, 22n at 8 of 32, 22p at 2 + 2 (14, 4, 24, 32,
+6 + 6 before); the grid at 30 rounds (100, then 50 before), 14a at 18
+(30 before), 18b at 10 (20 before).  22f and 22o keep 12 layers: two
+shared-block groups, so the shared block's gradient is summed over
+groups on the model mesh and decode keeps a cache per group.  The
+worlds of phases 21-23 start three times, not seven (``world_run``).
 
 It needs one CUDA card and imports nothing of JAX or of the reference
 package ``repro``.
@@ -388,7 +420,7 @@ N_MAIN, F_MAIN = 8, 2
 D_MAIN = 361_821_120            # smollm-360m parameter count (tied, padded vocab)
 N_SENT, F_SENT, D_SENT = 17, 8, (1 << 24) + 3
 N_HIER, F_HIER = 16, 3          # hierarchical runs: s = 2, 8 buckets, f' = 3
-HIER_TRAIN_LAYERS = 8           # phase 9's depth, cut for time (of 32)
+HIER_TRAIN_LAYERS = 4           # phase 9's depth, cut for time (of 32; 8 before)
 SCALE_NS = (256, 1024, 4096, 10240)   # the reference's scale cases, s = 16
 HIER_N, HIER_S = 10240, 16      # the scale case of the hierarchical variant
 HIER_D = 1 << 20                # ... at a real width: a 42.9 GB fp32 stack
@@ -411,7 +443,7 @@ FLEET_WIDE = (2, 640, 1 << 20)  # K5 above 32 workers: the tiled product
 FLEET_GRID = (5, 17, 2842)      # a grid bucket: 5 lanes, the 48-48-10 MLP
 FLEET_GRID_BKT = (5, 9, 2842)   # a bucketing bucket: 17 workers, 9 means (s = 2)
 F_GRID = 4                      # the grid's f (n = 17)
-GRID_ROUNDS = 50                # phase 11's rounds (100 before), cut for time
+GRID_ROUNDS = 30                # phase 11's rounds (100, then 50 before), cut for time
 REPS = 7
 RTOL = 1e-5                     # of the largest finite |plain| (fp32 contract)
 FP32_TFLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -2183,7 +2215,7 @@ def phase_resume_fleet(dev) -> dict:
 # Phase 14: the continuous fleet service (repro_torch.serving).
 # ---------------------------------------------------------------------------
 
-SERVICE_ROUNDS, SERVICE_CHUNK = 30, 10      # 14a: the grid through both
+SERVICE_ROUNDS, SERVICE_CHUNK = 18, 10      # 14a: the grid through both (30 rounds before)
 CHURN_ROUNDS, CHURN_CHUNK = 12, 3           # 14b
 #: The lane buckets' kernels: K5, K4, K2's median and K3's lane forms, and
 #: the single-lane K2 / K3, which a lane bucket no longer launches.
@@ -2881,7 +2913,7 @@ TAPS_STEPS, TAPS_GM_STEPS = 3, 2            # 16a
 TAPS_FED_ROUNDS, TAPS_NAN_ROUNDS = 2, 20    # 16b
 TAPS_FLEET_ROUNDS, TAPS_FLEET_CHUNK = 30, 10    # 16c
 TAPS_SVC_ROUNDS, TAPS_SVC_CHUNK = 12, 3     # 16d
-TAPS_LAYERS = 8         # 16a / 16b's depth, cut for time (of 32)
+TAPS_LAYERS = 4         # 16a / 16b's depth, cut for time (of 32; 8 before)
 TAPS_REL = 1e-5         # dist / cos, kernel vs torch backend taps
 TAPS_TRIM_ABS = 1e-6    # trim_frac, kernel vs torch backend taps
 TAPS_FLEET_RTOL = 1e-4  # the fleet's kernel vs torch backend tolerance
@@ -3521,7 +3553,7 @@ def phase_zoo(dev, card: str) -> dict:
 # K6 and K7.
 # ---------------------------------------------------------------------------
 
-HIER_FLEET_ROUNDS = 20          # 18b: the grid's buckets, hierarchical
+HIER_FLEET_ROUNDS = 10          # 18b: the grid's buckets, hierarchical (20 before)
 HIER_FLEET_SIZES = (2, 3)       # bucket sizes: 9 means (K5), 6 (K6's fold)
 HIER_BIG_ROUNDS, HIER_BIG_S = 3, 3   # 18b: the (8, 17, 2^24) bucket
 HIER_SVC_ROUNDS, HIER_SVC_CHUNK = 8, 2   # 18c
@@ -4453,22 +4485,22 @@ def phase_families(dev, card: str) -> dict:
 #: prompt + new.  arctic-480b runs 1 of 35 layers: ``materialize`` draws
 #: each expert leaf in fp32 before its cast, (1, 128, 7168, 4864) = 17.8
 #: GB beside 28.1 GB of bf16 weights; two layers would not fit.  mixtral
-#: runs 4 of 56 layers (20.8 GB).  Cut for time, smollm,
-#: minitron, internvl2, rwkv6 run half their depth and zamba2 24 of 54
-#: (four groups); qwen2-7b (20b, the serving cell's shape) and whisper
-#: run at full depth.
+#: runs 2 of 56 layers.  Cut for time, smollm, minitron, internvl2 and
+#: rwkv6 run a quarter of their depth and zamba2 12 of 54 (two groups);
+#: qwen2-7b (20b, the serving cell's shape) and whisper run at full
+#: depth.
 #: ``new`` is cut to keep the phase near a minute (the steps are
 #: launch-bound, 10-50 ms each): 32 (qwen2-7b 64) where nothing else
 #: bounds it; rwkv6 / zamba2 keep 64, since their forward check runs
 #: prompt + new tokens, a whole number of 64-token scan chunks.
-SERVE_RUNS = (("20a", "smollm-360m", 16, 4, 64, 32),
+SERVE_RUNS = (("20a", "smollm-360m", 8, 4, 64, 32),
               ("20b", "qwen2-7b", 28, 8, 256, 64),
-              ("20c", "minitron-8b", 16, 4, 64, 32),
-              ("20d", "mixtral-8x22b", 4, 4, 64, 32),
+              ("20c", "minitron-8b", 8, 4, 64, 32),
+              ("20d", "mixtral-8x22b", 2, 4, 64, 32),
               ("20e", "arctic-480b", 1, 4, 64, 32),
-              ("20f", "internvl2-2b", 12, 4, 64, 32),
-              ("20g", "rwkv6-3b", 16, 4, 64, 64),
-              ("20h", "zamba2-2.7b", 24, 4, 64, 64),
+              ("20f", "internvl2-2b", 6, 4, 64, 32),
+              ("20g", "rwkv6-3b", 8, 4, 64, 64),
+              ("20h", "zamba2-2.7b", 12, 4, 64, 64),
               ("20i", "whisper-base", 6, 4, 64, 32))
 #: bf16 decode against the bf16 forward of the same tokens: max |dec -
 #: fwd| over every step's logits, as a share of max |fwd|.  The two run
@@ -4491,10 +4523,10 @@ SERVE_REL_RECURRENT = 1.0 / 4
 #: fp32 decode against the fp32 forward (TF32 off): 1e-4 of max |fwd|.
 SERVE_FP32_REL = 1e-4
 #: fp32 runs: (label, arch, layers, batch, prompt, new).
-SERVE_FP32_RUNS = (("20a fp32", "smollm-360m", 16, 4, 64, 32),
+SERVE_FP32_RUNS = (("20a fp32", "smollm-360m", 8, 4, 64, 32),
                    ("20d fp32", "mixtral-8x22b", 1, 4, 64, 32),
-                   ("20g fp32", "rwkv6-3b", 16, 4, 64, 64),
-                   ("20h fp32", "zamba2-2.7b", 24, 4, 64, 64))
+                   ("20g fp32", "rwkv6-3b", 8, 4, 64, 64),
+                   ("20h fp32", "zamba2-2.7b", 12, 4, 64, 64))
 
 
 def serve_forward(model, params, tokens, frames):
@@ -4734,7 +4766,7 @@ def phase_serve(dev, card: str) -> list:
 # ---------------------------------------------------------------------------
 # Phase 21: the multi-device aggregation backends ("cuda_sharded" /
 # "cuda_hier", kernels/shard.py) in worlds of processes that share the card
-# over gloo (launch.mesh.spawn_world).
+# over gloo (``world_run``'s kept worlds).
 # ---------------------------------------------------------------------------
 
 MESH_LIMIT = 600                # seconds a world may take in all
@@ -4755,10 +4787,10 @@ MESH_LANES = (("lanes nnm+cwtm", dict(pre="nnm", rule="cwtm"),
               ("lanes nnm+gm", dict(pre="nnm", rule="gm"),
                dict(gram_batched=1, mixtrim_dyn=0, combine_lanes=1)))
 #: 21c: (name, layers, n, f, spec, steps, launches a step); full width,
-#: the depth cut to 4 and 2 of 32 layers to pay for phase 22's decode
-#: cases (32 and 16 before).
-MESH_TRAIN = (("nnm+cwtm", 4, N_MAIN, F_MAIN,
-               dict(pre="nnm", rule="cwtm"), 3,
+#: the depth cut to 2 of 32 layers for time (32 and 16, then 4 and 2
+#: before).
+MESH_TRAIN = (("nnm+cwtm", 2, N_MAIN, F_MAIN,
+               dict(pre="nnm", rule="cwtm"), 2,
                dict(gram=1, mixtrim=1, bucketgram=0, bucketmeans=0)),
               ("hier+nnm+cwtm", 2, N_HIER, F_HIER,
                dict(pre="nnm", rule="cwtm", hier=True, bucket_size=2), 2,
@@ -4801,6 +4833,139 @@ def collective_summary() -> dict:
         row["bytes"] += c["bytes"]
         row["s"] = round(row["s"] + c["seconds"], 4)
     return out
+
+
+# Phases 21-23 run their cases in worlds of 2 and of 4 ranks, seven times
+# in all.  A world's processes start once (a rank's CUDA context, imports
+# and gloo join took 10-20 s a world on the card's host) and stay for the
+# next cases of that size: ``world_run`` hands each rank the case and
+# waits for all of them, as ``spawn_world`` does.  One world is alive at a
+# time (21b's 4 ranks hold 70 GiB of the card; two idle ranks' contexts
+# left it short), so the phases order their cases to switch sizes three
+# times: 21b; 21a, 21c and 22's (1, 2) cases; 22's (2, 2) cases and 23.
+_WORLDS: dict = {}
+
+
+def _kept_rank(rank: int, world: int, port: int, timeout: float, tasks,
+               results) -> None:
+    """A rank of a kept world: joins the gloo world once, then runs each
+    ``(fn, args)`` from ``tasks`` until ``None``, the card's cache freed
+    after each; the first failure is reported and ends the rank."""
+    import datetime
+    import gc
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=timeout))
+        while (task := tasks.get()) is not None:
+            fn, args = task
+            results.put(("ok", rank, fn(rank, world, *args)))
+            gc.collect()
+            torch.cuda.empty_cache()
+    except BaseException:                            # noqa: BLE001 - reported
+        results.put(("error", rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            try:
+                dist.destroy_process_group()
+            except Exception:                        # noqa: BLE001 - exiting
+                pass
+
+
+class KeptWorld:
+    """``world`` spawned processes joined once in a gloo world over
+    ``tcp://127.0.0.1``, running cases in turn (:func:`world_run`)."""
+
+    def __init__(self, world: int):
+        import torch.multiprocessing as mp
+        from repro_torch.launch.mesh import GROUP_TIMEOUT, free_port
+        ctx = mp.get_context("spawn")
+        self.world = world
+        self.results = ctx.Queue()
+        self.tasks = [ctx.Queue() for _ in range(world)]
+        port = free_port()
+        self.procs = [ctx.Process(target=_kept_rank, daemon=True,
+                                  args=(r, world, port, GROUP_TIMEOUT,
+                                        self.tasks[r], self.results))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, args: tuple, limit: float) -> list:
+        """``fn(rank, world, *args)`` on every rank; the ranks' results in
+        rank order.  A rank's failure or the limit closes the world and
+        raises, as ``spawn_world`` does."""
+        import queue
+        for q in self.tasks:
+            q.put((fn, tuple(args)))
+        out: dict = {}
+        deadline = time.monotonic() + limit
+        try:
+            while len(out) < self.world:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"world_run: {self.world - len(out)} of {self.world} "
+                        f"ranks did not finish within {limit:.0f} s")
+                try:
+                    status, rank, value = self.results.get(
+                        timeout=min(left, 1.0))
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(self.procs)
+                            if p.exitcode is not None and r not in out]
+                    if dead:
+                        raise RuntimeError(
+                            f"world_run: rank {dead[0]} exited with code "
+                            f"{self.procs[dead[0]].exitcode} before "
+                            f"reporting")
+                    continue
+                if status == "error":
+                    raise RuntimeError(f"world_run: rank {rank} failed:\n"
+                                       f"{value}")
+                out[rank] = value
+        except BaseException:
+            self.close()
+            raise
+        return [out[r] for r in range(self.world)]
+
+    def close(self) -> None:
+        """Ask every rank to leave, then kill any that has not."""
+        for q in self.tasks:
+            try:
+                q.put(None)
+            except (OSError, ValueError):
+                pass
+        for p in self.procs:
+            p.join(timeout=10.0)
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5.0)
+        self.results.close()
+
+
+def world_run(fn, world: int, args: tuple = (), limit: float = 600.0) -> list:
+    """``fn(rank, world, *args)`` on the kept world of ``world`` ranks
+    (started on first use, after any world of another size is stopped);
+    the ranks' results in rank order."""
+    kept = _WORLDS.get(world)
+    if kept is None:
+        close_worlds()
+        kept = _WORLDS[world] = KeptWorld(world)
+    try:
+        return kept.run(fn, args, limit)
+    except BaseException:
+        _WORLDS.pop(world, None)
+        raise
+
+
+def close_worlds() -> None:
+    """Stop every kept world's processes."""
+    while _WORLDS:
+        _WORLDS.popitem()[1].close()
 
 
 def _rank_setup(rank: int):
@@ -5115,7 +5280,6 @@ def phase_mesh_dense(dev, tmp: str) -> dict:
     from repro_torch.core.robust import batched_robust_aggregate, robust_aggregate
     from repro_torch.core.types import AggregatorSpec
     from repro_torch.kernels import gram, gram_batched
-    from repro_torch.launch.mesh import spawn_world
     x = seeded_block(MESH_SEED, (0, N_MAIN), (0, D_MAIN), dev, N_MAIN)
     _save(tmp, "gram", gram(x))
     for name, kw, _ in MESH_DENSE:
@@ -5142,7 +5306,7 @@ def phase_mesh_dense(dev, tmp: str) -> dict:
     del x
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spawn_world(_mesh_dense_rank, 2, (tmp,), limit=MESH_LIMIT)
+    ranks = world_run(_mesh_dense_rank, 2, (tmp,), limit=MESH_LIMIT)
     log(f"  world of 2 ranks (gloo, sharing the card): {time.perf_counter() - t0:.1f} s")
     _mesh_check("21a", ranks)
     total = {}
@@ -5201,9 +5365,8 @@ def phase_mesh_dense(dev, tmp: str) -> dict:
 def phase_mesh_hier(tmp: str) -> dict:
     """21b: a world of 4 ranks on the 2 x 2 mesh against phase 6's
     aggregates (saved to ``tmp`` by phase 6)."""
-    from repro_torch.launch.mesh import spawn_world
     t0 = time.perf_counter()
-    ranks = spawn_world(_mesh_hier_rank, 4, (tmp,), limit=MESH_LIMIT)
+    ranks = world_run(_mesh_hier_rank, 4, (tmp,), limit=MESH_LIMIT)
     log(f"  world of 4 ranks (2 x 2, gloo, sharing the card): "
         f"{time.perf_counter() - t0:.1f} s")
     _mesh_check("21b", ranks)
@@ -5243,7 +5406,6 @@ def phase_mesh_train(dev, tmp: str) -> dict:
     """21c: each run on the single device first (parameters and losses to
     ``tmp``, the card freed), then a world of 2 ranks."""
     import torch
-    from repro_torch.launch.mesh import spawn_world
     from repro_torch.configs import get_config
     from repro_torch.tree import tree_leaves
     for name, layers, n, f, spec_kw, steps, _ in MESH_TRAIN:
@@ -5261,7 +5423,7 @@ def phase_mesh_train(dev, tmp: str) -> dict:
         del final
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = spawn_world(_mesh_train_rank, 2, (tmp,), limit=MESH_LIMIT)
+    ranks = world_run(_mesh_train_rank, 2, (tmp,), limit=MESH_LIMIT)
     log(f"  world of 2 ranks (gloo, sharing the card): {time.perf_counter() - t0:.1f} s")
     _mesh_check("21c", ranks)
     total = {}
@@ -5303,18 +5465,21 @@ def phase_mesh(dev, hier_ref_dir: str) -> dict:
     """Phase 21; returns the launches summed over every rank."""
     import tempfile
     total = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        log(f"-- 21a. cuda_sharded at the dense shape: n={N_MAIN} f={F_MAIN} "
-            f"D={D_MAIN} fp32 over 2 ranks; the lane forms at {FLEET_BIG}")
-        add_counts(total, phase_mesh_dense(dev, tmp))
-        log(f"  21a: {time.perf_counter() - t0:.1f} s")
+    # 21b first: its 4 ranks hold 70 GiB of the card, so it runs with no
+    # other world's ranks alive; 21a, 21c and phase 22's (1, 2) cases then
+    # share the world of 2.
     t0 = time.perf_counter()
     log(f"-- 21b. cuda_hier on a 2 x 2 mesh: n={HIER_N} s={HIER_S} "
         f"f={HIER_N // 32} D={HIER_D} fp32, tiles ({HIER_N // 2}, "
         f"{HIER_D // 2})")
     add_counts(total, phase_mesh_hier(hier_ref_dir))
     log(f"  21b: {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        log(f"-- 21a. cuda_sharded at the dense shape: n={N_MAIN} f={F_MAIN} "
+            f"D={D_MAIN} fp32 over 2 ranks; the lane forms at {FLEET_BIG}")
+        add_counts(total, phase_mesh_dense(dev, tmp))
+        log(f"  21a: {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         log("-- 21c. the trainer: full-width smollm-360m, D-SHB, ALIE, "
@@ -5360,14 +5525,14 @@ MODEL_RUNS = (
      ((1, 2), (2, 2)), True, False),
     ("22c", "mixtral-8x22b", 1, "bf16", 4, 1,
      dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), False, True),
-    ("22e", "rwkv6-3b", 2, "bf16", N_MAIN, F_MAIN,
-     dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), False, False),
+    ("22e", "rwkv6-3b", 1, "bf16", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 1, ((2, 2),), False, False),
     ("22f", "zamba2-2.7b", 12, "bf16", 6, F_MAIN,
-     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), False, False),
+     dict(pre="nnm", rule="cwtm"), 1, ((1, 2),), False, False),
     ("22g", "internvl2-2b", 2, "bf16", N_MAIN, F_MAIN,
-     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), False, False),
+     dict(pre="nnm", rule="cwtm"), 1, ((1, 2),), False, False),
     ("22h", "whisper-base", 2, "bf16", N_MAIN, F_MAIN,
-     dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), False, False),
+     dict(pre="nnm", rule="cwtm"), 1, ((2, 2),), False, False),
     ("22i rwkv6", "rwkv6-3b", 2, "fp32", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
     ("22i zamba2", "zamba2-2.7b", 6, "fp32", N_MAIN, F_MAIN,
@@ -5426,13 +5591,16 @@ def _model_setup(run, dev, mesh):
     from repro_torch.models import build_model
     from repro_torch.models import common
     from repro_torch.training import ByzantineConfig, TrainerConfig
-    name, arch, layers, dtype, n, f, spec_kw, steps, _, _, fsdp = run
+    import dataclasses
+    name, arch, layers, dtype, n, f, spec_kw, steps, _, _, fsdp, *layout = run
     full = get_config(arch)
     cfg = full.replace(num_layers=layers, dtype=torch.bfloat16
                        if dtype == "bf16" else torch.float32)
     if full.encoder_layers:
         cfg = cfg.replace(encoder_layers=min(layers, full.encoder_layers))
     axes = mesh_axes_for(cfg, model_par=MODEL_PAR)
+    if layout:                  # phase 23: seq_par / expert_fsdp
+        axes = dataclasses.replace(axes, **layout[0])
     model = build_model(cfg)
     with common.mesh_axes_scope(axes):
         specs = common.leaf_specs(model.param_descs())
@@ -5661,12 +5829,12 @@ def _model_resume(dev, mesh, tmp: str) -> dict:
 #: (phase 22's world of that size): 22k-22p bf16, 22q the tight set in
 #: fp32 (TF32 off).
 MODEL_DECODE_RUNS = (
-    ("22k", "qwen2-7b", 28, "bf16", 8, 64, 32, (2, 2)),
-    ("22l", "mixtral-8x22b", 4, "bf16", 4, 64, 32, (1, 2)),
-    ("22m", "internvl2-2b", 24, "bf16", 4, 64, 32, (1, 2)),
-    ("22n", "rwkv6-3b", 32, "bf16", 4, 64, 32, (2, 2)),
+    ("22k", "qwen2-7b", 4, "bf16", 8, 64, 32, (2, 2)),
+    ("22l", "mixtral-8x22b", 2, "bf16", 4, 64, 32, (1, 2)),
+    ("22m", "internvl2-2b", 6, "bf16", 4, 64, 32, (1, 2)),
+    ("22n", "rwkv6-3b", 8, "bf16", 4, 64, 32, (2, 2)),
     ("22o", "zamba2-2.7b", 12, "bf16", 4, 64, 32, (1, 2)),
-    ("22p", "whisper-base", 6, "bf16", 4, 64, 32, (2, 2)),
+    ("22p", "whisper-base", 2, "bf16", 4, 64, 32, (2, 2)),
     ("22q smollm", "smollm-360m", 4, "fp32", 4, 16, 16, (1, 2)),
     ("22q mixtral", "mixtral-8x22b", 1, "fp32", 4, 16, 16, (1, 2)),
     ("22q rwkv6", "rwkv6-3b", 2, "fp32", 4, 16, 16, (1, 2)),
@@ -5696,8 +5864,11 @@ def _decode_setup(run):
     from repro_torch.launch.mesh import mesh_axes_for
     from repro_torch.models import build_model
     _, arch, layers, dtype, *_ = run
-    cfg = get_config(arch).replace(num_layers=layers, dtype=torch.bfloat16
-                                   if dtype == "bf16" else torch.float32)
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers, dtype=torch.bfloat16
+                       if dtype == "bf16" else torch.float32)
+    if full.encoder_layers:                 # whisper: cut with its decoder
+        cfg = cfg.replace(encoder_layers=min(layers, full.encoder_layers))
     return build_model(cfg), cfg, mesh_axes_for(cfg, model_par=MODEL_PAR)
 
 
@@ -6180,7 +6351,6 @@ def phase_model_mesh(dev, card: str) -> dict:
     """Phase 22; returns the launches summed over every rank."""
     import tempfile
     import torch
-    from repro_torch.launch.mesh import spawn_world
     total: dict = {}
     single: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -6217,7 +6387,7 @@ def phase_model_mesh(dev, card: str) -> dict:
         log(f"  22k-22r on one device: {time.perf_counter() - t0:.1f} s")
         for world in (2, 4):
             t0 = time.perf_counter()
-            ranks = spawn_world(_model_rank, world, (tmp,), limit=MESH_LIMIT)
+            ranks = world_run(_model_rank, world, (tmp,), limit=MESH_LIMIT)
             log(f"  world of {world} ranks, mesh (data {world // MODEL_PAR}, "
                 f"model {MODEL_PAR}) over gloo on one card ({card}): "
                 f"{time.perf_counter() - t0:.1f} s")
@@ -6278,10 +6448,11 @@ def _check_run_launches(name: str, counts: dict, spec: dict) -> None:
         raise AssertionError(f"{name}: launches {counts} ({spec})")
 
 
-def _check_model_world(world: int, ranks: list) -> None:
+def _check_model_world(world: int, ranks: list, runs=MODEL_RUNS) -> None:
     """Phase 22's contracts on one world's results, each rank's line
-    logged, then each run's summed peak and time."""
-    specs = {run[0]: run[6] for run in MODEL_RUNS}
+    logged, then each run's summed peak and time (phase 23 with its
+    ``runs``)."""
+    specs = {run[0]: run[6] for run in runs}
     for r in ranks:
         for name, row in r["runs"].items():
             _check_run_launches(f"{name} rank {r['rank']}", row["counts"],
@@ -6309,6 +6480,7 @@ def _check_model_world(world: int, ranks: list) -> None:
                                          f"> {tol}")
                 grams += (f", {tag} Gram max |diff| {row[f'{tag}_err']:.3e} "
                           f"(tol {tol:.3e})")
+            WORLD_ROWS[(name, r["rank"])] = row
             log(f"  {name} rank {r['rank']}: ms/step "
                 f"{[round(v, 1) for v in row['ms']]} (one device "
                 f"{[round(v, 1) for v in row['ref_ms']]}), loss "
@@ -6341,8 +6513,198 @@ def _check_model_world(world: int, ranks: list) -> None:
                                  f"{MODEL_PEAK_GB}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: sequence parallelism and expert FSDP on the model mesh.
+# ---------------------------------------------------------------------------
+
+#: MODEL_RUNS entries with a 12th field, the MeshAxes changes; each runs
+#: on one device first (the layout changes nothing there), then on (2, 2).
+SEQ_FSDP_RUNS = (
+    ("23a", "smollm-360m", 4, "bf16", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), False, False,
+     dict(seq_par=True)),
+    ("23b", "smollm-360m", 2, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), True, False,
+     dict(seq_par=True)),
+    # One step: the reference's sharded-vs-single contract (its loss and
+    # the parameters after it); a second step's loss drifts past 1e-3
+    # with the robust aggregate's and the router's choices (PERF.md).
+    ("23c", "mixtral-8x22b", 1, "bf16", 4, 1,
+     dict(pre="nnm", rule="cwtm"), 1, ((2, 2),), False, True,
+     dict(seq_par=True, expert_fsdp=True)),
+)
+#: The runs whose collectives 23d reckons with the dry run.
+SEQ_FSDP_DRY = ("23a", "23c")
+#: Each world row of phases 22 / 23 by (run, rank), for 23's comparison.
+WORLD_ROWS: dict = {}
+
+
+def _dry_trainer(run):
+    """A SEQ_FSDP_RUNS entry's (config, TrainerConfig, MeshAxes changes,
+    fsdp_keys) as ``launch.dryrun.dryrun_one`` takes them."""
+    import dataclasses
+    import torch
+    model, cfg, axes, tcfg = _model_setup(run, torch.device("cpu"), None)
+    # The world's backend; worker axes and specs come from the dry run.
+    tcfg = dataclasses.replace(tcfg, agg=dataclasses.replace(
+        tcfg.agg, backend="cuda_sharded"))
+    return cfg, tcfg, run[11], tcfg.fsdp_keys
+
+
+def dry_seq_fsdp() -> dict:
+    """23d's dry runs (``--23d-dry``, a CPU process): each run of
+    SEQ_FSDP_DRY as rank 0 of a fake (2, 2) world, one step of MODEL_BATCH
+    x MODEL_SEQ tokens a worker; {run: {"collectives", "flops",
+    "peak_bytes"}}."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    out = {}
+    for run in SEQ_FSDP_RUNS:
+        if run[0] not in SEQ_FSDP_DRY:
+            continue
+        cfg, tcfg, layout, keys = _dry_trainer(run)
+        n = run[4]
+        rec = dryrun.dryrun_one(
+            run[1], "train_4k", cfg=cfg, verbose=False, mesh_shape=(2, 2),
+            shape=InputShape(run[0], MODEL_SEQ, n * MODEL_BATCH, "train"),
+            n_workers=n, trainer=tcfg, fsdp_keys=keys,
+            seq_par=layout.get("seq_par", False),
+            expert_fsdp=layout.get("expert_fsdp", False))
+        out[run[0]] = {"collectives": rec["collectives"],
+                       "flops": rec["cost"]["flops"],
+                       "peak_bytes": rec["memory"]["peak_bytes"]}
+    return out
+
+
+def _seq_fsdp_rank(rank: int, world: int, tmp: str) -> dict:
+    """Phase 23 on one rank of the (2, 2) world: every SEQ_FSDP_RUNS
+    entry against its one-device run."""
+    import torch
+    dev = _rank_setup(rank)
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_debug_mesh(2, MODEL_PAR)
+    out = {"rank": rank, "runs": {}, "counts": {}}
+    for run in SEQ_FSDP_RUNS:
+        got = _model_train(run, dev, mesh, gram=run[9])
+        row = _model_compare(run, got, f"{tmp}/{run[0]}.pt", mesh)
+        add_counts(out["counts"], row["counts"])
+        out["runs"][run[0]] = row
+        del got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _per_step(colls: dict, steps: int) -> dict:
+    """Phase 22 / 23's collective summary ({"op/axis/transport": {calls,
+    bytes, s}}) as the dry run keys it ({"op@axis": {calls, bytes}}), a
+    step's worth."""
+    out: dict = {}
+    for key, row in colls.items():
+        op, axis, _ = key.split("/")
+        if row["calls"] % steps or row["bytes"] % steps:
+            raise AssertionError(f"{key}: {row} does not split over "
+                                 f"{steps} equal steps")
+        out[f"{op}@{axis}"] = {"calls": row["calls"] // steps,
+                               "bytes": row["bytes"] // steps}
+    return out
+
+
+def phase_seq_fsdp(dev, card: str) -> dict:
+    """Phase 23; returns the launches summed over every rank."""
+    import tempfile
+    import torch
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    dry = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                            "--23d-dry"], stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True, env=env)
+    total: dict = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for run in SEQ_FSDP_RUNS:
+                t0 = time.perf_counter()
+                got = _model_train(run, dev, None, gram=run[9])
+                add_counts(total, got["counts"])
+                model, cfg, axes, tcfg = _model_setup(run, dev, None)
+                log(f"-- {run[0]}: {run[1]} {run[2]} of "
+                    f"{get_full_layers(run[1])} layers, {run[3]}, "
+                    f"{run[11]}, n={run[4]} f={run[5]}, {run[6]}, ALIE, "
+                    f"{run[7]} steps; fsdp_keys {tcfg.fsdp_keys}; D = "
+                    f"{got['params_total']:,} (robust {got['width']:,})")
+                log(f"  single device: ms/step "
+                    f"{[round(v, 1) for v in got['hist']['ms']]}, loss "
+                    f"{got['hist']['loss']}, peak {got['peak'] / 1e9:.2f} "
+                    f"GB, launches {got['counts']} "
+                    f"({time.perf_counter() - t0:.1f} s)")
+                if got["fallbacks"]:
+                    raise AssertionError(f"{run[0]}: fallbacks "
+                                         f"{got['fallbacks']}")
+                _check_run_launches(run[0], got["counts"], run[6])
+                torch.save({"params": got["params"],
+                            "loss": got["hist"]["loss"],
+                            "ms": got["hist"]["ms"],
+                            "grams": got["hist"]["grams"],
+                            "sketch_grams": got["hist"]["sketch_grams"]},
+                           f"{tmp}/{run[0]}.pt")
+                del got
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ranks = world_run(_seq_fsdp_rank, 4, (tmp,), limit=MESH_LIMIT)
+            log(f"  world of 4 ranks, mesh (data 2, model {MODEL_PAR}) over "
+                f"gloo on one card ({card}): {time.perf_counter() - t0:.1f} s")
+            _check_model_world(4, ranks, SEQ_FSDP_RUNS)
+            for r in ranks:
+                add_counts(total, r["counts"])
+        t0 = time.perf_counter()
+        stdout, stderr = dry.communicate(timeout=MESH_LIMIT)
+        if dry.returncode != 0:
+            raise AssertionError(f"23d: the dry run failed:\n{stderr[-3000:]}")
+        reck = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    log(f"-- 23d: launch.dryrun of {', '.join(SEQ_FSDP_DRY)} on a fake "
+        f"(2, 2) world, rank 0, on the CPU (waited "
+        f"{time.perf_counter() - t0:.1f} s after the world)")
+    steps = {run[0]: run[7] for run in SEQ_FSDP_RUNS}
+    for name in SEQ_FSDP_DRY:
+        row = ranks[0]["runs"][name]
+        got = _per_step(row["collectives"], steps[name])
+        want = reck[name]["collectives"]
+        if got != want:
+            raise AssertionError(f"23d {name}: measured collectives a step "
+                                 f"{got} != the dry run's {want}")
+        ms = statistics.median(row["ms"])
+        flops = reck[name]["flops"]
+        log(f"  {name} rank 0: collectives a step equal the dry run's "
+            f"{want}; dry-run FLOPs a step {flops:.4e} (FlopCounterMode) "
+            f"beside the measured {ms:.1f} ms a step: "
+            f"{flops / (ms / 1e3) / 1e12:.3f} TFLOP/s; dry-run peak "
+            f"{reck[name]['peak_bytes'] / 1e9:.2f} GB, measured "
+            f"{row['peak'] / 1e9:.2f} GB")
+    for name in ("23a", "23c"):
+        for r in ranks:
+            row = r["runs"][name]
+            base = WORLD_ROWS.get(("22a" if name == "23a" else "22c",
+                                   r["rank"]))
+            beside = "" if base is None else (
+                f"; without it ({'22a' if name == '23a' else '22c'}): ms/step "
+                f"{[round(v, 1) for v in base['ms']]}, peak "
+                f"{base['peak'] / 1e9:.2f} GB, collectives a step "
+                f"{_per_step(base['collectives'], 2)}")
+            log(f"  {name} rank {r['rank']}: ms/step "
+                f"{[round(v, 1) for v in row['ms']]}, peak "
+                f"{row['peak'] / 1e9:.2f} GB, collectives a step "
+                f"{_per_step(row['collectives'], steps[name])}{beside}")
+    return total
+
+
 def main() -> int:
     import torch
+    if sys.argv[1:] == ["--23d-dry"]:
+        # 23d's CPU helper: phase 23 starts it; needs no card.
+        print(json.dumps(dry_seq_fsdp()))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -6389,6 +6751,11 @@ def main() -> int:
     if sys.argv[1:] == ["--22"]:
         head("22 alone: the model-parallel mesh")
         log(json.dumps({"model_mesh_launches": phase_model_mesh(dev, card)}))
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--23"]:
+        head("23 alone: sequence parallelism and expert FSDP")
+        log(json.dumps({"seq_fsdp_launches": phase_seq_fsdp(dev, card)}))
         log(card)
         return 0
 
@@ -6548,7 +6915,15 @@ def main() -> int:
     log(json.dumps({"model_mesh_launches": counts_model}))
     log(f"  phase 22: {time.perf_counter() - t22:.1f} s")
 
-    head("23. summary")
+    t23 = time.perf_counter()
+    head(f"23. sequence parallelism and expert FSDP on the model mesh: "
+         f"(data 2, model 2) over gloo; card: {card}")
+    counts_seq = phase_seq_fsdp(dev, card)
+    log(json.dumps({"seq_fsdp_launches": counts_seq}))
+    log(f"  phase 23: {time.perf_counter() - t23:.1f} s")
+    close_worlds()
+
+    head("24. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -6633,6 +7008,7 @@ def main() -> int:
     for k, (src, rep, launches) in meta.items():
         launches += counts_mesh.get(k, 0)          # phase 21's, every rank
         launches += counts_model.get(k, 0)         # phase 22's, every rank
+        launches += counts_seq.get(k, 0)           # phase 23's, every rank
         r = rows[k]
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": r["max_abs_err"],
@@ -6649,4 +7025,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        close_worlds()
+    sys.exit(code)

@@ -31,6 +31,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.robust import tree_gram
 from repro_torch.core.types import ATTACKS as ATTACK_NAMES
@@ -393,7 +394,7 @@ def attack_flat_(name: str, flat: Tensor, f: int, *, eta=None,
                          for off, size in segments])
     if reduce is not None:
         masks = reduce(masks.to(torch.int32), "min").bool()
-    finite = [(mask, bool(mask.all())) for mask in masks]
+    finite = [(mask, _host_all(mask)) for mask in masks]
     if name.endswith("_opt"):
         _require_agg_closure(name, agg_closure)
         name = name.removesuffix("_opt")
@@ -416,6 +417,13 @@ def attack_flat_(name: str, flat: Tensor, f: int, *, eta=None,
         return flat
     _write_byz_(name, flat, nh, segments, eta, finite, chunk)
     return flat
+
+
+def _host_all(mask: torch.Tensor) -> bool:
+    """``bool(mask.all())``, read on the host to pick the all-finite path.
+    A fake tensor (``launch.dryrun``) holds no values: it reads as all
+    true, what a run on finite rows reads."""
+    return True if is_fake(mask) else bool(mask.all())
 
 
 #: Families that read a per-round eta (the fed server's ``use_eta``).

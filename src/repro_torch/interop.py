@@ -88,7 +88,8 @@ def params_to_numpy(tree: PyTree) -> PyTree:
 def params_to_shards(tree: PyTree, descs: PyTree, axes, mesh,
                      device: Optional[torch.device] = None) -> PyTree:
     """The reference's (padded) parameters as numpy -> this rank's shard of
-    each leaf, on ``device``."""
+    each leaf (``models.common.shard_slice``: the model axis, and under
+    ``expert_fsdp`` an expert table's data axes), on ``device``."""
     from repro_torch.models.common import shard_slice
     return tree_map(lambda a, d: tensor_from_numpy(
         np.asarray(a)[shard_slice(d, axes, mesh)], device), tree, descs)
@@ -96,17 +97,17 @@ def params_to_shards(tree: PyTree, descs: PyTree, axes, mesh,
 
 def params_from_shards(tree: PyTree, descs: PyTree, axes, mesh) -> PyTree:
     """Every rank's shards -> the whole parameters as numpy (bf16 as fp32),
-    all-gathered over the model axis leaf by leaf (a collective)."""
-    from repro_torch.models.common import leaf_spec
+    each split dimension all-gathered over its mesh axes leaf by leaf (a
+    collective): :func:`params_to_shards`' inverse, bit for bit."""
+    from repro_torch.models.common import gather_dim, leaf_spec, shard_slice
 
     def whole(t, d):
-        spec = leaf_spec(d, axes)
-        if axes.model not in spec or mesh.size(axes.model) == 1:
-            return tensor_to_numpy(t)
-        dim = spec.index(axes.model)
-        rows = t.detach().float().movedim(dim, 0).contiguous()
-        full = mesh.all_gather(rows, axes.model)
-        return tensor_to_numpy(full.movedim(0, dim))
+        t = t.detach()
+        if any(s != slice(None) for s in shard_slice(d, axes, mesh)):
+            for dim, part in enumerate(leaf_spec(d, axes)):
+                if part is not None:
+                    t = gather_dim(t.float(), dim, part, mesh)
+        return tensor_to_numpy(t)
     return tree_map(whole, tree, descs)
 
 

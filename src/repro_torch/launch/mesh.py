@@ -20,8 +20,15 @@ are: gloo stages CUDA tensors through the host itself
 CUDA tensors and times them against explicit host copies).
 
 The model-parallel layers (``repro_torch.models.common``: column- and
-row-parallel products, the split vocabulary) run their all-reduces and
-all-gathers on the ``"model"`` axis's group of the active mesh.
+row-parallel products, the split vocabulary, the sequence blocks of
+``seq_par``) run their all-reduces, all-gathers and reduce-scatters on
+the ``"model"`` axis's group of the active mesh; expert FSDP's gathers
+and reduce-scatters run on the data axes'.
+
+:func:`fake_world` makes this process one rank of a world of any shape
+over torch's fake process group (``launch.dryrun``: nothing moves, every
+collective is logged as on a real world); :func:`fake_tools` is the one
+import of the private torch modules that stands on.
 
 Every collective is counted and timed (host clock around the call, after
 a synchronize of a CUDA operand) in :func:`collective_log`, emitted as a
@@ -78,10 +85,12 @@ def reset_collective_log() -> None:
 
 class Transport:
     """How a world moves tensors: its backend, ``"nccl"`` or ``"gloo"``
-    (see the module docstring)."""
+    (see the module docstring), or ``"fake"`` (:func:`fake_world`: every
+    collective returns at once and moves nothing; the log still records
+    its bytes)."""
 
     def __init__(self, backend: str):
-        if backend not in ("nccl", "gloo"):
+        if backend not in ("nccl", "gloo", "fake"):
             raise ValueError(f"unknown process-group backend {backend!r}")
         self.backend = backend
 
@@ -127,6 +136,17 @@ class Transport:
             src = t.contiguous()
             out = src.new_empty((size * src.shape[0],) + tuple(src.shape[1:]))
             dist.all_gather_into_tensor(out, src, group=group)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, group, axis: str, size: int,
+                       record: bool = True) -> torch.Tensor:
+        """Sum of every rank's equally shaped ``t``, cut along dim 0 into
+        ``size`` equal blocks: the group's j-th rank gets block j."""
+        with self._timed("reduce_scatter", axis, t, record):
+            src = t.contiguous()
+            out = src.new_empty((src.shape[0] // size,)
+                                + tuple(src.shape[1:]))
+            dist.reduce_scatter_tensor(out, src, group=group)
         return out
 
     def all_to_all(self, t: torch.Tensor, group, axis: str,
@@ -219,6 +239,20 @@ class Mesh:
             return t
         return self.transport.all_gather(t, self.groups[axis], axis,
                                          self.size(axis), record)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str,
+                       record: bool = True) -> torch.Tensor:
+        """:meth:`Transport.reduce_scatter` along ``axis``: dim 0 of ``t``
+        (a multiple of the axis's size) summed over the axis, this rank's
+        block of it kept."""
+        k = self.size(axis)
+        if t.shape[0] % k:
+            raise ValueError(f"reduce_scatter: {t.shape[0]} rows do not "
+                             f"split over the {k} ranks of {axis!r}")
+        if k == 1:
+            return t
+        return self.transport.reduce_scatter(t, self.groups[axis], axis, k,
+                                             record)
 
     def all_to_all_world(self, t: torch.Tensor, out_rows: int
                          ) -> torch.Tensor:
@@ -431,6 +465,46 @@ def n_workers(*, multi_pod: bool = False) -> int:
 # ---------------------------------------------------------------------------
 # Worlds of processes.
 # ---------------------------------------------------------------------------
+
+def fake_tools() -> tuple:
+    """(FakeStore, MemTracker): the two private torch modules the dry run
+    (``launch.dryrun``) stands on, imported here and nowhere else.  Raises
+    ``ImportError`` naming them when this torch lacks them."""
+    try:
+        from torch.distributed._tools.mem_tracker import MemTracker
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise ImportError(
+            "the dry run needs torch's private fake process group "
+            "(torch.testing._internal.distributed.fake_pg) and memory "
+            "tracker (torch.distributed._tools.mem_tracker); this torch "
+            f"({torch.__version__}) has not got them: {e}") from e
+    return FakeStore, MemTracker
+
+
+@contextlib.contextmanager
+def fake_world(shape: Sequence[int], axis_names: Sequence[str],
+               rank: int = 0):
+    """This process as rank ``rank`` of a world of ``prod(shape)`` ranks
+    over torch's fake process group (nothing moves; ``Transport`` logs
+    every collective's bytes as for a real world); yields
+    :func:`make_mesh` of ``shape`` x ``axis_names``.  The world and its
+    meshes are torn down on exit."""
+    fake_store, _ = fake_tools()
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a torch.distributed world is "
+                           "already initialized in this process")
+    world = math.prod(int(k) for k in shape)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not a rank of a world of {world}")
+    dist.init_process_group("fake", store=fake_store(), rank=rank,
+                            world_size=world)
+    try:
+        yield make_mesh(shape, axis_names)
+    finally:
+        _MESHES.clear()
+        dist.destroy_process_group()
+
 
 def free_port() -> int:
     """A free TCP port on localhost."""

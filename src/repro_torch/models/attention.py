@@ -18,7 +18,9 @@ a model mesh (``common.model_mesh``) each rank holds its block of the q
 heads; the kv heads split with them when ``shard_kv``, else they are
 computed whole on every rank and repeated to the q-head count before the
 rank takes its q heads' share, so no group crosses a shard (reference
-``attention.py:1-7``).  q / k / v are column-parallel, ``wo``
+``attention.py:1-7``).  With fewer q heads than model ranks the reference
+replicates attention: the q / o blocks are gathered and every rank runs
+it whole (:func:`_replicated`; decode refuses that case).  q / k / v are column-parallel, ``wo``
 row-parallel (``common.row_parallel``).  Cross attention splits the same
 way: its k / v (``kv_override``) are this rank's kv heads when
 ``shard_kv`` (whisper's ``EncDecLM._cross_kv`` makes them column-
@@ -88,6 +90,31 @@ def _repeat_kv(k: Tensor, hq: int) -> Tensor:
     return torch.repeat_interleave(k, hq // hkv, dim=-2)
 
 
+def heads_split(cfg: ModelConfig) -> bool:
+    """Whether the model axis splits the q heads (the reference's
+    ``pad_heads``: not when there are fewer q heads than model ranks)."""
+    ctx = common.get_mesh_axes()
+    return bool(ctx) and common.pad_heads(cfg.num_heads, cfg.num_kv_heads,
+                                          ctx.model_par)[2]
+
+
+def _replicated(p: dict, x: Tensor, cfg: ModelConfig, **kw) -> Tensor:
+    """:func:`attention` with fewer q heads than model ranks: the
+    reference replicates it.  The split q / o leaves' blocks (their
+    columns cut evenly, not by heads) are gathered whole
+    (``common.gather_from_model``) and every rank runs the one-device
+    attention; under sequence parallelism each keeps its sequence
+    block."""
+    whole = dict(p)
+    for k in ("wq", "bq"):
+        if k in whole:
+            whole[k] = common.gather_from_model(whole[k])
+    whole["wo"] = common.gather_from_model(whole["wo"].mT).mT
+    with common.mesh_axes_scope(None):
+        out = attention(whole, x, cfg, **kw)
+    return common.seq_rows(out)
+
+
 def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
               use_rope: bool = True,
               kv_override: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
@@ -104,6 +131,9 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
     hd = cfg.head_dim
     cross = kv_override is not None
     mesh = common.model_mesh()
+    if mesh is not None and not heads_split(cfg):
+        return _replicated(p, x, cfg, causal=causal, use_rope=use_rope,
+                           kv_override=kv_override)
     split_kv = mesh is not None and common.get_mesh_axes().shard_kv
     q0, q1 = common.model_block(hq)
     q = common.column_parallel(x, p["wq"])
@@ -263,6 +293,11 @@ def decode_attention(p: dict, x: Tensor, cache_k: Tensor, cache_v: Tensor,
     hd = cfg.head_dim
     mesh = common.model_mesh()
     axes = common.get_mesh_axes()
+    if mesh is not None and not heads_split(cfg):
+        raise ValueError(f"decode on a model mesh of {axes.model_par} ranks "
+                         f"with {cfg.num_heads} q heads: the reference "
+                         "replicates such attention; the port's decode "
+                         "splits heads only")
     split_kv = mesh is not None and axes.shard_kv
     seq_axes = tuple(seq_axes) if mesh is not None else ()
     q0, q1 = common.model_block(hq)

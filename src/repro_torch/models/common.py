@@ -39,9 +39,19 @@ Logical axis names (the reference's):
   "batch"   a cache's rows     -> the data axes (batch > 1)
   "seq_*"   a long cache span  -> the data axes, the model axis or both
 
-A decode cache's descs carry the last two (:data:`CACHE_DATA_AXES`), so
-:func:`materialize` gives this rank's shard of a cache too, and
-:func:`batch_block` / :func:`gather_batch` cut and join its rows.
+A decode cache's descs carry the last two, so :func:`materialize` gives
+this rank's shard of a cache too, and :func:`batch_block` /
+:func:`gather_batch` cut and join its rows.
+
+The reference's two other layouts: ``MeshAxes.seq_par`` holds the
+residual stream as each rank's block of the sequence between the split
+sub-blocks (:class:`seq_parallel`: :func:`gather_seq` at each entry,
+:func:`exit_sum`'s reduce-scatter at each exit, the gradients of the
+region between them summed by the entry's reduce-scatter), and
+``MeshAxes.expert_fsdp`` lays the MoE tables over the data axes too
+(``"ff_inner"`` / ``"expert_embed"``; :func:`shard_slice` cuts them,
+:func:`fsdp_gather` gathers each for its use and reduce-scatters its
+gradient).
 """
 from __future__ import annotations
 
@@ -193,11 +203,39 @@ def _model_all_reduce(t: Tensor, op: str = "sum") -> Tensor:
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
+        ctx.partial = seq_split()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g if ctx.partial else _model_all_reduce(g)
+
+
+class _SumGrads(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model axis (fp32,
+    cast once), whatever the mode."""
+
+    @staticmethod
+    def forward(ctx, x):
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         return _model_all_reduce(g)
+
+
+class _FirstRankGrad(torch.autograd.Function):
+    """Identity forward; the gradient kept on model rank 0, zero on the
+    others."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.first = model_mesh().index(get_mesh_axes().model) == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g if ctx.first else torch.zeros_like(g)
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -218,12 +256,15 @@ class _GatherFromModel(torch.autograd.Function):
     def forward(ctx, x):
         mesh, axes = model_mesh(), get_mesh_axes()
         ctx.k, ctx.j, ctx.w = axes.model_par, mesh.index(axes.model), x.shape[-1]
+        ctx.partial = seq_split()
         rows = x.detach().reshape(-1, ctx.w).mT.float().contiguous()
         full = mesh.all_gather(rows, axes.model, record=False)  # (k w, L)
         return full.mT.reshape(x.shape[:-1] + (ctx.k * ctx.w,)).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.partial:         # each rank's gradient is a part: sum them
+            g = _model_all_reduce(g)
         return g[..., ctx.j * ctx.w:(ctx.j + 1) * ctx.w].contiguous()
 
 
@@ -266,22 +307,74 @@ class _ColumnParallel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
+        ctx.partial = seq_split()
         return x @ w
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        gx = _model_all_reduce(g.float() @ w.float().mT).to(x.dtype)
+        gx = g.float() @ w.float().mT
+        if not ctx.partial:
+            gx = _model_all_reduce(gx)
+        gx = gx.to(x.dtype)
         gw = x.reshape(-1, x.shape[-1]).mT @ g.reshape(-1, g.shape[-1])
         return gx, gw
 
 
+class _SeqEntries:
+    """The column-parallel entries that read one gathered sequence
+    (:func:`gather_seq`): their input gradients' fp32 partials, summed as
+    their backwards run, and how many of those are still to run."""
+
+    def __init__(self):
+        self.pending = 0
+        self.acc: Optional[Tensor] = None
+
+
+class _ColumnParallelSeq(torch.autograd.Function):
+    """:class:`_ColumnParallel` reading the gathered sequence ``xg`` of
+    this rank's block ``blk``: the fp32 partials of the input gradients of
+    every such entry of ``xg`` (``entries``) are summed, and the last
+    entry's backward reduce-scatters the sum straight to the block, cast
+    once (the others add exact zeros): one collective a sub-block, and no
+    bf16 partial rounded before the ranks' sum, where it could cancel."""
+
+    @staticmethod
+    def forward(ctx, blk, xg, w, entries):
+        ctx.save_for_backward(xg, w)
+        ctx.entries, ctx.dtype, ctx.shape = entries, blk.dtype, blk.shape
+        entries.pending += 1
+        return xg.to(w.dtype) @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        xg, w = ctx.saved_tensors
+        sh = ctx.entries
+        part = g.float() @ w.float().mT
+        sh.acc = part if sh.acc is None else sh.acc + part
+        sh.pending -= 1
+        if sh.pending == 0:
+            gx = _seq_reduce_scatter(sh.acc).to(ctx.dtype)
+            sh.acc = None
+        else:
+            gx = torch.zeros(ctx.shape, dtype=ctx.dtype, device=g.device)
+        x = xg.to(w.dtype)
+        gw = x.reshape(-1, x.shape[-1]).mT @ g.reshape(-1, g.shape[-1])
+        return gx, None, gw, None
+
+
 def column_parallel(x: Tensor, w: Tensor) -> Tensor:
     """Enter a model-split region through a column-parallel product
-    (q / k / v, the MLP's gate and up, the vocabulary head); ``x @ w``
-    whole on one device."""
+    (q / k / v, the MLP's gate and up, the vocabulary head, a split
+    router); ``x @ w`` whole on one device.  Under :func:`seq_split`, on
+    the gathered sequence itself, the entries of one sub-block
+    reduce-scatter their input gradients' fp32 sum once
+    (:class:`_ColumnParallelSeq`)."""
     if model_mesh() is None:
         return x @ w
+    blk = getattr(x, "_seq_block", None)
+    if blk is not None and seq_split():
+        return _ColumnParallelSeq.apply(blk, x.detach(), w, x._seq_entries)
     return _ColumnParallel.apply(x, w)
 
 
@@ -321,12 +414,215 @@ def replicated_rows(leaf: Tensor, lo: int, hi: int) -> Tensor:
 
 def row_parallel(h: Tensor, w: Tensor, dtype: torch.dtype) -> Tensor:
     """``h @ w`` with the contraction split over the model axis: the fp32
-    partial product of this rank's rows, all-reduced, cast once to
+    partial product of this rank's rows summed over the axis
+    (:func:`exit_sum`: all-reduced, or under :func:`seq_split`
+    reduce-scattered to this rank's sequence block), cast once to
     ``dtype`` (a bf16 layer rounds where one device rounds).  Whole on
     one device."""
     if model_mesh() is None:
         return h @ w
-    return reduce_from_model(h.float() @ w.float()).to(dtype)
+    return exit_sum(h.float() @ w.float(), dtype)
+
+
+def exit_sum(part: Tensor, dtype: torch.dtype) -> Tensor:
+    """Leave a model-split region: the ranks' partial sums ``part`` (B, S,
+    ...) summed over the model axis in fp32 and cast once to ``dtype``:
+    all-reduced, or under :func:`seq_split` reduce-scattered over the
+    sequence (dim 1), each rank keeping its block.  ``part`` itself, cast,
+    off a model mesh."""
+    if seq_split():
+        return _ScatterSeqSum.apply(part, dtype)
+    return reduce_from_model(part).to(dtype)
+
+
+def reduce_grads(leaf: Tensor) -> Tensor:
+    """A parameter leaf read whole on every rank, its gradient summed over
+    the model axis (fp32, cast once): under :func:`seq_split` every such
+    leaf's gradient on a rank is a part (its sequence block's, or its
+    share of a replicated region's), ``DecoderLM`` reads each once through
+    this.  ``leaf`` itself off a model mesh."""
+    return _SumGrads.apply(leaf) if model_mesh() is not None else leaf
+
+
+def first_rank_grad(x: Tensor) -> Tensor:
+    """A replicated value computed inside a split sequence region and read
+    by the replicated loss (the MoE's aux): its gradient enters the region
+    on model rank 0 alone, so the ranks' parts sum to it once.  ``x``
+    itself outside :func:`seq_split`."""
+    return _FirstRankGrad.apply(x) if seq_split() else x
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism (``MeshAxes.seq_par``).
+# ---------------------------------------------------------------------------
+
+_SEQ: list = [False]
+
+
+class seq_parallel:
+    """Inside the scope (with ``on``), model code on a model mesh holds
+    the residual stream as this rank's block of the sequence
+    (:func:`seq_split`): each split sub-block enters through
+    :func:`gather_seq` and leaves through :func:`exit_sum`'s
+    reduce-scatter (Megatron-style sequence parallelism).  Between the two
+    a replicated tensor's gradient on a rank is a PART of the whole, the
+    parts summed by :func:`gather_seq`'s backward: the entry products
+    (:func:`column_parallel`, :func:`copy_to_model`) do not all-reduce the
+    input's gradient, :func:`gather_from_model` sums its gradient before
+    it slices, and the leaves read whole take :func:`reduce_grads`.  Each
+    operator reads the mode when it runs forward; a recomputed region
+    (``torch.utils.checkpoint``) re-enters the scope through its
+    ``context_fn``."""
+
+    def __init__(self, on: bool = True):
+        self.on = bool(on)
+
+    def __enter__(self):
+        self.prev = _SEQ[0]
+        _SEQ[0] = self.on
+        return self
+
+    def __exit__(self, *exc):
+        _SEQ[0] = self.prev
+        return False
+
+
+def seq_split() -> bool:
+    """True inside :class:`seq_parallel` on a model mesh."""
+    return _SEQ[0] and model_mesh() is not None
+
+
+def _seq_all_gather(x: Tensor) -> Tensor:
+    """(B, s, ...) blocks -> the (B, k s, ...) sequence in model-rank
+    order, in fp32."""
+    mesh, axes = model_mesh(), get_mesh_axes()
+    rows = x.detach().movedim(1, 0).float().contiguous()
+    return mesh.all_gather(rows, axes.model, record=False).movedim(0, 1)
+
+
+def _seq_reduce_scatter(x: Tensor) -> Tensor:
+    """(B, S, ...) partial sums -> this rank's (B, S / k, ...) block of
+    their fp32 sum over the model axis."""
+    mesh, axes = model_mesh(), get_mesh_axes()
+    rows = x.detach().movedim(1, 0).float().contiguous()
+    return mesh.reduce_scatter(rows, axes.model, record=False).movedim(0, 1)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Forward: the whole sequence from the ranks' blocks (all-gather);
+    backward: the ranks' partial gradients summed in fp32 and cut back to
+    this rank's block (reduce-scatter), cast once."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return _seq_all_gather(x).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_reduce_scatter(g).to(ctx.dtype)
+
+
+class _ScatterSeqSum(torch.autograd.Function):
+    """Forward: partial sums reduce-scattered over the sequence in fp32,
+    cast once to ``dtype``; backward: the blocks' gradients all-gathered
+    (every rank's partial reads the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = x.dtype
+        return _seq_reduce_scatter(x).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_all_gather(g).to(ctx.dtype), None
+
+
+def gather_seq(x: Tensor) -> Tensor:
+    """Enter a split sub-block under :func:`seq_split`: this rank's (B, S
+    / k, ...) block of the residual stream -> the whole (B, S, ...)
+    sequence (backward: a reduce-scatter of the parts).  The result
+    remembers the block, for :func:`column_parallel`.  ``x`` itself
+    otherwise."""
+    if not seq_split():
+        return x
+    out = _GatherSeq.apply(x)
+    out._seq_block, out._seq_entries = x, _SeqEntries()
+    return out
+
+
+def seq_rows(x: Tensor) -> Tensor:
+    """This rank's block of the sequence (dim 1) of a tensor computed
+    whole on every rank (rwkv6's channel-mix gate) under
+    :func:`seq_split`; ``x`` itself otherwise."""
+    if not seq_split():
+        return x
+    w = x.shape[1] // get_mesh_axes().model_par
+    j = model_mesh().index(get_mesh_axes().model)
+    return x[:, j * w:(j + 1) * w]
+
+
+# ---------------------------------------------------------------------------
+# Expert FSDP (``MeshAxes.expert_fsdp``): tables split over the data axes.
+# ---------------------------------------------------------------------------
+
+def _reduce_scatter_dim(t: Tensor, dim: int, part, mesh) -> Tensor:
+    """:func:`gather_dim`'s inverse for a gradient: dimension ``dim`` of
+    the fp32 ``t`` summed over the axes of the spec entry ``part`` and cut
+    to this rank's block, over each axis in turn, the slowest first (the
+    row-major layout of :func:`shard_slice`)."""
+    rows = t.movedim(dim, 0).float().contiguous()
+    for name in spec_axes(part):
+        if mesh.size(name) > 1:
+            rows = mesh.reduce_scatter(rows, name, record=False)
+    return rows.movedim(0, dim)
+
+
+def _gather_bits(t: Tensor, dim: int, part, mesh) -> Tensor:
+    """:func:`gather_dim` in ``t``'s own dtype: a gather only moves bits,
+    so bf16 travels as its 16 bits (viewed as float16, which every
+    transport carries), at half the fp32 staging's bytes."""
+    wire = t.view(torch.float16) if t.dtype == torch.bfloat16 else t
+    for name in reversed(spec_axes(part)):
+        if mesh.size(name) > 1:
+            wire = mesh.all_gather(wire.movedim(dim, 0).contiguous(), name,
+                                   record=False).movedim(0, dim)
+    return wire.view(t.dtype)
+
+
+class _GatherData(torch.autograd.Function):
+    """Forward: dimension ``dim`` of a leaf's shard all-gathered over the
+    data axes of ``part``, in its own dtype; backward: the gradient
+    reduce-scattered over them in fp32 (the data ranks' workers summed),
+    cast once."""
+
+    @staticmethod
+    def forward(ctx, t, dim, part):
+        ctx.dim, ctx.part, ctx.dtype = dim, part, t.dtype
+        return _gather_bits(t.detach(), dim, part, model_mesh())
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter_dim(g, ctx.dim, ctx.part,
+                                    model_mesh()).to(ctx.dtype), None, None)
+
+
+def fsdp_gather(t: Tensor, logical: tuple) -> Tensor:
+    """A leaf (one layer's view) with logical axes ``logical``, whole
+    along the dimensions expert FSDP splits over the data axes: each
+    all-gathered just before its use (:class:`_GatherData`; the gradient
+    reduce-scattered back, so a rank's gradient of its shard sums every
+    data rank's worker).  ``t`` itself without ``expert_fsdp`` on a model
+    mesh."""
+    mesh, axes = model_mesh(), get_mesh_axes()
+    if mesh is None or not axes.expert_fsdp:
+        return t
+    data = set(axes.data)
+    for i, part in enumerate(axes.logical_to_spec(tuple(logical))):
+        names = spec_axes(part)
+        if names and set(names) <= data and mesh.size(names) > 1:
+            t = _GatherData.apply(t, i, part)
+    return t
 
 
 def model_block(n: int) -> tuple[int, int]:
@@ -391,12 +687,6 @@ def leaf_specs(tree) -> tuple:
     return tuple(leaf_spec(d, axes) for d in tree_leaves(tree))
 
 
-#: Logical axes that lie over the data axes of a mesh: a decode cache's
-#: batch rows and, for long spans, its sequence.  A weight's data-axis
-#: entry (expert FSDP) is refused.
-CACHE_DATA_AXES = ("batch", "seq_shard", "seq_both")
-
-
 def spec_axes(part) -> tuple:
     """A spec entry as a tuple of mesh axis names (() for None)."""
     if part is None:
@@ -410,9 +700,9 @@ def shard_slice(d: ParamDesc, axes: Optional[MeshAxes], mesh) -> tuple:
     of it (it must divide).  A dimension over several axes (a cache's
     ``"seq_both"``: the data axes, then the model axis) is cut row-major
     over them, the first the slowest, as a ``PartitionSpec`` lays it out.
-    Data-axis entries are taken for a cache's batch and sequence
-    (:data:`CACHE_DATA_AXES`) and refused for a weight (expert FSDP): the
-    workers, not the weights, lie on the data axis."""
+    Data-axis entries are a decode cache's batch and sequence, and under
+    ``expert_fsdp`` an expert table's ``ff_inner`` or ``expert_embed``
+    (over ``("pod", "data")`` on the multi-pod mesh, row-major)."""
     idx = [slice(None)] * len(d.shape)
     if axes is None or mesh is None or axes.model_par <= 1 \
             or axes.model not in mesh.axis_names:
@@ -421,11 +711,6 @@ def shard_slice(d: ParamDesc, axes: Optional[MeshAxes], mesh) -> tuple:
         names = spec_axes(part)
         if not names:
             continue
-        if names != (axes.model,) and d.axes[i] not in CACHE_DATA_AXES:
-            raise ValueError(f"leaf {d.shape} {d.axes}: dimension {i} splits "
-                             f"over {part!r}; only the model axis splits "
-                             "weights here (expert_fsdp waits, ROADMAP "
-                             "queue 1, item 19)")
         k, j = mesh.size(names), mesh.index(names)
         if d.shape[i] % k:
             raise ValueError(f"leaf {d.shape} {d.axes}: dimension {i} "
@@ -540,19 +825,33 @@ def pad_heads(hq: int, hkv: int, par: int, *, pad_kv: bool = False
     return hq_p, hkv_p, True, hkv_p % par == 0
 
 
-def embed_lookup(table: Tensor, tokens: Tensor) -> Tensor:
-    """Token embeddings; on a model mesh ``table`` is this rank's block of
-    the vocabulary rows: a lookup into it (zero outside it) summed over
-    the model axis."""
+def embed_lookup(table: Tensor, tokens: Tensor,
+                 prefix: Optional[Tensor] = None) -> Tensor:
+    """Token embeddings (B, S, d), after the replicated rows ``prefix``
+    (B, P, d) when given (a VLM's projected patches).  On a model mesh
+    ``table`` is this rank's block of the vocabulary rows: a lookup into
+    it (zero outside it) summed over the model axis; under
+    :func:`seq_split` the sum is reduce-scattered over the whole sequence
+    (the prefix counted from model rank 0) and this rank's block of it is
+    returned."""
     tokens = tokens.long()
     if model_mesh() is None:
-        return table[tokens]
+        x = table[tokens]
+        return x if prefix is None else torch.cat([prefix.to(x.dtype), x],
+                                                  dim=1)
     lo, hi = model_block(table.shape[0] * get_mesh_axes().model_par)
     local = tokens - lo
     inside = (local >= 0) & (local < hi - lo)
     rows = table[local.clamp(0, hi - lo - 1)] * inside[..., None].to(
         table.dtype)
-    return reduce_from_model(rows)
+    if seq_split():
+        if prefix is not None:
+            first = model_mesh().index(get_mesh_axes().model) == 0
+            rows = torch.cat([prefix.to(rows.dtype) * float(first), rows],
+                             dim=1)
+        return exit_sum(rows, table.dtype)
+    x = reduce_from_model(rows)
+    return x if prefix is None else torch.cat([prefix.to(x.dtype), x], dim=1)
 
 
 def masked_ce(logits: Tensor, labels: Tensor) -> Tensor:

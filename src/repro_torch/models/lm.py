@@ -30,8 +30,20 @@ Mamba2 mixer by their heads (``rwkv``, ``ssm``); zamba2's shared block
 runs split once per group, its gradient summed over the groups as on one
 device.  The VLM's projector is replicated: its input gradient arrives
 whole, the blocks' column-parallel products having all-reduced it.
-``seq_par`` and ``expert_fsdp`` (ROADMAP queue 1, item 19) raise a
-``ValueError`` naming their entry; nothing is replicated silently.
+
+``MeshAxes.seq_par`` (the reference's ``_sp`` points) holds the residual
+stream as this rank's block of the sequence between the sub-blocks
+(``common.seq_parallel``): the embedding's sum over the vocabulary
+blocks is reduce-scattered over the sequence (a VLM's patches, then its
+text), each norm runs on the block, each attention / MLP / MoE / time-
+or channel-mix / Mamba2 sub-block gathers the whole sequence at its entry
+(``common.gather_seq``: the token shifts, the conv window and rope's
+global positions see it whole) and reduce-scatters its row-parallel exit
+(``common.exit_sum``); the final norm runs on the block and the sequence
+is gathered before the split head and ``masked_ce``.  The sequence must
+divide over the model axis (:func:`check_model_mesh`).  ``expert_fsdp``
+is the MoE tables' (``moe``).  Decode has no ``_sp`` in the reference
+and ignores ``seq_par``.
 
 Cached decode (:meth:`DecoderLM.decode_step`) steps one token through
 every layer against a stacked cache (:meth:`DecoderLM.init_cache`): the
@@ -57,21 +69,25 @@ from repro_torch.models import attention, common, mlp, moe, rwkv, ssm
 from repro_torch.models.common import (
     ParamDesc, layer_views, masked_ce, materialize, rms_norm,
 )
+from repro_torch.tree import tree_leaves, tree_structure, tree_unflatten
 
 PyTree = Any
 Tensor = torch.Tensor
 
 #: The families DecoderLM runs (encdec is EncDecLM's).
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
-def check_model_mesh(cfg: ModelConfig) -> None:
-    """Raise for what waits on a model mesh: ``seq_par`` or
-    ``expert_fsdp`` (ROADMAP queue 1, item 19)."""
-    if common.model_mesh() is None:
-        return
+
+
+def check_model_mesh(cfg: ModelConfig, seq_len: Optional[int] = None) -> None:
+    """Raise for what a model mesh cannot run: under ``seq_par`` a
+    sequence of ``seq_len`` positions (a VLM's patches included) that
+    does not split over the model axis."""
     axes = common.get_mesh_axes()
-    if axes.seq_par or axes.expert_fsdp:
-        raise ValueError("seq_par / expert_fsdp on a model mesh wait "
-                         "(ROADMAP queue 1, item 19)")
+    if seq_len is None or common.model_mesh() is None or not axes.seq_par:
+        return
+    if seq_len % axes.model_par:
+        raise ValueError(f"seq_par: a sequence of {seq_len} positions does "
+                         f"not split over {axes.model_par} model ranks")
 
 
 def _padded_vocab(cfg: ModelConfig) -> int:
@@ -139,50 +155,70 @@ class DecoderLM:
     def init(self, seed: int, device: torch.device) -> PyTree:
         return materialize(self.param_descs(), seed, device)
 
+    def _seq_par(self) -> bool:
+        """Hold the residual stream as sequence blocks (``MeshAxes.
+        seq_par`` on a model mesh; the reference's ``_sp`` points)."""
+        axes = common.get_mesh_axes()
+        return bool(axes is not None and axes.seq_par
+                    and common.model_mesh() is not None)
+
+    def _seq_params(self, params):
+        """Under sequence parallelism every leaf the model axis does not
+        split is read through ``common.reduce_grads`` once: its gradient
+        on a rank is a part (``common.seq_parallel``)."""
+        axes = common.get_mesh_axes()
+        specs = common.leaf_specs(self.param_descs())
+        leaves = [leaf if axes.model in spec else common.reduce_grads(leaf)
+                  for leaf, spec in zip(tree_leaves(params), specs)]
+        return tree_unflatten(tree_structure(params), leaves)
+
     def _embed(self, params, batch: dict) -> Tensor:
         cfg = self.cfg
-        check_model_mesh(cfg)
-        x = common.embed_lookup(params["embed"], batch["tokens"])
+        prefix = None
         if cfg.family == "vlm":
             pr = params["projector"]
             p = rms_norm(batch["patches"].to(cfg.dtype), pr["ln"], cfg.norm_eps)
             # jax.nn.gelu's default is the tanh approximation.
-            p = torch.nn.functional.gelu(p @ pr["w1"], approximate="tanh") @ pr["w2"]
-            x = torch.cat([p.to(x.dtype), x], dim=1)
-        return x
+            prefix = torch.nn.functional.gelu(p @ pr["w1"],
+                                              approximate="tanh") @ pr["w2"]
+        return common.embed_lookup(params["embed"], batch["tokens"], prefix)
 
     def _block(self, h: Tensor, p: dict) -> tuple[Tensor, Tensor]:
         cfg = self.cfg
+        enter = common.gather_seq
         if cfg.family == "ssm":
-            h = h + rwkv.time_mix(p["rwkv"], rms_norm(h, p["ln0"], cfg.norm_eps),
+            h = h + rwkv.time_mix(p["rwkv"],
+                                  enter(rms_norm(h, p["ln0"], cfg.norm_eps)),
                                   cfg)
-            h = h + rwkv.channel_mix(p["rwkv"],
-                                     rms_norm(h, p["ln1"], cfg.norm_eps), cfg)
+            h = h + rwkv.channel_mix(
+                p["rwkv"], enter(rms_norm(h, p["ln1"], cfg.norm_eps)), cfg)
             return h, torch.zeros((), dtype=torch.float32, device=h.device)
-        h = h + attention.attention(p["attn"], rms_norm(h, p["ln0"], cfg.norm_eps),
-                                    cfg)
+        h = h + attention.attention(
+            p["attn"], enter(rms_norm(h, p["ln0"], cfg.norm_eps)), cfg)
+        x = enter(rms_norm(h, p["ln1"], cfg.norm_eps))
         if cfg.family == "moe":
-            f, aux = moe.moe_block(p["moe"], rms_norm(h, p["ln1"], cfg.norm_eps),
-                                   cfg)
+            f, aux = moe.moe_block(p["moe"], x, cfg)
         else:
-            f = mlp.swiglu(p["mlp"], rms_norm(h, p["ln1"], cfg.norm_eps))
+            f = mlp.swiglu(p["mlp"], x)
             aux = torch.zeros((), dtype=torch.float32, device=h.device)
         return h + f, aux
 
     def _mamba_block(self, h: Tensor, p: dict) -> Tensor:
-        return h + ssm.ssm_block(p["ssm"], rms_norm(h, p["ln0"],
-                                                    self.cfg.norm_eps), self.cfg)
+        return h + ssm.ssm_block(p["ssm"], common.gather_seq(
+            rms_norm(h, p["ln0"], self.cfg.norm_eps)), self.cfg)
 
     def _shared_block(self, h: Tensor, shared: dict) -> Tensor:
         cfg = self.cfg
-        h = h + attention.attention(shared["attn"],
-                                    rms_norm(h, shared["ln0"], cfg.norm_eps), cfg)
-        return h + mlp.swiglu(shared["mlp"],
-                              rms_norm(h, shared["ln1"], cfg.norm_eps))
+        h = h + attention.attention(shared["attn"], common.gather_seq(
+            rms_norm(h, shared["ln0"], cfg.norm_eps)), cfg)
+        return h + mlp.swiglu(shared["mlp"], common.gather_seq(
+            rms_norm(h, shared["ln1"], cfg.norm_eps)))
 
     def _remat(self, fn, *args):
         if self.cfg.remat:
-            return checkpoint(fn, *args, use_reentrant=False)
+            on = common.seq_split()
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+                common.seq_parallel(on), common.seq_parallel(on)))
         return fn(*args)
 
     def _run_blocks(self, params, x: Tensor) -> tuple[Tensor, Tensor]:
@@ -199,27 +235,46 @@ class DecoderLM:
             aux = aux + aux_l
         return x, aux
 
-    def _logits(self, params, x: Tensor) -> Tensor:
+    def _head(self, params, x: Tensor, skip: int = 0) -> Tensor:
+        """Logits of positions ``skip`` onward: the final norm (on this
+        rank's block under sequence parallelism, the whole sequence then
+        gathered), then the head, column-parallel over the vocabulary."""
         cfg = self.cfg
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if common.seq_split():
+            x = common.gather_seq(rms_norm(x, params["final_norm"],
+                                           cfg.norm_eps))[:, skip:]
+        else:
+            x = rms_norm(x[:, skip:], params["final_norm"], cfg.norm_eps)
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return common.column_parallel(x, head).float()
+
+    def _trunk(self, params, batch: dict) -> tuple[Tensor, Tensor]:
+        cfg = self.cfg
+        check_model_mesh(cfg, batch["tokens"].shape[-1] + (
+            cfg.num_patches if cfg.family == "vlm" else 0))
+        x = self._embed(params, batch)
+        return self._run_blocks(params, x)
 
     def forward(self, params, batch: dict) -> Tensor:
         """Full-sequence logits (B, S, padded vocab) in fp32 (a VLM's S
         counts its patches); on a model mesh the ranks' vocabulary blocks
         gathered."""
-        x, _ = self._run_blocks(params, self._embed(params, batch))
-        return common.gather_from_model(self._logits(params, x))
+        with common.seq_parallel(self._seq_par()):
+            if common.seq_split():
+                params = self._seq_params(params)
+            x, _ = self._trunk(params, batch)
+            return common.gather_from_model(self._head(params, x))
 
     def loss(self, params, batch: dict) -> tuple[Tensor, dict]:
         """Next-token cross-entropy over text positions with labels >= 0,
         plus the MoE aux; returns (ce + aux, {"ce", "aux"})."""
         cfg = self.cfg
-        x, aux = self._run_blocks(params, self._embed(params, batch))
-        if cfg.family == "vlm":
-            x = x[:, cfg.num_patches:]          # text positions only
-        ce = masked_ce(self._logits(params, x), batch["labels"])
+        with common.seq_parallel(self._seq_par()):
+            if common.seq_split():
+                params = self._seq_params(params)
+            x, aux = self._trunk(params, batch)
+            skip = cfg.num_patches if cfg.family == "vlm" else 0
+            ce = masked_ce(self._head(params, x, skip), batch["labels"])
         return ce + aux, {"ce": ce, "aux": aux}
 
     # -- decode -------------------------------------------------------------
@@ -260,7 +315,6 @@ class DecoderLM:
         whether its sequence splits: ``attention.cache_seq_axes``)."""
         cfg = self.cfg
         eps = cfg.norm_eps
-        check_model_mesh(cfg)
         seq_axes = () if cfg.family == "ssm" else \
             attention.cache_seq_axes(cfg, batch, max_seq)
         with torch.inference_mode():
@@ -314,4 +368,4 @@ class DecoderLM:
                     else:
                         f = mlp.swiglu(p["mlp"], h)
                     x = x + f
-            return common.gather_from_model(self._logits(params, x)), cache
+            return common.gather_from_model(self._head(params, x)), cache

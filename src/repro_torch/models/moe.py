@@ -15,11 +15,23 @@ gathered back), else every expert's ``ff_inner``.  The router, the
 capacity dispatch and the aux loss are computed whole on every rank, so
 every rank routes the same way; each rank runs its experts (or its ff
 block of every expert) on the dispatch buffer, and the combine's partial
-sums are all-reduced in fp32 over the model axis, cast once.
+sums are summed in fp32 over the model axis, cast once
+(``common.exit_sum``).  Under ``seq_par`` the block's input is the
+gathered sequence (``lm.DecoderLM``), so routing, capacity and aux are
+the whole sequence's, as on one device; the combine's partials are
+reduce-scattered over the sequence and the aux's gradient enters from
+one model rank (``common.first_rank_grad``).
 
-Expert FSDP (the reference's sharding of the expert tables over the data
-axes) waits with ``seq_par`` (ROADMAP, item 19); its arithmetic half,
-selective robustness, is the trainer's ``TrainerConfig.fsdp_keys``.
+Expert FSDP (``MeshAxes.expert_fsdp``, ZeRO-3 style): each rank also
+holds only its data-axis block of every expert table, ``ff_inner`` when
+the experts split over the model axis (arctic), ``expert_embed`` when
+they do not (mixtral at model 16).  A table is all-gathered over the
+data axes just before its layer uses it and dropped after it
+(``common.fsdp_gather``; under ``cfg.remat`` the whole table lives only
+inside its block's forward and its recomputation), and its gradient is
+reduce-scattered back in fp32, so a rank's gradient of its block is the
+sum over the data ranks' workers.  The trainer's selective robustness
+(``TrainerConfig.fsdp_keys``) takes that sum as the tables' direction.
 """
 from __future__ import annotations
 
@@ -32,6 +44,12 @@ from repro_torch.models.common import ParamDesc
 Tensor = torch.Tensor
 
 
+#: One layer's logical axes of each expert table.
+TABLE_AXES = {"wi": ("expert", "expert_embed", "ff_inner"),
+              "wg": ("expert", "expert_embed", "ff_inner"),
+              "wo": ("expert", "ff_inner", "expert_embed")}
+
+
 def moe_params(cfg: ModelConfig, layers: int) -> dict:
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     L = (layers,) if layers else ()
@@ -40,11 +58,11 @@ def moe_params(cfg: ModelConfig, layers: int) -> dict:
         "router": ParamDesc(L + (d, e), torch.float32,
                             axes=lax + ("embed", "expert")),
         "wi": ParamDesc(L + (e, d, ff), cfg.dtype,
-                        axes=lax + ("expert", "expert_embed", "ff_inner")),
+                        axes=lax + TABLE_AXES["wi"]),
         "wg": ParamDesc(L + (e, d, ff), cfg.dtype,
-                        axes=lax + ("expert", "expert_embed", "ff_inner")),
+                        axes=lax + TABLE_AXES["wg"]),
         "wo": ParamDesc(L + (e, ff, d), cfg.dtype,
-                        axes=lax + ("expert", "ff_inner", "expert_embed")),
+                        axes=lax + TABLE_AXES["wo"]),
     }
     if cfg.moe_dense_ff:
         p["dense"] = mlp.swiglu_params(cfg, layers, d_ff=cfg.moe_dense_ff)
@@ -98,7 +116,11 @@ def moe_block(p: dict, x: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
 
     mesh = common.model_mesh()
     split_experts = mesh is not None and common.get_mesh_axes().shard_expert
-    if split_experts:
+    if split_experts and common.seq_split():
+        # This rank's expert columns, an fp32 column-parallel product.
+        logits = common.gather_from_model(
+            common.column_parallel(x, p["router"]))
+    elif split_experts:
         # This rank's expert columns of the router, gathered whole.
         logits = common.gather_from_model(
             common.copy_to_model(x).float() @ p["router"])
@@ -111,13 +133,21 @@ def moe_block(p: dict, x: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
     frac = torch.nn.functional.one_hot(top1, e).float().mean(dim=(0, 1))
     aux = cfg.router_aux_weight * e * torch.sum(frac * probs.mean(dim=(0, 1)))
 
+    aux = common.first_rank_grad(aux)
+
     buf, flat, pos_c, w = _dispatch(x, probs, k, cap)
     e0, e1 = common.model_block(e) if split_experts else (0, e)
     if mesh is not None:
         buf = common.copy_to_model(buf)[:, e0:e1]
-    h = torch.nn.functional.silu(torch.einsum("becd,edf->becf", buf, p["wg"])) * \
-        torch.einsum("becd,edf->becf", buf, p["wi"])
-    out_buf = torch.einsum("becf,efd->becd", h, p["wo"])
+    # Expert FSDP: each table whole over the data axes for this use only.
+    wi = common.fsdp_gather(p["wi"], TABLE_AXES["wi"])
+    wg = common.fsdp_gather(p["wg"], TABLE_AXES["wg"])
+    wo = common.fsdp_gather(p["wo"], TABLE_AXES["wo"])
+    h = torch.nn.functional.silu(torch.einsum("becd,edf->becf", buf, wg)) * \
+        torch.einsum("becd,edf->becf", buf, wi)
+    del wi, wg
+    out_buf = torch.einsum("becf,efd->becd", h, wo)
+    del wo
 
     # Combine: gather each (token, k) slot back and weight by its gate.
     grp = torch.arange(b, device=x.device)[:, None]
@@ -131,8 +161,8 @@ def moe_block(p: dict, x: Tensor, cfg: ModelConfig) -> tuple[Tensor, Tensor]:
         # slots of other ranks' experts add exact zeros.
         picked = out_buf[grp, local.clamp(0, e1 - e0 - 1), pos_c]
         wl = common.copy_to_model(w) * inside.to(w.dtype)
-        out = common.reduce_from_model(
-            (picked * wl[..., None]).reshape(b, s, k, d).sum(dim=2))
+        part = (picked * wl[..., None]).reshape(b, s, k, d).sum(dim=2)
+        out = common.exit_sum(part, part.dtype)
 
     if "dense" in p:                                         # arctic residual
         out = out + mlp.swiglu(p["dense"], x)

@@ -26,6 +26,12 @@ the replicated ``sigmoid(xr @ cr)`` gate multiplies it).  Decode on a
 model mesh splits the same way, step by step: the fp32 state holds the
 rank's heads (:func:`rwkv_cache_desc`), the token shifts are replicated
 and every rank writes the same values.
+
+Under ``MeshAxes.seq_par`` both mixes take the whole gathered sequence
+(``lm.DecoderLM``: the token shift reads the previous position, which
+may lie in another rank's block), their row-parallel exits
+reduce-scatter it back to this rank's block, and the channel mix's
+replicated gate is taken on that block (``common.seq_rows``).
 """
 from __future__ import annotations
 
@@ -133,7 +139,8 @@ def channel_mix(p: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
     xr = x + (shifted - x) * cm[1]
     k = torch.square(F.relu(common.column_parallel(xk, p["ck"])))
     out = common.row_parallel(k, p["cv"], x.dtype)
-    return out * torch.sigmoid(xr @ p["cr"])
+    # Under sequence parallelism ``out`` is this rank's sequence block.
+    return out * torch.sigmoid(common.seq_rows(xr) @ p["cr"])
 
 
 # ---------------------------------------------------------------------------

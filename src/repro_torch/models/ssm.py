@@ -42,6 +42,11 @@ every channel (the conv weights gathered once a step for all layers,
 :func:`conv_weights`), reads the rank's x channels and all of B and C,
 and keeps the rank's block of the shifted window.  On one device the
 gathers are the tensors themselves and the step is the reference's.
+
+Under ``MeshAxes.seq_par`` the mixer takes the whole gathered sequence
+(``lm.DecoderLM``: the conv reads CONV_K - 1 earlier positions, which
+may lie in another rank's block) and its row-parallel exit
+reduce-scatters it back to this rank's block.
 """
 from __future__ import annotations
 

@@ -75,6 +75,16 @@ Gram's signs are drawn on the whole leaves' widths, and each rank folds
 its block where the whole leaves hold its elements (``kernels.dispatch.
 sketch_fold_model``); the partial sketches are all-reduced over both
 axes before their Gram.
+
+Under ``MeshAxes.expert_fsdp`` the expert tables (``fsdp_keys`` leaves,
+required) also lie over the data axis the workers are dealt over: a
+rank's fp32 sum of such a leaf is its shard's, and each backward's
+reduce-scatter (``models.common.fsdp_gather``) has already summed the
+round's workers over the data ranks into it, so it is not all-reduced
+again; a data rank with no worker in a round runs a zero-seeded pass to
+join those collectives.  The optimizer updates the shard, the norms sum
+its squares over the data axis too, and ``options.checkpoint`` snapshots
+it with the rank's carry.
 """
 from __future__ import annotations
 
@@ -493,12 +503,15 @@ def _pass_a(loss_fn, leaves: list, skeleton, is_fsdp: list, batch: PyTree,
 
 
 def _worker_grads(loss_fn, leaves: list, skeleton, is_fsdp: list,
-                  wbatch: PyTree, fsdp_sum: list):
+                  wbatch: PyTree, fsdp_sum: list, zero: bool = False):
     """One worker's loss and robust-leaf gradients; its FSDP leaves'
-    gradients are added to ``fsdp_sum`` at once."""
+    gradients are added to ``fsdp_sum`` at once.  ``zero``: the backward
+    is seeded with 0 (a pass that only joins the data axes' collectives,
+    its own gradients all zero)."""
     req = [leaf.detach().requires_grad_(True) for leaf in leaves]
     loss, _ = loss_fn(tree_unflatten(skeleton, req), wbatch)
-    grads = torch.autograd.grad(loss, req)
+    grads = torch.autograd.grad(
+        loss, req, grad_outputs=torch.zeros_like(loss) if zero else None)
     for acc, g in zip(fsdp_sum, [g for g, fl in zip(grads, is_fsdp) if fl]):
         acc.add_(g)                         # fp32 += the leaf's dtype
     return loss.detach().float(), [g for g, fl in zip(grads, is_fsdp)
@@ -511,13 +524,16 @@ class _Deal:
     one ``idx``), ``dest[q]`` the columns of a gradient row that rank q
     keeps, ``segs`` each robust leaf's (row offset, size, offset in the
     flattened leaf), ``exchange`` the all-to-all of a round's (k, w)
-    rows and ``reduce`` the sum over the dealing ranks."""
+    rows and ``reduce`` the sum over the dealing ranks.  ``split[i]``:
+    FSDP leaf i lies over the dealing ranks (expert FSDP), its gradient
+    already their workers' sum."""
     k: int
     idx: int
     dest: list
     segs: list
     exchange: Callable
     reduce: Callable
+    split: tuple = ()
 
 
 def _pass_a_dealt(loss_fn, leaves: list, skeleton, is_fsdp: list,
@@ -526,8 +542,12 @@ def _pass_a_dealt(loss_fn, leaves: list, skeleton, is_fsdp: list,
     """Pass A under ``worker_axes``: round j computes worker j k + idx's
     gradient, and one all-to-all hands every dealing rank its columns of
     the round's rows, folded into its block ``stack`` at once; the FSDP
-    sums are summed over the dealing ranks.  Returns the (n,) fp32
-    losses, summed over them."""
+    sums are summed over the dealing ranks, except those of leaves that
+    lie over them (``deal.split``: each backward reduce-scattered the
+    round's workers into them already).  Where such leaves exist, a rank
+    with no worker in a round still runs a zero-seeded pass, so it joins
+    their gathers and reduce-scatters.  Returns the (n,) fp32 losses,
+    summed over the dealing ranks."""
     dev = stack.device
     k, idx = deal.k, deal.idx
     wmax = max(b - a for a, b in deal.dest)
@@ -548,27 +568,74 @@ def _pass_a_dealt(loss_fn, leaves: list, skeleton, is_fsdp: list,
                         send[q, lo - a:hi - a] = \
                             g[src + lo - off:src + hi - off]
             del grads
+        elif any(deal.split):
+            _worker_grads(loss_fn, leaves, skeleton, is_fsdp,
+                          tree_map(lambda b: b[0], batch), fsdp_sum,
+                          zero=True)
         recv = deal.exchange(send)
         del send
         for r in range(min(k, n - j * k)):
             fold(stack[j * k + r], recv[r, :own])
         del recv
-    for acc in fsdp_sum:
-        deal.reduce(acc)
+    for acc, split in zip(fsdp_sum, deal.split or [False] * len(fsdp_sum)):
+        if not split:
+            deal.reduce(acc)
     return deal.reduce(losses)
+
+
+def _data_split(param_specs: tuple) -> list:
+    """Per leaf, the data axes of the model mesh its spec splits it over
+    (expert FSDP's tables; () for the rest)."""
+    data = model_common.get_mesh_axes().data
+    return [tuple(a for a in data if any(
+        a in model_common.spec_axes(p) for p in spec)) for spec in param_specs]
+
+
+def _fsdp_split(cfg: TrainerConfig, is_fsdp: list) -> list:
+    """Per FSDP leaf, whether expert FSDP lays it over the data axes of a
+    model mesh.  Raises for what that cannot run: such a leaf outside
+    ``fsdp_keys`` (a worker's gradient of it never exists, only the data
+    ranks' sum) or data axes other than the ``worker_axes`` the workers
+    are dealt over."""
+    axes = model_common.get_mesh_axes()
+    if model_common.model_mesh() is None or not axes.expert_fsdp:
+        return [False] * sum(is_fsdp)
+    if cfg.param_specs is None:
+        raise ValueError("expert_fsdp on a model mesh needs TrainerConfig."
+                         "param_specs (models.common.leaf_specs)")
+    data = _data_split(cfg.param_specs)
+    robust = [i for i, (d, f) in enumerate(zip(data, is_fsdp)) if d and not f]
+    if robust:
+        raise ValueError(
+            f"expert_fsdp lays leaves {robust} over the data axes "
+            f"{axes.data}: a worker's gradient of them never exists, so "
+            "they must be fsdp_keys leaves (launch_config.FSDP_KEYS)")
+    if any(d and d != tuple(cfg.worker_axes or ()) for d in data):
+        raise ValueError(
+            f"expert_fsdp lays the expert tables over {axes.data}: the "
+            "workers must be dealt over the same axes (TrainerConfig."
+            f"worker_axes, got {cfg.worker_axes})")
+    return [bool(d) for d, f in zip(data, is_fsdp) if f]
 
 
 def _split_sq_sum(param_specs: tuple) -> Callable:
     """The model-sharded sum of per-leaf squares: the leaves split over the
-    model axis all-reduced over it, the replicated ones counted once."""
+    model axis all-reduced over it (those split over data axes too, expert
+    FSDP's, first summed over those), the replicated ones counted once."""
     model = model_common.get_mesh_axes().model
     split = [model in spec for spec in param_specs]
+    data = _data_split(param_specs)
+    mesh = model_common.model_mesh()
 
     def sq_sum(sq: list) -> Tensor:
         zero = torch.zeros((), dtype=torch.float32, device=sq[0].device)
-        part = sum((t for t, sp in zip(sq, split) if sp), zero)
-        part = model_common.model_mesh().all_reduce(
-            part.clone(), model, record=False)
+        part = sum((t for t, sp, d in zip(sq, split, data) if sp and not d),
+                   zero)
+        for axes in dict.fromkeys(d for d in data if d):
+            over = sum((t for t, d in zip(sq, data) if d == axes), zero)
+            over = mesh.all_reduce(over.clone(), axes, record=False)
+            part = part + over      # every such leaf is model-split too
+        part = mesh.all_reduce(part.clone(), model, record=False)
         return part + sum((t for t, sp in zip(sq, split) if not sp), zero)
     return sq_sum
 
@@ -650,11 +717,14 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
 
         # Pass A: per-worker gradients, each folded into its row at once.
         if sh is None:
+            _fsdp_split(cfg, is_fsdp)       # no worker axes: raises if split
             losses = _pass_a(loss_fn, leaves, skeleton, is_fsdp, batch, n,
                              layout, stack, fsdp_sum, fold)
         else:
+            deal = part.deal()
+            deal.split = tuple(_fsdp_split(cfg, is_fsdp))
             losses = _pass_a_dealt(loss_fn, leaves, skeleton, is_fsdp, batch,
-                                   n, stack, fsdp_sum, fold, part.deal())
+                                   n, stack, fsdp_sum, fold, deal)
 
         # One randomness draw for every aggregate of the step (the bucket
         # permutation of the n workers, then the sketch's signs per leaf,

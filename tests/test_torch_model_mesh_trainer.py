@@ -24,6 +24,8 @@ worker rows tiled over the data axis) and updates the rank's shard.
   tests/test_torch_model_mesh_families_dshb.py, the sketch Gram in
   tests/test_torch_model_mesh_sketch.py.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,7 +81,8 @@ ARCHS = {"smollm": ("smollm-360m", dict(num_heads=3, num_kv_heads=1))}
 #: The other families' cases (tests/test_torch_model_mesh_world.py's),
 #: their constant leaves moved off their constants.
 FAMILY_ARCHS = ("rwkv6", "zamba2", "internvl2", "whisper")
-ARCHS.update({tag: world_cases.CASES[tag][:2] for tag in FAMILY_ARCHS})
+ARCHS.update({tag: world_cases.CASES[tag][:2] for tag in
+              FAMILY_ARCHS + ("mixtral", "arctic", "arctic-ff")})
 
 
 def j_mesh():
@@ -130,7 +133,10 @@ def _gram(leaves: list) -> np.ndarray:
     return flat @ flat.T
 
 
-def _reference(arch_tag: str, spec_kw: dict, fsdp: bool) -> dict:
+def _reference(arch_tag: str, spec_kw: dict, fsdp: bool, layout=None,
+               steps: int = STEPS) -> dict:
+    """The reference's steps (``layout``, the port's ``MeshAxes`` changes,
+    changes nothing on one device)."""
     arch, kw = ARCHS[arch_tag]
     jcfg = j_reduced(arch).replace(**kw)
     spec_kw = {k: v for k, v in spec_kw.items() if k != "backend"}
@@ -149,7 +155,7 @@ def _reference(arch_tag: str, spec_kw: dict, fsdp: bool) -> dict:
         step = jax.jit(j_build_step(model.loss, opt, cfg, j_constant(LR)))
         state = j_init_state(params, opt, N, cfg)
         key, rows, grams, signs = jax.random.PRNGKey(0), [], [], []
-        for b in batches[:STEPS]:
+        for b in batches[:steps]:
             key, sub = jax.random.split(key)
             if spec_kw.get("sketch_dim"):       # the step's aggregate key
                 signs.append(ref_signs(jax.random.split(sub)[0],
@@ -172,16 +178,17 @@ def _tcfg(arch_tag, spec_kw, fsdp, specs):
                 param_specs=specs, fsdp_keys=FSDP_KEYS if fsdp else ())
 
 
-def _setup(arch_tag: str, mesh):
+def _setup(arch_tag: str, mesh, layout=None):
     arch, kw = ARCHS[arch_tag]
     cfg = t_reduced(arch).replace(**kw)
     axes = tmesh.mesh_axes_for(cfg, model_par=2)
-    return cfg, axes
+    return cfg, dataclasses.replace(axes, **(layout or {}))
 
 
-def _rank_case(tag: str, ref: dict, perms: list, mesh, cases: dict) -> dict:
-    arch_tag, spec_kw, fsdp = cases[tag]
-    cfg, axes = _setup(arch_tag, mesh)
+def _rank_case(tag: str, ref: dict, perms: list, mesh, cases: dict,
+               steps: int = STEPS) -> dict:
+    arch_tag, spec_kw, fsdp, *layout = cases[tag]
+    cfg, axes = _setup(arch_tag, mesh, *layout)
     with tmesh.use_mesh(mesh), tcommon.mesh_axes_scope(axes):
         model = t_build(cfg)
         descs = model.param_descs()
@@ -191,7 +198,7 @@ def _rank_case(tag: str, ref: dict, perms: list, mesh, cases: dict) -> dict:
         state = t_init_state(params_to_shards(ref["init"], descs, axes, mesh),
                              opt, N, tcfg)
         rows, grams = [], []
-        for t, b in enumerate(ref["batches"][:STEPS]):
+        for t, b in enumerate(ref["batches"][:steps]):
             internals: dict = {}
             signs = [torch.from_numpy(x) for x in ref["signs"][t]] \
                 if ref["signs"] else None
@@ -213,18 +220,21 @@ def _rank_case(tag: str, ref: dict, perms: list, mesh, cases: dict) -> dict:
 
 
 def _world(rank: int, world: int, refs: dict, perms: list,
-           cases: dict) -> dict:
+           cases: dict, steps: int = STEPS) -> dict:
     torch.set_num_threads(1)
     mesh = tmesh.make_debug_mesh(world // 2, 2)
-    return {tag: _rank_case(tag, refs[tag], perms, mesh, cases)
+    return {tag: _rank_case(tag, refs[tag], perms, mesh, cases, steps)
             for tag in refs}
 
 
-def run_cases(cases: dict) -> tuple:
-    """The reference's steps for ``cases`` and each world's ranks'."""
-    refs = {tag: _reference(*case) for tag, case in cases.items()}
+def run_cases(cases: dict, steps: int = STEPS) -> tuple:
+    """The reference's ``steps`` steps for ``cases`` and each world's
+    ranks'.  A case is (arch tag, spec kwargs, fsdp) and, optionally, the
+    port's ``MeshAxes`` changes (``seq_par``, ``expert_fsdp``)."""
+    refs = {tag: _reference(*case, steps=steps)
+            for tag, case in cases.items()}
     return refs, {(world // 2, 2): tmesh.spawn_world(
-        _world, world, (refs, _perms(), cases), limit=WORLD_LIMIT)
+        _world, world, (refs, _perms(), cases, steps), limit=WORLD_LIMIT)
         for world in (2, 4)}
 
 

@@ -22,7 +22,7 @@ split experts) and gathers every gradient back with
 Tolerances: logits within 1e-5 of the largest, the loss within 1e-5
 relative, each gradient leaf within 1e-5 of its largest magnitude (fp32
 partial sums all-reduced against one device's sums).  The last test
-holds the refusals of what still waits on a model mesh (item 19).
+holds what a model mesh refuses.
 """
 import jax
 import jax.numpy as jnp
@@ -242,6 +242,12 @@ def _refusals(rank: int, world: int) -> list:
                 model.init(0, torch.device("cpu")),
                 {"tokens": tokens, "labels": tokens}))
     with tmesh.use_mesh(mesh), tcommon.mesh_axes_scope(
+            tcommon.MeshAxes(model_par=2, seq_par=True)):
+        model = t_build(cfg)
+        odd = torch.zeros((1, 7), dtype=torch.long)
+        attempt(lambda: model.loss(model.init(0, torch.device("cpu")),
+                                   {"tokens": odd, "labels": odd}))
+    with tmesh.use_mesh(mesh), tcommon.mesh_axes_scope(
             tmesh.mesh_axes_for(cfg, model_par=2)):
         model = t_build(cfg)
         params = model.init(0, torch.device("cpu"))
@@ -258,14 +264,18 @@ def _refusals(rank: int, world: int) -> list:
 
 
 def test_what_waits_on_a_model_mesh_raises():
-    """Only item 19 (``seq_par`` / ``expert_fsdp``) still waits on a
-    model mesh; decode runs there (tests/test_torch_model_mesh_decode.py)
-    once it is told the cache's whole batch and span, which its shard
-    cannot show.  The constraint's shape check, a model axis of the wrong
-    size and the production mesh's rank count raise too."""
+    """``seq_par`` and ``expert_fsdp`` run on a model mesh
+    (tests/test_torch_seq_par.py and tests/test_torch_expert_fsdp.py
+    hold them to the reference); under ``seq_par`` a sequence that does
+    not split over the model axis raises, naming its length.  Decode runs
+    there (tests/test_torch_model_mesh_decode.py) once it is told the
+    cache's whole batch and span, which its shard cannot show.  The
+    constraint's shape check, a model axis of the wrong size and the
+    production mesh's rank count raise too."""
     got = tmesh.spawn_world(_refusals, 2, limit=120)[0]
-    assert all("item 19" in m for m in got[0:2]), got[0:2]
-    assert "batch=" in got[2] and "max_seq=" in got[2], got[2]
-    assert "expected (2, 4)" in got[3]
-    assert "model_par=4" in got[4]
-    assert "256 ranks" in got[5]
+    assert got[0:2] == ["ran", "ran"], got[0:2]
+    assert "seq_par" in got[2] and "7 positions" in got[2], got[2]
+    assert "batch=" in got[3] and "max_seq=" in got[3], got[3]
+    assert "expected (2, 4)" in got[4]
+    assert "model_par=4" in got[5]
+    assert "256 ranks" in got[6]
