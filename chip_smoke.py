@@ -5,6 +5,7 @@
     python3 chip_smoke.py --18d    # the build and phase 18d alone
     python3 chip_smoke.py --22     # the build and phase 22 alone
     python3 chip_smoke.py --23     # the build and phase 23 alone
+    python3 chip_smoke.py --24     # the build and phase 24 alone
 
 Phases, each fatal on failure:
   1. environment: torch / CUDA / nvcc versions, the card, TF32 off;
@@ -72,7 +73,7 @@ Phases, each fatal on failure:
      bucketing lanes' (5, 9, 2842), f = 4 per lane through adjusted_f_dyn
      (the lane forms of K2's median and K3 at the grid's shape: phase 18);
  11. the fleet: ``repro_torch.launch.grid --full`` in process (61 jobs,
-     13 buckets, GRID_ROUNDS = 30 rounds), asserting K4, K5 and the lane forms of K2's
+     13 buckets, GRID_ROUNDS = 20 rounds), asserting K4, K5 and the lane forms of K2's
      median and K3 launched, no single-lane K2 / K3 and no fallback, printing the accuracy table, ms per bucket-round and peak
      memory; then the cwtm | nnm and cwtm | bucketing buckets again on the
      torch backend, per-round losses within rtol 1e-4 of the kernel run;
@@ -93,7 +94,7 @@ Phases, each fatal on failure:
      loss and kappa_hat, peak memory below 70 GiB beside the reckoned
      peak);
  13. resumable runs (``repro_torch.resilience``): (a) full-width
-     smollm-360m at 4 of 32 layers, n = 8, f = 2, ALIE 8, NNM + CWTM, 4
+     smollm-360m at 2 of 32 layers, n = 8, f = 2, ALIE 8, NNM + CWTM, 4
      D-SHB steps through
      train_loop's scan engine (segments of 2) and its loop engine: final
      params, best params, momentum and every metric equal bit for bit, 1
@@ -259,7 +260,8 @@ Phases, each fatal on failure:
  21. the multi-device aggregation backends (``launch.mesh``,
      ``kernels/shard.py``) in worlds of processes that share the card over
      gloo (``world_run``: kept worlds of 2 and of 4 ranks, one alive at a
-     time, shared by phases 21-23; (b) runs first; NCCL refuses two ranks
+     time, shared by phases 21-23 (phase 24's world holds 16); (b) runs
+     first; NCCL refuses two ranks
      on one GPU), each case under a time limit that kills its world, any rank's
      failure failing the phase, every rank's fallback log empty: (a)
      "cuda_sharded" at the dense shape (n = 8, f = 2, D = 361,821,120
@@ -300,7 +302,8 @@ Phases, each fatal on failure:
      (data 2, model 2), the loss within 1e-3 and the parameters within
      5e-3 (the reference's own sharded-vs-single bounds); (b) fp32 at 2
      of 32 layers on (1, 2) and (2, 2), NNM + CWTM and hier + NNM + CWTM
-     (s = 2): the loss within 1e-5 relative, the parameters within 1e-5 x
+     (s = 2; on (1, 2) the 1-D route, K6 on each model shard's columns,
+     on (2, 2) the 2-D one, K7 + K1): the loss within 1e-5 relative, the parameters within 1e-5 x
      their largest magnitude, each step's stack Gram within 1e-5 of max
      |G|; (c) mixtral-8x22b at 1 of 56 layers, bf16, the experts split 4
      a rank and under ``fsdp_keys``, n = 4, f = 1 on (1, 2), bounds as
@@ -308,8 +311,9 @@ Phases, each fatal on failure:
      ``train_loop`` under ``options.checkpoint`` on (2, 2), killed after
      step 1's snapshot and resumed: every rank's shards and momentum bit
      for bit; (e-j) every other family at its published widths, depth
-     cut, in bf16 (one step: the reference's sharded-vs-single contract)
-     and in fp32 with the Gram (2 steps), and smollm's sketch route
+     cut, in bf16 (one step: the reference's sharded-vs-single contract),
+     and again in fp32 with the Gram (one step; rwkv6 and internvl2 at
+     1 layer), and smollm's sketch route on (1, 2) and (2, 2)
      (``MODEL_RUNS``).  ms per step on one device and over the world, each
      rank's peak, launches, collectives and model-axis all-reduces a step;
      asserts K1 and K2 on every rank and empty fallback logs.  Then
@@ -318,13 +322,13 @@ Phases, each fatal on failure:
      weights and prompts: (k) qwen2-7b, 4 of 28 layers, bf16, batch 8
      on (2, 2) (kv 4 -> 2 a rank, QKV biases); (l) mixtral-8x22b, 2 of 56,
      the experts 4 a rank and the ring cache, on (1, 2); (m) internvl2-2b,
-     6 of 24, text decode, (1, 2); (n) rwkv6-3b, 8 of 32, (2, 2); (o)
-     zamba2-2.7b, 12 of 54 (two groups), (1, 2); (p) whisper-base, 2 + 2,
-     1500 seeded frames through ``prefill_cache``, (2, 2); batch 4,
-     prompt 64, 32 new unless named; (q) the tight set in fp32 (TF32
-     off) on (1, 2): smollm-360m (4 layers), mixtral-8x22b (1),
-     rwkv6-3b (2), zamba2-2.7b (6), whisper-base (6 + 6), prompt 16, 16
-     new.  The world is fed the one device's tokens (teacher-forced: each
+     6 of 24, text decode, (1, 2); (n) rwkv6-3b, 4 of 32, (2, 2); (o)
+     zamba2-2.7b, 12 of 54 (two groups), (1, 2); (p) whisper-base,
+     2 + 2, 1500 seeded frames through ``prefill_cache``, (2, 2); batch
+     4, prompt 32, 8 new unless named; (q) the tight set in fp32 (TF32
+     off) on (1, 2), prompt 16: smollm-360m (4 layers, 16 new),
+     mixtral-8x22b (1), rwkv6-3b (1), zamba2-2.7b (6; 8 new each) and
+     whisper-base (6 + 6, 16 new).  The world is fed the one device's tokens (teacher-forced: each
      step's logits within SERVE_REL of max |logits|, rwkv6 / zamba2
      SERVE_REL_RECURRENT, (q) 1e-5 and every cache leaf 1e-5 of its
      max), then its own greedy run through ``launch.serve.
@@ -362,15 +366,43 @@ Phases, each fatal on failure:
      peak and collectives a step (beside 22a's without ``seq_par`` when
      phase 22 ran); asserts K1 and K2 on every rank and empty fallback
      logs;
- 24. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 24. the multi-pod mesh and replicated decode, one kept world of 16
+     ranks sharing the card over gloo (started after phase 23's world is
+     closed; its start timed alone), each case first on one device from
+     the same seeded weights: (a) full-width smollm-360m at 2 of 32
+     layers, fp32, on (pod 2, data 2, model 4) (heads 15 -> 16, kv 5 -> 8,
+     both split): n = 8 dealt over the four (pod, data) ranks pod-major
+     (``TrainerConfig.worker_axes=("pod", "data")``), f = 2, ALIE, NNM +
+     CWTM on "cuda_sharded" for 2 steps (K1 + K2 a step on every rank),
+     then hier + NNM + CWTM (s = 2) on "cuda_hier" for 1 step (the worker
+     rows tiled over "data", the reference's aggregation worker axis: K7
+     on the tile, K1 on the means, K2): the loss within 1e-5 relative,
+     the parameters within 1e-5 x their largest magnitude, each step's
+     stack Gram within 1e-5 of max |G|, the ranks of each model index
+     holding equal shards bit for bit, the launches exact, empty fallback
+     logs; (b) replicated decode on (data 1, model 16), more model ranks
+     than q heads: whisper-base at full depth (6 + 6, 8 q heads, 1500
+     seeded frames through ``prefill_cache``) and smollm-360m at 4 of 32
+     layers (15 q heads), bf16, batch 4, prompt 16, 8 new through
+     ``ServeEngine`` / ``clocked_generate``, held as 22k-22q (teacher-
+     forced logits within SERVE_REL, the world's greedy tokens equal to
+     one device's until a near-tie); (c) its KV sequence split:
+     smollm-360m at 2 layers, fp32, max_seq 16384, batch 2 (1024 slots a
+     rank over the model axis), 22r's steps from 12000 and from 100,
+     logits and cache within 1e-5; (b) and (c) launch no kernel; (d)
+     ``launch.dryrun`` of (a)'s NNM + CWTM target on a fake (2, 2, 4)
+     world in a CPU subprocess: its rank-0 collectives (op, axis, calls,
+     bytes) a step equal (a)'s measured ones;
+ 25. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6; the
      lane forms of K2's median, K3, K6 and K7 on rows of their own), the
-     fed phase's launches, phase 13's to 19's and 21's to 23's launches,
+     fed phase's launches, phase 13's to 19's and 21's to 24's launches,
      the kernels JSON line (K1, K2, K4 and K5 launches include phase
      13's; K2-K5 phase 14's; K1-K6 phase 15's; K1-K5 phase 16's; K1 and
      K2 phase 17's and 19's; the lane forms and K4 / K5 phase 18's; K1-K7
-     phase 21's and K1 / K2 / K6 / K7 phase 22's and K1 / K2 phase 23's,
-     summed over their ranks), the card line, and last the {"ok": true,
+     phase 21's and K1 / K2 / K6 / K7 phase 22's, K1 / K2 phase 23's and
+     K1 / K2 / K6 / K7 phase 24's, summed over their ranks and one-device
+     runs), the card line, and last the {"ok": true,
      ...} line.
 
 Phase 3 also holds K4 at the dense trainer's shape (n = 8, f = 2 as a
@@ -380,20 +412,24 @@ at the same f, which it must equal bit for bit (one body).
 Cuts for time (the script must end within its 1200 s limit on a slow
 chip host too, whose speed varies 1.5-2x between calls: it aims at half
 the limit; PERF.md says which comparison each cut gives up): 13a / 13b
-at 4 of 32 layers (13b's full-depth snapshot of 13 GB took ~90 s of
-disk); phase 9 and 16a / 16b at 4 of 32 (8 before); phase 20's smollm,
+at 2 of 32 layers (4 before; 13b's full-depth snapshot of 13 GB took ~90
+s of disk); phase 9 and 16a / 16b at 4 of 32 (8 before); phase 20's smollm,
 minitron, internvl2 and rwkv6 runs at a quarter of their depth, zamba2
 at 12 of 54 and mixtral at 2 of 56 (bf16 and fp32); 21c's trainer at 2
 and 2 of 32 layers, 2 steps each (32 and 16, then 4 and 2 before); 22a
 at 4 of 32, 22h / 22i whisper at 2 + 2 of 6 + 6, 22b / 22j (and so 22d)
-at 2 layers (4 before); 22e-22h's bf16 runs one step (2 before; their
-fp32 runs 22i keep 2) and 22e at 1 layer; 22k at 4 of 28 layers, 22l at
-2 of 56, 22m at 6 of 24, 22n at 8 of 32, 22p at 2 + 2 (14, 4, 24, 32,
-6 + 6 before); the grid at 30 rounds (100, then 50 before), 14a at 18
-(30 before), 18b at 10 (20 before).  22f and 22o keep 12 layers: two
-shared-block groups, so the shared block's gradient is summed over
-groups on the model mesh and decode keeps a cache per group.  The
-worlds of phases 21-23 start three times, not seven (``world_run``).
+at 2 layers (4 before); 22e-22h's bf16 runs one step (2 before) and
+22e at 1 layer; 22i's fp32 runs one step (2 before; 22b keeps 2 steps in
+fp32), 22i's rwkv6 and internvl2 at 1 layer (2 before); 22k at 4 of
+28 layers, 22l at 2 of 56, 22m at 6 of 24, 22n at 4 of 32, 22p at
+2 + 2 (14, 4, 24, 32, 6 + 6 before); 22k-22p prompt 32 and 8 new (64
+and 32 before); 22q's mixtral, rwkv6 and zamba2 8 new (16 before) and
+rwkv6 at 1 layer (2 before); the grid at 20 rounds (100, 50, then 30
+before; at 12 its baseline misses its 0.8 accuracy check), 14a at 8 (30,
+18, then 12 before), 18b at 4 (20, 10, then 6 before).  22f and 22o
+keep 12 of 54 layers (two shared-block groups).  The worlds of
+phases 21-24 start four times (``world_run``); phase 24's world is
+started before its one-device runs, which overlap its ranks' start.
 
 It needs one CUDA card and imports nothing of JAX or of the reference
 package ``repro``.
@@ -401,6 +437,7 @@ package ``repro``.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -443,7 +480,9 @@ FLEET_WIDE = (2, 640, 1 << 20)  # K5 above 32 workers: the tiled product
 FLEET_GRID = (5, 17, 2842)      # a grid bucket: 5 lanes, the 48-48-10 MLP
 FLEET_GRID_BKT = (5, 9, 2842)   # a bucketing bucket: 17 workers, 9 means (s = 2)
 F_GRID = 4                      # the grid's f (n = 17)
-GRID_ROUNDS = 30                # phase 11's rounds (100, then 50 before), cut for time
+#: Phase 11's rounds, cut for time (100, 50, then 30 before); at 12 the
+#: iid baseline stays below its 0.8 accuracy check.
+GRID_ROUNDS = 20
 REPS = 7
 RTOL = 1e-5                     # of the largest finite |plain| (fp32 contract)
 FP32_TFLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -1868,9 +1907,9 @@ def phase_fed_full(dev, rate: float) -> dict:
 #: grid's cwtm | nnm bucket (5 lanes, n = 17, f = 4), 16 rounds in segments
 #: of 2 (evals every 2 rounds).
 RESUME_STEPS, RESUME_CHUNK, RESUME_ETA = 4, 2, 8.0
-#: The depth of 13a / 13b, cut for time: a 3.1 GB snapshot, where the full
-#: depth's 13 GB took ~90 s of disk.
-RESUME_LAYERS = 4
+#: The depth of 13a / 13b, cut for time: a 2.2 GB snapshot (3.1 GB at 4
+#: layers), where the full depth's 13 GB took ~90 s of disk.
+RESUME_LAYERS = 2
 FLEET_RESUME_ROUNDS, FLEET_RESUME_CHUNK = 16, 2
 
 
@@ -2215,7 +2254,7 @@ def phase_resume_fleet(dev) -> dict:
 # Phase 14: the continuous fleet service (repro_torch.serving).
 # ---------------------------------------------------------------------------
 
-SERVICE_ROUNDS, SERVICE_CHUNK = 18, 10      # 14a: the grid through both (30 rounds before)
+SERVICE_ROUNDS, SERVICE_CHUNK = 8, 10       # 14a: the grid through both (30, 18, then 12 rounds before)
 CHURN_ROUNDS, CHURN_CHUNK = 12, 3           # 14b
 #: The lane buckets' kernels: K5, K4, K2's median and K3's lane forms, and
 #: the single-lane K2 / K3, which a lane bucket no longer launches.
@@ -3553,7 +3592,7 @@ def phase_zoo(dev, card: str) -> dict:
 # K6 and K7.
 # ---------------------------------------------------------------------------
 
-HIER_FLEET_ROUNDS = 10          # 18b: the grid's buckets, hierarchical (20 before)
+HIER_FLEET_ROUNDS = 4           # 18b: the grid's buckets, hierarchical (20, 10, then 6 before)
 HIER_FLEET_SIZES = (2, 3)       # bucket sizes: 9 means (K5), 6 (K6's fold)
 HIER_BIG_ROUNDS, HIER_BIG_S = 3, 3   # 18b: the (8, 17, 2^24) bucket
 HIER_SVC_ROUNDS, HIER_SVC_CHUNK = 8, 2   # 18c
@@ -4821,12 +4860,13 @@ def seeded_block(seed: int, rows: tuple, cols: tuple, dev, rb: int,
     return out
 
 
-def collective_summary() -> dict:
+def collective_summary(entries: Optional[list] = None) -> dict:
     """Each collective's count, bytes, transport and seconds since the
-    last reset (``launch.mesh.collective_log``)."""
+    last reset (``launch.mesh.collective_log``), or of ``entries`` of
+    it."""
     from repro_torch.launch.mesh import collective_log
     out: dict = {}
-    for c in collective_log():
+    for c in collective_log() if entries is None else entries:
         key = f"{c['op']}/{c['axis']}/{c['transport']}"
         row = out.setdefault(key, {"calls": 0, "bytes": 0, "s": 0.0})
         row["calls"] += 1
@@ -4836,13 +4876,14 @@ def collective_summary() -> dict:
 
 
 # Phases 21-23 run their cases in worlds of 2 and of 4 ranks, seven times
-# in all.  A world's processes start once (a rank's CUDA context, imports
-# and gloo join took 10-20 s a world on the card's host) and stay for the
-# next cases of that size: ``world_run`` hands each rank the case and
-# waits for all of them, as ``spawn_world`` does.  One world is alive at a
-# time (21b's 4 ranks hold 70 GiB of the card; two idle ranks' contexts
-# left it short), so the phases order their cases to switch sizes three
-# times: 21b; 21a, 21c and 22's (1, 2) cases; 22's (2, 2) cases and 23.
+# in all, and phase 24 in a world of 16.  A world's processes start once
+# (a rank's CUDA context, imports and gloo join took 10-20 s a world of 2
+# or 4 on the card's host, ~30 s one of 16) and stay for the next cases
+# of that size: ``world_run`` hands each rank the case and waits for all
+# of them, as ``spawn_world`` does.  One world is alive at a time (21b's 4
+# ranks hold 70 GiB of the card; two idle ranks' contexts left it short),
+# so the phases order their cases to switch sizes four times: 21b; 21a,
+# 21c and 22's (1, 2) cases; 22's (2, 2) cases and 23; 24.
 _WORLDS: dict = {}
 
 
@@ -4850,7 +4891,9 @@ def _kept_rank(rank: int, world: int, port: int, timeout: float, tasks,
                results) -> None:
     """A rank of a kept world: joins the gloo world once, then runs each
     ``(fn, args)`` from ``tasks`` until ``None``, the card's cache freed
-    after each; the first failure is reported and ends the rank."""
+    after each BEFORE its result is reported (the parent may allocate on
+    the card as soon as every rank has reported); the first failure is
+    reported and ends the rank."""
     import datetime
     import gc
     import traceback
@@ -4862,9 +4905,11 @@ def _kept_rank(rank: int, world: int, port: int, timeout: float, tasks,
             rank=rank, timeout=datetime.timedelta(seconds=timeout))
         while (task := tasks.get()) is not None:
             fn, args = task
-            results.put(("ok", rank, fn(rank, world, *args)))
+            out = fn(rank, world, *args)
             gc.collect()
             torch.cuda.empty_cache()
+            results.put(("ok", rank, out))
+            del out
     except BaseException:                            # noqa: BLE001 - reported
         results.put(("error", rank, traceback.format_exc()))
     finally:
@@ -4947,14 +4992,21 @@ class KeptWorld:
         self.results.close()
 
 
+def start_world(world: int) -> None:
+    """Start the kept world of ``world`` ranks now (any world of another
+    size stopped first), so that its ranks' start overlaps the caller's
+    next work; :func:`world_run` then finds it."""
+    if world not in _WORLDS:
+        close_worlds()
+        _WORLDS[world] = KeptWorld(world)
+
+
 def world_run(fn, world: int, args: tuple = (), limit: float = 600.0) -> list:
     """``fn(rank, world, *args)`` on the kept world of ``world`` ranks
     (started on first use, after any world of another size is stopped);
     the ranks' results in rank order."""
-    kept = _WORLDS.get(world)
-    if kept is None:
-        close_worlds()
-        kept = _WORLDS[world] = KeptWorld(world)
+    start_world(world)
+    kept = _WORLDS[world]
     try:
         return kept.run(fn, args, limit)
     except BaseException:
@@ -5533,14 +5585,14 @@ MODEL_RUNS = (
      dict(pre="nnm", rule="cwtm"), 1, ((1, 2),), False, False),
     ("22h", "whisper-base", 2, "bf16", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm"), 1, ((2, 2),), False, False),
-    ("22i rwkv6", "rwkv6-3b", 2, "fp32", N_MAIN, F_MAIN,
-     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
+    ("22i rwkv6", "rwkv6-3b", 1, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 1, ((1, 2),), True, False),
     ("22i zamba2", "zamba2-2.7b", 6, "fp32", N_MAIN, F_MAIN,
-     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
-    ("22i internvl2", "internvl2-2b", 2, "fp32", N_MAIN, F_MAIN,
-     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
+     dict(pre="nnm", rule="cwtm"), 1, ((1, 2),), True, False),
+    ("22i internvl2", "internvl2-2b", 1, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 1, ((1, 2),), True, False),
     ("22i whisper", "whisper-base", 2, "fp32", N_MAIN, F_MAIN,
-     dict(pre="nnm", rule="cwtm"), 2, ((1, 2),), True, False),
+     dict(pre="nnm", rule="cwtm"), 1, ((1, 2),), True, False),
     ("22j", "smollm-360m", 2, "fp32", N_MAIN, F_MAIN,
      dict(pre="nnm", rule="cwtm", sketch_dim=SKETCH_DIM), 2,
      ((1, 2), (2, 2)), True, False),
@@ -5598,7 +5650,11 @@ def _model_setup(run, dev, mesh):
                        if dtype == "bf16" else torch.float32)
     if full.encoder_layers:
         cfg = cfg.replace(encoder_layers=min(layers, full.encoder_layers))
-    axes = mesh_axes_for(cfg, model_par=MODEL_PAR)
+    # The run's mesh: ("data", "model"), or ("pod", "data", "model") for
+    # phase 24's multi-pod run (the workers dealt over both data axes).
+    shape = run[8][0]
+    axes = mesh_axes_for(cfg, multi_pod=len(shape) == 3,
+                         model_par=shape[-1])
     if layout:                  # phase 23: seq_par / expert_fsdp
         axes = dataclasses.replace(axes, **layout[0])
     model = build_model(cfg)
@@ -5612,14 +5668,14 @@ def _model_setup(run, dev, mesh):
         agg=AggregatorSpec(f=f, backend=backend, **spec_kw),
         byz=ByzantineConfig(f=f, attack="alie"),
         fsdp_keys=fsdp_keys_for(full) if fsdp else (),
-        worker_axes=None if mesh is None else ("data",),
+        worker_axes=None if mesh is None else axes.data,
         param_specs=None if mesh is None else specs)
     return model, cfg, axes, tcfg
 
 
 def _stack_gram(a, mesh, hier: bool):
     """The attacked stack's (n, n) Gram in fp64 (column chunks), summed
-    over the blocks of a world: over both axes, or the model axis where
+    over the blocks of a world: over every axis, or the model axis where
     the hierarchical form keeps the columns whole on every data rank."""
     import torch
     g = torch.zeros((a.shape[0], a.shape[0]), dtype=torch.float64,
@@ -5628,7 +5684,7 @@ def _stack_gram(a, mesh, hier: bool):
         x = a[:, c:c + (1 << 23)].double()
         g += x @ x.T
     if mesh is not None:
-        mesh.all_reduce(g, "model" if hier else ("model", "data"),
+        mesh.all_reduce(g, "model" if hier else tuple(mesh.axis_names),
                         record=False)
     return g
 
@@ -5655,10 +5711,12 @@ def _sketch_gram(internals: dict, tcfg, params, signs: list, mesh, dev):
     return (sk @ sk.mT)[0].double().cpu()
 
 
-def _model_train(run, dev, mesh=None, gram: bool = False) -> dict:
+def _model_train(run, dev, mesh=None, gram: bool = False,
+                 digest: bool = False) -> dict:
     """One MODEL_RUNS entry's steps; returns its metrics, ms per step,
-    peak, launches, collectives, the final parameters (this rank's
-    shards) and, with ``gram``, each step's stack Gram (and sketch Gram
+    peak, launches, the steps' collectives, the final parameters (this
+    rank's shards; with ``digest`` each one's SHA-1 too, for bitwise
+    equality across ranks) and, with ``gram``, each step's stack Gram (and sketch Gram
     under ``sketch_dim``, its signs drawn on the whole padded leaves from
     a generator seeded by the step, the same on every rank)."""
     import torch
@@ -5698,6 +5756,7 @@ def _model_train(run, dev, mesh=None, gram: bool = False) -> dict:
         tmesh.reset_collective_log()
         hist = {"loss": [], "kappa_hat": [], "direction_norm": [], "ms": [],
                 "grams": [], "sketch_grams": []}
+        stepped = []            # the steps' own collectives (not the Grams')
         for t in range(steps):
             perm = torch.randperm(n, generator=torch.Generator()
                                   .manual_seed(t)).to(dev)
@@ -5708,9 +5767,11 @@ def _model_train(run, dev, mesh=None, gram: bool = False) -> dict:
             internals: dict = {}
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
+            logged = len(tmesh.collective_log())
             state, m = step(state, batch, internals, perm=perm, signs=signs)
             torch.cuda.synchronize(dev)
             hist["ms"].append(1e3 * (time.perf_counter() - t0))
+            stepped += tmesh.collective_log()[logged:]
             for k in ("loss", "kappa_hat", "direction_norm"):
                 hist[k].append(float(m[k]))
             if gram:
@@ -5723,10 +5784,14 @@ def _model_train(run, dev, mesh=None, gram: bool = False) -> dict:
             del internals, batch
         counts = _counts(("gram", "mixtrim", "bucketgram", "bucketmeans",
                           "combine"))
-        colls = collective_summary()
+        colls = collective_summary(stepped)
         model_ar = sum(c["calls"] for k, c in colls.items()
                        if k.startswith("all_reduce/model/"))
+        digests = [hashlib.sha1(p.detach().contiguous().view(torch.uint8)
+                                .cpu().numpy().tobytes()).hexdigest()
+                   for p in tree_leaves(state["params"])] if digest else None
     return {"params": [p.detach() for p in tree_leaves(state["params"])],
+            "digests": digests,
             "momentum_width": state["momentum"].shape[1], "hist": hist,
             "peak": torch.cuda.max_memory_allocated(dev), "counts": counts,
             "collectives": colls, "model_all_reduces": model_ar / steps,
@@ -5762,7 +5827,7 @@ def _model_compare(run, got: dict, ref_path: str, mesh) -> dict:
            "model_all_reduces": got["model_all_reduces"],
            "fallbacks": got["fallbacks"], "record": got["record"],
            "momentum_width": got["momentum_width"], "tight": run[9],
-           "seconds": got["seconds"]}
+           "seconds": got["seconds"], "digests": got["digests"]}
     for key, tag in (("grams", "gram"), ("sketch_grams", "sketch")):
         if got["hist"][key]:
             out[f"{tag}_err"] = max(float((a - b.cpu()).abs().max())
@@ -5829,25 +5894,27 @@ def _model_resume(dev, mesh, tmp: str) -> dict:
 #: (phase 22's world of that size): 22k-22p bf16, 22q the tight set in
 #: fp32 (TF32 off).
 MODEL_DECODE_RUNS = (
-    ("22k", "qwen2-7b", 4, "bf16", 8, 64, 32, (2, 2)),
-    ("22l", "mixtral-8x22b", 2, "bf16", 4, 64, 32, (1, 2)),
-    ("22m", "internvl2-2b", 6, "bf16", 4, 64, 32, (1, 2)),
-    ("22n", "rwkv6-3b", 8, "bf16", 4, 64, 32, (2, 2)),
-    ("22o", "zamba2-2.7b", 12, "bf16", 4, 64, 32, (1, 2)),
-    ("22p", "whisper-base", 2, "bf16", 4, 64, 32, (2, 2)),
+    ("22k", "qwen2-7b", 4, "bf16", 8, 32, 8, (2, 2)),
+    ("22l", "mixtral-8x22b", 2, "bf16", 4, 32, 8, (1, 2)),
+    ("22m", "internvl2-2b", 6, "bf16", 4, 32, 8, (1, 2)),
+    ("22n", "rwkv6-3b", 4, "bf16", 4, 32, 8, (2, 2)),
+    ("22o", "zamba2-2.7b", 12, "bf16", 4, 32, 8, (1, 2)),
+    ("22p", "whisper-base", 2, "bf16", 4, 32, 8, (2, 2)),
     ("22q smollm", "smollm-360m", 4, "fp32", 4, 16, 16, (1, 2)),
-    ("22q mixtral", "mixtral-8x22b", 1, "fp32", 4, 16, 16, (1, 2)),
-    ("22q rwkv6", "rwkv6-3b", 2, "fp32", 4, 16, 16, (1, 2)),
-    ("22q zamba2", "zamba2-2.7b", 6, "fp32", 4, 16, 16, (1, 2)),
+    ("22q mixtral", "mixtral-8x22b", 1, "fp32", 4, 16, 8, (1, 2)),
+    ("22q rwkv6", "rwkv6-3b", 1, "fp32", 4, 16, 8, (1, 2)),
+    ("22q zamba2", "zamba2-2.7b", 6, "fp32", 4, 16, 8, (1, 2)),
     ("22q whisper", "whisper-base", 6, "fp32", 4, 16, 16, (1, 2)),
 )
 #: 22r, the KV cache's sequence split: qwen2-7b at 2 of 28 layers, fp32,
 #: its kv heads unsplit (``MeshAxes(shard_kv=False)``: what the
 #: reference's model axis of 16 gives qwen2's 4 kv heads; no published
 #: arch at par 2 gives it) and max_seq 16384, a span above 8192.
-#: (label, batch, mesh shape): batch 2 on (1, 2) puts the sequence over
-#: the model axis ("seq_model"), batch 1 on (2, 2) over both ("seq_both").
-MODEL_SEQ_RUNS = (("22r seq_model", 2, (1, 2)), ("22r seq_both", 1, (2, 2)))
+#: (label, batch, mesh shape, arch): batch 2 on (1, 2) puts the sequence
+#: over the model axis ("seq_model"), batch 1 on (2, 2) over both
+#: ("seq_both").
+MODEL_SEQ_RUNS = (("22r seq_model", 2, (1, 2), "qwen2-7b"),
+                  ("22r seq_both", 1, (2, 2), "qwen2-7b"))
 SEQ_LAYERS, SEQ_SPAN = 2, 16384
 #: (first position, steps, cache seed): the cache's first positions filled
 #: from the seed, then seeded tokens stepped from there: from 12000 the
@@ -5863,13 +5930,13 @@ def _decode_setup(run):
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import mesh_axes_for
     from repro_torch.models import build_model
-    _, arch, layers, dtype, *_ = run
+    _, arch, layers, dtype, *_, shape = run
     full = get_config(arch)
     cfg = full.replace(num_layers=layers, dtype=torch.bfloat16
                        if dtype == "bf16" else torch.float32)
     if full.encoder_layers:                 # whisper: cut with its decoder
         cfg = cfg.replace(encoder_layers=min(layers, full.encoder_layers))
-    return build_model(cfg), cfg, mesh_axes_for(cfg, model_par=MODEL_PAR)
+    return build_model(cfg), cfg, mesh_axes_for(cfg, model_par=shape[1])
 
 
 def _decode_rel(cfg) -> float:
@@ -6098,15 +6165,20 @@ def _seq_cache(model, batch: int, fill: int, seed: int, dev):
     return cache
 
 
-def _seq_setup():
+def _seq_setup(run):
+    """(model, config, MeshAxes) of a MODEL_SEQ_RUNS entry: its arch at
+    SEQ_LAYERS, fp32, the kv heads unsplit on the run's model axis."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import mesh_axes_for
     from repro_torch.models import build_model
-    from repro_torch.models.common import MeshAxes
-    cfg = get_config("qwen2-7b").replace(num_layers=SEQ_LAYERS,
-                                         dtype=torch.float32)
-    return build_model(cfg), cfg, MeshAxes(model_par=MODEL_PAR,
-                                           shard_kv=False)
+    _, _, shape, arch = run
+    cfg = get_config(arch).replace(num_layers=SEQ_LAYERS,
+                                   dtype=torch.float32)
+    axes = dataclasses.replace(mesh_axes_for(cfg, model_par=shape[1]),
+                               shard_kv=False)
+    return build_model(cfg), cfg, axes
 
 
 def _seq_steps(model, params, cache, batch: int, pos0: int, steps: int,
@@ -6134,10 +6206,11 @@ def _seq_one(run, dev, tmp: str) -> dict:
     """22r on one device: every part's logits and final cache to
     ``tmp``."""
     import torch
+    from repro_torch.launch import roofline
     from repro_torch.models import common
     from repro_torch.tree import tree_leaves
-    label, batch, _ = run
-    model, cfg, axes = _seq_setup()
+    label, batch, _, _ = run
+    model, cfg, axes = _seq_setup(run)
     saved, ms = {}, []
     with common.mesh_axes_scope(axes):
         params = model.init(0, dev)
@@ -6152,19 +6225,24 @@ def _seq_one(run, dev, tmp: str) -> dict:
     torch.save(saved, f"{tmp}/{label}.seq.pt")
     del params
     torch.cuda.empty_cache()
-    return {"ms": statistics.median(ms)}
+    bnd = statistics.median(
+        [1e3 * max(t.memory_s, t.compute_s) for t in
+         (roofline.decode_step_terms(cfg, batch, SEQ_SPAN, pos0 + i)
+          for pos0, steps, _ in SEQ_PARTS for i in range(steps))])
+    return {"ms": statistics.median(ms), "bound_ms": bnd}
 
 
 def _seq_rank(run, dev, mesh, tmp: str) -> dict:
     """22r on one rank: every part against the one device's logits (this
     rank's rows) and cache (this rank's shard)."""
     import torch
+    from repro_torch.kernels import dispatch as kdispatch
     from repro_torch.launch import mesh as tmesh
     from repro_torch.models import attention, common
     from repro_torch.tree import tree_leaves
     from repro_torch.tree import tree_map
-    label, batch, _ = run
-    model, cfg, axes = _seq_setup()
+    label, batch, _, _ = run
+    model, cfg, axes = _seq_setup(run)
     ref = torch.load(f"{tmp}/{label}.seq.pt")
     err, cache_err, ms = 0.0, 0.0, []
     torch.cuda.reset_peak_memory_stats(dev)
@@ -6174,6 +6252,7 @@ def _seq_rank(run, dev, mesh, tmp: str) -> dict:
         descs = tree_leaves(model.cache_descs(batch, SEQ_SPAN))
         lo, hi = common.batch_block(batch)
         tmesh.reset_collective_log()
+        kdispatch.reset_launch_counts()
         for pos0, steps, seed in SEQ_PARTS:
             whole = _seq_cache(model, batch, pos0, seed, dev)
             cache = tree_map(lambda t, d: t[common.shard_slice(
@@ -6195,8 +6274,10 @@ def _seq_rank(run, dev, mesh, tmp: str) -> dict:
                                 float((a - b).abs().max()) / scale)
             del cache
         colls = collective_summary()
+        launches = {k: v for k, v in kdispatch.launch_counts().items() if v}
     calls = sum(steps for _, steps, _ in SEQ_PARTS)
     return {"err": err, "cache_err": cache_err, "ms": statistics.median(ms),
+            "launches": launches,
             "seq_axes": seq_axes, "span": descs[0].shape[2] // mesh.size(
                 seq_axes),
             "per_token": {k: c["calls"] / calls for k, c in colls.items()},
@@ -6293,9 +6374,13 @@ def _check_decode(run, one: dict, ranks: list, card: str) -> None:
 
 def _check_seq(run, one: dict, ranks: list, card: str) -> None:
     """22r's contracts on every rank, its line logged."""
-    label, batch, shape = run
+    label, batch, shape, arch = run
+    _, cfg, axes = _seq_setup(run)
     want = ("model",) if batch > 1 else ("data", "model")
     for i, r in enumerate(ranks):
+        if r["launches"]:
+            raise AssertionError(f"{label} rank {i}: decode launched "
+                                 f"kernels: {r['launches']}")
         if r["seq_axes"] != want:
             raise AssertionError(f"{label} rank {i}: sequence over "
                                  f"{r['seq_axes']}, expected {want}")
@@ -6305,14 +6390,16 @@ def _check_seq(run, one: dict, ranks: list, card: str) -> None:
                                  f" of their max")
     per = ranks[0]["per_token"]
     colls = ", ".join(f"{k} {v:.1f}" for k, v in sorted(per.items()))
-    log(f"  {label}: qwen2-7b {SEQ_LAYERS} of 28 layers, fp32, kv heads "
+    log(f"  {label}: {arch} {SEQ_LAYERS} of {get_full_layers(arch)} "
+        f"layers, fp32, {padded_heads(cfg, axes)}, kv heads "
         f"unsplit, batch {batch}, span {SEQ_SPAN} over {want} "
         f"({ranks[0]['span']} slots a rank), mesh (data {shape[0]}, model "
         f"{shape[1]}); steps from {[p for p, _, _ in SEQ_PARTS]}: logits max "
         f"|diff| {max(r['err'] for r in ranks):.3g}, cache "
         f"{max(r['cache_err'] for r in ranks):.3g} of their max (tol "
-        f"{DECODE_FP32_REL:g}); {one['ms']:.3f} ms a step one device / "
-        f"{ranks[0]['ms']:.3f} world (rank 0); collectives a step a rank: "
+        f"{DECODE_FP32_REL:g}); {one['ms']:.3f} ms a step one device "
+        f"(bound {one['bound_ms']:.4f}) / {ranks[0]['ms']:.3f} world (rank "
+        f"0); no kernel launch; collectives a step a rank: "
         f"{colls}; peaks {[round(r['peak'] / 1e9, 2) for r in ranks]} GB; "
         f"card {card}")
 
@@ -6699,11 +6786,245 @@ def phase_seq_fsdp(dev, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the multi-pod mesh and replicated decode, one kept world of 16
+# ranks sharing the card over gloo.
+# ---------------------------------------------------------------------------
+
+POD_WORLD = 16
+#: 24a's (pod, data, model) mesh: 8 workers dealt over the 4 (pod, data)
+#: ranks, each worker split over 4 model ranks.
+POD_SHAPE = (2, 2, 4)
+#: MODEL_RUNS entries on POD_SHAPE: full-width smollm-360m at 2 of 32
+#: layers, fp32 (heads 15 -> 16 and kv 5 -> 8 on the model axis of 4, so
+#: both split), held to one device at 1e-5 with the stack's Gram.
+POD_RUNS = (
+    ("24a nnm+cwtm", "smollm-360m", 2, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm"), 2, (POD_SHAPE,), True, False),
+    ("24a hier+nnm+cwtm", "smollm-360m", 2, "fp32", N_MAIN, F_MAIN,
+     dict(pre="nnm", rule="cwtm", hier=True, bucket_size=2), 1,
+     (POD_SHAPE,), True, False),
+)
+#: Each 24a run's launches a step on every rank: K1 + K2 on the model
+#: shard's columns; the hierarchical form tiles the workers over "data"
+#: (the reference's aggregation_worker_axis), so it takes the 2-D route:
+#: K7 on the tile with the global weights, K1 on the means, K2.
+POD_LAUNCHES = {"24a nnm+cwtm": dict(gram=1, mixtrim=1, bucketgram=0,
+                                     bucketmeans=0),
+                "24a hier+nnm+cwtm": dict(gram=1, mixtrim=1, bucketgram=0,
+                                          bucketmeans=1)}
+#: 24b / 24c's mesh: every rank on the model axis, more ranks than
+#: smollm-360m's 15 or whisper-base's 8 q heads: attention replicates.
+REP_SHAPE = (1, 16)
+#: 24b: MODEL_DECODE_RUNS entries on REP_SHAPE (bf16, seeded weights and
+#: prompts): whisper-base at full depth (6 + 6, 1500 seeded frames through
+#: prefill_cache) and smollm-360m at 4 of 32 layers.
+REP_DECODE_RUNS = (
+    ("24b whisper", "whisper-base", 6, "bf16", 4, 16, 8, REP_SHAPE),
+    ("24b smollm", "smollm-360m", 4, "bf16", 4, 16, 8, REP_SHAPE),
+)
+#: 24c: the KV cache's sequence split of the replicated attention,
+#: smollm-360m (SEQ_LAYERS, fp32, max_seq SEQ_SPAN) at batch 2: the
+#: sequence over the model axis, 1024 slots a rank.
+REP_SEQ_RUNS = (("24c seq_model", 2, REP_SHAPE, "smollm-360m"),)
+
+
+def dry_multi_pod() -> dict:
+    """24d's dry run (``--24d-dry``, a CPU process): 24a's NNM + CWTM
+    target as rank 0 of a fake POD_SHAPE world, one step of MODEL_BATCH x
+    MODEL_SEQ tokens a worker; {"collectives", "flops", "peak_bytes"}."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    run = POD_RUNS[0]
+    _, cfg, _, tcfg = _model_setup(run, torch.device("cpu"), None)
+    tcfg = dataclasses.replace(tcfg, agg=dataclasses.replace(
+        tcfg.agg, backend="cuda_sharded"))
+    n = run[4]
+    rec = dryrun.dryrun_one(
+        run[1], "train_4k", cfg=cfg, verbose=False, mesh_shape=POD_SHAPE,
+        shape=InputShape(run[0], MODEL_SEQ, n * MODEL_BATCH, "train"),
+        n_workers=n, trainer=tcfg, fsdp_keys=(), seq_par=False,
+        expert_fsdp=False)
+    return {"collectives": rec["collectives"], "flops": rec["cost"]["flops"],
+            "peak_bytes": rec["memory"]["peak_bytes"]}
+
+
+def _ready_rank(rank: int, world: int) -> float:
+    """A rank's set-up alone (the card, the kernels' library): what a
+    world's start costs before its first case."""
+    _rank_setup(rank)
+    return time.perf_counter()
+
+
+def _pod_rank(rank: int, world: int, tmp: str) -> dict:
+    """24a on one rank of the POD_SHAPE mesh: every POD_RUNS entry against
+    its one-device run, with the digests of its shards."""
+    import torch
+    dev = _rank_setup(rank)
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_mesh(POD_SHAPE, ("pod", "data", "model"))
+    out = {"rank": rank, "model_index": mesh.index("model"),
+           "data_index": mesh.index(("pod", "data")), "runs": {},
+           "counts": {}}
+    for run in POD_RUNS:
+        got = _model_train(run, dev, mesh, gram=True, digest=True)
+        row = _model_compare(run, got, f"{tmp}/{run[0]}.pt", mesh)
+        add_counts(out["counts"], row["counts"])
+        out["runs"][run[0]] = row
+        del got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rep_rank(rank: int, world: int, tmp: str) -> dict:
+    """24b / 24c on one rank of the REP_SHAPE mesh."""
+    dev = _rank_setup(rank)
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_debug_mesh(*REP_SHAPE)
+    return {"decode": {run[0]: _decode_rank(run, dev, mesh, tmp)
+                       for run in REP_DECODE_RUNS},
+            "seq": {run[0]: _seq_rank(run, dev, mesh, tmp)
+                    for run in REP_SEQ_RUNS}}
+
+
+def _check_pod_world(ranks: list) -> None:
+    """24a's contracts beyond phase 22's: each run's exact launches a step
+    on every rank, the workers dealt pod-major, and every rank's shards
+    equal bit for bit to those of the other ranks of its model index."""
+    steps = {run[0]: run[7] for run in POD_RUNS}
+    for r in ranks:
+        if r["data_index"] != r["rank"] // POD_SHAPE[2]:
+            raise AssertionError(f"24a rank {r['rank']}: data index "
+                                 f"{r['data_index']}")
+        for name, row in r["runs"].items():
+            want = {k: v * steps[name] for k, v in POD_LAUNCHES[name].items()}
+            got = {k: row["counts"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"{name} rank {r['rank']}: launches "
+                                     f"{got}, expected {want}")
+    for name in steps:
+        for m in range(POD_SHAPE[2]):
+            group = [r for r in ranks if r["model_index"] == m]
+            digests = {tuple(r["runs"][name]["digests"]) for r in group}
+            if len(group) != POD_WORLD // POD_SHAPE[2] or len(digests) != 1:
+                raise AssertionError(f"{name}: the {len(group)} ranks of "
+                                     f"model index {m} hold {len(digests)} "
+                                     f"different sets of shards")
+        row = ranks[0]["runs"][name]
+        log(f"  {name}: the {POD_WORLD // POD_SHAPE[2]} (pod, data) ranks "
+            f"of each model index hold equal shards bit for bit; rank 0's "
+            f"collectives a step: {_per_step(row['collectives'], steps[name])}")
+
+
+def phase_multi_pod(dev, card: str) -> dict:
+    """Phase 24; returns the launches summed over every rank and the
+    one-device runs."""
+    import tempfile
+    import torch
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    dry = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                            "--24d-dry"], stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True, env=env)
+    total: dict = {}
+    t_world = time.perf_counter()
+    start_world(POD_WORLD)          # its ranks start beside the runs below
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for run in POD_RUNS:
+                t0 = time.perf_counter()
+                got = _model_train(run, dev, None, gram=True)
+                add_counts(total, got["counts"])
+                model, cfg, axes, tcfg = _model_setup(run, dev, None)
+                log(f"-- {run[0]}: {run[1]} {run[2]} of "
+                    f"{get_full_layers(run[1])} layers, {run[3]}, heads "
+                    f"{padded_heads(cfg, axes)} (model axis "
+                    f"{POD_SHAPE[2]}), n={run[4]} f={run[5]}, {run[6]}, "
+                    f"ALIE, {run[7]} steps; D = {got['params_total']:,}")
+                log(f"  single device: ms/step "
+                    f"{[round(v, 1) for v in got['hist']['ms']]}, loss "
+                    f"{got['hist']['loss']}, peak {got['peak'] / 1e9:.2f} "
+                    f"GB, launches {got['counts']} "
+                    f"({time.perf_counter() - t0:.1f} s)")
+                if got["fallbacks"]:
+                    raise AssertionError(f"{run[0]}: fallbacks "
+                                         f"{got['fallbacks']}")
+                _check_run_launches(run[0], got["counts"], run[6])
+                torch.save({"params": got["params"],
+                            "loss": got["hist"]["loss"],
+                            "ms": got["hist"]["ms"],
+                            "grams": got["hist"]["grams"],
+                            "sketch_grams": []}, f"{tmp}/{run[0]}.pt")
+                del got
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            one = {run[0]: _decode_one(run, dev, tmp)
+                   for run in REP_DECODE_RUNS}
+            seq_one = {run[0]: _seq_one(run, dev, tmp)
+                       for run in REP_SEQ_RUNS}
+            log(f"  24b / 24c on one device: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ready = world_run(_ready_rank, POD_WORLD, (), limit=MESH_LIMIT)
+            log(f"  world of {POD_WORLD} ranks over gloo on one card: ready "
+                f"{time.perf_counter() - t_world:.1f} s after its start, "
+                f"{time.perf_counter() - t0:.1f} s after the one-device runs "
+                f"(the last rank ready {max(ready) - min(ready):.1f} s after "
+                f"the first)")
+            t0 = time.perf_counter()
+            ranks = world_run(_pod_rank, POD_WORLD, (tmp,), limit=MESH_LIMIT)
+            log(f"  24a on (pod {POD_SHAPE[0]}, data {POD_SHAPE[1]}, model "
+                f"{POD_SHAPE[2]}) ({card}): {time.perf_counter() - t0:.1f} s")
+            _check_model_world(POD_WORLD, ranks, POD_RUNS)
+            _check_pod_world(ranks)
+            for r in ranks:
+                add_counts(total, r["counts"])
+            t0 = time.perf_counter()
+            reps = world_run(_rep_rank, POD_WORLD, (tmp,), limit=MESH_LIMIT)
+            log(f"  24b / 24c on (data {REP_SHAPE[0]}, model {REP_SHAPE[1]}) "
+                f"({card}): {time.perf_counter() - t0:.1f} s")
+            for run in REP_DECODE_RUNS:
+                _check_decode(run, one[run[0]],
+                              [r["decode"][run[0]] for r in reps], card)
+            for run in REP_SEQ_RUNS:
+                _check_seq(run, seq_one[run[0]],
+                           [r["seq"][run[0]] for r in reps], card)
+        t0 = time.perf_counter()
+        stdout, stderr = dry.communicate(timeout=MESH_LIMIT)
+        if dry.returncode != 0:
+            raise AssertionError(f"24d: the dry run failed:\n{stderr[-3000:]}")
+        reck = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    run = POD_RUNS[0]
+    row = ranks[0]["runs"][run[0]]
+    got = _per_step(row["collectives"], run[7])
+    if got != reck["collectives"]:
+        raise AssertionError(f"24d: measured collectives a step {got} != "
+                             f"the dry run's {reck['collectives']}")
+    ms = statistics.median(row["ms"])
+    log(f"-- 24d: launch.dryrun of {run[0]} on a fake {POD_SHAPE} world, "
+        f"rank 0, on the CPU (waited {time.perf_counter() - t0:.1f} s after "
+        f"the world): its collectives a step equal the measured "
+        f"{reck['collectives']}; dry-run FLOPs a step {reck['flops']:.4e} "
+        f"beside the measured {ms:.1f} ms a step; dry-run peak "
+        f"{reck['peak_bytes'] / 1e9:.2f} GB, measured {row['peak'] / 1e9:.2f}"
+        f" GB")
+    return total
+
+
 def main() -> int:
     import torch
     if sys.argv[1:] == ["--23d-dry"]:
         # 23d's CPU helper: phase 23 starts it; needs no card.
         print(json.dumps(dry_seq_fsdp()))
+        return 0
+    if sys.argv[1:] == ["--24d-dry"]:
+        # 24d's CPU helper: phase 24 starts it; needs no card.
+        print(json.dumps(dry_multi_pod()))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6756,6 +7077,11 @@ def main() -> int:
     if sys.argv[1:] == ["--23"]:
         head("23 alone: sequence parallelism and expert FSDP")
         log(json.dumps({"seq_fsdp_launches": phase_seq_fsdp(dev, card)}))
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--24"]:
+        head("24 alone: the multi-pod mesh and replicated decode")
+        log(json.dumps({"multi_pod_launches": phase_multi_pod(dev, card)}))
         log(card)
         return 0
 
@@ -6921,9 +7247,16 @@ def main() -> int:
     counts_seq = phase_seq_fsdp(dev, card)
     log(json.dumps({"seq_fsdp_launches": counts_seq}))
     log(f"  phase 23: {time.perf_counter() - t23:.1f} s")
+
+    t24 = time.perf_counter()
+    head(f"24. the multi-pod mesh and replicated decode: {POD_WORLD} ranks "
+         f"over gloo; card: {card}")
+    counts_pod = phase_multi_pod(dev, card)
+    log(json.dumps({"multi_pod_launches": counts_pod}))
+    log(f"  phase 24: {time.perf_counter() - t24:.1f} s")
     close_worlds()
 
-    head("24. summary")
+    head("25. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -7009,6 +7342,7 @@ def main() -> int:
         launches += counts_mesh.get(k, 0)          # phase 21's, every rank
         launches += counts_model.get(k, 0)         # phase 22's, every rank
         launches += counts_seq.get(k, 0)           # phase 23's, every rank
+        launches += counts_pod.get(k, 0)           # phase 24's, every rank
         r = rows[k]
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches, "max_abs_err": r["max_abs_err"],

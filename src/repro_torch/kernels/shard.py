@@ -30,7 +30,8 @@ whose outputs are cut off).
   tile makes every bucket of its columns NaN (0 * NaN in K7's dense
   semantics) and the sum keeps it.
 
-Model shards (the trainer on a ``(data, model)`` mesh): a rank's block
+Model shards (the trainer on a ``(data, model)`` mesh, or a multi-pod
+``(pod, data, model)`` one): a rank's block
 is not an even :func:`column_block` but the columns its model shard
 holds (:class:`ModelColumns`): every leaf split over the model axis
 contributes this rank's shard, flattened, and every leaf replicated over
@@ -242,9 +243,11 @@ class ModelColumns:
         return out
 
 
-def gather_columns(local: Tensor, d: int, *, mesh, axis: str) -> Tensor:
+def gather_columns(local: Tensor, d: int, *, mesh, axis) -> Tensor:
     """(..., D) from each rank's (..., c1 - c0) column slice along ``axis``
-    (:func:`column_block`), in rank order."""
+    (:func:`column_block`), in rank order (over a tuple of axes, the
+    row-major order of ``Mesh.index``: the multi-pod trainer's
+    ``("pod", "data")``)."""
     k = mesh.size(axis)
     w = -(-d // k)
     lead = tuple(local.shape[:-1])

@@ -25,9 +25,10 @@ Each record holds, for that rank:
   reread its intermediates;
 * ``collectives``: per ``"op@axis"``, calls and the bytes handed to the
   collective (its input), from ``launch.mesh.collective_log``;
-* ``memory``: the peak of live tensors on the rank
-  (``torch.distributed._tools.mem_tracker.MemTracker``), the step's
-  inputs (``argument_bytes``) and the rest of the peak (``temp_bytes``);
+* ``memory``: the peak of live tensors on the rank's device
+  (``torch.distributed._tools.mem_tracker.MemTracker``; ``meta``
+  tensors, which hold nothing, are not counted), the step's inputs
+  (``argument_bytes``) and the rest of the peak (``temp_bytes``);
 * ``roofline``: ``launch.roofline.RooflineTerms`` with an H100 SXM's
   data-sheet peaks (700 W) and, for the collective term, each axis's
   link from data sheets (:data:`NVLINK_BW` within an 8-GPU node,
@@ -253,9 +254,11 @@ def _run_rank(cfg: ModelConfig, shape: InputShape, axes, mesh, n_workers,
             with Counters() as c:
                 out = model.decode_step(params, cache, tokens, s - 1,
                                         batch=b, max_seq=s)
+    # The rank's device only: MemTracker also counts ``meta`` tensors (the
+    # trainer's stack layout, n x the robust leaves), which hold nothing.
     peak = tracker.get_tracker_snapshot("peak")
-    peak_bytes = max(int(dev.get("Total", 0)) for dev in peak.values()) \
-        if peak else 0
+    peak_bytes = max((int(stats.get("Total", 0)) for dev, stats in peak.items()
+                      if torch.device(dev).type != "meta"), default=0)
     return {"flops": c.flops, "hbm_bytes": c.hbm_bytes,
             "collectives": c.collectives, "argument_bytes": args,
             "output_bytes": _nbytes(out), "peak_bytes": peak_bytes}
@@ -276,8 +279,9 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                trainer: Optional[TrainerConfig] = None) -> dict:
     """One target's record (module docstring).  ``cfg`` / ``shape`` /
     ``mesh_shape`` replace the launch config, the input shape and the
-    production mesh (a ("data", "model") grid; ``multi_pod`` then does not
-    apply), ``expert_fsdp`` / ``fsdp_keys`` the choices
+    production mesh (a ("data", "model") grid, or with three entries a
+    ("pod", "data", "model") one; ``multi_pod`` then does not apply),
+    ``expert_fsdp`` / ``fsdp_keys`` the choices
     ``launch_config.wants_fsdp_experts`` makes, ``n_workers`` the one
     worker per data rank and ``trainer`` the train target's config
     (:func:`train_target`): a run of another program (a reduced target, a
@@ -307,7 +311,8 @@ def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
             if multi_pod else (meshlib.DATA_PAR, meshlib.MODEL_PAR)
         names = ("pod", "data", "model") if multi_pod else ("data", "model")
     else:
-        multi_pod, names = False, ("data", "model")
+        multi_pod = len(mesh_shape) == 3
+        names = ("pod", "data", "model") if multi_pod else ("data", "model")
     n_workers = n_workers or math.prod(mesh_shape[:-1])
     axes = meshlib.mesh_axes_for(cfg, multi_pod=multi_pod, pad_kv=pad_kv,
                                  model_par=mesh_shape[-1])

@@ -23,7 +23,10 @@ The model-parallel layers (``repro_torch.models.common``: column- and
 row-parallel products, the split vocabulary, the sequence blocks of
 ``seq_par``) run their all-reduces, all-gathers and reduce-scatters on
 the ``"model"`` axis's group of the active mesh; expert FSDP's gathers
-and reduce-scatters run on the data axes'.
+and reduce-scatters run on the data axes'.  A collective over a tuple of
+axes (the multi-pod trainer's ``("pod", "data")``: an all-reduce, an
+all-gather, an all-to-all) runs as one along each axis in turn, over
+their row-major product (:meth:`Mesh.index_of`).
 
 :func:`fake_world` makes this process one rank of a world of any shape
 over torch's fake process group (``launch.dryrun``: nothing moves, every
@@ -224,17 +227,46 @@ class Mesh:
         return self.transport.all_reduce(t, self.groups[axis], axis, op,
                                          record)
 
-    def all_to_all(self, t: torch.Tensor, axis: str, out_rows: int
+    def all_to_all(self, t: torch.Tensor, axis, out_rows: int
                    ) -> torch.Tensor:
         """:meth:`Transport.all_to_all` along ``axis`` (chunk j of ``t``
-        to the axis's j-th rank), recorded in the log only."""
+        to the axis's j-th rank), recorded in the log only.  A tuple of
+        names exchanges over their product, chunk j going to the rank of
+        row-major coordinate j over them (:meth:`index_of`): one
+        all-to-all along each axis in turn, each moving the chunks to
+        their coordinate on that axis."""
+        if isinstance(axis, tuple) and len(axis) == 1:
+            axis = axis[0]
+        if isinstance(axis, tuple):
+            ks = [self.size(a) for a in axis]
+            if out_rows != t.shape[0] or t.shape[0] % math.prod(ks):
+                raise ValueError(f"all_to_all over {axis}: {t.shape[0]} rows "
+                                 f"in, {out_rows} out, {math.prod(ks)} ranks")
+            rest = tuple(t.shape[1:])
+            x = t.reshape(tuple(ks) + (-1,) + rest)
+            for i, a in enumerate(axis):
+                # Dimension i: the destination's coordinate along a, then
+                # (after the exchange) the source's.
+                y = x.movedim(i, 0).reshape((-1,) + rest)
+                y = self.all_to_all(y, a, y.shape[0])
+                x = y.reshape(tuple(ks[i:i + 1]) + tuple(
+                    k for j, k in enumerate(ks) if j != i) + (-1,) + rest
+                ).movedim(0, i)
+            return x.reshape(t.shape)
         if self.size(axis) == 1:
             return t[:out_rows].clone()
         return self.transport.all_to_all(t, self.groups[axis], axis,
                                          out_rows, record=False)
 
-    def all_gather(self, t: torch.Tensor, axis: str,
+    def all_gather(self, t: torch.Tensor, axis,
                    record: bool = True) -> torch.Tensor:
+        """Every rank's equally shaped ``t`` along ``axis``, concatenated
+        on dim 0 in rank order; over a tuple of names in row-major order
+        (gathered along the fastest axis first)."""
+        if isinstance(axis, tuple):
+            for a in reversed(axis):
+                t = self.all_gather(t, a, record)
+            return t
         if self.size(axis) == 1:
             return t
         return self.transport.all_gather(t, self.groups[axis], axis,

@@ -20,8 +20,9 @@ computed whole on every rank and repeated to the q-head count before the
 rank takes its q heads' share, so no group crosses a shard (reference
 ``attention.py:1-7``).  With fewer q heads than model ranks the reference
 replicates attention: the q / o blocks are gathered and every rank runs
-it whole (:func:`_replicated`; decode refuses that case).  q / k / v are column-parallel, ``wo``
-row-parallel (``common.row_parallel``).  Cross attention splits the same
+it whole (:func:`_replicated`; decode too, :func:`decode_attention`).
+q / k / v are column-parallel, ``wo`` row-parallel
+(``common.row_parallel``).  Cross attention splits the same
 way: its k / v (``kv_override``) are this rank's kv heads when
 ``shard_kv`` (whisper's ``EncDecLM._cross_kv`` makes them column-
 parallel from the encoder output), else whole and repeated.
@@ -34,7 +35,10 @@ block of the sequence.  Each rank then attends over its own slots and the
 ranks that split the sequence combine flash-decode style
 (:func:`decode_attention`); where the model axis splits the sequence,
 every rank forms all the q heads (all-gathered) and keeps its own after
-the combine, for the row-parallel ``wo``.
+the combine, for the row-parallel ``wo``.  With fewer q heads than model
+ranks (replicated attention) the kv heads are whole, every rank forms
+all the q heads from the gathered q leaves, attends (combining over the
+ranks that split the sequence) and applies the whole ``wo``.
 """
 from __future__ import annotations
 
@@ -98,18 +102,51 @@ def heads_split(cfg: ModelConfig) -> bool:
                                           ctx.model_par)[2]
 
 
-def _replicated(p: dict, x: Tensor, cfg: ModelConfig, **kw) -> Tensor:
-    """:func:`attention` with fewer q heads than model ranks: the
-    reference replicates it.  The split q / o leaves' blocks (their
-    columns cut evenly, not by heads) are gathered whole
-    (``common.gather_from_model``) and every rank runs the one-device
-    attention; under sequence parallelism each keeps its sequence
-    block."""
+def _whole_qo(p: dict) -> dict:
+    """``p`` with the split q / o leaves' blocks (their columns cut
+    evenly, not by heads) gathered whole (``common.gather_from_model``):
+    what every rank reads where attention replicates."""
     whole = dict(p)
     for k in ("wq", "bq"):
         if k in whole:
             whole[k] = common.gather_from_model(whole[k])
     whole["wo"] = common.gather_from_model(whole["wo"].mT).mT
+    return whole
+
+
+def replicated(cfg: ModelConfig) -> bool:
+    """Whether attention replicates: a model mesh with fewer q heads than
+    model ranks (the reference's ``pad_heads``)."""
+    return common.model_mesh() is not None and not heads_split(cfg)
+
+
+def decode_qo(*layers: dict) -> list:
+    """Each of ``layers`` (one layer's attention leaves, or a layer-stacked
+    (L, ...) tree of them) with its q / o leaves gathered whole, all in
+    one collective (``common.gather_model_blocks``; no gradient): what
+    decode with replicated attention reads.  A decode step gathers its
+    stacks once, before its layers (``DecoderLM.decode_step``,
+    ``EncDecLM.decode_step``)."""
+    keys = [[k for k in ("wq", "bq") if k in p] for p in layers]
+    blocks = [t for p, ks in zip(layers, keys)
+              for t in [p[k] for k in ks] + [p["wo"].mT]]
+    whole = iter(common.gather_model_blocks(blocks))
+    out = []
+    for p, ks in zip(layers, keys):
+        q = dict(p)
+        for k in ks:
+            q[k] = next(whole)
+        q["wo"] = next(whole).mT
+        out.append(q)
+    return out
+
+
+def _replicated(p: dict, x: Tensor, cfg: ModelConfig, **kw) -> Tensor:
+    """:func:`attention` with fewer q heads than model ranks: the
+    reference replicates it.  Every rank runs the one-device attention on
+    the whole q / o leaves (:func:`_whole_qo`); under sequence
+    parallelism each keeps its sequence block."""
+    whole = _whole_qo(p)
     with common.mesh_axes_scope(None):
         out = attention(whole, x, cfg, **kw)
     return common.seq_rows(out)
@@ -131,7 +168,7 @@ def attention(p: dict, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
     hd = cfg.head_dim
     cross = kv_override is not None
     mesh = common.model_mesh()
-    if mesh is not None and not heads_split(cfg):
+    if replicated(cfg):
         return _replicated(p, x, cfg, causal=causal, use_rope=use_rope,
                            kv_override=kv_override)
     split_kv = mesh is not None and common.get_mesh_axes().shard_kv
@@ -293,15 +330,20 @@ def decode_attention(p: dict, x: Tensor, cache_k: Tensor, cache_v: Tensor,
     hd = cfg.head_dim
     mesh = common.model_mesh()
     axes = common.get_mesh_axes()
-    if mesh is not None and not heads_split(cfg):
-        raise ValueError(f"decode on a model mesh of {axes.model_par} ranks "
-                         f"with {cfg.num_heads} q heads: the reference "
-                         "replicates such attention; the port's decode "
-                         "splits heads only")
+    # Fewer q heads than model ranks: the reference replicates attention.
+    # Every rank forms all the q heads from the whole q / o leaves, which
+    # the caller passes (the decode step gathers them, :func:`decode_qo`),
+    # and reads the kv heads whole (``shard_kv`` is then False).
+    rep = replicated(cfg)
+    if rep and p["wq"].shape[-1] != hq * hd:
+        raise ValueError(
+            f"decode_attention: attention replicates on this mesh, so wq "
+            f"must be whole ({hq * hd} columns), not {p['wq'].shape[-1]}: "
+            "gather the q / o leaves with decode_qo first")
     split_kv = mesh is not None and axes.shard_kv
     seq_axes = tuple(seq_axes) if mesh is not None else ()
-    q0, q1 = common.model_block(hq)
-    q = common.column_parallel(x, p["wq"])
+    q0, q1 = (0, hq) if rep else common.model_block(hq)
+    q = x @ p["wq"] if rep else common.column_parallel(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     q = q.reshape(b, 1, q1 - q0, hd)
@@ -335,7 +377,7 @@ def decode_attention(p: dict, x: Tensor, cache_k: Tensor, cache_v: Tensor,
 
     # Where the model axis splits the sequence, every q head meets this
     # rank's slots: all of them, this rank's kept after the combine.
-    gather_q = mesh is not None and axes.model in seq_axes
+    gather_q = mesh is not None and not rep and axes.model in seq_axes
     h0, h1 = (0, hq) if gather_q else (q0, q1)
     if gather_q:
         q = common.all_gather_model(q.reshape(b, 1, (q1 - q0) * hd)
@@ -362,8 +404,11 @@ def decode_attention(p: dict, x: Tensor, cache_k: Tensor, cache_v: Tensor,
     out = out.reshape(b, 1, h1 - h0, hd)
     if gather_q:
         out = out[:, :, q0:q1]
-    out = common.row_parallel(out.reshape(b, 1, (q1 - q0) * hd), p["wo"],
-                              x.dtype)
+    out = out.reshape(b, 1, (q1 - q0) * hd)
+    # Replicated: every rank holds the whole output and applies the whole
+    # wo, as one device does (no row-parallel all-reduce).
+    out = out @ p["wo"] if rep else common.row_parallel(out, p["wo"],
+                                                        x.dtype)
     if kv_override is not None:
         return out, None, None
     return out, cache_k, cache_v

@@ -396,6 +396,35 @@ def gather_from_model(x: Tensor) -> Tensor:
     return _GatherFromModel.apply(x) if model_mesh() is not None else x
 
 
+def gather_model_blocks(blocks: list) -> list:
+    """The whole last dimension of each tensor of ``blocks`` (one dtype)
+    from every model rank's block of it, in model-rank order, by ONE
+    all-gather of their bits (bf16 as float16, which every transport
+    carries), without a gradient: inference's gather of split weights
+    (decode's replicated attention).  ``blocks`` itself off a model
+    mesh."""
+    mesh, axes = model_mesh(), get_mesh_axes()
+    if mesh is None:
+        return list(blocks)
+    dtype = blocks[0].dtype
+    if any(t.dtype != dtype for t in blocks):
+        raise ValueError("gather_model_blocks: the blocks' dtypes differ")
+    k = axes.model_par
+    # Each block as its (w, L) transpose, flattened: a rank's columns first.
+    flat = torch.cat([t.detach().reshape(-1, t.shape[-1]).mT.reshape(-1)
+                      for t in blocks])
+    wire = flat.view(torch.float16) if dtype == torch.bfloat16 else flat
+    full = mesh.all_gather(wire.contiguous(), axes.model, record=False)
+    full = full.view(dtype).reshape(k, -1)
+    out, off = [], 0
+    for t in blocks:
+        w, n = t.shape[-1], t.numel()
+        rows = full[:, off:off + n].reshape(k * w, n // w)   # (k w, L)
+        out.append(rows.mT.reshape(t.shape[:-1] + (k * w,)).contiguous())
+        off += n
+    return out
+
+
 def all_gather_model(x: Tensor) -> Tensor:
     """The whole last dimension from the ranks' blocks, for a region whose
     ranks each read another part of it (the Mamba2 projection, its conv

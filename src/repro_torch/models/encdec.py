@@ -228,8 +228,15 @@ class EncDecLM:
         with torch.inference_mode():
             x = common.embed_lookup(params["embed"], tokens)
             x = x + _sinusoid_at(pos, cfg.d_model, x.device).to(x.dtype)
+            dec = params["decoder"]
+            if attention.replicated(cfg):
+                # Replicated attention: the self and cross q / o leaves of
+                # every layer whole, gathered in one collective.
+                dec = dict(dec)
+                dec["self_attn"], dec["cross_attn"] = attention.decode_qo(
+                    dec["self_attn"], dec["cross_attn"])
             for p, ck, cv, xk, xv in zip(
-                    layer_views(params["decoder"]), cache["k"].unbind(0),
+                    layer_views(dec), cache["k"].unbind(0),
                     cache["v"].unbind(0), cache["cross_k"].unbind(0),
                     cache["cross_v"].unbind(0)):
                 a, _, _ = attention.decode_attention(

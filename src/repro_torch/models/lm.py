@@ -319,7 +319,17 @@ class DecoderLM:
             attention.cache_seq_axes(cfg, batch, max_seq)
         with torch.inference_mode():
             x = common.embed_lookup(params["embed"], tokens)
-            layers = layer_views(params["blocks"])
+            blocks, shared = params["blocks"], params.get("shared")
+            if cfg.family != "ssm" and attention.replicated(cfg):
+                # Replicated attention: every layer's q / o leaves whole,
+                # gathered in one collective for the step.
+                if cfg.family == "hybrid":
+                    shared = dict(shared, attn=attention.decode_qo(
+                        shared["attn"])[0])
+                else:
+                    blocks = dict(blocks, attn=attention.decode_qo(
+                        blocks["attn"])[0])
+            layers = layer_views(blocks)
             if cfg.family == "ssm":
                 for p, st, tsh, csh in zip(layers, cache["state"].unbind(0),
                                            cache["tshift"].unbind(0),
@@ -334,7 +344,7 @@ class DecoderLM:
                     tsh.copy_(tsh2)
                     csh.copy_(csh2)
             elif cfg.family == "hybrid":
-                shared, every = params["shared"], cfg.attn_every
+                every = cfg.attn_every
                 sc, ac = cache["ssm"], cache["attn"]
                 ks, vs = ac["k"].unbind(0), ac["v"].unbind(0)
                 cw, cb = ssm.conv_weights(params["blocks"]["ssm"])

@@ -57,18 +57,23 @@ Under ``fsdp_keys`` the FSDP leaves' fp32 gradient sums are all-reduced
 over the ranks that dealt the workers.
 
 On a model mesh (``models.common.model_mesh``: a ``MeshAxes`` scope whose
-model axis the active ``(data, model)`` mesh holds; ``worker_axes`` names
-the data axis, ``TrainerConfig.param_specs`` the leaves' specs) each rank
-holds its shard of the parameters and the workers are dealt over the data
-axis: worker ``j K + d`` runs in round j on every model rank of data
-index d, its forward and backward split over them.  A rank's gradient is
-its model shard's columns of the worker's row (``kernels.shard.
-ModelColumns``), handed over the data axis by one all-to-all per round:
-"cuda_sharded" splits those columns further over the data axis and
-all-reduces the Gram over both axes; "cuda_hier" keeps them whole on
-every data rank and tiles the worker rows over the data axis.  No rank
-gathers the (n, D) stack.  The aggregate's block is gathered over the
-data axis, its replicated leaves over the model axis, and updates the
+model axis the active ``(data, model)`` or multi-pod ``(pod, data,
+model)`` mesh holds; ``worker_axes`` names the data axes, ``("data",)``
+or ``("pod", "data")``, ``TrainerConfig.param_specs`` the leaves' specs)
+each rank holds its shard of the parameters and the workers are dealt
+over the data axes: worker ``j K + d`` runs in round j on every model
+rank of data index d (over two axes the row-major coordinate, pod the
+slowest: ``pod * |data| + data``), its forward and backward split over
+them.  A rank's gradient is its model shard's columns of the worker's row
+(``kernels.shard.ModelColumns``), handed over the data axes by one
+all-to-all per round (over two axes one along each in turn): "cuda_sharded"
+splits those columns further over the data axes and all-reduces the Gram
+over all the axes; "cuda_hier" keeps them whole on every data rank and
+tiles the worker rows over the axis ``launch.mesh.
+aggregation_worker_axis`` picks (``"data"``; the pods then repeat the
+aggregate, as the reference's does).  No rank gathers the (n, D) stack.
+The aggregate's block is gathered over the data axes, its replicated
+leaves over the model axis, and updates the
 rank's shard; norms (``direction_norm``, the optimizer's clip) sum the
 split leaves over the model axis (``optim.sharded_norm``).  The sketch
 Gram's signs are drawn on the whole leaves' widths, and each rank folds
@@ -77,13 +82,13 @@ sketch_fold_model``); the partial sketches are all-reduced over both
 axes before their Gram.
 
 Under ``MeshAxes.expert_fsdp`` the expert tables (``fsdp_keys`` leaves,
-required) also lie over the data axis the workers are dealt over: a
+required) also lie over the data axes the workers are dealt over: a
 rank's fp32 sum of such a leaf is its shard's, and each backward's
 reduce-scatter (``models.common.fsdp_gather``) has already summed the
 round's workers over the data ranks into it, so it is not all-reduced
 again; a data rank with no worker in a round runs a zero-seeded pass to
 join those collectives.  The optimizer updates the shard, the norms sum
-its squares over the data axis too, and ``options.checkpoint`` snapshots
+its squares over the data axes too, and ``options.checkpoint`` snapshots
 it with the rank's carry.
 """
 from __future__ import annotations
@@ -261,18 +266,28 @@ def trainer_shard(cfg: TrainerConfig, device: torch.device,
 
 def _model_shard_ctx(cfg: TrainerConfig, mesh, backend: str,
                      mc: shardlib.ModelColumns) -> shardlib.ShardCtx:
+    """The model shard's block: "cuda_sharded" splits the shard's columns
+    over the data axes (row-major over them, the first the slowest) and
+    sums the Gram over the model and data axes; "cuda_hier" keeps them
+    whole and tiles the worker rows over the axis the reference's
+    ``aggregation_worker_axis`` picks (``"data"`` before ``"pod"``)."""
+    from repro_torch.launch.mesh import aggregation_worker_axis
     model = model_common.get_mesh_axes().model
-    if len(cfg.worker_axes) != 1 or model in cfg.worker_axes:
-        raise ValueError(f"worker_axes on a model mesh is the one data axis "
-                         f"the workers are dealt over, got {cfg.worker_axes}")
-    data = cfg.worker_axes[0]
+    data = tuple(cfg.worker_axes)
+    if model in data:
+        raise ValueError(f"worker_axes on a model mesh are the data axes the "
+                         f"workers are dealt over, not the model axis "
+                         f"{model!r}: got {cfg.worker_axes}")
     off, width = mc.offset, mc.width
     if backend == "cuda_hier":
-        worker = data if mesh.size(data) > 1 else None
+        worker = aggregation_worker_axis(mesh, model)
+        if worker is not None and worker not in data:
+            raise ValueError(f"cuda_hier tiles the workers over {worker!r}, "
+                             f"which is not one of worker_axes {data}")
         return shardlib.ShardCtx(mesh, model, worker, span=(off, off + width),
                                  columns=mc)
     b0, b1 = shardlib.column_block(width, mesh.size(data), mesh.index(data))
-    return shardlib.ShardCtx(mesh, (model, data), span=(off + b0, off + b1),
+    return shardlib.ShardCtx(mesh, (model,) + data, span=(off + b0, off + b1),
                              columns=mc)
 
 
@@ -436,7 +451,7 @@ class _ModelBlock(_Block):
     the aggregate rebuilt as this rank's shard of every leaf."""
 
     def __init__(self, sh: shardlib.ShardCtx, spec: AggregatorSpec,
-                 mc: shardlib.ModelColumns, like: list, n: int, data: str):
+                 mc: shardlib.ModelColumns, like: list, n: int, data: tuple):
         self.sh, self.spec, self.n, self.mc, self.like = sh, spec, n, mc, like
         self.data = data
         self.model = model_common.get_mesh_axes().model
@@ -454,8 +469,10 @@ class _ModelBlock(_Block):
         self.tiles = robust_lib._hier_tiles(spec, sh, n, s)
 
     def deal(self) -> "_Deal":
-        """The data axis deals workers; data rank q keeps its columns of
-        this model shard (all of them on the hierarchical form)."""
+        """The data axes deal workers (their rank q the row-major
+        coordinate over them, ``Mesh.index``); data rank q keeps its
+        columns of this model shard (all of them on the hierarchical
+        form)."""
         mesh, data, width = self.sh.mesh, self.data, self.mc.width
         k = mesh.size(data)
         if self.sh.worker_axis is not None or self.sh.axis == self.model:
@@ -704,7 +721,8 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
         elif mc is None:
             part = _Block(sh, spec, layout, n)
         else:
-            part = _ModelBlock(sh, spec, mc, robust_p, n, cfg.worker_axes[0])
+            part = _ModelBlock(sh, spec, mc, robust_p, n,
+                               tuple(cfg.worker_axes))
         c0, c1 = part.cols
         # Pass B's fp32 sums of the per-worker FSDP gradients.
         fsdp_sum = [torch.zeros(leaf.shape, dtype=torch.float32,

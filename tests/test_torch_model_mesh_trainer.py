@@ -168,6 +168,7 @@ def _reference(arch_tag: str, spec_kw: dict, fsdp: bool, layout=None,
                 "alie", state["momentum"], F, eta=8.0))))
     as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     return {"init": as_np(params), "params": as_np(state["params"]),
+            "momentum": [np.asarray(m) for m in state["momentum"]],
             "rows": rows, "grams": grams, "batches": batches,
             "signs": signs}
 
