@@ -1,11 +1,33 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch + CUDA port (src/repro_torch) on one GPU.
+"""Chip smoke test of the PyTorch + CUDA port (src/repro_torch) on one GPU
+(``--nccl``: on every card of the host, one a rank).
 
     python3 chip_smoke.py          # every phase
     python3 chip_smoke.py --18d    # the build and phase 18d alone
     python3 chip_smoke.py --22     # the build and phase 22 alone
     python3 chip_smoke.py --23     # the build and phase 23 alone
     python3 chip_smoke.py --24     # the build and phase 24 alone
+    python3 chip_smoke.py --25     # the build and phase 25 alone
+    python3 chip_smoke.py --nccl   # every card, one a rank: 21-23, 25b
+
+``--nccl`` (on a host of four cards) builds the kernels once in the
+parent, prints every card's name and power limit and how the cards are
+joined (``card_links``), then runs phases 21, 22 and 23 with their
+cases, sizes and bounds in worlds of 2 and 4 ranks
+over nccl, rank r on card r (phase 6's 21b references first, alone;
+phase 24's 16 ranks need 16 cards and stay gloo-only), each case's
+figures printed beside its gloo figures on one card (GLOO_ONE_CARD),
+then 25b: what only four cards hold, at published widths with depth cut
+(NCCL_RUNS: minitron-8b at 2 of 32 layers, n = 8, and arctic-480b at 1
+of 35 with expert FSDP, n = 4; D-SHB, ALIE, NNM + CWTM, fp32, on (data
+2, model 2)), each run only where ``launch.dryrun`` on a fake (2, 2)
+world reckons its peak under CARD_GB a rank: over gloo and over nccl in
+the same four processes and cards (loss, parameters and the stack's
+Grams within 1e-5 of each leaf's largest magnitude), the replicated
+leaves' bits all-gathered after every step, K1 and K2 on every rank,
+empty fallback logs, its collectives a step equal to the dry run's.
+Its last line is the ok line with every card counted.  With two or
+three cards it runs the 2-rank cases alone.
 
 Phases, each fatal on failure:
   1. environment: torch / CUDA / nvcc versions, the card, TF32 off;
@@ -393,7 +415,13 @@ Phases, each fatal on failure:
      ``launch.dryrun`` of (a)'s NNM + CWTM target on a fake (2, 2, 4)
      world in a CPU subprocess: its rank-0 collectives (op, axis, calls,
      bytes) a step equal (a)'s measured ones;
- 25. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
+ 25. the nccl world of one rank on card 0 (``spawn_world(backend=
+     "nccl")``): every ``Transport`` collective (all_reduce sum / min /
+     max, all_gather, reduce_scatter, all_to_all) on fp32, bf16, int64
+     and float64 card tensors equal to its result, each refusing a host
+     operand with the op and the axis named, and the trainer's resume
+     check through the nccl mesh;
+ 26. summary: the K1-K7 table (K2 above 64 workers and K1 on the 640
      means on rows of their own, their launches those of phase 6; the
      lane forms of K2's median, K3, K6 and K7 on rows of their own), the
      fed phase's launches, phase 13's to 19's and 21's to 24's launches,
@@ -431,8 +459,8 @@ keep 12 of 54 layers (two shared-block groups).  The worlds of
 phases 21-24 start four times (``world_run``); phase 24's world is
 started before its one-device runs, which overlap its ranks' start.
 
-It needs one CUDA card and imports nothing of JAX or of the reference
-package ``repro``.
+It needs one CUDA card (``--nccl`` two or more) and imports nothing of
+JAX or of the reference package ``repro``.
 """
 from __future__ import annotations
 
@@ -1412,7 +1440,8 @@ def _hier_parity(dev, d: int, seed: int, ties: bool) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_hier_aggregate(dev, rate: float, ref_dir: str) -> dict:
+def phase_hier_aggregate(dev, rate: float, ref_dir: str,
+                         refs_only: bool = False) -> Optional[dict]:
     """robust_aggregate(hier, s = 16) at the reference's scale case,
     n = 10240 workers (640 bucket means): hier + NNM + CWTM (K6 with K1 on
     the means, then K2 with the mix at n = 640) and hier + CWTM (K7, then
@@ -1426,7 +1455,9 @@ def phase_hier_aggregate(dev, rate: float, ref_dir: str) -> dict:
     and each one's launches in the aggregates.  The D = HIER_D stack is
     ``seeded_block``'s (seed 3), so phase 21b's ranks regenerate their
     tiles of it; its aggregates, the permutation, the Gram of the means
-    and the NNM matrix go to ``ref_dir`` for 21b."""
+    and the NNM matrix go to ``ref_dir`` for 21b.  ``refs_only``
+    (``--nccl``): those files alone, each aggregate run once, its launches
+    and fallbacks still asserted; returns None."""
     import torch
     from repro_torch.core import bucketing as bucketlib
     from repro_torch.core import gram as gramlib
@@ -1436,8 +1467,9 @@ def phase_hier_aggregate(dev, rate: float, ref_dir: str) -> dict:
                                      bucketmeans, gram, gram_ref, mixtrim,
                                      mixtrim_ref)
     from repro_torch.kernels import dispatch as kdispatch
-    _hier_parity(dev, 64, HIER_N, ties=False)
-    _hier_parity(dev, HIER_D_PARITY, 2, ties=True)
+    if not refs_only:
+        _hier_parity(dev, 64, HIER_N, ties=False)
+        _hier_parity(dev, HIER_D_PARITY, 2, ties=True)
 
     n, d, f = HIER_N, HIER_D, HIER_N // 32
     tree = {"x": seeded_block(3, (0, n), (0, d), dev, HIER_SEED_ROWS)}
@@ -1447,7 +1479,7 @@ def phase_hier_aggregate(dev, rate: float, ref_dir: str) -> dict:
     launches, gram_launches = {}, 0
     for name, (spec, expect) in _hier_specs(f).items():
         launches[name] = 0
-        for run in range(2):
+        for run in range(1 if refs_only else 2):
             kdispatch.reset_launch_counts()
             kdispatch.reset_fallbacks()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1482,6 +1514,14 @@ def phase_hier_aggregate(dev, rate: float, ref_dir: str) -> dict:
     fb = bucketlib.adjusted_f(f, nb)
     assign = bucketlib.bucket_assignment(n, s, perm=perm, device=dev)
     bmat = bucketlib.bucket_matrix(n, s, assignment=assign, device=dev)
+    if refs_only:
+        y, g = bucketgram(x, assign, nb)
+        _save(ref_dir, "gram", g)
+        _save(ref_dir, "m", gramlib.nnm_matrix(gramlib.pdist_sq_from_gram(g),
+                                               fb))
+        del tree, x, y, g
+        torch.cuda.empty_cache()
+        return None
     log(f"-- kernels of the aggregates: n={n} -> {nb} means, f'={fb}")
     y, g = bucketgram(x, assign, nb)
     py, pg = bucket_means_gram_ref(x, bmat)
@@ -2290,6 +2330,14 @@ def lane_expected(rule: str, pre, rounds: int, lanes: int) -> dict:
 def add_counts(total: dict, more: dict) -> dict:
     for k, v in more.items():
         total[k] = total.get(k, 0) + v
+    return total
+
+
+def sum_counts(rows) -> dict:
+    """The launches of several ranks' or runs' count dicts, summed."""
+    total: dict = {}
+    for more in rows:
+        add_counts(total, more)
     return total
 
 
@@ -4875,6 +4923,129 @@ def collective_summary(entries: Optional[list] = None) -> dict:
     return out
 
 
+#: Each mesh case's figures in this run (phases 21-23): ms a step, an
+#: aggregate or a decoded token over the world (rank 0, the median) and
+#: on one device, the collectives a step by "op@axis" ([calls, MB, GB/s],
+#: GB/s their bytes over their CUDA-synchronized host time), each rank's
+#: peak (GB) and the K1 / K2 / K6 / K7 launches summed over the ranks;
+#: printed as one JSON line at the end.
+FIGURES: dict = {}
+#: Phases 21-23's figures over gloo with the ranks sharing one card
+#: (this script's plain run on an H100 80GB HBM3 at 700 W, 893.1 s in
+#: all, nvcc 33.7 s): case -> [ms over the world, {"op@axis": GB/s}];
+#: decode cases ms a token.  ``--nccl`` prints its own beside them.
+GLOO_ONE_CARD: dict = {
+    "21b hier+nnm+cwtm": [1880.847, {"all_reduce@workers": 0.754,
+        "all_reduce@model": 0.114}],
+    "21b hier+cwtm": [1876.712, {"all_reduce@workers": 0.722}],
+    "21a nnm+cwtm": [22.432, {"all_reduce@shard": 0.0,
+        "all_gather@shard": 0.297}],
+    "21a cwtm": [2.398, {"all_gather@shard": 0.425}],
+    "21a nnm+gm": [27.31, {"all_reduce@shard": 0.0,
+        "all_gather@shard": 0.422}],
+    "21a lanes nnm+cwtm": [600.992, {"all_reduce@shard": 0.001,
+        "all_gather@shard": 0.469}],
+    "21a lanes nnm+gm": [614.095, {"all_reduce@shard": 0.0,
+        "all_gather@shard": 0.492}],
+    "21c nnm+cwtm": [1802.732, {"all_to_all@world": 1.386,
+        "all_reduce@shard": 0.0, "all_gather@shard": 0.407}],
+    "21c hier+nnm+cwtm": [1857.431, {"all_to_all@world": 1.553,
+        "all_reduce@shard": 0.0, "all_gather@shard": 0.519}],
+    "22b nnm+cwtm 2 ranks": [824.691, {"all_reduce@model": 0.481,
+        "all_gather@model": 0.007}],
+    "22b hier+nnm+cwtm 2 ranks": [926.418, {"all_reduce@model": 0.454,
+        "all_gather@model": 0.007}],
+    "22c 2 ranks": [1139.202, {"all_reduce@model": 0.798,
+        "all_gather@model": 0.008}],
+    "22f 2 ranks": [7455.159, {"all_reduce@model": 0.661,
+        "all_gather@model": 0.642}],
+    "22g 2 ranks": [2404.928, {"all_reduce@model": 0.876,
+        "all_gather@model": 0.6}],
+    "22i rwkv6 2 ranks": [1437.804, {"all_reduce@model": 0.51,
+        "all_gather@model": 0.4}],
+    "22i zamba2 2 ranks": [5524.535, {"all_reduce@model": 0.6,
+        "all_gather@model": 0.594}],
+    "22i internvl2 2 ranks": [1551.359, {"all_reduce@model": 0.762,
+        "all_gather@model": 0.488}],
+    "22i whisper 2 ranks": [3747.085, {"all_reduce@model": 0.621,
+        "all_gather@model": 0.016}],
+    "22j 2 ranks": [902.467, {"all_reduce@model": 0.464,
+        "all_gather@model": 0.005}],
+    "22l 2 ranks": [31.292, {}],
+    "22m 2 ranks": [75.793, {}],
+    "22o 2 ranks": [188.243, {}],
+    "22q smollm 2 ranks": [56.01, {}],
+    "22q mixtral 2 ranks": [31.545, {}],
+    "22q rwkv6 2 ranks": [25.467, {}],
+    "22q zamba2 2 ranks": [113.387, {}],
+    "22q whisper 2 ranks": [69.908, {}],
+    "22r seq_model 2 ranks": [43.91, {}],
+    "22a 4 ranks": [4609.288, {"all_reduce@model": 0.181,
+        "all_to_all@data": 0.856, "all_reduce@data": 0.0,
+        "all_gather@data": 0.225, "all_gather@model": 0.001}],
+    "22b nnm+cwtm 4 ranks": [1665.854, {"all_reduce@model": 0.177,
+        "all_to_all@data": 1.068, "all_reduce@data": 0.0,
+        "all_gather@data": 0.376, "all_gather@model": 0.001}],
+    "22b hier+nnm+cwtm 4 ranks": [3202.845, {"all_reduce@model": 0.22,
+        "all_to_all@data": 0.926, "all_reduce@data": 0.46,
+        "all_gather@model": 0.003}],
+    "22e 4 ranks": [6867.904, {"all_reduce@model": 0.358,
+        "all_to_all@data": 0.955, "all_reduce@data": 0.0,
+        "all_gather@data": 0.241, "all_gather@model": 0.053}],
+    "22h 4 ranks": [3030.562, {"all_reduce@model": 0.56,
+        "all_to_all@data": 1.297, "all_reduce@data": 0.0,
+        "all_gather@data": 0.363, "all_gather@model": 0.003}],
+    "22j 4 ranks": [1365.344, {"all_reduce@model": 0.263,
+        "all_to_all@data": 1.205, "all_reduce@data": 0.001,
+        "all_gather@data": 0.335, "all_gather@model": 0.001}],
+    "22k 4 ranks": [49.353, {}],
+    "22n 4 ranks": [51.182, {}],
+    "22p 4 ranks": [31.389, {}],
+    "22r seq_both 4 ranks": [66.073, {}],
+    "23a 4 ranks": [2476.145, {"reduce_scatter@model": 0.257,
+        "all_gather@model": 0.17, "all_reduce@model": 0.001,
+        "all_to_all@data": 1.123, "all_reduce@data": 0.0,
+        "all_gather@data": 0.331}],
+    "23b 4 ranks": [1576.194, {"reduce_scatter@model": 0.2,
+        "all_gather@model": 0.168, "all_reduce@model": 0.001,
+        "all_to_all@data": 1.225, "all_reduce@data": 0.0,
+        "all_gather@data": 0.365}],
+    "23c 4 ranks": [27063.142, {"reduce_scatter@model": 0.23,
+        "all_gather@model": 0.23, "all_gather@data": 0.429,
+        "all_reduce@model": 0.001, "reduce_scatter@data": 0.575,
+        "all_to_all@data": 1.246, "all_reduce@data": 0.0}],
+}
+_FIGURE_KERNELS = ("gram", "mixtrim", "bucketgram", "bucketmeans")
+
+
+def figure(case: str, ms: float, one_ms=None, colls=None, steps: int = 1,
+           peaks=(), counts=None) -> None:
+    """Record and log one mesh case's figures (:data:`FIGURES`), beside its
+    gloo figures on one card where they exist.  ``colls``: a
+    :func:`collective_summary` of ``steps`` steps, or a decode's
+    collectives a token ({"op/axis": calls})."""
+    by: dict = {}
+    for key, c in (colls or {}).items():
+        op, axis = key.split("/")[:2]
+        if isinstance(c, dict):
+            by[f"{op}@{axis}"] = [
+                round(c["calls"] / steps, 2),
+                round(c["bytes"] / steps / 1e6, 3),
+                round(c["bytes"] / c["s"] / 1e9, 3) if c["s"] else None]
+        else:
+            by[f"{op}@{axis}"] = [round(c, 2), None, None]
+    row = {"ms": round(ms, 3),
+           "one_ms": None if one_ms is None else round(one_ms, 3),
+           "coll": by, "peak_gb": [round(p / 1e9, 2) for p in peaks],
+           "launches": {k: v for k, v in (counts or {}).items()
+                        if k in _FIGURE_KERNELS and v}}
+    FIGURES[case] = row
+    base = GLOO_ONE_CARD.get(case)
+    log(f"  figure {case} ({world_words()}): {json.dumps(row)}"
+        + (f"; over gloo sharing one card: {base[0]} ms, GB/s "
+           f"{json.dumps(base[1])}" if base else ""))
+
+
 # Phases 21-23 run their cases in worlds of 2 and of 4 ranks, seven times
 # in all, and phase 24 in a world of 16.  A world's processes start once
 # (a rank's CUDA context, imports and gloo join took 10-20 s a world of 2
@@ -4888,21 +5059,20 @@ _WORLDS: dict = {}
 
 
 def _kept_rank(rank: int, world: int, port: int, timeout: float, tasks,
-               results) -> None:
-    """A rank of a kept world: joins the gloo world once, then runs each
-    ``(fn, args)`` from ``tasks`` until ``None``, the card's cache freed
-    after each BEFORE its result is reported (the parent may allocate on
-    the card as soon as every rank has reported); the first failure is
-    reported and ends the rank."""
-    import datetime
+               results, backend: str) -> None:
+    """A rank of a kept world: joins the world once (``launch.mesh.
+    join_world``: over gloo sharing the card, or over nccl with a card of
+    its own), then runs each ``(fn, args)`` from ``tasks`` until
+    ``None``, the card's cache freed after each BEFORE its result is
+    reported (the parent may allocate on the card as soon as every rank
+    has reported); the first failure is reported and ends the rank."""
     import gc
     import traceback
     import torch
     import torch.distributed as dist
     try:
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-            rank=rank, timeout=datetime.timedelta(seconds=timeout))
+        from repro_torch.launch.mesh import join_world
+        join_world(rank, world, port, timeout, backend)
         while (task := tasks.get()) is not None:
             fn, args = task
             out = fn(rank, world, *args)
@@ -4920,13 +5090,29 @@ def _kept_rank(rank: int, world: int, port: int, timeout: float, tasks,
                 pass
 
 
-class KeptWorld:
-    """``world`` spawned processes joined once in a gloo world over
-    ``tcp://127.0.0.1``, running cases in turn (:func:`world_run`)."""
+#: The backend this run's kept worlds join over: the plain run's ranks
+#: share the card over gloo; ``--nccl`` gives each rank its own card.
+WORLD_BACKEND = "gloo"
+#: The world sizes phases 21-23 run: both on one shared card; ``--nccl``
+#: on a host of two or three cards only the 2-rank one.
+WORLDS = (2, 4)
 
-    def __init__(self, world: int):
+
+def world_words() -> str:
+    return "nccl, one card a rank" if WORLD_BACKEND == "nccl" \
+        else "gloo, sharing the card"
+
+
+class KeptWorld:
+    """``world`` spawned processes joined once in a world over
+    ``tcp://127.0.0.1`` (``backend``; under nccl rank r on card r),
+    running cases in turn (:func:`world_run`)."""
+
+    def __init__(self, world: int, backend: str = "gloo"):
         import torch.multiprocessing as mp
-        from repro_torch.launch.mesh import GROUP_TIMEOUT, free_port
+        from repro_torch.launch.mesh import (GROUP_TIMEOUT, check_cards,
+                                             free_port)
+        check_cards(world, backend)
         ctx = mp.get_context("spawn")
         self.world = world
         self.results = ctx.Queue()
@@ -4934,7 +5120,8 @@ class KeptWorld:
         port = free_port()
         self.procs = [ctx.Process(target=_kept_rank, daemon=True,
                                   args=(r, world, port, GROUP_TIMEOUT,
-                                        self.tasks[r], self.results))
+                                        self.tasks[r], self.results,
+                                        backend))
                       for r in range(world)]
         for p in self.procs:
             p.start()
@@ -4993,12 +5180,13 @@ class KeptWorld:
 
 
 def start_world(world: int) -> None:
-    """Start the kept world of ``world`` ranks now (any world of another
-    size stopped first), so that its ranks' start overlaps the caller's
-    next work; :func:`world_run` then finds it."""
+    """Start the kept world of ``world`` ranks over :data:`WORLD_BACKEND`
+    now (any world of another size stopped first), so that its ranks'
+    start overlaps the caller's next work; :func:`world_run` then finds
+    it."""
     if world not in _WORLDS:
         close_worlds()
-        _WORLDS[world] = KeptWorld(world)
+        _WORLDS[world] = KeptWorld(world, WORLD_BACKEND)
 
 
 def world_run(fn, world: int, args: tuple = (), limit: float = 600.0) -> list:
@@ -5021,10 +5209,15 @@ def close_worlds() -> None:
 
 
 def _rank_setup(rank: int):
+    """The rank's card (``launch.mesh.world_device``: its own, or the
+    shared card 0), made current, TF32 off, the kernels' library loaded
+    (built by the parent)."""
     import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import world_device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
+    dev = world_device(rank, dist.get_backend())
     torch.cuda.set_device(dev)
     from repro_torch.kernels import _build
     _build.library()
@@ -5359,7 +5552,7 @@ def phase_mesh_dense(dev, tmp: str) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = world_run(_mesh_dense_rank, 2, (tmp,), limit=MESH_LIMIT)
-    log(f"  world of 2 ranks (gloo, sharing the card): {time.perf_counter() - t0:.1f} s")
+    log(f"  world of 2 ranks ({world_words()}): {time.perf_counter() - t0:.1f} s")
     _mesh_check("21a", ranks)
     total = {}
     for r in ranks:
@@ -5411,6 +5604,12 @@ def phase_mesh_dense(dev, tmp: str) -> dict:
                 f" the single device; collectives {row['collectives']}")
         if r["rank"] == 0:
             log(r["cases"]["nnm+cwtm"]["record"])
+    for name in ranks[0]["cases"]:
+        row = ranks[0]["cases"][name]
+        figure(f"21a {name}", row["ms"], colls=row["collectives"],
+               peaks=[r["peak"] for r in ranks],
+               counts=sum_counts([r["cases"][name]["counts"]
+                                  for r in ranks]))
     return total
 
 
@@ -5419,7 +5618,7 @@ def phase_mesh_hier(tmp: str) -> dict:
     aggregates (saved to ``tmp`` by phase 6)."""
     t0 = time.perf_counter()
     ranks = world_run(_mesh_hier_rank, 4, (tmp,), limit=MESH_LIMIT)
-    log(f"  world of 4 ranks (2 x 2, gloo, sharing the card): "
+    log(f"  world of 4 ranks (2 x 2, {world_words()}): "
         f"{time.perf_counter() - t0:.1f} s")
     _mesh_check("21b", ranks)
     total = {}
@@ -5451,6 +5650,12 @@ def phase_mesh_hier(tmp: str) -> dict:
         log(f"  21b rank {r['rank']}: peak {r['peak'] / 1e9:.2f} GB")
         if r["rank"] == 0:
             log(r["cases"]["hier+nnm+cwtm"]["record"])
+    for name in ranks[0]["cases"]:
+        row = ranks[0]["cases"][name]
+        figure(f"21b {name}", row["ms"], colls=row["collectives"],
+               peaks=[r["peak"] for r in ranks],
+               counts=sum_counts([r["cases"][name]["counts"]
+                                  for r in ranks]))
     return total
 
 
@@ -5460,6 +5665,7 @@ def phase_mesh_train(dev, tmp: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.tree import tree_leaves
+    one_ms = {}
     for name, layers, n, f, spec_kw, steps, _ in MESH_TRAIN:
         cfg = get_config("smollm-360m").replace(num_layers=layers)
         final, hist, ms, peak, counts = _train_run(
@@ -5472,11 +5678,12 @@ def phase_mesh_train(dev, tmp: str) -> dict:
             f"{[round(v, 5) for v in hist['loss']]}, peak {peak / 1e9:.2f} GB")
         torch.save({"params": [p.detach() for p in tree_leaves(final)],
                     "loss": hist["loss"]}, f"{tmp}/{name}.pt")
+        one_ms[name] = statistics.median(ms)
         del final
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = world_run(_mesh_train_rank, 2, (tmp,), limit=MESH_LIMIT)
-    log(f"  world of 2 ranks (gloo, sharing the card): {time.perf_counter() - t0:.1f} s")
+    log(f"  world of 2 ranks ({world_words()}): {time.perf_counter() - t0:.1f} s")
     _mesh_check("21c", ranks)
     total = {}
     for name, *_ in MESH_TRAIN:
@@ -5510,6 +5717,11 @@ def phase_mesh_train(dev, tmp: str) -> dict:
         log(f"  21c {name}: both ranks' parameters equal bit for bit "
             f"(sha256 {rows[0]['digest'][:16]})")
         log(rows[0]["record"])
+        steps = next(run[5] for run in MESH_TRAIN if run[0] == name)
+        figure(f"21c {name}", statistics.median(rows[0]["ms"]),
+               one_ms[name], rows[0]["collectives"], steps,
+               [row["peak"] for row in rows],
+               sum_counts([row["counts"] for row in rows]))
     return total
 
 
@@ -5521,11 +5733,12 @@ def phase_mesh(dev, hier_ref_dir: str) -> dict:
     # other world's ranks alive; 21a, 21c and phase 22's (1, 2) cases then
     # share the world of 2.
     t0 = time.perf_counter()
-    log(f"-- 21b. cuda_hier on a 2 x 2 mesh: n={HIER_N} s={HIER_S} "
-        f"f={HIER_N // 32} D={HIER_D} fp32, tiles ({HIER_N // 2}, "
-        f"{HIER_D // 2})")
-    add_counts(total, phase_mesh_hier(hier_ref_dir))
-    log(f"  21b: {time.perf_counter() - t0:.1f} s")
+    if 4 in WORLDS:
+        log(f"-- 21b. cuda_hier on a 2 x 2 mesh: n={HIER_N} s={HIER_S} "
+            f"f={HIER_N // 32} D={HIER_D} fp32, tiles ({HIER_N // 2}, "
+            f"{HIER_D // 2})")
+        add_counts(total, phase_mesh_hier(hier_ref_dir))
+        log(f"  21b: {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         log(f"-- 21a. cuda_sharded at the dense shape: n={N_MAIN} f={F_MAIN} "
@@ -5539,9 +5752,10 @@ def phase_mesh(dev, hier_ref_dir: str) -> dict:
         add_counts(total, phase_mesh_train(dev, tmp))
         log(f"  21c: {time.perf_counter() - t0:.1f} s")
     idle = [k for k in ("gram", "mixtrim", "combine", "gram_batched",
-                        "mixtrim_dyn", "combine_lanes", "bucketgram",
-                        "bucketmeans", "gram_tiled", "mixtrim_select",
-                        "mixtrim_select_nomix") if not total.get(k)]
+                        "mixtrim_dyn", "combine_lanes", "bucketgram")
+            + (("bucketmeans", "gram_tiled", "mixtrim_select",
+                "mixtrim_select_nomix") if 4 in WORLDS else ())
+            if not total.get(k)]
     if idle:
         raise AssertionError(f"phase 21: kernels never launched on the mesh "
                              f"paths: {idle}")
@@ -5600,10 +5814,12 @@ MODEL_RUNS = (
 MODEL_PAR = 2
 MODEL_SEQ, MODEL_BATCH = 128, 4          # each worker's batch: 4 x 128 tokens
 MODEL_PEAK_GB = 72.0                      # each world's summed peak
+#: Rows a worker where a run takes another batch than MODEL_BATCH.
+RUN_ROWS = {"25b-ii": 1}
 MODEL_RESUME_STEPS = 2                    # 22d: killed after step 1's snapshot
 
 
-def model_batches(cfg, n: int, steps: int) -> list:
+def model_batches(cfg, n: int, steps: int, rows: int = MODEL_BATCH) -> list:
     """Dirichlet-heterogeneous synthetic LM batches over the config's
     vocabulary; a VLM's seeded normal patches before its MODEL_SEQ text
     tokens, an encoder-decoder's seeded normal frames (zeros would give
@@ -5614,7 +5830,7 @@ def model_batches(cfg, n: int, steps: int) -> list:
                                   seq_len=MODEL_SEQ + 1, seed=0)
     ds = build_heterogeneous({"seq": seqs, "y": topics}, "y", n, alpha=0.1,
                              seed=0)
-    it = worker_batches(ds, MODEL_BATCH, seed=0)
+    it = worker_batches(ds, rows, seed=0)
     out = []
     for t in range(steps):
         b = next(it)
@@ -5622,11 +5838,11 @@ def model_batches(cfg, n: int, steps: int) -> list:
         rng = np.random.default_rng(22 + t)
         if cfg.family == "vlm":
             batch["patches"] = rng.standard_normal(
-                (n, MODEL_BATCH, cfg.num_patches, cfg.vision_dim),
+                (n, rows, cfg.num_patches, cfg.vision_dim),
                 dtype=np.float32)
         if cfg.family == "encdec":
             batch["frames"] = rng.standard_normal(
-                (n, MODEL_BATCH, cfg.encoder_seq, cfg.d_model),
+                (n, rows, cfg.encoder_seq, cfg.d_model),
                 dtype=np.float32)
         out.append(batch)
     return out
@@ -5712,13 +5928,15 @@ def _sketch_gram(internals: dict, tcfg, params, signs: list, mesh, dev):
 
 
 def _model_train(run, dev, mesh=None, gram: bool = False,
-                 digest: bool = False) -> dict:
+                 digest: bool = False, after_step=None) -> dict:
     """One MODEL_RUNS entry's steps; returns its metrics, ms per step,
     peak, launches, the steps' collectives, the final parameters (this
     rank's shards; with ``digest`` each one's SHA-1 too, for bitwise
     equality across ranks) and, with ``gram``, each step's stack Gram (and sketch Gram
     under ``sketch_dim``, its signs drawn on the whole padded leaves from
-    a generator seeded by the step, the same on every rank)."""
+    a generator seeded by the step, the same on every rank).
+    ``after_step(state, tcfg)`` runs after each step, outside its
+    collectives; its results are returned as ``"after"``."""
     import torch
     from repro_torch.core.robust import draw_signs
     from repro_torch.kernels import dispatch as kdispatch
@@ -5731,8 +5949,9 @@ def _model_train(run, dev, mesh=None, gram: bool = False,
     from repro_torch.tree import tree_leaves
     name, arch, layers, dtype, n, f, spec_kw, steps, *_ = run
     model, cfg, axes, tcfg = _model_setup(run, dev, mesh)
-    batches = model_batches(cfg, n, steps)
+    batches = model_batches(cfg, n, steps, RUN_ROWS.get(name, MODEL_BATCH))
     sketch = spec_kw.get("sketch_dim")
+    after = []
     with common.mesh_axes_scope(axes):
         widths = [math.prod(d.shape)
                   for d in tree_leaves(model.param_descs())]
@@ -5782,6 +6001,8 @@ def _model_train(run, dev, mesh=None, gram: bool = False,
                 hist["sketch_grams"].append(_sketch_gram(
                     internals, tcfg, state["params"], signs, mesh, dev))
             del internals, batch
+            if after_step is not None:
+                after.append(after_step(state, tcfg))
         counts = _counts(("gram", "mixtrim", "bucketgram", "bucketmeans",
                           "combine"))
         colls = collective_summary(stepped)
@@ -5802,7 +6023,7 @@ def _model_train(run, dev, mesh=None, gram: bool = False,
                           for d in kdispatch.fallback_log()
                           if d.primitive != "sketch_gram"],
             "record": kdispatch.last_dispatch().describe(),
-            "seconds": time.perf_counter() - t_run}
+            "seconds": time.perf_counter() - t_run, "after": after}
 
 
 def _model_compare(run, got: dict, ref_path: str, mesh) -> dict:
@@ -6370,6 +6591,8 @@ def _check_decode(run, one: dict, ranks: list, card: str) -> None:
         f"{colls}; peaks {[round(p, 2) for p in peaks]} GB (sum "
         f"{sum(peaks):.2f}); no kernel launch, no fallback; "
         f"{max(r['seconds'] for r in ranks):.1f} s; card {card}")
+    figure(f"{label} {len(ranks)} ranks", ranks[0]["ms"], one["ms"], per,
+           peaks=[r["peak"] for r in ranks])
 
 
 def _check_seq(run, one: dict, ranks: list, card: str) -> None:
@@ -6402,6 +6625,8 @@ def _check_seq(run, one: dict, ranks: list, card: str) -> None:
         f"0); no kernel launch; collectives a step a rank: "
         f"{colls}; peaks {[round(r['peak'] / 1e9, 2) for r in ranks]} GB; "
         f"card {card}")
+    figure(f"{label} {len(ranks)} ranks", ranks[0]["ms"], one["ms"], per,
+           peaks=[r["peak"] for r in ranks])
 
 
 def _model_rank(rank: int, world: int, tmp: str) -> dict:
@@ -6472,11 +6697,11 @@ def phase_model_mesh(dev, card: str) -> dict:
         one = {run[0]: _decode_one(run, dev, tmp) for run in MODEL_DECODE_RUNS}
         seq_one = {run[0]: _seq_one(run, dev, tmp) for run in MODEL_SEQ_RUNS}
         log(f"  22k-22r on one device: {time.perf_counter() - t0:.1f} s")
-        for world in (2, 4):
+        for world in WORLDS:
             t0 = time.perf_counter()
             ranks = world_run(_model_rank, world, (tmp,), limit=MESH_LIMIT)
             log(f"  world of {world} ranks, mesh (data {world // MODEL_PAR}, "
-                f"model {MODEL_PAR}) over gloo on one card ({card}): "
+                f"model {MODEL_PAR}) ({world_words()}; {card}): "
                 f"{time.perf_counter() - t0:.1f} s")
             _check_model_world(world, ranks)
             for run in MODEL_DECODE_RUNS:
@@ -6588,8 +6813,13 @@ def _check_model_world(world: int, ranks: list, runs=MODEL_RUNS) -> None:
             log(f"  22d rank {r['rank']}: killed after step 1's snapshot, "
                 f"resumed from {res['resumed_from']}, shards and momentum "
                 f"equal bit for bit ({res['seconds']:.1f} s)")
+    steps = {run[0]: run[7] for run in runs}
     for name in ranks[0]["runs"]:
         rows = [r["runs"][name] for r in ranks]
+        figure(f"{name} {world} ranks", statistics.median(rows[0]["ms"]),
+               statistics.median(rows[0]["ref_ms"]), rows[0]["collectives"],
+               steps[name], [row["peak"] for row in rows],
+               sum_counts([row["counts"] for row in rows]))
         peak = sum(row["peak"] for row in rows)
         log(f"  {name} on {world} ranks: peaks "
             f"{[round(row['peak'] / 1e9, 2) for row in rows]} GB, the "
@@ -6736,8 +6966,9 @@ def phase_seq_fsdp(dev, card: str) -> dict:
                 torch.cuda.empty_cache()
             t0 = time.perf_counter()
             ranks = world_run(_seq_fsdp_rank, 4, (tmp,), limit=MESH_LIMIT)
-            log(f"  world of 4 ranks, mesh (data 2, model {MODEL_PAR}) over "
-                f"gloo on one card ({card}): {time.perf_counter() - t0:.1f} s")
+            log(f"  world of 4 ranks, mesh (data 2, model {MODEL_PAR}) "
+                f"({world_words()}; {card}): "
+                f"{time.perf_counter() - t0:.1f} s")
             _check_model_world(4, ranks, SEQ_FSDP_RUNS)
             for r in ranks:
                 add_counts(total, r["counts"])
@@ -7016,6 +7247,371 @@ def phase_multi_pod(dev, card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the NCCL world.  (a) On the plain run's one card: a spawned NCCL
+# world of one rank, every Transport collective on the card's dtypes, a
+# host operand refused, the resume check through an nccl mesh.  (b)
+# ``--nccl``, one card a rank: phases 21-23 over nccl, then what only four
+# cards hold (NCCL_RUNS).
+# ---------------------------------------------------------------------------
+
+NCCL_ONE_LIMIT = 120            # seconds 25a's world may take in all
+_NCCL_OPS = ("all_reduce sum", "all_reduce min", "all_reduce max",
+             "all_gather", "reduce_scatter", "all_to_all")
+
+
+def _nccl_one_rank(rank: int, world: int) -> dict:
+    """25a on the one rank of an nccl world: each Transport collective on
+    fp32, bf16, int64 and float64 card tensors against its result (one
+    rank: the operand itself, in a new tensor for the gathers); each
+    refused on a host operand, naming the op and the axis; the resume
+    check (``trainer._check_same_start``) through an nccl mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.training.trainer import _check_same_start
+    dev = _rank_setup(rank)
+    mesh = tmesh.make_mesh((1,), ("world",))
+    tr = mesh.transport
+    out = {"backend": dist.get_backend(), "device": str(mesh.device),
+           "wrong": [], "refused": {}, "checked": 0}
+
+    def call(op: str, t):
+        if op.startswith("all_reduce"):
+            return tr.all_reduce(t, None, "world", op.split()[1],
+                                 record=False)
+        if op == "all_gather":
+            return tr.all_gather(t, None, "world", 1, record=False)
+        if op == "reduce_scatter":
+            return tr.reduce_scatter(t, None, "world", 1, record=False)
+        return tr.all_to_all(t, None, "world", t.shape[0], record=False)
+
+    tmesh.reset_collective_log()
+    for dtype in (torch.float32, torch.bfloat16, torch.int64, torch.float64):
+        want = (torch.arange(24, device=dev) - 7).to(dtype).reshape(6, 4)
+        for op in _NCCL_OPS:
+            got = call(op, want.clone())
+            if not (got.device == dev and got.dtype == dtype
+                    and torch.equal(got, want)):
+                out["wrong"].append(f"{op} {dtype}")
+            out["checked"] += 1
+    for op in _NCCL_OPS:
+        try:
+            call(op, torch.ones((2, 2)))
+            out["refused"][op] = None
+        except ValueError as e:
+            out["refused"][op] = str(e)
+    _check_same_start(mesh, 3, "one rank")
+    out["log"] = collective_summary()
+    return out
+
+
+def phase_nccl_one() -> dict:
+    """25a: the nccl world of one rank on card 0 (``spawn_world``)."""
+    from repro_torch.launch.mesh import spawn_world
+    t0 = time.perf_counter()
+    (r,) = spawn_world(_nccl_one_rank, 1, backend="nccl",
+                       limit=NCCL_ONE_LIMIT)
+    seconds = time.perf_counter() - t0
+    if r["backend"] != "nccl" or r["device"] != "cuda:0":
+        raise AssertionError(f"25a: the rank ran over {r['backend']} on "
+                             f"{r['device']}")
+    if r["wrong"]:
+        raise AssertionError(f"25a: collectives off their results: "
+                             f"{r['wrong']}")
+    for op, msg in r["refused"].items():
+        if msg is None or op.split()[0] not in msg or "'world'" not in msg:
+            raise AssertionError(f"25a: {op} on a host operand: {msg!r}")
+    log(f"  25a: a spawned nccl world of one rank on {r['device']} "
+        f"({seconds:.1f} s with its start): {r['checked']} collectives "
+        f"({', '.join(_NCCL_OPS)} on fp32, bf16, int64 and float64 card "
+        f"tensors) each equal to its result; each refuses a host operand "
+        f"({r['refused']['all_gather']!r}); the resume check ran through "
+        f"the nccl mesh; collectives {r['log']}")
+    return {"seconds": seconds, "checked": r["checked"]}
+
+
+#: 25b: what only four cards hold, at published widths with depth cut
+#: (MODEL_RUNS fields, then the MeshAxes changes): D-SHB, ALIE, NNM + CWTM
+#: on (data 2, model 2), the workers dealt over "data", fp32 with the
+#: stack's Gram.  (i) minitron-8b, n = 8, f = 2, at the largest depth the
+#: dry run reckons under CARD_GB a rank (2 of 32: 65.72 GB; 3 layers
+#: 71.31); (ii) arctic-480b's production layout, 1 of 35 layers, seq_par
+#: + expert FSDP over "data", n = 4, f = 1, one row a worker (RUN_ROWS):
+#: run only where the dry run puts it under CARD_GB.
+NCCL_RUNS = (
+    ("25b-i", "minitron-8b", 2, "fp32", 8, 2,
+     dict(pre="nnm", rule="cwtm"), 2, ((2, 2),), True, False, {}),
+    ("25b-ii", "arctic-480b", 1, "fp32", 4, 1,
+     dict(pre="nnm", rule="cwtm"), 1, ((2, 2),), True, True,
+     dict(seq_par=True, expert_fsdp=True)),
+)
+CARD_GB = 70.0                  # a rank's reckoned peak a case may reach
+NCCL_CASE_LIMIT = 900           # seconds a 25b case's world may take
+
+
+def fits_card(peak_bytes: float) -> bool:
+    """Whether 25b runs a case the dry run reckons at ``peak_bytes`` a
+    rank (under CARD_GB of the card's 80)."""
+    return peak_bytes / 1e9 < CARD_GB
+
+
+def dry_nccl() -> dict:
+    """25b's dry runs (``--25b-dry``, a CPU process): each NCCL_RUNS entry
+    as rank 0 of a fake (2, 2) world, one step of its rows x MODEL_SEQ
+    tokens a worker; {run: {"collectives", "flops", "peak_bytes"}}."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    out = {}
+    for run in NCCL_RUNS:
+        cfg, tcfg, layout, keys = _dry_trainer(run)
+        n = run[4]
+        rec = dryrun.dryrun_one(
+            run[1], "train_4k", cfg=cfg, verbose=False, mesh_shape=(2, 2),
+            shape=InputShape(run[0], MODEL_SEQ,
+                             n * RUN_ROWS.get(run[0], MODEL_BATCH), "train"),
+            n_workers=n, trainer=tcfg, fsdp_keys=keys,
+            seq_par=layout.get("seq_par", False),
+            expert_fsdp=layout.get("expert_fsdp", False))
+        out[run[0]] = {"collectives": rec["collectives"],
+                       "flops": rec["cost"]["flops"],
+                       "peak_bytes": rec["memory"]["peak_bytes"]}
+    return out
+
+
+def _replicated_equal(state, tcfg, mesh) -> bool:
+    """Every leaf that no mesh axis splits holds the same bits on every
+    rank: an all-gather of their bits over the whole mesh."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    reps = [p for p, spec in zip(tree_leaves(state["params"]),
+                                 tcfg.param_specs) if not any(spec)]
+    bits = torch.cat([p.detach().reshape(-1).view(torch.uint8)
+                      for p in reps])
+    rows = mesh.all_gather(bits[None].contiguous(), tuple(mesh.axis_names),
+                           record=False)
+    return bool((rows == rows[0]).all())
+
+
+def _nccl_case_rank(rank: int, world: int, name: str) -> dict:
+    """25b on one rank: the NCCL_RUNS entry ``name`` on a (2, 2) mesh over
+    gloo, then over nccl, in the same processes on the same cards (the
+    world is nccl's; the gloo mesh's groups are gloo's), from the same
+    seeds; after every step the replicated leaves' bits all-gathered; the
+    gloo run's parameters, losses and Grams kept on the host and held to
+    the nccl run's, each leaf within 1e-5 of its largest magnitude."""
+    import torch
+    import torch.distributed as dist
+    dev = _rank_setup(rank)
+    from repro_torch.launch import mesh as tmesh
+    run = next(r for r in NCCL_RUNS if r[0] == name)
+    out = {"rank": rank}
+    kept = None
+    # The second run takes the world's own backend: nccl under --nccl.
+    for key, backend in (("gloo", "gloo"), ("nccl", dist.get_backend())):
+        mesh = tmesh.make_mesh((2, MODEL_PAR), ("data", "model"), backend)
+        got = _model_train(
+            run, dev, mesh, gram=True,
+            after_step=lambda state, tcfg: _replicated_equal(state, tcfg,
+                                                             mesh))
+        row = {k: got[k] for k in ("counts", "collectives", "peak",
+                                   "fallbacks", "after", "width",
+                                   "params_total", "seconds")}
+        row["loss"], row["ms"] = got["hist"]["loss"], got["hist"]["ms"]
+        out[key] = row
+        if kept is None:
+            kept = {"params": [p.cpu() for p in got["params"]],
+                    "loss": got["hist"]["loss"], "grams": got["hist"]["grams"]}
+            del got
+            torch.cuda.empty_cache()
+            continue
+        worst = (0.0, 0, 0.0)           # err / tol, leaf, err
+        for i, (a, b) in enumerate(zip(got["params"], kept["params"])):
+            b = b.to(dev)
+            err = float((a.float() - b.float()).abs().max())
+            tol = 1e-5 * float(b.float().abs().max())
+            ratio = err / tol if tol else (0.0 if err == 0 else math.inf)
+            if ratio >= worst[0]:
+                worst = (ratio, i, err)
+            del b
+        out["worst_leaf"] = worst
+        out["loss_err"] = max(abs(a - b) / abs(b) for a, b in
+                              zip(got["hist"]["loss"], kept["loss"]))
+        out["gram_err"] = max(float((a - b).abs().max() / b.abs().max())
+                              for a, b in zip(got["hist"]["grams"],
+                                              kept["grams"]))
+        del got
+    return out
+
+
+def phase_nccl_cards(dry) -> dict:
+    """25b: each NCCL_RUNS entry the dry run (``dry``, the ``--25b-dry``
+    process) puts under CARD_GB a rank, over gloo and over nccl on four
+    cards, held as its rank function says, its collectives a step equal
+    to the dry run's; returns the launches summed over the ranks."""
+    stdout, stderr = dry.communicate(timeout=MESH_LIMIT)
+    if dry.returncode != 0:
+        raise AssertionError(f"25b: the dry run failed:\n{stderr[-3000:]}")
+    reck = json.loads(stdout.strip().splitlines()[-1])
+    total: dict = {}
+    for run in NCCL_RUNS:
+        name, arch, layers, _, n, f, _, steps = run[:8]
+        peak = reck[name]["peak_bytes"] / 1e9
+        what = (f"{arch} {layers} of {get_full_layers(arch)} layers, fp32, "
+                f"n={n} f={f}, {RUN_ROWS.get(name, MODEL_BATCH)} x "
+                f"{MODEL_SEQ} tokens a worker, {run[11] or 'dense'} on "
+                f"(data 2, model {MODEL_PAR})")
+        if not fits_card(reck[name]["peak_bytes"]):
+            log(f"-- {name}: {what}: not run: the dry run reckons rank 0's "
+                f"peak at {peak:.2f} GB >= {CARD_GB} GB (fake (2, 2) world, "
+                f"rank 0); collectives a step "
+                f"{reck[name]['collectives']}")
+            continue
+        log(f"-- {name}: {what}; the dry run reckons rank 0's peak at "
+            f"{peak:.2f} GB")
+        t0 = time.perf_counter()
+        ranks = world_run(_nccl_case_rank, 4, (name,), limit=NCCL_CASE_LIMIT)
+        log(f"  {name}: gloo then nccl in one world of 4 ranks, one card a "
+            f"rank: {time.perf_counter() - t0:.1f} s")
+        for r in ranks:
+            for backend in ("gloo", "nccl"):
+                row = r[backend]
+                if row["fallbacks"]:
+                    raise AssertionError(f"{name} {backend} rank "
+                                         f"{r['rank']}: fallbacks "
+                                         f"{row['fallbacks']}")
+                if row["counts"]["gram"] != steps or \
+                        row["counts"]["mixtrim"] != steps:
+                    raise AssertionError(f"{name} {backend} rank "
+                                         f"{r['rank']}: launches "
+                                         f"{row['counts']}, expected {steps} "
+                                         f"K1 and {steps} K2")
+                if not all(row["after"]):
+                    raise AssertionError(f"{name} {backend} rank "
+                                         f"{r['rank']}: the replicated "
+                                         f"leaves differ across ranks after "
+                                         f"a step: {row['after']}")
+                if not all(math.isfinite(v) for v in row["loss"]):
+                    raise AssertionError(f"{name} {backend}: loss "
+                                         f"{row['loss']}")
+            ratio, leaf, err = r["worst_leaf"]
+            if ratio > 1.0 or r["loss_err"] > 1e-5 or r["gram_err"] > 1e-5:
+                raise AssertionError(
+                    f"{name} rank {r['rank']}: nccl against gloo: leaf "
+                    f"{leaf} off by {err:.3e} ({ratio:.3f} of 1e-5 x its "
+                    f"max), loss {r['loss_err']:.3e}, Gram "
+                    f"{r['gram_err']:.3e} (each 1e-5)")
+            want = reck[name]["collectives"]
+            got = _per_step(r["nccl"]["collectives"], steps)
+            if r["rank"] == 0 and got != want:
+                raise AssertionError(f"{name}: measured collectives a step "
+                                     f"{got} != the dry run's {want}")
+            log(f"  {name} rank {r['rank']}: nccl against gloo: worst leaf "
+                f"{leaf} max |diff| {err:.3e} ({ratio:.3f} of its 1e-5 x "
+                f"max), loss {r['loss_err']:.3e}, Gram {r['gram_err']:.3e} "
+                f"(relative; each 1e-5); replicated leaves equal bit for "
+                f"bit after every step on both; loss {r['nccl']['loss']}; "
+                f"ms/step gloo {[round(v, 1) for v in r['gloo']['ms']]} / "
+                f"nccl {[round(v, 1) for v in r['nccl']['ms']]}; peak "
+                f"{r['nccl']['peak'] / 1e9:.2f} GB (dry run {peak:.2f}); "
+                f"launches {r['nccl']['counts']}")
+        log(f"  {name}: rank 0's collectives a step equal the dry run's "
+            f"{reck[name]['collectives']}; D = "
+            f"{ranks[0]['nccl']['params_total']:,} a rank (robust "
+            f"{ranks[0]['nccl']['width']:,})")
+        for backend in ("gloo", "nccl"):
+            rows = [r[backend] for r in ranks]
+            add_counts(total, sum_counts([row["counts"] for row in rows]))
+            figure(f"{name} {backend} 4 cards",
+                   statistics.median(rows[0]["ms"]), None,
+                   rows[0]["collectives"], steps,
+                   [row["peak"] for row in rows],
+                   sum_counts([row["counts"] for row in rows]))
+    return total
+
+
+def card_links(cards: int) -> str:
+    """How the host's cards are joined: ``nvidia-smi topo -m``, or where
+    the machine refuses the matrix, nvidia-smi's NVLink peer-to-peer
+    matrix and card 0's links; then the CUDA runtime's peer access."""
+    import torch
+    out = []
+    for args in (("topo", "-m"), ("topo", "-p2p", "n"),
+                 ("nvlink", "--status", "-i", "0")):
+        r = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                           text=True)
+        text = (r.stdout or r.stderr).rstrip()
+        out.append(f"nvidia-smi {' '.join(args)}:\n{text}")
+        if args == ("topo", "-m") and r.returncode == 0 \
+                and "Failed" not in text:
+            break
+    peer = [[int(i == j or torch.cuda.can_device_access_peer(i, j))
+             for j in range(cards)] for i in range(cards)]
+    out.append(f"peer access between the cards (CUDA runtime): {peer}")
+    return "\n".join(out)
+
+
+def nccl_main(dev, rate: float, card: str, head) -> int:
+    """``--nccl``: phases 21-23 in nccl worlds, one card a rank, then 25b;
+    every card of the host (four expected; with two or three, the 2-rank
+    cases alone)."""
+    global WORLD_BACKEND, WORLDS
+    import tempfile
+    import torch
+    cards = torch.cuda.device_count()
+    log("cards: " + "; ".join(subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()))
+    log(card_links(cards))
+    if cards < 2:
+        raise AssertionError(f"--nccl needs two cards or more, one a rank; "
+                             f"this host has {cards}")
+    WORLD_BACKEND = "nccl"
+    WORLDS = (2, 4) if cards >= 4 else (2,)
+    log(f"worlds of {WORLDS} ranks over nccl, one card a rank; phase 24's "
+        f"world of {POD_WORLD} ranks needs {POD_WORLD} cards and stays "
+        f"gloo-only (the plain run, ranks sharing one card)")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    dry = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                            "--25b-dry"], stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True, env=env)
+    totals: dict = {}
+    try:
+        with tempfile.TemporaryDirectory() as refs:
+            if 4 in WORLDS:
+                head("6 (its aggregates alone, for 21b)")
+                phase_hier_aggregate(dev, rate, refs, refs_only=True)
+            head(f"21. the aggregation backends over nccl; {card}")
+            totals["21"] = phase_mesh(dev, refs)
+        head(f"22. the model-parallel mesh over nccl; {card}")
+        totals["22"] = phase_model_mesh(dev, card)
+        if 4 in WORLDS:
+            head(f"23. sequence parallelism and expert FSDP over nccl; "
+                 f"{card}")
+            totals["23"] = phase_seq_fsdp(dev, card)
+            head("25b. what only four cards hold: gloo against nccl, one "
+                 "card a rank")
+            totals["25b"] = phase_nccl_cards(dry)
+        else:
+            log(f"23 and 25b need four cards; this host has {cards}")
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        close_worlds()
+    head("summary")
+    log(json.dumps({"nccl_launches": {
+        k: {c: v for c, v in t.items() if c in _FIGURE_KERNELS}
+        for k, t in totals.items()}}))
+    log(json.dumps({"mesh_figures": FIGURES}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards}}))
+    return 0
+
+
 def main() -> int:
     import torch
     if sys.argv[1:] == ["--23d-dry"]:
@@ -7025,6 +7621,10 @@ def main() -> int:
     if sys.argv[1:] == ["--24d-dry"]:
         # 24d's CPU helper: phase 24 starts it; needs no card.
         print(json.dumps(dry_multi_pod()))
+        return 0
+    if sys.argv[1:] == ["--25b-dry"]:
+        # 25b's CPU helper: --nccl starts it; needs no card.
+        print(json.dumps(dry_nccl()))
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7084,6 +7684,13 @@ def main() -> int:
         log(json.dumps({"multi_pod_launches": phase_multi_pod(dev, card)}))
         log(card)
         return 0
+    if sys.argv[1:] == ["--25"]:
+        head("25a alone: the nccl world of one rank")
+        phase_nccl_one()
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--nccl"]:
+        return nccl_main(dev, rate, card, head)
 
     head("3. kernels against their plain versions")
     rows = phase_kernels(dev, rate)
@@ -7256,7 +7863,12 @@ def main() -> int:
     log(f"  phase 24: {time.perf_counter() - t24:.1f} s")
     close_worlds()
 
-    head("25. summary")
+    t25 = time.perf_counter()
+    head("25. the nccl world of one rank on card 0")
+    phase_nccl_one()
+    log(f"  phase 25: {time.perf_counter() - t25:.1f} s")
+
+    head("26. summary")
     table = [("K1", "gram", "ported, checked"),
              ("K1 n = 640", "gram_tiled", "ported, redesigned, checked"),
              ("K2", "mixtrim", "ported, redesigned, checked"),
@@ -7350,6 +7962,7 @@ def main() -> int:
                         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                         "library_ms": r["library_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"mesh_figures": FIGURES}))
     log(json.dumps({"fed_launches": counts_fed}))
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -83,12 +83,27 @@ def sum_rows(y: torch.Tensor, dim: int) -> torch.Tensor:
     return y.squeeze(dim)
 
 
+#: Columns the plain version mixes and sorts at a time.  Every column is
+#: its own, so the result is the whole's; the mix's and the sort's
+#: temporaries (several copies of the stack at once) stay this wide, as
+#: the kernel keeps none (``launch.dryrun`` reckons a rank's peak with
+#: the plain version).
+PLAIN_COLS = 1 << 22
+
+
 def mixtrim_ref(x: torch.Tensor, m: Optional[torch.Tensor], f: int,
                 mode: str = "trim") -> torch.Tensor:
     """Plain version: Y = M @ X in fp32 (X alone when ``m`` is None), then
     the mean of sorted ranks [f, n-f) (the mean of Y when f == 0; sums by
-    :func:`sum_rows`) or the median; (D,) fp32."""
-    n = x.shape[0]
+    :func:`sum_rows`) or the median; (D,) fp32, :data:`PLAIN_COLS`
+    columns at a time."""
+    n, d = x.shape
+    if d > PLAIN_COLS:
+        out = torch.empty((d,), dtype=torch.float32, device=x.device)
+        for c in range(0, d, PLAIN_COLS):
+            out[c:c + PLAIN_COLS] = mixtrim_ref(x[:, c:c + PLAIN_COLS], m, f,
+                                                mode)
+        return out
     y = x.float() if m is None else m.float() @ x.float()
     if mode == "trim":
         if f == 0:

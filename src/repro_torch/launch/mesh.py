@@ -14,10 +14,13 @@ count" in the reference's rules means the world size here.
 Transport (:class:`Transport`): the world's backend, never picked
 silently — ``nccl`` for ranks that each own a card, ``gloo`` for CPU
 ranks and for ranks that share one card (NCCL refuses two ranks on one
-GPU).  Both take every collective of the mesh on the tensors as they
-are: gloo stages CUDA tensors through the host itself
+GPU).  Gloo takes every collective of the mesh on the tensors as they
+are and stages CUDA tensors through the host itself
 (``scripts/torch_gloo_probe.py`` checks which collectives gloo runs on
-CUDA tensors and times them against explicit host copies).
+CUDA tensors and times them against explicit host copies); NCCL moves
+card tensors only, so under it a host operand is refused with the op and
+the axis named.  A rank's device (:func:`rank_device`, ``Mesh.device``):
+its own card under nccl, the shared ``cuda:0`` or the CPU under gloo.
 
 The model-parallel layers (``repro_torch.models.common``: column- and
 row-parallel products, the split vocabulary, the sequence blocks of
@@ -39,17 +42,22 @@ a synchronize of a CUDA operand) in :func:`collective_log`, emitted as a
 decision on the open dispatch record with its transport.
 
 :func:`spawn_world` runs a function on ``world`` processes (the tests'
-gloo CPU worlds and ``chip_smoke.py`` phase 21): every process group has
-an explicit ``timeout``, the parent joins under an overall time limit and
-kills the children on a timeout or on the first rank that raises, so a
-failing rank fails the run instead of hanging the others in a collective.
+gloo CPU worlds, ``chip_smoke.py``'s worlds over gloo or, one card a
+rank, over nccl; each rank joins through :func:`join_world`): every
+process group has an explicit ``timeout``, the parent joins under an
+overall time limit and kills the children on a timeout or on the first
+rank that raises or dies (NCCL's watchdog ends a rank whose collective
+hangs), so a failing rank fails the run instead of hanging the others in
+a collective.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import datetime
+import inspect
 import math
+import os
 import queue as queue_lib
 import socket
 import time
@@ -97,6 +105,16 @@ class Transport:
             raise ValueError(f"unknown process-group backend {backend!r}")
         self.backend = backend
 
+    def _operand(self, t: torch.Tensor, op: str, axis: str) -> None:
+        """Refuse a host operand under nccl, before any collective starts:
+        NCCL moves card tensors only, and a silent copy to the card would
+        hide the caller's wrong device."""
+        if self.backend == "nccl" and t.device.type != "cuda":
+            raise ValueError(
+                f"{op} over axis {axis!r}: the nccl transport moves card "
+                f"tensors only, and this operand lies on {t.device}; make "
+                f"it on the mesh's device (Mesh.device)")
+
     @contextlib.contextmanager
     def _timed(self, op: str, axis: str, t: torch.Tensor,
                record: bool = True):
@@ -127,6 +145,7 @@ class Transport:
         none)."""
         red = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
                "max": dist.ReduceOp.MAX}[op]
+        self._operand(t, "all_reduce", axis)
         with self._timed("all_reduce", axis, t, record):
             dist.all_reduce(t, op=red, group=group)
         return t
@@ -135,6 +154,7 @@ class Transport:
                    record: bool = True) -> torch.Tensor:
         """(size * t.shape[0], ...) concatenation of every rank's equally
         shaped ``t`` along dim 0, in the group's rank order."""
+        self._operand(t, "all_gather", axis)
         with self._timed("all_gather", axis, t, record):
             src = t.contiguous()
             out = src.new_empty((size * src.shape[0],) + tuple(src.shape[1:]))
@@ -145,6 +165,7 @@ class Transport:
                        record: bool = True) -> torch.Tensor:
         """Sum of every rank's equally shaped ``t``, cut along dim 0 into
         ``size`` equal blocks: the group's j-th rank gets block j."""
+        self._operand(t, "reduce_scatter", axis)
         with self._timed("reduce_scatter", axis, t, record):
             src = t.contiguous()
             out = src.new_empty((src.shape[0] // size,)
@@ -157,6 +178,7 @@ class Transport:
         """All-to-all of equal chunks along dim 0: chunk j of ``t`` goes to
         the group's j-th rank; returns the (out_rows, ...) chunks received,
         in rank order."""
+        self._operand(t, "all_to_all", axis)
         with self._timed("all_to_all", axis, t, record):
             src = t.contiguous()
             out = src.new_empty((out_rows,) + tuple(src.shape[1:]))
@@ -185,6 +207,7 @@ class Mesh:
     rank: int           # the world's ranks lie on the grid row-major
     groups: dict
     transport: Transport
+    device: torch.device    # this rank's (world_device)
 
     def size(self, axis) -> int:
         """Ranks along ``axis`` (a name, or a tuple of names: the product)."""
@@ -305,10 +328,13 @@ class Mesh:
 _MESHES: dict = {}
 
 
-def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
+              backend: Optional[str] = None) -> Mesh:
     """The mesh ``shape`` x ``axis_names`` over the initialized world
     (a collective: every rank calls it alike; cached per layout).  Its
-    size must equal the world size."""
+    size must equal the world size.  ``backend``: its groups' transport,
+    the world's by default (a gloo mesh in an nccl world runs the same
+    program over the other transport on the same cards)."""
     shape, names = tuple(int(k) for k in shape), tuple(axis_names)
     if len(shape) != len(names) or len(set(names)) != len(names):
         raise ValueError(f"mesh shape {shape} and axes {names} do not match")
@@ -319,12 +345,14 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     if math.prod(shape) != world:
         raise ValueError(f"mesh {dict(zip(names, shape))} holds "
                          f"{math.prod(shape)} ranks; the world has {world}")
-    key = (world, names, shape)
+    backend = backend or dist.get_backend()
+    key = (world, names, shape, backend)
     if key in _MESHES:
         return _MESHES[key]
     rank = dist.get_rank()
     groups = {}
     timeout = datetime.timedelta(seconds=GROUP_TIMEOUT)
+    own = None if backend == dist.get_backend() else backend
     strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
     for a, name in enumerate(names):
         # Every line of ranks along axis a, in a fixed order on every rank.
@@ -335,10 +363,12 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
                 continue
             lines.append([base + j * strides[a] for j in range(shape[a])])
         for line in lines:
-            g = dist.new_group(line, timeout=timeout) if shape[a] > 1 else None
+            g = dist.new_group(line, timeout=timeout, backend=own) \
+                if shape[a] > 1 else None
             if rank in line:
                 groups[name] = g
-    mesh = Mesh(names, shape, rank, groups, Transport(dist.get_backend()))
+    mesh = Mesh(names, shape, rank, groups, Transport(backend),
+                world_device(rank, backend))
     _MESHES[key] = mesh
     return mesh
 
@@ -538,6 +568,73 @@ def fake_world(shape: Sequence[int], axis_names: Sequence[str],
         dist.destroy_process_group()
 
 
+def rank_device(rank: int, backend: str) -> torch.device:
+    """The device rank ``rank`` of a one-host world over ``backend``
+    computes on: under ``"nccl"`` its own card, ``cuda:rank`` (NCCL
+    refuses two ranks on one card); under ``"gloo"`` ``cuda:0`` where the
+    host has a card (the ranks share it) and the CPU where it has none
+    (the tests' CPU worlds); the CPU under ``"fake"`` (the dry run's
+    world)."""
+    if backend not in ("nccl", "gloo", "fake"):
+        raise ValueError(f"unknown process-group backend {backend!r}")
+    if backend == "nccl":
+        return torch.device("cuda", rank)
+    if backend == "gloo" and torch.cuda.is_available():
+        return torch.device("cuda", 0)
+    return torch.device("cpu")
+
+
+#: The device :func:`join_world` gave this process's rank (None: the
+#: process joined its world otherwise).
+_RANK_DEVICE: Optional[torch.device] = None
+
+
+def world_device(rank: int, backend: str) -> torch.device:
+    """This process's device as rank ``rank`` of its world: the one
+    :func:`join_world` bound, else the current card under nccl (the
+    caller made it current before joining), else :func:`rank_device`."""
+    if _RANK_DEVICE is not None:
+        return _RANK_DEVICE
+    if backend == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return rank_device(rank, backend)
+
+
+def check_cards(world: int, backend: str) -> None:
+    """Raise, before anything is spawned, where a one-host world of
+    ``world`` nccl ranks does not find a card for each."""
+    rank_device(0, backend)             # an unknown backend raises here
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if backend == "nccl" and world > cards:
+        raise ValueError(
+            f"a world of {world} nccl ranks needs {world} cards, one a "
+            f"rank; this host has {cards} (NCCL refuses two ranks on one "
+            f"card: share one over backend='gloo')")
+
+
+def join_world(rank: int, world: int, port: int, timeout: float,
+               backend: str = "gloo") -> torch.device:
+    """Join this process to a one-host world as rank ``rank`` over
+    ``tcp://127.0.0.1:port``; returns its device (:func:`rank_device`).
+    An nccl rank makes its card current before anything touches CUDA,
+    binds the world to it (``device_id``) and keeps NCCL's bootstrap on
+    the loopback interface (the world lies on one host)."""
+    global _RANK_DEVICE
+    dev = rank_device(rank, backend)
+    kw = {}
+    if backend == "nccl":
+        torch.cuda.set_device(dev)
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        if "device_id" in inspect.signature(
+                dist.init_process_group).parameters:
+            kw["device_id"] = dev
+    dist.init_process_group(
+        backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=timeout), **kw)
+    _RANK_DEVICE = dev
+    return dev
+
+
 def free_port() -> int:
     """A free TCP port on localhost."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
@@ -546,11 +643,9 @@ def free_port() -> int:
 
 
 def _rank_main(rank: int, world: int, port: int, timeout: float,
-               fn: Callable, args: tuple, results) -> None:
+               fn: Callable, args: tuple, results, backend: str) -> None:
     try:
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-            rank=rank, timeout=datetime.timedelta(seconds=timeout))
+        join_world(rank, world, port, timeout, backend)
         out = fn(rank, world, *args)
         results.put(("ok", rank, out))
     except BaseException:                        # noqa: BLE001 - reported
@@ -565,24 +660,29 @@ def _rank_main(rank: int, world: int, port: int, timeout: float,
 
 def spawn_world(fn: Callable, world: int, args: tuple = (), *,
                 limit: float = 600.0,
-                group_timeout: float = GROUP_TIMEOUT) -> list:
+                group_timeout: float = GROUP_TIMEOUT,
+                backend: str = "gloo") -> list:
     """Run ``fn(rank, world, *args)`` on ``world`` spawned processes joined
-    in one gloo world over ``tcp://127.0.0.1`` (ranks that each own a card
-    call ``init_process_group("nccl", ...)`` and :func:`make_mesh`
-    themselves); returns the ranks' results in rank order.
+    in one world over ``tcp://127.0.0.1`` (:func:`join_world`); returns
+    the ranks' results in rank order.  ``backend``: ``"gloo"`` (CPU ranks,
+    or ranks sharing ``cuda:0``) or ``"nccl"`` (rank r on ``cuda:r``,
+    made current before anything touches CUDA); a world of more nccl
+    ranks than cards raises before anything is spawned, and nothing falls
+    back to gloo.
 
     ``fn`` and its results must pickle (a module-level function).  The
     world's groups wait ``group_timeout`` seconds for a peer; the parent
-    waits at most ``limit`` seconds in all.  The first rank that raises,
-    or the limit, kills every child and raises ``RuntimeError`` with the
-    rank's traceback (``TimeoutError`` for the limit)."""
+    waits at most ``limit`` seconds in all.  The first rank that raises
+    or dies, or the limit, kills every child and raises ``RuntimeError``
+    with the rank's traceback (``TimeoutError`` for the limit)."""
     import torch.multiprocessing as mp
+    check_cards(world, backend)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(r, world, port, group_timeout, fn,
-                               tuple(args), results))
+                               tuple(args), results, backend))
              for r in range(world)]
     for p in procs:
         p.start()

@@ -818,8 +818,9 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
 
 
 def _check_same_start(mesh, start: int, path: str) -> None:
-    """Every rank of a sharded run resumes from the same step."""
-    t = torch.tensor([start, -start], dtype=torch.float64)
+    """Every rank of a sharded run resumes from the same step (the check's
+    tensor on the mesh's device: NCCL moves card tensors only)."""
+    t = torch.tensor([start, -start], dtype=torch.float64, device=mesh.device)
     mesh.all_reduce_world(t, "max")
     if int(t[0]) != -int(t[1]):
         from repro_torch.resilience.faults import CheckpointError
